@@ -1,0 +1,331 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port's main path once on one CUDA card.
+
+    python3 chip_smoke.py            # the full check, as documented below
+    python3 chip_smoke.py --rays 1024 --hw 64 --frames 2   # a quicker run
+
+Phases, one line each (any failed check raises; the exit code is then
+non-zero and no result line is printed):
+
+1. device name, CUDA version and ``nvidia-smi`` name/power limit; build
+   the CUDA kernels from ``idealnerf_tpu_torch/kernels/csrc`` (timed).
+2. each kernel against its plain PyTorch version on the card, at the
+   main path's shapes: ``--rays`` rays of a 450x450 frame through the
+   paper head model (D=8, W=256, 64 coarse + 128 importance samples).
+   rgb / acc / weights / last_weight are held to 3e-2 absolute, and rgb
+   also to a correlation above 0.999 (the bf16 rounding points can round
+   one ulp apart); the coarse kernel's fine depths are held to 2e-6 against the
+   plain inverse CDF + sort run on the kernel's own coarse weights. A
+   softplus-density field, a ragged ray count (1001) and the 16+16
+   sampling (a power-of-two union) are checked too.
+3. the slice: ``idealnerf_tpu_torch.cli.render_val.main`` renders
+   ``--frames`` synthetic frames of ``--hw``² on the card. The frames must
+   be finite (a non-finite pixel makes the PSNR non-finite) and each
+   kernel's launch counter must equal the number of frames.
+4. a small frame rendered on the card and by the plain versions on the
+   host must agree (3e-2, correlation > 0.999).
+5. torch.profiler over one 450x450 frame: wall and device-busy time and
+   the kernels by device time (full table in chiprun_out/).
+
+Then the kernel summary as one JSON line, the ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``. With no CUDA device it exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ATOL = 3e-2
+MIN_CORR = 0.999
+Z_ATOL = 2e-6
+KERNELS = {
+    "fused_render_coarse_hier": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
+        "replaces": "idealnerf_tpu/kernels/fused_render.py:499",
+    },
+    "fused_render_rays": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
+        "replaces": "idealnerf_tpu/kernels/fused_render.py:393",
+    },
+}
+
+
+def _smi() -> str:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        return out.stdout.strip().splitlines()[0] if out.stdout.strip() else (
+            "nvidia-smi: " + out.stderr.strip())
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable: {e}"
+
+
+def _agree(name, got, want, atol=ATOL, corr=False):
+    """Max abs error within ``atol``; with ``corr`` also the correlation
+    (rgb only: acc and last_weight are ~1 on every ray, where a
+    correlation measures nothing)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = float((got - want).abs().max())
+    c = float("nan")
+    if corr:
+        c = float(torch.corrcoef(torch.stack([got.reshape(-1),
+                                              want.reshape(-1)]))[0, 1])
+    ok = err <= atol and (not corr or c > MIN_CORR)
+    print(f"  {name}: max_abs_err {err:.3e} (tol {atol:g})"
+          + (f", corr {c:.6f} (> {MIN_CORR})" if corr else ""))
+    if not ok:
+        raise AssertionError(f"{name} disagrees with the plain version")
+    return err
+
+
+def _time_ms(fn, iters: int) -> float:
+    import torch
+
+    fn()                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def _profile_frame(render_frame) -> dict:
+    """torch.profiler over one warm 450x450 frame: wall time, device busy
+    time and the kernels by device time (table in chiprun_out/)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    render_frame()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render_frame()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device-side events only: an aten op's own row repeats its kernels' time
+    on_dev = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
+    top = sorted(on_dev, key=dev_us, reverse=True)[:6]
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "profile_frame.txt"), "w") as fh:
+        fh.write(events.table(sort_by="self_cuda_time_total", row_limit=30))
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+           "top": [[e.key, dev_us(e) / 1e3, e.count] for e in top]}
+    print(f"profile 450x450 frame: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle share {out['idle_share']:.3f}; by device "
+          "time: " + "; ".join(f"{k[:40]} {ms:.2f} ms x{n}"
+                               for k, ms, n in out["top"]))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rays", type=int, default=8192)
+    ap.add_argument("--hw", type=int, default=450)
+    ap.add_argument("--frames", type=int, default=3)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        from idealnerf_tpu_torch.cli import render_val
+        from idealnerf_tpu_torch.config import ExperimentConfig
+        from idealnerf_tpu_torch.core.rays import get_rays
+        from idealnerf_tpu_torch.core.sampling import stratified_sample
+        from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+        from idealnerf_tpu_torch.eval.renderer import make_frame_renderer
+        from idealnerf_tpu_torch.kernels import build as kbuild
+        from idealnerf_tpu_torch.kernels import fused_render as fr
+        from idealnerf_tpu_torch.models.face_nerf import (
+            FaceNeRF, fold_conditioning,
+        )
+        from idealnerf_tpu_torch.train.state import init_params
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here: {e}",
+              file=sys.stderr)
+        return 1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    kind = torch.cuda.get_device_name(0)
+    smi = _smi()
+    report = {"device": kind, "nvidia_smi": smi, "cuda": torch.version.cuda,
+              "torch": torch.__version__}
+
+    # ---- phase 1: device + build
+    t0 = time.perf_counter()
+    info = kbuild.build()
+    kbuild.load_library()
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in info["log"].splitlines()
+             if "registers" in ln or "spill" in ln
+             or "Function properties" in ln]
+    report.update(build_seconds=build_s, ptxas=ptxas)
+    print(f"phase 1 device: {kind} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | nvidia-smi: {smi} | kernels built in "
+          f"{build_s:.1f} s (nvcc {info['seconds']:.1f} s)")
+    for ln in ptxas:
+        print(f"  ptxas: {ln}")
+
+    # ---- phase 2: kernels vs plain versions at main-path shapes
+    cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32)
+    ncfg = cfg.face_nerf_config()
+    gen = torch.Generator().manual_seed(0)
+    nets = {k: FaceNeRF(ncfg, gen).to(dev) for k in ("coarse", "fine")}
+    aud = torch.randn(64, generator=gen).to(dev)
+    expr = torch.randn(76, generator=gen).to(dev)
+    latent = torch.ones(32, device=dev)
+    ds = make_synthetic_dataset(n_frames=1, H=450, W=450, dim_expr=76)
+    ro, rd = get_rays(450, 450, ds.focal, torch.from_numpy(ds.poses[0]).to(dev),
+                      ds.cx, ds.cy)
+    pick = torch.linspace(0, 450 * 450 - 1, args.rays).long().to(dev)
+    ro = ro.reshape(-1, 3)[pick].contiguous()
+    rd = rd.reshape(-1, 3)[pick].contiguous()
+    bc = (torch.from_numpy(ds.bc_img).to(dev).float() / 255.0).reshape(-1, 3)
+    bc = bc[pick].contiguous()
+    near, far, n_s, n_i = ds.near, ds.far, cfg.N_samples, cfg.N_importance
+    errs = {k: 0.0 for k in KERNELS}
+
+    def fold(net, c):
+        return fold_conditioning(net, c, aud, expr, latent)
+
+    def check(tag, c, rays, s_c=n_s, s_i=n_i):
+        o, d, b = ro[:rays], rd[:rays], bc[:rays]
+        fc, ff = fold(nets["coarse"], c), fold(nets["fine"], c)
+        ck, zk = fr.fused_render_coarse_hier(nets["coarse"], fc, c, o, d, b,
+                                             near, far, s_c, s_i)
+        cp, _ = fr.fused_render_coarse_hier_reference(
+            nets["coarse"], fc, c, o, d, b, near, far, s_c, s_i)
+        print(f" fused_render_coarse_hier [{tag}, R={rays}, {s_c}+{s_i}]")
+        e = [_agree(k, ck[k], cp[k], corr=k == "rgb_map") for k in
+             ("rgb_map", "acc_map", "weights", "last_weight")]
+        zc = stratified_sample(near, far, s_c, rays, device=dev)
+        e.append(_agree("z_all vs plain merge of the kernel's weights", zk,
+                        fr.importance_depths(zc, ck["weights"], s_i),
+                        atol=Z_ATOL))
+        errs["fused_render_coarse_hier"] = max(
+            errs["fused_render_coarse_hier"], *e)
+        fk = fr.fused_render_rays(nets["fine"], ff, c, o, d, zk, b)
+        fp = fr.fused_render_rays_reference(nets["fine"], ff, c, o, d, zk, b)
+        print(f" fused_render_rays [{tag}, R={rays}, S={s_c + s_i}]")
+        e = [_agree(k, fk[k], fp[k], corr=k == "rgb_map") for k in
+             ("rgb_map", "acc_map", "weights", "last_weight")]
+        errs["fused_render_rays"] = max(errs["fused_render_rays"], *e)
+        torch.cuda.synchronize()
+        return fc, ff, zk
+
+    print("phase 2 kernels vs plain versions")
+    fc, ff, zk = check("relu", ncfg, args.rays)
+    sp = dataclasses.replace(ncfg, density_activation="softplus")
+    check("softplus, ragged", sp, min(1001, args.rays))
+    # a power-of-two union, where the TPU kernel's merge had no filler
+    check("relu, ragged", ncfg, min(1001, args.rays), 16, 16)
+
+    o_, d_, b_ = ro, rd, bc
+    times = {
+        "fused_render_coarse_hier": (
+            _time_ms(lambda: fr.fused_render_coarse_hier(
+                nets["coarse"], fc, ncfg, o_, d_, b_, near, far, n_s, n_i), 5),
+            _time_ms(lambda: fr.fused_render_coarse_hier_reference(
+                nets["coarse"], fc, ncfg, o_, d_, b_, near, far, n_s, n_i), 2)),
+        "fused_render_rays": (
+            _time_ms(lambda: fr.fused_render_rays(
+                nets["fine"], ff, ncfg, o_, d_, zk, b_), 5),
+            _time_ms(lambda: fr.fused_render_rays_reference(
+                nets["fine"], ff, ncfg, o_, d_, zk, b_), 2)),
+    }
+    for k, (ms, pms) in times.items():
+        print(f"  {k} at R={args.rays}: kernel {ms:.3f} ms, plain {pms:.3f} ms"
+              " (wrapper calls, CUDA events)")
+
+    # ---- phase 3: the slice through its CLI entry point
+    fr.reset_launch_counts()
+    res = render_val.main([
+        "--synthetic", str(args.frames), "--synthetic_hw", str(args.hw),
+        "--dim_aud", "64", "--dim_expr", "76", "--dim_latent", "32",
+        "--device", "cuda", "--save_path", "output/chip_smoke"])
+    counts = dict(fr.launch_counts)
+    print(f"phase 3 render_val: {args.frames} frames of {args.hw}x{args.hw}, "
+          f"D=8 W=256 {n_s}+{n_i}: {res['frame_ms']:.1f} ms/frame after the "
+          f"first, PSNR {res['psnr']:.3f}, SSIM {res['ssim']:.4f}, "
+          f"launches {counts}")
+    if not (math.isfinite(res["psnr"]) and math.isfinite(res["ssim"])):
+        raise AssertionError("render_val produced non-finite frames")
+    for k, n in counts.items():
+        if n != args.frames:
+            raise AssertionError(f"{k} launched {n} times for "
+                                 f"{args.frames} frames")
+    report.update(render_val=res, launches=counts)
+
+    # ---- phase 4: a small frame, card vs plain versions on the host
+    st = init_params(cfg, 1, torch.Generator().manual_seed(1))
+    sds = make_synthetic_dataset(n_frames=1, H=24, W=24, dim_expr=76)
+    render = make_frame_renderer(ncfg, 24, 24, sds.focal, sds.near, sds.far,
+                                 cfg.render_config(), cx=sds.cx, cy=sds.cy)
+    frames = {}
+    for d in ("cpu", "cuda"):
+        p = st.params.to(d)
+        a = torch.randn(64, generator=torch.Generator().manual_seed(2)).to(d)
+        e = torch.from_numpy(sds.exprs[0]).to(d)
+        frames[d] = render(p, torch.from_numpy(sds.poses[0]).to(d),
+                           torch.from_numpy(sds.bc_img).to(d).float() / 255,
+                           aud=a, expr=e, latent=torch.ones(32, device=d))
+    print("phase 4 24x24 frame, card vs plain versions on the host")
+    report["frame_24_err"] = _agree("frame", frames["cuda"].cpu(),
+                                    frames["cpu"], corr=True)
+
+    # ---- where a frame's time goes (torch.profiler)
+    render = make_frame_renderer(ncfg, 450, 450, ds.focal, near, far,
+                                 cfg.render_config(), cx=ds.cx, cy=ds.cy)
+    report["profile"] = _profile_frame(
+        lambda: render(nets, torch.from_numpy(ds.poses[0]).to(dev),
+                       torch.from_numpy(ds.bc_img).to(dev).float() / 255,
+                       aud=aud, expr=expr, latent=latent))
+
+    kernels = [{"name": k, "route": "cuda", **KERNELS[k],
+                "launches": counts[k], "max_abs_err": errs[k],
+                "ms": times[k][0], "plain_ms": times[k][1]} for k in KERNELS]
+    report["kernels"] = kernels
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
+        json.dump(report, fh, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,60 @@
+"""Shared CLI plumbing (counterpart of cli/common.py): every
+ExperimentConfig field becomes a flag, plus dataset resolution."""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional
+
+from idealnerf_tpu_torch.config import ExperimentConfig
+from idealnerf_tpu_torch.data.dataset import FrameDataset
+from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+
+
+def build_parser(description: str) -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("--config", type=str, default=None,
+                        help="reference-style key=value config file")
+    parser.add_argument("--synthetic", type=int, default=0, metavar="N",
+                        help="use an N-frame procedural synthetic dataset")
+    parser.add_argument("--synthetic_hw", type=int, default=64)
+    parser.add_argument("--epochs", type=int, default=None,
+                        help="override N_iters epochs")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--ckpt_dir", type=str, default=None)
+    for f in dataclasses.fields(ExperimentConfig):
+        if f.type in ("int", int):
+            parser.add_argument(f"--{f.name}", type=int, default=None)
+        elif f.type in ("float", float):
+            parser.add_argument(f"--{f.name}", type=float, default=None)
+        elif f.type in ("bool", bool):
+            parser.add_argument(f"--{f.name}", type=int, default=None)
+        else:
+            parser.add_argument(f"--{f.name}", type=str, default=None)
+    return parser
+
+
+def resolve_config(args) -> ExperimentConfig:
+    overrides = {}
+    for f in dataclasses.fields(ExperimentConfig):
+        v = getattr(args, f.name, None)
+        if v is not None:
+            overrides[f.name] = bool(v) if f.type in ("bool", bool) else v
+    if args.config:
+        return ExperimentConfig.from_file(args.config, **overrides)
+    return ExperimentConfig(**overrides)
+
+
+def resolve_dataset(args, cfg: ExperimentConfig, mode: str = "train",
+                    gt_dirs: Optional[str] = None) -> FrameDataset:
+    if args.synthetic:
+        return make_synthetic_dataset(
+            n_frames=args.synthetic, H=args.synthetic_hw, W=args.synthetic_hw,
+            dim_expr=max(cfg.dim_expr, 1),
+            with_torso=(gt_dirs == "com_imgs"),
+        )
+    raise NotImplementedError(
+        "real subject directories need load_transforms_dataset, which is "
+        "not ported yet (ROADMAP.md A-queue: load_transforms_dataset); "
+        "use --synthetic N")

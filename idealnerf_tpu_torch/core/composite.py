@@ -1,0 +1,102 @@
+"""Alpha compositing of raw field outputs along rays (counterpart of
+core/composite.py).
+
+The last sample's colour is the background-plate pixel ``bc_rgb``, so the
+field models only the foreground over a static plate; ``rgb_fg`` and
+``last_weight`` feed the layered head-over-torso composite.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+
+class RenderOutputs(NamedTuple):
+    rgb: torch.Tensor          # (R, 3) composited colour (plate included)
+    disp: torch.Tensor         # (R,) inverse depth
+    acc: torch.Tensor          # (R,) accumulated alpha
+    weights: torch.Tensor      # (R, S) per-sample compositing weights
+    depth: torch.Tensor        # (R,) expected depth
+    rgb_fg: torch.Tensor       # (R, 3) composite excluding the plate sample
+    last_weight: torch.Tensor  # (R,) weight of the plate (last) sample
+    depth_std: torch.Tensor    # (R,) foreground-weighted depth std
+    depth_band: torch.Tensor   # (R, 2) central 96% foreground-mass interval
+
+
+def raw2outputs(
+    raw: torch.Tensor,
+    z_vals: torch.Tensor,
+    rays_d: torch.Tensor,
+    bc_rgb: torch.Tensor,
+    raw_noise_std: float = 0.0,
+    white_bkgd: bool = False,
+    generator: Optional[torch.Generator] = None,
+    density_activation: str = "relu",
+) -> RenderOutputs:
+    """raw (R, S, 4) [rgb logits, sigma] -> composited ray values."""
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
+    dists = dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
+
+    rgb = torch.sigmoid(raw[..., :3])
+    rgb = torch.cat([rgb[..., :-1, :], bc_rgb[..., None, :]], dim=-2)
+
+    sigma = raw[..., 3]
+    if raw_noise_std > 0.0 and generator is not None:
+        sigma = sigma + torch.randn(sigma.shape, generator=generator,
+                                    dtype=sigma.dtype,
+                                    device=sigma.device) * raw_noise_std
+
+    if density_activation not in ("relu", "softplus"):
+        raise ValueError(
+            f"density_activation must be 'relu' or 'softplus', got "
+            f"{density_activation!r}"
+        )
+    act = torch.relu if density_activation == "relu" else F.softplus
+    alpha = 1.0 - torch.exp(-(act(sigma) + 1e-6) * dists)
+    trans = torch.cumprod(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10],
+                  dim=-1),
+        dim=-1,
+    )[..., :-1]
+    weights = alpha * trans
+
+    rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
+    rgb_fg = torch.sum(weights[..., :-1, None] * rgb[..., :-1, :], dim=-2)
+
+    depth = torch.sum(weights * z_vals, dim=-1)
+    acc = torch.sum(weights, dim=-1)
+    disp = 1.0 / torch.clamp(depth / acc, min=1e-10)
+    w_fg = weights[..., :-1]
+    z_fg = z_vals[..., :-1]
+    fg_mass = torch.clamp(torch.sum(w_fg, dim=-1), min=1e-10)
+    depth_mean = torch.sum(w_fg * z_fg, dim=-1) / fg_mass
+    depth_std = torch.sqrt(torch.clamp(
+        torch.sum(w_fg * (z_fg - depth_mean[..., None]) ** 2, dim=-1)
+        / fg_mass, min=0.0))
+    cw = torch.cumsum(w_fg, dim=-1)
+    total = torch.clamp(cw[..., -1:], min=1e-10)
+    big = torch.full_like(z_fg, 1e10)
+    lo = torch.amin(torch.where(cw >= 0.02 * total, z_fg, big), dim=-1)
+    hi = torch.amin(torch.where(cw >= 0.98 * total, z_fg, big), dim=-1)
+    depth_band = torch.stack(
+        [torch.minimum(lo, z_fg[..., -1]), torch.minimum(hi, z_fg[..., -1])],
+        dim=-1)
+
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - acc[..., None])
+
+    return RenderOutputs(
+        rgb=rgb_map,
+        disp=disp,
+        acc=acc,
+        weights=weights,
+        depth=depth,
+        rgb_fg=rgb_fg,
+        last_weight=weights[..., -1],
+        depth_std=depth_std,
+        depth_band=depth_band,
+    )

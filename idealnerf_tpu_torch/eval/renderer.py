@@ -1,0 +1,51 @@
+"""Full-frame rendering (counterpart of eval/renderer.py, the fused "ray"
+path of ``make_frame_renderer``).
+
+A frame is one whole-frame call pair of the fused kernels — the coarse
+pass with the importance depth placement, then the fine pass — with no
+host-side tiling.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from idealnerf_tpu_torch.core.rays import get_rays
+from idealnerf_tpu_torch.core.render import RenderConfig
+from idealnerf_tpu_torch.kernels.fused_render import render_rays_fused
+from idealnerf_tpu_torch.models.face_nerf import fold_conditioning
+
+
+def make_frame_renderer(
+    nerf_cfg,
+    H: int, W: int, focal, near, far, cfg: RenderConfig,
+    cx=None, cy=None,
+) -> Callable:
+    """-> ``render(params, pose, bc_img, aud, expr, latent) -> (H, W, 3)``.
+
+    ``params`` holds "coarse" and optionally "fine" FaceNeRF modules; the
+    per-frame conditioning is folded into their biases, and the rays are
+    built on the device of ``pose``. Deterministic eval semantics."""
+    cfg = cfg.eval_mode()
+
+    @torch.no_grad()
+    def render(params, pose, bc_img, aud=None, expr=None, latent=None):
+        fine = params["fine"] if "fine" in params else None
+        folded_c = fold_conditioning(params["coarse"], nerf_cfg, aud, expr,
+                                     latent)
+        folded_f = (fold_conditioning(fine, nerf_cfg, aud, expr, latent)
+                    if fine is not None else None)
+        rays_o, rays_d = get_rays(H, W, focal, pose, cx, cy)
+        out = render_rays_fused(
+            params["coarse"], folded_c, nerf_cfg,
+            rays_o.reshape(-1, 3).contiguous(),
+            rays_d.reshape(-1, 3).contiguous(),
+            bc_img.reshape(-1, 3).float().contiguous(),
+            near, far, cfg.n_samples, cfg.n_importance,
+            fine_params=fine, fine_folded=folded_f, lindisp=cfg.lindisp,
+        )
+        return out["rgb_map"].reshape(H, W, 3)
+
+    return render

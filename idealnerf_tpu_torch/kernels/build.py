@@ -1,0 +1,102 @@
+"""Build and load the CUDA kernels of this package.
+
+The sources under ``csrc/`` are compiled at first use with ``nvcc`` into
+a shared library with a plain C interface, loaded through ctypes. The
+library lands in ``kernels/build/`` (not committed), named by a hash of
+the sources and flags, so a changed source rebuilds and an unchanged one
+loads the cached file. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+
+# No --use_fast_math: the PE phases reach ~300 rad and __sinf is wrong there.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfused_render_{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile the library if it is missing; -> {path, seconds, log}.
+
+    ``log`` holds nvcc's output, including ptxas' register, shared-memory
+    and spill report for each kernel."""
+    so = library_path()
+    log_path = so.with_suffix(".log")
+    if so.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return {"path": str(so), "seconds": 0.0, "log": log}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, so)
+    return {"path": str(so), "seconds": seconds, "log": log}
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with its argtypes."""
+    lib = ctypes.CDLL(build()["path"])
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    slots = ctypes.POINTER(ctypes.c_ulonglong)
+    lib.fr_num_slots.argtypes = []
+    lib.fr_num_slots.restype = i32
+    lib.fr_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.fr_smem_bytes.restype = ctypes.c_ulonglong
+    lib.fr_error_string.argtypes = [i32]
+    lib.fr_error_string.restype = ctypes.c_char_p
+    lib.fr_render_rays.argtypes = [
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, slots, i32, i32, i32, i32,
+        i32, vp]
+    lib.fr_render_rays.restype = i32
+    lib.fr_coarse_hier.argtypes = [
+        vp, vp, vp, f32, f32, vp, vp, vp, i32, i32, i32, i32, slots, i32,
+        i32, i32, i32, i32, vp]
+    lib.fr_coarse_hier.restype = i32
+    return lib

@@ -1,0 +1,452 @@
+// Shared device body of the fused per-ray render kernels (fused_render.cu):
+// PE from ray packets -> 8x256 trunk with the skip layer -> view branch with
+// a per-ray dir-PE term -> packed heads -> alpha compositing, plus the
+// inverse-CDF depth placement that the coarse kernel appends.
+//
+// Numeric contract (the same as the JAX package's Pallas kernels,
+// idealnerf_tpu/kernels/fused_render.py:_render_body):
+//   - bf16 weights; bf16 activations after every relu; f32 accumulation;
+//   - PE phases and sin/cos in f32 (phases reach 512*x ~ 300 rad: this file
+//     must never be built with --use_fast_math, whose __sinf is wrong far
+//     outside [-pi, pi]);
+//   - f32 compositing with the transmittance as a running product of
+//     max(1 - alpha, 1e-10); the last sample takes the plate colour.
+//
+// Block design: one block of 8 warps owns `rb` whole rays, so compositing
+// and the depth placement never leave the block and each ray's outputs are
+// written by exactly one block. The block walks its rb*S points in tiles of
+// P=64 rows. A tile's activations live in shared memory (two 64x256 bf16
+// buffers, ping-pong); layer weights are read per layer from global memory
+// (about 1 MB in bf16: L2-resident, larger than the 227 KB of shared
+// memory). Products are nvcuda::wmma bf16 16x16x16 fragments with f32
+// accumulators; warp w owns output column tiles {w, w+8} across all four
+// 16-row tiles, so each weight fragment is fetched once per point tile.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace fr {
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+constexpr int W = 256;          // trunk width
+constexpr int WV = W / 2;       // view-branch width
+constexpr int PE_PAD = 64;      // 63 xyz-PE lanes + 1 zero lane
+constexpr int PED_PAD = 32;     // 27 dir-PE lanes + 5 zero lanes
+constexpr int HEADS = 16;       // packed head columns: rgb 0..2, sigma 3
+constexpr int P = 64;           // points per tile
+constexpr int RT = P / 16;      // 16-row tiles per point tile
+constexpr int NWARP = 8;
+constexpr int NTHREADS = 32 * NWARP;
+constexpr int MAXD = 16;        // trunk layers supported
+constexpr int MAXV = 8;         // view layers supported
+
+// Operand table, mirrored by kernels/fused_render.py (_SLOT_*).
+enum Slot {
+  SLOT_W = 0,                   // layer i: (PE_PAD, W) for i=0, else (W, W) h-part
+  SLOT_B = SLOT_W + MAXD,       // layer i folded bias (W,) f32
+  SLOT_WSKIP = SLOT_B + MAXD,   // layer i pe-part (PE_PAD, W) if a skip layer, else null
+  SLOT_WV = SLOT_WSKIP + MAXD,  // view layer v: (W, WV) h-part for v=0, else (WV, WV)
+  SLOT_BV = SLOT_WV + MAXV,     // view layer v bias (WV,) f32 (v=0: folded)
+  SLOT_WV0D = SLOT_BV + MAXV,   // (PED_PAD, WV) dir-PE part of view layer 0
+  SLOT_WALPHA,                  // (W, HEADS), sigma in column 3
+  SLOT_WRGB,                    // (WV, HEADS), rgb in columns 0..2
+  SLOT_BHEADS,                  // (HEADS,) f32
+  NSLOTS
+};
+
+struct Net {
+  const void* slot[NSLOTS];
+  int depth, n_views, multires, multires_views, softplus;
+};
+
+__device__ __forceinline__ const bf16* wmat(const Net& n, int s) {
+  return static_cast<const bf16*>(n.slot[s]);
+}
+__device__ __forceinline__ const float* fvec(const Net& n, int s) {
+  return static_cast<const float*>(n.slot[s]);
+}
+
+struct Smem {
+  bf16* pe;      // (P, PE_PAD) tile PE
+  bf16* h0;      // (P, W) activations, ping
+  bf16* h1;      // (P, W) activations, pong
+  float* scr;    // (NWARP, 256) per-warp epilogue scratch
+  float* ro;     // (rb, 3)
+  float* rd;     // (rb, 3) unnormalised directions
+  float* dn;     // (rb,) |rays_d|
+  float* ped;    // (rb, PED_PAD) bf16-rounded dir-PE, as f32
+  float* pv;     // (rb, WV) per-ray view-layer-0 term ped @ wv0d + bv0
+  float* z;      // (rb, S) depths
+  float* raw;    // (rb, S, 4) [rgb logits, sigma]
+  float* w;      // (rb, S) compositing weights
+  float* cdf;    // (rb, S-1) coarse kernel only
+  float* uni;    // (rb, S+n_imp) coarse kernel only: unsorted union
+};
+
+// Byte layout of the dynamic shared memory; the host calls it with a null
+// base to size the launch. Every region starts 128-byte aligned.
+__host__ __device__ inline size_t smem_layout(char* base, int rb, int S,
+                                              int n_cdf, int n_union,
+                                              Smem* sm) {
+  const size_t sz[14] = {
+      sizeof(bf16) * P * PE_PAD, sizeof(bf16) * P * W, sizeof(bf16) * P * W,
+      sizeof(float) * NWARP * 256,
+      sizeof(float) * rb * 3, sizeof(float) * rb * 3, sizeof(float) * rb,
+      sizeof(float) * rb * PED_PAD, sizeof(float) * rb * WV,
+      sizeof(float) * rb * S, sizeof(float) * rb * S * 4,
+      sizeof(float) * rb * S, sizeof(float) * rb * n_cdf,
+      sizeof(float) * rb * n_union};
+  size_t off[14];
+  size_t total = 0;
+  for (int i = 0; i < 14; ++i) {
+    off[i] = total;
+    total += (sz[i] + 127) & ~static_cast<size_t>(127);
+  }
+  if (sm != nullptr) {
+    sm->pe = reinterpret_cast<bf16*>(base + off[0]);
+    sm->h0 = reinterpret_cast<bf16*>(base + off[1]);
+    sm->h1 = reinterpret_cast<bf16*>(base + off[2]);
+    sm->scr = reinterpret_cast<float*>(base + off[3]);
+    sm->ro = reinterpret_cast<float*>(base + off[4]);
+    sm->rd = reinterpret_cast<float*>(base + off[5]);
+    sm->dn = reinterpret_cast<float*>(base + off[6]);
+    sm->ped = reinterpret_cast<float*>(base + off[7]);
+    sm->pv = reinterpret_cast<float*>(base + off[8]);
+    sm->z = reinterpret_cast<float*>(base + off[9]);
+    sm->raw = reinterpret_cast<float*>(base + off[10]);
+    sm->w = reinterpret_cast<float*>(base + off[11]);
+    sm->cdf = reinterpret_cast<float*>(base + off[12]);
+    sm->uni = reinterpret_cast<float*>(base + off[13]);
+  }
+  return total;
+}
+
+// PE lane `lane` of the 3-vector x: [x, sin f0 x, cos f0 x, sin f1 x, ...],
+// frequency-major with f_k = 2^k (core/embedding.py); lanes past the last
+// frequency are the zero padding.
+__device__ __forceinline__ float pe_lane(const float* x, int lane,
+                                         int n_freq) {
+  if (lane < 3) return x[lane];
+  const int j = lane - 3;
+  const int fi = j / 6;
+  if (fi >= n_freq) return 0.f;
+  const int rem = j - fi * 6;
+  const float ph = x[rem % 3] * static_cast<float>(1 << fi);
+  return rem < 3 ? sinf(ph) : cosf(ph);
+}
+
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+
+template <int NC>
+__device__ __forceinline__ void zero(FragC (&acc)[NC][RT]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int r = 0; r < RT; ++r) wmma::fill_fragment(acc[c][r], 0.f);
+}
+
+// acc[c][r] += A[16r:16r+16, :K] @ B[:K, 16 (warp + 8c) : +16]
+// A: bf16 in shared memory (lda); B: bf16 row-major in global memory (ldb).
+template <int NC>
+__device__ __forceinline__ void mma_k(FragC (&acc)[NC][RT], const bf16* A,
+                                      int lda, int K, const bf16* B, int ldb,
+                                      int warp) {
+  for (int k = 0; k < K; k += 16) {
+    FragA a[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+      wmma::load_matrix_sync(a[r], A + r * 16 * lda + k, lda);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      FragB b;
+      wmma::load_matrix_sync(
+          b, B + static_cast<size_t>(k) * ldb + (warp + c * NWARP) * 16, ldb);
+#pragma unroll
+      for (int r = 0; r < RT; ++r) wmma::mma_sync(acc[c][r], a[r], b, acc[c][r]);
+    }
+  }
+}
+
+// out = bf16(relu(acc + bias)). With bias_ld == 0 the bias is per column;
+// otherwise it is per ray: row p of the tile reads bias[(ray of p) * bias_ld].
+template <int NC>
+__device__ __forceinline__ void store_relu(FragC (&acc)[NC][RT], bf16* out,
+                                           int ldo, const float* bias,
+                                           int bias_ld, int tile_base, int S,
+                                           int rb, float* scr, int warp,
+                                           int lane) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      wmma::store_matrix_sync(scr, acc[c][r], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int row = r * 16 + (e >> 4);
+        const int col = (warp + c * NWARP) * 16 + (e & 15);
+        const float* bp = bias;
+        if (bias_ld) bp += min((tile_base + row) / S, rb - 1) * bias_ld;
+        out[row * ldo + col] = __float2bfloat16(fmaxf(scr[e] + bp[col], 0.f));
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Per-ray set-up: origins, directions, |d|, the bf16 dir-PE of the unit
+// view direction, and its view-layer-0 contribution pv = ped @ wv0d + bv0,
+// computed once per ray instead of once per point.
+__device__ void load_rays(const Net& net, const Smem& sm, const float* rays_o,
+                          const float* rays_d, int ray0, int nr, int tid) {
+  for (int r = tid; r < nr; r += NTHREADS) {
+    const size_t g = static_cast<size_t>(ray0 + r) * 3;
+    float d[3];
+    for (int i = 0; i < 3; ++i) {
+      sm.ro[r * 3 + i] = rays_o[g + i];
+      d[i] = rays_d[g + i];
+      sm.rd[r * 3 + i] = d[i];
+    }
+    const float n = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+    sm.dn[r] = n;
+    const float vd[3] = {d[0] / n, d[1] / n, d[2] / n};
+    for (int k = 0; k < PED_PAD; ++k)
+      sm.ped[r * PED_PAD + k] = __bfloat162float(
+          __float2bfloat16(pe_lane(vd, k, net.multires_views)));
+  }
+  __syncthreads();
+  const bf16* wd = wmat(net, SLOT_WV0D);
+  const float* bv0 = fvec(net, SLOT_BV);
+  for (int e = tid; e < nr * WV; e += NTHREADS) {
+    const int r = e / WV, c = e - r * WV;
+    float a = 0.f;
+    for (int k = 0; k < PED_PAD; ++k)
+      a += sm.ped[r * PED_PAD + k] * __bfloat162float(wd[k * WV + c]);
+    sm.pv[e] = a + bv0[c];
+  }
+  __syncthreads();
+}
+
+// One tile of P points: PE -> trunk -> view branch -> heads -> sm.raw.
+__device__ void mlp_tile(const Net& net, const Smem& sm, int tile_base,
+                         int n_pts, int S, int rb, int warp, int lane,
+                         int tid) {
+  float* scr = sm.scr + warp * 256;
+
+  // PE of the tile's points x = o + z d, in f32; rows past the block's
+  // valid points are zeros and are never read back.
+  for (int e = tid; e < P * PE_PAD; e += NTHREADS) {
+    const int row = e / PE_PAD, k = e - row * PE_PAD;
+    const int p = tile_base + row;
+    float v = 0.f;
+    if (p < n_pts) {
+      const int r = p / S;
+      const float zz = sm.z[p];
+      const float x[3] = {sm.ro[r * 3] + zz * sm.rd[r * 3],
+                          sm.ro[r * 3 + 1] + zz * sm.rd[r * 3 + 1],
+                          sm.ro[r * 3 + 2] + zz * sm.rd[r * 3 + 2]};
+      v = pe_lane(x, k, net.multires);
+    }
+    sm.pe[e] = __float2bfloat16(v);
+  }
+  __syncthreads();
+
+  // trunk; the skip layer is pe @ W_pe + h @ W_h in one accumulator
+  bf16* h = sm.h0;
+  {
+    FragC acc[2][RT];
+    zero<2>(acc);
+    mma_k<2>(acc, sm.pe, PE_PAD, PE_PAD, wmat(net, SLOT_W), W, warp);
+    store_relu<2>(acc, h, W, fvec(net, SLOT_B), 0, tile_base, S, rb, scr,
+                  warp, lane);
+  }
+  __syncthreads();
+  for (int i = 1; i < net.depth; ++i) {
+    bf16* hn = (h == sm.h0) ? sm.h1 : sm.h0;
+    FragC acc[2][RT];
+    zero<2>(acc);
+    if (net.slot[SLOT_WSKIP + i] != nullptr)
+      mma_k<2>(acc, sm.pe, PE_PAD, PE_PAD, wmat(net, SLOT_WSKIP + i), W, warp);
+    mma_k<2>(acc, h, W, W, wmat(net, SLOT_W + i), W, warp);
+    store_relu<2>(acc, hn, W, fvec(net, SLOT_B + i), 0, tile_base, S, rb,
+                  scr, warp, lane);
+    __syncthreads();
+    h = hn;
+  }
+
+  // view branch, in the trunk buffer that is free now
+  bf16* hv = (h == sm.h0) ? sm.h1 : sm.h0;
+  bf16* hv2 = hv + P * WV;
+  {
+    FragC acc[1][RT];
+    zero<1>(acc);
+    mma_k<1>(acc, h, W, W, wmat(net, SLOT_WV), WV, warp);
+    store_relu<1>(acc, hv, WV, sm.pv, WV, tile_base, S, rb, scr, warp, lane);
+  }
+  __syncthreads();
+  for (int v = 1; v < net.n_views; ++v) {
+    FragC acc[1][RT];
+    zero<1>(acc);
+    mma_k<1>(acc, hv, WV, WV, wmat(net, SLOT_WV + v), WV, warp);
+    store_relu<1>(acc, hv2, WV, fvec(net, SLOT_BV + v), 0, tile_base, S, rb,
+                  scr, warp, lane);
+    __syncthreads();
+    bf16* t = hv;
+    hv = hv2;
+    hv2 = t;
+  }
+
+  // heads: raw = h @ w_alpha + hv @ w_rgb + b_heads, f32, no activation
+  if (warp < RT) {
+    FragC acc;
+    wmma::fill_fragment(acc, 0.f);
+    FragA a;
+    FragB b;
+    const bf16* wa = wmat(net, SLOT_WALPHA);
+    const bf16* wr = wmat(net, SLOT_WRGB);
+    for (int k = 0; k < W; k += 16) {
+      wmma::load_matrix_sync(a, h + warp * 16 * W + k, W);
+      wmma::load_matrix_sync(b, wa + k * HEADS, HEADS);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    for (int k = 0; k < WV; k += 16) {
+      wmma::load_matrix_sync(a, hv + warp * 16 * WV + k, WV);
+      wmma::load_matrix_sync(b, wr + k * HEADS, HEADS);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    wmma::store_matrix_sync(scr, acc, 16, wmma::mem_row_major);
+    __syncwarp();
+    const float* bh = fvec(net, SLOT_BHEADS);
+    for (int e = lane; e < 64; e += 32) {
+      const int rr = e >> 2, cc = e & 3;
+      const int p = tile_base + warp * 16 + rr;
+      if (p < n_pts) sm.raw[p * 4 + cc] = scr[rr * 16 + cc] + bh[cc];
+    }
+  }
+  __syncthreads();
+}
+
+// All tiles of the block's rays, then compositing: summary (R, 8) =
+// [rgb, acc, last_w, depth, 0, 0] and weights (R, S), one thread per ray.
+__device__ void render_block(const Net& net, const Smem& sm, const float* bc,
+                             float* summary, float* weights, int ray0, int nr,
+                             int S, int rb, int warp, int lane, int tid) {
+  const int n_pts = nr * S;
+  for (int base = 0; base < n_pts; base += P)
+    mlp_tile(net, sm, base, n_pts, S, rb, warp, lane, tid);
+
+  for (int r = tid; r < nr; r += NTHREADS) {
+    const float* z = sm.z + r * S;
+    const float* raw = sm.raw + static_cast<size_t>(r) * S * 4;
+    float* w = sm.w + r * S;
+    const float dn = sm.dn[r];
+    float T = 1.f, acc = 0.f, dep = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
+    float last = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float dist = (s + 1 < S ? z[s + 1] - z[s] : 1e10f) * dn;
+      const float sg = raw[s * 4 + 3];
+      const float act =
+          net.softplus ? (sg > 20.f ? sg : logf(1.f + expf(fminf(sg, 20.f))))
+                       : fmaxf(sg, 0.f);
+      const float alpha = 1.f - expf(-(act + 1e-6f) * dist);
+      const float wt = alpha * T;
+      T *= fmaxf(1.f - alpha, 1e-10f);
+      w[s] = wt;
+      acc += wt;
+      dep += wt * z[s];
+      if (s + 1 < S) {
+        c0 += wt * (1.f / (1.f + expf(-raw[s * 4])));
+        c1 += wt * (1.f / (1.f + expf(-raw[s * 4 + 1])));
+        c2 += wt * (1.f / (1.f + expf(-raw[s * 4 + 2])));
+      } else {
+        last = wt;
+      }
+    }
+    const size_t g = static_cast<size_t>(ray0 + r);
+    float* o = summary + g * 8;
+    o[0] = c0 + last * bc[g * 3];
+    o[1] = c1 + last * bc[g * 3 + 1];
+    o[2] = c2 + last * bc[g * 3 + 2];
+    o[3] = acc;
+    o[4] = last;
+    o[5] = dep;
+    o[6] = 0.f;
+    o[7] = 0.f;
+  }
+  __syncthreads();
+  for (int e = tid; e < n_pts; e += NTHREADS)
+    weights[static_cast<size_t>(ray0) * S + e] = sm.w[e];
+}
+
+// Fine depths from the coarse weights (sample_pdf with deterministic u over
+// the bin mids and weights[1:-1] + 1e-5, then the sorted union with the
+// coarse depths). u ascends, each sample is a short scan over the cdf, and
+// the union is sorted by rank: element e lands at #{f: v_f < v_e} plus the
+// equal values before it, which equals a stable sort of the concatenation.
+__device__ void hier_depths(const Smem& sm, float* z_all, int ray0, int nr,
+                            int S, int n_imp, int tid) {
+  const int B = S - 1;  // bin mids; cdf[0] = 0
+  for (int r = tid; r < nr; r += NTHREADS) {
+    const float* w = sm.w + r * S;
+    float* c = sm.cdf + r * B;
+    // accumulated in f64 and rounded once, as core/sampling.py:sample_pdf
+    // does: the summation order then leaves no trace in the f32 CDF
+    double sum = 0.0;
+    for (int j = 1; j < S - 1; ++j) sum += static_cast<double>(w[j] + 1e-5f);
+    double run = 0.0;
+    c[0] = 0.f;
+    for (int j = 1; j < S - 1; ++j) {
+      run += static_cast<double>(w[j] + 1e-5f) / sum;
+      c[j] = static_cast<float>(run);
+    }
+    c[B - 1] = 1.f;  // its exact value, as sample_pdf pins it
+  }
+  __syncthreads();
+
+  const int SU = S + n_imp;
+  for (int e = tid; e < nr * SU; e += NTHREADS) {
+    const int r = e / SU, j = e - r * SU;
+    const float* z = sm.z + r * S;
+    float v;
+    if (j < S) {
+      v = z[j];
+    } else {
+      const float* c = sm.cdf + r * B;
+      const float u = __fdiv_rn(static_cast<float>(j - S),
+                                static_cast<float>(n_imp - 1));
+      int lo = 0;  // last bin with cdf <= u (searchsorted right, minus one)
+      while (lo + 1 < B && c[lo + 1] <= u) ++lo;
+      const int hi = lo + 1 < B ? lo + 1 : B - 1;
+      const float bl = 0.5f * (z[lo] + z[lo + 1]);
+      const float bh = 0.5f * (z[hi] + z[hi + 1]);
+      float den = c[hi] - c[lo];
+      if (den < 1e-5f) den = 1.f;
+      // _rn intrinsics: no FMA contraction, each step rounded as the plain
+      // version rounds it
+      v = __fadd_rn(bl, __fmul_rn(__fdiv_rn(__fsub_rn(u, c[lo]), den),
+                                  __fsub_rn(bh, bl)));
+    }
+    sm.uni[e] = v;
+  }
+  __syncthreads();
+
+  for (int e = tid; e < nr * SU; e += NTHREADS) {
+    const int r = e / SU, j = e - r * SU;
+    const float* uu = sm.uni + r * SU;
+    const float v = uu[j];
+    int rank = 0;
+    for (int f = 0; f < SU; ++f) {
+      const float x = uu[f];
+      rank += (x < v) | ((x == v) & (f < j));
+    }
+    z_all[static_cast<size_t>(ray0 + r) * SU + rank] = v;
+  }
+}
+
+}  // namespace fr

@@ -1,0 +1,454 @@
+"""Per-ray fused render: PE -> conditioned MLP -> alpha composite, one
+kernel launch per pass (counterpart of idealnerf_tpu/kernels/fused_render.py).
+
+Two kernels, CUDA C++ for sm_90a in ``csrc/`` (see the note at the top of
+``csrc/fused_render.cu`` for what bounds them and how they are built):
+
+- ``fused_render_rays`` replaces the JAX package's ``fused_render_rays``
+  (``_render_kernel``/``_render_body``): rays at given depths -> per-ray
+  summaries and compositing weights. The fine pass.
+- ``fused_render_coarse_hier`` replaces ``fused_render_coarse_hier``
+  (``_coarse_hier_kernel``/``_pdf_merge``): the coarse pass on the static
+  near/far linspace plus, in the same launch, the deterministic
+  inverse-CDF importance depths merged with the coarse ones.
+
+Each wrapper launches its kernel for CUDA tensors and counts the launch
+in ``launch_counts``; for CPU tensors it runs the plain PyTorch version
+beside it (``*_reference``), which computes the same function with the
+same bf16 rounding points: weights and every post-relu activation are
+rounded to bf16 and multiplied in f32, where a product of two bf16
+values is exact, so it equals bf16 x bf16 with f32 accumulation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from idealnerf_tpu_torch.core.embedding import positional_encoding
+from idealnerf_tpu_torch.core.sampling import sample_pdf, stratified_sample
+from idealnerf_tpu_torch.kernels import build
+
+PE_PAD = 64     # 63 xyz-PE lanes + 1 zero lane
+PED_PAD = 32    # 27 dir-PE lanes + 5 zero lanes
+HEADS = 16      # packed head columns: rgb 0..2, sigma 3
+KERNEL_WIDTH = 256
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use on Hopper
+
+# operand table of the kernels (csrc/render_body.cuh, enum Slot)
+_MAXD, _MAXV = 16, 8
+_SLOT_W, _SLOT_B, _SLOT_WSKIP = 0, _MAXD, 2 * _MAXD
+_SLOT_WV = 3 * _MAXD
+_SLOT_BV = _SLOT_WV + _MAXV
+_SLOT_WV0D = _SLOT_BV + _MAXV
+_SLOT_WALPHA, _SLOT_WRGB, _SLOT_BHEADS = (_SLOT_WV0D + 1, _SLOT_WV0D + 2,
+                                         _SLOT_WV0D + 3)
+_NSLOTS = _SLOT_WV0D + 4
+
+# points per block the kernels aim for; the block owns whole rays
+_POINTS_PER_BLOCK = 768
+# rays per chunk of the plain versions: bounds their (points x W) f32
+# activations (a whole 450^2 fine pass would need ~53 GB)
+_REF_CHUNK_POINTS = 1 << 16
+
+launch_counts = {"fused_render_rays": 0, "fused_render_coarse_hier": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+@dataclasses.dataclass
+class PackedNet:
+    """One FaceNeRF with folded biases, in the kernels' operand layout:
+    bf16 weights as (in, out), f32 biases, PE rows zero-padded, the skip
+    layer split into its pe and h parts, and both heads packed into
+    HEADS columns (rgb 0..2 from the view branch, sigma 3 from the trunk)."""
+
+    w: List[torch.Tensor]        # layer i: (PE_PAD, W) for i=0, else (W, W)
+    b: List[torch.Tensor]        # folded biases (W,)
+    wskip: Dict[int, torch.Tensor]  # layer i -> (PE_PAD, W) pe-part
+    wv: List[torch.Tensor]       # view layer v: (W, W/2) for v=0, else (W/2, W/2)
+    bv: List[torch.Tensor]       # view biases (W/2,), bv[0] folded
+    wv0d: torch.Tensor           # (PED_PAD, W/2) dir-PE part of view layer 0
+    w_alpha: torch.Tensor        # (W, HEADS)
+    w_rgb: torch.Tensor          # (W/2, HEADS)
+    b_heads: torch.Tensor        # (HEADS,)
+    multires: int
+    multires_views: int
+    softplus: bool
+
+    @property
+    def width(self) -> int:
+        return self.w[0].shape[1]
+
+
+def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
+    return F.pad(w, (0, 0, 0, rows - w.shape[0]))
+
+
+def pack_operands(model, folded: Dict, cfg) -> PackedNet:
+    """FaceNeRF module + folded biases -> PackedNet (f32 params are cast
+    to bf16 here, as the JAX wrapper casts them)."""
+    if not cfg.use_viewdirs:
+        raise ValueError("the fused render covers the use_viewdirs path")
+    if cfg.input_ch > PE_PAD or cfg.input_ch_views > PED_PAD:
+        raise ValueError(
+            f"PE widths {cfg.input_ch}/{cfg.input_ch_views} exceed the "
+            f"kernel's {PE_PAD}/{PED_PAD} lanes (multires <= 10, "
+            "multires_views <= 4)")
+    bf, pe, in_all, W = torch.bfloat16, cfg.input_ch, cfg.input_ch_all, cfg.width
+    with torch.no_grad():
+        lin = model.pts_linears
+        w, b, wskip = [], [], {}
+        for i in range(cfg.depth):
+            wt = lin[i].weight.detach()
+            if i == 0:
+                w.append(_pad_rows(wt[:, :pe].T, PE_PAD))
+            elif (i - 1) in cfg.skips:
+                w.append(wt[:, in_all:].T)
+                wskip[i] = _pad_rows(wt[:, :pe].T, PE_PAD).to(bf).contiguous()
+            else:
+                w.append(wt.T)
+            b.append(folded["b_pts"][i].detach().float().contiguous())
+        w = [x.to(bf).contiguous() for x in w]
+
+        views = model.views_linears
+        wv0 = views[0].weight.detach()
+        wv = [wv0[:, :W].T] + [layer.weight.detach().T for layer in views[1:]]
+        wv = [x.to(bf).contiguous() for x in wv]
+        bv = [folded["b_view0"].detach().float()] + [
+            layer.bias.detach().float() for layer in views[1:]]
+        wv0d = _pad_rows(wv0[:, W: W + cfg.input_ch_views].T, PED_PAD)
+
+        dev = wv0.device
+        w_alpha = torch.zeros((W, HEADS), dtype=torch.float32, device=dev)
+        w_alpha[:, 3] = model.alpha_linear.weight.detach()[0].float()
+        w_rgb = torch.zeros((W // 2, HEADS), dtype=torch.float32, device=dev)
+        w_rgb[:, :3] = model.rgb_linear.weight.detach().T.float()
+        b_heads = torch.zeros((HEADS,), dtype=torch.float32, device=dev)
+        b_heads[:3] = model.rgb_linear.bias.detach().float()
+        b_heads[3] = model.alpha_linear.bias.detach()[0].float()
+    return PackedNet(
+        w=w, b=b, wskip=wskip, wv=wv, bv=[x.contiguous() for x in bv],
+        wv0d=wv0d.to(bf).contiguous(), w_alpha=w_alpha.to(bf),
+        w_rgb=w_rgb.to(bf), b_heads=b_heads, multires=cfg.multires,
+        multires_views=cfg.multires_views,
+        softplus=cfg.density_activation == "softplus")
+
+
+# ----------------------------------------------------------- plain versions
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _mlp_reference(net: PackedNet, pe: torch.Tensor,
+                   pv: torch.Tensor) -> torch.Tensor:
+    """pe (N, PE_PAD) bf16-valued f32, pv (N, W/2) per-point view-layer-0
+    term -> raw (N, 4)."""
+    h = _bf16(torch.relu(pe @ net.w[0].float() + net.b[0]))
+    for i in range(1, len(net.w)):
+        acc = h @ net.w[i].float()
+        if i in net.wskip:
+            acc = pe @ net.wskip[i].float() + acc
+        h = _bf16(torch.relu(acc + net.b[i]))
+    hv = _bf16(torch.relu(h @ net.wv[0].float() + pv))
+    for v in range(1, len(net.wv)):
+        hv = _bf16(torch.relu(hv @ net.wv[v].float() + net.bv[v]))
+    raw = h @ net.w_alpha.float() + hv @ net.w_rgb.float() + net.b_heads
+    return raw[:, :4]
+
+
+def _composite_reference(raw, z, d_norm, bc, softplus: bool):
+    """The kernels' compositing: raw (R, S, 4) -> (rgb_map, acc, last_w,
+    depth, weights); transmittance is the running product of
+    max(1 - alpha, 1e-10), the last sample takes the plate colour."""
+    dists = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)],
+                      dim=1) * d_norm[:, None]
+    sigma = raw[..., 3]
+    if softplus:
+        act = torch.where(sigma > 20.0, sigma,
+                          torch.log(1.0 + torch.exp(torch.clamp(sigma, max=20.0))))
+    else:
+        act = torch.relu(sigma)
+    alpha = 1.0 - torch.exp(-(act + 1e-6) * dists)
+    keep = torch.cumprod(torch.clamp(1.0 - alpha, min=1e-10), dim=1)
+    trans = torch.cat([torch.ones_like(keep[:, :1]), keep[:, :-1]], dim=1)
+    weights = alpha * trans
+    rgb = torch.sigmoid(raw[..., :3])
+    last_w = weights[:, -1]
+    rgb_fg = torch.sum(weights[:, :-1, None] * rgb[:, :-1], dim=1)
+    rgb_map = rgb_fg + last_w[:, None] * bc
+    return (rgb_map, weights.sum(1), last_w, (weights * z).sum(1), weights)
+
+
+def _outputs(rgb_map, acc, last_w, depth, weights, bc) -> Dict[str, torch.Tensor]:
+    return {
+        "rgb_map": rgb_map,
+        "acc_map": acc,
+        "last_weight": last_w,
+        "depth": depth,
+        "weights": weights,
+        # composite excluding the plate sample: its colour IS bc_rgb
+        "rgb_fg": rgb_map - last_w[:, None] * bc,
+    }
+
+
+def fused_render_rays_reference(params, folded, cfg, rays_o, rays_d,
+                                z_vals, bc_rgb) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of the fused_render_rays kernel, in ray
+    chunks on the tensors' device."""
+    net = pack_operands(params, folded, cfg)
+    rays_o, rays_d = rays_o.float(), rays_d.float()
+    z_vals, bc_rgb = z_vals.float(), bc_rgb.float()
+    R, S = z_vals.shape
+    d_norm = torch.linalg.norm(rays_d, dim=-1)
+    viewdirs = rays_d / d_norm[:, None]
+    ped = _bf16(F.pad(positional_encoding(viewdirs, net.multires_views),
+                      (0, PED_PAD - 3 * (1 + 2 * net.multires_views))))
+    pv = ped @ net.wv0d.float() + net.bv[0]                  # (R, W/2)
+
+    parts = []
+    step = max(1, _REF_CHUNK_POINTS // S)
+    for s in range(0, R, step):
+        o, d, z = rays_o[s:s + step], rays_d[s:s + step], z_vals[s:s + step]
+        pts = o[:, None, :] + d[:, None, :] * z[..., None]
+        pe = positional_encoding(pts, net.multires)
+        pe = _bf16(F.pad(pe, (0, PE_PAD - pe.shape[-1]))).reshape(-1, PE_PAD)
+        raw = _mlp_reference(net, pe, pv[s:s + step].repeat_interleave(S, 0))
+        parts.append(_composite_reference(raw.reshape(-1, S, 4), z,
+                                          d_norm[s:s + step],
+                                          bc_rgb[s:s + step], net.softplus))
+    return _outputs(*[torch.cat(p, 0) for p in zip(*parts)], bc_rgb)
+
+
+def importance_depths(z_vals, weights, n_imp: int) -> torch.Tensor:
+    """sort(concat(z, sample_pdf(mids, weights[:, 1:-1], n_imp))): the
+    fine depths the coarse kernel places."""
+    z_mid = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
+    z_samples = sample_pdf(z_mid, weights[:, 1:-1], n_imp)
+    return torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1)[0]
+
+
+def fused_render_coarse_hier_reference(params, folded, cfg, rays_o, rays_d,
+                                       bc_rgb, near, far, n_samples: int,
+                                       n_imp: int):
+    """Plain PyTorch version of the fused_render_coarse_hier kernel."""
+    z = stratified_sample(float(near), float(far), n_samples,
+                          rays_o.shape[0], device=rays_o.device)
+    coarse = fused_render_rays_reference(params, folded, cfg, rays_o, rays_d,
+                                         z, bc_rgb)
+    return coarse, importance_depths(z, coarse["weights"], n_imp)
+
+
+# ------------------------------------------------------------------ kernels
+
+def _check_rays(name: str, net: PackedNet, **tensors) -> torch.device:
+    """The kernels take f32, contiguous CUDA tensors of one device and the
+    W=256, D<=16 network; anything else raises."""
+    dev = None
+    for key, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {key} is on {t.device}, expected cuda")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        dev = t.device
+    if net.width != KERNEL_WIDTH:
+        raise ValueError(f"{name}: kernel width is {KERNEL_WIDTH}, "
+                         f"network width {net.width}")
+    if not 1 <= len(net.w) <= _MAXD or not 1 <= len(net.wv) <= _MAXV:
+        raise ValueError(f"{name}: depth {len(net.w)} / view layers "
+                         f"{len(net.wv)} exceed {_MAXD} / {_MAXV}")
+    return dev
+
+
+def _slots(net: PackedNet, device):
+    """Operands flattened into one bf16 and one f32 buffer (each matrix
+    128-element aligned for wmma loads) -> (ctypes slot table, buffers)."""
+    wmats = {_SLOT_W + i: x for i, x in enumerate(net.w)}
+    wmats.update({_SLOT_WSKIP + i: x for i, x in net.wskip.items()})
+    wmats.update({_SLOT_WV + v: x for v, x in enumerate(net.wv)})
+    wmats.update({_SLOT_WV0D: net.wv0d, _SLOT_WALPHA: net.w_alpha,
+                  _SLOT_WRGB: net.w_rgb})
+    fvecs = {_SLOT_B + i: x for i, x in enumerate(net.b)}
+    fvecs.update({_SLOT_BV + v: x for v, x in enumerate(net.bv)})
+    fvecs[_SLOT_BHEADS] = net.b_heads
+
+    def flatten(items, dtype, align):
+        offs, chunks, n = {}, [], 0
+        for slot, x in sorted(items.items()):
+            flat = x.reshape(-1).to(device=device, dtype=dtype)
+            pad = (-flat.numel()) % align
+            offs[slot] = n
+            chunks.append(F.pad(flat, (0, pad)))
+            n += flat.numel() + pad
+        return torch.cat(chunks), offs
+
+    wbuf, woffs = flatten(wmats, torch.bfloat16, 128)
+    fbuf, foffs = flatten(fvecs, torch.float32, 32)
+    table = (ctypes.c_ulonglong * _NSLOTS)()
+    for slot, off in woffs.items():
+        table[slot] = wbuf.data_ptr() + 2 * off
+    for slot, off in foffs.items():
+        table[slot] = fbuf.data_ptr() + 4 * off
+    return table, (wbuf, fbuf)
+
+
+def _rays_per_block(lib, S: int, n_cdf: int, n_union: int) -> int:
+    rb = max(1, min(16, _POINTS_PER_BLOCK // S))
+    while rb > 1 and lib.fr_smem_bytes(rb, S, n_cdf, n_union) > SMEM_LIMIT:
+        rb -= 1
+    if lib.fr_smem_bytes(rb, S, n_cdf, n_union) > SMEM_LIMIT:
+        raise ValueError(f"S={S} does not fit the kernel's shared memory")
+    return rb
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {lib.fr_error_string(err).decode()}")
+
+
+def _net_args(net: PackedNet):
+    return (len(net.w), len(net.wv), net.multires, net.multires_views,
+            int(net.softplus))
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def fused_render_rays(params, folded, cfg, rays_o, rays_d, z_vals,
+                      bc_rgb) -> Dict[str, torch.Tensor]:
+    """Fused render of (R,) rays at given sorted depths (R, S) -> dict of
+    rgb_map / acc_map / last_weight / depth / weights / rgb_fg.
+    Deterministic (eval) semantics; relu or softplus density."""
+    if rays_o.device.type == "cpu":
+        return fused_render_rays_reference(params, folded, cfg, rays_o,
+                                           rays_d, z_vals, bc_rgb)
+    net = pack_operands(params, folded, cfg)
+    dev = _check_rays("fused_render_rays", net, rays_o=rays_o,
+                      rays_d=rays_d, z_vals=z_vals, bc_rgb=bc_rgb)
+    R, S = z_vals.shape
+    if rays_o.shape != (R, 3) or rays_d.shape != (R, 3) or bc_rgb.shape != (R, 3):
+        raise ValueError("fused_render_rays: rays_o/rays_d/bc_rgb must be "
+                         f"({R}, 3) to match z_vals {tuple(z_vals.shape)}")
+    if R < 1 or S < 2 or R * S >= 2 ** 31:
+        raise ValueError(f"fused_render_rays: unsupported R={R}, S={S}")
+    lib = build.load_library()
+    rb = _rays_per_block(lib, S, 0, 0)
+    table, keep = _slots(net, dev)
+    summary = torch.empty((R, 8), dtype=torch.float32, device=dev)
+    weights = torch.empty((R, S), dtype=torch.float32, device=dev)
+    err = lib.fr_render_rays(
+        rays_o.data_ptr(), rays_d.data_ptr(), bc_rgb.data_ptr(),
+        z_vals.data_ptr(), summary.data_ptr(), weights.data_ptr(), R, S, rb,
+        table, *_net_args(net), _stream(dev))
+    _raise_on(lib, err, "fused_render_rays")
+    launch_counts["fused_render_rays"] += 1
+    del keep  # stream-ordered: the caching allocator reuses it after the kernel
+    return _outputs(summary[:, :3], summary[:, 3], summary[:, 4],
+                    summary[:, 5], weights, bc_rgb)
+
+
+def fused_render_coarse_hier(params, folded, cfg, rays_o, rays_d, bc_rgb,
+                             near, far, n_samples: int, n_imp: int):
+    """Coarse pass + importance depth placement in one launch ->
+    (coarse output dict, z_all (R, n_samples + n_imp) sorted fine depths).
+    Deterministic eval semantics, scalar near/far, n_imp > 1."""
+    if n_imp <= 1 or n_samples < 3:
+        raise ValueError("fused_render_coarse_hier needs n_importance > 1 "
+                         f"and n_samples >= 3, got {n_samples}+{n_imp}")
+    if rays_o.device.type == "cpu":
+        return fused_render_coarse_hier_reference(
+            params, folded, cfg, rays_o, rays_d, bc_rgb, near, far,
+            n_samples, n_imp)
+    net = pack_operands(params, folded, cfg)
+    dev = _check_rays("fused_render_coarse_hier", net, rays_o=rays_o,
+                      rays_d=rays_d, bc_rgb=bc_rgb)
+    R = rays_o.shape[0]
+    S, SU = n_samples, n_samples + n_imp
+    if rays_d.shape != (R, 3) or bc_rgb.shape != (R, 3) or rays_o.shape != (R, 3):
+        raise ValueError("fused_render_coarse_hier: rays_o/rays_d/bc_rgb "
+                         "must all be (R, 3)")
+    if R < 1 or R * SU >= 2 ** 31:
+        raise ValueError(f"fused_render_coarse_hier: unsupported R={R}")
+    lib = build.load_library()
+    rb = _rays_per_block(lib, S, S - 1, SU)
+    table, keep = _slots(net, dev)
+    summary = torch.empty((R, 8), dtype=torch.float32, device=dev)
+    weights = torch.empty((R, S), dtype=torch.float32, device=dev)
+    z_all = torch.empty((R, SU), dtype=torch.float32, device=dev)
+    err = lib.fr_coarse_hier(
+        rays_o.data_ptr(), rays_d.data_ptr(), bc_rgb.data_ptr(), float(near),
+        float(far), summary.data_ptr(), weights.data_ptr(), z_all.data_ptr(),
+        R, S, n_imp, rb, table, *_net_args(net), _stream(dev))
+    _raise_on(lib, err, "fused_render_coarse_hier")
+    launch_counts["fused_render_coarse_hier"] += 1
+    del keep
+    coarse = _outputs(summary[:, :3], summary[:, 3], summary[:, 4],
+                      summary[:, 5], weights, bc_rgb)
+    return coarse, z_all
+
+
+def _is_scalar(x) -> bool:
+    return not isinstance(x, torch.Tensor) or x.ndim == 0
+
+
+def render_rays_fused(
+    coarse_params,
+    coarse_folded: Dict,
+    cfg,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    bc_rgb: torch.Tensor,
+    near,
+    far,
+    n_samples: int,
+    n_importance: int = 0,
+    fine_params=None,
+    fine_folded: Optional[Dict] = None,
+    lindisp: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Hierarchical render with both passes in the fused kernels.
+
+    Deterministic (eval) semantics — the fused counterpart of
+    core.render.render_rays with perturb=0. With scalar near/far, linear
+    depth and n_importance > 1 the coarse kernel places the fine depths
+    itself; otherwise the plain sampler places them and both passes go
+    through the fine kernel."""
+    n_rays = rays_o.shape[0]
+    fp = fine_params if fine_params is not None else coarse_params
+    ff = fine_folded if fine_folded is not None else coarse_folded
+    use_hier = (n_importance > 1 and not lindisp and _is_scalar(near)
+                and _is_scalar(far))
+
+    if use_hier:
+        coarse, z_all = fused_render_coarse_hier(
+            coarse_params, coarse_folded, cfg, rays_o, rays_d, bc_rgb,
+            float(near), float(far), n_samples, n_importance)
+    else:
+        z_vals = stratified_sample(near, far, n_samples, n_rays,
+                                   lindisp=lindisp, device=rays_o.device)
+        coarse = fused_render_rays(coarse_params, coarse_folded, cfg, rays_o,
+                                   rays_d, z_vals, bc_rgb)
+        if n_importance <= 0:
+            return coarse
+        z_all = importance_depths(z_vals, coarse["weights"],
+                                            n_importance)
+    fine = fused_render_rays(fp, ff, cfg, rays_o, rays_d, z_all, bc_rgb)
+    fine.update(
+        rgb0=coarse["rgb_map"], acc0=coarse["acc_map"],
+        rgb_fg0=coarse["rgb_fg"], last_weight0=coarse["last_weight"],
+    )
+    return fine
