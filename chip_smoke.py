@@ -26,6 +26,24 @@ non-zero and no result line is printed):
    host must agree (3e-2, correlation > 0.999).
 5. torch.profiler over one 450x450 frame: wall and device-busy time and
    the kernels by device time (full table in chiprun_out/).
+6. the fused point MLP kernel against its plain version at ``--points``
+   points (the training step's 2048 x (64 + 192)) and at a ragged 1,001:
+   3e-2 absolute and a correlation above 0.999 per output lane; timed.
+7. the gradient kernel, f32 and bf16 variants, through the training
+   autograd Function against its plain version (explicit backward in
+   torch ops) and against f32 autograd of the plain MLP (TF32 off), per
+   parameter: the f32 variant within 1e-4 norm-relative of both; the bf16
+   variant within 2e-2 of its plain version and 0.15 of f32 autograd (the
+   JAX package's bound). aud/expr/latent gradients within 0.05 of their
+   maximum. Two launches must give bitwise-equal gradients. Timed at
+   ``--points``.
+8. the training slice: ``idealnerf_tpu_torch.cli.train_head.main`` on
+   ``--train_frames`` synthetic frames of ``--train_hw``² at full width
+   (D=8, W=256, N_rand 2048, 64+128) for ``--train_epochs`` epochs: ms per
+   step after warm-up, first and last loss and PSNR (finite), both kernels
+   launched twice per step; the checkpoint it writes then renders one
+   frame through ``render_val.main --head_ckpt`` with a finite PSNR. Then
+   torch.profiler over one training step (table in chiprun_out/).
 
 Then the kernel summary as one JSON line, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. With no CUDA device it exits 1.
@@ -45,6 +63,9 @@ import time
 ATOL = 3e-2
 MIN_CORR = 0.999
 Z_ATOL = 2e-6
+GRAD_TOL = {"f32": {"plain": 1e-4, "autograd": 1e-4},
+            "bf16": {"plain": 2e-2, "autograd": 0.15}}
+COND_TOL = 0.05
 KERNELS = {
     "fused_render_coarse_hier": {
         "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
@@ -53,6 +74,14 @@ KERNELS = {
     "fused_render_rays": {
         "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
         "replaces": "idealnerf_tpu/kernels/fused_render.py:393",
+    },
+    "fused_point_mlp": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp.cu",
+        "replaces": "idealnerf_tpu/kernels/fused_mlp.py:223",
+    },
+    "fused_point_mlp_grad": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp_grad.cu",
+        "replaces": "idealnerf_tpu/kernels/fused_mlp_grad.py:178",
     },
 }
 
@@ -106,18 +135,18 @@ def _time_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def _profile_frame(render_frame) -> dict:
-    """torch.profiler over one warm 450x450 frame: wall time, device busy
+def _profile(run, label: str, fname: str) -> dict:
+    """torch.profiler over one warm call of ``run``: wall time, device busy
     time and the kernels by device time (table in chiprun_out/)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    render_frame()
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_frame()
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
@@ -130,18 +159,209 @@ def _profile_frame(render_frame) -> dict:
     on_dev = [e for e in events
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
-    top = sorted(on_dev, key=dev_us, reverse=True)[:6]
+    top = sorted(on_dev, key=dev_us, reverse=True)[:8]
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_frame.txt"), "w") as fh:
-        fh.write(events.table(sort_by="self_cuda_time_total", row_limit=30))
+    with open(os.path.join("chiprun_out", fname), "w") as fh:
+        fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "top": [[e.key, dev_us(e) / 1e3, e.count] for e in top]}
-    print(f"profile 450x450 frame: wall {wall_ms:.1f} ms, device busy "
+    print(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms, idle share {out['idle_share']:.3f}; by device "
           "time: " + "; ".join(f"{k[:40]} {ms:.2f} ms x{n}"
                                for k, ms, n in out["top"]))
     return out
+
+
+def _norm_rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / (want.norm() + 1e-12))
+
+
+def _grads_of(train_fn, model, folded_fn, cond, pts, dirs, w):
+    """(per-parameter gradients, conditioning gradients) of
+    sum(raw * w) through ``train_fn``."""
+    c = [x.detach().clone().requires_grad_(True) for x in cond]
+    model.zero_grad(set_to_none=True)
+    raw = train_fn(model, folded_fn(model, c), pts, dirs)
+    (raw * w).sum().backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads, [x.grad.detach().clone() for x in c]
+
+
+def _phase_point_mlp(fm, net, folded, ncfg, pts, dirs) -> dict:
+    print("phase 6 fused point MLP vs plain version")
+    err = 0.0
+    for n in (pts.shape[0], 1001):
+        got = fm.fused_point_mlp(net, folded, ncfg, pts[:n], dirs[:n])
+        want = fm.fused_point_mlp_reference(net, folded, ncfg, pts[:n],
+                                            dirs[:n])
+        for c in range(4):
+            err = max(err, _agree(f"N={n} raw[:, {c}]", got[:, c],
+                                  want[:, c], corr=True))
+    n = pts.shape[0]
+    ms = _time_ms(lambda: fm.fused_point_mlp(net, folded, ncfg, pts, dirs), 5)
+    pms = _time_ms(lambda: fm.fused_point_mlp_reference(net, folded, ncfg,
+                                                        pts, dirs), 2)
+    print(f"  fused_point_mlp at N={n}: kernel {ms:.3f} ms, plain "
+          f"{pms:.3f} ms (wrapper calls, CUDA events)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+
+
+def _phase_grad(net, ncfg, cond, pts, dirs) -> dict:
+    import torch
+
+    from idealnerf_tpu_torch.core.embedding import positional_encoding
+    from idealnerf_tpu_torch.kernels import fused_mlp_grad as fmg
+    from idealnerf_tpu_torch.kernels.fused_render import (
+        model_leaves, pack_leaves,
+    )
+    from idealnerf_tpu_torch.models.face_nerf import (
+        apply_folded, fold_conditioning,
+    )
+
+    print("phase 7 gradient kernel vs plain backward and f32 autograd")
+    n = pts.shape[0]
+    dev = pts.device
+    w = (torch.linspace(0.5, 1.5, n, device=dev)[:, None]
+         * torch.tensor([1.0, -0.7, 0.3, 0.05], device=dev)) / n
+
+    def folded_fn(model, c):
+        return fold_conditioning(model, ncfg, *c)
+
+    def autograd_fn(model, folded, p, d):
+        return apply_folded(model, folded, ncfg,
+                            positional_encoding(p, ncfg.multires),
+                            positional_encoding(d, ncfg.multires_views))
+
+    ref, ref_c = _grads_of(autograd_fn, net, folded_fn, cond, pts, dirs, w)
+    out = {"max_abs_err": 0.0}
+    for tag, gd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        def kern(model, folded, p, d, gd=gd):
+            return fmg.fused_point_mlp_train(ncfg, model, folded, p, d, gd)
+
+        def plain(model, folded, p, d, gd=gd):
+            return fmg.fused_point_mlp_train_reference(ncfg, model, folded,
+                                                       p, d, gd)
+
+        got, got_c = _grads_of(kern, net, folded_fn, cond, pts, dirs, w)
+        want, _ = _grads_of(plain, net, folded_fn, cond, pts, dirs, w)
+        worst = {"plain": (0.0, ""), "autograd": (0.0, "")}
+        for name in ref:
+            for what, r in (("plain", want[name]), ("autograd", ref[name])):
+                e = _norm_rel(got[name], r)
+                if e > worst[what][0]:
+                    worst[what] = (e, name)
+            out["max_abs_err"] = max(out["max_abs_err"], float(
+                (got[name] - want[name]).abs().max()))
+        for what, (e, name) in worst.items():
+            tol = GRAD_TOL[tag][what]
+            print(f"  {tag}: worst norm-relative error vs {what} {e:.3e} "
+                  f"({name}; tol {tol:g})")
+            if not e <= tol:
+                raise AssertionError(f"{tag} gradients disagree with {what}")
+        for x, r, name in zip(got_c, ref_c, ("aud", "expr", "latent")):
+            scale = float(r.abs().max())
+            e = float((x - r).abs().max()) / (scale + 1e-12)
+            print(f"  {tag}: d{name} max error {e:.3e} relative to its "
+                  f"max {scale:.3e} (tol {COND_TOL:g})")
+            if not (e < COND_TOL and float(x.abs().max()) > 0):
+                raise AssertionError(f"{tag} d{name} disagrees or is zero")
+
+        # bitwise repeatability of the kernel itself, on packed operands
+        folded = fold_conditioning(net, ncfg, *cond)
+        packed = pack_leaves(ncfg, model_leaves(net, folded, ncfg), gd)
+        g = (w * n).contiguous()
+        a = fmg.point_mlp_grad(packed, pts, dirs, g)
+        b = fmg.point_mlp_grad(packed, pts, dirs, g)
+        same = all(torch.equal(x, y) for x, y in zip(
+            [*a.w, *a.b, *a.wskip.values(), *a.wv, *a.bv, a.wv0d, a.w_alpha,
+             a.w_rgb, a.b_heads],
+            [*b.w, *b.b, *b.wskip.values(), *b.wv, *b.bv, b.wv0d, b.w_alpha,
+             b.w_rgb, b.b_heads]))
+        print(f"  {tag}: two launches bitwise equal: {same}")
+        if not same:
+            raise AssertionError(f"{tag} gradient kernel is not repeatable")
+        ms = _time_ms(lambda: fmg.point_mlp_grad(packed, pts, dirs, g), 3)
+        pms = _time_ms(lambda: fmg.point_mlp_grad_reference(packed, pts,
+                                                            dirs, g), 2)
+        print(f"  {tag} gradient kernel at N={n}: kernel {ms:.3f} ms, "
+              f"plain {pms:.3f} ms (CUDA events)")
+        out[tag] = {"n": n, "ms": ms, "plain_ms": pms,
+                    "worst": {k: v[0] for k, v in worst.items()}}
+        torch.cuda.synchronize()
+    out["ms"], out["plain_ms"] = out["bf16"]["ms"], out["bf16"]["plain_ms"]
+    return out
+
+
+def _phase_train(args, fm, fmg, fr) -> dict:
+    import torch
+
+    from idealnerf_tpu_torch.ckpt import CheckpointManager
+    from idealnerf_tpu_torch.cli import render_val, train_head
+
+    dims = ["--dim_aud", "64", "--dim_expr", "76", "--dim_latent", "32"]
+    data = ["--synthetic", str(args.train_frames), "--synthetic_hw",
+            str(args.train_hw)]
+    fm.reset_launch_counts()
+    fmg.reset_launch_counts()
+    res = train_head.main([
+        *data, *dims, "--N_rand", "2048", "--N_samples", "64",
+        "--N_importance", "128", "--epochs", str(args.train_epochs),
+        "--i_print", "5", "--i_weights", "10", "--device", "cuda",
+        "--basedir", "output/chip_smoke_train", "--expname", "head"])
+    counts = {**fm.launch_counts, **fmg.launch_counts}
+    steps = res["step"]
+    first, last = res["history"][0][1], res["history"][-1][1]
+    step_ms = 1e3 / last["steps_per_sec_rolling"]
+    print(f"phase 8 train_head: {steps} steps on {args.train_frames} frames "
+          f"of {args.train_hw}x{args.train_hw}, D=8 W=256 N_rand 2048 64+128: "
+          f"{step_ms:.1f} ms/step over steps "
+          f"{res['history'][-2][0] if len(res['history']) > 1 else 0}-"
+          f"{res['history'][-1][0]}; loss {first['loss']:.5f} -> "
+          f"{last['loss']:.5f}, PSNR {first['psnr']:.3f} -> "
+          f"{last['psnr']:.3f}; launches {counts}")
+    vals = [first["loss"], last["loss"], first["psnr"], last["psnr"]]
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError("train_head produced a non-finite loss or PSNR")
+    for k, n in counts.items():
+        if n != 2 * steps:
+            raise AssertionError(f"{k} launched {n} times for {steps} steps")
+    ck = CheckpointManager(res["ckpt_dir"])
+    if ck.latest_step() != steps:
+        raise AssertionError(f"no checkpoint at step {steps} in "
+                             f"{res['ckpt_dir']}")
+    fr.reset_launch_counts()
+    rv = render_val.main([*data, *dims, "--head_ckpt", res["ckpt_dir"],
+                          "--max_frames", "1", "--device", "cuda",
+                          "--save_path", "output/chip_smoke_train"])
+    print(f"  render_val --head_ckpt (step {steps}): PSNR {rv['psnr']:.3f}, "
+          f"SSIM {rv['ssim']:.4f}, {rv['frame_ms']:.1f} ms, launches "
+          f"{dict(fr.launch_counts)}")
+    if not math.isfinite(rv["psnr"]):
+        raise AssertionError("the trained checkpoint rendered non-finite")
+    torch.cuda.synchronize()
+    return {"steps": steps, "step_ms": step_ms, "first": first, "last": last,
+            "launches": counts, "render_psnr": rv["psnr"]}
+
+
+def _profile_train_step(args):
+    """One warm training step of the phase-8 configuration, profiled."""
+    import torch
+
+    from idealnerf_tpu_torch.config import ExperimentConfig
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.train.head import HeadTrainer
+
+    cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32)
+    ds = make_synthetic_dataset(n_frames=2, H=args.train_hw, W=args.train_hw,
+                                dim_expr=76)
+    tr = HeadTrainer(cfg, ds, seed=0, device="cuda")
+    step = tr._step_fn(smooth=False)
+    return _profile(lambda: step(tr.state, tr.data, 0, tr.generator),
+                    f"training step ({args.train_hw}x{args.train_hw}, "
+                    "N_rand 2048, 64+128)", "profile_train_step.txt")
 
 
 def main(argv=None) -> int:
@@ -149,6 +369,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rays", type=int, default=8192)
     ap.add_argument("--hw", type=int, default=450)
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--points", type=int, default=2048 * (64 + 192))
+    ap.add_argument("--train_hw", type=int, default=450)
+    ap.add_argument("--train_frames", type=int, default=4)
+    ap.add_argument("--train_epochs", type=int, default=5)
     args = ap.parse_args(argv)
 
     import torch
@@ -164,6 +388,8 @@ def main(argv=None) -> int:
         from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
         from idealnerf_tpu_torch.eval.renderer import make_frame_renderer
         from idealnerf_tpu_torch.kernels import build as kbuild
+        from idealnerf_tpu_torch.kernels import fused_mlp as fm
+        from idealnerf_tpu_torch.kernels import fused_mlp_grad as fmg
         from idealnerf_tpu_torch.kernels import fused_render as fr
         from idealnerf_tpu_torch.models.face_nerf import (
             FaceNeRF, fold_conditioning,
@@ -307,11 +533,36 @@ def main(argv=None) -> int:
     # ---- where a frame's time goes (torch.profiler)
     render = make_frame_renderer(ncfg, 450, 450, ds.focal, near, far,
                                  cfg.render_config(), cx=ds.cx, cy=ds.cy)
-    report["profile"] = _profile_frame(
+    report["profile"] = _profile(
         lambda: render(nets, torch.from_numpy(ds.poses[0]).to(dev),
                        torch.from_numpy(ds.bc_img).to(dev).float() / 255,
-                       aud=aud, expr=expr, latent=latent))
+                       aud=aud, expr=expr, latent=latent),
+        "450x450 frame", "profile_frame.txt")
 
+    # ---- phases 6 and 7: the training kernels at the step's shapes; the
+    # points lie on the phase-2 rays at uniform depths in [near, far]
+    g = torch.Generator(device=dev).manual_seed(3)
+    idx = torch.arange(args.points, device=dev) % ro.shape[0]
+    z = near + (far - near) * torch.rand(args.points, 1, generator=g,
+                                         device=dev)
+    pts = (ro[idx] + rd[idx] * z).contiguous()
+    dirs = (rd / rd.norm(dim=-1, keepdim=True))[idx].contiguous()
+    res6 = _phase_point_mlp(fm, nets["fine"], ff, ncfg, pts, dirs)
+    res7 = _phase_grad(nets["coarse"], ncfg, (aud, expr, latent), pts, dirs)
+    report.update(point_mlp=res6, point_mlp_grad=res7)
+    del pts, dirs, idx, z
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: the training slice through its CLI entry point
+    res8 = _phase_train(args, fm, fmg, fr)
+    report["train"] = res8
+    report["profile_train_step"] = _profile_train_step(args)
+
+    counts.update(res8["launches"])
+    errs.update(fused_point_mlp=res6["max_abs_err"],
+                fused_point_mlp_grad=res7["max_abs_err"])
+    times.update(fused_point_mlp=(res6["ms"], res6["plain_ms"]),
+                 fused_point_mlp_grad=(res7["ms"], res7["plain_ms"]))
     kernels = [{"name": k, "route": "cuda", **KERNELS[k],
                 "launches": counts[k], "max_abs_err": errs[k],
                 "ms": times[k][0], "plain_ms": times[k][1]} for k in KERNELS]

@@ -121,3 +121,16 @@ def params_from_jax(tree, cfg, device=None) -> nn.ModuleDict:
 def params_to_jax(params: nn.ModuleDict) -> Dict[str, Any]:
     """The port's parameter ModuleDict -> JAX-layout numpy tree."""
     return module_to_tree(params)
+
+
+def train_state_from_jax(params_tree, latent_codes, cfg, device=None):
+    """A JAX ``TrainState``'s params and latent table (as numpy) -> a port
+    TrainState at step 0 with a fresh Adam over them (the JAX optimizer
+    state is not carried over)."""
+    from idealnerf_tpu_torch.train.state import TrainState, make_optimizer
+
+    params = params_from_jax(params_tree, cfg).to(device)
+    latent = nn.Parameter(torch.from_numpy(
+        np.array(latent_codes, dtype=np.float32, copy=True)).to(device))
+    return TrainState(step=0, params=params, latent_codes=latent,
+                      optimizer=make_optimizer(cfg, params, latent))

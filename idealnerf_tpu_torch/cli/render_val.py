@@ -20,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from idealnerf_tpu_torch.ckpt import CheckpointManager
 from idealnerf_tpu_torch.cli.common import (
     build_parser, resolve_config, resolve_dataset,
 )
@@ -45,7 +46,8 @@ _NOT_PORTED = {
 
 def main(argv=None):
     parser = build_parser(__doc__)
-    parser.add_argument("--head_ckpt", type=str, required=False)
+    parser.add_argument("--head_ckpt", type=str, required=False,
+                        help="checkpoint directory written by train_head")
     parser.add_argument("--max_frames", type=int, default=None)
     parser.add_argument("--pruned", type=int, default=0,
                         help="foreground-pruned fast eval path (not ported)")
@@ -70,10 +72,6 @@ def main(argv=None):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP.md {item})")
-    if args.head_ckpt:
-        raise NotImplementedError(
-            "--head_ckpt: checkpoint I/O is not ported yet (ROADMAP.md "
-            "A-queue: checkpoint I/O)")
     cfg = resolve_config(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -84,9 +82,17 @@ def main(argv=None):
     # every device
     gen = torch.Generator().manual_seed(args.seed)
     state = init_params(cfg, ds.size, gen)
+    if args.head_ckpt:
+        # the latent table is train-set-sized; eval uses latent_codes[0]
+        ck = CheckpointManager(args.head_ckpt).restore()
+        state.params.load_state_dict(ck["params"])
+        state = state._replace(step=int(ck["step"]),
+                               latent_codes=ck["latent_codes"])
+        logger.info("rendering %s at step %d", args.head_ckpt, state.step)
+    else:
+        logger.warning("no --head_ckpt: rendering fresh weights (dry run)")
     params = state.params.to(device)
     latent_codes = state.latent_codes.to(device)
-    logger.warning("no --head_ckpt: rendering fresh weights (dry run)")
 
     H, W = ds.hw
     render = make_frame_renderer(

@@ -1,10 +1,10 @@
 """Experiment configuration (counterpart of idealnerf_tpu/config.py).
 
 Field names and defaults are those of the JAX ``ExperimentConfig``, so
-reference ``key = value`` config files parse the same way. The JAX
-package's TPU-only knobs (``train_fused``, ``flat_optimizer``,
-``sampler_approx``) have no counterpart here; ``from_file`` ignores them
-like any other unknown key.
+reference ``key = value`` config files parse the same way. Two knobs of
+the JAX package have no counterpart here: ``flat_optimizer`` (one flat
+Adam vector) and ``sampler_approx`` (approximate top-k); ``from_file``
+ignores them like any other unknown key.
 """
 
 from __future__ import annotations
@@ -65,6 +65,10 @@ class ExperimentConfig:
     density_activation: str = "relu"  # "relu" (reference parity) | "softplus"
 
     # optimization
+    train_fused: int = 2     # train-step field path on a CUDA device: 0 =
+                             # plain autograd, 1 = fused kernels with the
+                             # f32 backward, 2 = with the bf16 backward
+                             # (kernels/fused_mlp_grad.py); ignored on cpu
     lrate: float = 8e-4
     lrate_decay: int = 500
     lc_weight: float = 0.0005

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of this package.
 
 The sources under ``csrc/`` are compiled at first use with ``nvcc`` into
-a shared library with a plain C interface, loaded through ctypes. The
+a shared library with a plain C interface, loaded through ctypes: one
+``nvcc -c`` per ``.cu`` file, all started together, then one link. The
 library lands in ``kernels/build/`` (not committed), named by a hash of
 the sources and flags, so a changed source rebuilds and an unchanged one
 loads the cached file. Nothing here runs at import time.
@@ -24,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 # No --use_fast_math: the PE phases reach ~300 rad and __sinf is wrong there.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -50,7 +51,7 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libfused_render_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libidealnerf_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
@@ -64,16 +65,38 @@ def build() -> dict:
         log = log_path.read_text() if log_path.exists() else ""
         return {"path": str(so), "seconds": 0.0, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    logs, failed = [], []
+    for obj, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    tmp = so.with_name(f"{tag}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+             *[str(o) for o, _ in jobs]],
+            capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(link.returncode)
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = "".join(logs)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, so)
     return {"path": str(so), "seconds": seconds, "log": log}
@@ -99,4 +122,16 @@ def load_library() -> ctypes.CDLL:
         vp, vp, vp, f32, f32, vp, vp, vp, i32, i32, i32, i32, slots, i32,
         i32, i32, i32, i32, vp]
     lib.fr_coarse_hier.restype = i32
+    lib.fr_point_mlp_smem_bytes.argtypes = []
+    lib.fr_point_mlp_smem_bytes.restype = ctypes.c_ulonglong
+    lib.fr_point_mlp.argtypes = [vp, vp, vp, i32, slots, i32, i32, i32, i32,
+                                 vp]
+    lib.fr_point_mlp.restype = i32
+    i64 = ctypes.c_longlong
+    lib.fr_point_mlp_grad_smem_bytes.argtypes = [i32]
+    lib.fr_point_mlp_grad_smem_bytes.restype = ctypes.c_ulonglong
+    lib.fr_point_mlp_grad.argtypes = [
+        vp, vp, vp, vp, i64, vp, vp, i64, i32, i32, slots,
+        ctypes.POINTER(i64), i32, i32, i32, i32, i32, vp]
+    lib.fr_point_mlp_grad.restype = i32
     return lib

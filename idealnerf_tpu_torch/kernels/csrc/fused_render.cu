@@ -69,26 +69,6 @@ k_coarse_hier(Net net, const float* __restrict__ rays_o,
   hier_depths(sm, z_all, ray0, nr, S, n_imp, tid);
 }
 
-static Net make_net(const unsigned long long* slots, int depth, int n_views,
-                    int multires, int multires_views, int softplus) {
-  Net net;
-  for (int i = 0; i < NSLOTS; ++i)
-    net.slot[i] = reinterpret_cast<const void*>(slots[i]);
-  net.depth = depth;
-  net.n_views = n_views;
-  net.multires = multires;
-  net.multires_views = multires_views;
-  net.softplus = softplus;
-  return net;
-}
-
-template <typename K>
-static cudaError_t prepare(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 }  // namespace fr
 
 extern "C" {

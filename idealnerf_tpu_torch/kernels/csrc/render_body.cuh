@@ -1,7 +1,8 @@
-// Shared device body of the fused per-ray render kernels (fused_render.cu):
-// PE from ray packets -> 8x256 trunk with the skip layer -> view branch with
-// a per-ray dir-PE term -> packed heads -> alpha compositing, plus the
-// inverse-CDF depth placement that the coarse kernel appends.
+// Shared device body of the fused kernels (fused_render.cu, fused_mlp.cu,
+// fused_mlp_grad.cu): PE from ray packets or from points -> 8x256 trunk with
+// the skip layer -> view branch with a per-ray or per-point dir-PE term ->
+// packed heads -> alpha compositing, plus the inverse-CDF depth placement
+// that the coarse kernel appends.
 //
 // Numeric contract (the same as the JAX package's Pallas kernels,
 // idealnerf_tpu/kernels/fused_render.py:_render_body):
@@ -64,10 +65,10 @@ struct Net {
   int depth, n_views, multires, multires_views, softplus;
 };
 
-__device__ __forceinline__ const bf16* wmat(const Net& n, int s) {
+static __device__ __forceinline__ const bf16* wmat(const Net& n, int s) {
   return static_cast<const bf16*>(n.slot[s]);
 }
-__device__ __forceinline__ const float* fvec(const Net& n, int s) {
+static __device__ __forceinline__ const float* fvec(const Net& n, int s) {
   return static_cast<const float*>(n.slot[s]);
 }
 
@@ -86,6 +87,8 @@ struct Smem {
   float* w;      // (rb, S) compositing weights
   float* cdf;    // (rb, S-1) coarse kernel only
   float* uni;    // (rb, S+n_imp) coarse kernel only: unsorted union
+  bf16* ped_tile;  // (P, PED_PAD) per-point dir-PE (point kernel only; the
+                   // ray kernels add the per-ray term pv instead)
 };
 
 // Byte layout of the dynamic shared memory; the host calls it with a null
@@ -122,6 +125,30 @@ __host__ __device__ inline size_t smem_layout(char* base, int rb, int S,
     sm->w = reinterpret_cast<float*>(base + off[11]);
     sm->cdf = reinterpret_cast<float*>(base + off[12]);
     sm->uni = reinterpret_cast<float*>(base + off[13]);
+    sm->ped_tile = nullptr;
+  }
+  return total;
+}
+
+// Layout of the point kernel (fused_mlp.cu): the PE tile, the two
+// activation buffers, the epilogue scratch and the per-point dir-PE tile.
+__host__ __device__ inline size_t point_smem_layout(char* base, Smem* sm) {
+  const size_t sz[5] = {sizeof(bf16) * P * PE_PAD, sizeof(bf16) * P * W,
+                        sizeof(bf16) * P * W, sizeof(float) * NWARP * 256,
+                        sizeof(bf16) * P * PED_PAD};
+  size_t off[5];
+  size_t total = 0;
+  for (int i = 0; i < 5; ++i) {
+    off[i] = total;
+    total += (sz[i] + 127) & ~static_cast<size_t>(127);
+  }
+  if (sm != nullptr) {
+    *sm = Smem{};
+    sm->pe = reinterpret_cast<bf16*>(base + off[0]);
+    sm->h0 = reinterpret_cast<bf16*>(base + off[1]);
+    sm->h1 = reinterpret_cast<bf16*>(base + off[2]);
+    sm->scr = reinterpret_cast<float*>(base + off[3]);
+    sm->ped_tile = reinterpret_cast<bf16*>(base + off[4]);
   }
   return total;
 }
@@ -129,8 +156,8 @@ __host__ __device__ inline size_t smem_layout(char* base, int rb, int S,
 // PE lane `lane` of the 3-vector x: [x, sin f0 x, cos f0 x, sin f1 x, ...],
 // frequency-major with f_k = 2^k (core/embedding.py); lanes past the last
 // frequency are the zero padding.
-__device__ __forceinline__ float pe_lane(const float* x, int lane,
-                                         int n_freq) {
+static __device__ __forceinline__ float pe_lane(const float* x, int lane,
+                                                int n_freq) {
   if (lane < 3) return x[lane];
   const int j = lane - 3;
   const int fi = j / 6;
@@ -203,8 +230,9 @@ __device__ __forceinline__ void store_relu(FragC (&acc)[NC][RT], bf16* out,
 // Per-ray set-up: origins, directions, |d|, the bf16 dir-PE of the unit
 // view direction, and its view-layer-0 contribution pv = ped @ wv0d + bv0,
 // computed once per ray instead of once per point.
-__device__ void load_rays(const Net& net, const Smem& sm, const float* rays_o,
-                          const float* rays_d, int ray0, int nr, int tid) {
+static __device__ void load_rays(const Net& net, const Smem& sm,
+                                 const float* rays_o, const float* rays_d,
+                                 int ray0, int nr, int tid) {
   for (int r = tid; r < nr; r += NTHREADS) {
     const size_t g = static_cast<size_t>(ray0 + r) * 3;
     float d[3];
@@ -233,29 +261,16 @@ __device__ void load_rays(const Net& net, const Smem& sm, const float* rays_o,
   __syncthreads();
 }
 
-// One tile of P points: PE -> trunk -> view branch -> heads -> sm.raw.
-__device__ void mlp_tile(const Net& net, const Smem& sm, int tile_base,
-                         int n_pts, int S, int rb, int warp, int lane,
-                         int tid) {
+// The MLP of one tile whose PE is in sm.pe: trunk -> view branch -> heads.
+// View layer 0 adds `view_bias` (per column, or per ray with bias_ld != 0)
+// and, when sm.ped_tile is set, the per-point product ped @ wv0d in its
+// accumulator. Row p of the tile writes raw[(tile_base + p) * 4 + 0..3]
+// if tile_base + p < n_pts.
+static __device__ void mlp_core(const Net& net, const Smem& sm,
+                                const float* view_bias, int bias_ld,
+                                int tile_base, int n_pts, int S, int rb,
+                                float* raw, int warp, int lane) {
   float* scr = sm.scr + warp * 256;
-
-  // PE of the tile's points x = o + z d, in f32; rows past the block's
-  // valid points are zeros and are never read back.
-  for (int e = tid; e < P * PE_PAD; e += NTHREADS) {
-    const int row = e / PE_PAD, k = e - row * PE_PAD;
-    const int p = tile_base + row;
-    float v = 0.f;
-    if (p < n_pts) {
-      const int r = p / S;
-      const float zz = sm.z[p];
-      const float x[3] = {sm.ro[r * 3] + zz * sm.rd[r * 3],
-                          sm.ro[r * 3 + 1] + zz * sm.rd[r * 3 + 1],
-                          sm.ro[r * 3 + 2] + zz * sm.rd[r * 3 + 2]};
-      v = pe_lane(x, k, net.multires);
-    }
-    sm.pe[e] = __float2bfloat16(v);
-  }
-  __syncthreads();
 
   // trunk; the skip layer is pe @ W_pe + h @ W_h in one accumulator
   bf16* h = sm.h0;
@@ -287,7 +302,11 @@ __device__ void mlp_tile(const Net& net, const Smem& sm, int tile_base,
     FragC acc[1][RT];
     zero<1>(acc);
     mma_k<1>(acc, h, W, W, wmat(net, SLOT_WV), WV, warp);
-    store_relu<1>(acc, hv, WV, sm.pv, WV, tile_base, S, rb, scr, warp, lane);
+    if (sm.ped_tile != nullptr)
+      mma_k<1>(acc, sm.ped_tile, PED_PAD, PED_PAD, wmat(net, SLOT_WV0D), WV,
+               warp);
+    store_relu<1>(acc, hv, WV, view_bias, bias_ld, tile_base, S, rb, scr,
+                  warp, lane);
   }
   __syncthreads();
   for (int v = 1; v < net.n_views; ++v) {
@@ -326,17 +345,42 @@ __device__ void mlp_tile(const Net& net, const Smem& sm, int tile_base,
     for (int e = lane; e < 64; e += 32) {
       const int rr = e >> 2, cc = e & 3;
       const int p = tile_base + warp * 16 + rr;
-      if (p < n_pts) sm.raw[p * 4 + cc] = scr[rr * 16 + cc] + bh[cc];
+      if (p < n_pts) raw[p * 4 + cc] = scr[rr * 16 + cc] + bh[cc];
     }
   }
   __syncthreads();
 }
 
+// One tile of P ray points: PE of x = o + z d -> mlp_core -> sm.raw.
+static __device__ void mlp_tile(const Net& net, const Smem& sm,
+                                int tile_base, int n_pts, int S, int rb,
+                                int warp, int lane, int tid) {
+  // PE in f32; rows past the block's valid points are zeros and are never
+  // read back.
+  for (int e = tid; e < P * PE_PAD; e += NTHREADS) {
+    const int row = e / PE_PAD, k = e - row * PE_PAD;
+    const int p = tile_base + row;
+    float v = 0.f;
+    if (p < n_pts) {
+      const int r = p / S;
+      const float zz = sm.z[p];
+      const float x[3] = {sm.ro[r * 3] + zz * sm.rd[r * 3],
+                          sm.ro[r * 3 + 1] + zz * sm.rd[r * 3 + 1],
+                          sm.ro[r * 3 + 2] + zz * sm.rd[r * 3 + 2]};
+      v = pe_lane(x, k, net.multires);
+    }
+    sm.pe[e] = __float2bfloat16(v);
+  }
+  __syncthreads();
+  mlp_core(net, sm, sm.pv, WV, tile_base, n_pts, S, rb, sm.raw, warp, lane);
+}
+
 // All tiles of the block's rays, then compositing: summary (R, 8) =
 // [rgb, acc, last_w, depth, 0, 0] and weights (R, S), one thread per ray.
-__device__ void render_block(const Net& net, const Smem& sm, const float* bc,
-                             float* summary, float* weights, int ray0, int nr,
-                             int S, int rb, int warp, int lane, int tid) {
+static __device__ void render_block(const Net& net, const Smem& sm,
+                                    const float* bc, float* summary,
+                                    float* weights, int ray0, int nr, int S,
+                                    int rb, int warp, int lane, int tid) {
   const int n_pts = nr * S;
   for (int base = 0; base < n_pts; base += P)
     mlp_tile(net, sm, base, n_pts, S, rb, warp, lane, tid);
@@ -389,8 +433,8 @@ __device__ void render_block(const Net& net, const Smem& sm, const float* bc,
 // coarse depths). u ascends, each sample is a short scan over the cdf, and
 // the union is sorted by rank: element e lands at #{f: v_f < v_e} plus the
 // equal values before it, which equals a stable sort of the concatenation.
-__device__ void hier_depths(const Smem& sm, float* z_all, int ray0, int nr,
-                            int S, int n_imp, int tid) {
+static __device__ void hier_depths(const Smem& sm, float* z_all, int ray0,
+                                   int nr, int S, int n_imp, int tid) {
   const int B = S - 1;  // bin mids; cdf[0] = 0
   for (int r = tid; r < nr; r += NTHREADS) {
     const float* w = sm.w + r * S;
@@ -447,6 +491,26 @@ __device__ void hier_depths(const Smem& sm, float* z_all, int ray0, int nr,
     }
     z_all[static_cast<size_t>(ray0 + r) * SU + rank] = v;
   }
+}
+
+inline Net make_net(const unsigned long long* slots, int depth, int n_views,
+                    int multires, int multires_views, int softplus) {
+  Net net;
+  for (int i = 0; i < NSLOTS; ++i)
+    net.slot[i] = reinterpret_cast<const void*>(slots[i]);
+  net.depth = depth;
+  net.n_views = n_views;
+  net.multires = multires;
+  net.multires_views = multires_views;
+  net.softplus = softplus;
+  return net;
+}
+
+template <typename K>
+inline cudaError_t prepare(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace fr

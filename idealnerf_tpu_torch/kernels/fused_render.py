@@ -92,54 +92,79 @@ def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(w, (0, 0, 0, rows - w.shape[0]))
 
 
-def pack_operands(model, folded: Dict, cfg) -> PackedNet:
-    """FaceNeRF module + folded biases -> PackedNet (f32 params are cast
-    to bf16 here, as the JAX wrapper casts them)."""
+def model_leaves(model, folded: Dict, cfg) -> List[torch.Tensor]:
+    """The tensors the packed operands are made of, in a fixed order:
+    trunk weights (D), folded trunk biases (D), view weights (V), the
+    folded view-layer-0 bias and the other view biases (V), then the alpha
+    weight and bias and the rgb weight and bias. Weights are nn.Linear
+    layouts (out, in)."""
     if not cfg.use_viewdirs:
-        raise ValueError("the fused render covers the use_viewdirs path")
+        raise ValueError("the fused kernels cover the use_viewdirs path")
+    views = model.views_linears
+    return ([lin.weight for lin in model.pts_linears]
+            + list(folded["b_pts"])
+            + [lin.weight for lin in views]
+            + [folded["b_view0"]] + [lin.bias for lin in views[1:]]
+            + [model.alpha_linear.weight, model.alpha_linear.bias,
+               model.rgb_linear.weight, model.rgb_linear.bias])
+
+
+def pack_leaves(cfg, leaves, dtype=torch.bfloat16) -> PackedNet:
+    """model_leaves(...) -> PackedNet with weights in ``dtype`` (bf16 for
+    the forward kernels; bf16 or f32 for the gradient kernel) and f32
+    biases. Detached: gradients reach the leaves through
+    kernels/fused_mlp_grad.py's autograd Function."""
     if cfg.input_ch > PE_PAD or cfg.input_ch_views > PED_PAD:
         raise ValueError(
             f"PE widths {cfg.input_ch}/{cfg.input_ch_views} exceed the "
             f"kernel's {PE_PAD}/{PED_PAD} lanes (multires <= 10, "
             "multires_views <= 4)")
-    bf, pe, in_all, W = torch.bfloat16, cfg.input_ch, cfg.input_ch_all, cfg.width
-    with torch.no_grad():
-        lin = model.pts_linears
-        w, b, wskip = [], [], {}
-        for i in range(cfg.depth):
-            wt = lin[i].weight.detach()
-            if i == 0:
-                w.append(_pad_rows(wt[:, :pe].T, PE_PAD))
-            elif (i - 1) in cfg.skips:
-                w.append(wt[:, in_all:].T)
-                wskip[i] = _pad_rows(wt[:, :pe].T, PE_PAD).to(bf).contiguous()
-            else:
-                w.append(wt.T)
-            b.append(folded["b_pts"][i].detach().float().contiguous())
-        w = [x.to(bf).contiguous() for x in w]
+    D, pe, in_all, W = cfg.depth, cfg.input_ch, cfg.input_ch_all, cfg.width
+    nv = 1 + D // 4
+    if len(leaves) != 2 * D + 2 * nv + 4:
+        raise ValueError(f"expected {2 * D + 2 * nv + 4} leaves, got "
+                         f"{len(leaves)}")
+    leaves = [x.detach() for x in leaves]
+    wp, bp = leaves[:D], leaves[D:2 * D]
+    wvs, bvs = leaves[2 * D:2 * D + nv], leaves[2 * D + nv:2 * D + 2 * nv]
+    wa, ba, wr, br = leaves[2 * D + 2 * nv:]
 
-        views = model.views_linears
-        wv0 = views[0].weight.detach()
-        wv = [wv0[:, :W].T] + [layer.weight.detach().T for layer in views[1:]]
-        wv = [x.to(bf).contiguous() for x in wv]
-        bv = [folded["b_view0"].detach().float()] + [
-            layer.bias.detach().float() for layer in views[1:]]
-        wv0d = _pad_rows(wv0[:, W: W + cfg.input_ch_views].T, PED_PAD)
+    def cast(x):
+        return x.to(dtype).contiguous()
 
-        dev = wv0.device
-        w_alpha = torch.zeros((W, HEADS), dtype=torch.float32, device=dev)
-        w_alpha[:, 3] = model.alpha_linear.weight.detach()[0].float()
-        w_rgb = torch.zeros((W // 2, HEADS), dtype=torch.float32, device=dev)
-        w_rgb[:, :3] = model.rgb_linear.weight.detach().T.float()
-        b_heads = torch.zeros((HEADS,), dtype=torch.float32, device=dev)
-        b_heads[:3] = model.rgb_linear.bias.detach().float()
-        b_heads[3] = model.alpha_linear.bias.detach()[0].float()
+    w, wskip = [], {}
+    for i in range(D):
+        if i == 0:
+            w.append(_pad_rows(wp[i][:, :pe].T, PE_PAD))
+        elif (i - 1) in cfg.skips:
+            w.append(wp[i][:, in_all:].T)
+            wskip[i] = cast(_pad_rows(wp[i][:, :pe].T, PE_PAD))
+        else:
+            w.append(wp[i].T)
+    wv = [wvs[0][:, :W].T] + [x.T for x in wvs[1:]]
+    wv0d = _pad_rows(wvs[0][:, W: W + cfg.input_ch_views].T, PED_PAD)
+    dev = wa.device
+    w_alpha = torch.zeros((W, HEADS), dtype=torch.float32, device=dev)
+    w_alpha[:, 3] = wa[0].float()
+    w_rgb = torch.zeros((W // 2, HEADS), dtype=torch.float32, device=dev)
+    w_rgb[:, :3] = wr.T.float()
+    b_heads = torch.zeros((HEADS,), dtype=torch.float32, device=dev)
+    b_heads[:3] = br.float()
+    b_heads[3] = ba[0].float()
     return PackedNet(
-        w=w, b=b, wskip=wskip, wv=wv, bv=[x.contiguous() for x in bv],
-        wv0d=wv0d.to(bf).contiguous(), w_alpha=w_alpha.to(bf),
-        w_rgb=w_rgb.to(bf), b_heads=b_heads, multires=cfg.multires,
-        multires_views=cfg.multires_views,
+        w=[cast(x) for x in w], b=[x.float().contiguous() for x in bp],
+        wskip=wskip, wv=[cast(x) for x in wv],
+        bv=[x.float().contiguous() for x in bvs], wv0d=cast(wv0d),
+        w_alpha=cast(w_alpha), w_rgb=cast(w_rgb), b_heads=b_heads,
+        multires=cfg.multires, multires_views=cfg.multires_views,
         softplus=cfg.density_activation == "softplus")
+
+
+def pack_operands(model, folded: Dict, cfg) -> PackedNet:
+    """FaceNeRF module + folded biases -> PackedNet (f32 params are cast
+    to bf16 here, as the JAX wrapper casts them)."""
+    with torch.no_grad():
+        return pack_leaves(cfg, model_leaves(model, folded, cfg))
 
 
 # ----------------------------------------------------------- plain versions
@@ -273,8 +298,9 @@ def _check_rays(name: str, net: PackedNet, **tensors) -> torch.device:
 
 
 def _slots(net: PackedNet, device):
-    """Operands flattened into one bf16 and one f32 buffer (each matrix
-    128-element aligned for wmma loads) -> (ctypes slot table, buffers)."""
+    """Operands flattened into one weight buffer (bf16, or f32 for the
+    gradient kernel's f32 variant) and one f32 bias buffer, each matrix
+    128-element aligned for wmma loads -> (ctypes slot table, buffers)."""
     wmats = {_SLOT_W + i: x for i, x in enumerate(net.w)}
     wmats.update({_SLOT_WSKIP + i: x for i, x in net.wskip.items()})
     wmats.update({_SLOT_WV + v: x for v, x in enumerate(net.wv)})
@@ -294,11 +320,12 @@ def _slots(net: PackedNet, device):
             n += flat.numel() + pad
         return torch.cat(chunks), offs
 
-    wbuf, woffs = flatten(wmats, torch.bfloat16, 128)
+    wdtype = net.w[0].dtype
+    wbuf, woffs = flatten(wmats, wdtype, 128)
     fbuf, foffs = flatten(fvecs, torch.float32, 32)
     table = (ctypes.c_ulonglong * _NSLOTS)()
     for slot, off in woffs.items():
-        table[slot] = wbuf.data_ptr() + 2 * off
+        table[slot] = wbuf.data_ptr() + wbuf.element_size() * off
     for slot, off in foffs.items():
         table[slot] = fbuf.data_ptr() + 4 * off
     return table, (wbuf, fbuf)

@@ -7,8 +7,8 @@ expr/3 ‖ latent; density head from the trunk; colour head = trunk feature
 Within a frame the conditioning vector is the same for every sample
 point, so ``fold_conditioning`` adds its contribution to the biases of
 the layers that see it, once per frame, and ``apply_folded`` runs an
-unconditioned point MLP. The fused render kernels consume the folded
-form. Weights are ``nn.Linear`` layouts, (out, in).
+unconditioned point MLP. The fused kernels consume the folded form.
+Weights are ``nn.Linear`` layouts, (out, in).
 """
 
 from __future__ import annotations
@@ -19,6 +19,9 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
+from idealnerf_tpu_torch.core.embedding import positional_encoding
+from idealnerf_tpu_torch.kernels.fused_mlp import fused_point_mlp
+from idealnerf_tpu_torch.kernels.fused_mlp_grad import fused_point_mlp_train
 from idealnerf_tpu_torch.models.nn import init_weights_
 
 
@@ -173,3 +176,68 @@ def apply_face_nerf(model: FaceNeRF, cfg: FaceNeRFConfig, pe_pts,
     unconditioned point MLP."""
     folded = fold_conditioning(model, cfg, aud, expr, latent)
     return apply_folded(model, folded, cfg, pe_pts, pe_dirs)
+
+
+def make_field_fn(
+    model: FaceNeRF,
+    cfg: FaceNeRFConfig,
+    aud: Optional[torch.Tensor] = None,
+    expr: Optional[torch.Tensor] = None,
+    latent: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    use_pallas=False,
+):
+    """Close the model and its conditioning into the renderer's signature
+    ``field_fn(pts (R, S, 3), viewdirs (R, 3)) -> raw (R, S, 4)``.
+
+    ``use_pallas`` keeps the JAX package's name for the fused path:
+    "train" / "train_bf16" = the differentiable fused kernel pair with an
+    f32 / bf16 rematerialising backward (kernels/fused_mlp_grad.py), True =
+    the fused forward kernel without gradient (kernels/fused_mlp.py),
+    False = the plain autograd MLP. ``compute_dtype`` casts the parameters
+    and inputs of the plain path (the kernels fix their own types)."""
+    if use_pallas not in (False, True, "train", "train_bf16"):
+        raise ValueError(f"use_pallas must be False, True, 'train' or "
+                         f"'train_bf16', got {use_pallas!r}")
+    fused = bool(use_pallas)
+    if fused and not cfg.use_viewdirs:
+        raise ValueError("the fused kernels cover the use_viewdirs path; "
+                         "use_pallas=False (train_fused 0) runs without it")
+    if fused and compute_dtype is not None:
+        raise ValueError("compute_dtype applies to the plain path only")
+    if compute_dtype is not None:
+        cast = {k: v.to(compute_dtype) for k, v in model.named_parameters()}
+
+        def fold_and_apply(pe_pts, pe_dirs):
+            return torch.func.functional_call(
+                model, cast, (pe_pts, pe_dirs, aud, expr, latent))
+    else:
+        folded = fold_conditioning(model, cfg, aud, expr, latent)
+
+        def fold_and_apply(pe_pts, pe_dirs):
+            return apply_folded(model, folded, cfg, pe_pts, pe_dirs)
+
+    def field_fn(pts, viewdirs):
+        R, S, _ = pts.shape
+        flat = pts.reshape(R * S, 3)
+        dirs = None
+        if cfg.use_viewdirs:
+            dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(R * S, 3)
+        if fused:
+            flat, dirs = flat.float().contiguous(), dirs.float().contiguous()
+            if use_pallas in ("train", "train_bf16"):
+                gd = (torch.bfloat16 if use_pallas == "train_bf16"
+                      else torch.float32)
+                raw = fused_point_mlp_train(cfg, model, folded, flat, dirs, gd)
+            else:
+                raw = fused_point_mlp(model, folded, cfg, flat, dirs)
+            return raw.reshape(R, S, 4)
+        if compute_dtype is not None:
+            flat = flat.to(compute_dtype)
+            dirs = dirs.to(compute_dtype) if dirs is not None else None
+        pe_pts = positional_encoding(flat, cfg.multires)
+        pe_dirs = (positional_encoding(dirs, cfg.multires_views)
+                   if dirs is not None else None)
+        return fold_and_apply(pe_pts, pe_dirs).reshape(R, S, 4).float()
+
+    return field_fn

@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from idealnerf_tpu_torch.models.face_nerf import FaceNeRFConfig
+from idealnerf_tpu_torch.models.face_nerf import FaceNeRFConfig, make_field_fn
 
 VARIANTS = ("face_nerf", "face_nerf_agg", "attention_nerf")
 
@@ -41,3 +41,26 @@ def variant_conditioning(
     """-> (aud_arg, expr_arg) to feed the variant's FaceNeRF config."""
     _check(cfg.model_variant)
     return aud_feature, expr
+
+
+def build_field_fns(
+    params,
+    cfg,
+    aud_feature: Optional[torch.Tensor],
+    expr: Optional[torch.Tensor],
+    latent: Optional[torch.Tensor],
+    compute_dtype=None,
+    use_pallas=False,
+):
+    """(coarse_fn, fine_fn) for the configured variant (see make_field_fn
+    for ``use_pallas``); fine_fn is None without a "fine" network."""
+    ncfg = variant_nerf_config(cfg)
+    aud_arg, expr_arg = variant_conditioning(params, cfg, aud_feature, expr)
+
+    def mk(model):
+        return make_field_fn(model, ncfg, aud_arg, expr_arg, latent,
+                             compute_dtype=compute_dtype,
+                             use_pallas=use_pallas)
+
+    return mk(params["coarse"]), (mk(params["fine"]) if "fine" in params
+                                  else None)

@@ -1,0 +1,204 @@
+"""The training path of the port's fused point MLP
+(kernels/fused_mlp_grad.py: autograd Function = fused forward +
+rematerialising backward) against the JAX package's custom VJP
+(fused_point_mlp_train, Pallas in interpret mode) and against f32 autograd
+of the plain MLP. On the CPU both passes run their plain versions, which
+round at the kernels' points. Bounds, as tests/test_fused_mlp_grad.py:
+1e-4 norm-relative per leaf for the f32 backward, 0.15 for the bf16 one;
+conditioning gradients within 0.05 of their maximum, and nonzero."""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from idealnerf_tpu.core.embedding import positional_encoding as jax_pe
+from idealnerf_tpu.kernels.fused_mlp_grad import (
+    fused_point_mlp_train as jax_train,
+)
+from idealnerf_tpu.models import face_nerf as jax_fn
+from idealnerf_tpu_torch import bridge
+from idealnerf_tpu_torch.core.embedding import positional_encoding
+from idealnerf_tpu_torch.kernels import fused_mlp_grad as fmg
+from idealnerf_tpu_torch.kernels.fused_render import (
+    HEADS, PackedNet, model_leaves, pack_leaves,
+)
+from idealnerf_tpu_torch.models.face_nerf import (
+    FaceNeRF, FaceNeRFConfig, apply_folded, fold_conditioning,
+)
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 0.15}
+JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+DIMS = dict(depth=8, width=256, dim_aud=16, dim_expr=8, dim_latent=4)
+
+
+def _setup(seed=0, n=128):
+    jcfg, cfg = jax_fn.FaceNeRFConfig(**DIMS), FaceNeRFConfig(**DIMS)
+    jparams = jax_fn.init_face_nerf(jax.random.PRNGKey(seed), jcfg)
+    model = bridge.load_module_(FaceNeRF(cfg),
+                                jax.tree.map(np.asarray, jparams))
+    rng = np.random.RandomState(seed + 10)
+    pts = rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32)
+    dirs = rng.randn(n, 3).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    cond = (rng.randn(16).astype(np.float32) * 0.3,
+            rng.randn(8).astype(np.float32) * 0.3,
+            np.full(4, 0.1, np.float32))
+    # a fixed non-uniform cotangent so every output lane matters
+    w = (np.linspace(0.5, 1.5, n)[:, None]
+         * np.asarray([1.0, -0.7, 0.3, 0.05])).astype(np.float32)
+    return jcfg, jparams, cfg, model, pts, dirs, cond, w
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _port_grads(cfg, model, pts, dirs, cond, w, grad_dtype=None):
+    """Parameter gradients of sum(raw * w) in the JAX tree layout: through
+    fused_point_mlp_train, or through f32 autograd with grad_dtype=None."""
+    model.zero_grad(set_to_none=True)
+    folded = fold_conditioning(model, cfg, *map(_t, cond))
+    if grad_dtype is None:
+        raw = apply_folded(model, folded, cfg,
+                           positional_encoding(_t(pts), cfg.multires),
+                           positional_encoding(_t(dirs), cfg.multires_views))
+    else:
+        raw = fmg.fused_point_mlp_train(cfg, model, folded, _t(pts),
+                                        _t(dirs), grad_dtype)
+    (raw * _t(w)).sum().backward()
+    holder = copy.deepcopy(model)
+    with torch.no_grad():
+        for p, q in zip(holder.parameters(), model.parameters()):
+            p.copy_(q.grad)
+    return bridge.module_to_tree(holder)
+
+
+def _jax_grads(jcfg, jparams, pts, dirs, cond, w, grad_dtype):
+    def loss(params):
+        folded = jax_fn.fold_conditioning(params, jcfg,
+                                          *map(jnp.asarray, cond))
+        raw = jax_train(jcfg, params, folded, jnp.asarray(pts),
+                        jnp.asarray(dirs), 128, True, grad_dtype)
+        return jnp.sum(raw * jnp.asarray(w))
+
+    with jax.default_matmul_precision("highest"):
+        return jax.tree.map(np.asarray, jax.grad(loss)(jparams))
+
+
+def _norm_rel(got, ref):
+    out = {}
+    for (path, r), g in zip(jax.tree_util.tree_leaves_with_path(ref),
+                            jax.tree.leaves(got)):
+        r, g = np.asarray(r, np.float32).ravel(), np.asarray(g).ravel()
+        out[jax.tree_util.keystr(path)] = (np.linalg.norm(g - r)
+                                           / (np.linalg.norm(r) + 1e-9))
+    return out
+
+
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_matches_jax_vjp_and_autograd(grad_dtype):
+    jcfg, jparams, cfg, model, pts, dirs, cond, w = _setup()
+    got = _port_grads(cfg, model, pts, dirs, cond, w, grad_dtype)
+    ref_autograd = _port_grads(cfg, model, pts, dirs, cond, w)
+    ref_jax = _jax_grads(jcfg, jparams, pts, dirs, cond, w,
+                         JAX_DTYPE[grad_dtype])
+    for ref, what in ((ref_jax, "JAX VJP"), (ref_autograd, "f32 autograd")):
+        assert jax.tree.structure(ref) == jax.tree.structure(got)
+        for name, err in _norm_rel(got, ref).items():
+            assert err < TOL[grad_dtype], f"{name} vs {what}: {err:.3e}"
+
+
+def test_conditioning_gradients_flow():
+    """d(loss)/d(aud, expr, latent) reaches the conditioning through the
+    folded biases and matches the JAX package's plain path."""
+    jcfg, jparams, cfg, model, pts, dirs, cond, w = _setup(seed=1)
+
+    def jax_loss(c):
+        folded = jax_fn.fold_conditioning(jparams, jcfg, *c)
+        raw = jax_fn.apply_folded(jparams, folded, jcfg,
+                                  jax_pe(jnp.asarray(pts), jcfg.multires),
+                                  jax_pe(jnp.asarray(dirs),
+                                         jcfg.multires_views))
+        return jnp.sum(raw * jnp.asarray(w))
+
+    with jax.default_matmul_precision("highest"):
+        refs = jax.grad(jax_loss)(tuple(map(jnp.asarray, cond)))
+    for grad_dtype in (torch.float32, torch.bfloat16):
+        c = [_t(x).requires_grad_(True) for x in cond]
+        folded = fold_conditioning(model, cfg, *c)
+        raw = fmg.fused_point_mlp_train(cfg, model, folded, _t(pts),
+                                        _t(dirs), grad_dtype)
+        (raw * _t(w)).sum().backward()
+        for x, ref, name in zip(c, refs, ("aud", "expr", "latent")):
+            ref = np.asarray(ref)
+            scale = np.abs(ref).max() + 1e-6
+            assert np.abs(x.grad.numpy() - ref).max() / scale < 0.05, name
+            assert np.abs(x.grad.numpy()).max() > 0, f"{name} is zero"
+
+
+def test_points_and_directions_get_no_gradient():
+    _, _, cfg, model, pts, dirs, cond, _ = _setup(seed=2, n=64)
+    p, d = _t(pts).requires_grad_(True), _t(dirs).requires_grad_(True)
+    folded = fold_conditioning(model, cfg, *map(_t, cond))
+    raw = fmg.fused_point_mlp_train(cfg, model, folded, p, d)
+    (raw ** 2).mean().backward()
+    assert p.grad is None and d.grad is None
+    assert float(model.pts_linears[0].weight.grad.abs().max()) > 0
+
+
+def test_unpack_puts_each_packed_gradient_on_its_leaf():
+    """Each packed operand's gradient lands on its nn.Linear weight (as a
+    transpose) or folded bias; conditioning columns stay zero."""
+    cfg = FaceNeRFConfig(depth=6, width=32, dim_aud=5, dim_expr=3,
+                         dim_latent=2)
+    model = FaceNeRF(cfg, torch.Generator().manual_seed(0))
+    folded = fold_conditioning(model, cfg, torch.ones(5), torch.ones(3),
+                               torch.ones(2))
+    leaves = model_leaves(model, folded, cfg)
+    shape_net = pack_leaves(cfg, leaves, torch.float32)
+    counter = iter(range(1, 10 ** 6))
+
+    def marked(x):
+        return torch.full(x.shape, float(next(counter)))
+
+    g = PackedNet(
+        w=[marked(x) for x in shape_net.w], b=[marked(x) for x in shape_net.b],
+        wskip={i: marked(x) for i, x in shape_net.wskip.items()},
+        wv=[marked(x) for x in shape_net.wv],
+        bv=[marked(x) for x in shape_net.bv], wv0d=marked(shape_net.wv0d),
+        w_alpha=marked(shape_net.w_alpha), w_rgb=marked(shape_net.w_rgb),
+        b_heads=torch.arange(HEADS, dtype=torch.float32),
+        multires=10, multires_views=4, softplus=False)
+    out = fmg.unpack_grads(g, cfg, leaves)
+    assert [o.shape for o in out] == [x.shape for x in leaves]
+    pe, in_all, W, D = cfg.input_ch, cfg.input_ch_all, cfg.width, cfg.depth
+    assert torch.all(out[0][:, :pe] == g.w[0][0, 0])
+    assert torch.all(out[0][:, pe:] == 0)                 # conditioning
+    skip = 1 + cfg.skips[0]
+    assert torch.all(out[skip][:, :pe] == g.wskip[skip][0, 0])
+    assert torch.all(out[skip][:, pe:in_all] == 0)
+    assert torch.all(out[skip][:, in_all:] == g.w[skip][0, 0])
+    assert torch.all(out[1] == g.w[1][0, 0])
+    for i in range(D):
+        assert torch.equal(out[D + i], g.b[i])
+    nv = 1 + D // 4
+    v0 = out[2 * D]
+    assert torch.all(v0[:, :W] == g.wv[0][0, 0])
+    assert torch.all(v0[:, W:W + cfg.input_ch_views] == g.wv0d[0, 0])
+    assert torch.all(v0[:, W + cfg.input_ch_views:] == 0)  # expr/3 slice
+    assert torch.equal(out[2 * D + nv], g.bv[0])
+    wa, ba, wr, br = out[2 * D + 2 * nv:]
+    assert torch.all(wa == g.w_alpha[0, 0]) and ba.tolist() == [3.0]
+    assert torch.all(wr == g.w_rgb[0, 0]) and br.tolist() == [0.0, 1.0, 2.0]
+
+    layout, size = fmg._grad_layout(shape_net)
+    spans = sorted((off, off + int(np.prod(shape)))
+                   for off, shape in layout.values())
+    assert all(off % 64 == 0 for off, _ in spans)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= size

@@ -38,7 +38,7 @@ from idealnerf_tpu_torch.train.state import init_params
 
 TOL = 1e-5
 SMALL = dict(dim_aud=16, dim_expr=8, dim_latent=4, netdepth=6, netwidth=64)
-DROPPED = {"train_fused", "flat_optimizer", "sampler_approx"}
+DROPPED = {"flat_optimizer", "sampler_approx"}
 
 
 def _np_tree(tree):

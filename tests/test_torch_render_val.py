@@ -78,6 +78,11 @@ def test_render_val_cli_on_cpu(tmp_path):
     (["--head_ckpt", "ckpt"], "checkpoint"),
 ])
 def test_render_val_refuses_unported_modes(flags, item, tmp_path):
+    if "--head_ckpt" in flags:
+        # a directory of the JAX package's orbax checkpoints: reading those
+        # is still to be ported
+        os.makedirs(tmp_path / "ckpt" / "step_0000000100")
+        flags = ["--head_ckpt", str(tmp_path / "ckpt")]
     with pytest.raises(NotImplementedError, match=item):
         render_val.main(["--device", "cpu", "--synthetic", "1",
                          "--synthetic_hw", "8", *CLI_SMALL,
