@@ -44,9 +44,33 @@ non-zero and no result line is printed):
    launched twice per step; the checkpoint it writes then renders one
    frame through ``render_val.main --head_ckpt`` with a finite PSNR. Then
    torch.profiler over one training step (table in chiprun_out/).
+9. the temporal delta kernel against its plain version (depth placement,
+   fine pass, next band) on the phase-2 rays and a ragged 1,001 at the
+   serving default s_delta 16 (3 uniform + 12 importance depths + the
+   plate pin): the previous frame's (z, w) first from a real coarse +
+   fine keyframe (192 wide), then from the kernel's own output (16 wide);
+   also a softplus field and s_delta 17 (a union of 16 depths). Depths are
+   held to 2e-6 against the plain placement, the render to 3e-2 and rgb
+   correlation > 0.999, the band to 2e-6 against the plain band of the
+   kernel's own depths and weights. Timed at ``--rays`` and at the
+   129,024 prior rays of a 450x450 frame.
+10. the serving slice: ``idealnerf_tpu_torch.cli.serve.main`` streams
+   ``--serve_frames`` synthetic frames of 450² at full width under the
+   serving defaults (refresh 25, s_delta 16, prior on, AudioAttNet
+   smoothing). Past its warm-up (keyframe, then two delta frames) the
+   coarse and fine kernels must launch once per keyframe and the delta
+   kernel once per delta frame, and every frame must be finite. Then
+   ``--roll_k 4 --max_frames 10``: after frame 0 all three launch once per
+   frame. A delta frame at the keyframe's own pose (rotated, off-centre
+   principal point, s_delta 32) must stay above 20 dB PSNR against the
+   keyframe. Then torch.profiler over one steady delta frame.
 
-Then the kernel summary as one JSON line, the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``. With no CUDA device it exits 1.
+Then the kernel summary as one JSON line (each kernel's launches on its
+path, its max error, its time and its plain version's, and its bound: the
+larger of the bytes it must move over 3.35 TB/s and its multiply-adds at
+989 TFLOP/s bf16, the H100 SXM data sheet's rates), the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``. With no CUDA device it
+exits 1.
 """
 
 from __future__ import annotations
@@ -83,7 +107,20 @@ KERNELS = {
         "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp_grad.cu",
         "replaces": "idealnerf_tpu/kernels/fused_mlp_grad.py:178",
     },
+    "fused_render_delta": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
+        "replaces": "idealnerf_tpu/kernels/fused_render.py:604",
+    },
 }
+PEAK_FLOPS = 989e12     # bf16 dense, H100 SXM
+HBM_BYTES_S = 3.35e12
+# launches of stream.warmup(): keyframe -> first delta -> steady delta, and
+# with --roll_k: keyframe -> two rolling frames
+WARMUP = {"fused_render_coarse_hier": 1, "fused_render_rays": 1,
+          "fused_render_delta": 2}
+WARMUP_ROLL = {"fused_render_coarse_hier": 3, "fused_render_rays": 3,
+               "fused_render_delta": 2}
+MIN_GEOMETRY_PSNR = 20.0
 
 
 def _smi() -> str:
@@ -171,6 +208,236 @@ def _profile(run, label: str, fname: str) -> dict:
           "time: " + "; ".join(f"{k[:40]} {ms:.2f} ms x{n}"
                                for k, ms, n in out["top"]))
     return out
+
+
+def _mlp_macs(ncfg):
+    """(multiply-adds per point, per ray) of the field: the trunk with its
+    skip input, the view branch and the heads per point; the view layer's
+    dir-PE part per ray (the point kernels pay it per point)."""
+    W, D, V = ncfg.width, ncfg.depth, ncfg.width // 2
+    pt = ncfg.input_ch * W + (D - 1) * W * W + W * V + (D // 4) * V * V
+    pt += sum(ncfg.input_ch * W for i in range(1, D) if i - 1 in ncfg.skips)
+    return pt + W + 3 * V, ncfg.input_ch_views * V
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: operations at the bf16 dense
+    peak or bytes at the memory rate, whichever is longer."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / HBM_BYTES_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _weight_bytes(ncfg) -> int:
+    """bf16 weights and f32 biases, each read once."""
+    pt, ray = _mlp_macs(ncfg)
+    V = ncfg.width // 2
+    return 2 * (pt + ray) + 4 * (ncfg.depth * ncfg.width
+                                 + (1 + ncfg.depth // 4) * V + 4)
+
+
+def _ray_bound(ncfg, rays: int, S: int, cols_in: int, cols_out: int):
+    """Bound of a ray kernel: ``rays`` rays of S samples, reading
+    ``cols_in`` and writing ``cols_out`` f32 values per ray."""
+    pt, ray = _mlp_macs(ncfg)
+    return _bound(2.0 * rays * (S * pt + ray),
+                  _weight_bytes(ncfg) + 4.0 * rays * (cols_in + cols_out))
+
+
+def _point_bound(ncfg, n: int, passes: int, grads: bool):
+    """Bound of a point kernel on n points (pts, dirs in; raw out, or the
+    cotangent in and f32 weight gradients out): ``passes`` multiply-add
+    passes over the MLP (1 forward; 3 for the rematerialising backward)."""
+    pt, ray = _mlp_macs(ncfg)
+    nbytes = _weight_bytes(ncfg) + 4.0 * n * (6 + 4)
+    if grads:
+        nbytes += 2 * _weight_bytes(ncfg)
+    return _bound(2.0 * passes * n * (pt + ray), nbytes)
+
+
+def _delta_split(s_delta: int):
+    """(s_uni, s_imp) of a delta frame of s_delta depths, at the
+    renderers' default uni_frac 0.25."""
+    n_in = s_delta - 1
+    s_uni = max(2, int(n_in * 0.25))
+    return s_uni, n_in - s_uni
+
+
+def _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd, bc,
+                 prior) -> dict:
+    """Phase 9: the delta kernel against its plain version, then timed at
+    the phase-2 rays and at the prior rays of a 450x450 frame."""
+    import torch
+
+    from idealnerf_tpu_torch.core.composite import fg_band
+
+    print("phase 9 temporal delta kernel vs plain version")
+    span = far - near
+
+    def keyframe(c, o, d, b):
+        fc, ff = fold(nets["coarse"], c), fold(nets["fine"], c)
+        _, z = fr.fused_render_coarse_hier(nets["coarse"], fc, c, o, d, b,
+                                           near, far, n_s, n_i)
+        w = fr.fused_render_rays(nets["fine"], ff, c, o, d, z, b)["weights"]
+        return z, w
+
+    def band(z, w):
+        lo, hi, _ = fg_band(z, w)
+        return ((lo - 0.02 * span).clamp(near, far).contiguous(),
+                (hi + 0.02 * span).clamp(near, far).contiguous())
+
+    def check(tag, c, n, s_delta):
+        o, d, b = ro[:n], rd[:n], bc[:n]
+        s_uni, s_imp = _delta_split(s_delta)
+        ff = fold(nets["fine"], c)
+        z, w = keyframe(c, o, d, b)
+        err = 0.0
+        for _ in range(2):   # from the keyframe, then from its own output
+            lo, hi = band(z, w)
+            args = (nets["fine"], ff, c, o, d, z, w, lo, hi, b, far, s_uni,
+                    s_imp)
+            k = fr.fused_render_delta(*args)
+            p = fr.fused_render_delta_reference(*args)
+            print(f" fused_render_delta [{tag}, R={n}, s_prev {z.shape[1]}, "
+                  f"{s_uni} uniform + {s_imp} importance + plate]")
+            e = [_agree("z_vals vs plain placement", k["z_vals"],
+                        p["z_vals"], atol=Z_ATOL)]
+            e += [_agree(key, k[key], p[key], corr=key == "rgb_map") for key
+                  in ("rgb_map", "acc_map", "weights", "last_weight")]
+            b_lo, b_hi, _ = fg_band(k["z_vals"], k["weights"])
+            e.append(_agree("band_lo vs plain band of the kernel's z, w",
+                            k["band_lo"], b_lo, atol=Z_ATOL))
+            e.append(_agree("band_hi vs plain band of the kernel's z, w",
+                            k["band_hi"], b_hi, atol=Z_ATOL))
+            err = max(err, *e)
+            z, w = k["z_vals"], k["weights"]
+        torch.cuda.synchronize()
+        return err
+
+    sp = dataclasses.replace(ncfg, density_activation="softplus")
+    rays = ro.shape[0]
+    err = max(check("relu", ncfg, rays, 16),
+              check("relu, ragged", ncfg, min(1001, rays), 16),
+              check("softplus, ragged", sp, min(1001, rays), 16),
+              check("relu, ragged, union of 16", ncfg, min(1001, rays), 17))
+
+    # timing on steady-state inputs (s_prev 16), as a serving delta frame
+    s_uni, s_imp = _delta_split(16)
+    ff = fold(nets["fine"], ncfg)
+    out = {"max_abs_err": err}
+    for tag, (o, d, b) in (("phase-2 rays", (ro, rd, bc)),
+                           ("450x450 prior rays", prior)):
+        z, w = keyframe(ncfg, o, d, b)
+        lo, hi = band(z, w)
+        k = fr.fused_render_delta(nets["fine"], ff, ncfg, o, d, z, w, lo, hi,
+                                  b, far, s_uni, s_imp)
+        z, w = k["z_vals"], k["weights"]
+        lo, hi = band(z, w)
+        args = (nets["fine"], ff, ncfg, o, d, z, w, lo, hi, b, far, s_uni,
+                s_imp)
+        ms = _time_ms(lambda: fr.fused_render_delta(*args), 5)
+        pms = _time_ms(lambda: fr.fused_render_delta_reference(*args), 2)
+        n = o.shape[0]
+        bnd = _ray_bound(ncfg, n, 16, 9 + 2 * 16 + 2, 8 + 2 * 16)
+        print(f"  fused_render_delta at R={n} ({tag}), s_prev 16, 3+12+1: "
+              f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+              f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']} (CUDA events)")
+        out[n] = {"ms": ms, "plain_ms": pms, **bnd}
+        del z, w, k, args
+    torch.cuda.synchronize()
+    out.update(out[prior[0].shape[0]])
+    return out
+
+
+def _phase_serve(fr, nets, ncfg, cond, ds, prior_mask) -> dict:
+    """Phase 10: cli.serve.main under the serving defaults and rolling,
+    the delta geometry check, and a profiled steady delta frame."""
+    import numpy as np
+    import torch
+
+    from idealnerf_tpu_torch.cli import serve
+    from idealnerf_tpu_torch.eval.temporal import (
+        make_temporal_frame_renderer,
+    )
+
+    H, W = ds.hw
+    base = ["--synthetic", str(ds.size), "--synthetic_hw", str(H),
+            "--dim_aud", "64", "--dim_expr", "76", "--dim_latent", "32",
+            "--device", "cuda"]
+    out = {}
+    for tag, extra, warm in (("defaults", [], WARMUP),
+                             ("roll_k 4", ["--roll_k", "4", "--max_frames",
+                                           "10"], WARMUP_ROLL)):
+        fr.reset_launch_counts()
+        stats = serve.main(base + extra)
+        counts = dict(fr.launch_counts)
+        live = {k: counts[k] - warm[k] for k in warm}
+        n = stats["frames"]
+        if extra:
+            want = {"fused_render_coarse_hier": n, "fused_render_rays": n,
+                    "fused_render_delta": n - 1}
+        else:
+            want = {"fused_render_coarse_hier": stats["keyframes"],
+                    "fused_render_rays": stats["keyframes"],
+                    "fused_render_delta": stats["delta_frames"]}
+        print(f"phase 10 serve [{tag}]: {n} frames of {H}x{W}, "
+              f"{stats['keyframes']} keyframes + {stats['delta_frames']} "
+              f"delta frames; launches {counts} (live {live}, want {want}); "
+              f"p50 {stats['p50_ms']:.2f} ms, p95 {stats['p95_ms']:.2f} ms, "
+              f"steady {stats['steady_fps']:.2f} fps, keyframe "
+              f"{stats['keyframe_ms']} ms, delta p50 {stats['delta_p50_ms']}"
+              f" ms, warm-up {stats['warmup_s']:.2f} s")
+        if not stats["finite"]:
+            raise AssertionError(f"serve [{tag}] emitted a non-finite frame")
+        if live != want:
+            raise AssertionError(f"serve [{tag}] launched {live}, want {want}")
+        out[tag] = {"stats": stats, "launches": counts}
+
+    # a delta frame at the keyframe's own pose: the delta path's rays must
+    # be the keyframe's (rotated pose, off-centre principal point)
+    h = w = 64
+    th = 0.35
+    rot = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                    [-np.sin(th), 0, np.cos(th)]], np.float32)
+    pose = torch.from_numpy(np.concatenate(
+        [rot, np.array([[0.3], [0.1], [0.9]], np.float32)], 1)).cuda()
+    bc64 = torch.rand(h, w, 3, generator=torch.Generator().manual_seed(4))
+    tm = make_temporal_frame_renderer(ncfg, h, w, 96.0, 0.5, 1.5,
+                                      _render_cfg(), cx=w * 0.41,
+                                      cy=h * 0.57, s_delta=32)
+    kf, c0 = tm(nets, pose, bc64.cuda(), *cond)
+    dl, _ = tm(nets, pose, bc64.cuda(), *cond, cache=c0)
+    psnr = float(-10.0 * torch.log10(((kf - dl) ** 2).mean() + 1e-12))
+    print(f"  delta frame at the keyframe's pose (rotated, off-centre, "
+          f"s_delta 32, {h}x{w}): PSNR {psnr:.2f} dB against the keyframe "
+          f"(> {MIN_GEOMETRY_PSNR:g})")
+    if not psnr > MIN_GEOMETRY_PSNR:
+        raise AssertionError("delta-frame rays disagree with the keyframe's")
+    out["geometry_psnr"] = psnr
+
+    # one steady delta frame of the serving configuration, profiled
+    tm = make_temporal_frame_renderer(
+        ncfg, H, W, ds.focal, ds.near, ds.far, _render_cfg(), cx=ds.cx,
+        cy=ds.cy, prior_mask=prior_mask, s_delta=16)
+    pose = torch.from_numpy(ds.poses[1]).cuda()
+    bc = torch.from_numpy(ds.bc_img).cuda().float() / 255
+    _, c = tm(nets, torch.from_numpy(ds.poses[0]).cuda(), bc, *cond)
+    _, c = tm(nets, pose, bc, *cond, cache=c)
+    prof = _profile(lambda: tm(nets, pose, bc, *cond, cache=c),
+                    f"steady delta frame ({H}x{W}, prior, s_delta 16)",
+                    "profile_delta_frame.txt")
+    prof["k3_ms"] = sum(ms for k, ms, _ in prof["top"]
+                        if "k_render_delta" in k)
+    out["profile"] = prof
+    torch.cuda.synchronize()
+    return out
+
+
+def _render_cfg():
+    from idealnerf_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig(dim_aud=64, dim_expr=76,
+                            dim_latent=32).render_config()
 
 
 def _norm_rel(got, want) -> float:
@@ -373,6 +640,7 @@ def main(argv=None) -> int:
     ap.add_argument("--train_hw", type=int, default=450)
     ap.add_argument("--train_frames", type=int, default=4)
     ap.add_argument("--train_epochs", type=int, default=5)
+    ap.add_argument("--serve_frames", type=int, default=30)
     args = ap.parse_args(argv)
 
     import torch
@@ -386,7 +654,10 @@ def main(argv=None) -> int:
         from idealnerf_tpu_torch.core.rays import get_rays
         from idealnerf_tpu_torch.core.sampling import stratified_sample
         from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
-        from idealnerf_tpu_torch.eval.renderer import make_frame_renderer
+        from idealnerf_tpu_torch.eval.renderer import (
+            foreground_prior, make_frame_renderer,
+        )
+        from idealnerf_tpu_torch.eval.temporal import _prior_sel
         from idealnerf_tpu_torch.kernels import build as kbuild
         from idealnerf_tpu_torch.kernels import fused_mlp as fm
         from idealnerf_tpu_torch.kernels import fused_mlp_grad as fmg
@@ -500,7 +771,8 @@ def main(argv=None) -> int:
         "--synthetic", str(args.frames), "--synthetic_hw", str(args.hw),
         "--dim_aud", "64", "--dim_expr", "76", "--dim_latent", "32",
         "--device", "cuda", "--save_path", "output/chip_smoke"])
-    counts = dict(fr.launch_counts)
+    counts = {k: fr.launch_counts[k] for k in ("fused_render_coarse_hier",
+                                               "fused_render_rays")}
     print(f"phase 3 render_val: {args.frames} frames of {args.hw}x{args.hw}, "
           f"D=8 W=256 {n_s}+{n_i}: {res['frame_ms']:.1f} ms/frame after the "
           f"first, PSNR {res['psnr']:.3f}, SSIM {res['ssim']:.4f}, "
@@ -558,14 +830,46 @@ def main(argv=None) -> int:
     report["train"] = res8
     report["profile_train_step"] = _profile_train_step(args)
 
+    # ---- phases 9 and 10: the serving slice on the synthetic subject whose
+    # foreground prior holds 129,024 rays of the 450x450 frame
+    sds = make_synthetic_dataset(n_frames=args.serve_frames, H=450, W=450,
+                                 dim_expr=76)
+    mask, _ = foreground_prior(sds)
+    sel = torch.from_numpy(_prior_sel(mask, 450 * 450)).long().to(dev)
+    po, pd = get_rays(450, 450, sds.focal,
+                      torch.from_numpy(sds.poses[0]).to(dev), sds.cx, sds.cy)
+    pb = (torch.from_numpy(sds.bc_img).to(dev).float() / 255.0).reshape(-1, 3)
+    prior = tuple(x.reshape(-1, 3)[sel].contiguous() for x in (po, pd, pb))
+    res9 = _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd,
+                        bc, prior)
+    del prior, po, pd, pb
+    torch.cuda.empty_cache()
+    res10 = _phase_serve(fr, nets, ncfg, (aud, expr, latent), sds, mask)
+    report.update(delta=res9, serve=res10)
+
     counts.update(res8["launches"])
+    counts["fused_render_delta"] = (
+        res10["defaults"]["launches"]["fused_render_delta"])
     errs.update(fused_point_mlp=res6["max_abs_err"],
-                fused_point_mlp_grad=res7["max_abs_err"])
+                fused_point_mlp_grad=res7["max_abs_err"],
+                fused_render_delta=res9["max_abs_err"])
     times.update(fused_point_mlp=(res6["ms"], res6["plain_ms"]),
-                 fused_point_mlp_grad=(res7["ms"], res7["plain_ms"]))
+                 fused_point_mlp_grad=(res7["ms"], res7["plain_ms"]),
+                 fused_render_delta=(res9["ms"], res9["plain_ms"]))
+    S = n_s + n_i
+    bounds = {
+        "fused_render_coarse_hier": _ray_bound(ncfg, args.rays, n_s, 9,
+                                               8 + n_s + S),
+        "fused_render_rays": _ray_bound(ncfg, args.rays, S, 9 + S, 8 + S),
+        "fused_point_mlp": _point_bound(ncfg, args.points, 1, False),
+        "fused_point_mlp_grad": _point_bound(ncfg, args.points, 3, True),
+        "fused_render_delta": {k: res9[k] for k in ("bound_ms", "bound_by")},
+    }
+    # no single PyTorch call computes any of these functions
     kernels = [{"name": k, "route": "cuda", **KERNELS[k],
                 "launches": counts[k], "max_abs_err": errs[k],
-                "ms": times[k][0], "plain_ms": times[k][1]} for k in KERNELS]
+                "ms": times[k][0], "plain_ms": times[k][1], **bounds[k],
+                "library_ms": None} for k in KERNELS]
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:

@@ -100,3 +100,25 @@ def raw2outputs(
         depth_std=depth_std,
         depth_band=depth_band,
     )
+
+
+def fg_band(z_vals: torch.Tensor, weights: torch.Tensor,
+            q_lo: float = 0.02, q_hi: float = 0.98):
+    """Per-ray foreground depth band and mass (counterpart of
+    eval/temporal.py:fg_band): ``(lo, hi, fg_mass)``, where [lo, hi] holds
+    the central ``q_hi - q_lo`` of the ray's weight mass; the last (plate)
+    sample is excluded.
+
+    The cumulative weights are summed in float64 and rounded once: a
+    one-ulp change of a float32 running sum can flip ``cw >= q * total``
+    and move lo or hi by a whole sample gap, so the temporal delta kernel
+    sums them the same way and places the same band."""
+    w = weights[..., :-1]
+    z = z_vals[..., :-1]
+    cw = torch.cumsum(w.double(), dim=-1).to(w.dtype)
+    total = torch.clamp(cw[..., -1:], min=1e-10)
+    big = torch.full_like(z, 1e10)
+    lo = torch.amin(torch.where(cw >= q_lo * total, z, big), dim=-1)
+    hi = torch.amin(torch.where(cw >= q_hi * total, z, big), dim=-1)
+    return (torch.minimum(lo, z[..., -1]), torch.minimum(hi, z[..., -1]),
+            cw[..., -1])

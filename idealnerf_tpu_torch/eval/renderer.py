@@ -1,5 +1,5 @@
 """Full-frame rendering (counterpart of eval/renderer.py, the fused "ray"
-path of ``make_frame_renderer``).
+path of ``make_frame_renderer``) and the subject foreground prior.
 
 A frame is one whole-frame call pair of the fused kernels — the coarse
 pass with the importance depth placement, then the fine pass — with no
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from idealnerf_tpu_torch.core.rays import get_rays
@@ -49,3 +50,37 @@ def make_frame_renderer(
         return out["rgb_map"].reshape(H, W, 3)
 
     return render
+
+
+def foreground_prior(dataset, margin: int = 12, head_parse: bool = False):
+    """Subject foreground prior for masked rendering: the union of all
+    frames' face rects and torso masks, dilated by ``margin`` pixels ->
+    (mask (H, W) bool, k) with k the mask's pixel count padded to a
+    multiple of 256 (at most H*W).
+
+    ``head_parse``: replace each frame's face-rect box by the parse
+    silhouette clipped to it, where that silhouette covers at least 10 %
+    of the box."""
+    from scipy.ndimage import binary_dilation
+
+    H, W = dataset.hw
+    mask = np.zeros((H, W), bool)
+    parse = (np.asarray(dataset.torso_masks).astype(bool)
+             if head_parse else None)
+    for i in range(dataset.size):
+        x, y, w, h = [int(v) for v in dataset.face_rects[i]]
+        y0, y1 = max(y - margin, 0), min(y + h + margin, H)
+        x0, x1 = max(x - margin, 0), min(x + w + margin, W)
+        rect = np.zeros((H, W), bool)
+        rect[y0:y1, x0:x1] = True
+        if parse is not None:
+            sil = parse[i] & rect
+            if sil.sum() >= 0.10 * rect.sum():
+                mask |= sil
+                continue
+        mask |= rect
+    mask |= dataset.torso_masks.any(0).astype(bool)
+    mask = binary_dilation(mask, iterations=margin)
+    k = int(mask.sum())
+    k = min(H * W, ((k + 255) // 256) * 256)
+    return mask, k

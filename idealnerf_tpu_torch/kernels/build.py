@@ -110,7 +110,7 @@ def load_library() -> ctypes.CDLL:
     slots = ctypes.POINTER(ctypes.c_ulonglong)
     lib.fr_num_slots.argtypes = []
     lib.fr_num_slots.restype = i32
-    lib.fr_smem_bytes.argtypes = [i32, i32, i32, i32]
+    lib.fr_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
     lib.fr_smem_bytes.restype = ctypes.c_ulonglong
     lib.fr_error_string.argtypes = [i32]
     lib.fr_error_string.restype = ctypes.c_char_p
@@ -122,6 +122,10 @@ def load_library() -> ctypes.CDLL:
         vp, vp, vp, f32, f32, vp, vp, vp, i32, i32, i32, i32, slots, i32,
         i32, i32, i32, i32, vp]
     lib.fr_coarse_hier.restype = i32
+    lib.fr_render_delta.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, f32, f32, f32, vp, vp, vp, i32, i32, i32,
+        i32, i32, slots, i32, i32, i32, i32, i32, vp]
+    lib.fr_render_delta.restype = i32
     lib.fr_point_mlp_smem_bytes.argtypes = []
     lib.fr_point_mlp_smem_bytes.restype = ctypes.c_ulonglong
     lib.fr_point_mlp.argtypes = [vp, vp, vp, i32, slots, i32, i32, i32, i32,

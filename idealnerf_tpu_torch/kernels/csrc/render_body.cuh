@@ -2,7 +2,8 @@
 // fused_mlp_grad.cu): PE from ray packets or from points -> 8x256 trunk with
 // the skip layer -> view branch with a per-ray or per-point dir-PE term ->
 // packed heads -> alpha compositing, plus the inverse-CDF depth placement
-// that the coarse kernel appends.
+// that the coarse and delta kernels run and the delta kernel's foreground
+// band epilogue.
 //
 // Numeric contract (the same as the JAX package's Pallas kernels,
 // idealnerf_tpu/kernels/fused_render.py:_render_body):
@@ -85,8 +86,10 @@ struct Smem {
   float* z;      // (rb, S) depths
   float* raw;    // (rb, S, 4) [rgb logits, sigma]
   float* w;      // (rb, S) compositing weights
-  float* cdf;    // (rb, S-1) coarse kernel only
-  float* uni;    // (rb, S+n_imp) coarse kernel only: unsorted union
+  float* cdf;    // (rb, n_cdf) coarse and delta kernels: per-ray CDF
+  float* uni;    // (rb, n_union) coarse and delta kernels: unsorted union
+  float* zp;     // (rb, n_prev) delta kernel only: previous frame's depths
+  float* wp;     // (rb, n_prev) delta kernel only: previous frame's weights
   bf16* ped_tile;  // (P, PED_PAD) per-point dir-PE (point kernel only; the
                    // ray kernels add the per-ray term pv instead)
 };
@@ -95,18 +98,19 @@ struct Smem {
 // base to size the launch. Every region starts 128-byte aligned.
 __host__ __device__ inline size_t smem_layout(char* base, int rb, int S,
                                               int n_cdf, int n_union,
-                                              Smem* sm) {
-  const size_t sz[14] = {
+                                              int n_prev, Smem* sm) {
+  const size_t sz[16] = {
       sizeof(bf16) * P * PE_PAD, sizeof(bf16) * P * W, sizeof(bf16) * P * W,
       sizeof(float) * NWARP * 256,
       sizeof(float) * rb * 3, sizeof(float) * rb * 3, sizeof(float) * rb,
       sizeof(float) * rb * PED_PAD, sizeof(float) * rb * WV,
       sizeof(float) * rb * S, sizeof(float) * rb * S * 4,
       sizeof(float) * rb * S, sizeof(float) * rb * n_cdf,
-      sizeof(float) * rb * n_union};
-  size_t off[14];
+      sizeof(float) * rb * n_union, sizeof(float) * rb * n_prev,
+      sizeof(float) * rb * n_prev};
+  size_t off[16];
   size_t total = 0;
-  for (int i = 0; i < 14; ++i) {
+  for (int i = 0; i < 16; ++i) {
     off[i] = total;
     total += (sz[i] + 127) & ~static_cast<size_t>(127);
   }
@@ -125,6 +129,8 @@ __host__ __device__ inline size_t smem_layout(char* base, int rb, int S,
     sm->w = reinterpret_cast<float*>(base + off[11]);
     sm->cdf = reinterpret_cast<float*>(base + off[12]);
     sm->uni = reinterpret_cast<float*>(base + off[13]);
+    sm->zp = reinterpret_cast<float*>(base + off[14]);
+    sm->wp = reinterpret_cast<float*>(base + off[15]);
     sm->ped_tile = nullptr;
   }
   return total;
@@ -428,68 +434,148 @@ static __device__ void render_block(const Net& net, const Smem& sm,
     weights[static_cast<size_t>(ray0) * S + e] = sm.w[e];
 }
 
-// Fine depths from the coarse weights (sample_pdf with deterministic u over
-// the bin mids and weights[1:-1] + 1e-5, then the sorted union with the
-// coarse depths). u ascends, each sample is a short scan over the cdf, and
-// the union is sorted by rank: element e lands at #{f: v_f < v_e} plus the
-// equal values before it, which equals a stable sort of the concatenation.
-static __device__ void hier_depths(const Smem& sm, float* z_all, int ray0,
-                                   int nr, int S, int n_imp, int tid) {
-  const int B = S - 1;  // bin mids; cdf[0] = 0
+// Per-ray CDFs of the deterministic inverse-CDF draw (core/sampling.py:
+// sample_pdf) over the Sd - 1 bin mids of the depths z[0:Sd] with weights
+// w[1:Sd-1] + 1e-5; row r of z and w starts at r * ld, its CDF (Sd - 1
+// entries, cdf[0] = 0) at cdf + r * (Sd - 1). Summed in f64 and rounded
+// once, as sample_pdf does, so the summation order leaves no trace in the
+// f32 CDF; the last entry is pinned to 1, its exact value, as sample_pdf
+// pins it. One thread per ray.
+static __device__ void pdf_cdf(const float* z, const float* w, int ld, int Sd,
+                               float* cdf, int nr, int tid) {
+  const int B = Sd - 1;
   for (int r = tid; r < nr; r += NTHREADS) {
-    const float* w = sm.w + r * S;
-    float* c = sm.cdf + r * B;
-    // accumulated in f64 and rounded once, as core/sampling.py:sample_pdf
-    // does: the summation order then leaves no trace in the f32 CDF
+    const float* wr = w + r * ld;
+    float* c = cdf + r * B;
     double sum = 0.0;
-    for (int j = 1; j < S - 1; ++j) sum += static_cast<double>(w[j] + 1e-5f);
+    for (int j = 1; j < Sd - 1; ++j) sum += static_cast<double>(wr[j] + 1e-5f);
     double run = 0.0;
     c[0] = 0.f;
-    for (int j = 1; j < S - 1; ++j) {
-      run += static_cast<double>(w[j] + 1e-5f) / sum;
+    for (int j = 1; j < Sd - 1; ++j) {
+      run += static_cast<double>(wr[j] + 1e-5f) / sum;
       c[j] = static_cast<float>(run);
     }
-    c[B - 1] = 1.f;  // its exact value, as sample_pdf pins it
+    c[B - 1] = 1.f;
   }
-  __syncthreads();
+}
 
+// Depth j of n deterministic inverse-CDF samples over one ray's bins: u =
+// j / (n - 1), a short scan over the B-entry CDF c for the last edge with
+// c <= u (searchsorted right, minus one), then the linear step between the
+// bin mids of z.
+static __device__ float pdf_sample(const float* z, const float* c, int B,
+                                   int j, int n) {
+  const float u = __fdiv_rn(static_cast<float>(j), static_cast<float>(n - 1));
+  int lo = 0;
+  while (lo + 1 < B && c[lo + 1] <= u) ++lo;
+  const int hi = lo + 1 < B ? lo + 1 : B - 1;
+  const float bl = 0.5f * (z[lo] + z[lo + 1]);
+  const float bh = 0.5f * (z[hi] + z[hi + 1]);
+  float den = c[hi] - c[lo];
+  if (den < 1e-5f) den = 1.f;
+  // _rn intrinsics: no FMA contraction, each step rounded as the plain
+  // version rounds it
+  return __fadd_rn(bl, __fmul_rn(__fdiv_rn(__fsub_rn(u, c[lo]), den),
+                                 __fsub_rn(bh, bl)));
+}
+
+// Ascending sort of each ray's n values in vals (row stride n) by rank:
+// element e lands at #{f: v_f < v_e} plus the equal values before it,
+// which equals a stable sort. Row r goes to out + r * ldo.
+static __device__ void rank_sort(const float* vals, int n, float* out,
+                                 size_t ldo, int nr, int tid) {
+  for (int e = tid; e < nr * n; e += NTHREADS) {
+    const int r = e / n, j = e - r * n;
+    const float* uu = vals + r * n;
+    const float v = uu[j];
+    int rank = 0;
+    for (int f = 0; f < n; ++f) {
+      const float x = uu[f];
+      rank += (x < v) | ((x == v) & (f < j));
+    }
+    out[r * ldo + rank] = v;
+  }
+}
+
+// Fine depths from the coarse weights: sort(concat(z, sample_pdf(mids of z,
+// weights[1:-1], n_imp))) written to z_all (R, S + n_imp).
+static __device__ void hier_depths(const Smem& sm, float* z_all, int ray0,
+                                   int nr, int S, int n_imp, int tid) {
+  pdf_cdf(sm.z, sm.w, S, S, sm.cdf, nr, tid);
+  __syncthreads();
   const int SU = S + n_imp;
   for (int e = tid; e < nr * SU; e += NTHREADS) {
     const int r = e / SU, j = e - r * SU;
     const float* z = sm.z + r * S;
+    sm.uni[e] = j < S ? z[j]
+                      : pdf_sample(z, sm.cdf + r * (S - 1), S - 1, j - S, n_imp);
+  }
+  __syncthreads();
+  rank_sort(sm.uni, SU, z_all + static_cast<size_t>(ray0) * SU, SU, nr, tid);
+}
+
+// A delta frame's depths into sm.z (rb, S), S = s_imp + s_uni + 1:
+// s_imp inverse-CDF samples over the previous frame's per-ray (z, w) in
+// sm.zp / sm.wp (row stride s_prev; its last depth is the plate pin and is
+// no bin edge), s_uni depths lo + (hi - lo) * j / (s_uni - 1) across the
+// cached band, their sorted union, and the plate pin at `far` last
+// (eval/temporal.py:_delta_depths).
+static __device__ void delta_depths(const Smem& sm, const float* band_lo,
+                                    const float* band_hi, float far,
+                                    int ray0, int nr, int s_prev, int s_uni,
+                                    int s_imp, int tid) {
+  const int Sd = s_prev - 1;
+  pdf_cdf(sm.zp, sm.wp, s_prev, Sd, sm.cdf, nr, tid);
+  __syncthreads();
+  const int n_in = s_imp + s_uni, S = n_in + 1;
+  for (int e = tid; e < nr * n_in; e += NTHREADS) {
+    const int r = e / n_in, j = e - r * n_in;
     float v;
-    if (j < S) {
-      v = z[j];
+    if (j < s_imp) {
+      v = pdf_sample(sm.zp + r * s_prev, sm.cdf + r * (Sd - 1), Sd - 1, j,
+                     s_imp);
     } else {
-      const float* c = sm.cdf + r * B;
-      const float u = __fdiv_rn(static_cast<float>(j - S),
-                                static_cast<float>(n_imp - 1));
-      int lo = 0;  // last bin with cdf <= u (searchsorted right, minus one)
-      while (lo + 1 < B && c[lo + 1] <= u) ++lo;
-      const int hi = lo + 1 < B ? lo + 1 : B - 1;
-      const float bl = 0.5f * (z[lo] + z[lo + 1]);
-      const float bh = 0.5f * (z[hi] + z[hi + 1]);
-      float den = c[hi] - c[lo];
-      if (den < 1e-5f) den = 1.f;
-      // _rn intrinsics: no FMA contraction, each step rounded as the plain
-      // version rounds it
-      v = __fadd_rn(bl, __fmul_rn(__fdiv_rn(__fsub_rn(u, c[lo]), den),
-                                  __fsub_rn(bh, bl)));
+      const float t = __fdiv_rn(static_cast<float>(j - s_imp),
+                                static_cast<float>(s_uni - 1));
+      const float lo = band_lo[ray0 + r], hi = band_hi[ray0 + r];
+      v = __fadd_rn(lo, __fmul_rn(__fsub_rn(hi, lo), t));
     }
     sm.uni[e] = v;
   }
+  for (int r = tid; r < nr; r += NTHREADS) sm.z[r * S + S - 1] = far;
   __syncthreads();
+  rank_sort(sm.uni, n_in, sm.z, S, nr, tid);
+  __syncthreads();
+}
 
-  for (int e = tid; e < nr * SU; e += NTHREADS) {
-    const int r = e / SU, j = e - r * SU;
-    const float* uu = sm.uni + r * SU;
-    const float v = uu[j];
-    int rank = 0;
-    for (int f = 0; f < SU; ++f) {
-      const float x = uu[f];
-      rank += (x < v) | ((x == v) & (f < j));
+// The next frame's foreground band from this frame's depths and weights
+// (sm.z, sm.w, the plate sample excluded): lo / hi are the least depths
+// whose cumulative weight reaches q_lo / q_hi of the ray's total, capped
+// at the last non-plate depth (eval/temporal.py:fg_band). The cumulative
+// weights are summed in f64 and rounded once, as fg_band sums them, so a
+// threshold comparison cannot flip on summation order. Written to
+// summary[:, 6:8]. One thread per ray.
+static __device__ void fg_band_out(const Smem& sm, float* summary, int ray0,
+                                   int nr, int S, float q_lo, float q_hi,
+                                   int tid) {
+  for (int r = tid; r < nr; r += NTHREADS) {
+    const float* z = sm.z + r * S;
+    const float* w = sm.w + r * S;
+    double tot = 0.0;
+    for (int s = 0; s < S - 1; ++s) tot += static_cast<double>(w[s]);
+    const float total = fmaxf(static_cast<float>(tot), 1e-10f);
+    const float t_lo = __fmul_rn(q_lo, total), t_hi = __fmul_rn(q_hi, total);
+    float lo = 1e10f, hi = 1e10f;
+    double run = 0.0;
+    for (int s = 0; s < S - 1; ++s) {
+      run += static_cast<double>(w[s]);
+      const float cw = static_cast<float>(run);
+      if (cw >= t_lo) lo = fminf(lo, z[s]);
+      if (cw >= t_hi) hi = fminf(hi, z[s]);
     }
-    z_all[static_cast<size_t>(ray0 + r) * SU + rank] = v;
+    float* o = summary + static_cast<size_t>(ray0 + r) * 8;
+    o[6] = fminf(lo, z[S - 2]);
+    o[7] = fminf(hi, z[S - 2]);
   }
 }
 

@@ -1,8 +1,8 @@
 """Per-ray fused render: PE -> conditioned MLP -> alpha composite, one
 kernel launch per pass (counterpart of idealnerf_tpu/kernels/fused_render.py).
 
-Two kernels, CUDA C++ for sm_90a in ``csrc/`` (see the note at the top of
-``csrc/fused_render.cu`` for what bounds them and how they are built):
+Three kernels, CUDA C++ for sm_90a in ``csrc/`` (see the note at the top
+of ``csrc/fused_render.cu`` for what bounds them and how they are built):
 
 - ``fused_render_rays`` replaces the JAX package's ``fused_render_rays``
   (``_render_kernel``/``_render_body``): rays at given depths -> per-ray
@@ -11,6 +11,10 @@ Two kernels, CUDA C++ for sm_90a in ``csrc/`` (see the note at the top of
   (``_coarse_hier_kernel``/``_pdf_merge``): the coarse pass on the static
   near/far linspace plus, in the same launch, the deterministic
   inverse-CDF importance depths merged with the coarse ones.
+- ``fused_render_delta`` replaces ``fused_render_delta`` (``_delta_kernel``):
+  a temporal delta frame in one launch — depths placed from the previous
+  frame's per-ray (z, w) and the cached band, the fine render, and the
+  next frame's foreground band.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch
 in ``launch_counts``; for CPU tensors it runs the plain PyTorch version
@@ -29,6 +33,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from idealnerf_tpu_torch.core.composite import fg_band
 from idealnerf_tpu_torch.core.embedding import positional_encoding
 from idealnerf_tpu_torch.core.sampling import sample_pdf, stratified_sample
 from idealnerf_tpu_torch.kernels import build
@@ -55,7 +60,8 @@ _POINTS_PER_BLOCK = 768
 # activations (a whole 450^2 fine pass would need ~53 GB)
 _REF_CHUNK_POINTS = 1 << 16
 
-launch_counts = {"fused_render_rays": 0, "fused_render_coarse_hier": 0}
+launch_counts = {"fused_render_rays": 0, "fused_render_coarse_hier": 0,
+                 "fused_render_delta": 0}
 
 
 def reset_launch_counts() -> None:
@@ -272,6 +278,53 @@ def fused_render_coarse_hier_reference(params, folded, cfg, rays_o, rays_d,
     return coarse, importance_depths(z, coarse["weights"], n_imp)
 
 
+def pdf_depths(z_src, w_src, count: int) -> torch.Tensor:
+    """``count`` deterministic inverse-CDF depths from a render's (z, w)
+    distribution, its last (plate) sample excluded: bins are the mids of
+    z[:, :-1], weights w[:, 1:-2] (eval/temporal.py:_imp_from)."""
+    zin, win = z_src[..., :-1], w_src[..., :-1]
+    mids = 0.5 * (zin[..., 1:] + zin[..., :-1])
+    return sample_pdf(mids, win[..., 1:-1], count)
+
+
+def delta_depths(z_prev, w_prev, band_lo, band_hi, far, s_uni: int,
+                 s_imp: int, extra: Optional[torch.Tensor] = None):
+    """A delta frame's depth grid (R, s_imp + s_uni [+ extra] + 1): s_imp
+    inverse-CDF depths over the previous frame's (z, w), ``extra`` depths
+    if given, s_uni depths lo + (hi - lo) * j / (s_uni - 1) across the
+    band, sorted, then the plate pin at ``far`` (eval/temporal.py:
+    _delta_depths)."""
+    parts = [pdf_depths(z_prev, w_prev, s_imp)]
+    if extra is not None:
+        parts.append(extra)
+    # t_j = j / (s_uni - 1), correctly rounded, as the delta kernel has it
+    t = torch.arange(s_uni, dtype=torch.float64, device=band_lo.device)
+    t = (t / (s_uni - 1)).to(torch.float32)
+    parts.append(band_lo[:, None] + (band_hi - band_lo)[:, None] * t[None])
+    z = torch.sort(torch.cat(parts, dim=-1), dim=-1)[0]
+    return torch.cat([z, torch.full_like(z[:, :1], float(far))], dim=1)
+
+
+def _delta_outputs(out, z, lo, hi) -> Dict[str, torch.Tensor]:
+    out.update(z_vals=z, band_lo=lo, band_hi=hi,
+               fg_mass=out["acc_map"] - out["last_weight"])
+    return out
+
+
+def fused_render_delta_reference(params, folded, cfg, rays_o, rays_d, z_prev,
+                                 w_prev, band_lo, band_hi, bc_rgb, far,
+                                 s_uni: int, s_imp: int, q_lo: float = 0.02,
+                                 q_hi: float = 0.98):
+    """Plain PyTorch version of the fused_render_delta kernel: the chain
+    delta_depths -> fused_render_rays_reference -> fg_band."""
+    z = delta_depths(z_prev.float(), w_prev.float(), band_lo.float(),
+                     band_hi.float(), far, s_uni, s_imp)
+    out = fused_render_rays_reference(params, folded, cfg, rays_o, rays_d,
+                                      z, bc_rgb)
+    lo, hi, _ = fg_band(z, out["weights"], q_lo, q_hi)
+    return _delta_outputs(out, z, lo, hi)
+
+
 # ------------------------------------------------------------------ kernels
 
 def _check_rays(name: str, net: PackedNet, **tensors) -> torch.device:
@@ -331,11 +384,16 @@ def _slots(net: PackedNet, device):
     return table, (wbuf, fbuf)
 
 
-def _rays_per_block(lib, S: int, n_cdf: int, n_union: int) -> int:
+def _rays_per_block(lib, S: int, n_cdf: int, n_union: int,
+                    n_prev: int = 0) -> int:
     rb = max(1, min(16, _POINTS_PER_BLOCK // S))
-    while rb > 1 and lib.fr_smem_bytes(rb, S, n_cdf, n_union) > SMEM_LIMIT:
+
+    def smem(rb):
+        return lib.fr_smem_bytes(rb, S, n_cdf, n_union, n_prev)
+
+    while rb > 1 and smem(rb) > SMEM_LIMIT:
         rb -= 1
-    if lib.fr_smem_bytes(rb, S, n_cdf, n_union) > SMEM_LIMIT:
+    if smem(rb) > SMEM_LIMIT:
         raise ValueError(f"S={S} does not fit the kernel's shared memory")
     return rb
 
@@ -426,6 +484,60 @@ def fused_render_coarse_hier(params, folded, cfg, rays_o, rays_d, bc_rgb,
     coarse = _outputs(summary[:, :3], summary[:, 3], summary[:, 4],
                       summary[:, 5], weights, bc_rgb)
     return coarse, z_all
+
+
+def fused_render_delta(params, folded, cfg, rays_o, rays_d, z_prev, w_prev,
+                       band_lo, band_hi, bc_rgb, far, s_uni: int, s_imp: int,
+                       q_lo: float = 0.02, q_hi: float = 0.98
+                       ) -> Dict[str, torch.Tensor]:
+    """Temporal delta frame in one launch: (R,) rays, the previous frame's
+    (R, s_prev) depths and weights and the cached (R,) band -> the
+    fused_render_rays dict plus ``z_vals`` (R, S = s_uni + s_imp + 1, the
+    plate pin at ``far`` last), ``band_lo``/``band_hi`` (the central
+    [q_lo, q_hi] band of this frame's weights) and ``fg_mass`` (acc -
+    last_weight). Deterministic eval semantics; s_uni, s_imp >= 2."""
+    if s_uni < 2 or s_imp < 2:
+        raise ValueError("fused_render_delta needs s_uni >= 2 and s_imp >= 2,"
+                         f" got {s_uni} and {s_imp}")
+    R, s_prev = z_prev.shape
+    if s_prev < 4:
+        raise ValueError(f"fused_render_delta: s_prev={s_prev} leaves no "
+                         "weight to place depths by (needs >= 4)")
+    if rays_o.device.type == "cpu":
+        return fused_render_delta_reference(
+            params, folded, cfg, rays_o, rays_d, z_prev, w_prev, band_lo,
+            band_hi, bc_rgb, far, s_uni, s_imp, q_lo, q_hi)
+    net = pack_operands(params, folded, cfg)
+    dev = _check_rays("fused_render_delta", net, rays_o=rays_o,
+                      rays_d=rays_d, z_prev=z_prev, w_prev=w_prev,
+                      band_lo=band_lo, band_hi=band_hi, bc_rgb=bc_rgb)
+    S = s_uni + s_imp + 1
+    if (rays_o.shape != (R, 3) or rays_d.shape != (R, 3)
+            or bc_rgb.shape != (R, 3) or w_prev.shape != (R, s_prev)
+            or band_lo.shape != (R,) or band_hi.shape != (R,)):
+        raise ValueError("fused_render_delta: rays_o/rays_d/bc_rgb must be "
+                         f"({R}, 3), w_prev ({R}, {s_prev}), band_lo/band_hi "
+                         f"({R},) to match z_prev {tuple(z_prev.shape)}")
+    if R < 1 or R * max(S, s_prev) >= 2 ** 31:
+        raise ValueError(f"fused_render_delta: unsupported R={R}")
+    lib = build.load_library()
+    rb = _rays_per_block(lib, S, s_prev - 2, S - 1, s_prev)
+    table, keep = _slots(net, dev)
+    summary = torch.empty((R, 8), dtype=torch.float32, device=dev)
+    weights = torch.empty((R, S), dtype=torch.float32, device=dev)
+    z_out = torch.empty((R, S), dtype=torch.float32, device=dev)
+    err = lib.fr_render_delta(
+        rays_o.data_ptr(), rays_d.data_ptr(), bc_rgb.data_ptr(),
+        z_prev.data_ptr(), w_prev.data_ptr(), band_lo.data_ptr(),
+        band_hi.data_ptr(), float(far), float(q_lo), float(q_hi),
+        summary.data_ptr(), weights.data_ptr(), z_out.data_ptr(), R, s_prev,
+        s_uni, s_imp, rb, table, *_net_args(net), _stream(dev))
+    _raise_on(lib, err, "fused_render_delta")
+    launch_counts["fused_render_delta"] += 1
+    del keep
+    out = _outputs(summary[:, :3], summary[:, 3], summary[:, 4],
+                   summary[:, 5], weights, bc_rgb)
+    return _delta_outputs(out, z_out, summary[:, 6], summary[:, 7])
 
 
 def _is_scalar(x) -> bool:

@@ -6,7 +6,9 @@ conditioning come from numpy with a fixed seed. The render outputs are
 held to 3e-2 plus a correlation above 0.999, the bound of the JAX
 package's own kernel tests (tests/test_fused_render.py): both sides round
 weights and activations to bf16, and the two frameworks can round a value
-one ulp apart. The depth placement is held to 2e-6.
+one ulp apart. The depth placement is held to 2e-6; the temporal delta
+kernel's next-frame band and mass follow its bf16 render, so they are held
+to 3e-2 like the render.
 """
 
 import dataclasses
@@ -23,6 +25,7 @@ from idealnerf_tpu.core.sampling import stratified_sample as jax_stratified
 from idealnerf_tpu.kernels import fused_render as jfr
 from idealnerf_tpu.models import face_nerf as jax_fn
 from idealnerf_tpu_torch import bridge
+from idealnerf_tpu_torch.core.composite import fg_band
 from idealnerf_tpu_torch.core.sampling import stratified_sample
 from idealnerf_tpu_torch.kernels import build as kbuild
 from idealnerf_tpu_torch.kernels import fused_render as fr
@@ -147,6 +150,90 @@ def test_render_rays_fused_hier_and_plain_branches_match_jax():
                           "acc0"))
 
 
+def _delta_inputs(R, s_prev, seed):
+    """The inputs of the JAX package's delta-kernel test
+    (tests/test_fused_render.py:test_fused_delta_matches_xla_chain), from
+    numpy: rays through the field, the previous frame's sorted depths with
+    the plate pin at far, weights well above sample_pdf's 1e-5 floor, and
+    a cached band inside [near, far]."""
+    rng = np.random.RandomState(seed)
+    ro = rng.uniform(-0.2, 0.2, (R, 3)).astype(np.float32)
+    rd = rng.randn(R, 3).astype(np.float32)
+    rd = (rd / np.linalg.norm(rd, axis=-1, keepdims=True)).astype(np.float32)
+    bc = rng.uniform(0, 1, (R, 3)).astype(np.float32)
+    z_in = np.sort(rng.uniform(NEAR, FAR, (R, s_prev - 1)), -1)
+    z_prev = np.concatenate([z_in, np.full((R, 1), FAR)], 1).astype(np.float32)
+    w_prev = rng.uniform(0.0, 0.1, (R, s_prev)).astype(np.float32)
+    lo = (NEAR + 0.1 + 0.05 * rng.uniform(size=R)).astype(np.float32)
+    hi = (lo + 0.2 + 0.1 * rng.uniform(size=R)).astype(np.float32)
+    return ro, rd, bc, z_prev, w_prev, lo, hi
+
+
+@pytest.mark.parametrize("s_prev,s_uni,s_imp,cfg_kw", [
+    (16, 3, 12, SMALL), (24, 4, 11, SMALL), (16, 3, 12, PAPER)],
+    ids=["s16-3+12", "s24-4+11", "paper-width"])
+def test_fused_render_delta_matches_jax(s_prev, s_uni, s_imp, cfg_kw):
+    """The delta kernel's plain version against the JAX kernel in
+    interpret mode: depths 2e-6; render and mass 3e-2 with rgb correlation
+    > 0.999. The band holds at 2e-6 as a function of the render (the
+    port's fg_band on JAX's depths and weights against JAX's band), and
+    at 3e-2 against JAX's band on every ray that carries foreground mass
+    (above 1e-3; a massless ray's weights are f32 noise around 6e-8, and
+    the temporal renderer drops its band as invalid) and whose cumulative
+    weight stays more than 2e-3 of its total away from q * total. The
+    band is a step function: within the two sides' bf16 noise of a
+    threshold, lo or hi moves by a whole sample gap."""
+    (jp, jf, jc), (m, f, c), _ = _setup(4, seed=8, **cfg_kw)
+    R = 48
+    ins = _delta_inputs(R, s_prev, seed=s_prev)
+    ro, rd, bc, z_prev, w_prev, lo, hi = ins
+    ref = jfr.fused_render_delta(
+        jp, jf, jc, *(jnp.asarray(x) for x in (ro, rd, z_prev, w_prev, lo,
+                                               hi, bc)),
+        FAR, s_uni, s_imp, point_tile=512)
+    with torch.no_grad():
+        out = fr.fused_render_delta(m, f, c, _t(ro), _t(rd), _t(z_prev),
+                                    _t(w_prev), _t(lo), _t(hi), _t(bc), FAR,
+                                    s_uni, s_imp)
+    S = s_uni + s_imp + 1
+    assert out["z_vals"].shape == (R, S) and out["weights"].shape == (R, S)
+    np.testing.assert_allclose(out["z_vals"].numpy(), np.asarray(ref["z_vals"]),
+                               atol=2e-6, rtol=0)
+    _agree(out, ref, KEYS + ("fg_mass",))
+    b_lo, b_hi, _ = fg_band(_t(ref["z_vals"]), _t(ref["weights"]))
+    w = np.asarray(ref["weights"])[:, :-1].astype(np.float64)
+    cw = np.cumsum(w, -1) / np.maximum(w.sum(-1, keepdims=True), 1e-10)
+    for k, b, q in (("band_lo", b_lo, 0.02), ("band_hi", b_hi, 0.98)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(ref[k]), atol=2e-6,
+                                   rtol=0, err_msg=k)
+        clear = (np.abs(cw - q).min(-1) > 2e-3) & (w.sum(-1) > 1e-3)
+        assert clear.mean() >= 0.75, (k, clear.mean())
+        np.testing.assert_allclose(out[k].numpy()[clear],
+                                   np.asarray(ref[k])[clear], atol=3e-2,
+                                   err_msg=k)
+
+
+def test_delta_plain_version_is_the_chain():
+    """fused_render_delta's plain version is delta_depths -> the fine pass
+    -> fg_band on its own depths and weights, with the plate pin last."""
+    (_, _, _), (m, f, c), _ = _setup(4, seed=9, **SMALL)
+    ro, rd, bc, z_prev, w_prev, lo, hi = (_t(x) for x in
+                                          _delta_inputs(32, 16, seed=9))
+    with torch.no_grad():
+        out = fr.fused_render_delta(m, f, c, ro, rd, z_prev, w_prev, lo, hi,
+                                    bc, FAR, 3, 12)
+        z = fr.delta_depths(z_prev, w_prev, lo, hi, FAR, 3, 12)
+        ref = fr.fused_render_rays(m, f, c, ro, rd, z, bc)
+    assert torch.equal(out["z_vals"], z)
+    assert torch.all(z[:, 1:] >= z[:, :-1]) and torch.all(z[:, -1] == FAR)
+    for k in KEYS:
+        assert torch.equal(out[k], ref[k]), k
+    b_lo, b_hi, _ = fg_band(z, ref["weights"])
+    assert torch.equal(out["band_lo"], b_lo)
+    assert torch.equal(out["band_hi"], b_hi)
+    assert torch.equal(out["fg_mass"], ref["acc_map"] - ref["last_weight"])
+
+
 def test_ray_missing_all_density_composites_to_plate():
     (_, _, _), (m, f, c), (ro, rd, bc) = _setup(16, seed=4, **SMALL)
     with torch.no_grad():
@@ -166,10 +253,14 @@ def test_cpu_path_launches_nothing_and_builds_nothing():
     fr.reset_launch_counts()
     kbuild.load_library.cache_clear()
     (_, _, _), (m, f, c), (ro, rd, bc) = _setup(8, seed=5, **SMALL)
+    z_prev, w_prev, lo, hi = (_t(x) for x in _delta_inputs(8, 16, 5)[3:])
     with torch.no_grad():
         fr.render_rays_fused(m, f, c, _t(ro), _t(rd), _t(bc), NEAR, FAR, 8, 8)
+        fr.fused_render_delta(m, f, c, _t(ro), _t(rd), z_prev, w_prev, lo, hi,
+                              _t(bc), FAR, 3, 12)
     assert fr.launch_counts == {"fused_render_rays": 0,
-                                "fused_render_coarse_hier": 0}
+                                "fused_render_coarse_hier": 0,
+                                "fused_render_delta": 0}
     assert kbuild.load_library.cache_info().currsize == 0
 
 
@@ -185,9 +276,18 @@ def test_non_cpu_tensors_never_reach_the_plain_version():
     with torch.no_grad(), pytest.raises(ValueError, match="expected cuda"):
         fr.fused_render_coarse_hier(m, f, c, meta["ro"], meta["rd"],
                                     meta["bc"], NEAR, FAR, 16, 16)
+    zp = torch.empty((8, 16), device="meta")
+    band = torch.empty((8,), device="meta")
+    with torch.no_grad(), pytest.raises(ValueError, match="expected cuda"):
+        fr.fused_render_delta(m, f, c, meta["ro"], meta["rd"], zp, zp, band,
+                              band, meta["bc"], FAR, 3, 12)
     with pytest.raises(ValueError, match="n_importance > 1"):
         fr.fused_render_coarse_hier(m, f, c, _t(ro), _t(rd), _t(bc), NEAR,
                                     FAR, 16, 1)
+    for s_uni, s_imp in ((1, 12), (3, 1)):
+        with pytest.raises(ValueError, match="s_uni >= 2 and s_imp >= 2"):
+            fr.fused_render_delta(m, f, c, meta["ro"], meta["rd"], zp, zp,
+                                  band, band, meta["bc"], FAR, s_uni, s_imp)
 
 
 def test_pack_operands_layout():
