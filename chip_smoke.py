@@ -64,13 +64,31 @@ non-zero and no result line is printed):
    frame. A delta frame at the keyframe's own pose (rotated, off-centre
    principal point, s_delta 32) must stay above 20 dB PSNR against the
    keyframe. Then torch.profiler over one steady delta frame.
+11. the kernel-diagnosis path: the encoded-input point MLP (K5,
+   ``fused_point_mlp(fuse_pe=False)``) against its plain version at
+   ``--points`` and a ragged 1,001 (3e-2, correlation > 0.999 per lane),
+   timed beside K4 on the same points; every probe kernel of
+   ``kernels/kdiag.py`` against its plain version at a ragged 1,001 rows;
+   then each ``idealnerf_tpu_torch.scripts.kdiag*`` entry point at its
+   own size with ``--check`` (chains at 2^21 rows, kdiag4/5 at 1M and 4M
+   rows for the slope, both rows-per-block; the ladder and K5 at 2^21
+   points; kdiag3 at the phase-2 rays with S 64 and 192), with the launch
+   counters set to 0 before each and read after: every timed output is
+   held against its plain version on the same inputs, which is timed
+   once (bf16 chains within 3e-2 of the output's max abs, the f32 chain
+   within 1e-5 of it, both with a correlation above 0.999; int8 chains
+   bitwise equal; the ladder, K5 and the render probes 3e-2 absolute and
+   correlation > 0.999, per lane for raw outputs). The library chains
+   (``torch.matmul``, ``torch._int_mm``) are timed by the same entry
+   points.
 
 Then the kernel summary as one JSON line (each kernel's launches on its
 path, its max error, its time and its plain version's, and its bound: the
-larger of the bytes it must move over 3.35 TB/s and its multiply-adds at
-989 TFLOP/s bf16, the H100 SXM data sheet's rates), the ``nvidia-smi``
-line, and last ``{"ok": true, "device": {...}}``. With no CUDA device it
-exits 1.
+larger of the bytes it must move over 3.35 TB/s and its operations at the
+H100 SXM data sheet's dense rate for their type, 989 TFLOP/s bf16, 1,979
+TOP/s int8, 67 TFLOP/s f32: ``idealnerf_tpu_torch.scripts.PEAK``), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. With no
+CUDA device it exits 1.
 """
 
 from __future__ import annotations
@@ -80,6 +98,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -111,8 +130,39 @@ KERNELS = {
         "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
         "replaces": "idealnerf_tpu/kernels/fused_render.py:604",
     },
+    "fused_point_mlp_pe": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp.cu",
+        "replaces": "idealnerf_tpu/kernels/fused_mlp.py:311",
+    },
+    "kdiag_chain": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag.cu",
+        "replaces": "scripts/kdiag.py:70",
+    },
+    "kdiag2_ladder": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag.cu",
+        "replaces": "scripts/kdiag2.py:114",
+    },
+    "kdiag3_render_a": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag.cu",
+        "replaces": "scripts/kdiag3.py:269",
+    },
+    "kdiag3_render_b": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag.cu",
+        "replaces": "scripts/kdiag3.py:291",
+    },
+    "kdiag3_render_c": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
+        "replaces": "scripts/kdiag3.py:315",
+    },
+    "kdiag4_chain": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag.cu",
+        "replaces": "scripts/kdiag4.py:90",
+    },
+    "kdiag5_chain": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag.cu",
+        "replaces": "scripts/kdiag5.py:114",
+    },
 }
-PEAK_FLOPS = 989e12     # bf16 dense, H100 SXM
 HBM_BYTES_S = 3.35e12
 # launches of stream.warmup(): keyframe -> first delta -> steady delta, and
 # with --roll_k: keyframe -> two rolling frames
@@ -220,10 +270,12 @@ def _mlp_macs(ncfg):
     return pt + W + 3 * V, ncfg.input_ch_views * V
 
 
-def _bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: operations at the bf16 dense
-    peak or bytes at the memory rate, whichever is longer."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / HBM_BYTES_S
+def _bound(flops: float, nbytes: float, kind: str = "bf16") -> dict:
+    """The least time the card could take: operations at the dense peak
+    for their type or bytes at the memory rate, whichever is longer."""
+    from idealnerf_tpu_torch.scripts import PEAK
+
+    t_ops, t_bytes = flops / PEAK[kind], nbytes / HBM_BYTES_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -571,6 +623,7 @@ def _phase_train(args, fm, fmg, fr) -> dict:
     dims = ["--dim_aud", "64", "--dim_expr", "76", "--dim_latent", "32"]
     data = ["--synthetic", str(args.train_frames), "--synthetic_hw",
             str(args.train_hw)]
+    shutil.rmtree("output/chip_smoke_train", ignore_errors=True)  # no resume
     fm.reset_launch_counts()
     fmg.reset_launch_counts()
     res = train_head.main([
@@ -578,7 +631,8 @@ def _phase_train(args, fm, fmg, fr) -> dict:
         "--N_importance", "128", "--epochs", str(args.train_epochs),
         "--i_print", "5", "--i_weights", "10", "--device", "cuda",
         "--basedir", "output/chip_smoke_train", "--expname", "head"])
-    counts = {**fm.launch_counts, **fmg.launch_counts}
+    counts = {"fused_point_mlp": fm.launch_counts["fused_point_mlp"],
+              **fmg.launch_counts}
     steps = res["step"]
     first, last = res["history"][0][1], res["history"][-1][1]
     step_ms = 1e3 / last["steps_per_sec_rolling"]
@@ -611,6 +665,259 @@ def _phase_train(args, fm, fmg, fr) -> dict:
     torch.cuda.synchronize()
     return {"steps": steps, "step_ms": step_ms, "first": first, "last": last,
             "launches": counts, "render_psnr": rv["psnr"]}
+
+
+def _points(ro, rd, near, far, n):
+    """n points on the phase-2 rays at seeded uniform depths in [near,
+    far], and their unit view directions."""
+    import torch
+
+    dev = ro.device
+    g = torch.Generator(device=dev).manual_seed(3)
+    idx = torch.arange(n, device=dev) % ro.shape[0]
+    z = near + (far - near) * torch.rand(n, 1, generator=g, device=dev)
+    pts = (ro[idx] + rd[idx] * z).contiguous()
+    dirs = (rd / rd.norm(dim=-1, keepdim=True))[idx].contiguous()
+    return pts, dirs
+
+
+def _phase_k5(fm, fr, model, folded, ncfg, pts, dirs) -> dict:
+    """Phase 11a: K5 against its plain version at the phase-6 points and
+    a ragged 1,001, then timed beside K4 on the same points (a finding:
+    K5's entry is timed on its own path, kdiag2 rung v3)."""
+    import torch
+
+    print("phase 11 encoded-input point MLP (K5) vs plain version")
+    err = 0.0
+    for n in (pts.shape[0], 1001):
+        got = fm.fused_point_mlp(model, folded, ncfg, pts[:n], dirs[:n],
+                                 fuse_pe=False)
+        want = fm.fused_point_mlp_reference(model, folded, ncfg, pts[:n],
+                                            dirs[:n])
+        for c in range(4):
+            err = max(err, _agree(f"N={n} raw[:, {c}]", got[:, c],
+                                  want[:, c], corr=True))
+    net = fr.pack_operands(model, folded, ncfg)
+    pe, ped = (x.to(torch.bfloat16).contiguous()
+               for x in fm.encode_points(net, pts, dirs))
+    n = pts.shape[0]
+    ms = _time_ms(lambda: fm.point_mlp_pe(net, pe, ped), 5)
+    k4 = _time_ms(lambda: fm.point_mlp(net, pts, dirs), 5)
+    wrapper = _time_ms(lambda: fm.fused_point_mlp(model, folded, ncfg, pts,
+                                                  dirs, fuse_pe=False), 5)
+    print(f"  K5 at N={n}: kernel {ms:.3f} ms on bf16 encodings (K4 on the "
+          f"same points {k4:.3f} ms: in-kernel PE {k4 - ms:+.3f} ms), "
+          f"fused_point_mlp(fuse_pe=False) with its torch PE {wrapper:.3f} "
+          "ms (CUDA events)")
+    return {"max_abs_err": err, "ms": ms, "k4_ms": k4, "wrapper_ms": wrapper}
+
+
+def _check_probes(kd, fm, fr, probe, pts, dirs) -> dict:
+    """Phase 11b: every probe kernel against its plain version at a ragged
+    1,001 rows (a part-filled last block) -> max error by kernel entry (the
+    chains' relative to their plain output's max abs)."""
+    import torch
+
+    from idealnerf_tpu_torch import scripts as sc
+    from idealnerf_tpu_torch.scripts import kdiag3, kdiag4
+
+    print("phase 11 kernel-diagnosis probes vs plain versions, ragged")
+    model, folded, pcfg, net = probe
+    dev = pts.device
+    err = dict.fromkeys(("kdiag_chain", "kdiag4_chain", "kdiag5_chain",
+                         "kdiag2_ladder", "kdiag3_render_a",
+                         "kdiag3_render_b", "kdiag3_render_c"), 0.0)
+    # the chain modes of each TPU probe (kdiag.py, kdiag4.py, kdiag5.py)
+    users = {"cast": ("kdiag_chain", "kdiag4_chain"),
+             "bias_relu": ("kdiag_chain", "kdiag4_chain"),
+             "relu2": ("kdiag_chain",),
+             "relu": ("kdiag4_chain", "kdiag5_chain"),
+             "select": ("kdiag4_chain",), "cast_max": ("kdiag4_chain",),
+             "sum": ("kdiag4_chain",)}
+    rows = 1001
+    bias = kdiag4.v6_bias(dev)
+    for dtype, rpbs in ((torch.bfloat16, (64, 128)), (torch.float32, (64,))):
+        x, ws = sc.chain_inputs(rows, dtype, dev, seed=11)
+        check = sc.chain_check(dtype)
+        for mode in kd.CHAIN_MODES[dtype]:
+            b = bias if mode in ("bias_relu", "relu2") else None
+            want = kd.chain_reference(x, ws, mode, b)
+            for rpb in rpbs:
+                e = check(f"chain {str(dtype)[6:]} {mode} r{rpb} rows {rows}",
+                          kd.chain(x, ws, mode, b, rpb), want)
+                for k in users[mode] if dtype == torch.bfloat16 else (
+                        "kdiag4_chain",):
+                    err[k] = max(err[k], e)
+    x, ws = sc.chain_inputs(rows, torch.bfloat16, dev, seed=12)
+    b = torch.zeros_like(bias)
+    err["kdiag_chain"] = max(err["kdiag_chain"], sc.chain_check(
+        torch.bfloat16)(f"chain bf16 relu2 r128 rows {rows}, bf16 out",
+                        kd.chain(x, ws, "relu2", b, 128, torch.bfloat16),
+                        kd.chain_reference(x, ws, "relu2", b,
+                                           torch.bfloat16)))
+    for depth in (2, 8):
+        x, ws = sc.chain_inputs(rows, torch.int8, dev, seed=13, depth=depth)
+        for mode in ("i0", "i1"):
+            want = kd.chain_reference(x, ws, mode)
+            for rpb in (64, 128):
+                sc.same(f"chain int8 {mode} r{rpb} rows {rows} depth {depth}",
+                        kd.chain(x, ws, mode, None, rpb), want)
+    n = 1001
+    pe, ped = (x.to(torch.bfloat16).contiguous() for x in
+               fm.encode_points(net, pts[:n], dirs[:n]))
+    for stage in (0, 1, 2):
+        err["kdiag2_ladder"] = max(err["kdiag2_ladder"], sc.close(
+            f"ladder v{stage} N={n}", kd.ladder(net, pe, ped, stage),
+            kd.ladder_reference(net, pe, ped, stage)))
+    for S in (64, 192):
+        o, d, bc, z = kdiag3.rays(n, S, dev, seed=11)
+        pe, ped = kd.encode_rays(net, o, d, z)
+        err["kdiag3_render_a"] = max(err["kdiag3_render_a"], sc.close_lanes(
+            f"render_a R={n} S={S}", kd.render_probe_a(net, pe, ped, S),
+            kd.render_probe_a_reference(net, pe, ped, S)))
+        err["kdiag3_render_b"] = max(err["kdiag3_render_b"], sc.close_lanes(
+            f"render_b R={n} S={S}", kd.render_probe_b(net, o, d, z),
+            kd.render_probe_b_reference(net, o, d, z)))
+        with torch.no_grad():
+            err["kdiag3_render_c"] = max(
+                err["kdiag3_render_c"], kdiag3.close_render(
+                    f"render_c R={n} S={S}",
+                    fr.fused_render_rays(model, folded, pcfg, o, d, z, bc),
+                    fr.fused_render_rays_reference(model, folded, pcfg, o, d,
+                                                   z, bc)))
+    torch.cuda.synchronize()
+    return err
+
+
+def _chain_bound(rows: int, kind: str, in_bytes: int, out_bytes: int,
+                 extra_bytes: int = 0) -> dict:
+    """Bound of an 8-layer 256-wide chain on ``rows`` rows: its operations
+    at the peak for ``kind``; x read and the output written once, the
+    weights (and biases) read once."""
+    W, depth = 256, 8
+    w_bytes = depth * W * W * (1 if kind == "int8" else 2) + extra_bytes
+    return _bound(2.0 * rows * depth * W * W,
+                  rows * W * (in_bytes + out_bytes) + w_bytes, kind)
+
+
+def _worst(results: dict, labels=None) -> float:
+    """The largest ``--check`` error over an entry point's kernel variants
+    (those in ``labels``); the library variants have no plain version."""
+    err = 0.0
+    for label, r in results.items():
+        if label in ("matmul", "VX", "IX") or (labels and label not in
+                                                labels):
+            continue
+        for v in (r["rows"].values() if "rows" in r else [r]):
+            err = max(err, v["max_err"])
+    return err
+
+
+def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
+                 slope=(1 << 20, 1 << 22)) -> dict:
+    """Phase 11b-c: the ragged probe checks, then each kdiag entry point at
+    its own size with ``--check`` (every timed output against its plain
+    version on the same inputs, that version timed once), the launch
+    counters set to 0 before it and read after -> the entries of K5 and
+    the probe kernels by name."""
+    import torch
+
+    from idealnerf_tpu_torch.kernels import kdiag as kd
+    from idealnerf_tpu_torch.scripts import (
+        kdiag, kdiag2, kdiag3, kdiag4, kdiag5, paper_field,
+    )
+
+    dev = pts.device
+    model, folded, pcfg, net = probe = paper_field(dev)
+    errs = _check_probes(kd, fm, fr, probe, pts, dirs)
+    runs, launches = {}, {}
+    for name, mod, argv in (
+            ("kdiag", kdiag, ["--rows", str(big)]),
+            ("kdiag2", kdiag2, ["--rows", str(big)]),
+            ("kdiag3", kdiag3, ["--kd3_r", str(rays), "--kd3_s", "64,192"]),
+            ("kdiag4", kdiag4, ["--kd4", "V0,V2,V3,V5,V6,V7,VP,VX",
+                                "--kd4_rows", str(slope[0]),
+                                "--slope_rows", "%d,%d" % slope]),
+            ("kdiag5", kdiag5, ["--slope_rows", "%d,%d" % slope])):
+        argv = argv + ["--check"]
+        print(f"phase 11 {name}.main({' '.join(argv)})")
+        for m in (kd, fm, fr):
+            m.reset_launch_counts()
+        with torch.no_grad():
+            runs[name] = mod.main(argv)["results"]
+        torch.cuda.synchronize()
+        launches[name] = {**kd.launch_counts, **fm.launch_counts,
+                          **fr.launch_counts}
+        torch.cuda.empty_cache()
+
+    # the entries' times: the chains' real pattern at r64, the ladder's own
+    # last rung, K5 as rung v3, the render probes at the fine pass's 192
+    # depths; each beside its plain version's time from the same run
+    mid, S = slope[0], 192
+    pt, ray = _mlp_macs(pcfg)
+    wb = _weight_bytes(pcfg)
+    ops = 2.0 * rays * (S * pt + ray)
+    raw_bytes = rays * S * 16.0
+    k3 = runs["kdiag3"]
+
+    def entry(r, n, bound, err, library=None):
+        return {"ms": r["ms"], "plain_ms": r["plain_ms"], "launches": n,
+                "library_ms": library, "max_abs_err": err, **bound}
+
+    out = {
+        "kdiag_chain": entry(
+            runs["kdiag"]["relu r64"], launches["kdiag"]["kdiag_chain_bf16"],
+            _chain_bound(big, "bf16", 2, 2, 8 * 256 * 4),
+            max(errs["kdiag_chain"], _worst(runs["kdiag"])),
+            runs["kdiag"]["matmul"]["ms"]),
+        "kdiag4_chain": entry(
+            runs["kdiag4"]["V0 r64"]["rows"][str(mid)],
+            launches["kdiag4"]["kdiag_chain_bf16"]
+            + launches["kdiag4"]["kdiag_chain_f32"],
+            _chain_bound(mid, "bf16", 2, 4),
+            max(errs["kdiag4_chain"], _worst(runs["kdiag4"])),
+            runs["kdiag4"]["VX"]["ms"]),
+        "kdiag5_chain": entry(
+            runs["kdiag5"]["I0 r64"]["rows"][str(mid)],
+            launches["kdiag5"]["kdiag_chain_int8"]
+            + launches["kdiag5"]["kdiag_chain_bf16"],
+            _chain_bound(mid, "int8", 1, 4),
+            max(errs["kdiag5_chain"], _worst(runs["kdiag5"])),
+            runs["kdiag5"]["IX"]["ms"]),
+        "kdiag2_ladder": entry(
+            runs["kdiag2"]["v2"], launches["kdiag2"]["kdiag_ladder"],
+            _bound(2.0 * big * kd.ladder_macs(net, 2),
+                   big * 2.0 * (fr.PE_PAD + fr.PED_PAD + 128) + wb),
+            max(errs["kdiag2_ladder"],
+                _worst(runs["kdiag2"], ("v0", "v1", "v2")))),
+        "fused_point_mlp_pe": entry(
+            runs["kdiag2"]["v3"], launches["kdiag2"]["fused_point_mlp_pe"],
+            _bound(2.0 * big * (pt + ray),
+                   wb + big * (2.0 * (fr.PE_PAD + fr.PED_PAD) + 16)),
+            _worst(runs["kdiag2"], ("v3",))),
+        "kdiag3_render_a": entry(
+            k3[f"A S={S}"], launches["kdiag3"]["kdiag_render_a"],
+            _bound(ops, rays * (S * 2.0 * fr.PE_PAD + 2.0 * fr.PED_PAD)
+                   + raw_bytes + wb),
+            max(errs["kdiag3_render_a"], _worst(k3, ("A S=64", "A S=192")))),
+        "kdiag3_render_b": entry(
+            k3[f"B S={S}"], launches["kdiag3"]["kdiag_render_b"],
+            _bound(ops, rays * (24.0 + 4.0 * S) + raw_bytes + wb),
+            max(errs["kdiag3_render_b"], _worst(k3, ("B S=64", "B S=192")))),
+        "kdiag3_render_c": entry(
+            k3[f"C S={S}"], launches["kdiag3"]["fused_render_rays"],
+            _ray_bound(pcfg, rays, S, 9 + S, 8 + S),
+            max(errs["kdiag3_render_c"], _worst(k3, ("C S=64", "C S=192")))),
+    }
+    for k, e in out.items():
+        print(f"  {k}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms"
+              + (f", library {e['library_ms']:.3f} ms"
+                 if e["library_ms"] is not None else "")
+              + f", bound {e['bound_ms']:.3f} ms by {e['bound_by']}, "
+              f"launches {e['launches']}, max error {e['max_abs_err']:.3e}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"entries": out, "runs": runs, "launches": launches}
 
 
 def _profile_train_step(args):
@@ -813,16 +1120,11 @@ def main(argv=None) -> int:
 
     # ---- phases 6 and 7: the training kernels at the step's shapes; the
     # points lie on the phase-2 rays at uniform depths in [near, far]
-    g = torch.Generator(device=dev).manual_seed(3)
-    idx = torch.arange(args.points, device=dev) % ro.shape[0]
-    z = near + (far - near) * torch.rand(args.points, 1, generator=g,
-                                         device=dev)
-    pts = (ro[idx] + rd[idx] * z).contiguous()
-    dirs = (rd / rd.norm(dim=-1, keepdim=True))[idx].contiguous()
+    pts, dirs = _points(ro, rd, near, far, args.points)
     res6 = _phase_point_mlp(fm, nets["fine"], ff, ncfg, pts, dirs)
     res7 = _phase_grad(nets["coarse"], ncfg, (aud, expr, latent), pts, dirs)
     report.update(point_mlp=res6, point_mlp_grad=res7)
-    del pts, dirs, idx, z
+    del pts, dirs
     torch.cuda.empty_cache()
 
     # ---- phase 8: the training slice through its CLI entry point
@@ -846,6 +1148,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     res10 = _phase_serve(fr, nets, ncfg, (aud, expr, latent), sds, mask)
     report.update(delta=res9, serve=res10)
+    del sds, mask, sel
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: K5 and the kernel-diagnosis probes (K7)
+    pts, dirs = _points(ro, rd, near, far, args.points)
+    res11 = _phase_k5(fm, fr, nets["fine"], ff, ncfg, pts, dirs)
+    probes = _phase_kdiag(fm, fr, pts, dirs, args.rays)
+    report.update(k5=res11, kdiag=probes)
+    del pts, dirs
+    torch.cuda.empty_cache()
 
     counts.update(res8["launches"])
     counts["fused_render_delta"] = (
@@ -865,11 +1177,21 @@ def main(argv=None) -> int:
         "fused_point_mlp_grad": _point_bound(ncfg, args.points, 3, True),
         "fused_render_delta": {k: res9[k] for k in ("bound_ms", "bound_by")},
     }
-    # no single PyTorch call computes any of these functions
+    # no single PyTorch call computes K1-K6; the chains' library column is
+    # the same chain as torch.matmul / torch._int_mm calls
+    entries = {k: {"launches": counts[k], "max_abs_err": errs[k],
+                   "ms": times[k][0], "plain_ms": times[k][1], **bounds[k],
+                   "library_ms": None} for k in times}
+    entries.update(probes["entries"])
+    k5 = entries["fused_point_mlp_pe"]
+    k5["max_abs_err"] = max(k5["max_abs_err"], res11["max_abs_err"])
     kernels = [{"name": k, "route": "cuda", **KERNELS[k],
-                "launches": counts[k], "max_abs_err": errs[k],
-                "ms": times[k][0], "plain_ms": times[k][1], **bounds[k],
-                "library_ms": None} for k in KERNELS]
+                **{f: entries[k][f] for f in (
+                    "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}} for k in KERNELS]
+    idle = [e["name"] for e in kernels if not e["launches"] > 0]
+    if idle:
+        raise AssertionError(f"not launched on their paths: {idle}")
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:

@@ -131,6 +131,18 @@ def load_library() -> ctypes.CDLL:
     lib.fr_point_mlp.argtypes = [vp, vp, vp, i32, slots, i32, i32, i32, i32,
                                  vp]
     lib.fr_point_mlp.restype = i32
+    lib.fr_point_mlp_pe.argtypes = [vp, vp, vp, i32, slots, i32, i32, vp]
+    lib.fr_point_mlp_pe.restype = i32
+    lib.kd_chain.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    lib.kd_chain.restype = i32
+    lib.kd_ladder.argtypes = [vp, vp, vp, i32, i32, slots, i32, i32, vp]
+    lib.kd_ladder.restype = i32
+    lib.kd_render_a.argtypes = [vp, vp, vp, i32, i32, i32, slots, i32, i32,
+                                vp]
+    lib.kd_render_a.restype = i32
+    lib.kd_render_b.argtypes = [vp, vp, vp, vp, i32, i32, i32, slots, i32, i32,
+                                i32, i32, vp]
+    lib.kd_render_b.restype = i32
     i64 = ctypes.c_longlong
     lib.fr_point_mlp_grad_smem_bytes.argtypes = [i32]
     lib.fr_point_mlp_grad_smem_bytes.restype = ctypes.c_ulonglong

@@ -6,6 +6,10 @@
 //               _mlp_body): (N, 3) points and (N, 3) view directions ->
 //               (N, 4) raw [rgb logits, sigma], the forward of every
 //               training field call.
+// fr_point_mlp_pe replaces idealnerf_tpu/kernels/fused_mlp.py:
+//               fused_point_mlp with fuse_pe=False (_kernel -> _mlp_body):
+//               the same MLP from encodings built outside the kernel, (N,
+//               PE_PAD) xyz-PE and (N, PED_PAD) dir-PE rows in bf16 -> (N, 4).
 //
 // What bounds it on the card: tensor-core work, as in fused_render.cu. A
 // point costs about 558k MACs against 28 bytes of HBM traffic (6 floats in,
@@ -15,7 +19,11 @@
 // the shared wmma body (render_body.cuh:mlp_core) runs the trunk, the view
 // branch with the per-point dir-PE product in view layer 0's accumulator,
 // and the packed heads, and writes the tile's raw rows. Directions are
-// taken as given, not normalised, as the TPU kernel takes them.
+// taken as given, not normalised, as the TPU kernel takes them. The
+// encoded variant reads 192 bytes of PE per point instead of 24 of
+// coordinates, still far below the ridge point: it copies the rows into the
+// same shared-memory tiles (zeros past the ragged end) and runs the same
+// body, so K4 - K5 is the in-kernel PE's cost.
 #include "render_body.cuh"
 
 namespace fr {
@@ -55,6 +63,24 @@ k_point_mlp(Net net, const float* __restrict__ pts,
            out + static_cast<size_t>(p0) * 4, warp, lane);
 }
 
+__global__ void __launch_bounds__(NTHREADS, 2)
+k_point_mlp_pe(Net net, const bf16* __restrict__ pe,
+               const bf16* __restrict__ ped, float* __restrict__ out, int N) {
+  extern __shared__ __align__(128) char smem[];
+  Smem sm;
+  point_smem_layout(smem, &sm);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int p0 = blockIdx.x * P;
+  const int n = min(P, N - p0);
+
+  load_rows(sm.pe, pe + static_cast<size_t>(p0) * PE_PAD, P, PE_PAD, n, tid);
+  load_rows(sm.ped_tile, ped + static_cast<size_t>(p0) * PED_PAD, P, PED_PAD,
+            n, tid);
+  __syncthreads();
+  mlp_core(net, sm, fvec(net, SLOT_BV), 0, 0, n, 1, 1,
+           out + static_cast<size_t>(p0) * 4, warp, lane);
+}
+
 }  // namespace fr
 
 extern "C" {
@@ -75,6 +101,21 @@ int fr_point_mlp(const float* pts, const float* dirs, float* out, int N,
   fr::k_point_mlp<<<grid, fr::NTHREADS, bytes,
                     static_cast<cudaStream_t>(stream)>>>(net, pts, dirs, out,
                                                          N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fr_point_mlp_pe(const void* pe, const void* ped, float* out, int N,
+                    const unsigned long long* slots, int depth, int n_views,
+                    void* stream) {
+  const fr::Net net = fr::make_net(slots, depth, n_views, 0, 0, 0);
+  const size_t bytes = fr::point_smem_layout(nullptr, nullptr);
+  cudaError_t err = fr::prepare(fr::k_point_mlp_pe, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (N + fr::P - 1) / fr::P;
+  fr::k_point_mlp_pe<<<grid, fr::NTHREADS, bytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+      net, static_cast<const fr::bf16*>(pe),
+      static_cast<const fr::bf16*>(ped), out, N);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
 // Shared device body of the fused kernels (fused_render.cu, fused_mlp.cu,
-// fused_mlp_grad.cu): PE from ray packets or from points -> 8x256 trunk with
+// fused_mlp_grad.cu) and of the probes built from them (kdiag.cu): PE from
+// ray packets or from points -> 8x256 trunk with
 // the skip layer -> view branch with a per-ray or per-point dir-PE term ->
 // packed heads -> alpha compositing, plus the inverse-CDF depth placement
 // that the coarse and delta kernels run and the delta kernel's foreground
@@ -171,6 +172,18 @@ static __device__ __forceinline__ float pe_lane(const float* x, int lane,
   const int rem = j - fi * 6;
   const float ph = x[rem % 3] * static_cast<float>(1 << fi);
   return rem < 3 ? sinf(ph) : cosf(ph);
+}
+
+// Copy n rows of `width` elements of T (a multiple of 16 bytes per row)
+// from global memory into a shared tile of `rows` rows; zeros past n.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int rows,
+                                          int width, int n, int tid) {
+  const int ch = width * static_cast<int>(sizeof(T)) / 16;
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  for (int e = tid; e < rows * ch; e += NTHREADS)
+    d[e] = e / ch < n ? s[e] : make_uint4(0, 0, 0, 0);
 }
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;

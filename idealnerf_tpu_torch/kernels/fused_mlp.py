@@ -1,17 +1,22 @@
 """Fused point MLP: (N, 3) points + (N, 3) view directions -> (N, 4) raw
 [rgb logits, sigma] in one kernel launch (counterpart of
-idealnerf_tpu/kernels/fused_mlp.py, the ``fuse_pe=True`` branch).
+idealnerf_tpu/kernels/fused_mlp.py, both branches of ``fuse_pe``).
 
-The kernel (``csrc/fused_mlp.cu``, CUDA C++ for sm_90a) builds both
-positional encodings from the raw coordinates in shared memory and runs
-the conditioned MLP with folded per-frame biases through the wmma body it
-shares with the render kernels (``csrc/render_body.cuh``). It is the
-forward of every training field call (kernels/fused_mlp_grad.py).
+Two kernels in ``csrc/fused_mlp.cu`` (CUDA C++ for sm_90a) run the
+conditioned MLP with folded per-frame biases through the wmma body they
+share with the render kernels (``csrc/render_body.cuh``):
 
-``fused_point_mlp`` launches it for CUDA tensors and counts the launch in
-``launch_counts``; for CPU tensors it runs ``fused_point_mlp_reference``,
-the plain PyTorch version with the same bf16 rounding points (bf16 weights,
-PE and post-relu activations, f32 accumulation and biases).
+- ``point_mlp`` (``fuse_pe=True``) builds both positional encodings from
+  the raw coordinates in shared memory. It is the forward of every
+  training field call (kernels/fused_mlp_grad.py).
+- ``point_mlp_pe`` (``fuse_pe=False``) reads encodings built outside the
+  kernel, (N, PE_PAD) and (N, PED_PAD) bf16 rows. Its caller is the
+  kernel-diagnosis path (``idealnerf_tpu_torch.scripts.kdiag2``, rung v3).
+
+Each wrapper launches its kernel for CUDA tensors and counts the launch in
+``launch_counts``; for CPU tensors it runs the plain PyTorch version with
+the same bf16 rounding points (bf16 weights, PE and post-relu activations,
+f32 accumulation and biases).
 """
 
 from __future__ import annotations
@@ -24,11 +29,11 @@ import torch.nn.functional as F
 from idealnerf_tpu_torch.core.embedding import positional_encoding
 from idealnerf_tpu_torch.kernels import build
 from idealnerf_tpu_torch.kernels.fused_render import (
-    PE_PAD, PED_PAD, PackedNet, _bf16, _check_rays, _mlp_reference,
+    PE_PAD, PED_PAD, PackedNet, _check_cuda, _check_rays, _mlp_reference,
     _raise_on, _slots, _stream, pack_operands,
 )
 
-launch_counts = {"fused_point_mlp": 0}
+launch_counts = {"fused_point_mlp": 0, "fused_point_mlp_pe": 0}
 
 
 def reset_launch_counts() -> None:
@@ -48,11 +53,17 @@ def encode_points(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor):
     return pe, ped
 
 
+def point_mlp_pe_reference(net: PackedNet, pe: torch.Tensor,
+                           ped: torch.Tensor) -> torch.Tensor:
+    """Plain version of the encoded-input kernel -> (N, 4)."""
+    pe, ped = pe.float(), ped.float()
+    return _mlp_reference(net, pe, ped @ net.wv0d.float() + net.bv[0])
+
+
 def point_mlp_reference(net: PackedNet, pts: torch.Tensor,
                         dirs: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernel on a packed (bf16) net -> (N, 4)."""
-    pe, ped = encode_points(net, pts, dirs)
-    return _mlp_reference(net, pe, ped @ net.wv0d.float() + net.bv[0])
+    return point_mlp_pe_reference(net, *encode_points(net, pts, dirs))
 
 
 def point_mlp(net: PackedNet, pts: torch.Tensor,
@@ -82,15 +93,53 @@ def point_mlp(net: PackedNet, pts: torch.Tensor,
     return out
 
 
+def point_mlp_pe(net: PackedNet, pe: torch.Tensor,
+                 ped: torch.Tensor) -> torch.Tensor:
+    """The encoded-input kernel on a packed bf16 net: (N, PE_PAD) and (N,
+    PED_PAD) bf16 encodings -> (N, 4). CUDA tensors launch it, CPU tensors
+    take the plain version."""
+    if pe.device.type == "cpu":
+        return point_mlp_pe_reference(net, pe, ped)
+    if net.w[0].dtype != torch.bfloat16:
+        raise TypeError("fused_point_mlp_pe: the kernel takes bf16 weights")
+    dev = _check_cuda("fused_point_mlp_pe", torch.bfloat16, 16, pe=pe,
+                      ped=ped)
+    _check_rays("fused_point_mlp_pe", net)
+    N = pe.shape[0]
+    if pe.shape != (N, PE_PAD) or ped.shape != (N, PED_PAD):
+        raise ValueError(f"fused_point_mlp_pe: pe and ped must be (N, {PE_PAD})"
+                         f" and (N, {PED_PAD}), got {tuple(pe.shape)} and "
+                         f"{tuple(ped.shape)}")
+    if N < 1 or N >= 2 ** 31 - 64:
+        raise ValueError(f"fused_point_mlp_pe: unsupported N={N}")
+    lib = build.load_library()
+    table, keep = _slots(net, dev)
+    out = torch.empty((N, 4), dtype=torch.float32, device=dev)
+    err = lib.fr_point_mlp_pe(pe.data_ptr(), ped.data_ptr(), out.data_ptr(),
+                              N, table, len(net.w), len(net.wv), _stream(dev))
+    _raise_on(lib, err, "fused_point_mlp_pe")
+    launch_counts["fused_point_mlp_pe"] += 1
+    del keep
+    return out
+
+
 def fused_point_mlp(model, folded: Dict, cfg, pts: torch.Tensor,
-                    dirs: torch.Tensor) -> torch.Tensor:
+                    dirs: torch.Tensor, fuse_pe: bool = True) -> torch.Tensor:
     """(N, 4) raw of the FaceNeRF ``model`` with folded biases at (N, 3)
     points and (N, 3) per-point view directions (not normalised here).
+    ``fuse_pe=False`` builds the encodings outside the kernel, rounded to
+    bf16 (as the JAX branch does), and launches the encoded-input kernel.
     No gradient: training goes through fused_mlp_grad.fused_point_mlp_train."""
-    return point_mlp(pack_operands(model, folded, cfg), pts, dirs)
+    net = pack_operands(model, folded, cfg)
+    if fuse_pe:
+        return point_mlp(net, pts, dirs)
+    pe, ped = encode_points(net, pts, dirs)
+    return point_mlp_pe(net, pe.to(net.w[0].dtype).contiguous(),
+                        ped.to(net.w[0].dtype).contiguous())
 
 
 def fused_point_mlp_reference(model, folded: Dict, cfg, pts: torch.Tensor,
                               dirs: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of ``fused_point_mlp`` on any device."""
+    """Plain PyTorch version of ``fused_point_mlp`` (either ``fuse_pe``:
+    both round the encodings to bf16 at the same point) on any device."""
     return point_mlp_reference(pack_operands(model, folded, cfg), pts, dirs)

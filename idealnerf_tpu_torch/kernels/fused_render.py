@@ -327,20 +327,29 @@ def fused_render_delta_reference(params, folded, cfg, rays_o, rays_d, z_prev,
 
 # ------------------------------------------------------------------ kernels
 
-def _check_rays(name: str, net: PackedNet, **tensors) -> torch.device:
-    """The kernels take f32, contiguous CUDA tensors of one device and the
-    W=256, D<=16 network; anything else raises."""
+def _check_cuda(name: str, dtype, align: int = 1,
+                **tensors) -> torch.device:
+    """Contiguous CUDA tensors of ``dtype`` on one device, each starting at
+    a multiple of ``align`` bytes -> that device; anything else raises."""
     dev = None
     for key, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {key} is on {t.device}, expected cuda")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{name}: {key} must be contiguous and "
+                             f"{align}-byte aligned")
         if dev is not None and t.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         dev = t.device
+    return dev
+
+
+def _check_rays(name: str, net: PackedNet, **tensors) -> torch.device:
+    """The kernels take f32, contiguous CUDA tensors of one device and the
+    W=256, D<=16 network; anything else raises."""
+    dev = _check_cuda(name, torch.float32, **tensors) if tensors else None
     if net.width != KERNEL_WIDTH:
         raise ValueError(f"{name}: kernel width is {KERNEL_WIDTH}, "
                          f"network width {net.width}")

@@ -69,6 +69,49 @@ def test_point_mlp_matches_jax_kernel(kw, tile):
             assert r > MIN_CORR, (c, r)
 
 
+@pytest.mark.parametrize("kw,tile", [
+    (dict(n=300), 128), (dict(n=1), 128),
+    (dict(dim_aud=0, dim_expr=0, dim_latent=0, n=64), 64),
+], ids=["conditioned", "one_point", "no_conditioning"])
+def test_point_mlp_pe_matches_jax_kernel(kw, tile):
+    """fuse_pe=False: the encodings are built outside the kernel and
+    rounded to bf16 (the port's positional_encoding against XLA's f32 sin,
+    up to ~1e-4 apart at multires 10, under the same bound)."""
+    jcfg, jparams, jfold, cfg, model, folded, pts, dirs = _setup(**kw)
+    want = np.asarray(jax_fused(jparams, jfold, jcfg, jnp.asarray(pts),
+                                jnp.asarray(dirs), tile=tile, interpret=True,
+                                fuse_pe=False))
+    before = dict(fused_mlp.launch_counts)
+    with torch.no_grad():
+        got = fused_mlp.fused_point_mlp(model, folded, cfg,
+                                        torch.from_numpy(pts),
+                                        torch.from_numpy(dirs),
+                                        fuse_pe=False).numpy()
+    assert fused_mlp.launch_counts == before  # CPU tensors: plain version
+    assert got.shape == want.shape == (pts.shape[0], 4)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    if pts.shape[0] > 1:
+        for c in range(4):
+            r = np.corrcoef(got[:, c], want[:, c])[0, 1]
+            assert r > MIN_CORR, (c, r)
+
+
+def test_point_mlp_pe_refuses_what_the_kernel_does_not_take():
+    """The encoded-input wrapper takes (N, 64) and (N, 32) bf16 encodings
+    on the card; CPU tensors of any float type take the plain version."""
+    _, _, _, cfg, model, folded, pts, dirs = _setup(n=8, seed=4)
+    net = fused_mlp.pack_operands(model, folded, cfg)
+    pe, ped = fused_mlp.encode_points(net, torch.from_numpy(pts),
+                                      torch.from_numpy(dirs))
+    want = fused_mlp.point_mlp_reference(net, torch.from_numpy(pts),
+                                         torch.from_numpy(dirs))
+    np.testing.assert_array_equal(fused_mlp.point_mlp_pe(net, pe, ped),
+                                  want)
+    with pytest.raises(ValueError, match="cuda"):
+        fused_mlp.point_mlp_pe(net, pe.to(torch.bfloat16).to("meta"),
+                               ped.to(torch.bfloat16))
+
+
 def test_point_mlp_tracks_the_f32_mlp():
     """The bf16 kernel's plain version against the f32 plain MLP on the
     same inputs (directions taken as given, not normalised)."""
