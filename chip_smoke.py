@@ -36,7 +36,13 @@ non-zero and no result line is printed):
    variant within 2e-2 of its plain version and 0.15 of f32 autograd (the
    JAX package's bound). aud/expr/latent gradients within 0.05 of their
    maximum. Two launches must give bitwise-equal gradients. Timed at
-   ``--points``.
+   ``--points``; the bf16 checks run again at the step's fine pass,
+   393,216 points. The bf16 backward is two kernels: at both sizes pass B
+   alone is held against its plain version on pass A's own buffers (1e-4
+   norm-relative per gradient), each pass is timed apart, a torch.bmm of
+   the trunk's seven H^T @ dc products is timed as a yardstick (the port
+   never calls it), and the peak memory of one call is read. The new
+   kernels' ptxas lines are printed again.
 8. the training slice: ``idealnerf_tpu_torch.cli.train_head.main`` on
    ``--train_frames`` synthetic frames of ``--train_hw``² at full width
    (D=8, W=256, N_rand 2048, 64+128) for ``--train_epochs`` epochs: ms per
@@ -109,6 +115,8 @@ Z_ATOL = 2e-6
 GRAD_TOL = {"f32": {"plain": 1e-4, "autograd": 1e-4},
             "bf16": {"plain": 2e-2, "autograd": 0.15}}
 COND_TOL = 0.05
+PASS_B_TOL = 1e-4
+FINE_POINTS = 2048 * 192  # the training step's fine pass
 KERNELS = {
     "fused_render_coarse_hier": {
         "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
@@ -528,23 +536,158 @@ def _phase_point_mlp(fm, net, folded, ncfg, pts, dirs) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms}
 
 
-def _phase_grad(net, ncfg, cond, pts, dirs) -> dict:
+def _grad_checks(fmg, tag, gd, ncfg, net, cond, pts, dirs, ref, ref_c, w):
+    """The kernel's gradients through the training autograd Function
+    against the plain backward and f32 autograd per parameter, the
+    conditioning gradients, and two launches bitwise equal -> (max abs
+    error against the plain backward, worst errors, packed operands,
+    cotangent)."""
+    import torch
+
+    from idealnerf_tpu_torch.kernels.fused_render import (
+        model_leaves, pack_leaves,
+    )
+    from idealnerf_tpu_torch.models.face_nerf import fold_conditioning
+
+    n = pts.shape[0]
+
+    def folded_fn(model, c):
+        return fold_conditioning(model, ncfg, *c)
+
+    def kern(model, folded, p, d):
+        return fmg.fused_point_mlp_train(ncfg, model, folded, p, d, gd)
+
+    def plain(model, folded, p, d):
+        return fmg.fused_point_mlp_train_reference(ncfg, model, folded, p, d,
+                                                   gd)
+
+    got, got_c = _grads_of(kern, net, folded_fn, cond, pts, dirs, w)
+    want, _ = _grads_of(plain, net, folded_fn, cond, pts, dirs, w)
+    worst = {"plain": (0.0, ""), "autograd": (0.0, "")}
+    err = 0.0
+    for name in ref:
+        for what, r in (("plain", want[name]), ("autograd", ref[name])):
+            e = _norm_rel(got[name], r)
+            if e > worst[what][0]:
+                worst[what] = (e, name)
+        err = max(err, float((got[name] - want[name]).abs().max()))
+    for what, (e, name) in worst.items():
+        tol = GRAD_TOL[tag][what]
+        print(f"  {tag} N={n}: worst norm-relative error vs {what} {e:.3e} "
+              f"({name}; tol {tol:g})")
+        if not e <= tol:
+            raise AssertionError(f"{tag} gradients disagree with {what}")
+    for x, r, name in zip(got_c, ref_c, ("aud", "expr", "latent")):
+        scale = float(r.abs().max())
+        e = float((x - r).abs().max()) / (scale + 1e-12)
+        print(f"  {tag} N={n}: d{name} max error {e:.3e} relative to its "
+              f"max {scale:.3e} (tol {COND_TOL:g})")
+        if not (e < COND_TOL and float(x.abs().max()) > 0):
+            raise AssertionError(f"{tag} d{name} disagrees or is zero")
+
+    # bitwise repeatability of the kernels themselves, on packed operands
+    folded = fold_conditioning(net, ncfg, *cond)
+    packed = pack_leaves(ncfg, model_leaves(net, folded, ncfg), gd)
+    g = (w * n).contiguous()
+    a = fmg.point_mlp_grad(packed, pts, dirs, g)
+    b = fmg.point_mlp_grad(packed, pts, dirs, g)
+    same = all(torch.equal(x, y) for x, y in zip(_packed_list(a),
+                                                  _packed_list(b)))
+    print(f"  {tag} N={n}: two launches bitwise equal: {same}")
+    if not same:
+        raise AssertionError(f"{tag} gradient kernel is not repeatable")
+    return err, {k: v[0] for k, v in worst.items()}, packed, g
+
+
+def _packed_list(p):
+    return [*p.w, *p.b, *p.wskip.values(), *p.wv, *p.bv, p.wv0d, p.w_alpha,
+            p.w_rgb, p.b_heads]
+
+
+def _pass_bounds(fmg, ncfg, packed, n: int):
+    """Bounds of the bf16 backward's two passes on n points: pass A does
+    the forward's and the input gradients' multiply-adds and writes the
+    operand planes and bias rows; pass B does every weight gradient's
+    multiply-adds and reads them."""
+    n_tiles = -(-n // fmg.GRAD_TILE)
+    _, widths, total = fmg.grad_planes(packed, n_tiles)
+    nb = sum(x.numel() for x in packed.b) + sum(
+        x.numel() for x in packed.bv) + packed.b_heads.numel()
+    out_bytes = 2 * total + 4 * n_tiles * nb
+    pt, ray = _mlp_macs(ncfg)
+    a = _bound(2.0 * 2 * n * (pt + ray),
+               _weight_bytes(ncfg) + 4.0 * n * (6 + 4) + out_bytes)
+    macs = sum(x.numel() for x in (*packed.w, *packed.wskip.values(),
+                                   *packed.wv, packed.wv0d, packed.w_alpha,
+                                   packed.w_rgb))
+    _, G = fmg._grad_layout(packed)
+    b = _bound(2.0 * n * macs, out_bytes + 4.0 * G)
+    return a, b
+
+
+def _phase_grad_split(fmg, ncfg, packed, pts, dirs, g) -> dict:
+    """The bf16 backward's passes apart: pass B alone against its plain
+    version on pass A's own buffers (1e-4 norm-relative per gradient),
+    each pass timed with CUDA events, the torch.bmm yardstick of the
+    trunk's seven H^T @ dc products (timed only), the peak memory of one
+    backward call, and each pass's bound."""
+    import torch
+
+    n = pts.shape[0]
+    dev = pts.device
+    planes, offs, bias = fmg.grad_pass_a(packed, pts, dirs, g)
+    got = fmg.grad_pass_b(packed, planes, offs, bias)
+    bufs = fmg.buffers_from_planes(packed, planes, offs, bias, n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = fmg.grad_pass_b_reference(
+        packed, bufs, fmg.grad_chunks(bias.shape[0], sms))
+    worst = max(_norm_rel(x, y) for x, y in zip(_packed_list(got),
+                                                _packed_list(want)))
+    print(f"  pass B alone vs its plain version on pass A's buffers, N={n}: "
+          f"worst norm-relative error {worst:.3e} (tol {PASS_B_TOL:g})")
+    if not worst <= PASS_B_TOL:
+        raise AssertionError("pass B disagrees with its plain version")
+    D = len(packed.w)
+    hts = torch.stack([x.to(torch.bfloat16) for x in bufs.hs[:D - 1]]
+                      ).transpose(1, 2)
+    dcs = torch.stack([x.to(torch.bfloat16) for x in bufs.dcs[1:]])
+    del bufs, want, got
+    ms_a = _time_ms(lambda: fmg.grad_pass_a(packed, pts, dirs, g), 3)
+    ms_b = _time_ms(lambda: fmg.grad_pass_b(packed, planes, offs, bias), 5)
+    ms_bmm = _time_ms(lambda: torch.bmm(hts, dcs), 5)
+    del hts, dcs, planes, bias
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fmg.point_mlp_grad(packed, pts, dirs, g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    bound_a, bound_b = _pass_bounds(fmg, ncfg, packed, n)
+    print(f"  bf16 passes at N={n}: pass A {ms_a:.3f} ms (bound "
+          f"{bound_a['bound_ms']:.3f}, {bound_a['bound_by']}), pass B "
+          f"{ms_b:.3f} ms (bound {bound_b['bound_ms']:.3f}, "
+          f"{bound_b['bound_by']}); torch.bmm of the {D - 1} trunk H^T @ dc "
+          f"products {ms_bmm:.3f} ms (yardstick, timed only); peak memory "
+          f"of one call {peak / 2 ** 30:.3f} GiB (CUDA events)")
+    return {"pass_b_err": worst, "pass_a_ms": ms_a, "pass_b_ms": ms_b,
+            "bmm_ms": ms_bmm, "peak_bytes": peak, "bound_a": bound_a,
+            "bound_b": bound_b}
+
+
+def _phase_grad(net, ncfg, cond, pts, dirs, ptxas) -> dict:
     import torch
 
     from idealnerf_tpu_torch.core.embedding import positional_encoding
     from idealnerf_tpu_torch.kernels import fused_mlp_grad as fmg
-    from idealnerf_tpu_torch.kernels.fused_render import (
-        model_leaves, pack_leaves,
-    )
     from idealnerf_tpu_torch.models.face_nerf import (
         apply_folded, fold_conditioning,
     )
 
     print("phase 7 gradient kernel vs plain backward and f32 autograd")
-    n = pts.shape[0]
-    dev = pts.device
-    w = (torch.linspace(0.5, 1.5, n, device=dev)[:, None]
-         * torch.tensor([1.0, -0.7, 0.3, 0.05], device=dev)) / n
+    for i, ln in enumerate(ptxas):  # the bf16 kernels' registers, spills
+        if any(k in ln for k in ("k_grad_pass", "k_bias_partials")):
+            print("  ptxas: " + " | ".join(ptxas[i:i + 3]))
 
     def folded_fn(model, c):
         return fold_conditioning(model, ncfg, *c)
@@ -554,63 +697,33 @@ def _phase_grad(net, ncfg, cond, pts, dirs) -> dict:
                             positional_encoding(p, ncfg.multires),
                             positional_encoding(d, ncfg.multires_views))
 
-    ref, ref_c = _grads_of(autograd_fn, net, folded_fn, cond, pts, dirs, w)
     out = {"max_abs_err": 0.0}
-    for tag, gd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        def kern(model, folded, p, d, gd=gd):
-            return fmg.fused_point_mlp_train(ncfg, model, folded, p, d, gd)
-
-        def plain(model, folded, p, d, gd=gd):
-            return fmg.fused_point_mlp_train_reference(ncfg, model, folded,
-                                                       p, d, gd)
-
-        got, got_c = _grads_of(kern, net, folded_fn, cond, pts, dirs, w)
-        want, _ = _grads_of(plain, net, folded_fn, cond, pts, dirs, w)
-        worst = {"plain": (0.0, ""), "autograd": (0.0, "")}
-        for name in ref:
-            for what, r in (("plain", want[name]), ("autograd", ref[name])):
-                e = _norm_rel(got[name], r)
-                if e > worst[what][0]:
-                    worst[what] = (e, name)
-            out["max_abs_err"] = max(out["max_abs_err"], float(
-                (got[name] - want[name]).abs().max()))
-        for what, (e, name) in worst.items():
-            tol = GRAD_TOL[tag][what]
-            print(f"  {tag}: worst norm-relative error vs {what} {e:.3e} "
-                  f"({name}; tol {tol:g})")
-            if not e <= tol:
-                raise AssertionError(f"{tag} gradients disagree with {what}")
-        for x, r, name in zip(got_c, ref_c, ("aud", "expr", "latent")):
-            scale = float(r.abs().max())
-            e = float((x - r).abs().max()) / (scale + 1e-12)
-            print(f"  {tag}: d{name} max error {e:.3e} relative to its "
-                  f"max {scale:.3e} (tol {COND_TOL:g})")
-            if not (e < COND_TOL and float(x.abs().max()) > 0):
-                raise AssertionError(f"{tag} d{name} disagrees or is zero")
-
-        # bitwise repeatability of the kernel itself, on packed operands
-        folded = fold_conditioning(net, ncfg, *cond)
-        packed = pack_leaves(ncfg, model_leaves(net, folded, ncfg), gd)
-        g = (w * n).contiguous()
-        a = fmg.point_mlp_grad(packed, pts, dirs, g)
-        b = fmg.point_mlp_grad(packed, pts, dirs, g)
-        same = all(torch.equal(x, y) for x, y in zip(
-            [*a.w, *a.b, *a.wskip.values(), *a.wv, *a.bv, a.wv0d, a.w_alpha,
-             a.w_rgb, a.b_heads],
-            [*b.w, *b.b, *b.wskip.values(), *b.wv, *b.bv, b.wv0d, b.w_alpha,
-             b.w_rgb, b.b_heads]))
-        print(f"  {tag}: two launches bitwise equal: {same}")
-        if not same:
-            raise AssertionError(f"{tag} gradient kernel is not repeatable")
-        ms = _time_ms(lambda: fmg.point_mlp_grad(packed, pts, dirs, g), 3)
-        pms = _time_ms(lambda: fmg.point_mlp_grad_reference(packed, pts,
-                                                            dirs, g), 2)
-        print(f"  {tag} gradient kernel at N={n}: kernel {ms:.3f} ms, "
-              f"plain {pms:.3f} ms (CUDA events)")
-        out[tag] = {"n": n, "ms": ms, "plain_ms": pms,
-                    "worst": {k: v[0] for k, v in worst.items()}}
-        torch.cuda.synchronize()
-    out["ms"], out["plain_ms"] = out["bf16"]["ms"], out["bf16"]["plain_ms"]
+    sizes = [pts.shape[0]] + [FINE_POINTS] * (FINE_POINTS < pts.shape[0])
+    for n in sizes:
+        p, d = pts[:n], dirs[:n]
+        w = (torch.linspace(0.5, 1.5, n, device=pts.device)[:, None]
+             * torch.tensor([1.0, -0.7, 0.3, 0.05], device=pts.device)) / n
+        ref, ref_c = _grads_of(autograd_fn, net, folded_fn, cond, p, d, w)
+        tags = (("f32", torch.float32), ("bf16", torch.bfloat16))
+        for tag, gd in tags if n == pts.shape[0] else tags[1:]:
+            err, worst, packed, g = _grad_checks(
+                fmg, tag, gd, ncfg, net, cond, p, d, ref, ref_c, w)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            ms = _time_ms(lambda: fmg.point_mlp_grad(packed, p, d, g), 3)
+            pms = _time_ms(lambda: fmg.point_mlp_grad_reference(
+                packed, p, d, g), 2)
+            print(f"  {tag} gradient kernel at N={n}: kernel {ms:.3f} ms, "
+                  f"plain {pms:.3f} ms (CUDA events)")
+            res = {"n": n, "ms": ms, "plain_ms": pms, "worst": worst}
+            if tag == "bf16":
+                res.update(_phase_grad_split(fmg, ncfg, packed, p, d, g))
+            out[f"{tag}_{n}"] = res
+            del packed, g
+            torch.cuda.synchronize()
+        del ref, ref_c
+        torch.cuda.empty_cache()
+    main = out[f"bf16_{pts.shape[0]}"]
+    out["ms"], out["plain_ms"] = main["ms"], main["plain_ms"]
     return out
 
 
@@ -1122,7 +1235,8 @@ def main(argv=None) -> int:
     # points lie on the phase-2 rays at uniform depths in [near, far]
     pts, dirs = _points(ro, rd, near, far, args.points)
     res6 = _phase_point_mlp(fm, nets["fine"], ff, ncfg, pts, dirs)
-    res7 = _phase_grad(nets["coarse"], ncfg, (aud, expr, latent), pts, dirs)
+    res7 = _phase_grad(nets["coarse"], ncfg, (aud, expr, latent), pts, dirs,
+                      ptxas)
     report.update(point_mlp=res6, point_mlp_grad=res7)
     del pts, dirs
     torch.cuda.empty_cache()

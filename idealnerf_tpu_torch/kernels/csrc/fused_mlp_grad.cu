@@ -1,40 +1,49 @@
 // Rematerialising backward of the fused point MLP for Hopper (sm_90a), with
 // a plain C interface loaded through ctypes by kernels/fused_mlp_grad.py.
+// Replaces idealnerf_tpu/kernels/fused_mlp_grad.py: _run_grad_kernel
+// (_grad_kernel), the backward of fused_point_mlp_train: points, directions
+// and the (N, 4) cotangent -> f32 gradients of every packed operand (layer
+// weights, folded biases, skip pe-part, view branch, dir-PE part, packed
+// heads).
 //
-// fr_point_mlp_grad  replaces idealnerf_tpu/kernels/fused_mlp_grad.py:
-//                    _run_grad_kernel (_grad_kernel), the backward of
-//                    fused_point_mlp_train: points, directions and the (N, 4)
-//                    cotangent -> f32 gradients of every packed operand
-//                    (layer weights, folded biases, skip pe-part, view
-//                    branch, dir-PE part, packed heads).
+// Both variants recompute the forward per tile of GP=64 points in the
+// gradient type, then run the backward layer by layer with the rounding
+// points of the TPU kernel: the cotangent is rounded before the head weight
+// products, each d_h is rounded before its products, bias gradients are
+// column sums of the unrounded f32 d_h, and relu' is h > 0 on the
+// recomputed post-activation. Neither uses float atomics: the same inputs
+// on the same card give bitwise-equal gradients.
 //
-// Per tile of GP=64 points a block recomputes the forward in the gradient
-// type T (bf16 weights and activations with f32 accumulation, or f32
-// throughout), then runs the backward layer by layer, with the rounding
-// points of the TPU kernel: the cotangent is rounded to T before the head
-// weight products, each d_h is rounded to T before its products, bias
-// gradients are column sums of the unrounded f32 d_h, and relu' is h > 0 on
-// the recomputed post-activation.
+// bf16 (the training default): two passes.
+// - k_grad_pass_a, per tile: the recompute and the d_h chain on wmma
+//   16x16x16 fragments (gemm_tc), with no weight-gradient product. It
+//   writes every operand of those products for all N points: the PE tiles,
+//   the rounded cotangent, every bf16 activation and every rounded d_h, each
+//   64-point tile of each plane in wgmma's MN-major 128-byte-swizzled order
+//   (swz), plus per tile the f32 column sums of the unrounded d_h (bias
+//   gradients). Bound by its tensor-core work (the forward twice over, as
+//   wmma) and by writing about 10 KB per point.
+// - k_grad_pass_b: every weight gradient is X^T @ dc over the points, a
+//   product with K = N. The grid is (output tile of up to 128 x 128, chunk
+//   of tiles). One producer thread fills a ring of BSTAGES shared-memory
+//   stages with one cp.async.bulk per operand per 64-point tile, completed
+//   on mbarriers; two consumer warpgroups run wgmma m64nNk16 with both
+//   operands read from the swizzled stages by descriptor, and sum their
+//   chunk in registers, in order. Bound by reading the operand planes (each
+//   about once from HBM, the output tiles of one gradient sharing them
+//   through L2); the ring keeps 192 KB of copies in flight per SM.
+// - k_bias_partials sums the per-tile bias rows of a chunk; k_reduce_slabs
+//   adds the chunks' partials in chunk order.
+// What this replaces: one kernel that added every weight-gradient product
+// of each tile (K = 64) into a per-block f32 slab of all gradients (2.3 MB),
+// loading and storing the slab's fragments from global memory per tile.
 //
-// What bounds it on the card: tensor-core work (about 3x the forward's
-// MACs: recompute, input gradients, weight gradients) plus the weight-
-// gradient read-modify-write below. Design choices:
-// - Activations: the eight 256-wide trunk activations and the three view
-//   activations of a tile are 304 KB in bf16 at GP=64, more than a block's
-//   227 KB of shared memory. They go to a per-block scratch in global memory
-//   (about 40 MB over 132 blocks in bf16, within the 50 MB L2); shared
-//   memory holds the PE tiles, the cotangent, two f32 d_h buffers and the
-//   rounded d_h.
-// - Weight gradients: the TPU kernel adds each grid step into one VMEM
-//   accumulator, which relies on sequential grid steps. Here each block owns
-//   a contiguous f32 slab of every gradient (about 2.2 MB at D=8, W=256),
-//   walks the tiles b, b+B, b+2B, ... in order and accumulates into its own
-//   slab; a second kernel sums the B slabs element by element in block
-//   order. No float atomics: the same inputs give bitwise-equal gradients.
-// - Products: nvcuda::wmma bf16 16x16x16 with f32 accumulators for T=bf16
-//   (transposed operands through col_major fragments); f32 FMAs on the CUDA
-//   cores for T=float, since wmma has no f32 fragment and TF32 would keep 10
-//   mantissa bits where the f32 variant must match f32 autograd.
+// f32 (train_fused 1): k_point_mlp_grad<float>, one kernel. Each block walks
+// the tiles b, b+B, ... and accumulates into its own f32 slab of every
+// gradient; k_reduce_slabs sums the B slabs in block order. Products are
+// f32 FMAs on the CUDA cores (wmma has no f32 fragment and TF32 would keep
+// 10 mantissa bits where this variant must match f32 autograd); the
+// activations of a tile go to a per-block scratch in global memory.
 #include <type_traits>
 
 #include "render_body.cuh"
@@ -428,53 +437,701 @@ __global__ void k_reduce_slabs(const float* __restrict__ slabs,
   }
 }
 
-template <typename T>
-static int launch_grad(const Net& net, const GradTable& gt, const float* pts,
-                       const float* dirs, const float* g, void* act,
-                       long long act_stride, float* slabs, float* out,
-                       long long G, int n_blocks, int N,
-                       cudaStream_t stream) {
-  const size_t bytes = grad_smem_layout<T>(nullptr, nullptr);
-  cudaError_t err = prepare(k_point_mlp_grad<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  k_point_mlp_grad<T><<<n_blocks, NTHREADS, bytes, stream>>>(
-      net, gt, pts, dirs, g, static_cast<T*>(act), act_stride, slabs, G, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+static int reduce(const float* slabs, float* out, long long G, int n_slabs,
+                  cudaStream_t stream) {
   const long long want = (G + 255) / 256;
   const int grid = static_cast<int>(want < 4096 ? want : 4096);
-  k_reduce_slabs<<<grid, 256, 0, stream>>>(slabs, out, G, n_blocks);
+  k_reduce_slabs<<<grid, 256, 0, stream>>>(slabs, out, G, n_slabs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------ bf16, two passes
+//
+// The operand buffer of all N points. Plane j holds one image of GP x F_j
+// bf16 per tile at off[j] + tile * GP * F_j (elements); F_j is a multiple
+// of 64. Planes: PE, PED (64 lanes, zero past PED_PAD), GB (the rounded
+// cotangent, 64 lanes, zero past 3), then H(i), HV(v), DC(i), DV(v).
+constexpr int MAXPLANES = 3 + 2 * MAXD + 2 * MAXV;
+constexpr int PL_PE = 0, PL_PED = 1, PL_GB = 2, PL_H = 3;
+constexpr int LANES = 64;  // width of the PED and GB planes
+
+struct Planes {
+  long long off[MAXPLANES];
+};
+
+// Element offset of (point p, feature f) in one tile's image: 64-feature
+// blocks of 4,096 elements; in a block, groups of 8 points (1,024 bytes);
+// in a group, one 128-byte row per point whose 16-byte chunks are permuted
+// by chunk ^ (p % 8). That is wgmma's MN-major layout with 128-byte swizzle
+// (kernels/fused_mlp_grad.py: swizzle_index).
+__host__ __device__ __forceinline__ int swz(int p, int f) {
+  return ((f >> 6) << 12) + ((p >> 3) << 9) + ((p & 7) << 6) +
+         ((((f >> 3) & 7) ^ (p & 7)) << 3) + (f & 7);
+}
+
+struct GradASmem {
+  bf16* pe;    // (GP, PE_PAD)
+  bf16* ped;   // (GP, PED_PAD)
+  float* g;    // (GP, 4) cotangent
+  float* dh;   // (GP, W) f32 d_h; in the forward, two (GP, W) bf16
+               // activation buffers
+  float* dx;   // (GP, W) f32 product output / d_hv
+  bf16* dc;    // (GP, W) d_h rounded
+};
+
+__host__ __device__ inline size_t grad_a_smem_layout(char* base,
+                                                     GradASmem* gs) {
+  const size_t sz[6] = {sizeof(bf16) * GP * PE_PAD, sizeof(bf16) * GP * PED_PAD,
+                        sizeof(float) * GP * 4,     sizeof(float) * GP * W,
+                        sizeof(float) * GP * W,     sizeof(bf16) * GP * W};
+  size_t off[6];
+  size_t total = 0;
+  for (int i = 0; i < 6; ++i) {
+    off[i] = total;
+    total += (sz[i] + 127) & ~static_cast<size_t>(127);
+  }
+  if (gs != nullptr) {
+    gs->pe = reinterpret_cast<bf16*>(base + off[0]);
+    gs->ped = reinterpret_cast<bf16*>(base + off[1]);
+    gs->g = reinterpret_cast<float*>(base + off[2]);
+    gs->dh = reinterpret_cast<float*>(base + off[3]);
+    gs->dx = reinterpret_cast<float*>(base + off[4]);
+    gs->dc = reinterpret_cast<bf16*>(base + off[5]);
+  }
+  return total;
+}
+
+// img (a tile's image, F lanes) <- src (GP x width, row-major bf16), zero
+// lanes past width; 16-byte chunks.
+__device__ void put_tile(bf16* img, const bf16* src, int width, int F,
+                         int tid) {
+  const int ch = F / 8, sch = width / 8;
+  for (int e = tid; e < GP * ch; e += NTHREADS) {
+    const int p = e / ch, c = e - p * ch;
+    const uint4 v = c < sch ? reinterpret_cast<const uint4*>(src)[p * sch + c]
+                            : make_uint4(0, 0, 0, 0);
+    reinterpret_cast<uint4*>(img)[swz(p, 8 * c) >> 3] = v;
+  }
+}
+
+// img (LANES) <- the cotangent rounded to bf16, zero past lane 3.
+__device__ void put_cotangent(bf16* img, const float* g, int tid) {
+  for (int e = tid; e < GP * (LANES / 8); e += NTHREADS) {
+    const int p = e / (LANES / 8), c = e - p * (LANES / 8);
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = __float2bfloat16(c == 0 && k < 4 ? g[p * 4 + k] : 0.f);
+    reinterpret_cast<uint4*>(img)[swz(p, 8 * c) >> 3] =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// dst (GP x width, bf16, shared) = relu(src + bias) rounded; the same
+// 16-byte chunks also into the plane image img.
+__device__ void relu_put(bf16* dst, bf16* img, const float* src,
+                         const float* bias, int width, int tid) {
+  const int ch = width / 8;
+  for (int e = tid; e < GP * ch; e += NTHREADS) {
+    const int p = e / ch, c = e - p * ch;
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = __float2bfloat16(
+          fmaxf(src[p * width + 8 * c + k] + bias[8 * c + k], 0.f));
+    const uint4 u = *reinterpret_cast<const uint4*>(v);
+    reinterpret_cast<uint4*>(dst)[e] = u;
+    reinterpret_cast<uint4*>(img)[swz(p, 8 * c) >> 3] = u;
+  }
+}
+
+// d (GP x width, f32) *= (h > 0) with h read from its plane image (written
+// by this block earlier in the tile); dc = d rounded, into shared memory
+// and into the plane image dimg.
+__device__ void mask_put(float* d, const bf16* himg, bf16* dc, bf16* dimg,
+                         int width, int tid) {
+  const int ch = width / 8;
+  for (int e = tid; e < GP * ch; e += NTHREADS) {
+    const int p = e / ch, c = e - p * ch;
+    const int o = swz(p, 8 * c) >> 3;
+    const uint4 hu = reinterpret_cast<const uint4*>(himg)[o];
+    const bf16* h = reinterpret_cast<const bf16*>(&hu);
+    __align__(16) bf16 r[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = p * width + 8 * c + k;
+      const float v = __bfloat162float(h[k]) > 0.f ? d[i] : 0.f;
+      d[i] = v;
+      r[k] = __float2bfloat16(v);
+    }
+    const uint4 u = *reinterpret_cast<const uint4*>(r);
+    reinterpret_cast<uint4*>(dc)[e] = u;
+    reinterpret_cast<uint4*>(dimg)[o] = u;
+  }
+}
+
+// row[j] = column sums of d (GP x width), rows in order.
+__device__ void colsum_put(float* row, const float* d, int width, int tid) {
+  for (int j = tid; j < width; j += NTHREADS) {
+    float s = 0.f;
+    for (int p = 0; p < GP; ++p) s += d[p * width + j];
+    row[j] = s;
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+k_grad_pass_a(Net net, Planes pl, const float* __restrict__ pts,
+              const float* __restrict__ dirs, const float* __restrict__ gin,
+              bf16* planes, float* __restrict__ bias, int N) {
+  extern __shared__ __align__(128) char smem[];
+  GradASmem sm;
+  grad_a_smem_layout(smem, &sm);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int D = net.depth, NV = net.n_views;
+  const int NB = D * W + NV * WV + HEADS;
+  bf16* hb[2] = {reinterpret_cast<bf16*>(sm.dh),
+                 reinterpret_cast<bf16*>(sm.dh) + GP * W};
+  const int n_tiles = (N + GP - 1) / GP;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int p0 = tile * GP;
+    const int n = min(GP, N - p0);
+    auto img = [&](int plane, int width) {
+      return planes + pl.off[plane] + static_cast<size_t>(tile) * GP * width;
+    };
+    auto himg = [&](int i) { return img(PL_H + i, W); };
+    auto hvimg = [&](int v) { return img(PL_H + D + v, WV); };
+    auto dcimg = [&](int i) { return img(PL_H + D + NV + i, W); };
+    auto dvimg = [&](int v) { return img(PL_H + 2 * D + NV + v, WV); };
+    float* brow = bias + static_cast<size_t>(tile) * NB;
+
+    // ---- inputs; rows past N get a zero cotangent, so every d_h and
+    // every product over them is zero
+    for (int e = tid; e < GP * PE_PAD; e += NTHREADS) {
+      const int row = e / PE_PAD, k = e - row * PE_PAD;
+      float v = 0.f;
+      if (row < n) {
+        const float* x = pts + static_cast<size_t>(p0 + row) * 3;
+        const float xx[3] = {x[0], x[1], x[2]};
+        v = pe_lane(xx, k, net.multires);
+      }
+      sm.pe[e] = __float2bfloat16(v);
+    }
+    for (int e = tid; e < GP * PED_PAD; e += NTHREADS) {
+      const int row = e / PED_PAD, k = e - row * PED_PAD;
+      float v = 0.f;
+      if (row < n) {
+        const float* d = dirs + static_cast<size_t>(p0 + row) * 3;
+        const float dd[3] = {d[0], d[1], d[2]};
+        v = pe_lane(dd, k, net.multires_views);
+      }
+      sm.ped[e] = __float2bfloat16(v);
+    }
+    for (int e = tid; e < GP * 4; e += NTHREADS)
+      sm.g[e] = e / 4 < n ? gin[static_cast<size_t>(p0) * 4 + e] : 0.f;
+    __syncthreads();
+    put_tile(img(PL_PE, PE_PAD), sm.pe, PE_PAD, PE_PAD, tid);
+    put_tile(img(PL_PED, LANES), sm.ped, PED_PAD, LANES, tid);
+    put_cotangent(img(PL_GB, LANES), sm.g, tid);
+
+    // ---- forward recompute: activations ping-pong in shared memory and
+    // are written to their planes
+    gemm<bf16, false, false>(sm.dx, W, false, sm.pe, PE_PAD,
+                             op<bf16>(net, SLOT_W), W, GP, W, PE_PAD, warp,
+                             tid);
+    __syncthreads();
+    relu_put(hb[0], himg(0), sm.dx, fvec(net, SLOT_B), W, tid);
+    __syncthreads();
+    for (int i = 1; i < D; ++i) {
+      const bool skip = net.slot[SLOT_WSKIP + i] != nullptr;
+      if (skip) {
+        gemm<bf16, false, false>(sm.dx, W, false, sm.pe, PE_PAD,
+                                 op<bf16>(net, SLOT_WSKIP + i), W, GP, W,
+                                 PE_PAD, warp, tid);
+        __syncthreads();
+      }
+      gemm<bf16, false, false>(sm.dx, W, skip, hb[(i - 1) & 1], W,
+                               op<bf16>(net, SLOT_W + i), W, GP, W, W, warp,
+                               tid);
+      __syncthreads();
+      relu_put(hb[i & 1], himg(i), sm.dx, fvec(net, SLOT_B + i), W, tid);
+      __syncthreads();
+    }
+    gemm<bf16, false, false>(sm.dx, WV, false, hb[(D - 1) & 1], W,
+                             op<bf16>(net, SLOT_WV), WV, GP, WV, W, warp,
+                             tid);
+    __syncthreads();
+    gemm<bf16, false, false>(sm.dx, WV, true, sm.ped, PED_PAD,
+                             op<bf16>(net, SLOT_WV0D), WV, GP, WV, PED_PAD,
+                             warp, tid);
+    __syncthreads();
+    relu_put(hb[D & 1], hvimg(0), sm.dx, fvec(net, SLOT_BV), WV, tid);
+    __syncthreads();
+    for (int v = 1; v < NV; ++v) {
+      gemm<bf16, false, false>(sm.dx, WV, false, hb[(D + v - 1) & 1], WV,
+                               op<bf16>(net, SLOT_WV + v), WV, GP, WV, WV,
+                               warp, tid);
+      __syncthreads();
+      relu_put(hb[(D + v) & 1], hvimg(v), sm.dx, fvec(net, SLOT_BV + v), WV,
+               tid);
+      __syncthreads();
+    }
+
+    // ---- heads: d_h = g @ w_alpha^T, d_hv = g @ w_rgb^T with the
+    // unrounded f32 g; b_heads' tile sums
+    for (int c = tid; c < HEADS; c += NTHREADS) {
+      float s = 0.f;
+      if (c < 4)
+        for (int p = 0; p < GP; ++p) s += sm.g[p * 4 + c];
+      brow[D * W + NV * WV + c] = s;
+    }
+    {
+      const bf16* wa = op<bf16>(net, SLOT_WALPHA);
+      const bf16* wr = op<bf16>(net, SLOT_WRGB);
+      for (int e = tid; e < GP * W; e += NTHREADS) {
+        const int p = e / W, j = e - p * W;
+        float s = 0.f;
+        for (int c = 0; c < 4; ++c)
+          s += sm.g[p * 4 + c] * to_f(wa[j * HEADS + c]);
+        sm.dh[e] = s;
+      }
+      for (int e = tid; e < GP * WV; e += NTHREADS) {
+        const int p = e / WV, j = e - p * WV;
+        float s = 0.f;
+        for (int c = 0; c < 4; ++c)
+          s += sm.g[p * 4 + c] * to_f(wr[j * HEADS + c]);
+        sm.dx[e] = s;
+      }
+    }
+    __syncthreads();
+
+    // ---- view branch backward (d_hv in sm.dx, ld WV)
+    for (int v = NV - 1; v >= 1; --v) {
+      mask_put(sm.dx, hvimg(v), sm.dc, dvimg(v), WV, tid);
+      __syncthreads();
+      colsum_put(brow + D * W + v * WV, sm.dx, WV, tid);
+      __syncthreads();
+      gemm<bf16, false, true>(sm.dx, WV, false, sm.dc, WV,
+                              op<bf16>(net, SLOT_WV + v), WV, GP, WV, WV,
+                              warp, tid);
+      __syncthreads();
+    }
+    mask_put(sm.dx, hvimg(0), sm.dc, dvimg(0), WV, tid);
+    __syncthreads();
+    colsum_put(brow + D * W, sm.dx, WV, tid);
+    gemm<bf16, false, true>(sm.dh, W, true, sm.dc, WV, op<bf16>(net, SLOT_WV),
+                            WV, GP, W, WV, warp, tid);
+    __syncthreads();
+
+    // ---- trunk backward (d_h ping-pongs between sm.dh and sm.dx)
+    float* dh = sm.dh;
+    float* dn = sm.dx;
+    for (int i = D - 1; i >= 1; --i) {
+      mask_put(dh, himg(i), sm.dc, dcimg(i), W, tid);
+      __syncthreads();
+      colsum_put(brow + i * W, dh, W, tid);
+      gemm<bf16, false, true>(dn, W, false, sm.dc, W,
+                              op<bf16>(net, SLOT_W + i), W, GP, W, W, warp,
+                              tid);
+      __syncthreads();
+      float* t = dh;
+      dh = dn;
+      dn = t;
+    }
+    mask_put(dh, himg(0), sm.dc, dcimg(0), W, tid);
+    __syncthreads();
+    colsum_put(brow, dh, W, tid);
+    __syncthreads();
+  }
+}
+
+// ---- pass B: long-K weight-gradient products on wgmma
+
+constexpr int BSTAGES = 6;
+constexpr int BSTAGE_BYTES = 2 * 2 * 64 * GP * 2;  // X and Y, 128 lanes each
+constexpr int B_THREADS = 288;  // two consumer warpgroups + a producer warp
+constexpr int MAXTASKS = 160;
+constexpr size_t B_SMEM = 1024 + BSTAGES * BSTAGE_BYTES + 2 * BSTAGES * 8;
+
+// One output tile of one gradient dW = X^T @ Y (rows x cols at float
+// offset off): X from plane xp (xw x 64 lanes), Y from plane yp; rows
+// 64*mb .. 64*(mb+mw), columns 64*nb .. 64*(nb+nw).
+struct BTask {
+  unsigned char xp, yp, xw, yw, mb, nb, mw, nw;
+  unsigned short rows, cols;
+  int off;
+};
+
+struct BTable {
+  long long plane[MAXPLANES];
+  BTask task[MAXTASKS];
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// bytes from global src to shared dst, completing on the mbarrier bar
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Descriptor of a bf16 operand in shared memory, MN-major with 128-byte
+// swizzle, as swz lays it out: LBO = 8,192 bytes between 64-lane blocks,
+// SBO = 1,024 bytes between groups of 8 points; 1,024-byte aligned, so the
+// base offset is 0.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>(8192 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 64, f32, wgmma's fragment order) += A (64 x 16) * B (16 x 64),
+// both bf16 in shared memory, MN-major (trans-a = trans-b = 1).
+__device__ __forceinline__ void wgmma_n64(float (&d)[64], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 128, f32, wgmma's fragment order) += A (64 x 16) * B (16 x 128),
+// both bf16 in shared memory, MN-major (trans-a = trans-b = 1).
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__global__ void __launch_bounds__(B_THREADS, 1)
+k_grad_pass_b(const __grid_constant__ BTable tb,
+              const bf16* __restrict__ planes, float* __restrict__ partials,
+              long long G, int n_tiles, int n_chunks) {
+  extern __shared__ __align__(1024) char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bars = base + BSTAGES * BSTAGE_BYTES;
+  const BTask t = tb.task[blockIdx.x];
+  const int chunk = blockIdx.y;
+  const int t0 = static_cast<int>(static_cast<long long>(chunk) * n_tiles /
+                                  n_chunks);
+  const int t1 = static_cast<int>(static_cast<long long>(chunk + 1) *
+                                  n_tiles / n_chunks);
+  const int nk = t1 - t0;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (BSTAGES + s); };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < BSTAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 128 * t.mw);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 2) {  // producer: one thread keeps BSTAGES tiles in flight
+    if (threadIdx.x == 256) {
+      const uint32_t xb = 8192u * t.mw, yb = 8192u * t.nw;
+      const size_t sx = static_cast<size_t>(GP) * 64 * t.xw;
+      const size_t sy = static_cast<size_t>(GP) * 64 * t.yw;
+      const bf16* gx = planes + tb.plane[t.xp] + t0 * sx + 4096 * t.mb;
+      const bf16* gy = planes + tb.plane[t.yp] + t0 * sy + 4096 * t.nb;
+      for (int k = 0; k < nk; ++k) {
+        const int s = k % BSTAGES;
+        if (k >= BSTAGES) mbar_wait(empty(s), ((k / BSTAGES) - 1) & 1);
+        mbar_expect_tx(full(s), xb + yb);
+        const uint32_t st = base + s * BSTAGE_BYTES;
+        bulk_g2s(st, gx + k * sx, xb, full(s));
+        bulk_g2s(st + BSTAGE_BYTES / 2, gy + k * sy, yb, full(s));
+      }
+      // stay until the consumers have drained every copy
+      for (int k = max(0, nk - BSTAGES); k < nk; ++k)
+        mbar_wait(empty(k % BSTAGES), (k / BSTAGES) & 1);
+    }
+    return;
+  }
+  if (wg >= t.mw) return;
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int k = 0; k < nk; ++k) {
+    const int s = k % BSTAGES;
+    mbar_wait(full(s), (k / BSTAGES) & 1);
+    const uint32_t xa = base + s * BSTAGE_BYTES + 8192 * wg;
+    const uint32_t ya = base + s * BSTAGE_BYTES + BSTAGE_BYTES / 2;
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < GP / 16; ++j) {  // 16 points = two 1,024-byte groups
+      const uint64_t da = gmma_desc(xa + 2048 * j);
+      const uint64_t db = gmma_desc(ya + 2048 * j);
+      if (t.nw == 2)
+        wgmma_n128(acc, da, db);
+      else
+        wgmma_n64(acc, da, db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    mbar_arrive(empty(s));
+  }
+
+  // accumulator (row, col) of thread l of warp w: rows w*16 + l/4 (+8),
+  // columns 8*(i/4) + 2*(l%4) + (i&1)
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int r0 = 64 * (t.mb + wg) + 16 * w + lane / 4;
+  const int c0 = 64 * t.nb + 2 * (lane & 3);
+  float* out = partials + chunk * G + t.off;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (i >= 32 * t.nw) break;
+    const int row = r0 + 8 * ((i >> 1) & 1);
+    const int col = c0 + 8 * (i >> 2) + (i & 1);
+    if (row < t.rows && col < t.cols)
+      out[static_cast<size_t>(row) * t.cols + col] = acc[i];
+  }
+}
+
+// partials[chunk][bias e] = sum of the chunk's per-tile bias rows, in
+// tile order; e runs over b[0..D), bv[0..V), b_heads as in pass A's rows.
+__global__ void k_bias_partials(const float* __restrict__ bias, int NB,
+                                int n_tiles, int n_chunks, GradTable gt,
+                                int D, int NV, float* __restrict__ partials,
+                                long long G) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int chunk = blockIdx.y;
+  if (e >= NB) return;
+  const int t0 = static_cast<int>(static_cast<long long>(chunk) * n_tiles /
+                                  n_chunks);
+  const int t1 = static_cast<int>(static_cast<long long>(chunk + 1) *
+                                  n_tiles / n_chunks);
+  float s = 0.f;
+  for (int t = t0; t < t1; ++t) s += bias[static_cast<size_t>(t) * NB + e];
+  long long dst;
+  if (e < D * W) {
+    dst = gt.off[SLOT_B + e / W] + e % W;
+  } else if (e < D * W + NV * WV) {
+    const int v = (e - D * W) / WV;
+    dst = gt.off[SLOT_BV + v] + (e - D * W - v * WV);
+  } else {
+    dst = gt.off[SLOT_BHEADS] + (e - D * W - NV * WV);
+  }
+  partials[chunk * G + dst] = s;
+}
+
+// The tiles of gradient dW = X^T @ Y (rows x cols at float offset off).
+static bool add_tasks(BTask* task, int* n, int xp, int xw, int yp, int yw,
+                      int rows, int cols, long long off) {
+  for (int mb = 0; mb < xw; mb += 2)
+    for (int nb = 0; nb < yw; nb += 2) {
+      if (*n >= MAXTASKS || off < 0) return false;
+      BTask& t = task[(*n)++];
+      t.xp = static_cast<unsigned char>(xp);
+      t.yp = static_cast<unsigned char>(yp);
+      t.xw = static_cast<unsigned char>(xw);
+      t.yw = static_cast<unsigned char>(yw);
+      t.mb = static_cast<unsigned char>(mb);
+      t.nb = static_cast<unsigned char>(nb);
+      t.mw = static_cast<unsigned char>(xw - mb < 2 ? xw - mb : 2);
+      t.nw = static_cast<unsigned char>(yw - nb < 2 ? yw - nb : 2);
+      t.rows = static_cast<unsigned short>(rows);
+      t.cols = static_cast<unsigned short>(cols);
+      t.off = static_cast<int>(off);
+    }
+  return true;
+}
+
+static int launch_grad_f32(const Net& net, const GradTable& gt,
+                           const float* pts, const float* dirs,
+                           const float* g, void* act, long long act_stride,
+                           float* slabs, float* out, long long G,
+                           int n_blocks, int N, cudaStream_t stream) {
+  const size_t bytes = grad_smem_layout<float>(nullptr, nullptr);
+  cudaError_t err = prepare(k_point_mlp_grad<float>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k_point_mlp_grad<float><<<n_blocks, NTHREADS, bytes, stream>>>(
+      net, gt, pts, dirs, g, static_cast<float*>(act), act_stride, slabs, G,
+      N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return reduce(slabs, out, G, n_blocks, stream);
 }
 
 }  // namespace fr
 
 extern "C" {
 
-unsigned long long fr_point_mlp_grad_smem_bytes(int use_bf16) {
-  return use_bf16 ? fr::grad_smem_layout<fr::bf16>(nullptr, nullptr)
-                  : fr::grad_smem_layout<float>(nullptr, nullptr);
+unsigned long long fr_point_mlp_grad_smem_bytes() {
+  return fr::grad_smem_layout<float>(nullptr, nullptr);
 }
 
-// slabs: (n_blocks, G) f32, zeroed by the caller; out: (G,) f32; act: the
-// per-block activation scratch, act_stride elements of T per block.
+// The f32 variant. slabs: (n_blocks, G) f32, zeroed by the caller; out:
+// (G,) f32; act: the per-block activation scratch, act_stride floats per
+// block.
 int fr_point_mlp_grad(const float* pts, const float* dirs, const float* g,
                       void* act, long long act_stride, float* slabs,
                       float* out, long long G, int n_blocks, int N,
                       const unsigned long long* slots,
                       const long long* grad_offsets, int depth, int n_views,
-                      int multires, int multires_views, int use_bf16,
-                      void* stream) {
+                      int multires, int multires_views, void* stream) {
   const fr::Net net =
       fr::make_net(slots, depth, n_views, multires, multires_views, 0);
   fr::GradTable gt;
   for (int i = 0; i < fr::NSLOTS; ++i) gt.off[i] = grad_offsets[i];
+  return fr::launch_grad_f32(net, gt, pts, dirs, g, act, act_stride, slabs,
+                             out, G, n_blocks, N,
+                             static_cast<cudaStream_t>(stream));
+}
+
+unsigned long long fr_grad_pass_a_smem_bytes() {
+  return fr::grad_a_smem_layout(nullptr, nullptr);
+}
+
+unsigned long long fr_grad_pass_b_smem_bytes() { return fr::B_SMEM; }
+
+// bf16 pass A. planes: the operand buffer (plane_off, bf16 elements, as
+// kernels/fused_mlp_grad.py:grad_planes); bias: (tiles, NB) f32.
+int fr_grad_pass_a(const float* pts, const float* dirs, const float* g,
+                   void* planes, const long long* plane_off, float* bias,
+                   int n_blocks, int N, const unsigned long long* slots,
+                   int depth, int n_views, int multires, int multires_views,
+                   void* stream) {
+  const fr::Net net =
+      fr::make_net(slots, depth, n_views, multires, multires_views, 0);
+  fr::Planes pl;
+  const int n_planes = 3 + 2 * depth + 2 * n_views;
+  for (int i = 0; i < fr::MAXPLANES; ++i)
+    pl.off[i] = i < n_planes ? plane_off[i] : 0;
+  const size_t bytes = fr::grad_a_smem_layout(nullptr, nullptr);
+  cudaError_t err = fr::prepare(fr::k_grad_pass_a, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fr::k_grad_pass_a<<<n_blocks, fr::NTHREADS, bytes,
+                      static_cast<cudaStream_t>(stream)>>>(
+      net, pl, pts, dirs, g, static_cast<fr::bf16*>(planes), bias, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 pass B: partials (n_chunks, G) f32 (every gradient's region is
+// written), out (G,) f32 = the partials summed in chunk order.
+int fr_grad_pass_b(const void* planes, const long long* plane_off,
+                   const float* bias, int NB, float* partials, float* out,
+                   long long G, int n_tiles, int n_chunks,
+                   const long long* grad_offsets, int depth, int n_views,
+                   void* stream) {
+  using namespace fr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_bf16)
-    return fr::launch_grad<fr::bf16>(net, gt, pts, dirs, g, act, act_stride,
-                                     slabs, out, G, n_blocks, N, s);
-  return fr::launch_grad<float>(net, gt, pts, dirs, g, act, act_stride, slabs,
-                                out, G, n_blocks, N, s);
+  const int D = depth, NV = n_views;
+  BTable tb;
+  const int n_planes = 3 + 2 * D + 2 * NV;
+  for (int i = 0; i < MAXPLANES; ++i)
+    tb.plane[i] = i < n_planes ? plane_off[i] : 0;
+  const int H = PL_H, HV = PL_H + D, DC = PL_H + D + NV, DV = DC + D;
+  const int w = W / 64, wv = WV / 64, pe = PE_PAD / 64, ln = LANES / 64;
+  const long long* go = grad_offsets;
+  int n = 0;
+  bool ok = add_tasks(tb.task, &n, PL_PE, pe, DC, w, PE_PAD, W, go[SLOT_W]);
+  for (int i = 1; i < D; ++i) {
+    ok = ok && add_tasks(tb.task, &n, H + i - 1, w, DC + i, w, W, W,
+                         go[SLOT_W + i]);
+    if (go[SLOT_WSKIP + i] >= 0)
+      ok = ok && add_tasks(tb.task, &n, PL_PE, pe, DC + i, w, PE_PAD, W,
+                           go[SLOT_WSKIP + i]);
+  }
+  ok = ok && add_tasks(tb.task, &n, H + D - 1, w, DV, wv, W, WV, go[SLOT_WV]);
+  ok = ok && add_tasks(tb.task, &n, PL_PED, ln, DV, wv, PED_PAD, WV,
+                       go[SLOT_WV0D]);
+  for (int v = 1; v < NV; ++v)
+    ok = ok && add_tasks(tb.task, &n, HV + v - 1, wv, DV + v, wv, WV, WV,
+                         go[SLOT_WV + v]);
+  ok = ok && add_tasks(tb.task, &n, H + D - 1, w, PL_GB, ln, W, HEADS,
+                       go[SLOT_WALPHA]);
+  ok = ok && add_tasks(tb.task, &n, HV + NV - 1, wv, PL_GB, ln, WV, HEADS,
+                       go[SLOT_WRGB]);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+
+  cudaError_t err = prepare(k_grad_pass_b, B_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k_grad_pass_b<<<dim3(n, n_chunks), B_THREADS, B_SMEM, s>>>(
+      tb, static_cast<const bf16*>(planes), partials, G, n_tiles, n_chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  GradTable gt;
+  for (int i = 0; i < NSLOTS; ++i) gt.off[i] = grad_offsets[i];
+  k_bias_partials<<<dim3((NB + 255) / 256, n_chunks), 256, 0, s>>>(
+      bias, NB, n_tiles, n_chunks, gt, D, NV, partials, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return reduce(partials, out, G, n_chunks, s);
 }
 
 }  // extern "C"

@@ -1,32 +1,38 @@
 """Training path of the fused point MLP: an autograd Function whose forward
-is the fused kernel (kernels/fused_mlp.py) and whose backward is a second
-kernel that recomputes the forward per tile and back-propagates through it
-(counterpart of idealnerf_tpu/kernels/fused_mlp_grad.py).
+is the fused kernel (kernels/fused_mlp.py) and whose backward recomputes
+the forward per tile and back-propagates through it (counterpart of
+idealnerf_tpu/kernels/fused_mlp_grad.py).
 
-The backward kernel (``csrc/fused_mlp_grad.cu``, CUDA C++ for sm_90a)
-emits f32 gradients of every packed operand: layer weights, folded biases,
-the skip layer's pe-part, the view branch, the dir-PE part and the packed
-heads. ``unpack_grads`` maps them onto the nn.Linear weights and the folded
+The backward (``csrc/fused_mlp_grad.cu``, CUDA C++ for sm_90a) emits f32
+gradients of every packed operand: layer weights, folded biases, the skip
+layer's pe-part, the view branch, the dir-PE part and the packed heads.
+``unpack_grads`` maps them onto the nn.Linear weights and the folded
 biases; gradients of the conditioning slices of W0, the skip layer and
 Wv0, and of aud/expr/latent, then reach them through fold_conditioning in
 autograd. Points and directions get no gradient (the fine depths are
 detached and rays are data), as the JAX VJP returns zeros for them.
 
 ``grad_dtype`` picks the backward's recompute and product type:
-torch.float32 reproduces f32 autograd (f32 FMAs on the card),
+torch.float32 reproduces f32 autograd (one kernel, f32 FMAs on the card),
 torch.bfloat16 runs bf16 products with f32 accumulation and rounds the
-cotangent and each d_h to bf16 before its products, as the TPU kernel does.
+cotangent and each d_h to bf16 before its products, as the TPU kernel
+does. The bf16 backward is two kernels: ``grad_pass_a`` recomputes and
+runs d_h back, writing every activation and rounded d_h of all N points
+(``grad_planes``); ``grad_pass_b`` computes every weight gradient as a
+long-K product over those points. Their plain versions are
+``grad_pass_a_reference`` and ``grad_pass_b_reference``, whose
+composition is ``point_mlp_grad_reference``.
 
-For CPU tensors both passes run their plain PyTorch versions
-(``point_mlp_reference``, ``point_mlp_grad_reference``), which round at
-the kernels' points; ``fused_point_mlp_train_reference`` runs the plain
-versions on any device.
+For CPU tensors both the forward and the backward run their plain PyTorch
+versions (``point_mlp_reference``, ``point_mlp_grad_reference``), which
+round at the kernels' points; ``fused_point_mlp_train_reference`` runs
+the plain versions on any device.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,14 +42,17 @@ from idealnerf_tpu_torch.kernels.fused_mlp import (
     encode_points, point_mlp, point_mlp_reference,
 )
 from idealnerf_tpu_torch.kernels.fused_render import (
-    HEADS, SMEM_LIMIT, PackedNet, _NSLOTS, _SLOT_B, _SLOT_BHEADS, _SLOT_BV,
-    _SLOT_W, _SLOT_WALPHA, _SLOT_WRGB, _SLOT_WSKIP, _SLOT_WV, _SLOT_WV0D,
+    HEADS, PE_PAD, PED_PAD, SMEM_LIMIT, PackedNet, _NSLOTS, _SLOT_B,
+    _SLOT_BHEADS, _SLOT_BV, _SLOT_W, _SLOT_WALPHA, _SLOT_WRGB, _SLOT_WSKIP,
+    _SLOT_WV, _SLOT_WV0D,
     _check_rays, _raise_on, _slots, _stream, model_leaves, pack_leaves,
 )
 
 GRAD_TILE = 64  # points per backward tile (csrc/fused_mlp_grad.cu: GP)
 
-launch_counts = {"fused_point_mlp_grad": 0}
+# the wrapper, and the two kernels of its bf16 path
+launch_counts = {"fused_point_mlp_grad": 0, "grad_pass_a": 0,
+                 "grad_pass_b": 0}
 
 
 def reset_launch_counts() -> None:
@@ -53,12 +62,40 @@ def reset_launch_counts() -> None:
 
 # ----------------------------------------------------------- plain version
 
-def point_mlp_grad_reference(net: PackedNet, pts: torch.Tensor,
-                             dirs: torch.Tensor,
-                             g: torch.Tensor) -> PackedNet:
-    """The gradient kernel in torch ops: recompute in the dtype of the
-    net's weights, then back-propagate with the kernel's rounding points.
-    -> a PackedNet of f32 gradients, one per packed operand."""
+class GradBuffers(NamedTuple):
+    """What the backward's first pass hands to its second, as f32 tensors
+    holding values of the gradient type: the encodings ``pe`` (N, PE_PAD)
+    and ``ped`` (N, PED_PAD), the rounded cotangent ``gb`` (N, HEADS),
+    every activation ``hs[i]`` (N, W) and ``hvs[v]`` (N, W/2), every
+    rounded d_h ``dcs[i]`` and ``dvs[v]`` of the same shapes, and ``bias``
+    (tiles, D*W + V*W/2 + HEADS): per tile of GRAD_TILE points the column
+    sums of the unrounded d_h of every layer, then of the cotangent."""
+
+    pe: torch.Tensor
+    ped: torch.Tensor
+    gb: torch.Tensor
+    hs: List[torch.Tensor]
+    hvs: List[torch.Tensor]
+    dcs: List[torch.Tensor]
+    dvs: List[torch.Tensor]
+    bias: torch.Tensor
+
+
+def _tile_sums(d: torch.Tensor) -> torch.Tensor:
+    """(N, F) -> (tiles, F): column sums over each tile of GRAD_TILE rows."""
+    n = d.shape[0]
+    tiles = -(-n // GRAD_TILE)
+    d = F.pad(d, (0, 0, 0, tiles * GRAD_TILE - n))
+    return d.reshape(tiles, GRAD_TILE, d.shape[1]).sum(1)
+
+
+def grad_pass_a_reference(net: PackedNet, pts: torch.Tensor,
+                          dirs: torch.Tensor, g: torch.Tensor) -> GradBuffers:
+    """The backward's first pass in torch ops: recompute in the dtype of
+    the net's weights, then run d_h back through the heads, the view
+    branch and the trunk with the kernel's rounding points (the cotangent
+    and each d_h rounded before their products, relu' = h > 0 on the
+    rounded activation) -> GradBuffers."""
     dt = net.w[0].dtype
 
     def rnd(x):
@@ -79,45 +116,92 @@ def point_mlp_grad_reference(net: PackedNet, pts: torch.Tensor,
         hvs.append(rnd(relu(hvs[-1] @ WV[v] + net.bv[v])))
 
     g16 = F.pad(g.float(), (0, HEADS - 4))
-    gb = rnd(g16)
-    d_alpha, d_rgb, d_bheads = hs[-1].T @ gb, hvs[-1].T @ gb, g16.sum(0)
     dh = g16 @ net.w_alpha.float().T
     dv = g16 @ net.w_rgb.float().T
-
-    dwv, dbv = [None] * len(WV), [None] * len(WV)
-    for v in range(len(WV) - 1, 0, -1):
+    dvs, bvs = [None] * len(WV), [None] * len(WV)
+    for v in range(len(WV) - 1, -1, -1):
         dv = dv * (hvs[v] > 0)
-        dc = rnd(dv)
-        dwv[v], dbv[v] = hvs[v - 1].T @ dc, dv.sum(0)
-        dv = dc @ WV[v].T
-    dv = dv * (hvs[0] > 0)
-    dc = rnd(dv)
-    dwv[0], dwv0d, dbv[0] = hs[-1].T @ dc, ped.T @ dc, dv.sum(0)
-    dh = dh + dc @ WV[0].T
-
-    dw, db, dskip = [None] * len(W), [None] * len(W), {}
-    for i in range(len(W) - 1, 0, -1):
+        dvs[v], bvs[v] = rnd(dv), _tile_sums(dv)
+        if v:
+            dv = dvs[v] @ WV[v].T
+    dh = dh + dvs[0] @ WV[0].T
+    dcs, bs = [None] * len(W), [None] * len(W)
+    for i in range(len(W) - 1, -1, -1):
         dh = dh * (hs[i] > 0)
-        dc = rnd(dh)
-        dw[i], db[i] = hs[i - 1].T @ dc, dh.sum(0)
-        if i in net.wskip:
-            dskip[i] = pe.T @ dc
-        dh = dc @ W[i].T
-    dh = dh * (hs[0] > 0)
-    dc = rnd(dh)
-    dw[0], db[0] = pe.T @ dc, dh.sum(0)
-    return PackedNet(w=dw, b=db, wskip=dskip, wv=dwv, bv=dbv, wv0d=dwv0d,
-                     w_alpha=d_alpha, w_rgb=d_rgb, b_heads=d_bheads,
-                     multires=net.multires,
-                     multires_views=net.multires_views, softplus=net.softplus)
+        dcs[i], bs[i] = rnd(dh), _tile_sums(dh)
+        if i:
+            dh = dcs[i] @ W[i].T
+    return GradBuffers(pe=pe, ped=ped, gb=rnd(g16), hs=hs, hvs=hvs, dcs=dcs,
+                       dvs=dvs, bias=torch.cat([*bs, *bvs, _tile_sums(g16)],
+                                               dim=1))
+
+
+def grad_chunks(n_tiles: int, sms: int) -> int:
+    """Number of point chunks of the backward's second pass: each sums its
+    tiles into one f32 partial per gradient. Depends on N and the card's
+    SM count only, so a card repeats its sums bitwise."""
+    return max(1, min(n_tiles, sms // 4))
+
+
+def chunk_bounds(n_tiles: int, n_chunks: int) -> List[Tuple[int, int]]:
+    """[first tile, end tile) of each chunk (csrc/fused_mlp_grad.cu:
+    k_grad_pass_b, k_bias_partials)."""
+    return [(c * n_tiles // n_chunks, (c + 1) * n_tiles // n_chunks)
+            for c in range(n_chunks)]
+
+
+def grad_pass_b_reference(net: PackedNet, bufs: GradBuffers,
+                          n_chunks: int = 1) -> PackedNet:
+    """The backward's second pass in torch ops: every weight gradient as a
+    product over the points, X^T @ d, summed chunk by chunk in order (the
+    kernel's chunks of tiles), and every bias gradient as the sum of the
+    per-tile column sums, chunk by chunk -> a PackedNet of f32 gradients."""
+    n = bufs.pe.shape[0]
+    spans = chunk_bounds(bufs.bias.shape[0], n_chunks)
+
+    def prod(x, y):
+        out = 0
+        for a, b in spans:
+            r = slice(a * GRAD_TILE, min(b * GRAD_TILE, n))
+            out = out + x[r].T @ y[r]
+        return out
+
+    def bsum(lo, width):
+        out = 0
+        for a, b in spans:
+            out = out + bufs.bias[a:b, lo:lo + width].sum(0)
+        return out
+
+    D, V = len(net.w), len(net.wv)
+    W, WV = net.width, net.wv[0].shape[1]
+    hs, hvs, dcs, dvs = bufs.hs, bufs.hvs, bufs.dcs, bufs.dvs
+    return PackedNet(
+        w=[prod(bufs.pe if i == 0 else hs[i - 1], dcs[i]) for i in range(D)],
+        b=[bsum(i * W, W) for i in range(D)],
+        wskip={i: prod(bufs.pe, dcs[i]) for i in net.wskip},
+        wv=[prod(hs[-1] if v == 0 else hvs[v - 1], dvs[v]) for v in range(V)],
+        bv=[bsum(D * W + v * WV, WV) for v in range(V)],
+        wv0d=prod(bufs.ped, dvs[0]), w_alpha=prod(hs[-1], bufs.gb),
+        w_rgb=prod(hvs[-1], bufs.gb), b_heads=bsum(D * W + V * WV, HEADS),
+        multires=net.multires, multires_views=net.multires_views,
+        softplus=net.softplus)
+
+
+def point_mlp_grad_reference(net: PackedNet, pts: torch.Tensor,
+                             dirs: torch.Tensor,
+                             g: torch.Tensor) -> PackedNet:
+    """The gradient kernel in torch ops: the two passes composed, one
+    chunk -> a PackedNet of f32 gradients, one per packed operand."""
+    return grad_pass_b_reference(
+        net, grad_pass_a_reference(net, pts, dirs, g))
 
 
 # ------------------------------------------------------------------ kernel
 
 def _grad_layout(net: PackedNet) -> Tuple[Dict[int, Tuple[int, tuple]], int]:
-    """Slot -> (float offset, shape) of each gradient inside one slab,
-    every offset 64-float aligned for wmma accumulator loads; -> (layout,
-    slab size G)."""
+    """Slot -> (float offset, shape) of each gradient inside one slab (f32
+    kernel) or one chunk's partial (bf16 kernels), every offset 64-float
+    aligned for wmma accumulator loads; -> (layout, slab size G)."""
     items = {_SLOT_W + i: x for i, x in enumerate(net.w)}
     items.update({_SLOT_B + i: x for i, x in enumerate(net.b)})
     items.update({_SLOT_WSKIP + i: x for i, x in net.wskip.items()})
@@ -132,17 +216,69 @@ def _grad_layout(net: PackedNet) -> Tuple[Dict[int, Tuple[int, tuple]], int]:
     return layout, n
 
 
-def point_mlp_grad(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
-                   g: torch.Tensor) -> PackedNet:
-    """The gradient kernel on a packed net (bf16 or f32 weights): CUDA
-    tensors launch it, CPU tensors take the plain version. The same inputs
-    on the same card give bitwise-equal gradients."""
-    if pts.device.type == "cpu":
-        return point_mlp_grad_reference(net, pts, dirs, g)
-    dt = net.w[0].dtype
-    if dt not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"fused_point_mlp_grad: weights must be bf16 or f32, "
-                        f"got {dt}")
+def grad_planes(net: PackedNet, n_tiles: int
+                ) -> Tuple[List[int], List[int], int]:
+    """The bf16 backward's operand buffer, which its first pass writes and
+    its second reads -> (bf16 element offset of each plane, the plane's
+    width, total elements). Planes in the kernel's order (csrc/
+    fused_mlp_grad.cu: plane indices): pe, ped, gb, h[0..D), hv[0..V),
+    dc[0..D), dv[0..V); ped and gb zero-padded to 64 lanes. A plane holds
+    one image of GRAD_TILE x width per tile, in swizzle_index's order, so
+    every image and every 64-lane block of it starts 8 KB aligned."""
+    W, WV = net.width, net.wv[0].shape[1]
+    D, V = len(net.w), len(net.wv)
+    widths = [PE_PAD, 64, 64] + [W] * D + [WV] * V + [W] * D + [WV] * V
+    offs, n = [], 0
+    for w in widths:
+        offs.append(n)
+        n += n_tiles * GRAD_TILE * w
+    return offs, widths, n
+
+
+def swizzle_index(width: int) -> torch.Tensor:
+    """(GRAD_TILE, width) element offsets of one tile's image of a plane:
+    64-lane blocks of 4,096 elements; in a block, 8 groups of 8 points;
+    in a group, one 128-byte row per point whose 16-byte chunks are
+    permuted by chunk ^ (point % 8). That is wgmma's MN-major layout with
+    128-byte swizzle, so one bulk copy moves a block into shared memory
+    in the order the second pass's descriptors read."""
+    p = torch.arange(GRAD_TILE)[:, None]
+    f = torch.arange(width)[None, :]
+    return (((f >> 6) << 12) + ((p >> 3) << 9) + ((p & 7) << 6)
+            + ((((f >> 3) & 7) ^ (p & 7)) << 3) + (f & 7))
+
+
+def unswizzle_plane(planes: torch.Tensor, off: int, width: int,
+                    n_tiles: int) -> torch.Tensor:
+    """One plane of the operand buffer -> (n_tiles * GRAD_TILE, width)."""
+    img = planes[off:off + n_tiles * GRAD_TILE * width].view(
+        n_tiles, GRAD_TILE * width)
+    idx = swizzle_index(width).reshape(-1).to(planes.device)
+    return img[:, idx].reshape(n_tiles * GRAD_TILE, width)
+
+
+def buffers_from_planes(net: PackedNet, planes: torch.Tensor,
+                        offs: List[int], bias: torch.Tensor,
+                        n: int) -> GradBuffers:
+    """The first pass's kernel output as the GradBuffers its plain
+    version returns (f32, n rows)."""
+    n_tiles = bias.shape[0]
+    W, WV = net.width, net.wv[0].shape[1]
+    D, V = len(net.w), len(net.wv)
+
+    def plane(j, width, lanes=None):
+        x = unswizzle_plane(planes, offs[j], width, n_tiles)[:n].float()
+        return x if lanes is None else x[:, :lanes]
+
+    return GradBuffers(
+        pe=plane(0, PE_PAD), ped=plane(1, 64, PED_PAD), gb=plane(2, 64, HEADS),
+        hs=[plane(3 + i, W) for i in range(D)],
+        hvs=[plane(3 + D + v, WV) for v in range(V)],
+        dcs=[plane(3 + D + V + i, W) for i in range(D)],
+        dvs=[plane(3 + 2 * D + V + v, WV) for v in range(V)], bias=bias)
+
+
+def _check_inputs(net: PackedNet, pts, dirs, g) -> torch.device:
     dev = _check_rays("fused_point_mlp_grad", net, pts=pts, dirs=dirs, g=g)
     N = pts.shape[0]
     if pts.shape != (N, 3) or dirs.shape != (N, 3) or g.shape != (N, 4):
@@ -151,32 +287,17 @@ def point_mlp_grad(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
                          f"{tuple(dirs.shape)}, {tuple(g.shape)}")
     if N < 1 or N >= 2 ** 31 - GRAD_TILE:
         raise ValueError(f"fused_point_mlp_grad: unsupported N={N}")
-    lib = build.load_library()
-    use_bf16 = int(dt == torch.bfloat16)
-    if lib.fr_point_mlp_grad_smem_bytes(use_bf16) > SMEM_LIMIT:
-        raise ValueError("fused_point_mlp_grad: shared memory over the limit")
-    layout, G = _grad_layout(net)
-    W, WV = net.width, net.width // 2
-    n_tiles = -(-N // GRAD_TILE)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = min(n_tiles, sms)  # one block per SM: ~175-221 KB shared memory
-    act_stride = GRAD_TILE * (len(net.w) * W + len(net.wv) * WV)
-    act = torch.empty(blocks * act_stride, dtype=dt, device=dev)
-    slabs = torch.zeros((blocks, G), dtype=torch.float32, device=dev)
-    out = torch.empty(G, dtype=torch.float32, device=dev)
-    table, keep = _slots(net, dev)
+    return dev
+
+
+def _offsets(layout) -> ctypes.Array:
     offs = (ctypes.c_longlong * _NSLOTS)(*([-1] * _NSLOTS))
     for slot, (off, _) in layout.items():
         offs[slot] = off
-    err = lib.fr_point_mlp_grad(
-        pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), act.data_ptr(),
-        act_stride, slabs.data_ptr(), out.data_ptr(), G, blocks, N, table,
-        offs, len(net.w), len(net.wv), net.multires, net.multires_views,
-        use_bf16, _stream(dev))
-    _raise_on(lib, err, "fused_point_mlp_grad")
-    launch_counts["fused_point_mlp_grad"] += 1
-    del keep, act, slabs  # stream-ordered reuse by the caching allocator
+    return offs
 
+
+def _unflatten(net: PackedNet, out: torch.Tensor, layout) -> PackedNet:
     def at(slot):
         off, shape = layout[slot]
         n = 1
@@ -193,6 +314,110 @@ def point_mlp_grad(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
         wv0d=at(_SLOT_WV0D), w_alpha=at(_SLOT_WALPHA), w_rgb=at(_SLOT_WRGB),
         b_heads=at(_SLOT_BHEADS), multires=net.multires,
         multires_views=net.multires_views, softplus=net.softplus)
+
+
+def grad_pass_a(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
+                g: torch.Tensor):
+    """The bf16 backward's first kernel (CUDA tensors only) -> (operand
+    buffer, its plane offsets, per-tile bias sums (tiles, NB) f32): the
+    recompute and the d_h chain, every operand of the weight gradients
+    written in grad_planes' layout."""
+    dev = _check_inputs(net, pts, dirs, g)
+    if net.w[0].dtype != torch.bfloat16:
+        raise TypeError("grad_pass_a: the two-pass backward is bf16 only")
+    lib = build.load_library()
+    if lib.fr_grad_pass_a_smem_bytes() > SMEM_LIMIT:
+        raise ValueError("grad_pass_a: shared memory over the limit")
+    N = pts.shape[0]
+    n_tiles = -(-N // GRAD_TILE)
+    offs, _, total = grad_planes(net, n_tiles)
+    W, WV = net.width, net.wv[0].shape[1]
+    nb = len(net.w) * W + len(net.wv) * WV + HEADS
+    planes = torch.empty(total, dtype=torch.bfloat16, device=dev)
+    bias = torch.empty((n_tiles, nb), dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    table, keep = _slots(net, dev)
+    err = lib.fr_grad_pass_a(
+        pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), planes.data_ptr(),
+        (ctypes.c_longlong * len(offs))(*offs), bias.data_ptr(),
+        min(n_tiles, sms), N, table, len(net.w), len(net.wv), net.multires,
+        net.multires_views, _stream(dev))
+    _raise_on(lib, err, "grad_pass_a")
+    launch_counts["grad_pass_a"] += 1
+    del keep
+    return planes, offs, bias
+
+
+def grad_pass_b(net: PackedNet, planes: torch.Tensor, offs: List[int],
+                bias: torch.Tensor) -> PackedNet:
+    """The bf16 backward's second kernel: every weight gradient as a
+    long-K wgmma product over the points of grad_pass_a's buffer, one f32
+    partial per chunk of tiles (grad_chunks), and the bias sums, added in
+    a fixed order -> a PackedNet of f32 gradients."""
+    _check_rays("fused_point_mlp_grad", net)
+    dev = planes.device
+    lib = build.load_library()
+    if lib.fr_grad_pass_b_smem_bytes() > SMEM_LIMIT:
+        raise ValueError("grad_pass_b: shared memory over the limit")
+    n_tiles = bias.shape[0]
+    layout, G = _grad_layout(net)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_chunks = grad_chunks(n_tiles, sms)
+    partials = torch.empty((n_chunks, G), dtype=torch.float32, device=dev)
+    out = torch.empty(G, dtype=torch.float32, device=dev)
+    err = lib.fr_grad_pass_b(
+        planes.data_ptr(), (ctypes.c_longlong * len(offs))(*offs),
+        bias.data_ptr(), bias.shape[1], partials.data_ptr(), out.data_ptr(),
+        G, n_tiles, n_chunks, _offsets(layout), len(net.w), len(net.wv),
+        _stream(dev))
+    _raise_on(lib, err, "grad_pass_b")
+    launch_counts["grad_pass_b"] += 1
+    del partials  # stream-ordered reuse by the caching allocator
+    return _unflatten(net, out, layout)
+
+
+def point_mlp_grad(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
+                   g: torch.Tensor) -> PackedNet:
+    """The gradient kernels on a packed net (bf16 or f32 weights): CUDA
+    tensors launch them, CPU tensors take the plain version. bf16 runs
+    grad_pass_a then grad_pass_b; f32 one kernel that recomputes and sums
+    per-block slabs. The same inputs on the same card give bitwise-equal
+    gradients."""
+    if pts.device.type == "cpu":
+        return point_mlp_grad_reference(net, pts, dirs, g)
+    dt = net.w[0].dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused_point_mlp_grad: weights must be bf16 or f32, "
+                        f"got {dt}")
+    if dt == torch.bfloat16:
+        planes, offs, bias = grad_pass_a(net, pts, dirs, g)
+        grads = grad_pass_b(net, planes, offs, bias)
+        launch_counts["fused_point_mlp_grad"] += 1
+        return grads
+    dev = _check_inputs(net, pts, dirs, g)
+    lib = build.load_library()
+    if lib.fr_point_mlp_grad_smem_bytes() > SMEM_LIMIT:
+        raise ValueError("fused_point_mlp_grad: shared memory over the limit")
+    layout, G = _grad_layout(net)
+    N = pts.shape[0]
+    W, WV = net.width, net.width // 2
+    n_tiles = -(-N // GRAD_TILE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = min(n_tiles, sms)  # one block per SM: ~221 KB shared memory
+    act_stride = GRAD_TILE * (len(net.w) * W + len(net.wv) * WV)
+    act = torch.empty(blocks * act_stride, dtype=dt, device=dev)
+    slabs = torch.zeros((blocks, G), dtype=torch.float32, device=dev)
+    out = torch.empty(G, dtype=torch.float32, device=dev)
+    table, keep = _slots(net, dev)
+    err = lib.fr_point_mlp_grad(
+        pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), act.data_ptr(),
+        act_stride, slabs.data_ptr(), out.data_ptr(), G, blocks, N, table,
+        _offsets(layout), len(net.w), len(net.wv), net.multires,
+        net.multires_views, _stream(dev))
+    _raise_on(lib, err, "fused_point_mlp_grad")
+    launch_counts["fused_point_mlp_grad"] += 1
+    del keep, act, slabs  # stream-ordered reuse by the caching allocator
+    return _unflatten(net, out, layout)
 
 
 # ------------------------------------------------------- autograd plumbing

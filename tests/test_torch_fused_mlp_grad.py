@@ -202,3 +202,189 @@ def test_unpack_puts_each_packed_gradient_on_its_leaf():
     assert all(off % 64 == 0 for off, _ in spans)
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
     assert spans[-1][1] <= size
+
+
+# ------------------------------------------- the two passes of the backward
+
+def _packed(grad_dtype, n=500, seed=3):
+    """A packed paper-width net and n seeded points, directions and a
+    cotangent (n is not a multiple of the 64-point tile)."""
+    cfg = FaceNeRFConfig(**DIMS)
+    model = FaceNeRF(cfg, torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed)
+    folded = fold_conditioning(model, cfg, _t(rng.randn(16) * 0.3).float(),
+                               _t(rng.randn(8) * 0.3).float(),
+                               torch.full((4,), 0.1))
+    net = pack_leaves(cfg, model_leaves(model, folded, cfg), grad_dtype)
+    pts = rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32)
+    dirs = rng.randn(n, 3).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    g = (rng.randn(n, 4) / n).astype(np.float32)
+    return net, _t(pts), _t(dirs), _t(g)
+
+
+def _flat(p):
+    return [*p.w, *p.b, *p.wskip.values(), *p.wv, *p.bv, p.wv0d, p.w_alpha,
+            p.w_rgb, p.b_heads]
+
+
+def _rel(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / (want.norm() + 1e-30))
+
+
+def _one_pass_reference(net, pts, dirs, g):
+    """The backward as one pass in torch ops, as the port had it before the
+    split: every product over all points at once, bias gradients summed
+    directly over the points."""
+    dt = net.w[0].dtype
+
+    def rnd(x):
+        return x.to(dt).float()
+
+    relu = torch.relu
+    W = [x.float() for x in net.w]
+    WV = [x.float() for x in net.wv]
+    pe, ped = fmg.encode_points(net, pts, dirs)
+    hs = [rnd(relu(pe @ W[0] + net.b[0]))]
+    for i in range(1, len(W)):
+        acc = hs[-1] @ W[i]
+        if i in net.wskip:
+            acc = pe @ net.wskip[i].float() + acc
+        hs.append(rnd(relu(acc + net.b[i])))
+    hvs = [rnd(relu(hs[-1] @ WV[0] + ped @ net.wv0d.float() + net.bv[0]))]
+    for v in range(1, len(WV)):
+        hvs.append(rnd(relu(hvs[-1] @ WV[v] + net.bv[v])))
+    g16 = torch.nn.functional.pad(g.float(), (0, HEADS - 4))
+    gb = rnd(g16)
+    d_alpha, d_rgb, d_bheads = hs[-1].T @ gb, hvs[-1].T @ gb, g16.sum(0)
+    dh = g16 @ net.w_alpha.float().T
+    dv = g16 @ net.w_rgb.float().T
+    dwv, dbv = [None] * len(WV), [None] * len(WV)
+    for v in range(len(WV) - 1, 0, -1):
+        dv = dv * (hvs[v] > 0)
+        dc = rnd(dv)
+        dwv[v], dbv[v] = hvs[v - 1].T @ dc, dv.sum(0)
+        dv = dc @ WV[v].T
+    dv = dv * (hvs[0] > 0)
+    dc = rnd(dv)
+    dwv[0], dwv0d, dbv[0] = hs[-1].T @ dc, ped.T @ dc, dv.sum(0)
+    dh = dh + dc @ WV[0].T
+    dw, db, dskip = [None] * len(W), [None] * len(W), {}
+    for i in range(len(W) - 1, 0, -1):
+        dh = dh * (hs[i] > 0)
+        dc = rnd(dh)
+        dw[i], db[i] = hs[i - 1].T @ dc, dh.sum(0)
+        if i in net.wskip:
+            dskip[i] = pe.T @ dc
+        dh = dc @ W[i].T
+    dh = dh * (hs[0] > 0)
+    dc = rnd(dh)
+    dw[0], db[0] = pe.T @ dc, dh.sum(0)
+    return PackedNet(w=dw, b=db, wskip=dskip, wv=dwv, bv=dbv, wv0d=dwv0d,
+                     w_alpha=d_alpha, w_rgb=d_rgb, b_heads=d_bheads,
+                     multires=net.multires,
+                     multires_views=net.multires_views, softplus=net.softplus)
+
+
+@pytest.mark.parametrize("grad_dtype,tol", [(torch.float32, 1e-6),
+                                            (torch.bfloat16, 1e-5)],
+                         ids=["f32", "bf16"])
+def test_two_passes_compose_to_the_one_pass_reference(grad_dtype, tol):
+    """Pass A then pass B equals the one-pass backward up to the order of
+    the sums (bias gradients go through per-tile sums)."""
+    net, pts, dirs, g = _packed(grad_dtype)
+    got = fmg.grad_pass_b_reference(
+        net, fmg.grad_pass_a_reference(net, pts, dirs, g))
+    want = _one_pass_reference(net, pts, dirs, g)
+    assert len(_flat(got)) == len(_flat(want))
+    for a, b in zip(_flat(got), _flat(want)):
+        assert a.shape == b.shape
+        assert _rel(a, b) < tol
+    for a, b in zip(_flat(fmg.point_mlp_grad_reference(net, pts, dirs, g)),
+                    _flat(got)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_chunks", [3, 8])
+def test_pass_b_chunkings_agree(n_chunks):
+    """Summing the points in chunks of tiles (the kernel's partials) moves
+    the f32 gradients by rounding only."""
+    net, pts, dirs, g = _packed(torch.float32)
+    bufs = fmg.grad_pass_a_reference(net, pts, dirs, g)
+    assert bufs.bias.shape[0] == 8  # 500 points in tiles of 64
+    one = fmg.grad_pass_b_reference(net, bufs, 1)
+    many = fmg.grad_pass_b_reference(net, bufs, n_chunks)
+    for a, b in zip(_flat(many), _flat(one)):
+        assert _rel(a, b) < 1e-6
+
+
+def test_chunks_cover_the_tiles_in_order():
+    for n_tiles, sms in ((8192, 132), (6144, 132), (5, 132), (1, 132),
+                         (100, 3)):
+        n_chunks = fmg.grad_chunks(n_tiles, sms)
+        spans = fmg.chunk_bounds(n_tiles, n_chunks)
+        assert 1 <= n_chunks <= n_tiles and len(spans) == n_chunks
+        assert spans[0][0] == 0 and spans[-1][1] == n_tiles
+        assert all(a < b for a, b in spans)
+        assert all(x[1] == y[0] for x, y in zip(spans, spans[1:]))
+    assert fmg.grad_chunks(8192, 132) == 33
+
+
+def test_operand_planes_layout():
+    """The offsets, widths and swizzled order that csrc/fused_mlp_grad.cu
+    assumes: planes in the order pe, ped, gb, h, hv, dc, dv, packed back
+    to back; every tile image and 64-lane block 1,024-byte aligned (so
+    128-byte aligned for the bulk copies, and whole swizzle atoms); within
+    a block, each point's 8-lane chunk is 16 contiguous bytes at chunk
+    c ^ (p % 8) of the point's 128-byte row."""
+    net, _, _, _ = _packed(torch.bfloat16, n=64)
+    D, V, W, WV = len(net.w), len(net.wv), net.width, net.width // 2
+    n_tiles = 5
+    offs, widths, total = fmg.grad_planes(net, n_tiles)
+    assert widths == ([64, 64, 64] + [W] * D + [WV] * V + [W] * D
+                      + [WV] * V)
+    assert offs[0] == 0
+    ends = [o + n_tiles * 64 * w for o, w in zip(offs, widths)]
+    assert offs[1:] == ends[:-1] and total == ends[-1]
+    assert all(w % 64 == 0 for w in widths)
+    assert all((2 * o) % 1024 == 0 for o in offs)
+    for width in (64, 128, 256):
+        idx = fmg.swizzle_index(width)
+        assert idx.shape == (64, width)
+        assert torch.equal(idx.reshape(-1).sort().values,
+                           torch.arange(64 * width))
+        p = torch.arange(64)[:, None]
+        f = torch.arange(width)[None, :]
+        assert torch.equal(idx // 64, (f // 64) * 64 + p)  # 128-byte rows
+        assert torch.equal(idx % 8, (f % 8).expand(64, -1))  # 16-B chunks
+        assert torch.equal((idx % 64) // 8, ((f % 64) // 8) ^ (p % 8))
+
+
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_planes_round_trip_to_pass_b(grad_dtype):
+    """Pass A's buffers written into the planes in the swizzled order and
+    read back (buffers_from_planes, as a check on the card does with the
+    kernel's planes) give pass B the same gradients."""
+    net, pts, dirs, g = _packed(grad_dtype)
+    bufs = fmg.grad_pass_a_reference(net, pts, dirs, g)
+    n, n_tiles = pts.shape[0], bufs.bias.shape[0]
+    offs, widths, total = fmg.grad_planes(net, n_tiles)
+    planes = torch.zeros(total)
+    for off, width, x in zip(offs, widths, [bufs.pe, bufs.ped, bufs.gb,
+                                             *bufs.hs, *bufs.hvs, *bufs.dcs,
+                                             *bufs.dvs]):
+        x = torch.nn.functional.pad(
+            x, (0, width - x.shape[1], 0, n_tiles * 64 - n))
+        img = torch.zeros(n_tiles, 64 * width)
+        img[:, fmg.swizzle_index(width).reshape(-1)] = x.reshape(
+            n_tiles, 64 * width)
+        planes[off:off + img.numel()] = img.reshape(-1)
+    back = fmg.buffers_from_planes(net, planes, offs, bufs.bias, n)
+    for a, b in zip([back.pe, back.ped, back.gb, *back.hs, *back.dcs],
+                    [bufs.pe, bufs.ped, bufs.gb, *bufs.hs, *bufs.dcs]):
+        assert torch.equal(a, b)
+    for a, b in zip(_flat(fmg.grad_pass_b_reference(net, back, 3)),
+                    _flat(fmg.grad_pass_b_reference(net, bufs, 3))):
+        assert torch.equal(a, b)
