@@ -58,8 +58,14 @@ non-zero and no result line is printed):
    also a softplus field and s_delta 17 (a union of 16 depths). Depths are
    held to 2e-6 against the plain placement, the render to 3e-2 and rgb
    correlation > 0.999, the band to 2e-6 against the plain band of the
-   kernel's own depths and weights. Timed at ``--rays`` and at the
-   129,024 prior rays of a 450x450 frame.
+   kernel's own depths and weights; two launches must be bitwise equal.
+   The wgmma kernel's ptxas line and each case's launch (rays per group,
+   shared memory, weight ring) are printed. Timed at ``--rays`` and at the
+   129,024 prior rays of a 450x450 frame, beside a yardstick the port
+   never calls: the same points' MLP as bf16 ``torch.addmm`` calls (K3's
+   ``library_ms``); at both sizes the last timed launch is held bitwise
+   against the first and, at the tolerances above, against the plain
+   version.
 10. the serving slice: ``idealnerf_tpu_torch.cli.serve.main`` streams
    ``--serve_frames`` synthetic frames of 450² at full width under the
    serving defaults (refresh 25, s_delta 16, prior on, AudioAttNet
@@ -323,15 +329,62 @@ def _delta_split(s_delta: int):
     return s_uni, n_in - s_uni
 
 
+def _delta_library_ms(fr, packed, o, d, z) -> float:
+    """K3's yardstick, timed only (the port never calls it): the field MLP
+    of the delta frame's R x S points as bf16 torch.addmm calls, bias in
+    the call and relu in place: the trunk with the skip layer's PE product,
+    the view branch with its per-ray term expanded per point, the heads."""
+    import torch
+    import torch.nn.functional as F
+
+    from idealnerf_tpu_torch.core.embedding import positional_encoding
+
+    bf = torch.bfloat16
+    S = z.shape[1]
+    pts = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3)
+    pe = positional_encoding(pts, packed.multires)
+    pe = F.pad(pe, (0, fr.PE_PAD - pe.shape[1])).to(bf)
+    ped = positional_encoding(d / d.norm(dim=-1, keepdim=True),
+                              packed.multires_views)
+    ped = F.pad(ped, (0, fr.PED_PAD - ped.shape[1])).to(bf).float()
+    pv = (ped @ packed.wv0d.float() + packed.bv[0]).to(bf)
+    pv = pv.repeat_interleave(S, 0)
+    b = [x.to(bf) for x in packed.b]
+    bv = [x.to(bf) for x in packed.bv]
+    bh = packed.b_heads.to(bf)
+
+    def run():
+        h = torch.addmm(b[0], pe, packed.w[0]).relu_()
+        for i in range(1, len(packed.w)):
+            acc = b[i]
+            if i in packed.wskip:
+                acc = torch.addmm(acc, pe, packed.wskip[i])
+            h = torch.addmm(acc, h, packed.w[i]).relu_()
+        hv = torch.addmm(pv, h, packed.wv[0]).relu_()
+        for v in range(1, len(packed.wv)):
+            hv = torch.addmm(bv[v], hv, packed.wv[v]).relu_()
+        return torch.addmm(torch.addmm(bh, h, packed.w_alpha), hv,
+                           packed.w_rgb)
+
+    ms = _time_ms(run, 3)
+    del pe, pv
+    return ms
+
+
 def _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd, bc,
-                 prior) -> dict:
-    """Phase 9: the delta kernel against its plain version, then timed at
-    the phase-2 rays and at the prior rays of a 450x450 frame."""
+                 prior, ptxas) -> dict:
+    """Phase 9: the delta kernel against its plain version, two launches
+    bitwise equal, then timed at the phase-2 rays and at the prior rays
+    of a 450x450 frame beside its torch.matmul yardstick; the timed
+    launches are held against the first and the plain version there too."""
     import torch
 
     from idealnerf_tpu_torch.core.composite import fg_band
 
     print("phase 9 temporal delta kernel vs plain version")
+    for i, ln in enumerate(ptxas):  # the wgmma kernel's registers, spills
+        if "k_render_delta" in ln:
+            print("  ptxas: " + " | ".join(ptxas[i:i + 3]))
     span = far - near
 
     def keyframe(c, o, d, b):
@@ -346,6 +399,23 @@ def _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd, bc,
         return ((lo - 0.02 * span).clamp(near, far).contiguous(),
                 (hi + 0.02 * span).clamp(near, far).contiguous())
 
+    def agree(k, again, p):
+        """The kernel's two outputs bitwise equal, and against the plain
+        version: depths, render, and the band of the kernel's own z, w."""
+        if not all(torch.equal(k[key], again[key]) for key in k):
+            raise AssertionError("two delta launches differ")
+        print("  two launches bitwise equal")
+        e = [_agree("z_vals vs plain placement", k["z_vals"], p["z_vals"],
+                    atol=Z_ATOL)]
+        e += [_agree(key, k[key], p[key], corr=key == "rgb_map") for key
+              in ("rgb_map", "acc_map", "weights", "last_weight")]
+        b_lo, b_hi, _ = fg_band(k["z_vals"], k["weights"])
+        e.append(_agree("band_lo vs plain band of the kernel's z, w",
+                        k["band_lo"], b_lo, atol=Z_ATOL))
+        e.append(_agree("band_hi vs plain band of the kernel's z, w",
+                        k["band_hi"], b_hi, atol=Z_ATOL))
+        return max(e)
+
     def check(tag, c, n, s_delta):
         o, d, b = ro[:n], rd[:n], bc[:n]
         s_uni, s_imp = _delta_split(s_delta)
@@ -357,19 +427,15 @@ def _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd, bc,
             args = (nets["fine"], ff, c, o, d, z, w, lo, hi, b, far, s_uni,
                     s_imp)
             k = fr.fused_render_delta(*args)
+            again = fr.fused_render_delta(*args)
             p = fr.fused_render_delta_reference(*args)
+            lc = fr.delta_launch_config(s_uni + s_imp + 1, z.shape[1])
             print(f" fused_render_delta [{tag}, R={n}, s_prev {z.shape[1]}, "
-                  f"{s_uni} uniform + {s_imp} importance + plate]")
-            e = [_agree("z_vals vs plain placement", k["z_vals"],
-                        p["z_vals"], atol=Z_ATOL)]
-            e += [_agree(key, k[key], p[key], corr=key == "rgb_map") for key
-                  in ("rgb_map", "acc_map", "weights", "last_weight")]
-            b_lo, b_hi, _ = fg_band(k["z_vals"], k["weights"])
-            e.append(_agree("band_lo vs plain band of the kernel's z, w",
-                            k["band_lo"], b_lo, atol=Z_ATOL))
-            e.append(_agree("band_hi vs plain band of the kernel's z, w",
-                            k["band_hi"], b_hi, atol=Z_ATOL))
-            err = max(err, *e)
+                  f"{s_uni} uniform + {s_imp} importance + plate]: "
+                  f"{lc['rays_per_group']} rays per group, "
+                  f"{lc['smem_bytes']} bytes of shared memory, a ring of "
+                  f"{lc['ring_stages']} stages of {lc['stage_bytes']} bytes")
+            err = max(err, agree(k, again, p))
             z, w = k["z_vals"], k["weights"]
         torch.cuda.synchronize()
         return err
@@ -395,16 +461,36 @@ def _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd, bc,
         lo, hi = band(z, w)
         args = (nets["fine"], ff, ncfg, o, d, z, w, lo, hi, b, far, s_uni,
                 s_imp)
-        ms = _time_ms(lambda: fr.fused_render_delta(*args), 5)
-        pms = _time_ms(lambda: fr.fused_render_delta_reference(*args), 2)
+        first = fr.fused_render_delta(*args)
+        last = {}
+
+        def kernel():
+            last.update(fr.fused_render_delta(*args))
+
+        def plain():
+            last["plain"] = fr.fused_render_delta_reference(*args)
+
+        ms = _time_ms(kernel, 5)
+        pms = _time_ms(plain, 2)
+        # the timed launches against the first, then against the plain
+        # version at the timed size
+        print(f"  R={o.shape[0]} ({tag}), s_prev 16: the last timed launch "
+              "against the first, and against the plain version")
+        err = max(err, agree(first, {key: last[key] for key in first},
+                             last["plain"]))
+        lib = _delta_library_ms(fr, fr.pack_operands(nets["fine"], ff, ncfg),
+                                o, d, k["z_vals"])
         n = o.shape[0]
         bnd = _ray_bound(ncfg, n, 16, 9 + 2 * 16 + 2, 8 + 2 * 16)
         print(f"  fused_render_delta at R={n} ({tag}), s_prev 16, 3+12+1: "
-              f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+              f"kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+              f"torch.addmm chain of the MLP "
+              f"{lib:.3f} ms (yardstick, timed only), bound "
               f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']} (CUDA events)")
-        out[n] = {"ms": ms, "plain_ms": pms, **bnd}
-        del z, w, k, args
+        out[n] = {"ms": ms, "plain_ms": pms, "library_ms": lib, **bnd}
+        del z, w, k, args, first, last
     torch.cuda.synchronize()
+    out["max_abs_err"] = err
     out.update(out[prior[0].shape[0]])
     return out
 
@@ -1257,7 +1343,7 @@ def main(argv=None) -> int:
     pb = (torch.from_numpy(sds.bc_img).to(dev).float() / 255.0).reshape(-1, 3)
     prior = tuple(x.reshape(-1, 3)[sel].contiguous() for x in (po, pd, pb))
     res9 = _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd,
-                        bc, prior)
+                        bc, prior, ptxas)
     del prior, po, pd, pb
     torch.cuda.empty_cache()
     res10 = _phase_serve(fr, nets, ncfg, (aud, expr, latent), sds, mask)
@@ -1291,11 +1377,13 @@ def main(argv=None) -> int:
         "fused_point_mlp_grad": _point_bound(ncfg, args.points, 3, True),
         "fused_render_delta": {k: res9[k] for k in ("bound_ms", "bound_by")},
     }
-    # no single PyTorch call computes K1-K6; the chains' library column is
-    # the same chain as torch.matmul / torch._int_mm calls
+    # no single PyTorch call computes K1-K6; K3's library column is its
+    # MLP as torch.addmm calls, the chains' the same chain as torch.matmul /
+    # torch._int_mm calls
     entries = {k: {"launches": counts[k], "max_abs_err": errs[k],
                    "ms": times[k][0], "plain_ms": times[k][1], **bounds[k],
                    "library_ms": None} for k in times}
+    entries["fused_render_delta"]["library_ms"] = res9["library_ms"]
     entries.update(probes["entries"])
     k5 = entries["fused_point_mlp_pe"]
     k5["max_abs_err"] = max(k5["max_abs_err"], res11["max_abs_err"])

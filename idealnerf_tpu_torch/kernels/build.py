@@ -124,8 +124,13 @@ def load_library() -> ctypes.CDLL:
     lib.fr_coarse_hier.restype = i32
     lib.fr_render_delta.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, f32, f32, f32, vp, vp, vp, i32, i32, i32,
-        i32, i32, slots, i32, i32, i32, i32, i32, vp]
+        i32, i32, slots, i32, i32, i32, i32, i32, vp, i32, i32, vp]
     lib.fr_render_delta.restype = i32
+    lib.fr_delta_smem_bytes.argtypes = [i32, i32, i32, i32, i32, i32]
+    lib.fr_delta_smem_bytes.restype = ctypes.c_ulonglong
+    for fn in (lib.fr_delta_stage_bytes, lib.fr_delta_max_ring):
+        fn.argtypes = []
+        fn.restype = i32
     lib.fr_point_mlp_smem_bytes.argtypes = []
     lib.fr_point_mlp_smem_bytes.restype = ctypes.c_ulonglong
     lib.fr_point_mlp.argtypes = [vp, vp, vp, i32, slots, i32, i32, i32, i32,

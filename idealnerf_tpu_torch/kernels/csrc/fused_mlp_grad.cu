@@ -46,6 +46,7 @@
 // activations of a tile go to a per-block scratch in global memory.
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "render_body.cuh"
 
 namespace fr {
@@ -459,16 +460,6 @@ struct Planes {
   long long off[MAXPLANES];
 };
 
-// Element offset of (point p, feature f) in one tile's image: 64-feature
-// blocks of 4,096 elements; in a block, groups of 8 points (1,024 bytes);
-// in a group, one 128-byte row per point whose 16-byte chunks are permuted
-// by chunk ^ (p % 8). That is wgmma's MN-major layout with 128-byte swizzle
-// (kernels/fused_mlp_grad.py: swizzle_index).
-__host__ __device__ __forceinline__ int swz(int p, int f) {
-  return ((f >> 6) << 12) + ((p >> 3) << 9) + ((p & 7) << 6) +
-         ((((f >> 3) & 7) ^ (p & 7)) << 3) + (f & 7);
-}
-
 struct GradASmem {
   bf16* pe;    // (GP, PE_PAD)
   bf16* ped;   // (GP, PED_PAD)
@@ -767,111 +758,6 @@ struct BTable {
   BTask task[MAXTASKS];
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// bytes from global src to shared dst, completing on the mbarrier bar
-__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
-                                         uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Descriptor of a bf16 operand in shared memory, MN-major with 128-byte
-// swizzle, as swz lays it out: LBO = 8,192 bytes between 64-lane blocks,
-// SBO = 1,024 bytes between groups of 8 points; 1,024-byte aligned, so the
-// base offset is 0.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>(8192 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// d (64 x 64, f32, wgmma's fragment order) += A (64 x 16) * B (16 x 64),
-// both bf16 in shared memory, MN-major (trans-a = trans-b = 1).
-__device__ __forceinline__ void wgmma_n64(float (&d)[64], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d (64 x 128, f32, wgmma's fragment order) += A (64 x 16) * B (16 x 128),
-// both bf16 in shared memory, MN-major (trans-a = trans-b = 1).
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
 
 __global__ void __launch_bounds__(B_THREADS, 1)
 k_grad_pass_b(const __grid_constant__ BTable tb,
@@ -931,18 +817,18 @@ k_grad_pass_b(const __grid_constant__ BTable tb,
     mbar_wait(full(s), (k / BSTAGES) & 1);
     const uint32_t xa = base + s * BSTAGE_BYTES + 8192 * wg;
     const uint32_t ya = base + s * BSTAGE_BYTES + BSTAGE_BYTES / 2;
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int j = 0; j < GP / 16; ++j) {  // 16 points = two 1,024-byte groups
-      const uint64_t da = gmma_desc(xa + 2048 * j);
-      const uint64_t db = gmma_desc(ya + 2048 * j);
+      const uint64_t da = desc_mn(xa + 2048 * j, 8192);
+      const uint64_t db = desc_mn(ya + 2048 * j, 8192);
       if (t.nw == 2)
         wgmma_n128(acc, da, db);
       else
         wgmma_n64(acc, da, db);
     }
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    wgmma_commit();
+    wgmma_wait<0>();
     mbar_arrive(empty(s));
   }
 

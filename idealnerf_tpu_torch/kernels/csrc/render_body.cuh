@@ -394,16 +394,13 @@ static __device__ void mlp_tile(const Net& net, const Smem& sm,
   mlp_core(net, sm, sm.pv, WV, tile_base, n_pts, S, rb, sm.raw, warp, lane);
 }
 
-// All tiles of the block's rays, then compositing: summary (R, 8) =
+// Compositing of the block's rays from sm.z and sm.raw: summary (R, 8) =
 // [rgb, acc, last_w, depth, 0, 0] and weights (R, S), one thread per ray.
-static __device__ void render_block(const Net& net, const Smem& sm,
-                                    const float* bc, float* summary,
-                                    float* weights, int ray0, int nr, int S,
-                                    int rb, int warp, int lane, int tid) {
+static __device__ void composite(const Net& net, const Smem& sm,
+                                 const float* bc, float* summary,
+                                 float* weights, int ray0, int nr, int S,
+                                 int tid) {
   const int n_pts = nr * S;
-  for (int base = 0; base < n_pts; base += P)
-    mlp_tile(net, sm, base, n_pts, S, rb, warp, lane, tid);
-
   for (int r = tid; r < nr; r += NTHREADS) {
     const float* z = sm.z + r * S;
     const float* raw = sm.raw + static_cast<size_t>(r) * S * 4;
@@ -445,6 +442,17 @@ static __device__ void render_block(const Net& net, const Smem& sm,
   __syncthreads();
   for (int e = tid; e < n_pts; e += NTHREADS)
     weights[static_cast<size_t>(ray0) * S + e] = sm.w[e];
+}
+
+// All tiles of the block's rays, then compositing.
+static __device__ void render_block(const Net& net, const Smem& sm,
+                                    const float* bc, float* summary,
+                                    float* weights, int ray0, int nr, int S,
+                                    int rb, int warp, int lane, int tid) {
+  const int n_pts = nr * S;
+  for (int base = 0; base < n_pts; base += P)
+    mlp_tile(net, sm, base, n_pts, S, rb, warp, lane, tid);
+  composite(net, sm, bc, summary, weights, ray0, nr, S, tid);
 }
 
 // Per-ray CDFs of the deterministic inverse-CDF draw (core/sampling.py:

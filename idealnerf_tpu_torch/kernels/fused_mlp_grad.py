@@ -46,6 +46,7 @@ from idealnerf_tpu_torch.kernels.fused_render import (
     _SLOT_BHEADS, _SLOT_BV, _SLOT_W, _SLOT_WALPHA, _SLOT_WRGB, _SLOT_WSKIP,
     _SLOT_WV, _SLOT_WV0D,
     _check_rays, _raise_on, _slots, _stream, model_leaves, pack_leaves,
+    swizzle_image_index,
 )
 
 GRAD_TILE = 64  # points per backward tile (csrc/fused_mlp_grad.cu: GP)
@@ -242,10 +243,7 @@ def swizzle_index(width: int) -> torch.Tensor:
     permuted by chunk ^ (point % 8). That is wgmma's MN-major layout with
     128-byte swizzle, so one bulk copy moves a block into shared memory
     in the order the second pass's descriptors read."""
-    p = torch.arange(GRAD_TILE)[:, None]
-    f = torch.arange(width)[None, :]
-    return (((f >> 6) << 12) + ((p >> 3) << 9) + ((p & 7) << 6)
-            + ((((f >> 3) & 7) ^ (p & 7)) << 3) + (f & 7))
+    return swizzle_image_index(GRAD_TILE, width)
 
 
 def unswizzle_plane(planes: torch.Tensor, off: int, width: int,

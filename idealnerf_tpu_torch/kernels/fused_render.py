@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, List, Optional
 
 import torch
@@ -56,6 +57,13 @@ _NSLOTS = _SLOT_WV0D + 4
 
 # points per block the kernels aim for; the block owns whole rays
 _POINTS_PER_BLOCK = 768
+# the delta kernel (csrc/fused_render.cu, k_render_delta): points per ray
+# group (four 128-point tiles), at most 32 rays, and the fewest stages its
+# weight ring keeps before the group gives up rays (3 and 4 measured
+# alike, 2 slower)
+_DELTA_POINTS, _DELTA_MAX_RAYS, _DELTA_MIN_RING = 512, 32, 4
+STAGE_ELEMS = 8192            # bf16 per stage (16 KB)
+_KC_W, _KC_V = 32, 64         # K-rows per stage of a 256- / 128-wide layer
 # rays per chunk of the plain versions: bounds their (points x W) f32
 # activations (a whole 450^2 fine pass would need ~53 GB)
 _REF_CHUNK_POINTS = 1 << 16
@@ -182,17 +190,23 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 def _mlp_reference(net: PackedNet, pe: torch.Tensor,
                    pv: torch.Tensor) -> torch.Tensor:
     """pe (N, PE_PAD) bf16-valued f32, pv (N, W/2) per-point view-layer-0
-    term -> raw (N, 4)."""
-    h = _bf16(torch.relu(pe @ net.w[0].float() + net.b[0]))
+    term -> raw (N, 4). Products and sums run in pe's dtype (f32; f64
+    where a test needs sums whose order leaves no trace)."""
+    dt = pe.dtype
+
+    def rnd(x):
+        return x.to(torch.bfloat16).to(dt)
+
+    h = rnd(torch.relu(pe @ net.w[0].to(dt) + net.b[0]))
     for i in range(1, len(net.w)):
-        acc = h @ net.w[i].float()
+        acc = h @ net.w[i].to(dt)
         if i in net.wskip:
-            acc = pe @ net.wskip[i].float() + acc
-        h = _bf16(torch.relu(acc + net.b[i]))
-    hv = _bf16(torch.relu(h @ net.wv[0].float() + pv))
+            acc = pe @ net.wskip[i].to(dt) + acc
+        h = rnd(torch.relu(acc + net.b[i]))
+    hv = rnd(torch.relu(h @ net.wv[0].to(dt) + pv))
     for v in range(1, len(net.wv)):
-        hv = _bf16(torch.relu(hv @ net.wv[v].float() + net.bv[v]))
-    raw = h @ net.w_alpha.float() + hv @ net.w_rgb.float() + net.b_heads
+        hv = rnd(torch.relu(hv @ net.wv[v].to(dt) + net.bv[v]))
+    raw = h @ net.w_alpha.to(dt) + hv @ net.w_rgb.to(dt) + net.b_heads
     return raw[:, :4]
 
 
@@ -325,6 +339,98 @@ def fused_render_delta_reference(params, folded, cfg, rays_o, rays_d, z_prev,
     return _delta_outputs(out, z, lo, hi)
 
 
+# ------------------------------------------------- delta kernel's weights
+
+def swizzle_image_index(rows: int, lanes: int) -> torch.Tensor:
+    """(rows, lanes) element offsets of a bf16 matrix in wgmma's 128-byte
+    swizzled shared-memory image: 64-lane blocks of rows * 64 elements; in
+    a block, groups of 8 rows (1,024 bytes); in a group, one 128-byte row
+    whose 16-byte chunks are permuted by chunk ^ (row % 8). With the rows
+    along K it is the MN-major layout, with the lanes along K the K-major
+    one (csrc/hopper.cuh); fused_mlp_grad.swizzle_index is its 64-row
+    case."""
+    r = torch.arange(rows)[:, None]
+    f = torch.arange(lanes)[None, :]
+    return ((f >> 6) * (rows * 64) + ((r >> 3) << 9) + ((r & 7) << 6)
+            + ((((f >> 3) & 7) ^ (r & 7)) << 3) + (f & 7))
+
+
+def _stream_parts(net: PackedNet):
+    """The delta kernel's weight stream as (name, matrix (K, N), K-rows per
+    stage) in the order the kernel consumes it (csrc/fused_render.cu, note
+    at the top); the heads are one stage of their own."""
+    parts = [("w0", net.w[0], _KC_W)]
+    for i in range(1, len(net.w)):
+        if i in net.wskip:
+            parts.append((f"wskip{i}", net.wskip[i], _KC_W))
+        parts.append((f"w{i}", net.w[i], _KC_W))
+    parts += [(f"wv{v}", x, _KC_V) for v, x in enumerate(net.wv)]
+    return parts
+
+
+@functools.lru_cache(maxsize=16)
+def _stream_layout(shapes, heads, device: str):
+    """(destination of every source element in the stream, stage order)
+    for stream parts of the given (name, K, N, K-rows per stage) and
+    heads widths: the source is the parts' matrices flattened row-major,
+    then w_alpha^T and w_rgb^T. Built once per net shape and device."""
+    dst, order, q = [], [], 0
+    for name, k, n, kr in shapes:
+        if k % kr or n * kr != STAGE_ELEMS:
+            raise ValueError(f"delta stream: {name} ({k}, {n}) does not cut "
+                             f"into {kr}-row stages")
+        idx = swizzle_image_index(kr, n).reshape(1, -1)
+        base = (q + torch.arange(k // kr))[:, None] * STAGE_ELEMS
+        dst.append((base + idx).reshape(-1))
+        order += [(name, k0) for k0 in range(0, k, kr)]
+        q += k // kr
+    ia = swizzle_image_index(HEADS, heads[0]).reshape(-1)
+    ir = swizzle_image_index(HEADS, heads[1]).reshape(-1)
+    dst += [q * STAGE_ELEMS + ia, q * STAGE_ELEMS + ia.numel() + ir]
+    order.append(("heads", 0))
+    return torch.cat(dst).to(device), tuple(order)
+
+
+def delta_weight_stream(net: PackedNet):
+    """PackedNet -> (stream, order): the bf16 weights of the delta kernel's
+    field MLP as (n_stages * STAGE_ELEMS,) on the weights' device, each
+    16 KB stage in its swizzled shared-memory image so that one bulk copy
+    fills a stage, and the (name, first K-row) of every stage. Matrices of
+    K-rows x N lanes are MN-major (32 K-rows of 256 lanes, 64 of 128); the
+    heads' stage holds w_alpha^T (16 x 256) then w_rgb^T (16 x 128),
+    K-major. One concatenation and one scatter per call."""
+    parts = _stream_parts(net)
+    dev = net.w[0].device
+    dst, order = _stream_layout(
+        tuple((name, *m.shape, kr) for name, m, kr in parts),
+        (net.w_alpha.shape[0], net.w_rgb.shape[0]), str(dev))
+    src = torch.cat([m.reshape(-1) for _, m, _ in parts]
+                    + [net.w_alpha.T.reshape(-1), net.w_rgb.T.reshape(-1)])
+    out = torch.zeros(len(order) * STAGE_ELEMS, dtype=torch.bfloat16,
+                      device=dev)
+    out[dst] = src.to(torch.bfloat16)
+    return out, list(order)
+
+
+def delta_stream_matrices(stream: torch.Tensor, net: PackedNet) -> Dict:
+    """The plain inverse of delta_weight_stream: the stream read back into
+    its matrices by name (``w{i}``, ``wskip{i}``, ``wv{v}``, ``w_alpha``,
+    ``w_rgb``); ``net`` gives only the shapes and the skip layers."""
+    img = stream.reshape(-1, STAGE_ELEMS)
+    out, q = {}, 0
+    for name, m, kr in _stream_parts(net):
+        k, n = m.shape
+        idx = swizzle_image_index(kr, n).reshape(-1).to(stream.device)
+        out[name] = img[q:q + k // kr][:, idx].reshape(k, n)
+        q += k // kr
+    W, WV = net.w_alpha.shape[0], net.w_rgb.shape[0]
+    ia = swizzle_image_index(HEADS, W).reshape(-1).to(stream.device)
+    ir = swizzle_image_index(HEADS, WV).reshape(-1).to(stream.device)
+    out["w_alpha"] = img[q][ia].reshape(HEADS, W).T
+    out["w_rgb"] = img[q][ia.numel() + ir].reshape(HEADS, WV).T
+    return out
+
+
 # ------------------------------------------------------------------ kernels
 
 def _check_cuda(name: str, dtype, align: int = 1,
@@ -393,18 +499,46 @@ def _slots(net: PackedNet, device):
     return table, (wbuf, fbuf)
 
 
-def _rays_per_block(lib, S: int, n_cdf: int, n_union: int,
-                    n_prev: int = 0) -> int:
+def _rays_per_block(lib, S: int, n_cdf: int, n_union: int) -> int:
     rb = max(1, min(16, _POINTS_PER_BLOCK // S))
 
     def smem(rb):
-        return lib.fr_smem_bytes(rb, S, n_cdf, n_union, n_prev)
+        return lib.fr_smem_bytes(rb, S, n_cdf, n_union, 0)
 
     while rb > 1 and smem(rb) > SMEM_LIMIT:
         rb -= 1
     if smem(rb) > SMEM_LIMIT:
         raise ValueError(f"S={S} does not fit the kernel's shared memory")
     return rb
+
+
+def _delta_plan(lib, S: int, s_prev: int):
+    """(rays per group, ring stages) of the delta kernel: about
+    _DELTA_POINTS points but at most _DELTA_MAX_RAYS rays, with the deepest
+    ring (at least _DELTA_MIN_RING stages) that fits the shared memory
+    beside them and the two warpgroups' tiles; fewer rays where nothing
+    fits."""
+    rb = max(1, min(_DELTA_MAX_RAYS, _DELTA_POINTS // S))
+    while True:
+        for n in range(lib.fr_delta_max_ring(), _DELTA_MIN_RING - 1, -1):
+            if lib.fr_delta_smem_bytes(rb, S, s_prev - 2, S - 1, s_prev,
+                                       n) <= SMEM_LIMIT:
+                return rb, n
+        if rb == 1:
+            raise ValueError(f"S={S}, s_prev={s_prev} does not fit the "
+                             "delta kernel's shared memory")
+        rb -= 1
+
+
+def delta_launch_config(S: int, s_prev: int) -> Dict[str, int]:
+    """The delta kernel's launch at S depths from s_prev previous ones:
+    rays per group, dynamic shared memory, stage bytes and ring depth."""
+    lib = build.load_library()
+    rb, ring = _delta_plan(lib, S, s_prev)
+    return {"rays_per_group": rb,
+            "smem_bytes": lib.fr_delta_smem_bytes(rb, S, s_prev - 2, S - 1,
+                                                  s_prev, ring),
+            "stage_bytes": lib.fr_delta_stage_bytes(), "ring_stages": ring}
 
 
 def _raise_on(lib, err: int, name: str) -> None:
@@ -530,8 +664,9 @@ def fused_render_delta(params, folded, cfg, rays_o, rays_d, z_prev, w_prev,
     if R < 1 or R * max(S, s_prev) >= 2 ** 31:
         raise ValueError(f"fused_render_delta: unsupported R={R}")
     lib = build.load_library()
-    rb = _rays_per_block(lib, S, s_prev - 2, S - 1, s_prev)
+    rb, ring = _delta_plan(lib, S, s_prev)
     table, keep = _slots(net, dev)
+    wstream, _ = delta_weight_stream(net)
     summary = torch.empty((R, 8), dtype=torch.float32, device=dev)
     weights = torch.empty((R, S), dtype=torch.float32, device=dev)
     z_out = torch.empty((R, S), dtype=torch.float32, device=dev)
@@ -540,10 +675,11 @@ def fused_render_delta(params, folded, cfg, rays_o, rays_d, z_prev, w_prev,
         z_prev.data_ptr(), w_prev.data_ptr(), band_lo.data_ptr(),
         band_hi.data_ptr(), float(far), float(q_lo), float(q_hi),
         summary.data_ptr(), weights.data_ptr(), z_out.data_ptr(), R, s_prev,
-        s_uni, s_imp, rb, table, *_net_args(net), _stream(dev))
+        s_uni, s_imp, rb, table, *_net_args(net), wstream.data_ptr(),
+        wstream.numel() // STAGE_ELEMS, ring, _stream(dev))
     _raise_on(lib, err, "fused_render_delta")
     launch_counts["fused_render_delta"] += 1
-    del keep
+    del keep, wstream
     out = _outputs(summary[:, :3], summary[:, 3], summary[:, 4],
                    summary[:, 5], weights, bc_rgb)
     return _delta_outputs(out, z_out, summary[:, 6], summary[:, 7])

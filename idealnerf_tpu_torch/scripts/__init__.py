@@ -1,6 +1,8 @@
 """Kernel-diagnosis entry points: card probes of the fused MLP's time,
 one module per probe script of the JAX package (``kdiag``, ``kdiag2``,
-``kdiag3``, ``kdiag4``, ``kdiag5``), with its variant labels.
+``kdiag3``, ``kdiag4``, ``kdiag5``), with its variant labels, and
+``kdelta``, this port's probe of the temporal delta kernel (its own
+docstring says how it runs).
 
     python -m idealnerf_tpu_torch.scripts.kdiag4 --kd4 V0,V2,V3,VX
     python -m idealnerf_tpu_torch.scripts.kdiag --device cpu --rows 256
