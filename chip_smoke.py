@@ -17,7 +17,17 @@ non-zero and no result line is printed):
    one ulp apart); the coarse kernel's fine depths are held to 2e-6 against the
    plain inverse CDF + sort run on the kernel's own coarse weights. A
    softplus-density field, a ragged ray count (1001) and the 16+16
-   sampling (a power-of-two union) are checked too.
+   sampling (a power-of-two union) are checked too. Both kernels run their
+   field MLP on the wgmma chain: their ptxas lines, the HGMMA
+   instructions in their SASS (``cuobjdump -sass``) and each case's launch
+   plan (rays per block, shared memory, weight ring) are printed. Both are
+   timed at ``--rays`` and on the 202,500 rays of a whole 450x450 frame,
+   the launch shape of the render path, beside a yardstick the port never
+   calls: the same points' MLP as bf16 ``torch.addmm`` calls (their
+   ``library_ms``), with the host time of each timed call and the
+   profiled device time of one; at both sizes the last timed launch is
+   held bitwise against the first and, at the tolerances above, against
+   the plain version, which is timed too.
 3. the slice: ``idealnerf_tpu_torch.cli.render_val.main`` renders
    ``--frames`` synthetic frames of ``--hw``² on the card. The frames must
    be finite (a non-finite pixel makes the PSNR non-finite) and each
@@ -92,7 +102,11 @@ non-zero and no result line is printed):
    bitwise equal; the ladder, K5 and the render probes 3e-2 absolute and
    correlation > 0.999, per lane for raw outputs). The library chains
    (``torch.matmul``, ``torch._int_mm``) are timed by the same entry
-   points.
+   points. Last, ``idealnerf_tpu_torch.scripts.kframe`` times the coarse
+   and fine kernels on a whole 450x450 frame through their wrappers and
+   alone at other launch plans and on one wave of blocks over all and
+   half the SMs: every plan's outputs must be bitwise equal to the
+   wrapper's and each worker's launch counters equal to its wrapper calls.
 
 Then the kernel summary as one JSON line (each kernel's launches on its
 path, its max error, its time and its plain version's, and its bound: the
@@ -221,7 +235,9 @@ def _agree(name, got, want, atol=ATOL, corr=False):
     return err
 
 
-def _time_ms(fn, iters: int) -> float:
+def _time_ms(fn, iters: int, host=None) -> float:
+    """CUDA-event ms per call of fn over ``iters`` calls after a warm-up;
+    ``host`` (a list) gets the host ms each timed call takes to return."""
     import torch
 
     fn()                                   # warm-up
@@ -230,10 +246,29 @@ def _time_ms(fn, iters: int) -> float:
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     for _ in range(iters):
+        h0 = time.perf_counter()
         fn()
+        if host is not None:
+            host.append(1e3 * (time.perf_counter() - h0))
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def _device_ms(run, key: str) -> float:
+    """Device ms of the kernels whose name holds ``key`` in one warm call
+    of ``run`` (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages() if key in e.key) / 1e3
 
 
 def _profile(run, label: str, fname: str) -> dict:
@@ -329,11 +364,13 @@ def _delta_split(s_delta: int):
     return s_uni, n_in - s_uni
 
 
-def _delta_library_ms(fr, packed, o, d, z) -> float:
-    """K3's yardstick, timed only (the port never calls it): the field MLP
-    of the delta frame's R x S points as bf16 torch.addmm calls, bias in
-    the call and relu in place: the trunk with the skip layer's PE product,
-    the view branch with its per-ray term expanded per point, the heads."""
+def _mlp_library_ms(fr, packed, o, d, z, chunk: int = 1 << 22) -> float:
+    """The ray kernels' yardstick, timed only (the port never calls it):
+    the field MLP of the R x S points of rays o, d at depths z as bf16
+    torch.addmm calls on chunks of whole rays of at most ``chunk`` points,
+    bias in the call and relu in place: the trunk with the skip layer's PE
+    product, the view branch with its per-ray term expanded per point, the
+    heads. The encodings are made before the timing."""
     import torch
     import torch.nn.functional as F
 
@@ -341,19 +378,24 @@ def _delta_library_ms(fr, packed, o, d, z) -> float:
 
     bf = torch.bfloat16
     S = z.shape[1]
-    pts = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3)
-    pe = positional_encoding(pts, packed.multires)
-    pe = F.pad(pe, (0, fr.PE_PAD - pe.shape[1])).to(bf)
     ped = positional_encoding(d / d.norm(dim=-1, keepdim=True),
                               packed.multires_views)
     ped = F.pad(ped, (0, fr.PED_PAD - ped.shape[1])).to(bf).float()
     pv = (ped @ packed.wv0d.float() + packed.bv[0]).to(bf)
-    pv = pv.repeat_interleave(S, 0)
+    step = max(1, chunk // S)
+    parts = []
+    for s in range(0, o.shape[0], step):
+        pts = (o[s:s + step, None] + d[s:s + step, None]
+               * z[s:s + step, :, None]).reshape(-1, 3)
+        pe = positional_encoding(pts, packed.multires)
+        parts.append((F.pad(pe, (0, fr.PE_PAD - pe.shape[1])).to(bf),
+                      pv[s:s + step].repeat_interleave(S, 0)))
+        del pts, pe
     b = [x.to(bf) for x in packed.b]
     bv = [x.to(bf) for x in packed.bv]
     bh = packed.b_heads.to(bf)
 
-    def run():
+    def mlp(pe, pv):
         h = torch.addmm(b[0], pe, packed.w[0]).relu_()
         for i in range(1, len(packed.w)):
             acc = b[i]
@@ -366,9 +408,124 @@ def _delta_library_ms(fr, packed, o, d, z) -> float:
         return torch.addmm(torch.addmm(bh, h, packed.w_alpha), hv,
                            packed.w_rgb)
 
+    def run():
+        for pe, pv in parts:
+            mlp(pe, pv)
+
     ms = _time_ms(run, 3)
-    del pe, pv
+    del parts
     return ms
+
+
+def _hgmma_counts(so_path: str, names) -> dict:
+    """HGMMA instructions in the SASS of each kernel whose mangled name
+    holds one of ``names`` (``cuobjdump -sass`` of the built library)."""
+    from idealnerf_tpu_torch.kernels import build as kbuild
+
+    tool = os.path.join(os.path.dirname(kbuild._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = dict.fromkeys(names, 0), None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = next((n for n in names if n in ln), None)
+        elif fn and "HGMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
+def _phase_frame(fr, nets, fc, ff, ncfg, near, far, n_s, n_i, sizes,
+                 ptxas, so_path) -> dict:
+    """Phase 2b: the coarse and fine kernels' ptxas lines and HGMMA
+    counts, then both timed at each size of ``sizes`` (tag -> rays o, d,
+    bc) beside the plain versions, the torch.addmm yardstick and the
+    bound; the last timed launch is held bitwise against the first and,
+    like phase 2a, against the plain version."""
+    import torch
+
+    from idealnerf_tpu_torch.core.sampling import stratified_sample
+
+    for i, ln in enumerate(ptxas):
+        if any(f"Function properties for _ZN2fr{k}" in ln
+               for k in ("13k_render_rays", "13k_coarse_hier")):
+            print("  ptxas: " + " | ".join(ptxas[i:i + 3]))
+    names = ("k_coarse_hier", "k_render_rays", "k_render_delta")
+    hgmma = _hgmma_counts(so_path, names)
+    print(f"  HGMMA instructions in the SASS: {hgmma}")
+    if not all(hgmma[k] > 0 for k in names):
+        raise AssertionError(f"a chain kernel has no HGMMA: {hgmma}")
+    S = n_s + n_i
+    pt, ray = _mlp_macs(ncfg)
+    packed = {k: fr.pack_operands(nets[k], f, ncfg)
+              for k, f in (("coarse", fc), ("fine", ff))}
+    out = {"hgmma": hgmma}
+    for tag, (o, d, b) in sizes.items():
+        R, dev = o.shape[0], o.device
+        c_args = (nets["coarse"], fc, ncfg, o, d, b, near, far, n_s, n_i)
+        first_c, z = fr.fused_render_coarse_hier(*c_args)
+        f_args = (nets["fine"], ff, ncfg, o, d, z, b)
+        first_f = fr.fused_render_rays(*f_args)
+        last = {}
+        runs = {
+            "coarse": lambda: last.update(
+                coarse=fr.fused_render_coarse_hier(*c_args)),
+            "coarse plain": lambda: last.update(
+                coarse_plain=fr.fused_render_coarse_hier_reference(*c_args)),
+            "fine": lambda: last.update(fine=fr.fused_render_rays(*f_args)),
+            "fine plain": lambda: last.update(
+                fine_plain=fr.fused_render_rays_reference(*f_args))}
+        host = {k: [] for k in runs}
+        ms = {k: _time_ms(fn, 2 if "plain" in k else 5, host[k])
+              for k, fn in runs.items()}
+        (kc, kz), (pc, _) = last["coarse"], last["coarse_plain"]
+        kf, pf = last["fine"], last["fine_plain"]
+        same = (all(torch.equal(first_c[k], kc[k]) for k in first_c)
+                and torch.equal(z, kz)
+                and all(torch.equal(first_f[k], kf[k]) for k in first_f))
+        print(f"  R={R} ({tag}): the last timed launches bitwise equal to "
+              f"the first: {same}; against the plain versions:")
+        if not same:
+            raise AssertionError("a timed launch differs from the first")
+        keys = ("rgb_map", "acc_map", "weights", "last_weight")
+        zc = stratified_sample(near, far, n_s, R, device=dev)
+        e2 = [_agree(f"coarse {k}", kc[k], pc[k], corr=k == "rgb_map")
+              for k in keys]
+        e2.append(_agree("coarse z_all vs plain merge of the kernel's "
+                         "weights", kz, fr.importance_depths(
+                             zc, kc["weights"], n_i), atol=Z_ATOL))
+        e1 = [_agree(f"fine {k}", kf[k], pf[k], corr=k == "rgb_map")
+              for k in keys]
+        res = {}
+        for name, kernel, key, n, zz, cols, err in (
+                ("fused_render_coarse_hier", "k_coarse_hier", "coarse", n_s,
+                 zc, (9, 8 + n_s + S), max(e2)),
+                ("fused_render_rays", "k_render_rays", "fine", S, z,
+                 (9 + S, 8 + S), max(e1))):
+            lib = _mlp_library_ms(fr, packed[key], o, d, zz)
+            bnd = _ray_bound(ncfg, R, n, *cols)
+            flops = 2.0 * R * (n * pt + ray)
+            t = ms[key]
+            dms = _device_ms(runs[key], kernel)
+            res[name] = {"ms": t, "plain_ms": ms[key + " plain"],
+                         "library_ms": lib, "max_abs_err": err,
+                         "device_ms": dms, "host_ms": host[key],
+                         "tflops": flops / t / 1e9,
+                         "bound_share": bnd["bound_ms"] / t, **bnd}
+            print(f"  {name} at R={R} ({tag}), S {n}: kernel {t:.3f} ms "
+                  f"({flops / t / 1e9:.1f} TFLOP/s, "
+                  f"{100 * bnd['bound_ms'] / t:.1f} % of the bound; "
+                  f"profiled device time of one call {dms:.3f} ms, host "
+                  "ms per timed call "
+                  + ", ".join(f"{h:.2f}" for h in host[key]) + "), plain "
+                  f"{ms[key + ' plain']:.3f} ms, torch.addmm chain of the MLP"
+                  f" {lib:.3f} ms (yardstick, timed only), bound "
+                  f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']} (CUDA "
+                  "events)")
+        out[tag] = res
+        del first_c, first_f, z, last, runs, kc, kz, pc, kf, pf
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return out
 
 
 def _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd, bc,
@@ -478,8 +635,8 @@ def _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd, bc,
               "against the first, and against the plain version")
         err = max(err, agree(first, {key: last[key] for key in first},
                              last["plain"]))
-        lib = _delta_library_ms(fr, fr.pack_operands(nets["fine"], ff, ncfg),
-                                o, d, k["z_vals"])
+        lib = _mlp_library_ms(fr, fr.pack_operands(nets["fine"], ff, ncfg),
+                              o, d, k["z_vals"])
         n = o.shape[0]
         bnd = _ray_bound(ncfg, n, 16, 9 + 2 * 16 + 2, 8 + 2 * 16)
         print(f"  fused_render_delta at R={n} ({tag}), s_prev 16, 3+12+1: "
@@ -577,6 +734,12 @@ def _phase_serve(fr, nets, ncfg, cond, ds, prior_mask) -> dict:
     out["profile"] = prof
     torch.cuda.synchronize()
     return out
+
+
+def _plan_text(lc: dict) -> str:
+    return (f"{lc['rays_per_group']} rays per block, {lc['smem_bytes']} "
+            f"bytes of shared memory, a ring of {lc['ring_stages']} stages "
+            f"of {lc['stage_bytes']} bytes")
 
 
 def _render_cfg():
@@ -1119,6 +1282,25 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
     return {"entries": out, "runs": runs, "launches": launches}
 
 
+def _phase_kframe() -> list:
+    """Phase 11d: scripts.kframe on a whole 450x450 frame, the coarse and
+    fine kernels through their wrappers and alone at other launch plans;
+    every plan's outputs bitwise equal to the wrapper's and each worker's
+    launch counters equal to its wrapper calls."""
+    import torch
+
+    from idealnerf_tpu_torch.scripts import kframe
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print("phase 11 kframe.main()")
+    res = kframe.main([])
+    if not res["ok"]:
+        raise AssertionError("kframe: a plan's outputs differ from the "
+                             "wrapper's or a launch count from its calls")
+    return res["results"]
+
+
 def _profile_train_step(args):
     """One warm training step of the phase-8 configuration, profiled."""
     import torch
@@ -1211,11 +1393,10 @@ def main(argv=None) -> int:
     ds = make_synthetic_dataset(n_frames=1, H=450, W=450, dim_expr=76)
     ro, rd = get_rays(450, 450, ds.focal, torch.from_numpy(ds.poses[0]).to(dev),
                       ds.cx, ds.cy)
-    pick = torch.linspace(0, 450 * 450 - 1, args.rays).long().to(dev)
-    ro = ro.reshape(-1, 3)[pick].contiguous()
-    rd = rd.reshape(-1, 3)[pick].contiguous()
     bc = (torch.from_numpy(ds.bc_img).to(dev).float() / 255.0).reshape(-1, 3)
-    bc = bc[pick].contiguous()
+    frame = tuple(x.reshape(-1, 3).contiguous() for x in (ro, rd, bc))
+    pick = torch.linspace(0, 450 * 450 - 1, args.rays).long().to(dev)
+    ro, rd, bc = (x[pick].contiguous() for x in frame)
     near, far, n_s, n_i = ds.near, ds.far, cfg.N_samples, cfg.N_importance
     errs = {k: 0.0 for k in KERNELS}
 
@@ -1229,7 +1410,10 @@ def main(argv=None) -> int:
                                              near, far, s_c, s_i)
         cp, _ = fr.fused_render_coarse_hier_reference(
             nets["coarse"], fc, c, o, d, b, near, far, s_c, s_i)
-        print(f" fused_render_coarse_hier [{tag}, R={rays}, {s_c}+{s_i}]")
+        lc = {k: fr.render_launch_config(*a) for k, a in
+              (("coarse", (s_c, s_i)), ("fine", (s_c + s_i,)))}
+        print(f" fused_render_coarse_hier [{tag}, R={rays}, {s_c}+{s_i}]: "
+              + _plan_text(lc["coarse"]))
         e = [_agree(k, ck[k], cp[k], corr=k == "rgb_map") for k in
              ("rgb_map", "acc_map", "weights", "last_weight")]
         zc = stratified_sample(near, far, s_c, rays, device=dev)
@@ -1240,7 +1424,8 @@ def main(argv=None) -> int:
             errs["fused_render_coarse_hier"], *e)
         fk = fr.fused_render_rays(nets["fine"], ff, c, o, d, zk, b)
         fp = fr.fused_render_rays_reference(nets["fine"], ff, c, o, d, zk, b)
-        print(f" fused_render_rays [{tag}, R={rays}, S={s_c + s_i}]")
+        print(f" fused_render_rays [{tag}, R={rays}, S={s_c + s_i}]: "
+              + _plan_text(lc["fine"]))
         e = [_agree(k, fk[k], fp[k], corr=k == "rgb_map") for k in
              ("rgb_map", "acc_map", "weights", "last_weight")]
         errs["fused_render_rays"] = max(errs["fused_render_rays"], *e)
@@ -1254,22 +1439,15 @@ def main(argv=None) -> int:
     # a power-of-two union, where the TPU kernel's merge had no filler
     check("relu, ragged", ncfg, min(1001, args.rays), 16, 16)
 
-    o_, d_, b_ = ro, rd, bc
-    times = {
-        "fused_render_coarse_hier": (
-            _time_ms(lambda: fr.fused_render_coarse_hier(
-                nets["coarse"], fc, ncfg, o_, d_, b_, near, far, n_s, n_i), 5),
-            _time_ms(lambda: fr.fused_render_coarse_hier_reference(
-                nets["coarse"], fc, ncfg, o_, d_, b_, near, far, n_s, n_i), 2)),
-        "fused_render_rays": (
-            _time_ms(lambda: fr.fused_render_rays(
-                nets["fine"], ff, ncfg, o_, d_, zk, b_), 5),
-            _time_ms(lambda: fr.fused_render_rays_reference(
-                nets["fine"], ff, ncfg, o_, d_, zk, b_), 2)),
-    }
-    for k, (ms, pms) in times.items():
-        print(f"  {k} at R={args.rays}: kernel {ms:.3f} ms, plain {pms:.3f} ms"
-              " (wrapper calls, CUDA events)")
+    res2 = _phase_frame(fr, nets, fc, ff, ncfg, near, far, n_s, n_i,
+                        {"phase-2 rays": (ro, rd, bc), "450x450 frame": frame},
+                        ptxas, info["path"])
+    report["frame_kernels"] = res2
+    del frame
+    torch.cuda.empty_cache()
+    for k in res2["450x450 frame"]:
+        errs[k] = max(errs[k], max(res2[t][k]["max_abs_err"]
+                                   for t in ("phase-2 rays", "450x450 frame")))
 
     # ---- phase 3: the slice through its CLI entry point
     fr.reset_launch_counts()
@@ -1358,6 +1536,7 @@ def main(argv=None) -> int:
     report.update(k5=res11, kdiag=probes)
     del pts, dirs
     torch.cuda.empty_cache()
+    report["kframe"] = _phase_kframe()
 
     counts.update(res8["launches"])
     counts["fused_render_delta"] = (
@@ -1365,25 +1544,28 @@ def main(argv=None) -> int:
     errs.update(fused_point_mlp=res6["max_abs_err"],
                 fused_point_mlp_grad=res7["max_abs_err"],
                 fused_render_delta=res9["max_abs_err"])
+    # the frame's kernels at their path's launch shape, a whole frame
+    frame_res = res2["450x450 frame"]
+    times = {k: (r["ms"], r["plain_ms"]) for k, r in frame_res.items()}
     times.update(fused_point_mlp=(res6["ms"], res6["plain_ms"]),
                  fused_point_mlp_grad=(res7["ms"], res7["plain_ms"]),
                  fused_render_delta=(res9["ms"], res9["plain_ms"]))
-    S = n_s + n_i
     bounds = {
-        "fused_render_coarse_hier": _ray_bound(ncfg, args.rays, n_s, 9,
-                                               8 + n_s + S),
-        "fused_render_rays": _ray_bound(ncfg, args.rays, S, 9 + S, 8 + S),
+        **{k: {f: r[f] for f in ("bound_ms", "bound_by")}
+           for k, r in frame_res.items()},
         "fused_point_mlp": _point_bound(ncfg, args.points, 1, False),
         "fused_point_mlp_grad": _point_bound(ncfg, args.points, 3, True),
         "fused_render_delta": {k: res9[k] for k in ("bound_ms", "bound_by")},
     }
-    # no single PyTorch call computes K1-K6; K3's library column is its
-    # MLP as torch.addmm calls, the chains' the same chain as torch.matmul /
-    # torch._int_mm calls
+    # no single PyTorch call computes K1-K6; the library column of K1-K3 is
+    # their MLP as torch.addmm calls, the chains' the same chain as
+    # torch.matmul / torch._int_mm calls
     entries = {k: {"launches": counts[k], "max_abs_err": errs[k],
                    "ms": times[k][0], "plain_ms": times[k][1], **bounds[k],
                    "library_ms": None} for k in times}
     entries["fused_render_delta"]["library_ms"] = res9["library_ms"]
+    for k, r in frame_res.items():
+        entries[k]["library_ms"] = r["library_ms"]
     entries.update(probes["entries"])
     k5 = entries["fused_point_mlp_pe"]
     k5["max_abs_err"] = max(k5["max_abs_err"], res11["max_abs_err"])

@@ -110,25 +110,25 @@ def load_library() -> ctypes.CDLL:
     slots = ctypes.POINTER(ctypes.c_ulonglong)
     lib.fr_num_slots.argtypes = []
     lib.fr_num_slots.restype = i32
-    lib.fr_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
+    lib.fr_smem_bytes.argtypes = [i32, i32]
     lib.fr_smem_bytes.restype = ctypes.c_ulonglong
     lib.fr_error_string.argtypes = [i32]
     lib.fr_error_string.restype = ctypes.c_char_p
     lib.fr_render_rays.argtypes = [
         vp, vp, vp, vp, vp, vp, i32, i32, i32, slots, i32, i32, i32, i32,
-        i32, vp]
+        i32, vp, i32, i32, vp]
     lib.fr_render_rays.restype = i32
     lib.fr_coarse_hier.argtypes = [
         vp, vp, vp, f32, f32, vp, vp, vp, i32, i32, i32, i32, slots, i32,
-        i32, i32, i32, i32, vp]
+        i32, i32, i32, i32, vp, i32, i32, vp]
     lib.fr_coarse_hier.restype = i32
     lib.fr_render_delta.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, f32, f32, f32, vp, vp, vp, i32, i32, i32,
         i32, i32, slots, i32, i32, i32, i32, i32, vp, i32, i32, vp]
     lib.fr_render_delta.restype = i32
-    lib.fr_delta_smem_bytes.argtypes = [i32, i32, i32, i32, i32, i32]
-    lib.fr_delta_smem_bytes.restype = ctypes.c_ulonglong
-    for fn in (lib.fr_delta_stage_bytes, lib.fr_delta_max_ring):
+    lib.fr_chain_smem_bytes.argtypes = [i32, i32, i32, i32, i32, i32]
+    lib.fr_chain_smem_bytes.restype = ctypes.c_ulonglong
+    for fn in (lib.fr_stage_bytes, lib.fr_max_ring):
         fn.argtypes = []
         fn.restype = i32
     lib.fr_point_mlp_smem_bytes.argtypes = []

@@ -19,14 +19,13 @@
 // per-point HBM traffic (a depth in, a weight out), so the kernels are far
 // above the H100's ridge point; points never exist in HBM (PE is built from
 // the ray packet in shared memory) and only per-ray summaries and weights
-// are written. The render and coarse kernels use wmma 16x16x16 fragments
-// with weights streamed from L2 per layer per warp (render_body.cuh).
+// are written.
 //
-// The delta kernel runs its field MLP on wgmma:
+// All three run their field MLP on one wgmma chain (chain_mlp):
 // - Weight stream. The wrapper lays the chain's bf16 weights out in one
 //   buffer of 16 KB stages, in the order the kernel consumes them, each
 //   stage already in wgmma's 128-byte-swizzled shared-memory image
-//   (kernels/fused_render.py: delta_weight_stream):
+//   (kernels/fused_render.py: chain_weight_stream), one stream per net:
 //     layer 0          (64 x 256)  2 stages of 32 K-rows, MN-major
 //     layer i = 1..D-1 skip pe-part (64 x 256) first if layer i is a skip
 //                      layer, 2 stages; then (256 x 256), 8 stages
@@ -39,7 +38,9 @@
 //   one block per group of rb rays. The producer's one thread keeps a
 //   ring of 2-8 stages filled by cp.async.bulk on mbarriers, the stage
 //   sequence repeated for every 128-point tile; both warpgroups read each
-//   stage, so the weights cross L2 once per 128 points.
+//   stage, so the weights cross L2 once per 128 points. Tiles run over the
+//   block's rb x S points in order, so a tile may straddle rays and the
+//   last one may be partial (its rows past the block's points are zeros).
 // - Per layer, per warpgroup (64 rows of the tile): A is the activation tile
 //   in shared memory (K-major, 128-byte swizzle: swz), B the stage, the
 //   accumulator (64 x 256 f32, 128 registers a thread) stays in registers;
@@ -48,64 +49,23 @@
 //   to bf16 and writes back in place into the same tile; the skip layer adds
 //   PE x W_pe into the same accumulator. The heads are an n16 product whose
 //   columns 0..3 go to sm.raw.
-// - Around the MLP the block runs render_body.cuh's load_rays,
-//   delta_depths, composite and fg_band_out unchanged.
-// Bound: tensor-core work (2.30 TFLOP at 129,024 rays x 16 samples); the
-// weight stream moves about 8.6 KB of L2 traffic per point.
+// - Around the chain each block runs render_body.cuh's per-ray code
+//   unchanged; the producer warp joins its barriers with a thread index
+//   past every loop (IDLE):
+//     k_render_rays   load_rays, depths read from z, chain, composite
+//     k_coarse_hier   load_rays, the near/far linspace, chain, composite,
+//                     hier_depths
+//     k_render_delta  load_rays, delta_depths, chain, composite,
+//                     fg_band_out
+// Bound: tensor-core work (43.3 TFLOP for the fine pass of a 450x450 frame,
+// 14.4 for its coarse pass, 2.30 for a delta frame at 129,024 rays x 16);
+// the weight stream moves about 8.6 KB of L2 traffic per point.
 #include "hopper.cuh"
 #include "render_body.cuh"
 
 namespace fr {
 
-__global__ void __launch_bounds__(NTHREADS, 2)
-k_render_rays(Net net, const float* __restrict__ rays_o,
-              const float* __restrict__ rays_d, const float* __restrict__ bc,
-              const float* __restrict__ zin, float* __restrict__ summary,
-              float* __restrict__ weights, int R, int S, int rb) {
-  extern __shared__ __align__(128) char smem[];
-  Smem sm;
-  smem_layout(smem, rb, S, 0, 0, 0, &sm);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ray0 = blockIdx.x * rb;
-  const int nr = min(rb, R - ray0);
-
-  load_rays(net, sm, rays_o, rays_d, ray0, nr, tid);
-  for (int e = tid; e < nr * S; e += NTHREADS)
-    sm.z[e] = zin[static_cast<size_t>(ray0) * S + e];
-  __syncthreads();
-  render_block(net, sm, bc, summary, weights, ray0, nr, S, rb, warp, lane,
-               tid);
-}
-
-__global__ void __launch_bounds__(NTHREADS, 2)
-k_coarse_hier(Net net, const float* __restrict__ rays_o,
-              const float* __restrict__ rays_d, const float* __restrict__ bc,
-              float near, float far, float* __restrict__ summary,
-              float* __restrict__ weights, float* __restrict__ z_all, int R,
-              int S, int n_imp, int rb) {
-  extern __shared__ __align__(128) char smem[];
-  Smem sm;
-  smem_layout(smem, rb, S, S - 1, S + n_imp, 0, &sm);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ray0 = blockIdx.x * rb;
-  const int nr = min(rb, R - ray0);
-
-  load_rays(net, sm, rays_o, rays_d, ray0, nr, tid);
-  // coarse depths: the static near/far linspace, t = s / (S - 1), each
-  // step rounded as core/sampling.py:stratified_sample rounds it
-  for (int e = tid; e < nr * S; e += NTHREADS) {
-    const float t = __fdiv_rn(static_cast<float>(e % S),
-                              static_cast<float>(S - 1));
-    sm.z[e] = __fadd_rn(__fmul_rn(near, __fsub_rn(1.f, t)),
-                        __fmul_rn(far, t));
-  }
-  __syncthreads();
-  render_block(net, sm, bc, summary, weights, ray0, nr, S, rb, warp, lane,
-               tid);
-  hier_depths(sm, z_all, ray0, nr, S, n_imp, tid);
-}
-
-// ---------------------------------------------------- delta frame (wgmma)
+// ------------------------------------------------------------ wgmma chain
 
 constexpr int DT = 128;            // points per tile, 64 per warpgroup
 constexpr int D_THREADS = 288;     // two consumer warpgroups + producer warp
@@ -123,10 +83,11 @@ constexpr int IDLE = 1 << 30;      // producer's thread index in ray phases
 constexpr uint32_t NO_STAGE = 0xFFFFFFFFu;
 
 static_assert(W == 256 && WV == 128 && PE_PAD == 64 && HEADS == 16,
-              "the delta kernel's stages are laid out for the paper widths");
+              "the chain's stages are laid out for the paper widths");
 
-// Per-ray state of the delta kernel (f32, each region 128-byte aligned):
-// ro, rd, dn, ped, pv, z, raw, w, cdf, uni, zp, wp as in Smem.
+// Per-ray state of the chain kernels (f32, each region 128-byte aligned):
+// ro, rd, dn, ped, pv, z, raw, w, cdf, uni, zp, wp as in Smem; regions a
+// kernel does not use have no rows (n_cdf, n_union, n_prev 0).
 __host__ __device__ inline size_t ray_state_layout(char* base, int rb, int S,
                                                    int n_cdf, int n_union,
                                                    int n_prev, Smem* sm) {
@@ -172,9 +133,9 @@ __host__ __device__ inline int ray_state_offset(int n_ring) {
   return n_ring * STAGE_BYTES + 2 * WG_BYTES + 128;
 }
 
-// Dynamic shared memory of the delta kernel: 1,024 bytes to align the base,
+// Dynamic shared memory of a chain kernel: 1,024 bytes to align the base,
 // then the ring, the tiles, the mbarriers and the per-ray state.
-__host__ __device__ inline size_t delta_smem_bytes(int rb, int S, int n_cdf,
+__host__ __device__ inline size_t chain_smem_bytes(int rb, int S, int n_cdf,
                                                    int n_union, int n_prev,
                                                    int n_ring) {
   return 1024 + ray_state_offset(n_ring) +
@@ -182,7 +143,7 @@ __host__ __device__ inline size_t delta_smem_bytes(int rb, int S, int n_cdf,
 }
 
 // Stages of one tile's weight stream (the order in the note at the top).
-inline int delta_stages(const unsigned long long* slots, int depth,
+inline int chain_stages(const unsigned long long* slots, int depth,
                         int n_views) {
   int n = PE_PAD / KC_W;
   for (int i = 1; i < depth; ++i)
@@ -296,7 +257,7 @@ __device__ __forceinline__ void relu_store(const float (&acc)[128],
 // The MLP of one 128-point tile, for warpgroup wg (rows 64 wg .. +64):
 // PE -> trunk -> view branch -> heads -> sm.raw.
 // tiles: the warpgroup's PE, trunk and view tiles, 1,024-byte aligned.
-__device__ __forceinline__ void delta_tile(const Net& net, const Smem& sm,
+__device__ __forceinline__ void chain_tile(const Net& net, const Smem& sm,
                                            Ring& r, char* tiles,
                                            int tile_base, int n_pts, int S,
                                            int nr, int wg, int wtid) {
@@ -394,8 +355,136 @@ __device__ __forceinline__ void delta_tile(const Net& net, const Smem& sm,
   }
 }
 
-// S = s_uni + s_imp + 1 depths per ray; z_prev / w_prev are (R, s_prev);
-// wstream: n_stages weight stages (delta_stages) of STAGE_ELEMS bf16.
+// The block's place in dynamic shared memory: the ring at a 1,024-byte
+// aligned base (shared address and generic pointer), the two warpgroups'
+// tiles after it, then the mbarriers.
+struct Chain {
+  uint32_t base, bars;
+  char* gbase;
+  int n_ring;
+};
+
+// Lays out the block's shared memory (the per-ray state into sm) and
+// initialises the ring's mbarriers; every thread calls it, and it ends
+// with __syncthreads.
+__device__ __forceinline__ Chain chain_begin(char* smem_raw, int n_ring,
+                                             int rb, int S, int n_cdf,
+                                             int n_union, int n_prev,
+                                             Smem* sm) {
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const Chain c{base, base + n_ring * STAGE_BYTES + 2 * WG_BYTES,
+                smem_raw + (base - raw), n_ring};
+  ray_state_layout(c.gbase + ray_state_offset(n_ring), rb, S, n_cdf,
+                   n_union, n_prev, sm);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < n_ring; ++s) {
+      mbar_init(c.bars + 8 * s, 1);
+      mbar_init(c.bars + 8 * (MAX_RING + s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  return c;
+}
+
+// A thread's index in the per-ray phases: the consumers' own, the
+// producer warp's past every loop, so that it only joins their barriers.
+__device__ __forceinline__ int ray_tid() {
+  return threadIdx.x < NTHREADS ? static_cast<int>(threadIdx.x) : IDLE;
+}
+
+// The field MLP of the block's n_pts = nr x S points (sm.z, ro, rd, pv ->
+// sm.raw): the producer's one thread streams the n_stages weight stages
+// (chain_stages) once per 128-point tile through the ring while the two
+// warpgroups run chain_tile on each tile. Every thread calls it; it ends
+// with __syncthreads.
+__device__ __forceinline__ void chain_mlp(const Net& net, const Smem& sm,
+                                          const Chain& c,
+                                          const bf16* __restrict__ wstream,
+                                          int n_stages, int n_pts, int S,
+                                          int nr) {
+  const int wg = threadIdx.x >> 7;
+  const uint32_t n = static_cast<uint32_t>(c.n_ring);
+  if (wg == 2) {
+    if (threadIdx.x == 256) {
+      const uint32_t total = (n_pts + DT - 1) / DT * n_stages;
+      for (uint32_t q = 0; q < total; ++q) {
+        const uint32_t s = q % n;
+        if (q >= n) mbar_wait(c.bars + 8 * (MAX_RING + s), ((q / n) - 1) & 1);
+        mbar_expect_tx(c.bars + 8 * s, STAGE_BYTES);
+        bulk_g2s(c.base + s * STAGE_BYTES,
+                 wstream + static_cast<size_t>(q % n_stages) * STAGE_ELEMS,
+                 STAGE_BYTES, c.bars + 8 * s);
+      }
+    }
+    __syncwarp();
+  } else {
+    Ring ring{c.base, c.bars, n, 0, NO_STAGE};
+    char* tiles = c.gbase + c.n_ring * STAGE_BYTES + wg * WG_BYTES;
+    for (int t0 = 0; t0 < n_pts; t0 += DT)
+      chain_tile(net, sm, ring, tiles, t0, n_pts, S, nr, wg,
+                 threadIdx.x & 127);
+  }
+  __syncthreads();
+}
+
+// The fine pass: rays at given depths z (R, S).
+__global__ void __launch_bounds__(D_THREADS, 1)
+k_render_rays(Net net, const bf16* __restrict__ wstream, int n_stages,
+              const float* __restrict__ rays_o,
+              const float* __restrict__ rays_d, const float* __restrict__ bc,
+              const float* __restrict__ zin, float* __restrict__ summary,
+              float* __restrict__ weights, int R, int S, int rb, int n_ring) {
+  extern __shared__ __align__(1024) char smem_raw[];
+  Smem sm;
+  const Chain c = chain_begin(smem_raw, n_ring, rb, S, 0, 0, 0, &sm);
+  const int tid = ray_tid();
+  const int ray0 = blockIdx.x * rb;
+  const int nr = min(rb, R - ray0), n_pts = nr * S;
+
+  load_rays(net, sm, rays_o, rays_d, ray0, nr, tid);
+  for (int e = tid; e < n_pts; e += NTHREADS)
+    sm.z[e] = zin[static_cast<size_t>(ray0) * S + e];
+  __syncthreads();
+  chain_mlp(net, sm, c, wstream, n_stages, n_pts, S, nr);
+  composite(net, sm, bc, summary, weights, ray0, nr, S, tid);
+}
+
+// The coarse pass on the near/far linspace of S depths, then the fine
+// depths z_all (R, S + n_imp) placed from its weights.
+__global__ void __launch_bounds__(D_THREADS, 1)
+k_coarse_hier(Net net, const bf16* __restrict__ wstream, int n_stages,
+              const float* __restrict__ rays_o,
+              const float* __restrict__ rays_d, const float* __restrict__ bc,
+              float near, float far, float* __restrict__ summary,
+              float* __restrict__ weights, float* __restrict__ z_all, int R,
+              int S, int n_imp, int rb, int n_ring) {
+  extern __shared__ __align__(1024) char smem_raw[];
+  Smem sm;
+  const Chain c =
+      chain_begin(smem_raw, n_ring, rb, S, S - 1, S + n_imp, 0, &sm);
+  const int tid = ray_tid();
+  const int ray0 = blockIdx.x * rb;
+  const int nr = min(rb, R - ray0), n_pts = nr * S;
+
+  load_rays(net, sm, rays_o, rays_d, ray0, nr, tid);
+  // coarse depths: the static near/far linspace, t = s / (S - 1), each
+  // step rounded as core/sampling.py:stratified_sample rounds it
+  for (int e = tid; e < n_pts; e += NTHREADS) {
+    const float t = __fdiv_rn(static_cast<float>(e % S),
+                              static_cast<float>(S - 1));
+    sm.z[e] = __fadd_rn(__fmul_rn(near, __fsub_rn(1.f, t)),
+                        __fmul_rn(far, t));
+  }
+  __syncthreads();
+  chain_mlp(net, sm, c, wstream, n_stages, n_pts, S, nr);
+  composite(net, sm, bc, summary, weights, ray0, nr, S, tid);
+  hier_depths(sm, z_all, ray0, nr, S, n_imp, tid);
+}
+
+// The delta frame: S = s_uni + s_imp + 1 depths per ray placed from the
+// previous frame's z_prev / w_prev (R, s_prev) and the cached band.
 __global__ void __launch_bounds__(D_THREADS, 1)
 k_render_delta(Net net, const bf16* __restrict__ wstream, int n_stages,
                const float* __restrict__ rays_o,
@@ -408,28 +497,14 @@ k_render_delta(Net net, const bf16* __restrict__ wstream, int n_stages,
                float* __restrict__ weights, float* __restrict__ z_out, int R,
                int s_prev, int s_uni, int s_imp, int rb, int n_ring) {
   extern __shared__ __align__(1024) char smem_raw[];
-  const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;
-  char* gbase = smem_raw + (base - raw);
-  const uint32_t bars = base + n_ring * STAGE_BYTES + 2 * WG_BYTES;
   const int S = s_uni + s_imp + 1;
   Smem sm;
-  ray_state_layout(gbase + ray_state_offset(n_ring), rb, S, s_prev - 2,
-                   S - 1, s_prev, &sm);
-  const int wg = threadIdx.x >> 7;
-  const int tid = wg < 2 ? static_cast<int>(threadIdx.x) : IDLE;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < n_ring; ++s) {
-      mbar_init(bars + 8 * s, 1);
-      mbar_init(bars + 8 * (MAX_RING + s), CONSUMER_WARPS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  const uint32_t n = static_cast<uint32_t>(n_ring);
+  const Chain c = chain_begin(smem_raw, n_ring, rb, S, s_prev - 2, S - 1,
+                              s_prev, &sm);
+  const int tid = ray_tid();
   const int ray0 = blockIdx.x * rb;
   const int nr = min(rb, R - ray0), n_pts = nr * S;
+
   load_rays(net, sm, rays_o, rays_d, ray0, nr, tid);
   const size_t gp = static_cast<size_t>(ray0) * s_prev;
   for (int e = tid; e < nr * s_prev; e += NTHREADS) {
@@ -439,32 +514,23 @@ k_render_delta(Net net, const bf16* __restrict__ wstream, int n_stages,
   __syncthreads();
   delta_depths(sm, band_lo, band_hi, far, ray0, nr, s_prev, s_uni, s_imp,
                tid);
-
-  if (wg == 2) {
-    if (threadIdx.x == 256) {
-      const uint32_t total = (n_pts + DT - 1) / DT * n_stages;
-      for (uint32_t q = 0; q < total; ++q) {
-        const uint32_t s = q % n;
-        if (q >= n) mbar_wait(bars + 8 * (MAX_RING + s), ((q / n) - 1) & 1);
-        mbar_expect_tx(bars + 8 * s, STAGE_BYTES);
-        bulk_g2s(base + s * STAGE_BYTES,
-                 wstream + static_cast<size_t>(q % n_stages) * STAGE_ELEMS,
-                 STAGE_BYTES, bars + 8 * s);
-      }
-    }
-    __syncwarp();
-  } else {
-    Ring ring{base, bars, n, 0, NO_STAGE};
-    char* tiles = gbase + n_ring * STAGE_BYTES + wg * WG_BYTES;
-    for (int t0 = 0; t0 < n_pts; t0 += DT)
-      delta_tile(net, sm, ring, tiles, t0, n_pts, S, nr, wg,
-                 threadIdx.x & 127);
-  }
-  __syncthreads();
+  chain_mlp(net, sm, c, wstream, n_stages, n_pts, S, nr);
   composite(net, sm, bc, summary, weights, ray0, nr, S, tid);
   for (int e = tid; e < n_pts; e += NTHREADS)
     z_out[static_cast<size_t>(ray0) * S + e] = sm.z[e];
   fg_band_out(sm, summary, ray0, nr, S, q_lo, q_hi, tid);
+}
+
+// A chain kernel's launch: the stream must hold the net's stages and the
+// ring 2..MAX_RING of them; sets the kernel's shared memory.
+template <typename K>
+inline cudaError_t chain_prepare(K kernel, size_t bytes,
+                                 const unsigned long long* slots, int depth,
+                                 int n_views, int n_stages, int n_ring) {
+  if (n_stages != chain_stages(slots, depth, n_views) || n_ring < 2 ||
+      n_ring > MAX_RING)
+    return cudaErrorInvalidValue;
+  return prepare(kernel, bytes);
 }
 
 }  // namespace fr
@@ -473,38 +539,45 @@ extern "C" {
 
 int fr_num_slots() { return fr::NSLOTS; }
 
-unsigned long long fr_smem_bytes(int rb, int S, int n_cdf, int n_union,
-                                 int n_prev) {
-  return fr::smem_layout(nullptr, rb, S, n_cdf, n_union, n_prev, nullptr);
+// Shared memory of render_body.cuh's wmma ray blocks (the kdiag.cu
+// render probes).
+unsigned long long fr_smem_bytes(int rb, int S) {
+  return fr::smem_layout(nullptr, rb, S, nullptr);
 }
 
-unsigned long long fr_delta_smem_bytes(int rb, int S, int n_cdf,
+unsigned long long fr_chain_smem_bytes(int rb, int S, int n_cdf,
                                        int n_union, int n_prev, int n_ring) {
-  return fr::delta_smem_bytes(rb, S, n_cdf, n_union, n_prev, n_ring);
+  return fr::chain_smem_bytes(rb, S, n_cdf, n_union, n_prev, n_ring);
 }
 
-// The delta kernel's ring: bytes per stage, the most stages it may hold.
-int fr_delta_stage_bytes() { return fr::STAGE_BYTES; }
-int fr_delta_max_ring() { return fr::MAX_RING; }
+// The chain's ring: bytes per stage, the most stages it may hold.
+int fr_stage_bytes() { return fr::STAGE_BYTES; }
+int fr_max_ring() { return fr::MAX_RING; }
 
 const char* fr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The chain kernels take wstream: n_stages stages of the net's weight
+// stream (16-byte aligned); n_ring: stages of the shared-memory ring
+// (2..MAX_RING); one block per group of rb rays.
 int fr_render_rays(const float* rays_o, const float* rays_d, const float* bc,
                    const float* z, float* summary, float* weights, int R,
                    int S, int rb, const unsigned long long* slots, int depth,
                    int n_views, int multires, int multires_views,
-                   int softplus, void* stream) {
+                   int softplus, const void* wstream, int n_stages,
+                   int n_ring, void* stream) {
+  const size_t bytes = fr::chain_smem_bytes(rb, S, 0, 0, 0, n_ring);
+  cudaError_t err = fr::chain_prepare(fr::k_render_rays, bytes, slots, depth,
+                                      n_views, n_stages, n_ring);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const fr::Net net =
       fr::make_net(slots, depth, n_views, multires, multires_views, softplus);
-  const size_t bytes = fr::smem_layout(nullptr, rb, S, 0, 0, 0, nullptr);
-  cudaError_t err = fr::prepare(fr::k_render_rays, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (R + rb - 1) / rb;
-  fr::k_render_rays<<<grid, fr::NTHREADS, bytes,
+  fr::k_render_rays<<<grid, fr::D_THREADS, bytes,
                       static_cast<cudaStream_t>(stream)>>>(
-      net, rays_o, rays_d, bc, z, summary, weights, R, S, rb);
+      net, static_cast<const fr::bf16*>(wstream), n_stages, rays_o, rays_d,
+      bc, z, summary, weights, R, S, rb, n_ring);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -513,23 +586,23 @@ int fr_coarse_hier(const float* rays_o, const float* rays_d, const float* bc,
                    float* z_all, int R, int S, int n_imp, int rb,
                    const unsigned long long* slots, int depth, int n_views,
                    int multires, int multires_views, int softplus,
+                   const void* wstream, int n_stages, int n_ring,
                    void* stream) {
+  const size_t bytes =
+      fr::chain_smem_bytes(rb, S, S - 1, S + n_imp, 0, n_ring);
+  cudaError_t err = fr::chain_prepare(fr::k_coarse_hier, bytes, slots, depth,
+                                      n_views, n_stages, n_ring);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const fr::Net net =
       fr::make_net(slots, depth, n_views, multires, multires_views, softplus);
-  const size_t bytes =
-      fr::smem_layout(nullptr, rb, S, S - 1, S + n_imp, 0, nullptr);
-  cudaError_t err = fr::prepare(fr::k_coarse_hier, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (R + rb - 1) / rb;
-  fr::k_coarse_hier<<<grid, fr::NTHREADS, bytes,
+  fr::k_coarse_hier<<<grid, fr::D_THREADS, bytes,
                       static_cast<cudaStream_t>(stream)>>>(
-      net, rays_o, rays_d, bc, near, far, summary, weights, z_all, R, S,
-      n_imp, rb);
+      net, static_cast<const fr::bf16*>(wstream), n_stages, rays_o, rays_d,
+      bc, near, far, summary, weights, z_all, R, S, n_imp, rb, n_ring);
   return static_cast<int>(cudaGetLastError());
 }
 
-// wstream: n_stages stages of the weight stream (16-byte aligned); n_ring:
-// stages of the shared-memory ring (2..MAX_RING); one block per ray group.
 int fr_render_delta(const float* rays_o, const float* rays_d, const float* bc,
                     const float* z_prev, const float* w_prev,
                     const float* band_lo, const float* band_hi, float far,
@@ -539,16 +612,14 @@ int fr_render_delta(const float* rays_o, const float* rays_d, const float* bc,
                     int n_views, int multires, int multires_views,
                     int softplus, const void* wstream, int n_stages,
                     int n_ring, void* stream) {
-  if (n_stages != fr::delta_stages(slots, depth, n_views) || n_ring < 2 ||
-      n_ring > fr::MAX_RING)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const fr::Net net =
-      fr::make_net(slots, depth, n_views, multires, multires_views, softplus);
   const int S = s_uni + s_imp + 1;
   const size_t bytes =
-      fr::delta_smem_bytes(rb, S, s_prev - 2, S - 1, s_prev, n_ring);
-  cudaError_t err = fr::prepare(fr::k_render_delta, bytes);
+      fr::chain_smem_bytes(rb, S, s_prev - 2, S - 1, s_prev, n_ring);
+  cudaError_t err = fr::chain_prepare(fr::k_render_delta, bytes, slots,
+                                      depth, n_views, n_stages, n_ring);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const fr::Net net =
+      fr::make_net(slots, depth, n_views, multires, multires_views, softplus);
   const int grid = (R + rb - 1) / rb;
   fr::k_render_delta<<<grid, fr::D_THREADS, bytes,
                        static_cast<cudaStream_t>(stream)>>>(

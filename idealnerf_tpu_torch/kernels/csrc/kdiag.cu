@@ -359,7 +359,7 @@ k_render_probe_b(Net net, const float* __restrict__ rays_o,
                  int R, int S, int rb) {
   extern __shared__ __align__(128) char smem[];
   Smem sm;
-  smem_layout(smem, rb, S, 0, 0, 0, &sm);
+  smem_layout(smem, rb, S, &sm);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ray0 = blockIdx.x * rb;
   const int nr = min(rb, R - ray0);
@@ -382,7 +382,7 @@ k_render_probe_a(Net net, const bf16* __restrict__ pe,
                  int S, int rb) {
   extern __shared__ __align__(128) char smem[];
   Smem sm;
-  smem_layout(smem, rb, S, 0, 0, 0, &sm);
+  smem_layout(smem, rb, S, &sm);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ray0 = blockIdx.x * rb;
   const int nr = min(rb, R - ray0);
@@ -538,7 +538,7 @@ int kd_render_a(const void* pe, const void* ped, float* raw, int R, int S,
                 int rb, const unsigned long long* slots, int depth,
                 int n_views, void* stream) {
   const fr::Net net = fr::make_net(slots, depth, n_views, 0, 0, 0);
-  const size_t bytes = fr::smem_layout(nullptr, rb, S, 0, 0, 0, nullptr);
+  const size_t bytes = fr::smem_layout(nullptr, rb, S, nullptr);
   cudaError_t err = fr::prepare(fr::kd::k_render_probe_a, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   fr::kd::k_render_probe_a<<<(R + rb - 1) / rb, fr::NTHREADS, bytes,
@@ -554,7 +554,7 @@ int kd_render_b(const float* rays_o, const float* rays_d, const float* z,
                 int multires, int multires_views, void* stream) {
   const fr::Net net =
       fr::make_net(slots, depth, n_views, multires, multires_views, 0);
-  const size_t bytes = fr::smem_layout(nullptr, rb, S, 0, 0, 0, nullptr);
+  const size_t bytes = fr::smem_layout(nullptr, rb, S, nullptr);
   cudaError_t err = fr::prepare(fr::kd::k_render_probe_b, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   fr::kd::k_render_probe_b<<<(R + rb - 1) / rb, fr::NTHREADS, bytes,

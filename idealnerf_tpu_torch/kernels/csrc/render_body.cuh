@@ -15,9 +15,14 @@
 //   - f32 compositing with the transmittance as a running product of
 //     max(1 - alpha, 1e-10); the last sample takes the plate colour.
 //
-// Block design: one block of 8 warps owns `rb` whole rays, so compositing
-// and the depth placement never leave the block and each ray's outputs are
-// written by exactly one block. The block walks its rb*S points in tiles of
+// Ray blocks own whole rays, so compositing and the depth placement never
+// leave the block and each ray's outputs are written by exactly one block.
+// The per-ray code here (load_rays, composite, the depth placement, the
+// band) is the ray kernels' of fused_render.cu, which run their field MLP
+// on their own wgmma chain.
+//
+// The wmma body (mlp_core: the point kernels of fused_mlp.cu and the
+// probes of kdiag.cu): one block of 8 warps walks its points in tiles of
 // P=64 rows. A tile's activations live in shared memory (two 64x256 bf16
 // buffers, ping-pong); layer weights are read per layer from global memory
 // (about 1 MB in bf16: L2-resident, larger than the 227 KB of shared
@@ -95,27 +100,26 @@ struct Smem {
                    // ray kernels add the per-ray term pv instead)
 };
 
-// Byte layout of the dynamic shared memory; the host calls it with a null
-// base to size the launch. Every region starts 128-byte aligned.
+// Byte layout of the dynamic shared memory of the wmma ray blocks (the
+// kdiag.cu render probes); the host calls it with a null base to size the
+// launch. Every region starts 128-byte aligned.
 __host__ __device__ inline size_t smem_layout(char* base, int rb, int S,
-                                              int n_cdf, int n_union,
-                                              int n_prev, Smem* sm) {
-  const size_t sz[16] = {
+                                              Smem* sm) {
+  const size_t sz[12] = {
       sizeof(bf16) * P * PE_PAD, sizeof(bf16) * P * W, sizeof(bf16) * P * W,
       sizeof(float) * NWARP * 256,
       sizeof(float) * rb * 3, sizeof(float) * rb * 3, sizeof(float) * rb,
       sizeof(float) * rb * PED_PAD, sizeof(float) * rb * WV,
       sizeof(float) * rb * S, sizeof(float) * rb * S * 4,
-      sizeof(float) * rb * S, sizeof(float) * rb * n_cdf,
-      sizeof(float) * rb * n_union, sizeof(float) * rb * n_prev,
-      sizeof(float) * rb * n_prev};
-  size_t off[16];
+      sizeof(float) * rb * S};
+  size_t off[12];
   size_t total = 0;
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < 12; ++i) {
     off[i] = total;
     total += (sz[i] + 127) & ~static_cast<size_t>(127);
   }
   if (sm != nullptr) {
+    *sm = Smem{};
     sm->pe = reinterpret_cast<bf16*>(base + off[0]);
     sm->h0 = reinterpret_cast<bf16*>(base + off[1]);
     sm->h1 = reinterpret_cast<bf16*>(base + off[2]);
@@ -128,11 +132,6 @@ __host__ __device__ inline size_t smem_layout(char* base, int rb, int S,
     sm->z = reinterpret_cast<float*>(base + off[9]);
     sm->raw = reinterpret_cast<float*>(base + off[10]);
     sm->w = reinterpret_cast<float*>(base + off[11]);
-    sm->cdf = reinterpret_cast<float*>(base + off[12]);
-    sm->uni = reinterpret_cast<float*>(base + off[13]);
-    sm->zp = reinterpret_cast<float*>(base + off[14]);
-    sm->wp = reinterpret_cast<float*>(base + off[15]);
-    sm->ped_tile = nullptr;
   }
   return total;
 }
@@ -442,17 +441,6 @@ static __device__ void composite(const Net& net, const Smem& sm,
   __syncthreads();
   for (int e = tid; e < n_pts; e += NTHREADS)
     weights[static_cast<size_t>(ray0) * S + e] = sm.w[e];
-}
-
-// All tiles of the block's rays, then compositing.
-static __device__ void render_block(const Net& net, const Smem& sm,
-                                    const float* bc, float* summary,
-                                    float* weights, int ray0, int nr, int S,
-                                    int rb, int warp, int lane, int tid) {
-  const int n_pts = nr * S;
-  for (int base = 0; base < n_pts; base += P)
-    mlp_tile(net, sm, base, n_pts, S, rb, warp, lane, tid);
-  composite(net, sm, bc, summary, weights, ray0, nr, S, tid);
 }
 
 // Per-ray CDFs of the deterministic inverse-CDF draw (core/sampling.py:

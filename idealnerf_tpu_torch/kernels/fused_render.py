@@ -1,8 +1,10 @@
 """Per-ray fused render: PE -> conditioned MLP -> alpha composite, one
 kernel launch per pass (counterpart of idealnerf_tpu/kernels/fused_render.py).
 
-Three kernels, CUDA C++ for sm_90a in ``csrc/`` (see the note at the top
-of ``csrc/fused_render.cu`` for what bounds them and how they are built):
+Three kernels, CUDA C++ for sm_90a in ``csrc/``, each running its field
+MLP on one wgmma chain fed by its net's weight stream
+(``chain_weight_stream``; see the note at the top of
+``csrc/fused_render.cu`` for what bounds them and how they are built):
 
 - ``fused_render_rays`` replaces the JAX package's ``fused_render_rays``
   (``_render_kernel``/``_render_body``): rays at given depths -> per-ray
@@ -55,13 +57,17 @@ _SLOT_WALPHA, _SLOT_WRGB, _SLOT_BHEADS = (_SLOT_WV0D + 1, _SLOT_WV0D + 2,
                                          _SLOT_WV0D + 3)
 _NSLOTS = _SLOT_WV0D + 4
 
-# points per block the kernels aim for; the block owns whole rays
-_POINTS_PER_BLOCK = 768
 # the delta kernel (csrc/fused_render.cu, k_render_delta): points per ray
 # group (four 128-point tiles), at most 32 rays, and the fewest stages its
 # weight ring keeps before the group gives up rays (3 and 4 measured
 # alike, 2 slower)
 _DELTA_POINTS, _DELTA_MAX_RAYS, _DELTA_MIN_RING = 512, 32, 4
+# the render and coarse kernels (k_render_rays, k_coarse_hier): the weight
+# ring's stages (3 with the rays they leave room for measured about 2 %
+# faster than 4, scripts/kframe.py), at most this many rays per block, and
+# the share of a block's tile rows its last 128-point tile may leave empty
+_RENDER_RING, _RENDER_MAX_RAYS, _MAX_TAIL = 3, 64, 1 / 32
+CHAIN_TILE = 128              # points per tile of the chain
 STAGE_ELEMS = 8192            # bf16 per stage (16 KB)
 _KC_W, _KC_V = 32, 64         # K-rows per stage of a 256- / 128-wide layer
 # rays per chunk of the plain versions: bounds their (points x W) f32
@@ -339,7 +345,7 @@ def fused_render_delta_reference(params, folded, cfg, rays_o, rays_d, z_prev,
     return _delta_outputs(out, z, lo, hi)
 
 
-# ------------------------------------------------- delta kernel's weights
+# ------------------------------------------------ the chain's weights
 
 def swizzle_image_index(rows: int, lanes: int) -> torch.Tensor:
     """(rows, lanes) element offsets of a bf16 matrix in wgmma's 128-byte
@@ -356,7 +362,7 @@ def swizzle_image_index(rows: int, lanes: int) -> torch.Tensor:
 
 
 def _stream_parts(net: PackedNet):
-    """The delta kernel's weight stream as (name, matrix (K, N), K-rows per
+    """The chain's weight stream as (name, matrix (K, N), K-rows per
     stage) in the order the kernel consumes it (csrc/fused_render.cu, note
     at the top); the heads are one stage of their own."""
     parts = [("w0", net.w[0], _KC_W)]
@@ -377,7 +383,7 @@ def _stream_layout(shapes, heads, device: str):
     dst, order, q = [], [], 0
     for name, k, n, kr in shapes:
         if k % kr or n * kr != STAGE_ELEMS:
-            raise ValueError(f"delta stream: {name} ({k}, {n}) does not cut "
+            raise ValueError(f"weight stream: {name} ({k}, {n}) does not cut "
                              f"into {kr}-row stages")
         idx = swizzle_image_index(kr, n).reshape(1, -1)
         base = (q + torch.arange(k // kr))[:, None] * STAGE_ELEMS
@@ -391,8 +397,8 @@ def _stream_layout(shapes, heads, device: str):
     return torch.cat(dst).to(device), tuple(order)
 
 
-def delta_weight_stream(net: PackedNet):
-    """PackedNet -> (stream, order): the bf16 weights of the delta kernel's
+def chain_weight_stream(net: PackedNet):
+    """PackedNet -> (stream, order): the bf16 weights of the chain kernels'
     field MLP as (n_stages * STAGE_ELEMS,) on the weights' device, each
     16 KB stage in its swizzled shared-memory image so that one bulk copy
     fills a stage, and the (name, first K-row) of every stage. Matrices of
@@ -412,8 +418,8 @@ def delta_weight_stream(net: PackedNet):
     return out, list(order)
 
 
-def delta_stream_matrices(stream: torch.Tensor, net: PackedNet) -> Dict:
-    """The plain inverse of delta_weight_stream: the stream read back into
+def chain_stream_matrices(stream: torch.Tensor, net: PackedNet) -> Dict:
+    """The plain inverse of chain_weight_stream: the stream read back into
     its matrices by name (``w{i}``, ``wskip{i}``, ``wv{v}``, ``w_alpha``,
     ``w_rgb``); ``net`` gives only the shapes and the skip layers."""
     img = stream.reshape(-1, STAGE_ELEMS)
@@ -499,19 +505,6 @@ def _slots(net: PackedNet, device):
     return table, (wbuf, fbuf)
 
 
-def _rays_per_block(lib, S: int, n_cdf: int, n_union: int) -> int:
-    rb = max(1, min(16, _POINTS_PER_BLOCK // S))
-
-    def smem(rb):
-        return lib.fr_smem_bytes(rb, S, n_cdf, n_union, 0)
-
-    while rb > 1 and smem(rb) > SMEM_LIMIT:
-        rb -= 1
-    if smem(rb) > SMEM_LIMIT:
-        raise ValueError(f"S={S} does not fit the kernel's shared memory")
-    return rb
-
-
 def _delta_plan(lib, S: int, s_prev: int):
     """(rays per group, ring stages) of the delta kernel: about
     _DELTA_POINTS points but at most _DELTA_MAX_RAYS rays, with the deepest
@@ -520,8 +513,8 @@ def _delta_plan(lib, S: int, s_prev: int):
     fits."""
     rb = max(1, min(_DELTA_MAX_RAYS, _DELTA_POINTS // S))
     while True:
-        for n in range(lib.fr_delta_max_ring(), _DELTA_MIN_RING - 1, -1):
-            if lib.fr_delta_smem_bytes(rb, S, s_prev - 2, S - 1, s_prev,
+        for n in range(lib.fr_max_ring(), _DELTA_MIN_RING - 1, -1):
+            if lib.fr_chain_smem_bytes(rb, S, s_prev - 2, S - 1, s_prev,
                                        n) <= SMEM_LIMIT:
                 return rb, n
         if rb == 1:
@@ -530,15 +523,63 @@ def _delta_plan(lib, S: int, s_prev: int):
         rb -= 1
 
 
+@functools.lru_cache(maxsize=64)
+def _render_plan(lib, S: int, n_cdf: int, n_union: int):
+    """(rays per block, ring stages) of the render and coarse kernels at S
+    depths: a ring of _RENDER_RING stages (fewer only where one ray would
+    not fit beside it), the most rays (at most _RENDER_MAX_RAYS) that fit
+    the shared memory beside it and the two warpgroups' tiles, cut back to
+    the largest count whose last 128-point tile leaves at most _MAX_TAIL
+    of the block's tile rows empty (the most that fit if none does)."""
+    def fits(rb, ring):
+        return lib.fr_chain_smem_bytes(rb, S, n_cdf, n_union, 0,
+                                       ring) <= SMEM_LIMIT
+
+    ring = _RENDER_RING
+    while not fits(1, ring):
+        if ring == 2:
+            raise ValueError(f"S={S} does not fit the kernel's shared memory")
+        ring -= 1
+    most = 1
+    while most < _RENDER_MAX_RAYS and fits(most + 1, ring):
+        most += 1
+    for rb in range(most, 0, -1):
+        rows = -(-rb * S // CHAIN_TILE) * CHAIN_TILE
+        if rows - rb * S <= _MAX_TAIL * rows:
+            return rb, ring
+    return most, ring
+
+
+def _state_widths(S: int, n_imp: int):
+    """(n_cdf, n_union) of the render kernel (n_imp 0) or of the coarse
+    kernel placing n_imp fine depths."""
+    return (S - 1, S + n_imp) if n_imp else (0, 0)
+
+
+def _launch_config(lib, rb: int, ring: int, S: int, n_cdf: int,
+                   n_union: int, n_prev: int) -> Dict[str, int]:
+    return {"rays_per_group": rb,
+            "smem_bytes": lib.fr_chain_smem_bytes(rb, S, n_cdf, n_union,
+                                                  n_prev, ring),
+            "stage_bytes": lib.fr_stage_bytes(), "ring_stages": ring}
+
+
+def render_launch_config(S: int, n_imp: int = 0) -> Dict[str, int]:
+    """The render kernel's launch at S depths (n_imp 0), or the coarse
+    kernel's at S coarse depths placing n_imp fine ones: rays per block,
+    dynamic shared memory, stage bytes and ring depth."""
+    lib = build.load_library()
+    widths = _state_widths(S, n_imp)
+    return _launch_config(lib, *_render_plan(lib, S, *widths), S, *widths,
+                          0)
+
+
 def delta_launch_config(S: int, s_prev: int) -> Dict[str, int]:
     """The delta kernel's launch at S depths from s_prev previous ones:
     rays per group, dynamic shared memory, stage bytes and ring depth."""
     lib = build.load_library()
-    rb, ring = _delta_plan(lib, S, s_prev)
-    return {"rays_per_group": rb,
-            "smem_bytes": lib.fr_delta_smem_bytes(rb, S, s_prev - 2, S - 1,
-                                                  s_prev, ring),
-            "stage_bytes": lib.fr_delta_stage_bytes(), "ring_stages": ring}
+    return _launch_config(lib, *_delta_plan(lib, S, s_prev), S, s_prev - 2,
+                          S - 1, s_prev)
 
 
 def _raise_on(lib, err: int, name: str) -> None:
@@ -554,6 +595,14 @@ def _net_args(net: PackedNet):
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _chain_args(net: PackedNet, device):
+    """A chain kernel's operands of one net: (slot table, the buffers it
+    and the stream live in, the weight stream's address, its stages)."""
+    table, keep = _slots(net, device)
+    stream, order = chain_weight_stream(net)
+    return table, (keep, stream), stream.data_ptr(), len(order)
 
 
 def fused_render_rays(params, folded, cfg, rays_o, rays_d, z_vals,
@@ -574,14 +623,14 @@ def fused_render_rays(params, folded, cfg, rays_o, rays_d, z_vals,
     if R < 1 or S < 2 or R * S >= 2 ** 31:
         raise ValueError(f"fused_render_rays: unsupported R={R}, S={S}")
     lib = build.load_library()
-    rb = _rays_per_block(lib, S, 0, 0)
-    table, keep = _slots(net, dev)
+    rb, ring = _render_plan(lib, S, 0, 0)
+    table, keep, ws, n_stages = _chain_args(net, dev)
     summary = torch.empty((R, 8), dtype=torch.float32, device=dev)
     weights = torch.empty((R, S), dtype=torch.float32, device=dev)
     err = lib.fr_render_rays(
         rays_o.data_ptr(), rays_d.data_ptr(), bc_rgb.data_ptr(),
         z_vals.data_ptr(), summary.data_ptr(), weights.data_ptr(), R, S, rb,
-        table, *_net_args(net), _stream(dev))
+        table, *_net_args(net), ws, n_stages, ring, _stream(dev))
     _raise_on(lib, err, "fused_render_rays")
     launch_counts["fused_render_rays"] += 1
     del keep  # stream-ordered: the caching allocator reuses it after the kernel
@@ -612,15 +661,16 @@ def fused_render_coarse_hier(params, folded, cfg, rays_o, rays_d, bc_rgb,
     if R < 1 or R * SU >= 2 ** 31:
         raise ValueError(f"fused_render_coarse_hier: unsupported R={R}")
     lib = build.load_library()
-    rb = _rays_per_block(lib, S, S - 1, SU)
-    table, keep = _slots(net, dev)
+    rb, ring = _render_plan(lib, S, *_state_widths(S, n_imp))
+    table, keep, ws, n_stages = _chain_args(net, dev)
     summary = torch.empty((R, 8), dtype=torch.float32, device=dev)
     weights = torch.empty((R, S), dtype=torch.float32, device=dev)
     z_all = torch.empty((R, SU), dtype=torch.float32, device=dev)
     err = lib.fr_coarse_hier(
         rays_o.data_ptr(), rays_d.data_ptr(), bc_rgb.data_ptr(), float(near),
         float(far), summary.data_ptr(), weights.data_ptr(), z_all.data_ptr(),
-        R, S, n_imp, rb, table, *_net_args(net), _stream(dev))
+        R, S, n_imp, rb, table, *_net_args(net), ws, n_stages, ring,
+        _stream(dev))
     _raise_on(lib, err, "fused_render_coarse_hier")
     launch_counts["fused_render_coarse_hier"] += 1
     del keep
@@ -665,8 +715,7 @@ def fused_render_delta(params, folded, cfg, rays_o, rays_d, z_prev, w_prev,
         raise ValueError(f"fused_render_delta: unsupported R={R}")
     lib = build.load_library()
     rb, ring = _delta_plan(lib, S, s_prev)
-    table, keep = _slots(net, dev)
-    wstream, _ = delta_weight_stream(net)
+    table, keep, ws, n_stages = _chain_args(net, dev)
     summary = torch.empty((R, 8), dtype=torch.float32, device=dev)
     weights = torch.empty((R, S), dtype=torch.float32, device=dev)
     z_out = torch.empty((R, S), dtype=torch.float32, device=dev)
@@ -675,11 +724,11 @@ def fused_render_delta(params, folded, cfg, rays_o, rays_d, z_prev, w_prev,
         z_prev.data_ptr(), w_prev.data_ptr(), band_lo.data_ptr(),
         band_hi.data_ptr(), float(far), float(q_lo), float(q_hi),
         summary.data_ptr(), weights.data_ptr(), z_out.data_ptr(), R, s_prev,
-        s_uni, s_imp, rb, table, *_net_args(net), wstream.data_ptr(),
-        wstream.numel() // STAGE_ELEMS, ring, _stream(dev))
+        s_uni, s_imp, rb, table, *_net_args(net), ws, n_stages, ring,
+        _stream(dev))
     _raise_on(lib, err, "fused_render_delta")
     launch_counts["fused_render_delta"] += 1
-    del keep, wstream
+    del keep
     out = _outputs(summary[:, :3], summary[:, 3], summary[:, 4],
                    summary[:, 5], weights, bc_rgb)
     return _delta_outputs(out, z_out, summary[:, 6], summary[:, 7])

@@ -15,9 +15,10 @@ isolates a part of their time:
 - ``ladder``: the production trunk, then + skip, + view branch (rungs
   v0-v2 on the production operand table); rung v3 is the encoded-input
   point MLP (K5) and v4 the in-kernel-PE one (K4) (kdiag2.py).
-- ``render_probe_a`` / ``render_probe_b``: the fine pass's ray-organised
-  MLP without compositing, from given PE or with the PE built in the
-  kernel (kdiag3.py A and B; its C is the fine pass itself).
+- ``render_probe_a`` / ``render_probe_b``: the ray-organised MLP of
+  render_body.cuh's wmma blocks (the fine pass's until it moved to the
+  wgmma chain) without compositing, from given PE or with the PE built in
+  the kernel (kdiag3.py A and B; its C is the fine pass itself).
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 ``launch_counts``; for CPU tensors it runs the plain PyTorch version
@@ -39,9 +40,9 @@ from idealnerf_tpu_torch.kernels.fused_mlp import (
     point_mlp_pe, point_mlp_pe_reference,
 )
 from idealnerf_tpu_torch.kernels.fused_render import (
-    _REF_CHUNK_POINTS, KERNEL_WIDTH, PE_PAD, PED_PAD, PackedNet, _bf16,
-    _check_cuda, _check_rays, _mlp_reference, _raise_on, _rays_per_block,
-    _slots, _stream,
+    _REF_CHUNK_POINTS, KERNEL_WIDTH, PE_PAD, PED_PAD, SMEM_LIMIT, PackedNet,
+    _bf16, _check_cuda, _check_rays, _mlp_reference, _raise_on, _slots,
+    _stream,
 )
 
 # epilogue modes of csrc/kdiag.cu (enum Mode)
@@ -55,6 +56,9 @@ _CHAIN_COUNT = {torch.bfloat16: "kdiag_chain_bf16",
                 torch.float32: "kdiag_chain_f32",
                 torch.int8: "kdiag_chain_int8"}
 _BIAS_MODES = ("bias_relu", "relu2")
+
+# points per block of the render probes; a block owns whole rays
+_POINTS_PER_BLOCK = 768
 
 launch_counts = {"kdiag_chain_bf16": 0, "kdiag_chain_f32": 0,
                  "kdiag_chain_int8": 0, "kdiag_ladder": 0,
@@ -316,11 +320,20 @@ def render_probe_b_reference(net: PackedNet, rays_o: torch.Tensor,
     return torch.cat(parts, 0)
 
 
+def _rays_per_block(lib, S: int) -> int:
+    rb = max(1, min(16, _POINTS_PER_BLOCK // S))
+    while rb > 1 and lib.fr_smem_bytes(rb, S) > SMEM_LIMIT:
+        rb -= 1
+    if lib.fr_smem_bytes(rb, S) > SMEM_LIMIT:
+        raise ValueError(f"S={S} does not fit the probe's shared memory")
+    return rb
+
+
 def _probe_setup(name, net, S):
     if net.w[0].dtype != torch.bfloat16:
         raise TypeError(f"{name}: the kernel takes bf16 weights")
     lib = build.load_library()
-    return lib, _rays_per_block(lib, S, 0, 0)
+    return lib, _rays_per_block(lib, S)
 
 
 def render_probe_a(net: PackedNet, pe: torch.Tensor, ped: torch.Tensor,
@@ -328,8 +341,8 @@ def render_probe_a(net: PackedNet, pe: torch.Tensor, ped: torch.Tensor,
     """kdiag3.py A: the fine pass's MLP from given encodings, (R*S,
     PE_PAD) bf16 xyz-PE and (R, PED_PAD) bf16 per-ray dir-PE -> raw (R,
     S*4) f32 [rgb logits, sigma], no compositing. A block owns whole rays,
-    as many as the fine pass's block does. CUDA tensors launch the kernel,
-    CPU tensors take the plain version."""
+    about 768 points of them. CUDA tensors launch the kernel, CPU tensors
+    take the plain version."""
     if pe.device.type == "cpu":
         return render_probe_a_reference(net, pe, ped, S)
     dev = _check_cuda("render_probe_a", torch.bfloat16, 16, pe=pe, ped=ped)

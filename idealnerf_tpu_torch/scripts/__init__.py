@@ -81,6 +81,46 @@ def card() -> str:
         return f"nvidia-smi unavailable: {e}"
 
 
+def run_worker(script: str, tree, argv, timeout: int = 900) -> dict:
+    """``script --worker TREE argv`` in a fresh process, so that TREE's
+    package is the one it imports -> the dict of its ``RESULT`` line."""
+    import json
+    import sys
+
+    r = subprocess.run([sys.executable, script, "--worker", str(tree),
+                        *argv], capture_output=True, text=True,
+                       timeout=timeout)
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
+    if r.returncode or not line:
+        raise RuntimeError(f"{tree}: worker failed\n{r.stdout[-3000:]}\n"
+                           f"{r.stderr[-3000:]}")
+    return json.loads(line[0][len("RESULT "):])
+
+
+def build_trees(trees: dict, kernels) -> None:
+    """One kernel build per checkout (label -> root), all started
+    together; prints each one's ptxas lines of the kernels whose mangled
+    names hold one of ``kernels``."""
+    import sys
+
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
+            "idealnerf_tpu_torch.kernels import build; print(build.build()"
+            "['log'])")
+    procs = {k: subprocess.Popen([sys.executable, "-c", code, str(t)],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for k, t in trees.items()}
+    for k, p in procs.items():
+        log = p.communicate()[0].splitlines()
+        if p.returncode:
+            raise RuntimeError(f"{k}: build failed\n" + "\n".join(log[-60:]))
+        for i, ln in enumerate(log):
+            if any(f"Function properties for _ZN2fr{f}" in ln
+                   for f in kernels):
+                print(f"{k:7s} ptxas: " + " | ".join(
+                    x.strip() for x in log[i:i + 3]), flush=True)
+
+
 def chain_inputs(rows: int, dtype, dev, seed: int = 0, depth: int = DEPTH):
     """The TPU probes' chain inputs -> (x (rows, W), ws (depth, W, W)) in
     ``dtype``: bf16 or f32 x ~ N(0, 1) and weights ~ 0.05 N(0, 1); int8 x

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -95,7 +94,7 @@ def _worker(tree: str, plans, rays: int, seed: int) -> dict:
         lib = build.load_library()
         packed = fr.pack_operands(net, folded, ncfg)
         table, keep = fr._slots(packed, dev)
-        ws, _ = fr.delta_weight_stream(packed)
+        ws, _ = fr.chain_weight_stream(packed)
         S = s_uni + s_imp + 1
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for label, rb, ring, groups in plans:
@@ -127,38 +126,6 @@ def _worker(tree: str, plans, rays: int, seed: int) -> dict:
     return out
 
 
-def _run(tree: Path, plans, args) -> dict:
-    cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
-           str(tree), "--plans", json.dumps(plans), "--rays",
-           str(args.rays), "--seed", str(args.seed)]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
-    if r.returncode or not line:
-        raise RuntimeError(f"{tree}: worker failed\n{r.stdout[-3000:]}\n"
-                           f"{r.stderr[-3000:]}")
-    return json.loads(line[0][len("RESULT "):])
-
-
-def _build(trees) -> None:
-    """One build per checkout, all started together; prints each K3
-    ptxas line."""
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
-            "idealnerf_tpu_torch.kernels import build; print(build.build()"
-            "['log'])")
-    procs = {k: subprocess.Popen([sys.executable, "-c", code, str(t)],
-                                 stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-             for k, t in trees.items()}
-    for k, p in procs.items():
-        log = p.communicate()[0].splitlines()
-        if p.returncode:
-            raise RuntimeError(f"{k}: build failed\n" + "\n".join(log[-60:]))
-        for i, ln in enumerate(log):
-            if "Function properties for _ZN2fr14k_render_delta" in ln:
-                print(f"{k:7s} ptxas: " + " | ".join(
-                    x.strip() for x in log[i + 1:i + 3]), flush=True)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default="")
@@ -173,19 +140,21 @@ def main(argv=None) -> int:
         print("RESULT " + json.dumps(res), flush=True)
         return 0
 
-    from idealnerf_tpu_torch.scripts import card
+    from idealnerf_tpu_torch.scripts import build_trees, card, run_worker
 
     trees = {"this": ROOT}
     if args.parent:
         trees["parent"] = Path(args.parent).resolve()
-    _build(trees)
+    build_trees(trees, ("14k_render_delta",))
     print(f"card: {card()}; K3 at {args.rays} rays, s_prev 16, 3 uniform + "
           "12 importance + plate", flush=True)
     order = ([("parent", []), ("this", []), ("this", []), ("parent", [])]
              if args.parent else []) + [("this", PLANS)]
     results, same = [], True
     for k, plans in order:
-        res = _run(trees[k], plans, args)
+        res = run_worker(str(Path(__file__).resolve()), trees[k], [
+            "--plans", json.dumps(plans), "--rays", str(args.rays), "--seed",
+            str(args.seed)])
         results.append({"tree": k, **res})
         plan_res = {lb: v for lb, v in res.items() if isinstance(v, dict)}
         same = same and all(v["bitwise_equal"] for v in plan_res.values())

@@ -1,13 +1,16 @@
-"""The delta kernel's weight stream and layer chain (kernels/fused_render.py:
-delta_weight_stream, csrc/fused_render.cu k_render_delta), on the CPU.
+"""The wgmma chain's weight stream and layer chain (kernels/fused_render.py:
+chain_weight_stream, csrc/fused_render.cu chain_mlp, which the render,
+coarse and delta kernels run), on the CPU.
 
-The kernel itself runs only on the card (chip_smoke.py phase 9 holds it
-against its plain version there). Here: the stream round-trips bitwise
-through its plain inverse, its stages lie where the kernel's header says,
-and a plain emulation of the kernel's chain (128-row tiles, one 16 KB
-stage at a time, bf16 after every relu) equals the plain MLP
-the render kernels' plain versions use. The JAX agreement of the delta
-frame as a whole is tests/test_torch_fused_render.py's.
+The kernels themselves run only on the card (chip_smoke.py phases 2 and 9
+hold them against their plain versions there). Here: the stream
+round-trips bitwise through its plain inverse, its stages lie where the
+kernels' header says, each net's stream holds that net, a plain emulation
+of the chain (128-row tiles over each block's points, one 16 KB stage at a
+time, bf16 after every relu) equals the plain MLP the kernels' plain
+versions use, and the render kernels' launch plans fit the shared memory.
+The JAX agreement of the passes as a whole is
+tests/test_torch_fused_render.py's.
 """
 
 from __future__ import annotations
@@ -61,9 +64,9 @@ def _expected_order(net: fr.PackedNet):
 def test_delta_stream_round_trips(name):
     """The plain inverse gives back every PackedNet matrix bitwise."""
     net = _packed(name)
-    stream, _ = fr.delta_weight_stream(net)
+    stream, _ = fr.chain_weight_stream(net)
     assert stream.dtype == torch.bfloat16
-    back = fr.delta_stream_matrices(stream, net)
+    back = fr.chain_stream_matrices(stream, net)
     want = {f"w{i}": w for i, w in enumerate(net.w)}
     want.update({f"wskip{i}": w for i, w in net.wskip.items()})
     want.update({f"wv{v}": w for v, w in enumerate(net.wv)})
@@ -79,7 +82,7 @@ def test_delta_stream_stages_follow_the_kernel_header(name):
     of fused_render.cu's header; the heads' stage is zero past its 12 KB;
     the paper model streams 69 stages (1.13 MB)."""
     net = _packed(name)
-    stream, order = fr.delta_weight_stream(net)
+    stream, order = fr.chain_weight_stream(net)
     assert order == _expected_order(net)
     assert stream.numel() == len(order) * fr.STAGE_ELEMS
     stage_bytes = 2 * fr.STAGE_ELEMS
@@ -112,15 +115,23 @@ def _bf16(x):
     return x.to(torch.bfloat16).to(x.dtype)
 
 
-def _emulate(stream: torch.Tensor, net: fr.PackedNet, pe, pv, tile=128):
-    """The kernel's chain in plain torch: tiles of ``tile`` rows (zeros
-    past the last point); every layer sums its products one stage (K-chunk)
-    at a time in pe's dtype, reading B from the stage's swizzled image;
-    bf16 after every relu; the skip layer's PE product first, in the same
-    sum; the heads from their one stage."""
+def _emulate(stream: torch.Tensor, net: fr.PackedNet, pe, pv, tile=128,
+             block=None):
+    """The kernel's chain in plain torch over blocks of ``block`` points
+    (all of them by default; the last block may be short): each block's
+    points in tiles of ``tile`` rows (zeros past the block's last point);
+    every layer sums its products one stage (K-chunk) at a time in pe's
+    dtype, reading B from the stage's swizzled image; bf16 after every
+    relu; the skip layer's PE product first, in the same sum; the heads
+    from their one stage."""
+    n = pe.shape[0]
+    block = block or n
+    if n > block:
+        return torch.cat([_emulate(stream, net, pe[b:b + block],
+                                   pv[b:b + block], tile)
+                          for b in range(0, n, block)])
     dt = pe.dtype
     img = stream.reshape(-1, fr.STAGE_ELEMS).to(dt)
-    n = pe.shape[0]
     pad = (-n) % tile
     pe, pv = F.pad(pe, (0, 0, 0, pad)), F.pad(pv, (0, 0, 0, pad))
     W, WV = net.w_alpha.shape[0], net.w_rgb.shape[0]
@@ -177,6 +188,12 @@ def test_tiled_emulation_matches_mlp_reference(name, n_rays, S):
     twice that distance (and 1e-3). Ragged point counts (rays straddling
     128-row tiles at S = 17, 33 and 96, one ray in a tile of zeros) and
     whole tiles (640 and 256 points) leave the valid rows unchanged."""
+    _check_emulation(name, n_rays, S, n_rays)
+
+
+def _check_emulation(name, n_rays, S, rb):
+    """The emulation over blocks of rb rays against _mlp_reference, at
+    the bounds of test_tiled_emulation_matches_mlp_reference."""
     net = _packed(name, seed=3)
     rng = np.random.RandomState(n_rays)
     n = n_rays * S
@@ -185,13 +202,139 @@ def test_tiled_emulation_matches_mlp_reference(name, n_rays, S):
     pe[:, 63:] = 0.0
     pv_ray = torch.from_numpy(rng.randn(n_rays, 128).astype(np.float32))
     pv = pv_ray.repeat_interleave(S, 0)
-    stream, _ = fr.delta_weight_stream(net)
+    stream, _ = fr.chain_weight_stream(net)
     want64 = fr._mlp_reference(net, pe.double(), pv.double())
-    got64 = _emulate(stream, net, pe.double(), pv.double())
+    got64 = _emulate(stream, net, pe.double(), pv.double(), block=rb * S)
     assert got64.shape == want64.shape == (n, 4)
     assert _rel(got64, want64) <= 1e-5, _rel(got64, want64)
-    got, want = _emulate(stream, net, pe, pv), fr._mlp_reference(net, pe, pv)
+    got = _emulate(stream, net, pe, pv, block=rb * S)
+    want = fr._mlp_reference(net, pe, pv)
     assert got.dtype == want.dtype == torch.float32
     own = _rel(want.double(), want64)
     assert _rel(got.double(), want64) <= max(2 * own, 1e-5), own
     assert _rel(got, want) <= 1e-3
+
+
+@pytest.mark.parametrize("name,n_rays,S,rb", [
+    ("paper", 8, 192, 8), ("paper", 12, 192, 12), ("paper", 19, 192, 8),
+    ("paper", 16, 64, 14), ("paper", 37, 32, 35), ("paper", 41, 16, 40),
+    ("d2-skip", 23, 64, 22), ("d2-noskip", 5, 5, 51)])
+def test_render_block_emulation_matches_mlp_reference(name, n_rays, S, rb):
+    """The chain at the render and coarse kernels' shapes: the fine pass's
+    192 depths in blocks of 8 rays (12 whole tiles) and of 12 (ring 3),
+    and 19 rays in blocks of 8, 8 and 3, whose tiles straddle rays (a ray
+    is 1.5 tiles) and whose last block ends in a part-filled tile; the
+    coarse pass's 64 depths in blocks of 14 and a short one; the 16 + 16
+    sampling's union of 32 in blocks of 35 and the coarse 16 in blocks of
+    40, each with a short last block; the non-hierarchical fine pass at 64
+    and a handful of depths. Held to _mlp_reference as the delta shapes
+    are."""
+    _check_emulation(name, n_rays, S, rb)
+
+
+def _chain_smem_bytes(rb, S, n_cdf, n_union, n_prev, ring):
+    """csrc/fused_render.cu chain_smem_bytes: 1,024 bytes of alignment,
+    the ring, two warpgroups' PE / trunk / view tiles, the mbarriers, then
+    the per-ray state, each region rounded up to 128 bytes."""
+    regions = [3, 3, 1, fr.PED_PAD, 128, S, 4 * S, S, n_cdf, n_union,
+               n_prev, n_prev]
+    state = sum(-(-4 * rb * x // 128) * 128 for x in regions)
+    tiles = 2 * 2 * 64 * (fr.PE_PAD + 256 + 128)
+    return 1024 + ring * 2 * fr.STAGE_ELEMS + tiles + 128 + state
+
+
+class _Lib:
+    """The library call the launch plans make, from the layout above."""
+
+    fr_chain_smem_bytes = staticmethod(_chain_smem_bytes)
+
+
+@pytest.mark.parametrize("S,n_imp,plan,smem", [
+    (192, 0, (12, 3), 228608), (64, 128, (20, 3), 229632),
+    (32, 0, (44, 3), 228480), (16, 16, (48, 3), 224768),
+    (64, 0, (30, 3), 231168), (5, 0, (51, 3), 205312)])
+def test_render_plans_fill_their_tiles_and_the_shared_memory(S, n_imp, plan,
+                                                             smem):
+    """The render (n_imp 0) and coarse kernels' plans: a 3-stage ring, the
+    most rays that fit beside it but for a last tile that would leave more
+    than 1/32 of the block's tile rows empty; one more ray does not fit or
+    would leave such a tile. (The card's library gave these bytes, and
+    those of the 4-stage plans, from its own layout.)"""
+    widths = fr._state_widths(S, n_imp)
+    rb, ring = fr._render_plan(_Lib(), S, *widths)
+    assert (rb, ring) == plan
+    assert _chain_smem_bytes(rb, S, *widths, 0, ring) == smem
+    assert smem <= fr.SMEM_LIMIT
+
+    def tail(r):
+        rows = -(-r * S // fr.CHAIN_TILE) * fr.CHAIN_TILE
+        return (rows - r * S) / rows
+
+    assert tail(rb) <= fr._MAX_TAIL
+    assert (_chain_smem_bytes(rb + 1, S, *widths, 0, ring) > fr.SMEM_LIMIT
+            or tail(rb + 1) > fr._MAX_TAIL)
+
+
+def test_render_plan_gives_up_ring_stages_before_it_refuses():
+    """Depths too many for one ray beside a 3-stage ring take fewer
+    stages (down to 2); more than fit beside 2 raise."""
+    rb, ring = fr._render_plan(_Lib(), 3000, 0, 0)
+    assert (rb, ring) == (1, 2)
+    assert _chain_smem_bytes(1, 3000, 0, 0, 0, ring) <= fr.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        fr._render_plan(_Lib(), 4000, 0, 0)
+
+
+def test_each_net_streams_its_own_weights():
+    """The operands a chain kernel gets from one net hold that net's
+    matrices: the coarse net's stream reads back to the coarse net and
+    not to the fine one."""
+    coarse, fine = _packed("paper", seed=1), _packed("paper", seed=2)
+    for net, other in ((coarse, fine), (fine, coarse)):
+        _, keep, ptr, n_stages = fr._chain_args(net, "cpu")
+        stream = keep[1]
+        assert ptr == stream.data_ptr() and n_stages == 69
+        back = fr.chain_stream_matrices(stream, net)
+        assert all(torch.equal(back[f"w{i}"], w) for i, w in
+                   enumerate(net.w))
+        assert torch.equal(back["w_alpha"], net.w_alpha)
+        assert not torch.equal(back["w1"], other.w[1])
+
+
+def test_render_rays_fused_hands_each_net_to_its_pass(monkeypatch):
+    """The coarse kernel gets the coarse net and the fine kernel the fine
+    one, in the hierarchical branch and the plain-sampler one (lindisp),
+    where both passes are fine-kernel launches."""
+    cfg = ExperimentConfig(dim_aud=16, dim_expr=8, dim_latent=4,
+                           netdepth=2, netwidth=64)
+    ncfg = cfg.face_nerf_config()
+    gen = torch.Generator().manual_seed(0)
+    nets = {k: FaceNeRF(ncfg, gen) for k in ("coarse", "fine")}
+    cond = (torch.ones(16), torch.ones(8), torch.ones(4))
+    with torch.no_grad():
+        folded = {k: fold_conditioning(m, ncfg, *cond)
+                  for k, m in nets.items()}
+    seen = []
+    for name in ("fused_render_coarse_hier", "fused_render_rays"):
+        real = getattr(fr, name)
+
+        def spy(params, *a, _real=real, _name=name, **kw):
+            seen.append((_name, params))
+            return _real(params, *a, **kw)
+
+        monkeypatch.setattr(fr, name, spy)
+    rng = np.random.RandomState(0)
+    ro = torch.from_numpy(np.tile([[0.0, 0.0, 1.5]], (4, 1)).astype(
+        np.float32))
+    rd = torch.from_numpy((rng.randn(4, 3) * 0.08 + [0, 0, -1]).astype(
+        np.float32))
+    bc = torch.from_numpy(rng.uniform(0, 1, (4, 3)).astype(np.float32))
+    with torch.no_grad():
+        for lindisp, first in ((False, "fused_render_coarse_hier"),
+                               (True, "fused_render_rays")):
+            seen.clear()
+            fr.render_rays_fused(nets["coarse"], folded["coarse"], ncfg, ro,
+                                 rd, bc, 0.6, 1.2, 8, 8, nets["fine"],
+                                 folded["fine"], lindisp=lindisp)
+            assert seen == [(first, nets["coarse"]),
+                            ("fused_render_rays", nets["fine"])]
