@@ -36,9 +36,24 @@ non-zero and no result line is printed):
    host must agree (3e-2, correlation > 0.999).
 5. torch.profiler over one 450x450 frame: wall and device-busy time and
    the kernels by device time (full table in chiprun_out/).
-6. the fused point MLP kernel against its plain version at ``--points``
-   points (the training step's 2048 x (64 + 192)) and at a ragged 1,001:
-   3e-2 absolute and a correlation above 0.999 per output lane; timed.
+6. the fused point MLP (K4, on the wgmma chain like K1-K3, as is K5):
+   both point kernels' ptxas lines and the HGMMA instructions in their
+   SASS; K4 against its plain version at the training step's coarse and
+   fine passes (131,072 and 393,216 points), at ``--points`` (both passes,
+   524,288), at a ragged 1,001 and at one point: 3e-2 absolute and a
+   correlation above 0.999 per output lane (one point: the bound alone).
+   Each case's launch plan (``fused_mlp.point_launch_config``: tiles per
+   block, blocks, shared memory, ring) is printed, and two launches and a
+   second plan (half the tiles per block, ring 3) must be bitwise equal.
+   Timed at ``--points`` through ``fused_point_mlp``, which packs the net
+   on every call (the ``kernels`` line's ``ms``, as K1/K2's in phase 2),
+   with the host ms of each timed call, beside its plain version
+   (``plain_ms``); the last timed launch is held bitwise against the first
+   and, at the tolerances above, against the plain version. Then through
+   ``point_mlp`` on a packed net (weight stream + launch) with its host ms
+   and the profiled device time of one call, and a yardstick the port
+   never calls: the same points' MLP as bf16 ``torch.addmm`` calls with
+   the dir-PE product per point (``library_ms``).
 7. the gradient kernel, f32 and bf16 variants, through the training
    autograd Function against its plain version (explicit backward in
    torch ops) and against f32 autograd of the plain MLP (TF32 off), per
@@ -107,6 +122,9 @@ non-zero and no result line is printed):
    alone at other launch plans and on one wave of blocks over all and
    half the SMs: every plan's outputs must be bitwise equal to the
    wrapper's and each worker's launch counters equal to its wrapper calls.
+   Then ``idealnerf_tpu_torch.scripts.kpoint`` likewise for K4 at 524,288
+   points and K5 at 2^21 (ring depths, tiles per block). K5's
+   ``library_ms`` is the torch.addmm yardstick on kdiag2's own encodings.
 
 Then the kernel summary as one JSON line (each kernel's launches on its
 path, its max error, its time and its plain version's, and its bound: the
@@ -137,6 +155,7 @@ GRAD_TOL = {"f32": {"plain": 1e-4, "autograd": 1e-4},
 COND_TOL = 0.05
 PASS_B_TOL = 1e-4
 FINE_POINTS = 2048 * 192  # the training step's fine pass
+STEP_POINTS = (2048 * 64, FINE_POINTS)  # its coarse and fine passes
 KERNELS = {
     "fused_render_coarse_hier": {
         "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
@@ -148,7 +167,7 @@ KERNELS = {
     },
     "fused_point_mlp": {
         "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp.cu",
-        "replaces": "idealnerf_tpu/kernels/fused_mlp.py:223",
+        "replaces": "idealnerf_tpu/kernels/fused_mlp.py:289",
     },
     "fused_point_mlp_grad": {
         "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp_grad.cu",
@@ -364,13 +383,38 @@ def _delta_split(s_delta: int):
     return s_uni, n_in - s_uni
 
 
+def _addmm_mlp(packed):
+    """The yardsticks' MLP as bf16 torch.addmm calls, bias in the call and
+    relu in place: (pe, view-layer-0 term pv) -> raw (n, HEADS), the trunk
+    with the skip layer's PE product, the view branch, the heads."""
+    import torch
+
+    bf = torch.bfloat16
+    b = [x.to(bf) for x in packed.b]
+    bv = [x.to(bf) for x in packed.bv]
+    bh = packed.b_heads.to(bf)
+
+    def mlp(pe, pv):
+        h = torch.addmm(b[0], pe, packed.w[0]).relu_()
+        for i in range(1, len(packed.w)):
+            acc = b[i]
+            if i in packed.wskip:
+                acc = torch.addmm(acc, pe, packed.wskip[i])
+            h = torch.addmm(acc, h, packed.w[i]).relu_()
+        hv = torch.addmm(pv, h, packed.wv[0]).relu_()
+        for v in range(1, len(packed.wv)):
+            hv = torch.addmm(bv[v], hv, packed.wv[v]).relu_()
+        return torch.addmm(torch.addmm(bh, h, packed.w_alpha), hv,
+                           packed.w_rgb)
+    return mlp
+
+
 def _mlp_library_ms(fr, packed, o, d, z, chunk: int = 1 << 22) -> float:
     """The ray kernels' yardstick, timed only (the port never calls it):
     the field MLP of the R x S points of rays o, d at depths z as bf16
-    torch.addmm calls on chunks of whole rays of at most ``chunk`` points,
-    bias in the call and relu in place: the trunk with the skip layer's PE
-    product, the view branch with its per-ray term expanded per point, the
-    heads. The encodings are made before the timing."""
+    torch.addmm calls (_addmm_mlp) on chunks of whole rays of at most
+    ``chunk`` points, the view branch's per-ray term expanded per point.
+    The encodings are made before the timing."""
     import torch
     import torch.nn.functional as F
 
@@ -391,22 +435,7 @@ def _mlp_library_ms(fr, packed, o, d, z, chunk: int = 1 << 22) -> float:
         parts.append((F.pad(pe, (0, fr.PE_PAD - pe.shape[1])).to(bf),
                       pv[s:s + step].repeat_interleave(S, 0)))
         del pts, pe
-    b = [x.to(bf) for x in packed.b]
-    bv = [x.to(bf) for x in packed.bv]
-    bh = packed.b_heads.to(bf)
-
-    def mlp(pe, pv):
-        h = torch.addmm(b[0], pe, packed.w[0]).relu_()
-        for i in range(1, len(packed.w)):
-            acc = b[i]
-            if i in packed.wskip:
-                acc = torch.addmm(acc, pe, packed.wskip[i])
-            h = torch.addmm(acc, h, packed.w[i]).relu_()
-        hv = torch.addmm(pv, h, packed.wv[0]).relu_()
-        for v in range(1, len(packed.wv)):
-            hv = torch.addmm(bv[v], hv, packed.wv[v]).relu_()
-        return torch.addmm(torch.addmm(bh, h, packed.w_alpha), hv,
-                           packed.w_rgb)
+    mlp = _addmm_mlp(packed)
 
     def run():
         for pe, pv in parts:
@@ -415,6 +444,25 @@ def _mlp_library_ms(fr, packed, o, d, z, chunk: int = 1 << 22) -> float:
     ms = _time_ms(run, 3)
     del parts
     return ms
+
+
+def _point_library_ms(packed, pe, ped, chunk: int = 1 << 22) -> float:
+    """The point kernels' yardstick, timed only (the port never calls it):
+    the MLP of the points of the bf16 encodings pe (N, PE_PAD) and ped (N,
+    PED_PAD) as bf16 torch.addmm calls (_addmm_mlp) on chunks of at most
+    ``chunk`` points, view layer 0's dir-PE product per point (bv[0] +
+    ped @ wv0d) one more torch.addmm."""
+    import torch
+
+    mlp = _addmm_mlp(packed)
+    bv0 = packed.bv[0].to(torch.bfloat16)
+
+    def run():
+        for s in range(0, pe.shape[0], chunk):
+            mlp(pe[s:s + chunk],
+                torch.addmm(bv0, ped[s:s + chunk], packed.wv0d))
+
+    return _time_ms(run, 3)
 
 
 def _hgmma_counts(so_path: str, names) -> dict:
@@ -766,23 +814,98 @@ def _grads_of(train_fn, model, folded_fn, cond, pts, dirs, w):
     return grads, [x.grad.detach().clone() for x in c]
 
 
-def _phase_point_mlp(fm, net, folded, ncfg, pts, dirs) -> dict:
-    print("phase 6 fused point MLP vs plain version")
-    err = 0.0
-    for n in (pts.shape[0], 1001):
-        got = fm.fused_point_mlp(net, folded, ncfg, pts[:n], dirs[:n])
-        want = fm.fused_point_mlp_reference(net, folded, ncfg, pts[:n],
-                                            dirs[:n])
-        for c in range(4):
-            err = max(err, _agree(f"N={n} raw[:, {c}]", got[:, c],
-                                  want[:, c], corr=True))
+def _phase_point_mlp(fm, fr, net, folded, ncfg, pts, dirs, ptxas,
+                     so_path) -> dict:
+    """Phase 6: K4's (and K5's) ptxas lines and HGMMA counts; K4 against its
+    plain version at the training step's coarse and fine passes, at
+    ``pts``' size and ragged, each case's two launches and another plan
+    bitwise equal; then timed at ``pts``' size beside its plain version and
+    the torch.addmm yardstick, the last timed launch held bitwise against
+    the first."""
+    import torch
+
+    print("phase 6 fused point MLP (K4) vs plain version")
+    names = ("11k_point_mlp", "14k_point_mlp_pe")
+    for i, ln in enumerate(ptxas):
+        if any(f"Function properties for _ZN2fr{k}" in ln for k in names):
+            print("  ptxas: " + " | ".join(ptxas[i:i + 3]))
+    hgmma = _hgmma_counts(so_path, names)
+    print(f"  HGMMA instructions in the SASS: {hgmma}")
+    if not all(hgmma[k] > 0 for k in names):
+        raise AssertionError(f"a point kernel has no HGMMA: {hgmma}")
+    packed = fr.pack_operands(net, folded, ncfg)
     n = pts.shape[0]
-    ms = _time_ms(lambda: fm.fused_point_mlp(net, folded, ncfg, pts, dirs), 5)
-    pms = _time_ms(lambda: fm.fused_point_mlp_reference(net, folded, ncfg,
-                                                        pts, dirs), 2)
-    print(f"  fused_point_mlp at N={n}: kernel {ms:.3f} ms, plain "
-          f"{pms:.3f} ms (wrapper calls, CUDA events)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+    sizes = sorted({m for m in (*STEP_POINTS, n) if m <= n}, reverse=True)
+    err, first = 0.0, None
+    for m in sizes + [1001, 1]:
+        p, d = pts[:m], dirs[:m]
+        lc = fm.point_launch_config(m)
+        got = fm.fused_point_mlp(net, folded, ncfg, p, d)
+        again = fm.fused_point_mlp(net, folded, ncfg, p, d)
+        plan = (max(1, lc["tiles_per_block"] // 2), 3)
+        other = fm.launch_point_kernel(packed, p, d, False, plan)
+        want = fm.fused_point_mlp_reference(net, folded, ncfg, p, d)
+        same = torch.equal(got, again) and torch.equal(got, other)
+        print(f" fused_point_mlp N={m}: {lc['tiles_per_block']} tiles x "
+              f"{lc['blocks']} blocks, {lc['smem_bytes']} bytes of shared "
+              f"memory, a ring of {lc['ring_stages']} stages of "
+              f"{lc['stage_bytes']} bytes; two launches and the plan of "
+              f"{plan[0]} tiles per block, ring {plan[1]}, bitwise equal: "
+              f"{same}")
+        if not same:
+            raise AssertionError("K4's launches or plans differ")
+        # one point has no correlation: N = 1 is held to the bound alone
+        for c in range(4):
+            err = max(err, _agree(f"N={m} raw[:, {c}]", got[:, c],
+                                  want[:, c], corr=m > 1))
+        if m == n:
+            first = got
+        del got, again, other, want
+    torch.cuda.synchronize()
+    # the kernels line's span, as the parent's: the wrapper that packs the
+    # net on every call (as K1/K2's in phase 2), and its plain version
+    last, host, point_host = {}, [], []
+    ms = _time_ms(lambda: last.update(k=fm.fused_point_mlp(
+        net, folded, ncfg, pts, dirs)), 5, host)
+    pms = _time_ms(lambda: last.update(p=fm.fused_point_mlp_reference(
+        net, folded, ncfg, pts, dirs)), 2)
+    same = torch.equal(first, last["k"])
+    print(f"  N={n}: the last timed launch bitwise equal to the first: "
+          f"{same}; against the plain version:")
+    if not same:
+        raise AssertionError("a timed K4 launch differs from the first")
+    for c in range(4):
+        err = max(err, _agree(f"N={n} timed raw[:, {c}]", last["k"][:, c],
+                              last["p"][:, c], corr=True))
+    del last, first
+    # beside it: the kernel on a packed net (weight stream + launch), its
+    # host ms and the profiled device time of one call
+    point_ms = _time_ms(lambda: fm.point_mlp(packed, pts, dirs), 5,
+                        point_host)
+    dms = _device_ms(lambda: fm.point_mlp(packed, pts, dirs), "k_point_mlp")
+    pe, ped = (x.to(torch.bfloat16).contiguous()
+               for x in fm.encode_points(packed, pts, dirs))
+    lib = _point_library_ms(packed, pe, ped)
+    del pe, ped
+    bnd = _point_bound(ncfg, n, 1, False)
+    pt, ray = _mlp_macs(ncfg)
+    flops = 2.0 * n * (pt + ray)
+    print(f"  fused_point_mlp at N={n}: {ms:.3f} ms through fused_point_mlp "
+          "(packs the net every call; host ms per timed call "
+          + ", ".join(f"{h:.2f}" for h in host) + f"), plain {pms:.3f} ms; "
+          f"through point_mlp on a packed net {point_ms:.3f} ms "
+          f"({flops / point_ms / 1e9:.1f} TFLOP/s, "
+          f"{100 * bnd['bound_ms'] / point_ms:.1f} % of the bound; host ms "
+          "per timed call " + ", ".join(f"{h:.2f}" for h in point_host)
+          + f"), profiled device time of one call {dms:.3f} ms "
+          f"({100 * bnd['bound_ms'] / dms:.1f} % of the bound); torch.addmm "
+          f"chain of the MLP {lib:.3f} ms (yardstick, timed only); bound "
+          f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']} (CUDA events)")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "library_ms": lib, "host_ms": host, "point_mlp_ms": point_ms,
+            "point_mlp_host_ms": point_host, "device_ms": dms,
+            "hgmma": hgmma, "tflops": flops / point_ms / 1e9, **bnd}
 
 
 def _grad_checks(fmg, tag, gd, ncfg, net, cond, pts, dirs, ref, ref_c, w):
@@ -1217,6 +1340,9 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
     # depths; each beside its plain version's time from the same run
     mid, S = slope[0], 192
     pt, ray = _mlp_macs(pcfg)
+    # K5's yardstick on kdiag2's own encodings (rung v3's inputs)
+    k5_lib = _point_library_ms(net, *kdiag2.inputs(net, big, dev)[:2])
+    torch.cuda.empty_cache()
     wb = _weight_bytes(pcfg)
     ops = 2.0 * rays * (S * pt + ray)
     raw_bytes = rays * S * 16.0
@@ -1256,7 +1382,7 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
             runs["kdiag2"]["v3"], launches["kdiag2"]["fused_point_mlp_pe"],
             _bound(2.0 * big * (pt + ray),
                    wb + big * (2.0 * (fr.PE_PAD + fr.PED_PAD) + 16)),
-            _worst(runs["kdiag2"], ("v3",))),
+            _worst(runs["kdiag2"], ("v3",)), k5_lib),
         "kdiag3_render_a": entry(
             k3[f"A S={S}"], launches["kdiag3"]["kdiag_render_a"],
             _bound(ops, rays * (S * 2.0 * fr.PE_PAD + 2.0 * fr.PED_PAD)
@@ -1297,6 +1423,25 @@ def _phase_kframe() -> list:
     res = kframe.main([])
     if not res["ok"]:
         raise AssertionError("kframe: a plan's outputs differ from the "
+                             "wrapper's or a launch count from its calls")
+    return res["results"]
+
+
+def _phase_kpoint() -> list:
+    """Phase 11e: scripts.kpoint, K4 and K5 through their wrappers and
+    alone at other launch plans; every plan's output bitwise equal to the
+    wrapper's and each worker's launch counters equal to its wrapper
+    calls."""
+    import torch
+
+    from idealnerf_tpu_torch.scripts import kpoint
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print("phase 11 kpoint.main()")
+    res = kpoint.main([])
+    if not res["ok"]:
+        raise AssertionError("kpoint: a plan's output differs from the "
                              "wrapper's or a launch count from its calls")
     return res["results"]
 
@@ -1498,7 +1643,8 @@ def main(argv=None) -> int:
     # ---- phases 6 and 7: the training kernels at the step's shapes; the
     # points lie on the phase-2 rays at uniform depths in [near, far]
     pts, dirs = _points(ro, rd, near, far, args.points)
-    res6 = _phase_point_mlp(fm, nets["fine"], ff, ncfg, pts, dirs)
+    res6 = _phase_point_mlp(fm, fr, nets["fine"], ff, ncfg, pts, dirs, ptxas,
+                            info["path"])
     res7 = _phase_grad(nets["coarse"], ncfg, (aud, expr, latent), pts, dirs,
                       ptxas)
     report.update(point_mlp=res6, point_mlp_grad=res7)
@@ -1537,6 +1683,7 @@ def main(argv=None) -> int:
     del pts, dirs
     torch.cuda.empty_cache()
     report["kframe"] = _phase_kframe()
+    report["kpoint"] = _phase_kpoint()
 
     counts.update(res8["launches"])
     counts["fused_render_delta"] = (
@@ -1553,7 +1700,7 @@ def main(argv=None) -> int:
     bounds = {
         **{k: {f: r[f] for f in ("bound_ms", "bound_by")}
            for k, r in frame_res.items()},
-        "fused_point_mlp": _point_bound(ncfg, args.points, 1, False),
+        "fused_point_mlp": {k: res6[k] for k in ("bound_ms", "bound_by")},
         "fused_point_mlp_grad": _point_bound(ncfg, args.points, 3, True),
         "fused_render_delta": {k: res9[k] for k in ("bound_ms", "bound_by")},
     }
@@ -1564,6 +1711,7 @@ def main(argv=None) -> int:
                    "ms": times[k][0], "plain_ms": times[k][1], **bounds[k],
                    "library_ms": None} for k in times}
     entries["fused_render_delta"]["library_ms"] = res9["library_ms"]
+    entries["fused_point_mlp"]["library_ms"] = res6["library_ms"]
     for k, r in frame_res.items():
         entries[k]["library_ms"] = r["library_ms"]
     entries.update(probes["entries"])

@@ -131,12 +131,13 @@ def load_library() -> ctypes.CDLL:
     for fn in (lib.fr_stage_bytes, lib.fr_max_ring):
         fn.argtypes = []
         fn.restype = i32
-    lib.fr_point_mlp_smem_bytes.argtypes = []
-    lib.fr_point_mlp_smem_bytes.restype = ctypes.c_ulonglong
-    lib.fr_point_mlp.argtypes = [vp, vp, vp, i32, slots, i32, i32, i32, i32,
-                                 vp]
+    lib.fr_point_smem_bytes.argtypes = [i32]
+    lib.fr_point_smem_bytes.restype = ctypes.c_ulonglong
+    lib.fr_point_mlp.argtypes = [vp, vp, vp, i32, i32, slots, i32, i32, i32,
+                                 i32, vp, i32, i32, vp]
     lib.fr_point_mlp.restype = i32
-    lib.fr_point_mlp_pe.argtypes = [vp, vp, vp, i32, slots, i32, i32, vp]
+    lib.fr_point_mlp_pe.argtypes = [vp, vp, vp, i32, i32, slots, i32, i32, vp,
+                                    i32, i32, vp]
     lib.fr_point_mlp_pe.restype = i32
     lib.kd_chain.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.kd_chain.restype = i32

@@ -16,7 +16,8 @@
 //              production trunk without the skip's pe-part, then with it,
 //              then with the view branch, on the production operand table.
 //              Rungs v3 and v4 are the production kernels K5 and K4
-//              (fused_mlp.cu), which kernels/kdiag.py launches for them.
+//              (fused_mlp.cu, on the wgmma chain since they left the wmma
+//              body), which kernels/kdiag.py launches for them.
 // kd_render_a  replaces scripts/kdiag3.py (kernel_A, :269): the ray-organised
 //              MLP from a given (R*S, 64) bf16 xyz-PE and a per-ray (R, 32)
 //              dir-PE -> raw (R, S*4), no compositing.
@@ -27,12 +28,12 @@
 //
 // What bounds them on the card: tensor-core work (f32: the CUDA cores). A
 // chain row costs 8 x 65,536 MACs against 512-1,536 bytes in and out. Each
-// probe is built from the production inner loop (render_body.cuh): a
-// block of 8 warps owns a tile of rows whose activations ping-pong between
-// two shared-memory buffers; weights are read per layer from global memory
-// (L2-resident) as wmma fragments; each accumulator fragment goes through a
-// per-warp f32 scratch for the epilogue. So a probe's time against the
-// production kernels' says which part of them costs what.
+// probe is built from the wmma body the production kernels ran before the
+// wgmma chain (render_body.cuh): a block of 8 warps owns a tile of rows
+// whose activations ping-pong between two shared-memory buffers; weights
+// are read per layer from global memory (L2-resident) as wmma fragments;
+// each accumulator fragment goes through a per-warp f32 scratch for the
+// epilogue. So a probe's time says which part of that body cost what.
 #include "render_body.cuh"
 
 namespace fr {
@@ -278,17 +279,41 @@ k_chain_f32(const float* __restrict__ x, const float* __restrict__ w,
   store_rows(out + static_cast<size_t>(r0) * W, h, W, n, 1, tid);
 }
 
+// The ladder's shared memory: the PE tile, the two activation buffers,
+// the epilogue scratch and the per-point dir-PE tile.
+__host__ __device__ inline size_t ladder_smem_layout(char* base, Smem* sm) {
+  const size_t sz[5] = {sizeof(bf16) * P * PE_PAD, sizeof(bf16) * P * W,
+                        sizeof(bf16) * P * W, sizeof(float) * NWARP * 256,
+                        sizeof(bf16) * P * PED_PAD};
+  size_t off[5];
+  size_t total = 0;
+  for (int i = 0; i < 5; ++i) {
+    off[i] = total;
+    total += (sz[i] + 127) & ~static_cast<size_t>(127);
+  }
+  if (sm != nullptr) {
+    *sm = Smem{};
+    sm->pe = reinterpret_cast<bf16*>(base + off[0]);
+    sm->h0 = reinterpret_cast<bf16*>(base + off[1]);
+    sm->h1 = reinterpret_cast<bf16*>(base + off[2]);
+    sm->scr = reinterpret_cast<float*>(base + off[3]);
+    sm->ped_tile = reinterpret_cast<bf16*>(base + off[4]);
+  }
+  return total;
+}
+
 // The ladder's rungs v0-v2 on one tile of P points with the given PE in
-// sm.pe (and, for v2, the dir-PE in sm.ped_tile): mlp_core's trunk without
-// (STAGE 0) or with (STAGE >= 1) the skip layer's pe-part, then (STAGE 2)
-// its view branch; the last activation (W or WV wide, bf16) goes out.
+// sm.pe (and, for v2, the dir-PE in sm.ped_tile): the wmma body's trunk
+// without (STAGE 0) or with (STAGE >= 1) the skip layer's pe-part, then
+// (STAGE 2) its view branch; the last activation (W or WV wide, bf16) goes
+// out.
 template <int STAGE>
 __global__ void __launch_bounds__(NTHREADS, 2)
 k_mlp_ladder(Net net, const bf16* __restrict__ pe,
              const bf16* __restrict__ ped, bf16* __restrict__ out, int N) {
   extern __shared__ __align__(128) char smem[];
   Smem sm;
-  point_smem_layout(smem, &sm);
+  ladder_smem_layout(smem, &sm);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int p0 = blockIdx.x * P;
   const int n = min(P, N - p0);
@@ -441,7 +466,7 @@ cudaError_t launch_rows(int rows_per_block, const void* x, const void* w,
 template <int STAGE>
 cudaError_t launch_ladder(const Net& net, const void* pe, const void* ped,
                           void* out, int N, cudaStream_t st) {
-  const size_t bytes = point_smem_layout(nullptr, nullptr);
+  const size_t bytes = ladder_smem_layout(nullptr, nullptr);
   cudaError_t err = prepare(k_mlp_ladder<STAGE>, bytes);
   if (err != cudaSuccess) return err;
   k_mlp_ladder<STAGE><<<(N + P - 1) / P, NTHREADS, bytes, st>>>(

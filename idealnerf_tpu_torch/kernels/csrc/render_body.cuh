@@ -1,10 +1,9 @@
 // Shared device body of the fused kernels (fused_render.cu, fused_mlp.cu,
-// fused_mlp_grad.cu) and of the probes built from them (kdiag.cu): PE from
-// ray packets or from points -> 8x256 trunk with
-// the skip layer -> view branch with a per-ray or per-point dir-PE term ->
-// packed heads -> alpha compositing, plus the inverse-CDF depth placement
-// that the coarse and delta kernels run and the delta kernel's foreground
-// band epilogue.
+// fused_mlp_grad.cu) and of the probes built from them (kdiag.cu): the
+// operand table, PE lanes, the per-ray set-up, alpha compositing, the
+// inverse-CDF depth placement that the coarse and delta kernels run and
+// the delta kernel's foreground band epilogue, and the wmma MLP body that
+// the kdiag.cu probes run.
 //
 // Numeric contract (the same as the JAX package's Pallas kernels,
 // idealnerf_tpu/kernels/fused_render.py:_render_body):
@@ -18,12 +17,15 @@
 // Ray blocks own whole rays, so compositing and the depth placement never
 // leave the block and each ray's outputs are written by exactly one block.
 // The per-ray code here (load_rays, composite, the depth placement, the
-// band) is the ray kernels' of fused_render.cu, which run their field MLP
-// on their own wgmma chain.
+// band) is the ray kernels' of fused_render.cu. Every production forward
+// kernel (K1-K3 there, K4 and K5 in fused_mlp.cu) runs its field MLP on
+// the wgmma chain of chain.cuh; the gradient kernel's pass A
+// (fused_mlp_grad.cu) has a wmma recompute of its own.
 //
-// The wmma body (mlp_core: the point kernels of fused_mlp.cu and the
-// probes of kdiag.cu): one block of 8 warps walks its points in tiles of
-// P=64 rows. A tile's activations live in shared memory (two 64x256 bf16
+// The wmma body (mma_k, store_relu, mlp_core, mlp_tile) now serves only
+// the kdiag.cu probes, which time it as the production kernels ran it
+// before the chain: one block of 8 warps walks its points in tiles of P=64
+// rows. A tile's activations live in shared memory (two 64x256 bf16
 // buffers, ping-pong); layer weights are read per layer from global memory
 // (about 1 MB in bf16: L2-resident, larger than the 227 KB of shared
 // memory). Products are nvcuda::wmma bf16 16x16x16 fragments with f32
@@ -96,8 +98,7 @@ struct Smem {
   float* uni;    // (rb, n_union) coarse and delta kernels: unsorted union
   float* zp;     // (rb, n_prev) delta kernel only: previous frame's depths
   float* wp;     // (rb, n_prev) delta kernel only: previous frame's weights
-  bf16* ped_tile;  // (P, PED_PAD) per-point dir-PE (point kernel only; the
-                   // ray kernels add the per-ray term pv instead)
+  bf16* ped_tile;  // (P, PED_PAD) per-point dir-PE (kdiag.cu's ladder only)
 };
 
 // Byte layout of the dynamic shared memory of the wmma ray blocks (the
@@ -132,29 +133,6 @@ __host__ __device__ inline size_t smem_layout(char* base, int rb, int S,
     sm->z = reinterpret_cast<float*>(base + off[9]);
     sm->raw = reinterpret_cast<float*>(base + off[10]);
     sm->w = reinterpret_cast<float*>(base + off[11]);
-  }
-  return total;
-}
-
-// Layout of the point kernel (fused_mlp.cu): the PE tile, the two
-// activation buffers, the epilogue scratch and the per-point dir-PE tile.
-__host__ __device__ inline size_t point_smem_layout(char* base, Smem* sm) {
-  const size_t sz[5] = {sizeof(bf16) * P * PE_PAD, sizeof(bf16) * P * W,
-                        sizeof(bf16) * P * W, sizeof(float) * NWARP * 256,
-                        sizeof(bf16) * P * PED_PAD};
-  size_t off[5];
-  size_t total = 0;
-  for (int i = 0; i < 5; ++i) {
-    off[i] = total;
-    total += (sz[i] + 127) & ~static_cast<size_t>(127);
-  }
-  if (sm != nullptr) {
-    *sm = Smem{};
-    sm->pe = reinterpret_cast<bf16*>(base + off[0]);
-    sm->h0 = reinterpret_cast<bf16*>(base + off[1]);
-    sm->h1 = reinterpret_cast<bf16*>(base + off[2]);
-    sm->scr = reinterpret_cast<float*>(base + off[3]);
-    sm->ped_tile = reinterpret_cast<bf16*>(base + off[4]);
   }
   return total;
 }
@@ -280,10 +258,9 @@ static __device__ void load_rays(const Net& net, const Smem& sm,
 }
 
 // The MLP of one tile whose PE is in sm.pe: trunk -> view branch -> heads.
-// View layer 0 adds `view_bias` (per column, or per ray with bias_ld != 0)
-// and, when sm.ped_tile is set, the per-point product ped @ wv0d in its
-// accumulator. Row p of the tile writes raw[(tile_base + p) * 4 + 0..3]
-// if tile_base + p < n_pts.
+// View layer 0 adds `view_bias` (per column, or per ray with bias_ld != 0).
+// Row p of the tile writes raw[(tile_base + p) * 4 + 0..3] if tile_base + p
+// < n_pts.
 static __device__ void mlp_core(const Net& net, const Smem& sm,
                                 const float* view_bias, int bias_ld,
                                 int tile_base, int n_pts, int S, int rb,
@@ -320,9 +297,6 @@ static __device__ void mlp_core(const Net& net, const Smem& sm,
     FragC acc[1][RT];
     zero<1>(acc);
     mma_k<1>(acc, h, W, W, wmat(net, SLOT_WV), WV, warp);
-    if (sm.ped_tile != nullptr)
-      mma_k<1>(acc, sm.ped_tile, PED_PAD, PED_PAD, wmat(net, SLOT_WV0D), WV,
-               warp);
     store_relu<1>(acc, hv, WV, view_bias, bias_ld, tile_base, S, rb, scr,
                   warp, lane);
   }

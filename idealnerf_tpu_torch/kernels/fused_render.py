@@ -361,74 +361,89 @@ def swizzle_image_index(rows: int, lanes: int) -> torch.Tensor:
             + ((((f >> 3) & 7) ^ (r & 7)) << 3) + (f & 7))
 
 
-def _stream_parts(net: PackedNet):
+def _stream_parts(net: PackedNet, dir_stage: bool = False):
     """The chain's weight stream as (name, matrix (K, N), K-rows per
-    stage) in the order the kernel consumes it (csrc/fused_render.cu, note
-    at the top); the heads are one stage of their own."""
+    stage) in the order the kernel consumes it (csrc/chain.cuh, note at
+    the top); with ``dir_stage`` (the point kernels) view layer 0's dir-PE
+    part follows its h-part, as one stage whose rows past PED_PAD are
+    zero. The heads are one stage of their own."""
     parts = [("w0", net.w[0], _KC_W)]
     for i in range(1, len(net.w)):
         if i in net.wskip:
             parts.append((f"wskip{i}", net.wskip[i], _KC_W))
         parts.append((f"w{i}", net.w[i], _KC_W))
-    parts += [(f"wv{v}", x, _KC_V) for v, x in enumerate(net.wv)]
-    return parts
+    parts.append(("wv0", net.wv[0], _KC_V))
+    if dir_stage:
+        parts.append(("wv0d", net.wv0d, _KC_V))
+    return parts + [(f"wv{v}", x, _KC_V) for v, x in enumerate(net.wv)
+                    if v]
 
 
 @functools.lru_cache(maxsize=16)
 def _stream_layout(shapes, heads, device: str):
-    """(destination of every source element in the stream, stage order)
-    for stream parts of the given (name, K, N, K-rows per stage) and
-    heads widths: the source is the parts' matrices flattened row-major,
-    then w_alpha^T and w_rgb^T. Built once per net shape and device."""
+    """(gather, zero, stage order) for stream parts of the given (name, K,
+    N, K-rows per stage) and heads widths: stream element e is source
+    element gather[e], where the source is the parts' matrices flattened
+    row-major, then w_alpha and w_rgb (row-major, (K, HEADS)), then
+    ``zero`` (one bf16 zero), which every element outside the matrices
+    takes (a part's rows past K in its last stage, the heads' stage past
+    12 KB). Built once per net shape and device."""
     dst, order, q = [], [], 0
     for name, k, n, kr in shapes:
-        if k % kr or n * kr != STAGE_ELEMS:
+        if n * kr != STAGE_ELEMS:
             raise ValueError(f"weight stream: {name} ({k}, {n}) does not cut "
                              f"into {kr}-row stages")
-        idx = swizzle_image_index(kr, n).reshape(1, -1)
-        base = (q + torch.arange(k // kr))[:, None] * STAGE_ELEMS
-        dst.append((base + idx).reshape(-1))
+        idx = swizzle_image_index(kr, n)
+        rows = torch.arange(k)
+        dst.append(((q + rows // kr) * STAGE_ELEMS)[:, None] + idx[rows % kr])
         order += [(name, k0) for k0 in range(0, k, kr)]
-        q += k // kr
-    ia = swizzle_image_index(HEADS, heads[0]).reshape(-1)
-    ir = swizzle_image_index(HEADS, heads[1]).reshape(-1)
-    dst += [q * STAGE_ELEMS + ia, q * STAGE_ELEMS + ia.numel() + ir]
+        q += -(-k // kr)
+    for i, width in enumerate(heads):
+        # w_alpha^T (16 x W) then w_rgb^T (16 x WV), K-major, in one stage
+        img = swizzle_image_index(HEADS, width) + i * HEADS * heads[0]
+        dst.append(q * STAGE_ELEMS + img.T)
     order.append(("heads", 0))
-    return torch.cat(dst).to(device), tuple(order)
+    dst = torch.cat([d.reshape(-1) for d in dst])
+    gather = torch.full((len(order) * STAGE_ELEMS,), dst.numel(),
+                        dtype=torch.long)
+    gather[dst] = torch.arange(dst.numel())
+    return (gather.to(device), torch.zeros(1, dtype=torch.bfloat16,
+                                           device=device), tuple(order))
 
 
-def chain_weight_stream(net: PackedNet):
+def chain_weight_stream(net: PackedNet, dir_stage: bool = False):
     """PackedNet -> (stream, order): the bf16 weights of the chain kernels'
     field MLP as (n_stages * STAGE_ELEMS,) on the weights' device, each
     16 KB stage in its swizzled shared-memory image so that one bulk copy
     fills a stage, and the (name, first K-row) of every stage. Matrices of
     K-rows x N lanes are MN-major (32 K-rows of 256 lanes, 64 of 128); the
     heads' stage holds w_alpha^T (16 x 256) then w_rgb^T (16 x 128),
-    K-major. One concatenation and one scatter per call."""
-    parts = _stream_parts(net)
+    K-major. ``dir_stage`` adds view layer 0's dir-PE part (the point
+    kernels' stream). One concatenation and one gather per call."""
+    parts = _stream_parts(net, dir_stage)
     dev = net.w[0].device
-    dst, order = _stream_layout(
+    gather, zero, order = _stream_layout(
         tuple((name, *m.shape, kr) for name, m, kr in parts),
         (net.w_alpha.shape[0], net.w_rgb.shape[0]), str(dev))
     src = torch.cat([m.reshape(-1) for _, m, _ in parts]
-                    + [net.w_alpha.T.reshape(-1), net.w_rgb.T.reshape(-1)])
-    out = torch.zeros(len(order) * STAGE_ELEMS, dtype=torch.bfloat16,
-                      device=dev)
-    out[dst] = src.to(torch.bfloat16)
-    return out, list(order)
+                    + [net.w_alpha.reshape(-1), net.w_rgb.reshape(-1), zero])
+    return src.to(torch.bfloat16)[gather], list(order)
 
 
-def chain_stream_matrices(stream: torch.Tensor, net: PackedNet) -> Dict:
+def chain_stream_matrices(stream: torch.Tensor, net: PackedNet,
+                          dir_stage: bool = False) -> Dict:
     """The plain inverse of chain_weight_stream: the stream read back into
-    its matrices by name (``w{i}``, ``wskip{i}``, ``wv{v}``, ``w_alpha``,
-    ``w_rgb``); ``net`` gives only the shapes and the skip layers."""
+    its matrices by name (``w{i}``, ``wskip{i}``, ``wv{v}``, ``wv0d`` with
+    ``dir_stage``, ``w_alpha``, ``w_rgb``); ``net`` gives only the shapes
+    and the skip layers."""
     img = stream.reshape(-1, STAGE_ELEMS)
     out, q = {}, 0
-    for name, m, kr in _stream_parts(net):
+    for name, m, kr in _stream_parts(net, dir_stage):
         k, n = m.shape
+        stages = -(-k // kr)
         idx = swizzle_image_index(kr, n).reshape(-1).to(stream.device)
-        out[name] = img[q:q + k // kr][:, idx].reshape(k, n)
-        q += k // kr
+        out[name] = img[q:q + stages][:, idx].reshape(stages * kr, n)[:k]
+        q += stages
     W, WV = net.w_alpha.shape[0], net.w_rgb.shape[0]
     ia = swizzle_image_index(HEADS, W).reshape(-1).to(stream.device)
     ir = swizzle_image_index(HEADS, WV).reshape(-1).to(stream.device)
@@ -490,7 +505,7 @@ def _slots(net: PackedNet, device):
             flat = x.reshape(-1).to(device=device, dtype=dtype)
             pad = (-flat.numel()) % align
             offs[slot] = n
-            chunks.append(F.pad(flat, (0, pad)))
+            chunks.append(F.pad(flat, (0, pad)) if pad else flat)
             n += flat.numel() + pad
         return torch.cat(chunks), offs
 
@@ -597,11 +612,12 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _chain_args(net: PackedNet, device):
+def _chain_args(net: PackedNet, device, dir_stage: bool = False):
     """A chain kernel's operands of one net: (slot table, the buffers it
-    and the stream live in, the weight stream's address, its stages)."""
+    and the stream live in, the weight stream's address, its stages);
+    ``dir_stage`` for the point kernels' stream."""
     table, keep = _slots(net, device)
-    stream, order = chain_weight_stream(net)
+    stream, order = chain_weight_stream(net, dir_stage)
     return table, (keep, stream), stream.data_ptr(), len(order)
 
 

@@ -1,8 +1,10 @@
 """Kernel-diagnosis entry points: card probes of the fused MLP's time,
 one module per probe script of the JAX package (``kdiag``, ``kdiag2``,
-``kdiag3``, ``kdiag4``, ``kdiag5``), with its variant labels, and
-``kdelta``, this port's probe of the temporal delta kernel (its own
-docstring says how it runs).
+``kdiag3``, ``kdiag4``, ``kdiag5``), with its variant labels, and this
+port's probes of its chain kernels against a parent checkout: ``kdelta``
+(the temporal delta kernel), ``kframe`` (the frame's coarse and fine
+kernels) and ``kpoint`` (the point MLP and its encoded twin), on the
+A/B harness of ``harness``; each one's docstring says how it runs.
 
     python -m idealnerf_tpu_torch.scripts.kdiag4 --kd4 V0,V2,V3,VX
     python -m idealnerf_tpu_torch.scripts.kdiag --device cpu --rows 256
@@ -79,46 +81,6 @@ def card() -> str:
         return out.splitlines()[0] if out else "nvidia-smi: no output"
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"nvidia-smi unavailable: {e}"
-
-
-def run_worker(script: str, tree, argv, timeout: int = 900) -> dict:
-    """``script --worker TREE argv`` in a fresh process, so that TREE's
-    package is the one it imports -> the dict of its ``RESULT`` line."""
-    import json
-    import sys
-
-    r = subprocess.run([sys.executable, script, "--worker", str(tree),
-                        *argv], capture_output=True, text=True,
-                       timeout=timeout)
-    line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
-    if r.returncode or not line:
-        raise RuntimeError(f"{tree}: worker failed\n{r.stdout[-3000:]}\n"
-                           f"{r.stderr[-3000:]}")
-    return json.loads(line[0][len("RESULT "):])
-
-
-def build_trees(trees: dict, kernels) -> None:
-    """One kernel build per checkout (label -> root), all started
-    together; prints each one's ptxas lines of the kernels whose mangled
-    names hold one of ``kernels``."""
-    import sys
-
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
-            "idealnerf_tpu_torch.kernels import build; print(build.build()"
-            "['log'])")
-    procs = {k: subprocess.Popen([sys.executable, "-c", code, str(t)],
-                                 stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-             for k, t in trees.items()}
-    for k, p in procs.items():
-        log = p.communicate()[0].splitlines()
-        if p.returncode:
-            raise RuntimeError(f"{k}: build failed\n" + "\n".join(log[-60:]))
-        for i, ln in enumerate(log):
-            if any(f"Function properties for _ZN2fr{f}" in ln
-                   for f in kernels):
-                print(f"{k:7s} ptxas: " + " | ".join(
-                    x.strip() for x in log[i:i + 3]), flush=True)
 
 
 def chain_inputs(rows: int, dtype, dev, seed: int = 0, depth: int = DEPTH):
@@ -314,21 +276,11 @@ def sweep(name: str, mode: str, dtype, kind: str, rows: tuple, rpbs, dev,
 
 
 def paper_field(dev: torch.device, seed: int = 0):
-    """The paper head model at full width (D=8, W=256, dim_aud 64, dim_expr
-    79, dim_latent 32, as the TPU scripts build it) with random weights and
-    conditioning from ``seed`` -> (model, folded, cfg, packed bf16 net)."""
-    from idealnerf_tpu_torch.config import ExperimentConfig
+    """The paper head model at full width with dim_expr 79, as the TPU
+    scripts build it (``harness.paper_nets``) -> (model, folded, cfg,
+    packed bf16 net)."""
     from idealnerf_tpu_torch.kernels.fused_render import pack_operands
-    from idealnerf_tpu_torch.models.face_nerf import (
-        FaceNeRF, fold_conditioning,
-    )
+    from idealnerf_tpu_torch.scripts.harness import paper_nets
 
-    cfg = ExperimentConfig(dim_aud=64, dim_expr=79,
-                           dim_latent=32).face_nerf_config()
-    g = torch.Generator().manual_seed(seed)
-    model = FaceNeRF(cfg, g).to(dev)
-    aud, expr = torch.randn(64, generator=g), torch.randn(79, generator=g)
-    with torch.no_grad():
-        folded = fold_conditioning(model, cfg, aud.to(dev), expr.to(dev),
-                                   torch.ones(32, device=dev))
+    cfg, (model,), (folded,) = paper_nets(dev, seed, dim_expr=79)
     return model, folded, cfg, pack_operands(model, folded, cfg)

@@ -39,24 +39,16 @@ PLANS = [("auto", 0, 0, 0), ("ring 3", 32, 3, 0), ("ring 2", 32, 2, 0),
 def _worker(tree: str, plans, rays: int, seed: int) -> dict:
     """In tree's package: the wrapper's time and, for each plan, the
     kernel's C entry alone, its outputs against the wrapper's."""
+    from harness import event_ms, paper_nets  # this checkout's harness
+
     sys.path.insert(0, tree)
     import torch
 
-    from idealnerf_tpu_torch.config import ExperimentConfig
     from idealnerf_tpu_torch.kernels import build
     from idealnerf_tpu_torch.kernels import fused_render as fr
-    from idealnerf_tpu_torch.models.face_nerf import (
-        FaceNeRF, fold_conditioning,
-    )
 
     dev = torch.device("cuda:0")
-    ncfg = ExperimentConfig(dim_aud=64, dim_expr=76,
-                            dim_latent=32).face_nerf_config()
-    g = torch.Generator().manual_seed(seed)
-    net = FaceNeRF(ncfg, g).to(dev)
-    folded = fold_conditioning(net, ncfg, torch.randn(64, generator=g).to(dev),
-                               torch.randn(76, generator=g).to(dev),
-                               torch.ones(32, device=dev))
+    ncfg, (net,), (folded,) = paper_nets(dev, seed)
     gd = torch.Generator(device=dev).manual_seed(seed + 1)
     R, s_prev, s_uni, s_imp, far = rays, 16, 3, 12, 1.2
     ro = (torch.rand(R, 3, generator=gd, device=dev) - 0.5) * 0.2
@@ -73,21 +65,10 @@ def _worker(tree: str, plans, rays: int, seed: int) -> dict:
     hi = torch.full((R,), 1.0, device=dev)
     args = (net, folded, ncfg, ro, rd, z, w, lo, hi, bc, far, s_uni, s_imp)
 
-    def ms(fn, iters=10):
-        fn()
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(iters):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / iters
-
     out = {}
     with torch.no_grad():
-        out["wrapper_ms"] = ms(lambda: fr.fused_render_delta(*args))
+        out["wrapper_ms"] = event_ms(lambda: fr.fused_render_delta(*args),
+                                     10)
         if not plans:
             return out
         want = fr.fused_render_delta(*args)
@@ -113,7 +94,7 @@ def _worker(tree: str, plans, rays: int, seed: int) -> dict:
                     torch.cuda.current_stream().cuda_stream)
                 fr._raise_on(lib, err, "k_render_delta")
 
-            t = ms(launch, 10 if n == R else 200)
+            t = event_ms(launch, 10 if n == R else 200)
             summary, weights, z_out = outs
             same = (torch.equal(weights, want["weights"][:n])
                     and torch.equal(z_out, want["z_vals"][:n])
@@ -140,7 +121,8 @@ def main(argv=None) -> int:
         print("RESULT " + json.dumps(res), flush=True)
         return 0
 
-    from idealnerf_tpu_torch.scripts import build_trees, card, run_worker
+    from idealnerf_tpu_torch.scripts import card
+    from idealnerf_tpu_torch.scripts.harness import build_trees, run_worker
 
     trees = {"this": ROOT}
     if args.parent:

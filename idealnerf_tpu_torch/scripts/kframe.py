@@ -63,27 +63,21 @@ KERNELS = {"K2": ("K2", "coarse", N_SAMPLES, N_IMPORTANCE),
 def _worker(tree: str, plans, seed: int) -> dict:
     """In tree's package: the wrappers' times and, for each plan, the
     kernel's C entry alone, its outputs against the wrapper's."""
+    from harness import event_ms, paper_nets  # this checkout's harness
+
     sys.path.insert(0, tree)
     import torch
 
-    from idealnerf_tpu_torch.config import ExperimentConfig
     from idealnerf_tpu_torch.core.rays import get_rays
     from idealnerf_tpu_torch.core.sampling import stratified_sample
     from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
     from idealnerf_tpu_torch.kernels import build
     from idealnerf_tpu_torch.kernels import fused_render as fr
-    from idealnerf_tpu_torch.models.face_nerf import (
-        FaceNeRF, fold_conditioning,
-    )
 
     dev = torch.device("cuda:0")
-    ncfg = ExperimentConfig(dim_aud=64, dim_expr=76,
-                            dim_latent=32).face_nerf_config()
-    g = torch.Generator().manual_seed(seed)
-    nets = {k: FaceNeRF(ncfg, g).to(dev) for k in ("coarse", "fine")}
-    cond = [torch.randn(64, generator=g).to(dev),
-            torch.randn(76, generator=g).to(dev), torch.ones(32, device=dev)]
-    folded = {k: fold_conditioning(m, ncfg, *cond) for k, m in nets.items()}
+    ncfg, models, folded = paper_nets(dev, seed, n=2)
+    nets = dict(zip(("coarse", "fine"), models))
+    folded = dict(zip(("coarse", "fine"), folded))
     ds = make_synthetic_dataset(n_frames=1, H=HW, W=HW, dim_expr=76)
     ro, rd = get_rays(HW, HW, ds.focal, torch.from_numpy(ds.poses[0]).to(dev),
                       ds.cx, ds.cy)
@@ -92,18 +86,6 @@ def _worker(tree: str, plans, seed: int) -> dict:
     bc = bc.contiguous()
     near, far = float(ds.near), float(ds.far)
     R = ro.shape[0]
-
-    def ms(fn, iters):
-        fn()
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(iters):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / iters
 
     calls = dict.fromkeys(NAMES.values(), 0)
 
@@ -125,8 +107,8 @@ def _worker(tree: str, plans, seed: int) -> dict:
                                         ro, rd, z_all, bc)
 
         fine = k1()
-        out["K2_wrapper_ms"] = ms(k2, 5)
-        out["K1_wrapper_ms"] = ms(k1, 5)
+        out["K2_wrapper_ms"] = event_ms(k2, 5)
+        out["K1_wrapper_ms"] = event_ms(k1, 5)
         if not plans:
             return _counted(out, fr, calls)
         lib = build.load_library()
@@ -165,7 +147,7 @@ def _worker(tree: str, plans, seed: int) -> dict:
                         S, rb, table, *tail)
                 fr._raise_on(lib, err, NAMES[entry])
 
-            t = ms(launch, 5 if n == R else 100)
+            t = event_ms(launch, 5 if n == R else 100)
             want = coarse if key == "coarse" else fine
             summary, weights = outs[:2]
             same = (torch.equal(summary[:, :3], want["rgb_map"][:n])
@@ -202,7 +184,8 @@ def main(argv=None) -> dict:
         print("RESULT " + json.dumps(res), flush=True)
         return {"results": [res], "ok": True}
 
-    from idealnerf_tpu_torch.scripts import build_trees, card, run_worker
+    from idealnerf_tpu_torch.scripts import card
+    from idealnerf_tpu_torch.scripts.harness import build_trees, run_worker
 
     trees = {"this": ROOT}
     if args.parent:

@@ -1,16 +1,18 @@
 """The wgmma chain's weight stream and layer chain (kernels/fused_render.py:
-chain_weight_stream, csrc/fused_render.cu chain_mlp, which the render,
-coarse and delta kernels run), on the CPU.
+chain_weight_stream, csrc/chain.cuh chain_mlp, which the render, coarse and
+delta kernels run, and with view layer 0's dir-PE stage the point kernels
+K4 and K5 of kernels/fused_mlp.py), on the CPU.
 
-The kernels themselves run only on the card (chip_smoke.py phases 2 and 9
-hold them against their plain versions there). Here: the stream
+The kernels themselves run only on the card (chip_smoke.py phases 2, 6, 9
+and 11 hold them against their plain versions there). Here: the stream
 round-trips bitwise through its plain inverse, its stages lie where the
 kernels' header says, each net's stream holds that net, a plain emulation
 of the chain (128-row tiles over each block's points, one 16 KB stage at a
-time, bf16 after every relu) equals the plain MLP the kernels' plain
-versions use, and the render kernels' launch plans fit the shared memory.
-The JAX agreement of the passes as a whole is
-tests/test_torch_fused_render.py's.
+time, bf16 after every relu; for points the dir-PE product in view layer
+0) equals the plain MLP the kernels' plain versions use, and the render
+and point kernels' launch plans fit the shared memory. The JAX agreement
+of the kernels as a whole is tests/test_torch_fused_render.py's and
+tests/test_torch_fused_mlp.py's.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from idealnerf_tpu_torch.config import ExperimentConfig
+from idealnerf_tpu_torch.kernels import fused_mlp as fm
 from idealnerf_tpu_torch.kernels import fused_render as fr
 from idealnerf_tpu_torch.models.face_nerf import FaceNeRF, fold_conditioning
 
@@ -45,16 +48,18 @@ def _packed(name: str, seed: int = 0) -> fr.PackedNet:
     return fr.pack_operands(model, folded, ncfg)
 
 
-def _expected_order(net: fr.PackedNet):
-    """The stage order of the kernel's header comment: layer 0 in 32-row
+def _expected_order(net: fr.PackedNet, dir_stage: bool = False):
+    """The stage order of the kernels' header comment: layer 0 in 32-row
     stages, each later layer's skip pe-part before its h-part, the view
-    layers in 64-row stages, the heads last."""
+    layers in 64-row stages (the point kernels' dir-PE stage after view
+    layer 0's h-part), the heads last."""
     order = [("w0", 0), ("w0", 32)]
     for i in range(1, len(net.w)):
         if i in net.wskip:
             order += [(f"wskip{i}", 0), (f"wskip{i}", 32)]
         order += [(f"w{i}", k) for k in range(0, 256, 32)]
     order += [("wv0", k) for k in range(0, 256, 64)]
+    order += [("wv0d", 0)] * dir_stage
     for v in range(1, len(net.wv)):
         order += [(f"wv{v}", 0), (f"wv{v}", 64)]
     return order + [("heads", 0)]
@@ -116,24 +121,30 @@ def _bf16(x):
 
 
 def _emulate(stream: torch.Tensor, net: fr.PackedNet, pe, pv, tile=128,
-             block=None):
+             block=None, ped=None):
     """The kernel's chain in plain torch over blocks of ``block`` points
     (all of them by default; the last block may be short): each block's
     points in tiles of ``tile`` rows (zeros past the block's last point);
     every layer sums its products one stage (K-chunk) at a time in pe's
     dtype, reading B from the stage's swizzled image; bf16 after every
-    relu; the skip layer's PE product first, in the same sum; the heads
-    from their one stage."""
+    relu; the skip layer's PE product first, in the same sum; with ``ped``
+    (the point kernels: per-point dir-PE rows, pv then the bias bv[0])
+    view layer 0's dir-PE product after its h-part, in the same sum, from
+    a 64-lane tile; the heads from their one stage."""
     n = pe.shape[0]
     block = block or n
     if n > block:
         return torch.cat([_emulate(stream, net, pe[b:b + block],
-                                   pv[b:b + block], tile)
+                                   pv[b:b + block], tile,
+                                   ped=None if ped is None
+                                   else ped[b:b + block])
                           for b in range(0, n, block)])
     dt = pe.dtype
     img = stream.reshape(-1, fr.STAGE_ELEMS).to(dt)
     pad = (-n) % tile
     pe, pv = F.pad(pe, (0, 0, 0, pad)), F.pad(pv, (0, 0, 0, pad))
+    if ped is not None:
+        ped = F.pad(ped, (0, 64 - ped.shape[1], 0, pad))
     W, WV = net.w_alpha.shape[0], net.w_rgb.shape[0]
     outs = []
     for t0 in range(0, n + pad, tile):
@@ -156,8 +167,10 @@ def _emulate(stream: torch.Tensor, net: fr.PackedNet, pe, pv, tile=128,
             if i in net.wskip:
                 acc = prod(acc, x, W)
             h = _bf16(torch.relu(prod(acc, h, W) + net.b[i]))
-        hv = _bf16(torch.relu(prod(torch.zeros(tile, WV, dtype=dt), h, WV)
-                              + pv[t0:t0 + tile]))
+        acc = prod(torch.zeros(tile, WV, dtype=dt), h, WV)
+        if ped is not None:
+            acc = prod(acc, ped[t0:t0 + tile], WV)
+        hv = _bf16(torch.relu(acc + pv[t0:t0 + tile]))
         for v in range(1, len(net.wv)):
             acc = prod(torch.zeros(tile, WV, dtype=dt), hv, WV)
             hv = _bf16(torch.relu(acc + net.bv[v]))
@@ -338,3 +351,128 @@ def test_render_rays_fused_hands_each_net_to_its_pass(monkeypatch):
                                  folded["fine"], lindisp=lindisp)
             assert seen == [(first, nets["coarse"]),
                             ("fused_render_rays", nets["fine"])]
+
+
+# ------------------------------------------------- the point kernels K4, K5
+
+@pytest.mark.parametrize("name", list(NETS))
+def test_point_stream_round_trips_with_its_dir_stage(name):
+    """The point kernels' stream holds view layer 0's dir-PE part as one
+    more stage after its h-part: it reads back bitwise with every other
+    matrix, the stage is zero past the net's PED_PAD rows (and past the
+    27 dir-PE lanes of the paper widths), the rest of the stream is the
+    ray kernels' stream stage for stage, and the order is the header's:
+    70 stages for the paper model, whose ray stream stays 69."""
+    net = _packed(name)
+    stream, order = fr.chain_weight_stream(net, dir_stage=True)
+    assert order == _expected_order(net, dir_stage=True)
+    back = fr.chain_stream_matrices(stream, net, dir_stage=True)
+    assert torch.equal(back["wv0d"], net.wv0d)
+    assert set(back) == set(fr.chain_stream_matrices(
+        fr.chain_weight_stream(net)[0], net)) | {"wv0d"}
+    img = stream.reshape(-1, fr.STAGE_ELEMS)
+    q = order.index(("wv0d", 0))
+    idx = fr.swizzle_image_index(64, 128)
+    stage = img[q][idx]
+    assert torch.all(stage[27:] == 0) and torch.equal(stage[:fr.PED_PAD],
+                                                      net.wv0d)
+    ray, ray_order = fr.chain_weight_stream(net)
+    keep = torch.ones(len(order), dtype=torch.bool)
+    keep[q] = False
+    assert torch.equal(img[keep], ray.reshape(-1, fr.STAGE_ELEMS))
+    if name == "paper":
+        assert (len(order), len(ray_order)) == (70, 69)
+
+
+def _point_inputs(n: int, seed: int):
+    """n points in [-1, 1]^3 and unit directions (the training field's
+    dirs are the rays' unit view directions), seeded with numpy."""
+    rng = np.random.RandomState(seed)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
+    d = rng.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return pts, torch.from_numpy(d)
+
+
+@pytest.mark.parametrize("name,n", [
+    ("paper", 1), ("paper", 127), ("paper", 1001), ("paper", 4096),
+    ("d2-skip", 127), ("d2-skip", 1001), ("d2-noskip", 1),
+    ("d2-noskip", 4096)])
+@pytest.mark.parametrize("encoded", [False, True])
+def test_point_emulation_matches_point_mlp_references(name, n, encoded):
+    """The chain at the point kernels' shape, per-point PE (built from the
+    points as K4 builds it, or the PE rows K5 is given) and the dir-PE
+    product in view layer 0 with bv[0] as its bias, in runs of 3 tiles
+    per block (a ragged last tile at N = 127 and 1,001, one point in a
+    tile of zeros at N = 1), against point_mlp_reference (K4) or
+    point_mlp_pe_reference (K5) at the ray emulation's bounds: 1e-5
+    norm-relative in f64, and in f32 twice the reference's own distance
+    from f64 (at least 1e-5) and 1e-3."""
+    net = _packed(name, seed=5)
+    pts, dirs = _point_inputs(n, seed=n)
+    pe, ped = fm.encode_points(net, pts, dirs)
+    if encoded:
+        want = fm.point_mlp_pe_reference(net, pe.to(torch.bfloat16),
+                                         ped.to(torch.bfloat16))
+    else:
+        want = fm.point_mlp_reference(net, pts, dirs)
+    stream, _ = fr.chain_weight_stream(net, dir_stage=True)
+    block = 3 * fr.CHAIN_TILE
+    bv0 = net.bv[0].expand(n, -1)
+    want64 = fr._mlp_reference(net, pe.double(), ped.double()
+                               @ net.wv0d.double() + net.bv[0].double())
+    got64 = _emulate(stream, net, pe.double(), bv0.double(), block=block,
+                     ped=ped.double())
+    assert got64.shape == want64.shape == want.shape == (n, 4)
+    assert _rel(got64, want64) <= 1e-5, _rel(got64, want64)
+    got = _emulate(stream, net, pe, bv0, block=block, ped=ped)
+    assert got.dtype == want.dtype == torch.float32
+    own = _rel(want.double(), want64)
+    assert _rel(got.double(), want64) <= max(2 * own, 1e-5), own
+    assert _rel(got, want) <= 1e-3
+
+
+def _point_smem_bytes(ring):
+    """csrc/fused_mlp.cu point_smem_bytes: 1,024 bytes of alignment, the
+    ring, two warpgroups' PE / trunk / view / dir-PE tiles, the
+    mbarriers."""
+    tiles = 2 * 2 * 64 * (fr.PE_PAD + 256 + 128 + 64)
+    return 1024 + ring * 2 * fr.STAGE_ELEMS + tiles + 128
+
+
+class _PointLib:
+    """The library call the point plan makes, from the layout above."""
+
+    fr_point_smem_bytes = staticmethod(_point_smem_bytes)
+
+
+@pytest.mark.parametrize("N,plan", [
+    (131072, (8, 128)), (393216, (24, 128)), (524288, (32, 128)),
+    (1 << 21, (125, 132)), (1001, (1, 8)), (1, (1, 1)),
+    (128 * 132 + 1, (2, 67))])
+def test_point_plans_cover_every_point_once_in_one_wave(N, plan):
+    """The point kernels' plan on a 132-SM card: tiles per block =
+    ceil(tiles / 132), each block a contiguous run of them, at most one
+    wave of blocks; the coarse (2,048 x 64) and fine (2,048 x 192) passes
+    of the training step, both of phase 6's 524,288, and K5's 2^21 as
+    named, every point covered exactly once; the ring's shared memory
+    fits beside the tiles."""
+    per_block, blocks, ring = fm._point_plan(_PointLib(), N, 132)
+    assert (per_block, blocks) == plan
+    assert blocks <= 132 and ring == fm._POINT_RING
+    assert _point_smem_bytes(ring) <= fr.SMEM_LIMIT
+    seen = torch.zeros(N, dtype=torch.int32)
+    for b in range(blocks):
+        p0 = b * per_block * fr.CHAIN_TILE
+        assert p0 < N
+        seen[p0:min(p0 + per_block * fr.CHAIN_TILE, N)] += 1
+    assert torch.all(seen == 1)
+
+
+def test_point_plan_refuses_a_ring_the_shared_memory_cannot_hold():
+    """Six 16 KB stages fit beside the point tiles (230,528 bytes), seven
+    do not."""
+    assert fm._point_plan(_PointLib(), 1000, 132, ring=6)[2] == 6
+    assert _point_smem_bytes(6) == 230528
+    with pytest.raises(ValueError, match="shared memory"):
+        fm._point_plan(_PointLib(), 1000, 132, ring=7)
