@@ -62,12 +62,21 @@ non-zero and no result line is printed):
    JAX package's bound). aud/expr/latent gradients within 0.05 of their
    maximum. Two launches must give bitwise-equal gradients. Timed at
    ``--points``; the bf16 checks run again at the step's fine pass,
-   393,216 points. The bf16 backward is two kernels: at both sizes pass B
-   alone is held against its plain version on pass A's own buffers (1e-4
-   norm-relative per gradient), each pass is timed apart, a torch.bmm of
-   the trunk's seven H^T @ dc products is timed as a yardstick (the port
-   never calls it), and the peak memory of one call is read. The new
-   kernels' ptxas lines are printed again.
+   393,216 points. The bf16 backward is two kernels: at both sizes and at
+   a ragged 1,001, pass A (the recompute and the d_h chain, on the wgmma
+   chain) alone is held against its plain version and the same
+   computation in f64: every operand plane, unswizzled, no farther from
+   f64 (norm-relative) than twice the plain version's own distance (at
+   least 1e-3) and with a correlation above 0.999 against the plain
+   version (relu' flips rule out an absolute bound on the d_h planes,
+   even for the plain version against f64), the bias rows 2e-2
+   norm-relative, two launches bitwise equal;
+   at both sizes pass B alone is held against its plain version on pass
+   A's own buffers (1e-4 norm-relative per gradient), each pass is timed
+   apart, a torch.bmm of the trunk's seven H^T @ dc products is timed as
+   a yardstick (the port never calls it), and the peak memory of one call
+   is read. The kernels' ptxas lines are printed again; pass A may not
+   spill, and its SASS must hold HGMMA (wgmma) and no HMMA (wmma).
 8. the training slice: ``idealnerf_tpu_torch.cli.train_head.main`` on
    ``--train_frames`` synthetic frames of ``--train_hw``² at full width
    (D=8, W=256, N_rand 2048, 64+128) for ``--train_epochs`` epochs: ms per
@@ -153,6 +162,8 @@ Z_ATOL = 2e-6
 GRAD_TOL = {"f32": {"plain": 1e-4, "autograd": 1e-4},
             "bf16": {"plain": 2e-2, "autograd": 0.15}}
 COND_TOL = 0.05
+PASS_A_TOL = 2e-2
+PASS_A_FLOOR = 1e-3
 PASS_B_TOL = 1e-4
 FINE_POINTS = 2048 * 192  # the training step's fine pass
 STEP_POINTS = (2048 * 64, FINE_POINTS)  # its coarse and fine passes
@@ -465,9 +476,10 @@ def _point_library_ms(packed, pe, ped, chunk: int = 1 << 22) -> float:
     return _time_ms(run, 3)
 
 
-def _hgmma_counts(so_path: str, names) -> dict:
-    """HGMMA instructions in the SASS of each kernel whose mangled name
-    holds one of ``names`` (``cuobjdump -sass`` of the built library)."""
+def _hgmma_counts(so_path: str, names, op: str = "HGMMA") -> dict:
+    """``op`` instructions (wgmma's HGMMA by default; HMMA for wmma and
+    mma.sync) in the SASS of each kernel whose mangled name holds one of
+    ``names`` (``cuobjdump -sass`` of the built library)."""
     from idealnerf_tpu_torch.kernels import build as kbuild
 
     tool = os.path.join(os.path.dirname(kbuild._nvcc()), "cuobjdump")
@@ -477,7 +489,7 @@ def _hgmma_counts(so_path: str, names) -> dict:
     for ln in sass.splitlines():
         if "Function :" in ln:
             fn = next((n for n in names if n in ln), None)
-        elif fn and "HGMMA" in ln:
+        elif fn and any(t.split(".")[0] == op for t in ln.split()):
             counts[fn] += 1
     return counts
 
@@ -997,19 +1009,86 @@ def _pass_bounds(fmg, ncfg, packed, n: int):
     return a, b
 
 
+def _check_pass_a(fmg, packed, pts, dirs, g):
+    """Pass A's own outputs against grad_pass_a_reference on the same
+    inputs, and against the same computation in f64: every plane,
+    unswizzled, no farther from the f64 one, norm-relative, than twice
+    the plain version's own distance from it (at least PASS_A_FLOOR), and
+    with a correlation above MIN_CORR against the plain version; the bias
+    rows within PASS_A_TOL norm-relative of the plain version's; a second
+    launch bitwise equal -> (max abs error against the plain version, the
+    launch's planes, offsets, bias rows and buffers). The three sum the
+    same products in other orders, so a bf16 value may round one ulp
+    apart, and where an activation rounds to 0 in one order and not in
+    another its relu' flips: the d_h element it gates differs by its whole
+    value and the rows it feeds move with it. So no absolute bound holds
+    on the d_h planes, not even for the plain version against f64."""
+    import torch
+
+    n = pts.shape[0]
+    planes, offs, bias = fmg.grad_pass_a(packed, pts, dirs, g)
+    again = fmg.grad_pass_a(packed, pts, dirs, g)
+    same = torch.equal(again[0], planes) and torch.equal(again[2], bias)
+    del again
+    got = fmg.buffers_from_planes(packed, planes, offs, bias, n)
+
+    def planes_of(bufs):
+        out = {"pe": bufs.pe, "ped": bufs.ped, "gb": bufs.gb}
+        for key in ("hs", "hvs", "dcs", "dvs"):
+            for j, x in enumerate(getattr(bufs, key)):
+                out[f"{key[:-1]}{j}"] = x
+        return out
+
+    want = fmg.grad_pass_a_reference(packed, pts, dirs, g)
+    bias_err = _norm_rel(got.bias, want.bias)
+    mine, plain = planes_of(got), planes_of(want)
+    exact = planes_of(fmg.grad_pass_a_reference(packed, pts, dirs, g,
+                                                torch.float64))
+    err, corr, ratio = 0.0, (1.0, ""), (0.0, "", 0.0, 0.0, 0.0)
+    for name, x in exact.items():
+        a, b = mine[name], plain[name]
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"pass A: non-finite {name}")
+        err = max(err, float((a - b).abs().max()))
+        if n > 1:
+            c = float(torch.corrcoef(torch.stack([a.reshape(-1),
+                                                  b.reshape(-1)]))[0, 1])
+            corr = min(corr, (c, name))
+        far, own = _norm_rel(a.double(), x), _norm_rel(b.double(), x)
+        ratio = max(ratio, (far / max(2 * own, PASS_A_FLOOR), name, far,
+                            own, float((b.double() - x).abs().max())))
+    del want, plain, exact
+    print(f"  pass A alone vs its plain version, N={n}: {len(mine)} planes, "
+          f"max_abs_err {err:.3e}; the kernel's distance from f64 at most "
+          f"{ratio[0]:.3f} of twice the plain version's ({ratio[1]}: "
+          f"{ratio[2]:.3e} and {ratio[3]:.3e} norm-relative, the plain "
+          f"version {ratio[4]:.3e} from f64 at most; tol 1, floor "
+          f"{PASS_A_FLOOR:g}); correlation at least {corr[0]:.6f} "
+          f"({corr[1]}; > {MIN_CORR}); bias rows norm-relative "
+          f"{bias_err:.3e} (tol {PASS_A_TOL:g}); two launches bitwise "
+          f"equal: {same}")
+    if not (ratio[0] <= 1.0 and corr[0] > MIN_CORR
+            and bias_err <= PASS_A_TOL):
+        raise AssertionError("pass A disagrees with its plain version")
+    if not same:
+        raise AssertionError("pass A is not repeatable")
+    return err, planes, offs, bias, got
+
+
 def _phase_grad_split(fmg, ncfg, packed, pts, dirs, g) -> dict:
-    """The bf16 backward's passes apart: pass B alone against its plain
-    version on pass A's own buffers (1e-4 norm-relative per gradient),
-    each pass timed with CUDA events, the torch.bmm yardstick of the
-    trunk's seven H^T @ dc products (timed only), the peak memory of one
-    backward call, and each pass's bound."""
+    """The bf16 backward's passes apart: pass A alone against its plain
+    version (_check_pass_a), pass B alone against its plain version on
+    pass A's own buffers (1e-4 norm-relative per gradient), each pass
+    timed with CUDA events, the torch.bmm yardstick of the trunk's seven
+    H^T @ dc products (timed only), the peak memory of one backward call,
+    and each pass's bound."""
     import torch
 
     n = pts.shape[0]
     dev = pts.device
-    planes, offs, bias = fmg.grad_pass_a(packed, pts, dirs, g)
+    err_a, planes, offs, bias, bufs = _check_pass_a(fmg, packed, pts, dirs,
+                                                    g)
     got = fmg.grad_pass_b(packed, planes, offs, bias)
-    bufs = fmg.buffers_from_planes(packed, planes, offs, bias, n)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     want = fmg.grad_pass_b_reference(
         packed, bufs, fmg.grad_chunks(bias.shape[0], sms))
@@ -1042,16 +1121,20 @@ def _phase_grad_split(fmg, ncfg, packed, pts, dirs, g) -> dict:
           f"{bound_b['bound_by']}); torch.bmm of the {D - 1} trunk H^T @ dc "
           f"products {ms_bmm:.3f} ms (yardstick, timed only); peak memory "
           f"of one call {peak / 2 ** 30:.3f} GiB (CUDA events)")
-    return {"pass_b_err": worst, "pass_a_ms": ms_a, "pass_b_ms": ms_b,
+    return {"pass_a_err": err_a, "pass_b_err": worst, "pass_a_ms": ms_a,
+            "pass_b_ms": ms_b,
             "bmm_ms": ms_bmm, "peak_bytes": peak, "bound_a": bound_a,
             "bound_b": bound_b}
 
 
-def _phase_grad(net, ncfg, cond, pts, dirs, ptxas) -> dict:
+def _phase_grad(net, ncfg, cond, pts, dirs, ptxas, so_path) -> dict:
     import torch
 
     from idealnerf_tpu_torch.core.embedding import positional_encoding
     from idealnerf_tpu_torch.kernels import fused_mlp_grad as fmg
+    from idealnerf_tpu_torch.kernels.fused_render import (
+        model_leaves, pack_leaves,
+    )
     from idealnerf_tpu_torch.models.face_nerf import (
         apply_folded, fold_conditioning,
     )
@@ -1060,6 +1143,16 @@ def _phase_grad(net, ncfg, cond, pts, dirs, ptxas) -> dict:
     for i, ln in enumerate(ptxas):  # the bf16 kernels' registers, spills
         if any(k in ln for k in ("k_grad_pass", "k_bias_partials")):
             print("  ptxas: " + " | ".join(ptxas[i:i + 3]))
+            if "k_grad_pass_a" in ln and not any(
+                    "0 bytes spill stores, 0 bytes spill loads" in x
+                    for x in ptxas[i:i + 3]):
+                raise AssertionError("k_grad_pass_a spills")
+    ops = {op: _hgmma_counts(so_path, ("k_grad_pass_a",), op)["k_grad_pass_a"]
+           for op in ("HGMMA", "HMMA")}
+    print(f"  k_grad_pass_a SASS: {ops['HGMMA']} HGMMA (wgmma), "
+          f"{ops['HMMA']} HMMA (wmma)")
+    if not (ops["HGMMA"] > 0 and ops["HMMA"] == 0):
+        raise AssertionError(f"k_grad_pass_a is not on the wgmma chain: {ops}")
 
     def folded_fn(model, c):
         return fold_conditioning(model, ncfg, *c)
@@ -1089,11 +1182,24 @@ def _phase_grad(net, ncfg, cond, pts, dirs, ptxas) -> dict:
             res = {"n": n, "ms": ms, "plain_ms": pms, "worst": worst}
             if tag == "bf16":
                 res.update(_phase_grad_split(fmg, ncfg, packed, p, d, g))
+                out["max_abs_err"] = max(out["max_abs_err"],
+                                         res["pass_a_err"])
             out[f"{tag}_{n}"] = res
             del packed, g
             torch.cuda.synchronize()
         del ref, ref_c
         torch.cuda.empty_cache()
+    # a ragged size: a part-filled 128-point tile and 64-point plane tile
+    folded = fold_conditioning(net, ncfg, *cond)
+    packed = pack_leaves(ncfg, model_leaves(net, folded, ncfg))
+    n = 1001
+    g = (torch.linspace(0.5, 1.5, n, device=pts.device)[:, None]
+         * torch.tensor([1.0, -0.7, 0.3, 0.05], device=pts.device))
+    out["pass_a_1001_err"] = _check_pass_a(fmg, packed, pts[:n], dirs[:n],
+                                           g.contiguous())[0]
+    out["max_abs_err"] = max(out["max_abs_err"], out["pass_a_1001_err"])
+    print("  pass A launch at N={}: {}".format(
+        pts.shape[0], fmg.pass_a_launch_config(packed, pts.shape[0])))
     main = out[f"bf16_{pts.shape[0]}"]
     out["ms"], out["plain_ms"] = main["ms"], main["plain_ms"]
     return out
@@ -1646,7 +1752,7 @@ def main(argv=None) -> int:
     res6 = _phase_point_mlp(fm, fr, nets["fine"], ff, ncfg, pts, dirs, ptxas,
                             info["path"])
     res7 = _phase_grad(nets["coarse"], ncfg, (aud, expr, latent), pts, dirs,
-                      ptxas)
+                      ptxas, info["path"])
     report.update(point_mlp=res6, point_mlp_grad=res7)
     del pts, dirs
     torch.cuda.empty_cache()

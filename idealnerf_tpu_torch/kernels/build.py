@@ -156,12 +156,13 @@ def load_library() -> ctypes.CDLL:
         vp, vp, vp, vp, i64, vp, vp, i64, i32, i32, slots,
         ctypes.POINTER(i64), i32, i32, i32, i32, vp]
     lib.fr_point_mlp_grad.restype = i32
-    for fn in (lib.fr_grad_pass_a_smem_bytes, lib.fr_grad_pass_b_smem_bytes):
-        fn.argtypes = []
-        fn.restype = ctypes.c_ulonglong
+    lib.fr_grad_pass_a_smem_bytes.argtypes = [i32, i32, i32]
+    lib.fr_grad_pass_a_smem_bytes.restype = ctypes.c_ulonglong
+    lib.fr_grad_pass_b_smem_bytes.argtypes = []
+    lib.fr_grad_pass_b_smem_bytes.restype = ctypes.c_ulonglong
     lib.fr_grad_pass_a.argtypes = [
         vp, vp, vp, vp, ctypes.POINTER(i64), vp, i32, i32, slots, i32, i32,
-        i32, i32, vp]
+        i32, i32, vp, i32, i32, vp]
     lib.fr_grad_pass_a.restype = i32
     lib.fr_grad_pass_b.argtypes = [
         vp, ctypes.POINTER(i64), vp, i32, vp, vp, i64, i32, i32,

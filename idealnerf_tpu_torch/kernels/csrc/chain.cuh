@@ -34,6 +34,10 @@
 //   fill of a tile's xyz-PE (from ray packets, from points, or from PE
 //   rows), whether view layer 0 adds a per-point dir-PE product (then its
 //   bias is bv[0]) or a per-ray term, and where the raw rows go.
+// - The gradient kernel's pass A (fused_mlp_grad.cu) runs the same pieces
+//   (chain_begin, chain_produce, Ring, prod_w / prod_v, relu_store with its
+//   relu' bits, PointTile) forward without the heads, then backward on a
+//   second stream of the transposed matrices.
 #pragma once
 
 #include "hopper.cuh"
@@ -145,11 +149,14 @@ __device__ __forceinline__ void prod_v(float (&acc)[128], Ring& r,
 // 16 w + l / 4 (lo) and + 8 (hi), columns 8 (i / 4) + 2 (l % 4) + (i & 1);
 // bias_lo / bias_hi are the two rows' bias vectors. Each chunk of 32
 // values loads its bias pairs before its stores: a load behind a store
-// through generic pointers would wait for the store.
-template <int NR>
+// through generic pointers would wait for the store. With kMask, bit i % 32
+// of mask[i / 32] is set where the stored value of acc[i] is > 0 (relu' on
+// the rounded activation; mask starts zeroed).
+template <int NR, bool kMask = false>
 __device__ __forceinline__ void relu_store(const float (&acc)[128],
                                            bf16* tile, const float* bias_lo,
-                                           const float* bias_hi, int wtid) {
+                                           const float* bias_hi, int wtid,
+                                           uint32_t* mask = nullptr) {
   const int l = wtid & 31;
   const int r0 = 16 * (wtid >> 5) + (l >> 2);
 #pragma unroll
@@ -166,9 +173,17 @@ __device__ __forceinline__ void relu_store(const float (&acc)[128],
       const int hi = (i >> 1) & 1;
       const int col = 8 * (i >> 2) + 2 * (l & 3);
       const float2 bb = b[hi][(i - i0) >> 2];
-      *reinterpret_cast<__nv_bfloat162*>(tile + swz(r0 + 8 * hi, col)) =
+      const __nv_bfloat162 v =
           __hmax2(__floats2bfloat162_rn(acc[i] + bb.x, acc[i + 1] + bb.y),
                   __float2bfloat162_rn(0.f));
+      *reinterpret_cast<__nv_bfloat162*>(tile + swz(r0 + 8 * hi, col)) = v;
+      if constexpr (kMask) {
+        const uint32_t u = *reinterpret_cast<const uint32_t*>(&v);
+        const uint32_t pos =
+            (static_cast<int16_t>(u & 0xFFFFu) > 0 ? 1u : 0u) |
+            (static_cast<int16_t>(u >> 16) > 0 ? 2u : 0u);
+        mask[i >> 5] |= pos << (i & 31);
+      }
     }
   }
 }
@@ -293,6 +308,27 @@ __device__ __forceinline__ Chain chain_begin(char* smem_raw, int n_ring,
   return c;
 }
 
+// The producer warp's part: its one thread streams the n_stages weight
+// stages once per tile, n_tiles times, through the ring, each stage's copy
+// waiting for the consumers to release the slot it refills.
+__device__ __forceinline__ void chain_produce(const Chain& c,
+                                              const bf16* __restrict__ wstream,
+                                              int n_stages, int n_tiles) {
+  if (threadIdx.x == 256) {
+    const uint32_t n = static_cast<uint32_t>(c.n_ring);
+    const uint32_t total = static_cast<uint32_t>(n_tiles) * n_stages;
+    for (uint32_t q = 0; q < total; ++q) {
+      const uint32_t s = q % n;
+      if (q >= n) mbar_wait(c.bars + 8 * (MAX_RING + s), ((q / n) - 1) & 1);
+      mbar_expect_tx(c.bars + 8 * s, STAGE_BYTES);
+      bulk_g2s(c.base + s * STAGE_BYTES,
+               wstream + static_cast<size_t>(q % n_stages) * STAGE_ELEMS,
+               STAGE_BYTES, c.bars + 8 * s);
+    }
+  }
+  __syncwarp();
+}
+
 // The field MLP of the block's n_pts points: the producer's one thread
 // streams the n_stages weight stages once per 128-point tile through the
 // ring while the two warpgroups run chain_tile on each tile. Every thread
@@ -303,28 +339,105 @@ __device__ __forceinline__ void chain_mlp(const Net& net, const Src& src,
                                           const bf16* __restrict__ wstream,
                                           int n_stages, int n_pts) {
   const int wg = threadIdx.x >> 7;
-  const uint32_t n = static_cast<uint32_t>(c.n_ring);
   if (wg == 2) {
-    if (threadIdx.x == 256) {
-      const uint32_t total = (n_pts + DT - 1) / DT * n_stages;
-      for (uint32_t q = 0; q < total; ++q) {
-        const uint32_t s = q % n;
-        if (q >= n) mbar_wait(c.bars + 8 * (MAX_RING + s), ((q / n) - 1) & 1);
-        mbar_expect_tx(c.bars + 8 * s, STAGE_BYTES);
-        bulk_g2s(c.base + s * STAGE_BYTES,
-                 wstream + static_cast<size_t>(q % n_stages) * STAGE_ELEMS,
-                 STAGE_BYTES, c.bars + 8 * s);
-      }
-    }
-    __syncwarp();
+    chain_produce(c, wstream, n_stages, (n_pts + DT - 1) / DT);
   } else {
-    Ring ring{c.base, c.bars, n, 0, NO_STAGE};
+    Ring ring{c.base, c.bars, static_cast<uint32_t>(c.n_ring), 0, NO_STAGE};
     char* tiles = c.gbase + c.n_ring * STAGE_BYTES + wg * Src::kTileBytes;
     for (int t0 = 0; t0 < n_pts; t0 += DT)
       chain_tile(net, src, ring, tiles, t0, n_pts, wg, threadIdx.x & 127);
   }
   __syncthreads();
 }
+
+// The chain's tile source of the point kernels (fused_mlp.cu, and the
+// recompute of the gradient kernel's pass A in fused_mlp_grad.cu) for the
+// block's points (pointers offset to the block's first point); ENCODED
+// reads PE rows, otherwise coordinates.
+template <bool ENCODED>
+struct PointTile {
+  static constexpr int kTileBytes = WG_BYTES + PED_TILE;
+  static constexpr bool kDirProduct = true;
+  const void* a;  // (n, 3) f32 points, or (n, PE_PAD) bf16 xyz-PE rows
+  const void* b;  // (n, 3) f32 directions, or (n, PED_PAD) bf16 dir-PE rows
+  float* out;     // (n, 4) f32 raw
+
+  // The encodings of chunks C0 + 2 j of a row: xyz-PE j = 0..3 into v[j],
+  // dir-PE j = 0, 1 into v[4 + j]. With C0 a template parameter every lane
+  // index is known at compile time, so pe_lane's branches fold away and x
+  // and d stay in registers (with lanes chosen at run time K4 took about
+  // 15 % longer on an H100; PERF.md).
+  template <int C0>
+  __device__ __forceinline__ static void encode(const Net& net,
+                                                const float (&x)[3],
+                                                const float (&d)[3],
+                                                uint4 (&v)[6]) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      __align__(16) bf16 lanes[8];
+      const int c = C0 + 2 * (j < 4 ? j : j - 4);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        lanes[k] = __float2bfloat16(
+            j < 4 ? pe_lane(x, 8 * c + k, net.multires)
+                  : pe_lane(d, 8 * c + k, net.multires_views));
+      v[j] = *reinterpret_cast<const uint4*>(lanes);
+    }
+  }
+
+  // Thread t of the warpgroup fills row t % 64 of both tiles, its 16-byte
+  // chunks (8 lanes each) c0 + 2 j, c0 = t / 64 (the same in every thread
+  // of a warp): one row's inputs per thread, all loaded before the first
+  // store.
+  __device__ __forceinline__ void fill(const Net& net, bf16* pe_g,
+                                       bf16* ped_g, int row0, int n_pts,
+                                       int wtid) const {
+    const int row = wtid & 63, c0 = wtid >> 6;
+    const size_t p = row0 + row;
+    const bool live = row0 + row < n_pts;
+    uint4 v[6];  // xyz-PE chunks c0 + 0, 2, 4, 6; dir-PE chunks c0 + 0, 2
+    if constexpr (ENCODED) {
+      const uint4* pa = static_cast<const uint4*>(a) + p * (PE_PAD / 8);
+      const uint4* pb = static_cast<const uint4*>(b) + p * (PED_PAD / 8);
+#pragma unroll
+      for (int j = 0; j < 6; ++j)
+        v[j] = !live ? make_uint4(0, 0, 0, 0)
+                     : j < 4 ? pa[c0 + 2 * j] : pb[c0 + 2 * (j - 4)];
+    } else {
+      float x[3] = {0.f, 0.f, 0.f}, d[3] = {0.f, 0.f, 0.f};
+      if (live) {
+        const float* pa = static_cast<const float*>(a) + p * 3;
+        const float* pb = static_cast<const float*>(b) + p * 3;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          x[k] = pa[k];
+          d[k] = pb[k];
+        }
+      }
+      if (c0 == 0)
+        encode<0>(net, x, d, v);
+      else
+        encode<1>(net, x, d, v);
+      if (!live) {
+#pragma unroll
+        for (int j = 0; j < 6; ++j) v[j] = make_uint4(0, 0, 0, 0);
+      }
+    }
+    static_assert(PED_PAD == 32, "dir-PE rows are 4 chunks");
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + 2 * j;
+      *reinterpret_cast<uint4*>(pe_g + swz(row, 8 * c)) = v[j];
+      *reinterpret_cast<uint4*>(ped_g + swz(row, 8 * c)) =
+          j < 2 ? v[4 + j] : make_uint4(0, 0, 0, 0);
+    }
+  }
+  __device__ __forceinline__ const float* view_bias(const Net& net,
+                                                    int) const {
+    return fvec(net, SLOT_BV);
+  }
+  __device__ __forceinline__ float* raw() const { return out; }
+};
 
 // A chain kernel's launch: the stream must hold the `want` stages of the
 // net and the ring 2..MAX_RING of them; sets the kernel's shared memory.

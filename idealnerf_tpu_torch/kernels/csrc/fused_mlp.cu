@@ -40,101 +40,13 @@
 // ring depth): every tile runs the same arithmetic in the same order.
 //
 // In the training step the loss reads K4's raw, while the gradients come
-// from the bf16 backward's own wmma recompute of the forward (K6 pass A,
-// fused_mlp_grad.cu). Both round to bf16 at the same points and differ
-// only in the order of their f32 sums, so the activations the gradients
-// see agree with the forward's to bf16 rounding (one may land one bf16
-// ulp apart).
+// from the bf16 backward's own recompute of the forward (K6 pass A,
+// fused_mlp_grad.cu), which runs the same tile source and the same stages
+// of the same chain: the activations the gradients see are the forward's.
+// PointTile lives in chain.cuh for that reason.
 #include "chain.cuh"
 
 namespace fr {
-
-// The chain's tile source for the block's points (pointers offset to the
-// block's first point); ENCODED reads PE rows, otherwise coordinates.
-template <bool ENCODED>
-struct PointTile {
-  static constexpr int kTileBytes = WG_BYTES + PED_TILE;
-  static constexpr bool kDirProduct = true;
-  const void* a;  // (n, 3) f32 points, or (n, PE_PAD) bf16 xyz-PE rows
-  const void* b;  // (n, 3) f32 directions, or (n, PED_PAD) bf16 dir-PE rows
-  float* out;     // (n, 4) f32 raw
-
-  // The encodings of chunks C0 + 2 j of a row: xyz-PE j = 0..3 into v[j],
-  // dir-PE j = 0, 1 into v[4 + j]. With C0 a template parameter every lane
-  // index is known at compile time, so pe_lane's branches fold away and x
-  // and d stay in registers (with lanes chosen at run time K4 took about
-  // 15 % longer on an H100; PERF.md).
-  template <int C0>
-  __device__ __forceinline__ static void encode(const Net& net,
-                                                const float (&x)[3],
-                                                const float (&d)[3],
-                                                uint4 (&v)[6]) {
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      __align__(16) bf16 lanes[8];
-      const int c = C0 + 2 * (j < 4 ? j : j - 4);
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        lanes[k] = __float2bfloat16(
-            j < 4 ? pe_lane(x, 8 * c + k, net.multires)
-                  : pe_lane(d, 8 * c + k, net.multires_views));
-      v[j] = *reinterpret_cast<const uint4*>(lanes);
-    }
-  }
-
-  // Thread t of the warpgroup fills row t % 64 of both tiles, its 16-byte
-  // chunks (8 lanes each) c0 + 2 j, c0 = t / 64 (the same in every thread
-  // of a warp): one row's inputs per thread, all loaded before the first
-  // store.
-  __device__ __forceinline__ void fill(const Net& net, bf16* pe_g,
-                                       bf16* ped_g, int row0, int n_pts,
-                                       int wtid) const {
-    const int row = wtid & 63, c0 = wtid >> 6;
-    const size_t p = row0 + row;
-    const bool live = row0 + row < n_pts;
-    uint4 v[6];  // xyz-PE chunks c0 + 0, 2, 4, 6; dir-PE chunks c0 + 0, 2
-    if constexpr (ENCODED) {
-      const uint4* pa = static_cast<const uint4*>(a) + p * (PE_PAD / 8);
-      const uint4* pb = static_cast<const uint4*>(b) + p * (PED_PAD / 8);
-#pragma unroll
-      for (int j = 0; j < 6; ++j)
-        v[j] = !live ? make_uint4(0, 0, 0, 0)
-                     : j < 4 ? pa[c0 + 2 * j] : pb[c0 + 2 * (j - 4)];
-    } else {
-      float x[3] = {0.f, 0.f, 0.f}, d[3] = {0.f, 0.f, 0.f};
-      if (live) {
-        const float* pa = static_cast<const float*>(a) + p * 3;
-        const float* pb = static_cast<const float*>(b) + p * 3;
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          x[k] = pa[k];
-          d[k] = pb[k];
-        }
-      }
-      if (c0 == 0)
-        encode<0>(net, x, d, v);
-      else
-        encode<1>(net, x, d, v);
-      if (!live) {
-#pragma unroll
-        for (int j = 0; j < 6; ++j) v[j] = make_uint4(0, 0, 0, 0);
-      }
-    }
-    static_assert(PED_PAD == 32, "dir-PE rows are 4 chunks");
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + 2 * j;
-      *reinterpret_cast<uint4*>(pe_g + swz(row, 8 * c)) = v[j];
-      *reinterpret_cast<uint4*>(ped_g + swz(row, 8 * c)) =
-          j < 2 ? v[4 + j] : make_uint4(0, 0, 0, 0);
-    }
-  }
-  __device__ __forceinline__ const float* view_bias(const Net& net,
-                                                    int) const {
-    return fvec(net, SLOT_BV);
-  }
-  __device__ __forceinline__ float* raw() const { return out; }
-};
 
 // Shared memory of a point kernel: 1,024 bytes to align the base, the ring
 // of n_ring stages, two warpgroups' PE / trunk / view / dir-PE tiles, 128

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (fused_mlp_grad.cu pass B, fused_render.cu k_render_delta): shared-memory
-// addresses, mbarriers, bulk copies global -> shared completed on an
-// mbarrier, wgmma shared-memory descriptors for the 128-byte swizzle, the
-// m64nNk16 bf16 products with f32 accumulators, and their fences.
+// Hopper (sm_90a) building blocks shared by the wgmma kernels (chain.cuh,
+// fused_mlp_grad.cu): shared-memory addresses, mbarriers, bulk copies
+// global -> shared completed on an mbarrier, wgmma shared-memory
+// descriptors for the 128-byte swizzle, the m64nNk16 bf16 products with f32
+// accumulators, their fences, and setmaxnreg.
 //
 // Swizzled images (128-byte swizzle, 1,024-byte aligned): a row of 64 bf16
 // lanes is 128 bytes whose 16-byte chunks are permuted by chunk ^ (row % 8);
@@ -154,6 +154,18 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
+// The warpgroup's registers per thread become N (a multiple of 8 in 24..256):
+// a producer gives back what consumers take. Every warp of the warpgroup
+// executes it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
 // generic-proxy writes to shared memory -> visible to wgmma and bulk copies
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");

@@ -19,8 +19,8 @@
 // The per-ray code here (load_rays, composite, the depth placement, the
 // band) is the ray kernels' of fused_render.cu. Every production forward
 // kernel (K1-K3 there, K4 and K5 in fused_mlp.cu) runs its field MLP on
-// the wgmma chain of chain.cuh; the gradient kernel's pass A
-// (fused_mlp_grad.cu) has a wmma recompute of its own.
+// the wgmma chain of chain.cuh, and so does the gradient kernel's pass A
+// (fused_mlp_grad.cu), forward then backward.
 //
 // The wmma body (mma_k, store_relu, mlp_core, mlp_tile) now serves only
 // the kdiag.cu probes, which time it as the production kernels ran it

@@ -73,11 +73,14 @@ def point_mlp_reference(net: PackedNet, pts: torch.Tensor,
     return point_mlp_pe_reference(net, *encode_points(net, pts, dirs))
 
 
-def _point_plan(lib, N: int, sms: int, ring: int = _POINT_RING):
+def _point_plan(lib, N: int, sms: int, ring: int = _POINT_RING,
+                smem=None):
     """(tiles per block, blocks, ring stages) of a point kernel on N
     points: the 128-point tiles split evenly over at most one wave of
-    ``sms`` blocks, each walking a contiguous run of them."""
-    if lib.fr_point_smem_bytes(ring) > SMEM_LIMIT:
+    ``sms`` blocks, each walking a contiguous run of them. ``smem`` (ring
+    stages -> shared memory bytes) is the point kernels' by default; the
+    gradient kernel's pass A gives its own."""
+    if (smem or lib.fr_point_smem_bytes)(ring) > SMEM_LIMIT:
         raise ValueError(f"a ring of {ring} stages does not fit the point "
                          "kernels' shared memory")
     tiles = -(-N // CHAIN_TILE)

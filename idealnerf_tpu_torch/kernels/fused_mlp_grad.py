@@ -14,12 +14,16 @@ detached and rays are data), as the JAX VJP returns zeros for them.
 
 ``grad_dtype`` picks the backward's recompute and product type:
 torch.float32 reproduces f32 autograd (one kernel, f32 FMAs on the card),
-torch.bfloat16 runs bf16 products with f32 accumulation and rounds the
-cotangent and each d_h to bf16 before its products, as the TPU kernel
-does. The bf16 backward is two kernels: ``grad_pass_a`` recomputes and
-runs d_h back, writing every activation and rounded d_h of all N points
-(``grad_planes``); ``grad_pass_b`` computes every weight gradient as a
-long-K product over those points. Their plain versions are
+torch.bfloat16 runs bf16 products with f32 accumulation and rounds each
+d_h to bf16 before its products, as the TPU kernel does (d_h from the
+heads takes the unrounded cotangent, the heads' weight gradients the
+rounded one). The bf16 backward is two kernels: ``grad_pass_a``
+recomputes and runs d_h back on the wgmma chain of the forward kernels
+(``csrc/chain.cuh``), fed by ``grad_weight_stream``: the point kernels'
+stream without the heads, then the transposed matrices of the backward.
+It writes every activation and rounded d_h of all N points to the planes
+of ``grad_planes`` with streaming stores. ``grad_pass_b`` computes every weight
+gradient as a long-K product over those points. Their plain versions are
 ``grad_pass_a_reference`` and ``grad_pass_b_reference``, whose
 composition is ``point_mlp_grad_reference``.
 
@@ -39,17 +43,21 @@ import torch.nn.functional as F
 
 from idealnerf_tpu_torch.kernels import build
 from idealnerf_tpu_torch.kernels.fused_mlp import (
-    encode_points, point_mlp, point_mlp_reference,
+    _point_plan, _sm_count, encode_points, point_mlp, point_mlp_reference,
 )
 from idealnerf_tpu_torch.kernels.fused_render import (
-    HEADS, PE_PAD, PED_PAD, SMEM_LIMIT, PackedNet, _NSLOTS, _SLOT_B,
-    _SLOT_BHEADS, _SLOT_BV, _SLOT_W, _SLOT_WALPHA, _SLOT_WRGB, _SLOT_WSKIP,
-    _SLOT_WV, _SLOT_WV0D,
-    _check_rays, _raise_on, _slots, _stream, model_leaves, pack_leaves,
-    swizzle_image_index,
+    CHAIN_TILE, HEADS, PE_PAD, PED_PAD, SMEM_LIMIT, PackedNet, _KC_V, _KC_W,
+    _NSLOTS, _SLOT_B, _SLOT_BHEADS, _SLOT_BV, _SLOT_W, _SLOT_WALPHA,
+    _SLOT_WRGB, _SLOT_WSKIP, _SLOT_WV, _SLOT_WV0D,
+    _check_cuda, _check_rays, _raise_on, _slots, _stream, _stream_parts,
+    model_leaves, pack_leaves, stream_matrices, swizzle_image_index,
+    weight_stream,
 )
 
-GRAD_TILE = 64  # points per backward tile (csrc/fused_mlp_grad.cu: GP)
+GRAD_TILE = 64  # points per tile of the planes (csrc/fused_mlp_grad.cu: GP)
+# pass A's weight ring: the deepest that fits beside its tiles and relu'
+# bits at the paper depth (5 does not)
+_PASS_A_RING = 4
 
 # the wrapper, and the two kernels of its bf16 path
 launch_counts = {"fused_point_mlp_grad": 0, "grad_pass_a": 0,
@@ -91,34 +99,38 @@ def _tile_sums(d: torch.Tensor) -> torch.Tensor:
 
 
 def grad_pass_a_reference(net: PackedNet, pts: torch.Tensor,
-                          dirs: torch.Tensor, g: torch.Tensor) -> GradBuffers:
+                          dirs: torch.Tensor, g: torch.Tensor,
+                          acc=torch.float32) -> GradBuffers:
     """The backward's first pass in torch ops: recompute in the dtype of
     the net's weights, then run d_h back through the heads, the view
-    branch and the trunk with the kernel's rounding points (the cotangent
-    and each d_h rounded before their products, relu' = h > 0 on the
-    rounded activation) -> GradBuffers."""
+    branch and the trunk with the kernel's rounding points (d_h from the
+    heads with the unrounded cotangent, each d_h rounded before its
+    products, relu' = h > 0 on the rounded activation) -> GradBuffers.
+    Products and sums run in ``acc`` (f32; f64 where a test needs sums
+    whose order leaves no trace), and so do the buffers."""
     dt = net.w[0].dtype
 
     def rnd(x):
-        return x.to(dt).float()
+        return x.to(dt).to(acc)
 
     relu = torch.relu
-    W = [x.float() for x in net.w]
-    WV = [x.float() for x in net.wv]
-    pe, ped = encode_points(net, pts, dirs)
-    hs = [rnd(relu(pe @ W[0] + net.b[0]))]
+    W = [x.to(acc) for x in net.w]
+    WV = [x.to(acc) for x in net.wv]
+    b, bv = [x.to(acc) for x in net.b], [x.to(acc) for x in net.bv]
+    pe, ped = (x.to(acc) for x in encode_points(net, pts, dirs))
+    hs = [rnd(relu(pe @ W[0] + b[0]))]
     for i in range(1, len(W)):
-        acc = hs[-1] @ W[i]
+        a = hs[-1] @ W[i]
         if i in net.wskip:
-            acc = pe @ net.wskip[i].float() + acc
-        hs.append(rnd(relu(acc + net.b[i])))
-    hvs = [rnd(relu(hs[-1] @ WV[0] + ped @ net.wv0d.float() + net.bv[0]))]
+            a = pe @ net.wskip[i].to(acc) + a
+        hs.append(rnd(relu(a + b[i])))
+    hvs = [rnd(relu(hs[-1] @ WV[0] + ped @ net.wv0d.to(acc) + bv[0]))]
     for v in range(1, len(WV)):
-        hvs.append(rnd(relu(hvs[-1] @ WV[v] + net.bv[v])))
+        hvs.append(rnd(relu(hvs[-1] @ WV[v] + bv[v])))
 
-    g16 = F.pad(g.float(), (0, HEADS - 4))
-    dh = g16 @ net.w_alpha.float().T
-    dv = g16 @ net.w_rgb.float().T
+    g16 = F.pad(g.to(acc), (0, HEADS - 4))
+    dh = g16 @ net.w_alpha.to(acc).T
+    dv = g16 @ net.w_rgb.to(acc).T
     dvs, bvs = [None] * len(WV), [None] * len(WV)
     for v in range(len(WV) - 1, -1, -1):
         dv = dv * (hvs[v] > 0)
@@ -283,7 +295,7 @@ def _check_inputs(net: PackedNet, pts, dirs, g) -> torch.device:
         raise ValueError("fused_point_mlp_grad: pts, dirs, g must be (N, 3), "
                          f"(N, 3), (N, 4); got {tuple(pts.shape)}, "
                          f"{tuple(dirs.shape)}, {tuple(g.shape)}")
-    if N < 1 or N >= 2 ** 31 - GRAD_TILE:
+    if N < 1 or N >= 2 ** 31 - CHAIN_TILE:
         raise ValueError(f"fused_point_mlp_grad: unsupported N={N}")
     return dev
 
@@ -314,36 +326,107 @@ def _unflatten(net: PackedNet, out: torch.Tensor, layout) -> PackedNet:
         multires_views=net.multires_views, softplus=net.softplus)
 
 
+def _grad_stream_parts(net: PackedNet):
+    """Pass A's weight stream as stream parts (fused_render.weight_stream):
+    the point kernels' forward parts (dir-PE stage, no heads), then the
+    matrices the backward multiplies d_h by, transposed, in the order it
+    does (csrc/fused_mlp_grad.cu, note at the top): ``wv{v}T`` for v =
+    V-1..1 (64-row stages of 128 lanes), ``wv0T`` (128 x 256, 32-row
+    stages), ``w{i}T`` for i = D-1..1."""
+    back = [(f"wv{v}T", net.wv[v].T, _KC_V)
+            for v in range(len(net.wv) - 1, 0, -1)]
+    back.append(("wv0T", net.wv[0].T, _KC_W))
+    back += [(f"w{i}T", net.w[i].T, _KC_W)
+             for i in range(len(net.w) - 1, 0, -1)]
+    return _stream_parts(net, dir_stage=True) + back
+
+
+def grad_weight_stream(net: PackedNet):
+    """PackedNet -> (stream, order) of the gradient kernel's pass A: 133
+    stages of 16 KB for the paper model, the forward's 69 and the
+    backward's 64. One concatenation and one gather per call, the
+    transposed matrices gathered from the net's own."""
+    return weight_stream(_grad_stream_parts(net))
+
+
+def grad_stream_matrices(stream: torch.Tensor, net: PackedNet) -> Dict:
+    """The plain inverse of grad_weight_stream: the stream read back into
+    its matrices by name (the forward's, as chain_stream_matrices names
+    them, without the heads; ``wv{v}T``, ``wv0T`` and ``w{i}T`` the
+    transposes the backward reads); ``net`` gives only the shapes."""
+    return stream_matrices(stream, _grad_stream_parts(net))
+
+
+def pass_a_plan(lib, N: int, sms: int, depth: int, n_views: int):
+    """(tiles per block, blocks, ring stages) of pass A on N points: the
+    point kernels' plan (one wave of blocks over runs of 128-point tiles)
+    with pass A's shared memory, at _PASS_A_RING stages, or fewer (at
+    least 2) where the relu' bits of a deeper net leave less room."""
+    def smem(ring):
+        return lib.fr_grad_pass_a_smem_bytes(ring, depth, n_views)
+
+    ring = next((r for r in range(_PASS_A_RING, 2, -1)
+                 if smem(r) <= SMEM_LIMIT), 2)
+    return _point_plan(lib, N, sms, ring, smem)
+
+
+def pass_a_launch_config(net: PackedNet, N: int) -> Dict[str, int]:
+    """Pass A's launch on N points on the current card: 128-point tiles
+    per block, blocks, dynamic shared memory, ring depth and stages per
+    tile."""
+    lib = build.load_library()
+    D, V = len(net.w), len(net.wv)
+    per_block, blocks, ring = pass_a_plan(
+        lib, N, _sm_count(torch.cuda.current_device()), D, V)
+    return {"tiles_per_block": per_block, "blocks": blocks,
+            "smem_bytes": lib.fr_grad_pass_a_smem_bytes(ring, D, V),
+            "ring_stages": ring,
+            "stages_per_tile": len(grad_weight_stream(net)[1])}
+
+
+def launch_pass_a(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
+                  g: torch.Tensor, plan=None):
+    """One launch of pass A on checked CUDA operands -> (operand buffer,
+    its plane offsets, per-tile bias sums (tiles, NB) f32). ``plan``
+    (tiles per block, ring stages) replaces pass_a_plan's (a point's
+    outputs do not depend on it). Counts nothing: grad_pass_a counts."""
+    dev, N = pts.device, pts.shape[0]
+    lib = build.load_library()
+    D, V = len(net.w), len(net.wv)
+    if plan is None:
+        per_block, _, ring = pass_a_plan(lib, N, _sm_count(dev), D, V)
+    else:
+        per_block, ring = plan
+    n_tiles = -(-N // GRAD_TILE)
+    offs, _, total = grad_planes(net, n_tiles)
+    nb = D * net.width + V * net.wv[0].shape[1] + HEADS
+    planes = torch.empty(total, dtype=torch.bfloat16, device=dev)
+    bias = torch.empty((n_tiles, nb), dtype=torch.float32, device=dev)
+    table, keep = _slots(net, dev)
+    stream, order = grad_weight_stream(net)
+    err = lib.fr_grad_pass_a(
+        pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), planes.data_ptr(),
+        (ctypes.c_longlong * len(offs))(*offs), bias.data_ptr(), N,
+        per_block, table, D, V, net.multires, net.multires_views,
+        stream.data_ptr(), len(order), ring, _stream(dev))
+    _raise_on(lib, err, "grad_pass_a")
+    del keep, stream  # stream-ordered reuse by the caching allocator
+    return planes, offs, bias
+
+
 def grad_pass_a(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
                 g: torch.Tensor):
     """The bf16 backward's first kernel (CUDA tensors only) -> (operand
     buffer, its plane offsets, per-tile bias sums (tiles, NB) f32): the
     recompute and the d_h chain, every operand of the weight gradients
     written in grad_planes' layout."""
-    dev = _check_inputs(net, pts, dirs, g)
+    _check_inputs(net, pts, dirs, g)
+    _check_cuda("grad_pass_a", torch.float32, 16, g=g)
     if net.w[0].dtype != torch.bfloat16:
         raise TypeError("grad_pass_a: the two-pass backward is bf16 only")
-    lib = build.load_library()
-    if lib.fr_grad_pass_a_smem_bytes() > SMEM_LIMIT:
-        raise ValueError("grad_pass_a: shared memory over the limit")
-    N = pts.shape[0]
-    n_tiles = -(-N // GRAD_TILE)
-    offs, _, total = grad_planes(net, n_tiles)
-    W, WV = net.width, net.wv[0].shape[1]
-    nb = len(net.w) * W + len(net.wv) * WV + HEADS
-    planes = torch.empty(total, dtype=torch.bfloat16, device=dev)
-    bias = torch.empty((n_tiles, nb), dtype=torch.float32, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    table, keep = _slots(net, dev)
-    err = lib.fr_grad_pass_a(
-        pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), planes.data_ptr(),
-        (ctypes.c_longlong * len(offs))(*offs), bias.data_ptr(),
-        min(n_tiles, sms), N, table, len(net.w), len(net.wv), net.multires,
-        net.multires_views, _stream(dev))
-    _raise_on(lib, err, "grad_pass_a")
+    out = launch_pass_a(net, pts, dirs, g)
     launch_counts["grad_pass_a"] += 1
-    del keep
-    return planes, offs, bias
+    return out
 
 
 def grad_pass_b(net: PackedNet, planes: torch.Tensor, offs: List[int],

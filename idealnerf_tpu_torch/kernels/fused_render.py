@@ -382,27 +382,31 @@ def _stream_parts(net: PackedNet, dir_stage: bool = False):
 @functools.lru_cache(maxsize=16)
 def _stream_layout(shapes, heads, device: str):
     """(gather, zero, stage order) for stream parts of the given (name, K,
-    N, K-rows per stage) and heads widths: stream element e is source
-    element gather[e], where the source is the parts' matrices flattened
-    row-major, then w_alpha and w_rgb (row-major, (K, HEADS)), then
+    N, K-rows per stage, transposed) and heads widths: stream element e is
+    source element gather[e], where the source is the parts' matrices
+    flattened row-major (a transposed part as the matrix it is the
+    transpose of), then w_alpha and w_rgb (row-major, (K, HEADS)), then
     ``zero`` (one bf16 zero), which every element outside the matrices
     takes (a part's rows past K in its last stage, the heads' stage past
-    12 KB). Built once per net shape and device."""
+    12 KB). No heads, no heads' stage. Built once per net shape and
+    device."""
     dst, order, q = [], [], 0
-    for name, k, n, kr in shapes:
+    for name, k, n, kr, transposed in shapes:
         if n * kr != STAGE_ELEMS:
             raise ValueError(f"weight stream: {name} ({k}, {n}) does not cut "
                              f"into {kr}-row stages")
         idx = swizzle_image_index(kr, n)
         rows = torch.arange(k)
-        dst.append(((q + rows // kr) * STAGE_ELEMS)[:, None] + idx[rows % kr])
+        d = ((q + rows // kr) * STAGE_ELEMS)[:, None] + idx[rows % kr]
+        dst.append(d.T if transposed else d)
         order += [(name, k0) for k0 in range(0, k, kr)]
         q += -(-k // kr)
     for i, width in enumerate(heads):
         # w_alpha^T (16 x W) then w_rgb^T (16 x WV), K-major, in one stage
         img = swizzle_image_index(HEADS, width) + i * HEADS * heads[0]
         dst.append(q * STAGE_ELEMS + img.T)
-    order.append(("heads", 0))
+    if heads:
+        order.append(("heads", 0))
     dst = torch.cat([d.reshape(-1) for d in dst])
     gather = torch.full((len(order) * STAGE_ELEMS,), dst.numel(),
                         dtype=torch.long)
@@ -411,23 +415,48 @@ def _stream_layout(shapes, heads, device: str):
                                            device=device), tuple(order))
 
 
-def chain_weight_stream(net: PackedNet, dir_stage: bool = False):
-    """PackedNet -> (stream, order): the bf16 weights of the chain kernels'
-    field MLP as (n_stages * STAGE_ELEMS,) on the weights' device, each
-    16 KB stage in its swizzled shared-memory image so that one bulk copy
-    fills a stage, and the (name, first K-row) of every stage. Matrices of
-    K-rows x N lanes are MN-major (32 K-rows of 256 lanes, 64 of 128); the
-    heads' stage holds w_alpha^T (16 x 256) then w_rgb^T (16 x 128),
-    K-major. ``dir_stage`` adds view layer 0's dir-PE part (the point
-    kernels' stream). One concatenation and one gather per call."""
-    parts = _stream_parts(net, dir_stage)
-    dev = net.w[0].device
+def weight_stream(parts, heads=()):
+    """Stream parts (name, matrix (K, N), K-rows per stage) and the heads'
+    matrices (K, HEADS) -> (stream, order): the bf16 weights as (n_stages *
+    STAGE_ELEMS,) on the weights' device, each 16 KB stage in its swizzled
+    shared-memory image so that one bulk copy fills a stage, and the
+    (name, first K-row) of every stage. A part that is the transposed view
+    of a contiguous matrix is gathered from that matrix. One concatenation
+    and one gather per call."""
+    flips = [not m.is_contiguous() for _, m, _ in parts]
     gather, zero, order = _stream_layout(
-        tuple((name, *m.shape, kr) for name, m, kr in parts),
-        (net.w_alpha.shape[0], net.w_rgb.shape[0]), str(dev))
-    src = torch.cat([m.reshape(-1) for _, m, _ in parts]
-                    + [net.w_alpha.reshape(-1), net.w_rgb.reshape(-1), zero])
+        tuple((name, *m.shape, kr, t) for (name, m, kr), t in
+              zip(parts, flips)),
+        tuple(h.shape[0] for h in heads), str(parts[0][1].device))
+    src = torch.cat([(m.T if t else m).reshape(-1)
+                     for (_, m, _), t in zip(parts, flips)]
+                    + [h.reshape(-1) for h in heads] + [zero])
     return src.to(torch.bfloat16)[gather], list(order)
+
+
+def stream_matrices(stream: torch.Tensor, parts) -> Dict:
+    """The plain inverse of weight_stream for its parts: the stream read
+    back into (K, N) matrices by name; the parts give only names, shapes
+    and stage heights."""
+    img = stream.reshape(-1, STAGE_ELEMS)
+    out, q = {}, 0
+    for name, m, kr in parts:
+        k, n = m.shape
+        stages = -(-k // kr)
+        idx = swizzle_image_index(kr, n).reshape(-1).to(stream.device)
+        out[name] = img[q:q + stages][:, idx].reshape(stages * kr, n)[:k]
+        q += stages
+    return out
+
+
+def chain_weight_stream(net: PackedNet, dir_stage: bool = False):
+    """PackedNet -> (stream, order) of the chain kernels' field MLP
+    (weight_stream): matrices of K-rows x N lanes MN-major (32 K-rows of
+    256 lanes, 64 of 128); the heads' stage holds w_alpha^T (16 x 256)
+    then w_rgb^T (16 x 128), K-major. ``dir_stage`` adds view layer 0's
+    dir-PE part (the point kernels' stream)."""
+    return weight_stream(_stream_parts(net, dir_stage),
+                         (net.w_alpha, net.w_rgb))
 
 
 def chain_stream_matrices(stream: torch.Tensor, net: PackedNet,
@@ -436,14 +465,10 @@ def chain_stream_matrices(stream: torch.Tensor, net: PackedNet,
     its matrices by name (``w{i}``, ``wskip{i}``, ``wv{v}``, ``wv0d`` with
     ``dir_stage``, ``w_alpha``, ``w_rgb``); ``net`` gives only the shapes
     and the skip layers."""
+    parts = _stream_parts(net, dir_stage)
+    out = stream_matrices(stream, parts)
     img = stream.reshape(-1, STAGE_ELEMS)
-    out, q = {}, 0
-    for name, m, kr in _stream_parts(net, dir_stage):
-        k, n = m.shape
-        stages = -(-k // kr)
-        idx = swizzle_image_index(kr, n).reshape(-1).to(stream.device)
-        out[name] = img[q:q + stages][:, idx].reshape(stages * kr, n)[:k]
-        q += stages
+    q = sum(-(-m.shape[0] // kr) for _, m, kr in parts)
     W, WV = net.w_alpha.shape[0], net.w_rgb.shape[0]
     ia = swizzle_image_index(HEADS, W).reshape(-1).to(stream.device)
     ir = swizzle_image_index(HEADS, WV).reshape(-1).to(stream.device)

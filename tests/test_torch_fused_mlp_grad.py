@@ -23,6 +23,7 @@ from idealnerf_tpu.models import face_nerf as jax_fn
 from idealnerf_tpu_torch import bridge
 from idealnerf_tpu_torch.core.embedding import positional_encoding
 from idealnerf_tpu_torch.kernels import fused_mlp_grad as fmg
+from idealnerf_tpu_torch.kernels import fused_render as fr
 from idealnerf_tpu_torch.kernels.fused_render import (
     HEADS, PackedNet, model_leaves, pack_leaves,
 )
@@ -388,3 +389,267 @@ def test_planes_round_trip_to_pass_b(grad_dtype):
     for a, b in zip(_flat(fmg.grad_pass_b_reference(net, back, 3)),
                     _flat(fmg.grad_pass_b_reference(net, bufs, 3))):
         assert torch.equal(a, b)
+
+
+# ------------------------------- pass A on the wgmma chain, emulated here
+
+# the paper model, and 2-layer nets of the kernel's width with and without
+# a skip layer (layer 1 takes the PE again when 0 is in skips)
+NETS = {"paper": dict(depth=8), "d2-skip": dict(depth=2, skips=(0,)),
+        "d2-noskip": dict(depth=2, skips=())}
+
+
+def _net(name, n, seed=5):
+    """A packed bf16 net of NETS and n seeded points, unit directions and a
+    cotangent."""
+    cfg = FaceNeRFConfig(**{**DIMS, **NETS[name]})
+    model = FaceNeRF(cfg, torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed + n)
+    folded = fold_conditioning(model, cfg, _t(rng.randn(16) * 0.3).float(),
+                               _t(rng.randn(8) * 0.3).float(),
+                               torch.full((4,), 0.1))
+    net = pack_leaves(cfg, model_leaves(model, folded, cfg))
+    pts = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    dirs = rng.randn(n, 3).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    g = (rng.randn(n, 4) / 64).astype(np.float32)
+    return net, _t(pts), _t(dirs), _t(g)
+
+
+def _expected_grad_order(net):
+    """The stage order of csrc/fused_mlp_grad.cu's note: K4's forward
+    stages (layer 0, each later layer's skip pe-part before its h-part,
+    view layer 0 and its dir-PE stage, the other view layers) without the
+    heads, then WV_v^T for v = V-1..1 in 64-row stages, WV_0^T in 32-row
+    stages and W_i^T for i = D-1..1."""
+    order = [("w0", 0), ("w0", 32)]
+    for i in range(1, len(net.w)):
+        if i in net.wskip:
+            order += [(f"wskip{i}", 0), (f"wskip{i}", 32)]
+        order += [(f"w{i}", k) for k in range(0, 256, 32)]
+    order += [("wv0", k) for k in range(0, 256, 64)] + [("wv0d", 0)]
+    for v in range(1, len(net.wv)):
+        order += [(f"wv{v}", 0), (f"wv{v}", 64)]
+    for v in range(len(net.wv) - 1, 0, -1):
+        order += [(f"wv{v}T", 0), (f"wv{v}T", 64)]
+    order += [("wv0T", k) for k in range(0, 128, 32)]
+    for i in range(len(net.w) - 1, 0, -1):
+        order += [(f"w{i}T", k) for k in range(0, 256, 32)]
+    return order
+
+
+@pytest.mark.parametrize("name", list(NETS))
+def test_pass_a_stream_round_trips_and_follows_the_kernel_header(name):
+    """Pass A's weight stream reads back bitwise into every matrix it holds
+    (the backward's as the transposes of the net's), its stages lie in the
+    header's order, its forward stages are K4's stream less the heads, and
+    its count is the kernel's check, chain_stages + grad_back_stages: 69 +
+    64 = 133 for the paper model."""
+    net, _, _, _ = _net(name, 1)
+    stream, order = fmg.grad_weight_stream(net)
+    assert stream.dtype == torch.bfloat16
+    assert order == _expected_grad_order(net)
+    assert stream.numel() == len(order) * fr.STAGE_ELEMS
+    back = fmg.grad_stream_matrices(stream, net)
+    want = {f"w{i}": w for i, w in enumerate(net.w)}
+    want.update({f"wskip{i}": w for i, w in net.wskip.items()})
+    want.update({f"wv{v}": w for v, w in enumerate(net.wv)})
+    want.update({f"w{i}T": w.T for i, w in enumerate(net.w) if i})
+    want.update({f"wv{v}T": w.T for v, w in enumerate(net.wv)})
+    want["wv0d"] = net.wv0d
+    assert set(back) == set(want)
+    for k, w in want.items():
+        assert torch.equal(back[k], w), k
+    k4, k4_order = fr.chain_weight_stream(net, dir_stage=True)
+    n_fwd = len(k4_order) - 1
+    assert order[:n_fwd] == k4_order[:-1]
+    assert torch.equal(stream[:n_fwd * fr.STAGE_ELEMS],
+                       k4[:n_fwd * fr.STAGE_ELEMS])
+    D, V = len(net.w), len(net.wv)
+    chain_stages = (2 + sum(8 + 2 * (i in net.wskip) for i in range(1, D))
+                    + 4 + 2 * (V - 1) + 1)
+    back_stages = 2 * (V - 1) + 4 + 8 * (D - 1)
+    assert len(order) == chain_stages + back_stages
+    if name == "paper":
+        assert (n_fwd, len(order) - n_fwd) == (69, 64)
+
+
+def _emulate_pass_a(net, pts, dirs, g, acc):
+    """Pass A's stage walk in plain torch, in ``acc``: 128-point tiles
+    (zeros past N), every product summed one stage at a time with B read
+    from the stage's swizzled image of grad_weight_stream, the forward
+    (bf16 after every relu, relu' kept), then d_h from the heads' K = 4
+    products with the unrounded cotangent, masked, rounded and multiplied
+    back through the transposed stages; bias rows per 64-point half tile.
+    -> GradBuffers of N rows."""
+    stream, _ = fmg.grad_weight_stream(net)
+    img = stream.reshape(-1, fr.STAGE_ELEMS)
+    stages = []
+    for _, m, kr in fmg._grad_stream_parts(net):
+        idx = fr.swizzle_image_index(kr, m.shape[1]).reshape(-1)
+        for k0 in range(0, m.shape[0], kr):
+            stages.append(img[len(stages)][idx].reshape(kr, -1).to(acc))
+    n = pts.shape[0]
+    tiles = -(-n // fr.CHAIN_TILE)
+    pad = tiles * fr.CHAIN_TILE - n
+    pe, ped = (torch.nn.functional.pad(x.to(acc), (0, 64 - x.shape[1], 0, pad))
+               for x in fmg.encode_points(net, pts, dirs))
+    g4 = torch.nn.functional.pad(g.to(acc), (0, 0, 0, pad))
+    wa, wr = net.w_alpha[:, :4].to(acc), net.w_rgb[:, :4].to(acc)
+    D, V = len(net.w), len(net.wv)
+
+    def rnd(x):
+        return x.to(torch.bfloat16).to(acc)
+
+    def halves(d):
+        return d.reshape(2, 64, d.shape[1]).sum(1)
+
+    out = {k: [] for k in ("pe", "ped", "gb", "hs", "hvs", "dcs", "dvs",
+                           "bias")}
+    for t0 in range(0, n + pad, fr.CHAIN_TILE):
+        q = 0
+
+        def prod(a, lanes, out_=None):
+            nonlocal q
+            s = torch.zeros(a.shape[0], lanes, dtype=acc) if out_ is None \
+                else out_
+            kr = stages[q].shape[0]
+            for k0 in range(0, a.shape[1], kr):
+                s = s + a[:, k0:k0 + kr] @ stages[q]
+                q += 1
+            return s
+
+        x, xd, gt = (v[t0:t0 + fr.CHAIN_TILE] for v in (pe, ped, g4))
+        hs = [rnd(torch.relu(prod(x, 256) + net.b[0].to(acc)))]
+        for i in range(1, D):
+            s = prod(x, 256) if i in net.wskip else None
+            hs.append(rnd(torch.relu(prod(hs[-1], 256, s)
+                                     + net.b[i].to(acc))))
+        s = prod(xd, 128, prod(hs[-1], 128))
+        hvs = [rnd(torch.relu(s + net.bv[0].to(acc)))]
+        for v in range(1, V):
+            hvs.append(rnd(torch.relu(prod(hvs[-1], 128)
+                                      + net.bv[v].to(acc))))
+        dvs, dcs, bv, bs = [None] * V, [None] * D, [None] * V, [None] * D
+        dv = gt @ wr.T
+        for v in range(V - 1, -1, -1):
+            dv = torch.where(hvs[v] > 0, dv, torch.zeros_like(dv))
+            dvs[v], bv[v] = rnd(dv), halves(dv)
+            if v:
+                dv = prod(dvs[v], 128)
+        dh = prod(dvs[0], 256) + gt @ wa.T
+        for i in range(D - 1, -1, -1):
+            dh = torch.where(hs[i] > 0, dh, torch.zeros_like(dh))
+            dcs[i], bs[i] = rnd(dh), halves(dh)
+            if i:
+                dh = prod(dcs[i], 256)
+        assert q == len(stages)
+        g16 = torch.nn.functional.pad(gt, (0, HEADS - 4))
+        for k, v in (("pe", x), ("ped", xd[:, :fr.PED_PAD]), ("gb", rnd(g16)),
+                     ("hs", hs), ("hvs", hvs), ("dcs", dcs), ("dvs", dvs),
+                     ("bias", torch.cat([*bs, *bv, halves(g16)], dim=1))):
+            out[k].append(v)
+    cat = (lambda k: torch.cat(out[k])[:n])
+    layers = (lambda k, L: [torch.cat([t[j] for t in out[k]])[:n]
+                            for j in range(L)])
+    return fmg.GradBuffers(
+        pe=cat("pe"), ped=cat("ped"), gb=cat("gb"), hs=layers("hs", D),
+        hvs=layers("hvs", V), dcs=layers("dcs", D), dvs=layers("dvs", V),
+        bias=torch.cat(out["bias"])[:-(-n // fmg.GRAD_TILE)])
+
+
+def _buffers(b):
+    return {"pe": b.pe, "ped": b.ped, "gb": b.gb, "bias": b.bias,
+            **{f"h{i}": x for i, x in enumerate(b.hs)},
+            **{f"hv{v}": x for v, x in enumerate(b.hvs)},
+            **{f"dc{i}": x for i, x in enumerate(b.dcs)},
+            **{f"dv{v}": x for v, x in enumerate(b.dvs)}}
+
+
+@pytest.mark.parametrize("name,n", [
+    ("paper", 1), ("paper", 127), ("paper", 1001), ("d2-skip", 127),
+    ("d2-noskip", 1001)])
+def test_pass_a_emulation_matches_grad_pass_a_reference(name, n):
+    """The emulation of pass A's stage walk against grad_pass_a_reference,
+    every plane and the bias rows: within 1e-5 norm-relative in f64, where
+    the order of the sums leaves no trace; in f32 within twice the
+    reference's own distance from f64 (at least 1e-5), since a sum one ulp
+    apart may round an activation or a d_h to the neighbouring bf16 value.
+    Ragged N (one point in a tile of zeros, a ragged last tile, a ragged
+    last 64-point half) leaves the valid rows and the bias rows as they
+    are."""
+    net, pts, dirs, g = _net(name, n)
+    want64 = _buffers(fmg.grad_pass_a_reference(net, pts, dirs, g,
+                                                torch.float64))
+    want32 = _buffers(fmg.grad_pass_a_reference(net, pts, dirs, g))
+    got64 = _buffers(_emulate_pass_a(net, pts, dirs, g, torch.float64))
+    got32 = _buffers(_emulate_pass_a(net, pts, dirs, g, torch.float32))
+    assert want64["bias"].shape[0] == -(-n // 64)
+    for k, w in want64.items():
+        assert got64[k].shape == got32[k].shape == w.shape, k
+        assert _rel(got64[k], w) <= 1e-5, (k, _rel(got64[k], w))
+        own = _rel(want32[k], w)
+        assert _rel(got32[k], w) <= max(2 * own, 1e-5), (k, own)
+
+
+def test_pass_a_emulation_composes_to_the_jax_vjp(monkeypatch):
+    """The emulated pass A, then grad_pass_b_reference, through the
+    training autograd Function: every parameter gradient within the bf16
+    bound of test_backward_matches_jax_vjp_and_autograd of the JAX VJP."""
+    jcfg, jparams, cfg, model, pts, dirs, cond, w = _setup()
+
+    def composed(net, p, d, g):
+        return fmg.grad_pass_b_reference(
+            net, _emulate_pass_a(net, p, d, g, torch.float32))
+
+    monkeypatch.setattr(fmg, "point_mlp_grad_reference", composed)
+    got = _port_grads(cfg, model, pts, dirs, cond, w, torch.bfloat16)
+    ref = _jax_grads(jcfg, jparams, pts, dirs, cond, w, jnp.bfloat16)
+    assert jax.tree.structure(ref) == jax.tree.structure(got)
+    for name, err in _norm_rel(got, ref).items():
+        assert err < TOL[torch.bfloat16], f"{name}: {err:.3e}"
+
+
+def _pass_a_smem_bytes(ring, depth, n_views):
+    """csrc/fused_mlp_grad.cu pass_a_smem_bytes: 1,024 bytes of alignment,
+    the ring, two warpgroups' PE / trunk / view tiles (the dir-PE tile
+    shares the view tile) and relu' bits (16 bytes a thread per trunk
+    layer, 8 per view layer), the ring's mbarriers, then the store
+    mailboxes: two full and two empty mbarriers and two 48-byte Mails."""
+    tiles = 2 * 64 * (fr.PE_PAD + 256 + 128)
+    masks = 128 * (16 * depth + 8 * n_views)
+    return (1024 + ring * 2 * fr.STAGE_ELEMS + 2 * (tiles + masks) + 128
+            + 32 + 2 * 48)
+
+
+class _PassALib:
+    """The library calls pass A's plan makes, from the layout above."""
+
+    fr_grad_pass_a_smem_bytes = staticmethod(_pass_a_smem_bytes)
+
+
+@pytest.mark.parametrize("N,plan", [
+    (131072, (8, 128)), (393216, (24, 128)), (524288, (32, 128)),
+    (1001, (1, 8)), (1, (1, 1))])
+def test_pass_a_plans_cover_every_point_once_in_one_wave(N, plan):
+    """Pass A's plan on a 132-SM card at the paper depth: the point
+    kernels' plan (the step's coarse and fine passes, both at once, a
+    ragged 1,001, one point), every point covered exactly once by at most
+    one wave of blocks, at a 4-stage ring whose shared memory fits and a
+    5-stage one that would not; deeper nets take 3 or 2 stages (the
+    deepest the operand table allows, 16 layers, 2), and a net whose
+    relu' bits leave no room for 2 is refused."""
+    per_block, blocks, ring = fmg.pass_a_plan(_PassALib(), N, 132, 8, 3)
+    assert (per_block, blocks, ring) == (*plan, 4)
+    assert _pass_a_smem_bytes(4, 8, 3) == 220416 <= fr.SMEM_LIMIT
+    assert _pass_a_smem_bytes(5, 8, 3) > fr.SMEM_LIMIT
+    seen = torch.zeros(N, dtype=torch.int32)
+    for b in range(blocks):
+        p0 = b * per_block * fr.CHAIN_TILE
+        assert p0 < N
+        seen[p0:min(p0 + per_block * fr.CHAIN_TILE, N)] += 1
+    assert torch.all(seen == 1)
+    assert fmg.pass_a_plan(_PassALib(), N, 132, 12, 4)[2] == 3
+    assert fmg.pass_a_plan(_PassALib(), N, 132, 16, 5)[2] == 2
+    with pytest.raises(ValueError, match="shared memory"):
+        fmg.pass_a_plan(_PassALib(), N, 132, 40, 11)
