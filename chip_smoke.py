@@ -79,11 +79,13 @@ non-zero and no result line is printed):
    spill, and its SASS must hold HGMMA (wgmma) and no HMMA (wmma).
 8. the training slice: ``idealnerf_tpu_torch.cli.train_head.main`` on
    ``--train_frames`` synthetic frames of ``--train_hw``² at full width
-   (D=8, W=256, N_rand 2048, 64+128) for ``--train_epochs`` epochs: ms per
-   step after warm-up, first and last loss and PSNR (finite), both kernels
-   launched twice per step; the checkpoint it writes then renders one
-   frame through ``render_val.main --head_ckpt`` with a finite PSNR. Then
-   torch.profiler over one training step (table in chiprun_out/).
+   (D=8, W=256, N_rand 2048, 64+128) for ``--train_epochs`` epochs: first
+   and last loss and PSNR (finite), both kernels launched twice per step;
+   the checkpoint it writes then renders one frame through
+   ``render_val.main --head_ckpt`` with a finite PSNR. Then, on a fresh
+   trainer, the ms per step over whole wall windows (``_step_ms``: the
+   median of 3 windows of 18 steps after 2 of warm-up) and torch.profiler
+   over one training step (table in chiprun_out/).
 9. the temporal delta kernel against its plain version (depth placement,
    fine pass, next band) on the phase-2 rays and a ragged 1,001 at the
    serving default s_delta 16 (3 uniform + 12 importance depths + the
@@ -134,9 +136,35 @@ non-zero and no result line is printed):
    Then ``idealnerf_tpu_torch.scripts.kpoint`` likewise for K4 at 524,288
    points and K5 at 2^21 (ring depths, tiles per block). K5's
    ``library_ms`` is the torch.addmm yardstick on kdiag2's own encodings.
+12. the head + torso composite. 12a: a seeded torso field at full width
+   (D=8, W=256, dim_aud 32 + 42, no expr or latent) through K2 and K1 at
+   ``--rays`` and on a whole 450x450 frame cast from the first frame's
+   pose, against the plain versions (rgb, acc, last_weight 3e-2 with rgb
+   correlation > 0.999; the fine depths 2e-6); a 24x24 composite frame on
+   the card against the plain versions on the host (3e-2, correlation >
+   0.999); the composite 450x450 frame's ms beside the head frame's.
+   12b: one torso step with ``train_fused 2`` against ``train_fused 0``
+   on the same coords (bounds in ``_phase_torso_train``), then
+   ``idealnerf_tpu_torch.cli.train_torso.main`` on phase 8's checkpoint
+   for ``--train_epochs`` x ``--train_frames`` steps of N_rand 2048 on
+   com frames of ``--train_hw``²: finite loss and PSNR, K4 launched 4
+   times a step (two fields, the head without gradient) and the gradient
+   kernel twice (the torso only), the head bitwise unchanged, a
+   checkpoint at the last step; ms per step over whole wall windows
+   (``_step_ms``, as phase 8's) and a profiled step. 12c:
+   ``cli.eval_reenact.main --torso_ckpt`` renders ``--frames`` composite
+   frames of ``--hw``²: finite, K2 and K1 launched twice a frame. 12d
+   (ROADMAP.md C1): a W=128, D=4 net through ``train_head.main`` and
+   ``render_val.main`` on the card runs zero-padded to the chain's widths:
+   K4 and K6 launch twice a step, K2 and K1 once a frame, and its frames
+   agree with the same checkpoint rendered on the host (3e-2,
+   correlation > 0.999); a W=512 net is refused by both before any
+   launch.
 
 Then the kernel summary as one JSON line (each kernel's launches on its
-path, its max error, its time and its plain version's, and its bound: the
+paths, K1/K2 over render_val and the composite reenact, K4/K6 over
+train_head and train_torso; its max error, its time and its plain
+version's, and its bound: the
 larger of the bytes it must move over 3.35 TB/s and its operations at the
 H100 SXM data sheet's dense rate for their type, 989 TFLOP/s bf16, 1,979
 TOP/s int8, 67 TFLOP/s f32: ``idealnerf_tpu_torch.scripts.PEAK``), the
@@ -875,10 +903,11 @@ def _phase_point_mlp(fm, fr, net, folded, ncfg, pts, dirs, ptxas,
         del got, again, other, want
     torch.cuda.synchronize()
     # the kernels line's span, as the parent's: the wrapper that packs the
-    # net on every call (as K1/K2's in phase 2), and its plain version
+    # net on every call (as K1/K2's in phase 2), over 20 calls (its host
+    # packing spreads between runs), and its plain version
     last, host, point_host = {}, [], []
     ms = _time_ms(lambda: last.update(k=fm.fused_point_mlp(
-        net, folded, ncfg, pts, dirs)), 5, host)
+        net, folded, ncfg, pts, dirs)), 20, host)
     pms = _time_ms(lambda: last.update(p=fm.fused_point_mlp_reference(
         net, folded, ncfg, pts, dirs)), 2)
     same = torch.equal(first, last["k"])
@@ -1226,12 +1255,9 @@ def _phase_train(args, fm, fmg, fr) -> dict:
               **fmg.launch_counts}
     steps = res["step"]
     first, last = res["history"][0][1], res["history"][-1][1]
-    step_ms = 1e3 / last["steps_per_sec_rolling"]
     print(f"phase 8 train_head: {steps} steps on {args.train_frames} frames "
-          f"of {args.train_hw}x{args.train_hw}, D=8 W=256 N_rand 2048 64+128: "
-          f"{step_ms:.1f} ms/step over steps "
-          f"{res['history'][-2][0] if len(res['history']) > 1 else 0}-"
-          f"{res['history'][-1][0]}; loss {first['loss']:.5f} -> "
+          f"of {args.train_hw}x{args.train_hw}, D=8 W=256 N_rand 2048 64+128; "
+          f"loss {first['loss']:.5f} -> "
           f"{last['loss']:.5f}, PSNR {first['psnr']:.3f} -> "
           f"{last['psnr']:.3f}; launches {counts}")
     vals = [first["loss"], last["loss"], first["psnr"], last["psnr"]]
@@ -1254,8 +1280,9 @@ def _phase_train(args, fm, fmg, fr) -> dict:
     if not math.isfinite(rv["psnr"]):
         raise AssertionError("the trained checkpoint rendered non-finite")
     torch.cuda.synchronize()
-    return {"steps": steps, "step_ms": step_ms, "first": first, "last": last,
-            "launches": counts, "render_psnr": rv["psnr"]}
+    return {"steps": steps, "first": first, "last": last,
+            "launches": counts, "render_psnr": rv["psnr"],
+            "ckpt_dir": res["ckpt_dir"]}
 
 
 def _points(ro, rd, near, far, n):
@@ -1552,8 +1579,29 @@ def _phase_kpoint() -> list:
     return res["results"]
 
 
+def _step_ms(step, n: int, windows: int = 3) -> list:
+    """ms per training step: ``step(i)`` n times in each of ``windows``
+    wall windows after two warm-up steps, each window opened and closed by
+    a device synchronize, so it spans every step's host and device work
+    -> the windows' ms per step (their spread is the call's)."""
+    import torch
+
+    for i in range(2):
+        step(i)
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0) / n)
+    return out
+
+
 def _profile_train_step(args):
-    """One warm training step of the phase-8 configuration, profiled."""
+    """The phase-8 configuration's ms per step (``_step_ms``: 3 windows of
+    18 steps on a fresh trainer) and one warm step, profiled."""
     import torch
 
     from idealnerf_tpu_torch.config import ExperimentConfig
@@ -1565,9 +1613,354 @@ def _profile_train_step(args):
                                 dim_expr=76)
     tr = HeadTrainer(cfg, ds, seed=0, device="cuda")
     step = tr._step_fn(smooth=False)
-    return _profile(lambda: step(tr.state, tr.data, 0, tr.generator),
+    ms = _step_ms(lambda i: step(tr.state, tr.data, i % ds.size,
+                                 tr.generator), 18)
+    print(f"phase 8 train step: {sorted(ms)[1]:.2f} ms/step, the median of "
+          f"3 windows of 18 steps (each {', '.join(f'{m:.2f}' for m in ms)})")
+    prof = _profile(lambda: step(tr.state, tr.data, 0, tr.generator),
                     f"training step ({args.train_hw}x{args.train_hw}, "
                     "N_rand 2048, 64+128)", "profile_train_step.txt")
+    return {**prof, "step_ms": sorted(ms)[1], "step_ms_windows": ms}
+
+
+def _torso_setup(cfg, dev, seed: int = 5):
+    """Seeded torso nets at the paper width on ``dev`` and their config."""
+    import torch
+
+    from idealnerf_tpu_torch.train.torso import (
+        init_torso_params, torso_nerf_config,
+    )
+
+    return (init_torso_params(cfg, torch.Generator().manual_seed(seed))
+            .to(dev), torso_nerf_config(cfg))
+
+
+def _phase_torso_field(fr, cfg, nets, cond, ds, sizes) -> dict:
+    """Phase 12a: the torso field (D=8, W=256, dim_aud 32 + 42) through K2
+    and K1 at each size of ``sizes`` (rays cast from the first frame's
+    pose) against the plain versions; a 24x24 composite frame on the card
+    against the plain versions on the host; the composite 450x450 frame's
+    ms beside the head frame's (CUDA events)."""
+    import torch
+
+    from idealnerf_tpu_torch.core.sampling import stratified_sample
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.eval.renderer import (
+        make_composite_frame_renderer, make_frame_renderer,
+    )
+    from idealnerf_tpu_torch.models.face_nerf import fold_conditioning
+    from idealnerf_tpu_torch.train.state import init_params
+    from idealnerf_tpu_torch.train.torso import torso_signal
+
+    aud, expr, latent = cond
+    dev = aud.device
+    torso, tcfg = _torso_setup(cfg, dev)
+    pose0 = torch.from_numpy(ds.poses[0]).to(dev)
+    signal = torso_signal(aud, pose0, cfg.dim_aud_body)
+    fc, ff = (fold_conditioning(torso[k], tcfg, signal)
+              for k in ("coarse", "fine"))
+    near, far, n_s, n_i = ds.near, ds.far, cfg.N_samples, cfg.N_importance
+    errs = {"fused_render_coarse_hier": 0.0, "fused_render_rays": 0.0}
+    print(f"phase 12a torso field (D={tcfg.depth}, W={tcfg.width}, dim_aud "
+          f"{cfg.dim_aud_body} + 42) through K2 + K1 vs plain versions")
+    keys = ("rgb_map", "acc_map", "last_weight")
+    for tag, (o, d, b) in sizes.items():
+        R = o.shape[0]
+        c_args = (torso["coarse"], fc, tcfg, o, d, b, near, far, n_s, n_i)
+        ck, zk = fr.fused_render_coarse_hier(*c_args)
+        cp, _ = fr.fused_render_coarse_hier_reference(*c_args)
+        print(f"  R={R} ({tag}), {n_s}+{n_i}:")
+        e = [_agree(f"coarse {k}", ck[k], cp[k], corr=k == "rgb_map")
+             for k in keys]
+        zc = stratified_sample(near, far, n_s, R, device=dev)
+        e.append(_agree("fine depths vs plain merge of the kernel's weights",
+                        zk, fr.importance_depths(zc, ck["weights"], n_i),
+                        atol=Z_ATOL))
+        errs["fused_render_coarse_hier"] = max(
+            errs["fused_render_coarse_hier"], *e)
+        f_args = (torso["fine"], ff, tcfg, o, d, zk, b)
+        fk, fp = fr.fused_render_rays(*f_args), fr.fused_render_rays_reference(
+            *f_args)
+        e = [_agree(f"fine {k}", fk[k], fp[k], corr=k == "rgb_map")
+             for k in keys]
+        errs["fused_render_rays"] = max(errs["fused_render_rays"], *e)
+        del ck, zk, cp, fk, fp
+        torch.cuda.empty_cache()
+
+    # a small composite frame, card against the plain versions on the host
+    st = init_params(cfg, 1, torch.Generator().manual_seed(6))
+    tp, _ = _torso_setup(cfg, "cpu", seed=7)
+    sds = make_synthetic_dataset(n_frames=2, H=24, W=24, dim_expr=76,
+                                 with_torso=True)
+    small = make_composite_frame_renderer(
+        cfg.face_nerf_config(), tcfg, 24, 24, sds.focal, sds.near, sds.far,
+        cfg.render_config(), cx=sds.cx, cy=sds.cy)
+    a = torch.randn(64, generator=torch.Generator().manual_seed(8))
+    frames = {}
+    for d in ("cpu", dev):
+        hp, tq = st.params.to(d), tp.to(d)
+        pose = torch.from_numpy(sds.poses[1]).to(d)
+        frames[d] = small(hp, tq, pose, torch.from_numpy(sds.poses[0]).to(d),
+                          torch.from_numpy(sds.bc_img).to(d).float() / 255,
+                          aud=a.to(d), signal=torso_signal(a.to(d), pose, 32),
+                          expr=torch.from_numpy(sds.exprs[1]).to(d),
+                          latent=torch.ones(32, device=d))
+    print("  24x24 composite frame, card vs plain versions on the host:")
+    err24 = _agree("composite frame", frames[dev].cpu(), frames["cpu"],
+                   corr=True)
+
+    H, W = ds.hw
+    bc = torch.from_numpy(ds.bc_img).to(dev).float() / 255
+    view = (H, W, ds.focal, near, far, cfg.render_config())
+    comp = make_composite_frame_renderer(cfg.face_nerf_config(), tcfg, *view,
+                                         cx=ds.cx, cy=ds.cy)
+    head = make_frame_renderer(cfg.face_nerf_config(), *view, cx=ds.cx,
+                               cy=ds.cy)
+    ms = {"composite": _time_ms(lambda: comp(
+              nets, torso, pose0, pose0, bc, aud=aud, signal=signal,
+              expr=expr, latent=latent), 3),
+          "head": _time_ms(lambda: head(nets, pose0, bc, aud=aud, expr=expr,
+                                        latent=latent), 3)}
+    print(f"  {H}x{W} frame at {n_s}+{n_i}: composite {ms['composite']:.1f} "
+          f"ms, head alone {ms['head']:.1f} ms (CUDA events, 3 frames each "
+          "after a warm-up)")
+    torch.cuda.synchronize()
+    return {"errs": errs, "frame_24_err": err24, "frame_ms": ms}
+
+
+def _phase_torso_train(args, fm, fmg, head_ckpt: str, rays: int = 2048,
+                       dev: str = "cuda") -> dict:
+    """Phase 12b: one torso step with ``train_fused 2`` against
+    ``train_fused 0`` on the same coords (no random draws): the loss within
+    GRAD_TOL["bf16"]["plain"] relative, each torso gradient within
+    GRAD_TOL["bf16"]["autograd"] norm-relative (phase 7's bf16 bounds) and
+    with a correlation above 1 - tol^2 / 2 (what that distance allows at
+    equal norms); then cli.train_torso.main on the phase-8 head checkpoint
+    for train_epochs x train_frames steps: finite loss and PSNR, K4
+    launched 4 times a step and the gradient kernel twice, the head
+    bitwise unchanged, a checkpoint at the last step; then on a fresh
+    trainer the ms per step (``_step_ms``: 3 windows of all but two
+    warm-up steps) and a profiled step."""
+    import torch
+
+    from idealnerf_tpu_torch.ckpt import CheckpointManager
+    from idealnerf_tpu_torch.cli import train_torso
+    from idealnerf_tpu_torch.config import ExperimentConfig
+    from idealnerf_tpu_torch.data.sampler import sample_ray_coords
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.train.state import init_params
+    from idealnerf_tpu_torch.train.torso import (
+        TorsoTrainer, make_torso_frame_loss, torso_ray_budget,
+    )
+
+    cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32,
+                           N_rand=rays)
+    H = W = args.train_hw
+    ds = make_synthetic_dataset(n_frames=args.train_frames, H=H, W=W,
+                                dim_expr=76, with_torso=True)
+    ck = CheckpointManager(head_ckpt).restore()
+    head = init_params(cfg, ds.size).params
+    head.load_state_dict(ck["params"])
+    head, latent = head.to(dev), ck["latent_codes"].to(dev)
+    data = ds.to_device(dev)
+    torso, _ = _torso_setup(cfg, dev)
+    budget, rect, box = torso_ray_budget(cfg, H, W, dev)
+    coords = sample_ray_coords(
+        torch.Generator(device=dev).manual_seed(1), H, W, rect, box,
+        torch.zeros((H, W), dtype=torch.uint8, device=dev), budget)
+    loss, grads = {}, {}
+    for tf in (2, 0):
+        c = dataclasses.replace(cfg, train_fused=tf)
+        torso.zero_grad(set_to_none=True)
+        out, _ = make_torso_frame_loss(c, ds, True, dev)(
+            torso, head, latent, data, 1, coords, None)
+        out.backward()
+        loss[tf] = float(out.detach())
+        grads[tf] = {n: p.grad.detach().clone()
+                     for n, p in torso.named_parameters()}
+    tol, ltol = GRAD_TOL["bf16"]["autograd"], GRAD_TOL["bf16"]["plain"]
+    min_corr = 1.0 - tol ** 2 / 2
+    lerr = abs(loss[2] - loss[0]) / abs(loss[0])
+    worst, low = (0.0, ""), (1.0, "")
+    for n, g in grads[2].items():
+        r = grads[0][n]
+        worst = max(worst, (_norm_rel(g, r), n))
+        if g.numel() > 1:  # a one-element bias has no correlation
+            low = min(low, (float(torch.corrcoef(torch.stack(
+                [g.reshape(-1).double(), r.reshape(-1).double()]))[0, 1]),
+                n))
+    print(f"phase 12b torso step, train_fused 2 vs 0 ({budget.total} rays at "
+          f"{H}x{W}, no draws): loss {loss[2]:.6f} vs {loss[0]:.6f} "
+          f"(relative {lerr:.2e}, tol {ltol:g}); worst gradient "
+          f"norm-relative {worst[0]:.3e} ({worst[1]}; tol {tol:g}), lowest "
+          f"correlation {low[0]:.6f} ({low[1]}; > {min_corr:.5f})")
+    if not (lerr <= ltol and worst[0] <= tol and low[0] > min_corr):
+        raise AssertionError("the fused torso step disagrees with the plain")
+    del grads, torso, data
+    torch.cuda.empty_cache()
+
+    steps = args.train_epochs * args.train_frames
+    shutil.rmtree("output/chip_smoke_torso", ignore_errors=True)  # no resume
+    fm.reset_launch_counts()
+    fmg.reset_launch_counts()
+    res = train_torso.main([
+        "--synthetic", str(args.train_frames), "--synthetic_hw", str(H),
+        "--dim_aud", "64", "--dim_expr", "76", "--dim_latent", "32",
+        "--N_rand", str(rays), "--N_samples", "64", "--N_importance", "128",
+        "--steps", str(steps), "--i_print", "5", "--device", dev,
+        "--basedir", "output/chip_smoke_torso", "--head_ckpt", head_ckpt])
+    counts = {"fused_point_mlp": fm.launch_counts["fused_point_mlp"],
+              **fmg.launch_counts}
+    hist = res["history"]
+    first, last = hist[0][1], hist[-1][1]
+    print(f"  train_torso: {res['step']} steps on {args.train_frames} frames "
+          f"of {H}x{W}, D=8 W=256 N_rand {rays} 64+128; loss "
+          f"{first['loss']:.5f} -> {last['loss']:.5f}, PSNR "
+          f"{first['psnr']:.3f} -> {last['psnr']:.3f}; launches {counts}")
+    if not all(math.isfinite(m[k]) for _, m in hist for k in ("loss",
+                                                              "psnr")):
+        raise AssertionError("train_torso produced a non-finite loss or PSNR")
+    want = {"fused_point_mlp": 4 * steps, "fused_point_mlp_grad": 2 * steps}
+    if res["step"] != steps or {k: counts[k] for k in want} != want:
+        raise AssertionError(f"train_torso launched {counts}, want {want}")
+    moved = [k for k, v in res["head_params"].state_dict().items()
+             if not torch.equal(v.cpu(), ck["params"][k])]
+    print(f"  head parameters bitwise unchanged: {not moved}")
+    if moved:
+        raise AssertionError(f"train_torso moved the frozen head: {moved}")
+    if CheckpointManager(res["ckpt_dir"]).latest_step() != steps:
+        raise AssertionError(f"no torso checkpoint at step {steps}")
+
+    tr = TorsoTrainer(cfg, ds, res["head_params"], latent, seed=2,
+                      device=dev)
+    ms = _step_ms(lambda i: tr._step_fn(tr.state, tr.head_params,
+                                        tr.latent_codes, tr.data,
+                                        i % ds.size, tr.generator),
+                  steps - 2)
+    step_ms = sorted(ms)[1]
+    print(f"  torso step: {step_ms:.2f} ms/step, the median of 3 windows of "
+          f"{steps - 2} steps (each {', '.join(f'{m:.2f}' for m in ms)})")
+    prof = _profile(lambda: tr._step_fn(tr.state, tr.head_params,
+                                        tr.latent_codes, tr.data, 0,
+                                        tr.generator),
+                    f"torso step ({H}x{W}, N_rand {rays}, 64+128)",
+                    "profile_torso_step.txt")
+    torch.cuda.synchronize()
+    return {"steps": steps, "step_ms": step_ms, "step_ms_windows": ms,
+            "first": first, "last": last,
+            "launches": counts, "ckpt_dir": res["ckpt_dir"],
+            "fused_vs_plain": {"loss_rel": lerr, "worst": worst,
+                               "lowest_corr": low},
+            "profile": prof}
+
+
+def _phase_reenact(args, fr, head_ckpt: str, torso_ckpt: str,
+                   dev: str = "cuda") -> dict:
+    """Phase 12c: cli.eval_reenact.main --torso_ckpt: composite frames of
+    450x450 from the phase-8 head and the 12b torso; finite frames (a
+    non-finite pixel makes the PSNR non-finite), K2 and K1 launched twice
+    a frame (head, torso)."""
+    from idealnerf_tpu_torch.cli import eval_reenact
+
+    n = args.frames
+    fr.reset_launch_counts()
+    res = eval_reenact.main([
+        "--synthetic", str(n), "--synthetic_hw", str(args.hw), "--dim_aud",
+        "64", "--dim_expr", "76", "--dim_latent", "32", "--device", dev,
+        "--head_ckpt", head_ckpt, "--torso_ckpt", torso_ckpt,
+        "--save_path", "output/chip_smoke_reenact"])
+    counts = {k: fr.launch_counts[k] for k in ("fused_render_coarse_hier",
+                                               "fused_render_rays")}
+    print(f"phase 12c eval_reenact --torso_ckpt: {res['frames']} composite "
+          f"frames of {args.hw}x{args.hw}, {res['frame_ms']:.1f} ms/frame "
+          f"after the first, PSNR {res['psnr']:.3f} against the com frames; "
+          f"launches {counts}")
+    if not math.isfinite(res["psnr"]) or res["frames"] != n:
+        raise AssertionError("eval_reenact produced non-finite frames")
+    if counts != dict.fromkeys(counts, 2 * n):
+        raise AssertionError(f"eval_reenact launched {counts} for {n} frames")
+    return {**res, "launches": counts}
+
+
+def _phase_c1(fr, fm, fmg, dev: str = "cuda", hw: int = 64,
+              rays: int = 1024) -> dict:
+    """Phase 12d (ROADMAP.md C1): a net narrower than the chain (W=128,
+    D=4) through train_head.main and render_val.main on the card at 2
+    frames of 64x64. The wrappers run it zero-padded to the chain's widths
+    (fused_render.widen): K4 and K6 launch twice a step, K2 and K1 once a
+    frame, and its frames agree with render_val of the same checkpoint on
+    the CPU (3e-2, corr > 0.999). A net wider than the chain (W=512) is
+    refused by both entry points before any launch."""
+    import torch
+
+    from idealnerf_tpu_torch.cli import render_val, train_head
+
+    base = ["--synthetic", "2", "--synthetic_hw", str(hw), "--dim_aud",
+            "64", "--dim_expr", "76", "--dim_latent", "32"]
+    kernels = (fr, fm, fmg)
+
+    def launches():
+        return {k: v for m in kernels for k, v in m.launch_counts.items()
+                if v}
+
+    def reset():
+        for k in kernels:
+            k.reset_launch_counts()
+
+    def frames(net, ckpt, device, d):
+        rv = render_val.main([*base, *net, "--device", device, "--head_ckpt",
+                              ckpt, "--save_path", d])
+        if not math.isfinite(rv["psnr"]):
+            raise AssertionError(f"render_val on {device} is non-finite")
+        return torch.from_numpy(rv["frames"])
+
+    print("phase 12d C1: a W=128, D=4 net through train_head and render_val "
+          "on the card, zero-padded to the chain's widths")
+    narrow = ["--netwidth", "128", "--netdepth", "4"]
+    d = "output/chip_smoke_c1/w128"
+    shutil.rmtree(d, ignore_errors=True)
+    reset()
+    tr = train_head.main([*base, *narrow, "--N_rand", str(rays), "--epochs",
+                          "1", "--i_print", "1", "--device", dev,
+                          "--basedir", d])
+    card = frames(narrow, tr["ckpt_dir"], dev, d)
+    counts = launches()
+    last = tr["history"][-1][1]
+    print(f"  W=128 on {dev}: train_head {tr['step']} steps, loss "
+          f"{last['loss']:.5f}; render_val 2 frames; launches {counts}")
+    if not math.isfinite(last["loss"]):
+        raise AssertionError("W=128: train_head is non-finite")
+    want = {"fused_render_coarse_hier": 2, "fused_render_rays": 2,
+            "fused_point_mlp": 2 * tr["step"],
+            "fused_point_mlp_grad": 2 * tr["step"]}
+    if any(counts.get(k) != n for k, n in want.items()):
+        raise AssertionError(f"W=128 launched {counts}, want {want}")
+    host = frames(narrow, tr["ckpt_dir"], "cpu",
+                  "output/chip_smoke_c1/w128_cpu")
+    out = {"launches_w128": counts,
+           "frame_err": _agree("W=128 frames of one checkpoint, card vs "
+                               "host", card, host, corr=True)}
+    wide = ["--netwidth", "512", "--netdepth", "4"]
+    reset()
+    for name, run in (
+            ("train_head", lambda: train_head.main(
+                [*base, *wide, "--N_rand", str(rays), "--epochs", "1",
+                 "--device", dev, "--basedir", "output/chip_smoke_c1/w512"])),
+            ("render_val", lambda: render_val.main(
+                [*base, *wide, "--max_frames", "1", "--device", dev,
+                 "--save_path", "output/chip_smoke_c1/w512"]))):
+        try:
+            run()
+        except ValueError as e:
+            print(f"  W=512 {name} refused: {e}")
+            if "B10" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"W=512 {name} ran on the card")
+    if launches():
+        raise AssertionError(f"W=512 launched {launches()}")
+    torch.cuda.synchronize()
+    return out
 
 
 def main(argv=None) -> int:
@@ -1712,8 +2105,11 @@ def main(argv=None) -> int:
           f"D=8 W=256 {n_s}+{n_i}: {res['frame_ms']:.1f} ms/frame after the "
           f"first, PSNR {res['psnr']:.3f}, SSIM {res['ssim']:.4f}, "
           f"launches {counts}")
-    if not (math.isfinite(res["psnr"]) and math.isfinite(res["ssim"])):
+    frames = res.pop("frames")  # the report keeps the metrics only
+    if not (math.isfinite(res["psnr"]) and math.isfinite(res["ssim"])
+            and frames.shape == (args.frames, args.hw, args.hw, 3)):
         raise AssertionError("render_val produced non-finite frames")
+    del frames
     for k, n in counts.items():
         if n != args.frames:
             raise AssertionError(f"{k} launched {n} times for "
@@ -1791,9 +2187,32 @@ def main(argv=None) -> int:
     report["kframe"] = _phase_kframe()
     report["kpoint"] = _phase_kpoint()
 
-    counts.update(res8["launches"])
+    # ---- phase 12: the head + torso composite and C1
+    frame = tuple(x.reshape(-1, 3).contiguous() for x in get_rays(
+        450, 450, ds.focal, torch.from_numpy(ds.poses[0]).to(dev), ds.cx,
+        ds.cy)) + ((torch.from_numpy(ds.bc_img).to(dev).float() / 255.0)
+                   .reshape(-1, 3),)
+    res12a = _phase_torso_field(fr, cfg, nets, (aud, expr, latent), ds,
+                                {"phase-2 rays": (ro, rd, bc),
+                                 "450x450 frame": frame})
+    del frame
+    torch.cuda.empty_cache()
+    res12b = _phase_torso_train(args, fm, fmg, res8["ckpt_dir"])
+    res12c = _phase_reenact(args, fr, res8["ckpt_dir"], res12b["ckpt_dir"])
+    res12d = _phase_c1(fr, fm, fmg)
+    report.update(torso_field=res12a, torso_train=res12b, reenact=res12c,
+                  c1=res12d)
+
+    # launches on the main paths: render_val and the composite reenact
+    # (K1, K2), train_head and train_torso (K4, K6), serve (K3)
+    for k, n in res12c["launches"].items():
+        counts[k] += n
+    for k, n in res8["launches"].items():
+        counts[k] = n + res12b["launches"][k]
     counts["fused_render_delta"] = (
         res10["defaults"]["launches"]["fused_render_delta"])
+    for k, e in res12a["errs"].items():
+        errs[k] = max(errs[k], e)
     errs.update(fused_point_mlp=res6["max_abs_err"],
                 fused_point_mlp_grad=res7["max_abs_err"],
                 fused_render_delta=res9["max_abs_err"])

@@ -134,3 +134,17 @@ def train_state_from_jax(params_tree, latent_codes, cfg, device=None):
         np.array(latent_codes, dtype=np.float32, copy=True)).to(device))
     return TrainState(step=0, params=params, latent_codes=latent,
                       optimizer=make_optimizer(cfg, params, latent))
+
+
+def torso_params_from_jax(tree, cfg, device=None) -> nn.ModuleDict:
+    """JAX ``init_torso_params`` / ``TorsoTrainer.torso_params`` (as numpy)
+    -> the port's {"coarse", "fine"} torso ModuleDict for ``cfg``."""
+    from idealnerf_tpu_torch.train.torso import init_torso_params
+
+    params = init_torso_params(cfg, device=device)
+    return load_module_(params, {k: tree[k] for k in params.keys()})
+
+
+def torso_params_to_jax(params: nn.ModuleDict) -> Dict[str, Any]:
+    """The port's torso ModuleDict -> JAX-layout numpy tree."""
+    return module_to_tree(params)

@@ -5,11 +5,18 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import logging
 from typing import Optional
 
+import torch
+
+from idealnerf_tpu_torch.ckpt import CheckpointManager
 from idealnerf_tpu_torch.config import ExperimentConfig
 from idealnerf_tpu_torch.data.dataset import FrameDataset
 from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+from idealnerf_tpu_torch.train.state import ModelState, init_params
+
+logger = logging.getLogger("idealnerf.cli")
 
 
 def build_parser(description: str) -> argparse.ArgumentParser:
@@ -58,3 +65,22 @@ def resolve_dataset(args, cfg: ExperimentConfig, mode: str = "train",
         "real subject directories need load_transforms_dataset, which is "
         "not ported yet (ROADMAP.md A-queue: load_transforms_dataset); "
         "use --synthetic N")
+
+
+def load_head(args, cfg: ExperimentConfig, data_size: int) -> ModelState:
+    """The head model of an eval or torso run, on the host: restored from
+    ``--head_ckpt`` (params, latent table and step; the table is sized to
+    the head's training set), else drawn from ``--seed`` with a warning.
+    Weights are drawn on the host so a seed gives the same model on every
+    device."""
+    state = init_params(cfg, data_size,
+                        torch.Generator().manual_seed(args.seed))
+    if not args.head_ckpt:
+        logger.warning("no --head_ckpt: fresh head weights (dry run)")
+        return state
+    ck = CheckpointManager(args.head_ckpt).restore()
+    state.params.load_state_dict(ck["params"])
+    state = state._replace(step=int(ck["step"]),
+                           latent_codes=ck["latent_codes"])
+    logger.info("head from %s at step %d", args.head_ckpt, state.step)
+    return state

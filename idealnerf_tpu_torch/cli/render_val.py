@@ -6,9 +6,10 @@
 
 Each frame is the fused coarse + fine kernel pair on ``--device``
 (default cuda; on cpu the kernels' plain PyTorch versions run).
-``main(argv)`` returns {"psnr", "ssim", "frame_ms"}: mean PSNR/SSIM over
-the frames and the mean wall time per frame after the first, taken
-around work that ends in a device synchronize.
+``main(argv)`` returns {"psnr", "ssim", "frame_ms", "frames"}: mean
+PSNR/SSIM over the frames, the mean wall time per frame after the first,
+taken around work that ends in a device synchronize, and the frames
+clamped to [0, 1] as one (n, H, W, 3) f32 array.
 """
 
 from __future__ import annotations
@@ -20,9 +21,8 @@ import time
 import numpy as np
 import torch
 
-from idealnerf_tpu_torch.ckpt import CheckpointManager
 from idealnerf_tpu_torch.cli.common import (
-    build_parser, resolve_config, resolve_dataset,
+    build_parser, load_head, resolve_config, resolve_dataset,
 )
 from idealnerf_tpu_torch.eval.metrics import psnr, ssim
 from idealnerf_tpu_torch.eval.renderer import make_frame_renderer
@@ -31,7 +31,6 @@ from idealnerf_tpu_torch.models.variants import (
     variant_conditioning, variant_nerf_config,
 )
 from idealnerf_tpu_torch.train.head import compute_aud_feature
-from idealnerf_tpu_torch.train.state import init_params
 
 logger = logging.getLogger("idealnerf.cli")
 
@@ -78,19 +77,7 @@ def main(argv=None):
         raise RuntimeError("--device cuda but no CUDA device is available")
 
     ds = resolve_dataset(args, cfg, mode="val")
-    # weights are drawn on the host so a seed gives the same model on
-    # every device
-    gen = torch.Generator().manual_seed(args.seed)
-    state = init_params(cfg, ds.size, gen)
-    if args.head_ckpt:
-        # the latent table is train-set-sized; eval uses latent_codes[0]
-        ck = CheckpointManager(args.head_ckpt).restore()
-        state.params.load_state_dict(ck["params"])
-        state = state._replace(step=int(ck["step"]),
-                               latent_codes=ck["latent_codes"])
-        logger.info("rendering %s at step %d", args.head_ckpt, state.step)
-    else:
-        logger.warning("no --head_ckpt: rendering fresh weights (dry run)")
+    state = load_head(args, cfg, ds.size)
     params = state.params.to(device)
     latent_codes = state.latent_codes.to(device)
 
@@ -105,7 +92,7 @@ def main(argv=None):
     save_path = cfg.save_path or "output/render"
     writer = FrameWriter(os.path.join(save_path, f"{cfg.expname}_val"))
     n = ds.size if args.max_frames is None else min(args.max_frames, ds.size)
-    psnrs, ssims, times = [], [], []
+    psnrs, ssims, times, frames = [], [], [], []
     with torch.no_grad():
         for i in range(n):
             t0 = time.perf_counter()
@@ -123,7 +110,8 @@ def main(argv=None):
             gt = data["images"][i].float() / 255.0
             psnrs.append(float(psnr(frame, gt)))
             ssims.append(ssim(frame, gt))
-            writer.add(frame.clamp(0, 1).cpu().numpy())
+            frames.append(frame.clamp(0, 1).cpu().numpy())
+            writer.add(frames[-1])
             logger.info("val frame %d/%d psnr %.2f ssim %.3f (%.1f ms)",
                         i + 1, n, psnrs[-1], ssims[-1], times[-1])
     frame_ms = float(np.mean(times[1:] if n > 1 else times))
@@ -131,7 +119,7 @@ def main(argv=None):
                 float(np.mean(psnrs)), float(np.mean(ssims)), frame_ms,
                 writer.stem)
     return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)),
-            "frame_ms": frame_ms}
+            "frame_ms": frame_ms, "frames": np.stack(frames)}
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ the split by frame kind: keyframes and keyframe_ms (their mean), delta
 frames and delta_p50_ms / delta_p95_ms. Each frame's time ends when its
 pixels reach the host, which waits for the device.
 
-Not ported yet: ``--torso_ckpt`` (ROADMAP.md A7) and ``--auto_temporal``
+Not ported yet: ``--torso_ckpt`` (ROADMAP.md A7b) and ``--auto_temporal``
 (A9, eval/operating_points.gated_video_config).
 """
 
@@ -28,18 +28,16 @@ import os
 import numpy as np
 import torch
 
-from idealnerf_tpu_torch.ckpt import CheckpointManager
 from idealnerf_tpu_torch.cli.common import (
-    build_parser, resolve_config, resolve_dataset,
+    build_parser, load_head, resolve_config, resolve_dataset,
 )
 from idealnerf_tpu_torch.eval.stream import TemporalStream
 from idealnerf_tpu_torch.eval.video import FrameWriter
-from idealnerf_tpu_torch.train.state import init_params
 
 logger = logging.getLogger("idealnerf.cli")
 
 _NOT_PORTED = {
-    "torso_ckpt": "A7 (head + torso composite)",
+    "torso_ckpt": "A7b (temporal composite video)",
     "auto_temporal": "A9 (eval/operating_points.gated_video_config)",
 }
 
@@ -81,19 +79,8 @@ def main(argv=None):
         raise RuntimeError("--device cuda but no CUDA device is available")
     identity = resolve_dataset(args, cfg, mode="val")
 
-    # weights are drawn on the host so a seed gives the same model on
-    # every device
-    state = init_params(cfg, identity.size,
-                        torch.Generator().manual_seed(args.seed))
-    params, latents = state.params, state.latent_codes
-    if args.head_ckpt:
-        ck = CheckpointManager(args.head_ckpt).restore()
-        params.load_state_dict(ck["params"])
-        latents = ck["latent_codes"]
-        logger.info("head from %s step %d", args.head_ckpt, int(ck["step"]))
-    else:
-        logger.warning("no --head_ckpt: serving fresh weights (dry run)")
-    params = params.to(device)
+    state = load_head(args, cfg, identity.size)
+    params, latents = state.params.to(device), state.latent_codes
 
     auds = identity.auds
     n = auds.shape[0] if args.max_frames is None else min(

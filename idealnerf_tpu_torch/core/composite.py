@@ -122,3 +122,11 @@ def fg_band(z_vals: torch.Tensor, weights: torch.Tensor,
     hi = torch.amin(torch.where(cw >= q_hi * total, z, big), dim=-1)
     return (torch.minimum(lo, z[..., -1]), torch.minimum(hi, z[..., -1]),
             cw[..., -1])
+
+
+def layered_composite(rgb_head: torch.Tensor, last_weight_torso: torch.Tensor,
+                      rgb_fg_torso: torch.Tensor) -> torch.Tensor:
+    """Head over torso: the torso field's weight on the plate sample gates
+    the head render behind the torso's foreground, ``rgb_head ·
+    last_weight_torso + rgb_fg_torso``."""
+    return rgb_head * last_weight_torso[..., None] + rgb_fg_torso

@@ -1,4 +1,4 @@
-"""Camera ray generation (counterpart of core/rays.py).
+"""Camera ray generation and pose math (counterpart of core/rays.py).
 
 Pinhole camera with principal point (cx, cy): direction
 ``[(i-cx)/f, -(j-cy)/f, -1]`` rotated by the camera-to-world rotation.
@@ -35,3 +35,15 @@ def get_rays(H: int, W: int, focal, c2w: torch.Tensor, cx=None, cy=None):
               + dirs[..., 2:3] * rot[:, 2])
     rays_o = c2w[:3, -1].expand(rays_d.shape)
     return rays_o, rays_d
+
+
+def pose_to_euler_trans(poses: torch.Tensor) -> torch.Tensor:
+    """(B, 3|4, 4) poses -> (B, 6) [euler (3), translation (3)]: the
+    tracker's euler extraction, atan2(R22, R12), asin(-R02), atan2(R00,
+    -R01); the torso field's pose conditioning (train/torso.py)."""
+    R = poses[:, :3, :3]
+    e2 = torch.atan2(R[:, 0, 0], -R[:, 0, 1])
+    e1 = torch.asin(-R[:, 0, 2])
+    e0 = torch.atan2(R[:, 2, 2], R[:, 1, 2])
+    return torch.cat([torch.stack([e0, e1, e2], dim=1), poses[:, :3, 3]],
+                     dim=1)

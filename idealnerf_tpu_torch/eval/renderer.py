@@ -1,22 +1,49 @@
 """Full-frame rendering (counterpart of eval/renderer.py, the fused "ray"
-path of ``make_frame_renderer``) and the subject foreground prior.
+paths of ``make_frame_renderer`` and ``make_composite_frame_renderer``)
+and the subject foreground prior.
 
-A frame is one whole-frame call pair of the fused kernels — the coarse
-pass with the importance depth placement, then the fine pass — with no
-host-side tiling.
+A field's frame is one whole-frame call pair of the fused kernels — the
+coarse pass with the importance depth placement, then the fine pass —
+with no host-side tiling; the composite renders the head and the torso
+field so and layers them.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict
 
 import numpy as np
 import torch
 
+from idealnerf_tpu_torch.core.composite import layered_composite
 from idealnerf_tpu_torch.core.rays import get_rays
 from idealnerf_tpu_torch.core.render import RenderConfig
 from idealnerf_tpu_torch.kernels.fused_render import render_rays_fused
 from idealnerf_tpu_torch.models.face_nerf import fold_conditioning
+
+
+def _render_field(params, nerf_cfg, H: int, W: int, focal, pose, bc,
+                  near, far, cfg: RenderConfig, cx, cy, aud=None, expr=None,
+                  latent=None) -> Dict[str, torch.Tensor]:
+    """One field's whole-frame render from ``pose``: fold the conditioning
+    into each net's biases, cast the rays on the pose's device, run the
+    fused passes. ``bc`` is the (H*W, 3) f32 plate."""
+    fine = params["fine"] if "fine" in params else None
+    folded_c = fold_conditioning(params["coarse"], nerf_cfg, aud, expr,
+                                 latent)
+    folded_f = (fold_conditioning(fine, nerf_cfg, aud, expr, latent)
+                if fine is not None else None)
+    rays_o, rays_d = get_rays(H, W, focal, pose, cx, cy)
+    return render_rays_fused(
+        params["coarse"], folded_c, nerf_cfg,
+        rays_o.reshape(-1, 3).contiguous(),
+        rays_d.reshape(-1, 3).contiguous(), bc, near, far, cfg.n_samples,
+        cfg.n_importance, fine_params=fine, fine_folded=folded_f,
+        lindisp=cfg.lindisp)
+
+
+def _plate(bc_img: torch.Tensor) -> torch.Tensor:
+    return bc_img.reshape(-1, 3).float().contiguous()
 
 
 def make_frame_renderer(
@@ -33,21 +60,39 @@ def make_frame_renderer(
 
     @torch.no_grad()
     def render(params, pose, bc_img, aud=None, expr=None, latent=None):
-        fine = params["fine"] if "fine" in params else None
-        folded_c = fold_conditioning(params["coarse"], nerf_cfg, aud, expr,
-                                     latent)
-        folded_f = (fold_conditioning(fine, nerf_cfg, aud, expr, latent)
-                    if fine is not None else None)
-        rays_o, rays_d = get_rays(H, W, focal, pose, cx, cy)
-        out = render_rays_fused(
-            params["coarse"], folded_c, nerf_cfg,
-            rays_o.reshape(-1, 3).contiguous(),
-            rays_d.reshape(-1, 3).contiguous(),
-            bc_img.reshape(-1, 3).float().contiguous(),
-            near, far, cfg.n_samples, cfg.n_importance,
-            fine_params=fine, fine_folded=folded_f, lindisp=cfg.lindisp,
-        )
+        out = _render_field(params, nerf_cfg, H, W, focal, pose,
+                            _plate(bc_img), near, far, cfg, cx, cy, aud,
+                            expr, latent)
         return out["rgb_map"].reshape(H, W, 3)
+
+    return render
+
+
+def make_composite_frame_renderer(
+    head_cfg, torso_cfg,
+    H: int, W: int, focal, near, far, cfg: RenderConfig,
+    cx=None, cy=None,
+) -> Callable:
+    """-> ``render(head_params, torso_params, pose, pose0, bc_img, aud,
+    signal, expr, latent) -> (H, W, 3)``: the head field from ``pose``
+    (conditioned on aud, expr, latent) and the torso field from the fixed
+    first-frame pose ``pose0`` (conditioned on the torso ``signal``), each
+    a coarse + fine pass pair over the whole frame, layered as
+    ``rgb_head · last_weight_torso + rgb_fg_torso``. Deterministic eval
+    semantics."""
+    cfg = cfg.eval_mode()
+
+    @torch.no_grad()
+    def render(head_params, torso_params, pose, pose0, bc_img, aud=None,
+               signal=None, expr=None, latent=None):
+        bc = _plate(bc_img)
+        head = _render_field(head_params, head_cfg, H, W, focal, pose, bc,
+                             near, far, cfg, cx, cy, aud, expr, latent)
+        torso = _render_field(torso_params, torso_cfg, H, W, focal, pose0,
+                              bc, near, far, cfg, cx, cy, signal)
+        return layered_composite(head["rgb_map"].reshape(H, W, 3),
+                                 torso["last_weight"].reshape(H, W),
+                                 torso["rgb_fg"].reshape(H, W, 3))
 
     return render
 

@@ -23,7 +23,7 @@ is not 0, so the stream computes its own features.
     for frame in stream.flush():               # drain the lookahead
         emit(frame)
 
-The head + torso stream (``torso_params``) waits for ROADMAP.md A7.
+The head + torso stream (``torso_params``) waits for ROADMAP.md A7b.
 """
 
 from __future__ import annotations
@@ -77,8 +77,8 @@ class TemporalStream:
     ):
         if torso_params is not None:
             raise NotImplementedError(
-                "the head + torso stream is not ported yet (ROADMAP.md A7: "
-                "head + torso composite)")
+                "the head + torso stream is not ported yet (ROADMAP.md A7b: "
+                "temporal composite video)")
         op = operating_point or {}
         if op and not op.get("quality_ok", True):
             raise ValueError(

@@ -26,7 +26,7 @@ by a refresh of 1/K of the rays on every frame.
 
 The torso field's parts — ``freeze_z``, ``make_temporal_composite_
 renderer`` — and the scanned keyframe cycle (``render.cycle``, used by
-eval/reenact.py) belong to ROADMAP.md A7 and raise NotImplementedError.
+eval/reenact.py) belong to ROADMAP.md A7b and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from idealnerf_tpu_torch.kernels.fused_render import (
 )
 from idealnerf_tpu_torch.models.face_nerf import fold_conditioning
 
-_A7 = "ROADMAP.md A7: head + torso composite"
+_A7 = "ROADMAP.md A7b: temporal composite video"
 
 __all__ = ["dilate_bands", "fg_band", "make_temporal_composite_renderer",
            "make_temporal_frame_renderer"]

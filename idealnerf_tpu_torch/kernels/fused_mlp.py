@@ -35,7 +35,7 @@ from idealnerf_tpu_torch.kernels import build
 from idealnerf_tpu_torch.kernels.fused_render import (
     CHAIN_TILE, PE_PAD, PED_PAD, SMEM_LIMIT, PackedNet, _chain_args,
     _check_cuda, _check_rays, _mlp_reference, _raise_on, _stream,
-    pack_operands,
+    pack_operands, widen,
 )
 
 launch_counts = {"fused_point_mlp": 0, "fused_point_mlp_pe": 0}
@@ -149,6 +149,7 @@ def point_mlp(net: PackedNet, pts: torch.Tensor,
         return point_mlp_reference(net, pts, dirs)
     if net.w[0].dtype != torch.bfloat16:
         raise TypeError("fused_point_mlp: the kernel takes bf16 weights")
+    net = widen(net)
     _check_rays("fused_point_mlp", net, pts=pts, dirs=dirs)
     N = pts.shape[0]
     if pts.shape != (N, 3) or dirs.shape != (N, 3):
@@ -170,6 +171,7 @@ def point_mlp_pe(net: PackedNet, pe: torch.Tensor,
     if net.w[0].dtype != torch.bfloat16:
         raise TypeError("fused_point_mlp_pe: the kernel takes bf16 weights")
     _check_cuda("fused_point_mlp_pe", torch.bfloat16, 16, pe=pe, ped=ped)
+    net = widen(net)
     _check_rays("fused_point_mlp_pe", net)
     N = pe.shape[0]
     if pe.shape != (N, PE_PAD) or ped.shape != (N, PED_PAD):

@@ -50,8 +50,8 @@ from idealnerf_tpu_torch.kernels.fused_render import (
     _NSLOTS, _SLOT_B, _SLOT_BHEADS, _SLOT_BV, _SLOT_W, _SLOT_WALPHA,
     _SLOT_WRGB, _SLOT_WSKIP, _SLOT_WV, _SLOT_WV0D,
     _check_cuda, _check_rays, _raise_on, _slots, _stream, _stream_parts,
-    model_leaves, pack_leaves, stream_matrices, swizzle_image_index,
-    weight_stream,
+    model_leaves, narrow, pack_leaves, stream_matrices, swizzle_image_index,
+    weight_stream, widen,
 )
 
 GRAD_TILE = 64  # points per tile of the planes (csrc/fused_mlp_grad.cu: GP)
@@ -463,18 +463,20 @@ def point_mlp_grad(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
     tensors launch them, CPU tensors take the plain version. bf16 runs
     grad_pass_a then grad_pass_b; f32 one kernel that recomputes and sums
     per-block slabs. The same inputs on the same card give bitwise-equal
-    gradients."""
+    gradients. A narrower net runs widened (``fused_render.widen``) and
+    its gradients are cut back to its shapes."""
     if pts.device.type == "cpu":
         return point_mlp_grad_reference(net, pts, dirs, g)
     dt = net.w[0].dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"fused_point_mlp_grad: weights must be bf16 or f32, "
                         f"got {dt}")
+    narrow_net, net = net, widen(net)
     if dt == torch.bfloat16:
         planes, offs, bias = grad_pass_a(net, pts, dirs, g)
         grads = grad_pass_b(net, planes, offs, bias)
         launch_counts["fused_point_mlp_grad"] += 1
-        return grads
+        return narrow(grads, narrow_net)
     dev = _check_inputs(net, pts, dirs, g)
     lib = build.load_library()
     if lib.fr_point_mlp_grad_smem_bytes() > SMEM_LIMIT:
@@ -498,7 +500,7 @@ def point_mlp_grad(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
     _raise_on(lib, err, "fused_point_mlp_grad")
     launch_counts["fused_point_mlp_grad"] += 1
     del keep, act, slabs  # stream-ordered reuse by the caching allocator
-    return _unflatten(net, out, layout)
+    return narrow(_unflatten(net, out, layout), narrow_net)
 
 
 # ------------------------------------------------------- autograd plumbing

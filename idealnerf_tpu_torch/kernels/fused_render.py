@@ -24,6 +24,10 @@ beside it (``*_reference``), which computes the same function with the
 same bf16 rounding points: weights and every post-relu activation are
 rounded to bf16 and multiplied in f32, where a product of two bf16
 values is exact, so it equals bf16 x bf16 with f32 accumulation.
+
+The chain is built for the paper widths (W=256, view branch 128). A
+narrower net runs on it zero-padded (``widen``): the padded units stay 0
+and the result is the narrow net's, at the paper width's cost.
 """
 
 from __future__ import annotations
@@ -499,8 +503,9 @@ def _check_cuda(name: str, dtype, align: int = 1,
 
 
 def _check_rays(name: str, net: PackedNet, **tensors) -> torch.device:
-    """The kernels take f32, contiguous CUDA tensors of one device and the
-    W=256, D<=16 network; anything else raises."""
+    """The kernels take f32, contiguous CUDA tensors of one device and a
+    network of KERNEL_WIDTH (the wrappers ``widen`` a narrower one first),
+    D<=16; anything else raises."""
     dev = _check_cuda(name, torch.float32, **tensors) if tensors else None
     if net.width != KERNEL_WIDTH:
         raise ValueError(f"{name}: kernel width is {KERNEL_WIDTH}, "
@@ -509,6 +514,66 @@ def _check_rays(name: str, net: PackedNet, **tensors) -> torch.device:
         raise ValueError(f"{name}: depth {len(net.w)} / view layers "
                          f"{len(net.wv)} exceed {_MAXD} / {_MAXV}")
     return dev
+
+
+def kernels_cover(nerf_cfg) -> bool:
+    """Whether the kernels take this FaceNeRF: the view branch, width at
+    most KERNEL_WIDTH (a narrower net runs zero-padded, ``widen``), depth
+    1.._MAXD, and PE widths inside PE_PAD / PED_PAD. The wrappers raise
+    for a net it refuses (ROADMAP.md B10)."""
+    return (nerf_cfg.use_viewdirs and 1 <= nerf_cfg.width <= KERNEL_WIDTH
+            and 1 <= nerf_cfg.depth <= _MAXD
+            and nerf_cfg.input_ch <= PE_PAD
+            and nerf_cfg.input_ch_views <= PED_PAD)
+
+
+def widen(net: PackedNet) -> PackedNet:
+    """A net narrower than the kernels' widths (KERNEL_WIDTH, view branch
+    KERNEL_WIDTH / 2) zero-padded to them: every padded unit has zero
+    weights in and out and a zero bias, so it stays 0 through relu (relu'
+    0 in the backward) and adds nothing, and the kernels compute the
+    narrow net's function and gradients. The paper width passes as it is;
+    a wider net raises (ROADMAP.md B10)."""
+    W, WV = net.width, net.wv[0].shape[1]
+    KW, KV = KERNEL_WIDTH, KERNEL_WIDTH // 2
+    if (W, WV) == (KW, KV):
+        return net
+    if W > KW or WV > KV:
+        raise ValueError(f"network width {W} (view branch {WV}) exceeds the "
+                         f"kernels' {KW} ({KV}); ROADMAP.md B10")
+    pw, pv = KW - W, KV - WV
+
+    def pad(x, rows, cols):
+        return F.pad(x, (0, cols, 0, rows)).contiguous()
+
+    return dataclasses.replace(
+        net,
+        w=[pad(net.w[0], 0, pw)] + [pad(x, pw, pw) for x in net.w[1:]],
+        b=[F.pad(x, (0, pw)) for x in net.b],
+        wskip={i: pad(x, 0, pw) for i, x in net.wskip.items()},
+        wv=[pad(net.wv[0], pw, pv)] + [pad(x, pv, pv) for x in net.wv[1:]],
+        bv=[F.pad(x, (0, pv)) for x in net.bv],
+        wv0d=pad(net.wv0d, 0, pv), w_alpha=pad(net.w_alpha, pw, 0),
+        w_rgb=pad(net.w_rgb, pv, 0))
+
+
+def narrow(grads: PackedNet, net: PackedNet) -> PackedNet:
+    """Gradients of ``widen(net)`` cut back to ``net``'s shapes."""
+    if grads.width == net.width:
+        return grads
+
+    def cut(x, like):
+        return x[tuple(slice(0, n) for n in like.shape)].contiguous()
+
+    return dataclasses.replace(
+        grads, w=[cut(x, y) for x, y in zip(grads.w, net.w)],
+        b=[cut(x, y) for x, y in zip(grads.b, net.b)],
+        wskip={i: cut(x, net.wskip[i]) for i, x in grads.wskip.items()},
+        wv=[cut(x, y) for x, y in zip(grads.wv, net.wv)],
+        bv=[cut(x, y) for x, y in zip(grads.bv, net.bv)],
+        wv0d=cut(grads.wv0d, net.wv0d), w_alpha=cut(grads.w_alpha,
+                                                    net.w_alpha),
+        w_rgb=cut(grads.w_rgb, net.w_rgb))
 
 
 def _slots(net: PackedNet, device):
@@ -654,7 +719,7 @@ def fused_render_rays(params, folded, cfg, rays_o, rays_d, z_vals,
     if rays_o.device.type == "cpu":
         return fused_render_rays_reference(params, folded, cfg, rays_o,
                                            rays_d, z_vals, bc_rgb)
-    net = pack_operands(params, folded, cfg)
+    net = widen(pack_operands(params, folded, cfg))
     dev = _check_rays("fused_render_rays", net, rays_o=rays_o,
                       rays_d=rays_d, z_vals=z_vals, bc_rgb=bc_rgb)
     R, S = z_vals.shape
@@ -691,7 +756,7 @@ def fused_render_coarse_hier(params, folded, cfg, rays_o, rays_d, bc_rgb,
         return fused_render_coarse_hier_reference(
             params, folded, cfg, rays_o, rays_d, bc_rgb, near, far,
             n_samples, n_imp)
-    net = pack_operands(params, folded, cfg)
+    net = widen(pack_operands(params, folded, cfg))
     dev = _check_rays("fused_render_coarse_hier", net, rays_o=rays_o,
                       rays_d=rays_d, bc_rgb=bc_rgb)
     R = rays_o.shape[0]
@@ -741,7 +806,7 @@ def fused_render_delta(params, folded, cfg, rays_o, rays_d, z_prev, w_prev,
         return fused_render_delta_reference(
             params, folded, cfg, rays_o, rays_d, z_prev, w_prev, band_lo,
             band_hi, bc_rgb, far, s_uni, s_imp, q_lo, q_hi)
-    net = pack_operands(params, folded, cfg)
+    net = widen(pack_operands(params, folded, cfg))
     dev = _check_rays("fused_render_delta", net, rays_o=rays_o,
                       rays_d=rays_d, z_prev=z_prev, w_prev=w_prev,
                       band_lo=band_lo, band_hi=band_hi, bc_rgb=bc_rgb)

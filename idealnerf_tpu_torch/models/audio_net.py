@@ -61,13 +61,16 @@ class AudioAttNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (seq_len, dim) -> (dim,) attention-weighted sum over the
-        window; only the first dim_aud channels feed the attention."""
-        y = x[:, : self.dim_aud].T[None]       # (1, dim_aud, seq_len)
+        window, or a batch of windows (B, seq_len, dim) -> (B, dim); only
+        the first dim_aud channels feed the attention."""
+        xb = x if x.ndim == 3 else x[None]
+        y = xb[..., : self.dim_aud].transpose(1, 2)  # (B, dim_aud, seq_len)
         for conv in self.conv:
             y = leaky_relu(conv(y))
-        logits = self.att(y.reshape(1, self.seq_len))
-        w = torch.softmax(logits, dim=1).reshape(self.seq_len, 1)
-        return torch.sum(w * x, dim=0)
+        logits = self.att(y.reshape(-1, self.seq_len))
+        w = torch.softmax(logits, dim=1)[..., None]  # (B, seq_len, 1)
+        out = torch.sum(w * xb, dim=1)
+        return out if x.ndim == 3 else out[0]
 
 
 class DeepSpeechAudNet(nn.Module):

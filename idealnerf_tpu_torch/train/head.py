@@ -24,6 +24,7 @@ from idealnerf_tpu_torch.core.render import render_rays
 from idealnerf_tpu_torch.data.sampler import (
     RayBudget, rays_at_coords, sample_ray_coords,
 )
+from idealnerf_tpu_torch.kernels.fused_render import kernels_cover
 from idealnerf_tpu_torch.models.variants import build_field_fns
 from idealnerf_tpu_torch.train.schedule import exponential_lr
 from idealnerf_tpu_torch.train.state import TrainState, init_train_state
@@ -63,8 +64,17 @@ def compute_aud_feature(
 def train_use_pallas(cfg, device):
     """The field path of a train step, by cfg.train_fused, on a CUDA device
     only: 0 = plain autograd, 1 = fused kernels with the f32 backward,
-    2 = fused kernels with the bf16 backward. Off the card: plain."""
+    2 = fused kernels with the bf16 backward. Off the card: plain. A net
+    the kernels do not take (``fused_render.kernels_cover``; the head and
+    torso nets share the width and depth) raises on the card before any
+    step."""
     if cfg.train_fused and torch.device(device).type == "cuda":
+        ncfg = cfg.face_nerf_config()
+        if not kernels_cover(ncfg):
+            raise ValueError(
+                f"the kernels take nets of width <= 256 and depth <= 16 with "
+                f"the view branch, not W={ncfg.width}, D={ncfg.depth} "
+                "(ROADMAP.md B10); --train_fused 0 trains it by autograd")
         return "train_bf16" if cfg.train_fused >= 2 else "train"
     return False
 

@@ -1,0 +1,332 @@
+"""The composite frame and per-frame reenactment of the PyTorch port
+against the JAX package (fused "ray" path, Pallas in interpret mode), the
+driving audio features and expressions, the train_torso and eval_reenact
+CLIs on the CPU, the modes they refuse, and the nets the kernels take:
+a narrower net runs zero-padded to the chain's widths (ROADMAP.md C1).
+
+The composite frame is held to 3e-2 plus a correlation above 0.999, as
+the head frame in tests/test_torch_render_val.py: both sides round
+weights and activations to bf16, at points that can land one ulp apart.
+The audio features are f32 on both sides, 1e-5."""
+
+import json
+import math
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from idealnerf_tpu.config import ExperimentConfig as JaxConfig
+from idealnerf_tpu.eval.reenact import (
+    smoothed_audio_features as jax_smoothed_features,
+)
+from idealnerf_tpu.eval.renderer import (
+    make_composite_frame_renderer as jax_composite_renderer,
+)
+from idealnerf_tpu.train.torso import torso_nerf_config as jax_torso_config
+from idealnerf_tpu_torch import bridge
+from idealnerf_tpu_torch.ckpt import CheckpointManager
+from idealnerf_tpu_torch.cli import eval_reenact, train_torso
+from idealnerf_tpu_torch.config import ExperimentConfig
+from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+from idealnerf_tpu_torch.eval import reenact as reenact_mod
+from idealnerf_tpu_torch.eval.renderer import make_composite_frame_renderer
+from idealnerf_tpu_torch.kernels import fused_render as fr
+from idealnerf_tpu_torch.models.face_nerf import fold_conditioning
+from idealnerf_tpu_torch.train.head import HeadTrainer, train_use_pallas
+from idealnerf_tpu_torch.train.state import init_params
+from idealnerf_tpu_torch.train.torso import (
+    init_torso_params, torso_nerf_config, torso_signal,
+)
+
+SMALL = dict(dim_aud=32, dim_expr=8, dim_latent=4, dim_aud_body=16,
+             netdepth=6, netwidth=64, smo_size=4)
+CLI_SMALL = ["--dim_aud", "32", "--dim_expr", "8", "--dim_latent", "4",
+             "--dim_aud_body", "16", "--netdepth", "4", "--netwidth", "64",
+             "--N_rand", "64", "--N_samples", "6", "--N_importance", "6"]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _agree(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, atol=3e-2)
+    c = np.corrcoef(got.ravel(), want.ravel())[0, 1]
+    assert c > 0.999, c
+
+
+def test_composite_frame_matches_jax_fused_renderer():
+    jcfg, cfg = JaxConfig(**SMALL), ExperimentConfig(**SMALL)
+    ds = make_synthetic_dataset(n_frames=2, H=16, W=16, dim_expr=8,
+                                with_torso=True)
+    head = init_params(cfg, ds.size, torch.Generator().manual_seed(0)).params
+    torso = init_torso_params(cfg, torch.Generator().manual_seed(1))
+    jhead = jax.tree.map(jnp.asarray, bridge.params_to_jax(head))
+    jtorso = jax.tree.map(jnp.asarray, bridge.torso_params_to_jax(torso))
+    rng = np.random.RandomState(0)
+    aud = rng.randn(32).astype(np.float32)
+    expr, latent = ds.exprs[1], np.ones(4, np.float32)
+    pose, pose0 = ds.poses[1], ds.poses[0]
+    bc = ds.bc_img.astype(np.float32) / 255.0
+    signal = torso_signal(torch.from_numpy(aud), torch.from_numpy(pose), 16)
+
+    ref = jax_composite_renderer(
+        jcfg.face_nerf_config(), jax_torso_config(jcfg), 16, 16, ds.focal,
+        ds.near, ds.far, jcfg.render_config(), cx=ds.cx, cy=ds.cy,
+        use_pallas="ray")(
+        jhead, jtorso, jnp.asarray(pose), jnp.asarray(pose0), jnp.asarray(bc),
+        aud=jnp.asarray(aud), signal=jnp.asarray(signal.numpy()),
+        expr=jnp.asarray(expr), latent=jnp.asarray(latent))
+    out = make_composite_frame_renderer(
+        cfg.face_nerf_config(), torso_nerf_config(cfg), 16, 16, ds.focal,
+        ds.near, ds.far, cfg.render_config(), cx=ds.cx, cy=ds.cy)(
+        head, torso, torch.from_numpy(pose), torch.from_numpy(pose0),
+        torch.from_numpy(bc), aud=torch.from_numpy(aud), signal=signal,
+        expr=torch.from_numpy(expr), latent=torch.from_numpy(latent))
+    assert out.shape == (16, 16, 3)
+    _agree(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("smooth", [True, False])
+def test_smoothed_audio_features_match_jax(smooth):
+    cfg = ExperimentConfig(**SMALL)
+    params = init_params(cfg, 1, torch.Generator().manual_seed(2)).params
+    auds = np.random.RandomState(3).randn(9, 16, 29).astype(np.float32)
+    got = reenact_mod.smoothed_audio_features(params, torch.from_numpy(auds),
+                                              cfg, smooth)
+    ref = jax_smoothed_features(
+        jax.tree.map(jnp.asarray, bridge.params_to_jax(params)),
+        jnp.asarray(auds), JaxConfig(**SMALL), smooth)
+    assert got.shape == (9, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-5)
+
+
+def test_load_driving_exprs(tmp_path):
+    exprs = np.random.RandomState(0).randn(3, 5).astype(np.float32)
+    path = tmp_path / "transforms_val.json"
+    path.write_text(json.dumps({"frames": [{"exp": e.tolist(), "aud_id": i}
+                                           for i, e in enumerate(exprs)]}))
+    got = reenact_mod.load_driving_exprs(str(path))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, exprs)
+
+
+def _cli_run(tmp_path, *extra):
+    return ["--device", "cpu", "--synthetic", "2", "--synthetic_hw", "12",
+            *CLI_SMALL, "--basedir", str(tmp_path), *extra]
+
+
+def test_train_torso_then_eval_reenact_on_cpu(tmp_path):
+    cfg = ExperimentConfig(dim_aud=32, dim_expr=8, dim_latent=4,
+                           dim_aud_body=16, netdepth=4, netwidth=64)
+    ds = make_synthetic_dataset(n_frames=2, H=12, W=12, dim_expr=8)
+    HeadTrainer(cfg, ds, seed=0, ckpt_dir=str(tmp_path / "head")).save()
+    res = train_torso.main(_cli_run(tmp_path, "--head_ckpt",
+                                    str(tmp_path / "head"), "--steps", "3",
+                                    "--i_print", "2"))
+    assert res["step"] == 3 and [s for s, _ in res["history"]] == [0, 2]
+    assert all(math.isfinite(m["loss"]) and math.isfinite(m["psnr"])
+               for _, m in res["history"])
+    assert CheckpointManager(res["ckpt_dir"]).all_steps() == [3]
+    head = CheckpointManager(str(tmp_path / "head")).restore()["params"]
+    for k, v in res["head_params"].state_dict().items():
+        assert torch.equal(v, head[k]), k
+
+    save = tmp_path / "frames"
+    out = eval_reenact.main(_cli_run(
+        tmp_path, "--head_ckpt", str(tmp_path / "head"), "--torso_ckpt",
+        res["ckpt_dir"], "--save_path", str(save)))
+    assert out["frames"] == 2
+    assert math.isfinite(out["psnr"]) and math.isfinite(out["frame_ms"])
+    assert sorted(os.listdir(save)) == ["exp_reenact_00000.png",
+                                        "exp_reenact_00001.png"]
+    with open(save / "exp_reenact_00000.png", "rb") as fh:
+        assert fh.read(8) == b"\x89PNG\r\n\x1a\n"
+    head_only = eval_reenact.main(_cli_run(
+        tmp_path, "--head_ckpt", str(tmp_path / "head"), "--max_frames", "1",
+        "--save_path", str(tmp_path / "head_frames")))
+    assert head_only["frames"] == 1 and math.isfinite(head_only["psnr"])
+
+
+def test_reenact_frame_is_the_composite_renderers_frame():
+    """Frame i of the per-frame reenact equals the composite renderer's
+    frame for the same pose, plate, audio feature, expression and latent;
+    poses cycle through the identity and expressions clamp at the end of
+    the driving sequence."""
+    cfg = ExperimentConfig(**SMALL, N_samples=6, N_importance=6)
+    ds = make_synthetic_dataset(n_frames=2, H=12, W=12, dim_expr=8,
+                                with_torso=True)
+    st = init_params(cfg, ds.size, torch.Generator().manual_seed(0))
+    torso = init_torso_params(cfg, torch.Generator().manual_seed(1))
+    exprs = ds.exprs[:2]
+    times = []
+    frames = reenact_mod.reenact(cfg, st.params, ds, ds.auds[:2].repeat(2, 0),
+                                 driving_exprs=exprs,
+                                 latent_codes=st.latent_codes,
+                                 torso_params=torso, frame_times=times)
+    assert frames.shape == (4, 12, 12, 3) and len(times) == 4
+    assert np.isfinite(frames).all()
+    feats = reenact_mod.smoothed_audio_features(
+        st.params, torch.from_numpy(ds.auds[:2].repeat(2, 0)), cfg)
+    render = make_composite_frame_renderer(
+        cfg.face_nerf_config(), torso_nerf_config(cfg), 12, 12, ds.focal,
+        ds.near, ds.far, cfg.render_config(), cx=ds.cx, cy=ds.cy)
+    pose = torch.from_numpy(ds.poses[1])
+    want = render(st.params, torso, pose, torch.from_numpy(ds.poses[0]),
+                  torch.from_numpy(ds.bc_img).float() / 255.0, aud=feats[3],
+                  signal=torso_signal(feats[3], pose, cfg.dim_aud_body),
+                  expr=torch.from_numpy(exprs[1]),
+                  latent=st.latent_codes[0])
+    np.testing.assert_array_equal(frames[3], want.clamp(0, 1).numpy())
+
+
+_REFUSED = [
+    (eval_reenact.main, ["--temporal", "25"], "A7b"),
+    (eval_reenact.main, ["--cycle", "1"], "A7b"),
+    (eval_reenact.main, ["--auto_temporal", "runs/x"], "A9"),
+    (eval_reenact.main, ["--fast", "40"], "A9"),
+    (eval_reenact.main, ["--prior", "1"], "A9"),
+    (eval_reenact.main, ["--tighten_bounds", "1"], "A9"),
+    (eval_reenact.main, ["--ray_devices", "2"], "A13"),
+    (eval_reenact.main, ["--data_devices", "2"], "A13"),
+    (train_torso.main, ["--ray_devices", "2"], "A13"),
+    (train_torso.main, ["--data_devices", "2"], "A13"),
+    (reenact_mod.reenact, {"temporal": 25}, "A7b"),
+    (reenact_mod.reenact, {"fast_keep": 0.4}, "A9"),
+    (reenact_mod.reenact, {"use_prior": True}, "A9"),
+    (reenact_mod.reenact, {"bounds": (0.4, 0.8)}, "A9"),
+    (reenact_mod.reenact, {"mesh": object()}, "A13"),
+]
+
+
+@pytest.mark.parametrize("entry,flags,item", _REFUSED,
+                         ids=[f"{e.__module__.split('.')[-1]}-"
+                              f"{next(iter(f)).strip('-')}"
+                              for e, f, _ in _REFUSED])
+def test_unported_modes_raise_naming_their_roadmap_item(entry, flags, item,
+                                                        tmp_path):
+    with pytest.raises(NotImplementedError, match=item):
+        if isinstance(flags, dict):
+            entry(ExperimentConfig(), None, None, None, **flags)
+        else:
+            entry(["--device", "cpu", "--synthetic", "1", "--basedir",
+                   str(tmp_path), *flags])
+
+
+# ------------------------------------------- C1: the nets the kernels take
+
+def test_kernels_cover_nets_up_to_the_chains_width_and_depth_16():
+    base = ExperimentConfig()
+    cover = fr.kernels_cover
+    for kw in (dict(), dict(netwidth=128), dict(netwidth=64, netdepth=4),
+               dict(netdepth=16)):
+        assert cover(ExperimentConfig(**kw).face_nerf_config()), kw
+    for kw in (dict(netwidth=512), dict(netdepth=17),
+               dict(use_viewdirs=False), dict(multires=11)):
+        assert not cover(ExperimentConfig(**kw).face_nerf_config()), kw
+    # the torso net shares the head's width and depth
+    assert cover(torso_nerf_config(ExperimentConfig(netwidth=128)))
+    assert not cover(torso_nerf_config(ExperimentConfig(netwidth=512)))
+    for w in (256, 128):
+        assert train_use_pallas(ExperimentConfig(netwidth=w),
+                                "cuda") == "train_bf16"
+    assert train_use_pallas(ExperimentConfig(netwidth=128, train_fused=1),
+                            "cuda") == "train"
+    assert train_use_pallas(ExperimentConfig(netwidth=128), "cpu") is False
+    with pytest.raises(ValueError, match="B10"):
+        train_use_pallas(ExperimentConfig(netwidth=512), "cuda")
+    assert train_use_pallas(ExperimentConfig(netwidth=512, train_fused=0),
+                            "cuda") is False
+    assert train_use_pallas(base, "cpu") is False
+
+
+def _packed(width, depth, dtype=torch.bfloat16, seed=0):
+    cfg = ExperimentConfig(**{**SMALL, "netwidth": width, "netdepth": depth})
+    ncfg = cfg.face_nerf_config()
+    model = init_params(cfg, 1, torch.Generator().manual_seed(seed)
+                        ).params["coarse"]
+    rng = np.random.default_rng(seed)
+    cond = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+            for n in (32, 8, 4)]
+    with torch.no_grad():
+        folded = fold_conditioning(model, ncfg, *cond)
+        leaves = fr.model_leaves(model, folded, ncfg)
+    return fr.pack_leaves(ncfg, leaves, dtype)
+
+
+def _points(n=300, seed=1):
+    rng = np.random.default_rng(seed)
+    pts, dirs, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                    for s in ((n, 3), (n, 3), (n, 4)))
+    return pts, dirs, g
+
+
+@pytest.mark.parametrize("width,depth", [(128, 4), (64, 6)])
+def test_widen_pads_to_the_chains_widths_and_keeps_the_function(width,
+                                                                depth):
+    """The wrappers run a narrower net zero-padded to W=256 (view branch
+    128): the padded units stay 0 and the raw outputs are the narrow
+    net's, in f64 sums to 1e-12."""
+    from idealnerf_tpu_torch.kernels.fused_mlp import encode_points
+
+    net = _packed(width, depth)
+    wide = fr.widen(net)
+    assert (wide.width, wide.wv[0].shape[1]) == (256, 128)
+    assert sorted(wide.wskip) == sorted(net.wskip)
+    fr._check_rays("fused_render_rays", wide)
+    pts, dirs, _ = _points()
+
+    def raw(n):
+        pe, ped = (x.double() for x in encode_points(n, pts, dirs))
+        return fr._mlp_reference(n, pe, ped @ n.wv0d.double()
+                                 + n.bv[0].double())
+
+    np.testing.assert_allclose(raw(wide).numpy(), raw(net).numpy(),
+                               rtol=0, atol=1e-12)
+    paper = _packed(256, 8)
+    assert fr.widen(paper) is paper
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width,depth", [(128, 4), (64, 6)])
+def test_narrowed_gradients_of_the_widened_net_are_the_nets(width, depth,
+                                                            dtype):
+    """point_mlp_grad's route for a narrower net: the backward of the
+    widened net, cut back by ``narrow``, gives every gradient of the
+    narrow net (the two passes' plain versions, f64 sums, to 1e-10)."""
+    from idealnerf_tpu_torch.kernels import fused_mlp_grad as fmg
+
+    net = _packed(width, depth, dtype)
+    pts, dirs, g = _points()
+
+    def grads(n):
+        return fmg.grad_pass_b_reference(n, fmg.grad_pass_a_reference(
+            n, pts, dirs, g, acc=torch.float64))
+
+    got, want = fr.narrow(grads(fr.widen(net)), net), grads(net)
+    pairs = (list(zip(got.w, want.w)) + list(zip(got.b, want.b))
+             + list(zip(got.wv, want.wv)) + list(zip(got.bv, want.bv))
+             + [(got.wskip[i], want.wskip[i]) for i in want.wskip]
+             + [(got.wv0d, want.wv0d), (got.w_alpha, want.w_alpha),
+                (got.w_rgb, want.w_rgb), (got.b_heads, want.b_heads)])
+    for a, b in pairs:
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-10)
+
+
+def test_wrappers_refuse_a_net_wider_than_the_chain():
+    with pytest.raises(ValueError, match="B10"):
+        fr.widen(_packed(512, 4))
+    # unwidened, a narrow net is refused by the kernels' checks
+    with pytest.raises(ValueError, match="kernel width is 256"):
+        fr._check_rays("fused_render_rays", _packed(128, 4))

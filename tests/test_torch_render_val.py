@@ -63,8 +63,11 @@ def test_render_val_cli_on_cpu(tmp_path):
     res = render_val.main(["--device", "cpu", "--synthetic", "2",
                            "--synthetic_hw", "16", *CLI_SMALL,
                            "--save_path", str(tmp_path)])
-    assert set(res) == {"psnr", "ssim", "frame_ms"}
-    assert all(math.isfinite(v) for v in res.values())
+    assert set(res) == {"psnr", "ssim", "frame_ms", "frames"}
+    assert all(math.isfinite(res[k]) for k in ("psnr", "ssim", "frame_ms"))
+    frames = res["frames"]
+    assert frames.shape == (2, 16, 16, 3) and frames.dtype == np.float32
+    assert np.isfinite(frames).all() and 0 <= frames.min() <= frames.max() <= 1
     assert -1.0 <= res["ssim"] <= 1.0
     pngs = sorted(os.listdir(tmp_path))
     assert pngs == ["exp_val_00000.png", "exp_val_00001.png"]
