@@ -159,12 +159,33 @@ non-zero and no result line is printed):
    K4 and K6 launch twice a step, K2 and K1 once a frame, and its frames
    agree with the same checkpoint rendered on the host (3e-2,
    correlation > 0.999); a W=512 net is refused by both before any
-   launch.
+   launch. 12e (run before 12d), the temporal composite from phase 8's
+   head and 12b's torso on the 450x450 subject of phases 9-10 (its
+   per-field priors: the head's and the torso's rays): K3 on the torso
+   field (the torso prior's rays cast from the first pose, the torso
+   net) against its plain version at s_delta 16 and 32, with phase 9's
+   checks, and K1 on a freeze_z torso delta frame (all torso rays, then
+   the kept rays of delta_keep 0.01, on the keyframe's own depth grid)
+   with phase 2's; ``cli.serve.main --head_ckpt --torso_ckpt`` at the
+   serving defaults for ``--serve_frames`` frames, then ``--roll_k 4
+   --max_frames 10``, past the warm-up K2 and K1 twice a keyframe and K3
+   twice a delta frame (rolling: all three twice a frame after the
+   first); ``cli.eval_reenact.main --torso_ckpt --temporal 5 --prior 1``
+   over 10 frames with ``--cycle 1``, ``--cycle 0`` (frames bitwise equal
+   to ``--cycle 1``'s; both run the per-frame loop), ``--freeze_z_torso 1
+   --delta_keep_torso 0.01`` (the torso's delta frames launch K1, not K3)
+   and ``--roll_k_torso 4`` (no torso K3, K2 + K1 on the torso slice every
+   delta frame), each mode's launches asserted and its frame_ms printed;
+   ``render.cycle`` over two delta frames of a pruned, kf_blend cache, its
+   frames and cache bitwise those of per-frame calls; last, a run without
+   ``--prior`` whose keyframe is phase 12c's composite frame of the same
+   pose and conditioning within 2e-5.
 
 Then the kernel summary as one JSON line (each kernel's launches on its
 paths, K1/K2 over render_val and the composite reenact, K4/K6 over
-train_head and train_torso; its max error, its time and its plain
-version's, and its bound: the
+train_head and train_torso, K3 over the head-only and the composite
+serve; its max error, its time and its plain version's, and its bound:
+the
 larger of the bytes it must move over 3.35 TB/s and its operations at the
 H100 SXM data sheet's dense rate for their type, 989 TFLOP/s bf16, 1,979
 TOP/s int8, 67 TFLOP/s f32: ``idealnerf_tpu_torch.scripts.PEAK``), the
@@ -256,6 +277,9 @@ WARMUP = {"fused_render_coarse_hier": 1, "fused_render_rays": 1,
           "fused_render_delta": 2}
 WARMUP_ROLL = {"fused_render_coarse_hier": 3, "fused_render_rays": 3,
                "fused_render_delta": 2}
+# the composite stream runs two fields: each frame's launches twice
+WARMUP_COMP = {k: 2 * n for k, n in WARMUP.items()}
+WARMUP_COMP_ROLL = {k: 2 * n for k, n in WARMUP_ROLL.items()}
 MIN_GEOMETRY_PSNR = 20.0
 
 
@@ -616,6 +640,77 @@ def _phase_frame(fr, nets, fc, ff, ncfg, near, far, n_s, n_i, sizes,
     return out
 
 
+def _delta_keyframe(fr, nets, fold, c, o, d, b, near, far, n_s, n_i):
+    """A real keyframe's fine depths and weights (K2 then K1) on the rays
+    o, d: the first delta frame's previous (z, w)."""
+    fc, ff = fold(nets["coarse"], c), fold(nets["fine"], c)
+    _, z = fr.fused_render_coarse_hier(nets["coarse"], fc, c, o, d, b,
+                                       near, far, n_s, n_i)
+    return z, fr.fused_render_rays(nets["fine"], ff, c, o, d, z, b)["weights"]
+
+
+def _delta_band(z, w, near, far):
+    """The foreground band of (z, w), padded by 2 % of the interval."""
+    from idealnerf_tpu_torch.core.composite import fg_band
+
+    lo, hi, _ = fg_band(z, w)
+    span = far - near
+    return ((lo - 0.02 * span).clamp(near, far).contiguous(),
+            (hi + 0.02 * span).clamp(near, far).contiguous())
+
+
+def _delta_agree(k, again, p) -> float:
+    """Two delta-kernel outputs bitwise equal, and against the plain
+    version: depths, render, and the band of the kernel's own z, w."""
+    import torch
+
+    from idealnerf_tpu_torch.core.composite import fg_band
+
+    if not all(torch.equal(k[key], again[key]) for key in k):
+        raise AssertionError("two delta launches differ")
+    print("  two launches bitwise equal")
+    e = [_agree("z_vals vs plain placement", k["z_vals"], p["z_vals"],
+                atol=Z_ATOL)]
+    e += [_agree(key, k[key], p[key], corr=key == "rgb_map") for key
+          in ("rgb_map", "acc_map", "weights", "last_weight")]
+    b_lo, b_hi, _ = fg_band(k["z_vals"], k["weights"])
+    e.append(_agree("band_lo vs plain band of the kernel's z, w",
+                    k["band_lo"], b_lo, atol=Z_ATOL))
+    e.append(_agree("band_hi vs plain band of the kernel's z, w",
+                    k["band_hi"], b_hi, atol=Z_ATOL))
+    return max(e)
+
+
+def _delta_case(fr, nets, fold, c, o, d, b, near, far, n_s, n_i,
+                s_delta: int, tag: str) -> float:
+    """The delta kernel against its plain version on the rays o, d (plate
+    b) at ``s_delta``: the previous (z, w) first from a real keyframe,
+    then from the kernel's own output; two launches bitwise equal."""
+    import torch
+
+    s_uni, s_imp = _delta_split(s_delta)
+    ff = fold(nets["fine"], c)
+    z, w = _delta_keyframe(fr, nets, fold, c, o, d, b, near, far, n_s, n_i)
+    err = 0.0
+    for _ in range(2):   # from the keyframe, then from its own output
+        lo, hi = _delta_band(z, w, near, far)
+        args = (nets["fine"], ff, c, o, d, z, w, lo, hi, b, far, s_uni,
+                s_imp)
+        k = fr.fused_render_delta(*args)
+        again = fr.fused_render_delta(*args)
+        p = fr.fused_render_delta_reference(*args)
+        lc = fr.delta_launch_config(s_uni + s_imp + 1, z.shape[1])
+        print(f" fused_render_delta [{tag}, R={o.shape[0]}, s_prev "
+              f"{z.shape[1]}, {s_uni} uniform + {s_imp} importance + plate]: "
+              f"{lc['rays_per_group']} rays per group, "
+              f"{lc['smem_bytes']} bytes of shared memory, a ring of "
+              f"{lc['ring_stages']} stages of {lc['stage_bytes']} bytes")
+        err = max(err, _delta_agree(k, again, p))
+        z, w = k["z_vals"], k["weights"]
+    torch.cuda.synchronize()
+    return err
+
+
 def _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd, bc,
                  prior, ptxas) -> dict:
     """Phase 9: the delta kernel against its plain version, two launches
@@ -624,66 +719,14 @@ def _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd, bc,
     launches are held against the first and the plain version there too."""
     import torch
 
-    from idealnerf_tpu_torch.core.composite import fg_band
-
     print("phase 9 temporal delta kernel vs plain version")
     for i, ln in enumerate(ptxas):  # the wgmma kernel's registers, spills
         if "k_render_delta" in ln:
             print("  ptxas: " + " | ".join(ptxas[i:i + 3]))
-    span = far - near
-
-    def keyframe(c, o, d, b):
-        fc, ff = fold(nets["coarse"], c), fold(nets["fine"], c)
-        _, z = fr.fused_render_coarse_hier(nets["coarse"], fc, c, o, d, b,
-                                           near, far, n_s, n_i)
-        w = fr.fused_render_rays(nets["fine"], ff, c, o, d, z, b)["weights"]
-        return z, w
-
-    def band(z, w):
-        lo, hi, _ = fg_band(z, w)
-        return ((lo - 0.02 * span).clamp(near, far).contiguous(),
-                (hi + 0.02 * span).clamp(near, far).contiguous())
-
-    def agree(k, again, p):
-        """The kernel's two outputs bitwise equal, and against the plain
-        version: depths, render, and the band of the kernel's own z, w."""
-        if not all(torch.equal(k[key], again[key]) for key in k):
-            raise AssertionError("two delta launches differ")
-        print("  two launches bitwise equal")
-        e = [_agree("z_vals vs plain placement", k["z_vals"], p["z_vals"],
-                    atol=Z_ATOL)]
-        e += [_agree(key, k[key], p[key], corr=key == "rgb_map") for key
-              in ("rgb_map", "acc_map", "weights", "last_weight")]
-        b_lo, b_hi, _ = fg_band(k["z_vals"], k["weights"])
-        e.append(_agree("band_lo vs plain band of the kernel's z, w",
-                        k["band_lo"], b_lo, atol=Z_ATOL))
-        e.append(_agree("band_hi vs plain band of the kernel's z, w",
-                        k["band_hi"], b_hi, atol=Z_ATOL))
-        return max(e)
 
     def check(tag, c, n, s_delta):
-        o, d, b = ro[:n], rd[:n], bc[:n]
-        s_uni, s_imp = _delta_split(s_delta)
-        ff = fold(nets["fine"], c)
-        z, w = keyframe(c, o, d, b)
-        err = 0.0
-        for _ in range(2):   # from the keyframe, then from its own output
-            lo, hi = band(z, w)
-            args = (nets["fine"], ff, c, o, d, z, w, lo, hi, b, far, s_uni,
-                    s_imp)
-            k = fr.fused_render_delta(*args)
-            again = fr.fused_render_delta(*args)
-            p = fr.fused_render_delta_reference(*args)
-            lc = fr.delta_launch_config(s_uni + s_imp + 1, z.shape[1])
-            print(f" fused_render_delta [{tag}, R={n}, s_prev {z.shape[1]}, "
-                  f"{s_uni} uniform + {s_imp} importance + plate]: "
-                  f"{lc['rays_per_group']} rays per group, "
-                  f"{lc['smem_bytes']} bytes of shared memory, a ring of "
-                  f"{lc['ring_stages']} stages of {lc['stage_bytes']} bytes")
-            err = max(err, agree(k, again, p))
-            z, w = k["z_vals"], k["weights"]
-        torch.cuda.synchronize()
-        return err
+        return _delta_case(fr, nets, fold, c, ro[:n], rd[:n], bc[:n], near,
+                           far, n_s, n_i, s_delta, tag)
 
     sp = dataclasses.replace(ncfg, density_activation="softplus")
     rays = ro.shape[0]
@@ -698,12 +741,13 @@ def _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd, bc,
     out = {"max_abs_err": err}
     for tag, (o, d, b) in (("phase-2 rays", (ro, rd, bc)),
                            ("450x450 prior rays", prior)):
-        z, w = keyframe(ncfg, o, d, b)
-        lo, hi = band(z, w)
+        z, w = _delta_keyframe(fr, nets, fold, ncfg, o, d, b, near, far, n_s,
+                               n_i)
+        lo, hi = _delta_band(z, w, near, far)
         k = fr.fused_render_delta(nets["fine"], ff, ncfg, o, d, z, w, lo, hi,
                                   b, far, s_uni, s_imp)
         z, w = k["z_vals"], k["weights"]
-        lo, hi = band(z, w)
+        lo, hi = _delta_band(z, w, near, far)
         args = (nets["fine"], ff, ncfg, o, d, z, w, lo, hi, b, far, s_uni,
                 s_imp)
         first = fr.fused_render_delta(*args)
@@ -721,8 +765,8 @@ def _phase_delta(fr, nets, fold, ncfg, near, far, n_s, n_i, ro, rd, bc,
         # version at the timed size
         print(f"  R={o.shape[0]} ({tag}), s_prev 16: the last timed launch "
               "against the first, and against the plain version")
-        err = max(err, agree(first, {key: last[key] for key in first},
-                             last["plain"]))
+        err = max(err, _delta_agree(first, {key: last[key] for key in first},
+                                    last["plain"]))
         lib = _mlp_library_ms(fr, fr.pack_operands(nets["fine"], ff, ncfg),
                               o, d, k["z_vals"])
         n = o.shape[0]
@@ -1879,7 +1923,248 @@ def _phase_reenact(args, fr, head_ckpt: str, torso_ckpt: str,
         raise AssertionError("eval_reenact produced non-finite frames")
     if counts != dict.fromkeys(counts, 2 * n):
         raise AssertionError(f"eval_reenact launched {counts} for {n} frames")
-    return {**res, "launches": counts}
+    frame0 = res.pop("video")[0]  # the report keeps the metrics only
+    return {**res, "launches": counts, "frame0": frame0}
+
+
+def _leaves(tree):
+    """The tensors of a nested dict / tuple cache, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree] if hasattr(tree, "shape") else []
+
+
+def _phase_temporal_composite(args, fr, head_ckpt: str, torso_ckpt: str,
+                              frame0, dev: str = "cuda",
+                              hw: int = 450) -> dict:
+    """Phase 12e: the temporal head + torso composite from the phase-8
+    head and the 12b torso on the 450x450 subject of phases 9-10. (a) K3
+    on the torso field (the torso prior's rays from the first pose) and K1
+    on a freeze_z delta frame's kept rays against their plain versions;
+    (b) cli.serve.main --torso_ckpt at the serving defaults, then --roll_k
+    4, with the live launches asserted; (c) cli.eval_reenact.main
+    --torso_ckpt --temporal 5 --prior 1 in four modes with their launches,
+    --cycle 0 bitwise equal to --cycle 1, render.cycle bitwise per-frame
+    calls, and a run without --prior whose keyframe is phase 12c's
+    composite frame (2e-5)."""
+    import numpy as np
+    import torch
+
+    from idealnerf_tpu_torch.ckpt import CheckpointManager
+    from idealnerf_tpu_torch.cli import eval_reenact, serve
+    from idealnerf_tpu_torch.cli.common import load_torso
+    from idealnerf_tpu_torch.config import ExperimentConfig
+    from idealnerf_tpu_torch.core.rays import get_rays
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.eval.renderer import foreground_prior_fields
+    from idealnerf_tpu_torch.eval.temporal import (
+        _prior_sel, make_temporal_composite_renderer,
+    )
+    from idealnerf_tpu_torch.models.face_nerf import fold_conditioning
+    from idealnerf_tpu_torch.train.state import init_params
+    from idealnerf_tpu_torch.train.torso import (
+        torso_nerf_config, torso_signal,
+    )
+
+    t0 = time.perf_counter()
+    K1, K2, K3 = ("fused_render_rays", "fused_render_coarse_hier",
+                  "fused_render_delta")
+    cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32)
+    tcfg = torso_nerf_config(cfg)
+    n_s, n_i = cfg.N_samples, cfg.N_importance
+    n_frames = args.serve_frames
+    sds = make_synthetic_dataset(n_frames=n_frames, H=hw, W=hw, dim_expr=76)
+    near, far = sds.near, sds.far
+    mh, mt = foreground_prior_fields(sds)
+    sel_h, sel_t = _prior_sel(mh, hw * hw), _prior_sel(mt, hw * hw)
+    torso = load_torso(torso_ckpt, cfg, dev)
+    pose0 = torch.from_numpy(sds.poses[0]).to(dev)
+    signal = torso_signal(torch.randn(64, generator=torch.Generator()
+                                      .manual_seed(9)).to(dev), pose0,
+                          cfg.dim_aud_body)
+
+    def fold(net, c):
+        return fold_conditioning(net, c, signal)
+
+    o, d = (x.reshape(-1, 3) for x in get_rays(hw, hw, sds.focal, pose0,
+                                               sds.cx, sds.cy))
+    bc = (torch.from_numpy(sds.bc_img).to(dev).float() / 255.0).reshape(-1, 3)
+    st = torch.from_numpy(sel_t).long().to(dev)
+    ro, rd, rb = (x[st].contiguous() for x in (o, d, bc))
+    print(f"phase 12e temporal composite: priors of the {hw}x{hw} subject: "
+          f"head {int(mh.sum())} px -> {len(sel_h)} rays, torso "
+          f"{int(mt.sum())} px -> {len(sel_t)} rays, union "
+          f"{int((mh | mt).sum())} px")
+    errs = {K3: max(_delta_case(fr, torso, fold, tcfg, ro, rd, rb, near,
+                                far, n_s, n_i, s, f"torso, s_delta {s}")
+                    for s in (16, 32))}
+
+    # K1 on a freeze_z delta frame's kept rays: the keyframe's own grid
+    render = make_temporal_composite_renderer(
+        cfg.face_nerf_config(), tcfg, hw, hw, sds.focal, near, far,
+        cfg.render_config(), cx=sds.cx, cy=sds.cy, prior_mask_head=mh,
+        prior_mask_torso=mt, s_delta=16, freeze_z_torso=True,
+        delta_keep_torso=0.01)
+    field = render.stages["torso"]
+    if field.uses_delta_kernel:
+        raise AssertionError("a freeze_z field would launch the delta kernel")
+    ff = fold(torso["fine"], tcfg)
+    e = []
+    with torch.no_grad():
+        _, _, _, cache = field(torso, pose0, bc.reshape(hw, hw, 3),
+                               (signal, None, None), None)
+        keep = cache["keep"]
+        z_all = _delta_keyframe(fr, torso, fold, tcfg, ro, rd, rb, near, far,
+                                n_s, n_i)[0]
+        for tag, rays in (
+                ("all torso rays", (ro, rd, z_all, rb)),
+                ("kept rays, delta_keep 0.01",
+                 (ro[keep].contiguous(), rd[keep].contiguous(), cache["z"],
+                  rb[keep].contiguous()))):
+            a = (torso["fine"], ff, tcfg, *rays)
+            k, p = fr.fused_render_rays(*a), fr.fused_render_rays_reference(*a)
+            print(f"  fused_render_rays on a freeze_z torso delta frame "
+                  f"[{tag}, R={rays[0].shape[0]}, S={rays[2].shape[1]}]:")
+            e += [_agree(key, k[key], p[key], corr=key == "rgb_map")
+                  for key in ("rgb_map", "acc_map", "weights", "last_weight")]
+    errs[K1] = max(e)
+    del o, d, bc, ro, rd, rb, z_all, cache, render, field
+    torch.cuda.empty_cache()
+
+    dims = ["--synthetic", str(n_frames), "--synthetic_hw", str(hw),
+            "--dim_aud", "64", "--dim_expr", "76", "--dim_latent", "32",
+            "--device", dev, "--head_ckpt", head_ckpt, "--torso_ckpt",
+            torso_ckpt]
+    out = {"errs": errs, "rays": {"head": len(sel_h), "torso": len(sel_t)}}
+    for tag, extra, warm in (("defaults", [], WARMUP_COMP),
+                             ("roll_k 4", ["--roll_k", "4", "--max_frames",
+                                           "10"], WARMUP_COMP_ROLL)):
+        fr.reset_launch_counts()
+        stats = serve.main(dims + extra)
+        counts = dict(fr.launch_counts)
+        live = {k: counts[k] - warm[k] for k in warm}
+        n = stats["frames"]
+        if extra:
+            want = {K2: 2 * n, K1: 2 * n, K3: 2 * (n - 1)}
+        else:
+            want = {K2: 2 * stats["keyframes"], K1: 2 * stats["keyframes"],
+                    K3: 2 * stats["delta_frames"]}
+        print(f"  serve --torso_ckpt [{tag}]: {n} frames, "
+              f"{stats['keyframes']} keyframes + {stats['delta_frames']} "
+              f"delta frames; launches {counts} (live {live}, want {want}); "
+              f"keyframe {stats['keyframe_ms']} ms, delta p50 "
+              f"{stats['delta_p50_ms']} ms, p95 {stats['delta_p95_ms']} ms; "
+              f"steady frames p50 {stats['p50_ms']:.2f}, p95 "
+              f"{stats['p95_ms']:.2f}, p99 {stats['p99_ms']:.2f} ms, "
+              f"{stats['steady_fps']:.2f} fps, 40 ms hit rate "
+              f"{stats['deadline_40ms_hit_rate']:.3f}, warm-up "
+              f"{stats['warmup_s']:.2f} s")
+        if not stats["finite"]:
+            raise AssertionError(f"composite serve [{tag}] emitted a "
+                                 "non-finite frame")
+        if live != want:
+            raise AssertionError(f"composite serve [{tag}] launched {live}, "
+                                 f"want {want}")
+        out[f"serve {tag}"] = {"stats": stats, "launches": counts}
+
+    reen = dims + ["--temporal", "5", "--prior", "1", "--max_frames", "10",
+                   "--save_path", "output/chip_smoke_temporal"]
+    n = min(10, n_frames)
+    kf = -(-n // 5)
+    dl = n - kf
+    modes = {
+        "cycle 1": ([], {K2: 2 * kf, K1: 2 * kf, K3: 2 * dl}),
+        "cycle 0": (["--cycle", "0"], {K2: 2 * kf, K1: 2 * kf, K3: 2 * dl}),
+        "freeze_z_torso": (["--freeze_z_torso", "1", "--delta_keep_torso",
+                            "0.01"], {K2: 2 * kf, K1: 2 * kf + dl, K3: dl}),
+        "roll_k_torso 4": (["--roll_k_torso", "4"],
+                           {K2: 2 * kf + dl, K1: 2 * kf + dl, K3: dl}),
+    }
+    videos = {}
+    for tag, (extra, want) in modes.items():
+        fr.reset_launch_counts()
+        res = eval_reenact.main(reen + extra)
+        counts = {k: fr.launch_counts[k] for k in want}
+        videos[tag] = res.pop("video")
+        print(f"  eval_reenact --temporal 5 --prior 1 [{tag}]: "
+              f"{res['frames']} frames, {res['frame_ms']:.2f} ms/frame after "
+              f"the first, PSNR {res['psnr']:.3f}; launches {counts} (want "
+              f"{want})")
+        if not (math.isfinite(res["psnr"]) and res["frames"] == n):
+            raise AssertionError(f"eval_reenact [{tag}] produced non-finite "
+                                 "frames")
+        if counts != want:
+            raise AssertionError(f"eval_reenact [{tag}] launched {counts}, "
+                                 f"want {want}")
+        out[f"reenact {tag}"] = {**res, "launches": counts}
+    if not np.array_equal(videos["cycle 1"], videos["cycle 0"]):
+        raise AssertionError("--cycle 1 frames differ from --cycle 0's")
+    print("  --cycle 1 frames bitwise equal to --cycle 0's (both run the "
+          "per-frame loop)")
+
+    # render.cycle on the card, with the richest cache (pruned, kf_blend):
+    # its frames and final cache bitwise those of per-frame calls
+    head = init_params(cfg, n_frames).params
+    ck = CheckpointManager(head_ckpt).restore()
+    head.load_state_dict(ck["params"])
+    head = head.to(dev)
+    render = make_temporal_composite_renderer(
+        cfg.face_nerf_config(), tcfg, hw, hw, sds.focal, near, far,
+        cfg.render_config(), cx=sds.cx, cy=sds.cy, prior_mask_head=mh,
+        prior_mask_torso=mt, s_delta=16, delta_keep_head=0.5,
+        delta_keep_torso=0.5, kf_blend=0.5)
+    g = torch.Generator().manual_seed(11)
+    T = 3
+    poses = torch.from_numpy(sds.poses[1:T + 2]).to(dev)
+    auds, exprs = (torch.randn(T + 1, k, generator=g).to(dev)
+                   for k in (64, 76))
+    sigs = torch.stack([torso_signal(a, pose0, cfg.dim_aud_body)
+                        for a in auds])
+    latent = ck["latent_codes"][0].to(dev)
+    bc_img = torch.from_numpy(sds.bc_img).to(dev).float() / 255.0
+    with torch.no_grad():
+        def frame(t, cache):
+            return render(head, torso, poses[t], pose0, bc_img, aud=auds[t],
+                          signal=sigs[t], expr=exprs[t], latent=latent,
+                          cache=cache)
+        _, c0 = frame(0, None)
+        _, c1 = frame(1, c0)
+        loop, c = [], c1
+        for t in range(2, T + 1):
+            f, c = frame(t, c)
+            loop.append(f)
+        cyc, c_cyc = render.cycle(
+            head, torso, poses[2:], pose0, bc_img, c1, auds=auds[2:],
+            signals=sigs[2:], exprs=exprs[2:],
+            latents=latent[None].expand(T - 1, -1))
+    la, lb = _leaves(c_cyc), _leaves(c)
+    same = (torch.equal(cyc, torch.stack(loop)) and len(la) == len(lb) > 0
+            and all(torch.equal(a, b) for a, b in zip(la, lb)))
+    print(f"  render.cycle over {T - 1} delta frames (pruned 0.5, kf_blend "
+          f"0.5): frames and cache bitwise the per-frame calls': {same}")
+    if not same:
+        raise AssertionError("render.cycle differs from per-frame calls")
+    del head, render, c0, c1, c, c_cyc, cyc, loop
+    torch.cuda.empty_cache()
+
+    res = eval_reenact.main([
+        "--synthetic", str(args.frames), "--synthetic_hw", str(args.hw),
+        "--dim_aud", "64", "--dim_expr", "76", "--dim_latent", "32",
+        "--device", dev, "--head_ckpt", head_ckpt, "--torso_ckpt", torso_ckpt,
+        "--temporal", "5", "--max_frames", "1"])
+    err = float(np.abs(res["video"][0] - frame0).max())
+    print(f"  eval_reenact --temporal 5 without --prior: keyframe against "
+          f"phase 12c's composite frame, max abs {err:.3g} (bound 2e-5)")
+    if not err <= 2e-5:
+        raise AssertionError("the temporal keyframe is not the composite "
+                             "frame")
+    out["keyframe_err"] = err
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 12e took {out['seconds']:.1f} s")
+    torch.cuda.synchronize()
+    return out
 
 
 def _phase_c1(fr, fm, fmg, dev: str = "cuda", hw: int = 64,
@@ -2199,23 +2484,31 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     res12b = _phase_torso_train(args, fm, fmg, res8["ckpt_dir"])
     res12c = _phase_reenact(args, fr, res8["ckpt_dir"], res12b["ckpt_dir"])
+    res12e = _phase_temporal_composite(args, fr, res8["ckpt_dir"],
+                                       res12b["ckpt_dir"],
+                                       res12c.pop("frame0"))
     res12d = _phase_c1(fr, fm, fmg)
     report.update(torso_field=res12a, torso_train=res12b, reenact=res12c,
-                  c1=res12d)
+                  c1=res12d, temporal_composite=res12e)
 
     # launches on the main paths: render_val and the composite reenact
-    # (K1, K2), train_head and train_torso (K4, K6), serve (K3)
+    # (K1, K2), train_head and train_torso (K4, K6), serve head-only and
+    # composite (K3)
     for k, n in res12c["launches"].items():
         counts[k] += n
     for k, n in res8["launches"].items():
         counts[k] = n + res12b["launches"][k]
-    counts["fused_render_delta"] = (
-        res10["defaults"]["launches"]["fused_render_delta"])
+    counts["fused_render_delta"] = sum(
+        r["launches"]["fused_render_delta"]
+        for r in (res10["defaults"], res12e["serve defaults"]))
     for k, e in res12a["errs"].items():
         errs[k] = max(errs[k], e)
     errs.update(fused_point_mlp=res6["max_abs_err"],
                 fused_point_mlp_grad=res7["max_abs_err"],
-                fused_render_delta=res9["max_abs_err"])
+                fused_render_delta=max(res9["max_abs_err"],
+                                       res12e["errs"]["fused_render_delta"]))
+    errs["fused_render_rays"] = max(errs["fused_render_rays"],
+                                    res12e["errs"]["fused_render_rays"])
     # the frame's kernels at their path's launch shape, a whole frame
     frame_res = res2["450x450 frame"]
     times = {k: (r["ms"], r["plain_ms"]) for k, r in frame_res.items()}

@@ -15,6 +15,7 @@ from idealnerf_tpu_torch.config import ExperimentConfig
 from idealnerf_tpu_torch.data.dataset import FrameDataset
 from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
 from idealnerf_tpu_torch.train.state import ModelState, init_params
+from idealnerf_tpu_torch.train.torso import init_torso_params
 
 logger = logging.getLogger("idealnerf.cli")
 
@@ -84,3 +85,14 @@ def load_head(args, cfg: ExperimentConfig, data_size: int) -> ModelState:
                            latent_codes=ck["latent_codes"])
     logger.info("head from %s at step %d", args.head_ckpt, state.step)
     return state
+
+
+def load_torso(torso_ckpt: Optional[str], cfg: ExperimentConfig, device):
+    """The torso nets restored from a ``train_torso`` checkpoint directory
+    onto ``device``, or None without one."""
+    if not torso_ckpt:
+        return None
+    torso = init_torso_params(cfg)
+    torso.load_state_dict(CheckpointManager(torso_ckpt).restore()
+                          ["torso_params"])
+    return torso.to(device)

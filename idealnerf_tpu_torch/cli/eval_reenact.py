@@ -1,10 +1,14 @@
-"""Cross-subject reenactment, full fidelity, one frame at a time
-(counterpart of idealnerf_tpu/cli/eval_reenact.py); with ``--torso_ckpt``
-each frame is the head + torso composite.
+"""Cross-subject reenactment (counterpart of
+idealnerf_tpu/cli/eval_reenact.py), full fidelity one frame at a time or,
+with ``--temporal R``, through the temporal depth-cache renderers (a
+keyframe every R frames); with ``--torso_ckpt`` each frame is the head +
+torso composite.
 
     python -m idealnerf_tpu_torch.cli.eval_reenact --synthetic 3 \\
         --synthetic_hw 450 --dim_aud 64 --dim_expr 76 --dim_latent 32 \\
-        --head_ckpt logs/exp/ckpt --torso_ckpt logs/exp_torso/ckpt
+        --head_ckpt logs/exp/ckpt --torso_ckpt logs/exp_torso/ckpt \\
+        [--temporal 25 --prior 1 [--cycle 0] [--freeze_z_torso 1] \\
+         [--roll_k_torso 4]]
 
 The identity (poses, plate, latent) comes from the dataset, the driving
 expressions from ``--evalExpr_path`` (another subject's transforms json;
@@ -12,10 +16,17 @@ default the identity's own), the driving audio from ``--aud_file`` (with
 ``--synthetic``, the identity's own windows). Frames render on
 ``--device`` (default cuda; on cpu the kernels' plain versions run) and
 are written as ``<save_path>/<expname>_reenact_*.png``. ``main(argv)``
-returns {"frames", "frame_ms", "psnr"}: the frame count, the mean wall ms
-per frame after the first (each frame's time ends when its pixels reach
-the host) and the mean PSNR against the identity's frames (its com images
-with ``--torso_ckpt``).
+returns {"frames", "frame_ms", "psnr", "video"}: the frame count, the mean
+wall ms per frame after the first (each frame's time ends when its pixels
+reach the host), the mean PSNR against the identity's frames (its com
+images with ``--torso_ckpt``) and the frames (N, H, W, 3). ``--cycle``
+(default 1, off under ``--roll_k_torso``) is checked as the JAX CLI checks
+it, but changes nothing here: the JAX package scans a cycle's delta frames
+in one dispatch, and on the card every frame runs through the per-frame
+loop, which gives the same frames.
+
+Not ported yet: ``--auto_temporal``, ``--fast``, ``--tighten_bounds``
+(ROADMAP.md A9) and ``--ray_devices``, ``--data_devices`` (A13).
 """
 
 from __future__ import annotations
@@ -26,23 +37,19 @@ import os
 import numpy as np
 import torch
 
-from idealnerf_tpu_torch.ckpt import CheckpointManager
 from idealnerf_tpu_torch.cli.common import (
-    build_parser, load_head, resolve_config, resolve_dataset,
+    build_parser, load_head, load_torso, resolve_config, resolve_dataset,
 )
 from idealnerf_tpu_torch.eval.metrics import psnr
 from idealnerf_tpu_torch.eval.reenact import load_driving_exprs, reenact
-from idealnerf_tpu_torch.train.torso import init_torso_params
+from idealnerf_tpu_torch.eval.temporal import check_roll_k
 
 logger = logging.getLogger("idealnerf.cli")
 
 # modes of the JAX CLI that the port does not have yet
 _NOT_PORTED = {
-    "temporal": "A7b (temporal composite video)",
-    "cycle": "A7b (temporal composite video)",
     "auto_temporal": "A9 (eval/operating_points.gated_video_config)",
     "fast": "A9 (per-frame fast modes)",
-    "prior": "A9 (per-frame fast modes)",
     "tighten_bounds": "A9 (per-frame fast modes)",
     "ray_devices": "A13 (multi-device)",
     "data_devices": "A13 (multi-device)",
@@ -59,17 +66,59 @@ def main(argv=None):
     parser.add_argument("--max_frames", type=int, default=None)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to render on")
-    for flag in ("temporal", "cycle", "fast", "prior", "tighten_bounds",
-                 "ray_devices", "data_devices"):
+    for flag in ("fast", "tighten_bounds", "ray_devices", "data_devices"):
         parser.add_argument(f"--{flag}", type=int, default=0,
                             help="not ported")
     parser.add_argument("--auto_temporal", type=str, default=None,
                         metavar="EVIDENCE_DIR", help="not ported")
+    parser.add_argument("--prior", type=int, default=0,
+                        help="with --temporal: restrict network work to the "
+                             "identity's foreground prior (per field with "
+                             "--torso_ckpt)")
+    parser.add_argument("--temporal", type=int, default=0,
+                        help="temporal depth-cache video: keyframe interval "
+                             "in frames; the frames in between resample "
+                             "each ray's cached depth band")
+    parser.add_argument("--s_delta", type=int, default=32,
+                        help="with --temporal: samples per ray on delta "
+                             "frames")
+    parser.add_argument("--s_delta_torso", type=int, default=None,
+                        help="torso delta samples (default --s_delta)")
+    parser.add_argument("--delta_keep", type=float, default=1.0,
+                        help="with --temporal: fraction of prior rays "
+                             "re-rendered on delta frames")
+    parser.add_argument("--delta_keep_torso", type=float, default=None,
+                        help="torso delta keep (default --delta_keep)")
+    parser.add_argument("--freeze_z_torso", type=int, default=0,
+                        help="torso delta frames re-render the keyframe's "
+                             "depth grid")
+    parser.add_argument("--uni_frac", type=float, default=0.25,
+                        help="with --temporal: fraction of delta in-band "
+                             "samples placed uniformly across the band")
+    parser.add_argument("--kf_blend", type=float, default=0.0,
+                        help="with --temporal: fraction of delta importance "
+                             "samples drawn from the keyframe's CDF")
+    parser.add_argument("--dilate_every", type=int, default=1,
+                        help="with --temporal: dilate the bands on every "
+                             "k-th delta frame only")
+    parser.add_argument("--head_parse", type=int, default=0,
+                        help="tighten the head prior from face rects to "
+                             "parse silhouettes")
+    parser.add_argument("--roll_k_torso", type=int, default=0,
+                        help="with --temporal + --torso_ckpt: torso "
+                             "refresh-only roll, 1/K of the torso rays at "
+                             "the keyframe schedule every frame (forces "
+                             "--cycle 0)")
+    parser.add_argument("--cycle", type=int, default=1,
+                        help="with --temporal: the JAX CLI's scanned delta "
+                             "cycle; accepted for parity, the frames run "
+                             "through the per-frame loop either way")
     args = parser.parse_args(argv)
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP.md {item})")
+    check_roll_k("--roll_k_torso", args.roll_k_torso)
     cfg = resolve_config(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -79,12 +128,7 @@ def main(argv=None):
         args, cfg, mode="val",
         gt_dirs="com_imgs" if args.torso_ckpt else None)
     state = load_head(args, cfg, identity.size)  # reenact uses latent 0
-    torso = None
-    if args.torso_ckpt:
-        torso = init_torso_params(cfg)
-        torso.load_state_dict(
-            CheckpointManager(args.torso_ckpt).restore()["torso_params"])
-        torso = torso.to(device)
+    torso = load_torso(args.torso_ckpt, cfg, device)
 
     exprs = (load_driving_exprs(cfg.evalExpr_path) if cfg.evalExpr_path
              else identity.exprs)  # self-reenactment
@@ -102,7 +146,14 @@ def main(argv=None):
         torso_params=torso,
         out_path=os.path.join(save_path, f"{cfg.expname}_reenact"),
         max_frames=args.max_frames,
-        smooth_audio=cfg.nosmo_iters <= state.step, frame_times=times)
+        smooth_audio=cfg.nosmo_iters <= state.step, frame_times=times,
+        use_prior=bool(args.prior), temporal=args.temporal or None,
+        s_delta=args.s_delta, s_delta_torso=args.s_delta_torso,
+        delta_keep=args.delta_keep, delta_keep_torso=args.delta_keep_torso,
+        freeze_z_torso=bool(args.freeze_z_torso), uni_frac=args.uni_frac,
+        kf_blend=args.kf_blend, dilate_every=args.dilate_every,
+        roll_k_torso=args.roll_k_torso, head_parse=bool(args.head_parse),
+        cycle=bool(args.cycle) and not args.roll_k_torso)
     n = frames.shape[0]
     gt = identity.images[np.arange(n) % identity.size].astype(
         np.float32) / 255.0
@@ -110,7 +161,8 @@ def main(argv=None):
            "frame_ms": 1e3 * float(np.mean(times[1:] if n > 1 else times)),
            "psnr": float(np.mean([float(psnr(torch.from_numpy(f),
                                              torch.from_numpy(g)))
-                                  for f, g in zip(frames, gt)]))}
+                                  for f, g in zip(frames, gt)])),
+           "video": frames}
     logger.info("reenact: %d frames, %.1f ms/frame, PSNR %.2f against the "
                 "identity's frames -> %s", n, res["frame_ms"], res["psnr"],
                 save_path)

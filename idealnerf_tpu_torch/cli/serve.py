@@ -1,11 +1,12 @@
-"""Real-time serving CLI, head field only (counterpart of
-idealnerf_tpu/cli/serve.py): stream a driving audio track through
-eval.stream.TemporalStream frame by frame, as a live caller would, and
-report the latency a live session sees.
+"""Real-time serving CLI (counterpart of idealnerf_tpu/cli/serve.py):
+stream a driving audio track through eval.stream.TemporalStream frame by
+frame, as a live caller would, and report the latency a live session
+sees. With ``--torso_ckpt`` every frame is the head + torso composite.
 
     python -m idealnerf_tpu_torch.cli.serve --synthetic 30 \\
         --synthetic_hw 450 --dim_aud 64 --dim_expr 76 --dim_latent 32 \\
-        [--head_ckpt <dir>] [--roll_k 4] [--save_path output/serve]
+        [--head_ckpt <dir>] [--torso_ckpt <dir>] [--roll_k 4] \\
+        [--save_path output/serve]
 
 Frames render on ``--device`` (default cuda; on cpu the kernels' plain
 PyTorch versions run). ``main(argv)`` returns the JAX CLI's stats — frames,
@@ -15,8 +16,10 @@ the split by frame kind: keyframes and keyframe_ms (their mean), delta
 frames and delta_p50_ms / delta_p95_ms. Each frame's time ends when its
 pixels reach the host, which waits for the device.
 
-Not ported yet: ``--torso_ckpt`` (ROADMAP.md A7b) and ``--auto_temporal``
-(A9, eval/operating_points.gated_video_config).
+``--roll_k_torso K`` gives the torso a refresh-only roll. The JAX CLI has
+no such flag and reads it from the operating point that
+``--auto_temporal`` picks; until that is ported (ROADMAP.md A9,
+eval/operating_points.gated_video_config), the flag stands in for it.
 """
 
 from __future__ import annotations
@@ -29,15 +32,15 @@ import numpy as np
 import torch
 
 from idealnerf_tpu_torch.cli.common import (
-    build_parser, load_head, resolve_config, resolve_dataset,
+    build_parser, load_head, load_torso, resolve_config, resolve_dataset,
 )
 from idealnerf_tpu_torch.eval.stream import TemporalStream
+from idealnerf_tpu_torch.eval.temporal import check_roll_k
 from idealnerf_tpu_torch.eval.video import FrameWriter
 
 logger = logging.getLogger("idealnerf.cli")
 
 _NOT_PORTED = {
-    "torso_ckpt": "A7b (temporal composite video)",
     "auto_temporal": "A9 (eval/operating_points.gated_video_config)",
 }
 
@@ -47,7 +50,8 @@ def main(argv=None):
     parser.add_argument("--head_ckpt", type=str, required=False,
                         help="checkpoint directory written by train_head")
     parser.add_argument("--torso_ckpt", type=str, default=None,
-                        help="head + torso serving (not ported)")
+                        help="checkpoint directory written by train_torso: "
+                             "serve the head + torso composite")
     parser.add_argument("--auto_temporal", type=str, default=None,
                         metavar="EVIDENCE_DIR",
                         help="serve at a quality-gated operating point "
@@ -60,12 +64,17 @@ def main(argv=None):
                         help="rolling keyframe refresh: no keyframe "
                              "spikes, every frame pays a delta frame + 1/K "
                              "of a keyframe")
+    parser.add_argument("--roll_k_torso", type=int, default=0,
+                        help="torso refresh-only roll: every frame "
+                             "re-renders 1/K of the torso rays at the "
+                             "keyframe schedule, with no torso delta pass")
     parser.add_argument("--max_frames", type=int, default=None)
     parser.add_argument("--no_smooth", action="store_true",
                         help="skip AudioAttNet smoothing: zero lookahead")
     parser.add_argument("--prior", type=int, default=1,
                         help="restrict network work to the subject's "
-                             "foreground prior")
+                             "foreground prior (per field with "
+                             "--torso_ckpt)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to render on")
     args = parser.parse_args(argv)
@@ -73,6 +82,10 @@ def main(argv=None):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP.md {item})")
+    check_roll_k("--roll_k", args.roll_k)
+    check_roll_k("--roll_k_torso", args.roll_k_torso)
+    if args.roll_k and args.roll_k_torso:
+        raise ValueError("--roll_k and --roll_k_torso are exclusive")
     cfg = resolve_config(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -81,14 +94,16 @@ def main(argv=None):
 
     state = load_head(args, cfg, identity.size)
     params, latents = state.params.to(device), state.latent_codes
+    torso = load_torso(args.torso_ckpt, cfg, device)
 
     auds = identity.auds
     n = auds.shape[0] if args.max_frames is None else min(
         args.max_frames, auds.shape[0])
     stream = TemporalStream(
-        cfg, params, identity, latent_codes=latents, refresh=args.refresh,
-        s_delta=args.s_delta, delta_keep=args.delta_keep,
-        roll_k=args.roll_k, use_prior=bool(args.prior),
+        cfg, params, identity, torso_params=torso, latent_codes=latents,
+        refresh=args.refresh, s_delta=args.s_delta,
+        delta_keep=args.delta_keep, roll_k=args.roll_k,
+        roll_k_torso=args.roll_k_torso, use_prior=bool(args.prior),
         smooth_audio=not args.no_smooth)
     warmup_s = stream.warmup()
     logger.info("warmup %.1fs; refresh %d, lookahead %d frames",

@@ -1,13 +1,15 @@
 from idealnerf_tpu_torch.eval.metrics import psnr, ssim
 from idealnerf_tpu_torch.eval.renderer import (
-    foreground_prior, make_frame_renderer,
+    foreground_prior, foreground_prior_fields, make_frame_renderer,
 )
 from idealnerf_tpu_torch.eval.stream import TemporalStream
 from idealnerf_tpu_torch.eval.temporal import (
-    dilate_bands, fg_band, make_temporal_frame_renderer,
+    dilate_bands, fg_band, make_temporal_composite_renderer,
+    make_temporal_frame_renderer,
 )
 from idealnerf_tpu_torch.eval.video import FrameWriter, write_png
 
 __all__ = ["FrameWriter", "TemporalStream", "dilate_bands", "fg_band",
-           "foreground_prior", "make_frame_renderer",
+           "foreground_prior", "foreground_prior_fields",
+           "make_frame_renderer", "make_temporal_composite_renderer",
            "make_temporal_frame_renderer", "psnr", "ssim", "write_png"]

@@ -1,16 +1,18 @@
-"""Cross-subject reenactment, one full-fidelity frame at a time
-(counterpart of eval/reenact.py, its per-frame branches).
+"""Cross-subject reenactment (counterpart of eval/reenact.py, its
+per-frame and temporal branches).
 
 The identity (poses, background plate, latent) comes from subject A's
 dataset, the driving expressions from subject B's transforms json and the
 driving audio from a window track; audio features for the whole track are
-computed in one batched pass. Each frame is the head field alone
-(``make_frame_renderer``) or the head + torso composite
-(``make_composite_frame_renderer``), written as PNGs by eval/video.py.
+computed in one batched pass. Each frame is the head field alone or the
+head + torso composite, written as PNGs by eval/video.py: one
+full-fidelity frame at a time (``make_frame_renderer``,
+``make_composite_frame_renderer``), or with ``temporal = R`` the
+temporal depth-cache renderers (a keyframe every R frames, delta frames
+in between).
 
-Not ported yet: the temporal modes (``temporal``, ROADMAP.md A7b), the
-fast modes (``fast_keep``, ``use_prior``, ``bounds``, A9) and multi-device
-rendering (``mesh``, A13).
+Not ported yet: the fast modes (``fast_keep``, ``bounds``, ROADMAP.md A9)
+and multi-device rendering (``mesh``, A13).
 """
 
 from __future__ import annotations
@@ -24,7 +26,12 @@ import numpy as np
 import torch
 
 from idealnerf_tpu_torch.eval.renderer import (
-    make_composite_frame_renderer, make_frame_renderer,
+    foreground_prior, foreground_prior_fields, make_composite_frame_renderer,
+    make_frame_renderer,
+)
+from idealnerf_tpu_torch.eval.temporal import (
+    check_roll_k, make_temporal_composite_renderer,
+    make_temporal_frame_renderer,
 )
 from idealnerf_tpu_torch.eval.video import FrameWriter
 from idealnerf_tpu_torch.models.variants import (
@@ -36,9 +43,7 @@ logger = logging.getLogger("idealnerf.eval")
 
 # modes of the JAX reenact that the port does not have yet
 _NOT_PORTED = {
-    "temporal": "A7b (temporal composite video)",
     "fast_keep": "A9 (per-frame fast modes)",
-    "use_prior": "A9 (per-frame fast modes)",
     "bounds": "A9 (per-frame fast modes)",
     "mesh": "A13 (multi-device)",
 }
@@ -73,7 +78,14 @@ def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
             latent_codes: Optional[torch.Tensor] = None,
             torso_params=None, out_path: Optional[str] = None,
             max_frames: Optional[int] = None, smooth_audio: bool = True,
-            frame_times: Optional[list] = None, temporal=None,
+            frame_times: Optional[list] = None,
+            temporal: Optional[int] = None, s_delta: int = 32,
+            delta_keep: float = 1.0,
+            delta_keep_torso: Optional[float] = None,
+            s_delta_torso: Optional[int] = None, uni_frac: float = 0.25,
+            kf_blend: float = 0.0, freeze_z_torso: bool = False,
+            dilate_every: int = 1, roll_k: int = 0, roll_k_torso: int = 0,
+            cycle: bool = False, head_parse: bool = False,
             fast_keep=None, use_prior: bool = False, bounds=None,
             mesh=None) -> np.ndarray:
     """Render the reenactment on the device of ``head_params`` -> the
@@ -81,28 +93,73 @@ def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
     ``{out_path}_{i:05d}.png``. Identity poses cycle through subject A's
     frames; the expression index follows the driving sequence, clamped at
     its end. With ``torso_params`` each frame is the composite, the torso
-    rays cast from the identity's first pose. ``frame_times`` gets each
-    frame's wall seconds, the host fetch included."""
-    given = dict(temporal=temporal, fast_keep=fast_keep, use_prior=use_prior,
-                 bounds=bounds, mesh=mesh)
+    rays cast from the identity's first pose.
+
+    ``temporal = R``: the temporal renderers, a keyframe every R frames
+    (only frame 0 under ``roll_k``), with the delta-frame knobs of
+    eval/temporal.py; ``use_prior`` restricts them to the subject's
+    foreground prior (per field for the composite). ``cycle`` is the JAX
+    reenact's option to scan each keyframe cycle's delta frames in one
+    dispatch; it is checked as there, but on the card the per-frame loop
+    renders the same frames (``render.cycle`` is that loop), so every
+    frame runs through it. ``frame_times`` gets each frame's own wall
+    seconds, the host fetch included."""
+    given = dict(fast_keep=fast_keep, bounds=bounds, mesh=mesh)
     for name, item in _NOT_PORTED.items():
-        if given[name] not in (None, False):
+        if given[name] is not None:
             raise NotImplementedError(
                 f"reenact {name} is not ported yet (ROADMAP.md {item})")
+    if temporal is not None:
+        if temporal < 1:
+            raise ValueError("temporal must be >= 1 (keyframe interval)")
+        roll_k = check_roll_k("roll_k", roll_k)
+        roll_k_torso = check_roll_k("roll_k_torso", roll_k_torso)
+        if roll_k_torso and cycle:
+            raise ValueError("roll_k_torso (torso refresh roll) has no "
+                             "delta-frame cycle; drop cycle=True")
+        if roll_k and cycle:
+            raise ValueError("roll_k (rolling keyframe refresh) has no "
+                             "delta-frame cycle; drop cycle=True")
+        if roll_k and roll_k_torso:
+            raise ValueError("roll_k and roll_k_torso are exclusive")
+    if use_prior and temporal is None:
+        raise ValueError("use_prior requires fast_keep or temporal (the "
+                         "prior mask only applies to the fast renderers)")
     device = next(head_params.parameters()).device
     H, W = identity.hw
     n_frames = driving_auds.shape[0] if max_frames is None else min(
         max_frames, driving_auds.shape[0])
     head_cfg = variant_nerf_config(cfg)
     render_cfg = cfg.render_config()
-    view = (identity.focal, identity.near, identity.far, render_cfg)
-    if torso_params is None:
-        render = make_frame_renderer(head_cfg, H, W, *view, cx=identity.cx,
-                                     cy=identity.cy)
-    else:
+    view = (H, W, identity.focal, identity.near, identity.far, render_cfg)
+    where = dict(cx=identity.cx, cy=identity.cy)
+    knobs = dict(s_delta=s_delta, uni_frac=uni_frac, kf_blend=kf_blend,
+                 dilate_every=dilate_every, roll_k=roll_k)
+    if temporal is None and torso_params is None:
+        render = make_frame_renderer(head_cfg, *view, **where)
+    elif temporal is None:
         render = make_composite_frame_renderer(
-            head_cfg, torso_nerf_config(cfg), H, W, *view, cx=identity.cx,
-            cy=identity.cy)
+            head_cfg, torso_nerf_config(cfg), *view, **where)
+    elif torso_params is None:
+        mask = (foreground_prior(identity, head_parse=head_parse)[0]
+                if use_prior else None)
+        render = make_temporal_frame_renderer(
+            head_cfg, *view, **where, prior_mask=mask, delta_keep=delta_keep,
+            **knobs)
+    else:
+        pf = {}
+        if use_prior:
+            mh, mt = foreground_prior_fields(identity, head_parse=head_parse)
+            pf = dict(prior_mask_head=mh, prior_mask_torso=mt)
+            logger.info("per-field priors: head %.1f%%, torso %.1f%%",
+                        100.0 * float(mh.mean()), 100.0 * float(mt.mean()))
+        render = make_temporal_composite_renderer(
+            head_cfg, torso_nerf_config(cfg), *view, **where,
+            delta_keep_head=delta_keep,
+            delta_keep_torso=(delta_keep if delta_keep_torso is None
+                              else delta_keep_torso),
+            s_delta_torso=s_delta_torso, freeze_z_torso=freeze_z_torso,
+            roll_k_torso=roll_k_torso, **pf, **knobs)
 
     aud_feats = smoothed_audio_features(
         head_params, torch.from_numpy(np.asarray(driving_auds, np.float32))
@@ -110,8 +167,10 @@ def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
     bc = torch.from_numpy(identity.bc_img).to(device).float() / 255.0
     poses = torch.from_numpy(identity.poses).to(device)
     latent = latent_codes[0].to(device) if latent_codes is not None else None
+
     writer = FrameWriter(out_path) if out_path else None
     frames = []
+    cache = None
     for i in range(n_frames):
         t0 = time.perf_counter()
         pose = poses[i % identity.size]
@@ -123,13 +182,20 @@ def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
         aud = aud_feats[i]
         aud_arg, expr_arg = variant_conditioning(head_params, cfg, aud, expr)
         if torso_params is None:
-            frame = render(head_params, pose, bc, aud=aud_arg, expr=expr_arg,
-                           latent=latent)
+            args = (head_params, pose, bc)
+            kw = dict(aud=aud_arg, expr=expr_arg, latent=latent)
         else:
-            frame = render(head_params, torso_params, pose, poses[0], bc,
-                           aud=aud_arg,
-                           signal=torso_signal(aud, pose, cfg.dim_aud_body),
-                           expr=expr_arg, latent=latent)
+            args = (head_params, torso_params, pose, poses[0], bc)
+            kw = dict(aud=aud_arg,
+                      signal=torso_signal(aud, pose, cfg.dim_aud_body),
+                      expr=expr_arg, latent=latent)
+        if temporal is None:
+            frame = render(*args, **kw)
+        else:
+            # a keyframe every `temporal` frames; a rolling cache lives on
+            if i % temporal == 0 and not roll_k:
+                cache = None
+            frame, cache = render(*args, **kw, cache=cache)
         frame = frame.clamp(0.0, 1.0).cpu().numpy()
         if frame_times is not None:
             frame_times.append(time.perf_counter() - t0)

@@ -97,17 +97,10 @@ def make_composite_frame_renderer(
     return render
 
 
-def foreground_prior(dataset, margin: int = 12, head_parse: bool = False):
-    """Subject foreground prior for masked rendering: the union of all
-    frames' face rects and torso masks, dilated by ``margin`` pixels ->
-    (mask (H, W) bool, k) with k the mask's pixel count padded to a
-    multiple of 256 (at most H*W).
-
-    ``head_parse``: replace each frame's face-rect box by the parse
-    silhouette clipped to it, where that silhouette covers at least 10 %
-    of the box."""
-    from scipy.ndimage import binary_dilation
-
+def _head_support(dataset, margin: int, head_parse: bool) -> np.ndarray:
+    """The union of the frames' face rects grown by ``margin``; under
+    ``head_parse`` each rect is replaced by the parse silhouette clipped
+    to it, where that silhouette covers at least 10 % of the rect."""
     H, W = dataset.hw
     mask = np.zeros((H, W), bool)
     parse = (np.asarray(dataset.torso_masks).astype(bool)
@@ -124,6 +117,40 @@ def foreground_prior(dataset, margin: int = 12, head_parse: bool = False):
                 mask |= sil
                 continue
         mask |= rect
+    return mask
+
+
+def foreground_prior_fields(dataset, margin: int = 12,
+                            head_parse: bool = False):
+    """Per-field subject priors for the temporal composite -> (mask_head,
+    mask_torso), (H, W) bools: the head's support is the union of the
+    face rects (``head_parse`` as in ``foreground_prior``), the torso's
+    the union of the torso masks, each dilated by ``margin`` pixels.
+    Outside its own support a trained field is empty (the head composites
+    the plate, the torso transmits), so each field renders only its own
+    prior's rays."""
+    from scipy.ndimage import binary_dilation
+
+    mask_h = binary_dilation(_head_support(dataset, margin, head_parse),
+                             iterations=margin)
+    mask_t = binary_dilation(dataset.torso_masks.any(0).astype(bool),
+                             iterations=margin)
+    return mask_h, mask_t
+
+
+def foreground_prior(dataset, margin: int = 12, head_parse: bool = False):
+    """Subject foreground prior for masked rendering: the union of all
+    frames' face rects and torso masks, dilated by ``margin`` pixels ->
+    (mask (H, W) bool, k) with k the mask's pixel count padded to a
+    multiple of 256 (at most H*W).
+
+    ``head_parse``: replace each frame's face-rect box by the parse
+    silhouette clipped to it, where that silhouette covers at least 10 %
+    of the box."""
+    from scipy.ndimage import binary_dilation
+
+    H, W = dataset.hw
+    mask = _head_support(dataset, margin, head_parse)
     mask |= dataset.torso_masks.any(0).astype(bool)
     mask = binary_dilation(mask, iterations=margin)
     k = int(mask.sum())

@@ -1,5 +1,5 @@
-"""Real-time streaming serving over the temporal depth-cache renderer,
-head field only (counterpart of eval/stream.py).
+"""Real-time streaming serving over the temporal depth-cache renderers,
+head only or head + torso (counterpart of eval/stream.py).
 
 DeepSpeech audio windows (and optionally expressions and poses) are
 pushed as they arrive and frames come back in arrival order. Frame ``i``
@@ -23,7 +23,9 @@ is not 0, so the stream computes its own features.
     for frame in stream.flush():               # drain the lookahead
         emit(frame)
 
-The head + torso stream (``torso_params``) waits for ROADMAP.md A7b.
+With ``torso_params`` each frame is the temporal composite: the torso
+field renders from the identity's first pose, conditioned on the torso
+signal of the frame's smoothed audio feature and pose.
 """
 
 from __future__ import annotations
@@ -35,22 +37,33 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from idealnerf_tpu_torch.eval.renderer import foreground_prior
-from idealnerf_tpu_torch.eval.temporal import make_temporal_frame_renderer
+from idealnerf_tpu_torch.eval.renderer import (
+    foreground_prior, foreground_prior_fields,
+)
+from idealnerf_tpu_torch.eval.temporal import (
+    check_roll_k, make_temporal_composite_renderer,
+    make_temporal_frame_renderer,
+)
 from idealnerf_tpu_torch.models.variants import (
     variant_conditioning, variant_nerf_config,
 )
+from idealnerf_tpu_torch.train.torso import torso_nerf_config, torso_signal
 
 
 class TemporalStream:
     """Stateful frame server: ``push(aud_window) -> frame | None``.
 
     ``head_params`` is the parameter ModuleDict (coarse, fine, aud_net,
-    aud_att); frames render on its device. ``operating_point``: a dict in
-    the JAX package's ``gated_video_config`` shape whose keys override the
-    keyword arguments (the torso's keys are read and have no effect on a
-    head-only stream). Identity poses and expressions cycle through the
-    subject's frames unless ``push`` supplies them.
+    aud_att); frames render on its device. ``torso_params`` (coarse, fine
+    torso nets) makes every frame the head + torso composite; the
+    ``*_torso`` arguments then set the torso field's delta samples, keep
+    fraction (default ``delta_keep``), frozen depth grid and refresh-only
+    roll, ``use_prior`` gives each field its own prior and ``bounds`` may
+    be a dict ``{"head": (near, far), "torso": (near, far)}``.
+    ``operating_point``: a dict in the JAX package's ``gated_video_config``
+    shape whose keys override the keyword arguments (the torso's keys have
+    no effect on a head-only stream). Identity poses and expressions cycle
+    through the subject's frames unless ``push`` supplies them.
 
     ``frame_times`` holds each emitted frame's wall seconds and
     ``frame_kinds`` whether it was a "keyframe" or a "delta" frame."""
@@ -65,20 +78,20 @@ class TemporalStream:
         operating_point: Optional[Dict[str, Any]] = None,
         refresh: int = 25,
         s_delta: int = 16,
+        s_delta_torso: Optional[int] = None,
         delta_keep: float = 1.0,
+        delta_keep_torso: Optional[float] = None,
+        freeze_z_torso: bool = False,
         uni_frac: float = 0.25,
         kf_blend: float = 0.0,
         dilate_every: int = 1,
         roll_k: int = 0,
+        roll_k_torso: int = 0,
         use_prior: bool = False,
         head_parse: bool = False,
         bounds=None,
         smooth_audio: bool = True,
     ):
-        if torso_params is not None:
-            raise NotImplementedError(
-                "the head + torso stream is not ported yet (ROADMAP.md A7b: "
-                "temporal composite video)")
         op = operating_point or {}
         if op and not op.get("quality_ok", True):
             raise ValueError(
@@ -88,21 +101,30 @@ class TemporalStream:
         if self.refresh < 1:
             raise ValueError("refresh must be >= 1")
         s_delta = int(op.get("s_delta", s_delta))
+        s_delta_torso = op.get("s_delta_torso", s_delta_torso)
         delta_keep = float(op.get("delta_keep", delta_keep))
+        delta_keep_torso = op.get("delta_keep_torso", delta_keep_torso)
+        freeze_z_torso = bool(op.get("freeze_z_torso", freeze_z_torso))
         uni_frac = float(op.get("uni_frac", uni_frac))
         kf_blend = float(op.get("kf_blend", kf_blend))
         dilate_every = int(op.get("dilate_every", dilate_every))
-        self.roll_k = int(op.get("roll_k", roll_k) or 0)
+        self.roll_k = check_roll_k("roll_k", op.get("roll_k", roll_k))
+        # torso refresh-only roll: the head keeps the keyframe cadence
+        self.roll_k_torso = check_roll_k(
+            "roll_k_torso", op.get("roll_k_torso", roll_k_torso))
         head_parse = bool(op.get("head_parse", head_parse))
-        if self.roll_k == 1 or self.roll_k < 0:
-            raise ValueError("roll_k must be 0 (off) or >= 2")
-        if isinstance(bounds, dict):
+        composite = torso_params is not None
+        if isinstance(bounds, dict) and not composite:
             raise ValueError("per-field bounds dict is for the composite "
                              "stream")
+        if composite and bounds is not None and not isinstance(bounds, dict):
+            raise ValueError("the composite stream takes per-field bounds: "
+                             "{'head': (near, far), 'torso': (near, far)}")
 
         self.cfg = cfg
         self.identity = identity
         self.head_params = head_params
+        self.torso_params = torso_params
         self.device = next(head_params.parameters()).device
         self.latent = (latent_codes[0].to(self.device)
                        if latent_codes is not None else None)
@@ -117,16 +139,34 @@ class TemporalStream:
         H, W = identity.hw
         self._bc = (torch.from_numpy(np.asarray(identity.bc_img))
                     .to(self.device).float() / 255.0)
-        prior_mask = (foreground_prior(identity, head_parse=head_parse)[0]
-                      if use_prior else None)
-        near = bounds[0] if bounds is not None else identity.near
-        far = bounds[1] if bounds is not None else identity.far
-        self._render = make_temporal_frame_renderer(
-            variant_nerf_config(cfg), H, W, identity.focal, near, far,
-            cfg.render_config(), cx=identity.cx, cy=identity.cy,
-            s_delta=s_delta, prior_mask=prior_mask, delta_keep=delta_keep,
-            uni_frac=uni_frac, kf_blend=kf_blend, dilate_every=dilate_every,
-            roll_k=self.roll_k)
+        self._pose0 = self._tensor(identity.poses[0])
+        view = (H, W, identity.focal, identity.near, identity.far,
+                cfg.render_config())
+        common = dict(cx=identity.cx, cy=identity.cy, s_delta=s_delta,
+                      uni_frac=uni_frac, kf_blend=kf_blend,
+                      dilate_every=dilate_every, roll_k=self.roll_k)
+        if not composite:
+            prior_mask = (foreground_prior(identity, head_parse=head_parse)[0]
+                          if use_prior else None)
+            self._render = make_temporal_frame_renderer(
+                variant_nerf_config(cfg), *view, prior_mask=prior_mask,
+                bounds=bounds, delta_keep=delta_keep, **common)
+        else:
+            pf = {}
+            if use_prior:
+                pf = dict(zip(("prior_mask_head", "prior_mask_torso"),
+                              foreground_prior_fields(
+                                  identity, head_parse=head_parse)))
+            if bounds is not None:
+                pf.update(bounds_head=bounds.get("head"),
+                          bounds_torso=bounds.get("torso"))
+            self._render = make_temporal_composite_renderer(
+                variant_nerf_config(cfg), torso_nerf_config(cfg), *view,
+                s_delta_torso=s_delta_torso, delta_keep_head=delta_keep,
+                delta_keep_torso=(delta_keep if delta_keep_torso is None
+                                  else float(delta_keep_torso)),
+                freeze_z_torso=freeze_z_torso,
+                roll_k_torso=self.roll_k_torso, **pf, **common)
 
         # rolling raw-feature history: features of pushed frames
         # [n_pushed - len(hist), n_pushed); smo//2 past ones suffice
@@ -174,9 +214,7 @@ class TemporalStream:
         pose = self._tensor(self.identity.poses[0])
         cache = None
         for _ in range(3):  # keyframe -> first delta -> steady delta
-            frame, cache = self._render(self.head_params, pose, self._bc,
-                                        aud=aud_arg, expr=expr_arg,
-                                        latent=self.latent, cache=cache)
+            frame, cache = self._frame(feat, aud_arg, expr_arg, pose, cache)
         frame.cpu()
         return time.perf_counter() - t0
 
@@ -231,6 +269,18 @@ class TemporalStream:
         return self._att(torch.stack(rows),
                          torch.tensor(valid, device=self.device))
 
+    def _frame(self, feat, aud_arg, expr_arg, pose, cache):
+        """One frame of the stream's renderer from the frame's smoothed
+        audio feature, its variant conditioning and its pose."""
+        if self.torso_params is None:
+            return self._render(self.head_params, pose, self._bc,
+                                aud=aud_arg, expr=expr_arg,
+                                latent=self.latent, cache=cache)
+        return self._render(
+            self.head_params, self.torso_params, pose, self._pose0, self._bc,
+            aud=aud_arg, signal=torso_signal(feat, pose, self.cfg.dim_aud_body),
+            expr=expr_arg, latent=self.latent, cache=cache)
+
     @torch.no_grad()
     def _emit(self, device: bool = False):
         t0 = time.perf_counter()
@@ -244,14 +294,14 @@ class TemporalStream:
         expr = (self._tensor(expr)
                 if expr is not None and self.cfg.dim_expr > 0 else None)
 
+        feat = self._smoothed_feat(i)
         aud_arg, expr_arg = variant_conditioning(
-            self.head_params, self.cfg, self._smoothed_feat(i), expr)
+            self.head_params, self.cfg, feat, expr)
         # rolling mode: only frame 0 is a keyframe, the cache then lives
         # on (each ray refreshes through its slice every roll_k frames)
         keyframe = i == 0 if self.roll_k else i % self.refresh == 0
-        frame, self._cache = self._render(
-            self.head_params, pose, self._bc, aud=aud_arg, expr=expr_arg,
-            latent=self.latent, cache=None if keyframe else self._cache)
+        frame, self._cache = self._frame(
+            feat, aud_arg, expr_arg, pose, None if keyframe else self._cache)
         frame = torch.clamp(frame, 0.0, 1.0)
         if not device:
             frame = frame.cpu().numpy()   # waits for the device

@@ -1,5 +1,5 @@
-"""Temporal depth-cache video renderer for the head field (counterpart of
-eval/temporal.py).
+"""Temporal depth-cache video renderers, head only and head + torso
+(counterpart of eval/temporal.py).
 
 A talking-head video is one mostly static surface: between consecutive
 frames each pixel's depth moves by a few pixels laterally and a small
@@ -24,21 +24,27 @@ foreground mass; ``dilate_every = k`` dilates on every k-th delta frame
 only; ``roll_k = K`` (serving) replaces the keyframe spikes after frame 0
 by a refresh of 1/K of the rays on every frame.
 
-The torso field's parts — ``freeze_z``, ``make_temporal_composite_
-renderer`` — and the scanned keyframe cycle (``render.cycle``, used by
-eval/reenact.py) belong to ROADMAP.md A7b and raise NotImplementedError.
+The composite (``make_temporal_composite_renderer``) runs one such
+pipeline per field, the torso's from the fixed first-frame pose, and
+layers them over the union of the fields' rays. The torso has two modes
+of its own: ``freeze_z`` (its delta frames re-render the keyframe's own
+depth grid with the fine kernel) and ``roll_k_torso`` (no delta pass: every
+frame refreshes 1/K of its rays at the keyframe schedule). ``render.cycle``
+renders a run of delta frames as a loop of per-frame calls: the scanned
+program it replaces saved TPU dispatches.
 """
 
 from __future__ import annotations
 
 import functools
 import types
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from idealnerf_tpu_torch.core.composite import fg_band
+from idealnerf_tpu_torch.core.composite import fg_band, layered_composite
 from idealnerf_tpu_torch.core.rays import get_rays
 from idealnerf_tpu_torch.kernels.fused_render import (
     delta_depths, fused_render_coarse_hier, fused_render_delta,
@@ -46,10 +52,8 @@ from idealnerf_tpu_torch.kernels.fused_render import (
 )
 from idealnerf_tpu_torch.models.face_nerf import fold_conditioning
 
-_A7 = "ROADMAP.md A7b: temporal composite video"
-
-__all__ = ["dilate_bands", "fg_band", "make_temporal_composite_renderer",
-           "make_temporal_frame_renderer"]
+__all__ = ["check_roll_k", "dilate_bands", "fg_band",
+           "make_temporal_composite_renderer", "make_temporal_frame_renderer"]
 
 
 def _window2d(grid: torch.Tensor, k: int, op: str) -> torch.Tensor:
@@ -101,10 +105,11 @@ def _field_pipeline(ncfg, H, W, focal, cx, cy, cfg, nf, sel, s_delta,
     w [, kz, kw][, i]) — the keyframe's (z, w) anchor only under
     ``kf_blend``, the delta-frame counter only under ``dilate_every > 1``;
     pruned, a dict in kept-ray space that also holds the full-length
-    rendered outputs; rolling, see ``run.roll``."""
-    if freeze_z:
-        raise NotImplementedError(
-            f"freeze_z is the torso field's delta mode ({_A7})")
+    rendered outputs; rolling, see ``run.roll``.
+
+    ``freeze_z`` (the torso field, whose rays come from a fixed pose): a
+    delta frame re-renders the keyframe's own depth grid with the fine
+    kernel, and the cache passes through unchanged."""
     sel_np = np.asarray(sel).astype(np.int64)
     _cx = W * 0.5 if cx is None else cx
     _cy = H * 0.5 if cy is None else cy
@@ -203,7 +208,9 @@ def _field_pipeline(ncfg, H, W, focal, cx, cy, cfg, nf, sel, s_delta,
     s_kf = (min(s_imp - 1, max(1, int(round(s_imp * kf_blend))))
             if kf_blend > 0 else 0)
     s_prev = s_imp - s_kf
-    use_kd = s_kf == 0 and s_imp >= 2 and s_uni >= 2
+    # a frozen grid is the keyframe's (z, w): the delta kernel would read
+    # it as the previous frame's band draw
+    use_kd = s_kf == 0 and s_imp >= 2 and s_uni >= 2 and not freeze_z
     counted = dilate_every > 1
 
     def _delta_depths(lo, hi, z_prev, w_prev, kz=None, kw=None):
@@ -250,6 +257,9 @@ def _field_pipeline(ncfg, H, W, focal, cx, cy, cfg, nf, sel, s_delta,
         kz, kw = (band[4], band[5]) if s_kf else (None, None)
         tail = ((kz, kw) if s_kf else ()) + ((i,) if counted else ())
         o, d = _rays_sel(pose)
+        if freeze_z:
+            rgb, lw, fg, _ = _fine(params, o, d, z_prev, _plate(bc_img), cond)
+            return rgb, lw, fg, (lo_p, hi_p, z_prev, w_prev) + tail
         rgb, lw, fg, new = _delta(params, o, d, _plate(bc_img), cond, lo_p,
                                   hi_p, z_prev, w_prev, kz, kw, None, do_dil)
         return rgb, lw, fg, new + tail
@@ -291,6 +301,14 @@ def _field_pipeline(ncfg, H, W, focal, cx, cy, cfg, nf, sel, s_delta,
         keep_idx = cache["keep"]
         sel_kept = consts(pose.device)[0][keep_idx]
         o, d = _rays_sel(pose, keep_idx)
+        if freeze_z:
+            rgb_k, lw_k, fg_k, _ = _fine(params, o, d, cache["z"],
+                                         _plate(bc_img, keep_idx), cond)
+            new = dict(cache,
+                       rgb=cache["rgb"].index_copy(0, keep_idx, rgb_k),
+                       lw=cache["lw"].index_copy(0, keep_idx, lw_k),
+                       fg=cache["fg"].index_copy(0, keep_idx, fg_k))
+            return new["rgb"], new["lw"], new["fg"], new
         i, do_dil = None, None
         if counted:
             i, do_dil = _tick(cache["i"])
@@ -361,16 +379,22 @@ def _field_pipeline(ncfg, H, W, focal, cx, cy, cfg, nf, sel, s_delta,
             keep_idx = cache["keep"]
             o, d = _rays_sel(pose, keep_idx)
             i = cache["i"] + 1
+
+            def put(name, v):
+                return cache[name].index_copy(0, keep_idx, v)
+
+            if freeze_z:
+                rgb_k, lw_k, fg_k, _ = _fine(
+                    params, o, d, cache["z"][keep_idx],
+                    _plate(bc_img, keep_idx), cond)
+                return dict(cache, i=i, rgb=put("rgb", rgb_k),
+                            lw=put("lw", lw_k), fg=put("fg", fg_k))
             lo_p, hi_p = cache["lo"][keep_idx], cache["hi"][keep_idx]
             do_dil = None if dilate_every == 1 else (i % dilate_every) == 0
             rgb_k, lw_k, fg_k, (lo, hi, zf, wf) = _delta(
                 params, o, d, _plate(bc_img, keep_idx), cond, lo_p, hi_p,
                 cache["z"][keep_idx], cache["w"][keep_idx], None, None,
                 consts(pose.device)[0][keep_idx], do_dil)
-
-            def put(name, v):
-                return cache[name].index_copy(0, keep_idx, v)
-
             return dict(keep=keep_idx, i=i, lo=put("lo", lo),
                         hi=put("hi", hi), z=put("z", zf), w=put("w", wf),
                         mass=put("mass", wf[..., :-1].sum(-1)),
@@ -483,6 +507,33 @@ def _roll_frame(field, params, pose, bc_img, cond, cache):
     return dev["rgb"], dev["lw"], dev["fg"], {"dev": dev, "phase": nphase}
 
 
+def _roll_refresh_frame(field, params, pose, bc_img, cond, cache):
+    """One refresh-only rolling frame of one field (the composite's torso
+    under ``roll_k_torso``): no delta pass; the phase-th 1/K comb of the
+    rays is re-rendered at the keyframe schedule and every other ray
+    carries its cached outputs, so no ray's conditioning is more than K
+    frames old. Frame 0 (``cache=None``) is the keyframe + cache init."""
+    roll = field.roll
+    if cache is None:
+        st = field.kf_coarse(params, pose, bc_img, cond)
+        rgb, lw, fg, band = field.kf_fine(params, st, cond)
+        return rgb, lw, fg, {"dev": roll.init(rgb, lw, fg, band), "phase": 0}
+    dev, phase = cache["dev"], cache["phase"]
+    st = roll.slice_coarse(params, pose, bc_img, cond, phase)
+    dev = roll.merge(dev, roll.slice_fine(params, st, cond), phase)
+    return dev["rgb"], dev["lw"], dev["fg"], {"dev": dev,
+                                              "phase": (phase + 1) % roll.k}
+
+
+def check_roll_k(name: str, k) -> int:
+    """A rolling-refresh period: 0 (off) or at least 2 (a field builds no
+    rolling stages for K = 1)."""
+    k = int(k or 0)
+    if k == 1 or k < 0:
+        raise ValueError(f"{name} must be 0 (off) or >= 2, got {k}")
+    return k
+
+
 def make_temporal_frame_renderer(
     nerf_cfg,
     H: int, W: int, focal, near, far, cfg,
@@ -507,7 +558,10 @@ def make_temporal_frame_renderer(
     renders a delta frame. Outside ``prior_mask`` the frame is the plate.
     ``roll_k > 1`` enables rolling refresh: after frame 0 the caller keeps
     passing the previous cache, and every frame pays a delta frame plus
-    1/roll_k of a keyframe."""
+    1/roll_k of a keyframe. ``render.cycle(params, poses, bc_img, cache,
+    auds=None, exprs=None, latents=None) -> (frames, cache)`` renders T
+    delta frames as T per-frame calls."""
+    roll_k = check_roll_k("roll_k", roll_k)
     _check_schedule(cfg, s_delta)
     cfg = cfg.eval_mode()
     n = H * W
@@ -553,17 +607,206 @@ def make_temporal_frame_renderer(
         rgb, _, _, band = field(params, pose, bc_img, cond, cache)
         return assemble(rgb, bc_img), band
 
-    def _no_cycle(*args, **kwargs):
-        raise NotImplementedError(
-            "the scanned keyframe cycle (render.cycle) serves "
-            f"eval/reenact.py, not ported yet ({_A7})")
+    def cycle(params, poses, bc_img, cache, auds=None, exprs=None,
+              latents=None):
+        """``T`` delta frames from a delta frame's ``cache``; ``poses`` and
+        the conditioning carry a leading frame axis -> (frames (T, H, W,
+        3), cache), those of T per-frame calls."""
+        frames = []
+        for t in range(_cycle_len(poses, cache)):
+            aud, expr, latent = _at(t, auds, exprs, latents)
+            frame, cache = render(params, poses[t], bc_img, aud=aud,
+                                  expr=expr, latent=latent, cache=cache)
+            frames.append(frame)
+        return torch.stack(frames), cache
 
-    render.cycle = _no_cycle
+    render.cycle = cycle
     render.field = field
     return render
 
 
-def make_temporal_composite_renderer(*args, **kwargs):
-    """Head + torso temporal renderer: not ported yet."""
-    raise NotImplementedError(
-        f"make_temporal_composite_renderer is not ported yet ({_A7})")
+def _at(t: int, *xs):
+    """Frame ``t`` of each per-frame tensor (None stays None)."""
+    return tuple(None if x is None else x[t] for x in xs)
+
+
+def _cycle_len(poses, cache) -> int:
+    if cache is None:
+        raise ValueError("render.cycle renders delta frames: pass the cache "
+                         "of a keyframe or of a delta frame")
+    return int(poses.shape[0])
+
+
+def make_temporal_composite_renderer(
+    head_cfg, torso_cfg,
+    H: int, W: int, focal, near, far, cfg,
+    cx=None, cy=None,
+    prior_mask_head=None, prior_mask_torso=None,
+    bounds_head=None, bounds_torso=None,
+    s_delta: int = 32,
+    band_pad_frac: float = 0.02,
+    min_band_frac: float = 0.04,
+    dilate_px: int = 4,
+    fg_thresh: float = 0.2,
+    delta_keep_head: float = 1.0,
+    delta_keep_torso: float = 1.0,
+    s_delta_torso: Optional[int] = None,
+    uni_frac: float = 0.25,
+    kf_blend: float = 0.0,
+    freeze_z_torso: bool = False,
+    dilate_every: int = 1,
+    roll_k: int = 0,
+    roll_k_torso: int = 0,
+):
+    """Head + torso temporal depth-cache renderer.
+
+    Returns ``render(head_params, torso_params, pose, pose0, bc_img,
+    aud=None, signal=None, expr=None, latent=None, cache=None) -> (frame
+    (H, W, 3), cache)`` on the device of ``pose``; ``cache`` is
+    ``{"head": ..., "torso": ...}``. The head field renders from ``pose``
+    (conditioned on aud, expr, latent), the torso field from the fixed
+    first-frame pose ``pose0`` (conditioned on ``signal``), each on its own
+    prior's rays (``prior_mask_head``, ``prior_mask_torso``; both or
+    neither) within its own ``bounds_*`` (default ``(near, far)``), and
+    the frame is ``rgb_head · last_weight_torso + rgb_fg_torso`` over the
+    union of the priors and the plate outside it. ``cache=None`` renders a
+    keyframe; the caller passes ``None`` again to refresh.
+
+    Per field: ``s_delta_torso`` (default ``s_delta``) and
+    ``delta_keep_*``; ``freeze_z_torso`` re-renders the torso keyframe's
+    depth grid on delta frames. ``roll_k = K`` rolls both fields' refresh
+    (no keyframe after frame 0); ``roll_k_torso = K`` keeps the head's
+    keyframe cycle and gives the torso a refresh-only roll with no delta
+    pass (``_roll_refresh_frame``). The two are exclusive, and each is 0 or
+    at least 2.
+
+    ``render.cycle(head_params, torso_params, poses, pose0, bc_img, cache,
+    auds=None, signals=None, exprs=None, latents=None) -> (frames, cache)``
+    renders T delta frames as T per-frame calls (refused under
+    ``roll_k_torso``); ``render.stages`` holds the head and torso field
+    pipelines and the composite stage."""
+    roll_k = check_roll_k("roll_k", roll_k)
+    roll_k_torso = check_roll_k("roll_k_torso", roll_k_torso)
+    if roll_k and roll_k_torso:
+        raise ValueError("roll_k (both fields) and roll_k_torso (torso-only "
+                         "refresh roll) are exclusive")
+    _check_schedule(cfg, s_delta)
+    s_delta_torso = s_delta if s_delta_torso is None else int(s_delta_torso)
+    _check_schedule(cfg, s_delta_torso)
+    cfg = cfg.eval_mode()
+    n = H * W
+
+    if prior_mask_head is not None and prior_mask_torso is not None:
+        mh = np.asarray(prior_mask_head).reshape(-1).astype(bool)
+        mt = np.asarray(prior_mask_torso).reshape(-1).astype(bool)
+        sel_h, sel_t = _prior_sel(mh, n), _prior_sel(mt, n)
+        sel_u = _prior_sel(mh | mt, n)
+        masked = True
+    else:
+        sel_h = sel_t = sel_u = np.arange(n, dtype=np.int32)
+        masked = False
+    if roll_k or roll_k_torso:
+        # pad the per-field selections only: the union maps key off pixel
+        # ids, so a duplicated row resolves to its pixel's last position.
+        # Padded field outputs are longer than H*W, so the composite then
+        # goes through the maps even when unmasked.
+        if roll_k:
+            sel_h = _pad_sel_for_roll(sel_h, roll_k)
+        sel_t = _pad_sel_for_roll(sel_t, roll_k or roll_k_torso)
+        masked = masked or len(sel_h) != n or len(sel_t) != n
+
+    def _pos(sel):
+        """Pixel id -> the field's last row on it (-1 off the field). Built
+        on the host: a CUDA index assignment with duplicates has no
+        order."""
+        p = np.full(n, -1, np.int64)
+        np.maximum.at(p, sel.astype(np.int64), np.arange(len(sel)))
+        return p[sel_u]
+
+    u2h, u2t = _pos(sel_h), _pos(sel_t)
+
+    @functools.lru_cache(maxsize=None)
+    def maps_on(device):
+        t = [torch.from_numpy(a).to(device) for a in
+             (sel_u.astype(np.int64), u2h.clip(0), u2t.clip(0))]
+        return (*t, torch.from_numpy(u2h >= 0).to(device)[:, None],
+                torch.from_numpy(u2t >= 0).to(device))
+
+    nf_head = (float(near), float(far)) if bounds_head is None else (
+        float(bounds_head[0]), float(bounds_head[1]))
+    nf_torso = (float(near), float(far)) if bounds_torso is None else (
+        float(bounds_torso[0]), float(bounds_torso[1]))
+    kb = (band_pad_frac, min_band_frac, dilate_px, fg_thresh)
+    view = (H, W, focal, cx, cy, cfg)
+    head = _field_pipeline(head_cfg, *view, nf_head, sel_h, s_delta, *kb,
+                           tag="head", delta_keep=delta_keep_head,
+                           uni_frac=uni_frac, kf_blend=kf_blend,
+                           dilate_every=dilate_every, roll_k=roll_k)
+    torso = _field_pipeline(torso_cfg, *view, nf_torso, sel_t, s_delta_torso,
+                            *kb, tag="torso", delta_keep=delta_keep_torso,
+                            uni_frac=uni_frac, kf_blend=kf_blend,
+                            freeze_z=freeze_z_torso,
+                            dilate_every=dilate_every,
+                            roll_k=roll_k or roll_k_torso)
+
+    def stage_composite(rgb_h, lw_t, fg_t, bc_img):
+        """Layered composite over the union rays; outside both priors the
+        frame is the plate."""
+        if not masked:
+            return layered_composite(rgb_h, lw_t, fg_t).reshape(H, W, 3)
+        plate = bc_img.reshape(-1, 3).float()
+        sel_u_t, h_idx, t_idx, in_h, in_t = maps_on(plate.device)
+        rgb = torch.where(in_h, rgb_h[h_idx], plate[sel_u_t])
+        lw = torch.where(in_t, lw_t[t_idx], 1.0)
+        fg = torch.where(in_t[:, None], fg_t[t_idx], 0.0)
+        return plate.index_copy(0, sel_u_t, layered_composite(
+            rgb, lw, fg)).reshape(H, W, 3)
+
+    @torch.no_grad()
+    def render(head_params, torso_params, pose, pose0, bc_img, aud=None,
+               signal=None, expr=None, latent=None, cache=None):
+        if "fine" not in head_params or "fine" not in torso_params:
+            raise ValueError("temporal composite needs 'fine' params in "
+                             "both fields")
+        c_h, c_t = (None, None) if cache is None else (cache["head"],
+                                                       cache["torso"])
+        cond_h, cond_t = (aud, expr, latent), (signal, None, None)
+        if roll_k:
+            rgb_h, _, _, c_h = _roll_frame(head, head_params, pose, bc_img,
+                                           cond_h, c_h)
+            _, lw_t, fg_t, c_t = _roll_frame(torso, torso_params, pose0,
+                                             bc_img, cond_t, c_t)
+        else:
+            rgb_h, _, _, c_h = head(head_params, pose, bc_img, cond_h, c_h)
+            if roll_k_torso:
+                _, lw_t, fg_t, c_t = _roll_refresh_frame(
+                    torso, torso_params, pose0, bc_img, cond_t, c_t)
+            else:
+                _, lw_t, fg_t, c_t = torso(torso_params, pose0, bc_img,
+                                           cond_t, c_t)
+        frame = stage_composite(rgb_h, lw_t, fg_t, bc_img)
+        return frame, {"head": c_h, "torso": c_t}
+
+    def cycle(head_params, torso_params, poses, pose0, bc_img, cache,
+              auds=None, signals=None, exprs=None, latents=None):
+        """``T`` delta frames from a delta frame's ``cache``; ``poses`` and
+        the conditioning carry a leading frame axis -> (frames (T, H, W,
+        3), cache), those of T per-frame calls."""
+        if roll_k_torso:
+            raise RuntimeError(
+                "render.cycle is unavailable with roll_k_torso (the torso's "
+                "refresh roll has no delta frame); use per-frame render "
+                "calls")
+        frames = []
+        for t in range(_cycle_len(poses, cache)):
+            aud, signal, expr, latent = _at(t, auds, signals, exprs, latents)
+            frame, cache = render(head_params, torso_params, poses[t], pose0,
+                                  bc_img, aud=aud, signal=signal, expr=expr,
+                                  latent=latent, cache=cache)
+            frames.append(frame)
+        return torch.stack(frames), cache
+
+    render.cycle = cycle
+    render.stages = {"head": head, "torso": torso,
+                     "composite": stage_composite}
+    return render

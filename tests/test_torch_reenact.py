@@ -1,8 +1,9 @@
-"""The composite frame and per-frame reenactment of the PyTorch port
-against the JAX package (fused "ray" path, Pallas in interpret mode), the
-driving audio features and expressions, the train_torso and eval_reenact
-CLIs on the CPU, the modes they refuse, and the nets the kernels take:
-a narrower net runs zero-padded to the chain's widths (ROADMAP.md C1).
+"""The composite frame and the reenactment of the PyTorch port against
+the JAX package (fused "ray" path, Pallas in interpret mode), per frame
+and temporal, the driving audio features and expressions, the
+train_torso, eval_reenact and serve CLIs on the CPU, the modes they
+refuse, and the nets the kernels take: a narrower net runs zero-padded to
+the chain's widths (ROADMAP.md C1).
 
 The composite frame is held to 3e-2 plus a correlation above 0.999, as
 the head frame in tests/test_torch_render_val.py: both sides round
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from idealnerf_tpu.config import ExperimentConfig as JaxConfig
+from idealnerf_tpu.eval.reenact import reenact as jax_reenact
 from idealnerf_tpu.eval.reenact import (
     smoothed_audio_features as jax_smoothed_features,
 )
@@ -29,11 +31,12 @@ from idealnerf_tpu.eval.renderer import (
 from idealnerf_tpu.train.torso import torso_nerf_config as jax_torso_config
 from idealnerf_tpu_torch import bridge
 from idealnerf_tpu_torch.ckpt import CheckpointManager
-from idealnerf_tpu_torch.cli import eval_reenact, train_torso
+from idealnerf_tpu_torch.cli import eval_reenact, serve, train_torso
 from idealnerf_tpu_torch.config import ExperimentConfig
 from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
 from idealnerf_tpu_torch.eval import reenact as reenact_mod
 from idealnerf_tpu_torch.eval.renderer import make_composite_frame_renderer
+from idealnerf_tpu_torch.kernels import build as kbuild
 from idealnerf_tpu_torch.kernels import fused_render as fr
 from idealnerf_tpu_torch.models.face_nerf import fold_conditioning
 from idealnerf_tpu_torch.train.head import HeadTrainer, train_use_pallas
@@ -191,19 +194,14 @@ def test_reenact_frame_is_the_composite_renderers_frame():
 
 
 _REFUSED = [
-    (eval_reenact.main, ["--temporal", "25"], "A7b"),
-    (eval_reenact.main, ["--cycle", "1"], "A7b"),
     (eval_reenact.main, ["--auto_temporal", "runs/x"], "A9"),
     (eval_reenact.main, ["--fast", "40"], "A9"),
-    (eval_reenact.main, ["--prior", "1"], "A9"),
     (eval_reenact.main, ["--tighten_bounds", "1"], "A9"),
     (eval_reenact.main, ["--ray_devices", "2"], "A13"),
     (eval_reenact.main, ["--data_devices", "2"], "A13"),
     (train_torso.main, ["--ray_devices", "2"], "A13"),
     (train_torso.main, ["--data_devices", "2"], "A13"),
-    (reenact_mod.reenact, {"temporal": 25}, "A7b"),
     (reenact_mod.reenact, {"fast_keep": 0.4}, "A9"),
-    (reenact_mod.reenact, {"use_prior": True}, "A9"),
     (reenact_mod.reenact, {"bounds": (0.4, 0.8)}, "A9"),
     (reenact_mod.reenact, {"mesh": object()}, "A13"),
 ]
@@ -221,6 +219,155 @@ def test_unported_modes_raise_naming_their_roadmap_item(entry, flags, item,
         else:
             entry(["--device", "cpu", "--synthetic", "1", "--basedir",
                    str(tmp_path), *flags])
+
+
+_INVALID = {
+    "eval_reenact-roll_k_torso-1": (
+        eval_reenact.main, ["--temporal", "5", "--roll_k_torso", "1"],
+        "roll_k_torso"),
+    "eval_reenact-prior-without-temporal": (
+        eval_reenact.main, ["--prior", "1", "--synthetic_hw", "8",
+                            "--netwidth", "64", "--netdepth", "2"],
+        "use_prior requires"),
+    "reenact-roll_k_torso-1": (
+        reenact_mod.reenact, {"temporal": 5, "roll_k_torso": 1},
+        "roll_k_torso"),
+    "reenact-roll_k-with-roll_k_torso": (
+        reenact_mod.reenact, {"temporal": 5, "roll_k": 2, "roll_k_torso": 2},
+        "exclusive"),
+    "reenact-cycle-under-roll_k_torso": (
+        reenact_mod.reenact, {"temporal": 5, "roll_k_torso": 4,
+                              "cycle": True}, "cycle"),
+    "reenact-cycle-under-roll_k": (
+        reenact_mod.reenact, {"temporal": 5, "roll_k": 4, "cycle": True},
+        "cycle"),
+    "reenact-use_prior-without-temporal": (
+        reenact_mod.reenact, {"use_prior": True}, "use_prior requires"),
+    "reenact-temporal-0": (
+        reenact_mod.reenact, {"temporal": 0}, "temporal must be"),
+}
+
+
+@pytest.mark.parametrize("entry,flags,match", _INVALID.values(),
+                         ids=_INVALID.keys())
+def test_invalid_modes_raise_value_error(entry, flags, match, tmp_path):
+    """The JAX package's refusals of the temporal modes, and a rolling
+    period of 1, which the JAX package accepts and then fails on
+    (ROADMAP.md C)."""
+    with pytest.raises(ValueError, match=match):
+        if isinstance(flags, dict):
+            entry(ExperimentConfig(), None, None, None, **flags)
+        else:
+            entry(["--device", "cpu", "--synthetic", "1", "--basedir",
+                   str(tmp_path), *flags])
+
+
+# ------------------------------------------------------ temporal reenact
+
+TEMPORAL = dict(dim_aud=32, dim_expr=8, dim_latent=4, dim_aud_body=16,
+                netdepth=6, netwidth=64, smo_size=4, N_samples=8,
+                N_importance=8, density_activation="softplus")
+
+
+@pytest.mark.parametrize("cycle", [False, True], ids=["per-frame", "cycle"])
+def test_head_temporal_reenact_matches_jax(cycle):
+    """Head-only reenact(temporal=3) over 5 frames (keyframes 0 and 3)
+    against the JAX reenact on the same bridged weights and track, per
+    frame 3e-2 and correlation > 0.999; the port's frame_times has one
+    wall time per frame."""
+    jcfg, cfg = JaxConfig(**TEMPORAL), ExperimentConfig(**TEMPORAL)
+    ds = make_synthetic_dataset(n_frames=5, H=16, W=16, dim_expr=8)
+    st = init_params(cfg, ds.size, torch.Generator().manual_seed(3))
+    jparams = jax.tree.map(jnp.asarray, bridge.params_to_jax(st.params))
+    kw = dict(max_frames=5, temporal=3, s_delta=8, cycle=cycle)
+    want = jax_reenact(jcfg, jparams, ds, ds.auds, driving_exprs=ds.exprs,
+                       latent_codes=jnp.asarray(st.latent_codes.numpy()),
+                       **kw)
+    times = []
+    got = reenact_mod.reenact(cfg, st.params, ds, ds.auds,
+                              driving_exprs=ds.exprs,
+                              latent_codes=st.latent_codes,
+                              frame_times=times, **kw)
+    assert got.shape == (5, 16, 16, 3) and len(times) == 5
+    for g, w in zip(got, np.asarray(want)):
+        _agree(g, w)
+
+
+def test_composite_temporal_reenact_cycle_is_the_per_frame_loop():
+    """reenact(temporal=4, cycle=True) of the composite over 7 frames
+    gives the per-frame loop's frames bitwise, with one wall time per
+    frame, under per-field priors; its keyframe is the per-frame
+    composite reenact's frame (2e-5)."""
+    cfg = ExperimentConfig(**TEMPORAL)
+    ds = make_synthetic_dataset(n_frames=7, H=16, W=16, dim_expr=8,
+                                with_torso=True)
+    st = init_params(cfg, ds.size, torch.Generator().manual_seed(0))
+    torso = init_torso_params(cfg, torch.Generator().manual_seed(1))
+    run = dict(driving_exprs=ds.exprs, latent_codes=st.latent_codes,
+               torso_params=torso)
+    kw = dict(temporal=4, s_delta=8, delta_keep_torso=0.5, use_prior=True)
+    loop = reenact_mod.reenact(cfg, st.params, ds, ds.auds, **run, **kw)
+    times = []
+    cyc = reenact_mod.reenact(cfg, st.params, ds, ds.auds, **run, **kw,
+                              cycle=True, frame_times=times)
+    assert cyc.shape == (7, 16, 16, 3) and len(times) == 7
+    np.testing.assert_array_equal(cyc, loop)
+    full = reenact_mod.reenact(cfg, st.params, ds, ds.auds[:1], **run)
+    kf = reenact_mod.reenact(cfg, st.params, ds, ds.auds[:1], **run,
+                             temporal=4, s_delta=8)
+    np.testing.assert_allclose(kf, full, atol=2e-5)
+
+
+def test_composite_serve_and_temporal_eval_reenact_on_cpu(tmp_path):
+    """train_head -> train_torso -> serve --torso_ckpt and eval_reenact
+    --torso_ckpt --temporal 3 on the CPU: the stats keys, the PNGs, and
+    no kernel launched or built."""
+    cfg = ExperimentConfig(dim_aud=32, dim_expr=8, dim_latent=4,
+                           dim_aud_body=16, netdepth=4, netwidth=64)
+    ds = make_synthetic_dataset(n_frames=2, H=12, W=12, dim_expr=8)
+    HeadTrainer(cfg, ds, seed=0, ckpt_dir=str(tmp_path / "head")).save()
+    res = train_torso.main(_cli_run(tmp_path, "--head_ckpt",
+                                    str(tmp_path / "head"), "--steps", "2"))
+    ckpts = ["--head_ckpt", str(tmp_path / "head"), "--torso_ckpt",
+             res["ckpt_dir"]]
+    fr.reset_launch_counts()
+    kbuild.load_library.cache_clear()
+    stats = serve.main([
+        "--device", "cpu", "--synthetic", "3", "--synthetic_hw", "16",
+        *CLI_SMALL, "--refresh", "2", "--s_delta", "6", *ckpts,
+        "--save_path", str(tmp_path / "serve")])
+    assert set(stats) == {
+        "frames", "roll_k", "warmup_s", "p50_ms", "p95_ms", "p99_ms",
+        "deadline_40ms_hit_rate", "steady_fps", "keyframes", "keyframe_ms",
+        "delta_frames", "delta_p50_ms", "delta_p95_ms", "finite"}
+    assert stats["frames"] == 3 and stats["finite"] is True
+    assert stats["keyframes"] == 2 and stats["delta_frames"] == 1
+    assert sorted(os.listdir(tmp_path / "serve")) == [
+        f"exp_stream_{i:05d}.png" for i in range(3)]
+    stats = serve.main([
+        "--device", "cpu", "--synthetic", "3", "--synthetic_hw", "16",
+        *CLI_SMALL, "--s_delta", "6", *ckpts, "--roll_k_torso", "2",
+        "--no_smooth"])
+    assert stats["frames"] == 3 and stats["finite"] is True
+
+    save = tmp_path / "frames"
+    out = eval_reenact.main(_cli_run(tmp_path, *ckpts, "--temporal", "3",
+                                     "--s_delta", "6", "--prior", "1",
+                                     "--save_path", str(save)))
+    assert out["frames"] == 2 and out["video"].shape == (2, 12, 12, 3)
+    assert math.isfinite(out["psnr"]) and math.isfinite(out["frame_ms"])
+    assert sorted(os.listdir(save)) == ["exp_reenact_00000.png",
+                                        "exp_reenact_00001.png"]
+    per_frame = eval_reenact.main(_cli_run(tmp_path, *ckpts, "--temporal",
+                                           "3", "--s_delta", "6", "--prior",
+                                           "1", "--cycle", "0"))
+    np.testing.assert_array_equal(per_frame["video"], out["video"])
+    out = eval_reenact.main(_cli_run(tmp_path, *ckpts, "--temporal", "2",
+                                     "--s_delta", "6", "--roll_k_torso", "2",
+                                     "--freeze_z_torso", "1"))
+    assert out["frames"] == 2 and np.isfinite(out["video"]).all()
+    assert all(v == 0 for v in fr.launch_counts.values())
+    assert kbuild.load_library.cache_info().currsize == 0
 
 
 # ------------------------------------------- C1: the nets the kernels take

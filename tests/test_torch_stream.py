@@ -1,7 +1,9 @@
 """Streaming serving of the PyTorch port (eval/stream.TemporalStream and
-cli/serve) against the JAX package's TemporalStream, plus the stream's
-own contract (lookahead, flush, warm-up, push_device, rolling refresh)
-and a guard that the port never imports JAX or the JAX package.
+cli/serve), head only and head + torso, against the JAX package's
+TemporalStream, plus the stream's own contract (lookahead, flush,
+warm-up, push_device, rolling refresh, the composite stream against the
+offline temporal reenact) and a guard that the port never imports JAX or
+the JAX package.
 
 The setup is tests/test_stream.py's (24x24 synthetic subject, 6 frames,
 refresh 2, s_delta 6, prior on, AudioAttNet smoothing), with softplus
@@ -25,10 +27,12 @@ from idealnerf_tpu.config import ExperimentConfig as JaxConfig
 from idealnerf_tpu.data.synthetic import make_synthetic_dataset as jax_synthetic
 from idealnerf_tpu.eval.stream import TemporalStream as JaxStream
 from idealnerf_tpu.train.state import init_train_state as jax_init_state
+from idealnerf_tpu.train.torso import init_torso_params as jax_init_torso
 from idealnerf_tpu_torch import bridge
 from idealnerf_tpu_torch.cli import serve
 from idealnerf_tpu_torch.config import ExperimentConfig
 from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+from idealnerf_tpu_torch.eval.reenact import reenact
 from idealnerf_tpu_torch.eval.stream import TemporalStream
 from idealnerf_tpu_torch.kernels import build as kbuild
 from idealnerf_tpu_torch.kernels import fused_render as fr
@@ -39,6 +43,15 @@ KW = dict(dim_aud=64, dim_expr=8, dim_latent=32, N_samples=8,
 CLI_SMALL = ["--dim_aud", "32", "--dim_expr", "8", "--dim_latent", "4",
              "--netdepth", "4", "--netwidth", "64", "--N_samples", "8",
              "--N_importance", "8", "--refresh", "2", "--s_delta", "6"]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs several workers on shared cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -53,6 +66,26 @@ def setup():
         np.asarray(jstate.latent_codes), cfg)
     return dict(jcfg=jcfg, cfg=cfg, jds=jds, ds=ds, jstate=jstate,
                 params=state.params, latents=state.latent_codes.detach())
+
+
+@pytest.fixture(scope="module")
+def composite():
+    """The setup fixture's subject with narrower head and torso fields of
+    both packages (netwidth 64, netdepth 4): two fields per frame."""
+    kw = dict(KW, netwidth=64, netdepth=4)
+    jcfg, cfg = JaxConfig(**kw), ExperimentConfig(**kw)
+    jds = jax_synthetic(n_frames=6, H=24, W=24, dim_expr=8)
+    ds = make_synthetic_dataset(n_frames=6, H=24, W=24, dim_expr=8)
+    jstate = jax_init_state(jax.random.PRNGKey(0), jcfg, jds.size)
+    state = bridge.train_state_from_jax(
+        jax.tree.map(np.asarray, jstate.params),
+        np.asarray(jstate.latent_codes), cfg)
+    jtorso = jax_init_torso(jax.random.PRNGKey(1), jcfg)
+    torso = bridge.torso_params_from_jax(jax.tree.map(np.asarray, jtorso),
+                                         cfg)
+    return dict(jcfg=jcfg, cfg=cfg, jds=jds, ds=ds, jstate=jstate,
+                params=state.params, latents=state.latent_codes.detach(),
+                jtorso=jtorso, torso=torso)
 
 
 def _stream(s, **kw):
@@ -154,10 +187,85 @@ def test_stream_rolling_refresh(setup):
     assert stream.frame_kinds == ["keyframe"] + ["delta"] * (n - 1)
 
 
+# a kt1-style operating point: the torso frozen between keyframes and
+# pruned to its top rays (tests/test_stream.py:78-95)
+KT1 = dict(refresh=2, s_delta=6, delta_keep=0.75, delta_keep_torso=0.01,
+           freeze_z_torso=True, quality_ok=True)
+
+
+def test_composite_stream_matches_offline_reenact_and_jax(composite):
+    """tests/test_stream.py:78-95: the head + torso stream at a kt1-style
+    point against the port's offline reenact(temporal=2) on the same
+    driving track (the stream computes AudioNet per frame and the offline
+    path in one batch: within 6e-3, 99 % of pixels within 2e-5, as the
+    JAX test), and against the JAX stream (3e-2, correlation > 0.999)."""
+    s = composite
+    n = 5
+    op = dict(KT1)
+    ref = reenact(s["cfg"], s["params"], s["ds"], s["ds"].auds[:n],
+                  driving_exprs=s["ds"].exprs[:n],
+                  latent_codes=s["latents"], torso_params=s["torso"],
+                  max_frames=n, smooth_audio=True, use_prior=True,
+                  temporal=op["refresh"], s_delta=op["s_delta"],
+                  delta_keep=op["delta_keep"],
+                  delta_keep_torso=op["delta_keep_torso"],
+                  freeze_z_torso=op["freeze_z_torso"])
+    stream = _stream(s, torso_params=s["torso"], use_prior=True,
+                     operating_point=op)
+    assert stream.refresh == 2 and stream._render.stages["torso"].tag == "torso"
+    frames = _drive(stream, s["ds"], n)
+    assert len(frames) == n
+    assert stream.frame_kinds == ["keyframe", "delta"] * 2 + ["keyframe"]
+    d = np.abs(np.stack(frames) - ref)
+    assert d.max() < 6e-3 and (d <= 2e-5).mean() > 0.99, d.max()
+    jref = _drive(JaxStream(s["jcfg"], s["jstate"].params, s["jds"],
+                            torso_params=s["jtorso"],
+                            latent_codes=s["jstate"].latent_codes,
+                            use_prior=True, operating_point=op), s["jds"], n)
+    for got, want in zip(frames, jref):
+        np.testing.assert_allclose(got, np.asarray(want), atol=3e-2)
+        c = np.corrcoef(got.ravel(), np.asarray(want).ravel())[0, 1]
+        assert c > 0.999, c
+
+
+@pytest.mark.parametrize("roll", [dict(roll_k=3), dict(roll_k_torso=3)],
+                         ids=["roll-k", "roll-k-torso"])
+def test_composite_stream_rolls(composite, roll):
+    """Rolling composite streams: with roll_k only frame 0 is a keyframe
+    and both fields cycle their refresh phase; with roll_k_torso the head
+    keeps its keyframes and the torso its phase. The warm-up leaves the
+    frames of a cold stream unchanged."""
+    s = composite
+    kw = dict(torso_params=s["torso"], s_delta=6, use_prior=True,
+              smooth_audio=False, refresh=4, **roll)
+    n = 5
+    cold = [s["ds"].auds[i] for i in range(n)]
+    ref = _stream(s, **kw)
+    want = [ref.push(a) for a in cold]
+    warm = _stream(s, **kw)
+    assert warm.warmup() > 0.0
+    got = [warm.push(a) for a in cold]
+    np.testing.assert_array_equal(np.stack(got), np.stack(want))
+    assert all(np.isfinite(f).all() for f in got)
+    cache = warm._cache
+    if "roll_k" in roll:
+        assert warm.frame_kinds == ["keyframe"] + ["delta"] * (n - 1)
+        assert cache["head"]["phase"] == cache["torso"]["phase"] == (n - 1) % 3
+    else:
+        assert warm.frame_kinds == ["keyframe", "delta", "delta", "delta",
+                                    "keyframe"]
+        assert cache["torso"]["phase"] == 0 and isinstance(cache["head"],
+                                                           tuple)
+
+
 @pytest.mark.parametrize("kw,err,match", [
     (dict(operating_point=dict(quality_ok=False, refresh=25)), ValueError,
      "quality gate"),
-    (dict(torso_params={}), NotImplementedError, "A7"),
+    (dict(torso_params={}, roll_k_torso=1), ValueError, "roll_k_torso"),
+    (dict(torso_params={}, roll_k=2, roll_k_torso=2), ValueError,
+     "exclusive"),
+    (dict(torso_params={}, bounds=(0.5, 1.5)), ValueError, "per-field"),
+    (dict(operating_point=dict(roll_k_torso=1)), ValueError, "roll_k_torso"),
     (dict(roll_k=1), ValueError, "roll_k"),
     (dict(bounds={"head": (0.5, 1.5)}), ValueError, "composite"),
 ])
@@ -205,7 +313,9 @@ def test_serve_cli_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,err,match", [
-    (["--torso_ckpt", "t"], NotImplementedError, "A7"),
+    (["--torso_ckpt", "t", "--roll_k_torso", "1"], ValueError,
+     "roll_k_torso"),
+    (["--roll_k", "2", "--roll_k_torso", "2"], ValueError, "exclusive"),
     (["--auto_temporal", "runs"], NotImplementedError, "A9"),
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
 ])

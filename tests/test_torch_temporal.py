@@ -1,7 +1,8 @@
 """The temporal depth-cache renderer of the PyTorch port (head field)
 against the JAX package: band estimation and dilation, ray selection,
 keyframe exactness, delta frames (all rays, delta_keep-pruned, the torch
-chain), rolling refresh, delta-frame geometry and the foreground prior.
+chain), rolling refresh, delta-frame geometry, the foreground prior and
+the renderer's refusals.
 
 Inputs come from numpy with a fixed seed; weights go across through the
 bridge. The JAX side runs as its own tests run it on the CPU: its kernels
@@ -212,17 +213,20 @@ def test_foreground_prior_matches_jax():
         assert k == jk and k % 256 == 0 and mask.any()
 
 
-def test_unported_parts_raise_naming_a7():
+@pytest.mark.parametrize("case", ["roll-k-1", "cycle-without-cache"])
+def test_head_renderer_refusals(case):
+    """A rolling period of 1 is refused at construction (the field builds
+    no rolling stages for it); render.cycle renders delta frames only, so
+    it needs a keyframe's or a delta frame's cache."""
     sc = _Scene(H=8, W=8)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tm.make_temporal_composite_renderer(sc.ncfg, sc.ncfg, 8, 8,
-                                            sc.focal, NEAR, FAR, sc.rc)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tm._field_pipeline(sc.ncfg, 8, 8, sc.focal, None, None, sc.rc,
-                           (NEAR, FAR), np.arange(64), 8, 0.02, 0.04, 4,
-                           0.2, "torso", freeze_z=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        sc.renderer(s_delta=8).cycle(sc.params, None, None, None)
+    if case == "roll-k-1":
+        with pytest.raises(ValueError, match="roll_k"):
+            sc.renderer(s_delta=8, roll_k=1)
+        return
+    with pytest.raises(ValueError, match="cache"):
+        sc.renderer(s_delta=8).cycle(sc.params,
+                                     torch.from_numpy(_pose())[None],
+                                     torch.from_numpy(sc.bc), None)
 
 
 # ------------------------------------------------------------- renderer
