@@ -180,11 +180,35 @@ non-zero and no result line is printed):
    frames and cache bitwise those of per-frame calls; last, a run without
    ``--prior`` whose keyframe is phase 12c's composite frame of the same
    pose and conditioning within 2e-5.
+13. the real-subject path. 13a: the JPEG route (Pillow) and its libjpeg
+   version; an 8-frame 450x450 synthetic subject with torso written
+   through ``data.export.write_reference_format`` and read back by
+   ``data.dataset.load_transforms_dataset``: poses and exprs within 1e-5,
+   landmarks within 0.01, audio equal, the split sizes, images within a
+   mean abs error of 6 levels; the decode ms per frame, the subject's
+   load time and the .avi write ms per frame. 13b:
+   ``cli.train_head.main --config <subject>/HeadNeRF_config.txt`` (its
+   datadir, near and far) at the paper model, 2 epochs of N_rand 2048:
+   K4 and K6 twice a step, ``metrics.jsonl`` one finite record per
+   ``--i_print`` with the JAX CLI's keys. 13c: ``cli.train_torso.main``
+   on the subject's com_imgs, 5 steps: K4 4 and K6 2 a step, ``torso/``
+   records. 13d: ``cli.render_val.main --head_ckpt`` writes
+   ``subject_head_val.avi`` and its still; its frames read back from the
+   file are within JPEG error (mean abs error under 6 levels) of the
+   frames ``main`` returns; K2/K1 once a frame. 13e:
+   ``cli.eval_reenact.main --torso_ckpt`` (3 frames, K2/K1 twice a frame)
+   and ``cli.serve.main`` (the subject's 8 audio windows, launches as
+   phase 10's) each write their .avi with the right frame count. 13f: the
+   paper model drawn from ``tests/fixtures/jax_frame_450.json``'s seed
+   (``bridge.seeded_tree``) renders the synthetic subject's frame 0
+   through K2 + K1 (one launch each) within 3e-2 and correlation > 0.999
+   of the JAX package's plain XLA frame committed as
+   ``tests/fixtures/jax_frame_450.png``.
 
 Then the kernel summary as one JSON line (each kernel's launches on its
 paths, K1/K2 over render_val and the composite reenact, K4/K6 over
 train_head and train_torso, K3 over the head-only and the composite
-serve; its max error, its time and its plain version's, and its bound:
+serve, each also on the subject directory of phase 13; its max error, its time and its plain version's, and its bound:
 the
 larger of the bytes it must move over 3.35 TB/s and its operations at the
 H100 SXM data sheet's dense rate for their type, 989 TFLOP/s bf16, 1,979
@@ -427,15 +451,18 @@ def _ray_bound(ncfg, rays: int, S: int, cols_in: int, cols_out: int):
                   _weight_bytes(ncfg) + 4.0 * rays * (cols_in + cols_out))
 
 
-def _point_bound(ncfg, n: int, passes: int, grads: bool):
+def _point_bound(ncfg, n: int, passes: int, grads: bool,
+                 kind: str = "bf16"):
     """Bound of a point kernel on n points (pts, dirs in; raw out, or the
     cotangent in and f32 weight gradients out): ``passes`` multiply-add
-    passes over the MLP (1 forward; 3 for the rematerialising backward)."""
+    passes over the MLP (1 forward; 3 for the rematerialising backward),
+    at the dense peak of ``kind`` (the f32 gradient kernel: "f32", the
+    card's rate outside the tensor cores)."""
     pt, ray = _mlp_macs(ncfg)
     nbytes = _weight_bytes(ncfg) + 4.0 * n * (6 + 4)
     if grads:
         nbytes += 2 * _weight_bytes(ncfg)
-    return _bound(2.0 * passes * n * (pt + ray), nbytes)
+    return _bound(2.0 * passes * n * (pt + ray), nbytes, kind)
 
 
 def _delta_split(s_delta: int):
@@ -1250,9 +1277,12 @@ def _phase_grad(net, ncfg, cond, pts, dirs, ptxas, so_path) -> dict:
             ms = _time_ms(lambda: fmg.point_mlp_grad(packed, p, d, g), 3)
             pms = _time_ms(lambda: fmg.point_mlp_grad_reference(
                 packed, p, d, g), 2)
+            bnd = _point_bound(ncfg, n, 3, True, tag)
             print(f"  {tag} gradient kernel at N={n}: kernel {ms:.3f} ms, "
-                  f"plain {pms:.3f} ms (CUDA events)")
-            res = {"n": n, "ms": ms, "plain_ms": pms, "worst": worst}
+                  f"plain {pms:.3f} ms (CUDA events); bound "
+                  f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']} at the "
+                  f"{tag} peak")
+            res = {"n": n, "ms": ms, "plain_ms": pms, "worst": worst, **bnd}
             if tag == "bf16":
                 res.update(_phase_grad_split(fmg, ncfg, packed, p, d, g))
                 out["max_abs_err"] = max(out["max_abs_err"],
@@ -1476,12 +1506,14 @@ def _worst(results: dict, labels=None) -> float:
 
 
 def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
-                 slope=(1 << 20, 1 << 22)) -> dict:
+                 slope=(1 << 20, 1 << 22), render_lib=None) -> dict:
     """Phase 11b-c: the ragged probe checks, then each kdiag entry point at
     its own size with ``--check`` (every timed output against its plain
     version on the same inputs, that version timed once), the launch
     counters set to 0 before it and read after -> the entries of K5 and
-    the probe kernels by name."""
+    the probe kernels by name. ``render_lib``: phase 2's torch.addmm
+    yardstick of the fine pass at ``rays`` x 192, the render probes' work
+    (their ``library_ms``)."""
     import torch
 
     from idealnerf_tpu_torch.kernels import kdiag as kd
@@ -1564,15 +1596,18 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
             k3[f"A S={S}"], launches["kdiag3"]["kdiag_render_a"],
             _bound(ops, rays * (S * 2.0 * fr.PE_PAD + 2.0 * fr.PED_PAD)
                    + raw_bytes + wb),
-            max(errs["kdiag3_render_a"], _worst(k3, ("A S=64", "A S=192")))),
+            max(errs["kdiag3_render_a"], _worst(k3, ("A S=64", "A S=192"))),
+            render_lib),
         "kdiag3_render_b": entry(
             k3[f"B S={S}"], launches["kdiag3"]["kdiag_render_b"],
             _bound(ops, rays * (24.0 + 4.0 * S) + raw_bytes + wb),
-            max(errs["kdiag3_render_b"], _worst(k3, ("B S=64", "B S=192")))),
+            max(errs["kdiag3_render_b"], _worst(k3, ("B S=64", "B S=192"))),
+            render_lib),
         "kdiag3_render_c": entry(
             k3[f"C S={S}"], launches["kdiag3"]["fused_render_rays"],
             _ray_bound(pcfg, rays, S, 9 + S, 8 + S),
-            max(errs["kdiag3_render_c"], _worst(k3, ("C S=64", "C S=192")))),
+            max(errs["kdiag3_render_c"], _worst(k3, ("C S=64", "C S=192"))),
+            render_lib),
     }
     for k, e in out.items():
         print(f"  {k}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms"
@@ -2248,6 +2283,282 @@ def _phase_c1(fr, fm, fmg, dev: str = "cuda", hw: int = 64,
     return out
 
 
+PAPER_FLAGS = ["--dim_aud", "64", "--dim_expr", "76", "--dim_latent", "32",
+               "--N_samples", "64", "--N_importance", "128"]
+# the head CLIs' metric records: train_head's keys (the JAX CLI's)
+HEAD_KEYS = {"step", "time"} | {f"train/{k}" for k in (
+    "loss", "psnr", "latent_loss", "lr", "steps_per_sec",
+    "steps_per_sec_rolling")}
+JPEG_MAE = 6.0     # levels: an image through one JPEG round trip
+
+
+def _jsonl(path: str) -> list:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def _avi_check(path: str, frames, tag: str) -> dict:
+    """The .avi at ``path`` and its first still hold ``frames`` (n, H, W,
+    3) in [0, 1] within JPEG error, at 25 fps."""
+    import numpy as np
+
+    from idealnerf_tpu_torch.eval.video import read_avi_frames
+
+    video, fps = read_avi_frames(path)
+    still = os.path.splitext(path)[0] + "_00000.jpg"
+    mae = float(np.abs(video.astype(np.float32)
+                       - 255.0 * np.asarray(frames)).mean()) if len(
+                           video) == len(frames) else float("inf")
+    print(f"  {tag}: {path} holds {len(video)} frames at {fps:g} fps, mean "
+          f"abs error {mae:.3f} levels against the returned frames (< "
+          f"{JPEG_MAE:g}); still {os.path.basename(still)} "
+          f"{os.path.exists(still)}")
+    if not (len(video) == len(frames) and fps == 25.0 and mae < JPEG_MAE
+            and os.path.exists(still)):
+        raise AssertionError(f"{tag}: the .avi does not hold the frames")
+    return {"path": path, "frames": len(video), "fps": fps, "mae": mae}
+
+
+def _phase_subject_io(root: str, hw: int, n_frames: int) -> dict:
+    """Phase 13a: the JPEG route, the synthetic subject written through the
+    port's export and read back by its loader, and the I/O rates."""
+    import numpy as np
+
+    from idealnerf_tpu_torch import native
+    from idealnerf_tpu_torch.data import jpeg
+    from idealnerf_tpu_torch.data.dataset import load_transforms_dataset
+    from idealnerf_tpu_torch.data.export import write_reference_format
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.eval.video import VideoWriter
+
+    t0 = time.perf_counter()
+    native.load_library()
+    png_build_s = time.perf_counter() - t0
+    print(f"phase 13a JPEG route: {jpeg.library_version()}; PNG row filters "
+          f"native (g++ build {png_build_s:.2f} s)")
+    ds = make_synthetic_dataset(n_frames=n_frames, H=hw, W=hw, dim_expr=76,
+                                with_torso=True)
+    subj = os.path.join(root, "subject")
+    t0 = time.perf_counter()
+    cfg_path = write_reference_format(ds, subj, subject="subject")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = load_transforms_dataset(subj, mode="train")
+    load_s = time.perf_counter() - t0
+    val = load_transforms_dataset(subj, mode="val", gt_dirs="com_imgs")
+    split = int(n_frames * 10 / 11)
+    img_err = float(np.abs(train.images.astype(np.int16)
+                           - ds.images[:split].astype(np.int16)).mean())
+    ok = (train.size == split and val.size == n_frames - split
+          and np.allclose(train.poses, ds.poses[:split], atol=1e-5)
+          and np.allclose(train.exprs, ds.exprs[:split], atol=1e-5)
+          and np.allclose(train.landmarks, ds.landmarks[:split], atol=0.01)
+          and np.array_equal(train.auds, ds.auds)
+          and np.allclose(val.poses, ds.poses[split:], atol=1e-5)
+          and img_err < JPEG_MAE)
+    paths = [os.path.join(subj, "head_imgs", f"{i}.jpg")
+             for i in range(n_frames)]
+    decode = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        jpeg.decode_jpeg_batch(paths, hw, hw)
+        decode.append(1e3 * (time.perf_counter() - t0) / n_frames)
+    avi = os.path.join(root, "frames.avi")
+    t0 = time.perf_counter()
+    with VideoWriter(avi, frame_jpg_every=10) as w:
+        for f in ds.images:
+            w.add(f)
+    avi_ms = 1e3 * (time.perf_counter() - t0) / n_frames
+    res = {"route": jpeg.library_version(), "png_build_s": png_build_s,
+           "write_s": write_s, "load_s": load_s,
+           "decode_ms_per_frame": sorted(decode)[1],
+           "decode_ms_runs": decode, "avi_write_ms_per_frame": avi_ms,
+           "train": train.size, "val": val.size, "image_mae": img_err,
+           "config": cfg_path}
+    print(f"  {n_frames} frames of {hw}x{hw} with torso written in "
+          f"{write_s:.3f} s to {subj}; train split ({train.size} frames) "
+          f"loaded in {load_s:.3f} s, val {val.size}; poses, exprs, "
+          f"landmarks, audio round trip {ok}, image mean abs error "
+          f"{img_err:.3f} levels; decode {res['decode_ms_per_frame']:.3f} "
+          f"ms/frame (median of 3 batches of {n_frames}: "
+          f"{', '.join(f'{d:.3f}' for d in decode)}); .avi write "
+          f"{avi_ms:.3f} ms/frame")
+    if not ok:
+        raise AssertionError("the subject does not round-trip through the "
+                             "export and the loader")
+    res["avi"] = _avi_check(avi, ds.images / 255.0, "13a frames.avi")
+    return res
+
+
+def _phase_subject(args, fm, fmg, fr, dev: str = "cuda", hw: int = 450,
+                   n_frames: int = 8, rays: int = 2048) -> dict:
+    """Phase 13: the real-subject path. 13a ``_phase_subject_io``; 13b
+    train_head.main on the subject directory (paper model, 2 epochs), K4
+    and K6 twice a step, its metrics.jsonl read back; 13c train_torso.main
+    on the subject's com_imgs, 5 steps, torso/ records; 13d render_val.main
+    writes <expname>_val.avi, held against the frames it returns, K2/K1
+    once a frame; 13e eval_reenact.main --torso_ckpt and serve.main, each
+    .avi with the right frame count, launches as phases 12c and 10."""
+    from idealnerf_tpu_torch.cli import (
+        eval_reenact, render_val, serve, train_head, train_torso,
+    )
+    from idealnerf_tpu_torch.eval.video import read_avi_frames
+
+    root = "output/chip_smoke_subject"
+    shutil.rmtree(root, ignore_errors=True)   # no resume, no stale videos
+    res = {"io": _phase_subject_io(root, hw, n_frames)}
+    cfg_path = res["io"]["config"]
+    logs, out = os.path.join(root, "logs"), os.path.join(root, "video")
+    base = ["--config", cfg_path, *PAPER_FLAGS, "--device", dev,
+            "--basedir", logs]
+
+    # 13b: the head
+    fm.reset_launch_counts()
+    fmg.reset_launch_counts()
+    i_print = 5
+    th = train_head.main([*base, "--N_rand", str(rays), "--epochs", "2",
+                          "--i_print", str(i_print)])
+    counts = {"fused_point_mlp": fm.launch_counts["fused_point_mlp"],
+              **fmg.launch_counts}
+    steps = th["step"]
+    recs = _jsonl(os.path.join(logs, "subject_head", "metrics.jsonl"))
+    good = ([r["step"] for r in recs] == list(range(i_print, steps + 1,
+                                                    i_print))
+            and all(set(r) == HEAD_KEYS for r in recs)
+            and all(math.isfinite(v) for r in recs for v in r.values()))
+    print(f"phase 13b train_head --datadir: {steps} steps, D=8 W=256 N_rand "
+          f"{rays} 64+128; launches {counts}; metrics.jsonl {len(recs)} "
+          f"records at steps {[r['step'] for r in recs]}, keys as the JAX "
+          f"CLI's and finite: {good}; loss {recs[-1]['train/loss']:.5f}, "
+          f"PSNR {recs[-1]['train/psnr']:.3f}")
+    if any(n != 2 * steps for n in counts.values()) or not good:
+        raise AssertionError(f"train_head on the subject: launches {counts} "
+                             f"for {steps} steps, records ok {good}")
+    res["train_head"] = {"steps": steps, "launches": counts,
+                         "records": len(recs), "last": recs[-1]}
+
+    # 13c: the torso on the subject's com_imgs
+    fm.reset_launch_counts()
+    fmg.reset_launch_counts()
+    tt = train_torso.main([*base, "--N_rand", str(rays), "--steps", "5",
+                           "--i_print", "2", "--head_ckpt", th["ckpt_dir"]])
+    tcounts = {"fused_point_mlp": fm.launch_counts["fused_point_mlp"],
+               **fmg.launch_counts}
+    trecs = _jsonl(os.path.join(logs, "subject_head_torso", "metrics.jsonl"))
+    want = {"fused_point_mlp": 20, "fused_point_mlp_grad": 10}
+    good = ([r["step"] for r in trecs] == [0, 2, 4]
+            and all({"torso/loss", "torso/psnr", "torso/lr"} <= set(r)
+                    for r in trecs)
+            and all(math.isfinite(v) for r in trecs for v in r.values()))
+    print(f"phase 13c train_torso --datadir (com_imgs): {tt['step']} steps; "
+          f"launches {tcounts}; metrics.jsonl torso/ records at steps "
+          f"{[r['step'] for r in trecs]}, finite: {good}")
+    if {k: tcounts[k] for k in want} != want or not good:
+        raise AssertionError(f"train_torso on the subject: launches "
+                             f"{tcounts}, want {want}; records ok {good}")
+    res["train_torso"] = {"steps": tt["step"], "launches": tcounts,
+                          "records": len(trecs)}
+
+    # 13d: the val split to <expname>_val.avi
+    fr.reset_launch_counts()
+    rv = render_val.main([*base, "--head_ckpt", th["ckpt_dir"],
+                          "--save_path", out])
+    n = len(rv["frames"])
+    rcounts = {k: fr.launch_counts[k] for k in ("fused_render_coarse_hier",
+                                                "fused_render_rays")}
+    print(f"phase 13d render_val --datadir: {n} val frames, PSNR "
+          f"{rv['psnr']:.3f}, {rv['frame_ms']:.1f} ms/frame; launches "
+          f"{rcounts}")
+    if rcounts != dict.fromkeys(rcounts, n) or not math.isfinite(rv["psnr"]):
+        raise AssertionError(f"render_val on the subject launched {rcounts} "
+                             f"for {n} frames")
+    res["render_val"] = {"frames": n, "psnr": rv["psnr"], "launches": rcounts,
+                         "avi": _avi_check(os.path.join(
+                             out, "subject_head_val.avi"), rv["frames"],
+                             "13d render_val")}
+
+    # 13e: the composite reenactment and the stream, from the directory
+    fr.reset_launch_counts()
+    n = 3
+    rr = eval_reenact.main([*base, "--head_ckpt", th["ckpt_dir"],
+                            "--torso_ckpt", tt["ckpt_dir"], "--max_frames",
+                            str(n), "--save_path", out])
+    ecounts = {k: fr.launch_counts[k] for k in ("fused_render_coarse_hier",
+                                                "fused_render_rays")}
+    print(f"phase 13e eval_reenact --datadir --torso_ckpt: {rr['frames']} "
+          f"composite frames, {rr['frame_ms']:.1f} ms/frame, PSNR "
+          f"{rr['psnr']:.3f}; launches {ecounts}")
+    if ecounts != dict.fromkeys(ecounts, 2 * n) or rr["frames"] != n:
+        raise AssertionError(f"eval_reenact on the subject launched "
+                             f"{ecounts} for {n} frames")
+    res["reenact"] = {"frames": n, "psnr": rr["psnr"], "launches": ecounts,
+                      "avi": _avi_check(os.path.join(out, "subject_head.avi"),
+                                        rr["video"], "13e eval_reenact")}
+    fr.reset_launch_counts()
+    stats = serve.main([*base, "--head_ckpt", th["ckpt_dir"], "--save_path",
+                        out])
+    scounts = dict(fr.launch_counts)
+    live = {k: scounts[k] - WARMUP[k] for k in WARMUP}
+    want = {"fused_render_coarse_hier": stats["keyframes"],
+            "fused_render_rays": stats["keyframes"],
+            "fused_render_delta": stats["delta_frames"]}
+    frames = len(read_avi_frames(os.path.join(out,
+                                              "subject_head_stream.avi"))[0])
+    print(f"  serve --datadir: {stats['frames']} frames ({stats['keyframes']}"
+          f" keyframes + {stats['delta_frames']} delta), p50 "
+          f"{stats['p50_ms']:.2f} ms; launches {scounts} (live {live}, want "
+          f"{want}); subject_head_stream.avi holds {frames} frames")
+    if live != want or not stats["finite"] or frames != stats["frames"]:
+        raise AssertionError(f"serve on the subject: live launches {live}, "
+                             f"want {want}; {frames} frames in the .avi")
+    res["serve"] = {"stats": stats, "launches": scounts, "avi_frames": frames}
+    return res
+
+
+def _phase_fixture(fr, dev: str = "cuda",
+                   stem: str = "tests/fixtures/jax_frame_450") -> dict:
+    """Phase 13f: the paper model drawn from the fixture's seed
+    (``bridge.seeded_tree``) renders the synthetic subject's frame 0
+    through K2 + K1, held against the JAX package's plain XLA frame
+    committed as an 8-bit PNG (3e-2, correlation > 0.999)."""
+    import torch
+
+    from idealnerf_tpu_torch import bridge
+    from idealnerf_tpu_torch.config import ExperimentConfig
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.eval.renderer import make_frame_renderer
+    from idealnerf_tpu_torch.eval.video import read_png
+
+    with open(stem + ".json") as fh:
+        meta = json.load(fh)
+    cfg = ExperimentConfig(**meta["config"])
+    hw, subj = meta["hw"], meta["subject"]
+    params = bridge.params_from_jax(bridge.seeded_tree(cfg, meta["seed"]),
+                                    cfg, device=dev)
+    cond = {k: torch.from_numpy(v).to(dev) for k, v in
+            bridge.seeded_conditioning(cfg, meta["seed"]).items()}
+    ds = make_synthetic_dataset(n_frames=subj["n_frames"], H=hw, W=hw,
+                                dim_expr=cfg.dim_expr,
+                                with_torso=subj["with_torso"])
+    render = make_frame_renderer(cfg.face_nerf_config(), hw, hw, ds.focal,
+                                 ds.near, ds.far, cfg.render_config(),
+                                 cx=ds.cx, cy=ds.cy)
+    fr.reset_launch_counts()
+    frame = render(params, torch.from_numpy(ds.poses[subj["frame"]]).to(dev),
+                   torch.from_numpy(ds.bc_img).to(dev).float() / 255.0,
+                   **cond)
+    counts = {k: fr.launch_counts[k] for k in ("fused_render_coarse_hier",
+                                               "fused_render_rays")}
+    ref = torch.from_numpy(read_png(stem + ".png")).float() / 255.0
+    print(f"phase 13f {hw}x{hw} frame (seeded paper model) vs the JAX "
+          f"package's plain XLA frame ({stem}.png); launches {counts}")
+    err = _agree("frame vs the JAX fixture", frame.float().cpu(), ref,
+                 corr=True)
+    if counts != dict.fromkeys(counts, 1):
+        raise AssertionError(f"the fixture frame launched {counts}")
+    return {"max_abs_err": err, "launches": counts}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rays", type=int, default=8192)
@@ -2465,7 +2776,9 @@ def main(argv=None) -> int:
     # ---- phase 11: K5 and the kernel-diagnosis probes (K7)
     pts, dirs = _points(ro, rd, near, far, args.points)
     res11 = _phase_k5(fm, fr, nets["fine"], ff, ncfg, pts, dirs)
-    probes = _phase_kdiag(fm, fr, pts, dirs, args.rays)
+    probes = _phase_kdiag(
+        fm, fr, pts, dirs, args.rays,
+        render_lib=res2["phase-2 rays"]["fused_render_rays"]["library_ms"])
     report.update(k5=res11, kdiag=probes)
     del pts, dirs
     torch.cuda.empty_cache()
@@ -2491,6 +2804,11 @@ def main(argv=None) -> int:
     report.update(torso_field=res12a, torso_train=res12b, reenact=res12c,
                   c1=res12d, temporal_composite=res12e)
 
+    # ---- phase 13: the real-subject path, and the 450x450 JAX fixture
+    res13 = _phase_subject(args, fm, fmg, fr)
+    res13f = _phase_fixture(fr)
+    report.update(subject=res13, fixture=res13f)
+
     # launches on the main paths: render_val and the composite reenact
     # (K1, K2), train_head and train_torso (K4, K6), serve head-only and
     # composite (K3)
@@ -2501,6 +2819,15 @@ def main(argv=None) -> int:
     counts["fused_render_delta"] = sum(
         r["launches"]["fused_render_delta"]
         for r in (res10["defaults"], res12e["serve defaults"]))
+    # and the real-subject path: render_val, eval_reenact, serve (K1-K3),
+    # train_head and train_torso (K4, K6)
+    for part in ("render_val", "reenact", "serve"):
+        for k, n in res13[part]["launches"].items():
+            if k in counts:
+                counts[k] += n
+    for part in ("train_head", "train_torso"):
+        for k in ("fused_point_mlp", "fused_point_mlp_grad"):
+            counts[k] += res13[part]["launches"][k]
     for k, e in res12a["errs"].items():
         errs[k] = max(errs[k], e)
     errs.update(fused_point_mlp=res6["max_abs_err"],

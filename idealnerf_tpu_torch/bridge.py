@@ -148,3 +148,42 @@ def torso_params_from_jax(tree, cfg, device=None) -> nn.ModuleDict:
 def torso_params_to_jax(params: nn.ModuleDict) -> Dict[str, Any]:
     """The port's torso ModuleDict -> JAX-layout numpy tree."""
     return module_to_tree(params)
+
+
+def seeded_tree(cfg, seed: int) -> Dict[str, Any]:
+    """The JAX-layout parameter tree of ``cfg`` drawn with numpy from
+    ``seed``: every dense and conv weight xavier-uniform and every bias
+    0.01, as ``init_train_state`` initialises them. The JAX package takes
+    the tree as it is and the port through ``params_from_jax``, so one seed
+    gives the same model on both sides and on every machine."""
+    from idealnerf_tpu_torch.train.state import init_params
+
+    rng = np.random.RandomState(seed)
+
+    def draw(node):
+        if isinstance(node, dict) and "w" in node:
+            w = np.asarray(node["w"])
+            if w.ndim == 2:              # dense (in, out)
+                fan_in, fan_out = w.shape
+            else:                        # conv (out, in, k)
+                fan_in = w.shape[1] * w.shape[2]
+                fan_out = w.shape[0] * w.shape[2]
+            lim = np.sqrt(6.0 / (fan_in + fan_out))
+            return {"w": rng.uniform(-lim, lim, w.shape).astype(np.float32),
+                    "b": np.full(np.shape(node["b"]), 0.01, np.float32)}
+        if isinstance(node, dict):
+            return {k: draw(v) for k, v in node.items()}
+        return [draw(v) for v in node]
+
+    return draw(params_to_jax(init_params(cfg, 1).params))
+
+
+def seeded_conditioning(cfg, seed: int) -> Dict[str, np.ndarray]:
+    """One frame's conditioning drawn with numpy from ``seed``: an AudioNet
+    feature (dim_aud) of unit scale, an expression (dim_expr) and a latent
+    code (dim_latent) near the table's initial ones."""
+    rng = np.random.RandomState(seed + 1)
+    return {"aud": rng.randn(cfg.dim_aud).astype(np.float32),
+            "expr": rng.randn(cfg.dim_expr).astype(np.float32),
+            "latent": (1.0 + 0.1 * rng.randn(cfg.dim_latent))
+            .astype(np.float32)}

@@ -1,5 +1,7 @@
 """Shared CLI plumbing (counterpart of cli/common.py): every
-ExperimentConfig field becomes a flag, plus dataset resolution."""
+ExperimentConfig field becomes a flag, plus dataset resolution (a
+procedural subject with ``--synthetic N``, else the reference-format
+directory ``--datadir``) and the metrics stream."""
 
 from __future__ import annotations
 
@@ -12,10 +14,13 @@ import torch
 
 from idealnerf_tpu_torch.ckpt import CheckpointManager
 from idealnerf_tpu_torch.config import ExperimentConfig
-from idealnerf_tpu_torch.data.dataset import FrameDataset
+from idealnerf_tpu_torch.data.dataset import (
+    FrameDataset, load_transforms_dataset,
+)
 from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
 from idealnerf_tpu_torch.train.state import ModelState, init_params
 from idealnerf_tpu_torch.train.torso import init_torso_params
+from idealnerf_tpu_torch.utils.summary import SummaryWriter
 
 logger = logging.getLogger("idealnerf.cli")
 
@@ -62,10 +67,14 @@ def resolve_dataset(args, cfg: ExperimentConfig, mode: str = "train",
             dim_expr=max(cfg.dim_expr, 1),
             with_torso=(gt_dirs == "com_imgs"),
         )
-    raise NotImplementedError(
-        "real subject directories need load_transforms_dataset, which is "
-        "not ported yet (ROADMAP.md A-queue: load_transforms_dataset); "
-        "use --synthetic N")
+    return load_transforms_dataset(
+        cfg.datadir, mode=mode, aud_file=cfg.aud_file,
+        gt_dirs=gt_dirs or cfg.gt_dirs, near=cfg.near, far=cfg.far)
+
+
+def make_summary(cfg: ExperimentConfig, default_dir: str) -> SummaryWriter:
+    """The run's metrics writer, in ``vis_path`` or else ``default_dir``."""
+    return SummaryWriter(cfg.vis_path or default_dir)
 
 
 def load_head(args, cfg: ExperimentConfig, data_size: int) -> ModelState:

@@ -15,7 +15,8 @@ expressions from ``--evalExpr_path`` (another subject's transforms json;
 default the identity's own), the driving audio from ``--aud_file`` (with
 ``--synthetic``, the identity's own windows). Frames render on
 ``--device`` (default cuda; on cpu the kernels' plain versions run) and
-are written as ``<save_path>/<expname>_reenact_*.png``. ``main(argv)``
+are written as ``<save_path>/<expname>.avi`` (25 fps MJPG, every 10th
+frame also as a .jpg). ``main(argv)``
 returns {"frames", "frame_ms", "psnr", "video"}: the frame count, the mean
 wall ms per frame after the first (each frame's time ends when its pixels
 reach the host), the mean PSNR against the identity's frames (its com
@@ -144,7 +145,7 @@ def main(argv=None):
         cfg, state.params.to(device), identity, driving_auds=auds,
         driving_exprs=exprs, latent_codes=state.latent_codes,
         torso_params=torso,
-        out_path=os.path.join(save_path, f"{cfg.expname}_reenact"),
+        out_path=os.path.join(save_path, f"{cfg.expname}.avi"),
         max_frames=args.max_frames,
         smooth_audio=cfg.nosmo_iters <= state.step, frame_times=times,
         use_prior=bool(args.prior), temporal=args.temporal or None,

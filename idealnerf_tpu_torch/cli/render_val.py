@@ -1,11 +1,13 @@
-"""Render the val split through the head model to PNG frames + metrics
+"""Render the val split through the head model to a video + metrics
 (counterpart of idealnerf_tpu/cli/render_val.py, full-fidelity mode).
 
     python -m idealnerf_tpu_torch.cli.render_val --synthetic 3 \\
         --synthetic_hw 450 --dim_aud 64 --dim_expr 76 --dim_latent 32
 
 Each frame is the fused coarse + fine kernel pair on ``--device``
-(default cuda; on cpu the kernels' plain PyTorch versions run).
+(default cuda; on cpu the kernels' plain PyTorch versions run). The frames
+go to ``<save_path>/<expname>_val.avi`` (25 fps MJPG), every 10th also as
+``<expname>_val_<i:05d>.jpg``.
 ``main(argv)`` returns {"psnr", "ssim", "frame_ms", "frames"}: mean
 PSNR/SSIM over the frames, the mean wall time per frame after the first,
 taken around work that ends in a device synchronize, and the frames
@@ -26,7 +28,7 @@ from idealnerf_tpu_torch.cli.common import (
 )
 from idealnerf_tpu_torch.eval.metrics import psnr, ssim
 from idealnerf_tpu_torch.eval.renderer import make_frame_renderer
-from idealnerf_tpu_torch.eval.video import FrameWriter
+from idealnerf_tpu_torch.eval.video import VideoWriter
 from idealnerf_tpu_torch.models.variants import (
     variant_conditioning, variant_nerf_config,
 )
@@ -90,10 +92,10 @@ def main(argv=None):
     smooth = cfg.dim_aud > 29 and state.step >= cfg.nosmo_iters
 
     save_path = cfg.save_path or "output/render"
-    writer = FrameWriter(os.path.join(save_path, f"{cfg.expname}_val"))
+    out = os.path.join(save_path, f"{cfg.expname}_val.avi")
     n = ds.size if args.max_frames is None else min(args.max_frames, ds.size)
     psnrs, ssims, times, frames = [], [], [], []
-    with torch.no_grad():
+    with torch.no_grad(), VideoWriter(out) as writer:
         for i in range(n):
             t0 = time.perf_counter()
             aud = compute_aud_feature(params, data["auds"], data["aud_ids"],
@@ -117,7 +119,7 @@ def main(argv=None):
     frame_ms = float(np.mean(times[1:] if n > 1 else times))
     logger.info("val set: mean PSNR %.2f, mean SSIM %.3f, %.1f ms/frame -> %s",
                 float(np.mean(psnrs)), float(np.mean(ssims)), frame_ms,
-                writer.stem)
+                out)
     return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)),
             "frame_ms": frame_ms, "frames": np.stack(frames)}
 

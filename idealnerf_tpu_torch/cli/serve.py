@@ -9,7 +9,9 @@ sees. With ``--torso_ckpt`` every frame is the head + torso composite.
         [--save_path output/serve]
 
 Frames render on ``--device`` (default cuda; on cpu the kernels' plain
-PyTorch versions run). ``main(argv)`` returns the JAX CLI's stats — frames,
+PyTorch versions run); with ``--save_path`` they go to
+``<save_path>/<expname or 'serve'>_stream.avi`` (25 fps MJPG, every 10th
+frame also as a .jpg). ``main(argv)`` returns the JAX CLI's stats — frames,
 roll_k, warmup_s, p50/p95/p99_ms and the 25 fps deadline hit rate over the
 steady frames (those after the first refresh interval), steady_fps — plus
 the split by frame kind: keyframes and keyframe_ms (their mean), delta
@@ -24,6 +26,7 @@ eval/operating_points.gated_video_config), the flag stands in for it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -36,7 +39,7 @@ from idealnerf_tpu_torch.cli.common import (
 )
 from idealnerf_tpu_torch.eval.stream import TemporalStream
 from idealnerf_tpu_torch.eval.temporal import check_roll_k
-from idealnerf_tpu_torch.eval.video import FrameWriter
+from idealnerf_tpu_torch.eval.video import VideoWriter
 
 logger = logging.getLogger("idealnerf.cli")
 
@@ -109,10 +112,9 @@ def main(argv=None):
     logger.info("warmup %.1fs; refresh %d, lookahead %d frames",
                 warmup_s, stream.refresh, stream.algorithmic_latency_frames)
 
-    writer = None
-    if cfg.save_path:
-        writer = FrameWriter(os.path.join(
-            cfg.save_path, f"{cfg.expname or 'serve'}_stream"))
+    save = (VideoWriter(os.path.join(
+        cfg.save_path, f"{cfg.expname or 'serve'}_stream.avi"))
+        if cfg.save_path else contextlib.nullcontext())
 
     def frames():
         for i in range(n):
@@ -122,11 +124,12 @@ def main(argv=None):
         yield from stream.flush()
 
     emitted, finite = 0, True
-    for f in frames():
-        emitted += 1
-        finite = finite and bool(np.isfinite(f).all())
-        if writer is not None:
-            writer.add(f)
+    with save as writer:
+        for f in frames():
+            emitted += 1
+            finite = finite and bool(np.isfinite(f).all())
+            if writer is not None:
+                writer.add(f)
     if emitted != n:
         raise RuntimeError(f"stream emitted {emitted} of {n} frames")
 

@@ -20,7 +20,7 @@ import os
 import torch
 
 from idealnerf_tpu_torch.cli.common import (
-    build_parser, resolve_config, resolve_dataset,
+    build_parser, make_summary, resolve_config, resolve_dataset,
 )
 from idealnerf_tpu_torch.train.head import HeadTrainer
 
@@ -52,17 +52,20 @@ def main(argv=None):
     ckpt_dir = args.ckpt_dir or os.path.join(run_dir, "ckpt")
     trainer = HeadTrainer(cfg, dataset, seed=args.seed, ckpt_dir=ckpt_dir,
                           device=device)
+    summary = make_summary(cfg, run_dir)
     logger.info("train_head: %d frames, variant=%s, N_rand=%d, device %s",
                 dataset.size, cfg.model_variant, cfg.N_rand, device)
     history = []
 
     def on_metrics(step, m):
         history.append((step, m))
+        summary.scalars(step, m)
         logger.info("[TRAIN] step %d loss %.5f psnr %.2f lr %.2e "
                     "(%.2f steps/s)", step, m["loss"], m["psnr"], m["lr"],
                     m["steps_per_sec_rolling"])
 
-    trainer.run(n_epochs=args.epochs, on_metrics=on_metrics)
+    with summary:
+        trainer.run(n_epochs=args.epochs, on_metrics=on_metrics)
     trainer.save()
     logger.info("done at step %d; checkpoints in %s", trainer.global_step,
                 ckpt_dir)

@@ -9,8 +9,11 @@ The head (params, latent table) is restored from ``--head_ckpt``, a
 train_head checkpoint directory, or drawn fresh with a warning. On
 ``--device cuda`` (the default) both fields of a step run the fused point
 MLP kernel, and the torso's backward the gradient kernel (``--train_fused``
-1 or 2); on cpu their plain versions. ``--steps`` defaults to N_iters
-times the frame count. The checkpoint is written at the end
+1 or 2); on cpu their plain versions. Without ``--synthetic`` the subject
+is the ``com_imgs`` of the reference-format directory ``--datadir``.
+``--steps`` defaults to N_iters times the frame count. The metrics of
+every ``--i_print``-th step go to ``<vis_path or basedir/expname_torso>/
+metrics.jsonl`` as ``torso/<name>``. The checkpoint is written at the end
 to ``--ckpt_dir`` (default ``<basedir>/<expname>_torso/ckpt``).
 ``main(argv)`` returns {"step", "ckpt_dir", "history", "head_params"}: the
 final step, the checkpoint directory, the (step, metrics) of every log
@@ -26,7 +29,7 @@ import os
 import torch
 
 from idealnerf_tpu_torch.cli.common import (
-    build_parser, load_head, resolve_config, resolve_dataset,
+    build_parser, load_head, make_summary, resolve_config, resolve_dataset,
 )
 from idealnerf_tpu_torch.train.torso import TorsoTrainer
 
@@ -70,6 +73,7 @@ def main(argv=None):
                            latent_codes=state.latent_codes, seed=args.seed,
                            smooth_audio=bool(args.cli_smooth_audio),
                            ckpt_dir=ckpt_dir, device=device)
+    summary = make_summary(cfg, run_dir)
     n_steps = args.steps or cfg.N_iters * dataset.size
     logger.info("train_torso: %d steps on %d frames, N_rand=%d, device %s",
                 n_steps, dataset.size, cfg.N_rand, device)
@@ -77,10 +81,13 @@ def main(argv=None):
 
     def on_metrics(step, m):
         history.append((step, m))
+        summary.scalars(step, m, prefix="torso")
         logger.info("[TORSO] step %d loss %.5f psnr %.2f (%.2f steps/s)",
                     step, m["loss"], m["psnr"], m["steps_per_sec_rolling"])
 
-    trainer.run(n_steps=n_steps, log_every=cfg.i_print, on_metrics=on_metrics)
+    with summary:
+        trainer.run(n_steps=n_steps, log_every=cfg.i_print,
+                    on_metrics=on_metrics)
     trainer.save()
     logger.info("done at step %d; checkpoints in %s", trainer.step, ckpt_dir)
     return {"step": trainer.step, "ckpt_dir": ckpt_dir, "history": history,

@@ -7,9 +7,12 @@ from idealnerf_tpu_torch.eval.temporal import (
     dilate_bands, fg_band, make_temporal_composite_renderer,
     make_temporal_frame_renderer,
 )
-from idealnerf_tpu_torch.eval.video import FrameWriter, write_png
+from idealnerf_tpu_torch.eval.video import (
+    VideoWriter, read_avi_frames, read_png, write_png,
+)
 
-__all__ = ["FrameWriter", "TemporalStream", "dilate_bands", "fg_band",
+__all__ = ["TemporalStream", "VideoWriter", "dilate_bands", "fg_band",
            "foreground_prior", "foreground_prior_fields",
            "make_frame_renderer", "make_temporal_composite_renderer",
-           "make_temporal_frame_renderer", "psnr", "ssim", "write_png"]
+           "make_temporal_frame_renderer", "psnr", "read_avi_frames",
+           "read_png", "ssim", "write_png"]

@@ -5,7 +5,7 @@ The identity (poses, background plate, latent) comes from subject A's
 dataset, the driving expressions from subject B's transforms json and the
 driving audio from a window track; audio features for the whole track are
 computed in one batched pass. Each frame is the head field alone or the
-head + torso composite, written as PNGs by eval/video.py: one
+head + torso composite, written to an MJPG .avi by eval/video.py: one
 full-fidelity frame at a time (``make_frame_renderer``,
 ``make_composite_frame_renderer``), or with ``temporal = R`` the
 temporal depth-cache renderers (a keyframe every R frames, delta frames
@@ -17,6 +17,7 @@ and multi-device rendering (``mesh``, A13).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import time
@@ -33,7 +34,7 @@ from idealnerf_tpu_torch.eval.temporal import (
     check_roll_k, make_temporal_composite_renderer,
     make_temporal_frame_renderer,
 )
-from idealnerf_tpu_torch.eval.video import FrameWriter
+from idealnerf_tpu_torch.eval.video import VideoWriter
 from idealnerf_tpu_torch.models.variants import (
     variant_conditioning, variant_nerf_config,
 )
@@ -89,10 +90,10 @@ def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
             fast_keep=None, use_prior: bool = False, bounds=None,
             mesh=None) -> np.ndarray:
     """Render the reenactment on the device of ``head_params`` -> the
-    frames (N, H, W, 3) in [0, 1]; with ``out_path`` also PNGs
-    ``{out_path}_{i:05d}.png``. Identity poses cycle through subject A's
-    frames; the expression index follows the driving sequence, clamped at
-    its end. With ``torso_params`` each frame is the composite, the torso
+    frames (N, H, W, 3) in [0, 1]; with ``out_path`` also the .avi there
+    (every 10th frame also as ``<stem>_<i:05d>.jpg``). Identity poses
+    cycle through subject A's frames; the expression index follows the
+    driving sequence, clamped at its end. With ``torso_params`` each frame is the composite, the torso
     rays cast from the identity's first pose.
 
     ``temporal = R``: the temporal renderers, a keyframe every R frames
@@ -168,40 +169,43 @@ def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
     poses = torch.from_numpy(identity.poses).to(device)
     latent = latent_codes[0].to(device) if latent_codes is not None else None
 
-    writer = FrameWriter(out_path) if out_path else None
     frames = []
     cache = None
-    for i in range(n_frames):
-        t0 = time.perf_counter()
-        pose = poses[i % identity.size]
-        expr = None
-        if driving_exprs is not None and cfg.dim_expr > 0:
-            expr = torch.from_numpy(np.asarray(
-                driving_exprs[min(i, driving_exprs.shape[0] - 1)],
-                np.float32)).to(device)
-        aud = aud_feats[i]
-        aud_arg, expr_arg = variant_conditioning(head_params, cfg, aud, expr)
-        if torso_params is None:
-            args = (head_params, pose, bc)
-            kw = dict(aud=aud_arg, expr=expr_arg, latent=latent)
-        else:
-            args = (head_params, torso_params, pose, poses[0], bc)
-            kw = dict(aud=aud_arg,
-                      signal=torso_signal(aud, pose, cfg.dim_aud_body),
-                      expr=expr_arg, latent=latent)
-        if temporal is None:
-            frame = render(*args, **kw)
-        else:
-            # a keyframe every `temporal` frames; a rolling cache lives on
-            if i % temporal == 0 and not roll_k:
-                cache = None
-            frame, cache = render(*args, **kw, cache=cache)
-        frame = frame.clamp(0.0, 1.0).cpu().numpy()
-        if frame_times is not None:
-            frame_times.append(time.perf_counter() - t0)
-        frames.append(frame)
-        if writer is not None:
-            writer.add(frame)
-        if i % 25 == 0:
-            logger.info("reenact frame %d/%d", i, n_frames)
+    with (VideoWriter(out_path) if out_path
+          else contextlib.nullcontext()) as writer:
+        for i in range(n_frames):
+            t0 = time.perf_counter()
+            pose = poses[i % identity.size]
+            expr = None
+            if driving_exprs is not None and cfg.dim_expr > 0:
+                expr = torch.from_numpy(np.asarray(
+                    driving_exprs[min(i, driving_exprs.shape[0] - 1)],
+                    np.float32)).to(device)
+            aud = aud_feats[i]
+            aud_arg, expr_arg = variant_conditioning(head_params, cfg, aud,
+                                                     expr)
+            if torso_params is None:
+                args = (head_params, pose, bc)
+                kw = dict(aud=aud_arg, expr=expr_arg, latent=latent)
+            else:
+                args = (head_params, torso_params, pose, poses[0], bc)
+                kw = dict(aud=aud_arg,
+                          signal=torso_signal(aud, pose, cfg.dim_aud_body),
+                          expr=expr_arg, latent=latent)
+            if temporal is None:
+                frame = render(*args, **kw)
+            else:
+                # a keyframe every `temporal` frames; a rolling cache
+                # lives on
+                if i % temporal == 0 and not roll_k:
+                    cache = None
+                frame, cache = render(*args, **kw, cache=cache)
+            frame = frame.clamp(0.0, 1.0).cpu().numpy()
+            if frame_times is not None:
+                frame_times.append(time.perf_counter() - t0)
+            frames.append(frame)
+            if writer is not None:
+                writer.add(frame)
+            if i % 25 == 0:
+                logger.info("reenact frame %d/%d", i, n_frames)
     return np.stack(frames)

@@ -35,6 +35,7 @@ from idealnerf_tpu_torch.cli import eval_reenact, serve, train_torso
 from idealnerf_tpu_torch.config import ExperimentConfig
 from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
 from idealnerf_tpu_torch.eval import reenact as reenact_mod
+from idealnerf_tpu_torch.eval.video import read_avi_frames
 from idealnerf_tpu_torch.eval.renderer import make_composite_frame_renderer
 from idealnerf_tpu_torch.kernels import build as kbuild
 from idealnerf_tpu_torch.kernels import fused_render as fr
@@ -151,10 +152,9 @@ def test_train_torso_then_eval_reenact_on_cpu(tmp_path):
         res["ckpt_dir"], "--save_path", str(save)))
     assert out["frames"] == 2
     assert math.isfinite(out["psnr"]) and math.isfinite(out["frame_ms"])
-    assert sorted(os.listdir(save)) == ["exp_reenact_00000.png",
-                                        "exp_reenact_00001.png"]
-    with open(save / "exp_reenact_00000.png", "rb") as fh:
-        assert fh.read(8) == b"\x89PNG\r\n\x1a\n"
+    assert sorted(os.listdir(save)) == ["exp.avi", "exp_00000.jpg"]
+    video, fps = read_avi_frames(str(save / "exp.avi"))
+    assert fps == 25.0 and video.shape == (2, 12, 12, 3)
     head_only = eval_reenact.main(_cli_run(
         tmp_path, "--head_ckpt", str(tmp_path / "head"), "--max_frames", "1",
         "--save_path", str(tmp_path / "head_frames")))
@@ -343,7 +343,9 @@ def test_composite_serve_and_temporal_eval_reenact_on_cpu(tmp_path):
     assert stats["frames"] == 3 and stats["finite"] is True
     assert stats["keyframes"] == 2 and stats["delta_frames"] == 1
     assert sorted(os.listdir(tmp_path / "serve")) == [
-        f"exp_stream_{i:05d}.png" for i in range(3)]
+        "exp_stream.avi", "exp_stream_00000.jpg"]
+    assert read_avi_frames(str(tmp_path / "serve" / "exp_stream.avi"))[
+        0].shape == (3, 16, 16, 3)
     stats = serve.main([
         "--device", "cpu", "--synthetic", "3", "--synthetic_hw", "16",
         *CLI_SMALL, "--s_delta", "6", *ckpts, "--roll_k_torso", "2",
@@ -356,8 +358,9 @@ def test_composite_serve_and_temporal_eval_reenact_on_cpu(tmp_path):
                                      "--save_path", str(save)))
     assert out["frames"] == 2 and out["video"].shape == (2, 12, 12, 3)
     assert math.isfinite(out["psnr"]) and math.isfinite(out["frame_ms"])
-    assert sorted(os.listdir(save)) == ["exp_reenact_00000.png",
-                                        "exp_reenact_00001.png"]
+    assert sorted(os.listdir(save)) == ["exp.avi", "exp_00000.jpg"]
+    video, _ = read_avi_frames(str(save / "exp.avi"))
+    assert np.abs(video / 255.0 - out["video"]).mean() < 6 / 255
     per_frame = eval_reenact.main(_cli_run(tmp_path, *ckpts, "--temporal",
                                            "3", "--s_delta", "6", "--prior",
                                            "1", "--cycle", "0"))

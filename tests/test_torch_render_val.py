@@ -24,6 +24,7 @@ from idealnerf_tpu_torch.cli import render_val
 from idealnerf_tpu_torch.config import ExperimentConfig
 from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
 from idealnerf_tpu_torch.eval.renderer import make_frame_renderer
+from idealnerf_tpu_torch.eval.video import read_avi_frames
 
 SMALL = dict(dim_aud=16, dim_expr=8, dim_latent=4, netdepth=6, netwidth=64)
 CLI_SMALL = ["--dim_aud", "32", "--dim_expr", "8", "--dim_latent", "4",
@@ -69,10 +70,13 @@ def test_render_val_cli_on_cpu(tmp_path):
     assert frames.shape == (2, 16, 16, 3) and frames.dtype == np.float32
     assert np.isfinite(frames).all() and 0 <= frames.min() <= frames.max() <= 1
     assert -1.0 <= res["ssim"] <= 1.0
-    pngs = sorted(os.listdir(tmp_path))
-    assert pngs == ["exp_val_00000.png", "exp_val_00001.png"]
-    with open(tmp_path / pngs[0], "rb") as fh:
-        assert fh.read(8) == b"\x89PNG\r\n\x1a\n"
+    # the JAX CLI's 25 fps MJPG .avi, frame 0 also as a still
+    assert sorted(os.listdir(tmp_path)) == ["exp_val.avi",
+                                            "exp_val_00000.jpg"]
+    video, fps = read_avi_frames(str(tmp_path / "exp_val.avi"))
+    assert fps == 25.0 and video.shape == (2, 16, 16, 3)
+    err = np.abs(video / 255.0 - frames).mean()
+    assert err < 6 / 255, err
 
 
 @pytest.mark.parametrize("flags,item", [

@@ -34,6 +34,7 @@ from idealnerf_tpu_torch.config import ExperimentConfig
 from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
 from idealnerf_tpu_torch.eval.reenact import reenact
 from idealnerf_tpu_torch.eval.stream import TemporalStream
+from idealnerf_tpu_torch.eval.video import read_avi_frames
 from idealnerf_tpu_torch.kernels import build as kbuild
 from idealnerf_tpu_torch.kernels import fused_render as fr
 
@@ -284,7 +285,7 @@ def test_stream_operating_point_overrides_arguments(setup):
 
 def test_serve_cli_on_cpu(tmp_path):
     """cli.serve on the CPU: the JAX CLI's stats plus the split by frame
-    kind, PNG frames, and no kernel launched or built."""
+    kind, the .avi, and no kernel launched or built."""
     fr.reset_launch_counts()
     kbuild.load_library.cache_clear()
     stats = serve.main(["--device", "cpu", "--synthetic", "3",
@@ -300,8 +301,10 @@ def test_serve_cli_on_cpu(tmp_path):
     assert all(math.isfinite(stats[k]) for k in
                ("warmup_s", "p50_ms", "p99_ms", "steady_fps", "keyframe_ms"))
     assert 0.0 <= stats["deadline_40ms_hit_rate"] <= 1.0
-    assert sorted(os.listdir(tmp_path)) == [
-        f"exp_stream_{i:05d}.png" for i in range(3)]
+    assert sorted(os.listdir(tmp_path)) == ["exp_stream.avi",
+                                            "exp_stream_00000.jpg"]
+    assert read_avi_frames(str(tmp_path / "exp_stream.avi"))[0].shape == (
+        3, 16, 16, 3)
     assert all(v == 0 for v in fr.launch_counts.values())
     assert kbuild.load_library.cache_info().currsize == 0
 
@@ -344,11 +347,14 @@ def _imports(path):
 
 
 def test_port_never_imports_jax_or_the_jax_package():
+    """Nor imageio, cv2 or torchvision, which the card's machine lacks
+    (Pillow is the port's JPEG route and may be imported)."""
     files = sorted((ROOT / "idealnerf_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "idealnerf_tpu", "flax",
-                                  "optax", "orbax")]
+                                  "optax", "orbax", "imageio", "cv2",
+                                  "torchvision")]
     assert not bad, bad
