@@ -204,12 +204,43 @@ non-zero and no result line is printed):
    through K2 + K1 (one launch each) within 3e-2 and correlation > 0.999
    of the JAX package's plain XLA frame committed as
    ``tests/fixtures/jax_frame_450.png``.
+14. the per-frame fast modes and the depth-band probes at the paper
+   width, from phase 8's head and phase 12b's torso on their 450x450
+   subject (``_phase_fast``). 14c (run first: 14b takes its bands):
+   ``eval.renderer.subject_depth_range`` and ``torso_depth_range`` (the
+   plain f32 frame at 64+128) with their seconds, ``cached_depth_band``
+   and ``cached_occupancy_prior`` read back without a probe,
+   ``field_occupancy_prior`` over two probe frames, and K2 then K1 on a
+   ragged count of the occupancy prior's rays (a last ray group part
+   full in both) against their plain versions. 14a:
+   ``make_pruned_frame_renderer`` at keep 0.4 and 1.0, prior-masked, and
+   prior-masked with the occupancy cut: K1 twice a frame and K2 never;
+   each frame against the same path on the plain versions (the wrappers
+   eval/renderer.py imports swapped, ``_plain_kernels``; 3e-2, corr >
+   0.999), keep 1.0 also against the full-fidelity K2 + K1 frame (to
+   the same bar on all but the 4 rays JAX's budget rounding leaves
+   coarse at 450x450, 202,496 of 202,500), the others measured against
+   it (max abs error, PSNR); ms per frame by CUDA events beside the full
+   frame's; all on the checkpoint head and on a seeded one (phase 4's
+   seed: mass on every ray, where 20 training steps may have emptied
+   the checkpoint's coarse net). 14b:
+   ``make_composite_fast_renderer`` with per-field priors and the 14c
+   bounds, and at keep 1.0 against ``make_composite_frame_renderer`` (all
+   but 4 coarse-only rays a field): K2 and K1 twice a frame, on both
+   pairs. 14d: on phase 13's subject directory,
+   ``render_val --pruned 40 --prior_masked 1 --occ_prior 1
+   --tighten_bounds 1`` (K1 2 a frame), ``eval_reenact --fast 40 --prior
+   1`` head-only (K1 2) and with ``--torso_ckpt`` (K2 2, K1 2), and
+   ``eval_reenact --tighten_bounds 1`` (K2 1, K1 1; its band read from
+   the depth_bands.json render_val wrote): each .avi holds the frames
+   returned, each run prints its ``frame_ms``.
 
 Then the kernel summary as one JSON line (each kernel's launches on its
-paths, K1/K2 over render_val and the composite reenact, K4/K6 over
-train_head and train_torso, K3 over the head-only and the composite
-serve, each also on the subject directory of phase 13; its max error, its time and its plain version's, and its bound:
-the
+paths, K1/K2 over render_val, the composite reenact and phase 14's fast
+frames and CLIs, K4/K6 over train_head and train_torso, K3 over the
+head-only and the composite serve, each also on the subject directory of
+phase 13; its max error, its time and its plain version's, and its
+bound: the
 larger of the bytes it must move over 3.35 TB/s and its operations at the
 H100 SXM data sheet's dense rate for their type, 989 TFLOP/s bf16, 1,979
 TOP/s int8, 67 TFLOP/s f32: ``idealnerf_tpu_torch.scripts.PEAK``), the
@@ -220,6 +251,7 @@ CUDA device it exits 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -2435,7 +2467,8 @@ def _phase_subject(args, fm, fmg, fr, dev: str = "cuda", hw: int = 450,
         raise AssertionError(f"train_head on the subject: launches {counts} "
                              f"for {steps} steps, records ok {good}")
     res["train_head"] = {"steps": steps, "launches": counts,
-                         "records": len(recs), "last": recs[-1]}
+                         "records": len(recs), "last": recs[-1],
+                         "ckpt_dir": th["ckpt_dir"]}
 
     # 13c: the torso on the subject's com_imgs
     fm.reset_launch_counts()
@@ -2457,7 +2490,7 @@ def _phase_subject(args, fm, fmg, fr, dev: str = "cuda", hw: int = 450,
         raise AssertionError(f"train_torso on the subject: launches "
                              f"{tcounts}, want {want}; records ok {good}")
     res["train_torso"] = {"steps": tt["step"], "launches": tcounts,
-                          "records": len(trecs)}
+                          "records": len(trecs), "ckpt_dir": tt["ckpt_dir"]}
 
     # 13d: the val split to <expname>_val.avi
     fr.reset_launch_counts()
@@ -2557,6 +2590,440 @@ def _phase_fixture(fr, dev: str = "cuda",
     if counts != dict.fromkeys(counts, 1):
         raise AssertionError(f"the fixture frame launched {counts}")
     return {"max_abs_err": err, "launches": counts}
+
+
+K1, K2 = "fused_render_rays", "fused_render_coarse_hier"
+FAST_KEEP = 0.4   # the fine share of the fast modes (--pruned 40, --fast 40)
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """The K1/K2 wrappers that eval/renderer.py imports by name replaced by
+    their plain versions: a fast renderer's plain run on the card, which
+    counts no launch."""
+    from idealnerf_tpu_torch.eval import renderer
+    from idealnerf_tpu_torch.kernels import fused_render as fr
+
+    plain = {K1: fr.fused_render_rays_reference,
+             K2: fr.fused_render_coarse_hier_reference}
+    saved = {k: getattr(renderer, k) for k in plain}
+    try:
+        for k, fn in plain.items():
+            setattr(renderer, k, fn)
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(renderer, k, fn)
+
+
+def _frame_launches(fr) -> dict:
+    return {k: fr.launch_counts[k] for k in (K2, K1)}
+
+
+def _psnr(a, b) -> float:
+    mse = float(((a.float() - b.float()) ** 2).mean())
+    return -10.0 * math.log10(max(mse, 1e-20))
+
+
+def _hold_keep_all(tag: str, got, full, coarse_only: int) -> dict:
+    """A keep-1.0 frame against the full-fidelity frame: 3e-2 and corr >
+    0.999 on every pixel but the ``coarse_only`` rays the fine budget's
+    rounding leaves coarse (the JAX package's k = max(k - k % 256, 256):
+    202,496 of 450x450's 202,500 rays), which show the coarse composite
+    and may sit farther off; they are counted and their error shown."""
+    import torch
+
+    err = (got.float() - full.float()).abs().reshape(-1, 3).amax(-1)
+    off = int((err > ATOL).sum())
+    rest = float(torch.sort(err).values[:err.numel() - coarse_only].max())
+    c = float(torch.corrcoef(torch.stack([got.reshape(-1).float(),
+                                          full.reshape(-1).float()]))[0, 1])
+    print(f"  {tag} vs the full-fidelity frame: max abs {rest:.3e} over all "
+          f"but the {coarse_only} coarse-only rays (tol {ATOL:g}); {off} "
+          f"pixels over it, max {float(err.max()):.3e}; corr {c:.6f} (> "
+          f"{MIN_CORR})")
+    if off > coarse_only or rest > ATOL or not c > MIN_CORR:
+        raise AssertionError(f"{tag} disagrees with the full-fidelity frame")
+    return {"full_err": rest, "pixels_off": off, "corr": c}
+
+
+def _fast_frame(fr, tag: str, render, call, want: dict, full,
+                coarse_only) -> dict:
+    """One fast renderer's frame: its launches (``want`` a frame), the same
+    path on the plain versions held to 3e-2 with corr > 0.999, the
+    full-fidelity frame ``full`` held to the same bar but on
+    ``coarse_only`` rays (keep 1.0, ``_hold_keep_all``; None: measured
+    against it, max abs error and PSNR), and its ms per frame by CUDA
+    events over 3 calls after one."""
+    import torch
+
+    args, kw = call
+    fr.reset_launch_counts()
+    got = render(*args, **kw)
+    launches = _frame_launches(fr)
+    if launches != want:
+        raise AssertionError(f"{tag}: launched {launches} for one frame, "
+                             f"want {want}")
+    with _plain_kernels():
+        plain = render(*args, **kw)
+    res = {"launches": launches,
+           "plain_err": _agree(f"{tag} vs its plain version", got, plain,
+                               corr=True)}
+    if coarse_only is not None:
+        res.update(_hold_keep_all(tag, got, full, coarse_only))
+    else:
+        res.update(full_max_abs=float((got - full).abs().max()),
+                   psnr_vs_full=_psnr(got, full))
+    res["ms"] = _time_ms(lambda: render(*args, **kw), 3)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{tag}: non-finite frame")
+    print(f"  {tag}: {res['ms']:.2f} ms/frame, launches a frame {launches}"
+          + ("" if coarse_only is not None else
+             f"; against the full frame max abs {res['full_max_abs']:.4f}, "
+             f"PSNR {res['psnr_vs_full']:.2f} dB"))
+    return res
+
+
+def _no_probe():
+    raise AssertionError("the cache ran its probe although it holds the "
+                         "answer")
+
+
+def _ragged_rays(fr, n: int) -> int:
+    """The most rays up to ``n`` that fill neither K1's (192 depths) nor
+    K2's (64 + 128) ray groups exactly: a ragged last group in both."""
+    groups = (fr.render_launch_config(192)["rays_per_group"],
+              fr.render_launch_config(64, 128)["rays_per_group"])
+    while any(n % g == 0 for g in groups):
+        n -= 1
+    return n
+
+
+def _phase_ragged(fr, params, ncfg, cond, sds, pose, mask, near, far,
+                  dev: str) -> dict:
+    """Phase 14c: K2 then K1 on a ragged count of the prior's rays (no
+    padding to 256) against their plain versions."""
+    import numpy as np
+    import torch
+
+    from idealnerf_tpu_torch.core.rays import get_rays
+    from idealnerf_tpu_torch.core.sampling import stratified_sample
+    from idealnerf_tpu_torch.models.face_nerf import fold_conditioning
+
+    hw = mask.shape[0]
+    sel = np.nonzero(mask.reshape(-1))[0]
+    sel = torch.from_numpy(sel[:_ragged_rays(fr, len(sel))]).to(dev)
+    o, d = get_rays(hw, hw, sds.focal, pose, sds.cx, sds.cy)
+    bc = (torch.from_numpy(sds.bc_img).to(dev).float() / 255.0)
+    o, d, b = (x.reshape(-1, 3)[sel].contiguous() for x in (o, d, bc))
+    fc, ff = (fold_conditioning(params[k], ncfg, *cond)
+              for k in ("coarse", "fine"))
+    r = len(sel)
+    print(f"  ragged: K2 then K1 on {r} of the prior's rays (seeded head)")
+    ck, zk = fr.fused_render_coarse_hier(params["coarse"], fc, ncfg, o, d, b,
+                                         near, far, 64, 128)
+    cp, _ = fr.fused_render_coarse_hier_reference(params["coarse"], fc, ncfg,
+                                                  o, d, b, near, far, 64, 128)
+    e2 = [_agree(f"K2 {k}, R={r}", ck[k], cp[k], corr=k == "rgb_map")
+          for k in ("rgb_map", "acc_map", "weights", "last_weight")]
+    zc = stratified_sample(near, far, 64, r, device=o.device)
+    e2.append(_agree(f"K2 z_all, R={r}", zk, fr.importance_depths(
+        zc, ck["weights"], 128), atol=Z_ATOL))
+    fk = fr.fused_render_rays(params["fine"], ff, ncfg, o, d, zk, b)
+    fp = fr.fused_render_rays_reference(params["fine"], ff, ncfg, o, d, zk, b)
+    e1 = [_agree(f"K1 {k}, R={r}", fk[k], fp[k], corr=k == "rgb_map")
+          for k in ("rgb_map", "acc_map", "weights", "last_weight")]
+    return {"rays": r, "errs": {K2: max(e2), K1: max(e1)}}
+
+
+def _foreground_share(frame_outputs) -> float:
+    """The share of a frame's rays with foreground mass above 0.5."""
+    fg = frame_outputs["acc_map"] - frame_outputs["last_weight"]
+    return float((fg > 0.5).float().mean())
+
+
+def _phase_fast(args, fr, head_ckpt: str, torso_ckpt: str, subject: dict,
+                dev: str = "cuda", hw: int = 450) -> dict:
+    """Phase 14: the per-frame fast modes and the depth-band probes at the
+    paper width, on phase 8's head and phase 12b's torso (the checkpoint
+    pair) and on seeded random nets (a field with mass on every ray, where
+    a short training run may have emptied the checkpoint's), on the
+    synthetic subject, then the CLIs on phase 13's subject directory. 14c
+    (run first: 14b takes its bands), on the checkpoint pair:
+    subject_depth_range and torso_depth_range with their seconds,
+    cached_depth_band and cached_occupancy_prior read back without a
+    probe, field_occupancy_prior, and a ragged ray count through K2 and K1
+    (seeded head). 14a: make_pruned_frame_renderer at keep 0.4 and 1.0,
+    prior-masked, and prior-masked with the occupancy cut (K1 2 a frame,
+    K2 0; an empty cut is the plate, no launch). 14b:
+    make_composite_fast_renderer with per-field priors and bounds and at
+    keep 1.0 (K2 2, K1 2 a frame). Each frame against the same path on the
+    plain versions (3e-2, corr > 0.999), keep 1.0 also against the
+    full-fidelity frame. 14d: ``_phase_fast_clis``."""
+    import numpy as np
+    import torch
+
+    from idealnerf_tpu_torch.cli.common import load_head, load_torso
+    from idealnerf_tpu_torch.config import ExperimentConfig
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.eval import renderer as er
+    from idealnerf_tpu_torch.train.head import compute_aud_feature
+    from idealnerf_tpu_torch.train.state import init_params
+    from idealnerf_tpu_torch.train.torso import (
+        torso_nerf_config, torso_signal,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32)
+    ncfg, tcfg, rcfg = (cfg.face_nerf_config(), torso_nerf_config(cfg),
+                        cfg.render_config())
+    sds = make_synthetic_dataset(n_frames=args.train_frames, H=hw, W=hw,
+                                 dim_expr=76, with_torso=True)
+    near, far = sds.near, sds.far
+    state = load_head(argparse.Namespace(head_ckpt=head_ckpt, seed=0), cfg,
+                      sds.size)
+    seeded = init_params(cfg, sds.size, torch.Generator().manual_seed(1))
+    pairs = {
+        "checkpoint": (state.params.to(dev),
+                       state.latent_codes.detach().to(dev),
+                       load_torso(torso_ckpt, cfg, dev)),
+        "seeded": (seeded.params.to(dev), seeded.latent_codes.detach().to(
+            dev), _torso_setup(cfg, dev)[0])}
+    data = {k: torch.from_numpy(np.asarray(getattr(sds, k))).to(dev)
+            for k in ("auds", "aud_ids", "exprs", "poses", "bc_img")}
+    bc = data["bc_img"].float() / 255.0
+    pose, pose0 = data["poses"][1], data["poses"][0]
+    view = (hw, hw, sds.focal, near, far, rcfg)
+    where = dict(cx=sds.cx, cy=sds.cy)
+
+    def cond(params, i):
+        aud = compute_aud_feature(params, data["auds"],
+                                  data["aud_ids"].long(), i, cfg, False)
+        return aud, data["exprs"][i]
+
+    def calls(name):
+        params, latents, torso = pairs[name]
+        aud, expr = cond(params, 1)
+        head = ((params, pose, bc), dict(aud=aud, expr=expr,
+                                         latent=latents[0]))
+        comp = ((params, torso, pose, pose0, bc), dict(
+            aud=aud, signal=torso_signal(aud, pose, cfg.dim_aud_body),
+            expr=expr, latent=latents[0]))
+        return head, comp
+
+    res = {"head": {}, "composite": {}}
+    torch.set_grad_enabled(False)
+    try:
+        # 14c: the probes, the caches, the occupancy cut, ragged rays
+        params, latents, torso = pairs["checkpoint"]
+        print(f"phase 14c depth-band probes of the checkpoint pair at "
+              f"{hw}x{hw} (the plain frame, f32, 64+128, {sds.size} frames)")
+        t0 = time.perf_counter()
+        band_h = er.subject_depth_range(cfg, params, latents, sds)
+        head_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        band_t = er.torso_depth_range(cfg, torso, params, sds)
+        torso_s = time.perf_counter() - t0
+        print(f"  subject_depth_range {band_h[0]:.4f}-{band_h[1]:.4f} in "
+              f"{head_s:.2f} s; torso_depth_range {band_t[0]:.4f}-"
+              f"{band_t[1]:.4f} in {torso_s:.2f} s (config {near}-{far}; "
+              "the config's own when no ray holds foreground)")
+        for lo, hi in (band_h, band_t):
+            if not near <= lo < hi <= far:
+                raise AssertionError(f"band {lo}-{hi} outside [{near}, {far}]")
+        cache = "output/chip_smoke_fast"
+        shutil.rmtree(cache, ignore_errors=True)
+        os.makedirs(cache)
+        er.cached_depth_band(cache, "head", state.step, lambda: band_h)
+        er.cached_depth_band(cache, "torso", state.step, lambda: band_t)
+        back = (er.cached_depth_band(cache, "head", state.step, _no_probe),
+                er.cached_depth_band(cache, "torso", state.step, _no_probe))
+        if back != (band_h, band_t):
+            raise AssertionError(f"depth_bands.json read back {back}")
+        mask, kc = er.foreground_prior(sds)
+        probes = [0, sds.size - 1]
+        poses = [sds.poses[i] for i in probes]
+        conds = [cond(params, i) for i in probes]
+        key = dict(base_mask=mask, poses=poses, conds=conds, near=near,
+                   far=far, latent=latents[0])
+        t0 = time.perf_counter()
+        occ, k_occ = er.cached_occupancy_prior(
+            cache, state.step, lambda: er.field_occupancy_prior(
+                ncfg, params, hw, hw, sds.focal, poses, conds, near, far,
+                rcfg, mask, latent=latents[0], **where), **key)
+        occ_s = time.perf_counter() - t0
+        occ_back, k_back = er.cached_occupancy_prior(cache, state.step,
+                                                     _no_probe, **key)
+        if not (np.array_equal(occ_back, occ) and k_back == k_occ):
+            raise AssertionError("the occupancy prior did not read back")
+        print(f"  field_occupancy_prior over {len(probes)} probe frames in "
+              f"{occ_s:.2f} s: prior {int(mask.sum())} px (k_coarse {kc}) "
+              f"-> {int(occ.sum())} px (k_coarse {k_occ}); depth_bands.json "
+              "and the occupancy prior read back without a probe")
+        sp, sl, _ = pairs["seeded"]
+        ragged = _phase_ragged(fr, sp, ncfg, (*cond(sp, 1), sl[0]), sds,
+                               pose, mask, near, far, dev)
+        res["probes"] = {"band_head": band_h, "band_torso": band_t,
+                         "head_s": head_s, "torso_s": torso_s,
+                         "occ_s": occ_s, "prior_px": int(mask.sum()),
+                         "occ_px": int(occ.sum()), "ragged": ragged}
+
+        # 14a: the head-only fast renderers
+        one = {K2: 0, K1: 2}
+        modes = {
+            f"pruned keep {FAST_KEEP}": dict(keep_fraction=FAST_KEEP),
+            "pruned keep 1.0": dict(keep_fraction=1.0),
+            f"prior-masked keep {FAST_KEEP}": dict(
+                keep_fraction=FAST_KEEP, prior_mask=mask, k_coarse=kc),
+            f"prior-masked + occupancy cut keep {FAST_KEEP}": dict(
+                keep_fraction=FAST_KEEP, prior_mask=occ, k_coarse=k_occ)}
+        for name in pairs:
+            head_call, _ = calls(name)
+            full = er.make_frame_renderer(ncfg, *view, **where)
+            want = full(*head_call[0], **head_call[1])
+            fg = _foreground_share(er._render_field(
+                head_call[0][0], ncfg, hw, hw, sds.focal, pose,
+                bc.reshape(-1, 3), near, far, rcfg, sds.cx, sds.cy,
+                **head_call[1]))
+            full_ms = _time_ms(lambda: full(*head_call[0], **head_call[1]),
+                               3)
+            print(f"phase 14a head-only fast modes, {name} head, {hw}x{hw} "
+                  f"D=8 W=256 64+128 (full-fidelity frame {full_ms:.2f} ms; "
+                  f"rays with foreground mass > 0.5: {fg:.4f})")
+            head = {"full_ms": full_ms, "foreground_share": fg}
+            for tag, kw in modes.items():
+                if name == "seeded" and "occupancy" in tag:
+                    continue      # the cut is the checkpoint head's
+                render = er.make_pruned_frame_renderer(ncfg, *view, **where,
+                                                       **kw)
+                if kw.get("k_coarse", 1) == 0:
+                    got = render(*head_call[0], **head_call[1])
+                    if not torch.equal(got.reshape(-1, 3), bc.reshape(-1, 3)):
+                        raise AssertionError(f"{tag}: an empty cut must "
+                                             "leave the plate")
+                    print(f"  {tag}: the cut is empty (no ray holds "
+                          "foreground mass): the plate, no launch")
+                    head[tag] = {"launches": {K2: 0, K1: 0}, "empty": True}
+                    continue
+                head[tag] = _fast_frame(
+                    fr, tag, render, head_call, one, want,
+                    hw * hw % 256 if tag == "pruned keep 1.0" else None)
+            res["head"][name] = head
+
+        # 14b: the composite fast renderer
+        mh, mt = er.foreground_prior_fields(sds)
+        two = {K2: 2, K1: 2}
+        for name in pairs:
+            _, comp_call = calls(name)
+            full = er.make_composite_frame_renderer(ncfg, tcfg, *view,
+                                                    **where)
+            want = full(*comp_call[0], **comp_call[1])
+            full_ms = _time_ms(lambda: full(*comp_call[0], **comp_call[1]),
+                               3)
+            print(f"phase 14b composite fast renderer, {name} pair (full "
+                  f"composite frame {full_ms:.2f} ms); per-field priors head "
+                  f"{int(mh.sum())} px, torso {int(mt.sum())} px; bounds "
+                  f"head {band_h[0]:.4f}-{band_h[1]:.4f}, torso "
+                  f"{band_t[0]:.4f}-{band_t[1]:.4f}")
+            comp = {"full_ms": full_ms}
+            tag = f"composite keep {FAST_KEEP}, per-field priors + bounds"
+            comp[tag] = _fast_frame(fr, tag, er.make_composite_fast_renderer(
+                ncfg, tcfg, *view, **where, keep_head=FAST_KEEP,
+                keep_torso=FAST_KEEP, prior_mask_head=mh,
+                prior_mask_torso=mt, bounds_head=band_h,
+                bounds_torso=band_t), comp_call, two, want, None)
+            # each field leaves its budget's remainder coarse
+            comp["composite keep 1.0"] = _fast_frame(
+                fr, "composite keep 1.0", er.make_composite_fast_renderer(
+                    ncfg, tcfg, *view, **where, keep_head=1.0,
+                    keep_torso=1.0), comp_call, two, want,
+                2 * (hw * hw % 256))
+            res["composite"][name] = comp
+    finally:
+        torch.set_grad_enabled(True)
+
+    # 14d: the CLIs on phase 13's subject directory
+    res["clis"] = _phase_fast_clis(fr, subject, dev)
+    launches = {K2: 0, K1: 0}
+    for part in (*res["head"].values(), *res["composite"].values(),
+                 res["clis"]):
+        for r in part.values():
+            if isinstance(r, dict) and "launches" in r:
+                for k in launches:
+                    launches[k] += r["launches"][k]
+    res.update(launches=launches, errs=ragged["errs"],
+               seconds=time.perf_counter() - t_phase)
+    print(f"  phase 14 took {res['seconds']:.1f} s; launches {launches}")
+    return res
+
+
+def _occupancy_cached(ckpt_dir: str):
+    """The occupancy prior render_val --occ_prior cached beside the
+    checkpoint (the newest file)."""
+    import glob
+
+    import numpy as np
+
+    paths = glob.glob(os.path.join(ckpt_dir, "occ_prior_*.npy"))
+    return np.load(max(paths, key=os.path.getmtime))
+
+
+def _phase_fast_clis(fr, subject: dict, dev: str) -> dict:
+    """Phase 14d: the fast flags of render_val and eval_reenact on phase
+    13's subject directory, each .avi held against the frames returned,
+    with the launches per frame."""
+    from idealnerf_tpu_torch.cli import eval_reenact, render_val
+
+    head = subject["train_head"]["ckpt_dir"]
+    torso = subject["train_torso"]["ckpt_dir"]
+    root = "output/chip_smoke_fast/video"
+    base = ["--config", subject["io"]["config"], *PAPER_FLAGS, "--device",
+            dev, "--basedir", "output/chip_smoke_fast/logs", "--head_ckpt",
+            head]
+    runs = {
+        "render_val --pruned 40 --prior_masked 1 --occ_prior 1 "
+        "--tighten_bounds 1": (render_val.main, [
+            "--pruned", "40", "--prior_masked", "1", "--occ_prior", "1",
+            "--tighten_bounds", "1"], "subject_head_val.avi", {K2: 0, K1: 2}),
+        "eval_reenact --fast 40 --prior 1": (eval_reenact.main, [
+            "--fast", "40", "--prior", "1", "--max_frames", "3"],
+            "subject_head.avi", {K2: 0, K1: 2}),
+        "eval_reenact --fast 40 --prior 1 --torso_ckpt": (eval_reenact.main, [
+            "--fast", "40", "--prior", "1", "--max_frames", "3",
+            "--torso_ckpt", torso], "subject_head.avi", {K2: 2, K1: 2}),
+        "eval_reenact --tighten_bounds 1": (eval_reenact.main, [
+            "--tighten_bounds", "1", "--max_frames", "3"],
+            "subject_head.avi", {K2: 1, K1: 1}),
+    }
+    print("phase 14d the fast CLIs on the subject directory")
+    out = {}
+    for n_run, (tag, (main_fn, flags, avi, per_frame)) in enumerate(
+            runs.items()):
+        save = os.path.join(root, str(n_run))
+        banded = os.path.exists(os.path.join(head, "depth_bands.json"))
+        fr.reset_launch_counts()
+        r = main_fn([*base, *flags, "--save_path", save])
+        video = r["frames"] if "video" not in r else r["video"]
+        n = len(video)
+        launches = _frame_launches(fr)
+        if "--occ_prior" in flags and not _occupancy_cached(head).any():
+            # a field with no foreground mass: every ray composites the
+            # plate, and the renderer launches nothing
+            per_frame = {K2: 0, K1: 0}
+            print("  (the head's occupancy cut is empty: plate frames)")
+        want = {k: v * n for k, v in per_frame.items()}
+        print(f"  {tag}: {n} frames, {r['frame_ms']:.1f} ms/frame; launches "
+              f"{launches} (want {want})"
+              + (f"; band {r['tightened_bounds']}" if "tightened_bounds" in r
+                 else "")
+              + ("; band read from depth_bands.json" if "--tighten_bounds"
+                 in flags and banded else ""))
+        if launches != want:
+            raise AssertionError(f"{tag}: launched {launches}, want {want}")
+        out[tag] = {"frames": n, "frame_ms": r["frame_ms"],
+                    "launches": launches,
+                    "avi": _avi_check(os.path.join(save, avi), video, tag)}
+    return out
 
 
 def main(argv=None) -> int:
@@ -2809,6 +3276,10 @@ def main(argv=None) -> int:
     res13f = _phase_fixture(fr)
     report.update(subject=res13, fixture=res13f)
 
+    # ---- phase 14: the per-frame fast modes and the depth-band probes
+    res14 = _phase_fast(args, fr, res8["ckpt_dir"], res12b["ckpt_dir"], res13)
+    report["fast"] = res14
+
     # launches on the main paths: render_val and the composite reenact
     # (K1, K2), train_head and train_torso (K4, K6), serve head-only and
     # composite (K3)
@@ -2828,6 +3299,9 @@ def main(argv=None) -> int:
     for part in ("train_head", "train_torso"):
         for k in ("fused_point_mlp", "fused_point_mlp_grad"):
             counts[k] += res13[part]["launches"][k]
+    # and the fast modes' frames and CLIs (K1, K2)
+    for k, n in res14["launches"].items():
+        counts[k] += n
     for k, e in res12a["errs"].items():
         errs[k] = max(errs[k], e)
     errs.update(fused_point_mlp=res6["max_abs_err"],
@@ -2836,6 +3310,8 @@ def main(argv=None) -> int:
                                        res12e["errs"]["fused_render_delta"]))
     errs["fused_render_rays"] = max(errs["fused_render_rays"],
                                     res12e["errs"]["fused_render_rays"])
+    for k, e in res14["errs"].items():
+        errs[k] = max(errs[k], e)
     # the frame's kernels at their path's launch shape, a whole frame
     frame_res = res2["450x450 frame"]
     times = {k: (r["ms"], r["plain_ms"]) for k, r in frame_res.items()}

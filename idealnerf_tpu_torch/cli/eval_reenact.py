@@ -1,14 +1,18 @@
 """Cross-subject reenactment (counterpart of
-idealnerf_tpu/cli/eval_reenact.py), full fidelity one frame at a time or,
-with ``--temporal R``, through the temporal depth-cache renderers (a
-keyframe every R frames); with ``--torso_ckpt`` each frame is the head +
-torso composite.
+idealnerf_tpu/cli/eval_reenact.py): full fidelity one frame at a time,
+the per-frame fast mode with ``--fast K`` (the fine pass on K % of the
+rays by coarse opacity; ``--prior 1`` restricts it to the identity's
+foreground prior), or with ``--temporal R`` the temporal depth-cache
+renderers (a keyframe every R frames); with ``--torso_ckpt`` each frame
+is the head + torso composite. ``--tighten_bounds 1`` (head-only) samples
+within the trained head's own depth band (subject_depth_range, cached in
+the checkpoint's depth_bands.json).
 
     python -m idealnerf_tpu_torch.cli.eval_reenact --synthetic 3 \\
         --synthetic_hw 450 --dim_aud 64 --dim_expr 76 --dim_latent 32 \\
         --head_ckpt logs/exp/ckpt --torso_ckpt logs/exp_torso/ckpt \\
-        [--temporal 25 --prior 1 [--cycle 0] [--freeze_z_torso 1] \\
-         [--roll_k_torso 4]]
+        [--fast 40 --prior 1 | --temporal 25 --prior 1 [--cycle 0] \\
+         [--freeze_z_torso 1] [--roll_k_torso 4]]
 
 The identity (poses, plate, latent) comes from the dataset, the driving
 expressions from ``--evalExpr_path`` (another subject's transforms json;
@@ -26,8 +30,8 @@ it, but changes nothing here: the JAX package scans a cycle's delta frames
 in one dispatch, and on the card every frame runs through the per-frame
 loop, which gives the same frames.
 
-Not ported yet: ``--auto_temporal``, ``--fast``, ``--tighten_bounds``
-(ROADMAP.md A9) and ``--ray_devices``, ``--data_devices`` (A13).
+Not ported yet: ``--auto_temporal`` (ROADMAP.md A9b) and
+``--ray_devices``, ``--data_devices`` (A13).
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ from idealnerf_tpu_torch.cli.common import (
     build_parser, load_head, load_torso, resolve_config, resolve_dataset,
 )
 from idealnerf_tpu_torch.eval.metrics import psnr
+from idealnerf_tpu_torch.eval.renderer import (
+    cached_depth_band, subject_depth_range,
+)
 from idealnerf_tpu_torch.eval.reenact import load_driving_exprs, reenact
 from idealnerf_tpu_torch.eval.temporal import check_roll_k
 
@@ -49,9 +56,7 @@ logger = logging.getLogger("idealnerf.cli")
 
 # modes of the JAX CLI that the port does not have yet
 _NOT_PORTED = {
-    "auto_temporal": "A9 (eval/operating_points.gated_video_config)",
-    "fast": "A9 (per-frame fast modes)",
-    "tighten_bounds": "A9 (per-frame fast modes)",
+    "auto_temporal": "A9b (eval/operating_points.gated_video_config)",
     "ray_devices": "A13 (multi-device)",
     "data_devices": "A13 (multi-device)",
 }
@@ -67,15 +72,22 @@ def main(argv=None):
     parser.add_argument("--max_frames", type=int, default=None)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to render on")
-    for flag in ("fast", "tighten_bounds", "ray_devices", "data_devices"):
+    parser.add_argument("--fast", type=int, default=0,
+                        help="pruned fast eval: keep percentage for the "
+                             "fine pass (e.g. 40); 0 = full fidelity")
+    parser.add_argument("--tighten_bounds", type=int, default=0,
+                        help="tighten [near,far] to the trained head's "
+                             "own depth band (subject_depth_range); "
+                             "head-only renders")
+    for flag in ("ray_devices", "data_devices"):
         parser.add_argument(f"--{flag}", type=int, default=0,
                             help="not ported")
     parser.add_argument("--auto_temporal", type=str, default=None,
                         metavar="EVIDENCE_DIR", help="not ported")
     parser.add_argument("--prior", type=int, default=0,
-                        help="with --temporal: restrict network work to the "
-                             "identity's foreground prior (per field with "
-                             "--torso_ckpt)")
+                        help="with --fast or --temporal: restrict network "
+                             "work to the identity's foreground prior (per "
+                             "field with --torso_ckpt)")
     parser.add_argument("--temporal", type=int, default=0,
                         help="temporal depth-cache video: keyframe interval "
                              "in frames; the frames in between resample "
@@ -120,6 +132,11 @@ def main(argv=None):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP.md {item})")
     check_roll_k("--roll_k_torso", args.roll_k_torso)
+    if args.tighten_bounds and args.torso_ckpt:
+        parser.error("--tighten_bounds is head-only from the CLI; "
+                     "composite tightening runs through "
+                     "scripts/composite_delta.py --tighten "
+                     "(per-field bands)")
     cfg = resolve_config(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -139,15 +156,26 @@ def main(argv=None):
         auds = np.load(os.path.join(cfg.datadir, cfg.aud_file)).astype(
             np.float32)
 
+    params = state.params.to(device)
+    bounds = None
+    if args.tighten_bounds:
+        bounds = cached_depth_band(
+            args.head_ckpt, "head", state.step,
+            lambda: subject_depth_range(
+                cfg, params, state.latent_codes.to(device),
+                resolve_dataset(args, cfg, mode="train")))
+        logger.info("tightened bounds: [%.4f, %.4f]", *bounds)
+
     save_path = cfg.save_path or "output/render"
     times = []
     frames = reenact(
-        cfg, state.params.to(device), identity, driving_auds=auds,
+        cfg, params, identity, driving_auds=auds,
         driving_exprs=exprs, latent_codes=state.latent_codes,
         torso_params=torso,
         out_path=os.path.join(save_path, f"{cfg.expname}.avi"),
         max_frames=args.max_frames,
         smooth_audio=cfg.nosmo_iters <= state.step, frame_times=times,
+        fast_keep=args.fast / 100.0 if args.fast else None, bounds=bounds,
         use_prior=bool(args.prior), temporal=args.temporal or None,
         s_delta=args.s_delta, s_delta_torso=args.s_delta_torso,
         delta_keep=args.delta_keep, delta_keep_torso=args.delta_keep_torso,

@@ -20,7 +20,7 @@ pixels reach the host, which waits for the device.
 
 ``--roll_k_torso K`` gives the torso a refresh-only roll. The JAX CLI has
 no such flag and reads it from the operating point that
-``--auto_temporal`` picks; until that is ported (ROADMAP.md A9,
+``--auto_temporal`` picks; until that is ported (ROADMAP.md A9b,
 eval/operating_points.gated_video_config), the flag stands in for it.
 """
 
@@ -44,7 +44,7 @@ from idealnerf_tpu_torch.eval.video import VideoWriter
 logger = logging.getLogger("idealnerf.cli")
 
 _NOT_PORTED = {
-    "auto_temporal": "A9 (eval/operating_points.gated_video_config)",
+    "auto_temporal": "A9b (eval/operating_points.gated_video_config)",
 }
 
 

@@ -7,12 +7,13 @@ driving audio from a window track; audio features for the whole track are
 computed in one batched pass. Each frame is the head field alone or the
 head + torso composite, written to an MJPG .avi by eval/video.py: one
 full-fidelity frame at a time (``make_frame_renderer``,
-``make_composite_frame_renderer``), or with ``temporal = R`` the
-temporal depth-cache renderers (a keyframe every R frames, delta frames
-in between).
+``make_composite_frame_renderer``), the per-frame fast modes with
+``fast_keep`` (``make_pruned_frame_renderer``,
+``make_composite_fast_renderer``), or with ``temporal = R`` the temporal
+depth-cache renderers (a keyframe every R frames, delta frames in
+between); ``bounds`` tightens the sampling interval.
 
-Not ported yet: the fast modes (``fast_keep``, ``bounds``, ROADMAP.md A9)
-and multi-device rendering (``mesh``, A13).
+Not ported yet: multi-device rendering (``mesh``, ROADMAP.md A13).
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ import numpy as np
 import torch
 
 from idealnerf_tpu_torch.eval.renderer import (
-    foreground_prior, foreground_prior_fields, make_composite_frame_renderer,
-    make_frame_renderer,
+    foreground_prior, foreground_prior_fields, make_composite_fast_renderer,
+    make_composite_frame_renderer, make_frame_renderer,
+    make_pruned_frame_renderer,
 )
 from idealnerf_tpu_torch.eval.temporal import (
     check_roll_k, make_temporal_composite_renderer,
@@ -41,14 +43,6 @@ from idealnerf_tpu_torch.models.variants import (
 from idealnerf_tpu_torch.train.torso import torso_nerf_config, torso_signal
 
 logger = logging.getLogger("idealnerf.eval")
-
-# modes of the JAX reenact that the port does not have yet
-_NOT_PORTED = {
-    "fast_keep": "A9 (per-frame fast modes)",
-    "bounds": "A9 (per-frame fast modes)",
-    "mesh": "A13 (multi-device)",
-}
-
 
 def load_driving_exprs(transforms_json_path: str) -> np.ndarray:
     """(N, dim_expr) expressions of another subject's transforms json."""
@@ -93,24 +87,33 @@ def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
     frames (N, H, W, 3) in [0, 1]; with ``out_path`` also the .avi there
     (every 10th frame also as ``<stem>_<i:05d>.jpg``). Identity poses
     cycle through subject A's frames; the expression index follows the
-    driving sequence, clamped at its end. With ``torso_params`` each frame is the composite, the torso
-    rays cast from the identity's first pose.
+    driving sequence, clamped at its end. With ``torso_params`` each frame
+    is the composite, the torso rays cast from the identity's first pose.
+
+    ``fast_keep``: the pruned fast renderers (the fine pass on that
+    fraction of rays by coarse foreground opacity; the composite also
+    skips head work the torso hides). ``use_prior`` restricts the fast
+    and temporal renderers to the identity's foreground prior (per field
+    for the composite). ``bounds``: the sampling interval, a tuple
+    ``(near, far)`` for head-only renders, a dict ``{"head": (n, f),
+    "torso": (n, f)}`` for the composite fast and temporal renderers.
 
     ``temporal = R``: the temporal renderers, a keyframe every R frames
     (only frame 0 under ``roll_k``), with the delta-frame knobs of
-    eval/temporal.py; ``use_prior`` restricts them to the subject's
-    foreground prior (per field for the composite). ``cycle`` is the JAX
-    reenact's option to scan each keyframe cycle's delta frames in one
-    dispatch; it is checked as there, but on the card the per-frame loop
-    renders the same frames (``render.cycle`` is that loop), so every
-    frame runs through it. ``frame_times`` gets each frame's own wall
-    seconds, the host fetch included."""
-    given = dict(fast_keep=fast_keep, bounds=bounds, mesh=mesh)
-    for name, item in _NOT_PORTED.items():
-        if given[name] is not None:
-            raise NotImplementedError(
-                f"reenact {name} is not ported yet (ROADMAP.md {item})")
+    eval/temporal.py. ``cycle`` is the JAX reenact's option to scan each
+    keyframe cycle's delta frames in one dispatch; it is checked as
+    there, but on the card the per-frame loop renders the same frames
+    (``render.cycle`` is that loop), so every frame runs through it.
+    ``frame_times`` gets each frame's own wall seconds, the host fetch
+    included."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "reenact mesh is not ported yet (ROADMAP.md A13 (multi-device))")
     if temporal is not None:
+        if fast_keep is not None:
+            raise ValueError("temporal mode is incompatible with mesh "
+                             "sharding and fast_keep (it has its own "
+                             "keyframe/delta schedule)")
         if temporal < 1:
             raise ValueError("temporal must be >= 1 (keyframe interval)")
         roll_k = check_roll_k("roll_k", roll_k)
@@ -123,37 +126,62 @@ def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
                              "delta-frame cycle; drop cycle=True")
         if roll_k and roll_k_torso:
             raise ValueError("roll_k and roll_k_torso are exclusive")
-    if use_prior and temporal is None:
+    if use_prior and fast_keep is None and temporal is None:
         raise ValueError("use_prior requires fast_keep or temporal (the "
                          "prior mask only applies to the fast renderers)")
+    if (bounds is not None and torso_params is not None
+            and not isinstance(bounds, dict)):
+        raise ValueError(
+            "composite bounds tightening needs per-field bands: pass "
+            "bounds=dict(head=(n,f), torso=(n,f)) (subject_depth_range "
+            "+ torso_depth_range) with fast_keep")
+    if isinstance(bounds, dict) and fast_keep is None and temporal is None:
+        raise ValueError("per-field bounds apply to the composite FAST/"
+                         "temporal paths (fast_keep or temporal "
+                         "required); the full-fidelity composite stays "
+                         "at reference bounds")
+    if isinstance(bounds, dict) and torso_params is None:
+        raise ValueError("per-field bounds dict is for the composite; "
+                         "head-only renders take bounds=(near, far)")
     device = next(head_params.parameters()).device
     H, W = identity.hw
     n_frames = driving_auds.shape[0] if max_frames is None else min(
         max_frames, driving_auds.shape[0])
     head_cfg = variant_nerf_config(cfg)
     render_cfg = cfg.render_config()
-    view = (H, W, identity.focal, identity.near, identity.far, render_cfg)
+    near, far = identity.near, identity.far
+    if bounds is not None and not isinstance(bounds, dict):
+        near, far = bounds
+    view = (H, W, identity.focal, near, far, render_cfg)
     where = dict(cx=identity.cx, cy=identity.cy)
     knobs = dict(s_delta=s_delta, uni_frac=uni_frac, kf_blend=kf_blend,
                  dilate_every=dilate_every, roll_k=roll_k)
-    if temporal is None and torso_params is None:
-        render = make_frame_renderer(head_cfg, *view, **where)
-    elif temporal is None:
-        render = make_composite_frame_renderer(
-            head_cfg, torso_nerf_config(cfg), *view, **where)
-    elif torso_params is None:
-        mask = (foreground_prior(identity, head_parse=head_parse)[0]
-                if use_prior else None)
-        render = make_temporal_frame_renderer(
-            head_cfg, *view, **where, prior_mask=mask, delta_keep=delta_keep,
-            **knobs)
-    else:
-        pf = {}
-        if use_prior:
-            mh, mt = foreground_prior_fields(identity, head_parse=head_parse)
-            pf = dict(prior_mask_head=mh, prior_mask_torso=mt)
-            logger.info("per-field priors: head %.1f%%, torso %.1f%%",
-                        100.0 * float(mh.mean()), 100.0 * float(mt.mean()))
+    mask = k_coarse = None
+    if use_prior:
+        mask, k_coarse = foreground_prior(identity, head_parse=head_parse)
+        logger.info("subject prior: %.1f%% coverage, k_coarse %d",
+                    100.0 * float(mask.mean()), k_coarse)
+    pf = {}
+    if torso_params is not None and use_prior:
+        mh, mt = foreground_prior_fields(identity, head_parse=head_parse)
+        pf = dict(prior_mask_head=mh, prior_mask_torso=mt)
+        logger.info("per-field priors: head %.1f%%, torso %.1f%%",
+                    100.0 * float(mh.mean()), 100.0 * float(mt.mean()))
+    if isinstance(bounds, dict):
+        pf.update(bounds_head=bounds.get("head"),
+                  bounds_torso=bounds.get("torso"))
+    if torso_params is None:
+        if temporal is not None:
+            render = make_temporal_frame_renderer(
+                head_cfg, *view, **where, prior_mask=mask,
+                delta_keep=delta_keep, **knobs)
+        elif fast_keep is not None:
+            render = make_pruned_frame_renderer(
+                head_cfg, *view, **where, keep_fraction=fast_keep,
+                prior_mask=mask, k_coarse=k_coarse)
+        else:
+            render = make_frame_renderer(head_cfg, *view, **where)
+    elif temporal is not None:
         render = make_temporal_composite_renderer(
             head_cfg, torso_nerf_config(cfg), *view, **where,
             delta_keep_head=delta_keep,
@@ -161,6 +189,14 @@ def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
                               else delta_keep_torso),
             s_delta_torso=s_delta_torso, freeze_z_torso=freeze_z_torso,
             roll_k_torso=roll_k_torso, **pf, **knobs)
+    elif fast_keep is not None:
+        render = make_composite_fast_renderer(
+            head_cfg, torso_nerf_config(cfg), *view, **where,
+            prior_mask=mask, k_coarse=k_coarse, keep_head=fast_keep,
+            keep_torso=fast_keep, **pf)
+    else:
+        render = make_composite_frame_renderer(
+            head_cfg, torso_nerf_config(cfg), *view, **where)
 
     aud_feats = smoothed_audio_features(
         head_params, torch.from_numpy(np.asarray(driving_auds, np.float32))

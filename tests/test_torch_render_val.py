@@ -80,9 +80,7 @@ def test_render_val_cli_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pruned", "40"], "A9"), (["--prior_masked", "1"], "A9"),
-    (["--tighten_bounds", "1"], "A9"), (["--ray_devices", "2"], "A13"),
-    (["--head_ckpt", "ckpt"], "checkpoint"),
+    (["--ray_devices", "2"], "A13"), (["--head_ckpt", "ckpt"], "checkpoint"),
 ])
 def test_render_val_refuses_unported_modes(flags, item, tmp_path):
     if "--head_ckpt" in flags:
