@@ -234,12 +234,33 @@ non-zero and no result line is printed):
    ``eval_reenact --tighten_bounds 1`` (K2 1, K1 1; its band read from
    the depth_bands.json render_val wrote): each .avi holds the frames
    returned, each run prints its ``frame_ms``.
+15. the quality-gate harness and the gated operating points
+   (``_phase_gates``). 15a: ``scripts.rehearsal`` writes a 450x450
+   with-torso subject of 48 frames (24 val) and trains its head (1,512
+   steps at the rehearsal's paper config) and torso (500 steps) through
+   the CLIs: K4 2 and K6 2 a head step, K4 4 and K6 2 a torso step. 15b:
+   ``scripts.sample_sweep`` over 64+128, 32+64 and 16+32 (K2 and K1 once
+   a val frame and rung). 15c: ``scripts.temporal_delta --refresh 8
+   --frames 20 --s_delta 32 16 --tighten --auto_rung``: the composite and
+   head-only clips at full fidelity and in each temporal mode, K2/K1 on
+   every keyframe and K3 on every delta frame of each field, every K3
+   call at a measured s_delta; its rows, PSNRs and the fit of the delta
+   frame's cost are printed. 15d: ``gated_video_config`` for the head and
+   the composite prints which gates open and by what margin; where one
+   opens, ``serve --auto_temporal`` and ``eval_reenact --auto_temporal``
+   run at its point (keyframes at its refresh, every K3 call at its
+   s_delta on its kept rays, launches counted past the stream's
+   warm-up); where one is closed, both CLIs refuse with exit code 2 and
+   launch nothing; ``serve --auto_temporal --roll_k 4``, a cadence with
+   no evidence, is refused. At least one gate must open on the evidence
+   the harness measured.
 
 Then the kernel summary as one JSON line (each kernel's launches on its
 paths, K1/K2 over render_val, the composite reenact and phase 14's fast
 frames and CLIs, K4/K6 over train_head and train_torso, K3 over the
 head-only and the composite serve, each also on the subject directory of
-phase 13; its max error, its time and its plain version's, and its
+phase 13, and all five over phase 15's training, sweep, harness and
+``--auto_temporal`` runs; its max error, its time and its plain version's, and its
 bound: the
 larger of the bytes it must move over 3.35 TB/s and its operations at the
 H100 SXM data sheet's dense rate for their type, 989 TFLOP/s bf16, 1,979
@@ -3026,6 +3047,291 @@ def _phase_fast_clis(fr, subject: dict, dev: str) -> dict:
     return out
 
 
+K3 = "fused_render_delta"
+# phase 15: a 450x450 subject of 24 train + 24 val frames, its head trained
+# 63 epochs (1,512 steps at the rehearsal's N_rand 3072), its torso 500
+# steps; the sweep's rungs and the harness's clip, refresh and s_delta
+GATE_FRAMES = 48
+GATE_EPOCHS = 63
+GATE_TORSO_STEPS = 500
+GATE_RUNGS = "64+128,32+64,16+32"
+GATE_CLIP, GATE_REFRESH, GATE_S_DELTA = 20, 8, (32, 16)
+
+
+def _temporal_launches(n: int, refresh: int, fields: int) -> dict:
+    """K2/K1/K3 of one temporal clip of n frames: each field renders a
+    keyframe every ``refresh`` frames (K2 + K1) and a delta frame (K3)
+    otherwise."""
+    kf = -(-n // refresh)
+    return {K2: fields * kf, K1: fields * kf, K3: fields * (n - kf)}
+
+
+def _add(total: dict, part: dict, times: int = 1) -> dict:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + times * v
+    return total
+
+
+@contextlib.contextmanager
+def _delta_spy():
+    """Records (s_delta, rays) of every K3 call the temporal renderers make
+    (they import the wrapper by name); the wrapper still counts."""
+    from idealnerf_tpu_torch.eval import temporal
+
+    real, calls = temporal.fused_render_delta, []
+
+    def spy(*a, **kw):
+        calls.append((a[11] + a[12] + 1, int(a[3].shape[0])))
+        return real(*a, **kw)
+
+    temporal.fused_render_delta = spy
+    try:
+        yield calls
+    finally:
+        temporal.fused_render_delta = real
+
+
+def _refusal(main_fn, argv) -> str:
+    """The CLI's refusal: parser.error's exit code 2 and its message."""
+    import io
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            main_fn(argv)
+        except SystemExit as e:
+            if e.code != 2:
+                raise AssertionError(f"exit code {e.code}, want 2") from e
+            return err.getvalue().strip().splitlines()[-1]
+    raise AssertionError(f"{argv}: no refusal")
+
+
+def _gate_text(op: dict, td: dict, mode: str) -> str:
+    """The picked point and its evidence row: agreement, dB against GT and
+    the margin under the 0.05 dB gate."""
+    from idealnerf_tpu_torch.eval.operating_points import GATE_DB, mode_key
+
+    pt = dict(s=op["s_delta"], st=op["s_delta_torso"],
+              keep=op["delta_keep"], keep_t=op["delta_keep_torso"],
+              uni=op["uni_frac"], blend=op["kf_blend"],
+              dil=op["dilate_every"], roll=op["roll_k"],
+              rt=op["roll_k_torso"], fz=op["freeze_z_torso"],
+              hp=op["head_parse"])
+    key = mode_key(pt)
+    if mode == "head":
+        key = "head_only_" + key
+    row = td["modes"][key]
+    return (f"{key} (refresh {op['refresh']}, rung {op['keyframe_rung']}): "
+            f"{row['psnr_temporal_vs_full']:.3f} dB against the full "
+            f"render, {row['delta_psnr_vs_gt']:+.3f} dB against GT, margin "
+            f"{GATE_DB - row['delta_psnr_vs_gt']:.3f} dB under the gate")
+
+
+def _phase_gates(fr, fm, fmg, dev: str = "cuda", hw: int = 450,
+                 frames: int = GATE_FRAMES, epochs: int = GATE_EPOCHS,
+                 torso_steps: int = GATE_TORSO_STEPS,
+                 rungs: str = GATE_RUNGS, clip: int = GATE_CLIP,
+                 refresh: int = GATE_REFRESH,
+                 s_delta=GATE_S_DELTA) -> dict:
+    """Phase 15: the quality-gate harness and the gated operating points.
+    15a: scripts.rehearsal makes a with-torso subject of ``frames`` frames
+    (half of them the val split) and trains its head for ``epochs`` epochs
+    and its torso for ``torso_steps`` steps through the CLIs (K4 2 and K6
+    2 a head step, K4 4 and K6 2 a torso step). 15b: scripts.sample_sweep
+    over ``rungs`` (K2 and K1 once a val frame and rung). 15c:
+    scripts.temporal_delta --refresh --frames --s_delta --tighten
+    --auto_rung on the val split: the composite and head-only clips at
+    full fidelity and in each temporal mode, launches as the code implies
+    (``_temporal_launches``), every K3 call at a measured s_delta. 15d:
+    gated_video_config for head and comp; where a gate opens, serve and
+    eval_reenact --auto_temporal run at its point (the refresh through
+    the keyframe count, the s_delta through every K3 call, the keep
+    through its rays); where it is closed, the CLIs refuse; and serve
+    --auto_temporal --roll_k 4, a cadence the harness did not measure, is
+    refused in any case. At least one gate must open."""
+    from idealnerf_tpu_torch.cli import eval_reenact, serve
+    from idealnerf_tpu_torch.config import ExperimentConfig
+    from idealnerf_tpu_torch.data.dataset import load_transforms_dataset
+    from idealnerf_tpu_torch.eval.operating_points import gated_video_config
+    from idealnerf_tpu_torch.eval.renderer import (
+        foreground_prior, foreground_prior_fields,
+    )
+    from idealnerf_tpu_torch.eval.temporal import _prior_sel
+    from idealnerf_tpu_torch.scripts import (
+        rehearsal, sample_sweep, temporal_delta,
+    )
+
+    t_phase = time.perf_counter()
+    root = "output/chip_smoke_gates"
+    shutil.rmtree(root, ignore_errors=True)
+    subject = os.path.join(root, "subject")
+    res, launches = {}, {}
+
+    # 15a: the subject and its training
+    common = ["--out", subject, "--hw", str(hw), "--frames", str(frames),
+              "--train_fraction", "0.5", "--with_torso", "--device", dev]
+    rehearsal.main([*common, "--phase", "make"])
+    fm.reset_launch_counts()
+    fmg.reset_launch_counts()
+    tr = rehearsal.main([*common, "--phase", "train", "--epochs",
+                         str(epochs), "--torso_steps", str(torso_steps)])
+    tr = tr["train"]
+    hs, ts = tr["head"]["step"], tr["torso"]["step"]
+    got = {"fused_point_mlp": fm.launch_counts["fused_point_mlp"],
+           "fused_point_mlp_grad": fmg.launch_counts["fused_point_mlp_grad"]}
+    want = {"fused_point_mlp": 2 * hs + 4 * ts,
+            "fused_point_mlp_grad": 2 * hs + 2 * ts}
+    print(f"phase 15a rehearsal make + train: {hw}x{hw}, {frames} frames "
+          f"(val {frames - frames // 2}); head {hs} steps in "
+          f"{tr['head']['wall_s']:.1f} s (loss "
+          f"{tr['head']['last']['loss']:.5f}, PSNR "
+          f"{tr['head']['last']['psnr']:.3f}), torso {ts} steps in "
+          f"{tr['torso']['wall_s']:.1f} s (PSNR "
+          f"{tr['torso']['last']['psnr']:.3f}); launches {got} (want "
+          f"{want})")
+    if dev == "cuda" and got != want:
+        raise AssertionError(f"training launched {got}, want {want}")
+    res["train"] = tr
+    _add(launches, got)
+    cfg = ExperimentConfig.from_file(os.path.join(subject,
+                                                  "HeadNeRF_config.txt"))
+    head_ckpt, torso_ckpt = tr["head"]["ckpt_dir"], tr["torso"]["ckpt_dir"]
+
+    # 15b: the sample sweep
+    n_val = frames - int(frames * 0.5)
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    sweep = sample_sweep.main(["--out", subject, "--rungs", rungs,
+                               "--device", dev])
+    got = {k: fr.launch_counts[k] for k in (K2, K1, K3)}
+    n_rungs = len(rungs.split(","))
+    want = {K2: n_rungs * n_val, K1: n_rungs * n_val, K3: 0}
+    secs = time.perf_counter() - t0
+    print(f"phase 15b sample_sweep over {rungs} ({secs:.1f} s): "
+          + ", ".join(
+              f"{k} {v['psnr']:.3f} dB ({v['frame_ms']:.1f} ms/frame, "
+              f"{v[next(d for d in v if d.startswith('delta'))]:+.3f})"
+              for k, v in sweep.items()) + f"; launches {got}")
+    if got != want:
+        raise AssertionError(f"sample_sweep launched {got}, want {want}")
+    res["sweep"] = sweep
+    _add(launches, got)
+
+    # 15c: the harness
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _delta_spy() as calls:
+        td = temporal_delta.main([
+            "--subject_dir", subject, "--frames", str(clip), "--refresh",
+            str(refresh), "--s_delta", *map(str, s_delta), "--tighten",
+            "--auto_rung", "--device", dev])
+    secs = time.perf_counter() - t0
+    n = td["frames"]
+    got = {k: fr.launch_counts[k] for k in (K2, K1, K3)}
+    want = {K2: 3 * n, K1: 3 * n, K3: 0}   # the full clips, 2 + 1 fields
+    for fields in (2, 1):
+        _add(want, _temporal_launches(n, refresh, fields), len(s_delta))
+    print(f"phase 15c temporal_delta ({secs:.1f} s): {n} frames, refresh "
+          f"{refresh}, keyframe rung {td['keyframe_rung']}, bands "
+          f"{td['tightened_bounds']}; full composite "
+          f"{td['psnr_full_vs_gt']:.3f} dB, head "
+          f"{td['psnr_head_full_vs_gt']:.3f} dB against GT; launches {got} "
+          f"(want {want}); K3 s_delta {sorted({c[0] for c in calls})}")
+    for k, v in td["modes"].items():
+        print(f"  {k}: " + json.dumps(v))
+    for kind, fit in td["delta_cost_fit"].items():
+        print(f"  cost fit {kind}: " + (json.dumps(
+            {k: v for k, v in fit.items() if k != "points"})
+            if fit else "none (the times do not order the points)"))
+    if got != want or {c[0] for c in calls} != set(s_delta):
+        raise AssertionError(f"temporal_delta launched {got}, want {want}; "
+                             f"K3 at s_delta {sorted({c[0] for c in calls})}")
+    if not all(math.isfinite(v["psnr_temporal_vs_gt"])
+               for v in td["modes"].values()):
+        raise AssertionError("temporal_delta wrote a non-finite PSNR")
+    res["temporal_delta"] = td
+    _add(launches, got)
+
+    # 15d: the gated operating points through the CLIs
+    gates = {m: gated_video_config(subject, m) for m in ("head", "comp")}
+    for m, op in gates.items():
+        print(f"phase 15d {m} gate: " + (
+            "open, " + _gate_text(op, td, m) if op else "closed"))
+    if not any(gates.values()):
+        raise AssertionError("no gate opened: train the phase-15 subject "
+                             "longer")
+    val = load_transforms_dataset(subject, "val", near=cfg.near,
+                                  far=cfg.far)
+    n_px = hw * hw
+    prior_rays = {"head": (len(_prior_sel(foreground_prior(val)[0], n_px)),),
+                  "comp": tuple(len(_prior_sel(m, n_px)) for m in
+                                foreground_prior_fields(val))}
+    base = ["--config", os.path.join(subject, "HeadNeRF_config.txt"),
+            "--head_ckpt", head_ckpt, "--device", dev, "--auto_temporal",
+            subject, "--max_frames", str(clip)]
+    res["gates"] = {}
+    for mode, op in gates.items():
+        argv = base + (["--torso_ckpt", torso_ckpt] if mode == "comp"
+                       else [])
+        fields = 2 if mode == "comp" else 1
+        if op is None:
+            fr.reset_launch_counts()
+            msg = {name: _refusal(main_fn, argv) for name, main_fn in
+                   (("serve", serve.main),
+                    ("eval_reenact", eval_reenact.main))}
+            print(f"  {mode}: both CLIs refuse: {msg['serve']}")
+            if any(fr.launch_counts.values()):
+                raise AssertionError(f"a refused {mode} run launched")
+            res["gates"][mode] = {"open": False, "refusal": msg}
+            continue
+        s_want = {op["s_delta"], op["s_delta_torso"] or op["s_delta"]}
+        keep_all = (op["delta_keep"] >= 1.0 and (
+            op["delta_keep_torso"] is None or op["delta_keep_torso"] >= 1.0))
+        out = {"open": True, "point": op}
+        for name, main_fn in (("serve", serve.main),
+                              ("eval_reenact", eval_reenact.main)):
+            fr.reset_launch_counts()
+            with _delta_spy() as calls:
+                r = main_fn(argv)
+            got = {k: fr.launch_counts[k] for k in (K2, K1, K3)}
+            if name == "serve":
+                n_run, kf = r["frames"], r["keyframes"]
+                live = {k: got[k] - fields * WARMUP[k] for k in got}
+                ms = f"delta p50 {r['delta_p50_ms']:.2f} ms"
+            else:
+                n_run, kf = r["frames"], -(-r["frames"] // op["refresh"])
+                live = got
+                ms = f"{r['frame_ms']:.2f} ms/frame, PSNR {r['psnr']:.3f}"
+            want = {K2: fields * kf, K1: fields * kf,
+                    K3: fields * (n_run - kf)}
+            rays = {c[1] for c in calls}
+            rays_ok = (rays == set(prior_rays[mode]) if keep_all else
+                       max(rays) < max(prior_rays[mode]))
+            print(f"  {mode} {name} --auto_temporal: {n_run} frames, "
+                  f"{kf} keyframes, {ms}; live launches {live} (want "
+                  f"{want}); K3 s_delta {sorted({c[0] for c in calls})}, "
+                  f"rays {sorted(rays)} (prior {prior_rays[mode]})")
+            if (live != want or kf != -(-n_run // op["refresh"])
+                    or {c[0] for c in calls} != s_want or not rays_ok):
+                raise AssertionError(f"{mode} {name} --auto_temporal did "
+                                     f"not run at {op}")
+            out[name] = {"frames": n_run, "keyframes": kf,
+                         "launches": got}
+            _add(launches, got)
+        res["gates"][mode] = out
+    # a cadence without evidence of its own is refused, open gates or not
+    fr.reset_launch_counts()
+    msg = _refusal(serve.main, base + ["--roll_k", "4"])
+    print(f"  serve --auto_temporal --roll_k 4 refused: {msg}")
+    if any(fr.launch_counts.values()) or "roll_k=4" not in msg:
+        raise AssertionError("serve --roll_k 4 was not refused as a closed "
+                             "gate")
+    res["roll_refusal"] = msg
+    res.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    print(f"  phase 15 took {res['seconds']:.1f} s; launches {launches}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rays", type=int, default=8192)
@@ -3280,6 +3586,10 @@ def main(argv=None) -> int:
     res14 = _phase_fast(args, fr, res8["ckpt_dir"], res12b["ckpt_dir"], res13)
     report["fast"] = res14
 
+    # ---- phase 15: the gate harness and the gated operating points
+    res15 = _phase_gates(fr, fm, fmg)
+    report["gates"] = res15
+
     # launches on the main paths: render_val and the composite reenact
     # (K1, K2), train_head and train_torso (K4, K6), serve head-only and
     # composite (K3)
@@ -3302,6 +3612,10 @@ def main(argv=None) -> int:
     # and the fast modes' frames and CLIs (K1, K2)
     for k, n in res14["launches"].items():
         counts[k] += n
+    # and the gate harness: its training (K4, K6), sweep, clips and the
+    # --auto_temporal runs (K1-K3)
+    for k in counts:
+        counts[k] += res15["launches"].get(k, 0)
     for k, e in res12a["errs"].items():
         errs[k] = max(errs[k], e)
     errs.update(fused_point_mlp=res6["max_abs_err"],

@@ -30,8 +30,16 @@ it, but changes nothing here: the JAX package scans a cycle's delta frames
 in one dispatch, and on the card every frame runs through the per-frame
 loop, which gives the same frames.
 
-Not ported yet: ``--auto_temporal`` (ROADMAP.md A9b) and
-``--ray_devices``, ``--data_devices`` (A13).
+``--auto_temporal DIR`` applies the quality-gated temporal video
+configuration measured in DIR (the ``temporal_delta*.json`` evidence of
+``python -m idealnerf_tpu_torch.scripts.temporal_delta``;
+eval/operating_points.gated_video_config), the composite's with
+``--torso_ckpt``, else the head's: it sets ``--temporal``, the delta-frame
+flags, ``--prior 1`` and the keyframe sample rung as the JAX CLI does
+(``apply_operating_point``). Where no measured point holds the gate the
+CLI refuses (exit code 2).
+
+Not ported yet: ``--ray_devices``, ``--data_devices`` (ROADMAP.md A13).
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from idealnerf_tpu_torch.cli.common import (
     build_parser, load_head, load_torso, resolve_config, resolve_dataset,
 )
 from idealnerf_tpu_torch.eval.metrics import psnr
+from idealnerf_tpu_torch.eval.operating_points import gated_video_config
 from idealnerf_tpu_torch.eval.renderer import (
     cached_depth_band, subject_depth_range,
 )
@@ -56,10 +65,30 @@ logger = logging.getLogger("idealnerf.cli")
 
 # modes of the JAX CLI that the port does not have yet
 _NOT_PORTED = {
-    "auto_temporal": "A9b (eval/operating_points.gated_video_config)",
     "ray_devices": "A13 (multi-device)",
     "data_devices": "A13 (multi-device)",
 }
+
+
+def apply_operating_point(args, conf: dict) -> None:
+    """Set the temporal flags of ``args`` from a gated_video_config dict,
+    as the JAX CLI maps it: the keyframe interval, the delta-frame knobs
+    of both fields, the prior and the keyframe sample rung."""
+    args.temporal = conf["refresh"]
+    args.s_delta = conf["s_delta"]
+    args.s_delta_torso = conf["s_delta_torso"]
+    args.delta_keep = conf["delta_keep"]
+    args.delta_keep_torso = conf.get("delta_keep_torso")
+    args.freeze_z_torso = int(conf.get("freeze_z_torso", False))
+    args.uni_frac = conf.get("uni_frac", 0.25)
+    args.kf_blend = conf.get("kf_blend", 0.0)
+    args.dilate_every = conf.get("dilate_every", 1)
+    args.roll_k_torso = conf.get("roll_k_torso", 0) or 0
+    args.head_parse = int(conf.get("head_parse", False))
+    args.prior = 1
+    if conf["keyframe_rung"]:
+        s_kf, imp_kf = map(int, conf["keyframe_rung"].split("+"))
+        args.N_samples, args.N_importance = s_kf, imp_kf
 
 
 def main(argv=None):
@@ -83,7 +112,11 @@ def main(argv=None):
         parser.add_argument(f"--{flag}", type=int, default=0,
                             help="not ported")
     parser.add_argument("--auto_temporal", type=str, default=None,
-                        metavar="EVIDENCE_DIR", help="not ported")
+                        metavar="EVIDENCE_DIR",
+                        help="apply the quality-gated temporal video "
+                             "configuration measured in this dir "
+                             "(scripts/temporal_delta.py output); refuses "
+                             "if no measured point holds the gate")
     parser.add_argument("--prior", type=int, default=0,
                         help="with --fast or --temporal: restrict network "
                              "work to the identity's foreground prior (per "
@@ -131,6 +164,20 @@ def main(argv=None):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP.md {item})")
+    if args.auto_temporal:
+        mode = "comp" if args.torso_ckpt else "head"
+        conf = gated_video_config(args.auto_temporal, mode)
+        if conf is None:
+            parser.error(
+                f"--auto_temporal: no measured {mode} operating point in "
+                f"{args.auto_temporal} holds the quality gate - run python "
+                "-m idealnerf_tpu_torch.scripts.temporal_delta on this "
+                "subject's trained checkpoints first")
+        apply_operating_point(args, conf)
+        logger.info("auto temporal (%s, quality-gated): refresh %d, "
+                    "s_delta %s/%s, delta_keep %.2f, keyframe rung %s",
+                    mode, args.temporal, args.s_delta, args.s_delta_torso,
+                    args.delta_keep, conf["keyframe_rung"])
     check_roll_k("--roll_k_torso", args.roll_k_torso)
     if args.tighten_bounds and args.torso_ckpt:
         parser.error("--tighten_bounds is head-only from the CLI; "

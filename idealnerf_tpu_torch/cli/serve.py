@@ -18,15 +18,22 @@ the split by frame kind: keyframes and keyframe_ms (their mean), delta
 frames and delta_p50_ms / delta_p95_ms. Each frame's time ends when its
 pixels reach the host, which waits for the device.
 
-``--roll_k_torso K`` gives the torso a refresh-only roll. The JAX CLI has
-no such flag and reads it from the operating point that
-``--auto_temporal`` picks; until that is ported (ROADMAP.md A9b,
-eval/operating_points.gated_video_config), the flag stands in for it.
+``--auto_temporal DIR`` serves at the quality-gated operating point
+measured in DIR (the ``temporal_delta*.json`` evidence of
+``python -m idealnerf_tpu_torch.scripts.temporal_delta``;
+eval/operating_points.gated_video_config): the composite's with
+``--torso_ckpt``, else the head's. The point sets the keyframe interval,
+the delta-frame knobs and the keyframe sample rung; ``--roll_k K`` needs
+evidence measured at that rolling cadence. Where no measured point holds
+the gate the CLI refuses (exit code 2) and serves nothing.
+``--roll_k_torso K`` gives the torso a refresh-only roll by hand (the JAX
+CLI has no such flag and takes it from the operating point only).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -37,15 +44,12 @@ import torch
 from idealnerf_tpu_torch.cli.common import (
     build_parser, load_head, load_torso, resolve_config, resolve_dataset,
 )
+from idealnerf_tpu_torch.eval.operating_points import gated_video_config
 from idealnerf_tpu_torch.eval.stream import TemporalStream
 from idealnerf_tpu_torch.eval.temporal import check_roll_k
 from idealnerf_tpu_torch.eval.video import VideoWriter
 
 logger = logging.getLogger("idealnerf.cli")
-
-_NOT_PORTED = {
-    "auto_temporal": "A9b (eval/operating_points.gated_video_config)",
-}
 
 
 def main(argv=None):
@@ -57,8 +61,9 @@ def main(argv=None):
                              "serve the head + torso composite")
     parser.add_argument("--auto_temporal", type=str, default=None,
                         metavar="EVIDENCE_DIR",
-                        help="serve at a quality-gated operating point "
-                             "(not ported)")
+                        help="serve at the quality-gated temporal "
+                             "operating point measured in this dir "
+                             "(scripts/temporal_delta.py output)")
     parser.add_argument("--refresh", type=int, default=25,
                         help="keyframe interval")
     parser.add_argument("--s_delta", type=int, default=16)
@@ -81,15 +86,31 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to render on")
     args = parser.parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP.md {item})")
     check_roll_k("--roll_k", args.roll_k)
     check_roll_k("--roll_k_torso", args.roll_k_torso)
     if args.roll_k and args.roll_k_torso:
         raise ValueError("--roll_k and --roll_k_torso are exclusive")
+    op = None
+    if args.auto_temporal:
+        mode = "comp" if args.torso_ckpt else "head"
+        # a rolling cadence gates on evidence measured at that cadence: a
+        # keyframed gate says nothing about unbounded-horizon drift
+        op = gated_video_config(args.auto_temporal, mode,
+                                roll_k=args.roll_k)
+        if op is None:
+            what = (f"roll_k={args.roll_k} rolling" if args.roll_k
+                    else "keyframed")
+            parser.error(
+                f"--auto_temporal: no gated {mode} {what} operating point "
+                f"in {args.auto_temporal} - run python -m "
+                f"idealnerf_tpu_torch.scripts.temporal_delta"
+                + (f" --roll_k {args.roll_k}" if args.roll_k else "")
+                + " on this subject's trained checkpoints first")
+        logger.info("auto temporal (%s, quality-gated): %s", mode, op)
     cfg = resolve_config(args)
+    if op and op.get("keyframe_rung"):
+        s_kf, imp_kf = map(int, op["keyframe_rung"].split("+"))
+        cfg = dataclasses.replace(cfg, N_samples=s_kf, N_importance=imp_kf)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
@@ -104,7 +125,7 @@ def main(argv=None):
         args.max_frames, auds.shape[0])
     stream = TemporalStream(
         cfg, params, identity, torso_params=torso, latent_codes=latents,
-        refresh=args.refresh, s_delta=args.s_delta,
+        operating_point=op, refresh=args.refresh, s_delta=args.s_delta,
         delta_keep=args.delta_keep, roll_k=args.roll_k,
         roll_k_torso=args.roll_k_torso, use_prior=bool(args.prior),
         smooth_audio=not args.no_smooth)

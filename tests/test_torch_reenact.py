@@ -194,7 +194,6 @@ def test_reenact_frame_is_the_composite_renderers_frame():
 
 
 _REFUSED = [
-    (eval_reenact.main, ["--auto_temporal", "runs/x"], "A9b"),
     # the fast modes are ported; with a mesh flag they still meet A13
     (eval_reenact.main, ["--fast", "40", "--ray_devices", "2"], "A13"),
     (eval_reenact.main, ["--tighten_bounds", "1", "--data_devices", "2"],

@@ -319,7 +319,8 @@ def test_serve_cli_on_cpu(tmp_path):
     (["--torso_ckpt", "t", "--roll_k_torso", "1"], ValueError,
      "roll_k_torso"),
     (["--roll_k", "2", "--roll_k_torso", "2"], ValueError, "exclusive"),
-    (["--auto_temporal", "runs"], NotImplementedError, "A9"),
+    # no evidence in the directory: the gate is closed, parser.error
+    (["--auto_temporal", "no/such/dir"], SystemExit, "2"),
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
 ])
 def test_serve_refuses(flags, err, match, monkeypatch):
