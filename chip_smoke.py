@@ -76,7 +76,18 @@ non-zero and no result line is printed):
    apart, a torch.bmm of the trunk's seven H^T @ dc products is timed as
    a yardstick (the port never calls it), and the peak memory of one call
    is read. The kernels' ptxas lines are printed again; pass A may not
-   spill, and its SASS must hold HGMMA (wgmma) and no HMMA (wmma).
+   spill, and its SASS must hold HGMMA (wgmma) and no HMMA (wmma). The f32
+   backward is two kernels too (``k_grad_pass_a_f32``,
+   ``k_grad_pass_b_f32`` behind the same wrappers: f32 FFMAs, no tensor
+   core): their SASS may hold no HMMA or HGMMA (no
+   TF32 product) and pass A f32 may not spill; at ``--points`` and at a
+   ragged 1,001 pass A f32 alone is held against its plain version and
+   f64 (every plane and the bias rows no farther from f64 than twice the
+   plain version's own distance, at least 1e-5; two launches bitwise
+   equal), pass B f32 alone against its plain version on pass A's
+   buffers (1e-4), each pass is timed with its bound (the planes' bytes
+   counted), f32 autograd of the plain MLP (cuBLAS, TF32 off) is timed as
+   the yardstick, and the peak memory of one call is read.
 8. the training slice: ``idealnerf_tpu_torch.cli.train_head.main`` on
    ``--train_frames`` synthetic frames of ``--train_hw``² at full width
    (D=8, W=256, N_rand 2048, 64+128) for ``--train_epochs`` epochs: first
@@ -254,13 +265,27 @@ non-zero and no result line is printed):
    launch nothing; ``serve --auto_temporal --roll_k 4``, a cadence with
    no evidence, is refused. At least one gate must open on the evidence
    the harness measured.
+16. the exact-f32 training path (``train_fused`` 1, ``_phase_train_f32``):
+   ``cli.train_head.main --train_fused 1`` for ``--train_epochs`` epochs on
+   ``--train_frames`` synthetic frames of ``--train_hw``² at full width
+   (N_rand 2048, 64+128): finite loss, K4 2 and the f32 passes 2 a step,
+   the bf16 passes none; then on fresh trainers at ``train_fused`` 1 and
+   2 the ms per step (``_step_ms``) and a profiled step's idle share. One
+   head step (on phase 8's checkpoint) and one torso step at
+   ``train_fused`` 1 on fixed coordinates (no draws): the same step with
+   the backward swapped for f32 autograd of the plain MLP at the step's
+   own cotangent gives a bitwise-equal loss and every parameter gradient
+   within GRAD_TOL["f32"]["autograd"]; against ``train_fused`` 0, whose
+   forward is f32 where K4's is bf16 at ``train_fused`` 1 and 2, the
+   loss and gradients are held to phase 12b's bounds.
 
 Then the kernel summary as one JSON line (each kernel's launches on its
 paths, K1/K2 over render_val, the composite reenact and phase 14's fast
 frames and CLIs, K4/K6 over train_head and train_torso, K3 over the
 head-only and the composite serve, each also on the subject directory of
 phase 13, and all five over phase 15's training, sweep, harness and
-``--auto_temporal`` runs; its max error, its time and its plain version's, and its
+``--auto_temporal`` runs; the f32 backward's two kernels over phase 16's
+``train_head --train_fused 1``; its max error, its time and its plain version's, and its
 bound: the
 larger of the bytes it must move over 3.35 TB/s and its operations at the
 H100 SXM data sheet's dense rate for their type, 989 TFLOP/s bf16, 1,979
@@ -290,6 +315,7 @@ GRAD_TOL = {"f32": {"plain": 1e-4, "autograd": 1e-4},
 COND_TOL = 0.05
 PASS_A_TOL = 2e-2
 PASS_A_FLOOR = 1e-3
+PASS_A_F32_FLOOR = 1e-5  # the f32 emulation test's (test_torch_grad_f32.py)
 PASS_B_TOL = 1e-4
 FINE_POINTS = 2048 * 192  # the training step's fine pass
 STEP_POINTS = (2048 * 64, FINE_POINTS)  # its coarse and fine passes
@@ -307,6 +333,14 @@ KERNELS = {
         "replaces": "idealnerf_tpu/kernels/fused_mlp.py:289",
     },
     "fused_point_mlp_grad": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp_grad.cu",
+        "replaces": "idealnerf_tpu/kernels/fused_mlp_grad.py:178",
+    },
+    "grad_pass_a_f32": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp_grad.cu",
+        "replaces": "idealnerf_tpu/kernels/fused_mlp_grad.py:178",
+    },
+    "grad_pass_b_f32": {
         "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp_grad.cu",
         "replaces": "idealnerf_tpu/kernels/fused_mlp_grad.py:178",
     },
@@ -504,18 +538,32 @@ def _ray_bound(ncfg, rays: int, S: int, cols_in: int, cols_out: int):
                   _weight_bytes(ncfg) + 4.0 * rays * (cols_in + cols_out))
 
 
-def _point_bound(ncfg, n: int, passes: int, grads: bool,
-                 kind: str = "bf16"):
-    """Bound of a point kernel on n points (pts, dirs in; raw out, or the
-    cotangent in and f32 weight gradients out): ``passes`` multiply-add
-    passes over the MLP (1 forward; 3 for the rematerialising backward),
-    at the dense peak of ``kind`` (the f32 gradient kernel: "f32", the
-    card's rate outside the tensor cores)."""
+def _grad_macs(ncfg):
+    """(pass A's, pass B's) multiply-adds per point of the rematerialising
+    backward, at the real widths (no lane padding): pass A the forward and
+    the d_h chain, which stops at layer 0's output and so multiplies by no
+    W0^T, no skip layer's PE part^T and no wv0d^T; pass B every weight
+    gradient once, as many as the forward."""
     pt, ray = _mlp_macs(ncfg)
-    nbytes = _weight_bytes(ncfg) + 4.0 * n * (6 + 4)
+    n_pe = 1 + sum(1 for i in range(1, ncfg.depth) if i - 1 in ncfg.skips)
+    return 2 * (pt + ray) - n_pe * ncfg.input_ch * ncfg.width - ray, pt + ray
+
+
+def _point_bound(ncfg, n: int, grads: bool, kind: str = "bf16",
+                 plane_bytes: float = 0.0):
+    """Bound of a point kernel on n points (pts, dirs in; raw out, or the
+    cotangent in and f32 weight gradients out): the forward's multiply-adds,
+    or the backward's (_grad_macs), at the dense peak of ``kind`` (the f32
+    gradient kernels: "f32", the card's rate outside the tensor cores).
+    ``plane_bytes``: the operand planes a two-pass backward writes and
+    reads back, counted twice."""
+    pt, ray = _mlp_macs(ncfg)
+    nbytes = _weight_bytes(ncfg) + 4.0 * n * (6 + 4) + 2.0 * plane_bytes
+    macs = pt + ray
     if grads:
         nbytes += 2 * _weight_bytes(ncfg)
-    return _bound(2.0 * passes * n * (pt + ray), nbytes, kind)
+        macs = sum(_grad_macs(ncfg))
+    return _bound(2.0 * n * macs, nbytes, kind)
 
 
 def _delta_split(s_delta: int):
@@ -1052,7 +1100,7 @@ def _phase_point_mlp(fm, fr, net, folded, ncfg, pts, dirs, ptxas,
                for x in fm.encode_points(packed, pts, dirs))
     lib = _point_library_ms(packed, pe, ped)
     del pe, ped
-    bnd = _point_bound(ncfg, n, 1, False)
+    bnd = _point_bound(ncfg, n, False)
     pt, ray = _mlp_macs(ncfg)
     flops = 2.0 * n * (pt + ray)
     print(f"  fused_point_mlp at N={n}: {ms:.3f} ms through fused_point_mlp "
@@ -1141,28 +1189,32 @@ def _packed_list(p):
             p.w_rgb, p.b_heads]
 
 
-def _pass_bounds(fmg, ncfg, packed, n: int):
-    """Bounds of the bf16 backward's two passes on n points: pass A does
-    the forward's and the input gradients' multiply-adds and writes the
-    operand planes and bias rows; pass B does every weight gradient's
-    multiply-adds and reads them."""
+def _plane_bytes(fmg, packed, n: int, f32: bool = False) -> float:
+    """Bytes of the operand planes and bias rows a backward's pass A
+    writes on n points (bf16 or f32 planes)."""
     n_tiles = -(-n // fmg.GRAD_TILE)
-    _, widths, total = fmg.grad_planes(packed, n_tiles)
+    planes = fmg.grad_planes_f32 if f32 else fmg.grad_planes
     nb = sum(x.numel() for x in packed.b) + sum(
         x.numel() for x in packed.bv) + packed.b_heads.numel()
-    out_bytes = 2 * total + 4 * n_tiles * nb
-    pt, ray = _mlp_macs(ncfg)
-    a = _bound(2.0 * 2 * n * (pt + ray),
-               _weight_bytes(ncfg) + 4.0 * n * (6 + 4) + out_bytes)
-    macs = sum(x.numel() for x in (*packed.w, *packed.wskip.values(),
-                                   *packed.wv, packed.wv0d, packed.w_alpha,
-                                   packed.w_rgb))
+    return (4 if f32 else 2) * planes(packed, n_tiles)[2] + 4 * n_tiles * nb
+
+
+def _pass_bounds(fmg, ncfg, packed, n: int, f32: bool = False):
+    """Bounds of a backward's two passes on n points: pass A does the
+    forward's and the input gradients' multiply-adds and writes the
+    operand planes and bias rows; pass B does every weight gradient's
+    multiply-adds and reads them (bf16 tensor-core or f32 rates)."""
+    kind = "f32" if f32 else "bf16"
+    out_bytes = _plane_bytes(fmg, packed, n, f32)
+    macs_a, macs_b = _grad_macs(ncfg)
+    a = _bound(2.0 * n * macs_a,
+               _weight_bytes(ncfg) + 4.0 * n * (6 + 4) + out_bytes, kind)
     _, G = fmg._grad_layout(packed)
-    b = _bound(2.0 * n * macs, out_bytes + 4.0 * G)
+    b = _bound(2.0 * n * macs_b, out_bytes + 4.0 * G, kind)
     return a, b
 
 
-def _check_pass_a(fmg, packed, pts, dirs, g):
+def _check_pass_a(fmg, packed, pts, dirs, g, f32: bool = False):
     """Pass A's own outputs against grad_pass_a_reference on the same
     inputs, and against the same computation in f64: every plane,
     unswizzled, no farther from the f64 one, norm-relative, than twice
@@ -1175,7 +1227,10 @@ def _check_pass_a(fmg, packed, pts, dirs, g):
     apart, and where an activation rounds to 0 in one order and not in
     another its relu' flips: the d_h element it gates differs by its whole
     value and the rows it feeds move with it. So no absolute bound holds
-    on the d_h planes, not even for the plain version against f64."""
+    on the d_h planes, not even for the plain version against f64. With
+    ``f32``, pass A f32 (f32 weights, row-major f32 planes) at the
+    floor of the f32 emulation test, PASS_A_F32_FLOOR, and its bias rows
+    held like the planes."""
     import torch
 
     n = pts.shape[0]
@@ -1183,10 +1238,14 @@ def _check_pass_a(fmg, packed, pts, dirs, g):
     again = fmg.grad_pass_a(packed, pts, dirs, g)
     same = torch.equal(again[0], planes) and torch.equal(again[2], bias)
     del again
-    got = fmg.buffers_from_planes(packed, planes, offs, bias, n)
+    got = (fmg.buffers_from_planes_f32 if f32 else fmg.buffers_from_planes)(
+        packed, planes, offs, bias, n)
+    floor = PASS_A_F32_FLOOR if f32 else PASS_A_FLOOR
 
     def planes_of(bufs):
         out = {"pe": bufs.pe, "ped": bufs.ped, "gb": bufs.gb}
+        if f32:
+            out["bias"] = bufs.bias
         for key in ("hs", "hvs", "dcs", "dvs"):
             for j, x in enumerate(getattr(bufs, key)):
                 out[f"{key[:-1]}{j}"] = x
@@ -1208,15 +1267,16 @@ def _check_pass_a(fmg, packed, pts, dirs, g):
                                                   b.reshape(-1)]))[0, 1])
             corr = min(corr, (c, name))
         far, own = _norm_rel(a.double(), x), _norm_rel(b.double(), x)
-        ratio = max(ratio, (far / max(2 * own, PASS_A_FLOOR), name, far,
+        ratio = max(ratio, (far / max(2 * own, floor), name, far,
                             own, float((b.double() - x).abs().max())))
     del want, plain, exact
-    print(f"  pass A alone vs its plain version, N={n}: {len(mine)} planes, "
+    print(f"  pass A{' f32' if f32 else ''} alone vs its plain version, "
+          f"N={n}: {len(mine)} planes, "
           f"max_abs_err {err:.3e}; the kernel's distance from f64 at most "
           f"{ratio[0]:.3f} of twice the plain version's ({ratio[1]}: "
           f"{ratio[2]:.3e} and {ratio[3]:.3e} norm-relative, the plain "
           f"version {ratio[4]:.3e} from f64 at most; tol 1, floor "
-          f"{PASS_A_FLOOR:g}); correlation at least {corr[0]:.6f} "
+          f"{floor:g}); correlation at least {corr[0]:.6f} "
           f"({corr[1]}; > {MIN_CORR}); bias rows norm-relative "
           f"{bias_err:.3e} (tol {PASS_A_TOL:g}); two launches bitwise "
           f"equal: {same}")
@@ -1228,38 +1288,64 @@ def _check_pass_a(fmg, packed, pts, dirs, g):
     return err, planes, offs, bias, got
 
 
-def _phase_grad_split(fmg, ncfg, packed, pts, dirs, g) -> dict:
-    """The bf16 backward's passes apart: pass A alone against its plain
-    version (_check_pass_a), pass B alone against its plain version on
-    pass A's own buffers (1e-4 norm-relative per gradient), each pass
-    timed with CUDA events, the torch.bmm yardstick of the trunk's seven
-    H^T @ dc products (timed only), the peak memory of one backward call,
-    and each pass's bound."""
+def _phase_grad_split(fmg, ncfg, packed, pts, dirs, g, ms: float,
+                      f32: bool = False) -> dict:
+    """A backward's passes apart (``ms``: the whole backward's time), bf16
+    or, with ``f32``, f32: pass A alone against its plain version and f64
+    (_check_pass_a), pass B alone against its plain version on pass A's
+    own buffers (PASS_B_TOL norm-relative per gradient), each pass timed
+    with CUDA events, each pass's bound with the planes' bytes, the peak
+    memory of one backward call, and a yardstick, timed only: in bf16
+    torch.bmm of the trunk's H^T @ dc products; in f32 f32 autograd of the
+    plain MLP (cuBLAS, TF32 off, ``library_ms``), beside each pass's plain
+    version's time."""
     import torch
 
     n = pts.shape[0]
-    dev = pts.device
     err_a, planes, offs, bias, bufs = _check_pass_a(fmg, packed, pts, dirs,
-                                                    g)
+                                                    g, f32)
     got = fmg.grad_pass_b(packed, planes, offs, bias)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = fmg.grad_pass_b_reference(
-        packed, bufs, fmg.grad_chunks(bias.shape[0], sms))
-    worst = max(_norm_rel(x, y) for x, y in zip(_packed_list(got),
-                                                _packed_list(want)))
-    print(f"  pass B alone vs its plain version on pass A's buffers, N={n}: "
-          f"worst norm-relative error {worst:.3e} (tol {PASS_B_TOL:g})")
+    n_chunks = fmg.grad_chunks(bias.shape[0], torch.cuda.get_device_properties(
+        pts.device).multi_processor_count)
+    want = fmg.grad_pass_b_reference(packed, bufs, n_chunks)
+    pairs = list(zip(_packed_list(got), _packed_list(want)))
+    worst = max(_norm_rel(x, y) for x, y in pairs)
+    err_b = max(float((x - y).abs().max()) for x, y in pairs)
+    tag = "f32" if f32 else "bf16"
+    print(f"  pass B {tag} alone vs its plain version on pass A's buffers, "
+          f"N={n}: worst norm-relative error {worst:.3e} (tol "
+          f"{PASS_B_TOL:g}), max_abs_err {err_b:.3e}")
     if not worst <= PASS_B_TOL:
-        raise AssertionError("pass B disagrees with its plain version")
+        raise AssertionError(f"pass B {tag} disagrees with its plain version")
+    del got, want, pairs
+    out = {"pass_a_ms": _time_ms(lambda: fmg.grad_pass_a(packed, pts, dirs,
+                                                         g), 3),
+           "pass_b_ms": _time_ms(lambda: fmg.grad_pass_b(packed, planes,
+                                                         offs, bias),
+                                 3 if f32 else 5)}
     D = len(packed.w)
-    hts = torch.stack([x.to(torch.bfloat16) for x in bufs.hs[:D - 1]]
-                      ).transpose(1, 2)
-    dcs = torch.stack([x.to(torch.bfloat16) for x in bufs.dcs[1:]])
-    del bufs, want, got
-    ms_a = _time_ms(lambda: fmg.grad_pass_a(packed, pts, dirs, g), 3)
-    ms_b = _time_ms(lambda: fmg.grad_pass_b(packed, planes, offs, bias), 5)
-    ms_bmm = _time_ms(lambda: torch.bmm(hts, dcs), 5)
-    del hts, dcs, planes, bias
+    if f32:
+        out["pass_a_plain_ms"] = _time_ms(
+            lambda: fmg.grad_pass_a_reference(packed, pts, dirs, g), 2)
+        out["pass_b_plain_ms"] = _time_ms(
+            lambda: fmg.grad_pass_b_reference(packed, bufs, n_chunks), 2)
+        del bufs, planes, bias
+        out["library_ms"] = _time_ms(
+            lambda: _autograd_packed_grad(packed, pts, dirs, g), 3)
+        plain = (f"plain {out['pass_a_plain_ms']:.3f}; ",
+                 f"plain {out['pass_b_plain_ms']:.3f}; ")
+        lib = (f"f32 autograd of the plain MLP (cuBLAS, TF32 off) "
+               f"{out['library_ms']:.3f} ms")
+    else:
+        hts = torch.stack([x.to(torch.bfloat16) for x in bufs.hs[:D - 1]]
+                          ).transpose(1, 2)
+        dcs = torch.stack([x.to(torch.bfloat16) for x in bufs.dcs[1:]])
+        del bufs, planes, bias
+        out["bmm_ms"] = _time_ms(lambda: torch.bmm(hts, dcs), 5)
+        del hts, dcs
+        plain = ("", "")
+        lib = (f"torch.bmm of the {D - 1} trunk H^T @ dc products "
+               f"{out['bmm_ms']:.3f} ms")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -1267,17 +1353,71 @@ def _phase_grad_split(fmg, ncfg, packed, pts, dirs, g) -> dict:
     fmg.point_mlp_grad(packed, pts, dirs, g)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    bound_a, bound_b = _pass_bounds(fmg, ncfg, packed, n)
-    print(f"  bf16 passes at N={n}: pass A {ms_a:.3f} ms (bound "
-          f"{bound_a['bound_ms']:.3f}, {bound_a['bound_by']}), pass B "
-          f"{ms_b:.3f} ms (bound {bound_b['bound_ms']:.3f}, "
-          f"{bound_b['bound_by']}); torch.bmm of the {D - 1} trunk H^T @ dc "
-          f"products {ms_bmm:.3f} ms (yardstick, timed only); peak memory "
-          f"of one call {peak / 2 ** 30:.3f} GiB (CUDA events)")
-    return {"pass_a_err": err_a, "pass_b_err": worst, "pass_a_ms": ms_a,
-            "pass_b_ms": ms_b,
-            "bmm_ms": ms_bmm, "peak_bytes": peak, "bound_a": bound_a,
-            "bound_b": bound_b}
+    torch.cuda.empty_cache()
+    bound_a, bound_b = _pass_bounds(fmg, ncfg, packed, n, f32)
+    gib = _plane_bytes(fmg, packed, n, f32)
+    whole = _point_bound(ncfg, n, True, tag, gib)
+    print(f"  {tag} passes at N={n}: pass A {out['pass_a_ms']:.3f} ms "
+          f"({plain[0]}bound {bound_a['bound_ms']:.3f}, "
+          f"{bound_a['bound_by']}), pass B {out['pass_b_ms']:.3f} ms "
+          f"({plain[1]}bound {bound_b['bound_ms']:.3f}, "
+          f"{bound_b['bound_by']}); the whole backward {ms:.3f} ms against "
+          f"its bound {whole['bound_ms']:.3f} ({whole['bound_by']}, the "
+          f"planes' {gib / 2 ** 30:.3f} GiB written and read; "
+          f"{100 * whole['bound_ms'] / ms:.1f} %); {lib} (yardstick, timed "
+          f"only); peak memory of one call {peak / 2 ** 30:.3f} GiB (CUDA "
+          "events)")
+    out.update(pass_a_err=err_a, pass_b_err=err_b, pass_b_worst=worst,
+               peak_bytes=peak, bound_a=bound_a, bound_b=bound_b,
+               bound_whole=whole)
+    return out
+
+
+def _packed_from_list(net, xs):
+    """A PackedNet like ``net`` holding the tensors ``xs`` in
+    _packed_list's order."""
+    it = iter(xs)
+
+    def take(k):
+        return [next(it) for _ in range(k)]
+
+    D, V = len(net.w), len(net.wv)
+    w, b = take(D), take(D)
+    wskip = dict(zip(net.wskip, take(len(net.wskip))))
+    wv, bv = take(V), take(V)
+    wv0d, w_alpha, w_rgb, b_heads = take(4)
+    return dataclasses.replace(net, w=w, b=b, wskip=wskip, wv=wv, bv=bv,
+                               wv0d=wv0d, w_alpha=w_alpha, w_rgb=w_rgb,
+                               b_heads=b_heads)
+
+
+def _autograd_packed_grad(net, pts, dirs, g):
+    """The f32 backward's function by f32 autograd (cuBLAS, TF32 off) of
+    the plain MLP on a packed f32 net: gradients of sum(raw * g) over
+    every packed operand -> a PackedNet. K6 f32's yardstick, and the
+    backward phase 16 swaps in to hold the kernels' on a step's own
+    cotangent."""
+    import torch
+
+    from idealnerf_tpu_torch.kernels.fused_mlp import encode_points
+
+    leaves = [x.detach().float().requires_grad_(True)
+              for x in _packed_list(net)]
+    p = _packed_from_list(net, leaves)
+    with torch.enable_grad():
+        pe, ped = encode_points(p, pts, dirs)
+        h = torch.relu(pe @ p.w[0] + p.b[0])
+        for i in range(1, len(p.w)):
+            a = h @ p.w[i]
+            if i in p.wskip:
+                a = pe @ p.wskip[i] + a
+            h = torch.relu(a + p.b[i])
+        hv = torch.relu(h @ p.wv[0] + ped @ p.wv0d + p.bv[0])
+        for v in range(1, len(p.wv)):
+            hv = torch.relu(hv @ p.wv[v] + p.bv[v])
+        raw = (h @ p.w_alpha + hv @ p.w_rgb + p.b_heads)[:, :4]
+        grads = torch.autograd.grad(raw, leaves, g)
+    return _packed_from_list(net, grads)
 
 
 def _phase_grad(net, ncfg, cond, pts, dirs, ptxas, so_path) -> dict:
@@ -1293,19 +1433,27 @@ def _phase_grad(net, ncfg, cond, pts, dirs, ptxas, so_path) -> dict:
     )
 
     print("phase 7 gradient kernel vs plain backward and f32 autograd")
-    for i, ln in enumerate(ptxas):  # the bf16 kernels' registers, spills
+    for i, ln in enumerate(ptxas):  # the passes' registers, spills
         if any(k in ln for k in ("k_grad_pass", "k_bias_partials")):
             print("  ptxas: " + " | ".join(ptxas[i:i + 3]))
             if "k_grad_pass_a" in ln and not any(
                     "0 bytes spill stores, 0 bytes spill loads" in x
                     for x in ptxas[i:i + 3]):
-                raise AssertionError("k_grad_pass_a spills")
-    ops = {op: _hgmma_counts(so_path, ("k_grad_pass_a",), op)["k_grad_pass_a"]
-           for op in ("HGMMA", "HMMA")}
-    print(f"  k_grad_pass_a SASS: {ops['HGMMA']} HGMMA (wgmma), "
-          f"{ops['HMMA']} HMMA (wmma)")
-    if not (ops["HGMMA"] > 0 and ops["HMMA"] == 0):
+                raise AssertionError("pass A (bf16 or f32) spills")
+    # mangled names: bf16 pass A, and the f32 passes
+    a16, f32_names = "13k_grad_pass_aE", ("17k_grad_pass_a_f32",
+                                          "17k_grad_pass_b_f32")
+    ops = {op: _hgmma_counts(so_path, (a16, *f32_names), op)
+           for op in ("HGMMA", "HMMA", "FFMA")}
+    print(f"  k_grad_pass_a SASS: {ops['HGMMA'][a16]} HGMMA (wgmma), "
+          f"{ops['HMMA'][a16]} HMMA (wmma); f32 passes: " + ", ".join(
+              f"{k[2:]} {ops['HGMMA'][k]} HGMMA, {ops['HMMA'][k]} HMMA, "
+              f"{ops['FFMA'][k]} FFMA" for k in f32_names))
+    if not (ops["HGMMA"][a16] > 0 and ops["HMMA"][a16] == 0):
         raise AssertionError(f"k_grad_pass_a is not on the wgmma chain: {ops}")
+    if not all(ops["HGMMA"][k] == ops["HMMA"][k] == 0 < ops["FFMA"][k]
+               for k in f32_names):
+        raise AssertionError(f"an f32 pass runs a tensor-core product: {ops}")
 
     def folded_fn(model, c):
         return fold_conditioning(model, ncfg, *c)
@@ -1330,14 +1478,15 @@ def _phase_grad(net, ncfg, cond, pts, dirs, ptxas, so_path) -> dict:
             ms = _time_ms(lambda: fmg.point_mlp_grad(packed, p, d, g), 3)
             pms = _time_ms(lambda: fmg.point_mlp_grad_reference(
                 packed, p, d, g), 2)
-            bnd = _point_bound(ncfg, n, 3, True, tag)
+            bnd = _point_bound(ncfg, n, True, tag)
             print(f"  {tag} gradient kernel at N={n}: kernel {ms:.3f} ms, "
                   f"plain {pms:.3f} ms (CUDA events); bound "
                   f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']} at the "
                   f"{tag} peak")
             res = {"n": n, "ms": ms, "plain_ms": pms, "worst": worst, **bnd}
+            res.update(_phase_grad_split(fmg, ncfg, packed, p, d, g, ms,
+                                         tag == "f32"))
             if tag == "bf16":
-                res.update(_phase_grad_split(fmg, ncfg, packed, p, d, g))
                 out["max_abs_err"] = max(out["max_abs_err"],
                                          res["pass_a_err"])
             out[f"{tag}_{n}"] = res
@@ -1354,11 +1503,33 @@ def _phase_grad(net, ncfg, cond, pts, dirs, ptxas, so_path) -> dict:
     out["pass_a_1001_err"] = _check_pass_a(fmg, packed, pts[:n], dirs[:n],
                                            g.contiguous())[0]
     out["max_abs_err"] = max(out["max_abs_err"], out["pass_a_1001_err"])
+    packed32 = pack_leaves(ncfg, model_leaves(net, folded, ncfg),
+                           torch.float32)
+    out["pass_a_f32_1001_err"] = _check_pass_a(
+        fmg, packed32, pts[:n], dirs[:n], g.contiguous(), f32=True)[0]
+    print("  pass A f32 launch at N={}: {}".format(
+        pts.shape[0], fmg.pass_a_launch_config(packed32, pts.shape[0])))
     print("  pass A launch at N={}: {}".format(
         pts.shape[0], fmg.pass_a_launch_config(packed, pts.shape[0])))
     main = out[f"bf16_{pts.shape[0]}"]
     out["ms"], out["plain_ms"] = main["ms"], main["plain_ms"]
     return out
+
+
+def _train_launches(fm, fmg, steps: int, train_fused: int = 2):
+    """(the point kernels' launch counts of a train_head run, what its
+    ``steps`` steps at ``train_fused`` 1 or 2 must launch): K4 and the
+    backward twice a step (coarse and fine), through the bf16 or the f32
+    passes, and the other variant's passes never."""
+    got = {"fused_point_mlp": fm.launch_counts["fused_point_mlp"],
+           **fmg.launch_counts}
+    f32 = train_fused == 1
+    want = {"fused_point_mlp": 2 * steps, "fused_point_mlp_grad": 2 * steps,
+            "grad_pass_a": 0 if f32 else 2 * steps,
+            "grad_pass_b": 0 if f32 else 2 * steps,
+            "grad_pass_a_f32": 2 * steps if f32 else 0,
+            "grad_pass_b_f32": 2 * steps if f32 else 0}
+    return got, want
 
 
 def _phase_train(args, fm, fmg, fr) -> dict:
@@ -1378,9 +1549,8 @@ def _phase_train(args, fm, fmg, fr) -> dict:
         "--N_importance", "128", "--epochs", str(args.train_epochs),
         "--i_print", "5", "--i_weights", "10", "--device", "cuda",
         "--basedir", "output/chip_smoke_train", "--expname", "head"])
-    counts = {"fused_point_mlp": fm.launch_counts["fused_point_mlp"],
-              **fmg.launch_counts}
     steps = res["step"]
+    counts, want = _train_launches(fm, fmg, steps)
     first, last = res["history"][0][1], res["history"][-1][1]
     print(f"phase 8 train_head: {steps} steps on {args.train_frames} frames "
           f"of {args.train_hw}x{args.train_hw}, D=8 W=256 N_rand 2048 64+128; "
@@ -1390,9 +1560,9 @@ def _phase_train(args, fm, fmg, fr) -> dict:
     vals = [first["loss"], last["loss"], first["psnr"], last["psnr"]]
     if not all(math.isfinite(v) for v in vals):
         raise AssertionError("train_head produced a non-finite loss or PSNR")
-    for k, n in counts.items():
-        if n != 2 * steps:
-            raise AssertionError(f"{k} launched {n} times for {steps} steps")
+    if counts != want:
+        raise AssertionError(f"train_head launched {counts} for {steps} "
+                             f"steps, want {want}")
     ck = CheckpointManager(res["ckpt_dir"])
     if ck.latest_step() != steps:
         raise AssertionError(f"no checkpoint at step {steps} in "
@@ -1731,27 +1901,34 @@ def _step_ms(step, n: int, windows: int = 3) -> list:
     return out
 
 
-def _profile_train_step(args):
-    """The phase-8 configuration's ms per step (``_step_ms``: 3 windows of
-    18 steps on a fresh trainer) and one warm step, profiled."""
+def _profile_train_step(args, train_fused: int = 2, phase: str = "8"):
+    """The phase-8 configuration's ms per step at ``train_fused``
+    (``_step_ms``: 3 windows of 18 steps on a fresh trainer) and one warm
+    step, profiled."""
     import torch
 
     from idealnerf_tpu_torch.config import ExperimentConfig
     from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
     from idealnerf_tpu_torch.train.head import HeadTrainer
 
-    cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32)
+    cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32,
+                           train_fused=train_fused)
     ds = make_synthetic_dataset(n_frames=2, H=args.train_hw, W=args.train_hw,
                                 dim_expr=76)
     tr = HeadTrainer(cfg, ds, seed=0, device="cuda")
     step = tr._step_fn(smooth=False)
     ms = _step_ms(lambda i: step(tr.state, tr.data, i % ds.size,
                                  tr.generator), 18)
-    print(f"phase 8 train step: {sorted(ms)[1]:.2f} ms/step, the median of "
-          f"3 windows of 18 steps (each {', '.join(f'{m:.2f}' for m in ms)})")
+    print(f"phase {phase} train step (train_fused {train_fused}): "
+          f"{sorted(ms)[1]:.2f} ms/step, the median of 3 windows of 18 "
+          f"steps (each {', '.join(f'{m:.2f}' for m in ms)})")
+    fname = ("profile_train_step.txt" if train_fused == 2 and phase == "8"
+             else f"profile_train_step_fused{train_fused}.txt")
     prof = _profile(lambda: step(tr.state, tr.data, 0, tr.generator),
                     f"training step ({args.train_hw}x{args.train_hw}, "
-                    "N_rand 2048, 64+128)", "profile_train_step.txt")
+                    f"N_rand 2048, 64+128, train_fused {train_fused})", fname)
+    del tr, step
+    torch.cuda.empty_cache()
     return {**prof, "step_ms": sorted(ms)[1], "step_ms_windows": ms}
 
 
@@ -2471,9 +2648,8 @@ def _phase_subject(args, fm, fmg, fr, dev: str = "cuda", hw: int = 450,
     i_print = 5
     th = train_head.main([*base, "--N_rand", str(rays), "--epochs", "2",
                           "--i_print", str(i_print)])
-    counts = {"fused_point_mlp": fm.launch_counts["fused_point_mlp"],
-              **fmg.launch_counts}
     steps = th["step"]
+    counts, want = _train_launches(fm, fmg, steps)
     recs = _jsonl(os.path.join(logs, "subject_head", "metrics.jsonl"))
     good = ([r["step"] for r in recs] == list(range(i_print, steps + 1,
                                                     i_print))
@@ -2484,7 +2660,7 @@ def _phase_subject(args, fm, fmg, fr, dev: str = "cuda", hw: int = 450,
           f"records at steps {[r['step'] for r in recs]}, keys as the JAX "
           f"CLI's and finite: {good}; loss {recs[-1]['train/loss']:.5f}, "
           f"PSNR {recs[-1]['train/psnr']:.3f}")
-    if any(n != 2 * steps for n in counts.values()) or not good:
+    if counts != want or not good:
         raise AssertionError(f"train_head on the subject: launches {counts} "
                              f"for {steps} steps, records ok {good}")
     res["train_head"] = {"steps": steps, "launches": counts,
@@ -3332,6 +3508,200 @@ def _phase_gates(fr, fm, fmg, dev: str = "cuda", hw: int = 450,
     return res
 
 
+def _grad_gap(got: dict, ref: dict):
+    """(worst norm-relative error, its parameter), (lowest correlation,
+    its parameter) of per-parameter gradients against ``ref``'s."""
+    import torch
+
+    worst, low = (0.0, ""), (1.0, "")
+    for n, g in got.items():
+        r = ref[n]
+        worst = max(worst, (_norm_rel(g, r), n))
+        if g.numel() > 1:  # a one-element bias has no correlation
+            low = min(low, (float(torch.corrcoef(torch.stack(
+                [g.reshape(-1).double(), r.reshape(-1).double()]))[0, 1]),
+                n))
+    return worst, low
+
+
+@contextlib.contextmanager
+def _swapped_backward(fmg):
+    """Inside the block, the training autograd Function's backward runs
+    f32 autograd of the plain MLP (_autograd_packed_grad) in place of the
+    gradient kernels, on the same packed net, points and cotangent. Yields
+    a one-element list that counts the replacement's calls."""
+    kept, calls = fmg.point_mlp_grad, [0]
+
+    def replacement(*a):
+        calls[0] += 1
+        return _autograd_packed_grad(*a)
+
+    fmg.point_mlp_grad = replacement
+    try:
+        yield calls
+    finally:
+        fmg.point_mlp_grad = kept
+
+
+def _phase_train_f32(args, fm, fmg, head_ckpt: str, rays: int = 2048,
+                     dev: str = "cuda") -> dict:
+    """Phase 16: the exact-f32 training path. cli.train_head.main
+    --train_fused 1 (finite loss; K4, the backward and the f32 passes
+    twice a step, the bf16 passes never); the ms per step and a profiled
+    step's idle share at train_fused 1 and 2 (``_profile_train_step``);
+    then one head step (on ``head_ckpt``) and one torso step at
+    train_fused 1 on fixed coordinates, no draws: the same step with the
+    backward swapped for f32 autograd of the plain MLP at the step's own
+    cotangent (_swapped_backward) gives the same loss (1e-6 relative) and
+    every parameter gradient within GRAD_TOL["f32"]["autograd"]; against
+    train_fused 0, whose forward is f32 where K4's is bf16, the loss and
+    gradients are held to phase 12b's bounds (GRAD_TOL["bf16"]), and the
+    same gap at train_fused 2 is printed beside it."""
+    import torch
+
+    from idealnerf_tpu_torch.ckpt import CheckpointManager
+    from idealnerf_tpu_torch.cli import train_head
+    from idealnerf_tpu_torch.config import ExperimentConfig
+    from idealnerf_tpu_torch.data.sampler import sample_ray_coords
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.train.head import make_frame_loss
+    from idealnerf_tpu_torch.train.state import init_params
+    from idealnerf_tpu_torch.train.torso import (
+        make_torso_frame_loss, torso_ray_budget,
+    )
+
+    t_phase = time.perf_counter()
+    H = W = args.train_hw
+    shutil.rmtree("output/chip_smoke_train_f32", ignore_errors=True)
+    fm.reset_launch_counts()
+    fmg.reset_launch_counts()
+    res = train_head.main([
+        "--synthetic", str(args.train_frames), "--synthetic_hw", str(H),
+        "--dim_aud", "64", "--dim_expr", "76", "--dim_latent", "32",
+        "--N_rand", str(rays), "--N_samples", "64", "--N_importance", "128",
+        "--epochs", str(args.train_epochs), "--i_print", "5",
+        "--i_weights", "10", "--device", dev, "--train_fused", "1",
+        "--basedir", "output/chip_smoke_train_f32", "--expname", "head"])
+    steps = res["step"]
+    counts, want = _train_launches(fm, fmg, steps, 1)
+    first, last = res["history"][0][1], res["history"][-1][1]
+    print(f"phase 16 train_head --train_fused 1: {steps} steps on "
+          f"{args.train_frames} frames of {H}x{W}, D=8 W=256 N_rand {rays} "
+          f"64+128; loss {first['loss']:.5f} -> {last['loss']:.5f}, PSNR "
+          f"{first['psnr']:.3f} -> {last['psnr']:.3f}; launches {counts}")
+    vals = [first["loss"], last["loss"], first["psnr"], last["psnr"]]
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError("train_fused 1 produced a non-finite loss")
+    if counts != want:
+        raise AssertionError(f"train_fused 1 launched {counts}, want {want}")
+    out = {"steps": steps, "first": first, "last": last, "launches": counts,
+           "step": {tf: _profile_train_step(args, tf, "16") for tf in (1, 2)}}
+    print("  train step: " + "; ".join(
+        f"train_fused {tf} {r['step_ms']:.2f} ms/step, idle share "
+        f"{r['idle_share']:.3f}" for tf, r in out["step"].items()))
+
+    cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32,
+                           N_rand=rays)
+    ds = make_synthetic_dataset(n_frames=args.train_frames, H=H, W=W,
+                                dim_expr=76, with_torso=True)
+    ck = CheckpointManager(head_ckpt).restore()
+    head = init_params(cfg, ds.size).params
+    head.load_state_dict(ck["params"])
+    head, latent = head.to(dev), ck["latent_codes"].to(dev)
+    data = ds.to_device(dev)
+    torso, _ = _torso_setup(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    head_coords = torch.stack(
+        [torch.randint(0, n, (rays,), generator=gen, device=dev)
+         for n in (H, W)], 1)
+    budget, rect, box = torso_ray_budget(cfg, H, W, dev)
+    torso_coords = sample_ray_coords(
+        torch.Generator(device=dev).manual_seed(1), H, W, rect, box,
+        torch.zeros((H, W), dtype=torch.uint8, device=dev), budget)
+
+    def head_step(c):
+        head.zero_grad(set_to_none=True)
+        loss, _ = make_frame_loss(c, ds, False, dev)(
+            head, latent, data, 1, head_coords, None)
+        loss.backward()
+        return float(loss.detach()), {
+            n: p.grad.detach().clone() for n, p in head.named_parameters()
+            if p.grad is not None}
+
+    def torso_step(c):
+        torso.zero_grad(set_to_none=True)
+        loss, _ = make_torso_frame_loss(c, ds, True, dev)(
+            torso, head, latent, data, 1, torso_coords, None)
+        loss.backward()
+        return float(loss.detach()), {
+            n: p.grad.detach().clone() for n, p in torso.named_parameters()}
+
+    tol_f32 = GRAD_TOL["f32"]["autograd"]
+    tol, ltol = GRAD_TOL["bf16"]["autograd"], GRAD_TOL["bf16"]["plain"]
+    min_corr = 1.0 - tol ** 2 / 2
+    def counted(step, tf):
+        fmg.reset_launch_counts()
+        return step(dataclasses.replace(cfg, train_fused=tf)), dict(
+            fmg.launch_counts)
+
+    for name, step in (("head", head_step), ("torso", torso_step)):
+        runs, launches = {}, {}
+        for tf in (1, 0, 2):
+            runs[tf], launches[tf] = counted(step, tf)
+        with _swapped_backward(fmg) as calls:
+            runs["swap"], launches["swap"] = counted(step, 1)
+        k1, ks = launches[1], launches["swap"]
+        print(f"  {name} step launches at train_fused 1: {k1}; with the "
+              f"backward swapped: {ks}, the replacement called {calls[0]} "
+              "times")
+        if not (k1["fused_point_mlp_grad"] > 0
+                and k1["grad_pass_a_f32"] == k1["grad_pass_b_f32"]
+                == k1["fused_point_mlp_grad"]
+                and k1["grad_pass_a"] == k1["grad_pass_b"] == 0):
+            raise AssertionError(f"the train_fused 1 {name} step did not run "
+                                 f"the f32 passes: {k1}")
+        if not (calls[0] == k1["fused_point_mlp_grad"]
+                and not any(ks.values())):
+            raise AssertionError(f"the swapped {name} step did not run the "
+                                 f"replacement alone: {ks}, {calls[0]} calls")
+        (l1, g1), (l0, g0) = runs[1], runs[0]
+        swap_l = abs(l1 - runs["swap"][0]) / abs(l1)
+        swap, _ = _grad_gap(g1, runs["swap"][1])
+        gap1, low1 = _grad_gap(g1, g0)
+        gap2, low2 = _grad_gap(runs[2][1], g0)
+        lerr = abs(l1 - l0) / abs(l0)
+        print(f"  {name} step at train_fused 1 ({len(g1)} parameters): with "
+              f"the backward swapped for f32 autograd of the plain MLP at "
+              f"its cotangent, loss {l1:.6f} vs {runs['swap'][0]:.6f} "
+              f"(relative {swap_l:.2e}, tol 1e-6; bitwise "
+              f"{l1 == runs['swap'][0]}), worst gradient norm-relative "
+              f"{swap[0]:.3e} ({swap[1]}; tol {tol_f32:g}); against "
+              f"train_fused 0: loss {l0:.6f} (relative {lerr:.2e}, tol "
+              f"{ltol:g}), worst gradient {gap1[0]:.3e} ({gap1[1]}; tol "
+              f"{tol:g}), lowest correlation {low1[0]:.6f} (> "
+              f"{min_corr:.5f}); train_fused 2 against 0: worst "
+              f"{gap2[0]:.3e} ({gap2[1]}), lowest correlation "
+              f"{low2[0]:.6f}")
+        if not (swap_l <= 1e-6 and swap[0] <= tol_f32):
+            raise AssertionError(f"the f32 backward of a {name} step "
+                                 "disagrees with f32 autograd")
+        if not (lerr <= ltol and gap1[0] <= tol and low1[0] > min_corr):
+            raise AssertionError(f"the train_fused 1 {name} step disagrees "
+                                 "with train_fused 0")
+        out[name] = {"vs_autograd_backward": {"loss_rel": swap_l,
+                                              "worst": swap},
+                     "vs_train_fused_0": {"loss_rel": lerr, "worst": gap1,
+                                          "lowest_corr": low1},
+                     "train_fused_2_vs_0": {"worst": gap2,
+                                            "lowest_corr": low2}}
+        del runs
+    del head, torso, data
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rays", type=int, default=8192)
@@ -3590,6 +3960,10 @@ def main(argv=None) -> int:
     res15 = _phase_gates(fr, fm, fmg)
     report["gates"] = res15
 
+    # ---- phase 16: the exact-f32 training path (train_fused 1)
+    res16 = _phase_train_f32(args, fm, fmg, res8["ckpt_dir"])
+    report["train_f32"] = res16
+
     # launches on the main paths: render_val and the composite reenact
     # (K1, K2), train_head and train_torso (K4, K6), serve head-only and
     # composite (K3)
@@ -3629,14 +4003,24 @@ def main(argv=None) -> int:
     # the frame's kernels at their path's launch shape, a whole frame
     frame_res = res2["450x450 frame"]
     times = {k: (r["ms"], r["plain_ms"]) for k, r in frame_res.items()}
+    f32 = res7[f"f32_{args.points}"]
     times.update(fused_point_mlp=(res6["ms"], res6["plain_ms"]),
                  fused_point_mlp_grad=(res7["ms"], res7["plain_ms"]),
+                 grad_pass_a_f32=(f32["pass_a_ms"], f32["pass_a_plain_ms"]),
+                 grad_pass_b_f32=(f32["pass_b_ms"], f32["pass_b_plain_ms"]),
                  fused_render_delta=(res9["ms"], res9["plain_ms"]))
+    # the f32 passes' launches on their path: phase 16's train_head run
+    for k in ("grad_pass_a_f32", "grad_pass_b_f32"):
+        counts[k] = res16["launches"][k]
+    errs.update(grad_pass_a_f32=max(f32["pass_a_err"],
+                                    res7["pass_a_f32_1001_err"]),
+                grad_pass_b_f32=f32["pass_b_err"])
     bounds = {
         **{k: {f: r[f] for f in ("bound_ms", "bound_by")}
            for k, r in frame_res.items()},
         "fused_point_mlp": {k: res6[k] for k in ("bound_ms", "bound_by")},
-        "fused_point_mlp_grad": _point_bound(ncfg, args.points, 3, True),
+        "fused_point_mlp_grad": _point_bound(ncfg, args.points, True),
+        "grad_pass_a_f32": f32["bound_a"], "grad_pass_b_f32": f32["bound_b"],
         "fused_render_delta": {k: res9[k] for k in ("bound_ms", "bound_by")},
     }
     # no single PyTorch call computes K1-K6; the library column of K1-K3 is

@@ -150,22 +150,21 @@ def load_library() -> ctypes.CDLL:
                                 i32, i32, vp]
     lib.kd_render_b.restype = i32
     i64 = ctypes.c_longlong
-    lib.fr_point_mlp_grad_smem_bytes.argtypes = []
-    lib.fr_point_mlp_grad_smem_bytes.restype = ctypes.c_ulonglong
-    lib.fr_point_mlp_grad.argtypes = [
-        vp, vp, vp, vp, i64, vp, vp, i64, i32, i32, slots,
-        ctypes.POINTER(i64), i32, i32, i32, i32, vp]
-    lib.fr_point_mlp_grad.restype = i32
-    lib.fr_grad_pass_a_smem_bytes.argtypes = [i32, i32, i32]
-    lib.fr_grad_pass_a_smem_bytes.restype = ctypes.c_ulonglong
-    lib.fr_grad_pass_b_smem_bytes.argtypes = []
-    lib.fr_grad_pass_b_smem_bytes.restype = ctypes.c_ulonglong
-    lib.fr_grad_pass_a.argtypes = [
-        vp, vp, vp, vp, ctypes.POINTER(i64), vp, i32, i32, slots, i32, i32,
-        i32, i32, vp, i32, i32, vp]
-    lib.fr_grad_pass_a.restype = i32
-    lib.fr_grad_pass_b.argtypes = [
-        vp, ctypes.POINTER(i64), vp, i32, vp, vp, i64, i32, i32,
-        ctypes.POINTER(i64), i32, i32, vp]
-    lib.fr_grad_pass_b.restype = i32
+    # the gradient kernels' two passes, bf16 and f32 (the same arguments)
+    for sfx in ("", "_f32"):
+        getattr(lib, f"fr_grad_pass_a{sfx}_smem_bytes").argtypes = [i32, i32,
+                                                                   i32]
+        getattr(lib, f"fr_grad_pass_a{sfx}_smem_bytes").restype = (
+            ctypes.c_ulonglong)
+        getattr(lib, f"fr_grad_pass_b{sfx}_smem_bytes").argtypes = []
+        getattr(lib, f"fr_grad_pass_b{sfx}_smem_bytes").restype = (
+            ctypes.c_ulonglong)
+        getattr(lib, f"fr_grad_pass_a{sfx}").argtypes = [
+            vp, vp, vp, vp, ctypes.POINTER(i64), vp, i32, i32, slots, i32,
+            i32, i32, i32, vp, i32, i32, vp]
+        getattr(lib, f"fr_grad_pass_a{sfx}").restype = i32
+        getattr(lib, f"fr_grad_pass_b{sfx}").argtypes = [
+            vp, ctypes.POINTER(i64), vp, i32, vp, vp, i64, i32, i32,
+            ctypes.POINTER(i64), i32, i32, vp]
+        getattr(lib, f"fr_grad_pass_b{sfx}").restype = i32
     return lib

@@ -12,10 +12,14 @@
 // w_rgb^T), while the cotangent rounded to the gradient type feeds the
 // heads' weight-gradient products; each d_h is rounded before its
 // products; bias gradients are column sums of the unrounded f32 d_h; relu'
-// is h > 0 on the recomputed, rounded post-activation. Neither uses float
-// atomics: the same inputs on the same card give bitwise-equal gradients.
+// is h > 0 on the recomputed, rounded post-activation (in f32 every
+// rounding is the identity). Neither uses float atomics: the same inputs on
+// the same card give bitwise-equal gradients. Each variant is two passes:
+// pass A recomputes and runs d_h back, writing every operand of the weight
+// gradients of all N points to planes in device memory; pass B computes
+// every weight gradient as one long-K product over those points.
 //
-// bf16 (the training default): two passes.
+// bf16 (the training default):
 // - k_grad_pass_a: the recompute and the d_h chain on the wgmma chain of
 //   chain.cuh, with no weight-gradient product. One block per SM walks a
 //   contiguous run of 128-point tiles (the point kernels' plan,
@@ -62,332 +66,45 @@
 // - k_bias_partials sums the per-tile bias rows of a chunk; k_reduce_slabs
 //   adds the chunks' partials in chunk order.
 //
-// f32 (train_fused 1): k_point_mlp_grad<float>, one kernel. Each block walks
-// the tiles b, b+B, ... and accumulates into its own f32 slab of every
-// gradient; k_reduce_slabs sums the B slabs in block order. Products are
-// f32 FMAs on the CUDA cores (TF32 would keep 10 mantissa bits where this
-// variant must match f32 autograd); the activations of a tile go to a
-// per-block scratch in global memory.
-#include <type_traits>
-
+// f32 (train_fused 1): the products are f32 FFMAs on the CUDA cores (TF32
+// keeps 10 mantissa bits, where this variant must match f32 autograd), so
+// it is bound by the card's f32 rate: 3 multiply-add passes over the MLP,
+// about 1.7 M a point.
+// - k_grad_pass_a_f32: one block per SM walks a contiguous run of 64-point
+//   tiles. Its producer thread streams the net's f32 weight stream
+//   (kernels/fused_mlp_grad.py: grad_weight_stream_f32) once per tile
+//   through a ring of 16 KB stages by cp.async.bulk on mbarriers (the
+//   chain's chain_produce): row-major K-slabs of 16 rows of a 256-wide
+//   matrix or 32 rows of a 128-wide one, forward then the transposed
+//   matrices of the backward (265 stages for the paper model). The 8
+//   consumer warps keep the tile's activation (the A operand, row-major
+//   64 x 256 f32), PE and dir-PE in shared memory; each thread holds an
+//   8 x 8 register block (warp w rows 8w..8w+7, lane l columns 4l..4l+3
+//   and 128+4l..128+4l+3) and runs 64 FFMAs per k on broadcast float4
+//   loads of A and conflict-free float4 loads of B. relu' bits stay in
+//   shared memory (64 per thread and layer); each epilogue writes its
+//   tile to the planes by streaming stores (st.global.cs) and, in the
+//   backward, the tile's bias column sums (rows in order, then warps in
+//   order) to a per-tile row.
+// - k_grad_pass_b_f32: every weight gradient as X^T @ D over the points.
+//   The grid is (128 x 128 output tile, chunk of point tiles); slabs of 32
+//   points of both operands are staged by cp.async into a 3-stage ring,
+//   and each thread sums an 8 x 8 register block over the chunk's points
+//   in order, one partial per chunk.
+// - k_bias_partials and k_reduce_slabs, as for bf16.
 #include "chain.cuh"
 
 namespace fr {
 
 constexpr int GP = P;  // points per backward tile
 
-// Float offset of each operand's gradient inside a block's slab; -1 for an
-// absent slot.
+// Float offset of each operand's gradient inside a chunk's partial; -1 for
+// an absent slot.
 struct GradTable {
   long long off[NSLOTS];
 };
 
-template <typename T>
-__device__ __forceinline__ T to_t(float x);
-template <>
-__device__ __forceinline__ bf16 to_t<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ float to_t<float>(float x) {
-  return x;
-}
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-// C (M x N, f32, row-major ldc) = [C +] op(A) (M x K) @ op(B) (K x N), where
-// op(A)(i, k) = TA ? A[k * lda + i] : A[i * lda + k], and likewise for B:
-// f32 FMAs, 4x4 outputs per thread, k ascending.
-template <bool TA, bool TB>
-__device__ void gemm_f32(float* C, int ldc, bool acc, const float* A,
-                         int lda, const float* B, int ldb, int M, int N,
-                         int K, int tid) {
-  const int bn = N / 4;
-  const int nblk = (M / 4) * bn;
-  for (int t = tid; t < nblk; t += NTHREADS) {
-    const int i0 = (t / bn) * 4, j0 = (t % bn) * 4;
-    float c[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        c[r][s] = acc ? C[static_cast<size_t>(i0 + r) * ldc + j0 + s] : 0.f;
-    for (int k = 0; k < K; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        a[r] = TA ? A[static_cast<size_t>(k) * lda + i0 + r]
-                  : A[static_cast<size_t>(i0 + r) * lda + k];
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        b[s] = TB ? B[static_cast<size_t>(j0 + s) * ldb + k]
-                  : B[static_cast<size_t>(k) * ldb + j0 + s];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) c[r][s] = fmaf(a[r], b[s], c[r][s]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        C[static_cast<size_t>(i0 + r) * ldc + j0 + s] = c[r][s];
-  }
-}
-
-// Every product of the f32 kernel; the caller synchronises afterwards.
-template <typename T, bool TA, bool TB>
-__device__ __forceinline__ void gemm(float* C, int ldc, bool acc, const T* A,
-                                     int lda, const T* B, int ldb, int M,
-                                     int N, int K, int warp, int tid) {
-  static_assert(std::is_same<T, float>::value,
-                "bf16 products run on the wgmma chain (pass A, pass B)");
-  gemm_f32<TA, TB>(C, ldc, acc, A, lda, B, ldb, M, N, K, tid);
-}
-
-template <typename T>
-struct GradSmem {
-  T* pe;      // (GP, PE_PAD)
-  T* ped;     // (GP, PED_PAD)
-  T* gb;      // (GP, HEADS) cotangent rounded to T, zero past lane 3
-  float* g;   // (GP, 4) cotangent
-  float* dh;  // (GP, W) f32 d_h
-  float* dx;  // (GP, W) f32 product output / d_hv
-  T* dc;      // (GP, W) d_h rounded to T
-};
-
-template <typename T>
-__host__ __device__ inline size_t grad_smem_layout(char* base,
-                                                   GradSmem<T>* gs) {
-  const size_t sz[7] = {sizeof(T) * GP * PE_PAD, sizeof(T) * GP * PED_PAD,
-                        sizeof(T) * GP * HEADS,  sizeof(float) * GP * 4,
-                        sizeof(float) * GP * W,  sizeof(float) * GP * W,
-                        sizeof(T) * GP * W};
-  size_t off[7];
-  size_t total = 0;
-  for (int i = 0; i < 7; ++i) {
-    off[i] = total;
-    total += (sz[i] + 127) & ~static_cast<size_t>(127);
-  }
-  if (gs != nullptr) {
-    gs->pe = reinterpret_cast<T*>(base + off[0]);
-    gs->ped = reinterpret_cast<T*>(base + off[1]);
-    gs->gb = reinterpret_cast<T*>(base + off[2]);
-    gs->g = reinterpret_cast<float*>(base + off[3]);
-    gs->dh = reinterpret_cast<float*>(base + off[4]);
-    gs->dx = reinterpret_cast<float*>(base + off[5]);
-    gs->dc = reinterpret_cast<T*>(base + off[6]);
-  }
-  return total;
-}
-
-template <typename T>
-__device__ __forceinline__ const T* op(const Net& n, int s) {
-  return static_cast<const T*>(n.slot[s]);
-}
-
-// dst (GP x width, T) = relu(src + bias) rounded to T.
-template <typename T>
-__device__ void relu_store(T* dst, const float* src, const float* bias,
-                           int width, int tid) {
-  for (int e = tid; e < GP * width; e += NTHREADS)
-    dst[e] = to_t<T>(fmaxf(src[e] + bias[e % width], 0.f));
-}
-
-// d (GP x width, f32) *= (h > 0) in place, and dc = d rounded to T.
-template <typename T>
-__device__ void mask_round(float* d, const T* h, T* dc, int width, int tid) {
-  for (int e = tid; e < GP * width; e += NTHREADS) {
-    const float v = to_f(h[e]) > 0.f ? d[e] : 0.f;
-    d[e] = v;
-    dc[e] = to_t<T>(v);
-  }
-}
-
-// gb[j] += column sums of d (GP x width), rows in order.
-__device__ void colsum_add(float* gb, const float* d, int width, int tid) {
-  for (int j = tid; j < width; j += NTHREADS) {
-    float s = 0.f;
-    for (int p = 0; p < GP; ++p) s += d[p * width + j];
-    gb[j] += s;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS, 1)
-k_point_mlp_grad(Net net, GradTable gt, const float* __restrict__ pts,
-                 const float* __restrict__ dirs, const float* __restrict__ gin,
-                 T* __restrict__ act, long long act_stride,
-                 float* __restrict__ slabs, long long slab_stride, int N) {
-  extern __shared__ __align__(128) char smem[];
-  GradSmem<T> sm;
-  grad_smem_layout<T>(smem, &sm);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int D = net.depth, NV = net.n_views;
-  T* hs = act + blockIdx.x * act_stride;  // D x (GP, W)
-  T* hv = hs + static_cast<size_t>(D) * GP * W;  // NV x (GP, WV)
-  float* slab = slabs + blockIdx.x * slab_stride;
-  auto grad = [&](int s) { return slab + gt.off[s]; };
-  auto H = [&](int i) { return hs + static_cast<size_t>(i) * GP * W; };
-  auto HV = [&](int v) { return hv + static_cast<size_t>(v) * GP * WV; };
-  const int n_tiles = (N + GP - 1) / GP;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int p0 = tile * GP;
-    const int n = min(GP, N - p0);
-
-    // ---- inputs; rows past N get a zero cotangent and contribute nothing
-    for (int e = tid; e < GP * PE_PAD; e += NTHREADS) {
-      const int row = e / PE_PAD, k = e - row * PE_PAD;
-      float v = 0.f;
-      if (row < n) {
-        const float* x = pts + static_cast<size_t>(p0 + row) * 3;
-        const float xx[3] = {x[0], x[1], x[2]};
-        v = pe_lane(xx, k, net.multires);
-      }
-      sm.pe[e] = to_t<T>(v);
-    }
-    for (int e = tid; e < GP * PED_PAD; e += NTHREADS) {
-      const int row = e / PED_PAD, k = e - row * PED_PAD;
-      float v = 0.f;
-      if (row < n) {
-        const float* d = dirs + static_cast<size_t>(p0 + row) * 3;
-        const float dd[3] = {d[0], d[1], d[2]};
-        v = pe_lane(dd, k, net.multires_views);
-      }
-      sm.ped[e] = to_t<T>(v);
-    }
-    for (int e = tid; e < GP * HEADS; e += NTHREADS) {
-      const int row = e / HEADS, c = e - row * HEADS;
-      const float v =
-          (row < n && c < 4) ? gin[static_cast<size_t>(p0 + row) * 4 + c] : 0.f;
-      if (c < 4) sm.g[row * 4 + c] = v;
-      sm.gb[e] = to_t<T>(v);
-    }
-    __syncthreads();
-
-    // ---- forward recompute, every activation kept in the block's scratch
-    gemm<T, false, false>(sm.dx, W, false, sm.pe, PE_PAD, op<T>(net, SLOT_W),
-                          W, GP, W, PE_PAD, warp, tid);
-    __syncthreads();
-    relu_store<T>(H(0), sm.dx, fvec(net, SLOT_B), W, tid);
-    __syncthreads();
-    for (int i = 1; i < D; ++i) {
-      const bool skip = net.slot[SLOT_WSKIP + i] != nullptr;
-      if (skip) {
-        gemm<T, false, false>(sm.dx, W, false, sm.pe, PE_PAD,
-                              op<T>(net, SLOT_WSKIP + i), W, GP, W, PE_PAD,
-                              warp, tid);
-        __syncthreads();
-      }
-      gemm<T, false, false>(sm.dx, W, skip, H(i - 1), W,
-                            op<T>(net, SLOT_W + i), W, GP, W, W, warp, tid);
-      __syncthreads();
-      relu_store<T>(H(i), sm.dx, fvec(net, SLOT_B + i), W, tid);
-      __syncthreads();
-    }
-    gemm<T, false, false>(sm.dx, WV, false, H(D - 1), W, op<T>(net, SLOT_WV),
-                          WV, GP, WV, W, warp, tid);
-    __syncthreads();
-    gemm<T, false, false>(sm.dx, WV, true, sm.ped, PED_PAD,
-                          op<T>(net, SLOT_WV0D), WV, GP, WV, PED_PAD, warp,
-                          tid);
-    __syncthreads();
-    relu_store<T>(HV(0), sm.dx, fvec(net, SLOT_BV), WV, tid);
-    __syncthreads();
-    for (int v = 1; v < NV; ++v) {
-      gemm<T, false, false>(sm.dx, WV, false, HV(v - 1), WV,
-                            op<T>(net, SLOT_WV + v), WV, GP, WV, WV, warp,
-                            tid);
-      __syncthreads();
-      relu_store<T>(HV(v), sm.dx, fvec(net, SLOT_BV + v), WV, tid);
-      __syncthreads();
-    }
-
-    // ---- heads: raw = h @ w_alpha + hv @ w_rgb + b_heads
-    gemm<T, true, false>(grad(SLOT_WALPHA), HEADS, true, H(D - 1), W, sm.gb,
-                         HEADS, W, HEADS, GP, warp, tid);
-    gemm<T, true, false>(grad(SLOT_WRGB), HEADS, true, HV(NV - 1), WV, sm.gb,
-                         HEADS, WV, HEADS, GP, warp, tid);
-    for (int c = tid; c < 4; c += NTHREADS) {
-      float s = 0.f;
-      for (int p = 0; p < GP; ++p) s += sm.g[p * 4 + c];
-      grad(SLOT_BHEADS)[c] += s;
-    }
-    {
-      // d_h = g @ w_alpha^T, d_hv = g @ w_rgb^T with the unrounded f32 g
-      const T* wa = op<T>(net, SLOT_WALPHA);
-      const T* wr = op<T>(net, SLOT_WRGB);
-      for (int e = tid; e < GP * W; e += NTHREADS) {
-        const int p = e / W, j = e - p * W;
-        float s = 0.f;
-        for (int c = 0; c < 4; ++c)
-          s += sm.g[p * 4 + c] * to_f(wa[j * HEADS + c]);
-        sm.dh[e] = s;
-      }
-      for (int e = tid; e < GP * WV; e += NTHREADS) {
-        const int p = e / WV, j = e - p * WV;
-        float s = 0.f;
-        for (int c = 0; c < 4; ++c)
-          s += sm.g[p * 4 + c] * to_f(wr[j * HEADS + c]);
-        sm.dx[e] = s;
-      }
-    }
-    __syncthreads();
-
-    // ---- view branch backward (d_hv in sm.dx, ld WV)
-    for (int v = NV - 1; v >= 1; --v) {
-      mask_round<T>(sm.dx, HV(v), sm.dc, WV, tid);
-      __syncthreads();
-      colsum_add(grad(SLOT_BV + v), sm.dx, WV, tid);
-      gemm<T, true, false>(grad(SLOT_WV + v), WV, true, HV(v - 1), WV, sm.dc,
-                           WV, WV, WV, GP, warp, tid);
-      __syncthreads();
-      gemm<T, false, true>(sm.dx, WV, false, sm.dc, WV,
-                           op<T>(net, SLOT_WV + v), WV, GP, WV, WV, warp, tid);
-      __syncthreads();
-    }
-    mask_round<T>(sm.dx, HV(0), sm.dc, WV, tid);
-    __syncthreads();
-    colsum_add(grad(SLOT_BV), sm.dx, WV, tid);
-    gemm<T, true, false>(grad(SLOT_WV), WV, true, H(D - 1), W, sm.dc, WV, W,
-                         WV, GP, warp, tid);
-    gemm<T, true, false>(grad(SLOT_WV0D), WV, true, sm.ped, PED_PAD, sm.dc,
-                         WV, PED_PAD, WV, GP, warp, tid);
-    gemm<T, false, true>(sm.dh, W, true, sm.dc, WV, op<T>(net, SLOT_WV), WV,
-                         GP, W, WV, warp, tid);
-    __syncthreads();
-
-    // ---- trunk backward (d_h ping-pongs between sm.dh and sm.dx)
-    float* dh = sm.dh;
-    float* dn = sm.dx;
-    for (int i = D - 1; i >= 1; --i) {
-      mask_round<T>(dh, H(i), sm.dc, W, tid);
-      __syncthreads();
-      colsum_add(grad(SLOT_B + i), dh, W, tid);
-      gemm<T, true, false>(grad(SLOT_W + i), W, true, H(i - 1), W, sm.dc, W,
-                           W, W, GP, warp, tid);
-      if (net.slot[SLOT_WSKIP + i] != nullptr)
-        gemm<T, true, false>(grad(SLOT_WSKIP + i), W, true, sm.pe, PE_PAD,
-                             sm.dc, W, PE_PAD, W, GP, warp, tid);
-      __syncthreads();
-      gemm<T, false, true>(dn, W, false, sm.dc, W, op<T>(net, SLOT_W + i), W,
-                           GP, W, W, warp, tid);
-      __syncthreads();
-      float* t = dh;
-      dh = dn;
-      dn = t;
-    }
-    mask_round<T>(dh, H(0), sm.dc, W, tid);
-    __syncthreads();
-    colsum_add(grad(SLOT_B), dh, W, tid);
-    gemm<T, true, false>(grad(SLOT_W), W, true, sm.pe, PE_PAD, sm.dc, W,
-                         PE_PAD, W, GP, warp, tid);
-    __syncthreads();
-  }
-}
-
-// out[e] = sum of the slabs' element e, in block order.
+// out[e] = sum of the slabs' (chunks' partials') element e, in order.
 __global__ void k_reduce_slabs(const float* __restrict__ slabs,
                                float* __restrict__ out, long long G,
                                int n_slabs) {
@@ -1013,47 +730,559 @@ static bool add_tasks(BTask* task, int* n, int xp, int xw, int yp, int yw,
   return true;
 }
 
-static int launch_grad_f32(const Net& net, const GradTable& gt,
-                           const float* pts, const float* dirs,
-                           const float* g, void* act, long long act_stride,
-                           float* slabs, float* out, long long G,
-                           int n_blocks, int N, cudaStream_t stream) {
-  const size_t bytes = grad_smem_layout<float>(nullptr, nullptr);
-  cudaError_t err = prepare(k_point_mlp_grad<float>, bytes);
+// The chunks' bias partials from the per-tile bias rows, then out = the
+// partials summed in chunk order (both variants' last two kernels).
+static int finish(const float* bias, int NB, int n_tiles, int n_chunks,
+                  const long long* grad_offsets, int D, int NV,
+                  float* partials, float* out, long long G, cudaStream_t s) {
+  GradTable gt;
+  for (int i = 0; i < NSLOTS; ++i) gt.off[i] = grad_offsets[i];
+  k_bias_partials<<<dim3((NB + 255) / 256, n_chunks), 256, 0, s>>>(
+      bias, NB, n_tiles, n_chunks, gt, D, NV, partials, G);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  k_point_mlp_grad<float><<<n_blocks, NTHREADS, bytes, stream>>>(
-      net, gt, pts, dirs, g, static_cast<float*>(act), act_stride, slabs, G,
-      N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return reduce(slabs, out, G, n_blocks, stream);
+  return reduce(partials, out, G, n_chunks, s);
+}
+
+// ------------------------------------------------ f32, two passes
+//
+// The f32 operand buffer: plane j is row-major, tiles * GP rows of F_j
+// floats at float offset off[j] (kernels/fused_mlp_grad.py:
+// grad_planes_f32), with the bf16 buffer's plane indices and F_j =
+// PE_PAD, PED_PAD, HEADS for PE, PED, GB, then W or WV. Pass A writes every
+// row of every tile, rows past N from zero inputs and a zero cotangent, so
+// their d_h rows are zero and pass B reads whole tiles.
+
+// ---- pass A f32: the recompute and the d_h chain on FFMAs
+
+constexpr int F_CONSUMERS = 256;               // 8 consumer warps
+constexpr int F_THREADS = F_CONSUMERS + 32;    // + the producer warp
+constexpr int F_STAGE = STAGE_BYTES / 4;       // floats per weight stage
+constexpr int F_KW = F_STAGE / W, F_KV = F_STAGE / WV;  // K-rows a stage
+constexpr int F_BAR = 1;                       // the consumers' barrier
+// activation tile, PE, dir-PE and the column sums' scratch (8 warps x W)
+constexpr size_t F_TILE_BYTES = 4 * (GP * W + GP * PE_PAD + GP * PED_PAD +
+                                     NWARP * W);
+static_assert(CONSUMER_WARPS == F_CONSUMERS / 32 && NWARP == 8,
+              "each consumer warp releases a stage once");
+
+// relu' bits: 64 a thread (8 bytes) per trunk and per view layer
+__host__ __device__ inline size_t f32_mask_bytes(int depth, int n_views) {
+  return 8 * F_CONSUMERS * static_cast<size_t>(depth + n_views);
+}
+
+// 1,024 bytes to align the base, the ring, the tiles, the relu' bits, then
+// the ring's mbarriers.
+__host__ __device__ inline size_t pass_a_f32_smem_bytes(int n_ring,
+                                                        int depth,
+                                                        int n_views) {
+  return 1024 + static_cast<size_t>(n_ring) * STAGE_BYTES + F_TILE_BYTES +
+         f32_mask_bytes(depth, n_views) + 16 * MAX_RING;
+}
+
+// Stages of pass A f32's weight stream per tile: layer 0, each later
+// layer's skip pe-part then its h-part, view layer 0's h-part and dir-PE
+// part, the later view layers; then WV_v^T for v = NV-1..1, WV_0^T's
+// h-part and W_i^T for i = D-1..1 (265 for the paper model).
+inline int f32_stages(const unsigned long long* slots, int depth,
+                      int n_views) {
+  int n = PE_PAD / F_KW;
+  for (int i = 1; i < depth; ++i)
+    n += W / F_KW + (slots[SLOT_WSKIP + i] ? PE_PAD / F_KW : 0);
+  n += W / F_KV + PED_PAD / F_KV + (n_views - 1) * (WV / F_KV);
+  return n + (n_views - 1) * (WV / F_KV) + WV / F_KW + (depth - 1) * (W / F_KW);
+}
+
+// A consumer's view of the weight ring: `it` counts the stages taken.
+struct FRing {
+  const char* stages;  // generic address of stage 0
+  uint32_t bars, n, it;
+};
+
+__device__ __forceinline__ const float* fring_take(const FRing& r) {
+  const uint32_t s = r.it % r.n;
+  mbar_wait(r.bars + 8 * s, (r.it / r.n) & 1);
+  return reinterpret_cast<const float*>(r.stages + s * STAGE_BYTES);
+}
+// After the warp's last read of the stage taken: one arrival per warp.
+__device__ __forceinline__ void fring_release(FRing& r) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0)
+    mbar_arrive(r.bars + 8 * (MAX_RING + r.it % r.n));
+  ++r.it;
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// acc[i][4 c + q] += sum over k < K of A[8 w + i][k] * B[k][128 c + 4 l + q]
+// for the thread's 8 rows (warp w) and 4 NC columns (lane l). A: a
+// row-major f32 tile in shared memory (lda floats); B: the next K rows of
+// the weight stream, stages of F_STAGE / (128 NC) rows of 128 NC floats.
+// k ascending, one FFMA each; A by float4 loads along k that the warp
+// broadcasts, B by float4 loads of consecutive columns (no bank conflict).
+template <int NC>
+__device__ __forceinline__ void fprod(float (&acc)[8][8], FRing& r,
+                                      const float* A, int lda, int K, int w,
+                                      int l) {
+  constexpr int WIDTH = 128 * NC, KS = F_STAGE / WIDTH;
+  const float* rows = A + 8 * w * lda;
+  for (int k0 = 0; k0 < K; k0 += KS) {
+    const float* B = fring_take(r) + 4 * l;
+#pragma unroll 2
+    for (int k4 = 0; k4 < KS; k4 += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(rows + i * lda + k0 + k4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float4 b[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          b[c] = *reinterpret_cast<const float4*>(B + (k4 + q) * WIDTH +
+                                                  128 * c);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float x = lane4(a[i], q);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            acc[i][4 * c] = fmaf(x, b[c].x, acc[i][4 * c]);
+            acc[i][4 * c + 1] = fmaf(x, b[c].y, acc[i][4 * c + 1]);
+            acc[i][4 * c + 2] = fmaf(x, b[c].z, acc[i][4 * c + 2]);
+            acc[i][4 * c + 3] = fmaf(x, b[c].w, acc[i][4 * c + 3]);
+          }
+        }
+      }
+    }
+    fring_release(r);
+  }
+}
+
+// The forward's epilogue of a layer of 128 NC columns: h = relu(acc +
+// bias) into the activation tile and to the plane rows at dst (both
+// row-major, 128 NC floats a row; streaming stores to dst) -> the relu'
+// bits, bit 4 NC i + 4 c + q for acc[i][4 c + q]. acc ends zeroed.
+template <int NC>
+__device__ __forceinline__ unsigned long long fwd_store(
+    float (&acc)[8][8], const float* __restrict__ bias, float* act,
+    float* __restrict__ dst, int w, int l) {
+  constexpr int WIDTH = 128 * NC;
+  float4 b[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    b[c] = __ldg(reinterpret_cast<const float4*>(bias + 128 * c + 4 * l));
+  unsigned long long bits = 0ull;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float4 h = make_float4(fmaxf(acc[i][4 * c] + b[c].x, 0.f),
+                                   fmaxf(acc[i][4 * c + 1] + b[c].y, 0.f),
+                                   fmaxf(acc[i][4 * c + 2] + b[c].z, 0.f),
+                                   fmaxf(acc[i][4 * c + 3] + b[c].w, 0.f));
+      const unsigned long long m =
+          (h.x > 0.f ? 1ull : 0ull) | (h.y > 0.f ? 2ull : 0ull) |
+          (h.z > 0.f ? 4ull : 0ull) | (h.w > 0.f ? 8ull : 0ull);
+      bits |= m << (4 * NC * i + 4 * c);
+      const int off = (8 * w + i) * WIDTH + 128 * c + 4 * l;
+      *reinterpret_cast<float4*>(act + off) = h;
+      __stcs(reinterpret_cast<float4*>(dst + off), h);
+      acc[i][4 * c] = acc[i][4 * c + 1] = 0.f;
+      acc[i][4 * c + 2] = acc[i][4 * c + 3] = 0.f;
+    }
+  return bits;
+}
+
+// The backward's epilogue of a layer of 128 NC columns: d = acc masked by
+// the relu' bits into the activation tile (the next product's A) and to the
+// plane rows at dst; brow[0, 128 NC) = the column sums of d, each thread's
+// 8 rows in order, then the 8 warps in order through part. acc ends
+// zeroed. The caller has passed the barrier after the tile's last reads;
+// the barrier here publishes the tile and part.
+template <int NC>
+__device__ __forceinline__ void bwd_store(float (&acc)[8][8],
+                                          unsigned long long bits,
+                                          float* act,
+                                          float* __restrict__ dst,
+                                          float* part,
+                                          float* __restrict__ brow, int w,
+                                          int l, int tid) {
+  constexpr int WIDTH = 128 * NC;
+  float s[4 * NC];
+#pragma unroll
+  for (int j = 0; j < 4 * NC; ++j) s[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int bit = 4 * NC * i + 4 * c;
+      const float4 d =
+          make_float4((bits >> bit) & 1ull ? acc[i][4 * c] : 0.f,
+                      (bits >> (bit + 1)) & 1ull ? acc[i][4 * c + 1] : 0.f,
+                      (bits >> (bit + 2)) & 1ull ? acc[i][4 * c + 2] : 0.f,
+                      (bits >> (bit + 3)) & 1ull ? acc[i][4 * c + 3] : 0.f);
+      s[4 * c] += d.x;
+      s[4 * c + 1] += d.y;
+      s[4 * c + 2] += d.z;
+      s[4 * c + 3] += d.w;
+      const int off = (8 * w + i) * WIDTH + 128 * c + 4 * l;
+      *reinterpret_cast<float4*>(act + off) = d;
+      __stcs(reinterpret_cast<float4*>(dst + off), d);
+      acc[i][4 * c] = acc[i][4 * c + 1] = 0.f;
+      acc[i][4 * c + 2] = acc[i][4 * c + 3] = 0.f;
+    }
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    *reinterpret_cast<float4*>(part + w * WIDTH + 128 * c + 4 * l) =
+        make_float4(s[4 * c], s[4 * c + 1], s[4 * c + 2], s[4 * c + 3]);
+  named_barrier(F_BAR, F_CONSUMERS);
+  for (int col = tid; col < WIDTH; col += F_CONSUMERS) {
+    float t = part[col];
+#pragma unroll
+    for (int v = 1; v < NWARP; ++v) t += part[v * WIDTH + col];
+    brow[col] = t;
+  }
+}
+
+// acc[i][4 c + q] (+)= g[8 w + i] . wh[128 c + 4 l + q][0:4]: the heads'
+// K = 4 products with the f32 cotangent g (the tile's rows; rows at or past
+// n are zero); wh is (128 NC, HEADS) f32, of which the first 4 lanes count.
+template <int NC, bool ADD>
+__device__ __forceinline__ void fheads(float (&acc)[8][8],
+                                       const float* __restrict__ g, int n,
+                                       const float* __restrict__ wh, int w,
+                                       int l) {
+  float4 gr[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    gr[i] = 8 * w + i < n
+                ? __ldg(reinterpret_cast<const float4*>(g) + 8 * w + i)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 u = __ldg(reinterpret_cast<const float4*>(
+          wh + (128 * c + 4 * l + q) * HEADS));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float d = gr[i].x * u.x;
+        d = fmaf(gr[i].y, u.y, d);
+        d = fmaf(gr[i].z, u.z, d);
+        d = fmaf(gr[i].w, u.w, d);
+        float& a = acc[i][4 * c + q];
+        a = ADD ? a + d : d;
+      }
+    }
+}
+
+// The block's shared memory past the ring.
+struct FTiles {
+  float* act;                // (GP, W): the A operand, row-major
+  float* pe;                 // (GP, PE_PAD)
+  float* ped;                // (GP, PED_PAD)
+  float* part;               // (NWARP, W) column sums of each warp
+  unsigned long long* mask;  // (D + NV, F_CONSUMERS) relu' bits
+};
+
+// Pass A f32 on the 64-point tile `tile` (its n = min(GP, N - p0) points
+// from p0): inputs, the forward, then d_h back through the heads, the view
+// branch and the trunk; every plane's rows of the tile and its bias row.
+__device__ __forceinline__ void pass_a_f32_tile(
+    const Net& net, const Planes& pl, FRing& r, const FTiles& sm,
+    const float* __restrict__ pts, const float* __restrict__ dirs,
+    const float* __restrict__ gin, float* __restrict__ planes,
+    float* __restrict__ bias, int tile, int N, int tid) {
+  const int D = net.depth, NV = net.n_views;
+  const int w = tid >> 5, l = tid & 31;
+  const int p0 = tile * GP, n = min(GP, N - p0);
+  const int HV = PL_H + D, DC = PL_H + D + NV, DV = DC + D;
+  auto plane = [&](int j, int width) {
+    return planes + pl.off[j] + static_cast<size_t>(p0) * width;
+  };
+  const float* g = gin + static_cast<size_t>(p0) * 4;
+  float* brow = bias + static_cast<size_t>(tile) * (D * W + NV * WV + HEADS);
+
+  // ---- inputs: PE, dir-PE and the cotangent's plane (zero past N)
+  for (int e = tid; e < GP * PE_PAD; e += F_CONSUMERS) {
+    const int row = e / PE_PAD, k = e - row * PE_PAD;
+    const float v = row < n ? pe_lane(pts + static_cast<size_t>(p0 + row) * 3,
+                                      k, net.multires)
+                            : 0.f;
+    sm.pe[e] = v;
+    __stcs(plane(PL_PE, PE_PAD) + e, v);
+  }
+  for (int e = tid; e < GP * PED_PAD; e += F_CONSUMERS) {
+    const int row = e / PED_PAD, k = e - row * PED_PAD;
+    const float v =
+        row < n ? pe_lane(dirs + static_cast<size_t>(p0 + row) * 3, k,
+                          net.multires_views)
+                : 0.f;
+    sm.ped[e] = v;
+    __stcs(plane(PL_PED, PED_PAD) + e, v);
+  }
+  for (int e = tid; e < GP * HEADS; e += F_CONSUMERS) {
+    const int row = e / HEADS, c = e - row * HEADS;
+    __stcs(plane(PL_GB, HEADS) + e, row < n && c < 4 ? g[row * 4 + c] : 0.f);
+  }
+  if (tid < HEADS) {  // b_heads: the column sums of the cotangent
+    float s = 0.f;
+    for (int row = 0; row < n && tid < 4; ++row) s += g[row * 4 + tid];
+    brow[D * W + NV * WV + tid] = s;
+  }
+  named_barrier(F_BAR, F_CONSUMERS);
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // ---- forward: the skip layers' PE product before their h product
+  for (int i = 0; i < D; ++i) {
+    if (i == 0 || net.slot[SLOT_WSKIP + i] != nullptr)
+      fprod<2>(acc, r, sm.pe, PE_PAD, PE_PAD, w, l);
+    if (i > 0) fprod<2>(acc, r, sm.act, W, W, w, l);
+    named_barrier(F_BAR, F_CONSUMERS);
+    sm.mask[i * F_CONSUMERS + tid] = fwd_store<2>(
+        acc, fvec(net, SLOT_B + i), sm.act, plane(PL_H + i, W), w, l);
+    named_barrier(F_BAR, F_CONSUMERS);
+  }
+  for (int v = 0; v < NV; ++v) {  // view layer 0 adds the dir-PE product
+    fprod<1>(acc, r, sm.act, v == 0 ? W : WV, v == 0 ? W : WV, w, l);
+    if (v == 0) fprod<1>(acc, r, sm.ped, PED_PAD, PED_PAD, w, l);
+    named_barrier(F_BAR, F_CONSUMERS);
+    sm.mask[(D + v) * F_CONSUMERS + tid] = fwd_store<1>(
+        acc, fvec(net, SLOT_BV + v), sm.act, plane(HV + v, WV), w, l);
+    named_barrier(F_BAR, F_CONSUMERS);
+  }
+
+  // ---- backward: d_hv of the last view layer = g @ w_rgb^T
+  fheads<1, false>(acc, g, n, fvec(net, SLOT_WRGB), w, l);
+  bwd_store<1>(acc, sm.mask[(D + NV - 1) * F_CONSUMERS + tid], sm.act,
+               plane(DV + NV - 1, WV), sm.part,
+               brow + D * W + (NV - 1) * WV, w, l, tid);
+  for (int v = NV - 1; v >= 1; --v) {  // d_hv(v - 1) = dv(v) @ WV_v^T
+    fprod<1>(acc, r, sm.act, WV, WV, w, l);
+    named_barrier(F_BAR, F_CONSUMERS);
+    bwd_store<1>(acc, sm.mask[(D + v - 1) * F_CONSUMERS + tid], sm.act,
+                 plane(DV + v - 1, WV), sm.part,
+                 brow + D * W + (v - 1) * WV, w, l, tid);
+  }
+  // d_h of the last trunk layer = dv(0) @ WV_0^T + g @ w_alpha^T
+  fprod<2>(acc, r, sm.act, WV, WV, w, l);
+  fheads<2, true>(acc, g, n, fvec(net, SLOT_WALPHA), w, l);
+  for (int i = D - 1; i >= 0; --i) {  // d_h(i - 1) = dc(i) @ W_i^T
+    named_barrier(F_BAR, F_CONSUMERS);
+    bwd_store<2>(acc, sm.mask[i * F_CONSUMERS + tid], sm.act,
+                 plane(DC + i, W), sm.part, brow + i * W, w, l, tid);
+    if (i > 0) fprod<2>(acc, r, sm.act, W, W, w, l);
+  }
+}
+
+__global__ void __launch_bounds__(F_THREADS, 1)
+k_grad_pass_a_f32(Net net, const __grid_constant__ Planes pl,
+                  const float* __restrict__ wstream, int n_stages,
+                  const float* __restrict__ pts,
+                  const float* __restrict__ dirs,
+                  const float* __restrict__ gin, float* __restrict__ planes,
+                  float* __restrict__ bias, int N, int tiles_per_block,
+                  int n_ring) {
+  extern __shared__ __align__(1024) char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  char* gbase = smem_raw + (base - raw);
+  const int D = net.depth, NV = net.n_views;
+  FTiles sm;
+  sm.act = reinterpret_cast<float*>(gbase + n_ring * STAGE_BYTES);
+  sm.pe = sm.act + GP * W;
+  sm.ped = sm.pe + GP * PE_PAD;
+  sm.part = sm.ped + GP * PED_PAD;
+  sm.mask = reinterpret_cast<unsigned long long*>(sm.part + NWARP * W);
+  const Chain c{base,
+                base + static_cast<uint32_t>(n_ring * STAGE_BYTES +
+                                             F_TILE_BYTES +
+                                             f32_mask_bytes(D, NV)),
+                gbase, n_ring};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < n_ring; ++s) {
+      mbar_init(c.bars + 8 * s, 1);
+      mbar_init(c.bars + 8 * (MAX_RING + s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int n_tiles = (N + GP - 1) / GP;
+  const int t0 = blockIdx.x * tiles_per_block;
+  const int t1 = min(t0 + tiles_per_block, n_tiles);
+  if (threadIdx.x >= F_CONSUMERS) {  // thread 256 streams the weights
+    chain_produce(c, reinterpret_cast<const bf16*>(wstream), n_stages,
+                  t1 - t0);
+  } else {
+    FRing r{gbase, c.bars, static_cast<uint32_t>(n_ring), 0u};
+    for (int t = t0; t < t1; ++t)
+      pass_a_f32_tile(net, pl, r, sm, pts, dirs, gin, planes, bias, t, N,
+                      threadIdx.x);
+  }
+  __syncthreads();
+}
+
+// ---- pass B f32: long-K weight-gradient products on FFMAs
+
+constexpr int FB_TILE = 128;   // output tile rows and columns
+constexpr int FB_PTS = 32;     // points per stage
+constexpr int FB_STAGES = 3;   // cp.async ring depth
+constexpr int FB_THREADS = 256;
+constexpr int FB_STAGE = 2 * FB_PTS * FB_TILE;  // floats: X then Y
+constexpr size_t FB_SMEM = static_cast<size_t>(FB_STAGES) * FB_STAGE * 4;
+static_assert(GP % FB_PTS == 0, "a stage holds whole points of one tile");
+
+// One 128 x 128 output tile of dW = X^T @ Y, the gradient of xw x yw
+// floats at float offset off: X's columns m0.., Y's columns n0.. (X from
+// plane xp of xw floats a row, Y from plane yp of yw).
+struct FTask {
+  unsigned char xp, yp;
+  unsigned short xw, yw, m0, n0;
+  int off;
+};
+
+struct FTable {
+  long long plane[MAXPLANES];
+  FTask task[MAXTASKS];
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Block (task, chunk): the chunk's points in stages of FB_PTS, each
+// thread's 8 x 8 block (rows 4 ty.. and 64 + 4 ty.., columns 4 tx.. and
+// 64 + 4 tx..) summed over the points in order, then written to the
+// chunk's partial. Columns past a plane's width load as zeros and are not
+// stored.
+__global__ void __launch_bounds__(FB_THREADS, 2)
+k_grad_pass_b_f32(const __grid_constant__ FTable tb,
+                  const float* __restrict__ planes,
+                  float* __restrict__ partials, long long G, int n_tiles,
+                  int n_chunks) {
+  extern __shared__ __align__(16) float fsm[];
+  const FTask t = tb.task[blockIdx.x];
+  const int chunk = blockIdx.y;
+  const int c0 = static_cast<int>(static_cast<long long>(chunk) * n_tiles /
+                                  n_chunks);
+  const int c1 = static_cast<int>(static_cast<long long>(chunk + 1) *
+                                  n_tiles / n_chunks);
+  const int nk = (c1 - c0) * (GP / FB_PTS);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int rows = min(FB_TILE, static_cast<int>(t.xw) - t.m0);
+  const int cols = min(FB_TILE, static_cast<int>(t.yw) - t.n0);
+  // thread tid copies lane chunk q of points r + 8 j (j < 4) of a stage,
+  // of X and of Y; chunks past a plane's width are zero-filled
+  const int q = tid & 31, r = tid >> 5;
+  const bool okx = 4 * q < rows, oky = 4 * q < cols;
+  const float* gx = planes + tb.plane[t.xp] +
+                    (static_cast<size_t>(c0) * GP + r) * t.xw + t.m0 +
+                    (okx ? 4 * q : 0);
+  const float* gy = planes + tb.plane[t.yp] +
+                    (static_cast<size_t>(c0) * GP + r) * t.yw + t.n0 +
+                    (oky ? 4 * q : 0);
+  const size_t sx = static_cast<size_t>(8) * t.xw;
+  const size_t sy = static_cast<size_t>(8) * t.yw;
+  const uint32_t sdst = smem_addr(fsm) + 16 * (r * (FB_TILE / 4) + q);
+  auto load = [&](int k) {  // stage k into slot k % FB_STAGES
+    if (k < nk) {
+      const uint32_t d = sdst + 4 * (k % FB_STAGES) * FB_STAGE;
+      const float* x = gx + 4 * static_cast<size_t>(k) * sx;
+      const float* y = gy + 4 * static_cast<size_t>(k) * sy;
+#pragma unroll
+      for (int j = 0; j < FB_PTS / 8; ++j) {
+        cp_async16(d + 4 * 8 * j * FB_TILE, x + j * sx, okx);
+        cp_async16(d + 4 * (FB_PTS + 8 * j) * FB_TILE, y + j * sy, oky);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int k = 0; k < FB_STAGES - 1; ++k) load(k);
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait<FB_STAGES - 2>();
+    __syncthreads();  // stage k in; every thread done with stage k - 1
+    load(k + FB_STAGES - 1);
+    const float* xs = fsm + (k % FB_STAGES) * FB_STAGE;
+    const float* ys = xs + FB_PTS * FB_TILE;
+#pragma unroll 4
+    for (int p = 0; p < FB_PTS; ++p) {
+      const float4 x0 =
+          *reinterpret_cast<const float4*>(xs + p * FB_TILE + 4 * ty);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(xs + p * FB_TILE + 64 + 4 * ty);
+      const float4 y0 =
+          *reinterpret_cast<const float4*>(ys + p * FB_TILE + 4 * tx);
+      const float4 y1 =
+          *reinterpret_cast<const float4*>(ys + p * FB_TILE + 64 + 4 * tx);
+      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], yv[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = partials + chunk * G + t.off;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+      if (col < cols)
+        out[static_cast<size_t>(t.m0 + row) * t.yw + t.n0 + col] = acc[i][j];
+    }
+  }
+}
+
+// The 128 x 128 tiles of dW = X^T @ Y (xw x yw floats at offset off).
+static bool add_ftasks(FTask* task, int* n, int xp, int xw, int yp, int yw,
+                       long long off) {
+  for (int m0 = 0; m0 < xw; m0 += FB_TILE)
+    for (int n0 = 0; n0 < yw; n0 += FB_TILE) {
+      if (*n >= MAXTASKS || off < 0) return false;
+      FTask& t = task[(*n)++];
+      t.xp = static_cast<unsigned char>(xp);
+      t.yp = static_cast<unsigned char>(yp);
+      t.xw = static_cast<unsigned short>(xw);
+      t.yw = static_cast<unsigned short>(yw);
+      t.m0 = static_cast<unsigned short>(m0);
+      t.n0 = static_cast<unsigned short>(n0);
+      t.off = static_cast<int>(off);
+    }
+  return true;
 }
 
 }  // namespace fr
 
 extern "C" {
-
-unsigned long long fr_point_mlp_grad_smem_bytes() {
-  return fr::grad_smem_layout<float>(nullptr, nullptr);
-}
-
-// The f32 variant. slabs: (n_blocks, G) f32, zeroed by the caller; out:
-// (G,) f32; act: the per-block activation scratch, act_stride floats per
-// block.
-int fr_point_mlp_grad(const float* pts, const float* dirs, const float* g,
-                      void* act, long long act_stride, float* slabs,
-                      float* out, long long G, int n_blocks, int N,
-                      const unsigned long long* slots,
-                      const long long* grad_offsets, int depth, int n_views,
-                      int multires, int multires_views, void* stream) {
-  const fr::Net net =
-      fr::make_net(slots, depth, n_views, multires, multires_views, 0);
-  fr::GradTable gt;
-  for (int i = 0; i < fr::NSLOTS; ++i) gt.off[i] = grad_offsets[i];
-  return fr::launch_grad_f32(net, gt, pts, dirs, g, act, act_stride, slabs,
-                             out, G, n_blocks, N,
-                             static_cast<cudaStream_t>(stream));
-}
 
 unsigned long long fr_grad_pass_a_smem_bytes(int n_ring, int depth,
                                              int n_views) {
@@ -1140,13 +1369,95 @@ int fr_grad_pass_b(const void* planes, const long long* plane_off,
       tb, static_cast<const bf16*>(planes), partials, G, n_tiles, n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  GradTable gt;
-  for (int i = 0; i < NSLOTS; ++i) gt.off[i] = grad_offsets[i];
-  k_bias_partials<<<dim3((NB + 255) / 256, n_chunks), 256, 0, s>>>(
-      bias, NB, n_tiles, n_chunks, gt, D, NV, partials, G);
+  return finish(bias, NB, n_tiles, n_chunks, grad_offsets, D, NV, partials,
+                out, G, s);
+}
+
+unsigned long long fr_grad_pass_a_f32_smem_bytes(int n_ring, int depth,
+                                                 int n_views) {
+  return fr::pass_a_f32_smem_bytes(n_ring, depth, n_views);
+}
+
+unsigned long long fr_grad_pass_b_f32_smem_bytes() { return fr::FB_SMEM; }
+
+// f32 pass A. planes: the f32 operand buffer (plane_off, float offsets, as
+// kernels/fused_mlp_grad.py:grad_planes_f32); bias: (tiles of 64 points,
+// NB) f32; wstream: n_stages stages of the net's f32 weight stream
+// (grad_weight_stream_f32, 16-byte aligned); blocks of tiles_per_block
+// 64-point tiles; n_ring: stages of the shared-memory ring (2..MAX_RING).
+int fr_grad_pass_a_f32(const float* pts, const float* dirs, const float* g,
+                       void* planes, const long long* plane_off, float* bias,
+                       int N, int tiles_per_block,
+                       const unsigned long long* slots, int depth,
+                       int n_views, int multires, int multires_views,
+                       const void* wstream, int n_stages, int n_ring,
+                       void* stream) {
+  using namespace fr;
+  if (tiles_per_block < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = pass_a_f32_smem_bytes(n_ring, depth, n_views);
+  cudaError_t err =
+      chain_prepare(k_grad_pass_a_f32, bytes,
+                    f32_stages(slots, depth, n_views), n_stages, n_ring);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Net net = make_net(slots, depth, n_views, multires, multires_views, 0);
+  Planes pl;
+  const int n_planes = 3 + 2 * depth + 2 * n_views;
+  for (int i = 0; i < MAXPLANES; ++i)
+    pl.off[i] = i < n_planes ? plane_off[i] : 0;
+  const int tiles = (N + GP - 1) / GP;
+  const int grid = (tiles + tiles_per_block - 1) / tiles_per_block;
+  k_grad_pass_a_f32<<<grid, F_THREADS, bytes,
+                      static_cast<cudaStream_t>(stream)>>>(
+      net, pl, static_cast<const float*>(wstream), n_stages, pts, dirs, g,
+      static_cast<float*>(planes), bias, N, tiles_per_block, n_ring);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32 pass B: partials (n_chunks, G) f32 (every gradient's region is
+// written), out (G,) f32 = the partials summed in chunk order.
+int fr_grad_pass_b_f32(const void* planes, const long long* plane_off,
+                       const float* bias, int NB, float* partials,
+                       float* out, long long G, int n_tiles, int n_chunks,
+                       const long long* grad_offsets, int depth,
+                       int n_views, void* stream) {
+  using namespace fr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int D = depth, NV = n_views;
+  FTable tb;
+  const int n_planes = 3 + 2 * D + 2 * NV;
+  for (int i = 0; i < MAXPLANES; ++i)
+    tb.plane[i] = i < n_planes ? plane_off[i] : 0;
+  const int H = PL_H, HV = PL_H + D, DC = PL_H + D + NV, DV = DC + D;
+  const long long* go = grad_offsets;
+  int n = 0;
+  bool ok = add_ftasks(tb.task, &n, PL_PE, PE_PAD, DC, W, go[SLOT_W]);
+  for (int i = 1; i < D; ++i) {
+    ok = ok && add_ftasks(tb.task, &n, H + i - 1, W, DC + i, W,
+                          go[SLOT_W + i]);
+    if (go[SLOT_WSKIP + i] >= 0)
+      ok = ok && add_ftasks(tb.task, &n, PL_PE, PE_PAD, DC + i, W,
+                            go[SLOT_WSKIP + i]);
+  }
+  ok = ok && add_ftasks(tb.task, &n, H + D - 1, W, DV, WV, go[SLOT_WV]);
+  ok = ok && add_ftasks(tb.task, &n, PL_PED, PED_PAD, DV, WV, go[SLOT_WV0D]);
+  for (int v = 1; v < NV; ++v)
+    ok = ok && add_ftasks(tb.task, &n, HV + v - 1, WV, DV + v, WV,
+                          go[SLOT_WV + v]);
+  ok = ok && add_ftasks(tb.task, &n, H + D - 1, W, PL_GB, HEADS,
+                        go[SLOT_WALPHA]);
+  ok = ok && add_ftasks(tb.task, &n, HV + NV - 1, WV, PL_GB, HEADS,
+                        go[SLOT_WRGB]);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+
+  cudaError_t err = prepare(k_grad_pass_b_f32, FB_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k_grad_pass_b_f32<<<dim3(n, n_chunks), FB_THREADS, FB_SMEM, s>>>(
+      tb, static_cast<const float*>(planes), partials, G, n_tiles,
+      n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return reduce(partials, out, G, n_chunks, s);
+  return finish(bias, NB, n_tiles, n_chunks, grad_offsets, D, NV, partials,
+                out, G, s);
 }
 
 }  // extern "C"

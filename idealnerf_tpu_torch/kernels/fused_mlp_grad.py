@@ -13,19 +13,23 @@ autograd. Points and directions get no gradient (the fine depths are
 detached and rays are data), as the JAX VJP returns zeros for them.
 
 ``grad_dtype`` picks the backward's recompute and product type:
-torch.float32 reproduces f32 autograd (one kernel, f32 FMAs on the card),
+torch.float32 reproduces f32 autograd (f32 FFMAs on the card),
 torch.bfloat16 runs bf16 products with f32 accumulation and rounds each
 d_h to bf16 before its products, as the TPU kernel does (d_h from the
 heads takes the unrounded cotangent, the heads' weight gradients the
-rounded one). The bf16 backward is two kernels: ``grad_pass_a``
+rounded one). Either backward is two kernels. bf16: ``grad_pass_a``
 recomputes and runs d_h back on the wgmma chain of the forward kernels
 (``csrc/chain.cuh``), fed by ``grad_weight_stream``: the point kernels'
 stream without the heads, then the transposed matrices of the backward.
 It writes every activation and rounded d_h of all N points to the planes
-of ``grad_planes`` with streaming stores. ``grad_pass_b`` computes every weight
-gradient as a long-K product over those points. Their plain versions are
-``grad_pass_a_reference`` and ``grad_pass_b_reference``, whose
-composition is ``point_mlp_grad_reference``.
+of ``grad_planes`` with streaming stores. ``grad_pass_b`` computes every
+weight gradient as a long-K product over those points. On f32 weights
+the same two wrappers launch the f32 kernels: pass A runs the same walk on
+f32 FFMAs from the f32 stream of ``grad_weight_stream_f32`` into the
+row-major f32 planes of ``grad_planes_f32``, and pass B sums the weight
+gradients from them. Their plain versions are ``grad_pass_a_reference`` and
+``grad_pass_b_reference`` (both dtypes), whose composition is
+``point_mlp_grad_reference``.
 
 For CPU tensors both the forward and the backward run their plain PyTorch
 versions (``point_mlp_reference``, ``point_mlp_grad_reference``), which
@@ -46,7 +50,8 @@ from idealnerf_tpu_torch.kernels.fused_mlp import (
     _point_plan, _sm_count, encode_points, point_mlp, point_mlp_reference,
 )
 from idealnerf_tpu_torch.kernels.fused_render import (
-    CHAIN_TILE, HEADS, PE_PAD, PED_PAD, SMEM_LIMIT, PackedNet, _KC_V, _KC_W,
+    CHAIN_TILE, HEADS, PE_PAD, PED_PAD, SMEM_LIMIT, STAGE_ELEMS, PackedNet,
+    _KC_V, _KC_W,
     _NSLOTS, _SLOT_B, _SLOT_BHEADS, _SLOT_BV, _SLOT_W, _SLOT_WALPHA,
     _SLOT_WRGB, _SLOT_WSKIP, _SLOT_WV, _SLOT_WV0D,
     _check_cuda, _check_rays, _raise_on, _slots, _stream, _stream_parts,
@@ -58,10 +63,15 @@ GRAD_TILE = 64  # points per tile of the planes (csrc/fused_mlp_grad.cu: GP)
 # pass A's weight ring: the deepest that fits beside its tiles and relu'
 # bits at the paper depth (5 does not)
 _PASS_A_RING = 4
+# pass A f32's ring: fits beside its tiles and relu' bits at every depth
+# the operand table takes
+_PASS_A_F32_RING = 4
+F32_STAGE = STAGE_ELEMS // 2  # floats per 16 KB stage of the f32 stream
 
-# the wrapper, and the two kernels of its bf16 path
+# the wrapper, and the two kernels of each of its paths
 launch_counts = {"fused_point_mlp_grad": 0, "grad_pass_a": 0,
-                 "grad_pass_b": 0}
+                 "grad_pass_b": 0, "grad_pass_a_f32": 0,
+                 "grad_pass_b_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -212,9 +222,9 @@ def point_mlp_grad_reference(net: PackedNet, pts: torch.Tensor,
 # ------------------------------------------------------------------ kernel
 
 def _grad_layout(net: PackedNet) -> Tuple[Dict[int, Tuple[int, tuple]], int]:
-    """Slot -> (float offset, shape) of each gradient inside one slab (f32
-    kernel) or one chunk's partial (bf16 kernels), every offset 64-float
-    aligned for wmma accumulator loads; -> (layout, slab size G)."""
+    """Slot -> (float offset, shape) of each gradient inside one chunk's
+    partial of the second pass, every offset 64-float aligned; -> (layout,
+    partial size G)."""
     items = {_SLOT_W + i: x for i, x in enumerate(net.w)}
     items.update({_SLOT_B + i: x for i, x in enumerate(net.b)})
     items.update({_SLOT_WSKIP + i: x for i, x in net.wskip.items()})
@@ -288,6 +298,39 @@ def buffers_from_planes(net: PackedNet, planes: torch.Tensor,
         dvs=[plane(3 + 2 * D + V + v, WV) for v in range(V)], bias=bias)
 
 
+def grad_planes_f32(net: PackedNet, n_tiles: int
+                    ) -> Tuple[List[int], List[int], int]:
+    """The f32 backward's operand buffer, which grad_pass_a writes and
+    grad_pass_b reads on f32 weights -> (float offset of each plane, its
+    width, total floats). The planes of grad_planes in the same order,
+    each row-major (n_tiles * GRAD_TILE rows of its width) and unpadded:
+    pe PE_PAD, ped PED_PAD, gb HEADS wide; every plane starts 128-byte
+    aligned."""
+    W, WV = net.width, net.wv[0].shape[1]
+    D, V = len(net.w), len(net.wv)
+    widths = [PE_PAD, PED_PAD, HEADS] + [W] * D + [WV] * V + [W] * D + [WV] * V
+    offs, n = [], 0
+    for w in widths:
+        offs.append(n)
+        n += -(-n_tiles * GRAD_TILE * w // 32) * 32
+    return offs, widths, n
+
+
+def buffers_from_planes_f32(net: PackedNet, planes: torch.Tensor,
+                            offs: List[int], bias: torch.Tensor,
+                            n: int) -> GradBuffers:
+    """grad_pass_a's output on f32 weights as the GradBuffers its plain
+    version returns: views of the planes' first n rows."""
+    rows = bias.shape[0] * GRAD_TILE
+    _, widths, _ = grad_planes_f32(net, bias.shape[0])
+    p = [planes[o:o + rows * w].view(rows, w)[:n]
+         for o, w in zip(offs, widths)]
+    D, V = len(net.w), len(net.wv)
+    return GradBuffers(pe=p[0], ped=p[1], gb=p[2], hs=p[3:3 + D],
+                       hvs=p[3 + D:3 + D + V], dcs=p[3 + D + V:3 + 2 * D + V],
+                       dvs=p[3 + 2 * D + V:], bias=bias)
+
+
 def _check_inputs(net: PackedNet, pts, dirs, g) -> torch.device:
     dev = _check_rays("fused_point_mlp_grad", net, pts=pts, dirs=dirs, g=g)
     N = pts.shape[0]
@@ -357,6 +400,55 @@ def grad_stream_matrices(stream: torch.Tensor, net: PackedNet) -> Dict:
     return stream_matrices(stream, _grad_stream_parts(net))
 
 
+def _grad_stream_parts_f32(net: PackedNet):
+    """Pass A f32's weight stream as (name, matrix (K, N)) in the order it
+    multiplies by them (csrc/fused_mlp_grad.cu: f32_stages): layer 0,
+    each later layer's skip pe-part then its h-part, view layer 0's h-part
+    and dir-PE part, the later view layers, then ``wv{v}T`` for v =
+    V-1..1, ``wv0T`` and ``w{i}T`` for i = D-1..1, the transposes the
+    backward multiplies d_h by."""
+    parts = [("w0", net.w[0])]
+    for i in range(1, len(net.w)):
+        if i in net.wskip:
+            parts.append((f"wskip{i}", net.wskip[i]))
+        parts.append((f"w{i}", net.w[i]))
+    parts += [("wv0", net.wv[0]), ("wv0d", net.wv0d)]
+    parts += [(f"wv{v}", x) for v, x in enumerate(net.wv) if v]
+    parts += [(f"wv{v}T", net.wv[v].T) for v in range(len(net.wv) - 1, 0, -1)]
+    parts.append(("wv0T", net.wv[0].T))
+    return parts + [(f"w{i}T", net.w[i].T)
+                    for i in range(len(net.w) - 1, 0, -1)]
+
+
+def grad_weight_stream_f32(net: PackedNet):
+    """An f32 PackedNet -> (stream, order) of pass A f32: each matrix
+    row-major, back to back, so every 16 KB stage (F32_STAGE floats) is a
+    K-slab of F32_STAGE / N whole rows (16 of a 256-wide matrix, 32 of a
+    128-wide one); ``order`` is the (name, first K-row) of every stage:
+    265 for the paper model, the forward's 137 and the backward's 128."""
+    parts = _grad_stream_parts_f32(net)
+    order = []
+    for name, m in parts:
+        k, n = m.shape
+        kr = F32_STAGE // n
+        if n * kr != F32_STAGE or k % kr:
+            raise ValueError(f"f32 weight stream: {name} ({k}, {n}) does not "
+                             f"cut into {kr}-row stages")
+        order += [(name, k0) for k0 in range(0, k, kr)]
+    stream = torch.cat([m.float().contiguous().reshape(-1) for _, m in parts])
+    return stream, order
+
+
+def grad_stream_matrices_f32(stream: torch.Tensor, net: PackedNet) -> Dict:
+    """The plain inverse of grad_weight_stream_f32: the stream read back
+    into its (K, N) matrices by name; ``net`` gives only the shapes."""
+    out, q = {}, 0
+    for name, m in _grad_stream_parts_f32(net):
+        out[name] = stream[q:q + m.numel()].view(m.shape)
+        q += m.numel()
+    return out
+
+
 def pass_a_plan(lib, N: int, sms: int, depth: int, n_views: int):
     """(tiles per block, blocks, ring stages) of pass A on N points: the
     point kernels' plan (one wave of blocks over runs of 128-point tiles)
@@ -370,18 +462,37 @@ def pass_a_plan(lib, N: int, sms: int, depth: int, n_views: int):
     return _point_plan(lib, N, sms, ring, smem)
 
 
+def pass_a_f32_plan(lib, N: int, sms: int, depth: int, n_views: int):
+    """(tiles per block, blocks, ring stages) of pass A f32 on N points: its
+    64-point tiles split evenly over at most one wave of ``sms`` blocks,
+    each walking a contiguous run of them, at _PASS_A_F32_RING stages."""
+    ring = _PASS_A_F32_RING
+    if lib.fr_grad_pass_a_f32_smem_bytes(ring, depth, n_views) > SMEM_LIMIT:
+        raise ValueError(f"grad_pass_a_f32: a ring of {ring} stages does not "
+                         "fit the shared memory")
+    tiles = -(-N // GRAD_TILE)
+    per_block = -(-tiles // sms)
+    return per_block, -(-tiles // per_block), ring
+
+
 def pass_a_launch_config(net: PackedNet, N: int) -> Dict[str, int]:
-    """Pass A's launch on N points on the current card: 128-point tiles
-    per block, blocks, dynamic shared memory, ring depth and stages per
-    tile."""
+    """Pass A's launch on N points on the current card, bf16 or f32 by the
+    net's weights: tiles per block (of 128 points in bf16, 64 in f32),
+    blocks, dynamic shared memory, ring depth and stages per tile."""
     lib = build.load_library()
     D, V = len(net.w), len(net.wv)
-    per_block, blocks, ring = pass_a_plan(
+    if net.w[0].dtype == torch.float32:
+        plan, smem, stream = (pass_a_f32_plan,
+                              lib.fr_grad_pass_a_f32_smem_bytes,
+                              grad_weight_stream_f32)
+    else:
+        plan, smem, stream = (pass_a_plan, lib.fr_grad_pass_a_smem_bytes,
+                              grad_weight_stream)
+    per_block, blocks, ring = plan(
         lib, N, _sm_count(torch.cuda.current_device()), D, V)
     return {"tiles_per_block": per_block, "blocks": blocks,
-            "smem_bytes": lib.fr_grad_pass_a_smem_bytes(ring, D, V),
-            "ring_stages": ring,
-            "stages_per_tile": len(grad_weight_stream(net)[1])}
+            "smem_bytes": smem(ring, D, V), "ring_stages": ring,
+            "stages_per_tile": len(stream(net)[1])}
 
 
 def launch_pass_a(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
@@ -414,45 +525,77 @@ def launch_pass_a(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
     return planes, offs, bias
 
 
+def launch_pass_a_f32(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
+                      g: torch.Tensor):
+    """One launch of pass A f32 on checked CUDA operands -> (f32 operand
+    buffer, its plane offsets, per-tile bias sums (tiles, NB) f32).
+    Counts nothing: grad_pass_a counts."""
+    dev, N = pts.device, pts.shape[0]
+    lib = build.load_library()
+    D, V = len(net.w), len(net.wv)
+    per_block, _, ring = pass_a_f32_plan(lib, N, _sm_count(dev), D, V)
+    n_tiles = -(-N // GRAD_TILE)
+    offs, _, total = grad_planes_f32(net, n_tiles)
+    nb = D * net.width + V * net.wv[0].shape[1] + HEADS
+    planes = torch.empty(total, dtype=torch.float32, device=dev)
+    bias = torch.empty((n_tiles, nb), dtype=torch.float32, device=dev)
+    table, keep = _slots(net, dev)
+    stream, order = grad_weight_stream_f32(net)
+    err = lib.fr_grad_pass_a_f32(
+        pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), planes.data_ptr(),
+        (ctypes.c_longlong * len(offs))(*offs), bias.data_ptr(), N,
+        per_block, table, D, V, net.multires, net.multires_views,
+        stream.data_ptr(), len(order), ring, _stream(dev))
+    _raise_on(lib, err, "grad_pass_a_f32")
+    del keep, stream  # stream-ordered reuse by the caching allocator
+    return planes, offs, bias
+
+
 def grad_pass_a(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
                 g: torch.Tensor):
-    """The bf16 backward's first kernel (CUDA tensors only) -> (operand
-    buffer, its plane offsets, per-tile bias sums (tiles, NB) f32): the
-    recompute and the d_h chain, every operand of the weight gradients
-    written in grad_planes' layout."""
+    """The backward's first kernel (CUDA tensors only) -> (operand buffer,
+    its plane offsets, per-tile bias sums (tiles, NB) f32): the recompute
+    and the d_h chain, every operand of the weight gradients written in
+    grad_planes' layout (bf16 weights, ``k_grad_pass_a``) or in
+    grad_planes_f32's (f32 weights, ``k_grad_pass_a_f32``)."""
     _check_inputs(net, pts, dirs, g)
     _check_cuda("grad_pass_a", torch.float32, 16, g=g)
-    if net.w[0].dtype != torch.bfloat16:
-        raise TypeError("grad_pass_a: the two-pass backward is bf16 only")
-    out = launch_pass_a(net, pts, dirs, g)
-    launch_counts["grad_pass_a"] += 1
+    dt = net.w[0].dtype
+    if dt == torch.bfloat16:
+        out, key = launch_pass_a(net, pts, dirs, g), "grad_pass_a"
+    elif dt == torch.float32:
+        out, key = launch_pass_a_f32(net, pts, dirs, g), "grad_pass_a_f32"
+    else:
+        raise TypeError(f"grad_pass_a: weights must be bf16 or f32, got {dt}")
+    launch_counts[key] += 1
     return out
 
 
 def grad_pass_b(net: PackedNet, planes: torch.Tensor, offs: List[int],
                 bias: torch.Tensor) -> PackedNet:
-    """The bf16 backward's second kernel: every weight gradient as a
-    long-K wgmma product over the points of grad_pass_a's buffer, one f32
-    partial per chunk of tiles (grad_chunks), and the bias sums, added in
-    a fixed order -> a PackedNet of f32 gradients."""
+    """The backward's second kernel on grad_pass_a's buffer: every weight
+    gradient as a long-K product over its points (wgmma on bf16 planes,
+    ``k_grad_pass_b``; FFMA on f32 planes, ``k_grad_pass_b_f32``), one
+    f32 partial per chunk of tiles (grad_chunks), and the bias sums,
+    added in a fixed order -> a PackedNet of f32 gradients."""
     _check_rays("fused_point_mlp_grad", net)
     dev = planes.device
     lib = build.load_library()
-    if lib.fr_grad_pass_b_smem_bytes() > SMEM_LIMIT:
+    sfx = {torch.bfloat16: "", torch.float32: "_f32"}[planes.dtype]
+    if getattr(lib, f"fr_grad_pass_b{sfx}_smem_bytes")() > SMEM_LIMIT:
         raise ValueError("grad_pass_b: shared memory over the limit")
     n_tiles = bias.shape[0]
     layout, G = _grad_layout(net)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_chunks = grad_chunks(n_tiles, sms)
+    n_chunks = grad_chunks(n_tiles, _sm_count(dev))
     partials = torch.empty((n_chunks, G), dtype=torch.float32, device=dev)
     out = torch.empty(G, dtype=torch.float32, device=dev)
-    err = lib.fr_grad_pass_b(
+    err = getattr(lib, f"fr_grad_pass_b{sfx}")(
         planes.data_ptr(), (ctypes.c_longlong * len(offs))(*offs),
         bias.data_ptr(), bias.shape[1], partials.data_ptr(), out.data_ptr(),
         G, n_tiles, n_chunks, _offsets(layout), len(net.w), len(net.wv),
         _stream(dev))
-    _raise_on(lib, err, "grad_pass_b")
-    launch_counts["grad_pass_b"] += 1
+    _raise_on(lib, err, f"grad_pass_b{sfx}")
+    launch_counts[f"grad_pass_b{sfx}"] += 1
     del partials  # stream-ordered reuse by the caching allocator
     return _unflatten(net, out, layout)
 
@@ -460,11 +603,11 @@ def grad_pass_b(net: PackedNet, planes: torch.Tensor, offs: List[int],
 def point_mlp_grad(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
                    g: torch.Tensor) -> PackedNet:
     """The gradient kernels on a packed net (bf16 or f32 weights): CUDA
-    tensors launch them, CPU tensors take the plain version. bf16 runs
-    grad_pass_a then grad_pass_b; f32 one kernel that recomputes and sums
-    per-block slabs. The same inputs on the same card give bitwise-equal
-    gradients. A narrower net runs widened (``fused_render.widen``) and
-    its gradients are cut back to its shapes."""
+    tensors launch them, CPU tensors take the plain version: grad_pass_a
+    then grad_pass_b, each on the bf16 or the f32 kernel. The same inputs
+    on the same card give bitwise-equal gradients. A narrower net runs
+    widened (``fused_render.widen``) and its gradients are cut back to its
+    shapes."""
     if pts.device.type == "cpu":
         return point_mlp_grad_reference(net, pts, dirs, g)
     dt = net.w[0].dtype
@@ -472,35 +615,9 @@ def point_mlp_grad(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
         raise TypeError(f"fused_point_mlp_grad: weights must be bf16 or f32, "
                         f"got {dt}")
     narrow_net, net = net, widen(net)
-    if dt == torch.bfloat16:
-        planes, offs, bias = grad_pass_a(net, pts, dirs, g)
-        grads = grad_pass_b(net, planes, offs, bias)
-        launch_counts["fused_point_mlp_grad"] += 1
-        return narrow(grads, narrow_net)
-    dev = _check_inputs(net, pts, dirs, g)
-    lib = build.load_library()
-    if lib.fr_point_mlp_grad_smem_bytes() > SMEM_LIMIT:
-        raise ValueError("fused_point_mlp_grad: shared memory over the limit")
-    layout, G = _grad_layout(net)
-    N = pts.shape[0]
-    W, WV = net.width, net.width // 2
-    n_tiles = -(-N // GRAD_TILE)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = min(n_tiles, sms)  # one block per SM: ~221 KB shared memory
-    act_stride = GRAD_TILE * (len(net.w) * W + len(net.wv) * WV)
-    act = torch.empty(blocks * act_stride, dtype=dt, device=dev)
-    slabs = torch.zeros((blocks, G), dtype=torch.float32, device=dev)
-    out = torch.empty(G, dtype=torch.float32, device=dev)
-    table, keep = _slots(net, dev)
-    err = lib.fr_point_mlp_grad(
-        pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), act.data_ptr(),
-        act_stride, slabs.data_ptr(), out.data_ptr(), G, blocks, N, table,
-        _offsets(layout), len(net.w), len(net.wv), net.multires,
-        net.multires_views, _stream(dev))
-    _raise_on(lib, err, "fused_point_mlp_grad")
+    grads = grad_pass_b(net, *grad_pass_a(net, pts, dirs, g))
     launch_counts["fused_point_mlp_grad"] += 1
-    del keep, act, slabs  # stream-ordered reuse by the caching allocator
-    return narrow(_unflatten(net, out, layout), narrow_net)
+    return narrow(grads, narrow_net)
 
 
 # ------------------------------------------------------- autograd plumbing

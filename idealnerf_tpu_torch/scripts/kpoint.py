@@ -1,9 +1,10 @@
 """Where do the training step's kernels spend their time? Times K4
 ``k_point_mlp`` (the training forward) on 524,288 points (the training
 step's 2,048 rays x (64 + 192)), K5 ``k_point_mlp_pe`` (its encoded-input
-twin) on 2^21, and the bf16 backward K6 (``grad_pass_a``, the recompute
-and d_h chain, and the whole backward, ``point_mlp_grad``) on 524,288 and
-the fine pass's 393,216, each checkout in its own process:
+twin) on 2^21, the bf16 backward K6 (``grad_pass_a``, the recompute and
+d_h chain, and the whole backward, ``point_mlp_grad``) on 524,288 and the
+fine pass's 393,216, and the f32 backward (``point_mlp_grad`` on an f32
+net, ``train_fused`` 1) on 524,288, each checkout in its own process:
 
     parent    ``--parent DIR``: the kernels of another checkout (a
               ``git archive`` of the parent commit), through their
@@ -13,8 +14,9 @@ the fine pass's 393,216, each checkout in its own process:
               span of chip_smoke.py's ``kernels`` line), timed in turns
               with this one (parent, this, this, parent); then
               ``cli.train_head.main`` for 20 steps of the paper model (4
-              synthetic frames of 450x450, N_rand 2048, 64 + 128), parent
-              and this in turns, its ms per step
+              synthetic frames of 450x450, N_rand 2048, 64 + 128) at
+              ``--train_fused`` 2 and then 1, parent and this in turns,
+              its ms per step
     this      the checkout's kernels through their wrappers, then their C
               entries alone at other launch plans (ring stages, tiles per
               block; pass A's ring where it fits beside its tiles)
@@ -44,6 +46,9 @@ NAMES = {"K4": "fused_point_mlp", "K5": "fused_point_mlp_pe",
          "A": "grad_pass_a"}
 # the bf16 backward's sizes: both passes of a step at once, the fine pass
 GRAD_SIZES = (2048 * (64 + 192), 2048 * 192)
+F32_SIZE = 2048 * (64 + 192)  # the f32 backward's
+# the f32 backward's kernels, where the measured checkout has them
+F32_PASSES = ("grad_pass_a_f32", "grad_pass_b_f32")
 # (kernel, label, tiles per block, ring stages); 0: the wrapper's own
 PLANS = [("K4", "auto", 0, 0), ("K4", "ring 2", 0, 2),
          ("K4", "ring 3", 0, 3), ("K4", "ring 5", 0, 5),
@@ -88,7 +93,11 @@ def _worker(tree: str, plans, seed: int) -> dict:
     ins = {"K4": (pts[:SIZES["K4"]], dirs[:SIZES["K4"]]), "K5": (pe, ped),
            "A": (pts[:na], dirs[:na], g)}
 
-    calls = dict.fromkeys([*NAMES.values(), "grad_pass_b"], 0)
+    net32 = fr.pack_leaves(ncfg, fr.model_leaves(model, folded, ncfg),
+                           torch.float32)
+    f32_passes = [k for k in F32_PASSES if k in fmg.launch_counts]
+    calls = dict.fromkeys([*NAMES.values(), "grad_pass_b",
+                           "fused_point_mlp_grad", *f32_passes], 0)
     wrappers = {"K4": fm.point_mlp, "K5": fm.point_mlp_pe,
                 "A": fmg.grad_pass_a}
 
@@ -107,7 +116,14 @@ def _worker(tree: str, plans, seed: int) -> dict:
     def grad(n):  # the whole bf16 backward: pass A, then pass B
         calls["grad_pass_a"] += 1
         calls["grad_pass_b"] += 1
+        calls["fused_point_mlp_grad"] += 1
         return fmg.point_mlp_grad(net, pts[:n], dirs[:n], g[:n])
+
+    def grad32(n):  # the whole f32 backward
+        calls["fused_point_mlp_grad"] += 1
+        for k in f32_passes:
+            calls[k] += 1
+        return fmg.point_mlp_grad(net32, pts[:n], dirs[:n], g[:n])
 
     out = {}
     fm.reset_launch_counts()
@@ -120,6 +136,8 @@ def _worker(tree: str, plans, seed: int) -> dict:
         for n in GRAD_SIZES:
             out[f"A_{n}_ms"] = event_ms(lambda: pass_a(n), 10)
             out[f"K6_{n}_ms"] = event_ms(lambda: grad(n), 10)
+        out["K6f32_ms"] = event_ms(lambda: grad32(F32_SIZE), 3)
+        torch.cuda.empty_cache()
         if plans:
             lib = build.load_library()
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -163,15 +181,16 @@ def _worker(tree: str, plans, seed: int) -> dict:
     return out
 
 
-def _train_worker(tree: str) -> dict:
-    """In tree's package: train_head.main for 20 steps -> ms per step over
-    the last logged window, first and last loss."""
+def _train_worker(tree: str, train_fused: int) -> dict:
+    """In tree's package: train_head.main for 20 steps at ``train_fused``
+    -> ms per step over the last logged window, first and last loss."""
     sys.path.insert(0, tree)
     from idealnerf_tpu_torch.cli import train_head
 
     basedir = Path(tree) / "output" / "kpoint_train"
     shutil.rmtree(basedir, ignore_errors=True)  # no resume
-    res = train_head.main([*TRAIN, "--basedir", str(basedir)])
+    res = train_head.main([*TRAIN, "--train_fused", str(train_fused),
+                           "--basedir", str(basedir)])
     first, last = res["history"][0][1], res["history"][-1][1]
     return {"steps": res["step"],
             "step_ms": 1e3 / last["steps_per_sec_rolling"],
@@ -187,10 +206,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--worker", default="", help=argparse.SUPPRESS)
     ap.add_argument("--plans", default="[]", help=argparse.SUPPRESS)
-    ap.add_argument("--train", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--train", type=int, default=0,
+                    help=argparse.SUPPRESS)  # a train_fused value
     args = ap.parse_args(argv)
     if args.worker:
-        res = (_train_worker(args.worker) if args.train else
+        res = (_train_worker(args.worker, args.train) if args.train else
                _worker(args.worker, json.loads(args.plans), args.seed))
         print("RESULT " + json.dumps(res), flush=True)
         return {"results": [res], "ok": True}
@@ -202,10 +222,13 @@ def main(argv=None) -> dict:
     if args.parent:
         trees["parent"] = Path(args.parent).resolve()
     build_trees(trees, ("11k_point_mlp", "14k_point_mlp_pe",
-                        "13k_grad_pass_a"))
+                        "13k_grad_pass_a", "16k_point_mlp_grad",
+                        "17k_grad_pass_a_f32",
+                        "17k_grad_pass_b_f32"))
     print(f"card: {card()}; K4 on {SIZES['K4']} points, K5 on "
           f"{SIZES['K5']}, K6 pass A and the bf16 backward on "
-          f"{' and '.join(map(str, GRAD_SIZES))}", flush=True)
+          f"{' and '.join(map(str, GRAD_SIZES))}, the f32 backward on "
+          f"{F32_SIZE}", flush=True)
     turns = ["parent", "this", "this", "parent"] if args.parent else []
     script = str(Path(__file__).resolve())
     results, ok = [], True
@@ -223,6 +246,7 @@ def main(argv=None) -> dict:
               f"{res['K5_wrapper_ms']:.3f} ms, " + ", ".join(
                   f"pass A {res[f'A_{n}_ms']:.3f} ms and the bf16 backward "
                   f"{res[f'K6_{n}_ms']:.3f} at {n}" for n in GRAD_SIZES)
+              + f", the f32 backward {res['K6f32_ms']:.3f} ms at {F32_SIZE}"
               + f"; launches {res['launches']} "
               f"({'equal to' if counted else 'DIFFER FROM'} the calls "
               f"{res['calls']})" + "".join(
@@ -234,12 +258,14 @@ def main(argv=None) -> dict:
                         if isinstance(v, dict) and v.get("fits") is False),
               flush=True)
     train = []
-    for k in turns:
-        res = run_worker(script, trees[k], ["--train"])
-        train.append({"tree": k, **res})
-        print(f"{k:7s} train_head {res['steps']} steps: {res['step_ms']:.2f} "
-              f"ms/step, loss {res['loss'][0]:.5f} -> {res['loss'][1]:.5f}",
-              flush=True)
+    for tf in (2, 1):
+        for k in turns:
+            res = run_worker(script, trees[k], ["--train", str(tf)])
+            train.append({"tree": k, "train_fused": tf, **res})
+            print(f"{k:7s} train_head --train_fused {tf}, {res['steps']} "
+                  f"steps: {res['step_ms']:.2f} ms/step, loss "
+                  f"{res['loss'][0]:.5f} -> {res['loss'][1]:.5f}",
+                  flush=True)
     print("RESULTS " + json.dumps({"kernels": results, "train": train}),
           flush=True)
     return {"results": results, "train": train, "ok": ok}
