@@ -126,10 +126,15 @@ non-zero and no result line is printed):
 11. the kernel-diagnosis path: the encoded-input point MLP (K5,
    ``fused_point_mlp(fuse_pe=False)``) against its plain version at
    ``--points`` and a ragged 1,001 (3e-2, correlation > 0.999 per lane),
-   timed beside K4 on the same points; every probe kernel of
-   ``kernels/kdiag.py`` against its plain version at a ragged 1,001 rows;
-   then each ``idealnerf_tpu_torch.scripts.kdiag*`` entry point at its
-   own size with ``--check`` (chains at 2^21 rows, kdiag4/5 at 1M and 4M
+   timed beside K4 on the same points; the probes on the wgmma chain
+   (the bf16 ``k_chain_wg`` in all its modes and plans, and probe B,
+   K1's chain without compositing): their ptxas lines (a spill fails),
+   HGMMA counts (none fails) and launch plans; every probe kernel of
+   ``kernels/kdiag.py`` against its plain version at a ragged 1,001 rows
+   (the bf16 chain in every mode at 64 and 128 rows per block and depth
+   2, 8 and 16; probe B at S 64 and 192); then each
+   ``idealnerf_tpu_torch.scripts.kdiag*`` entry point at its own size
+   with ``--check`` (chains at 2^21 rows, kdiag4/5 at 1M and 4M
    rows for the slope, both rows-per-block; the ladder and K5 at 2^21
    points; kdiag3 at the phase-2 rays with S 64 and 192), with the launch
    counters set to 0 before each and read after: every timed output is
@@ -146,7 +151,10 @@ non-zero and no result line is printed):
    wrapper's and each worker's launch counters equal to its wrapper calls.
    Then ``idealnerf_tpu_torch.scripts.kpoint`` likewise for K4 at 524,288
    points and K5 at 2^21 (ring depths, tiles per block). K5's
-   ``library_ms`` is the torch.addmm yardstick on kdiag2's own encodings.
+   ``library_ms`` is the torch.addmm yardstick on kdiag2's own encodings,
+   the ladder's (rung v2) the same calls without the heads. The probes'
+   entries in the ``kernels`` line name the body they run (``body``):
+   the bf16 chains at 128 rows per block, the int8 chain at 64.
 12. the head + torso composite. 12a: a seeded torso field at full width
    (D=8, W=256, dim_aud 32 + 42, no expr or latent) through K2 and K1 at
    ``--rays`` and on a whole 450x450 frame cast from the first frame's
@@ -574,10 +582,11 @@ def _delta_split(s_delta: int):
     return s_uni, n_in - s_uni
 
 
-def _addmm_mlp(packed):
+def _addmm_mlp(packed, heads: bool = True):
     """The yardsticks' MLP as bf16 torch.addmm calls, bias in the call and
     relu in place: (pe, view-layer-0 term pv) -> raw (n, HEADS), the trunk
-    with the skip layer's PE product, the view branch, the heads."""
+    with the skip layer's PE product, the view branch, the heads; without
+    ``heads`` the view branch's last activation (n, W/2)."""
     import torch
 
     bf = torch.bfloat16
@@ -595,6 +604,8 @@ def _addmm_mlp(packed):
         hv = torch.addmm(pv, h, packed.wv[0]).relu_()
         for v in range(1, len(packed.wv)):
             hv = torch.addmm(bv[v], hv, packed.wv[v]).relu_()
+        if not heads:
+            return hv
         return torch.addmm(torch.addmm(bh, h, packed.w_alpha), hv,
                            packed.w_rgb)
     return mlp
@@ -637,15 +648,17 @@ def _mlp_library_ms(fr, packed, o, d, z, chunk: int = 1 << 22) -> float:
     return ms
 
 
-def _point_library_ms(packed, pe, ped, chunk: int = 1 << 22) -> float:
+def _point_library_ms(packed, pe, ped, chunk: int = 1 << 22,
+                      heads: bool = True) -> float:
     """The point kernels' yardstick, timed only (the port never calls it):
     the MLP of the points of the bf16 encodings pe (N, PE_PAD) and ped (N,
     PED_PAD) as bf16 torch.addmm calls (_addmm_mlp) on chunks of at most
     ``chunk`` points, view layer 0's dir-PE product per point (bv[0] +
-    ped @ wv0d) one more torch.addmm."""
+    ped @ wv0d) one more torch.addmm. Without ``heads``: kdiag2's rung v2
+    (trunk, skip, view branch), the ladder's yardstick."""
     import torch
 
-    mlp = _addmm_mlp(packed)
+    mlp = _addmm_mlp(packed, heads)
     bv0 = packed.bv[0].to(torch.bfloat16)
 
     def run():
@@ -1629,12 +1642,15 @@ def _phase_k5(fm, fr, model, folded, ncfg, pts, dirs) -> dict:
 
 def _check_probes(kd, fm, fr, probe, pts, dirs) -> dict:
     """Phase 11b: every probe kernel against its plain version at a ragged
-    1,001 rows (a part-filled last block) -> max error by kernel entry (the
-    chains' relative to their plain output's max abs)."""
+    1,001 rows (a part-filled last tile): the bf16 chain in every mode at
+    both plans and depth 2, 8 and 16, the f32 chain, the int8 chains at
+    depth 2 and 8, the ladder, and the render probes at S 64 and 192 ->
+    max error by kernel entry (the chains' relative to their plain output's
+    max abs)."""
     import torch
 
     from idealnerf_tpu_torch import scripts as sc
-    from idealnerf_tpu_torch.scripts import kdiag3, kdiag4
+    from idealnerf_tpu_torch.scripts import kdiag3
 
     print("phase 11 kernel-diagnosis probes vs plain versions, ragged")
     model, folded, pcfg, net = probe
@@ -1650,21 +1666,27 @@ def _check_probes(kd, fm, fr, probe, pts, dirs) -> dict:
              "select": ("kdiag4_chain",), "cast_max": ("kdiag4_chain",),
              "sum": ("kdiag4_chain",)}
     rows = 1001
-    bias = kdiag4.v6_bias(dev)
-    for dtype, rpbs in ((torch.bfloat16, (64, 128)), (torch.float32, (64,))):
-        x, ws = sc.chain_inputs(rows, dtype, dev, seed=11)
+    # the bf16 chain (wgmma) at depth 2, 8 and 16; the f32 one at kdiag4's 8
+    for dtype, rpbs, depths in ((torch.bfloat16, (64, 128), (2, 8, 16)),
+                                (torch.float32, (64,), (8,))):
         check = sc.chain_check(dtype)
-        for mode in kd.CHAIN_MODES[dtype]:
-            b = bias if mode in ("bias_relu", "relu2") else None
-            want = kd.chain_reference(x, ws, mode, b)
-            for rpb in rpbs:
-                e = check(f"chain {str(dtype)[6:]} {mode} r{rpb} rows {rows}",
-                          kd.chain(x, ws, mode, b, rpb), want)
-                for k in users[mode] if dtype == torch.bfloat16 else (
-                        "kdiag4_chain",):
-                    err[k] = max(err[k], e)
+        for depth in depths:
+            x, ws = sc.chain_inputs(rows, dtype, dev, seed=11, depth=depth)
+            # kdiag4 V6's bias, li + 1 in layer li
+            bias = (torch.arange(depth, device=dev, dtype=torch.float32)[
+                :, None] + 1.0).expand(depth, 256).contiguous()
+            for mode in kd.CHAIN_MODES[dtype]:
+                b = bias if mode in ("bias_relu", "relu2") else None
+                want = kd.chain_reference(x, ws, mode, b)
+                for rpb in rpbs:
+                    e = check(f"chain {str(dtype)[6:]} {mode} r{rpb} rows "
+                              f"{rows} depth {depth}",
+                              kd.chain(x, ws, mode, b, rpb), want)
+                    for k in users[mode] if dtype == torch.bfloat16 else (
+                            "kdiag4_chain",):
+                        err[k] = max(err[k], e)
     x, ws = sc.chain_inputs(rows, torch.bfloat16, dev, seed=12)
-    b = torch.zeros_like(bias)
+    b = torch.zeros(8, 256, device=dev)
     err["kdiag_chain"] = max(err["kdiag_chain"], sc.chain_check(
         torch.bfloat16)(f"chain bf16 relu2 r128 rows {rows}, bf16 out",
                         kd.chain(x, ws, "relu2", b, 128, torch.bfloat16),
@@ -1728,15 +1750,45 @@ def _worst(results: dict, labels=None) -> float:
     return err
 
 
+# the probes on the wgmma chain: the bf16 chain's 14 instantiations and
+# probe B (mangled-name stems after _ZN2fr)
+CHAIN_PROBES = ("2kd10k_chain_wg", "2kd16k_render_probe_b")
+
+
+def _probe_builds(kd, fr, ptxas, so_path, big: int) -> None:
+    """Phase 11a': the wgmma probes' ptxas lines (a spill fails) and HGMMA
+    counts (none fails), the bf16 chain's plans at ``big`` rows and probe
+    B's beside K1's at 64 and 192 depths."""
+    for i, ln in enumerate(ptxas):
+        if any(f"Function properties for _ZN2fr{k}" in ln
+               for k in CHAIN_PROBES):
+            print("  ptxas: " + " | ".join(ptxas[i:i + 3]))
+            if not any("0 bytes spill stores, 0 bytes spill loads" in x
+                       for x in ptxas[i + 1:i + 3]):
+                raise AssertionError(f"a wgmma probe spills: {ln}")
+    hgmma = _hgmma_counts(so_path, ("k_chain_wg", "k_render_probe_b"))
+    print(f"  HGMMA instructions in the probes' SASS (summed over the "
+          f"chain's instantiations): {hgmma}")
+    if not all(n > 0 for n in hgmma.values()):
+        raise AssertionError(f"a wgmma probe has no HGMMA: {hgmma}")
+    for rpb in (128, 64):
+        print(f"  chain r{rpb} at {big} rows: "
+              f"{kd.chain_launch_config(big, rpb)}")
+    for S in (64, 192):
+        print(f"  render_b S={S}: {kd.render_b_launch_config(S)} (K1: "
+              f"{fr.render_launch_config(S)})")
+
+
 def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
-                 slope=(1 << 20, 1 << 22), render_lib=None) -> dict:
-    """Phase 11b-c: the ragged probe checks, then each kdiag entry point at
-    its own size with ``--check`` (every timed output against its plain
-    version on the same inputs, that version timed once), the launch
-    counters set to 0 before it and read after -> the entries of K5 and
-    the probe kernels by name. ``render_lib``: phase 2's torch.addmm
-    yardstick of the fine pass at ``rays`` x 192, the render probes' work
-    (their ``library_ms``)."""
+                 slope=(1 << 20, 1 << 22), render_lib=None, ptxas=(),
+                 so_path=None) -> dict:
+    """Phase 11b-c: the wgmma probes' builds and plans (with ``so_path``),
+    the ragged probe checks, then each kdiag entry point at its own size
+    with ``--check`` (every timed output against its plain version on the
+    same inputs, that version timed once), the launch counters set to 0
+    before it and read after -> the entries of K5 and the probe kernels by
+    name. ``render_lib``: phase 2's torch.addmm yardstick of the fine pass
+    at ``rays`` x 192, the render probes' work (their ``library_ms``)."""
     import torch
 
     from idealnerf_tpu_torch.kernels import kdiag as kd
@@ -1745,6 +1797,8 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
     )
 
     dev = pts.device
+    if so_path:
+        _probe_builds(kd, fr, ptxas, so_path, big)
     model, folded, pcfg, net = probe = paper_field(dev)
     errs = _check_probes(kd, fm, fr, probe, pts, dirs)
     runs, launches = {}, {}
@@ -1767,54 +1821,61 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
                           **fr.launch_counts}
         torch.cuda.empty_cache()
 
-    # the entries' times: the chains' real pattern at r64, the ladder's own
-    # last rung, K5 as rung v3, the render probes at the fine pass's 192
-    # depths; each beside its plain version's time from the same run
+    # the entries' times: the bf16 chains' real pattern at r128 (the plan
+    # whose two warpgroups share each weight stage), int8 at r64, the
+    # ladder's own last rung, K5 as rung v3, the render probes at the fine
+    # pass's 192 depths; each beside its plain version's time from the
+    # same run
     mid, S = slope[0], 192
     pt, ray = _mlp_macs(pcfg)
-    # K5's yardstick on kdiag2's own encodings (rung v3's inputs)
-    k5_lib = _point_library_ms(net, *kdiag2.inputs(net, big, dev)[:2])
+    # K5's and the ladder's yardsticks on kdiag2's own encodings
+    pe, ped = kdiag2.inputs(net, big, dev)[:2]
+    k5_lib = _point_library_ms(net, pe, ped)
+    v2_lib = _point_library_ms(net, pe, ped, heads=False)
+    del pe, ped
     torch.cuda.empty_cache()
     wb = _weight_bytes(pcfg)
     ops = 2.0 * rays * (S * pt + ray)
     raw_bytes = rays * S * 16.0
     k3 = runs["kdiag3"]
 
-    def entry(r, n, bound, err, library=None):
+    def entry(r, n, bound, err, library=None, body="wmma"):
         return {"ms": r["ms"], "plain_ms": r["plain_ms"], "launches": n,
-                "library_ms": library, "max_abs_err": err, **bound}
+                "library_ms": library, "max_abs_err": err, **bound,
+                "body": body}
 
+    chain_body = "wgmma chain (kdiag.cu k_chain_wg on csrc/chain.cuh)"
     out = {
         "kdiag_chain": entry(
-            runs["kdiag"]["relu r64"], launches["kdiag"]["kdiag_chain_bf16"],
+            runs["kdiag"]["relu r128"], launches["kdiag"]["kdiag_chain_bf16"],
             _chain_bound(big, "bf16", 2, 2, 8 * 256 * 4),
             max(errs["kdiag_chain"], _worst(runs["kdiag"])),
-            runs["kdiag"]["matmul"]["ms"]),
+            runs["kdiag"]["matmul"]["ms"], chain_body),
         "kdiag4_chain": entry(
-            runs["kdiag4"]["V0 r64"]["rows"][str(mid)],
+            runs["kdiag4"]["V0 r128"]["rows"][str(mid)],
             launches["kdiag4"]["kdiag_chain_bf16"]
             + launches["kdiag4"]["kdiag_chain_f32"],
             _chain_bound(mid, "bf16", 2, 4),
             max(errs["kdiag4_chain"], _worst(runs["kdiag4"])),
-            runs["kdiag4"]["VX"]["ms"]),
+            runs["kdiag4"]["VX"]["ms"], chain_body + "; V3 f32 on FFMAs"),
         "kdiag5_chain": entry(
             runs["kdiag5"]["I0 r64"]["rows"][str(mid)],
             launches["kdiag5"]["kdiag_chain_int8"]
             + launches["kdiag5"]["kdiag_chain_bf16"],
             _chain_bound(mid, "int8", 1, 4),
             max(errs["kdiag5_chain"], _worst(runs["kdiag5"])),
-            runs["kdiag5"]["IX"]["ms"]),
+            runs["kdiag5"]["IX"]["ms"], "wmma (int8); B0 " + chain_body),
         "kdiag2_ladder": entry(
             runs["kdiag2"]["v2"], launches["kdiag2"]["kdiag_ladder"],
             _bound(2.0 * big * kd.ladder_macs(net, 2),
                    big * 2.0 * (fr.PE_PAD + fr.PED_PAD + 128) + wb),
             max(errs["kdiag2_ladder"],
-                _worst(runs["kdiag2"], ("v0", "v1", "v2")))),
+                _worst(runs["kdiag2"], ("v0", "v1", "v2"))), v2_lib),
         "fused_point_mlp_pe": entry(
             runs["kdiag2"]["v3"], launches["kdiag2"]["fused_point_mlp_pe"],
             _bound(2.0 * big * (pt + ray),
                    wb + big * (2.0 * (fr.PE_PAD + fr.PED_PAD) + 16)),
-            _worst(runs["kdiag2"], ("v3",)), k5_lib),
+            _worst(runs["kdiag2"], ("v3",)), k5_lib, "wgmma chain (K5)"),
         "kdiag3_render_a": entry(
             k3[f"A S={S}"], launches["kdiag3"]["kdiag_render_a"],
             _bound(ops, rays * (S * 2.0 * fr.PE_PAD + 2.0 * fr.PED_PAD)
@@ -1825,12 +1886,12 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
             k3[f"B S={S}"], launches["kdiag3"]["kdiag_render_b"],
             _bound(ops, rays * (24.0 + 4.0 * S) + raw_bytes + wb),
             max(errs["kdiag3_render_b"], _worst(k3, ("B S=64", "B S=192"))),
-            render_lib),
+            render_lib, "wgmma chain (K1's, csrc/chain.cuh RayTile)"),
         "kdiag3_render_c": entry(
             k3[f"C S={S}"], launches["kdiag3"]["fused_render_rays"],
             _ray_bound(pcfg, rays, S, 9 + S, 8 + S),
             max(errs["kdiag3_render_c"], _worst(k3, ("C S=64", "C S=192"))),
-            render_lib),
+            render_lib, "wgmma chain (K1)"),
     }
     for k, e in out.items():
         print(f"  {k}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms"
@@ -3921,7 +3982,8 @@ def main(argv=None) -> int:
     res11 = _phase_k5(fm, fr, nets["fine"], ff, ncfg, pts, dirs)
     probes = _phase_kdiag(
         fm, fr, pts, dirs, args.rays,
-        render_lib=res2["phase-2 rays"]["fused_render_rays"]["library_ms"])
+        render_lib=res2["phase-2 rays"]["fused_render_rays"]["library_ms"],
+        ptxas=ptxas, so_path=info["path"])
     report.update(k5=res11, kdiag=probes)
     del pts, dirs
     torch.cuda.empty_cache()
@@ -4036,10 +4098,12 @@ def main(argv=None) -> int:
     entries.update(probes["entries"])
     k5 = entries["fused_point_mlp_pe"]
     k5["max_abs_err"] = max(k5["max_abs_err"], res11["max_abs_err"])
+    # the probes' entries also name the body they run
     kernels = [{"name": k, "route": "cuda", **KERNELS[k],
                 **{f: entries[k][f] for f in (
                     "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms")}} for k in KERNELS]
+                    "bound_by", "library_ms", "body") if f in entries[k]}}
+               for k in KERNELS]
     idle = [e["name"] for e in kernels if not e["launches"] > 0]
     if idle:
         raise AssertionError(f"not launched on their paths: {idle}")

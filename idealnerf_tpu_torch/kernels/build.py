@@ -147,8 +147,12 @@ def load_library() -> ctypes.CDLL:
                                 vp]
     lib.kd_render_a.restype = i32
     lib.kd_render_b.argtypes = [vp, vp, vp, vp, i32, i32, i32, slots, i32, i32,
-                                i32, i32, vp]
+                                i32, i32, vp, i32, i32, vp]
     lib.kd_render_b.restype = i32
+    lib.kd_render_b_smem_bytes.argtypes = [i32, i32, i32]
+    lib.kd_render_b_smem_bytes.restype = ctypes.c_ulonglong
+    lib.kd_chain_config.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.kd_chain_config.restype = i32
     i64 = ctypes.c_longlong
     # the gradient kernels' two passes, bf16 and f32 (the same arguments)
     for sfx in ("", "_f32"):

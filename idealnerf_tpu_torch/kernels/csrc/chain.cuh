@@ -33,7 +33,9 @@
 // - What a kernel brings (the tile source Src, a template parameter): the
 //   fill of a tile's xyz-PE (from ray packets, from points, or from PE
 //   rows), whether view layer 0 adds a per-point dir-PE product (then its
-//   bias is bv[0]) or a per-ray term, and where the raw rows go.
+//   bias is bv[0]) or a per-ray term, and where the raw rows go. Both
+//   sources live here: RayTile (the ray kernels, and kdiag.cu's probe B,
+//   whose raw rows go to global memory) and PointTile.
 // - The gradient kernel's pass A (fused_mlp_grad.cu) runs the same pieces
 //   (chain_begin, chain_produce, Ring, prod_w / prod_v, relu_store with its
 //   relu' bits, PointTile) forward without the heads, then backward on a
@@ -438,6 +440,61 @@ struct PointTile {
   }
   __device__ __forceinline__ float* raw() const { return out; }
 };
+
+// The ray kernels' pieces (fused_render.cu K1-K3, and kdiag.cu's probe B,
+// which runs K1's chain without its compositing): the producer warp's
+// thread index in their per-ray phases, the offset of the per-ray state
+// behind the ring, tiles and mbarriers, and their tile source.
+constexpr int IDLE = 1 << 30;  // producer's thread index in ray phases
+
+// Byte offset of the per-ray state: the ring of n_ring stages, two
+// warpgroups' PE / trunk / view tiles, 128 bytes of mbarriers.
+__host__ __device__ inline int ray_state_offset(int n_ring) {
+  return n_ring * STAGE_BYTES + 2 * WG_BYTES + 128;
+}
+
+// The chain's tile source for a block of nr rays of S points each, point p
+// on ray p / S: the PE of x = ro + z rd from the per-ray state, view layer
+// 0's per-ray term pv (ped @ wv0d + bv0, load_rays), raw rows to sm.raw.
+struct RayTile {
+  static constexpr int kTileBytes = WG_BYTES;
+  static constexpr bool kDirProduct = false;
+  const Smem& sm;
+  int S, nr;
+
+  // 8 lanes per 16-byte chunk of a row
+  __device__ __forceinline__ void fill(const Net& net, bf16* pe_g, bf16*,
+                                       int row0, int n_pts, int wtid) const {
+    for (int e = wtid; e < 64 * (PE_PAD / 8); e += 128) {
+      const int row = e >> 3, c = e & 7, p = row0 + row;
+      __align__(16) bf16 v[8];
+      float x[3] = {0.f, 0.f, 0.f};
+      if (p < n_pts) {
+        const int ry = p / S;
+        const float zz = sm.z[p];
+        for (int d = 0; d < 3; ++d)
+          x[d] = sm.ro[ry * 3 + d] + zz * sm.rd[ry * 3 + d];
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        v[k] = __float2bfloat16(
+            p < n_pts ? pe_lane(x, 8 * c + k, net.multires) : 0.f);
+      *reinterpret_cast<uint4*>(pe_g + swz(row, 8 * c)) =
+          *reinterpret_cast<const uint4*>(v);
+    }
+  }
+  __device__ __forceinline__ const float* view_bias(const Net&,
+                                                    int row) const {
+    return sm.pv + min(row / S, nr - 1) * WV;
+  }
+  __device__ __forceinline__ float* raw() const { return sm.raw; }
+};
+
+// A thread's index in the per-ray phases: the consumers' own, the
+// producer warp's past every loop, so that it only joins their barriers.
+__device__ __forceinline__ int ray_tid() {
+  return threadIdx.x < NTHREADS ? static_cast<int>(threadIdx.x) : IDLE;
+}
 
 // A chain kernel's launch: the stream must hold the `want` stages of the
 // net and the ring 2..MAX_RING of them; sets the kernel's shared memory.

@@ -27,12 +27,13 @@
 // the point kernels of fused_mlp.cu (K4, K5) run too. Here, one block per
 // group of rb rays; the chain's tiles run over the block's rb x S points in
 // order, so a tile may straddle rays and the last one may be partial (its
-// rows past the block's points are zeros). The ray tile source (RayTile)
-// builds a tile's PE from the ray packets and depths in shared memory, adds
-// the per-ray view-layer-0 term pv (load_rays: ped @ wv0d + bv0, once per
-// ray) in view layer 0's epilogue, and writes raw rows to sm.raw. Around
-// the chain each block runs render_body.cuh's per-ray code; the producer
-// warp joins its barriers with a thread index past every loop (IDLE):
+// rows past the block's points are zeros). The ray tile source (RayTile,
+// chain.cuh) builds a tile's PE from the ray packets and depths in shared
+// memory, adds the per-ray view-layer-0 term pv (load_rays: ped @ wv0d +
+// bv0, once per ray) in view layer 0's epilogue, and writes raw rows to
+// sm.raw. Around the chain each block runs render_body.cuh's per-ray
+// code; the producer warp joins its barriers with a thread index past
+// every loop (IDLE):
 //     k_render_rays   load_rays, depths read from z, chain, composite
 //     k_coarse_hier   load_rays, the near/far linspace, chain, composite,
 //                     hier_depths
@@ -44,8 +45,6 @@
 #include "chain.cuh"
 
 namespace fr {
-
-constexpr int IDLE = 1 << 30;  // producer's thread index in ray phases
 
 // Per-ray state of the chain kernels (f32, each region 128-byte aligned):
 // ro, rd, dn, ped, pv, z, raw, w, cdf, uni, zp, wp as in Smem; regions a
@@ -89,12 +88,6 @@ __host__ __device__ inline size_t ray_state_layout(char* base, int rb, int S,
   return total;
 }
 
-// Byte offset of the per-ray state: the ring of n_ring stages, two
-// warpgroups' PE / trunk / view tiles, 128 bytes of mbarriers.
-__host__ __device__ inline int ray_state_offset(int n_ring) {
-  return n_ring * STAGE_BYTES + 2 * WG_BYTES + 128;
-}
-
 // Dynamic shared memory of a ray kernel: 1,024 bytes to align the base,
 // then the ring, the tiles, the mbarriers and the per-ray state.
 __host__ __device__ inline size_t chain_smem_bytes(int rb, int S, int n_cdf,
@@ -103,43 +96,6 @@ __host__ __device__ inline size_t chain_smem_bytes(int rb, int S, int n_cdf,
   return 1024 + ray_state_offset(n_ring) +
          ray_state_layout(nullptr, rb, S, n_cdf, n_union, n_prev, nullptr);
 }
-
-// The chain's tile source for a block of nr rays of S points each, point p
-// on ray p / S: the PE of x = ro + z rd from the per-ray state, view layer
-// 0's per-ray term pv (ped @ wv0d + bv0, load_rays), raw rows to sm.raw.
-struct RayTile {
-  static constexpr int kTileBytes = WG_BYTES;
-  static constexpr bool kDirProduct = false;
-  const Smem& sm;
-  int S, nr;
-
-  // 8 lanes per 16-byte chunk of a row
-  __device__ __forceinline__ void fill(const Net& net, bf16* pe_g, bf16*,
-                                       int row0, int n_pts, int wtid) const {
-    for (int e = wtid; e < 64 * (PE_PAD / 8); e += 128) {
-      const int row = e >> 3, c = e & 7, p = row0 + row;
-      __align__(16) bf16 v[8];
-      float x[3] = {0.f, 0.f, 0.f};
-      if (p < n_pts) {
-        const int ry = p / S;
-        const float zz = sm.z[p];
-        for (int d = 0; d < 3; ++d)
-          x[d] = sm.ro[ry * 3 + d] + zz * sm.rd[ry * 3 + d];
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        v[k] = __float2bfloat16(
-            p < n_pts ? pe_lane(x, 8 * c + k, net.multires) : 0.f);
-      *reinterpret_cast<uint4*>(pe_g + swz(row, 8 * c)) =
-          *reinterpret_cast<const uint4*>(v);
-    }
-  }
-  __device__ __forceinline__ const float* view_bias(const Net&,
-                                                    int row) const {
-    return sm.pv + min(row / S, nr - 1) * WV;
-  }
-  __device__ __forceinline__ float* raw() const { return sm.raw; }
-};
 
 // chain_begin for a ray kernel, with the per-ray state laid out into sm.
 __device__ __forceinline__ Chain ray_chain_begin(char* smem_raw, int n_ring,
@@ -150,12 +106,6 @@ __device__ __forceinline__ Chain ray_chain_begin(char* smem_raw, int n_ring,
   ray_state_layout(c.gbase + ray_state_offset(n_ring), rb, S, n_cdf,
                    n_union, n_prev, sm);
   return c;
-}
-
-// A thread's index in the per-ray phases: the consumers' own, the
-// producer warp's past every loop, so that it only joins their barriers.
-__device__ __forceinline__ int ray_tid() {
-  return threadIdx.x < NTHREADS ? static_cast<int>(threadIdx.x) : IDLE;
 }
 
 // The fine pass: rays at given depths z (R, S).
@@ -257,7 +207,7 @@ extern "C" {
 int fr_num_slots() { return fr::NSLOTS; }
 
 // Shared memory of render_body.cuh's wmma ray blocks (the kdiag.cu
-// render probes).
+// render probe A).
 unsigned long long fr_smem_bytes(int rb, int S) {
   return fr::smem_layout(nullptr, rb, S, nullptr);
 }

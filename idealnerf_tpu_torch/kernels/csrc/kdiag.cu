@@ -4,37 +4,72 @@
 //
 // kd_chain     replaces scripts/kdiag.py (k_plain, k_relu, k_relu2 at :70),
 //              scripts/kdiag4.py (chain_kernel at :90) and scripts/kdiag5.py
-//              (chain_kernel at :114): `depth` chained (ROWS, 256) @ (256,
-//              256) products with one epilogue between layers. bf16 with
-//              f32 accumulation (cast only, relu, bias + relu, compare +
-//              select, cast then max, two independent half-tile chains,
-//              and products only: every layer into one accumulator, the
-//              port's own bisection of the epilogue from the products),
-//              f32 on the CUDA cores (relu), int8 with s32 accumulation
-//              (relu + f32 scale + round/clip, or relu + shift).
+//              (chain_kernel at :114): `depth` chained (rows, 256) @ (256,
+//              256) products with one epilogue between layers:
+//              - bf16 with f32 accumulation on the wgmma chain of chain.cuh
+//                (k_chain_wg), the body K1-K5 run: cast only, relu, bias +
+//                relu, compare + select, cast then max, bias + relu with
+//                the two warpgroups skewed (relu2), and products only
+//                (sum: every layer into one accumulator, the port's own
+//                bisection of the epilogue from the products);
+//              - f32 on the CUDA cores (k_chain_f32, relu);
+//              - int8 with s32 accumulation on wmma (k_chain_i8: relu + f32
+//                scale + round/clip, or relu + shift).
 // kd_ladder    replaces scripts/kdiag2.py (:114, rungs v0-v2): the
 //              production trunk without the skip's pe-part, then with it,
-//              then with the view branch, on the production operand table.
-//              Rungs v3 and v4 are the production kernels K5 and K4
-//              (fused_mlp.cu, on the wgmma chain since they left the wmma
-//              body), which kernels/kdiag.py launches for them.
+//              then with the view branch, on the production operand table,
+//              on the wmma body of render_body.cuh. Rungs v3 and v4 are the
+//              production kernels K5 and K4 (fused_mlp.cu, on the wgmma
+//              chain), which kernels/kdiag.py launches for them.
 // kd_render_a  replaces scripts/kdiag3.py (kernel_A, :269): the ray-organised
 //              MLP from a given (R*S, 64) bf16 xyz-PE and a per-ray (R, 32)
-//              dir-PE -> raw (R, S*4), no compositing.
-// kd_render_b  replaces scripts/kdiag3.py (kernel_B, :291): the same with
-//              the PE built in the kernel from ray packets and depths, as
-//              the production fine pass builds it. kdiag3's kernel_C
-//              (:315) is the production fine pass itself (fr_render_rays).
+//              dir-PE -> raw (R, S*4), no compositing, on the wmma body.
+// kd_render_b  replaces scripts/kdiag3.py (kernel_B, :291): the fine pass
+//              (K1, fr_render_rays) without its compositing: load_rays, the
+//              depths from z and K1's chain with its ray tile source
+//              (RayTile, chain.cuh), the raw rows written to global memory.
+//              K1 less this probe is K1's per-ray code and compositing.
+//              kdiag3's kernel_C (:315) is K1 itself.
 //
 // What bounds them on the card: tensor-core work (f32: the CUDA cores). A
-// chain row costs 8 x 65,536 MACs against 512-1,536 bytes in and out. Each
-// probe is built from the wmma body the production kernels ran before the
-// wgmma chain (render_body.cuh): a block of 8 warps owns a tile of rows
-// whose activations ping-pong between two shared-memory buffers; weights
-// are read per layer from global memory (L2-resident) as wmma fragments;
-// each accumulator fragment goes through a per-warp f32 scratch for the
-// epilogue. So a probe's time says which part of that body cost what.
-#include "render_body.cuh"
+// chain row costs depth x 65,536 MACs against 512 bytes in and 512-1,024
+// out.
+//
+// The bf16 chain (k_chain_wg). The wrapper streams layer l's (256 x 256)
+// matrix as 8 pre-swizzled MN-major 16 KB stages of 32 K-rows
+// (kernels/kdiag.py: chain_weight_stream), depth x 8 stages; the
+// producer's one thread copies them by cp.async.bulk through a ring in
+// shared memory, the sequence repeated for every tile without draining.
+// A consumer warpgroup owns 64 rows: it loads them from row-major x into
+// its K-major 128-byte-swizzled activation tile (rows at or past `rows`
+// zeros), then per layer runs the products of the layer's 8 stages
+// (prod_layer, chain.cuh's prod_w unrolled: a 64 x 256 f32 accumulator
+// in registers, one wgmma group in flight), drains the ring, and writes the
+// mode's epilogue back into the same tile, rounded as the plain version
+// rounds it; after the last layer it copies its rows out in 16-byte
+// chunks (widened to f32 with out_f32). Blocks walk a contiguous run of
+// tiles, at most one wave of them (as K4 does). Two plans:
+//   rows_per_block 128: 288 threads, two consumer warpgroups on one
+//     128-row tile a step, both reading each stage, so the weights cross
+//     L2 once per 128 rows; a ring of 8 stages; one block per SM;
+//   rows_per_block 64: 160 threads, one consumer warpgroup on a 64-row
+//     tile a step, a ring of 4 stages; two blocks per SM, each streaming
+//     its own weights: the weights cross L2 once per 64 rows.
+// sum: A is the input tile for every layer and the accumulator is never
+//   cleared; no drain, barrier or epilogue between layers: the chain's own
+//   product-and-stream ceiling.
+// relu2 (the TPU probe's two half tiles, whose epilogues may overlap each
+//   other's products): at 128, warpgroup 1 starts each layer's products
+//   only after warpgroup 0 has issued that layer's first 4 stages (a named
+//   barrier, arrive / sync), so it runs at least half a layer behind and
+//   one warpgroup's epilogue overlaps the other's wgmma; the ring (8
+//   stages) holds the lead. At 64 a block has one warpgroup and relu2 is
+//   bias + relu: the SM's two blocks are the independent chains.
+// At the dense bf16 peak a 128-row tile's weights would cross L2 at 7.7
+// TB/s (15.5 at 64 rows); `sum` against the other modes shows whether the
+// stream or the epilogues bound the chain (PERF.md: neither; the
+// chain draws the card's power limit).
+#include "chain.cuh"
 
 namespace fr {
 namespace kd {
@@ -45,56 +80,328 @@ enum Mode {
   M_BIAS_RELU = 2,  // bf16(max(acc + b, 0))            kdiag k_relu, kdiag4 V6
   M_SELECT = 3,     // bf16(acc > 0 ? acc : 0)          kdiag4 V5
   M_CAST_MAX = 4,   // max(bf16(acc), 0) in bf16        kdiag4 V7
-  M_RELU2 = 5,      // M_BIAS_RELU, two chains a block  kdiag k_relu2
+  M_RELU2 = 5,      // M_BIAS_RELU, warpgroups skewed   kdiag k_relu2
   M_I0 = 6,         // int8(clip(f32(max(acc, 0)) * s + 0.5, 0, 127))  kdiag5 I0
   M_I1 = 7,         // int8(min(max(acc, 0) >> 6, 127))                kdiag5 I1
   M_SUM = 8,        // bf16(sum_l x @ w_l): one accumulator, no epilogue or
                     // barrier between layers; the products' own ceiling
 };
 
-constexpr int CT = W / 16;  // column tiles of a 256-wide layer
+// ------------------------------------------------- bf16: the wgmma chain
 
-template <typename T>
-struct Frag;
-template <>
-struct Frag<bf16> {
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> A;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> B;
-  typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> C;
-  typedef float Acc;
-};
-template <>
-struct Frag<signed char> {
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                         wmma::row_major>
-      A;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                         wmma::row_major>
-      B;
-  typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> C;
-  typedef int Acc;
-};
+constexpr int SKEW_BAR = 3;  // relu2's named barrier (1 and 2: the tiles')
 
+// The plan of `nwg` consumer warpgroups: ring stages, blocks per SM.
+__host__ __device__ constexpr int wg_ring(int nwg) {
+  return nwg == 2 ? MAX_RING : 4;
+}
+__host__ __device__ constexpr int wg_blocks_per_sm(int nwg) {
+  return nwg == 2 ? 1 : 2;
+}
+// 1,024 bytes to align the base, the ring, the warpgroups' activation
+// tiles, the mbarriers.
+__host__ __device__ constexpr size_t wg_smem(int nwg) {
+  return 1024 + static_cast<size_t>(wg_ring(nwg)) * STAGE_BYTES +
+         static_cast<size_t>(nwg) * H_TILE + 128;
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+// shared-memory stores and loads by 32-bit shared address
+__device__ __forceinline__ void st_shared(uint32_t a, __nv_bfloat162 v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(a),
+               "r"(*reinterpret_cast<uint32_t*>(&v))
+               : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t a, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(a),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ uint4 ld_shared(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// One pair of adjacent columns through the mode's epilogue (b: their bias).
 template <int MODE>
-__device__ __forceinline__ bf16 epilogue(float a, float b, float) {
+__device__ __forceinline__ __nv_bfloat162 epilogue_pair(float a0, float a1,
+                                                        float2 b) {
   if constexpr (MODE == M_CAST || MODE == M_SUM) {
-    return __float2bfloat16(a);
+    return __floats2bfloat162_rn(a0, a1);
   } else if constexpr (MODE == M_SELECT) {
-    return __float2bfloat16(a > 0.f ? a : 0.f);
+    return __floats2bfloat162_rn(a0 > 0.f ? a0 : 0.f, a1 > 0.f ? a1 : 0.f);
   } else if constexpr (MODE == M_CAST_MAX) {
-    return __hmax(__float2bfloat16(a), __float2bfloat16(0.f));
+    return __hmax2(__floats2bfloat162_rn(a0, a1), __float2bfloat162_rn(0.f));
   } else if constexpr (MODE == M_BIAS_RELU || MODE == M_RELU2) {
-    return __float2bfloat16(fmaxf(a + b, 0.f));
+    return __floats2bfloat162_rn(fmaxf(a0 + b.x, 0.f), fmaxf(a1 + b.y, 0.f));
   } else {
-    return __float2bfloat16(fmaxf(a, 0.f));
+    return __floats2bfloat162_rn(fmaxf(a0, 0.f), fmaxf(a1, 0.f));
   }
 }
+
+// tile (64 x 256, K-major image at that shared address; addresses, not
+// generic pointers, keep the unrolled chain inside its registers) = the
+// mode's epilogue of layer li's acc,
+// in chain.cuh:relu_store's fragment order (thread l of warp w: rows 16 w
+// + l / 4 and + 8, columns 8 (i / 4) + 2 (l % 4) + (i & 1)); the bias
+// modes read row li of bias (depth, 256).
+template <int MODE>
+__device__ __forceinline__ void mode_store(const float (&acc)[128],
+                                           uint32_t tile, const float* bias,
+                                           int li, int wtid) {
+  const int l = wtid & 31;
+  const int r0 = 16 * (wtid >> 5) + (l >> 2);
+#pragma unroll
+  for (int i0 = 0; i0 < 128; i0 += 32) {
+    float2 b[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if constexpr (MODE == M_BIAS_RELU || MODE == M_RELU2) {
+        b[j] = *reinterpret_cast<const float2*>(
+            bias + li * W + 8 * ((i0 >> 2) + j) + 2 * (l & 3));
+      } else {
+        b[j] = make_float2(0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int i = i0; i < i0 + 32; i += 2) {
+      const int col = 8 * (i >> 2) + 2 * (l & 3);
+      st_shared(tile + 2 * swz(r0 + 8 * ((i >> 1) & 1), col),
+                epilogue_pair<MODE>(acc[i], acc[i + 1], b[(i - i0) >> 2]));
+    }
+  }
+}
+
+// acc (+)= A (64 x 256 at a) @ the layer's 8 stages: chain.cuh's prod_w
+// over W, unrolled (the loop kept rolled, which also spilled, ran the
+// 128-row chain 10-25 % slower in one A/B, PERF.md; the tiles'
+// shared addresses, not generic pointers, keep the unrolled layer inside
+// the 168 registers a thread of a 288-thread block gets), which with
+// kSignal arrives on relu2's barrier once the first 4 stages are issued.
+template <bool kSignal>
+__device__ __forceinline__ void prod_layer(float (&acc)[128], Ring& r,
+                                           uint32_t a, bool first) {
+#pragma unroll
+  for (int k0 = 0; k0 < W; k0 += KC_W) {
+    if (kSignal && k0 == W / 2) named_arrive(SKEW_BAR, 256);
+    const uint32_t st = ring_take(r);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < KC_W / 16; ++j)
+      wgmma_n256_kmn(acc, a_desc(a, k0 + 16 * j),
+                     desc_mn(st + 2048 * j, KC_W * 128),
+                     first && k0 == 0 && j == 0 ? 0 : 1);
+    wgmma_commit();
+    ring_step(r);
+  }
+}
+
+// Warpgroup WG's 64 rows row0.. of one tile (rows at or past `rows` are
+// zeros and write nothing) through `depth` layers in its activation tile
+// at shared address h, then out. WG is a template parameter: the
+// warpgroup's barrier, its rows and its part in relu2's skew are
+// constants.
+template <int MODE, int NWG, int WG>
+__device__ __forceinline__ void chain_wg_tile(
+    const bf16* __restrict__ x, const float* __restrict__ bias,
+    void* __restrict__ out, int out_f32, int rows, int depth, Ring& r,
+    uint32_t h, int row0, int wtid) {
+  constexpr int bar = 1 + WG;
+  float acc[128];
+
+  named_barrier(bar, 128);  // the previous tile's rows are out
+  const uint4* xs = reinterpret_cast<const uint4*>(x);
+  for (int e = wtid; e < 64 * (W / 8); e += 128) {
+    const int row = e >> 5, c = e & 31;
+    const size_t p = static_cast<size_t>(row0) + row;
+    const uint4 v = p < static_cast<size_t>(rows) ? xs[p * (W / 8) + c]
+                                                  : make_uint4(0, 0, 0, 0);
+    st_shared(h + 2 * swz(row, 8 * c), v);
+  }
+  fence_proxy_async();
+  named_barrier(bar, 128);
+
+  constexpr bool kSkew = MODE == M_RELU2 && NWG == 2;
+  for (int li = 0; li < depth; ++li) {
+    // relu2: warpgroup 1 starts a layer once warpgroup 0 has issued its
+    // first 4 stages
+    if constexpr (kSkew && WG == 1) named_barrier(SKEW_BAR, 256);
+    prod_layer<kSkew && WG == 0>(acc, r, h, MODE != M_SUM || li == 0);
+    if (MODE == M_SUM && li + 1 < depth) continue;
+    ring_drain(r);
+    named_barrier(bar, 128);  // every warp's products have read h
+    mode_store<MODE>(acc, h, bias, li, wtid);
+    fence_proxy_async();
+    named_barrier(bar, 128);
+  }
+
+  for (int e = wtid; e < 64 * (W / 8); e += 128) {
+    const int row = e >> 5, c = e & 31;
+    const size_t p = static_cast<size_t>(row0) + row;
+    if (p >= static_cast<size_t>(rows)) continue;
+    const uint4 v = ld_shared(h + 2 * swz(row, 8 * c));
+    if (out_f32) {
+      const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(&v);
+      const float2 f0 = __bfloat1622float2(q[0]);
+      const float2 f1 = __bfloat1622float2(q[1]);
+      const float2 f2 = __bfloat1622float2(q[2]);
+      const float2 f3 = __bfloat1622float2(q[3]);
+      float4* d = static_cast<float4*>(out) + p * (W / 4) + 2 * c;
+      d[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
+      d[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
+    } else {
+      static_cast<uint4*>(out)[p * (W / 8) + c] = v;
+    }
+  }
+}
+
+// Warpgroup WG's part of the block's n_tiles tiles from row_base: its ring
+// view and activation tile (after the ring, at shared address base).
+template <int MODE, int NWG, int WG>
+__device__ __forceinline__ void chain_wg_walk(
+    const bf16* __restrict__ x, const float* __restrict__ bias,
+    void* __restrict__ out, int out_f32, int rows, int depth, int n_tiles,
+    int row_base, uint32_t base, uint32_t bars) {
+  constexpr uint32_t n_ring = wg_ring(NWG);
+  Ring ring{base, bars, n_ring, 0, NO_STAGE};
+  const uint32_t h = base + n_ring * STAGE_BYTES + WG * H_TILE;
+  for (int t = 0; t < n_tiles; ++t)
+    chain_wg_tile<MODE, NWG, WG>(x, bias, out, out_f32, rows, depth, ring,
+                                 h, row_base + t * 64 * NWG + 64 * WG,
+                                 threadIdx.x & 127);
+}
+
+// The bf16 chain of NWG consumer warpgroups (64 NWG rows a tile) and one
+// producer warp; the block walks tiles [blockIdx.x tiles_per_block, ...).
+template <int MODE, int NWG>
+__global__ void __launch_bounds__(128 * NWG + 32, NWG == 1 ? 2 : 1)
+k_chain_wg(const bf16* __restrict__ x, const bf16* __restrict__ wstream,
+           const float* __restrict__ bias, void* __restrict__ out,
+           int out_f32, int rows, int depth, int tiles_per_block) {
+  constexpr uint32_t n_ring = wg_ring(NWG);
+  constexpr int TILE = 64 * NWG;
+  extern __shared__ __align__(1024) char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bars = base + n_ring * STAGE_BYTES + NWG * H_TILE;
+  if (threadIdx.x == 0) {
+    for (uint32_t s = 0; s < n_ring; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (MAX_RING + s), 4 * NWG);  // one per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  const int row_base = blockIdx.x * tiles_per_block * TILE;
+  const int n_tiles =
+      min(tiles_per_block, (rows - row_base + TILE - 1) / TILE);
+  const int n_stages = depth * (W / KC_W);
+  if (wg == NWG) {
+    // the producer's one thread: n_stages stages per tile, n_tiles times
+    if (threadIdx.x == 128 * NWG) {
+      const uint32_t total = static_cast<uint32_t>(n_tiles) * n_stages;
+      for (uint32_t q = 0; q < total; ++q) {
+        const uint32_t s = q % n_ring;
+        if (q >= n_ring)
+          mbar_wait(bars + 8 * (MAX_RING + s), ((q / n_ring) - 1) & 1);
+        mbar_expect_tx(bars + 8 * s, STAGE_BYTES);
+        bulk_g2s(base + s * STAGE_BYTES,
+                 wstream + static_cast<size_t>(q % n_stages) * STAGE_ELEMS,
+                 STAGE_BYTES, bars + 8 * s);
+      }
+    }
+  } else if (wg == 0) {
+    chain_wg_walk<MODE, NWG, 0>(x, bias, out, out_f32, rows, depth, n_tiles,
+                                row_base, base, bars);
+  } else if constexpr (NWG == 2) {
+    chain_wg_walk<MODE, NWG, 1>(x, bias, out, out_f32, rows, depth, n_tiles,
+                                row_base, base, bars);
+  }
+}
+
+// The bf16 chain's launch plan on `sms` SMs: (tiles per block, blocks),
+// the tiles of 64 NWG rows split evenly over at most one wave of blocks.
+inline void wg_plan(int rows, int nwg, int sms, int* per_block,
+                    int* blocks) {
+  const int tiles = (rows + 64 * nwg - 1) / (64 * nwg);
+  const int slots = sms * wg_blocks_per_sm(nwg);
+  *per_block = (tiles + slots - 1) / slots;
+  *blocks = (tiles + *per_block - 1) / *per_block;
+}
+
+inline int current_sms() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
+template <int MODE, int NWG>
+cudaError_t launch_chain_wg(const void* x, const void* wstream,
+                            const float* bias, void* out, int out_f32,
+                            int rows, int depth, cudaStream_t st) {
+  const size_t bytes = wg_smem(NWG);
+  cudaError_t err = prepare(k_chain_wg<MODE, NWG>, bytes);
+  if (err != cudaSuccess) return err;
+  const int sms = current_sms();
+  if (sms < 1) return cudaErrorInvalidDevice;
+  int per_block = 0, blocks = 0;
+  wg_plan(rows, NWG, sms, &per_block, &blocks);
+  k_chain_wg<MODE, NWG><<<blocks, 128 * NWG + 32, bytes, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wstream), bias,
+      out, out_f32, rows, depth, per_block);
+  return cudaGetLastError();
+}
+
+template <int NWG>
+cudaError_t launch_bf16(int mode, const void* x, const void* wstream,
+                        const float* bias, void* out, int out_f32, int rows,
+                        int depth, cudaStream_t st) {
+  switch (mode) {
+    case M_CAST:
+      return launch_chain_wg<M_CAST, NWG>(x, wstream, bias, out, out_f32,
+                                          rows, depth, st);
+    case M_RELU:
+      return launch_chain_wg<M_RELU, NWG>(x, wstream, bias, out, out_f32,
+                                          rows, depth, st);
+    case M_BIAS_RELU:
+      return launch_chain_wg<M_BIAS_RELU, NWG>(x, wstream, bias, out,
+                                               out_f32, rows, depth, st);
+    case M_SELECT:
+      return launch_chain_wg<M_SELECT, NWG>(x, wstream, bias, out, out_f32,
+                                            rows, depth, st);
+    case M_CAST_MAX:
+      return launch_chain_wg<M_CAST_MAX, NWG>(x, wstream, bias, out,
+                                              out_f32, rows, depth, st);
+    case M_RELU2:
+      return launch_chain_wg<M_RELU2, NWG>(x, wstream, bias, out, out_f32,
+                                           rows, depth, st);
+    case M_SUM:
+      return launch_chain_wg<M_SUM, NWG>(x, wstream, bias, out, out_f32,
+                                         rows, depth, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// ----------------------------------------------------------- int8: wmma
+
+constexpr int CT = W / 16;  // column tiles of a 256-wide layer
 
 // The int8 requant, each step rounded as the plain version rounds it (no
 // FMA contraction): relu in the integer domain, then I0's f32 scale, +0.5,
 // clip to [0, 127] and truncation, or I1's arithmetic shift.
 template <int MODE>
-__device__ __forceinline__ signed char epilogue(int a, float, float scale) {
+__device__ __forceinline__ signed char requant(int a, float scale) {
   a = max(a, 0);
   if constexpr (MODE == M_I1) {
     return static_cast<signed char>(min(a >> 6, 127));
@@ -113,9 +420,9 @@ __device__ __forceinline__ float to_float(signed char v) {
 }
 __device__ __forceinline__ float to_float(float v) { return v; }
 
-template <typename T, int ROWS>
-constexpr size_t chain_smem() {
-  return 2 * sizeof(T) * ROWS * W + sizeof(float) * NWARP * 256;
+template <int ROWS>
+constexpr size_t i8_smem() {
+  return 2 * ROWS * W + sizeof(int) * NWARP * 256;
 }
 
 // The rows [0, n) of a shared tile to global memory: as T (16-byte chunks)
@@ -138,63 +445,58 @@ __device__ __forceinline__ void store_rows(void* dst, const T* src, int width,
   }
 }
 
-// One tile of ROWS rows through `depth` layers. With M_RELU2 the block runs
-// two independent chains, each of 4 warps on half the rows with its own
-// named barrier, so one chain's epilogue can overlap the other's products
-// (kdiag.py's two interleaved half tiles). Otherwise warp w owns column
-// tiles {w, w + 8} over all row tiles, as render_body.cuh:mma_k does. With
-// M_SUM every layer multiplies the input tile and adds into the same
-// accumulators; the epilogue runs once, after the last layer.
-template <int MODE, typename T, int ROWS>
+// One tile of ROWS int8 rows through `depth` layers, out as f32: warp w
+// owns column tiles {w, w + 8} over all row tiles, as render_body.cuh:mma_k
+// does; activations ping-pong between two shared buffers; each
+// accumulator fragment goes through a per-warp s32 scratch for the
+// requant.
+template <int MODE, int ROWS>
 __global__ void __launch_bounds__(NTHREADS, ROWS == 64 ? 2 : 1)
-k_chain(const T* __restrict__ x, const T* __restrict__ w,
-        const float* __restrict__ bias, void* __restrict__ out, int out_f32,
-        int rows, int depth) {
-  typedef Frag<T> F;
-  typedef typename F::Acc Acc;
-  constexpr int G = MODE == M_RELU2 ? 2 : 1;  // chains per block
-  constexpr int WG = NWARP / G;               // warps per chain
-  constexpr int RTG = ROWS / 16 / G;          // row tiles per chain
-  constexpr int NC = CT / WG;                 // column tiles per warp
+k_chain_i8(const signed char* __restrict__ x,
+           const signed char* __restrict__ w, float* __restrict__ out,
+           int rows, int depth) {
+  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
+                         wmma::row_major>
+      A;
+  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
+                         wmma::row_major>
+      B;
+  typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> C;
+  constexpr int RTG = ROWS / 16;  // row tiles
+  constexpr int NC = CT / NWARP;  // column tiles per warp
   extern __shared__ __align__(128) char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = warp / WG, wl = warp - g * WG;
-  T* h = reinterpret_cast<T*>(smem);
-  T* hn = h + ROWS * W;
-  Acc* scr = reinterpret_cast<Acc*>(hn + ROWS * W) + warp * 256;
+  signed char* h = reinterpret_cast<signed char*>(smem);
+  signed char* hn = h + ROWS * W;
+  int* scr = reinterpret_cast<int*>(hn + ROWS * W) + warp * 256;
   const int r0 = blockIdx.x * ROWS;
   const int n = min(ROWS, rows - r0);
-  const int row0 = g * RTG * 16;
 
   load_rows(h, x + static_cast<size_t>(r0) * W, ROWS, W, n, tid);
   __syncthreads();
-  typename F::C acc[NC][RTG];
+  C acc[NC][RTG];
   for (int li = 0; li < depth; ++li) {
-    const T* wt = w + static_cast<size_t>(li) * W * W;
-    if (MODE != M_SUM || li == 0) {
+    const signed char* wt = w + static_cast<size_t>(li) * W * W;
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
-        for (int r = 0; r < RTG; ++r) wmma::fill_fragment(acc[c][r], Acc(0));
-    }
+      for (int r = 0; r < RTG; ++r) wmma::fill_fragment(acc[c][r], 0);
     for (int k = 0; k < W; k += 16) {
-      typename F::A a[RTG];
+      A a[RTG];
 #pragma unroll
       for (int r = 0; r < RTG; ++r)
-        wmma::load_matrix_sync(a[r], h + (row0 + r * 16) * W + k, W);
+        wmma::load_matrix_sync(a[r], h + r * 16 * W + k, W);
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        typename F::B b;
+        B b;
         wmma::load_matrix_sync(
-            b, wt + static_cast<size_t>(k) * W + (wl + c * WG) * 16, W);
+            b, wt + static_cast<size_t>(k) * W + (warp + c * NWARP) * 16, W);
 #pragma unroll
         for (int r = 0; r < RTG; ++r)
           wmma::mma_sync(acc[c][r], a[r], b, acc[c][r]);
       }
     }
-    if (MODE == M_SUM && li + 1 < depth) continue;
     const float scale = static_cast<float>(0.25 / (li + 2.0));
-    const float* bl = bias + static_cast<size_t>(li) * W;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
@@ -202,29 +504,44 @@ k_chain(const T* __restrict__ x, const T* __restrict__ w,
         wmma::store_matrix_sync(scr, acc[c][r], 16, wmma::mem_row_major);
         __syncwarp();
         for (int e = lane; e < 256; e += 32) {
-          const int row = row0 + r * 16 + (e >> 4);
-          const int col = (wl + c * WG) * 16 + (e & 15);
-          const float b =
-              (MODE == M_BIAS_RELU || MODE == M_RELU2) ? bl[col] : 0.f;
-          hn[row * W + col] = epilogue<MODE>(scr[e], b, scale);
+          const int row = r * 16 + (e >> 4);
+          const int col = (warp + c * NWARP) * 16 + (e & 15);
+          hn[row * W + col] = requant<MODE>(scr[e], scale);
         }
         __syncwarp();
       }
     }
-    if constexpr (G == 1) {
-      __syncthreads();
-    } else {
-      asm volatile("bar.sync %0, %1;" ::"r"(1 + g), "r"(WG * 32) : "memory");
-    }
-    T* t = h;
+    __syncthreads();
+    signed char* t = h;
     h = hn;
     hn = t;
   }
-  __syncthreads();
-  store_rows(static_cast<char*>(out) +
-                 static_cast<size_t>(r0) * W * (out_f32 ? 4 : sizeof(T)),
-             h, W, n, out_f32, tid);
+  store_rows(out + static_cast<size_t>(r0) * W, h, W, n, 1, tid);
 }
+
+template <int MODE, int ROWS>
+cudaError_t launch_i8(const void* x, const void* w, void* out, int rows,
+                      int depth, cudaStream_t st) {
+  const size_t bytes = i8_smem<ROWS>();
+  cudaError_t err = prepare(k_chain_i8<MODE, ROWS>, bytes);
+  if (err != cudaSuccess) return err;
+  k_chain_i8<MODE, ROWS><<<(rows + ROWS - 1) / ROWS, NTHREADS, bytes, st>>>(
+      static_cast<const signed char*>(x), static_cast<const signed char*>(w),
+      static_cast<float*>(out), rows, depth);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_i8_rows(int rows_per_block, const void* x, const void* w,
+                           void* out, int rows, int depth, cudaStream_t st) {
+  if (rows_per_block == 64)
+    return launch_i8<MODE, 64>(x, w, out, rows, depth, st);
+  if (rows_per_block == 128)
+    return launch_i8<MODE, 128>(x, w, out, rows, depth, st);
+  return cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------ f32, ladder
 
 // The f32 chain (kdiag4 V3: no casts) on the CUDA cores: warp w owns rows
 // 8w..8w+7 of the 64-row tile and lane l columns 8l..8l+7, so the shared
@@ -374,33 +691,74 @@ k_mlp_ladder(Net net, const bf16* __restrict__ pe,
   }
 }
 
-// kdiag3 B: the fine pass's rays, depths and in-kernel PE (load_rays,
-// mlp_tile), with the tiles' raw rows written to global memory instead of
-// shared memory and no compositing. The block layout is K1's.
-__global__ void __launch_bounds__(NTHREADS, 2)
-k_render_probe_b(Net net, const float* __restrict__ rays_o,
+// ------------------------------------------------ probe B: K1's chain
+
+// Probe B's per-ray state: ro, rd, dn, ped, pv and z, the first six regions
+// of fused_render.cu's ray_state_layout; no raw or weight rows (the raw
+// rows go to global memory, and nothing composites).
+__host__ __device__ inline size_t probe_b_layout(char* base, int rb, int S,
+                                                 Smem* sm) {
+  const size_t n[6] = {static_cast<size_t>(rb) * 3,
+                       static_cast<size_t>(rb) * 3, static_cast<size_t>(rb),
+                       static_cast<size_t>(rb) * PED_PAD,
+                       static_cast<size_t>(rb) * WV,
+                       static_cast<size_t>(rb) * S};
+  float* p[6];
+  size_t total = 0;
+  for (int i = 0; i < 6; ++i) {
+    p[i] = base ? reinterpret_cast<float*>(base + total) : nullptr;
+    total += (sizeof(float) * n[i] + 127) & ~static_cast<size_t>(127);
+  }
+  if (sm != nullptr) {
+    *sm = Smem{};
+    sm->ro = p[0];
+    sm->rd = p[1];
+    sm->dn = p[2];
+    sm->ped = p[3];
+    sm->pv = p[4];
+    sm->z = p[5];
+  }
+  return total;
+}
+
+// Dynamic shared memory of probe B: K1's ring, tiles and mbarriers, then
+// its per-ray state.
+__host__ __device__ inline size_t probe_b_smem(int rb, int S, int n_ring) {
+  return 1024 + ray_state_offset(n_ring) +
+         probe_b_layout(nullptr, rb, S, nullptr);
+}
+
+// kdiag3 B: K1 (fused_render.cu k_render_rays) up to its chain: load_rays,
+// the depths read from z, then chain_mlp with RayTile, whose raw rows go
+// to the block's rows of the global (R, S*4) output; no composite.
+__global__ void __launch_bounds__(D_THREADS, 1)
+k_render_probe_b(Net net, const bf16* __restrict__ wstream, int n_stages,
+                 const float* __restrict__ rays_o,
                  const float* __restrict__ rays_d,
                  const float* __restrict__ zin, float* __restrict__ raw,
-                 int R, int S, int rb) {
-  extern __shared__ __align__(128) char smem[];
+                 int R, int S, int rb, int n_ring) {
+  extern __shared__ __align__(1024) char smem_raw[];
+  const Chain c = chain_begin(smem_raw, n_ring, WG_BYTES);
   Smem sm;
-  smem_layout(smem, rb, S, &sm);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  probe_b_layout(c.gbase + ray_state_offset(n_ring), rb, S, &sm);
+  const int tid = ray_tid();
   const int ray0 = blockIdx.x * rb;
-  const int nr = min(rb, R - ray0);
+  const int nr = min(rb, R - ray0), n_pts = nr * S;
 
   load_rays(net, sm, rays_o, rays_d, ray0, nr, tid);
-  for (int e = tid; e < nr * S; e += NTHREADS)
+  for (int e = tid; e < n_pts; e += NTHREADS)
     sm.z[e] = zin[static_cast<size_t>(ray0) * S + e];
   __syncthreads();
   sm.raw = raw + static_cast<size_t>(ray0) * S * 4;
-  const int n_pts = nr * S;
-  for (int base = 0; base < n_pts; base += P)
-    mlp_tile(net, sm, base, n_pts, S, rb, warp, lane, tid);
+  chain_mlp(net, RayTile{sm, S, nr}, c, wstream, n_stages, n_pts);
 }
 
-// kdiag3 A: B with the xyz-PE of every point read from global memory and
-// the per-ray dir-PE given, its view-layer-0 term built as load_rays does.
+// ------------------------------------------------ probe A: the wmma body
+
+// kdiag3 A: the ray-organised MLP on render_body.cuh's wmma body
+// (mlp_core, tiles of P points), from the xyz-PE of every point read from
+// global memory and the per-ray dir-PE given, its view-layer-0 term built
+// as load_rays does; raw rows to global memory, no compositing.
 __global__ void __launch_bounds__(NTHREADS, 2)
 k_render_probe_a(Net net, const bf16* __restrict__ pe,
                  const bf16* __restrict__ ped, float* __restrict__ raw, int R,
@@ -437,32 +795,6 @@ k_render_probe_a(Net net, const bf16* __restrict__ pe,
   }
 }
 
-template <int MODE, typename T, int ROWS>
-cudaError_t launch_chain(const void* x, const void* w, const float* bias,
-                         void* out, int out_f32, int rows, int depth,
-                         cudaStream_t st) {
-  const size_t bytes = chain_smem<T, ROWS>();
-  cudaError_t err = prepare(k_chain<MODE, T, ROWS>, bytes);
-  if (err != cudaSuccess) return err;
-  k_chain<MODE, T, ROWS><<<(rows + ROWS - 1) / ROWS, NTHREADS, bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), bias, out, out_f32,
-      rows, depth);
-  return cudaGetLastError();
-}
-
-template <int MODE, typename T>
-cudaError_t launch_rows(int rows_per_block, const void* x, const void* w,
-                        const float* bias, void* out, int out_f32, int rows,
-                        int depth, cudaStream_t st) {
-  if (rows_per_block == 64)
-    return launch_chain<MODE, T, 64>(x, w, bias, out, out_f32, rows, depth,
-                                     st);
-  if (rows_per_block == 128)
-    return launch_chain<MODE, T, 128>(x, w, bias, out, out_f32, rows, depth,
-                                      st);
-  return cudaErrorInvalidValue;
-}
-
 template <int STAGE>
 cudaError_t launch_ladder(const Net& net, const void* pe, const void* ped,
                           void* out, int N, cudaStream_t st) {
@@ -480,8 +812,11 @@ cudaError_t launch_ladder(const Net& net, const void* pe, const void* ped,
 
 extern "C" {
 
-// dtype: 0 bf16, 1 f32, 2 int8; mode: fr::kd::Mode. Every (dtype, mode,
-// rows_per_block) the kernel does not take returns cudaErrorInvalidValue.
+// dtype: 0 bf16, 1 f32, 2 int8; mode: fr::kd::Mode. w: for bf16 the
+// weight stream of the depth layers (depth x 8 stages,
+// kernels/kdiag.py:chain_weight_stream), otherwise the (depth, 256, 256)
+// weights. Every (dtype, mode, rows_per_block) the kernels do not take
+// returns cudaErrorInvalidValue.
 int kd_chain(const void* x, const void* w, const float* bias, void* out,
              int out_f32, int rows, int depth, int dtype, int mode,
              int rows_per_block, void* stream) {
@@ -489,47 +824,15 @@ int kd_chain(const void* x, const void* w, const float* bias, void* out,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    switch (mode) {
-      case M_CAST:
-        err = launch_rows<M_CAST, fr::bf16>(rows_per_block, x, w, bias, out,
-                                            out_f32, rows, depth, st);
-        break;
-      case M_RELU:
-        err = launch_rows<M_RELU, fr::bf16>(rows_per_block, x, w, bias, out,
-                                            out_f32, rows, depth, st);
-        break;
-      case M_BIAS_RELU:
-        err = launch_rows<M_BIAS_RELU, fr::bf16>(rows_per_block, x, w, bias,
-                                                 out, out_f32, rows, depth,
-                                                 st);
-        break;
-      case M_SELECT:
-        err = launch_rows<M_SELECT, fr::bf16>(rows_per_block, x, w, bias,
-                                              out, out_f32, rows, depth, st);
-        break;
-      case M_CAST_MAX:
-        err = launch_rows<M_CAST_MAX, fr::bf16>(rows_per_block, x, w, bias,
-                                                out, out_f32, rows, depth,
-                                                st);
-        break;
-      case M_RELU2:
-        err = launch_rows<M_RELU2, fr::bf16>(rows_per_block, x, w, bias, out,
-                                             out_f32, rows, depth, st);
-        break;
-      case M_SUM:
-        err = launch_rows<M_SUM, fr::bf16>(rows_per_block, x, w, bias, out,
-                                           out_f32, rows, depth, st);
-        break;
-      default:
-        break;
-    }
+    if (rows_per_block == 128)
+      err = launch_bf16<2>(mode, x, w, bias, out, out_f32, rows, depth, st);
+    else if (rows_per_block == 64)
+      err = launch_bf16<1>(mode, x, w, bias, out, out_f32, rows, depth, st);
   } else if (dtype == 2 && out_f32) {
     if (mode == M_I0)
-      err = launch_rows<M_I0, signed char>(rows_per_block, x, w, bias, out,
-                                           out_f32, rows, depth, st);
+      err = launch_i8_rows<M_I0>(rows_per_block, x, w, out, rows, depth, st);
     else if (mode == M_I1)
-      err = launch_rows<M_I1, signed char>(rows_per_block, x, w, bias, out,
-                                           out_f32, rows, depth, st);
+      err = launch_i8_rows<M_I1>(rows_per_block, x, w, out, rows, depth, st);
   } else if (dtype == 1 && mode == M_RELU && out_f32 &&
              rows_per_block == F32_ROWS) {
     const size_t bytes = 2 * sizeof(float) * F32_ROWS * fr::W;
@@ -542,6 +845,21 @@ int kd_chain(const void* x, const void* w, const float* bias, void* out,
     err = cudaGetLastError();
   }
   return static_cast<int>(err);
+}
+
+// The bf16 chain's launch at rows_per_block (64 or 128) on the current
+// card: plan = {tiles per block, blocks, ring stages, shared memory bytes,
+// threads per block}.
+int kd_chain_config(int rows, int rows_per_block, int* plan) {
+  if (rows_per_block != 64 && rows_per_block != 128) return 1;
+  const int nwg = rows_per_block / 64;
+  const int sms = fr::kd::current_sms();
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidDevice);
+  fr::kd::wg_plan(rows, nwg, sms, &plan[0], &plan[1]);
+  plan[2] = fr::kd::wg_ring(nwg);
+  plan[3] = static_cast<int>(fr::kd::wg_smem(nwg));
+  plan[4] = 128 * nwg + 32;
+  return 0;
 }
 
 // stage 0: trunk only -> (N, 256) bf16; 1: + skip -> (N, 256); 2: + view
@@ -573,18 +891,28 @@ int kd_render_a(const void* pe, const void* ped, float* raw, int R, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
+unsigned long long kd_render_b_smem_bytes(int rb, int S, int n_ring) {
+  return fr::kd::probe_b_smem(rb, S, n_ring);
+}
+
+// Probe B at K1's launch: wstream, n_stages and n_ring as fr_render_rays
+// takes them; one block per group of rb rays.
 int kd_render_b(const float* rays_o, const float* rays_d, const float* z,
                 float* raw, int R, int S, int rb,
                 const unsigned long long* slots, int depth, int n_views,
-                int multires, int multires_views, void* stream) {
+                int multires, int multires_views, const void* wstream,
+                int n_stages, int n_ring, void* stream) {
+  const size_t bytes = fr::kd::probe_b_smem(rb, S, n_ring);
+  cudaError_t err = fr::chain_prepare(
+      fr::kd::k_render_probe_b, bytes,
+      fr::chain_stages(slots, depth, n_views), n_stages, n_ring);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const fr::Net net =
       fr::make_net(slots, depth, n_views, multires, multires_views, 0);
-  const size_t bytes = fr::smem_layout(nullptr, rb, S, nullptr);
-  cudaError_t err = fr::prepare(fr::kd::k_render_probe_b, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fr::kd::k_render_probe_b<<<(R + rb - 1) / rb, fr::NTHREADS, bytes,
+  fr::kd::k_render_probe_b<<<(R + rb - 1) / rb, fr::D_THREADS, bytes,
                              static_cast<cudaStream_t>(stream)>>>(
-      net, rays_o, rays_d, z, raw, R, S, rb);
+      net, static_cast<const fr::bf16*>(wstream), n_stages, rays_o, rays_d,
+      z, raw, R, S, rb, n_ring);
   return static_cast<int>(cudaGetLastError());
 }
 

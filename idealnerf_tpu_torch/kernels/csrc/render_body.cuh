@@ -3,7 +3,7 @@
 // operand table, PE lanes, the per-ray set-up, alpha compositing, the
 // inverse-CDF depth placement that the coarse and delta kernels run and
 // the delta kernel's foreground band epilogue, and the wmma MLP body that
-// the kdiag.cu probes run.
+// the kdiag.cu probe A and ladder run.
 //
 // Numeric contract (the same as the JAX package's Pallas kernels,
 // idealnerf_tpu/kernels/fused_render.py:_render_body):
@@ -22,8 +22,8 @@
 // the wgmma chain of chain.cuh, and so does the gradient kernel's pass A
 // (fused_mlp_grad.cu), forward then backward.
 //
-// The wmma body (mma_k, store_relu, mlp_core, mlp_tile) now serves only
-// the kdiag.cu probes, which time it as the production kernels ran it
+// The wmma body (mma_k, store_relu, mlp_core) now serves only the kdiag.cu
+// probes A and the ladder, which time it as the production kernels ran it
 // before the chain: one block of 8 warps walks its points in tiles of P=64
 // rows. A tile's activations live in shared memory (two 64x256 bf16
 // buffers, ping-pong); layer weights are read per layer from global memory
@@ -102,7 +102,7 @@ struct Smem {
 };
 
 // Byte layout of the dynamic shared memory of the wmma ray blocks (the
-// kdiag.cu render probes); the host calls it with a null base to size the
+// kdiag.cu render probe A); the host calls it with a null base to size the
 // launch. Every region starts 128-byte aligned.
 __host__ __device__ inline size_t smem_layout(char* base, int rb, int S,
                                               Smem* sm) {
@@ -341,30 +341,6 @@ static __device__ void mlp_core(const Net& net, const Smem& sm,
     }
   }
   __syncthreads();
-}
-
-// One tile of P ray points: PE of x = o + z d -> mlp_core -> sm.raw.
-static __device__ void mlp_tile(const Net& net, const Smem& sm,
-                                int tile_base, int n_pts, int S, int rb,
-                                int warp, int lane, int tid) {
-  // PE in f32; rows past the block's valid points are zeros and are never
-  // read back.
-  for (int e = tid; e < P * PE_PAD; e += NTHREADS) {
-    const int row = e / PE_PAD, k = e - row * PE_PAD;
-    const int p = tile_base + row;
-    float v = 0.f;
-    if (p < n_pts) {
-      const int r = p / S;
-      const float zz = sm.z[p];
-      const float x[3] = {sm.ro[r * 3] + zz * sm.rd[r * 3],
-                          sm.ro[r * 3 + 1] + zz * sm.rd[r * 3 + 1],
-                          sm.ro[r * 3 + 2] + zz * sm.rd[r * 3 + 2]};
-      v = pe_lane(x, k, net.multires);
-    }
-    sm.pe[e] = __float2bfloat16(v);
-  }
-  __syncthreads();
-  mlp_core(net, sm, sm.pv, WV, tile_base, n_pts, S, rb, sm.raw, warp, lane);
 }
 
 // Compositing of the block's rays from sm.z and sm.raw: summary (R, 8) =

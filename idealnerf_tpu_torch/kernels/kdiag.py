@@ -1,24 +1,35 @@
 """Kernel-diagnosis probes of the fused MLP (counterparts of the Pallas
 kernels in the JAX package's ``scripts/kdiag{,2,3,4,5}.py``).
 
-The kernels (``csrc/kdiag.cu``, CUDA C++ for sm_90a) are built from the
-production kernels' inner loop (``csrc/render_body.cuh``), so each one
-isolates a part of their time:
+The kernels (``csrc/kdiag.cu``, CUDA C++ for sm_90a) each isolate a part
+of the production kernels' time:
 
 - ``chain``: ``depth`` chained (rows, 256) @ (256, 256) products with one
-  epilogue between layers: bf16 with f32 accumulation in six epilogue
-  modes, f32 on the CUDA cores, int8 with s32 accumulation and two
-  requants; 64 or 128 rows per block (kdiag.py, kdiag4.py, kdiag5.py).
-  One more bf16 mode has no TPU counterpart: ``sum`` multiplies the input
-  by every layer into one accumulator, with no epilogue or barrier
-  between layers, so that the products' own rate shows beside the chain's.
+  epilogue between layers (kdiag.py, kdiag4.py, kdiag5.py). bf16 with f32
+  accumulation runs on the wgmma chain that K1-K5 run (``csrc/chain.cuh``),
+  fed by ``chain_weight_stream(ws)`` (cached per ``ws``), in seven modes:
+  cast, relu, bias_relu, select, cast_max, relu2 (bias_relu with the two
+  warpgroups skewed by half a layer, so that one's epilogue overlaps the
+  other's products) and sum (the input times every layer into one
+  accumulator, no epilogue or barrier between layers: the products' and
+  the stream's own rate, a mode of this port only). ``rows_per_block``
+  names the plan: 128 is one 128-row tile a step on two consumer
+  warpgroups that share each weight stage (one block per SM, a ring of 8
+  stages), 64 a block of one consumer warpgroup on 64-row tiles (two
+  blocks per SM, each streaming its own weights, a ring of 4); blocks walk
+  a run of tiles, at most one wave (``chain_launch_config``). f32 runs on
+  the CUDA cores (64 rows per block), int8 with s32 accumulation and two
+  requants on wmma (64 or 128 rows per block).
 - ``ladder``: the production trunk, then + skip, + view branch (rungs
-  v0-v2 on the production operand table); rung v3 is the encoded-input
-  point MLP (K5) and v4 the in-kernel-PE one (K4) (kdiag2.py).
-- ``render_probe_a`` / ``render_probe_b``: the ray-organised MLP of
-  render_body.cuh's wmma blocks (the fine pass's until it moved to the
-  wgmma chain) without compositing, from given PE or with the PE built in
-  the kernel (kdiag3.py A and B; its C is the fine pass itself).
+  v0-v2 on the production operand table, on render_body.cuh's wmma body);
+  rung v3 is the encoded-input point MLP (K5) and v4 the in-kernel-PE one
+  (K4) (kdiag2.py).
+- ``render_probe_a``: the ray-organised MLP of render_body.cuh's wmma
+  blocks from given PE, without compositing (kdiag3.py A).
+- ``render_probe_b``: the fine pass (K1) without its compositing, on K1's
+  chain, tile source and launch plan, raw rows to global memory
+  (kdiag3.py B; its C is the fine pass itself). K1 less B is K1's
+  per-ray code and compositing.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 ``launch_counts``; for CPU tensors it runs the plain PyTorch version
@@ -29,6 +40,7 @@ called by the probes themselves.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -40,9 +52,9 @@ from idealnerf_tpu_torch.kernels.fused_mlp import (
     point_mlp_pe, point_mlp_pe_reference,
 )
 from idealnerf_tpu_torch.kernels.fused_render import (
-    _REF_CHUNK_POINTS, KERNEL_WIDTH, PE_PAD, PED_PAD, SMEM_LIMIT, PackedNet,
-    _bf16, _check_cuda, _check_rays, _mlp_reference, _raise_on, _slots,
-    _stream,
+    _KC_W, _REF_CHUNK_POINTS, KERNEL_WIDTH, PE_PAD, PED_PAD, SMEM_LIMIT,
+    PackedNet, _bf16, _chain_args, _check_cuda, _check_rays, _mlp_reference,
+    _raise_on, _render_plan, _slots, _stream, weight_stream,
 )
 
 # epilogue modes of csrc/kdiag.cu (enum Mode)
@@ -57,8 +69,12 @@ _CHAIN_COUNT = {torch.bfloat16: "kdiag_chain_bf16",
                 torch.int8: "kdiag_chain_int8"}
 _BIAS_MODES = ("bias_relu", "relu2")
 
-# points per block of the render probes; a block owns whole rays
+# points per block of render probe A; a block owns whole rays
 _POINTS_PER_BLOCK = 768
+# the bf16 chain's weight streams by weights (chain_weight_stream), at most
+# this many
+_STREAM_CACHE: dict = {}
+_STREAM_CACHE_SIZE = 4
 
 launch_counts = {"kdiag_chain_bf16": 0, "kdiag_chain_f32": 0,
                  "kdiag_chain_int8": 0, "kdiag_ladder": 0,
@@ -157,28 +173,45 @@ def _check_mode(dtype, mode: str, bias, out_dtype) -> None:
                          + (" or bf16" if dtype == torch.bfloat16 else ""))
 
 
-def chain(x: torch.Tensor, ws: torch.Tensor, mode: str,
-          bias: Optional[torch.Tensor] = None, rows_per_block: int = 64,
-          out_dtype=torch.float32) -> torch.Tensor:
-    """x (rows, 256) through ws (depth, 256, 256) with ``mode``'s epilogue
-    after every layer -> (rows, 256) ``out_dtype``. bf16 modes: cast,
-    relu, bias_relu, select, cast_max, relu2 (bias_relu as two independent
-    half-tile chains), sum (bf16 of x @ ws[0] + x @ ws[1] + ..., no
-    epilogue between layers); f32: relu; int8: i0, i1. ``bias`` (depth,
-    256) f32 for bias_relu and relu2. CUDA tensors launch the kernel, CPU
-    tensors take the plain version."""
-    _check_mode(x.dtype, mode, bias, out_dtype)
-    if x.device.type == "cpu":
-        return chain_reference(x, ws, mode, bias, out_dtype)
-    dev = _check_cuda("chain", x.dtype, 16, x=x, ws=ws)
-    if bias is not None and _check_cuda("chain", torch.float32, 16,
-                                        bias=bias) != dev:
-        raise ValueError(f"chain: bias on {bias.device}, x on {dev}")
+def chain_stream_parts(ws: torch.Tensor):
+    """The bf16 chain's weight stream as stream parts (name, matrix (K, N),
+    K-rows per stage) for ``fused_render.weight_stream``: layer l's (256,
+    256) matrix as 8 stages of 32 K-rows, in layer order."""
+    return [(f"w{li}", ws[li], _KC_W) for li in range(ws.shape[0])]
+
+
+def chain_weight_stream(ws: torch.Tensor) -> torch.Tensor:
+    """(depth, 256, 256) bf16 weights -> the bf16 chain's weight stream,
+    (depth * 8 * 8192,) bf16, each 16 KB stage in wgmma's swizzled MN-major
+    image; ``fused_render.stream_matrices`` with ``chain_stream_parts``
+    reads it back."""
+    return weight_stream(chain_stream_parts(ws))[0]
+
+
+def _cached_stream(ws: torch.Tensor) -> torch.Tensor:
+    """``chain_weight_stream(ws)``, built once per weights (their address,
+    version and shape; the cache holds ``ws``, so no other tensor can take
+    its address while the entry lives), so that a timed call measures the
+    kernel and not the gather."""
+    key = (ws.data_ptr(), ws._version, tuple(ws.shape), str(ws.device))
+    hit = _STREAM_CACHE.get(key)
+    if hit is None:
+        hit = _STREAM_CACHE[key] = (ws, chain_weight_stream(ws))
+        while len(_STREAM_CACHE) > _STREAM_CACHE_SIZE:
+            del _STREAM_CACHE[next(iter(_STREAM_CACHE))]
+    return hit[1]
+
+
+def _check_shapes(x: torch.Tensor, ws: torch.Tensor, bias,
+                  rows_per_block: int) -> None:
+    """What every chain takes, on either device: x (rows, 256), ws (depth,
+    256, 256) with depth 1..64, bias (depth, 256), and the rows per block
+    of the kernel of x's type."""
     rows = x.shape[0]
     if x.shape != (rows, KERNEL_WIDTH) or ws.ndim != 3 or ws.shape[1:] != (
             KERNEL_WIDTH, KERNEL_WIDTH) or not 1 <= ws.shape[0] <= 64:
         raise ValueError(f"chain: x must be (rows, {KERNEL_WIDTH}) and ws "
-                         f"(depth, {KERNEL_WIDTH}, {KERNEL_WIDTH}), got "
+                         f"(depth 1..64, {KERNEL_WIDTH}, {KERNEL_WIDTH}), got "
                          f"{tuple(x.shape)} and {tuple(ws.shape)}")
     if bias is not None and bias.shape != (ws.shape[0], KERNEL_WIDTH):
         raise ValueError(f"chain: bias must be ({ws.shape[0]}, "
@@ -189,16 +222,52 @@ def chain(x: torch.Tensor, ws: torch.Tensor, mode: str,
                          f"{allowed} for {x.dtype}")
     if not 1 <= rows < 2 ** 31 - 128:
         raise ValueError(f"chain: unsupported rows={rows}")
+
+
+def chain(x: torch.Tensor, ws: torch.Tensor, mode: str,
+          bias: Optional[torch.Tensor] = None, rows_per_block: int = 64,
+          out_dtype=torch.float32) -> torch.Tensor:
+    """x (rows, 256) through ws (depth, 256, 256) with ``mode``'s epilogue
+    after every layer -> (rows, 256) ``out_dtype``. bf16 modes: cast,
+    relu, bias_relu, select, cast_max, relu2 (bias_relu with the two
+    warpgroups of a 128-row tile skewed by half a layer; at 64 rows per
+    block, bias_relu), sum (bf16 of x @ ws[0] + x @ ws[1] + ..., no
+    epilogue between layers); f32: relu; int8: i0, i1. ``bias`` (depth,
+    256) f32 for bias_relu and relu2. ``rows_per_block``: the plan (the
+    module's note; f32 takes 64 only). CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
+    _check_mode(x.dtype, mode, bias, out_dtype)
+    _check_shapes(x, ws, bias, rows_per_block)
+    if x.device.type == "cpu":
+        return chain_reference(x, ws, mode, bias, out_dtype)
+    dev = _check_cuda("chain", x.dtype, 16, x=x, ws=ws)
+    if bias is not None and _check_cuda("chain", torch.float32, 16,
+                                        bias=bias) != dev:
+        raise ValueError(f"chain: bias on {bias.device}, x on {dev}")
+    w = _cached_stream(ws) if x.dtype == torch.bfloat16 else ws
     lib = build.load_library()
-    out = torch.empty((rows, KERNEL_WIDTH), dtype=out_dtype, device=dev)
-    err = lib.kd_chain(x.data_ptr(), ws.data_ptr(),
+    out = torch.empty((x.shape[0], KERNEL_WIDTH), dtype=out_dtype,
+                      device=dev)
+    err = lib.kd_chain(x.data_ptr(), w.data_ptr(),
                        None if bias is None else bias.data_ptr(),
-                       out.data_ptr(), int(out_dtype == torch.float32), rows,
-                       ws.shape[0], _DTYPE_CODE[x.dtype], MODES[mode],
-                       rows_per_block, _stream(dev))
+                       out.data_ptr(), int(out_dtype == torch.float32),
+                       x.shape[0], ws.shape[0], _DTYPE_CODE[x.dtype],
+                       MODES[mode], rows_per_block, _stream(dev))
     _raise_on(lib, err, "chain")
     launch_counts[_CHAIN_COUNT[x.dtype]] += 1
     return out
+
+
+def chain_launch_config(rows: int, rows_per_block: int) -> dict:
+    """The bf16 chain's launch on ``rows`` rows on the current card:
+    tiles per block, blocks, ring stages, dynamic shared memory, threads
+    per block."""
+    lib = build.load_library()
+    plan = (ctypes.c_int * 5)()
+    _raise_on(lib, lib.kd_chain_config(rows, rows_per_block, plan),
+              "chain_launch_config")
+    return dict(zip(("tiles_per_block", "blocks", "ring_stages",
+                     "smem_bytes", "threads"), plan))
 
 
 # ------------------------------------------------------------------ ladder
@@ -321,6 +390,8 @@ def render_probe_b_reference(net: PackedNet, rays_o: torch.Tensor,
 
 
 def _rays_per_block(lib, S: int) -> int:
+    """Render probe A's rays per block: about _POINTS_PER_BLOCK points of
+    whole rays, fewer where the wmma body's shared memory is short."""
     rb = max(1, min(16, _POINTS_PER_BLOCK // S))
     while rb > 1 and lib.fr_smem_bytes(rb, S) > SMEM_LIMIT:
         rb -= 1
@@ -329,11 +400,25 @@ def _rays_per_block(lib, S: int) -> int:
     return rb
 
 
-def _probe_setup(name, net, S):
-    if net.w[0].dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bf16 weights")
+def _render_b_plan(lib, S: int):
+    """Render probe B's (rays per block, ring stages) at S depths: K1's
+    (fused_render._render_plan), so that its blocks, tiles and ring are
+    K1's and K1 less the probe is K1's per-ray code and compositing. Its
+    per-ray state has no raw or weight rows, so it fits wherever K1's
+    does; the shared memory this frees stays unused."""
+    rb, ring = _render_plan(lib, S, 0, 0)
+    if lib.kd_render_b_smem_bytes(rb, S, ring) > SMEM_LIMIT:
+        raise ValueError(f"S={S} does not fit probe B's shared memory")
+    return rb, ring
+
+
+def render_b_launch_config(S: int) -> dict:
+    """Render probe B's launch at S depths: rays per block, dynamic shared
+    memory, ring stages."""
     lib = build.load_library()
-    return lib, _rays_per_block(lib, S)
+    rb, ring = _render_b_plan(lib, S)
+    return {"rays_per_group": rb, "ring_stages": ring,
+            "smem_bytes": lib.kd_render_b_smem_bytes(rb, S, ring)}
 
 
 def render_probe_a(net: PackedNet, pe: torch.Tensor, ped: torch.Tensor,
@@ -354,7 +439,10 @@ def render_probe_a(net: PackedNet, pe: torch.Tensor, ped: torch.Tensor,
                          f"{tuple(ped.shape)}")
     if R < 1 or S < 1 or R * S >= 2 ** 31:
         raise ValueError(f"render_probe_a: unsupported R={R}, S={S}")
-    lib, rb = _probe_setup("render_probe_a", net, S)
+    if net.w[0].dtype != torch.bfloat16:
+        raise TypeError("render_probe_a: the kernel takes bf16 weights")
+    lib = build.load_library()
+    rb = _rays_per_block(lib, S)
     table, keep = _slots(net, dev)
     raw = torch.empty((R, S * 4), dtype=torch.float32, device=dev)
     err = lib.kd_render_a(pe.data_ptr(), ped.data_ptr(), raw.data_ptr(), R,
@@ -367,12 +455,16 @@ def render_probe_a(net: PackedNet, pe: torch.Tensor, ped: torch.Tensor,
 
 def render_probe_b(net: PackedNet, rays_o: torch.Tensor,
                    rays_d: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """kdiag3.py B: the fine pass's MLP with the PE built in the kernel
-    from (R, 3) rays and (R, S) depths -> raw (R, S*4) f32, no
-    compositing. CUDA tensors launch the kernel, CPU tensors take the plain
+    """kdiag3.py B: the fine pass (K1) without its compositing, the PE
+    built in the kernel from (R, 3) rays and (R, S) depths -> raw (R, S*4)
+    f32. K1's chain, ray tile source and launch plan; the net's weight
+    stream and operand table built on every call, as K1's wrapper builds
+    them. CUDA tensors launch the kernel, CPU tensors take the plain
     version."""
     if rays_o.device.type == "cpu":
         return render_probe_b_reference(net, rays_o, rays_d, z)
+    if net.w[0].dtype != torch.bfloat16:
+        raise TypeError("render_probe_b: the kernel takes bf16 weights")
     dev = _check_rays("render_probe_b", net, rays_o=rays_o, rays_d=rays_d,
                       z=z)
     R, S = z.shape
@@ -381,13 +473,14 @@ def render_probe_b(net: PackedNet, rays_o: torch.Tensor,
                          f"{tuple(z.shape)}")
     if R < 1 or S < 1 or R * S >= 2 ** 31:
         raise ValueError(f"render_probe_b: unsupported R={R}, S={S}")
-    lib, rb = _probe_setup("render_probe_b", net, S)
-    table, keep = _slots(net, dev)
+    lib = build.load_library()
+    rb, ring = _render_b_plan(lib, S)
+    table, keep, ws, n_stages = _chain_args(net, dev)
     raw = torch.empty((R, S * 4), dtype=torch.float32, device=dev)
     err = lib.kd_render_b(rays_o.data_ptr(), rays_d.data_ptr(), z.data_ptr(),
                           raw.data_ptr(), R, S, rb, table, len(net.w),
-                          len(net.wv), net.multires, net.multires_views,
-                          _stream(dev))
+                          len(net.wv), net.multires, net.multires_views, ws,
+                          n_stages, ring, _stream(dev))
     _raise_on(lib, err, "render_probe_b")
     launch_counts["kdiag_render_b"] += 1
     del keep

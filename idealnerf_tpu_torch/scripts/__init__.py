@@ -3,8 +3,9 @@ one module per probe script of the JAX package (``kdiag``, ``kdiag2``,
 ``kdiag3``, ``kdiag4``, ``kdiag5``), with its variant labels, and this
 port's probes of its chain kernels against a parent checkout: ``kdelta``
 (the temporal delta kernel), ``kframe`` (the frame's coarse and fine
-kernels) and ``kpoint`` (the point MLP and its encoded twin), on the
-A/B harness of ``harness``; each one's docstring says how it runs.
+kernels), ``kpoint`` (the point MLP and its encoded twin) and ``kprobe``
+(the diagnosis probes on the wgmma chain), on the A/B harness of
+``harness``; each one's docstring says how it runs.
 
     python -m idealnerf_tpu_torch.scripts.kdiag4 --kd4 V0,V2,V3,VX
     python -m idealnerf_tpu_torch.scripts.kdiag --device cpu --rows 256

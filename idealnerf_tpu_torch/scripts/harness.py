@@ -1,6 +1,6 @@
-"""The A/B harness of ``kdelta``, ``kframe`` and ``kpoint``: each times a
-checkout's kernels in a worker process of its own, so that the checkout's
-package is the one the worker imports.
+"""The A/B harness of ``kdelta``, ``kframe``, ``kpoint`` and ``kprobe``:
+each times a checkout's kernels in a worker process of its own, so that
+the checkout's package is the one the worker imports.
 
 A worker is run as a file (``run_worker``), so Python puts this directory
 first on its path: the worker imports this module as ``harness``, from the

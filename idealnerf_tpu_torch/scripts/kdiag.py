@@ -4,12 +4,21 @@ products themselves? (Counterpart of the JAX package's scripts/kdiag.py.)
     plain   8 chained (rows, 256) @ (256, 256) bf16 products, f32
             accumulation, bf16 cast only
     relu    the same with bias + relu between layers (the real pattern)
-    relu2   relu as two independent half-tile chains in each block
+    relu2   relu with the block's two warpgroups (half tiles) skewed by
+            half a layer, so that one's epilogue overlaps the other's
+            products
+    sum     the products and the weight stream alone: x times every
+            layer into one accumulator, no epilogue or barrier between
+            layers (a variant of this port only)
     matmul  relu as 8 torch.matmul calls + relu (the library's rate; a
             variant of this port only)
 
 each kernel variant at every ``--rows_per_block`` (the TPU script's tile
-sweep).
+sweep; on the wgmma chain 128 is one 128-row tile on two warpgroups, 64
+one warpgroup's 64-row tile, two blocks an SM: kernels/kdiag.py). sum
+against plain, relu and relu2 splits the chain's time between the
+products with their stream, the per-layer barrier and store, the real
+epilogue and its overlap.
 
     python -m idealnerf_tpu_torch.scripts.kdiag [--rows 2097152]
 """
@@ -27,13 +36,14 @@ from idealnerf_tpu_torch.scripts import (
     timed_plain,
 )
 
-VARIANTS = {"plain": "cast", "relu": "bias_relu", "relu2": "relu2"}
+VARIANTS = {"plain": "cast", "relu": "bias_relu", "relu2": "relu2",
+            "sum": "sum"}
 
 
 def main(argv=None) -> dict:
     ap = parser(__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 21)
-    ap.add_argument("--variants", default="plain,relu,relu2,matmul")
+    ap.add_argument("--variants", default="plain,relu,relu2,sum,matmul")
     ap.add_argument("--rows_per_block", default="64,128")
     args = ap.parse_args(argv)
     dev = device_of(args.device)

@@ -223,6 +223,19 @@ def test_chain_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="write"):
         kd.chain(x.to(torch.int8), ws.to(torch.int8), "i0",
                  out_dtype=torch.int8)
+    # the plans: 64 or 128 rows per block (the f32 chain 64 only), depth
+    # 1..64, a bias row per layer; refused on either device
+    for rpb in (32, 256):
+        with pytest.raises(ValueError, match="rows_per_block"):
+            kd.chain(x, ws, "relu", None, rpb)
+    with pytest.raises(ValueError, match="rows_per_block"):
+        kd.chain(x.float(), ws.float(), "relu", None, 128)
+    for depth in (0, 65):
+        with pytest.raises(ValueError, match="depth 1..64"):
+            kd.chain(x, torch.zeros(depth, W, W, dtype=torch.bfloat16),
+                     "relu")
+    with pytest.raises(ValueError, match="bias must be"):
+        kd.chain(x, ws, "bias_relu", torch.zeros(3, W))
     with pytest.raises(ValueError, match="stage"):
         kd.ladder(_paper()[4], x[:, :64], x[:, :32], 5)
 
