@@ -127,12 +127,13 @@ non-zero and no result line is printed):
    ``fused_point_mlp(fuse_pe=False)``) against its plain version at
    ``--points`` and a ragged 1,001 (3e-2, correlation > 0.999 per lane),
    timed beside K4 on the same points; the probes on the wgmma chain
-   (the bf16 ``k_chain_wg`` in all its modes and plans, and probe B,
-   K1's chain without compositing): their ptxas lines (a spill fails),
-   HGMMA counts (none fails) and launch plans; every probe kernel of
-   ``kernels/kdiag.py`` against its plain version at a ragged 1,001 rows
-   (the bf16 chain in every mode at 64 and 128 rows per block and depth
-   2, 8 and 16; probe B at S 64 and 192); then each
+   (the bf16 ``k_chain_wg`` in all its modes and plans, the ladder's
+   rungs v0-v2 on K5's chain, probes A and B on K1's chain without
+   compositing): their ptxas lines (a spill fails), HGMMA counts (none
+   fails) and launch plans; every probe kernel of ``kernels/kdiag.py``
+   against its plain version at a ragged 1,001 rows (the bf16 chain in
+   every mode at 64 and 128 rows per block and depth 2, 8 and 16; the
+   ladder's rungs; probes A and B at S 64 and 192); then each
    ``idealnerf_tpu_torch.scripts.kdiag*`` entry point at its own size
    with ``--check`` (chains at 2^21 rows, kdiag4/5 at 1M and 4M
    rows for the slope, both rows-per-block; the ladder and K5 at 2^21
@@ -143,9 +144,10 @@ non-zero and no result line is printed):
    within 1e-5 of it, both with a correlation above 0.999; int8 chains
    bitwise equal; the ladder, K5 and the render probes 3e-2 absolute and
    correlation > 0.999, per lane for raw outputs). The library chains
-   (``torch.matmul``, ``torch._int_mm``) are timed by the same entry
-   points. Last, ``idealnerf_tpu_torch.scripts.kframe`` times the coarse
-   and fine kernels on a whole 450x450 frame through their wrappers and
+   (``torch.matmul`` in bf16 and in f32 with TF32 off, ``torch._int_mm``)
+   are timed by the same entry points. Last,
+   ``idealnerf_tpu_torch.scripts.kframe`` times the coarse and fine
+   kernels on a whole 450x450 frame through their wrappers and
    alone at other launch plans and on one wave of blocks over all and
    half the SMs: every plan's outputs must be bitwise equal to the
    wrapper's and each worker's launch counters equal to its wrapper calls.
@@ -154,7 +156,8 @@ non-zero and no result line is printed):
    ``library_ms`` is the torch.addmm yardstick on kdiag2's own encodings,
    the ladder's (rung v2) the same calls without the heads. The probes'
    entries in the ``kernels`` line name the body they run (``body``):
-   the bf16 chains at 128 rows per block, the int8 chain at 64.
+   the bf16 chains at 128 rows per block, the int8 chain at 64, the f32
+   chain (V3) an entry of its own at 1M rows.
 12. the head + torso composite. 12a: a seeded torso field at full width
    (D=8, W=256, dim_aud 32 + 42, no expr or latent) through K2 and K1 at
    ``--rays`` and on a whole 450x450 frame cast from the first frame's
@@ -365,11 +368,11 @@ KERNELS = {
         "replaces": "scripts/kdiag.py:70",
     },
     "kdiag2_ladder": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag_pe.cu",
         "replaces": "scripts/kdiag2.py:114",
     },
     "kdiag3_render_a": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag_pe.cu",
         "replaces": "scripts/kdiag3.py:269",
     },
     "kdiag3_render_b": {
@@ -381,6 +384,10 @@ KERNELS = {
         "replaces": "scripts/kdiag3.py:315",
     },
     "kdiag4_chain": {
+        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag.cu",
+        "replaces": "scripts/kdiag4.py:90",
+    },
+    "kdiag4_chain_f32": {
         "source": "idealnerf_tpu_torch/kernels/csrc/kdiag.cu",
         "replaces": "scripts/kdiag4.py:90",
     },
@@ -1644,9 +1651,9 @@ def _check_probes(kd, fm, fr, probe, pts, dirs) -> dict:
     """Phase 11b: every probe kernel against its plain version at a ragged
     1,001 rows (a part-filled last tile): the bf16 chain in every mode at
     both plans and depth 2, 8 and 16, the f32 chain, the int8 chains at
-    depth 2 and 8, the ladder, and the render probes at S 64 and 192 ->
-    max error by kernel entry (the chains' relative to their plain output's
-    max abs)."""
+    depth 2 and 8, the ladder's rungs v0-v2, and the render probes at S 64
+    and 192 -> max error by kernel entry (the chains' relative to their
+    plain output's max abs)."""
     import torch
 
     from idealnerf_tpu_torch import scripts as sc
@@ -1655,8 +1662,8 @@ def _check_probes(kd, fm, fr, probe, pts, dirs) -> dict:
     print("phase 11 kernel-diagnosis probes vs plain versions, ragged")
     model, folded, pcfg, net = probe
     dev = pts.device
-    err = dict.fromkeys(("kdiag_chain", "kdiag4_chain", "kdiag5_chain",
-                         "kdiag2_ladder", "kdiag3_render_a",
+    err = dict.fromkeys(("kdiag_chain", "kdiag4_chain", "kdiag4_chain_f32",
+                         "kdiag5_chain", "kdiag2_ladder", "kdiag3_render_a",
                          "kdiag3_render_b", "kdiag3_render_c"), 0.0)
     # the chain modes of each TPU probe (kdiag.py, kdiag4.py, kdiag5.py)
     users = {"cast": ("kdiag_chain", "kdiag4_chain"),
@@ -1683,7 +1690,7 @@ def _check_probes(kd, fm, fr, probe, pts, dirs) -> dict:
                               f"{rows} depth {depth}",
                               kd.chain(x, ws, mode, b, rpb), want)
                     for k in users[mode] if dtype == torch.bfloat16 else (
-                            "kdiag4_chain",):
+                            "kdiag4_chain_f32",):
                         err[k] = max(err[k], e)
     x, ws = sc.chain_inputs(rows, torch.bfloat16, dev, seed=12)
     b = torch.zeros(8, 256, device=dev)
@@ -1732,7 +1739,8 @@ def _chain_bound(rows: int, kind: str, in_bytes: int, out_bytes: int,
     at the peak for ``kind``; x read and the output written once, the
     weights (and biases) read once."""
     W, depth = 256, 8
-    w_bytes = depth * W * W * (1 if kind == "int8" else 2) + extra_bytes
+    w_bytes = depth * W * W * {"int8": 1, "bf16": 2, "f32": 4}[kind] \
+        + extra_bytes
     return _bound(2.0 * rows * depth * W * W,
                   rows * W * (in_bytes + out_bytes) + w_bytes, kind)
 
@@ -1742,23 +1750,25 @@ def _worst(results: dict, labels=None) -> float:
     (those in ``labels``); the library variants have no plain version."""
     err = 0.0
     for label, r in results.items():
-        if label in ("matmul", "VX", "IX") or (labels and label not in
-                                                labels):
+        if label in ("matmul", "VX", "V3X", "IX") or (
+                labels and label not in labels):
             continue
         for v in (r["rows"].values() if "rows" in r else [r]):
             err = max(err, v["max_err"])
     return err
 
 
-# the probes on the wgmma chain: the bf16 chain's 14 instantiations and
-# probe B (mangled-name stems after _ZN2fr)
-CHAIN_PROBES = ("2kd10k_chain_wg", "2kd16k_render_probe_b")
+# the probes on the wgmma chain: the bf16 chain's 14 instantiations, the
+# ladder's two and probes A and B (mangled-name stems after _ZN2fr)
+CHAIN_PROBES = ("2kd10k_chain_wg", "2kd12k_mlp_ladder",
+                "2kd16k_render_probe_a", "2kd16k_render_probe_b")
 
 
-def _probe_builds(kd, fr, ptxas, so_path, big: int) -> None:
+def _probe_builds(kd, fm, fr, ptxas, so_path, big: int) -> None:
     """Phase 11a': the wgmma probes' ptxas lines (a spill fails) and HGMMA
-    counts (none fails), the bf16 chain's plans at ``big`` rows and probe
-    B's beside K1's at 64 and 192 depths."""
+    counts (none fails), the bf16 chain's and the ladder's (K5's) plans at
+    ``big`` rows and probes A's and B's beside K1's at 64 and 192
+    depths."""
     for i, ln in enumerate(ptxas):
         if any(f"Function properties for _ZN2fr{k}" in ln
                for k in CHAIN_PROBES):
@@ -1766,7 +1776,8 @@ def _probe_builds(kd, fr, ptxas, so_path, big: int) -> None:
             if not any("0 bytes spill stores, 0 bytes spill loads" in x
                        for x in ptxas[i + 1:i + 3]):
                 raise AssertionError(f"a wgmma probe spills: {ln}")
-    hgmma = _hgmma_counts(so_path, ("k_chain_wg", "k_render_probe_b"))
+    hgmma = _hgmma_counts(so_path, tuple(k[k.index("k_"):]
+                                         for k in CHAIN_PROBES))
     print(f"  HGMMA instructions in the probes' SASS (summed over the "
           f"chain's instantiations): {hgmma}")
     if not all(n > 0 for n in hgmma.values()):
@@ -1774,8 +1785,11 @@ def _probe_builds(kd, fr, ptxas, so_path, big: int) -> None:
     for rpb in (128, 64):
         print(f"  chain r{rpb} at {big} rows: "
               f"{kd.chain_launch_config(big, rpb)}")
+    print(f"  ladder (K5's plan) at {big} points: "
+          f"{fm.point_launch_config(big)}")
     for S in (64, 192):
-        print(f"  render_b S={S}: {kd.render_b_launch_config(S)} (K1: "
+        print(f"  render_a S={S}: {kd.render_probe_launch_config(S, 'a')}, "
+              f"render_b: {kd.render_probe_launch_config(S, 'b')} (K1: "
               f"{fr.render_launch_config(S)})")
 
 
@@ -1798,7 +1812,7 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
 
     dev = pts.device
     if so_path:
-        _probe_builds(kd, fr, ptxas, so_path, big)
+        _probe_builds(kd, fm, fr, ptxas, so_path, big)
     model, folded, pcfg, net = probe = paper_field(dev)
     errs = _check_probes(kd, fm, fr, probe, pts, dirs)
     runs, launches = {}, {}
@@ -1806,7 +1820,7 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
             ("kdiag", kdiag, ["--rows", str(big)]),
             ("kdiag2", kdiag2, ["--rows", str(big)]),
             ("kdiag3", kdiag3, ["--kd3_r", str(rays), "--kd3_s", "64,192"]),
-            ("kdiag4", kdiag4, ["--kd4", "V0,V2,V3,V5,V6,V7,VP,VX",
+            ("kdiag4", kdiag4, ["--kd4", "V0,V2,V3,V5,V6,V7,VP,VX,V3X",
                                 "--kd4_rows", str(slope[0]),
                                 "--slope_rows", "%d,%d" % slope]),
             ("kdiag5", kdiag5, ["--slope_rows", "%d,%d" % slope])):
@@ -1839,12 +1853,13 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
     raw_bytes = rays * S * 16.0
     k3 = runs["kdiag3"]
 
-    def entry(r, n, bound, err, library=None, body="wmma"):
+    def entry(r, n, bound, err, library, body):
         return {"ms": r["ms"], "plain_ms": r["plain_ms"], "launches": n,
                 "library_ms": library, "max_abs_err": err, **bound,
                 "body": body}
 
     chain_body = "wgmma chain (kdiag.cu k_chain_wg on csrc/chain.cuh)"
+    v4_bf16 = [lb for lb in runs["kdiag4"] if not lb.startswith("V3")]
     out = {
         "kdiag_chain": entry(
             runs["kdiag"]["relu r128"], launches["kdiag"]["kdiag_chain_bf16"],
@@ -1853,11 +1868,17 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
             runs["kdiag"]["matmul"]["ms"], chain_body),
         "kdiag4_chain": entry(
             runs["kdiag4"]["V0 r128"]["rows"][str(mid)],
-            launches["kdiag4"]["kdiag_chain_bf16"]
-            + launches["kdiag4"]["kdiag_chain_f32"],
+            launches["kdiag4"]["kdiag_chain_bf16"],
             _chain_bound(mid, "bf16", 2, 4),
-            max(errs["kdiag4_chain"], _worst(runs["kdiag4"])),
-            runs["kdiag4"]["VX"]["ms"], chain_body + "; V3 f32 on FFMAs"),
+            max(errs["kdiag4_chain"], _worst(runs["kdiag4"], v4_bf16)),
+            runs["kdiag4"]["VX"]["ms"], chain_body),
+        "kdiag4_chain_f32": entry(
+            runs["kdiag4"]["V3 r64"]["rows"][str(mid)],
+            launches["kdiag4"]["kdiag_chain_f32"],
+            _chain_bound(mid, "f32", 4, 4),
+            max(errs["kdiag4_chain_f32"], _worst(runs["kdiag4"], ("V3 r64",))),
+            runs["kdiag4"]["V3X"]["ms"],
+            "CUDA cores (kdiag.cu k_chain_f32, f32 FFMAs)"),
         "kdiag5_chain": entry(
             runs["kdiag5"]["I0 r64"]["rows"][str(mid)],
             launches["kdiag5"]["kdiag_chain_int8"]
@@ -1870,7 +1891,8 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
             _bound(2.0 * big * kd.ladder_macs(net, 2),
                    big * 2.0 * (fr.PE_PAD + fr.PED_PAD + 128) + wb),
             max(errs["kdiag2_ladder"],
-                _worst(runs["kdiag2"], ("v0", "v1", "v2"))), v2_lib),
+                _worst(runs["kdiag2"], ("v0", "v1", "v2"))), v2_lib,
+            "wgmma chain (K5's, csrc/chain.cuh ActivationTile)"),
         "fused_point_mlp_pe": entry(
             runs["kdiag2"]["v3"], launches["kdiag2"]["fused_point_mlp_pe"],
             _bound(2.0 * big * (pt + ray),
@@ -1881,7 +1903,7 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
             _bound(ops, rays * (S * 2.0 * fr.PE_PAD + 2.0 * fr.PED_PAD)
                    + raw_bytes + wb),
             max(errs["kdiag3_render_a"], _worst(k3, ("A S=64", "A S=192"))),
-            render_lib),
+            render_lib, "wgmma chain (K1's, csrc/chain.cuh PeRayTile)"),
         "kdiag3_render_b": entry(
             k3[f"B S={S}"], launches["kdiag3"]["kdiag_render_b"],
             _bound(ops, rays * (24.0 + 4.0 * S) + raw_bytes + wb),

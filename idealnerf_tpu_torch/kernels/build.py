@@ -110,8 +110,6 @@ def load_library() -> ctypes.CDLL:
     slots = ctypes.POINTER(ctypes.c_ulonglong)
     lib.fr_num_slots.argtypes = []
     lib.fr_num_slots.restype = i32
-    lib.fr_smem_bytes.argtypes = [i32, i32]
-    lib.fr_smem_bytes.restype = ctypes.c_ulonglong
     lib.fr_error_string.argtypes = [i32]
     lib.fr_error_string.restype = ctypes.c_char_p
     lib.fr_render_rays.argtypes = [
@@ -141,16 +139,18 @@ def load_library() -> ctypes.CDLL:
     lib.fr_point_mlp_pe.restype = i32
     lib.kd_chain.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.kd_chain.restype = i32
-    lib.kd_ladder.argtypes = [vp, vp, vp, i32, i32, slots, i32, i32, vp]
+    lib.kd_ladder.argtypes = [vp, vp, vp, i32, i32, i32, slots, i32, i32,
+                              vp, i32, i32, vp]
     lib.kd_ladder.restype = i32
     lib.kd_render_a.argtypes = [vp, vp, vp, i32, i32, i32, slots, i32, i32,
-                                vp]
+                                vp, i32, i32, vp]
     lib.kd_render_a.restype = i32
     lib.kd_render_b.argtypes = [vp, vp, vp, vp, i32, i32, i32, slots, i32, i32,
                                 i32, i32, vp, i32, i32, vp]
     lib.kd_render_b.restype = i32
-    lib.kd_render_b_smem_bytes.argtypes = [i32, i32, i32]
-    lib.kd_render_b_smem_bytes.restype = ctypes.c_ulonglong
+    for fn in (lib.kd_render_a_smem_bytes, lib.kd_render_b_smem_bytes):
+        fn.argtypes = [i32, i32, i32]
+        fn.restype = ctypes.c_ulonglong
     lib.kd_chain_config.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.kd_chain_config.restype = i32
     i64 = ctypes.c_longlong

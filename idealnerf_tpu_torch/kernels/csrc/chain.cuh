@@ -33,9 +33,14 @@
 // - What a kernel brings (the tile source Src, a template parameter): the
 //   fill of a tile's xyz-PE (from ray packets, from points, or from PE
 //   rows), whether view layer 0 adds a per-point dir-PE product (then its
-//   bias is bv[0]) or a per-ray term, and where the raw rows go. Both
+//   bias is bv[0]) or a per-ray term, where the chain stops (Src::kLast:
+//   through the heads for every production kernel, or after the trunk or
+//   the view branch for kdiag.cu's ladder) and where its rows go. The
 //   sources live here: RayTile (the ray kernels, and kdiag.cu's probe B,
-//   whose raw rows go to global memory) and PointTile.
+//   whose raw rows go to global memory), PeRayTile (probe A: RayTile's
+//   per-ray term, the PE rows given), PointTile (K4, K5) and
+//   ActivationTile (the ladder: PointTile's encoded fill, the last
+//   activation written out).
 // - The gradient kernel's pass A (fused_mlp_grad.cu) runs the same pieces
 //   (chain_begin, chain_produce, Ring, prod_w / prod_v, relu_store with its
 //   relu' bits, PointTile) forward without the heads, then backward on a
@@ -66,14 +71,25 @@ static_assert(W == 256 && WV == 128 && PE_PAD == 64 && HEADS == 16 &&
                   PED_PAD <= 64,
               "the chain's stages are laid out for the paper widths");
 
-// Stages of one tile's weight stream without the dir-PE stage (the order
-// in the note at the top).
-inline int chain_stages(const unsigned long long* slots, int depth,
-                        int n_views) {
+// Where a tile source's chain stops: after the trunk, after the view
+// branch, or through the heads to raw rows (every production kernel).
+enum Last { LAST_TRUNK, LAST_VIEW, LAST_HEADS };
+
+// Stages of the trunk and of the view branch without its dir-PE stage in
+// one tile's weight stream (the order in the note at the top).
+inline int trunk_stages(const unsigned long long* slots, int depth) {
   int n = PE_PAD / KC_W;
   for (int i = 1; i < depth; ++i)
     n += W / KC_W + (slots[SLOT_WSKIP + i] ? PE_PAD / KC_W : 0);
-  return n + W / KC_V + (n_views - 1) * (WV / KC_V) + 1;
+  return n;
+}
+inline int view_stages(int n_views) {
+  return W / KC_V + (n_views - 1) * (WV / KC_V);
+}
+// Stages of one tile's weight stream without the dir-PE stage.
+inline int chain_stages(const unsigned long long* slots, int depth,
+                        int n_views) {
+  return trunk_stages(slots, depth) + view_stages(n_views) + 1;
 }
 
 // A consumer warpgroup's view of the ring of n stages: `it` counts the
@@ -192,7 +208,9 @@ __device__ __forceinline__ void relu_store(const float (&acc)[128],
 
 // The MLP of one 128-point tile, for warpgroup wg (rows 64 wg .. +64 of
 // the tile at tile_base; rows at or past n_pts are zeros and write
-// nothing): Src's PE fill -> trunk -> view branch -> heads -> Src's raw.
+// nothing): Src's PE fill -> trunk -> view branch -> heads -> Src's raw,
+// or with Src::kLast the trunk's or the view branch's activation tile to
+// Src's store.
 // tiles: the warpgroup's PE, trunk and view tiles, 1,024-byte aligned, and
 // with Src::kDirProduct its dir-PE tile after them.
 template <class Src>
@@ -233,50 +251,59 @@ __device__ __forceinline__ void chain_tile(const Net& net, const Src& src,
     named_barrier(bar, 128);
   }
 
-  // view branch; layer 0's bias is Src's per row (a per-ray term), or
-  // bv[0] after the per-point dir-PE product in the same accumulator
-  const int lrow = 16 * (wtid >> 5) + ((wtid & 31) >> 2);
-  for (int v = 0; v < net.n_views; ++v) {
-    prod_v(acc, r, v == 0 ? h : hv, v == 0 ? W : WV, true);
-    if (Src::kDirProduct && v == 0)
-      prod_v(acc, r, hv + HV_TILE, KC_V, false);
-    ring_drain(r);
-    named_barrier(bar, 128);
-    if (v == 0) {
-      relu_store<64>(acc, hv_g, src.view_bias(net, row0 + lrow),
-                     src.view_bias(net, row0 + lrow + 8), wtid);
-    } else {
-      const float* b = fvec(net, SLOT_BV + v);
-      relu_store<64>(acc, hv_g, b, b, wtid);
+  if constexpr (Src::kLast == LAST_TRUNK) {
+    src.store(h_g, row0, n_pts, wtid);
+  } else {
+    // view branch; layer 0's bias is Src's per row (a per-ray term), or
+    // bv[0] after the per-point dir-PE product in the same accumulator
+    const int lrow = 16 * (wtid >> 5) + ((wtid & 31) >> 2);
+    for (int v = 0; v < net.n_views; ++v) {
+      prod_v(acc, r, v == 0 ? h : hv, v == 0 ? W : WV, true);
+      if (Src::kDirProduct && v == 0)
+        prod_v(acc, r, hv + HV_TILE, KC_V, false);
+      ring_drain(r);
+      named_barrier(bar, 128);
+      if (v == 0) {
+        relu_store<64>(acc, hv_g, src.view_bias(net, row0 + lrow),
+                       src.view_bias(net, row0 + lrow + 8), wtid);
+      } else {
+        const float* b = fvec(net, SLOT_BV + v);
+        relu_store<64>(acc, hv_g, b, b, wtid);
+      }
+      fence_proxy_async();
+      named_barrier(bar, 128);
     }
-    fence_proxy_async();
-    named_barrier(bar, 128);
-  }
 
-  // heads: raw = h @ w_alpha + hv @ w_rgb + b_heads, f32, columns 0..3
-  {
-    const uint32_t st = ring_take(r);
-    wgmma_fence();
+    if constexpr (Src::kLast == LAST_VIEW) {
+      src.store(hv_g, row0, n_pts, wtid);
+    } else {
+      // heads: raw = h @ w_alpha + hv @ w_rgb + b_heads, f32, columns 0..3
+      {
+        const uint32_t st = ring_take(r);
+        wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < W; k += 16)
-      wgmma_n16_kk(acc, a_desc(h, k),
-                   desc_k(st + (k >> 6) * 2048 + (k & 63) * 2), k > 0);
+        for (int k = 0; k < W; k += 16)
+          wgmma_n16_kk(acc, a_desc(h, k),
+                       desc_k(st + (k >> 6) * 2048 + (k & 63) * 2), k > 0);
 #pragma unroll
-    for (int k = 0; k < WV; k += 16)
-      wgmma_n16_kk(acc, a_desc(hv, k),
-                   desc_k(st + 8192 + (k >> 6) * 2048 + (k & 63) * 2), 1);
-    wgmma_commit();
-    ring_step(r);
-    ring_drain(r);
-  }
-  const int q = wtid & 3;
-  if (q < 2) {
-    const float* bh = fvec(net, SLOT_BHEADS);
-    float* raw = src.raw();
+        for (int k = 0; k < WV; k += 16)
+          wgmma_n16_kk(acc, a_desc(hv, k),
+                       desc_k(st + 8192 + (k >> 6) * 2048 + (k & 63) * 2),
+                       1);
+        wgmma_commit();
+        ring_step(r);
+        ring_drain(r);
+      }
+      const int q = wtid & 3;
+      if (q < 2) {
+        const float* bh = fvec(net, SLOT_BHEADS);
+        float* raw = src.raw();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = row0 + lrow + 8 * (i >> 1), col = 2 * q + (i & 1);
-      if (p < n_pts) raw[p * 4 + col] = acc[i] + bh[col];
+        for (int i = 0; i < 4; ++i) {
+          const int p = row0 + lrow + 8 * (i >> 1), col = 2 * q + (i & 1);
+          if (p < n_pts) raw[p * 4 + col] = acc[i] + bh[col];
+        }
+      }
     }
   }
 }
@@ -360,6 +387,7 @@ template <bool ENCODED>
 struct PointTile {
   static constexpr int kTileBytes = WG_BYTES + PED_TILE;
   static constexpr bool kDirProduct = true;
+  static constexpr int kLast = LAST_HEADS;
   const void* a;  // (n, 3) f32 points, or (n, PE_PAD) bf16 xyz-PE rows
   const void* b;  // (n, 3) f32 directions, or (n, PED_PAD) bf16 dir-PE rows
   float* out;     // (n, 4) f32 raw
@@ -441,6 +469,80 @@ struct PointTile {
   __device__ __forceinline__ float* raw() const { return out; }
 };
 
+// Shared memory of a point kernel: 1,024 bytes to align the base, the ring
+// of n_ring stages, two warpgroups' PE / trunk / view / dir-PE tiles, 128
+// bytes of mbarriers.
+__host__ __device__ inline size_t point_smem_bytes(int n_ring) {
+  return 1024 + static_cast<size_t>(n_ring) * STAGE_BYTES +
+         2 * PointTile<false>::kTileBytes + 128;
+}
+
+// Rows row0.. of (n, LANES) bf16 rows into a warpgroup's K-major tile of
+// TILE_LANES lanes, as PointTile<true> fills its tiles: thread t copies
+// the 16-byte chunks c0 + 2 j of row t % 64, c0 = t / 64, all loaded
+// before the first store; lanes past LANES and rows at or past n_pts are
+// zeros.
+template <int LANES, int TILE_LANES>
+__device__ __forceinline__ void copy_rows(const bf16* rows, bf16* tile,
+                                          int row0, int n_pts, int wtid) {
+  const int row = wtid & 63, c0 = wtid >> 6;
+  const bool live = row0 + row < n_pts;
+  const uint4* src = reinterpret_cast<const uint4*>(rows) +
+                     static_cast<size_t>(row0 + row) * (LANES / 8);
+  uint4 v[TILE_LANES / 16];
+#pragma unroll
+  for (int j = 0; j < TILE_LANES / 16; ++j) {
+    const int c = c0 + 2 * j;
+    v[j] = live && c < LANES / 8 ? src[c] : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int j = 0; j < TILE_LANES / 16; ++j)
+    *reinterpret_cast<uint4*>(tile + swz(row, 8 * (c0 + 2 * j))) = v[j];
+}
+
+// The chain's tile source of kdiag.cu's ladder for the block's points
+// (pointers offset to its first point): PointTile<true>'s fill of the
+// given encodings (the dir-PE tile only where the view branch runs), the
+// chain stopped after the trunk (LAST_TRUNK) or the view branch
+// (LAST_VIEW), and that activation tile's rows out as bf16.
+template <int LAST>
+struct ActivationTile {
+  static_assert(LAST == LAST_TRUNK || LAST == LAST_VIEW,
+                "the ladder stops after the trunk or the view branch");
+  static constexpr int kTileBytes = WG_BYTES + PED_TILE;
+  static constexpr bool kDirProduct = true;
+  static constexpr int kLast = LAST;
+  static constexpr int kWidth = LAST == LAST_TRUNK ? W : WV;
+  const bf16* pe;   // (n, PE_PAD) xyz-PE rows
+  const bf16* ped;  // (n, PED_PAD) dir-PE rows
+  bf16* act;        // (n, kWidth) the last activation
+
+  __device__ __forceinline__ void fill(const Net&, bf16* pe_g, bf16* ped_g,
+                                       int row0, int n_pts, int wtid) const {
+    copy_rows<PE_PAD, PE_PAD>(pe, pe_g, row0, n_pts, wtid);
+    if constexpr (LAST == LAST_VIEW)
+      copy_rows<PED_PAD, 64>(ped, ped_g, row0, n_pts, wtid);
+  }
+  __device__ __forceinline__ const float* view_bias(const Net& net,
+                                                    int) const {
+    return fvec(net, SLOT_BV);
+  }
+  // The warpgroup's rows row0.. of the activation tile (K-major image) to
+  // act in 16-byte chunks, a row's chunks on neighbouring threads; rows at
+  // or past n_pts write nothing.
+  __device__ __forceinline__ void store(const bf16* tile, int row0,
+                                        int n_pts, int wtid) const {
+    constexpr int CH = kWidth / 8;
+    for (int e = wtid; e < 64 * CH; e += 128) {
+      const int row = e / CH, c = e % CH;
+      if (row0 + row < n_pts)
+        reinterpret_cast<uint4*>(act)[static_cast<size_t>(row0 + row) * CH +
+                                      c] =
+            *reinterpret_cast<const uint4*>(tile + swz(row, 8 * c));
+    }
+  }
+};
+
 // The ray kernels' pieces (fused_render.cu K1-K3, and kdiag.cu's probe B,
 // which runs K1's chain without its compositing): the producer warp's
 // thread index in their per-ray phases, the offset of the per-ray state
@@ -459,6 +561,7 @@ __host__ __device__ inline int ray_state_offset(int n_ring) {
 struct RayTile {
   static constexpr int kTileBytes = WG_BYTES;
   static constexpr bool kDirProduct = false;
+  static constexpr int kLast = LAST_HEADS;
   const Smem& sm;
   int S, nr;
 
@@ -488,6 +591,31 @@ struct RayTile {
     return sm.pv + min(row / S, nr - 1) * WV;
   }
   __device__ __forceinline__ float* raw() const { return sm.raw; }
+};
+
+// The chain's tile source of kdiag.cu's probe A for a block of nr rays of
+// S points each, from given encodings (pointers offset to the block's
+// first point): the tile's xyz-PE copied from the bf16 PE rows
+// (copy_rows), view layer 0's per-ray term pv from shared memory as
+// RayTile's, raw rows to global memory.
+struct PeRayTile {
+  static constexpr int kTileBytes = WG_BYTES;
+  static constexpr bool kDirProduct = false;
+  static constexpr int kLast = LAST_HEADS;
+  const bf16* pe;   // (nr S, PE_PAD) xyz-PE rows
+  const float* pv;  // (nr, WV) per-ray terms
+  float* out;       // (nr S, 4) f32 raw
+  int S, nr;
+
+  __device__ __forceinline__ void fill(const Net&, bf16* pe_g, bf16*,
+                                       int row0, int n_pts, int wtid) const {
+    copy_rows<PE_PAD, PE_PAD>(pe, pe_g, row0, n_pts, wtid);
+  }
+  __device__ __forceinline__ const float* view_bias(const Net&,
+                                                    int row) const {
+    return pv + min(row / S, nr - 1) * WV;
+  }
+  __device__ __forceinline__ float* raw() const { return out; }
 };
 
 // A thread's index in the per-ray phases: the consumers' own, the

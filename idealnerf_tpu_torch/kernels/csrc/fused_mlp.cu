@@ -48,14 +48,6 @@
 
 namespace fr {
 
-// Shared memory of a point kernel: 1,024 bytes to align the base, the ring
-// of n_ring stages, two warpgroups' PE / trunk / view / dir-PE tiles, 128
-// bytes of mbarriers.
-__host__ __device__ inline size_t point_smem_bytes(int n_ring) {
-  return 1024 + static_cast<size_t>(n_ring) * STAGE_BYTES +
-         2 * PointTile<false>::kTileBytes + 128;
-}
-
 // The block's run of tiles: points [p0, p0 + tiles_per_block x DT) of N.
 template <bool ENCODED>
 __device__ __forceinline__ void point_block(char* smem_raw, const Net& net,

@@ -206,12 +206,6 @@ extern "C" {
 
 int fr_num_slots() { return fr::NSLOTS; }
 
-// Shared memory of render_body.cuh's wmma ray blocks (the kdiag.cu
-// render probe A).
-unsigned long long fr_smem_bytes(int rb, int S) {
-  return fr::smem_layout(nullptr, rb, S, nullptr);
-}
-
 unsigned long long fr_chain_smem_bytes(int rb, int S, int n_cdf,
                                        int n_union, int n_prev, int n_ring) {
   return fr::chain_smem_bytes(rb, S, n_cdf, n_union, n_prev, n_ring);

@@ -15,15 +15,9 @@
 //              - f32 on the CUDA cores (k_chain_f32, relu);
 //              - int8 with s32 accumulation on wmma (k_chain_i8: relu + f32
 //                scale + round/clip, or relu + shift).
-// kd_ladder    replaces scripts/kdiag2.py (:114, rungs v0-v2): the
-//              production trunk without the skip's pe-part, then with it,
-//              then with the view branch, on the production operand table,
-//              on the wmma body of render_body.cuh. Rungs v3 and v4 are the
-//              production kernels K5 and K4 (fused_mlp.cu, on the wgmma
-//              chain), which kernels/kdiag.py launches for them.
-// kd_render_a  replaces scripts/kdiag3.py (kernel_A, :269): the ray-organised
-//              MLP from a given (R*S, 64) bf16 xyz-PE and a per-ray (R, 32)
-//              dir-PE -> raw (R, S*4), no compositing, on the wmma body.
+// kd_ladder    replaces scripts/kdiag2.py (:114, rungs v0-v2) and
+// kd_render_a  replaces scripts/kdiag3.py (kernel_A, :269): in kdiag_pe.cu,
+//              a translation unit of their own.
 // kd_render_b  replaces scripts/kdiag3.py (kernel_B, :291): the fine pass
 //              (K1, fr_render_rays) without its compositing: load_rays, the
 //              depths from z and K1's chain with its ray tile source
@@ -69,10 +63,14 @@
 // TB/s (15.5 at 64 rows); `sum` against the other modes shows whether the
 // stream or the epilogues bound the chain (PERF.md: neither; the
 // chain draws the card's power limit).
+#include <mma.h>
+
 #include "chain.cuh"
 
 namespace fr {
 namespace kd {
+
+using namespace nvcuda;
 
 enum Mode {
   M_CAST = 0,       // bf16(acc)                        kdiag k_plain, kdiag4 V2
@@ -412,9 +410,6 @@ __device__ __forceinline__ signed char requant(int a, float scale) {
   }
 }
 
-__device__ __forceinline__ float to_float(bf16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ float to_float(signed char v) {
   return static_cast<float>(v);
 }
@@ -425,30 +420,22 @@ constexpr size_t i8_smem() {
   return 2 * ROWS * W + sizeof(int) * NWARP * 256;
 }
 
-// The rows [0, n) of a shared tile to global memory: as T (16-byte chunks)
-// or widened to f32.
+// The rows [0, n) of a shared tile to global memory, widened to f32.
 template <typename T>
-__device__ __forceinline__ void store_rows(void* dst, const T* src, int width,
-                                           int n, int out_f32, int tid) {
-  if (out_f32) {
-    float4* d = reinterpret_cast<float4*>(dst);
-    for (int e = tid; e < n * width / 4; e += NTHREADS) {
-      const T* v = src + 4 * e;
-      d[e] = make_float4(to_float(v[0]), to_float(v[1]), to_float(v[2]),
-                         to_float(v[3]));
-    }
-  } else {
-    const int ch = width * static_cast<int>(sizeof(T)) / 16;
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (int e = tid; e < n * ch; e += NTHREADS) d[e] = s[e];
+__device__ __forceinline__ void store_rows(float* dst, const T* src,
+                                           int width, int n, int tid) {
+  float4* d = reinterpret_cast<float4*>(dst);
+  for (int e = tid; e < n * width / 4; e += NTHREADS) {
+    const T* v = src + 4 * e;
+    d[e] = make_float4(to_float(v[0]), to_float(v[1]), to_float(v[2]),
+                       to_float(v[3]));
   }
 }
 
 // One tile of ROWS int8 rows through `depth` layers, out as f32: warp w
-// owns column tiles {w, w + 8} over all row tiles, as render_body.cuh:mma_k
-// does; activations ping-pong between two shared buffers; each
-// accumulator fragment goes through a per-warp s32 scratch for the
+// owns column tiles {w, w + 8} over all row tiles, so each weight fragment
+// is read once per tile; activations ping-pong between two shared buffers;
+// each accumulator fragment goes through a per-warp s32 scratch for the
 // requant.
 template <int MODE, int ROWS>
 __global__ void __launch_bounds__(NTHREADS, ROWS == 64 ? 2 : 1)
@@ -516,7 +503,7 @@ k_chain_i8(const signed char* __restrict__ x,
     h = hn;
     hn = t;
   }
-  store_rows(out + static_cast<size_t>(r0) * W, h, W, n, 1, tid);
+  store_rows(out + static_cast<size_t>(r0) * W, h, W, n, tid);
 }
 
 template <int MODE, int ROWS>
@@ -541,7 +528,7 @@ cudaError_t launch_i8_rows(int rows_per_block, const void* x, const void* w,
   return cudaErrorInvalidValue;
 }
 
-// ------------------------------------------------------------ f32, ladder
+// ------------------------------------------------------------------- f32
 
 // The f32 chain (kdiag4 V3: no casts) on the CUDA cores: warp w owns rows
 // 8w..8w+7 of the 64-row tile and lane l columns 8l..8l+7, so the shared
@@ -593,102 +580,7 @@ k_chain_f32(const float* __restrict__ x, const float* __restrict__ w,
     h = hn;
     hn = t;
   }
-  store_rows(out + static_cast<size_t>(r0) * W, h, W, n, 1, tid);
-}
-
-// The ladder's shared memory: the PE tile, the two activation buffers,
-// the epilogue scratch and the per-point dir-PE tile.
-__host__ __device__ inline size_t ladder_smem_layout(char* base, Smem* sm) {
-  const size_t sz[5] = {sizeof(bf16) * P * PE_PAD, sizeof(bf16) * P * W,
-                        sizeof(bf16) * P * W, sizeof(float) * NWARP * 256,
-                        sizeof(bf16) * P * PED_PAD};
-  size_t off[5];
-  size_t total = 0;
-  for (int i = 0; i < 5; ++i) {
-    off[i] = total;
-    total += (sz[i] + 127) & ~static_cast<size_t>(127);
-  }
-  if (sm != nullptr) {
-    *sm = Smem{};
-    sm->pe = reinterpret_cast<bf16*>(base + off[0]);
-    sm->h0 = reinterpret_cast<bf16*>(base + off[1]);
-    sm->h1 = reinterpret_cast<bf16*>(base + off[2]);
-    sm->scr = reinterpret_cast<float*>(base + off[3]);
-    sm->ped_tile = reinterpret_cast<bf16*>(base + off[4]);
-  }
-  return total;
-}
-
-// The ladder's rungs v0-v2 on one tile of P points with the given PE in
-// sm.pe (and, for v2, the dir-PE in sm.ped_tile): the wmma body's trunk
-// without (STAGE 0) or with (STAGE >= 1) the skip layer's pe-part, then
-// (STAGE 2) its view branch; the last activation (W or WV wide, bf16) goes
-// out.
-template <int STAGE>
-__global__ void __launch_bounds__(NTHREADS, 2)
-k_mlp_ladder(Net net, const bf16* __restrict__ pe,
-             const bf16* __restrict__ ped, bf16* __restrict__ out, int N) {
-  extern __shared__ __align__(128) char smem[];
-  Smem sm;
-  ladder_smem_layout(smem, &sm);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int p0 = blockIdx.x * P;
-  const int n = min(P, N - p0);
-  float* scr = sm.scr + warp * 256;
-
-  load_rows(sm.pe, pe + static_cast<size_t>(p0) * PE_PAD, P, PE_PAD, n, tid);
-  if (STAGE >= 2)
-    load_rows(sm.ped_tile, ped + static_cast<size_t>(p0) * PED_PAD, P,
-              PED_PAD, n, tid);
-  __syncthreads();
-  bf16* h = sm.h0;
-  {
-    FragC acc[2][RT];
-    zero<2>(acc);
-    mma_k<2>(acc, sm.pe, PE_PAD, PE_PAD, wmat(net, SLOT_W), W, warp);
-    store_relu<2>(acc, h, W, fvec(net, SLOT_B), 0, 0, 1, 1, scr, warp, lane);
-  }
-  __syncthreads();
-  for (int i = 1; i < net.depth; ++i) {
-    bf16* hn = (h == sm.h0) ? sm.h1 : sm.h0;
-    FragC acc[2][RT];
-    zero<2>(acc);
-    if (STAGE >= 1 && net.slot[SLOT_WSKIP + i] != nullptr)
-      mma_k<2>(acc, sm.pe, PE_PAD, PE_PAD, wmat(net, SLOT_WSKIP + i), W, warp);
-    mma_k<2>(acc, h, W, W, wmat(net, SLOT_W + i), W, warp);
-    store_relu<2>(acc, hn, W, fvec(net, SLOT_B + i), 0, 0, 1, 1, scr, warp,
-                  lane);
-    __syncthreads();
-    h = hn;
-  }
-  if constexpr (STAGE < 2) {
-    store_rows(out + static_cast<size_t>(p0) * W, h, W, n, 0, tid);
-  } else {
-    bf16* hv = (h == sm.h0) ? sm.h1 : sm.h0;
-    bf16* hv2 = hv + P * WV;
-    {
-      FragC acc[1][RT];
-      zero<1>(acc);
-      mma_k<1>(acc, h, W, W, wmat(net, SLOT_WV), WV, warp);
-      mma_k<1>(acc, sm.ped_tile, PED_PAD, PED_PAD, wmat(net, SLOT_WV0D), WV,
-               warp);
-      store_relu<1>(acc, hv, WV, fvec(net, SLOT_BV), 0, 0, 1, 1, scr, warp,
-                    lane);
-    }
-    __syncthreads();
-    for (int v = 1; v < net.n_views; ++v) {
-      FragC acc[1][RT];
-      zero<1>(acc);
-      mma_k<1>(acc, hv, WV, WV, wmat(net, SLOT_WV + v), WV, warp);
-      store_relu<1>(acc, hv2, WV, fvec(net, SLOT_BV + v), 0, 0, 1, 1, scr,
-                    warp, lane);
-      __syncthreads();
-      bf16* t = hv;
-      hv = hv2;
-      hv2 = t;
-    }
-    store_rows(out + static_cast<size_t>(p0) * WV, hv, WV, n, 0, tid);
-  }
+  store_rows(out + static_cast<size_t>(r0) * W, h, W, n, tid);
 }
 
 // ------------------------------------------------ probe B: K1's chain
@@ -753,60 +645,6 @@ k_render_probe_b(Net net, const bf16* __restrict__ wstream, int n_stages,
   chain_mlp(net, RayTile{sm, S, nr}, c, wstream, n_stages, n_pts);
 }
 
-// ------------------------------------------------ probe A: the wmma body
-
-// kdiag3 A: the ray-organised MLP on render_body.cuh's wmma body
-// (mlp_core, tiles of P points), from the xyz-PE of every point read from
-// global memory and the per-ray dir-PE given, its view-layer-0 term built
-// as load_rays does; raw rows to global memory, no compositing.
-__global__ void __launch_bounds__(NTHREADS, 2)
-k_render_probe_a(Net net, const bf16* __restrict__ pe,
-                 const bf16* __restrict__ ped, float* __restrict__ raw, int R,
-                 int S, int rb) {
-  extern __shared__ __align__(128) char smem[];
-  Smem sm;
-  smem_layout(smem, rb, S, &sm);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ray0 = blockIdx.x * rb;
-  const int nr = min(rb, R - ray0);
-
-  for (int e = tid; e < nr * PED_PAD; e += NTHREADS)
-    sm.ped[e] =
-        __bfloat162float(ped[static_cast<size_t>(ray0) * PED_PAD + e]);
-  __syncthreads();
-  const bf16* wd = wmat(net, SLOT_WV0D);
-  const float* bv0 = fvec(net, SLOT_BV);
-  for (int e = tid; e < nr * WV; e += NTHREADS) {
-    const int r = e / WV, c = e - r * WV;
-    float a = 0.f;
-    for (int k = 0; k < PED_PAD; ++k)
-      a += sm.ped[r * PED_PAD + k] * __bfloat162float(wd[k * WV + c]);
-    sm.pv[e] = a + bv0[c];
-  }
-  __syncthreads();
-  const int n_pts = nr * S;
-  const bf16* pe_blk = pe + static_cast<size_t>(ray0) * S * PE_PAD;
-  float* raw_blk = raw + static_cast<size_t>(ray0) * S * 4;
-  for (int base = 0; base < n_pts; base += P) {
-    load_rows(sm.pe, pe_blk + static_cast<size_t>(base) * PE_PAD, P, PE_PAD,
-              n_pts - base, tid);
-    __syncthreads();
-    mlp_core(net, sm, sm.pv, WV, base, n_pts, S, rb, raw_blk, warp, lane);
-  }
-}
-
-template <int STAGE>
-cudaError_t launch_ladder(const Net& net, const void* pe, const void* ped,
-                          void* out, int N, cudaStream_t st) {
-  const size_t bytes = ladder_smem_layout(nullptr, nullptr);
-  cudaError_t err = prepare(k_mlp_ladder<STAGE>, bytes);
-  if (err != cudaSuccess) return err;
-  k_mlp_ladder<STAGE><<<(N + P - 1) / P, NTHREADS, bytes, st>>>(
-      net, static_cast<const bf16*>(pe), static_cast<const bf16*>(ped),
-      static_cast<bf16*>(out), N);
-  return cudaGetLastError();
-}
-
 }  // namespace kd
 }  // namespace fr
 
@@ -860,35 +698,6 @@ int kd_chain_config(int rows, int rows_per_block, int* plan) {
   plan[3] = static_cast<int>(fr::kd::wg_smem(nwg));
   plan[4] = 128 * nwg + 32;
   return 0;
-}
-
-// stage 0: trunk only -> (N, 256) bf16; 1: + skip -> (N, 256); 2: + view
-// branch -> (N, 128).
-int kd_ladder(const void* pe, const void* ped, void* out, int N, int stage,
-              const unsigned long long* slots, int depth, int n_views,
-              void* stream) {
-  using namespace fr::kd;
-  const fr::Net net = fr::make_net(slots, depth, n_views, 0, 0, 0);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (stage == 0) err = launch_ladder<0>(net, pe, ped, out, N, st);
-  if (stage == 1) err = launch_ladder<1>(net, pe, ped, out, N, st);
-  if (stage == 2) err = launch_ladder<2>(net, pe, ped, out, N, st);
-  return static_cast<int>(err);
-}
-
-int kd_render_a(const void* pe, const void* ped, float* raw, int R, int S,
-                int rb, const unsigned long long* slots, int depth,
-                int n_views, void* stream) {
-  const fr::Net net = fr::make_net(slots, depth, n_views, 0, 0, 0);
-  const size_t bytes = fr::smem_layout(nullptr, rb, S, nullptr);
-  cudaError_t err = fr::prepare(fr::kd::k_render_probe_a, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fr::kd::k_render_probe_a<<<(R + rb - 1) / rb, fr::NTHREADS, bytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      net, static_cast<const fr::bf16*>(pe),
-      static_cast<const fr::bf16*>(ped), raw, R, S, rb);
-  return static_cast<int>(cudaGetLastError());
 }
 
 unsigned long long kd_render_b_smem_bytes(int rb, int S, int n_ring) {

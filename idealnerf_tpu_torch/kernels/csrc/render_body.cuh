@@ -2,8 +2,7 @@
 // fused_mlp_grad.cu) and of the probes built from them (kdiag.cu): the
 // operand table, PE lanes, the per-ray set-up, alpha compositing, the
 // inverse-CDF depth placement that the coarse and delta kernels run and
-// the delta kernel's foreground band epilogue, and the wmma MLP body that
-// the kdiag.cu probe A and ladder run.
+// the delta kernel's foreground band epilogue.
 //
 // Numeric contract (the same as the JAX package's Pallas kernels,
 // idealnerf_tpu/kernels/fused_render.py:_render_body):
@@ -18,29 +17,18 @@
 // leave the block and each ray's outputs are written by exactly one block.
 // The per-ray code here (load_rays, composite, the depth placement, the
 // band) is the ray kernels' of fused_render.cu. Every production forward
-// kernel (K1-K3 there, K4 and K5 in fused_mlp.cu) runs its field MLP on
-// the wgmma chain of chain.cuh, and so does the gradient kernel's pass A
-// (fused_mlp_grad.cu), forward then backward.
-//
-// The wmma body (mma_k, store_relu, mlp_core) now serves only the kdiag.cu
-// probes A and the ladder, which time it as the production kernels ran it
-// before the chain: one block of 8 warps walks its points in tiles of P=64
-// rows. A tile's activations live in shared memory (two 64x256 bf16
-// buffers, ping-pong); layer weights are read per layer from global memory
-// (about 1 MB in bf16: L2-resident, larger than the 227 KB of shared
-// memory). Products are nvcuda::wmma bf16 16x16x16 fragments with f32
-// accumulators; warp w owns output column tiles {w, w+8} across all four
-// 16-row tiles, so each weight fragment is fetched once per point tile.
+// kernel (K1-K3 there, K4 and K5 in fused_mlp.cu) and every bf16 probe of
+// kdiag.cu but the int8 chain runs its field MLP on the wgmma chain of
+// chain.cuh, and so does the gradient kernel's pass A (fused_mlp_grad.cu),
+// forward then backward.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace fr {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int W = 256;          // trunk width
@@ -48,8 +36,7 @@ constexpr int WV = W / 2;       // view-branch width
 constexpr int PE_PAD = 64;      // 63 xyz-PE lanes + 1 zero lane
 constexpr int PED_PAD = 32;     // 27 dir-PE lanes + 5 zero lanes
 constexpr int HEADS = 16;       // packed head columns: rgb 0..2, sigma 3
-constexpr int P = 64;           // points per tile
-constexpr int RT = P / 16;      // 16-row tiles per point tile
+constexpr int P = 64;           // points per tile of the f32 backward
 constexpr int NWARP = 8;
 constexpr int NTHREADS = 32 * NWARP;
 constexpr int MAXD = 16;        // trunk layers supported
@@ -81,11 +68,8 @@ static __device__ __forceinline__ const float* fvec(const Net& n, int s) {
   return static_cast<const float*>(n.slot[s]);
 }
 
+// The ray kernels' per-ray state in shared memory.
 struct Smem {
-  bf16* pe;      // (P, PE_PAD) tile PE
-  bf16* h0;      // (P, W) activations, ping
-  bf16* h1;      // (P, W) activations, pong
-  float* scr;    // (NWARP, 256) per-warp epilogue scratch
   float* ro;     // (rb, 3)
   float* rd;     // (rb, 3) unnormalised directions
   float* dn;     // (rb,) |rays_d|
@@ -98,44 +82,7 @@ struct Smem {
   float* uni;    // (rb, n_union) coarse and delta kernels: unsorted union
   float* zp;     // (rb, n_prev) delta kernel only: previous frame's depths
   float* wp;     // (rb, n_prev) delta kernel only: previous frame's weights
-  bf16* ped_tile;  // (P, PED_PAD) per-point dir-PE (kdiag.cu's ladder only)
 };
-
-// Byte layout of the dynamic shared memory of the wmma ray blocks (the
-// kdiag.cu render probe A); the host calls it with a null base to size the
-// launch. Every region starts 128-byte aligned.
-__host__ __device__ inline size_t smem_layout(char* base, int rb, int S,
-                                              Smem* sm) {
-  const size_t sz[12] = {
-      sizeof(bf16) * P * PE_PAD, sizeof(bf16) * P * W, sizeof(bf16) * P * W,
-      sizeof(float) * NWARP * 256,
-      sizeof(float) * rb * 3, sizeof(float) * rb * 3, sizeof(float) * rb,
-      sizeof(float) * rb * PED_PAD, sizeof(float) * rb * WV,
-      sizeof(float) * rb * S, sizeof(float) * rb * S * 4,
-      sizeof(float) * rb * S};
-  size_t off[12];
-  size_t total = 0;
-  for (int i = 0; i < 12; ++i) {
-    off[i] = total;
-    total += (sz[i] + 127) & ~static_cast<size_t>(127);
-  }
-  if (sm != nullptr) {
-    *sm = Smem{};
-    sm->pe = reinterpret_cast<bf16*>(base + off[0]);
-    sm->h0 = reinterpret_cast<bf16*>(base + off[1]);
-    sm->h1 = reinterpret_cast<bf16*>(base + off[2]);
-    sm->scr = reinterpret_cast<float*>(base + off[3]);
-    sm->ro = reinterpret_cast<float*>(base + off[4]);
-    sm->rd = reinterpret_cast<float*>(base + off[5]);
-    sm->dn = reinterpret_cast<float*>(base + off[6]);
-    sm->ped = reinterpret_cast<float*>(base + off[7]);
-    sm->pv = reinterpret_cast<float*>(base + off[8]);
-    sm->z = reinterpret_cast<float*>(base + off[9]);
-    sm->raw = reinterpret_cast<float*>(base + off[10]);
-    sm->w = reinterpret_cast<float*>(base + off[11]);
-  }
-  return total;
-}
 
 // PE lane `lane` of the 3-vector x: [x, sin f0 x, cos f0 x, sin f1 x, ...],
 // frequency-major with f_k = 2^k (core/embedding.py); lanes past the last
@@ -163,69 +110,26 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int rows,
     d[e] = e / ch < n ? s[e] : make_uint4(0, 0, 0, 0);
 }
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-template <int NC>
-__device__ __forceinline__ void zero(FragC (&acc)[NC][RT]) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int r = 0; r < RT; ++r) wmma::fill_fragment(acc[c][r], 0.f);
-}
-
-// acc[c][r] += A[16r:16r+16, :K] @ B[:K, 16 (warp + 8c) : +16]
-// A: bf16 in shared memory (lda); B: bf16 row-major in global memory (ldb).
-template <int NC>
-__device__ __forceinline__ void mma_k(FragC (&acc)[NC][RT], const bf16* A,
-                                      int lda, int K, const bf16* B, int ldb,
-                                      int warp) {
-  for (int k = 0; k < K; k += 16) {
-    FragA a[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r)
-      wmma::load_matrix_sync(a[r], A + r * 16 * lda + k, lda);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      FragB b;
-      wmma::load_matrix_sync(
-          b, B + static_cast<size_t>(k) * ldb + (warp + c * NWARP) * 16, ldb);
-#pragma unroll
-      for (int r = 0; r < RT; ++r) wmma::mma_sync(acc[c][r], a[r], b, acc[c][r]);
-    }
+// View layer 0's per-ray term pv = ped @ wv0d + bv0 of the block's nr
+// rays from their dir-PE in sm.ped, computed once per ray instead of once
+// per point; ends with __syncthreads.
+static __device__ __forceinline__ void view_terms(const Net& net,
+                                                  const Smem& sm, int nr,
+                                                  int tid) {
+  const bf16* wd = wmat(net, SLOT_WV0D);
+  const float* bv0 = fvec(net, SLOT_BV);
+  for (int e = tid; e < nr * WV; e += NTHREADS) {
+    const int r = e / WV, c = e - r * WV;
+    float a = 0.f;
+    for (int k = 0; k < PED_PAD; ++k)
+      a += sm.ped[r * PED_PAD + k] * __bfloat162float(wd[k * WV + c]);
+    sm.pv[e] = a + bv0[c];
   }
-}
-
-// out = bf16(relu(acc + bias)). With bias_ld == 0 the bias is per column;
-// otherwise it is per ray: row p of the tile reads bias[(ray of p) * bias_ld].
-template <int NC>
-__device__ __forceinline__ void store_relu(FragC (&acc)[NC][RT], bf16* out,
-                                           int ldo, const float* bias,
-                                           int bias_ld, int tile_base, int S,
-                                           int rb, float* scr, int warp,
-                                           int lane) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      wmma::store_matrix_sync(scr, acc[c][r], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = r * 16 + (e >> 4);
-        const int col = (warp + c * NWARP) * 16 + (e & 15);
-        const float* bp = bias;
-        if (bias_ld) bp += min((tile_base + row) / S, rb - 1) * bias_ld;
-        out[row * ldo + col] = __float2bfloat16(fmaxf(scr[e] + bp[col], 0.f));
-      }
-      __syncwarp();
-    }
-  }
+  __syncthreads();
 }
 
 // Per-ray set-up: origins, directions, |d|, the bf16 dir-PE of the unit
-// view direction, and its view-layer-0 contribution pv = ped @ wv0d + bv0,
-// computed once per ray instead of once per point.
+// view direction, and its view-layer-0 term pv (view_terms).
 static __device__ void load_rays(const Net& net, const Smem& sm,
                                  const float* rays_o, const float* rays_d,
                                  int ray0, int nr, int tid) {
@@ -245,102 +149,7 @@ static __device__ void load_rays(const Net& net, const Smem& sm,
           __float2bfloat16(pe_lane(vd, k, net.multires_views)));
   }
   __syncthreads();
-  const bf16* wd = wmat(net, SLOT_WV0D);
-  const float* bv0 = fvec(net, SLOT_BV);
-  for (int e = tid; e < nr * WV; e += NTHREADS) {
-    const int r = e / WV, c = e - r * WV;
-    float a = 0.f;
-    for (int k = 0; k < PED_PAD; ++k)
-      a += sm.ped[r * PED_PAD + k] * __bfloat162float(wd[k * WV + c]);
-    sm.pv[e] = a + bv0[c];
-  }
-  __syncthreads();
-}
-
-// The MLP of one tile whose PE is in sm.pe: trunk -> view branch -> heads.
-// View layer 0 adds `view_bias` (per column, or per ray with bias_ld != 0).
-// Row p of the tile writes raw[(tile_base + p) * 4 + 0..3] if tile_base + p
-// < n_pts.
-static __device__ void mlp_core(const Net& net, const Smem& sm,
-                                const float* view_bias, int bias_ld,
-                                int tile_base, int n_pts, int S, int rb,
-                                float* raw, int warp, int lane) {
-  float* scr = sm.scr + warp * 256;
-
-  // trunk; the skip layer is pe @ W_pe + h @ W_h in one accumulator
-  bf16* h = sm.h0;
-  {
-    FragC acc[2][RT];
-    zero<2>(acc);
-    mma_k<2>(acc, sm.pe, PE_PAD, PE_PAD, wmat(net, SLOT_W), W, warp);
-    store_relu<2>(acc, h, W, fvec(net, SLOT_B), 0, tile_base, S, rb, scr,
-                  warp, lane);
-  }
-  __syncthreads();
-  for (int i = 1; i < net.depth; ++i) {
-    bf16* hn = (h == sm.h0) ? sm.h1 : sm.h0;
-    FragC acc[2][RT];
-    zero<2>(acc);
-    if (net.slot[SLOT_WSKIP + i] != nullptr)
-      mma_k<2>(acc, sm.pe, PE_PAD, PE_PAD, wmat(net, SLOT_WSKIP + i), W, warp);
-    mma_k<2>(acc, h, W, W, wmat(net, SLOT_W + i), W, warp);
-    store_relu<2>(acc, hn, W, fvec(net, SLOT_B + i), 0, tile_base, S, rb,
-                  scr, warp, lane);
-    __syncthreads();
-    h = hn;
-  }
-
-  // view branch, in the trunk buffer that is free now
-  bf16* hv = (h == sm.h0) ? sm.h1 : sm.h0;
-  bf16* hv2 = hv + P * WV;
-  {
-    FragC acc[1][RT];
-    zero<1>(acc);
-    mma_k<1>(acc, h, W, W, wmat(net, SLOT_WV), WV, warp);
-    store_relu<1>(acc, hv, WV, view_bias, bias_ld, tile_base, S, rb, scr,
-                  warp, lane);
-  }
-  __syncthreads();
-  for (int v = 1; v < net.n_views; ++v) {
-    FragC acc[1][RT];
-    zero<1>(acc);
-    mma_k<1>(acc, hv, WV, WV, wmat(net, SLOT_WV + v), WV, warp);
-    store_relu<1>(acc, hv2, WV, fvec(net, SLOT_BV + v), 0, tile_base, S, rb,
-                  scr, warp, lane);
-    __syncthreads();
-    bf16* t = hv;
-    hv = hv2;
-    hv2 = t;
-  }
-
-  // heads: raw = h @ w_alpha + hv @ w_rgb + b_heads, f32, no activation
-  if (warp < RT) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    FragA a;
-    FragB b;
-    const bf16* wa = wmat(net, SLOT_WALPHA);
-    const bf16* wr = wmat(net, SLOT_WRGB);
-    for (int k = 0; k < W; k += 16) {
-      wmma::load_matrix_sync(a, h + warp * 16 * W + k, W);
-      wmma::load_matrix_sync(b, wa + k * HEADS, HEADS);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    for (int k = 0; k < WV; k += 16) {
-      wmma::load_matrix_sync(a, hv + warp * 16 * WV + k, WV);
-      wmma::load_matrix_sync(b, wr + k * HEADS, HEADS);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(scr, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    const float* bh = fvec(net, SLOT_BHEADS);
-    for (int e = lane; e < 64; e += 32) {
-      const int rr = e >> 2, cc = e & 3;
-      const int p = tile_base + warp * 16 + rr;
-      if (p < n_pts) raw[p * 4 + cc] = scr[rr * 16 + cc] + bh[cc];
-    }
-  }
-  __syncthreads();
+  view_terms(net, sm, nr, tid);
 }
 
 // Compositing of the block's rays from sm.z and sm.raw: summary (R, 8) =

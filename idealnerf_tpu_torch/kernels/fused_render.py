@@ -579,7 +579,7 @@ def narrow(grads: PackedNet, net: PackedNet) -> PackedNet:
 def _slots(net: PackedNet, device):
     """Operands flattened into one weight buffer (bf16, or f32 for the
     gradient kernel's f32 variant) and one f32 bias buffer, each matrix
-    128-element aligned for wmma loads -> (ctypes slot table, buffers)."""
+    128-element aligned -> (ctypes slot table, buffers)."""
     wmats = {_SLOT_W + i: x for i, x in enumerate(net.w)}
     wmats.update({_SLOT_WSKIP + i: x for i, x in net.wskip.items()})
     wmats.update({_SLOT_WV + v: x for v, x in enumerate(net.wv)})

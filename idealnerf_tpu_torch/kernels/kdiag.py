@@ -1,8 +1,9 @@
 """Kernel-diagnosis probes of the fused MLP (counterparts of the Pallas
 kernels in the JAX package's ``scripts/kdiag{,2,3,4,5}.py``).
 
-The kernels (``csrc/kdiag.cu``, CUDA C++ for sm_90a) each isolate a part
-of the production kernels' time:
+The kernels (``csrc/kdiag.cu``, and ``csrc/kdiag_pe.cu`` for the two on
+given encodings, the ladder and render probe A; CUDA C++ for sm_90a) each
+isolate a part of the production kernels' time:
 
 - ``chain``: ``depth`` chained (rows, 256) @ (256, 256) products with one
   epilogue between layers (kdiag.py, kdiag4.py, kdiag5.py). bf16 with f32
@@ -21,11 +22,16 @@ of the production kernels' time:
   the CUDA cores (64 rows per block), int8 with s32 accumulation and two
   requants on wmma (64 or 128 rows per block).
 - ``ladder``: the production trunk, then + skip, + view branch (rungs
-  v0-v2 on the production operand table, on render_body.cuh's wmma body);
-  rung v3 is the encoded-input point MLP (K5) and v4 the in-kernel-PE one
-  (K4) (kdiag2.py).
-- ``render_probe_a``: the ray-organised MLP of render_body.cuh's wmma
-  blocks from given PE, without compositing (kdiag3.py A).
+  v0-v2): the encoded-input point MLP (K5) stopped after its trunk or its
+  view branch, on K5's chain, launch plan and a prefix of its weight
+  stream (``ladder_stream``; v0 on the net without its skip pe-part),
+  the last activation written out; rung v3 is K5 itself and v4 the
+  in-kernel-PE point MLP (K4) (kdiag2.py). v0, v1, v2 and v3 split K5's
+  time into trunk, skip, view branch and heads.
+- ``render_probe_a``: the fine pass's MLP from given PE, without
+  compositing (kdiag3.py A), on K1's chain, weight stream and launch
+  plan, each point's PE row copied into the tile; B less A is the PE
+  built in the kernel.
 - ``render_probe_b``: the fine pass (K1) without its compositing, on K1's
   chain, tile source and launch plan, raw rows to global memory
   (kdiag3.py B; its C is the fine pass itself). K1 less B is K1's
@@ -41,20 +47,21 @@ called by the probes themselves.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from idealnerf_tpu_torch.core.embedding import positional_encoding
-from idealnerf_tpu_torch.kernels import build
+from idealnerf_tpu_torch.kernels import build, fused_render
 from idealnerf_tpu_torch.kernels.fused_mlp import (
-    point_mlp_pe, point_mlp_pe_reference,
+    _check_n, _point_plan, _sm_count, point_mlp_pe, point_mlp_pe_reference,
 )
 from idealnerf_tpu_torch.kernels.fused_render import (
     _KC_W, _REF_CHUNK_POINTS, KERNEL_WIDTH, PE_PAD, PED_PAD, SMEM_LIMIT,
-    PackedNet, _bf16, _chain_args, _check_cuda, _check_rays, _mlp_reference,
-    _raise_on, _render_plan, _slots, _stream, weight_stream,
+    STAGE_ELEMS, PackedNet, _bf16, _chain_args, _check_cuda, _check_rays,
+    _mlp_reference, _raise_on, _render_plan, _slots, _stream, weight_stream,
 )
 
 # epilogue modes of csrc/kdiag.cu (enum Mode)
@@ -69,8 +76,6 @@ _CHAIN_COUNT = {torch.bfloat16: "kdiag_chain_bf16",
                 torch.int8: "kdiag_chain_int8"}
 _BIAS_MODES = ("bias_relu", "relu2")
 
-# points per block of render probe A; a block owns whole rays
-_POINTS_PER_BLOCK = 768
 # the bf16 chain's weight streams by weights (chain_weight_stream), at most
 # this many
 _STREAM_CACHE: dict = {}
@@ -144,8 +149,9 @@ def chain_reference(x: torch.Tensor, ws: torch.Tensor, mode: str,
 def chain_library(x: torch.Tensor, ws: torch.Tensor, mode: str = "relu"
                   ) -> torch.Tensor:
     """The chain as PyTorch calls: ``torch.matmul`` + relu per layer in
-    the input's type (bf16 or f32), or ``torch._int_mm`` + I0's requant
-    for int8 -> f32. The yardstick the probes are timed against."""
+    the input's type (bf16, or f32 with TF32 off, as the f32 chain
+    computes), or ``torch._int_mm`` + I0's requant for int8 -> f32. The
+    yardstick the probes are timed against."""
     h = x
     if x.dtype == torch.int8:
         if mode != "i0":
@@ -155,8 +161,13 @@ def chain_library(x: torch.Tensor, ws: torch.Tensor, mode: str = "relu"
         return h.float()
     if mode != "relu":
         raise ValueError("chain_library: float chains take mode relu")
-    for li in range(ws.shape[0]):
-        h = torch.relu(torch.matmul(h, ws[li]))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for li in range(ws.shape[0]):
+            h = torch.relu(torch.matmul(h, ws[li]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     return h.float()
 
 
@@ -309,13 +320,33 @@ def ladder_reference(net: PackedNet, pe: torch.Tensor, ped: torch.Tensor,
     return hv.to(torch.bfloat16)
 
 
+def ladder_net(net: PackedNet, stage: int) -> PackedNet:
+    """The net rung ``stage`` runs: without its skip pe-part for v0."""
+    return dataclasses.replace(net, wskip={}) if stage == 0 else net
+
+
+def ladder_stream(net: PackedNet, stage: int):
+    """Rung ``stage``'s weight stream -> (stream, stages): the prefix of
+    K5's stream (``fused_render.chain_weight_stream(ladder_net(net,
+    stage), dir_stage=True)``) that the rung consumes, the trunk's stages
+    for v0 and v1 (58 and 60 for the paper model) or all but the heads'
+    for v2 (69 of 70)."""
+    stream, order = fused_render.chain_weight_stream(ladder_net(net, stage),
+                                                     dir_stage=True)
+    n = sum(name != "heads" and (stage == 2 or not name.startswith("wv"))
+            for name, _ in order)
+    return stream[:n * STAGE_ELEMS], n
+
+
 def ladder(net: PackedNet, pe: torch.Tensor, ped: torch.Tensor,
            stage: int) -> torch.Tensor:
     """Rung ``stage`` of kdiag2.py's ladder on a packed bf16 net from (N,
     PE_PAD) and (N, PED_PAD) bf16 encodings: 0 the trunk without the
     skip's pe-part -> (N, W) bf16; 1 the whole trunk -> (N, W); 2 + the
     view branch -> (N, W/2); 3 + the heads -> (N, 4) f32, the encoded-input
-    point MLP kernel (K5). Rung 4, + the PE in the kernel, is
+    point MLP kernel (K5). Rungs 0-2 run K5's chain at K5's launch plan
+    (``fused_mlp._point_plan``) on ``ladder_stream``, built on every call
+    as K5's wrapper builds its stream. Rung 4, + the PE in the kernel, is
     ``fused_mlp.point_mlp`` (K4) on raw coordinates. CUDA tensors launch
     the kernel, CPU tensors take the plain version."""
     if stage == 3:
@@ -333,17 +364,19 @@ def ladder(net: PackedNet, pe: torch.Tensor, ped: torch.Tensor,
         raise ValueError(f"ladder: pe and ped must be (N, {PE_PAD}) and (N, "
                          f"{PED_PAD}), got {tuple(pe.shape)} and "
                          f"{tuple(ped.shape)}")
-    if N < 1 or N >= 2 ** 31 - 64:
-        raise ValueError(f"ladder: unsupported N={N}")
+    _check_n("ladder", N)
     lib = build.load_library()
-    table, keep = _slots(net, dev)
+    per_block, _, ring = _point_plan(lib, N, _sm_count(dev))
+    table, keep = _slots(ladder_net(net, stage), dev)
+    stream, n_stages = ladder_stream(net, stage)
     width = net.width if stage < 2 else net.width // 2
     out = torch.empty((N, width), dtype=torch.bfloat16, device=dev)
     err = lib.kd_ladder(pe.data_ptr(), ped.data_ptr(), out.data_ptr(), N,
-                        stage, table, len(net.w), len(net.wv), _stream(dev))
+                        stage, per_block, table, len(net.w), len(net.wv),
+                        stream.data_ptr(), n_stages, ring, _stream(dev))
     _raise_on(lib, err, "ladder")
     launch_counts["kdiag_ladder"] += 1
-    del keep
+    del keep, stream
     return out
 
 
@@ -389,45 +422,39 @@ def render_probe_b_reference(net: PackedNet, rays_o: torch.Tensor,
     return torch.cat(parts, 0)
 
 
-def _rays_per_block(lib, S: int) -> int:
-    """Render probe A's rays per block: about _POINTS_PER_BLOCK points of
-    whole rays, fewer where the wmma body's shared memory is short."""
-    rb = max(1, min(16, _POINTS_PER_BLOCK // S))
-    while rb > 1 and lib.fr_smem_bytes(rb, S) > SMEM_LIMIT:
-        rb -= 1
-    if lib.fr_smem_bytes(rb, S) > SMEM_LIMIT:
-        raise ValueError(f"S={S} does not fit the probe's shared memory")
-    return rb
-
-
-def _render_b_plan(lib, S: int):
-    """Render probe B's (rays per block, ring stages) at S depths: K1's
-    (fused_render._render_plan), so that its blocks, tiles and ring are
-    K1's and K1 less the probe is K1's per-ray code and compositing. Its
+def _render_probe_plan(lib, S: int, probe: str):
+    """Render probe ``probe``'s ("a" or "b") (rays per block, ring stages)
+    at S depths: K1's (fused_render._render_plan), so that its blocks,
+    tiles and ring are K1's, K1 less probe B is K1's per-ray code and
+    compositing, and B less A is the PE built in the kernel. A probe's
     per-ray state has no raw or weight rows, so it fits wherever K1's
     does; the shared memory this frees stays unused."""
     rb, ring = _render_plan(lib, S, 0, 0)
-    if lib.kd_render_b_smem_bytes(rb, S, ring) > SMEM_LIMIT:
-        raise ValueError(f"S={S} does not fit probe B's shared memory")
+    smem = getattr(lib, f"kd_render_{probe}_smem_bytes")
+    if smem(rb, S, ring) > SMEM_LIMIT:
+        raise ValueError(f"S={S} does not fit probe {probe.upper()}'s "
+                         "shared memory")
     return rb, ring
 
 
-def render_b_launch_config(S: int) -> dict:
-    """Render probe B's launch at S depths: rays per block, dynamic shared
-    memory, ring stages."""
+def render_probe_launch_config(S: int, probe: str) -> dict:
+    """Render probe ``probe``'s ("a" or "b") launch at S depths: rays per
+    block, dynamic shared memory, ring stages."""
     lib = build.load_library()
-    rb, ring = _render_b_plan(lib, S)
+    rb, ring = _render_probe_plan(lib, S, probe)
     return {"rays_per_group": rb, "ring_stages": ring,
-            "smem_bytes": lib.kd_render_b_smem_bytes(rb, S, ring)}
+            "smem_bytes": getattr(lib, f"kd_render_{probe}_smem_bytes")(
+                rb, S, ring)}
 
 
 def render_probe_a(net: PackedNet, pe: torch.Tensor, ped: torch.Tensor,
                    S: int) -> torch.Tensor:
     """kdiag3.py A: the fine pass's MLP from given encodings, (R*S,
     PE_PAD) bf16 xyz-PE and (R, PED_PAD) bf16 per-ray dir-PE -> raw (R,
-    S*4) f32 [rgb logits, sigma], no compositing. A block owns whole rays,
-    about 768 points of them. CUDA tensors launch the kernel, CPU tensors
-    take the plain version."""
+    S*4) f32 [rgb logits, sigma], no compositing. K1's chain, weight
+    stream and launch plan; the stream and operand table built on every
+    call, as K1's wrapper builds them. CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
     if pe.device.type == "cpu":
         return render_probe_a_reference(net, pe, ped, S)
     dev = _check_cuda("render_probe_a", torch.bfloat16, 16, pe=pe, ped=ped)
@@ -442,11 +469,12 @@ def render_probe_a(net: PackedNet, pe: torch.Tensor, ped: torch.Tensor,
     if net.w[0].dtype != torch.bfloat16:
         raise TypeError("render_probe_a: the kernel takes bf16 weights")
     lib = build.load_library()
-    rb = _rays_per_block(lib, S)
-    table, keep = _slots(net, dev)
+    rb, ring = _render_probe_plan(lib, S, "a")
+    table, keep, ws, n_stages = _chain_args(net, dev)
     raw = torch.empty((R, S * 4), dtype=torch.float32, device=dev)
     err = lib.kd_render_a(pe.data_ptr(), ped.data_ptr(), raw.data_ptr(), R,
-                          S, rb, table, len(net.w), len(net.wv), _stream(dev))
+                          S, rb, table, len(net.w), len(net.wv), ws,
+                          n_stages, ring, _stream(dev))
     _raise_on(lib, err, "render_probe_a")
     launch_counts["kdiag_render_a"] += 1
     del keep
@@ -474,7 +502,7 @@ def render_probe_b(net: PackedNet, rays_o: torch.Tensor,
     if R < 1 or S < 1 or R * S >= 2 ** 31:
         raise ValueError(f"render_probe_b: unsupported R={R}, S={S}")
     lib = build.load_library()
-    rb, ring = _render_b_plan(lib, S)
+    rb, ring = _render_probe_plan(lib, S, "b")
     table, keep, ws, n_stages = _chain_args(net, dev)
     raw = torch.empty((R, S * 4), dtype=torch.float32, device=dev)
     err = lib.kd_render_b(rays_o.data_ptr(), rays_d.data_ptr(), z.data_ptr(),

@@ -12,9 +12,10 @@ model instead of unstructured random weights.)
 Every rung runs on the same points (uniform in [-1, 1]^3, unit view
 directions): v4 from the coordinates, v0-v3 from their bf16 encodings.
 Rates count each rung's own multiply-adds, so they compare as shares of
-the peak for the work each one does. The ladder runs the production tile
-of 64 points per block, which the kernels fix at compile time, so it has
-no ``--rows_per_block``.
+the peak for the work each one does. Every rung runs K5's chain at K5's
+launch plan (128-point tiles, at most one block per SM), v0-v2 stopped
+early, so v0, v1, v2 and v3 split K5's time into trunk, skip, view branch
+and heads, and there is no ``--rows_per_block``.
 
     python -m idealnerf_tpu_torch.scripts.kdiag2 [--rows 2097152]
 """

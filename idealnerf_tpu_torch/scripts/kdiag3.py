@@ -7,11 +7,10 @@ the JAX package's scripts/kdiag3.py.)
     C  B with compositing: the production fine pass (fused_render_rays)
 
 on ``--kd3_r`` rays at each ``--kd3_s`` depths, the static linspace of
-[0.58, 1.18], relu density. Rates count the MLP's multiply-adds. A runs
-render_body.cuh's wmma blocks of about 768 points of whole rays; B and C
-the fine pass's wgmma chain at its own launch plan (C less B is the fine
-pass's per-ray code and compositing), so there is no
-``--rows_per_block``.
+[0.58, 1.18], relu density. Rates count the MLP's multiply-adds. A, B and
+C run the fine pass's wgmma chain at its own launch plan (C less B is the
+fine pass's per-ray code and compositing, B less A the PE built in the
+kernel), so there is no ``--rows_per_block``.
 
     python -m idealnerf_tpu_torch.scripts.kdiag3 [--kd3 ABC --kd3_r 202500]
 """

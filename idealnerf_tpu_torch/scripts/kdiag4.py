@@ -13,10 +13,12 @@ isolation. (Counterpart of the JAX package's scripts/kdiag4.py.)
         this port only)                        -- what the epilogue costs
     VX  the chain as PyTorch calls (torch.matmul + relu per layer, bf16):
         the library's rate on this dependency chain
+    V3X V3 as PyTorch calls (torch.matmul + relu per layer in f32, TF32
+        off): V3's library yardstick
 
 Each kernel variant runs at every ``--rows_per_block`` (V3 at 64 only) on
 1M and 4M rows; the rate between the two sizes (the slope) is free of
-launch overhead. VX runs on ``--kd4_rows`` rows.
+launch overhead. VX and V3X run on ``--kd4_rows`` rows.
 
     python -m idealnerf_tpu_torch.scripts.kdiag4 --kd4 V0,V2,V3,VX
 """
@@ -54,13 +56,14 @@ def main(argv=None) -> dict:
     rows = tuple(ints(args.slope_rows))
     results = {}
     for name in args.kd4.split(","):
-        if name == "VX":
-            x, ws = chain_inputs(args.kd4_rows, torch.bfloat16, dev,
-                                 args.seed)
-            results["VX"] = measure(
-                f"VX (torch.matmul) rows {args.kd4_rows} bf16",
+        if name in ("VX", "V3X"):
+            kind, dtype = (("bf16", torch.bfloat16) if name == "VX"
+                           else ("f32", torch.float32))
+            x, ws = chain_inputs(args.kd4_rows, dtype, dev, args.seed)
+            results[name] = measure(
+                f"{name} (torch.matmul) rows {args.kd4_rows} {kind}",
                 lambda: kd.chain_library(x, ws), 2.0 * args.kd4_rows * DEPTH
-                * W * W, "bf16", dev, reps=3)
+                * W * W, kind, dev, reps=3)
             del x, ws
             continue
         f32 = name == "V3"

@@ -12,10 +12,18 @@ process:
     7f  ``chain`` relu (kdiag4 V0, kdiag5 B0) on 1M rows, out f32, at 128
         and 64; int8 I0 (kdiag5) on the same rows at 64, the int8 / bf16
         ratio of one card
-    7d  ``render_probe_b`` (the fine pass without compositing) and 7e the
+    7c  ``render_probe_a`` (the fine pass's MLP from given PE rows), 7d
+        ``render_probe_b`` (the fine pass without compositing) and 7e the
         fine pass itself (``fused_render_rays``, K1) at 8,192 and 202,500
         (a 450x450 frame's) rays x 192 depths; 7e less 7d is K1's
-        per-ray code and compositing
+        per-ray code and compositing, 7d less 7c the PE built in the
+        kernel. 7d runs before 7c and again right after it (``after
+        7c``), so that 7d's time can be read apart from the card's
+        state that 7c, at the power limit, leaves behind
+    7b  the ladder's rungs v0 (trunk without the skip's pe-part), v1
+        (trunk), v2 (+ view branch) and v3 (+ heads: K5) on 2^21 points
+        of kdiag2's encodings; v1 - v0, v2 - v1 and v3 - v2 split K5's
+        time into skip, view branch and heads
     lib the same chains as torch.matmul / torch._int_mm calls
         (``chain_library``), timed in this checkout's workers only
 
@@ -45,7 +53,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-ROWS_7A, ROWS_7F = 1 << 21, 1 << 20
+ROWS_7A, ROWS_7F, POINTS_7B = 1 << 21, 1 << 20, 1 << 21
 RAYS, S = (8192, 202500), 192
 MODES_7A = ("cast", "bias_relu", "relu2", "sum")
 RPBS = (128, 64)
@@ -71,16 +79,19 @@ def _worker(tree: str, seed: int, library: bool) -> dict:
     import torch
 
     from idealnerf_tpu_torch import scripts as sc
+    from idealnerf_tpu_torch.kernels import fused_mlp as fm
     from idealnerf_tpu_torch.kernels import fused_render as fr
     from idealnerf_tpu_torch.kernels import kdiag as kd
-    from idealnerf_tpu_torch.scripts import kdiag3
+    from idealnerf_tpu_torch.scripts import kdiag2, kdiag3
 
     dev = torch.device("cuda:0")
     out, errs, smi = {}, {}, {}
     calls = {"kdiag_chain_bf16": 0, "kdiag_chain_int8": 0,
-             "kdiag_render_b": 0, "fused_render_rays": 0}
-    kd.reset_launch_counts()
-    fr.reset_launch_counts()
+             "kdiag_render_a": 0, "kdiag_render_b": 0,
+             "fused_render_rays": 0, "kdiag_ladder": 0,
+             "fused_point_mlp_pe": 0}
+    for m in (kd, fm, fr):
+        m.reset_launch_counts()
 
     def timed(label, count, fn, plain):
         calls[count] += 1
@@ -146,11 +157,22 @@ def _worker(tree: str, seed: int, library: bool) -> dict:
         for R in RAYS:
             o, d, bc, z = kdiag3.rays(R, S, dev, seed)
             s = slice(0, SLICE_RAYS)
+            pe, ped = kd.encode_rays(net, o, d, z)
+            want_a = kd.render_probe_a_reference(net, pe[:SLICE_RAYS * S],
+                                                 ped[s], S)
             want_b = kd.render_probe_b_reference(net, o[s], d[s], z[s])
-            timed(f"7d R={R}", "kdiag_render_b",
-                  lambda: kd.render_probe_b(net, o, d, z),
-                  lambda got: sc.close_lanes("7d", got[s].contiguous(),
-                                             want_b))
+            for label in (f"7d R={R}", f"7c R={R}", f"7d R={R} after 7c"):
+                if label.startswith("7c"):
+                    timed(label, "kdiag_render_a",
+                          lambda: kd.render_probe_a(net, pe, ped, S),
+                          lambda got: sc.close_lanes(
+                              "7c", got[s].contiguous(), want_a))
+                else:
+                    timed(label, "kdiag_render_b",
+                          lambda: kd.render_probe_b(net, o, d, z),
+                          lambda got: sc.close_lanes(
+                              "7d", got[s].contiguous(), want_b))
+            del pe, ped
             want_c = fr.fused_render_rays_reference(model, folded, cfg, o[s],
                                                     d[s], z[s], bc[s])
             timed(f"7e R={R}", "fused_render_rays",
@@ -159,15 +181,30 @@ def _worker(tree: str, seed: int, library: bool) -> dict:
                   lambda got: kdiag3.close_render(
                       "7e", {k: v[s] for k, v in got.items()}, want_c))
             del o, d, bc, z
+        pe, ped = kdiag2.inputs(net, POINTS_7B, dev, seed)[:2]
+        for stage in range(4):
+            want = kd.ladder_reference(net, pe[:SLICE_ROWS],
+                                       ped[:SLICE_ROWS], stage)
+            timed(f"7b v{stage}", "kdiag_ladder" if stage < 3
+                  else "fused_point_mlp_pe",
+                  lambda: kd.ladder(net, pe, ped, stage),
+                  lambda got: (sc.close_lanes if stage == 3 else sc.close)(
+                      f"7b v{stage}", got[:SLICE_ROWS].contiguous(), want))
+        del pe, ped
     torch.cuda.synchronize()
-    launches = {**kd.launch_counts, **fr.launch_counts}
+    launches = {**kd.launch_counts, **fm.launch_counts, **fr.launch_counts}
     res = {"ms": out, "max_err": errs, "calls": calls,
            "launches": {k: launches[k] for k in calls}, "smi": smi}
     if hasattr(kd, "chain_launch_config"):
         res["plans"] = {f"chain r{rpb}": kd.chain_launch_config(ROWS_7A, rpb)
                         for rpb in RPBS}
-        res["plans"]["7d"] = kd.render_b_launch_config(S)
+        if hasattr(kd, "render_probe_launch_config"):
+            res["plans"]["7c"] = kd.render_probe_launch_config(S, "a")
+            res["plans"]["7d"] = kd.render_probe_launch_config(S, "b")
+        else:  # a parent before probe A's plan was K1's
+            res["plans"]["7d"] = kd.render_b_launch_config(S)
         res["plans"]["7e"] = fr.render_launch_config(S)
+        res["plans"]["7b"] = fm.point_launch_config(POINTS_7B)
     return res
 
 
@@ -193,10 +230,11 @@ def main(argv=None) -> dict:
     if args.parent:
         trees["parent"] = Path(args.parent).resolve()
     build_trees(trees, ("2kd10k_chain_wg", "2kd7k_chain",
-                        "2kd16k_render_probe_b", "13k_render_rays"))
+                        "2kd12k_mlp_ladder", "2kd16k_render_probe",
+                        "13k_render_rays", "14k_point_mlp_pe"))
     print(f"card: {card()}; 7a on {ROWS_7A} rows, 7f and I0 on {ROWS_7F}, "
-          f"7d and 7e at {' and '.join(map(str, RAYS))} rays x {S}",
-          flush=True)
+          f"7c, 7d and 7e at {' and '.join(map(str, RAYS))} rays x {S}, "
+          f"7b on {POINTS_7B} points", flush=True)
     turns = ["parent", "this", "this", "parent"] if args.parent else ["this"]
     script = str(Path(__file__).resolve())
     results, ok, lib_done = [], True, False

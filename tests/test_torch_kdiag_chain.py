@@ -1,6 +1,9 @@
 """The kernel-diagnosis probes on the wgmma chain, on the CPU: the bf16
-chain (kernels/kdiag.py ``chain``, csrc/kdiag.cu ``k_chain_wg``) and render
-probe B (``render_probe_b``, K1's chain without compositing).
+chain (kernels/kdiag.py ``chain``, csrc/kdiag.cu ``k_chain_wg``), the
+ladder's rungs v0-v2 (``ladder``, K5's chain stopped after its trunk or
+view branch), render probe A (``render_probe_a``, K1's chain on given PE
+rows) and render probe B (``render_probe_b``, K1's chain without
+compositing).
 
 The kernels run only on the card (chip_smoke.py phase 11 holds them against
 their plain versions there). Here: the chain's weight stream round-trips
@@ -13,13 +16,20 @@ every layer into one accumulator) agrees with ``chain_reference`` and with
 the JAX package's probe kernels (scripts/kdiag.py, kdiag4.py) under
 ``pl.pallas_call(..., interpret=True)`` on ragged rows, for every bf16 mode;
 and probe B's launch plan is K1's, covers every ray once, fills its tiles
-and fits the shared memory.
+and fits the shared memory. The ladder's streams are prefixes of K5's
+stream (v0's of the net without its skip pe-part), and an emulation of
+the chain over each prefix (csrc/chain.cuh: ActivationTile's fill, the
+stages, the un-swizzled copy out) agrees with ``ladder_reference``; probe
+A's tile source (PeRayTile's fill of the PE rows, pv per ray in the
+kernel's order) agrees with ``render_probe_a_reference`` over K1's plan,
+which is probe A's.
 
 Bounds, as tests/test_torch_kdiag.py's: within 3e-2 of the output's max abs
 with a correlation above 0.999 (every layer rounds to bf16 on both sides,
 and a sum taken in another order can land one ulp apart).
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -30,8 +40,11 @@ import torch
 import torch.nn.functional as F
 from jax.experimental import pallas as pl
 
+from idealnerf_tpu_torch.config import ExperimentConfig
+from idealnerf_tpu_torch.kernels import fused_mlp as fm
 from idealnerf_tpu_torch.kernels import fused_render as fr
 from idealnerf_tpu_torch.kernels import kdiag as kd
+from idealnerf_tpu_torch.models.face_nerf import FaceNeRF, fold_conditioning
 from scripts import kdiag, kdiag4
 
 ATOL = 3e-2
@@ -39,6 +52,16 @@ MIN_CORR = 0.999
 W = 256
 KC = 32  # K-rows per stage of a 256-wide layer
 BF16_MODES = kd.CHAIN_MODES[torch.bfloat16]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Small tensor ops on one thread: under the suite's parallel workers
+    a thread pool per op made these emulations many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _inputs(rows, depth, seed):
@@ -233,10 +256,19 @@ def _probe_b_smem_bytes(rb, S, ring):
     return 1024 + ring * 2 * fr.STAGE_ELEMS + tiles + 128 + state
 
 
+def _probe_a_smem_bytes(rb, S, ring):
+    """csrc/kdiag_pe.cu probe_a_smem: K1's ring, tiles and mbarriers, then
+    the dir-PE and pv of each ray."""
+    state = sum(-(-4 * rb * x // 128) * 128 for x in (fr.PED_PAD, 128))
+    tiles = 2 * 2 * 64 * (fr.PE_PAD + 256 + 128)
+    return 1024 + ring * 2 * fr.STAGE_ELEMS + tiles + 128 + state
+
+
 class _Lib:
-    """The library calls probe B's plan makes, from the layouts above."""
+    """The library calls the probes' plans make, from the layouts above."""
 
     fr_chain_smem_bytes = staticmethod(_k1_smem_bytes)
+    kd_render_a_smem_bytes = staticmethod(_probe_a_smem_bytes)
     kd_render_b_smem_bytes = staticmethod(_probe_b_smem_bytes)
 
 
@@ -251,7 +283,7 @@ def test_probe_b_plan_is_k1s_and_covers_every_ray(S, plan, smem, R):
     exactly one block, and the last 128-point tile of a block at most
     1/32 empty."""
     lib = _Lib()
-    rb, ring = kd._render_b_plan(lib, S)
+    rb, ring = kd._render_probe_plan(lib, S, "b")
     assert (rb, ring) == plan == fr._render_plan(lib, S, 0, 0)
     assert _probe_b_smem_bytes(rb, S, ring) == smem
     assert smem < _k1_smem_bytes(rb, S, 0, 0, 0, ring) <= fr.SMEM_LIMIT
@@ -263,3 +295,275 @@ def test_probe_b_plan_is_k1s_and_covers_every_ray(S, plan, smem, R):
         assert ray0 < R
         seen[ray0:min(ray0 + rb, R)] += 1
     assert torch.all(seen == 1)
+
+
+@pytest.mark.parametrize("S,plan,smem", [
+    (192, (12, 3), 172672), (64, (30, 3), 184192), (16, (64, 3), 205952),
+    (8, (64, 3), 205952)])
+@pytest.mark.parametrize("R", [1001, 8192, 202500])
+def test_probe_a_plan_is_k1s_and_covers_every_ray(S, plan, smem, R):
+    """Probe A's plan is probe B's, K1's rays per block and ring (so B
+    less A is the PE built in the kernel); its per-ray state (dir-PE and
+    pv) leaves its shared memory (the card's library gave these bytes)
+    below probe B's and the limit; every ray of R lies in exactly one
+    block."""
+    lib = _Lib()
+    rb, ring = kd._render_probe_plan(lib, S, "a")
+    assert (rb, ring) == plan == kd._render_probe_plan(lib, S, "b")
+    assert _probe_a_smem_bytes(rb, S, ring) == smem
+    assert smem < _probe_b_smem_bytes(rb, S, ring) <= fr.SMEM_LIMIT
+    seen = torch.zeros(R, dtype=torch.int32)
+    for ray0 in range(0, R, rb):
+        seen[ray0:min(ray0 + rb, R)] += 1
+    assert torch.all(seen == 1)
+
+
+# ------------------------------------------ the ladder and probe A's tiles
+
+# the paper model, and a 2-layer net of the kernel's width whose layer 1
+# takes the PE again (its skip)
+NETS = {"paper": dict(depth=8), "d2-skip": dict(depth=2, skips=(0,))}
+
+
+def _packed(name: str, seed: int = 0) -> fr.PackedNet:
+    cfg = ExperimentConfig(dim_aud=16, dim_expr=8, dim_latent=4)
+    ncfg = dataclasses.replace(cfg.face_nerf_config(), **NETS[name])
+    model = FaceNeRF(ncfg, torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed)
+    cond = [torch.from_numpy(rng.randn(n).astype(np.float32))
+            for n in (16, 8, 4)]
+    with torch.no_grad():
+        folded = fold_conditioning(model, ncfg, *cond)
+    return fr.pack_operands(model, folded, ncfg)
+
+
+def _swz(p, f):
+    """csrc/hopper.cuh swz: element offset of (row p, lane f) in a 64-row
+    K-major swizzled tile."""
+    return (((f >> 6) << 12) + ((p >> 3) << 9) + ((p & 7) << 6)
+            + ((((f >> 3) & 7) ^ (p & 7)) << 3) + (f & 7))
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_image(lanes):
+    """The offsets of a 64-row tile's (row, lane) in its image."""
+    return _swz(torch.arange(64)[:, None], torch.arange(lanes)[None])
+
+
+@functools.lru_cache(maxsize=None)
+def _copy_plan(tile_lanes):
+    """copy_rows' work for a tile of tile_lanes lanes: thread t copies the
+    16-byte chunks t // 64 + 2 j of row t % 64 -> (row, chunk, lanes of
+    the chunk, their offsets in the image); every element once."""
+    t = torch.arange(128)
+    row = (t & 63)[:, None]
+    c = (t >> 6)[:, None] + 2 * torch.arange(tile_lanes // 16)[None]
+    lane = 8 * c[..., None] + torch.arange(8)
+    dest = _swz(row[..., None], lane)
+    assert torch.unique(dest).numel() == dest.numel() == 64 * tile_lanes
+    return row, c, lane, dest
+
+
+def _copy_rows(rows, row0, n_pts, tile_lanes):
+    """chain.cuh copy_rows for one warpgroup: each thread's chunks of
+    rows (zeros at or past n_pts and past the rows' lanes) into the
+    swizzled image -> the image read back as the (64, tile_lanes) A
+    operand."""
+    lanes = rows.shape[1]
+    row, c, lane, dest = _copy_plan(tile_lanes)
+    src = F.pad(rows.float(), (0, tile_lanes - lanes, 0,
+                               max(0, row0 + 64 - rows.shape[0])))
+    live = ((row0 + row < n_pts) & (c < lanes // 8))[..., None]
+    img = torch.full((64 * tile_lanes,), float("nan"))
+    img[dest] = torch.where(live, src[(row0 + row)[..., None], lane], 0.0)
+    return img[_tile_image(tile_lanes)]
+
+
+@functools.lru_cache(maxsize=None)
+def _store_plan(width):
+    """ActivationTile::store's work: element e copies 16-byte chunk e %
+    (width / 8) of row e // (width / 8) -> (row, its lanes, their offsets
+    in the image)."""
+    e = torch.arange(64 * width // 8)
+    row, c = e // (width // 8), e % (width // 8)
+    lane = 8 * c[:, None] + torch.arange(8)
+    return row, lane, _swz(row[:, None], lane)
+
+
+def _store_rows(act, row0, n_pts, out):
+    """ActivationTile::store for one warpgroup: act (64, width) written
+    into its swizzled tile (relu_store's image), then each chunk copied
+    to out's row row0 + row where that row is below n_pts."""
+    width = act.shape[1]
+    img = torch.empty(64 * width)
+    img[_tile_image(width)] = act
+    row, lane, src = _store_plan(width)
+    live = row0 + row < n_pts
+    out[(row0 + row)[live][:, None], lane[live]] = img[src[live]]
+
+
+def _emulate_chain(stream, net, pe, ped, view_bias, last, mats=None):
+    """The chain's order of work on one block's points in plain torch:
+    128-point tiles of two 64-row warpgroups, each filled by copy_rows
+    from the PE rows (and, with ``ped``, the dir-PE rows into a 64-lane
+    tile); every layer sums one stage at a time from the stream's
+    swizzled images in f32, bf16 after every relu, the skip layers where
+    the net has them; view layer 0 adds the dir-PE product (with ``ped``)
+    and view_bias(rows), then stops after the trunk or the view branch
+    (``last``, the rows copied out by _store_rows) or runs the heads ->
+    the block's output rows and the stages consumed per tile. ``mats``
+    keeps the stages read back, for the stream's next block."""
+    n = pe.shape[0]
+    img = stream.reshape(-1, fr.STAGE_ELEMS).float()
+    mats = {} if mats is None else mats
+    width = {"trunk": 256, "view": 128, "heads": 4}[last]
+    out = torch.full((n, width), float("nan"))
+    for t0 in range(0, n, 128):
+        q = 0
+
+        def prod(acc, a, lanes):
+            nonlocal q
+            kr = fr.STAGE_ELEMS // lanes
+            for k0 in range(0, a.shape[1], kr):
+                if q not in mats:
+                    mats[q] = img[q][fr.swizzle_image_index(
+                        kr, lanes).reshape(-1)].reshape(kr, lanes)
+                acc = acc + a[:, k0:k0 + kr] @ mats[q]
+                q += 1
+            return acc
+
+        halves = (t0, t0 + 64)
+        x = torch.cat([_copy_rows(pe, r0, n, 64) for r0 in halves])
+        h = _bf16(torch.relu(prod(torch.zeros(128, 256), x, 256) + net.b[0]))
+        for i in range(1, len(net.w)):
+            acc = prod(torch.zeros(128, 256), x, 256) if i in net.wskip \
+                else torch.zeros(128, 256)
+            h = _bf16(torch.relu(prod(acc, h, 256) + net.b[i]))
+        act = h
+        if last != "trunk":
+            acc = prod(torch.zeros(128, 128), h, 128)
+            if ped is not None:
+                acc = prod(acc, torch.cat([_copy_rows(ped, r0, n, 64)
+                                           for r0 in halves]), 128)
+            hv = _bf16(torch.relu(acc + view_bias(torch.arange(t0,
+                                                               t0 + 128))))
+            for v in range(1, len(net.wv)):
+                hv = _bf16(torch.relu(prod(torch.zeros(128, 128), hv, 128)
+                                      + net.bv[v]))
+            act = hv
+        if last == "heads":
+            ia = fr.swizzle_image_index(fr.HEADS, 256).reshape(-1)
+            ir = fr.swizzle_image_index(fr.HEADS, 128).reshape(-1)
+            wa = img[q][ia].reshape(fr.HEADS, 256).T
+            wr = img[q][ia.numel() + ir].reshape(fr.HEADS, 128).T
+            q += 1
+            raw = (h @ wa + hv @ wr + net.b_heads)[:, :4]
+            m = min(128, n - t0)
+            out[t0:t0 + m] = raw[:m]
+        else:
+            for wg, r0 in enumerate(halves):
+                _store_rows(act[64 * wg:64 * wg + 64], r0, n, out)
+    return out, q
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("name,stages", [("paper", (58, 60, 69)),
+                                         ("d2-skip", (10, 12, 17))])
+def test_ladder_streams_are_prefixes_of_k5s_stream(name, stages):
+    """v1's stream is the trunk's stages of K5's stream, v2's all of it
+    but the heads' stage, v0's the trunk's stages of the stream of the net
+    without its skip pe-part (58, 60 and 69 for the paper model); each
+    ends where the next part of K5's stream begins."""
+    net = _packed(name, seed=3)
+    k5, order = fr.chain_weight_stream(net, dir_stage=True)
+    skipless, order0 = fr.chain_weight_stream(kd.ladder_net(net, 0),
+                                              dir_stage=True)
+    assert kd.ladder_net(net, 0).wskip == {} and net.wskip
+    for stage, want in enumerate(stages):
+        stream, n = kd.ladder_stream(net, stage)
+        assert n == want
+        full, names = (skipless, order0) if stage == 0 else (k5, order)
+        assert torch.equal(stream, full[:n * fr.STAGE_ELEMS])
+        assert names[n][0] == ("wv0" if stage < 2 else "heads")
+        assert all(nm.startswith("w") for nm, _ in names[:n])
+        assert any(nm.startswith("wskip") for nm, _ in names[:n]) == (
+            stage > 0)
+    assert len(order) == stages[2] + 1
+
+
+@pytest.mark.parametrize("name", list(NETS))
+@pytest.mark.parametrize("stage", [0, 1, 2])
+def test_ladder_emulation_matches_ladder_reference(name, stage):
+    """The chain over each rung's stream, stopped at the rung, on 100
+    points (the second warpgroup's tile part-filled), its last activation
+    copied out through the swizzled tile: every stage consumed once, and
+    within 3e-2 of ladder_reference's max abs, correlation > 0.999."""
+    net = _packed(name, seed=4)
+    rng = np.random.RandomState(stage)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (100, 3)).astype(np.float32))
+    dirs = torch.from_numpy(rng.randn(100, 3).astype(np.float32))
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    pe, ped = (x.to(torch.bfloat16) for x in fm.encode_points(net, pts,
+                                                              dirs))
+    stream, n_stages = kd.ladder_stream(net, stage)
+    got, q = _emulate_chain(
+        stream, kd.ladder_net(net, stage), pe, ped if stage == 2 else None,
+        lambda rows: net.bv[0], ("trunk", "trunk", "view")[stage])
+    assert q == n_stages
+    want = kd.ladder_reference(net, pe, ped, stage)
+    assert got.shape == want.shape == (100, 256 if stage < 2 else 128)
+    _rel_close(got.numpy(), want.float().numpy())
+    assert torch.equal(kd.ladder(net, pe, ped, stage), want)
+
+
+def _view_terms(ped, wv0d, bv0):
+    """render_body.cuh view_terms: pv = ped @ wv0d + bv0, the sum over the
+    dir-PE lanes in order, one f32 rounding a step."""
+    a = torch.zeros(ped.shape[0], wv0d.shape[1])
+    for k in range(ped.shape[1]):
+        a = a + ped[:, k:k + 1].float() * wv0d[k].float()
+    return a + bv0
+
+
+@pytest.mark.parametrize("S", [8, 16])
+@pytest.mark.parametrize("R", [77, 130])
+def test_probe_a_tile_source_matches_plain(S, R):
+    """Probe A over K1's plan (64 rays a block at S 8 and 16; the last
+    block ragged): each block's pv in view_terms' order (within 1e-5 of
+    ped @ wv0d + bv0), tiles filled from the block's PE rows by
+    copy_rows, view layer 0's bias the row's ray's pv (clamped to the
+    block's last ray), the heads' raw rows, against
+    render_probe_a_reference: 3e-2 absolute and correlation > 0.999 per
+    lane."""
+    net = _packed("paper", seed=6)
+    rng = np.random.RandomState(R + S)
+    o = torch.from_numpy(rng.rand(R, 3).astype(np.float32))
+    d = torch.from_numpy(rng.randn(R, 3).astype(np.float32))
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    z = torch.linspace(0.58, 1.18, S)[None].expand(R, S).contiguous()
+    pe, ped = kd.encode_rays(net, o, d, z)
+    rb, _ = kd._render_probe_plan(_Lib(), S, "a")
+    stream, order = fr.chain_weight_stream(net)
+    parts, mats = [], {}
+    for ray0 in range(0, R, rb):
+        nr = min(rb, R - ray0)
+        pv = _view_terms(ped[ray0:ray0 + nr], net.wv0d, net.bv[0])
+        np.testing.assert_allclose(
+            pv.numpy(), (ped[ray0:ray0 + nr].float() @ net.wv0d.float()
+                         + net.bv[0]).numpy(), atol=1e-5)
+        raw, q = _emulate_chain(
+            stream, net, pe[ray0 * S:(ray0 + nr) * S], None,
+            lambda rows: pv[torch.clamp(rows // S, max=nr - 1)], "heads",
+            mats)
+        assert q == len(order)
+        parts.append(raw)
+    got = torch.cat(parts).reshape(R, S * 4)
+    want = kd.render_probe_a_reference(net, pe, ped, S)
+    for c in range(4):
+        g, w = got.reshape(-1, 4)[:, c], want.reshape(-1, 4)[:, c]
+        assert float((g - w).abs().max()) <= ATOL
+        assert np.corrcoef(g.numpy(), w.numpy())[0, 1] > MIN_CORR
+    assert torch.equal(kd.render_probe_a(net, pe, ped, S), want)
