@@ -156,8 +156,16 @@ non-zero and no result line is printed):
    ``library_ms`` is the torch.addmm yardstick on kdiag2's own encodings,
    the ladder's (rung v2) the same calls without the heads. The probes'
    entries in the ``kernels`` line name the body they run (``body``):
-   the bf16 chains at 128 rows per block, the int8 chain at 64, the f32
-   chain (V3) an entry of its own at 1M rows.
+   the bf16 chains at 128 rows per block, the f32 chain (V3, FFMAs on a
+   ring of f32 K-slabs, 128 rows per block, its one plan) an entry of its
+   own at 1M rows and the int8 chain (I0 on s8 wgmma) at 1M rows and 64
+   rows per block; each entry's ``launches`` counts its wrapper's launches
+   at every plan and size of the run. The f32 and int8 chains' ptxas
+   lines (a spill fails) and SASS are checked: the int8 chain holds IGMMA
+   (s8 wgmma) and no IMMA, the f32 chain FFMA and no HMMA or HGMMA; no
+   kernel of the build may have its wgmma serialized by ptxas (warning
+   C7511), and probe B's warpgroup synchronisations are counted; each
+   plan of the two is held against ``kdiag.chain_plan``.
 12. the head + torso composite. 12a: a seeded torso field at full width
    (D=8, W=256, dim_aud 32 + 42, no expr or latent) through K2 and K1 at
    ``--rays`` and on a whole 450x450 frame cast from the first frame's
@@ -388,11 +396,11 @@ KERNELS = {
         "replaces": "scripts/kdiag4.py:90",
     },
     "kdiag4_chain_f32": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag_dtype.cu",
         "replaces": "scripts/kdiag4.py:90",
     },
     "kdiag5_chain": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/kdiag_dtype.cu",
         "replaces": "scripts/kdiag5.py:114",
     },
 }
@@ -679,19 +687,10 @@ def _point_library_ms(packed, pe, ped, chunk: int = 1 << 22,
 def _hgmma_counts(so_path: str, names, op: str = "HGMMA") -> dict:
     """``op`` instructions (wgmma's HGMMA by default; HMMA for wmma and
     mma.sync) in the SASS of each kernel whose mangled name holds one of
-    ``names`` (``cuobjdump -sass`` of the built library)."""
-    from idealnerf_tpu_torch.kernels import build as kbuild
+    ``names`` (``scripts.harness.sass_counts``)."""
+    from idealnerf_tpu_torch.scripts.harness import sass_counts
 
-    tool = os.path.join(os.path.dirname(kbuild._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", so_path], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    counts, fn = dict.fromkeys(names, 0), None
-    for ln in sass.splitlines():
-        if "Function :" in ln:
-            fn = next((n for n in names if n in ln), None)
-        elif fn and any(t.split(".")[0] == op for t in ln.split()):
-            counts[fn] += 1
-    return counts
+    return sass_counts(so_path, names, (op,))[op]
 
 
 def _phase_frame(fr, nets, fc, ff, ncfg, near, far, n_s, n_i, sizes,
@@ -1650,10 +1649,11 @@ def _phase_k5(fm, fr, model, folded, ncfg, pts, dirs) -> dict:
 def _check_probes(kd, fm, fr, probe, pts, dirs) -> dict:
     """Phase 11b: every probe kernel against its plain version at a ragged
     1,001 rows (a part-filled last tile): the bf16 chain in every mode at
-    both plans and depth 2, 8 and 16, the f32 chain, the int8 chains at
-    depth 2 and 8, the ladder's rungs v0-v2, and the render probes at S 64
-    and 192 -> max error by kernel entry (the chains' relative to their
-    plain output's max abs)."""
+    both plans and depth 2, 8 and 16, the f32 chain (128 rows per block),
+    the int8 chains (i0, i1) at both plans and depth 2 and 8, the
+    ladder's rungs v0-v2, and the render probes at S 64 and 192 -> max
+    error by kernel entry (the chains' relative to their plain output's
+    max abs)."""
     import torch
 
     from idealnerf_tpu_torch import scripts as sc
@@ -1675,7 +1675,7 @@ def _check_probes(kd, fm, fr, probe, pts, dirs) -> dict:
     rows = 1001
     # the bf16 chain (wgmma) at depth 2, 8 and 16; the f32 one at kdiag4's 8
     for dtype, rpbs, depths in ((torch.bfloat16, (64, 128), (2, 8, 16)),
-                                (torch.float32, (64,), (8,))):
+                                (torch.float32, (128,), (8,))):
         check = sc.chain_check(dtype)
         for depth in depths:
             x, ws = sc.chain_inputs(rows, dtype, dev, seed=11, depth=depth)
@@ -1701,7 +1701,7 @@ def _check_probes(kd, fm, fr, probe, pts, dirs) -> dict:
                                            torch.bfloat16)))
     for depth in (2, 8):
         x, ws = sc.chain_inputs(rows, torch.int8, dev, seed=13, depth=depth)
-        for mode in ("i0", "i1"):
+        for mode in kd.CHAIN_MODES[torch.int8]:
             want = kd.chain_reference(x, ws, mode)
             for rpb in (64, 128):
                 sc.same(f"chain int8 {mode} r{rpb} rows {rows} depth {depth}",
@@ -1762,29 +1762,61 @@ def _worst(results: dict, labels=None) -> float:
 # ladder's two and probes A and B (mangled-name stems after _ZN2fr)
 CHAIN_PROBES = ("2kd10k_chain_wg", "2kd12k_mlp_ladder",
                 "2kd16k_render_probe_a", "2kd16k_render_probe_b")
+# the f32 chain (FFMA ring) and the int8 chain (s8 wgmma, 2 modes x 2
+# plans)
+DTYPE_CHAINS = ("2kd16k_chain_f32_ring", "2kd13k_chain_i8_wg")
 
 
 def _probe_builds(kd, fm, fr, ptxas, so_path, big: int) -> None:
-    """Phase 11a': the wgmma probes' ptxas lines (a spill fails) and HGMMA
-    counts (none fails), the bf16 chain's and the ladder's (K5's) plans at
-    ``big`` rows and probes A's and B's beside K1's at 64 and 192
-    depths."""
+    """Phase 11a': the wgmma probes' and the f32 and int8 chains' ptxas
+    lines (a spill fails; a wgmma serialized by ptxas, C7511, anywhere in
+    the build fails), HGMMA counts (none fails), the int8 chain's IGMMA
+    and IMMA and the f32 chain's FFMA, HMMA and HGMMA (the int8 chain on
+    s8 wgmma, the f32 one on FFMAs alone), probe B's warpgroup
+    synchronisations, the chains' plans at ``big`` rows (the f32 and int8
+    ones against ``kdiag.chain_plan``), the ladder's (K5's) and probes
+    A's and B's beside K1's at 64 and 192 depths."""
+    import torch
+
+    from idealnerf_tpu_torch.scripts.harness import sass_counts
+
+    serialized = [ln for ln in ptxas if "C7511" in ln]
+    if serialized:
+        raise AssertionError(f"ptxas serialized wgmma: {serialized}")
     for i, ln in enumerate(ptxas):
         if any(f"Function properties for _ZN2fr{k}" in ln
-               for k in CHAIN_PROBES):
+               for k in CHAIN_PROBES + DTYPE_CHAINS):
             print("  ptxas: " + " | ".join(ptxas[i:i + 3]))
             if not any("0 bytes spill stores, 0 bytes spill loads" in x
                        for x in ptxas[i + 1:i + 3]):
-                raise AssertionError(f"a wgmma probe spills: {ln}")
-    hgmma = _hgmma_counts(so_path, tuple(k[k.index("k_"):]
-                                         for k in CHAIN_PROBES))
+                raise AssertionError(f"a probe spills: {ln}")
+    names = tuple(k[k.index("k_"):] for k in CHAIN_PROBES + DTYPE_CHAINS)
+    ops = sass_counts(so_path, names, ("HGMMA", "IGMMA", "IMMA", "HMMA",
+                                       "FFMA", "WARPGROUP"))
+    hgmma = {k: ops["HGMMA"][k] for k in names[:len(CHAIN_PROBES)]}
     print(f"  HGMMA instructions in the probes' SASS (summed over the "
-          f"chain's instantiations): {hgmma}")
+          f"chain's instantiations): {hgmma}; probe B's WARPGROUP "
+          f"synchronisations {ops['WARPGROUP']['k_render_probe_b']}")
     if not all(n > 0 for n in hgmma.values()):
         raise AssertionError(f"a wgmma probe has no HGMMA: {hgmma}")
-    for rpb in (128, 64):
-        print(f"  chain r{rpb} at {big} rows: "
-              f"{kd.chain_launch_config(big, rpb)}")
+    f32, i8 = (k[k.index("k_"):] for k in DTYPE_CHAINS)
+    print(f"  {i8}: {ops['IGMMA'][i8]} IGMMA (s8 wgmma), {ops['IMMA'][i8]} "
+          f"IMMA; {f32}: {ops['FFMA'][f32]} FFMA, {ops['HMMA'][f32]} HMMA, "
+          f"{ops['HGMMA'][f32]} HGMMA")
+    if not (ops["IGMMA"][i8] > 0 == ops["IMMA"][i8] + ops["HMMA"][i8]):
+        raise AssertionError(f"the int8 chain is not on s8 wgmma: {ops}")
+    if not (ops["FFMA"][f32] > 0 == ops["HMMA"][f32] + ops["HGMMA"][f32]):
+        raise AssertionError(f"the f32 chain runs a tensor-core product: "
+                             f"{ops}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        for rpb in kd.CHAIN_PLANS[dtype]:
+            plan = kd.chain_launch_config(big, rpb, dtype)
+            print(f"  chain {str(dtype)[6:]} r{rpb} at {big} rows: {plan}")
+            if dtype != torch.bfloat16 and plan != kd.chain_plan(
+                    big, rpb, dtype, sms):
+                raise AssertionError(f"the {dtype} chain's plan is not "
+                                     f"kdiag.chain_plan's: {plan}")
     print(f"  ladder (K5's plan) at {big} points: "
           f"{fm.point_launch_config(big)}")
     for S in (64, 192):
@@ -1836,11 +1868,13 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
         torch.cuda.empty_cache()
 
     # the entries' times: the bf16 chains' real pattern at r128 (the plan
-    # whose two warpgroups share each weight stage), int8 at r64, the
-    # ladder's own last rung, K5 as rung v3, the render probes at the fine
-    # pass's 192 depths; each beside its plain version's time from the
-    # same run
+    # whose two warpgroups share each weight stage), f32 (V3) at its one
+    # plan (128) and int8 (I0) at 64, the faster of its two in kprobe's
+    # turns, the ladder's own last rung, K5 as rung v3, the render probes
+    # at the fine pass's 192 depths; each beside its plain version's time
+    # from the same run
     mid, S = slope[0], 192
+    v3, i0 = "V3 r128", "I0 r64"
     pt, ray = _mlp_macs(pcfg)
     # K5's and the ladder's yardsticks on kdiag2's own encodings
     pe, ped = kdiag2.inputs(net, big, dev)[:2]
@@ -1873,19 +1907,23 @@ def _phase_kdiag(fm, fr, pts, dirs, rays: int, big: int = 1 << 21,
             max(errs["kdiag4_chain"], _worst(runs["kdiag4"], v4_bf16)),
             runs["kdiag4"]["VX"]["ms"], chain_body),
         "kdiag4_chain_f32": entry(
-            runs["kdiag4"]["V3 r64"]["rows"][str(mid)],
+            runs["kdiag4"][v3]["rows"][str(mid)],
             launches["kdiag4"]["kdiag_chain_f32"],
             _chain_bound(mid, "f32", 4, 4),
-            max(errs["kdiag4_chain_f32"], _worst(runs["kdiag4"], ("V3 r64",))),
+            max(errs["kdiag4_chain_f32"],
+                _worst(runs["kdiag4"], (v3,))),
             runs["kdiag4"]["V3X"]["ms"],
-            "CUDA cores (kdiag.cu k_chain_f32, f32 FFMAs)"),
+            f"FFMA ring ({v3}: kdiag_dtype.cu k_chain_f32_ring on "
+            "csrc/fring.cuh, K6 f32's product)"),
         "kdiag5_chain": entry(
-            runs["kdiag5"]["I0 r64"]["rows"][str(mid)],
+            runs["kdiag5"][i0]["rows"][str(mid)],
             launches["kdiag5"]["kdiag_chain_int8"]
             + launches["kdiag5"]["kdiag_chain_bf16"],
             _chain_bound(mid, "int8", 1, 4),
             max(errs["kdiag5_chain"], _worst(runs["kdiag5"])),
-            runs["kdiag5"]["IX"]["ms"], "wmma (int8); B0 " + chain_body),
+            runs["kdiag5"]["IX"]["ms"],
+            f"s8 wgmma ({i0}: kdiag_dtype.cu k_chain_i8_wg); B0 "
+            + chain_body),
         "kdiag2_ladder": entry(
             runs["kdiag2"]["v2"], launches["kdiag2"]["kdiag_ladder"],
             _bound(2.0 * big * kd.ladder_macs(net, 2),
@@ -3840,7 +3878,7 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln
-             or "Function properties" in ln]
+             or "Function properties" in ln or "C7511" in ln]
     report.update(build_seconds=build_s, ptxas=ptxas)
     print(f"phase 1 device: {kind} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | nvidia-smi: {smi} | kernels built in "

@@ -151,7 +151,7 @@ def load_library() -> ctypes.CDLL:
     for fn in (lib.kd_render_a_smem_bytes, lib.kd_render_b_smem_bytes):
         fn.argtypes = [i32, i32, i32]
         fn.restype = ctypes.c_ulonglong
-    lib.kd_chain_config.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.kd_chain_config.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
     lib.kd_chain_config.restype = i32
     i64 = ctypes.c_longlong
     # the gradient kernels' two passes, bf16 and f32 (the same arguments)

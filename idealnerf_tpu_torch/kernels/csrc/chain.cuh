@@ -309,27 +309,29 @@ __device__ __forceinline__ void chain_tile(const Net& net, const Src& src,
 }
 
 // The block's place in dynamic shared memory: the ring at a 1,024-byte
-// aligned base (shared address and generic pointer), the two warpgroups'
-// tiles after it, then the mbarriers.
+// aligned base (shared address and generic pointer), the consumers' tiles
+// after it, then the mbarriers.
 struct Chain {
   uint32_t base, bars;
   char* gbase;
   int n_ring;
 };
 
-// Lays out the ring, two warpgroups' tiles of tile_bytes each and the
-// mbarriers, and initialises the ring's mbarriers; every thread calls it,
-// and it ends with __syncthreads.
-__device__ __forceinline__ Chain chain_begin(char* smem_raw, int n_ring,
-                                             int tile_bytes) {
+// Lays out the ring, n_tiles tiles of tile_bytes each (two warpgroups'
+// by default) and the mbarriers, and initialises the ring's mbarriers, a
+// stage released once by each of consumer_warps warps; every thread calls
+// it, and it ends with __syncthreads.
+__device__ __forceinline__ Chain chain_begin(
+    char* smem_raw, int n_ring, int tile_bytes, int n_tiles = 2,
+    int consumer_warps = CONSUMER_WARPS) {
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
-  const Chain c{base, base + n_ring * STAGE_BYTES + 2 * tile_bytes,
+  const Chain c{base, base + n_ring * STAGE_BYTES + n_tiles * tile_bytes,
                 smem_raw + (base - raw), n_ring};
   if (threadIdx.x == 0) {
     for (int s = 0; s < n_ring; ++s) {
       mbar_init(c.bars + 8 * s, 1);
-      mbar_init(c.bars + 8 * (MAX_RING + s), CONSUMER_WARPS);
+      mbar_init(c.bars + 8 * (MAX_RING + s), consumer_warps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -337,13 +339,15 @@ __device__ __forceinline__ Chain chain_begin(char* smem_raw, int n_ring,
   return c;
 }
 
-// The producer warp's part: its one thread streams the n_stages weight
-// stages once per tile, n_tiles times, through the ring, each stage's copy
+// The producer warp's part: its one thread (`thread`, the first after two
+// consumer warpgroups by default) streams the n_stages weight stages of
+// 16 KB once per tile, n_tiles times, through the ring, each stage's copy
 // waiting for the consumers to release the slot it refills.
 __device__ __forceinline__ void chain_produce(const Chain& c,
                                               const bf16* __restrict__ wstream,
-                                              int n_stages, int n_tiles) {
-  if (threadIdx.x == 256) {
+                                              int n_stages, int n_tiles,
+                                              int thread = 256) {
+  if (threadIdx.x == thread) {
     const uint32_t n = static_cast<uint32_t>(c.n_ring);
     const uint32_t total = static_cast<uint32_t>(n_tiles) * n_stages;
     for (uint32_t q = 0; q < total; ++q) {

@@ -81,9 +81,10 @@
 //   64 x 256 f32), PE and dir-PE in shared memory; each thread holds an
 //   8 x 8 register block (warp w rows 8w..8w+7, lane l columns 4l..4l+3
 //   and 128+4l..128+4l+3) and runs 64 FFMAs per k on broadcast float4
-//   loads of A and conflict-free float4 loads of B. relu' bits stay in
-//   shared memory (64 per thread and layer); each epilogue writes its
-//   tile to the planes by streaming stores (st.global.cs) and, in the
+//   loads of A and conflict-free float4 loads of B (fring.cuh: the ring
+//   and the product, shared with kdiag_dtype.cu's f32 chain). relu' bits
+//   stay in shared memory (64 per thread and layer); each epilogue writes
+//   its tile to the planes by streaming stores (st.global.cs) and, in the
 //   backward, the tile's bias column sums (rows in order, then warps in
 //   order) to a per-tile row.
 // - k_grad_pass_b_f32: every weight gradient as X^T @ D over the points.
@@ -93,6 +94,7 @@
 //   in order, one partial per chunk.
 // - k_bias_partials and k_reduce_slabs, as for bf16.
 #include "chain.cuh"
+#include "fring.cuh"
 
 namespace fr {
 
@@ -757,7 +759,6 @@ static int finish(const float* bias, int NB, int n_tiles, int n_chunks,
 
 constexpr int F_CONSUMERS = 256;               // 8 consumer warps
 constexpr int F_THREADS = F_CONSUMERS + 32;    // + the producer warp
-constexpr int F_STAGE = STAGE_BYTES / 4;       // floats per weight stage
 constexpr int F_KW = F_STAGE / W, F_KV = F_STAGE / WV;  // K-rows a stage
 constexpr int F_BAR = 1;                       // the consumers' barrier
 // activation tile, PE, dir-PE and the column sums' scratch (8 warps x W)
@@ -791,73 +792,6 @@ inline int f32_stages(const unsigned long long* slots, int depth,
     n += W / F_KW + (slots[SLOT_WSKIP + i] ? PE_PAD / F_KW : 0);
   n += W / F_KV + PED_PAD / F_KV + (n_views - 1) * (WV / F_KV);
   return n + (n_views - 1) * (WV / F_KV) + WV / F_KW + (depth - 1) * (W / F_KW);
-}
-
-// A consumer's view of the weight ring: `it` counts the stages taken.
-struct FRing {
-  const char* stages;  // generic address of stage 0
-  uint32_t bars, n, it;
-};
-
-__device__ __forceinline__ const float* fring_take(const FRing& r) {
-  const uint32_t s = r.it % r.n;
-  mbar_wait(r.bars + 8 * s, (r.it / r.n) & 1);
-  return reinterpret_cast<const float*>(r.stages + s * STAGE_BYTES);
-}
-// After the warp's last read of the stage taken: one arrival per warp.
-__device__ __forceinline__ void fring_release(FRing& r) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0)
-    mbar_arrive(r.bars + 8 * (MAX_RING + r.it % r.n));
-  ++r.it;
-}
-
-__device__ __forceinline__ float lane4(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
-// acc[i][4 c + q] += sum over k < K of A[8 w + i][k] * B[k][128 c + 4 l + q]
-// for the thread's 8 rows (warp w) and 4 NC columns (lane l). A: a
-// row-major f32 tile in shared memory (lda floats); B: the next K rows of
-// the weight stream, stages of F_STAGE / (128 NC) rows of 128 NC floats.
-// k ascending, one FFMA each; A by float4 loads along k that the warp
-// broadcasts, B by float4 loads of consecutive columns (no bank conflict).
-template <int NC>
-__device__ __forceinline__ void fprod(float (&acc)[8][8], FRing& r,
-                                      const float* A, int lda, int K, int w,
-                                      int l) {
-  constexpr int WIDTH = 128 * NC, KS = F_STAGE / WIDTH;
-  const float* rows = A + 8 * w * lda;
-  for (int k0 = 0; k0 < K; k0 += KS) {
-    const float* B = fring_take(r) + 4 * l;
-#pragma unroll 2
-    for (int k4 = 0; k4 < KS; k4 += 4) {
-      float4 a[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        a[i] = *reinterpret_cast<const float4*>(rows + i * lda + k0 + k4);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float4 b[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          b[c] = *reinterpret_cast<const float4*>(B + (k4 + q) * WIDTH +
-                                                  128 * c);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float x = lane4(a[i], q);
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            acc[i][4 * c] = fmaf(x, b[c].x, acc[i][4 * c]);
-            acc[i][4 * c + 1] = fmaf(x, b[c].y, acc[i][4 * c + 1]);
-            acc[i][4 * c + 2] = fmaf(x, b[c].z, acc[i][4 * c + 2]);
-            acc[i][4 * c + 3] = fmaf(x, b[c].w, acc[i][4 * c + 3]);
-          }
-        }
-      }
-    }
-    fring_release(r);
-  }
 }
 
 // The forward's epilogue of a layer of 128 NC columns: h = relu(acc +

@@ -12,9 +12,8 @@
 //                the two warpgroups skewed (relu2), and products only
 //                (sum: every layer into one accumulator, the port's own
 //                bisection of the epilogue from the products);
-//              - f32 on the CUDA cores (k_chain_f32, relu);
-//              - int8 with s32 accumulation on wmma (k_chain_i8: relu + f32
-//                scale + round/clip, or relu + shift).
+//              - f32 on FFMAs and int8 on wgmma: kdiag_dtype.cu, a
+//                translation unit of its own, which kd_chain launches.
 // kd_ladder    replaces scripts/kdiag2.py (:114, rungs v0-v2) and
 // kd_render_a  replaces scripts/kdiag3.py (kernel_A, :269): in kdiag_pe.cu,
 //              a translation unit of their own.
@@ -63,67 +62,25 @@
 // TB/s (15.5 at 64 rows); `sum` against the other modes shows whether the
 // stream or the epilogues bound the chain (PERF.md: neither; the
 // chain draws the card's power limit).
-#include <mma.h>
-
 #include "chain.cuh"
+#include "kdiag.cuh"
 
 namespace fr {
 namespace kd {
-
-using namespace nvcuda;
-
-enum Mode {
-  M_CAST = 0,       // bf16(acc)                        kdiag k_plain, kdiag4 V2
-  M_RELU = 1,       // bf16(max(acc, 0))                kdiag4 V0, kdiag5 B0
-  M_BIAS_RELU = 2,  // bf16(max(acc + b, 0))            kdiag k_relu, kdiag4 V6
-  M_SELECT = 3,     // bf16(acc > 0 ? acc : 0)          kdiag4 V5
-  M_CAST_MAX = 4,   // max(bf16(acc), 0) in bf16        kdiag4 V7
-  M_RELU2 = 5,      // M_BIAS_RELU, warpgroups skewed   kdiag k_relu2
-  M_I0 = 6,         // int8(clip(f32(max(acc, 0)) * s + 0.5, 0, 127))  kdiag5 I0
-  M_I1 = 7,         // int8(min(max(acc, 0) >> 6, 127))                kdiag5 I1
-  M_SUM = 8,        // bf16(sum_l x @ w_l): one accumulator, no epilogue or
-                    // barrier between layers; the products' own ceiling
-};
 
 // ------------------------------------------------- bf16: the wgmma chain
 
 constexpr int SKEW_BAR = 3;  // relu2's named barrier (1 and 2: the tiles')
 
-// The plan of `nwg` consumer warpgroups: ring stages, blocks per SM.
-__host__ __device__ constexpr int wg_ring(int nwg) {
-  return nwg == 2 ? MAX_RING : 4;
-}
-__host__ __device__ constexpr int wg_blocks_per_sm(int nwg) {
-  return nwg == 2 ? 1 : 2;
-}
-// 1,024 bytes to align the base, the ring, the warpgroups' activation
-// tiles, the mbarriers.
-__host__ __device__ constexpr size_t wg_smem(int nwg) {
-  return 1024 + static_cast<size_t>(wg_ring(nwg)) * STAGE_BYTES +
-         static_cast<size_t>(nwg) * H_TILE + 128;
-}
-
 __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
-// shared-memory stores and loads by 32-bit shared address
+// a bf16 pair's shared-memory store by 32-bit shared address (16-byte
+// ones: kdiag.cuh)
 __device__ __forceinline__ void st_shared(uint32_t a, __nv_bfloat162 v) {
   asm volatile("st.shared.b32 [%0], %1;" ::"r"(a),
                "r"(*reinterpret_cast<uint32_t*>(&v))
                : "memory");
-}
-__device__ __forceinline__ void st_shared(uint32_t a, uint4 v) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(a),
-               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
-__device__ __forceinline__ uint4 ld_shared(uint32_t a) {
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(a)
-               : "memory");
-  return v;
 }
 
 // One pair of adjacent columns through the mode's epilogue (b: their bias).
@@ -277,6 +234,9 @@ __device__ __forceinline__ void chain_wg_walk(
 
 // The bf16 chain of NWG consumer warpgroups (64 NWG rows a tile) and one
 // producer warp; the block walks tiles [blockIdx.x tiles_per_block, ...).
+// Its own mbarrier init and producer loop, not kdiag.cuh wg_chain_begin
+// (the int8 chain's): through wg_chain_begin this kernel kept its ptxas
+// lines but ran 4-11 % slower at 128 rows in one A/B (PERF.md).
 template <int MODE, int NWG>
 __global__ void __launch_bounds__(128 * NWG + 32, NWG == 1 ? 2 : 1)
 k_chain_wg(const bf16* __restrict__ x, const bf16* __restrict__ wstream,
@@ -324,30 +284,11 @@ k_chain_wg(const bf16* __restrict__ x, const bf16* __restrict__ wstream,
   }
 }
 
-// The bf16 chain's launch plan on `sms` SMs: (tiles per block, blocks),
-// the tiles of 64 NWG rows split evenly over at most one wave of blocks.
-inline void wg_plan(int rows, int nwg, int sms, int* per_block,
-                    int* blocks) {
-  const int tiles = (rows + 64 * nwg - 1) / (64 * nwg);
-  const int slots = sms * wg_blocks_per_sm(nwg);
-  *per_block = (tiles + slots - 1) / slots;
-  *blocks = (tiles + *per_block - 1) / *per_block;
-}
-
-inline int current_sms() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return sms;
-}
-
 template <int MODE, int NWG>
 cudaError_t launch_chain_wg(const void* x, const void* wstream,
                             const float* bias, void* out, int out_f32,
                             int rows, int depth, cudaStream_t st) {
-  const size_t bytes = wg_smem(NWG);
+  const size_t bytes = wg_smem(NWG, H_TILE);
   cudaError_t err = prepare(k_chain_wg<MODE, NWG>, bytes);
   if (err != cudaSuccess) return err;
   const int sms = current_sms();
@@ -389,198 +330,6 @@ cudaError_t launch_bf16(int mode, const void* x, const void* wstream,
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-// ----------------------------------------------------------- int8: wmma
-
-constexpr int CT = W / 16;  // column tiles of a 256-wide layer
-
-// The int8 requant, each step rounded as the plain version rounds it (no
-// FMA contraction): relu in the integer domain, then I0's f32 scale, +0.5,
-// clip to [0, 127] and truncation, or I1's arithmetic shift.
-template <int MODE>
-__device__ __forceinline__ signed char requant(int a, float scale) {
-  a = max(a, 0);
-  if constexpr (MODE == M_I1) {
-    return static_cast<signed char>(min(a >> 6, 127));
-  } else {
-    const float q = __fadd_rn(__fmul_rn(__int2float_rn(a), scale), 0.5f);
-    return static_cast<signed char>(
-        static_cast<int>(fminf(fmaxf(q, 0.f), 127.f)));
-  }
-}
-
-__device__ __forceinline__ float to_float(signed char v) {
-  return static_cast<float>(v);
-}
-__device__ __forceinline__ float to_float(float v) { return v; }
-
-template <int ROWS>
-constexpr size_t i8_smem() {
-  return 2 * ROWS * W + sizeof(int) * NWARP * 256;
-}
-
-// The rows [0, n) of a shared tile to global memory, widened to f32.
-template <typename T>
-__device__ __forceinline__ void store_rows(float* dst, const T* src,
-                                           int width, int n, int tid) {
-  float4* d = reinterpret_cast<float4*>(dst);
-  for (int e = tid; e < n * width / 4; e += NTHREADS) {
-    const T* v = src + 4 * e;
-    d[e] = make_float4(to_float(v[0]), to_float(v[1]), to_float(v[2]),
-                       to_float(v[3]));
-  }
-}
-
-// One tile of ROWS int8 rows through `depth` layers, out as f32: warp w
-// owns column tiles {w, w + 8} over all row tiles, so each weight fragment
-// is read once per tile; activations ping-pong between two shared buffers;
-// each accumulator fragment goes through a per-warp s32 scratch for the
-// requant.
-template <int MODE, int ROWS>
-__global__ void __launch_bounds__(NTHREADS, ROWS == 64 ? 2 : 1)
-k_chain_i8(const signed char* __restrict__ x,
-           const signed char* __restrict__ w, float* __restrict__ out,
-           int rows, int depth) {
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                         wmma::row_major>
-      A;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                         wmma::row_major>
-      B;
-  typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> C;
-  constexpr int RTG = ROWS / 16;  // row tiles
-  constexpr int NC = CT / NWARP;  // column tiles per warp
-  extern __shared__ __align__(128) char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  signed char* h = reinterpret_cast<signed char*>(smem);
-  signed char* hn = h + ROWS * W;
-  int* scr = reinterpret_cast<int*>(hn + ROWS * W) + warp * 256;
-  const int r0 = blockIdx.x * ROWS;
-  const int n = min(ROWS, rows - r0);
-
-  load_rows(h, x + static_cast<size_t>(r0) * W, ROWS, W, n, tid);
-  __syncthreads();
-  C acc[NC][RTG];
-  for (int li = 0; li < depth; ++li) {
-    const signed char* wt = w + static_cast<size_t>(li) * W * W;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int r = 0; r < RTG; ++r) wmma::fill_fragment(acc[c][r], 0);
-    for (int k = 0; k < W; k += 16) {
-      A a[RTG];
-#pragma unroll
-      for (int r = 0; r < RTG; ++r)
-        wmma::load_matrix_sync(a[r], h + r * 16 * W + k, W);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        B b;
-        wmma::load_matrix_sync(
-            b, wt + static_cast<size_t>(k) * W + (warp + c * NWARP) * 16, W);
-#pragma unroll
-        for (int r = 0; r < RTG; ++r)
-          wmma::mma_sync(acc[c][r], a[r], b, acc[c][r]);
-      }
-    }
-    const float scale = static_cast<float>(0.25 / (li + 2.0));
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-#pragma unroll
-      for (int r = 0; r < RTG; ++r) {
-        wmma::store_matrix_sync(scr, acc[c][r], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int row = r * 16 + (e >> 4);
-          const int col = (warp + c * NWARP) * 16 + (e & 15);
-          hn[row * W + col] = requant<MODE>(scr[e], scale);
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    signed char* t = h;
-    h = hn;
-    hn = t;
-  }
-  store_rows(out + static_cast<size_t>(r0) * W, h, W, n, tid);
-}
-
-template <int MODE, int ROWS>
-cudaError_t launch_i8(const void* x, const void* w, void* out, int rows,
-                      int depth, cudaStream_t st) {
-  const size_t bytes = i8_smem<ROWS>();
-  cudaError_t err = prepare(k_chain_i8<MODE, ROWS>, bytes);
-  if (err != cudaSuccess) return err;
-  k_chain_i8<MODE, ROWS><<<(rows + ROWS - 1) / ROWS, NTHREADS, bytes, st>>>(
-      static_cast<const signed char*>(x), static_cast<const signed char*>(w),
-      static_cast<float*>(out), rows, depth);
-  return cudaGetLastError();
-}
-
-template <int MODE>
-cudaError_t launch_i8_rows(int rows_per_block, const void* x, const void* w,
-                           void* out, int rows, int depth, cudaStream_t st) {
-  if (rows_per_block == 64)
-    return launch_i8<MODE, 64>(x, w, out, rows, depth, st);
-  if (rows_per_block == 128)
-    return launch_i8<MODE, 128>(x, w, out, rows, depth, st);
-  return cudaErrorInvalidValue;
-}
-
-// ------------------------------------------------------------------- f32
-
-// The f32 chain (kdiag4 V3: no casts) on the CUDA cores: warp w owns rows
-// 8w..8w+7 of the 64-row tile and lane l columns 8l..8l+7, so the shared
-// activations are read as broadcasts and the weights as coalesced rows;
-// 8x8 f32 FMAs per thread per k, k ascending.
-constexpr int F32_ROWS = 64;
-
-__global__ void __launch_bounds__(NTHREADS, 1)
-k_chain_f32(const float* __restrict__ x, const float* __restrict__ w,
-            float* __restrict__ out, int rows, int depth) {
-  extern __shared__ __align__(128) char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* h = reinterpret_cast<float*>(smem);
-  float* hn = h + F32_ROWS * W;
-  const int r0 = blockIdx.x * F32_ROWS;
-  const int n = min(F32_ROWS, rows - r0);
-  const int i0 = warp * 8, j0 = lane * 8;
-
-  load_rows(h, x + static_cast<size_t>(r0) * W, F32_ROWS, W, n, tid);
-  __syncthreads();
-  for (int li = 0; li < depth; ++li) {
-    const float* wt = w + static_cast<size_t>(li) * W * W;
-    float c[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
-    for (int k = 0; k < W; ++k) {
-      const float4 b0 = *reinterpret_cast<const float4*>(wt + k * W + j0);
-      const float4 b1 = *reinterpret_cast<const float4*>(wt + k * W + j0 + 4);
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float a = h[(i0 + i) * W + k];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) c[i][j] = fmaf(a, b[j], c[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float4* d = reinterpret_cast<float4*>(hn + (i0 + i) * W + j0);
-      d[0] = make_float4(fmaxf(c[i][0], 0.f), fmaxf(c[i][1], 0.f),
-                         fmaxf(c[i][2], 0.f), fmaxf(c[i][3], 0.f));
-      d[1] = make_float4(fmaxf(c[i][4], 0.f), fmaxf(c[i][5], 0.f),
-                         fmaxf(c[i][6], 0.f), fmaxf(c[i][7], 0.f));
-    }
-    __syncthreads();
-    float* t = h;
-    h = hn;
-    hn = t;
-  }
-  store_rows(out + static_cast<size_t>(r0) * W, h, W, n, tid);
 }
 
 // ------------------------------------------------ probe B: K1's chain
@@ -650,10 +399,11 @@ k_render_probe_b(Net net, const bf16* __restrict__ wstream, int n_stages,
 
 extern "C" {
 
-// dtype: 0 bf16, 1 f32, 2 int8; mode: fr::kd::Mode. w: for bf16 the
-// weight stream of the depth layers (depth x 8 stages,
-// kernels/kdiag.py:chain_weight_stream), otherwise the (depth, 256, 256)
-// weights. Every (dtype, mode, rows_per_block) the kernels do not take
+// dtype: 0 bf16, 1 f32, 2 int8; mode: fr::kd::Mode. w: the weight stream
+// of the depth layers, for bf16 depth x 8 stages
+// (kernels/kdiag.py:chain_weight_stream), for int8 depth x 4
+// (chain_weight_stream_i8), for f32 the (depth, 256, 256) weights
+// themselves. Every (dtype, mode, rows_per_block) the kernels do not take
 // returns cudaErrorInvalidValue.
 int kd_chain(const void* x, const void* w, const float* bias, void* out,
              int out_f32, int rows, int depth, int dtype, int mode,
@@ -667,35 +417,26 @@ int kd_chain(const void* x, const void* w, const float* bias, void* out,
     else if (rows_per_block == 64)
       err = launch_bf16<1>(mode, x, w, bias, out, out_f32, rows, depth, st);
   } else if (dtype == 2 && out_f32) {
-    if (mode == M_I0)
-      err = launch_i8_rows<M_I0>(rows_per_block, x, w, out, rows, depth, st);
-    else if (mode == M_I1)
-      err = launch_i8_rows<M_I1>(rows_per_block, x, w, out, rows, depth, st);
-  } else if (dtype == 1 && mode == M_RELU && out_f32 &&
-             rows_per_block == F32_ROWS) {
-    const size_t bytes = 2 * sizeof(float) * F32_ROWS * fr::W;
-    err = fr::prepare(k_chain_f32, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    k_chain_f32<<<(rows + F32_ROWS - 1) / F32_ROWS, fr::NTHREADS, bytes,
-                  st>>>(static_cast<const float*>(x),
-                        static_cast<const float*>(w),
-                        static_cast<float*>(out), rows, depth);
-    err = cudaGetLastError();
+    err = chain_i8(mode, x, w, out, rows, depth, rows_per_block, st);
+  } else if (dtype == 1 && mode == M_RELU && out_f32) {
+    err = chain_f32(x, w, out, rows, depth, rows_per_block, st);
   }
   return static_cast<int>(err);
 }
 
-// The bf16 chain's launch at rows_per_block (64 or 128) on the current
-// card: plan = {tiles per block, blocks, ring stages, shared memory bytes,
-// threads per block}.
-int kd_chain_config(int rows, int rows_per_block, int* plan) {
+// The chain's launch of dtype (as kd_chain's) at rows_per_block (64 or
+// 128) on the current card: plan = {tiles per block, blocks, ring stages,
+// shared memory bytes, threads per block}.
+int kd_chain_config(int rows, int rows_per_block, int dtype, int* plan) {
   if (rows_per_block != 64 && rows_per_block != 128) return 1;
   const int nwg = rows_per_block / 64;
   const int sms = fr::kd::current_sms();
   if (sms < 1) return static_cast<int>(cudaErrorInvalidDevice);
+  if (dtype != 0)
+    return fr::kd::chain_dtype_config(rows, rows_per_block, dtype, sms, plan);
   fr::kd::wg_plan(rows, nwg, sms, &plan[0], &plan[1]);
   plan[2] = fr::kd::wg_ring(nwg);
-  plan[3] = static_cast<int>(fr::kd::wg_smem(nwg));
+  plan[3] = static_cast<int>(fr::kd::wg_smem(nwg, fr::H_TILE));
   plan[4] = 128 * nwg + 32;
   return 0;
 }

@@ -18,9 +18,14 @@ isolate a part of the production kernels' time:
   warpgroups that share each weight stage (one block per SM, a ring of 8
   stages), 64 a block of one consumer warpgroup on 64-row tiles (two
   blocks per SM, each streaming its own weights, a ring of 4); blocks walk
-  a run of tiles, at most one wave (``chain_launch_config``). f32 runs on
-  the CUDA cores (64 rows per block), int8 with s32 accumulation and two
-  requants on wmma (64 or 128 rows per block).
+  a run of tiles, at most one wave (``chain_launch_config``). f32
+  (``csrc/kdiag_dtype.cu``) runs on FFMAs: K6 f32's product on a ring of
+  f32 K-slabs, the weights ``ws`` themselves streamed 16 rows a stage,
+  128 rows a tile (16 x 8 outputs a thread, 384 threads); it takes 128
+  rows per block only. int8 (same file) runs on s8 wgmma with s32
+  accumulation and the requant from registers, on
+  ``chain_weight_stream_i8(ws)`` (cached per ``ws``) at the bf16 plans;
+  modes i0 and i1.
 - ``ladder``: the production trunk, then + skip, + view branch (rungs
   v0-v2): the encoded-input point MLP (K5) stopped after its trunk or its
   view branch, on K5's chain, launch plan and a prefix of its weight
@@ -48,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -76,14 +82,23 @@ _CHAIN_COUNT = {torch.bfloat16: "kdiag_chain_bf16",
                 torch.int8: "kdiag_chain_int8"}
 _BIAS_MODES = ("bias_relu", "relu2")
 
-# the bf16 chain's weight streams by weights (chain_weight_stream), at most
-# this many
+# the chains' weight streams by weights (chain_weight_stream,
+# chain_weight_stream_i8), at most this many
 _STREAM_CACHE: dict = {}
 _STREAM_CACHE_SIZE = 4
 
 launch_counts = {"kdiag_chain_bf16": 0, "kdiag_chain_f32": 0,
                  "kdiag_chain_int8": 0, "kdiag_ladder": 0,
                  "kdiag_render_a": 0, "kdiag_render_b": 0}
+
+# an int8 stage: 128 N-rows of W_l^T x 128 K-bytes (16 KB), 4 a layer
+I8_STAGE_ROWS = 128
+# the chains' plans by dtype: (ring stages, blocks per SM) at the rows per
+# block each takes (csrc/kdiag.cuh wg_ring, csrc/kdiag_dtype.cu); the
+# first is ``chain``'s default
+CHAIN_PLANS = {torch.bfloat16: {64: (4, 2), 128: (8, 1)},
+          torch.int8: {64: (4, 2), 128: (8, 1)},
+          torch.float32: {128: (4, 1)}}
 
 # rows of the ladder's rungs (kdiag2.py's names)
 LADDER = ("trunk only", "+skip", "+view", "+heads", "+in-kernel PE")
@@ -199,15 +214,58 @@ def chain_weight_stream(ws: torch.Tensor) -> torch.Tensor:
     return weight_stream(chain_stream_parts(ws))[0]
 
 
+def swizzle_image_index_i8(rows: int) -> torch.Tensor:
+    """(rows, 256) byte offsets of an int8 matrix of K-bytes along the
+    lanes in wgmma's 128-byte swizzled K-major image (csrc/kdiag_dtype.cu
+    swz8): 128-byte K blocks of rows * 128 bytes; in a block, groups of 8
+    rows (1,024 bytes), one 128-byte row each whose 16-byte chunks are
+    permuted by chunk ^ (row % 8). A stage is its first 128 rows and
+    bytes, an activation tile its 64 rows."""
+    p = torch.arange(rows)[:, None]
+    b = torch.arange(256)[None, :]
+    return ((b >> 7) * (rows * 128) + ((p >> 3) << 10) + ((p & 7) << 7)
+            + ((((b >> 4) & 7) ^ (p & 7)) << 4) + (b & 15))
+
+
+@functools.lru_cache(maxsize=None)
+def _i8_stream_gather(device: str) -> torch.Tensor:
+    """Byte e of a layer's 4 stages in ``chain_weight_stream_i8`` =
+    element gather[e] of its W_l^T (N, K) flattened: stage 2 h + kb holds
+    rows 128 h.. (N) and bytes 128 kb.. (K) in its image."""
+    n = I8_STAGE_ROWS
+    img = swizzle_image_index_i8(n)[:, :n].reshape(-1)
+    r = torch.arange(n).repeat_interleave(n)
+    b = torch.arange(n).repeat(n)
+    gather = torch.empty(4 * n * n, dtype=torch.long)
+    for q in range(4):
+        h, kb = q >> 1, q & 1
+        gather[q * n * n + img] = (n * h + r) * 256 + n * kb + b
+    return gather.to(device)
+
+
+def chain_weight_stream_i8(ws: torch.Tensor) -> torch.Tensor:
+    """(depth, 256, 256) int8 weights (K, N) -> the int8 chain's weight
+    stream, (depth * 4 * 16384,) int8: 8-bit wgmma takes B K-major, so
+    layer l's W_l^T (N rows of K bytes) goes as 4 stages of 128 N-rows x
+    128 K-bytes, (N half, K half) = (0, 0), (0, 1), (1, 0), (1, 1), each
+    in its 128-byte swizzled image (``swizzle_image_index_i8``)."""
+    wt = ws.transpose(1, 2).reshape(ws.shape[0], -1)
+    return wt[:, _i8_stream_gather(str(ws.device))].reshape(-1)
+
+
 def _cached_stream(ws: torch.Tensor) -> torch.Tensor:
-    """``chain_weight_stream(ws)``, built once per weights (their address,
-    version and shape; the cache holds ``ws``, so no other tensor can take
-    its address while the entry lives), so that a timed call measures the
-    kernel and not the gather."""
-    key = (ws.data_ptr(), ws._version, tuple(ws.shape), str(ws.device))
+    """The chain's weight stream of ``ws`` (``chain_weight_stream`` for
+    bf16, ``chain_weight_stream_i8`` for int8), built once per weights
+    (their address, version, type and shape; the cache holds ``ws``, so no
+    other tensor can take its address while the entry lives), so that a
+    timed call measures the kernel and not the gather."""
+    key = (ws.data_ptr(), ws._version, ws.dtype, tuple(ws.shape),
+           str(ws.device))
     hit = _STREAM_CACHE.get(key)
     if hit is None:
-        hit = _STREAM_CACHE[key] = (ws, chain_weight_stream(ws))
+        build_stream = (chain_weight_stream_i8 if ws.dtype == torch.int8
+                        else chain_weight_stream)
+        hit = _STREAM_CACHE[key] = (ws, build_stream(ws))
         while len(_STREAM_CACHE) > _STREAM_CACHE_SIZE:
             del _STREAM_CACHE[next(iter(_STREAM_CACHE))]
     return hit[1]
@@ -217,7 +275,7 @@ def _check_shapes(x: torch.Tensor, ws: torch.Tensor, bias,
                   rows_per_block: int) -> None:
     """What every chain takes, on either device: x (rows, 256), ws (depth,
     256, 256) with depth 1..64, bias (depth, 256), and the rows per block
-    of the kernel of x's type."""
+    of one of the type's plans (``CHAIN_PLANS``)."""
     rows = x.shape[0]
     if x.shape != (rows, KERNEL_WIDTH) or ws.ndim != 3 or ws.shape[1:] != (
             KERNEL_WIDTH, KERNEL_WIDTH) or not 1 <= ws.shape[0] <= 64:
@@ -227,7 +285,7 @@ def _check_shapes(x: torch.Tensor, ws: torch.Tensor, bias,
     if bias is not None and bias.shape != (ws.shape[0], KERNEL_WIDTH):
         raise ValueError(f"chain: bias must be ({ws.shape[0]}, "
                          f"{KERNEL_WIDTH}), got {tuple(bias.shape)}")
-    allowed = (64,) if x.dtype == torch.float32 else (64, 128)
+    allowed = tuple(CHAIN_PLANS[x.dtype])
     if rows_per_block not in allowed:
         raise ValueError(f"chain: rows_per_block {rows_per_block} not in "
                          f"{allowed} for {x.dtype}")
@@ -236,7 +294,8 @@ def _check_shapes(x: torch.Tensor, ws: torch.Tensor, bias,
 
 
 def chain(x: torch.Tensor, ws: torch.Tensor, mode: str,
-          bias: Optional[torch.Tensor] = None, rows_per_block: int = 64,
+          bias: Optional[torch.Tensor] = None,
+          rows_per_block: Optional[int] = None,
           out_dtype=torch.float32) -> torch.Tensor:
     """x (rows, 256) through ws (depth, 256, 256) with ``mode``'s epilogue
     after every layer -> (rows, 256) ``out_dtype``. bf16 modes: cast,
@@ -244,10 +303,13 @@ def chain(x: torch.Tensor, ws: torch.Tensor, mode: str,
     warpgroups of a 128-row tile skewed by half a layer; at 64 rows per
     block, bias_relu), sum (bf16 of x @ ws[0] + x @ ws[1] + ..., no
     epilogue between layers); f32: relu; int8: i0, i1. ``bias`` (depth,
-    256) f32 for bias_relu and relu2. ``rows_per_block``: the plan (the
-    module's note; f32 takes 64 only). CUDA tensors launch the kernel, CPU
-    tensors take the plain version."""
+    256) f32 for bias_relu and relu2. ``rows_per_block``: the plan, 64 or
+    128 for bf16 and int8 (64 by default), 128 for f32 (the module's
+    note). CUDA tensors launch the kernel, CPU tensors take the plain
+    version."""
     _check_mode(x.dtype, mode, bias, out_dtype)
+    if rows_per_block is None:
+        rows_per_block = next(iter(CHAIN_PLANS[x.dtype]))
     _check_shapes(x, ws, bias, rows_per_block)
     if x.device.type == "cpu":
         return chain_reference(x, ws, mode, bias, out_dtype)
@@ -255,7 +317,7 @@ def chain(x: torch.Tensor, ws: torch.Tensor, mode: str,
     if bias is not None and _check_cuda("chain", torch.float32, 16,
                                         bias=bias) != dev:
         raise ValueError(f"chain: bias on {bias.device}, x on {dev}")
-    w = _cached_stream(ws) if x.dtype == torch.bfloat16 else ws
+    w = ws if x.dtype == torch.float32 else _cached_stream(ws)
     lib = build.load_library()
     out = torch.empty((x.shape[0], KERNEL_WIDTH), dtype=out_dtype,
                       device=dev)
@@ -269,16 +331,44 @@ def chain(x: torch.Tensor, ws: torch.Tensor, mode: str,
     return out
 
 
-def chain_launch_config(rows: int, rows_per_block: int) -> dict:
-    """The bf16 chain's launch on ``rows`` rows on the current card:
-    tiles per block, blocks, ring stages, dynamic shared memory, threads
-    per block."""
+_PLAN_KEYS = ("tiles_per_block", "blocks", "ring_stages", "smem_bytes",
+              "threads")
+
+
+def chain_plan(rows: int, rows_per_block: int, dtype, sms: int) -> dict:
+    """The chain's launch plan as the kernels compute it
+    (``csrc/kdiag.cuh`` tile_plan): tiles of ``rows_per_block`` rows split
+    evenly over at most one wave of blocks (ring and blocks per SM by
+    dtype and plan, ``CHAIN_PLANS``); block b walks tiles [b tiles_per_block,
+    (b + 1) tiles_per_block). -> ``chain_launch_config``'s dict."""
+    ring, per_sm = CHAIN_PLANS[dtype][rows_per_block]
+    tiles = -(-rows // rows_per_block)
+    per_block = -(-tiles // (sms * per_sm))
+    nwg = rows_per_block // 64
+    if dtype == torch.float32:  # the activation tile, f32; the producer's
+        # whole warpgroup, whose registers the consumers take
+        tile_bytes = 4 * rows_per_block * KERNEL_WIDTH
+        threads = 384
+    else:  # a tile a warpgroup, one byte (int8) or two (bf16) a value
+        tile_bytes = nwg * 64 * KERNEL_WIDTH * dtype.itemsize
+        threads = 128 * nwg + 32
+    return dict(zip(_PLAN_KEYS, (
+        per_block, -(-tiles // per_block), ring,
+        1024 + ring * 2 * STAGE_ELEMS + tile_bytes + 128, threads)))
+
+
+def chain_launch_config(rows: int, rows_per_block: int,
+                        dtype=torch.bfloat16) -> dict:
+    """The chain's launch of ``dtype`` on ``rows`` rows on the current
+    card, from the kernels' library: tiles per block, blocks, ring stages,
+    dynamic shared memory, threads per block (``chain_plan`` on the card's
+    SMs)."""
     lib = build.load_library()
     plan = (ctypes.c_int * 5)()
-    _raise_on(lib, lib.kd_chain_config(rows, rows_per_block, plan),
+    _raise_on(lib, lib.kd_chain_config(rows, rows_per_block,
+                                       _DTYPE_CODE[dtype], plan),
               "chain_launch_config")
-    return dict(zip(("tiles_per_block", "blocks", "ring_stages",
-                     "smem_bytes", "threads"), plan))
+    return dict(zip(_PLAN_KEYS, plan))
 
 
 # ------------------------------------------------------------------ ladder

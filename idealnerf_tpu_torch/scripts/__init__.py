@@ -246,9 +246,10 @@ def chain_check(dtype):
 def sweep(name: str, mode: str, dtype, kind: str, rows: tuple, rpbs, dev,
           seed: int, check: bool, bias=None) -> dict:
     """kdiag4/kdiag5's timing of one chain variant: fresh inputs at each
-    row count, the kernel at every rows per block (with ``check`` held
-    against one plain run shared by them) -> results by ``"{name}
-    r{rpb}"``: the sizes' results and, with two row counts, the slope."""
+    row count, the kernel at every rows per block as the mean of 10
+    launches after 2 (with ``check`` held against one plain run shared by
+    them) -> results by ``"{name} r{rpb}"``: the sizes' results and, with
+    two row counts, the slope."""
     from idealnerf_tpu_torch.kernels import kdiag as kd
 
     sizes = {rpb: {} for rpb in rpbs}
@@ -260,7 +261,7 @@ def sweep(name: str, mode: str, dtype, kind: str, rows: tuple, rpbs, dev,
             sizes[rpb][r] = measure(
                 f"{name} r{rpb:<3d} rows {r} {kind}",
                 lambda: kd.chain(x, ws, mode, bias, rpb),
-                2.0 * r * DEPTH * W * W, kind, dev, reps=3, plain=plain,
+                2.0 * r * DEPTH * W * W, kind, dev, reps=10, plain=plain,
                 check=chain_check(dtype))
         del x, ws, plain
         if dev.type == "cuda":

@@ -4,7 +4,7 @@ isolation. (Counterpart of the JAX package's scripts/kdiag4.py.)
     V0  8x [bf16 product, f32 accumulation, relu, bf16 cast]: the
         production inner loop, nothing else
     V2  the same without relu (cast only)      -- relu's cost
-    V3  all f32 on the CUDA cores (no casts)   -- what bf16 buys
+    V3  all f32 on FFMAs (no casts)            -- what bf16 buys
     V5  relu as compare + select
     V6  bias add before the max (bias li + 1), the production pattern
     V7  cast to bf16 first, then the max in bf16
@@ -16,8 +16,8 @@ isolation. (Counterpart of the JAX package's scripts/kdiag4.py.)
     V3X V3 as PyTorch calls (torch.matmul + relu per layer in f32, TF32
         off): V3's library yardstick
 
-Each kernel variant runs at every ``--rows_per_block`` (V3 at 64 only) on
-1M and 4M rows; the rate between the two sizes (the slope) is free of
+Each kernel variant runs at every ``--rows_per_block`` (V3 at 128 only)
+on 1M and 4M rows; the rate between the two sizes (the slope) is free of
 launch overhead. VX and V3X run on ``--kd4_rows`` rows.
 
     python -m idealnerf_tpu_torch.scripts.kdiag4 --kd4 V0,V2,V3,VX
@@ -68,10 +68,10 @@ def main(argv=None) -> dict:
             continue
         f32 = name == "V3"
         rpbs = ints(args.rows_per_block)
-        if f32 and rpbs != [64]:
-            print("V3: the f32 chain runs at 64 rows per block only",
+        if f32 and rpbs != [128]:
+            print("V3: the f32 chain runs at 128 rows per block only",
                   flush=True)
-            rpbs = [64] if 64 in rpbs else []
+            rpbs = [128] if 128 in rpbs else []
         bias = v6_bias(dev) if name == "V6" else None
         results.update(sweep(
             name, MODES[name], torch.float32 if f32 else torch.bfloat16,

@@ -10,8 +10,13 @@ process:
         with their weight stream, the per-layer barrier and store, the
         real epilogue and its overlap between warpgroups
     7f  ``chain`` relu (kdiag4 V0, kdiag5 B0) on 1M rows, out f32, at 128
-        and 64; int8 I0 (kdiag5) on the same rows at 64, the int8 / bf16
-        ratio of one card
+        and 64; int8 I0 and I1 (kdiag5) on the same rows at 64 and 128,
+        the int8 / bf16 ratio of one card; the f32 chain V3 (kdiag4) at
+        128. A plan or mode a checkout's ``chain`` refuses is left out of
+        its turn
+    7g  I0 at 64 rows per block on 4M rows, 50 launches each timed
+        between its own events (``harness.launch_ms``): the least, median
+        and largest, so that one stalled launch shows
     7c  ``render_probe_a`` (the fine pass's MLP from given PE rows), 7d
         ``render_probe_b`` (the fine pass without compositing) and 7e the
         fine pass itself (``fused_render_rays``, K1) at 8,192 and 202,500
@@ -25,12 +30,15 @@ process:
         of kdiag2's encodings; v1 - v0, v2 - v1 and v3 - v2 split K5's
         time into skip, view branch and heads
     lib the same chains as torch.matmul / torch._int_mm calls
-        (``chain_library``), timed in this checkout's workers only
+        (``chain_library``: bf16, int8 IX and f32 V3X, TF32 off), timed in
+        this checkout's workers only
 
     python -m idealnerf_tpu_torch.scripts.kprobe --parent PARENT_DIR
 
 With ``--parent`` (a ``git archive`` of the parent commit) the workers run
-in turns: parent, this, this, parent. Times are CUDA events over 10
+in turns: parent, this, this, parent, ``--rounds`` times; each label's
+least and largest time over each checkout's turns are printed at the end
+(``SPREAD``). Times are CUDA events over 10
 launches after a warm-up (``harness.event_ms``); inputs are those of the
 entry points (``scripts.chain_inputs``, ``kdiag3.rays``, the paper field
 of ``scripts.paper_field``) from ``--seed``. Each worker's launch
@@ -40,8 +48,12 @@ version at the entry points' ``--check`` bounds (a worker whose output
 leaves them fails, and the script with it). After each timing, about
 1.5 s of the same launches are queued and ``nvidia-smi`` reads the SM
 clock and power draw under them. ``7a sum r128 zero input`` is sum on an
-all-zero x: the same instructions with no operand bits toggling. Needs a
-card.
+all-zero x: the same instructions with no operand bits toggling. Before
+the turns each checkout's kernels are built, and their ptxas lines and
+SASS counts printed (K1-K6, the probes, the f32 and int8 chains; FFMA,
+HGMMA, IGMMA, IMMA and WARPGROUP instructions): ``equal ptxas`` says
+whether K1-K6's and probe B's ptxas lines and probe B's SASS counts are
+the parent's. Needs a card.
 """
 
 from __future__ import annotations
@@ -73,7 +85,7 @@ def _smi(query: str) -> str:
 def _worker(tree: str, seed: int, library: bool) -> dict:
     """In tree's package: every probe's time, its launches and its output
     against the plain version on a slice."""
-    from harness import event_ms  # this checkout's harness
+    from harness import event_ms, launch_ms  # this checkout's harness
 
     sys.path.insert(0, tree)
     import torch
@@ -85,8 +97,9 @@ def _worker(tree: str, seed: int, library: bool) -> dict:
     from idealnerf_tpu_torch.scripts import kdiag2, kdiag3
 
     dev = torch.device("cuda:0")
-    out, errs, smi = {}, {}, {}
+    out, errs, smi, per_launch = {}, {}, {}, {}
     calls = {"kdiag_chain_bf16": 0, "kdiag_chain_int8": 0,
+             "kdiag_chain_f32": 0,
              "kdiag_render_a": 0, "kdiag_render_b": 0,
              "fused_render_rays": 0, "kdiag_ladder": 0,
              "fused_point_mlp_pe": 0}
@@ -108,6 +121,15 @@ def _worker(tree: str, seed: int, library: bool) -> dict:
         errs[label] = plain(got)
         del got
         torch.cuda.empty_cache()
+
+    def takes(x, ws, mode, rpb):
+        """Whether this checkout's chain takes the mode and plan (asked on
+        one row on the CPU, which launches nothing)."""
+        try:
+            kd.chain(x[:1].cpu(), ws.cpu(), mode, None, rpb)
+        except ValueError:
+            return False
+        return True
 
     def chain_slice(x, ws, mode, bias, out_dtype):
         want = kd.chain_reference(x[:SLICE_ROWS], ws, mode, bias, out_dtype)
@@ -141,18 +163,31 @@ def _worker(tree: str, seed: int, library: bool) -> dict:
             out["7a matmul"] = event_ms(lambda: kd.chain_library(x, ws),
                                         _ITERS)
         del x, ws
-        for dtype in (torch.bfloat16, torch.int8):
+        for dtype, modes in ((torch.bfloat16, ("relu",)),
+                             (torch.int8, ("i0", "i1")),
+                             (torch.float32, ("relu",))):
             x, ws = sc.chain_inputs(ROWS_7F, dtype, dev, seed)
-            mode = "relu" if dtype == torch.bfloat16 else "i0"
-            plain = chain_slice(x, ws, mode, None, torch.float32)
-            for rpb in RPBS if dtype == torch.bfloat16 else (64,):
-                timed(f"7f {mode} r{rpb}", "kdiag_chain_bf16"
-                      if dtype == torch.bfloat16 else "kdiag_chain_int8",
-                      lambda: kd.chain(x, ws, mode, None, rpb), plain)
-            if library:
-                out[f"7f {mode} library"] = event_ms(
-                    lambda: kd.chain_library(x, ws, mode), _ITERS)
+            count = {torch.bfloat16: "kdiag_chain_bf16",
+                     torch.int8: "kdiag_chain_int8",
+                     torch.float32: "kdiag_chain_f32"}[dtype]
+            for mode in modes:
+                name = "V3" if dtype == torch.float32 else mode
+                rpbs = [rpb for rpb in RPBS if takes(x, ws, mode, rpb)]
+                if rpbs:
+                    plain = chain_slice(x, ws, mode, None, torch.float32)
+                for rpb in rpbs:
+                    timed(f"7f {name} r{rpb}", count,
+                          lambda: kd.chain(x, ws, mode, None, rpb), plain)
+                if library and mode in ("relu", "i0"):
+                    out[f"7f {name} library"] = event_ms(
+                        lambda: kd.chain_library(x, ws, mode), _ITERS)
             del x, ws
+        x, ws = sc.chain_inputs(4 * ROWS_7F, torch.int8, dev, seed)
+        calls["kdiag_chain_int8"] += 51
+        t = sorted(launch_ms(lambda: kd.chain(x, ws, "i0", None, 64), 50))
+        per_launch["7g i0 r64 4M"] = [t[0], t[len(t) // 2], t[-1]]
+        del x, ws
+        torch.cuda.empty_cache()
         model, folded, cfg, net = sc.paper_field(dev, seed)
         for R in RAYS:
             o, d, bc, z = kdiag3.rays(R, S, dev, seed)
@@ -194,7 +229,8 @@ def _worker(tree: str, seed: int, library: bool) -> dict:
     torch.cuda.synchronize()
     launches = {**kd.launch_counts, **fm.launch_counts, **fr.launch_counts}
     res = {"ms": out, "max_err": errs, "calls": calls,
-           "launches": {k: launches[k] for k in calls}, "smi": smi}
+           "launches": {k: launches[k] for k in calls}, "smi": smi,
+           "per_launch": per_launch}
     if hasattr(kd, "chain_launch_config"):
         res["plans"] = {f"chain r{rpb}": kd.chain_launch_config(ROWS_7A, rpb)
                         for rpb in RPBS}
@@ -214,6 +250,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", default="")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--worker", default="", help=argparse.SUPPRESS)
     ap.add_argument("--library", type=int, default=0,
                     help=argparse.SUPPRESS)
@@ -229,13 +266,33 @@ def main(argv=None) -> dict:
     trees = {"this": ROOT}
     if args.parent:
         trees["parent"] = Path(args.parent).resolve()
-    build_trees(trees, ("2kd10k_chain_wg", "2kd7k_chain",
-                        "2kd12k_mlp_ladder", "2kd16k_render_probe",
-                        "13k_render_rays", "14k_point_mlp_pe"))
-    print(f"card: {card()}; 7a on {ROWS_7A} rows, 7f and I0 on {ROWS_7F}, "
+    k16 = ("13k_coarse_hier", "13k_render_rays", "14k_render_delta",
+           "11k_point_mlp", "14k_point_mlp_pe", "13k_grad_pass",
+           "17k_grad_pass", "15k_bias_partials", "14k_reduce_slabs",
+           "2kd16k_render_probe_b")
+    chains = ("k_chain_f32", "k_chain_i8", "k_render_probe_b",
+              "k_grad_pass_a_f32", "k_grad_pass_b_f32")
+    built = build_trees(trees, k16 + (
+        "2kd10k_chain_wg", "2kd10k_chain_i8", "2kd11k_chain_f32",
+        "2kd13k_chain_i8_wg", "2kd16k_chain_f32_ring", "2kd12k_mlp_ladder",
+        "2kd16k_render_probe_a"), (chains, ("FFMA", "HGMMA", "IGMMA",
+                                            "IMMA", "WARPGROUP")))
+    if "parent" in built:
+        same = {k: {n: v for n, v in built[k]["ptxas"].items()
+                    if any(f"_ZN2fr{f}" in n for f in k16)}
+                for k in built}
+        probe_b = {k: {op: c["k_render_probe_b"] for op, c in
+                       b["sass"].items()} for k, b in built.items()}
+        print(f"equal ptxas (K1-K6, probe B): {same['this'] == same['parent']}"
+              f", probe B's SASS counts equal: "
+              f"{probe_b['this'] == probe_b['parent']} {probe_b['this']}",
+              flush=True)
+    print(f"card: {card()}; 7a on {ROWS_7A} rows, 7f, I0, I1 and V3 on "
+          f"{ROWS_7F}, "
           f"7c, 7d and 7e at {' and '.join(map(str, RAYS))} rays x {S}, "
           f"7b on {POINTS_7B} points", flush=True)
-    turns = ["parent", "this", "this", "parent"] if args.parent else ["this"]
+    turns = (["parent", "this", "this", "parent"] * args.rounds
+             if args.parent else ["this"])
     script = str(Path(__file__).resolve())
     results, ok, lib_done = [], True, False
     for k in turns:
@@ -252,8 +309,15 @@ def main(argv=None) -> dict:
             for lb, ms in res["ms"].items())
               + f"; launches {'equal to' if counted else 'DIFFER FROM'} the "
               f"calls {res['calls']}"
-              + (f"; plans {res['plans']}" if "plans" in res else ""),
-              flush=True)
+              + (f"; plans {res['plans']}" if "plans" in res else "")
+              + f"; per launch (least, median, largest) "
+              f"{res['per_launch']}", flush=True)
+    for lb in dict.fromkeys(lb for r in results for lb in r["ms"]):
+        print(f"SPREAD {lb}: " + ", ".join(
+            f"{k} {min(v):.3f}-{max(v):.3f} ms over {len(v)}"
+            for k in trees for v in [[r["ms"][lb] for r in results
+                                      if r["tree"] == k and lb in r["ms"]]]
+            if v), flush=True)
     print("RESULTS " + json.dumps(results), flush=True)
     return {"results": results, "ok": ok}
 

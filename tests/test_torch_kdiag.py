@@ -223,13 +223,22 @@ def test_chain_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="write"):
         kd.chain(x.to(torch.int8), ws.to(torch.int8), "i0",
                  out_dtype=torch.int8)
-    # the plans: 64 or 128 rows per block (the f32 chain 64 only), depth
-    # 1..64, a bias row per layer; refused on either device
-    for rpb in (32, 256):
-        with pytest.raises(ValueError, match="rows_per_block"):
-            kd.chain(x, ws, "relu", None, rpb)
-    with pytest.raises(ValueError, match="rows_per_block"):
-        kd.chain(x.float(), ws.float(), "relu", None, 128)
+    with pytest.raises(ValueError, match="mode"):
+        kd.chain(x.float(), ws.float(), "i0")
+    # the plans: 64 or 128 rows per block for bf16 and int8, 128 for f32
+    # (the default of each the first), depth 1..64, a bias row per layer;
+    # refused on either device
+    for dtype, mode, rpbs in ((torch.bfloat16, "relu", (64, 128)),
+                              (torch.float32, "relu", (128,)),
+                              (torch.int8, "i0", (64, 128))):
+        for rpb in {32, 64, 96, 128, 256} - set(rpbs):
+            with pytest.raises(ValueError, match="rows_per_block"):
+                kd.chain(x.to(dtype), ws.to(dtype), mode, None, rpb)
+        assert tuple(kd.CHAIN_PLANS[dtype]) == rpbs
+        for rpb in rpbs + (None,):
+            assert torch.equal(
+                kd.chain(x.to(dtype), ws.to(dtype), mode, None, rpb),
+                kd.chain_reference(x.to(dtype), ws.to(dtype), mode))
     for depth in (0, 65):
         with pytest.raises(ValueError, match="depth 1..64"):
             kd.chain(x, torch.zeros(depth, W, W, dtype=torch.bfloat16),
@@ -458,7 +467,7 @@ def test_entry_points_run_the_plain_versions_on_the_cpu(name, argv, tmp_path):
     want = {"kdiag": {"plain r64", "relu r64", "relu2 r128"},
             "kdiag2": {"v0", "v1", "v2", "v3", "v4"},
             "kdiag3": {"A S=8", "B S=8", "C S=8"},
-            "kdiag4": {"V0 r64", "V0 r128", "V3 r64", "V6 r128", "VX"},
+            "kdiag4": {"V0 r64", "V0 r128", "V3 r128", "V6 r128", "VX"},
             "kdiag5": {"B0 r64", "I0 r128", "I1 r64", "IX"}}[name]
     assert want <= labels, (want - labels)
     if name == "kdiag5":

@@ -45,7 +45,7 @@ from idealnerf_tpu_torch.kernels import fused_mlp as fm
 from idealnerf_tpu_torch.kernels import fused_render as fr
 from idealnerf_tpu_torch.kernels import kdiag as kd
 from idealnerf_tpu_torch.models.face_nerf import FaceNeRF, fold_conditioning
-from scripts import kdiag, kdiag4
+from scripts import kdiag, kdiag4, kdiag5
 
 ATOL = 3e-2
 MIN_CORR = 0.999
@@ -567,3 +567,253 @@ def test_probe_a_tile_source_matches_plain(S, R):
         assert float((g - w).abs().max()) <= ATOL
         assert np.corrcoef(g.numpy(), w.numpy())[0, 1] > MIN_CORR
     assert torch.equal(kd.render_probe_a(net, pe, ped, S), want)
+
+
+# ------------------------------------------- the f32 and int8 chains
+
+I8 = kd.I8_STAGE_ROWS  # N rows and K bytes of an int8 stage
+F32_KS = 16  # K-rows of a 256-wide f32 stage (16 KB)
+
+
+def _int8_inputs(rows, depth, seed):
+    """kdiag5.py's int8 inputs from numpy: x uniform in [-127, 127],
+    weights in [-4, 4]."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(-127, 128, (rows, W)).astype(np.int8)
+    ws = rng.randint(-4, 5, (depth, W, W)).astype(np.int8)
+    return torch.from_numpy(x), torch.from_numpy(ws)
+
+
+def _swizzled(linear):
+    """wgmma's 128-byte swizzle on byte offsets from a 1,024-byte aligned
+    base: the 16-byte chunk bits 4-6 XOR the row bits 7-9."""
+    return linear ^ (((linear >> 7) & 7) << 4)
+
+
+def _k_major(rows, nbytes):
+    """Byte offsets a K-major 128-byte-swizzled descriptor (SBO 1,024)
+    reads for (row, byte) of a rows x nbytes operand at its start
+    address: groups of 8 rows 1,024 bytes apart, 128 bytes a row."""
+    p = torch.arange(rows)[:, None]
+    k = torch.arange(nbytes)[None, :]
+    return ((p >> 3) << 10) + ((p & 7) << 7) + k
+
+
+@pytest.mark.parametrize("depth", [2, 8, 16])
+def test_int8_stream_is_each_layers_transpose_stage_by_stage(depth):
+    """chain_weight_stream_i8: 4 stages of 16 KB a layer, (N half, K half)
+    = (0, 0), (0, 1), (1, 0), (1, 1); a stage read back through the
+    hardware's swizzle from its K-major image is 128 rows of W_l^T (N) by
+    128 of its bytes (K), and the stream holds every weight byte exactly
+    once."""
+    _, ws = _int8_inputs(4, depth, seed=depth)
+    stream = kd.chain_weight_stream_i8(ws)
+    assert stream.dtype == torch.int8 and stream.numel() == depth * 4 * 16384
+    img = stream.reshape(depth * 4, 16384)
+    read = _swizzled(_k_major(I8, I8))
+    for q in range(4 * depth):
+        li, h, kb = q // 4, (q >> 1) & 1, q & 1
+        want = ws[li].T[I8 * h:I8 * (h + 1), I8 * kb:I8 * (kb + 1)]
+        assert torch.equal(img[q][read], want), q
+    gather = kd._i8_stream_gather("cpu")
+    assert torch.equal(torch.sort(gather).values, torch.arange(W * W))
+
+
+def test_int8_stream_is_built_once_per_weights():
+    """The wrapper's stream cache takes int8 weights as bf16 ones: the
+    same weights give the same stream object, changed weights their own."""
+    kd._STREAM_CACHE.clear()
+    _, ws = _int8_inputs(4, 2, seed=1)
+    first = kd._cached_stream(ws)
+    assert torch.equal(first, kd.chain_weight_stream_i8(ws))
+    assert kd._cached_stream(ws) is first
+    ws.add_(1)
+    assert torch.equal(kd._cached_stream(ws), kd.chain_weight_stream_i8(ws))
+    kd._STREAM_CACHE.clear()
+
+
+def test_int8_requant_through_magic_is_the_plain_requant():
+    """The int8 kernel's I0 requant without I2F or F2I (kdiag_dtype.cu
+    requant, mirrored in numpy f32): relu(acc) as the float of bits
+    0x4B000000 | a less 2^23, the scale and +0.5 rounded apart, then 2^23
+    + min(q, 127) rounded toward zero, whose low byte is the result; and
+    the copy-out's byte as the float of 0x4B0000bb less 2^23. Bitwise the
+    plain requant for every relu(acc) an int8 chain can give (0..2^22) at
+    every layer's scale."""
+    acc = np.arange(0, 2 ** 22 + 1, dtype=np.int64)
+    a = acc.astype(np.uint32)
+    f = (a | np.uint32(0x4B000000)).view(np.float32) - np.float32(2 ** 23)
+    assert np.array_equal(f, acc.astype(np.float32))
+    for li in range(0, 64, 3):
+        q = f * kd.i0_scale(li).numpy() + np.float32(0.5)
+        v = np.minimum(q, np.float32(127)).astype(np.float64)
+        rz = np.floor(v + 2 ** 23).astype(np.float32)  # exact below 2^24
+        got = (rz.view(np.uint32) & 0xFF).astype(np.int8)
+        want = kd._requant(torch.from_numpy(acc), "i0", li).numpy()
+        assert np.array_equal(got, want), li
+    b = np.arange(128, dtype=np.uint32)
+    out = (b | np.uint32(0x4B000000)).view(np.float32) - np.float32(2 ** 23)
+    assert np.array_equal(out, b.astype(np.float32))
+
+
+def _fragment():
+    """wgmma's accumulator fragment of a 64 x 128 N half, as the requant
+    writes it: (row, column) of value i of thread t of the warpgroup (warp
+    t / 32, lane l): rows 16 w + l / 4 (+ 8 for i % 4 >= 2), columns
+    8 (i / 4) + 2 (l % 4) + i % 2 -> two (128, 64) index tensors."""
+    t = torch.arange(128)[:, None]
+    i = torch.arange(64)[None, :]
+    w, lane = t >> 5, t & 31
+    row = 16 * w + (lane >> 2) + 8 * ((i >> 1) & 1)
+    col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1)
+    return row, col
+
+
+def _emulate_i8(x, stream, depth, mode):
+    """k_chain_i8_wg's order of work in plain torch -> (rows, 256) f32:
+    64-row warpgroup tiles, zeros past the last row, written into the
+    tile's K-major image at swz8 (``swizzle_image_index_i8``); per layer
+    each N half sums its two stages' four k32 products, A and B read at
+    the descriptors' start addresses through the hardware's swizzle, in
+    s32 (exact in f64); the requant goes into the image in the
+    accumulator's fragment order; the last image's rows go out."""
+    rows = x.shape[0]
+    tile_img = kd.swizzle_image_index_i8(64)
+    stages = stream.reshape(-1, 16384).double()
+    a_read = _k_major(64, 32)  # a k32 slice of A from its start address
+    f_row, f_col = _fragment()
+    cover = torch.zeros(64, W, dtype=torch.int32)
+    for half in (0, 1):
+        cover.index_put_((f_row, f_col + I8 * half),
+                         torch.ones_like(f_row, dtype=torch.int32),
+                         accumulate=True)
+    assert torch.all(cover == 1)
+    outs = []
+    for t0 in range(0, rows, 64):
+        n = min(64, rows - t0)
+        tile = torch.zeros(2 * 8192, dtype=torch.float64)
+        vals = torch.zeros(64, W, dtype=torch.float64)
+        vals[:n] = x[t0:t0 + n].double()
+        tile[tile_img] = vals
+        for li in range(depth):
+            acc = torch.zeros(64, W, dtype=torch.float64)
+            for s in range(4):
+                half, kb = s >> 1, s & 1
+                st = stages[4 * li + s]
+                for j in range(4):
+                    start = 8192 * kb + 32 * j
+                    a = tile[_swizzled(start + a_read)]
+                    b = st[_swizzled(32 * j + _k_major(I8, 32))]
+                    acc[:, I8 * half:I8 * (half + 1)] += a @ b.T
+            assert acc.abs().max() < 2 ** 24  # s32 -> f32 exact
+            q = kd._requant(acc.long(), mode, li).double()
+            for half in (0, 1):
+                r, c = f_row, f_col + I8 * half
+                tile[tile_img[r, c]] = q[r, c]
+        outs.append(tile[tile_img][:n])
+    return torch.cat(outs).float()
+
+
+@pytest.mark.parametrize("depth", [2, 8])
+@pytest.mark.parametrize("mode", ["i0", "i1"])
+def test_int8_emulation_is_bitwise_plain_and_jax(mode, depth):
+    """The emulation of the int8 wgmma chain on 1,001 rows (a part-filled
+    last tile) is bitwise chain_reference and the JAX package's kdiag5.py
+    chain_kernel (I0 or I1) under interpret mode."""
+    rows = 1001
+    x, ws = _int8_inputs(rows, depth, seed=20 + depth)
+    got = _emulate_i8(x, kd.chain_weight_stream_i8(ws), depth, mode)
+    want = kd.chain_reference(x, ws, mode)
+    assert torch.equal(got, want)
+    v = "I1" if mode == "i1" else "I0"
+    ref = pl.pallas_call(
+        functools.partial(kdiag5.chain_kernel, v),
+        out_shape=jax.ShapeDtypeStruct((rows, W), jnp.float32),
+        interpret=True)(jnp.asarray(x.numpy()),
+                        *[jnp.asarray(w.numpy()) for w in ws])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    if depth == 2:
+        assert float(want.mean()) > 1.0  # the requant keeps a signal
+
+
+def _emulate_f32(x, ws, rpb=128):
+    """k_chain_f32_ring's order of work in plain torch: the stream is ws
+    itself, 16-row K-slabs in order; per tile of rpb rows (zeros past the
+    last row) and layer, each output the FFMAs of its row and column, k
+    ascending (an f64 sum of the exact product rounded to f32 stands in
+    for the fused one), relu in place, the last layer's rows out."""
+    rows, depth = x.shape[0], ws.shape[0]
+    slabs = ws.reshape(-1, F32_KS * W)  # the stages, 16 KB each
+    assert slabs.shape[0] == depth * (W // F32_KS)
+    xp = F.pad(x, (0, 0, 0, (-rows) % rpb))
+    outs = []
+    for t0 in range(0, xp.shape[0], rpb):
+        h = xp[t0:t0 + rpb]
+        for li in range(depth):
+            acc = torch.zeros(rpb, W)
+            for q in range(W // F32_KS):
+                slab = slabs[li * (W // F32_KS) + q].reshape(F32_KS, W)
+                for kk in range(F32_KS):
+                    k = F32_KS * q + kk
+                    acc = (acc.double() + h[:, k:k + 1].double()
+                           * slab[kk].double()).float()
+            h = torch.clamp_min(acc, 0)
+        outs.append(h)
+    return torch.cat(outs)[:rows]
+
+
+@pytest.mark.parametrize("rows", [100, 150])
+def test_f32_slab_order_matches_plain_and_jax(rows):
+    """The emulation of the f32 FFMA ring on its 128-row tiles, at 100
+    rows (one part-filled tile) and 150 (a full one and a part-filled
+    one), 8 layers, within 1e-5 of the output's max abs of
+    chain_reference and of kdiag4.py's V3 under interpret mode (f32
+    products, the sums in another order)."""
+    rng = np.random.RandomState(30 + rows)
+    x = torch.from_numpy(rng.randn(rows, W).astype(np.float32))
+    ws = torch.from_numpy((rng.randn(8, W, W) * 0.05).astype(np.float32))
+    got = _emulate_f32(x, ws)
+    want = kd.chain_reference(x, ws, "relu")
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    with jax.default_matmul_precision("highest"):
+        ref = pl.pallas_call(
+            functools.partial(kdiag4.chain_kernel, "V3"),
+            out_shape=jax.ShapeDtypeStruct((rows, W), jnp.float32),
+            interpret=True)(jnp.asarray(x.numpy()),
+                            *[jnp.asarray(w.numpy()) for w in ws])
+    assert float(np.abs(got.numpy() - np.asarray(ref)).max()) <= 1e-5 * scale
+
+
+SM_BYTES = 233472  # shared memory of an SM, 1,024 bytes kept per block
+
+
+@pytest.mark.parametrize("rows", [1, 63, 1001, (1 << 20) + 77])
+@pytest.mark.parametrize("dtype,rpb", [(d, r) for d in kd.CHAIN_PLANS
+                                       for r in kd.CHAIN_PLANS[d]])
+def test_chain_plans_cover_every_row_once_in_one_wave(dtype, rpb, rows):
+    """The chains' plans (kd.chain_plan, which chip_smoke.py holds against
+    the card's library) on an H100's 132 SMs: every row in exactly one
+    block's run of tiles, at most one wave of blocks, each block's shared
+    memory under the limit and a wave's blocks on an SM under its 228
+    KB; f32 128 rows a tile (16 x 8 a thread, 384 threads), int8 and bf16
+    two blocks an SM at 64 and one at 128."""
+    sms = 132
+    plan = kd.chain_plan(rows, rpb, dtype, sms)
+    ring, per_sm = kd.CHAIN_PLANS[dtype][rpb]
+    assert plan["ring_stages"] == ring
+    assert plan["blocks"] <= sms * per_sm
+    assert plan["smem_bytes"] <= fr.SMEM_LIMIT
+    assert per_sm * (plan["smem_bytes"] + 1024) <= SM_BYTES
+    if dtype == torch.float32:
+        assert plan["threads"] == 384 and per_sm == 1
+        assert plan["smem_bytes"] == 1024 + 4 * 16384 + 4 * rpb * W + 128
+    else:
+        assert plan["threads"] == 2 * rpb + 32
+    seen = torch.zeros(rows, dtype=torch.int32)
+    span = plan["tiles_per_block"] * rpb
+    for b in range(plan["blocks"]):
+        assert b * span < rows  # no block without a row
+        seen[b * span:(b + 1) * span] += 1
+    assert torch.all(seen == 1)
