@@ -298,6 +298,18 @@ non-zero and no result line is printed):
    forward is f32 where K4's is bf16 at ``train_fused`` 1 and 2, the
    loss and gradients are held to phase 12b's bounds.
 
+17. the measurement scripts (``_phase_measure``), each one's ``main`` on
+   the card with its JSON printed on a line of its own and every number
+   in it finite: ``train_profile`` (the step bisection at N_rand 3072,
+   64+128; K4 and K6 twice a step in each variant), ``stream_latency``
+   over phase 15's subject at its comp and head gates, 240 pushes (K3
+   once per live field and delta frame; a closed gate returns 1 and
+   launches nothing), ``temporal_profile`` and ``comp_profile`` at 450²
+   (the stages run in order give the whole frame within 1e-6),
+   ``composite_delta`` on phase 15's pair (its full clip bitwise
+   ``make_composite_frame_renderer``'s, called as phase 12 calls it) and ``audatt_peak`` on phase 8's checkpoint; their launches count in
+   the kernels line.
+
 Then the kernel summary as one JSON line (each kernel's launches on its
 paths, K1/K2 over render_val, the composite reenact and phase 14's fast
 frames and CLIs, K4/K6 over train_head and train_torso, K3 over the
@@ -488,19 +500,26 @@ def _device_ms(run, key: str) -> float:
 
 
 def _profile(run, label: str, fname: str) -> dict:
-    """torch.profiler over one warm call of ``run``: wall time, device busy
-    time and the kernels by device time (table in chiprun_out/)."""
+    """torch.profiler over one warm call of ``run``: device busy time and
+    the kernels by device time (table in chiprun_out/), the wall of an
+    unprofiled call right before it and the idle share against that wall
+    (the profiler's own host time lengthens the profiled call, whose wall
+    is kept as ``profiled_wall_ms``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+        profiled_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
 
     def dev_us(e):
@@ -515,10 +534,12 @@ def _profile(run, label: str, fname: str) -> dict:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", fname), "w") as fh:
         fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
-    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    out = {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms,
+           "device_busy_ms": busy_ms,
            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "top": [[e.key, dev_us(e) / 1e3, e.count] for e in top]}
-    print(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
+    print(f"profile {label}: wall {wall_ms:.1f} ms ({profiled_ms:.1f} "
+          f"profiled), device busy "
           f"{busy_ms:.1f} ms, idle share {out['idle_share']:.3f}; by device "
           "time: " + "; ".join(f"{k[:40]} {ms:.2f} ms x{n}"
                                for k, ms, n in out["top"]))
@@ -3418,9 +3439,12 @@ def _gate_text(op: dict, td: dict, mode: str) -> str:
     if mode == "head":
         key = "head_only_" + key
     row = td["modes"][key]
+    same = row.get("psnr_temporal_vs_full_same_bounds")
     return (f"{key} (refresh {op['refresh']}, rung {op['keyframe_rung']}): "
             f"{row['psnr_temporal_vs_full']:.3f} dB against the full "
-            f"render, {row['delta_psnr_vs_gt']:+.3f} dB against GT, margin "
+            f"render" + (f" ({same:.3f} in the same bounds)"
+                         if same is not None else "")
+            + f", {row['delta_psnr_vs_gt']:+.3f} dB against GT, margin "
             f"{GATE_DB - row['delta_psnr_vs_gt']:.3f} dB under the gate")
 
 
@@ -3525,7 +3549,9 @@ def _phase_gates(fr, fm, fmg, dev: str = "cuda", hw: int = 450,
     secs = time.perf_counter() - t0
     n = td["frames"]
     got = {k: fr.launch_counts[k] for k in (K2, K1, K3)}
-    want = {K2: 3 * n, K1: 3 * n, K3: 0}   # the full clips, 2 + 1 fields
+    # the full clips, 2 + 1 fields, at the config's bounds and (--tighten)
+    # within the tightened bands
+    want = {K2: 6 * n, K1: 6 * n, K3: 0}
     for fields in (2, 1):
         _add(want, _temporal_launches(n, refresh, fields), len(s_delta))
     print(f"phase 15c temporal_delta ({secs:.1f} s): {n} frames, refresh "
@@ -3624,7 +3650,8 @@ def _phase_gates(fr, fm, fmg, dev: str = "cuda", hw: int = 450,
         raise AssertionError("serve --roll_k 4 was not refused as a closed "
                              "gate")
     res["roll_refusal"] = msg
-    res.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    res.update(launches=launches, seconds=time.perf_counter() - t_phase,
+               subject=subject)
     print(f"  phase 15 took {res['seconds']:.1f} s; launches {launches}")
     return res
 
@@ -3823,6 +3850,210 @@ def _phase_train_f32(args, fm, fmg, head_ckpt: str, rays: int = 2048,
     return out
 
 
+def _finite_numbers(tree, where: str = "") -> None:
+    """Raise on any non-finite number in a JSON-like tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _finite_numbers(v, f"{where}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _finite_numbers(v, f"{where}/{i}")
+    elif isinstance(tree, float) and not math.isfinite(tree):
+        raise AssertionError(f"{where}: non-finite {tree}")
+
+
+def _script_json(name: str, res: dict) -> None:
+    """A script's JSON on a line of its own, its numbers held finite."""
+    _finite_numbers(res, name)
+    print(f"  {name} " + json.dumps(res))
+
+
+K4, K6 = "fused_point_mlp", "fused_point_mlp_grad"
+MEASURE_STEPS = 20       # train_profile's steps a variant
+MEASURE_PUSHES = 240     # stream_latency's pushes a mode: p99 over 200+
+MEASURE_REPS = 5         # the profiles' window
+STAGE_ATOL = 1e-6        # a stage chain against its whole frame: the same
+                         # kernels on the same inputs
+
+
+def _phase_measure(head_ckpt: str, gates: dict, dev: str = "cuda",
+                   hw: int = 450, clip: int = 3) -> dict:
+    """Phase 17: the measurement scripts' ``main`` on the card, each JSON
+    printed and its numbers finite. 17a train_profile (MEASURE_STEPS
+    steps a variant at N_rand 3072, 64+128, train_fused 2: K4 and K6
+    twice a step in every variant, all of which run the backward); 17b
+    stream_latency over phase 15's subject, evidence and checkpoints,
+    MEASURE_PUSHES pushes, comp and head: at an open gate K3 launches
+    once per live field and delta frame of the timed stream, at a closed
+    one it returns 1 and launches nothing; 17c temporal_profile and 17d
+    comp_profile at ``hw``² (MEASURE_REPS reps): their stages run in order
+    give the whole frame's image (within STAGE_ATOL); 17e composite_delta
+    over ``clip`` frames of phase 15's val clip (fast 16+32, --tighten):
+    its full clip equals, bitwise, ``make_composite_frame_renderer``
+    called frame by frame as phase 12 calls it, on the same inputs; 17f
+    audatt_peak on phase 8's checkpoint over the subject's audio track
+    (the model's config from the ``args.txt`` train_head wrote beside
+    it). Returns the launches of all of it."""
+    import numpy as np
+    import torch
+
+    from idealnerf_tpu_torch.cli.common import load_head, load_torso
+    from idealnerf_tpu_torch.config import ExperimentConfig
+    from idealnerf_tpu_torch.data.dataset import load_transforms_dataset
+    from idealnerf_tpu_torch.eval.operating_points import gated_video_config
+    from idealnerf_tpu_torch.eval.renderer import (
+        make_composite_frame_renderer,
+    )
+    from idealnerf_tpu_torch.scripts import (
+        audatt_peak, comp_profile, composite_delta, stream_latency,
+        temporal_profile, timing, train_profile,
+    )
+    from idealnerf_tpu_torch.train.torso import torso_nerf_config, torso_signal
+
+    t_phase = time.perf_counter()
+    out_dir = "chiprun_out/measure"
+    os.makedirs(out_dir, exist_ok=True)
+    subject = gates["subject"]
+    ckpts = ["--head_ckpt", gates["train"]["head"]["ckpt_dir"],
+             "--torso_ckpt", gates["train"]["torso"]["ckpt_dir"]]
+    res, before = {}, timing.launch_snapshot()
+
+    # 17a: the step bisection
+    t0 = time.perf_counter()
+    tp = train_profile.main(["--steps", str(MEASURE_STEPS), "--hw", str(hw),
+                             "--device", dev, "--out",
+                             f"{out_dir}/train_profile.json"])
+    print(f"phase 17a train_profile ({time.perf_counter() - t0:.1f} s): "
+          + ", ".join(f"{k} {tp[k]['ms_per_step']:.2f} ms"
+                      for k in train_profile.VARIANTS)
+          + f"; sampler {tp['sampler_ms']:.2f}, Adam vs SGD "
+          f"{tp['adam_vs_sgd_ms']:.2f}, optimizer {tp['optimizer_ms']:.2f}")
+    _script_json("train_profile", tp)
+    for k in train_profile.VARIANTS:
+        steps = tp[k]["steps"]
+        got = {n: tp[k]["launches"].get(n, 0) for n in (K4, K6)}
+        if dev == "cuda" and got != {K4: 2 * steps, K6: 2 * steps}:
+            raise AssertionError(f"train_profile {k}: {steps} steps "
+                                 f"launched {got}")
+    res["train_profile"] = tp
+
+    # 17b: serving at the gated points
+    res["stream_latency"] = {}
+    for mode in ("comp", "head"):
+        t0 = time.perf_counter()
+        op = gated_video_config(subject, mode)
+        snap = timing.launch_snapshot()
+        r = stream_latency.main([
+            "--evidence_dir", subject, "--mode", mode, "--frames",
+            str(MEASURE_PUSHES), "--device", dev, *ckpts, "--out",
+            f"{out_dir}/stream_latency_{mode}.json"])
+        if op is None:
+            print(f"phase 17b stream_latency --mode {mode}: no open gate, "
+                  f"returned {r}")
+            if r != 1 or timing.launches_since(snap):
+                raise AssertionError(f"stream_latency {mode} without a gate "
+                                     f"returned {r} or launched")
+            res["stream_latency"][mode] = {"open": False}
+            continue
+        live = 1 + int(mode == "comp" and not op["freeze_z_torso"]
+                       and not op["roll_k_torso"])
+        k3 = r["launches"]["stream"].get(K3, 0)
+        print(f"phase 17b stream_latency --mode {mode} "
+              f"({time.perf_counter() - t0:.1f} s): refresh "
+              f"{op['refresh']}, s_delta {op['s_delta']}, rung "
+              f"{op['keyframe_rung']}: p50 {r['p50_ms']:.2f} p95 "
+              f"{r['p95_ms']:.2f} p99 {r['p99_ms']:.2f} ms, keyframe p50 "
+              f"{r['keyframe_p50_ms']}, delta p50 {r['delta_p50_ms']:.2f}, "
+              f"40 ms hit rate {r['deadline_40ms_hit_rate']:.3f}, launch "
+              f"floor {r['local_launch_floor_ms']:.3f} ms, compute slope "
+              f"{r['compute_isolation']['compute_ms_per_frame']:.2f} ms; "
+              f"K3 {k3} for {r['delta_frames']} delta frames x {live}")
+        _script_json(f"stream_latency_{mode}", r)
+        if r["emitted"] != MEASURE_PUSHES or (
+                dev == "cuda" and k3 != live * r["delta_frames"]):
+            raise AssertionError(f"stream_latency {mode}: emitted "
+                                 f"{r['emitted']}, K3 {k3}")
+        res["stream_latency"][mode] = r
+
+    # 17c, 17d: the stage splits, each chain against its whole frame
+    for tag, mod in (("17c", temporal_profile), ("17d", comp_profile)):
+        t0 = time.perf_counter()
+        name = mod.__name__.rsplit(".", 1)[-1]
+        r = mod.main(["--reps", str(MEASURE_REPS), "--hw", str(hw),
+                      "--device", dev, "--out", f"{out_dir}/{name}.json"])
+        print(f"phase {tag} {name} ({time.perf_counter() - t0:.1f} s): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in r["stages_ms"].items())
+              + f" ms; whole {r['end_to_end_ms']:.2f}, glue "
+              f"{r['glue_ms']:.2f}; stage chain vs whole frame max abs "
+              f"{r['stage_chain_max_abs_err']:.3g} (tol {STAGE_ATOL:g})")
+        _script_json(name, r)
+        if not r["stage_chain_max_abs_err"] <= STAGE_ATOL:
+            raise AssertionError(f"{name}: the stages do not give the frame")
+        res[name] = r
+
+    # 17e: the composite fast mode's quality on phase 15's pair
+    t0 = time.perf_counter()
+    r = composite_delta.main([
+        "--subject_dir", subject, "--frames", str(clip), "--samples", "16",
+        "--importance", "32", "--tighten", "--device", dev, *ckpts, "--out",
+        f"{out_dir}/composite_delta.json"])
+    full = r.pop("frames_rendered")["full"]
+    cfg = ExperimentConfig.from_file(os.path.join(subject,
+                                                  "HeadNeRF_config.txt"))
+    ds = load_transforms_dataset(cfg.datadir, "val", near=cfg.near,
+                                 far=cfg.far, gt_dirs="com_imgs")
+    st = load_head(argparse.Namespace(seed=0, head_ckpt=ckpts[1]), cfg,
+                   ds.size)
+    head, torso = st.params.to(dev), load_torso(ckpts[3], cfg, dev)
+    comp = make_composite_frame_renderer(
+        cfg.face_nerf_config(), torso_nerf_config(cfg), *ds.hw, ds.focal,
+        ds.near, ds.far, cfg.render_config(), cx=ds.cx, cy=ds.cy)
+    poses = torch.from_numpy(ds.poses).to(dev)
+    bc = torch.from_numpy(ds.bc_img).to(dev).float() / 255
+    with torch.no_grad():
+        auds = head["aud_net"](torch.from_numpy(
+            ds.auds[ds.aud_ids[:clip]].astype(np.float32)).to(dev))
+    want = np.stack([comp(
+        head, torso, poses[i], poses[0], bc, aud=auds[i],
+        signal=torso_signal(auds[i], poses[i], cfg.dim_aud_body),
+        expr=(torch.from_numpy(ds.exprs[i].astype(np.float32)).to(dev)
+              if cfg.dim_expr else None),
+        latent=st.latent_codes[0].to(dev)).clamp(0.0, 1.0).cpu().numpy()
+        for i in range(clip)])
+    same = bool(np.array_equal(full, want))
+    print(f"phase 17e composite_delta ({time.perf_counter() - t0:.1f} s): "
+          f"{r['frames']} frames, fast {r['fast_schedule']} keep "
+          f"{r['keep']}: {r['psnr_fast_vs_full']:.3f} dB against the full "
+          f"render, full {r['psnr_full_vs_gt']:.3f} / fast "
+          f"{r['psnr_fast_vs_gt']:.3f} dB against GT, "
+          f"{r['ms_per_frame_full_warm']:.1f} / "
+          f"{r['ms_per_frame_fast_warm']:.1f} ms a frame; full clip "
+          f"bitwise make_composite_frame_renderer's: {same}")
+    _script_json("composite_delta", r)
+    if not same:
+        raise AssertionError("composite_delta's full clip is not the "
+                             "composite renderer's")
+    res["composite_delta"] = r
+
+    # 17f: the trained AudioAttNet's attention
+    r = audatt_peak.main(["--ckpt", head_ckpt, "--subject", subject,
+                          "--config", os.path.join(os.path.dirname(head_ckpt),
+                                                   "args.txt"),
+                          "--device", dev, "--out",
+                          f"{out_dir}/audatt_peak.json"])
+    print(f"phase 17f audatt_peak (step {r['step']}, {r['frames']} "
+          f"windows): centre share {r['argmax_at_center_fraction']:.3f}, "
+          f"centre weight {r['mean_center_weight']:.4f} (uniform "
+          f"{r['uniform_weight']:.4f})")
+    _script_json("audatt_peak", r)
+    res["audatt_peak"] = r
+    res.update(launches=timing.launches_since(before),
+               seconds=time.perf_counter() - t_phase)
+    print(f"  phase 17 took {res['seconds']:.1f} s; launches "
+          f"{res['launches']}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rays", type=int, default=8192)
@@ -3834,6 +4065,7 @@ def main(argv=None) -> int:
     ap.add_argument("--train_epochs", type=int, default=5)
     ap.add_argument("--serve_frames", type=int, default=30)
     args = ap.parse_args(argv)
+    t_run = time.perf_counter()
 
     import torch
 
@@ -4086,6 +4318,10 @@ def main(argv=None) -> int:
     res16 = _phase_train_f32(args, fm, fmg, res8["ckpt_dir"])
     report["train_f32"] = res16
 
+    # ---- phase 17: the measurement scripts
+    res17 = _phase_measure(res8["ckpt_dir"], res15)
+    report["measure"] = res17
+
     # launches on the main paths: render_val and the composite reenact
     # (K1, K2), train_head and train_torso (K4, K6), serve head-only and
     # composite (K3)
@@ -4134,6 +4370,9 @@ def main(argv=None) -> int:
     # the f32 passes' launches on their path: phase 16's train_head run
     for k in ("grad_pass_a_f32", "grad_pass_b_f32"):
         counts[k] = res16["launches"][k]
+    # and the measurement scripts' (K1-K4, K6)
+    for k in counts:
+        counts[k] += res17["launches"].get(k, 0)
     errs.update(grad_pass_a_f32=max(f32["pass_a_err"],
                                     res7["pass_a_f32_1001_err"]),
                 grad_pass_b_f32=f32["pass_b_err"])
@@ -4168,6 +4407,9 @@ def main(argv=None) -> int:
     if idle:
         raise AssertionError(f"not launched on their paths: {idle}")
     report["kernels"] = kernels
+    report["seconds"] = time.perf_counter() - t_run
+    print(f"chip_smoke: all phases in {report['seconds']:.1f} s, the build "
+          f"included")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)

@@ -9,9 +9,11 @@ differ from a freshly initialised target keep the fresh value, so changing
 the conditioning dims keeps the fresh init of exactly the conditioned
 layers (audio_exp_nerf.py:498-514 in the reference).
 
-The JAX package writes orbax directories ``step_{step:010d}/``; reading
-them is not ported yet (ROADMAP.md A6), and a directory that holds only
-those raises NotImplementedError.
+The JAX package writes orbax directories ``step_{step:010d}/``; the port
+does not read them (it imports no orbax). ``orbax_to_torch.py`` at the
+repo's root converts them into these files where jax and orbax are
+installed, and a directory that holds only orbax steps raises
+NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-_NOT_PORTED = ("orbax checkpoints of the JAX package are not readable yet "
-               "(ROADMAP.md A6: orbax checkpoint reading)")
+_NOT_PORTED = ("orbax checkpoints of the JAX package, which the port does "
+               "not read: convert them with orbax_to_torch.py --src <this "
+               "dir> --dst <dir> (where jax and orbax are installed)")
 
 
 def _flatten(tree, prefix=()):

@@ -37,6 +37,24 @@ def get_rays(H: int, W: int, focal, c2w: torch.Tensor, cx=None, cy=None):
     return rays_o, rays_d
 
 
+def ndc_rays(H: int, W: int, focal, near, rays_o: torch.Tensor,
+             rays_d: torch.Tensor):
+    """(rays_o, rays_d) of shape (..., 3) -> the same rays in normalised
+    device coordinates: each origin moved onto the plane z = -near, then
+    x and y scaled by the half-extent of the image and z mapped as 1 +
+    2 near / z (the forward-facing NDC of helper.py:246-265). No render
+    path calls it: face data renders in world space."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    ax, ay = -1.0 / (W / (2.0 * focal)), -1.0 / (H / (2.0 * focal))
+    ox, oy, oz = rays_o[..., 0], rays_o[..., 1], rays_o[..., 2]
+    o = torch.stack([ax * ox / oz, ay * oy / oz, 1.0 + 2.0 * near / oz], -1)
+    d = torch.stack([ax * (rays_d[..., 0] / rays_d[..., 2] - ox / oz),
+                     ay * (rays_d[..., 1] / rays_d[..., 2] - oy / oz),
+                     -2.0 * near / oz], -1)
+    return o, d
+
+
 def pose_to_euler_trans(poses: torch.Tensor) -> torch.Tensor:
     """(B, 3|4, 4) poses -> (B, 6) [euler (3), translation (3)]: the
     tracker's euler extraction, atan2(R22, R12), asin(-R02), atan2(R00,

@@ -14,14 +14,21 @@ module is their one reader: ``cli/serve.py --auto_temporal`` and
 ``cli/eval_reenact.py --auto_temporal`` take the gated configuration from
 it.
 
-Two faults of the JAX module are fixed here: ``_filter_roll`` matches the
-``roll<K>`` segment of a mode key exactly (``roll2`` does not select
-``roll25``), and the cost model adds the rolling keyframe share to a
-frozen-z torso as it does to a live one. The cost model's constants (the
-fixed work of a delta frame and the band dilation's share of it, in
-sample-equivalents) are keyword arguments: an evidence file carries the
-fit of its own run (``fit_delta_cost``), else the card's defaults below
-apply.
+Three faults of the JAX module are fixed here: ``_filter_roll`` matches
+the ``roll<K>`` segment of a mode key exactly (``roll2`` does not select
+``roll25``), the cost model adds the rolling keyframe share to a frozen-z
+torso as it does to a live one, and evidence of the held-out driving clip
+overrules evidence of the val clip (``_drive_first``): a gate the driving
+clip fails stays closed whatever the val clip says. One rule differs on
+purpose: where a head row holds the agreement with a full render in the
+temporal mode's own tightened bounds (``psnr_temporal_vs_full_same_bounds``,
+written by the harness under ``--tighten``) and a PSNR-vs-GT delta, the
+head gate reads that agreement (``head_agreement``), so that it measures
+the temporal error alone while the delta against GT holds the cost of the
+tighter bounds. The cost model's constants (the fixed work of a delta
+frame and the band dilation's share of it, in sample-equivalents) are
+keyword arguments: an evidence file carries the fit of its own run
+(``fit_delta_cost``), else the card's defaults below apply.
 """
 
 from __future__ import annotations
@@ -51,6 +58,11 @@ DIL_CARD = 1.234
 
 GATE_DB = 0.05       # composite and head: PSNR-vs-GT loss allowed, dB
 AGREEMENT_DB = 40.0  # head: least PSNR against the per-frame full render
+
+# the split scripts/temporal_delta.py records for a run on the driving
+# clip (--split train --subject_dir <drive dir>): the clip held out from
+# the val split the model was selected on
+DRIVE_SPLIT = "train"
 
 
 def load_temporal_evidence(evidence_dir: str) -> list:
@@ -264,6 +276,18 @@ def cost_constants(td, kind: str, fixed=None, dil=None) -> tuple:
             DIL_CARD if dil is None else dil)
 
 
+def head_agreement(v: dict) -> Optional[float]:
+    """The agreement (dB) the head gate reads from a head row: the one
+    against a full render in the same bounds where the row has it and a
+    PSNR-vs-GT delta to hold the bounds' own cost, else the one against
+    the full render at the config's bounds (None where the row has
+    neither)."""
+    same = v.get("psnr_temporal_vs_full_same_bounds")
+    if same is not None and v.get("delta_psnr_vs_gt") is not None:
+        return same
+    return v.get("psnr_temporal_vs_full")
+
+
 def pick_temporal_points(td, refresh, default_s_delta=32, fps_trust=True,
                          fixed=None, dil=None):
     """Per-mode temporal operating points from temporal_delta.json
@@ -271,12 +295,13 @@ def pick_temporal_points(td, refresh, default_s_delta=32, fps_trust=True,
 
     For each of composite / head-only, picks the cheapest measured point
     whose quality gate holds - composite: <= 0.05 dB PSNR-vs-GT delta;
-    head-only: >= 40 dB agreement with the per-frame full render and,
-    where the evidence has head_imgs ground truth, <= 0.05 dB PSNR-vs-GT
-    delta - provided the evidence was measured at this keyframe interval
-    (drift grows with refresh). Falls back to ``default_s_delta`` with the
-    quality gate closed when no measured point holds. ``fixed``/``dil``:
-    the cost model's constants (``cost_constants``)."""
+    head-only: >= 40 dB agreement with the per-frame full render
+    (``head_agreement``) and, where the evidence has head_imgs ground
+    truth, <= 0.05 dB PSNR-vs-GT delta - provided the evidence was
+    measured at this keyframe interval (drift grows with refresh). Falls
+    back to ``default_s_delta`` with the quality gate closed when no
+    measured point holds. ``fixed``/``dil``: the cost model's constants
+    (``cost_constants``)."""
     modes = td.get("modes", {}) if td else {}
     usable = bool(td) and td.get("refresh") == refresh
     kf_width = _kf_width(td)
@@ -322,7 +347,7 @@ def pick_temporal_points(td, refresh, default_s_delta=32, fps_trust=True,
                if usable and v.get("delta_psnr_vs_gt", 99.0) <= GATE_DB]
     head_ok = [(p, v) for p, v in head
                if usable
-               and v.get("psnr_temporal_vs_full", 0.0) >= AGREEMENT_DB
+               and (head_agreement(v) or 0.0) >= AGREEMENT_DB
                and v.get("delta_psnr_vs_gt", 0.0) <= GATE_DB]
     comp_ok_pts = [p for p, _ in comp_ok]
     head_ok_pts = [p for p, _ in head_ok]
@@ -338,7 +363,7 @@ def pick_temporal_points(td, refresh, default_s_delta=32, fps_trust=True,
         "composite_delta_db_vs_gt": {
             mode_key(p): v.get("delta_psnr_vs_gt") for p, v in comp},
         "head_agreement_db_vs_full": {
-            mode_key(p): v.get("psnr_temporal_vs_full") for p, v in head},
+            mode_key(p): head_agreement(v) for p, v in head},
         "s_delta_comp": c0["s"] if c0 else default_s_delta,
         "s_delta_torso_comp": c0["st"] if c0 else None,
         "delta_keep_comp": c0["keep"] if c0 else 1.0,
@@ -389,6 +414,21 @@ def _filter_roll(cands, roll_k):
             for td in cands]
 
 
+_PREFIX = {"comp": "s_delta_", "head": "head_only_s_delta_"}
+
+
+def _drive_first(cands, mode: str) -> list:
+    """The files that decide ``mode``'s gate: of the files holding a
+    point of that mode, the driving-clip ones (``split`` DRIVE_SPLIT)
+    where there are any, else all of them. So a val-clip file cannot open
+    a gate that a driving-clip file measured."""
+    has = [td for td in cands
+           if any(parse_mode_key(k, _PREFIX[mode]) is not None
+                  for k in td.get("modes") or {})]
+    drive = [td for td in has if td.get("split") == DRIVE_SPLIT]
+    return drive or has
+
+
 def pick_temporal_mode_configs(cands, default_s_delta, default_refresh,
                                roll_k: int = 0, fixed=None, dil=None):
     """Per-mode temporal configuration across several evidence files
@@ -398,7 +438,8 @@ def pick_temporal_mode_configs(cands, default_s_delta, default_refresh,
     quality gate holds (pick_temporal_points), prefer the largest
     keyframe interval - keyframe cost amortizes over more frames - with
     that file's cheapest quality-holding point and its keyframe rung.
-    Falls back to the defaults with the gate closed.
+    Only the files ``_drive_first`` keeps for the mode take part. Falls
+    back to the defaults with the gate closed.
 
     ``roll_k``: 0 (default) selects among keyframed points only; K > 1
     among points measured at the roll<K> rolling cadence."""
@@ -415,7 +456,7 @@ def pick_temporal_mode_configs(cands, default_s_delta, default_refresh,
             ("comp", "composite_video_quality_ok", "s_delta_comp"),
             ("head", "head_video_quality_ok", "s_delta_head")):
         best = None
-        for td in cands:
+        for td in _drive_first(cands, mode):
             trust = bool(med and td.get("fps_full_warm")
                          and td["fps_full_warm"] >= 0.5 * med)
             tq = pick_temporal_points(td, td.get("refresh"),

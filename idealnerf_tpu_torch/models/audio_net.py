@@ -59,17 +59,20 @@ class AudioAttNet(nn.Module):
         self.att = nn.Linear(seq_len, seq_len, device=device)
         init_weights_(self, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (seq_len, dim) -> (dim,) attention-weighted sum over the
-        window, or a batch of windows (B, seq_len, dim) -> (B, dim); only
-        the first dim_aud channels feed the attention."""
-        xb = x if x.ndim == 3 else x[None]
+    def attention(self, xb: torch.Tensor) -> torch.Tensor:
+        """Windows (B, seq_len, dim) -> their attention weights (B,
+        seq_len), a softmax over the window; only the first dim_aud
+        channels feed it."""
         y = xb[..., : self.dim_aud].transpose(1, 2)  # (B, dim_aud, seq_len)
         for conv in self.conv:
             y = leaky_relu(conv(y))
-        logits = self.att(y.reshape(-1, self.seq_len))
-        w = torch.softmax(logits, dim=1)[..., None]  # (B, seq_len, 1)
-        out = torch.sum(w * xb, dim=1)
+        return torch.softmax(self.att(y.reshape(-1, self.seq_len)), dim=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (seq_len, dim) -> (dim,) attention-weighted sum over the
+        window, or a batch of windows (B, seq_len, dim) -> (B, dim)."""
+        xb = x if x.ndim == 3 else x[None]
+        out = torch.sum(self.attention(xb)[..., None] * xb, dim=1)
         return out if x.ndim == 3 else out[0]
 
 

@@ -5,7 +5,11 @@ port's probes of its chain kernels against a parent checkout: ``kdelta``
 (the temporal delta kernel), ``kframe`` (the frame's coarse and fine
 kernels), ``kpoint`` (the point MLP and its encoded twin) and ``kprobe``
 (the diagnosis probes on the wgmma chain), on the A/B harness of
-``harness``; each one's docstring says how it runs.
+``harness``; the gate harness (``rehearsal``, ``sample_sweep``,
+``temporal_delta``); and the measurement scripts (``train_profile``,
+``stream_latency``, ``temporal_profile``, ``comp_profile``,
+``composite_delta``, ``audatt_peak``, on the shared pieces of
+``timing``). Each one's docstring says how it runs.
 
     python -m idealnerf_tpu_torch.scripts.kdiag4 --kd4 V0,V2,V3,VX
     python -m idealnerf_tpu_torch.scripts.kdiag --device cpu --rows 256

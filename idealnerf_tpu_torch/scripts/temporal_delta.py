@@ -29,6 +29,20 @@ delta frame's ms to the cost model over the run's s_delta values
 dilation timed here), which the picker uses in place of its card
 defaults. Frames render on ``--device`` (default cuda; on cpu the
 kernels' plain versions run and the times are the host's).
+
+Under ``--tighten`` the temporal modes render in each field's tightened
+band while the full clips stay at the config's bounds, so
+``psnr_temporal_vs_full`` measures the change of bounds as well as the
+temporal error. The harness then also renders the full clips within the
+tightened bands (the composite as the fast composite at keep 1.0 with no
+prior, which renders every ray's full coarse + fine schedule: the full
+composite within each field's band) and writes each mode's agreement
+with them as
+``psnr_temporal_vs_full_same_bounds``, and their PSNR against ground
+truth as ``psnr_full_same_bounds_vs_gt`` and
+``psnr_head_full_same_bounds_vs_gt``; the head gate reads that agreement
+(``operating_points.head_agreement``). The JAX picker ignores the new
+fields.
 """
 
 from __future__ import annotations
@@ -309,6 +323,10 @@ def main(argv=None) -> dict:
 
     full, t_full_warm, _ = timed(cfg, **common)
     gt = identity.images[:n].astype(np.float32) / 255.0
+    # the full clip within the temporal modes' own bounds: keep 1.0 with
+    # no prior is the full composite in per-field bands
+    full_same = (timed(cfg, bounds=bounds, fast_keep=1.0, **common)[0]
+                 if bounds else None)
     dil_ms = dilation_ms(identity, device)
     kf_width = kf_s + kf_imp
     out = {
@@ -325,6 +343,8 @@ def main(argv=None) -> dict:
             if bounds else None),
         "psnr_full_vs_gt": psnr(full, gt),
         "fps_full_warm": round(1.0 / t_full_warm, 3),
+        **({"psnr_full_same_bounds_vs_gt": psnr(full_same, gt)}
+           if bounds else {}),
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "dilation_ms": dil_ms,
@@ -353,6 +373,8 @@ def main(argv=None) -> dict:
             "fps_delta_frames": fps_delta,
             "keyframe_cost_measured": measured_key,
         }
+        if bounds:
+            m["psnr_temporal_vs_full_same_bounds"] = psnr(tm, full_same)
         del tm
         out["modes"][f"s_delta_{s_delta}{tsuf}{ksuf_comp}"] = m
         print(f"s_delta={s_delta}{tsuf}{ksuf_comp}: {json.dumps(m)}",
@@ -360,7 +382,7 @@ def main(argv=None) -> dict:
         out["delta_cost_fit"]["comp"] = fit_delta_cost(
             out["modes"], "s_delta_", kf_width, dil_ms)
         _write(out)
-    del full
+    del full, full_same
 
     # head-only temporal vs the full head-only render and vs head_imgs GT
     gt_h = None
@@ -375,8 +397,12 @@ def main(argv=None) -> dict:
     common_h = {k: v for k, v in common.items() if k != "torso_params"}
     full_h, t_full_warm, _ = timed(cfg, **common_h)
     out["fps_head_full_warm"] = round(1.0 / t_full_warm, 3)
+    full_h_same = (timed(cfg, bounds=bounds["head"], **common_h)[0]
+                   if bounds else None)
     if gt_h is not None:
         out["psnr_head_full_vs_gt"] = psnr(full_h, gt_h)
+        if bounds:
+            out["psnr_head_full_same_bounds_vs_gt"] = psnr(full_h_same, gt_h)
     for s_delta in args.s_delta:
         kw = dict(temporal=args.refresh, s_delta=s_delta, use_prior=True,
                   bounds=bounds["head"] if bounds else None,
@@ -390,6 +416,8 @@ def main(argv=None) -> dict:
             "fps_delta_frames": fps_delta,
             "keyframe_cost_measured": measured_key,
         }
+        if bounds:
+            m["psnr_temporal_vs_full_same_bounds"] = psnr(tm, full_h_same)
         if gt_h is not None:
             m["psnr_temporal_vs_gt"] = psnr(tm, gt_h)
             m["delta_psnr_vs_gt"] = round(

@@ -225,7 +225,10 @@ class HeadTrainer:
             st.latent_codes.copy_(ck["latent_codes"])
         st.optimizer.load_state_dict(ck["optimizer"])
         st.step = int(ck["step"])
-        self.generator.set_state(ck["rng"].cpu())
+        # a checkpoint converted from the JAX package holds no generator
+        # state (orbax_to_torch.py): the run draws on from its seed
+        if "rng" in ck:
+            self.generator.set_state(ck["rng"].cpu())
 
     def save(self):
         if self.ckpt is not None:

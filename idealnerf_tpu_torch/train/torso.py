@@ -231,7 +231,10 @@ class TorsoTrainer:
         self.state.params.load_state_dict(ck["torso_params"])
         self.state.optimizer.load_state_dict(ck["opt_state"])
         self.state.step = int(ck["step"])
-        self.generator.set_state(ck["rng"].cpu())
+        # a checkpoint converted from the JAX package holds no generator
+        # state (orbax_to_torch.py): the run draws on from its seed
+        if "rng" in ck:
+            self.generator.set_state(ck["rng"].cpu())
 
     def save(self):
         if self.ckpt is not None:

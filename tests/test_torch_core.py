@@ -14,13 +14,14 @@ import torch
 from idealnerf_tpu.core.composite import raw2outputs as jax_raw2outputs
 from idealnerf_tpu.core.embedding import positional_encoding as jax_pe
 from idealnerf_tpu.core.rays import get_rays as jax_get_rays
+from idealnerf_tpu.core.rays import ndc_rays as jax_ndc_rays
 from idealnerf_tpu.core.render import RenderConfig as JaxRenderConfig
 from idealnerf_tpu.core.render import render_rays as jax_render_rays
 from idealnerf_tpu.core.sampling import sample_pdf as jax_sample_pdf
 from idealnerf_tpu.core.sampling import stratified_sample as jax_stratified
 from idealnerf_tpu_torch.core.composite import raw2outputs
 from idealnerf_tpu_torch.core.embedding import pe_dim, positional_encoding
-from idealnerf_tpu_torch.core.rays import get_rays
+from idealnerf_tpu_torch.core.rays import get_rays, ndc_rays
 from idealnerf_tpu_torch.core.render import RenderConfig, render_rays
 from idealnerf_tpu_torch.core.sampling import sample_pdf, stratified_sample
 
@@ -75,6 +76,42 @@ def test_get_rays_matches_jax():
         jo, jd = jax_get_rays(12, 17, 21.5, jnp.asarray(pose), cx, cy)
         _close(o, jo)
         _close(d, jd)
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ndc_rays_matches_jax(seed):
+    """Seeded rays of a random pose (directions pointing down -z, the
+    forward-facing case NDC is for) in normalised device coordinates,
+    against the JAX function at 1e-6."""
+    rng = np.random.RandomState(seed)
+    H, W, focal, near = 12, 10, 30.0, 1.0
+    o = (rng.randn(H, W, 3) * 0.2 + [0.0, 0.0, 0.5]).astype(np.float32)
+    d = np.concatenate([rng.randn(H, W, 2) * 0.3,
+                        -rng.uniform(0.5, 1.5, (H, W, 1))], -1)
+    d = d.astype(np.float32)
+    got = ndc_rays(H, W, focal, near, torch.from_numpy(o),
+                   torch.from_numpy(d))
+    want = jax_ndc_rays(H, W, focal, near, jnp.asarray(o), jnp.asarray(d))
+    for g, w in zip(got, want):
+        assert g.shape == (H, W, 3)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_ndc_rays_z_convention():
+    """A ray down -z from the camera centre: its origin lands on the near
+    plane at NDC z = -1 and its direction spans the rest of the frustum,
+    as the JAX function's (tests/test_core_math.py)."""
+    o = torch.tensor([[0.0, 0.0, -1.0]])
+    d = torch.tensor([[0.0, 0.0, -1.0]])
+    o2, d2 = ndc_rays(8, 8, 10.0, 1.0, o, d)
+    assert o2.shape == (1, 3) and d2.shape == (1, 3)
+    assert torch.isfinite(o2).all() and torch.isfinite(d2).all()
+    jo, jd = jax_ndc_rays(8, 8, 10.0, 1.0, jnp.asarray(o.numpy()),
+                          jnp.asarray(d.numpy()))
+    np.testing.assert_allclose(o2.numpy(), np.asarray(jo), atol=1e-6)
+    np.testing.assert_allclose(d2.numpy(), np.asarray(jd), atol=1e-6)
+    np.testing.assert_allclose(o2.numpy(), [[0.0, 0.0, -1.0]], atol=1e-6)
+    np.testing.assert_allclose(d2.numpy(), [[0.0, 0.0, 2.0]], atol=1e-6)
 
 
 @pytest.mark.parametrize("lindisp", [False, True])

@@ -41,6 +41,18 @@ TOP = {"frames", "split", "subject_dir", "refresh", "keyframe_rung",
 COMP_ROW = {"psnr_temporal_vs_full", "psnr_temporal_vs_gt",
             "delta_psnr_vs_gt", "fps_temporal_warm", "fps_delta_frames",
             "keyframe_cost_measured"}
+# under --tighten: the agreement with a full render in the same bounds
+SAME = "psnr_temporal_vs_full_same_bounds"
+
+
+def _as_the_port_reads(td: dict) -> dict:
+    """``td`` with each head row's agreement replaced by the one the
+    port's head gate reads (``operating_points.head_agreement``): the JAX
+    picker fed this file picks what the port picks from ``td``."""
+    modes = {k: (dict(v, psnr_temporal_vs_full=op.head_agreement(v))
+                 if k.startswith("head_only_") else v)
+             for k, v in td["modes"].items()}
+    return dict(td, modes=modes)
 
 
 @pytest.fixture(scope="module")
@@ -112,13 +124,11 @@ def test_harness_evidence_reads_the_same_through_both_pickers(measured):
     comp = [f"s_delta_{s}" for s in S_DELTA]
     head = [f"head_only_s_delta_{s}" for s in S_DELTA]
     assert list(td["modes"]) == comp + head
-    for k in comp:
-        assert set(td["modes"][k]) == COMP_ROW
-    for k in head:
-        assert set(td["modes"][k]) == COMP_ROW
+    for k in comp + head:
+        assert set(td["modes"][k]) == COMP_ROW | {SAME}
     with open(os.path.join(measured["subject"], "temporal_delta.json")) as fh:
         assert json.load(fh) == td
-    want = jop.pick_temporal_points(td, REFRESH)
+    want = jop.pick_temporal_points(_as_the_port_reads(td), REFRESH)
     # every key parses under both pickers
     assert len(want["composite_delta_db_vs_gt"]) == len(comp)
     assert len(want["head_agreement_db_vs_full"]) == len(head)
@@ -160,14 +170,22 @@ def _psnr_rows(measured):
     full_h = reenact(cfg, state.params, ds, **common)
     tm_h = reenact(cfg_kf, state.params, ds, temporal=REFRESH, s_delta=s,
                    use_prior=True, bounds=bounds["head"], **common)
+    # the full clips within the temporal modes' tightened bands
+    same = reenact(cfg, state.params, ds, torso_params=torso, bounds=bounds,
+                   fast_keep=1.0, **common)
+    same_h = reenact(cfg, state.params, ds, bounds=bounds["head"], **common)
     p = temporal_delta.psnr
     return {"psnr_full_vs_gt": p(full, gt),
             "psnr_head_full_vs_gt": p(full_h, gt_h),
+            "psnr_full_same_bounds_vs_gt": p(same, gt),
+            "psnr_head_full_same_bounds_vs_gt": p(same_h, gt_h),
             f"s_delta_{s}": {"psnr_temporal_vs_full": p(tm, full),
-                             "psnr_temporal_vs_gt": p(tm, gt)},
+                             "psnr_temporal_vs_gt": p(tm, gt),
+                             SAME: p(tm, same)},
             f"head_only_s_delta_{s}": {"psnr_temporal_vs_full": p(tm_h,
                                                                   full_h),
-                                       "psnr_temporal_vs_gt": p(tm_h, gt_h)}}
+                                       "psnr_temporal_vs_gt": p(tm_h, gt_h),
+                                       SAME: p(tm_h, same_h)}}
 
 
 def test_harness_psnr_rows_are_psnr_of_the_ports_reenact_frames(measured):
@@ -176,7 +194,9 @@ def test_harness_psnr_rows_are_psnr_of_the_ports_reenact_frames(measured):
     assert tuple(td["tightened_bounds"]["head"]) == cached_depth_band(
         td["head_ckpt"], "head", td["head_step"], None)
     want = _psnr_rows(measured)
-    for k in ("psnr_full_vs_gt", "psnr_head_full_vs_gt"):
+    for k in ("psnr_full_vs_gt", "psnr_head_full_vs_gt",
+              "psnr_full_same_bounds_vs_gt",
+              "psnr_head_full_same_bounds_vs_gt"):
         assert td[k] == pytest.approx(want[k], abs=1e-6)
     for key in (f"s_delta_{S_DELTA[0]}", f"head_only_s_delta_{S_DELTA[0]}"):
         for k, v in want[key].items():
@@ -412,3 +432,43 @@ def test_serve_hands_a_config_to_the_stream_as_the_jax_cli(name,
         (cfg, *_), kw = got[0]
         seen[pkg] = (kw["operating_point"], cfg.N_samples, cfg.N_importance)
     assert seen["port"] == seen["jax"]
+
+
+def test_harness_without_tighten_writes_no_same_bounds_rows(measured,
+                                                            tmp_path):
+    """C3: without --tighten the full and temporal clips share the
+    config's bounds and the evidence keeps the JAX script's fields."""
+    out = str(tmp_path / "temporal_delta_plain.json")
+    td = temporal_delta.main([
+        "--subject_dir", measured["subject"], "--frames", "3", "--refresh",
+        str(REFRESH), "--s_delta", str(S_DELTA[0]), "--device", "cpu",
+        "--out", out])
+    assert td["tightened_bounds"] is None
+    assert not any(k.startswith("psnr_full_same") or
+                   k.startswith("psnr_head_full_same") for k in td)
+    for v in td["modes"].values():
+        assert set(v) == COMP_ROW
+
+
+def test_keep_one_composite_is_the_full_composite_in_its_band(measured):
+    """C3's composite reference: ``reenact`` at ``fast_keep=1.0`` with no
+    prior and one band for both fields renders, bitwise, the full
+    composite of a subject whose near and far are that band."""
+    td, subject = measured["td"], measured["subject"]
+    cfg = ExperimentConfig.from_file(os.path.join(subject,
+                                                  "HeadNeRF_config.txt"))
+    ds = load_transforms_dataset(subject, "val", gt_dirs="com_imgs")
+    band = (ds.near + 0.25, ds.far - 0.5)
+    ds_band = load_transforms_dataset(subject, "val", near=band[0],
+                                      far=band[1], gt_dirs="com_imgs")
+    state = load_head(argparse.Namespace(seed=0, head_ckpt=td["head_ckpt"]),
+                      cfg, ds.size)
+    common = dict(driving_auds=ds.auds[ds.aud_ids[:2]],
+                  driving_exprs=ds.exprs[:2], latent_codes=state.latent_codes,
+                  torso_params=load_torso(td["torso_ckpt"], cfg, "cpu"),
+                  max_frames=2, smooth_audio=False)
+    full = reenact(cfg, state.params, ds_band, **common)
+    keep1 = reenact(cfg, state.params, ds, fast_keep=1.0,
+                    bounds={"head": band, "torso": band}, **common)
+    np.testing.assert_array_equal(keep1, full)
+    assert not np.array_equal(full, reenact(cfg, state.params, ds, **common))

@@ -2,10 +2,12 @@
 evidence: mode keys over the whole grammar, several files per directory,
 the repo's recorded evidence, sample sweeps and rehearsal results. The
 port's cost constants are passed as the JAX module's (fixed=5.6, dil=1.0).
-Two faults of the JAX module are fixed in the port and asserted as
+Three faults of the JAX module are fixed in the port and asserted as
 intended (ROADMAP.md C): ``_filter_roll`` matched ``roll2`` against
-``roll25``, and ``_cost`` left the rolling keyframe share out of a
-frozen-z torso."""
+``roll25``, ``_cost`` left the rolling keyframe share out of a frozen-z
+torso, and a val-clip file opened a gate that the driving clip failed
+(C2). The head gate's read of the same-bounds agreement (C3) is asserted
+as intended too."""
 
 import glob
 import json
@@ -376,3 +378,76 @@ def test_picker_prices_points_with_the_files_own_fit():
         comp, 96, op.FIXED_CARD, op.DIL_CARD)
     td["delta_cost_fit"] = {"comp": None}
     assert op.cost_constants(td, "comp") == (op.FIXED_CARD, op.DIL_CARD)
+
+
+def _split_file(path, split, comp_db, head_db, refresh=25):
+    """One evidence file of ``split`` with one composite and one head
+    point, at ``comp_db`` / ``head_db`` dB against GT."""
+    td = {"refresh": refresh, "split": split, "keyframe_rung": "16+32",
+          "fps_full_warm": 3.0, "fps_head_full_warm": 6.0, "modes": {
+              "s_delta_32": {"delta_psnr_vs_gt": comp_db,
+                             "fps_delta_frames": 40.0},
+              "head_only_s_delta_32": {"delta_psnr_vs_gt": head_db,
+                                       "psnr_temporal_vs_full": 45.0,
+                                       "fps_delta_frames": 50.0}}}
+    with open(path, "w") as fh:
+        json.dump(td, fh)
+
+
+@pytest.mark.parametrize("mode", ["comp", "head"])
+def test_a_driving_clip_file_overrules_the_val_clip(mode, tmp_path):
+    """C2: the val clip holds the gate, the driving clip (``split``
+    train) fails it at the same refresh: the gate stays closed, where the
+    JAX picker opens it on the val file. Where the driving clip holds it
+    and the val clip fails, it opens; a directory of val files alone
+    decides as before."""
+    d = tmp_path / "both"
+    d.mkdir()
+    _split_file(d / "temporal_delta.json", "val", -0.134, -0.1)
+    _split_file(d / "temporal_delta_drive.json", "train", 0.151, 0.2)
+    assert jop.gated_video_config(str(d), mode) is not None
+    assert op.gated_video_config(str(d), mode) is None
+    _split_file(d / "temporal_delta.json", "val", 0.151, 0.2)
+    _split_file(d / "temporal_delta_drive.json", "train", -0.134, -0.1)
+    conf = op.gated_video_config(str(d), mode)
+    assert conf is not None and conf["s_delta"] == 32
+    v = tmp_path / "val_only"
+    v.mkdir()
+    _split_file(v / "temporal_delta.json", "val", -0.134, -0.1)
+    assert op.gated_video_config(str(v), mode) == jop.gated_video_config(
+        str(v), mode) is not None
+
+
+def test_driving_clip_evidence_decides_each_mode_on_its_own_points(tmp_path):
+    """A driving-clip file with composite points only leaves the head gate
+    to the val file's head points, and the other way round."""
+    _split_file(tmp_path / "temporal_delta.json", "val", -0.1, -0.1)
+    td = {"refresh": 25, "split": "train", "keyframe_rung": "16+32",
+          "modes": {"s_delta_32": {"delta_psnr_vs_gt": 0.3}}}
+    with open(tmp_path / "temporal_delta_drive.json", "w") as fh:
+        json.dump(td, fh)
+    assert op.gated_video_config(str(tmp_path), "comp") is None
+    assert op.gated_video_config(str(tmp_path), "head") is not None
+
+
+@pytest.mark.parametrize("with_gt", [True, False])
+def test_head_gate_reads_the_same_bounds_agreement(with_gt):
+    """C3: a head row 30 dB from the full render at the config's bounds
+    but 45 dB from the full render in its own tightened bounds opens the
+    head gate where the row also holds its delta against GT (which
+    carries the cost of the tighter bounds); without that delta the gate
+    reads the config-bounds agreement and stays closed. The JAX picker,
+    which ignores the new field, keeps it closed."""
+    row = {"psnr_temporal_vs_full": 30.0,
+           "psnr_temporal_vs_full_same_bounds": 45.0,
+           "fps_delta_frames": 50.0}
+    if with_gt:
+        row["delta_psnr_vs_gt"] = 0.01
+    td = {"refresh": 25, "keyframe_rung": "16+32",
+          "modes": {"head_only_s_delta_16": row}}
+    got = op.pick_temporal_points(td, 25)
+    assert got["head_video_quality_ok"] is with_gt
+    assert got["head_agreement_db_vs_full"] == {
+        "s_delta_16": 45.0 if with_gt else 30.0}
+    assert not jop.pick_temporal_points(td, 25)["head_video_quality_ok"]
+    assert op.head_agreement({}) is None
