@@ -309,6 +309,34 @@ non-zero and no result line is printed):
    ``composite_delta`` on phase 15's pair (its full clip bitwise
    ``make_composite_frame_renderer``'s, called as phase 12 calls it) and ``audatt_peak`` on phase 8's checkpoint; their launches count in
    the kernels line.
+18. the model variants and the second-stage, baseline and UNet trainers
+   (``_phase_variants``) at the paper's widths (D=8, W=256, dim_aud 64,
+   dim_expr 76, dim_latent 32, dim_agg 64, attn_output_ch 256, 64+128).
+   18a, for ``face_nerf_agg`` and ``attention_nerf`` with softplus
+   density (a 20-step relu run can empty a net): ``cli.train_head
+   --model_variant`` for ``--train_epochs`` x ``--train_frames`` steps at
+   N_rand 2048 (K4 and K6 twice a step); one step on seeded weights at
+   ``train_fused`` 2 against 0 on fixed coordinates, no draws, at phase
+   12b's bounds for the loss and every gradient, the extras' among them
+   (a zero gradient fails, but for q and k of the one-row attention,
+   which must be zero on both paths); ``cli.render_val`` of one 450²
+   frame from the checkpoint against the same call with K1 and K2
+   replaced by their plain versions wherever they are looked up (3e-2,
+   correlation > 0.999; K2 and K1 once, none in the plain call; 1 % of
+   the pixels off the plate); ``cli.serve`` over 10 frames (launches
+   past the warm-up as phase 10's). 18b: ``cli.train_baseline`` for as
+   many steps (K4, K6 twice a step). 18c: the second stage with a second
+   synthetic subject's audio (``--driving_aud``): one crop-96 loss on
+   seeded weights with softplus density (two tiles of 8,192 rays, the
+   second padded) at ``train_fused`` 2 against 0 at phase 12b's bounds,
+   every gradient live; from phase 8's checkpoint
+   ``cli.train_second_stage`` at crop 256 for 5 steps at ``train_fused``
+   2 and 2 at 1 (8 tiles a step; K4 four times a tile, its forward run
+   again in the checkpointed backward, K6 twice), each step's ms and the
+   run's peak memory, a profiled step's idle share; ``--aux_landmark 1``
+   exits non-zero naming A11. 18d: ``train.unet.UNetTrainer`` for 5 steps
+   at 450² (the UNet through cuDNN, TF32 off), finite losses, and its
+   feature map held against the host's on the same weights.
 
 Then the kernel summary as one JSON line (each kernel's launches on its
 paths, K1/K2 over render_val, the composite reenact and phase 14's fast
@@ -427,6 +455,7 @@ WARMUP_ROLL = {"fused_render_coarse_hier": 3, "fused_render_rays": 3,
 WARMUP_COMP = {k: 2 * n for k, n in WARMUP.items()}
 WARMUP_COMP_ROLL = {k: 2 * n for k, n in WARMUP_ROLL.items()}
 MIN_GEOMETRY_PSNR = 20.0
+PROFILE_TRIES = 3  # profiled calls before a timing counts as not measured
 
 
 def _smi() -> str:
@@ -483,20 +512,34 @@ def _time_ms(fn, iters: int, host=None) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def _num(x, fmt: str, unit: str = "") -> str:
+    """``x`` in ``fmt`` with its unit, or "not measured" where it is None."""
+    return "not measured" if x is None else format(x, fmt) + unit
+
+
 def _device_ms(run, key: str) -> float:
     """Device ms of the kernels whose name holds ``key`` in one warm call
-    of ``run`` (torch.profiler)."""
+    of ``run`` (torch.profiler). The profiler's device trace comes back
+    empty now and then: up to ``PROFILE_TRIES`` profiled calls are tried,
+    then the CUDA-event ms of one whole call (all its kernels) stands in,
+    and the line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-               for e in prof.key_averages() if key in e.key) / 1e3
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        ms = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages() if key in e.key) / 1e3
+        if ms > 0:
+            return ms
+    print(f"  the profiler saw no device time of {key} in {PROFILE_TRIES} "
+          "calls: the CUDA-event ms of one whole call stands in")
+    return _time_ms(run, 1)
 
 
 def _profile(run, label: str, fname: str) -> dict:
@@ -504,7 +547,8 @@ def _profile(run, label: str, fname: str) -> dict:
     the kernels by device time (table in chiprun_out/), the wall of an
     unprofiled call right before it and the idle share against that wall
     (the profiler's own host time lengthens the profiled call, whose wall
-    is kept as ``profiled_wall_ms``)."""
+    is kept as ``profiled_wall_ms``). Where ``PROFILE_TRIES`` profiled
+    calls show no device time, busy time and idle share are None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -514,33 +558,41 @@ def _profile(run, label: str, fname: str) -> dict:
     run()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        profiled_ms = 1e3 * (time.perf_counter() - t0)
-    events = prof.key_averages()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    # device-side events only: an aten op's own row repeats its kernels' time
-    on_dev = [e for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
+    # the device trace comes back empty now and then: profile again
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            profiled_ms = 1e3 * (time.perf_counter() - t0)
+        events = prof.key_averages()
+        # device-side events only: an aten op's own row repeats its
+        # kernels' time
+        on_dev = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
+        if busy_ms > 0:
+            break
+    else:
+        busy_ms = None
     top = sorted(on_dev, key=dev_us, reverse=True)[:8]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", fname), "w") as fh:
         fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
     out = {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms,
            "device_busy_ms": busy_ms,
-           "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+           "idle_share": (None if busy_ms is None
+                          else max(0.0, 1.0 - busy_ms / wall_ms)),
            "top": [[e.key, dev_us(e) / 1e3, e.count] for e in top]}
     print(f"profile {label}: wall {wall_ms:.1f} ms ({profiled_ms:.1f} "
-          f"profiled), device busy "
-          f"{busy_ms:.1f} ms, idle share {out['idle_share']:.3f}; by device "
+          f"profiled), device busy {_num(busy_ms, '.1f', ' ms')}, idle share "
+          f"{_num(out['idle_share'], '.3f')}; by device "
           "time: " + "; ".join(f"{k[:40]} {ms:.2f} ms x{n}"
                                for k, ms, n in out["top"]))
     return out
@@ -2937,22 +2989,27 @@ FAST_KEEP = 0.4   # the fine share of the fast modes (--pruned 40, --fast 40)
 
 @contextlib.contextmanager
 def _plain_kernels():
-    """The K1/K2 wrappers that eval/renderer.py imports by name replaced by
-    their plain versions: a fast renderer's plain run on the card, which
-    counts no launch."""
+    """The K1/K2 wrappers replaced by their plain versions wherever they
+    are looked up: the names eval/renderer.py imports (the fast and pruned
+    renderers) and kernels/fused_render.py's own (``render_rays_fused``,
+    the full frame). The block must launch neither kernel."""
     from idealnerf_tpu_torch.eval import renderer
     from idealnerf_tpu_torch.kernels import fused_render as fr
 
     plain = {K1: fr.fused_render_rays_reference,
              K2: fr.fused_render_coarse_hier_reference}
-    saved = {k: getattr(renderer, k) for k in plain}
+    saved = [(m, k, getattr(m, k)) for m in (renderer, fr) for k in plain]
+    before = _frame_launches(fr)
     try:
-        for k, fn in plain.items():
-            setattr(renderer, k, fn)
+        for m, k, _ in saved:
+            setattr(m, k, plain[k])
         yield
     finally:
-        for k, fn in saved.items():
-            setattr(renderer, k, fn)
+        for m, k, fn in saved:
+            setattr(m, k, fn)
+    if _frame_launches(fr) != before:
+        raise AssertionError(f"the plain run launched kernels: "
+                             f"{before} -> {_frame_launches(fr)}")
 
 
 def _frame_launches(fr) -> dict:
@@ -3746,7 +3803,7 @@ def _phase_train_f32(args, fm, fmg, head_ckpt: str, rays: int = 2048,
            "step": {tf: _profile_train_step(args, tf, "16") for tf in (1, 2)}}
     print("  train step: " + "; ".join(
         f"train_fused {tf} {r['step_ms']:.2f} ms/step, idle share "
-        f"{r['idle_share']:.3f}" for tf, r in out["step"].items()))
+        f"{_num(r['idle_share'], '.3f')}" for tf, r in out["step"].items()))
 
     cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32,
                            N_rand=rays)
@@ -4054,6 +4111,408 @@ def _phase_measure(head_ckpt: str, gates: dict, dev: str = "cuda",
     return res
 
 
+VARIANT_EXTRAS = {"face_nerf_agg": "agg", "attention_nerf": "self_att"}
+VARIANT_HW, VARIANT_RAYS, UNET_RAYS = 450, 2048, 1024
+HELD_SEED = 11           # the seeded weights phase 18's held steps run on
+FG_LEVEL, MIN_FG = 2 / 255, 0.01  # a held frame: 1 % of pixels off the plate
+# attention_nerf's self-attention runs over one row: its softmax is 1, so
+# the query and key layers get no gradient on any path
+STRUCTURAL_ZERO = {"attention_nerf": tuple(
+    f"self_att.{m}.{p}" for m in "qk" for p in ("weight", "bias"))}
+SECOND_CROP = 256        # the paper's crop: 8 tiles of 8,192 rays
+SECOND_HOLD_CROP = 96    # 9,216 rays: two tiles, the second padded
+UNET_FEATURE_TOL = 1e-4  # the card's f32 convs against the host's, of max
+
+
+def _cfg_of(flags, **kw):
+    """The ExperimentConfig the port's CLIs resolve from ``flags``."""
+    from idealnerf_tpu_torch.cli.common import build_parser, resolve_config
+
+    cfg = resolve_config(build_parser("").parse_known_args(flags)[0])
+    return dataclasses.replace(cfg, **kw)
+
+
+def _fused_vs_plain(tag: str, step, cfg, fused: int = 2,
+                    structural=()) -> dict:
+    """``step(cfg) -> (loss, {name: grad})`` at train_fused ``fused`` (2 or
+    1: K4's forward is bf16 in both) against 0, held to phase 12b's
+    bounds on every gradient. The gradients named in ``structural`` are
+    zero by construction and must be zero on both paths; any other zero
+    gradient on the plain path fails (a dead net would hold nothing)."""
+    tol, ltol = GRAD_TOL["bf16"]["autograd"], GRAD_TOL["bf16"]["plain"]
+    min_corr = 1.0 - tol ** 2 / 2
+    (l2, g2), (l0, g0) = (step(dataclasses.replace(cfg, train_fused=tf))
+                          for tf in (fused, 0))
+    zero = sorted(n for n, g in g0.items() if float(g.abs().max()) == 0.0)
+    zero_on_card = sorted(n for n in structural
+                          if float(g2[n].abs().max()) == 0.0)
+    worst, low = _grad_gap({n: g for n, g in g2.items()
+                            if n not in structural}, g0)
+    lerr = abs(l2 - l0) / abs(l0)
+    print(f"  {tag}, train_fused {fused} vs 0 ({len(g2)} parameters, "
+          f"zero gradients {zero}, by construction {sorted(structural)}): "
+          f"loss {l2:.6f} vs {l0:.6f} (relative {lerr:.2e}, tol {ltol:g}); "
+          f"worst gradient norm-relative {worst[0]:.3e} ({worst[1]}; tol "
+          f"{tol:g}), lowest correlation {low[0]:.6f} ({low[1]}; > "
+          f"{min_corr:.5f})")
+    if not (lerr <= ltol and worst[0] <= tol and low[0] > min_corr
+            and zero == zero_on_card == sorted(structural)
+            and g2.keys() == g0.keys()):
+        raise AssertionError(f"{tag}: the fused step disagrees with the "
+                             f"plain, or zero gradients {zero} (on the "
+                             f"card {zero_on_card}) are not "
+                             f"{sorted(structural)}")
+    return {"loss_rel": lerr, "worst": worst, "lowest_corr": low}
+
+
+def _grad_dict(module) -> dict:
+    return {n: p.grad.detach().clone() for n, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def _variant_head(args, fm, fmg, fr, variant: str, dev: str, hw: int,
+                  rays: int) -> dict:
+    """18a for one variant: train, one step held, a frame held, serve."""
+    import numpy as np
+    import torch
+
+    from idealnerf_tpu_torch.cli import render_val, serve, train_head
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.train.head import HeadTrainer, make_frame_loss
+    from idealnerf_tpu_torch.train.state import init_params
+
+    # softplus density: a 20-step relu run on this subject can empty a net
+    # (the agg head's fine net rendered the plate), which holds nothing
+    dims = [*PAPER_FLAGS, "--model_variant", variant, "--density_activation",
+            "softplus", "--device", dev]
+    data = ["--synthetic", str(args.train_frames), "--synthetic_hw",
+            str(args.train_hw)]
+    base = f"output/chip_smoke_{variant}"
+    shutil.rmtree(base, ignore_errors=True)
+    fm.reset_launch_counts()
+    fmg.reset_launch_counts()
+    res = train_head.main([*data, *dims, "--N_rand", str(rays),
+                           "--epochs", str(args.train_epochs),
+                           "--i_print", "5", "--basedir", base,
+                           "--expname", "head"])
+    steps = res["step"]
+    counts, want = _train_launches(fm, fmg, steps)
+    first, last = res["history"][0][1], res["history"][-1][1]
+    print(f"phase 18a {variant} train_head: {steps} steps, loss "
+          f"{first['loss']:.5f} -> {last['loss']:.5f}, PSNR "
+          f"{first['psnr']:.3f} -> {last['psnr']:.3f}; launches {counts}")
+    if not all(math.isfinite(m[k]) for _, m in res["history"]
+               for k in ("loss", "psnr")):
+        raise AssertionError(f"{variant}: non-finite loss or PSNR")
+    if counts != want:
+        raise AssertionError(f"{variant} train_head launched {counts}, "
+                             f"want {want}")
+    launches = {K4: counts[K4], K6: counts[K6]}
+
+    cfg = _cfg_of(dims)
+    H = W = args.train_hw
+    ds = make_synthetic_dataset(n_frames=args.train_frames, H=H, W=W,
+                                dim_expr=76)
+    # the step is held on seeded weights, at every gradient
+    params = init_params(cfg, ds.size, torch.Generator().manual_seed(
+        HELD_SEED)).params.to(dev)
+    latent = torch.ones(ds.size, 32, device=dev)
+    d = ds.to_device(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    coords = torch.stack([torch.randint(0, n, (rays,), generator=gen,
+                                        device=dev) for n in (H, W)], 1)
+
+    def step(c):
+        params.zero_grad(set_to_none=True)
+        loss, _ = make_frame_loss(c, ds, False, dev)(params, latent, d, 1,
+                                                     coords, None)
+        loss.backward()
+        return float(loss.detach()), _grad_dict(params)
+
+    held = _fused_vs_plain(f"18a {variant} step", step, cfg,
+                           structural=STRUCTURAL_ZERO.get(variant, ()))
+    if not any(n.startswith(VARIANT_EXTRAS[variant] + ".")
+               for n in _grad_dict(params)):
+        raise AssertionError(f"{variant}: the extras got no gradient")
+    del params, d
+    tr = HeadTrainer(dataclasses.replace(cfg, N_rand=rays), ds, seed=0,
+                     device=dev)
+    fn = tr._step_fn(smooth=False)
+    ms = _step_ms(lambda i: fn(tr.state, tr.data, i % ds.size,
+                               tr.generator), 18)
+    print(f"  {variant} step: {sorted(ms)[1]:.2f} ms, the median of 3 "
+          f"windows of 18 steps (each {', '.join(f'{m:.2f}' for m in ms)})")
+    del tr, fn
+    torch.cuda.empty_cache()
+
+    rv_args = [*data, *dims, "--head_ckpt", res["ckpt_dir"], "--max_frames",
+               "1", "--save_path", base]
+    fr.reset_launch_counts()
+    rv = render_val.main(rv_args)
+    rv_launches = _frame_launches(fr)
+    with _plain_kernels():
+        plain = render_val.main(rv_args)
+    err = _agree(f"18a {variant} render_val frame vs the plain versions",
+                 torch.from_numpy(rv["frames"][0]),
+                 torch.from_numpy(plain["frames"][0]), corr=True)
+    fg = float((np.abs(rv["frames"][0] - ds.bc_img / 255.0).max(-1)
+                > FG_LEVEL).mean())
+    print(f"  {variant} render_val: {rv['frame_ms']:.1f} ms, PSNR "
+          f"{rv['psnr']:.3f}; launches {rv_launches}; {fg:.3f} of the "
+          f"pixels off the plate by more than {FG_LEVEL:.4f}")
+    if rv_launches != {K2: 1, K1: 1}:
+        raise AssertionError(f"{variant} render_val launched {rv_launches}")
+    if not fg >= MIN_FG:
+        raise AssertionError(f"{variant}: the frame is the plate (an empty "
+                             "field holds nothing)")
+    for k, n in rv_launches.items():
+        launches[k] = n
+
+    fr.reset_launch_counts()
+    stats = serve.main(["--synthetic", "10", "--synthetic_hw", str(hw),
+                        *dims, "--head_ckpt", res["ckpt_dir"]])
+    got = {k: fr.launch_counts[k] - WARMUP[k] for k in WARMUP}
+    want = {K2: stats["keyframes"], K1: stats["keyframes"],
+            K3: stats["delta_frames"]}
+    print(f"  {variant} serve: {stats['frames']} frames of {hw}x{hw}, "
+          f"keyframe {stats['keyframe_ms']} ms, delta p50 "
+          f"{stats['delta_p50_ms']} ms; live launches {got} (want {want})")
+    if not stats["finite"] or got != want:
+        raise AssertionError(f"{variant} serve: launches {got}, want "
+                             f"{want}, finite {stats['finite']}")
+    for k, n in fr.launch_counts.items():
+        if k in (K1, K2, K3):
+            launches[k] = launches.get(k, 0) + n
+    return {"steps": steps, "first": first, "last": last,
+            "step_ms": sorted(ms)[1], "step_ms_windows": ms,
+            "fused_vs_plain": held, "frame_err": err,
+            "frame_ms": rv["frame_ms"], "serve": stats,
+            "launches": launches}
+
+
+def _second_stage(args, fm, fmg, head_ckpt: str, dev: str) -> dict:
+    """18c: the crop step held, the CLI at train_fused 2 and 1, the A11
+    refusal."""
+    import numpy as np
+    import torch
+
+    from idealnerf_tpu_torch.ckpt import CheckpointManager
+    from idealnerf_tpu_torch.cli import train_second_stage
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.train.second_stage import (
+        TILE, SecondStageTrainer, make_cross_identity_dataset,
+        make_second_stage_loss,
+    )
+    from idealnerf_tpu_torch.train.state import init_params
+
+    hold, crop = SECOND_HOLD_CROP, SECOND_CROP
+    H = W = args.train_hw
+    base = "output/chip_smoke_second"
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    drive = make_synthetic_dataset(n_frames=args.train_frames, H=H, W=W,
+                                   dim_expr=76, seed=7)
+    aud_path = os.path.join(base, "drive_aud.npy")
+    np.save(aud_path, drive.auds)
+    cfg = _cfg_of(PAPER_FLAGS)
+    ident = make_synthetic_dataset(n_frames=args.train_frames, H=H, W=W,
+                                   dim_expr=76)
+    ds = make_cross_identity_dataset(ident, drive.auds)
+    # held on seeded weights with softplus density, as 18a: every net live
+    held_cfg = dataclasses.replace(cfg, density_activation="softplus")
+    params = init_params(held_cfg, ds.size, torch.Generator().manual_seed(
+        HELD_SEED)).params.to(dev)
+    latent = torch.nn.Parameter(torch.ones(ds.size, 32, device=dev))
+    d = ds.to_device(dev)
+    n_tiles = -(-hold * hold // TILE)
+    calls = {}
+
+    def step(c):
+        params.zero_grad(set_to_none=True)
+        latent.grad = None
+        fm.reset_launch_counts()
+        fmg.reset_launch_counts()
+        loss, _ = make_second_stage_loss(c, ds, hold, device=dev)(
+            params, latent, d, 1, None)
+        loss.backward()
+        calls[c.train_fused] = {K4: fm.launch_counts[K4],
+                                **fmg.launch_counts}
+        return float(loss.detach()), {**_grad_dict(params),
+                                      "latent_codes": latent.grad.clone()}
+
+    what = (f"18c second stage, crop {hold} ({n_tiles} tiles of {TILE}, the "
+            "last padded)")
+    held = _fused_vs_plain(what, step, held_cfg)
+    want = {K4: 4 * n_tiles, K6: 2 * n_tiles}
+    if ({k: calls[2][k] for k in want} != want or calls[0][K4]
+            or calls[0][K6]):
+        raise AssertionError(f"the crop-{hold} step launched {calls}, want "
+                             f"{want} at train_fused 2 and none at 0")
+    # the f32 backward at the fine tile's 1,572,864 points: against
+    # train_fused 0 as the bf16 one, and against the same step with f32
+    # autograd of the plain MLP as its backward (phase 16's bound)
+    held_f32 = _fused_vs_plain(what, step, held_cfg, fused=1)
+    l1, g1 = step(dataclasses.replace(held_cfg, train_fused=1))
+    with _swapped_backward(fmg):
+        ls, gs = step(dataclasses.replace(held_cfg, train_fused=1))
+    swap, _ = _grad_gap(g1, gs)
+    tol = GRAD_TOL["f32"]["autograd"]
+    print(f"  train_fused 1 with its backward swapped for f32 autograd of "
+          f"the plain MLP: loss {l1:.6f} vs {ls:.6f}, worst gradient "
+          f"norm-relative {swap[0]:.3e} ({swap[1]}; tol {tol:g})")
+    if not (abs(l1 - ls) <= 1e-6 * abs(l1) and swap[0] <= tol):
+        raise AssertionError("the f32 backward of a crop step disagrees "
+                             "with f32 autograd")
+    held_f32["vs_autograd_backward"] = swap
+    del params, d, latent
+    torch.cuda.empty_cache()
+
+    launches = {K4: 0, K6: 0, "grad_pass_a_f32": 0, "grad_pass_b_f32": 0}
+    runs = {}
+    tiles = -(-crop * crop // TILE)
+    for tf, steps in ((2, 5), (1, 2)):
+        fm.reset_launch_counts()
+        fmg.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = train_second_stage.main([
+            "--synthetic", str(args.train_frames), "--synthetic_hw", str(H),
+            *PAPER_FLAGS, "--device", dev, "--train_fused", str(tf),
+            "--head_ckpt", head_ckpt, "--driving_aud", aud_path, "--crop",
+            str(crop), "--steps", str(steps), "--i_print", "1",
+            "--basedir", base, "--expname", f"fused{tf}"])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = {"fused_point_mlp": fm.launch_counts[K4],
+                  **fmg.launch_counts}
+        f32 = tf == 1
+        want = {K4: 4 * tiles * steps, K6: 2 * tiles * steps,
+                "grad_pass_a": 0 if f32 else 2 * tiles * steps,
+                "grad_pass_b": 0 if f32 else 2 * tiles * steps,
+                "grad_pass_a_f32": 2 * tiles * steps if f32 else 0,
+                "grad_pass_b_f32": 2 * tiles * steps if f32 else 0}
+        ms = [1e3 / m["steps_per_sec_rolling"] for _, m in res["history"]]
+        hist = [m for _, m in res["history"]]
+        losses = ", ".join(f"{m['loss']:.5f}" for m in hist)
+        print(f"phase 18c train_second_stage, crop {res['crop']} ({tiles} "
+              f"tiles), train_fused {tf}: {steps} steps, losses {losses}; "
+              f"ms per "
+              f"step {', '.join(f'{x:.1f}' for x in ms)} (the first with "
+              f"its warm-up); peak memory {peak:.3f} GiB; launches {counts}")
+        if not all(math.isfinite(m["loss"]) for m in hist):
+            raise AssertionError(f"second stage train_fused {tf}: non-finite")
+        if counts != want:
+            raise AssertionError(f"second stage train_fused {tf} launched "
+                                 f"{counts}, want {want}")
+        if CheckpointManager(res["ckpt_dir"]).latest_step() != steps:
+            raise AssertionError(f"no second-stage checkpoint at {steps}")
+        for k in launches:
+            launches[k] += counts[k]
+        runs[tf] = {"steps": steps, "step_ms": ms, "peak_gib": peak,
+                    "first": hist[0], "last": hist[-1], "launches": counts}
+
+    tr = SecondStageTrainer(dataclasses.replace(cfg, train_fused=2), ident,
+                            drive.auds, crop=crop, device=dev)
+    prof = _profile(lambda: tr._step(tr.state, tr.data, 0, tr.generator),
+                    f"second-stage step (crop {crop}, train_fused 2)",
+                    "profile_second_stage_step.txt")
+    del tr
+    torch.cuda.empty_cache()
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "idealnerf_tpu_torch.cli.train_second_stage",
+         "--synthetic", "1", "--device", dev, "--aux_landmark", "1"],
+        capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    said = (proc.stderr.strip().splitlines() or [""])[-1]
+    print(f"  --aux_landmark 1: exit code {proc.returncode}: {said}")
+    if proc.returncode == 0 or "A11" not in said:
+        raise AssertionError("--aux_landmark did not refuse naming A11")
+    return {"hold": held, "hold_f32": held_f32, "hold_launches": calls[2],
+            "runs": runs,
+            "profile": prof, "launches": launches}
+
+
+def _unet(dev: str, hw: int, rays: int, steps: int = 5) -> dict:
+    """18d: UNetTrainer at hw², its features against the host's."""
+    import torch
+
+    from idealnerf_tpu_torch.core.embedding import positional_encoding
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.train.unet import EMBED_IMG_MULTIRES, UNetTrainer
+
+    cfg = _cfg_of(PAPER_FLAGS, N_rand=rays)
+    ds = make_synthetic_dataset(n_frames=2, H=hw, W=hw, dim_expr=76)
+    tr = UNetTrainer(cfg, ds, seed=0, device=dev)
+    hist = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(steps, log_every=1, on_metrics=lambda s, m: hist.append(m))
+    wall = 1e3 * (time.perf_counter() - t0) / steps
+    img = torch.from_numpy(ds.images[0]).float() / 255.0
+    emb = positional_encoding(img, EMBED_IMG_MULTIRES)[None]
+    unet = tr.params["unet"]
+    with torch.no_grad():
+        card = unet(emb.to(dev), embed_ln=emb.shape[-1]).cpu()
+        host = unet.cpu()(emb, embed_ln=emb.shape[-1])
+    err = float((card - host).abs().max() / host.abs().max())
+    print(f"phase 18d UNetTrainer: {steps} steps at {hw}x{hw} (N_rand "
+          f"{cfg.N_rand}, {cfg.N_samples}+{cfg.N_importance}), loss "
+          f"{hist[0]['loss']:.5f} -> "
+          f"{hist[-1]['loss']:.5f}, {wall:.1f} ms/step with the first; "
+          f"features {tuple(card.shape)} card vs host: max error "
+          f"{err:.2e} of their max (tol {UNET_FEATURE_TOL:g})")
+    if not all(math.isfinite(m["loss"]) for m in hist):
+        raise AssertionError("UNetTrainer produced a non-finite loss")
+    if not err <= UNET_FEATURE_TOL:
+        raise AssertionError("the card's UNet features disagree with the "
+                             "host's")
+    return {"losses": [m["loss"] for m in hist], "ms_per_step": wall,
+            "feature_err": err}
+
+
+def _phase_variants(args, fm, fmg, fr, head_ckpt: str) -> dict:
+    """Phase 18: the model variants (18a), the baseline (18b), the second
+    stage (18c) and the UNet trainer (18d) at 450²; their launches of
+    K1-K4, K6 and the f32 passes."""
+    import torch
+
+    from idealnerf_tpu_torch.cli import train_baseline
+
+    dev, hw, rays = "cuda", VARIANT_HW, VARIANT_RAYS
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    for variant in VARIANT_EXTRAS:
+        out[variant] = _variant_head(args, fm, fmg, fr, variant, dev, hw,
+                                     rays)
+        launches = _add(launches, out[variant]["launches"])
+    shutil.rmtree("output/chip_smoke_baseline", ignore_errors=True)
+    fm.reset_launch_counts()
+    fmg.reset_launch_counts()
+    res = train_baseline.main([
+        "--synthetic", str(args.train_frames), "--synthetic_hw",
+        str(args.train_hw), *PAPER_FLAGS, "--device", dev, "--N_rand",
+        str(rays), "--epochs", str(args.train_epochs), "--i_print", "5",
+        "--basedir", "output/chip_smoke_baseline", "--expname", "base"])
+    counts, want = _train_launches(fm, fmg, res["step"])
+    last = res["history"][-1][1]
+    print(f"phase 18b train_baseline: {res['step']} steps, loss "
+          f"{res['history'][0][1]['loss']:.5f} -> {last['loss']:.5f}; "
+          f"launches {counts}")
+    if counts != want or not math.isfinite(last["loss"]):
+        raise AssertionError(f"train_baseline launched {counts}, want {want}")
+    out["baseline"] = {"steps": res["step"], "last": last,
+                       "launches": counts}
+    launches = _add(launches, {K4: counts[K4], K6: counts[K6]})
+    out["second_stage"] = _second_stage(args, fm, fmg, head_ckpt, dev)
+    launches = _add(launches, out["second_stage"]["launches"])
+    out["unet"] = _unet(dev, hw, UNET_RAYS)
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 18 took {out['seconds']:.1f} s; launches {launches}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rays", type=int, default=8192)
@@ -4322,6 +4781,10 @@ def main(argv=None) -> int:
     res17 = _phase_measure(res8["ckpt_dir"], res15)
     report["measure"] = res17
 
+    # ---- phase 18: the variants, the baseline, the second stage, the UNet
+    res18 = _phase_variants(args, fm, fmg, fr, res8["ckpt_dir"])
+    report["variants"] = res18
+
     # launches on the main paths: render_val and the composite reenact
     # (K1, K2), train_head and train_torso (K4, K6), serve head-only and
     # composite (K3)
@@ -4370,9 +4833,12 @@ def main(argv=None) -> int:
     # the f32 passes' launches on their path: phase 16's train_head run
     for k in ("grad_pass_a_f32", "grad_pass_b_f32"):
         counts[k] = res16["launches"][k]
-    # and the measurement scripts' (K1-K4, K6)
+    # and the measurement scripts' (K1-K4, K6), and phase 18's: the
+    # variants' train_head, render_val and serve (K1-K4, K6), train_baseline
+    # and train_second_stage (K4, K6, the f32 passes)
     for k in counts:
         counts[k] += res17["launches"].get(k, 0)
+        counts[k] += res18["launches"].get(k, 0)
     errs.update(grad_pass_a_f32=max(f32["pass_a_err"],
                                     res7["pass_a_f32_1001_err"]),
                 grad_pass_b_f32=f32["pass_b_err"])

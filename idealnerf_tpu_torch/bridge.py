@@ -3,7 +3,9 @@
 The JAX tree is given as nested dicts and lists of numpy arrays (the
 caller does the ``np.asarray`` on the JAX side; this module never imports
 jax). Dense weights are (in, out) in JAX and (out, in) in ``nn.Linear``;
-Conv1d weights are (out, in, k) in both.
+conv weights are the same in both: Conv1d and Conv2d (out, in, k...),
+ConvTranspose2d (in, out, k, k). The GRU of SlotAttention is (in, 3·out)
+per gate matrix in JAX and (3·out, in) in ``nn.GRUCell``.
 """
 
 from __future__ import annotations
@@ -14,10 +16,19 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from idealnerf_tpu_torch.models.attention import (
+    AttentionSets, SelfAttention, SlotAttention,
+)
 from idealnerf_tpu_torch.models.audio_net import (
     AudioAttNet, AudioNet, DeepSpeechAudNet,
 )
 from idealnerf_tpu_torch.models.face_nerf import FaceNeRF
+from idealnerf_tpu_torch.models.face_unet import FaceUNet
+
+_LAYERS = {SelfAttention: ("q", "k", "v", "out"),
+           AttentionSets: ("d1", "d2", "d3", "d4", "d5", "d6"),
+           SlotAttention: ("dense7", "q", "k", "v", "mlp1", "mlp2")}
+_NORMS = ("ln_input", "ln_slots", "ln_pre_ff")
 
 
 def _set(p: torch.Tensor, value) -> None:
@@ -49,6 +60,30 @@ def _conv_out(conv: nn.Conv1d) -> Dict[str, np.ndarray]:
     return {"w": _np(conv.weight), "b": _np(conv.bias)}
 
 
+def _slot_extras_in(m: SlotAttention, tree) -> None:
+    for lin, d in zip(m.dense, tree["dense"], strict=True):
+        _dense_in(lin, d)
+    for name in _NORMS:
+        _set(getattr(m, name).weight, tree[name]["g"])
+        _set(getattr(m, name).bias, tree[name]["b"])
+    _set(m.slots_mu, tree["slots_mu"])
+    _set(m.slots_sigma, tree["slots_sigma"])
+    _set(m.gru.weight_ih, np.asarray(tree["gru"]["wi"]).T)
+    _set(m.gru.weight_hh, np.asarray(tree["gru"]["wh"]).T)
+    _set(m.gru.bias_ih, tree["gru"]["bi"])
+    _set(m.gru.bias_hh, tree["gru"]["bh"])
+
+
+def _slot_extras_out(m: SlotAttention) -> Dict[str, Any]:
+    return {"dense": [_dense_out(lin) for lin in m.dense],
+            **{name: {"g": _np(getattr(m, name).weight),
+                      "b": _np(getattr(m, name).bias)} for name in _NORMS},
+            "slots_mu": _np(m.slots_mu), "slots_sigma": _np(m.slots_sigma),
+            "gru": {"wi": _np(m.gru.weight_ih).T.copy(),
+                    "wh": _np(m.gru.weight_hh).T.copy(),
+                    "bi": _np(m.gru.bias_ih), "bh": _np(m.gru.bias_hh)}}
+
+
 def load_module_(module: nn.Module, tree) -> nn.Module:
     """Copy one JAX sub-tree into the matching port module, in place."""
     with torch.no_grad():
@@ -77,6 +112,20 @@ def load_module_(module: nn.Module, tree) -> nn.Module:
             _dense_in(module.att, tree["att"])
         elif isinstance(module, DeepSpeechAudNet):
             _dense_in(module.fc, tree["fc"])
+        elif isinstance(module, nn.Linear):
+            _dense_in(module, tree)
+        elif type(module) in _LAYERS:
+            for name in _LAYERS[type(module)]:
+                _dense_in(getattr(module, name), tree[name])
+            if isinstance(module, SlotAttention):
+                _slot_extras_in(module, tree)
+        elif isinstance(module, FaceUNet):
+            for conv, d in zip([*module.enc, *module.dec],
+                               [*tree["enc"], *tree["dec"]], strict=True):
+                _conv_in(conv, d)
+        elif isinstance(module, nn.ModuleList):
+            for sub, d in zip(module, tree, strict=True):
+                load_module_(sub, d)
         elif isinstance(module, nn.ModuleDict):
             for name, sub in module.items():
                 load_module_(sub, tree[name])
@@ -104,6 +153,19 @@ def module_to_tree(module: nn.Module) -> Any:
                 "att": _dense_out(module.att)}
     if isinstance(module, DeepSpeechAudNet):
         return {"fc": _dense_out(module.fc)}
+    if isinstance(module, nn.Linear):
+        return _dense_out(module)
+    if type(module) in _LAYERS:
+        tree = {name: _dense_out(getattr(module, name))
+                for name in _LAYERS[type(module)]}
+        if isinstance(module, SlotAttention):
+            tree.update(_slot_extras_out(module))
+        return tree
+    if isinstance(module, FaceUNet):
+        return {"enc": [_conv_out(c) for c in module.enc],
+                "dec": [_conv_out(c) for c in module.dec]}
+    if isinstance(module, nn.ModuleList):
+        return [module_to_tree(sub) for sub in module]
     if isinstance(module, nn.ModuleDict):
         return {name: module_to_tree(sub) for name, sub in module.items()}
     raise TypeError(f"no bridge for {type(module).__name__}")

@@ -1,0 +1,117 @@
+"""Second-stage / cross-identity fine-tune (counterpart of
+idealnerf_tpu/cli/train_second_stage.py): start from a trained head
+checkpoint of the port (``--head_ckpt``), render the whole face crop of
+the target identity every step while conditioned on a driving subject's
+audio (``--driving_aud``, its aud.npy; default the identity's own), and
+optimise the crop's MSE.
+
+    python -m idealnerf_tpu_torch.cli.train_second_stage --synthetic 4 \\
+        --synthetic_hw 450 --dim_aud 64 --dim_expr 76 --dim_latent 32 \\
+        --head_ckpt <basedir>/<expname>/ckpt --crop 256 --steps 100
+
+On ``--device cuda`` (the default) the crop's tiles run the fused kernels
+(``--train_fused`` 1 or 2). The aux losses (``--aux_landmark``,
+``--aux_vgg``, ``--aux_vggface``, ``--fan_npz``) wait for ROADMAP.md A11
+and ``--ray_devices`` for A13; each raises. The checkpoint goes to
+``--ckpt_dir`` (default ``<basedir>/<expname>_second/ckpt``); the metrics
+every ``--i_print`` steps. ``main(argv)`` returns {"step", "ckpt_dir",
+"crop", "history"}.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+import numpy as np
+import torch
+
+from idealnerf_tpu_torch.cli.common import (
+    build_parser, make_summary, resolve_config, resolve_dataset,
+)
+from idealnerf_tpu_torch.train.second_stage import (
+    A11, A13, SecondStageTrainer,
+)
+
+logger = logging.getLogger("idealnerf.cli")
+
+
+def main(argv=None):
+    parser = build_parser(__doc__)
+    parser.add_argument("--head_ckpt", type=str, default=None,
+                        help="the port's trained head checkpoint directory "
+                             "to fine-tune from")
+    parser.add_argument("--driving_aud", type=str, default=None,
+                        help="driving subject's aud.npy; default: the "
+                             "identity's own audio (self pairing)")
+    parser.add_argument("--crop", type=int, default=256)
+    parser.add_argument("--steps", type=int, default=2000)
+    parser.add_argument("--aux_landmark", type=float, default=0.0,
+                        help="weight of the FAN landmark loss (not ported)")
+    parser.add_argument("--aux_vgg", type=float, default=0.0,
+                        help="weight of the VGG loss (not ported)")
+    parser.add_argument("--aux_vggface", type=float, default=0.0,
+                        help="weight of the VGGFace loss (not ported)")
+    parser.add_argument("--fan_npz", type=str, default=None,
+                        help="converted FAN weights (not ported)")
+    parser.add_argument("--ray_devices", type=int, default=0,
+                        help="shard the crop's ray tiles over devices "
+                             "(not ported)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to train on")
+    args = parser.parse_args(argv)
+    for flag in ("aux_landmark", "aux_vgg", "aux_vggface", "fan_npz"):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag} is not ported yet ({A11})")
+    if args.ray_devices:
+        raise NotImplementedError(f"--ray_devices is not ported yet ({A13})")
+    cfg = resolve_config(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available")
+    identity = resolve_dataset(args, cfg, mode="train")
+    run_dir = os.path.join(cfg.basedir, cfg.expname + "_second")
+    cfg.write(os.path.join(run_dir, "args.txt"))
+    auds = (np.load(args.driving_aud).astype(np.float32) if args.driving_aud
+            else identity.auds)
+
+    init_params = None
+    if args.head_ckpt:
+        from idealnerf_tpu_torch.ckpt import CheckpointManager
+
+        ck = CheckpointManager(args.head_ckpt).restore()
+        init_params = ck["params"]
+        logger.info("fine-tune from %s step %d", args.head_ckpt,
+                    int(ck["step"]))
+    trainer = SecondStageTrainer(cfg, identity, auds,
+                                 init_params=init_params, crop=args.crop,
+                                 seed=args.seed, device=device)
+    logger.info("train_second_stage: %d frames, crop %d, device %s",
+                identity.size, trainer.crop, device)
+    summary = make_summary(cfg, run_dir)
+    history = []
+
+    def on_metrics(step, m):
+        history.append((step, m))
+        summary.scalars(step, m)
+        logger.info("[2ND] step %d loss %.5f psnr %.2f", step, m["loss"],
+                    m["psnr"])
+
+    with summary:
+        trainer.run(args.steps, log_every=cfg.i_print, on_metrics=on_metrics)
+
+    from idealnerf_tpu_torch.ckpt import CheckpointManager
+
+    ckpt_dir = args.ckpt_dir or os.path.join(run_dir, "ckpt")
+    st = trainer.state
+    CheckpointManager(ckpt_dir).save(
+        args.steps, {"step": args.steps, "params": st.params.state_dict(),
+                     "latent_codes": st.latent_codes.detach()})
+    logger.info("done; checkpoint in %s", ckpt_dir)
+    return {"step": args.steps, "ckpt_dir": ckpt_dir, "crop": trainer.crop,
+            "history": history}
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    main()

@@ -169,6 +169,32 @@ def apply_folded(
     return torch.cat([rgb, alpha], dim=-1)
 
 
+def apply_point_conditioned(
+    model: FaceNeRF,
+    cfg: FaceNeRFConfig,
+    pe_pts: torch.Tensor,
+    pe_dirs: Optional[torch.Tensor],
+    cond_pts: torch.Tensor,
+) -> torch.Tensor:
+    """Forward with PER-POINT conditioning ``cond_pts`` (N, dim_aud) in the
+    aud slot (the UNet path, where every sample point carries the image
+    features it gathered). Nothing folds here: the conditioning is
+    concatenated to each point's input, and no kernel takes this form."""
+    initial = torch.cat([pe_pts, cond_pts.to(pe_pts.dtype)], dim=-1)
+    h = initial
+    for i, layer in enumerate(model.pts_linears):
+        h = torch.relu(layer(h))
+        if i in cfg.skips:
+            h = torch.cat([initial, h], dim=-1)
+    if not cfg.use_viewdirs:
+        return model.output_linear(h)
+    alpha = model.alpha_linear(h)
+    hv = torch.cat([h, pe_dirs], dim=-1)
+    for layer in model.views_linears:
+        hv = torch.relu(layer(hv))
+    return torch.cat([model.rgb_linear(hv), alpha], dim=-1)
+
+
 def apply_face_nerf(model: FaceNeRF, cfg: FaceNeRFConfig, pe_pts,
                     pe_dirs=None, aud=None, expr=None,
                     latent=None) -> torch.Tensor:

@@ -25,7 +25,9 @@ from idealnerf_tpu_torch.data.sampler import (
     RayBudget, rays_at_coords, sample_ray_coords,
 )
 from idealnerf_tpu_torch.kernels.fused_render import kernels_cover
-from idealnerf_tpu_torch.models.variants import build_field_fns
+from idealnerf_tpu_torch.models.variants import (
+    build_field_fns, variant_nerf_config,
+)
 from idealnerf_tpu_torch.train.schedule import exponential_lr
 from idealnerf_tpu_torch.train.state import TrainState, init_train_state
 
@@ -65,11 +67,11 @@ def train_use_pallas(cfg, device):
     """The field path of a train step, by cfg.train_fused, on a CUDA device
     only: 0 = plain autograd, 1 = fused kernels with the f32 backward,
     2 = fused kernels with the bf16 backward. Off the card: plain. A net
-    the kernels do not take (``fused_render.kernels_cover``; the head and
-    torso nets share the width and depth) raises on the card before any
-    step."""
+    the kernels do not take (``fused_render.kernels_cover`` of the
+    variant's net; the head and torso nets share the width and depth)
+    raises on the card before any step."""
     if cfg.train_fused and torch.device(device).type == "cuda":
-        ncfg = cfg.face_nerf_config()
+        ncfg = variant_nerf_config(cfg)
         if not kernels_cover(ncfg):
             raise ValueError(
                 f"the kernels take nets of width <= 256 and depth <= 16 with "

@@ -20,12 +20,14 @@ from idealnerf_tpu_torch.models.audio_net import (
     AudioAttNet, AudioNet, DeepSpeechAudNet,
 )
 from idealnerf_tpu_torch.models.face_nerf import FaceNeRF
-from idealnerf_tpu_torch.models.variants import variant_nerf_config
+from idealnerf_tpu_torch.models.variants import (
+    init_variant_extras, variant_nerf_config,
+)
 
 
 class ModelState(NamedTuple):
     step: int                    # global training step of the weights
-    params: nn.ModuleDict        # coarse/fine/aud_net/aud_att/ds_aud
+    params: nn.ModuleDict        # coarse/fine/aud_net/aud_att/ds_aud[+extras]
     latent_codes: torch.Tensor   # (data_size, max(dim_latent, 1))
 
 
@@ -33,7 +35,8 @@ def init_params(cfg, data_size: int,
                 generator: Optional[torch.Generator] = None,
                 device=None) -> ModelState:
     """The parameter tree ``init_train_state`` builds, freshly initialised
-    from ``generator`` (xavier-uniform, bias 0.01), latent codes all ones."""
+    from ``generator`` (xavier-uniform, bias 0.01), latent codes all ones;
+    with the variant's extras ("agg" or "self_att") beside the nets."""
     nerf_cfg = variant_nerf_config(cfg)
     params = nn.ModuleDict({
         "coarse": FaceNeRF(nerf_cfg, generator, device),
@@ -42,6 +45,7 @@ def init_params(cfg, data_size: int,
         "aud_att": AudioAttNet(cfg.dim_aud, cfg.smo_size, generator, device),
         "ds_aud": DeepSpeechAudNet(cfg.win_size, generator, device),
     })
+    params.update(init_variant_extras(cfg, generator, device))
     # dim_latent=0 keeps a 1-wide dummy table, as the JAX package does
     latent = torch.ones((data_size, max(cfg.dim_latent, 1)),
                         dtype=torch.float32, device=device)

@@ -18,7 +18,9 @@ tree for it.
   "latent_codes", "optimizer"}``, what ``train.head.HeadTrainer`` resumes
   from and ``cli.common.load_head`` renders from. The Adam moments carry
   over in either optimizer layout of the JAX package (one flat vector,
-  ``flat_optimizer``, or one per leaf), with their step count.
+  ``flat_optimizer``, or one per leaf), with their step count. A variant
+  head (``--model_variant face_nerf_agg`` or ``attention_nerf``) carries
+  its ``agg`` or ``self_att`` leaves and their moments too.
 - A torso checkpoint (``train/torso.py``'s ``{"torso_params",
   "opt_state", "step"}``) becomes the same keys in the port's layout,
   what ``train.torso.TorsoTrainer`` resumes from and

@@ -37,14 +37,49 @@ def _close(port, ref, atol=TOL, rtol=TOL):
                                atol=atol, rtol=rtol)
 
 
+def _pe_evidence(x, port, ref, num_freqs):
+    """What a failing PE comparison reports (ROADMAP.md C4): the worst
+    values, their inputs and phases, each side's distance from f64 there,
+    and the settings either side's result could depend on."""
+    import os
+
+    import jax
+
+    err = np.abs(port - ref)
+    xb = x.astype(np.float64)[:, None, :] * 2.0 ** np.arange(num_freqs)[:, None]
+    exact = np.concatenate(
+        [x, np.stack([np.sin(xb), np.cos(xb)], -2).reshape(len(x), -1)], -1)
+    lines = [f"max |port - jax| {err.max():.3g} on {(err > 1e-4).sum()} of "
+             f"{err.size} values"]
+    for flat in np.argsort(err, axis=None)[::-1][:8]:
+        i, j = np.unravel_index(flat, err.shape)
+        lines.append(
+            f"  point {i} x={x[i].tolist()} lane {j}: port {port[i, j]!r} "
+            f"jax {ref[i, j]!r} f64 {exact[i, j]!r}")
+    lines.append(
+        f"port vs f64 {np.abs(port - exact).max():.3g}, jax vs f64 "
+        f"{np.abs(ref - exact).max():.3g}; torch threads "
+        f"{torch.get_num_threads()}, torch default dtype "
+        f"{torch.get_default_dtype()}; XLA_FLAGS "
+        f"{os.environ.get('XLA_FLAGS')!r}; jax_enable_x64 "
+        f"{jax.config.jax_enable_x64}, default matmul precision "
+        f"{jax.config.jax_default_matmul_precision!r}")
+    return "\n".join(lines)
+
+
 @pytest.mark.parametrize("num_freqs", [0, 4, 10])
 def test_positional_encoding_matches_jax(num_freqs):
+    """The port's PE against JAX's within 1e-4 absolute; a failure reports
+    its evidence (``_pe_evidence``; ROADMAP.md C4)."""
     x = np.random.RandomState(0).uniform(-1.5, 1.5, (257, 3)).astype(np.float32)
     out = positional_encoding(_t(x), num_freqs)
     assert out.shape[-1] == pe_dim(3, num_freqs)
     # phases reach 512·x: sin/cos of large f32 arguments differ by a few
     # ulp of the argument between libraries, hence the absolute bound
-    _close(out, jax_pe(jnp.asarray(x), num_freqs), atol=1e-4, rtol=0)
+    port = out.numpy()
+    ref = np.asarray(jax_pe(jnp.asarray(x), num_freqs))
+    assert np.abs(port - ref).max() <= 1e-4, _pe_evidence(x, port, ref,
+                                                          num_freqs)
 
 
 def test_positional_encoding_multires10_against_f64():

@@ -230,13 +230,21 @@ def test_compute_aud_feature_matches_jax(dim_aud, smooth, index):
 
 
 def test_variants_face_nerf_only():
+    """The paper head passes its conditioning through unchanged; the other
+    two variants (ported since: tests/test_torch_variants.py) take the JAX
+    package's net configs; an unknown variant raises."""
+    from idealnerf_tpu.models.variants import (
+        variant_nerf_config as jax_variant_nerf_config,
+    )
+
     cfg = ExperimentConfig(**SMALL)
     assert variant_nerf_config(cfg) == cfg.face_nerf_config()
     a, e = torch.ones(16), torch.ones(8)
     assert variant_conditioning(None, cfg, a, e) == (a, e)
     for v in ("face_nerf_agg", "attention_nerf"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            variant_nerf_config(dataclasses.replace(cfg, model_variant=v))
+        got = variant_nerf_config(dataclasses.replace(cfg, model_variant=v))
+        want = jax_variant_nerf_config(JaxConfig(**SMALL, model_variant=v))
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
     with pytest.raises(ValueError):
         variant_nerf_config(dataclasses.replace(cfg, model_variant="x"))
 

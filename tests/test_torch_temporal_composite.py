@@ -10,9 +10,10 @@ in interpret mode, its delta frames through the XLA chain. Tolerances, as
 tests/test_torch_temporal.py: frames against JAX 3e-2 with correlation >
 0.999 (both sides round weights and activations to bf16); a keyframe
 against the port's composite frame renderer 2e-5 (the same computation);
-bands 2e-6. The fields use softplus density wherever the delta-frame
-feedback runs, so every CDF bin stays above sample_pdf's 1e-5 floor
-(ROADMAP.md C)."""
+bands 2e-6; a trained field's delta frame on each side's own chain as
+ROADMAP.md C5 records (OWN_CHAIN_*). The fields use softplus density
+wherever the delta-frame feedback runs, so every CDF bin stays above
+sample_pdf's 1e-5 floor (ROADMAP.md C)."""
 
 import jax
 import jax.numpy as jnp
@@ -68,8 +69,8 @@ class _Scene:
     over a random plate, as tests/test_temporal.py:_random_setup builds
     them: the head at ``pose``, the torso from the fixed ``pose0``."""
 
-    def __init__(self, H=24, W=24):
-        self.cfg, self.jcfg = ExperimentConfig(**SMALL), JaxConfig(**SMALL)
+    def __init__(self, H=24, W=24, dims=SMALL):
+        self.cfg, self.jcfg = ExperimentConfig(**dims), JaxConfig(**dims)
         self.hcfg, self.tcfg = (self.cfg.face_nerf_config(),
                                 torso_nerf_config(self.cfg))
         self.rc = self.cfg.render_config()
@@ -85,7 +86,7 @@ class _Scene:
         rng = np.random.RandomState(2)
         self.bc = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
         self.pose0 = _pose(0.05, 0.0, 0.95)
-        self.cond = dict(aud=rng.randn(16).astype(np.float32),
+        self.cond = dict(aud=rng.randn(self.cfg.dim_aud).astype(np.float32),
                          expr=rng.randn(8).astype(np.float32),
                          latent=np.ones(4, np.float32),
                          signal=rng.randn(self.tcfg.dim_aud)
@@ -220,60 +221,238 @@ def _layout(tree):
     return "scalar" if np.ndim(tree) == 0 else tuple(np.shape(tree))
 
 
-@pytest.mark.parametrize("kw", CASES.values(), ids=CASES.keys())
-def test_frames_match_jax(kw):
-    """A keyframe and two delta frames at moved head poses against the
-    JAX renderer, per frame 3e-2 and correlation > 0.999, with the cache
+TRAINED = dict(SMALL, dim_aud=32, N_rand=128, mouth_rays=16, torso_rays=16,
+               lrate=2e-3, nosmo_iters=10 ** 9)
+
+
+def _fields(head, torso, bc, cond):
+    """One pair of fields of both packages (bridged weights), its plate
+    and its conditioning."""
+    return dict(head=head, torso=torso, bc=bc, cond=cond,
+                jhead=jax.tree.map(jnp.asarray, bridge.params_to_jax(head)),
+                jtorso=jax.tree.map(jnp.asarray,
+                                    bridge.torso_params_to_jax(torso)))
+
+
+class _Subject:
+    """_Scene's camera, bounds, poses and plate with two pairs of fields
+    of TRAINED's widths (the head's AudioNet needs dim_aud > 29):
+
+    - "random": _Scene's fields at these widths, at its random
+      conditioning;
+    - "trained": a head and a torso trained on the CPU by the port (30
+      head steps, 40 torso steps on the 3-frame 24x24 synthetic subject,
+      whose sphere lies within _Scene's bounds) at the subject's frame-0
+      conditioning.
+
+    A mode's JAX renderer takes the fields as arguments, so it is built
+    once and renders both pairs, and each JAX chain is rendered once:
+    their compilation is most of this file's time."""
+
+    def __init__(self):
+        from idealnerf_tpu_torch.train.head import (
+            HeadTrainer, compute_aud_feature,
+        )
+        from idealnerf_tpu_torch.train.torso import (
+            TorsoTrainer, torso_signal,
+        )
+
+        self.scene = sc = _Scene(dims=TRAINED)
+        cfg = sc.cfg
+        quiet = dict(log_every=1000, on_metrics=lambda s, m: None)
+        ds = make_synthetic_dataset(n_frames=3, H=24, W=24, dim_expr=8)
+        head = HeadTrainer(cfg, ds, seed=0)
+        head.run(n_epochs=10, **quiet)
+        torso = TorsoTrainer(cfg, make_synthetic_dataset(
+            n_frames=3, H=24, W=24, dim_expr=8, with_torso=True),
+            head.state.params, latent_codes=head.state.latent_codes, seed=1,
+            smooth_audio=False)
+        torso.run(n_steps=40, **quiet)
+        with torch.no_grad():
+            aud = compute_aud_feature(head.state.params,
+                                      torch.from_numpy(ds.auds),
+                                      torch.from_numpy(ds.aud_ids), 0, cfg,
+                                      False)
+            signal = torso_signal(aud, torch.from_numpy(ds.poses[0][:3]),
+                                  cfg.dim_aud_body)
+        self.fields = {
+            "random": _fields(sc.head, sc.torso, sc.bc, sc.cond),
+            "trained": _fields(
+                head.state.params, torso.torso_params, sc.bc,
+                dict(aud=aud.numpy(), expr=ds.exprs[0].astype(np.float32),
+                     latent=head.state.latent_codes[0].detach().numpy(),
+                     signal=signal.numpy())),
+        }
+        self.H, self.W, self.poses = sc.H, sc.W, POSES
+        self._jax, self._chains = {}, {}
+
+    def case(self, mode):
+        kw = dict(CASES[mode])
+        if kw.pop("priors", False):
+            kw.update(zip(("prior_mask_head", "prior_mask_torso"),
+                          self.scene.masks()))
+        return kw
+
+    def renderer(self, mode):
+        return self.scene.renderer(**self.case(mode))
+
+    def render(self, r, fields, pose, cache=None):
+        f = self.fields[fields]
+        frame, cache = r(f["head"], f["torso"], torch.from_numpy(pose),
+                         torch.from_numpy(self.scene.pose0),
+                         torch.from_numpy(f["bc"]), cache=cache,
+                         **{k: torch.from_numpy(v)
+                            for k, v in f["cond"].items()})
+        return frame.numpy(), cache
+
+    def jax_render(self, mode, fields, pose, cache=None):
+        if mode not in self._jax:
+            self._jax[mode] = self.scene.jax_renderer(**self.case(mode))
+        f = self.fields[fields]
+        frame, cache = self._jax[mode](
+            f["jhead"], f["jtorso"], jnp.asarray(pose),
+            jnp.asarray(self.scene.pose0), jnp.asarray(f["bc"]),
+            cache=cache, **{k: jnp.asarray(v) for k, v in f["cond"].items()})
+        return np.asarray(frame), cache
+
+    def jax_chain(self, mode, fields):
+        """The JAX side's own chain of ``mode`` over the poses, [(frame,
+        cache)], rendered once for every test that reads it."""
+        if (mode, fields) not in self._chains:
+            chain, jcache = [], None
+            for pose in self.poses:
+                frame, jcache = self.jax_render(mode, fields, pose, jcache)
+                chain.append((frame, jcache))
+            self._chains[mode, fields] = chain
+        return self._chains[mode, fields]
+
+
+@pytest.fixture(scope="module")
+def subject():
+    return _Subject()
+
+
+def _to_jax(tree):
+    """A port cache as the JAX package holds it (index arrays int32)."""
+    if isinstance(tree, dict):
+        return {k: _to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_jax(v) for v in tree)
+    if isinstance(tree, int):
+        return tree
+    a = tree.numpy()
+    return jnp.asarray(a.astype(np.int32) if a.dtype.kind == "i" else a)
+
+
+def _frames_match(sc, fields, mode):
+    """A keyframe and two delta frames of ``fields`` against the JAX
+    renderer, per frame 3e-2 and correlation > 0.999, with the cache
     layouts equal. Each delta frame starts from the JAX side's cache, so
-    the comparison holds one frame's computation: on its own chain, the
-    bf16 noise of both sides, fed back through two importance draws,
-    moves a few pixels of these random fields past 3e-2 (0.032 at the
-    second delta frame with delta_keep_torso 0.5). Per-field priors run
-    the masked union maps; the rolling cases pad the field selections."""
-    sc = _Scene()
-    kw = dict(kw)
-    if kw.pop("priors", False):
-        kw.update(zip(("prior_mask_head", "prior_mask_torso"), sc.masks()))
-    r, jr = sc.renderer(**kw), sc.jax_renderer(**kw)
+    the comparison holds one frame's computation (each side's own chain:
+    test_own_chain_matches_jax). Per-field priors run the masked union
+    maps; the rolling cases pad the field selections."""
+    kw = sc.case(mode)
+    r = sc.renderer(mode)
     torso = r.stages["torso"]
     assert torso.uses_delta_kernel == (not kw.get("freeze_z_torso", False))
     jcache = None
-    for n, pose in enumerate(POSES):
-        frame, cache = sc.render(r, pose,
+    for n, (pose, (want, jnext)) in enumerate(
+            zip(sc.poses, sc.jax_chain(mode, fields))):
+        frame, cache = sc.render(r, fields, pose,
                                  None if jcache is None else _to_torch(jcache))
-        want, jcache = sc.jax_render(jr, pose, jcache)
         assert frame.shape == (sc.H, sc.W, 3)
         _agree(frame, want)
-        assert _layout(cache) == _layout(jcache)
+        assert _layout(cache) == _layout(jnext)
         if n == 0 and "delta_keep_torso" in kw:
             # the keyframe ranks the same kept rays; tied plateaus of the
             # dilated mass grid may rank in either order
             np.testing.assert_array_equal(
                 np.sort(cache["torso"]["keep"].numpy()),
-                np.sort(np.asarray(jcache["torso"]["keep"])))
+                np.sort(np.asarray(jnext["torso"]["keep"])))
+        jcache = jnext
     if kw.get("roll_k_torso") or kw.get("roll_k"):
         assert cache["torso"]["phase"] == jcache["torso"]["phase"] == 2
 
 
-@pytest.mark.parametrize("mode", ["per-field-priors", "roll-k-3"])
-def test_own_chain_matches_jax(mode):
+@pytest.mark.parametrize("mode", CASES.keys())
+def test_frames_match_jax(subject, mode):
+    """_frames_match on the random fields."""
+    _frames_match(subject, "random", mode)
+
+
+@pytest.mark.parametrize("mode", CASES.keys())
+def test_trained_frames_match_jax(subject, mode):
+    """_frames_match on the trained fields."""
+    _frames_match(subject, "trained", mode)
+
+
+# ROADMAP.md C5, a deliberate difference: on the trained fields a delta
+# frame on each side's own chain may drift from the JAX side's as far as
+# OWN_CHAIN_SELF times the port's own drift when only its keyframe's depths
+# and weights are rounded to bf16, and never past OWN_CHAIN_MAX or below
+# OWN_CHAIN_CORR. Measured, second delta frame: against JAX 0.028-0.040
+# (max abs), correlation 0.99979-0.99996; the port against its rounded
+# self 0.048-0.080. The random fields' own chains hold 3e-2 (0.003-0.021).
+OWN_CHAIN_SELF, OWN_CHAIN_MAX, OWN_CHAIN_CORR = 1.0, 0.06, 0.999
+
+
+@pytest.mark.parametrize("mode", CASES.keys())
+def test_own_chain_matches_jax(subject, mode):
     """A keyframe and two delta frames with each side carrying its own
-    cache, against the JAX renderer at 3e-2 and correlation > 0.999: the
-    port's masked union maps and its rolling cache of both fields hold
-    their state across frames. (On these random fields the modes whose
-    delta frames cover the whole frame drift to 0.028-0.032 at the second
-    delta frame on their own chains; PERF.md §7.)"""
-    sc = _Scene()
-    kw = dict(CASES[mode])
-    if kw.pop("priors", False):
-        kw.update(zip(("prior_mask_head", "prior_mask_torso"), sc.masks()))
-    r, jr = sc.renderer(**kw), sc.jax_renderer(**kw)
-    cache = jcache = None
-    for pose in POSES:
-        frame, cache = sc.render(r, pose, cache)
-        want, jcache = sc.jax_render(jr, pose, jcache)
+    cache. On the random fields every frame agrees at 3e-2 with
+    correlation > 0.999: the port's masked union maps and its rolling
+    caches hold their state across frames. On the trained fields the
+    keyframe agrees as well, and so does every delta frame the JAX side
+    renders from the port's previous cache: at each step the two
+    computations agree (3e-4 to 8e-4 here). The trained chains drift
+    apart (ROADMAP.md C5, deliberate): a delta frame redraws its s_delta
+    samples from the previous frame's fine depths and weights, the two
+    sides round those to bf16 in other orders (the keyframe's depths end
+    up to 2e-3 apart, 6e-3 under roll_k), and the few samples a trained
+    field's thin surface gets move with them. The port's own chain moves
+    as far when only its keyframe cache is rounded to bf16, so the drift
+    is the chain's, not a fault of either side: it is held against
+    that."""
+    sc = subject
+    r = sc.renderer(mode)
+    cache = None
+    for pose, (want, jcache) in zip(sc.poses, sc.jax_chain(mode, "random")):
+        frame, cache = sc.render(r, "random", pose, cache)
         _agree(frame, want)
     assert _layout(cache) == _layout(jcache)
+
+    chain = sc.jax_chain(mode, "trained")
+    own, cache = [], None
+    for n, (pose, (want, jcache)) in enumerate(zip(sc.poses, chain)):
+        prev = cache
+        frame, cache = sc.render(r, "trained", pose, cache)
+        assert _layout(cache) == _layout(jcache)
+        own.append(frame)
+        if n:
+            step, _ = sc.jax_render(mode, "trained", pose, _to_jax(prev))
+            _agree(frame, step)
+        else:
+            _agree(frame, want)
+    _, rounded = sc.render(r, "trained", sc.poses[0])
+    rounded = _map_cache(rounded, lambda t: t.bfloat16().float()
+                         if t.is_floating_point() and t.dim() == 2 else t)
+    for n, pose in enumerate(sc.poses[1:], 1):
+        moved, rounded = sc.render(r, "trained", pose, rounded)
+        self_drift = np.abs(moved - own[n]).max()
+        drift = np.abs(own[n] - chain[n][0]).max()
+        assert drift <= min(OWN_CHAIN_SELF * self_drift, OWN_CHAIN_MAX), (
+            n, drift, self_drift)
+        c = np.corrcoef(own[n].ravel(), chain[n][0].ravel())[0, 1]
+        assert c > OWN_CHAIN_CORR, (n, c)
+
+
+def _map_cache(tree, fn):
+    """``fn`` over every tensor of a cache."""
+    if isinstance(tree, dict):
+        return {k: _map_cache(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map_cache(v, fn) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def test_union_maps_resolve_padded_rows_to_their_pixel():
