@@ -333,23 +333,43 @@ non-zero and no result line is printed):
    ``cli.train_second_stage`` at crop 256 for 5 steps at ``train_fused``
    2 and 2 at 1 (8 tiles a step; K4 four times a tile, its forward run
    again in the checkpointed backward, K6 twice), each step's ms and the
-   run's peak memory, a profiled step's idle share; ``--aux_landmark 1``
-   exits non-zero naming A11. 18d: ``train.unet.UNetTrainer`` for 5 steps
+   run's peak memory, a profiled step's idle share; ``--aux_landmark 1
+   --steps 2`` trains in a process of its own (a finite aux loss above
+   zero each step, a checkpoint). 18d: ``train.unet.UNetTrainer`` for 5 steps
    at 450² (the UNet through cuDNN, TF32 off), finite losses, and its
    feature map held against the host's on the same weights.
+19. the second stage's aux losses (``_phase_aux``, ROADMAP A11). 19a: FAN
+   at the paper's size (4 stacks, a 256² crop, 64² heatmaps), VGG16 through
+   relu5_3 and VGGFace on seeded weights at 256², each the same module on
+   the card (cuDNN, TF32 off) and on the host (FAN atol 2e-3 + rtol 1e-3,
+   the VGG taps atol 2e-5 + rtol 2e-4: the CPU tests'), and the landmark
+   loss (1e-5 relative) and its gradient with respect to the crop at the
+   host's heatmap-difference signs (the flipped ones counted) against the
+   host's float64 one: within 1e-4 norm-relative or twice the host's f32
+   distance from it. 19b: ``cli.train_second_stage`` at crop 256 from phase
+   8's head on 18c's driving audio with ``--aux_landmark``, ``--aux_vgg``
+   and ``--aux_vggface`` on (``AUX_WEIGHTS``), 3 steps at ``train_fused`` 2
+   and 1 at 1: finite losses, aux losses above zero, K4 four and K6 two
+   launches a tile and no other kernel, a checkpoint; ms per step and peak
+   memory beside 18c's, and a profiled step's busy time split into the
+   convolutions and K4 + K6 beside 18c's. 19c: ``scripts.train_fan_proxy``
+   on phase 15's subject (crop 256, 60 steps; the landmark error before and
+   after, which must fall), then ``scripts.rehearsal_2nd`` for 3 steps with that proxy as
+   ``--fan_npz`` (K4 and K6 per tile).
 
 Then the kernel summary as one JSON line (each kernel's launches on its
 paths, K1/K2 over render_val, the composite reenact and phase 14's fast
 frames and CLIs, K4/K6 over train_head and train_torso, K3 over the
 head-only and the composite serve, each also on the subject directory of
 phase 13, and all five over phase 15's training, sweep, harness and
-``--auto_temporal`` runs; the f32 backward's two kernels over phase 16's
-``train_head --train_fused 1``; its max error, its time and its plain version's, and its
-bound: the
-larger of the bytes it must move over 3.35 TB/s and its operations at the
-H100 SXM data sheet's dense rate for their type, 989 TFLOP/s bf16, 1,979
-TOP/s int8, 67 TFLOP/s f32: ``idealnerf_tpu_torch.scripts.PEAK``), the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. With no
+``--auto_temporal`` runs, K4/K6 also over phases 18 and 19's trainers; the
+f32 backward's two kernels over phase 16's ``train_head --train_fused 1``
+and the second stage's; its max error, its time and its plain version's,
+and its bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations at the H100 SXM data sheet's dense rate for their type, 989
+TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s f32:
+``idealnerf_tpu_torch.scripts.PEAK``), the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. With no
 CUDA device it exits 1.
 """
 
@@ -456,6 +476,7 @@ WARMUP_COMP = {k: 2 * n for k, n in WARMUP.items()}
 WARMUP_COMP_ROLL = {k: 2 * n for k, n in WARMUP_ROLL.items()}
 MIN_GEOMETRY_PSNR = 20.0
 PROFILE_TRIES = 3  # profiled calls before a timing counts as not measured
+CONV_OPS = ("aten::convolution", "aten::convolution_backward")
 
 
 def _smi() -> str:
@@ -585,14 +606,24 @@ def _profile(run, label: str, fname: str) -> dict:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", fname), "w") as fh:
         fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
+    # the port's kernels (namespace fr::) and the convolutions: the device
+    # time of the aten ops' kernels, forward and backward (cuDNN)
+    conv_us = sum(getattr(e, "device_time_total",
+                          getattr(e, "cuda_time_total", 0.0))
+                  for e in events if e.key in CONV_OPS)
     out = {"wall_ms": wall_ms, "profiled_wall_ms": profiled_ms,
            "device_busy_ms": busy_ms,
            "idle_share": (None if busy_ms is None
                           else max(0.0, 1.0 - busy_ms / wall_ms)),
+           "kernels_ms": (None if busy_ms is None else sum(
+               dev_us(e) for e in on_dev if "fr::" in e.key) / 1e3),
+           "conv_ms": None if busy_ms is None else conv_us / 1e3,
            "top": [[e.key, dev_us(e) / 1e3, e.count] for e in top]}
     print(f"profile {label}: wall {wall_ms:.1f} ms ({profiled_ms:.1f} "
           f"profiled), device busy {_num(busy_ms, '.1f', ' ms')}, idle share "
-          f"{_num(out['idle_share'], '.3f')}; by device "
+          f"{_num(out['idle_share'], '.3f')}; the port's kernels "
+          f"{_num(out['kernels_ms'], '.1f', ' ms')}, convolutions "
+          f"{_num(out['conv_ms'], '.1f', ' ms')}; by device "
           "time: " + "; ".join(f"{k[:40]} {ms:.2f} ms x{n}"
                                for k, ms, n in out["top"]))
     return out
@@ -4290,14 +4321,67 @@ def _variant_head(args, fm, fmg, fr, variant: str, dev: str, hw: int,
             "launches": launches}
 
 
-def _second_stage(args, fm, fmg, head_ckpt: str, dev: str) -> dict:
-    """18c: the crop step held, the CLI at train_fused 2 and 1, the A11
-    refusal."""
-    import numpy as np
+def _second_stage_run(args, fm, fmg, head_ckpt: str, aud_path: str,
+                      base: str, dev: str, tf: int, steps: int, what: str,
+                      extra=()) -> dict:
+    """cli.train_second_stage at crop SECOND_CROP from ``head_ckpt`` on the
+    audio at ``aud_path`` for ``steps`` steps at train_fused ``tf`` with
+    the flags ``extra``: finite losses, a checkpoint at the last step, K4
+    four times a tile and K6 twice (the f32 or the bf16 passes), each
+    step's ms and the run's peak memory."""
     import torch
 
     from idealnerf_tpu_torch.ckpt import CheckpointManager
     from idealnerf_tpu_torch.cli import train_second_stage
+    from idealnerf_tpu_torch.train.second_stage import TILE
+
+    crop = SECOND_CROP
+    tiles = -(-crop * crop // TILE)
+    fm.reset_launch_counts()
+    fmg.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = train_second_stage.main([
+        "--synthetic", str(args.train_frames), "--synthetic_hw",
+        str(args.train_hw), *PAPER_FLAGS, "--device", dev, "--train_fused",
+        str(tf), "--head_ckpt", head_ckpt, "--driving_aud", aud_path,
+        "--crop", str(crop), "--steps", str(steps), "--i_print", "1",
+        "--basedir", base, "--expname", f"fused{tf}", *extra])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {"fused_point_mlp": fm.launch_counts[K4], **fmg.launch_counts}
+    f32 = tf == 1
+    want = {K4: 4 * tiles * steps, K6: 2 * tiles * steps,
+            "grad_pass_a": 0 if f32 else 2 * tiles * steps,
+            "grad_pass_b": 0 if f32 else 2 * tiles * steps,
+            "grad_pass_a_f32": 2 * tiles * steps if f32 else 0,
+            "grad_pass_b_f32": 2 * tiles * steps if f32 else 0}
+    ms = [1e3 / m["steps_per_sec_rolling"] for _, m in res["history"]]
+    hist = [m for _, m in res["history"]]
+    losses = ", ".join(f"{m['loss']:.5f}" for m in hist)
+    print(f"phase {what}, crop {res['crop']} ({tiles} tiles), train_fused "
+          f"{tf}: {steps} steps, losses {losses}; ms per step "
+          f"{', '.join(f'{x:.1f}' for x in ms)} (the first with its "
+          f"warm-up); peak memory {peak:.3f} GiB; launches {counts}")
+    if not all(math.isfinite(m["loss"]) for m in hist):
+        raise AssertionError(f"second stage train_fused {tf}: non-finite")
+    if counts != want:
+        raise AssertionError(f"second stage train_fused {tf} launched "
+                             f"{counts}, want {want}")
+    if CheckpointManager(res["ckpt_dir"]).latest_step() != steps:
+        raise AssertionError(f"no second-stage checkpoint at {steps}")
+    return {"steps": steps, "step_ms": ms, "peak_gib": peak,
+            "first": hist[0], "last": hist[-1], "history": hist,
+            "launches": counts}
+
+
+def _second_stage(args, fm, fmg, head_ckpt: str, dev: str) -> dict:
+    """18c: the crop step held, the CLI at train_fused 2 and 1, the
+    profiled step, and ``--aux_landmark 1`` training in a process of its
+    own."""
+    import numpy as np
+    import torch
+
+    from idealnerf_tpu_torch.ckpt import CheckpointManager
     from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
     from idealnerf_tpu_torch.train.second_stage import (
         TILE, SecondStageTrainer, make_cross_identity_dataset,
@@ -4369,46 +4453,12 @@ def _second_stage(args, fm, fmg, head_ckpt: str, dev: str) -> dict:
 
     launches = {K4: 0, K6: 0, "grad_pass_a_f32": 0, "grad_pass_b_f32": 0}
     runs = {}
-    tiles = -(-crop * crop // TILE)
     for tf, steps in ((2, 5), (1, 2)):
-        fm.reset_launch_counts()
-        fmg.reset_launch_counts()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        res = train_second_stage.main([
-            "--synthetic", str(args.train_frames), "--synthetic_hw", str(H),
-            *PAPER_FLAGS, "--device", dev, "--train_fused", str(tf),
-            "--head_ckpt", head_ckpt, "--driving_aud", aud_path, "--crop",
-            str(crop), "--steps", str(steps), "--i_print", "1",
-            "--basedir", base, "--expname", f"fused{tf}"])
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        counts = {"fused_point_mlp": fm.launch_counts[K4],
-                  **fmg.launch_counts}
-        f32 = tf == 1
-        want = {K4: 4 * tiles * steps, K6: 2 * tiles * steps,
-                "grad_pass_a": 0 if f32 else 2 * tiles * steps,
-                "grad_pass_b": 0 if f32 else 2 * tiles * steps,
-                "grad_pass_a_f32": 2 * tiles * steps if f32 else 0,
-                "grad_pass_b_f32": 2 * tiles * steps if f32 else 0}
-        ms = [1e3 / m["steps_per_sec_rolling"] for _, m in res["history"]]
-        hist = [m for _, m in res["history"]]
-        losses = ", ".join(f"{m['loss']:.5f}" for m in hist)
-        print(f"phase 18c train_second_stage, crop {res['crop']} ({tiles} "
-              f"tiles), train_fused {tf}: {steps} steps, losses {losses}; "
-              f"ms per "
-              f"step {', '.join(f'{x:.1f}' for x in ms)} (the first with "
-              f"its warm-up); peak memory {peak:.3f} GiB; launches {counts}")
-        if not all(math.isfinite(m["loss"]) for m in hist):
-            raise AssertionError(f"second stage train_fused {tf}: non-finite")
-        if counts != want:
-            raise AssertionError(f"second stage train_fused {tf} launched "
-                                 f"{counts}, want {want}")
-        if CheckpointManager(res["ckpt_dir"]).latest_step() != steps:
-            raise AssertionError(f"no second-stage checkpoint at {steps}")
+        runs[tf] = _second_stage_run(
+            args, fm, fmg, head_ckpt, aud_path, base, dev, tf, steps,
+            "18c train_second_stage")
         for k in launches:
-            launches[k] += counts[k]
-        runs[tf] = {"steps": steps, "step_ms": ms, "peak_gib": peak,
-                    "first": hist[0], "last": hist[-1], "launches": counts}
+            launches[k] += runs[tf]["launches"][k]
 
     tr = SecondStageTrainer(dataclasses.replace(cfg, train_fused=2), ident,
                             drive.auds, crop=crop, device=dev)
@@ -4418,18 +4468,28 @@ def _second_stage(args, fm, fmg, head_ckpt: str, dev: str) -> dict:
     del tr
     torch.cuda.empty_cache()
 
+    # the command that refused naming A11 before the aux losses were
+    # ported now trains (two steps, its checkpoint under base)
     proc = subprocess.run(
         [sys.executable, "-m", "idealnerf_tpu_torch.cli.train_second_stage",
-         "--synthetic", "1", "--device", dev, "--aux_landmark", "1"],
-        capture_output=True, text=True, timeout=120,
+         "--synthetic", "1", "--device", dev, "--aux_landmark", "1",
+         "--steps", "2", "--i_print", "1", "--basedir", base, "--expname",
+         "aux_cli"],
+        capture_output=True, text=True, timeout=300,
         cwd=os.path.dirname(os.path.abspath(__file__)))
-    said = (proc.stderr.strip().splitlines() or [""])[-1]
-    print(f"  --aux_landmark 1: exit code {proc.returncode}: {said}")
-    if proc.returncode == 0 or "A11" not in said:
-        raise AssertionError("--aux_landmark did not refuse naming A11")
+    logged = [ln for ln in proc.stderr.splitlines() if "[2ND] step" in ln]
+    aux = [float(ln.rsplit("aux ", 1)[1]) for ln in logged]
+    print(f"  --aux_landmark 1 --steps 2: exit code {proc.returncode}; "
+          f"{' | '.join(ln.split('[2ND] ')[1] for ln in logged)}")
+    if not (proc.returncode == 0 and len(aux) == 2
+            and all(math.isfinite(a) and a > 0 for a in aux)
+            and CheckpointManager(os.path.join(
+                base, "aux_cli_second", "ckpt")).latest_step() == 2):
+        raise AssertionError("train_second_stage --aux_landmark 1 did not "
+                             "train: " + proc.stderr[-2000:])
     return {"hold": held, "hold_f32": held_f32, "hold_launches": calls[2],
-            "runs": runs,
-            "profile": prof, "launches": launches}
+            "runs": runs, "profile": prof, "aux_cli": aux,
+            "launches": launches, "drive_aud": aud_path}
 
 
 def _unet(dev: str, hw: int, rays: int, steps: int = 5) -> dict:
@@ -4510,6 +4570,281 @@ def _phase_variants(args, fm, fmg, fr, head_ckpt: str) -> dict:
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 18 took {out['seconds']:.1f} s; launches {launches}")
+    return out
+
+
+# 19b's weights: a random 2DFAN-4's heatmap L1 is ~1e14 at its 256² crop
+AUX_WEIGHTS = {"aux_landmark": 1e-15, "aux_vgg": 0.1, "aux_vggface": 0.1}
+AUX_FLAGS = [a for k, w in AUX_WEIGHTS.items() for a in (f"--{k}", str(w))]
+AUX_STEPS = 3            # 19b's steps at train_fused 2 (1 at train_fused 1)
+PROXY_STEPS = 60         # 19c's FAN proxy steps at crop 256, batch 2
+REHEARSAL_STEPS = 3      # 19c's rehearsal_2nd steps with the proxy
+FAN_TOL = {"atol": 2e-3, "rtol": 1e-3}    # tests/test_fan.py:170
+TAP_TOL = {"atol": 2e-5, "rtol": 2e-4}    # tests/test_vgg.py:62-63
+AUX_GRAD_TOL = 1e-4      # the crop gradient against f64, norm-relative
+
+
+def _close(tag: str, got, want, atol: float, rtol: float) -> float:
+    """|got - want| <= atol + rtol |want| everywhere (numpy's allclose),
+    printed with the max abs error; -> that error."""
+    import torch
+
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    err = float((got - want).abs().max())
+    print(f"  {tag} {tuple(got.shape)}: max abs error {err:.3e} (max "
+          f"{float(want.abs().max()):.3e}; atol {atol:g}, rtol {rtol:g})")
+    if not (got.shape == want.shape
+            and torch.allclose(got, want, rtol=rtol, atol=atol)):
+        raise AssertionError(f"{tag}: the card disagrees with the host")
+    return err
+
+
+def _conv_macs(net, fn) -> int:
+    """Multiply-adds of ``net``'s Conv2d layers in one call of ``fn``
+    (forward hooks: output elements x cin x k x k)."""
+    import torch
+
+    total = [0]
+
+    def hook(m, inp, out):
+        total[0] += (out.numel() * m.in_channels * m.kernel_size[0]
+                     * m.kernel_size[1] // m.groups)
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        fn()
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def _aux_nets_vs_host(smi: str) -> dict:
+    """19a: FAN at the paper's size (4 stacks, a 256² crop, 64² heatmaps;
+    seeded as tests/test_fan.py seeds its torch net), VGG16 through
+    relu5_3 and VGGFace on seeded weights at 256², each the same module on
+    the card (cuDNN, f32 without TF32) and on the host, and the landmark
+    loss's gradient with respect to the crop."""
+    import copy
+
+    import torch
+
+    from idealnerf_tpu_torch.losses.landmark import make_fan_landmark_loss
+    from idealnerf_tpu_torch.losses.vgg import (
+        LPIPS_TAPS, init_vgg16, init_vggface,
+    )
+    from idealnerf_tpu_torch.pipeline.fan import (
+        CROP_SIZE, FAN, NUM_MODULES, make_heatmap_detector,
+    )
+
+    dev = "cuda"
+    print(f"phase 19a the aux nets, card vs host [{smi}]")
+    torch.manual_seed(0)
+    fan = FAN(NUM_MODULES)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for k, v in fan.state_dict().items():
+            if k.endswith("running_mean"):
+                v.copy_(torch.randn(v.shape, generator=g) * 0.05)
+            elif k.endswith("running_var"):
+                v.copy_(torch.rand(v.shape, generator=g) + 0.5)
+    fan.requires_grad_(False)
+    nets = {"fan": fan, "vgg16": init_vgg16(2), "vggface": init_vggface(3)}
+    card = {k: copy.deepcopy(n).to(dev) for k, n in nets.items()}
+    x = torch.rand(1, 3, CROP_SIZE, CROP_SIZE, generator=g)
+    errs = {}
+    with torch.no_grad():
+        for i, (a, b) in enumerate(zip(card["fan"](x.to(dev)), fan(x),
+                                       strict=True)):
+            errs[f"fan_stack{i}"] = _close(f"FAN stack {i} heatmaps", a, b,
+                                           **FAN_TOL)
+        xv = 2.0 * x - 1.0
+        for i, (a, b) in enumerate(zip(
+                card["vgg16"].taps(xv.to(dev), LPIPS_TAPS),
+                nets["vgg16"].taps(xv, LPIPS_TAPS), strict=True)):
+            errs[f"vgg16_{LPIPS_TAPS[i]}"] = _close(
+                f"VGG16 layer {LPIPS_TAPS[i]}", a, b, **TAP_TOL)
+        for i, (a, b) in enumerate(zip(card["vggface"](x.to(dev)),
+                                       nets["vggface"](x), strict=True)):
+            errs[f"vggface_{i}"] = _close(f"VGGFace relu{i + 1}_1", a, b,
+                                          **TAP_TOL)
+    # the aux term's convolutions a step: the prediction's forward and
+    # input gradient (the nets are frozen) and the target's forward
+    macs = {"fan": _conv_macs(card["fan"], lambda: card["fan"](x.to(dev))),
+            "vgg16": _conv_macs(card["vgg16"],
+                                lambda: card["vgg16"].taps(xv.to(dev))),
+            "vggface": _conv_macs(card["vggface"],
+                                  lambda: card["vggface"](x.to(dev)))}
+    bound = _bound(2 * 3 * sum(macs.values()), 0.0, "f32")
+    print(f"  conv GMAC a forward at {CROP_SIZE}²: "
+          + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in macs.items())
+          + f"; a step's aux term (3 forwards' worth) at the f32 rate: "
+          f"{bound['bound_ms']:.2f} ms")
+    # the landmark loss and its gradient with respect to the crop, each
+    # side's and the host's in float64 (the same FAN in double). The L1's
+    # subgradient takes the sign of each heatmap difference: the gradient
+    # is taken at the host's signs on every side (the flipped ones are
+    # counted), so the gaps are the arithmetic's
+    pred = torch.rand(CROP_SIZE, CROP_SIZE, 3, generator=g)
+    target = torch.rand(CROP_SIZE, CROP_SIZE, 3, generator=g)
+    sides = {"card": (card["fan"], dev, torch.float32),
+             "host": (fan, "cpu", torch.float32),
+             "f64": (copy.deepcopy(fan).double(), "cpu", torch.float64)}
+    det = {w: make_heatmap_detector(n) for w, (n, _, _) in sides.items()}
+    with torch.no_grad():
+        diff = {w: det[w](pred.to(d, t)) - det[w](target.to(d, t))
+                for w, (_, d, t) in sides.items() if w != "f64"}
+    signs = torch.sign(diff["host"]) / diff["host"].numel()
+    flips = int((torch.sign(diff["card"].cpu()) != torch.sign(
+        diff["host"])).sum())
+    losses, grads = {}, {}
+    for w, (net, d, t) in sides.items():
+        with torch.no_grad():
+            losses[w] = float(make_fan_landmark_loss(net)(pred.to(d, t),
+                                                          target.to(d, t)))
+        p = pred.to(d, t).requires_grad_(True)
+        (grads[w],) = torch.autograd.grad(
+            (det[w](p) * signs.to(d, t)).sum(), p)
+        grads[w] = grads[w].cpu().double()
+
+    def gap(a, b):
+        return float((grads[a] - grads[b]).norm() / grads[b].norm())
+
+    card_f64, host_f64, rel = gap("card", "f64"), gap("host", "f64"), gap(
+        "card", "host")
+    lerr = abs(losses["card"] - losses["host"]) / abs(losses["host"])
+    print(f"  landmark loss {losses['card']:.6e} vs {losses['host']:.6e} "
+          f"(relative {lerr:.2e}; f64 {losses['f64']:.6e}); its gradient "
+          f"with respect to the crop at the host's signs ({flips} of "
+          f"{diff['host'].numel()} flipped on the card), norm-relative: "
+          f"card vs host {rel:.3e}, card vs f64 {card_f64:.3e}, host vs f64 "
+          f"{host_f64:.3e} (card vs f64 within {AUX_GRAD_TOL:g} or twice "
+          f"the host's)")
+    if not (lerr <= 1e-5
+            and card_f64 <= max(AUX_GRAD_TOL, 2.0 * host_f64)):
+        raise AssertionError("the landmark loss's gradient on the card "
+                             "disagrees with the host's")
+    errs.update(landmark_loss=lerr, landmark_grad=rel,
+                landmark_grad_card_f64=card_f64,
+                landmark_grad_host_f64=host_f64, landmark_sign_flips=flips)
+    return {"errs": errs, "gmac": {k: v / 1e9 for k, v in macs.items()},
+            "aux_bound_ms": bound["bound_ms"]}
+
+
+def _phase_aux(args, fm, fmg, fr, head_ckpt: str, second: dict,
+               gates: dict, smi: str) -> dict:
+    """Phase 19: the second stage's aux losses (ROADMAP A11) on the card.
+    19a ``_aux_nets_vs_host``. 19b: cli.train_second_stage at crop 256
+    from phase 8's head on 18c's driving audio with --aux_landmark,
+    --aux_vgg and --aux_vggface all on, AUX_STEPS steps at train_fused 2
+    and one at 1: finite losses, an aux loss above zero, K4 four and K6
+    two launches a tile and no other kernel launch, the checkpoint; ms
+    per step and peak memory beside 18c's runs without aux, and a profiled
+    step's busy time split into the convolutions (the aux nets) and the
+    port's kernels beside 18c's. 19c: scripts.train_fan_proxy on phase
+    15's subject at crop 256 for PROXY_STEPS steps, the landmark error
+    before and after (it must fall), then scripts.rehearsal_2nd for REHEARSAL_STEPS steps
+    with that proxy as --fan_npz."""
+    import numpy as np
+    import torch
+
+    from idealnerf_tpu_torch.cli.train_second_stage import build_aux_loss
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.scripts import rehearsal_2nd, train_fan_proxy
+    from idealnerf_tpu_torch.train.second_stage import TILE, SecondStageTrainer
+
+    dev = "cuda"
+    t_phase = time.perf_counter()
+    out = {"nets": _aux_nets_vs_host(smi)}
+    torch.cuda.empty_cache()
+
+    # 19b: the CLI with the three aux terms
+    base = "output/chip_smoke_aux"
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    tiles = -(-SECOND_CROP * SECOND_CROP // TILE)
+    launches = {K4: 0, K6: 0, "grad_pass_a_f32": 0, "grad_pass_b_f32": 0}
+    runs = {}
+    for tf, steps in ((2, AUX_STEPS), (1, 1)):
+        fr.reset_launch_counts()
+        runs[tf] = _second_stage_run(
+            args, fm, fmg, head_ckpt, second["drive_aud"], base, dev, tf,
+            steps, f"19b train_second_stage {' '.join(AUX_FLAGS)}",
+            AUX_FLAGS)
+        aux = [m["aux_loss"] for m in runs[tf]["history"]]
+        others = {k: n for k, n in fr.launch_counts.items() if n}
+        no_aux = second["runs"][tf]
+        print(f"  aux losses {', '.join(f'{a:.5f}' for a in aux)}; ms per "
+              f"step {', '.join(f'{x:.1f}' for x in runs[tf]['step_ms'])} "
+              f"and peak {runs[tf]['peak_gib']:.3f} GiB beside 18c without "
+              f"aux {', '.join(f'{x:.1f}' for x in no_aux['step_ms'])} and "
+              f"{no_aux['peak_gib']:.3f} GiB [{smi}]")
+        if not all(math.isfinite(a) and a > 0 for a in aux) or others:
+            raise AssertionError(f"train_fused {tf} with aux: aux losses "
+                                 f"{aux}, other kernels launched {others}")
+        for k in launches:
+            launches[k] += runs[tf]["launches"][k]
+    cfg = _cfg_of(PAPER_FLAGS, train_fused=2)
+    ident = make_synthetic_dataset(n_frames=args.train_frames,
+                                   H=args.train_hw, W=args.train_hw,
+                                   dim_expr=76)
+    aux_loss = build_aux_loss(argparse.Namespace(fan_npz=None,
+                                                 **AUX_WEIGHTS), dev)
+    tr = SecondStageTrainer(cfg, ident, np.load(second["drive_aud"]),
+                            crop=SECOND_CROP, aux_loss=aux_loss, device=dev)
+    prof = _profile(lambda: tr._step(tr.state, tr.data, 0, tr.generator),
+                    f"second-stage step with aux (crop {SECOND_CROP}, "
+                    "train_fused 2)", "profile_second_stage_aux_step.txt")
+    del tr, aux_loss
+    torch.cuda.empty_cache()
+
+    def split(pr):
+        return (f"device busy {_num(pr['device_busy_ms'], '.1f', ' ms')} "
+                f"(convolutions {_num(pr['conv_ms'], '.1f', ' ms')}, K4 + "
+                f"K6 {_num(pr['kernels_ms'], '.1f', ' ms')}), idle share "
+                f"{_num(pr['idle_share'], '.3f')}")
+
+    print(f"  the step with aux: {split(prof)}; 18c without aux: "
+          f"{split(second['profile'])} [{smi}]")
+
+    # 19c: the FAN proxy on phase 15's subject, then the rehearsal with it
+    subject = gates["subject"]
+    proxy = train_fan_proxy.main(["--out", subject, "--steps",
+                                  str(PROXY_STEPS), "--device", dev])
+    print(f"phase 19c train_fan_proxy: {proxy['train_crops']} crops of "
+          f"{proxy['crop_size']}², {PROXY_STEPS} steps in "
+          f"{proxy['wall_s']:.2f} s; landmark error "
+          f"{proxy['landmark_err_hm_px_random_init']:.3f} -> "
+          f"{proxy['landmark_err_hm_px_trained']:.3f} heatmap px [{smi}]")
+    err0, err1 = (proxy["landmark_err_hm_px_random_init"],
+                  proxy["landmark_err_hm_px_trained"])
+    if not (math.isfinite(err0) and math.isfinite(err1) and err1 < err0):
+        raise AssertionError(f"train_fan_proxy: the landmark error went "
+                             f"from {err0} to {err1}, not down")
+    fm.reset_launch_counts()
+    fmg.reset_launch_counts()
+    reh = rehearsal_2nd.main(["--out", subject, "--steps",
+                              str(REHEARSAL_STEPS), "--device", dev])
+    got = {K4: fm.launch_counts[K4], K6: fmg.launch_counts[K6]}
+    want = {K4: 4 * tiles * REHEARSAL_STEPS, K6: 2 * tiles * REHEARSAL_STEPS}
+    traj = reh["trajectory"]
+    losses = ", ".join(f"{t['loss']:.5f} (aux {t['aux_loss']:.6f})"
+                       for t in traj)
+    ms = ", ".join(f"{x:.1f}" for x in reh["step_ms_rolling"])
+    print(f"phase 19c rehearsal_2nd: {reh['steps']} steps at crop "
+          f"{reh['crop']} with the {reh['fan']} FAN (probe "
+          f"{reh['aux_probe_raw']:.4e}, weight {reh['aux_weight_used']:.4e})"
+          f"; losses {losses}; ms per step {ms}; launches {got} [{smi}]")
+    if not (reh["fan"] == "proxy" and got == want and len(traj)
+            == REHEARSAL_STEPS and all(
+                math.isfinite(t["loss"]) and math.isfinite(t["aux_loss"])
+                and t["aux_loss"] > 0 for t in traj)):
+        raise AssertionError(f"rehearsal_2nd with the proxy: launches {got} "
+                             f"(want {want}), trajectory {traj}")
+    _add(launches, got)
+    out.update(runs=runs, profile=prof, proxy=proxy, rehearsal=reh,
+               launches=launches, seconds=time.perf_counter() - t_phase)
+    print(f"  phase 19 took {out['seconds']:.1f} s; launches {launches}")
     return out
 
 
@@ -4785,6 +5120,11 @@ def main(argv=None) -> int:
     res18 = _phase_variants(args, fm, fmg, fr, res8["ckpt_dir"])
     report["variants"] = res18
 
+    # ---- phase 19: the second stage's aux losses (A11)
+    res19 = _phase_aux(args, fm, fmg, fr, res8["ckpt_dir"],
+                       res18["second_stage"], res15, smi)
+    report["aux"] = res19
+
     # launches on the main paths: render_val and the composite reenact
     # (K1, K2), train_head and train_torso (K4, K6), serve head-only and
     # composite (K3)
@@ -4839,6 +5179,7 @@ def main(argv=None) -> int:
     for k in counts:
         counts[k] += res17["launches"].get(k, 0)
         counts[k] += res18["launches"].get(k, 0)
+        counts[k] += res19["launches"].get(k, 0)
     errs.update(grad_pass_a_f32=max(f32["pass_a_err"],
                                     res7["pass_a_f32_1001_err"]),
                 grad_pass_b_f32=f32["pass_b_err"])

@@ -5,7 +5,9 @@ caller does the ``np.asarray`` on the JAX side; this module never imports
 jax). Dense weights are (in, out) in JAX and (out, in) in ``nn.Linear``;
 conv weights are the same in both: Conv1d and Conv2d (out, in, k...),
 ConvTranspose2d (in, out, k, k). The GRU of SlotAttention is (in, 3·out)
-per gate matrix in JAX and (3·out, in) in ``nn.GRUCell``.
+per gate matrix in JAX and (3·out, in) in ``nn.GRUCell``. The aux nets
+of the second stage: FAN's flat dict is the same on both sides; the VGG
+nets' 3x3 kernels are HWIO in JAX ({name: {"w", "b"}}) and OIHW here.
 """
 
 from __future__ import annotations
@@ -249,3 +251,65 @@ def seeded_conditioning(cfg, seed: int) -> Dict[str, np.ndarray]:
             "expr": rng.randn(cfg.dim_expr).astype(np.float32),
             "latent": (1.0 + 0.1 * rng.randn(cfg.dim_latent))
             .astype(np.float32)}
+
+
+def fan_from_jax(params, device=None):
+    """A JAX FAN parameter dict (flat, torch names, as numpy) -> a
+    ``pipeline.fan.FAN`` with as many stacks."""
+    from idealnerf_tpu_torch.pipeline.fan import FAN
+
+    return FAN.from_state_dict(params, device=device)
+
+
+def fan_to_jax(fan: nn.Module) -> Dict[str, np.ndarray]:
+    return {k: _np(v) for k, v in fan.state_dict().items()}
+
+
+def _vgg_in(convs, params) -> None:
+    with torch.no_grad():
+        for name, conv in convs:
+            _set(conv.weight, np.asarray(params[name]["w"]).transpose(
+                3, 2, 0, 1))
+            _set(conv.bias, np.asarray(params[name]["b"]))
+
+
+def _vgg_out(convs) -> Dict[str, Dict[str, np.ndarray]]:
+    return {name: {"w": _np(conv.weight).transpose(2, 3, 1, 0).copy(),
+                   "b": _np(conv.bias)} for name, conv in convs}
+
+
+def _vgg16_convs(net) -> list:
+    """The convs the JAX VGG16 holds, through relu4_3 (its index as its
+    name); the port's net also holds relu5_3's, for LPIPS."""
+    from idealnerf_tpu_torch.losses.vgg import VGG16_CONVS, VGG16_TAPS
+
+    return [(str(i), net[i]) for i, _, _ in VGG16_CONVS
+            if i < VGG16_TAPS[-1]]
+
+
+def vgg16_from_jax(params, device=None):
+    """JAX ``init_vgg16`` params (as numpy) -> a ``losses.vgg.VGG16``; its
+    convs past relu4_3, which the JAX net lacks, keep the seed-0 He
+    draws."""
+    from idealnerf_tpu_torch.losses.vgg import VGG16
+
+    net = VGG16(torch.Generator().manual_seed(0))
+    _vgg_in(_vgg16_convs(net), params)
+    return net.to(device)
+
+
+def vgg16_to_jax(net: nn.Module) -> Dict[str, Dict[str, np.ndarray]]:
+    return _vgg_out(_vgg16_convs(net))
+
+
+def vggface_from_jax(params, device=None):
+    """JAX ``init_vggface`` params (as numpy) -> a ``losses.vgg.VGGFace``."""
+    from idealnerf_tpu_torch.losses.vgg import VGGFace
+
+    net = VGGFace()
+    _vgg_in(net.named_children(), params)
+    return net.to(device)
+
+
+def vggface_to_jax(net: nn.Module) -> Dict[str, Dict[str, np.ndarray]]:
+    return _vgg_out(net.named_children())

@@ -1,4 +1,4 @@
-from idealnerf_tpu_torch.eval.metrics import psnr, ssim
+from idealnerf_tpu_torch.eval.metrics import lpips, psnr, ssim
 from idealnerf_tpu_torch.eval.operating_points import (
     AGREEMENT_DB, DIL_CARD, FIXED_CARD, GATE_DB, TEMPORAL_EVIDENCE_FILES,
     cost_constants, fit_delta_cost, gated_video_config,
@@ -23,7 +23,7 @@ __all__ = ["AGREEMENT_DB", "DIL_CARD", "FIXED_CARD", "GATE_DB",
            "TEMPORAL_EVIDENCE_FILES", "TemporalStream", "VideoWriter",
            "cost_constants", "dilate_bands", "fg_band", "fit_delta_cost",
            "foreground_prior", "foreground_prior_fields",
-           "gated_video_config", "load_temporal_evidence",
+           "gated_video_config", "load_temporal_evidence", "lpips",
            "make_frame_renderer", "make_temporal_composite_renderer",
            "make_temporal_frame_renderer", "mode_cost", "mode_key",
            "parse_mode_key", "pick_masked_point",

@@ -1,7 +1,9 @@
-"""Image quality metrics (counterpart of eval/metrics.py): PSNR and a
-host-side float64 SSIM."""
+"""Image quality metrics (counterpart of eval/metrics.py): PSNR, a
+host-side float64 SSIM and LPIPS over the port's VGG16."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -52,3 +54,32 @@ def ssim(
     num = (2 * mu_x * mu_y + c1) * (2 * sxy + c2)
     den = (mu_x**2 + mu_y**2 + c1) * (sxx + syy + c2)
     return float(np.mean(num / den))
+
+
+def lpips(img, ref, vgg16=None) -> Optional[float]:
+    """LPIPS-style perceptual distance of two (H, W, 3) images in [0, 1]:
+    the mean square difference of the unit-normalised (over channels)
+    relu1_2, 2_2, 3_3, 4_3 and 5_3 maps of ``vgg16`` (a
+    ``losses.vgg.VGG16``, on its device) after ImageNet normalisation,
+    averaged over the five layers (the unscaled formulation). None
+    without weights, as the JAX package's without torchvision's."""
+    if vgg16 is None:
+        return None
+    from idealnerf_tpu_torch.losses.vgg import LPIPS_TAPS
+
+    dev = next(vgg16.parameters()).device
+    mean = torch.tensor([0.485, 0.456, 0.406], device=dev).view(1, 3, 1, 1)
+    std = torch.tensor([0.229, 0.224, 0.225], device=dev).view(1, 3, 1, 1)
+
+    def prep(x):
+        t = torch.as_tensor(x, dtype=torch.float32).to(dev)
+        return (t.permute(2, 0, 1)[None] - mean) / std
+
+    with torch.no_grad():
+        dist = 0.0
+        for fa, fb in zip(vgg16.taps(prep(img), LPIPS_TAPS),
+                          vgg16.taps(prep(ref), LPIPS_TAPS)):
+            fa = fa / (fa.norm(dim=1, keepdim=True) + 1e-10)
+            fb = fb / (fb.norm(dim=1, keepdim=True) + 1e-10)
+            dist += float(((fa - fb) ** 2).mean())
+    return dist / len(LPIPS_TAPS)

@@ -9,7 +9,8 @@ kernels), ``kpoint`` (the point MLP and its encoded twin) and ``kprobe``
 ``temporal_delta``); and the measurement scripts (``train_profile``,
 ``stream_latency``, ``temporal_profile``, ``comp_profile``,
 ``composite_delta``, ``audatt_peak``, on the shared pieces of
-``timing``). Each one's docstring says how it runs.
+``timing``); and the second stage's (``train_fan_proxy``,
+``rehearsal_2nd``). Each one's docstring says how it runs.
 
     python -m idealnerf_tpu_torch.scripts.kdiag4 --kd4 V0,V2,V3,VX
     python -m idealnerf_tpu_torch.scripts.kdiag --device cpu --rows 256

@@ -15,8 +15,11 @@ and importance depths, and checkpoint restores only the global RNG, not a
 caller's generator. On a CUDA device each tile runs the fused point-MLP
 kernel and its gradient kernel (``train_fused`` 1 or 2).
 
-The reference's aux nets (FAN landmarks, VGG, VGGFace) and the sharded
-crop wait for ROADMAP.md A11 and A13 and raise until then.
+The aux loss (``make_aux_loss``: the FAN landmark, VGG16 and VGGFace
+terms) takes the assembled crop; its nets are plain torch and cuDNN
+convolutions in f32 without TF32 (``face_unet.ieee_convs``, the backward
+too) and add no kernel launch. The sharded crop waits for ROADMAP.md A13
+and raises until then.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from idealnerf_tpu_torch.core.render import render_rays
 from idealnerf_tpu_torch.data.sampler import rays_at_coords
+from idealnerf_tpu_torch.models.face_unet import ieee_convs
 from idealnerf_tpu_torch.models.variants import build_field_fns
 from idealnerf_tpu_torch.train.head import (
     apply_update, compute_aud_feature, train_use_pallas,
@@ -42,7 +46,6 @@ from idealnerf_tpu_torch.train.state import TrainState, init_train_state
 logger = logging.getLogger("idealnerf.second_stage")
 
 TILE = 8192
-A11 = "ROADMAP.md A11 (losses: FAN, VGG, VGGFace)"
 A13 = "ROADMAP.md A13 (multi-device)"
 
 
@@ -62,20 +65,47 @@ def make_cross_identity_dataset(identity, driving_auds: np.ndarray,
                                aud_ids=ids, exprs=exprs.astype(np.float32))
 
 
-def make_aux_loss(fan_params=None, vgg16_params=None, vggface_params=None,
+def make_aux_loss(fan=None, vgg16=None, vggface=None,
                   w_landmark: float = 1.0, w_vgg: float = 0.0,
                   w_vggface: float = 0.0) -> Optional[Callable]:
-    """The reference's aux losses over the crop. A term is on when its
-    nets are given and its weight is not zero; every such term needs the
-    nets of A11 and raises. With no term on: None."""
-    on = [name for name, p, w in (("landmark", fan_params, w_landmark),
-                                  ("vgg", vgg16_params, w_vgg),
-                                  ("vggface", vggface_params, w_vggface))
-          if p is not None and w]
-    if on:
-        raise NotImplementedError(
-            f"the {', '.join(on)} aux loss is not ported yet ({A11})")
-    return None
+    """The reference's second-stage aux losses as one ``(pred_crop,
+    target_crop) -> scalar`` over (crop, crop, 3) crops in [0, 1]
+    (distribute_nerf.py:433-491, which optimises only the landmark term:
+    hence the zero default weights of the others). A term is on when its
+    net (``pipeline.fan.FAN``, ``losses.vgg.VGG16``, ``losses.vgg.VGGFace``)
+    is given and its weight is not zero: the FAN's final-stack heatmaps of
+    both crops under an L1; VGG16 on ``2 p - 1`` and ``2 t - 1``; VGGFace
+    on the raw crops. The nets given are frozen (``requires_grad_(False)``):
+    the gradient reaches the crop, not them. With no term on: None."""
+    terms, nets = [], []
+    if fan is not None and w_landmark:
+        from idealnerf_tpu_torch.losses.landmark import make_fan_landmark_loss
+
+        lm = make_fan_landmark_loss(fan)
+        terms.append(lambda p, t: w_landmark * lm(p, t))
+        nets.append(fan)
+    if vgg16 is not None and w_vgg:
+        from idealnerf_tpu_torch.losses.vgg import make_vgg16_loss
+
+        v = make_vgg16_loss(vgg16)
+        terms.append(lambda p, t: w_vgg * v(2.0 * p[None] - 1.0,
+                                            2.0 * t[None] - 1.0))
+        nets.append(vgg16)
+    if vggface is not None and w_vggface:
+        from idealnerf_tpu_torch.losses.vgg import make_vggface_loss
+
+        vf = make_vggface_loss(vggface)
+        terms.append(lambda p, t: w_vggface * vf(p[None], t[None]))
+        nets.append(vggface)
+    if not terms:
+        return None
+    for net in nets:
+        net.requires_grad_(False)
+
+    def aux(pred_crop, target_crop):
+        return sum(term(pred_crop, target_crop) for term in terms)
+
+    return aux
 
 
 def crop_coords(face_rect: torch.Tensor, crop: int, H: int,
@@ -186,7 +216,8 @@ def make_second_stage_step(cfg, dataset, crop: int,
              generator: Optional[torch.Generator]):
         loss, aux = loss_fn(state.params, state.latent_codes, data, index,
                             generator)
-        loss.backward()
+        with ieee_convs():  # the aux nets' backward convolutions
+            loss.backward()
         lr = lr_sched(state.step)
         apply_update(state, lr)
         return {"loss": loss.detach(),

@@ -1,9 +1,10 @@
 """The second stage (cross-identity fine-tune) and the baseline trainer
 of the PyTorch port against the JAX package: the cross-identity pairing,
 one crop step's loss and gradients on a one-tile crop with no random
-draws, the padded two-tile crop against the one-tile step, checkpointed
-tiles against unchecked ones, the CLIs end to end on the CPU, and the
-refusals (ROADMAP.md A11, A13).
+draws, without and with the aux terms (FAN landmark, VGG16, VGGFace), the
+padded two-tile crop against the one-tile step, checkpointed tiles
+against unchecked ones, the CLIs end to end on the CPU with each aux
+flag, and the refusal (ROADMAP.md A13).
 
 Inputs come from numpy with a fixed seed; weights go across through the
 bridge. The JAX step's loss is composed here from the JAX package's own
@@ -15,6 +16,7 @@ norm-relative per leaf."""
 
 import dataclasses
 import functools
+import json
 import math
 
 import jax
@@ -23,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import idealnerf_tpu.pipeline.fan as jfan
 from idealnerf_tpu.config import ExperimentConfig as JaxConfig
 from idealnerf_tpu.core.render import render_rays as jax_render_rays
 from idealnerf_tpu.data.sampler import rays_at_coords as jax_rays_at_coords
@@ -31,11 +34,14 @@ from idealnerf_tpu.models.variants import build_field_fns as jax_field_fns
 from idealnerf_tpu.train import baseline as jax_baseline
 from idealnerf_tpu.train.head import compute_aud_feature as jax_aud_feature
 from idealnerf_tpu.train.second_stage import (
+    make_aux_loss as jax_make_aux_loss,
     make_cross_identity_dataset as jax_cross, make_second_stage_step,
 )
 from idealnerf_tpu.train.state import TrainState as JaxTrainState
 from idealnerf_tpu.train.state import make_optimizer as jax_optimizer
 from idealnerf_tpu_torch import bridge
+from idealnerf_tpu_torch.losses import vgg as pvgg
+from idealnerf_tpu_torch.pipeline import fan as pfan
 from idealnerf_tpu_torch.ckpt import CheckpointManager
 from idealnerf_tpu_torch.cli import common as cli_common
 from idealnerf_tpu_torch.cli import (
@@ -112,8 +118,9 @@ def test_cross_identity_dataset_pairing():
         np.testing.assert_array_equal(getattr(ds, f), getattr(jds, f))
 
 
-def _jax_crop_loss(jcfg, jds, crop):
-    """JAX train/second_stage.py's loss_fn on a one-tile crop, key=None."""
+def _jax_crop_loss(jcfg, jds, crop, aux=None):
+    """JAX train/second_stage.py's loss_fn on a one-tile crop, key=None,
+    plus ``aux`` (JAX ``make_aux_loss``'s) over the assembled crops."""
     H, W = jds.hw
 
     def loss(diff, data, index):
@@ -137,17 +144,41 @@ def _jax_crop_loss(jcfg, jds, crop):
         out = jax_render_rays(coarse, o, d, bc[coords[:, 0], coords[:, 1]],
                               jds.near, jds.far, jcfg.render_config(),
                               key=None, fine_fn=fine)
-        return (jnp.mean((out["rgb_map"] - target) ** 2)
+        loss = (jnp.mean((out["rgb_map"] - target) ** 2)
                 + jnp.mean((out["rgb0"] - target) ** 2))
+        if aux is not None:
+            loss = loss + aux(out["rgb_map"].reshape(crop, crop, 3),
+                              target.reshape(crop, crop, 3))
+        return loss
 
     return loss
 
 
-def test_second_stage_step_matches_jax():
+def _aux_pair(monkeypatch):
+    """The FAN landmark term (one stack, a 64x64 crop: both packages'
+    module constants patched) and the VGG16 and VGGFace terms at small
+    weights, as the port's and JAX's make_aux_loss compose them on the
+    same weights."""
+    monkeypatch.setattr(jfan, "NUM_MODULES", 1)
+    monkeypatch.setattr(jfan, "CROP_SIZE", 64)
+    monkeypatch.setattr(pfan, "CROP_SIZE", 64)
+    fan = pfan.init_fan(3, num_modules=1)
+    vgg16, vggface = pvgg.init_vgg16(1), pvgg.init_vggface(2)
+    w = dict(w_landmark=2e-5, w_vgg=0.05, w_vggface=0.05)
+    jax_aux = jax_make_aux_loss(fan, bridge.vgg16_to_jax(vgg16),
+                                bridge.vggface_to_jax(vggface), **w)
+    return make_aux_loss(bridge.fan_from_jax(fan), vgg16, vggface,
+                         **w), jax_aux
+
+
+@pytest.mark.parametrize("with_aux", [False, True], ids=["mse", "aux"])
+def test_second_stage_step_matches_jax(with_aux, monkeypatch):
     """One crop step (crop 10, one tile) on the driving audio from bridged
     weights, no random draws: the loss and every gradient against the JAX
     package's crop loss, whose value its own step also reports; the crop
-    anchored at the clipped face-rect corner."""
+    anchored at the clipped face-rect corner. With the aux terms on (the
+    FAN landmark loss, VGG16, VGGFace), the JAX loss adds JAX's
+    make_aux_loss over the same nets' weights."""
     cfg, jcfg = ExperimentConfig(**SMALL), JaxConfig(**SMALL,
                                                      flat_optimizer=False)
     ident, drive = _subjects()
@@ -156,6 +187,7 @@ def test_second_stage_step_matches_jax():
                                     seed=s) for n, s in ((3, 0), (2, 7)))
     jds = jax_cross(jident, jdrive.auds, jdrive.exprs)
     crop, index = 10, 2
+    aux, jax_aux = _aux_pair(monkeypatch) if with_aux else (None, None)
     tree = bridge.seeded_tree(cfg, 4)
     params = bridge.params_from_jax(tree, cfg)
     latent = torch.nn.Parameter(torch.ones(3, 4))
@@ -163,20 +195,22 @@ def test_second_stage_step_matches_jax():
     rect = ds.face_rects[index]
     coords = crop_coords(data["face_rects"][index], crop, 16, 16).numpy()
     assert coords[0].tolist() == [min(rect[1], 6), min(rect[0], 6)]
-    loss, _ = make_second_stage_loss(cfg, ds, crop)(params, latent, data,
-                                                    index, None)
+    loss, parts = make_second_stage_loss(cfg, ds, crop, aux_loss=aux)(
+        params, latent, data, index, None)
+    assert (float(parts["aux_loss"].detach()) > 0) == with_aux
     loss.backward()
     diff = (jax.tree.map(jnp.asarray, tree), jnp.ones((3, 4)))
     jdata = jds.to_device()
     with jax.default_matmul_precision("highest"):
         jl, (jg, jlat) = jax.jit(jax.value_and_grad(
-            _jax_crop_loss(jcfg, jds, crop)), static_argnums=(2,))(
+            _jax_crop_loss(jcfg, jds, crop, jax_aux)), static_argnums=(2,))(
                 diff, jdata, index)
-        _, m = make_second_stage_step(jcfg, jds, crop)(
-            JaxTrainState(jnp.zeros((), jnp.int32), *diff,
-                          jax_optimizer(jcfg).init(diff)),
-            jdata, index, None)
-    assert abs(float(m["loss"]) - float(jl)) <= 1e-6 * abs(float(jl))
+        if not with_aux:  # the JAX step's own loss (compiled once)
+            _, m = make_second_stage_step(jcfg, jds, crop)(
+                JaxTrainState(jnp.zeros((), jnp.int32), *diff,
+                              jax_optimizer(jcfg).init(diff)),
+                jdata, index, None)
+            assert abs(float(m["loss"]) - float(jl)) <= 1e-6 * abs(float(jl))
     assert abs(loss.item() - float(jl)) <= 1e-5 * abs(float(jl))
     got = _grads(params, cfg)
     ref = {k: jg[k] for k in got}
@@ -312,36 +346,51 @@ def test_train_second_stage_cli_from_a_train_head_checkpoint(tmp_path):
     assert not torch.equal(ck["params"][k], h[k])
 
 
-REFUSED = {
-    "aux-landmark": (["--aux_landmark", "1"], "A11"),
-    "aux-vgg": (["--aux_vgg", "0.5"], "A11"),
-    "aux-vggface": (["--aux_vggface", "0.5"], "A11"),
-    "fan-npz": (["--fan_npz", "fan.npz"], "A11"),
-    "ray-devices": (["--ray_devices", "2"], "A13"),
+AUX_FLAGS = {
+    "aux-landmark": ["--aux_landmark", "1e-4"],
+    "aux-vgg": ["--aux_vgg", "0.5"],
+    "aux-vggface": ["--aux_vggface", "0.5"],
+    "fan-npz": ["--aux_landmark", "1e-4", "--fan_npz", "fan.npz"],
 }
 
 
-@pytest.mark.parametrize("flags,label", REFUSED.values(), ids=REFUSED.keys())
-def test_refusals(flags, label):
-    """The aux nets wait for A11 and the sharded crop for A13: the CLI,
-    make_aux_loss (a term with its nets and a weight) and the step's
-    ``mesh`` raise, naming them; make_aux_loss with no term is None."""
-    with pytest.raises(NotImplementedError, match=label):
+@pytest.mark.parametrize("flags", AUX_FLAGS.values(), ids=AUX_FLAGS.keys())
+def test_train_second_stage_cli_trains_with_each_aux_term(flags, tmp_path,
+                                                          monkeypatch):
+    """Each aux flag trains: two steps at crop 12 whose metrics.jsonl
+    carries a finite aux_loss above zero, and a checkpoint. The FAN is one
+    stack on a 64x64 crop (the port's module constants patched); with
+    --fan_npz it is the JAX package's init_fan written as an npz, as its
+    own --fan_npz reads one."""
+    monkeypatch.setattr(pfan, "NUM_MODULES", 1)
+    monkeypatch.setattr(pfan, "CROP_SIZE", 64)
+    monkeypatch.chdir(tmp_path)
+    if "--fan_npz" in flags:
+        np.savez("fan.npz", **jfan.init_fan(jax.random.PRNGKey(0),
+                                            num_modules=1))
+    res = train_second_stage.main([
+        "--device", "cpu", "--synthetic", "2", "--synthetic_hw", "16", *CLI,
+        "--crop", "12", "--steps", "2", "--i_print", "1", "--basedir",
+        str(tmp_path), "--expname", "aux", *flags])
+    rows = [r for r in map(json.loads, open(
+        tmp_path / "aux_second" / "metrics.jsonl")) if "train/aux_loss" in r]
+    assert [r["step"] for r in rows] == [0, 1]
+    assert all(math.isfinite(r["train/aux_loss"]) and r["train/aux_loss"] > 0
+               for r in rows)
+    assert CheckpointManager(res["ckpt_dir"]).latest_step() == 2
+
+
+def test_refusals():
+    """The sharded crop waits for A13: the CLI and the step's ``mesh``
+    raise, naming it; make_aux_loss with no term on is None."""
+    with pytest.raises(NotImplementedError, match="A13"):
         train_second_stage.main(["--device", "cpu", "--synthetic", "1",
-                                 *flags])
-    if label == "A11":
-        term = flags[0][len("--aux_"):] if "aux" in flags[0] else "landmark"
-        kw = {"landmark": dict(fan_params={}, w_landmark=1.0),
-              "vgg": dict(vgg16_params={}, w_vgg=0.5),
-              "vggface": dict(vggface_params={}, w_vggface=0.5)}[term]
-        with pytest.raises(NotImplementedError, match="A11"):
-            make_aux_loss(**kw)
-        assert make_aux_loss() is None
-        assert make_aux_loss(fan_params={}, w_landmark=0.0) is None
-    else:
-        ds = make_synthetic_dataset(n_frames=1, H=12, W=12, dim_expr=8)
-        with pytest.raises(NotImplementedError, match="A13"):
-            port_step(ExperimentConfig(**SMALL), ds, 8, mesh=object())
+                                 "--ray_devices", "2"])
+    ds = make_synthetic_dataset(n_frames=1, H=12, W=12, dim_expr=8)
+    with pytest.raises(NotImplementedError, match="A13"):
+        port_step(ExperimentConfig(**SMALL), ds, 8, mesh=object())
+    assert make_aux_loss() is None
+    assert make_aux_loss(fan=torch.nn.Linear(1, 1), w_landmark=0.0) is None
 
 
 @pytest.mark.slow
