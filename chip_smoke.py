@@ -356,13 +356,36 @@ non-zero and no result line is printed):
    on phase 15's subject (crop 256, 60 steps; the landmark error before and
    after, which must fall), then ``scripts.rehearsal_2nd`` for 3 steps with that proxy as
    ``--fan_npz`` (K4 and K6 per tile).
+20. the offline pipeline (``_phase_pipeline``, ROADMAP A12). 20a: a
+   synthetic subject of 32 frames of 450² and 3 s of audio, random
+   full-width weights from the port's init functions (FAN 4 stacks as a
+   .pth, BiSeNet at ResNet18 widths as an .npz, DeepSpeech at 2048 hidden
+   units as a frozen graph, the reference-scale BFM stand-in as
+   ``--bfm``), through ``python -m idealnerf_tpu_torch.cli.process_data``
+   in a process of its own on its default device: each step's wall time
+   and the peak memory, every file it must write checked, then
+   ``train_head`` on its train split (K4, K6 twice a step) and
+   ``render_val`` of one val frame (K2, K1 once) from it; whether the
+   machine has ``ffmpeg``. 20b: card against host, TF32 off: BiSeNet's
+   three heads at 512² (atol 2e-3, rtol 1e-3), DeepSpeech's logits at 2048
+   hidden units (rtol 2e-4, atol 2e-5), one ``rasterize_soft`` image and
+   its vertex gradient at 96² (card, host and the host's float64 run
+   pairwise within colour 5e-3 on the 0-255 scale, alpha 1e-5, gradient
+   3e-4 norm-relative), ``FaceTracker._photometric_initial`` for 52 steps
+   at 48² (id, exp, euler and trans within 5e-4, texture and light 1.5e-2;
+   its loss at steps 50 and 51 within 1e-5 relative),
+   the landmark stages' final loss at a fifth of their default steps
+   (1e-4 relative, the same focal); profiles of the BiSeNet and DeepSpeech forwards and of
+   50 landmark-fit steps. 20c: ``scripts.track_bench`` at 450² on the
+   34,500-vertex, 68,242-triangle stand-in, overflow 0.
 
 Then the kernel summary as one JSON line (each kernel's launches on its
 paths, K1/K2 over render_val, the composite reenact and phase 14's fast
 frames and CLIs, K4/K6 over train_head and train_torso, K3 over the
 head-only and the composite serve, each also on the subject directory of
 phase 13, and all five over phase 15's training, sweep, harness and
-``--auto_temporal`` runs, K4/K6 also over phases 18 and 19's trainers; the
+``--auto_temporal`` runs, K4/K6 also over phases 18 and 19's trainers and
+K1/K2/K4/K6 over phase 20's train_head and val frame; the
 f32 backward's two kernels over phase 16's ``train_head --train_fused 1``
 and the second stage's; its max error, its time and its plain version's,
 and its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -4848,6 +4871,480 @@ def _phase_aux(args, fm, fmg, fr, head_ckpt: str, second: dict,
     return out
 
 
+PIPE_FRAMES = 32         # 20a's subject: frames of 450²
+PIPE_AUDIO_S = 3.0       # and seconds of its aud.wav
+PIPE_TRAIN_EPOCHS = 1    # train_head on its train split (29 frames)
+# the tracking model of 20a and 20c: the reference-scale synthetic BFM
+# stand-in (34,500 vertices, 68,242 triangles, id 100, exp 79)
+PIPE_BFM = dict(n_id=100, n_exp=79, n_lat=150, n_lon=230, shell=True,
+                with_contours=True, seed=5)
+DS_TOL = {"atol": 2e-5, "rtol": 2e-4}     # tests/test_deepspeech.py:69
+BISENET_TOL = {"atol": 2e-3, "rtol": 1e-3}  # tests/test_parsing_net.py:68
+# 20b's rasterizer at 96², card against host and card against the host's
+# float64 run, each bound absolute: near an edge the steep sigmoid and the
+# edge distance's cancellation make f32 itself ill-conditioned (ROADMAP.md
+# C7): the host's own f32 image lies 2.73e-3 from float64 in colour (0-255
+# scale) and 2.5e-6 in alpha, its vertex gradient 9.5e-5 norm-relative;
+# the card's gradient has read 1.25e-4 from float64 (PERF.md)
+RASTER_TOL = {"rgb": 5e-3, "alpha": 1e-5, "grad": 3e-4}
+# 20b's landmark stages: a fifth of the default 9 x 100 + 600 + 200 steps
+# (20a's process_data runs them all on the card), host and card each; at
+# these steps the final losses have read equal to 6 decimals, 4.86e-4
+# relative at the default steps (PERF.md)
+PIPE_FIT_STEPS = dict(steps_focal=20, steps_global=120, steps_refine=40)
+TRACK_LOSS_TOL = 1e-4    # the landmark stages' final loss, relative
+# 20b's initial photometric fit: 3 of 5 frames at 48², 52 steps, past the
+# rates' decay (update 50) and the loss weights' switch (step > 50). Its
+# Adam turns float noise into a share of a step (ROADMAP.md C9): on the
+# host alone 1-3 threads lie up to 1.31e-4 (pose) and 5.05e-3 (texture
+# and light) from its 8-thread run, two card runs (an atomic index-add in
+# the backward) up to 1.34e-4 and 4.66e-3 (scripts/photo_spread.py,
+# PERF.md), hence bounds of about three times that; its loss at steps 50
+# and 51 from one point within 1e-5 relative
+PHOTO_STEPS = 52
+PHOTO_TOL = {"pose": 5e-4, "tex_light": 1.5e-2, "loss": 1e-5}
+
+
+def _pipeline_subject(d: str, hw: int, n: int, seconds: float) -> None:
+    """tests/test_pipeline.py:229-300's subject at ``hw``²: a bright
+    face-like disk drifting over a dark background in ``n`` frames
+    (``ori_imgs/*.jpg``), and ``seconds`` of a 330 Hz sine at 16 kHz
+    (``aud.wav``)."""
+    import wave
+
+    import numpy as np
+
+    from idealnerf_tpu_torch.cli.process_data import JPEG_QUALITY
+    from idealnerf_tpu_torch.data.jpeg import write_jpeg
+
+    os.makedirs(os.path.join(d, "ori_imgs"))
+    rng = np.random.RandomState(0)
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    s = hw / 64.0
+    for i in range(n):
+        cx, cy = (32 + i) * s, (28 + i % 2) * s
+        disk = (xx - cx) ** 2 + (yy - cy) ** 2 < (14 * s) ** 2
+        img = np.full((hw, hw, 3), 30, np.uint8)
+        img[disk] = [200, 170, 150]
+        img = np.clip(img.astype(int) + rng.randint(-8, 8, img.shape), 0,
+                      255).astype(np.uint8)
+        write_jpeg(os.path.join(d, "ori_imgs", f"{i}.jpg"), img,
+                   JPEG_QUALITY)
+    sr = 16000
+    t = np.arange(int(seconds * sr)) / sr
+    samples = (np.sin(2 * np.pi * 330 * t) * 8000).astype("<i2")
+    with wave.open(os.path.join(d, "aud.wav"), "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(sr)
+        wf.writeframes(samples.tobytes())
+
+
+def _pipeline_weights(root: str) -> dict:
+    """Random full-width weights from the port's own init functions: FAN
+    (4 stacks) as a torch .pth with a BatchNorm counter, BiSeNet (ResNet18
+    widths) as an .npz, DeepSpeech at 2048 hidden units as a frozen graph,
+    and the tracking model as a 3DMM_info.npy with its keys_info.npy."""
+    import numpy as np
+    import torch
+
+    from idealnerf_tpu_torch.pipeline import deepspeech as pds
+    from idealnerf_tpu_torch.pipeline.fan import init_fan
+    from idealnerf_tpu_torch.pipeline.parsing_net import init_bisenet
+    from idealnerf_tpu_torch.pipeline.tracking import Face3DMM
+
+    paths = {k: os.path.join(root, f) for k, f in (
+        ("fan", "fan.pth"), ("bisenet", "bisenet.npz"),
+        ("deepspeech", "output_graph.pb"), ("bfm", "bfm/3DMM_info.npy"))}
+    sd = {k: torch.from_numpy(v) for k, v in init_fan(1).items()}
+    sd["bn1.num_batches_tracked"] = torch.tensor(0)
+    torch.save(sd, paths["fan"])
+    np.savez(paths["bisenet"], **init_bisenet(2))
+    pds.save_frozen_graph(paths["deepspeech"], pds.consts_from_params(
+        pds.random_params(torch.Generator().manual_seed(3), n_hidden=2048)))
+    os.makedirs(os.path.dirname(paths["bfm"]))
+    Face3DMM.synthetic(**PIPE_BFM).save(paths["bfm"])
+    return paths
+
+
+def _check_subject_dir(d: str, n: int, hw: int, n_exp: int) -> dict:
+    """What process_data must have written for ``n`` frames of ``hw``²."""
+    import numpy as np
+
+    from idealnerf_tpu_torch.data.jpeg import jpeg_size
+    from idealnerf_tpu_torch.eval.video import read_png
+
+    aud = np.load(os.path.join(d, "aud.npy"))
+    lms = [np.loadtxt(os.path.join(d, "ori_imgs", f"{i}.lms"))
+           for i in range(n)]
+    tp = np.load(os.path.join(d, "track_params.npz"))
+    split = int(n * 10 / 11)
+    docs = {}
+    for name in ("train", "val"):
+        with open(os.path.join(d, f"transforms_exp_{name}.json")) as fh:
+            docs[name] = json.load(fh)
+    sizes = {jpeg_size(os.path.join(d, sub, f"{i}.jpg"))
+             for sub in ("com_imgs", "head_imgs") for i in range(n)}
+    parse = read_png(os.path.join(d, "parsing", "0.png"))
+    checks = {
+        "aud.npy (N, 16, 29)": aud.shape == (n, 16, 29)
+        and bool(np.isfinite(aud).all()),
+        "ori_imgs/*.lms (68, 2)": all(x.shape == (68, 2)
+                                      and np.isfinite(x).all() for x in lms),
+        "parsing/*.png": parse.shape == (hw, hw, 3) and all(
+            os.path.exists(os.path.join(d, "parsing", f"{i}.png"))
+            for i in range(n)),
+        "bc.jpg": jpeg_size(os.path.join(d, "bc.jpg")) == (hw, hw),
+        "com_imgs/ head_imgs/": sizes == {(hw, hw)},
+        "track_params.npz": tp["exp"].shape == (n, n_exp) and all(
+            np.isfinite(tp[k]).all() for k in ("euler", "trans", "exp")),
+        "transforms_exp_{train,val}.json": [
+            len(docs[k]["frames"]) for k in ("train", "val")] == [
+                split, n - split] and len(docs["train"]["frames"][0][
+                    "exp"]) == n_exp,
+        "HeadNeRF_config.txt": os.path.exists(os.path.join(
+            d, "HeadNeRF_config.txt")),
+    }
+    print("  written: " + ", ".join(f"{k} {v}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"process_data's directory is incomplete: "
+                             f"{checks}")
+    return {"parse_classes": {str(tuple(c)): int(m) for c, m in zip(
+        *np.unique(parse.reshape(-1, 3), axis=0, return_counts=True))},
+            "focal": float(tp["focal"]), "split": [split, n - split]}
+
+
+def _pipeline_vs_host(d: str, weights: dict, smi: str) -> dict:
+    """20b: the card's results against the port's own CPU path on the
+    same inputs: BiSeNet's three heads on frame 0 at 512² (seeded as
+    tests/test_parsing_net.py's activation test seeds its torch net);
+    DeepSpeech's logits at 2048 hidden units on the subject's audio; one
+    ``rasterize_soft`` image and its vertex gradient at 96² (the smoke
+    model of track_bench); the landmark stages' final loss and focal of
+    ``FaceTracker.fit`` (``PIPE_FIT_STEPS``) on the subject's landmarks.
+    Each side's time."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from idealnerf_tpu_torch.cli.process_data import _read_wav
+    from idealnerf_tpu_torch.data.jpeg import read_jpeg
+    from idealnerf_tpu_torch.pipeline import deepspeech as pds
+    from idealnerf_tpu_torch.pipeline.audio import deepspeech_input_vector
+    from idealnerf_tpu_torch.pipeline.parsing_net import (
+        _MEAN, _STD, INFER_SIZE, BiSeNet,
+    )
+    from idealnerf_tpu_torch.pipeline.fan import resize_linear
+    from idealnerf_tpu_torch.pipeline.tracking import (
+        Face3DMM, FaceTracker, RasterConfig, rasterize_soft,
+    )
+    from idealnerf_tpu_torch.scripts import photo_spread
+
+    print(f"phase 20b the pipeline's nets and tracker, card vs host [{smi}]")
+    dev, n, out = "cuda", PIPE_FRAMES, {}
+
+    def both(fn):
+        """fn(device) on the host and the card -> (host, card, host s,
+        card s)."""
+        res, secs = {}, {}
+        for side in ("cpu", dev):
+            t0 = time.perf_counter()
+            res[side] = fn(side)
+            torch.cuda.synchronize()
+            secs[side] = time.perf_counter() - t0
+        return res["cpu"], res[dev], secs["cpu"], secs[dev]
+
+    # BiSeNet
+    torch.manual_seed(0)
+    net = BiSeNet().eval().requires_grad_(False)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for k, v in net.state_dict().items():
+            if k.endswith("running_mean"):
+                v.copy_(torch.randn(v.shape, generator=g) * 0.05)
+            elif k.endswith("running_var"):
+                v.copy_(torch.rand(v.shape, generator=g) + 0.5)
+    img = torch.from_numpy(read_jpeg(os.path.join(d, "ori_imgs", "0.jpg"))
+                           .astype(np.float32)) / 255.0
+    x = (resize_linear(img, (INFER_SIZE, INFER_SIZE)) - torch.from_numpy(
+        _MEAN)) / torch.from_numpy(_STD)
+    x = x.permute(2, 0, 1)[None].contiguous()
+    nets = {"cpu": net, dev: copy.deepcopy(net).to(dev)}
+    with torch.no_grad():
+        host, card, hs, cs = both(lambda side: nets[side](x.to(side)))
+    errs = {}
+    for i, (a, b) in enumerate(zip(card, host, strict=True)):
+        errs[f"bisenet_head{i}"] = _close(
+            f"BiSeNet head {i} logits at {INFER_SIZE}²", a, b, **BISENET_TOL)
+    print(f"  BiSeNet forward at {INFER_SIZE}²: host {hs:.3f} s, card "
+          f"{cs:.3f} s (first call)")
+    out["bisenet_s"] = {"host": hs, "card": cs}
+    with torch.no_grad():
+        prof_bise = _profile(lambda: nets[dev](x.to(dev)),
+                             f"BiSeNet forward at {INFER_SIZE}²",
+                             "profile_bisenet.txt")
+    del nets
+
+    # DeepSpeech at 2048 hidden units on the subject's audio
+    params = pds.load_params(weights["deepspeech"])
+    audio, sr = _read_wav(os.path.join(d, "aud.wav"))
+    vec = deepspeech_input_vector(audio, sr)
+    ds = {side: pds.DeepSpeech.from_params(params, device=side)
+          for side in ("cpu", dev)}
+    host, card, hs, cs = both(lambda side: pds.deepspeech_logits(ds[side],
+                                                                 vec))
+    errs["deepspeech_logits"] = _close(
+        f"DeepSpeech logits (T={vec.shape[0]}, 2048 hidden)", card, host,
+        **DS_TOL)
+    print(f"  DeepSpeech forward: host {hs:.3f} s, card {cs:.3f} s")
+    out["deepspeech_s"] = {"host": hs, "card": cs}
+    prof_ds = _profile(lambda: pds.deepspeech_logits(ds[dev], vec),
+                       f"DeepSpeech logits of {vec.shape[0]} frames at "
+                       "2048 hidden", "profile_deepspeech.txt")
+    del ds
+
+    # one rasterize_soft image and its vertex gradient at 96²
+    model = Face3DMM.synthetic(with_contours=True, seed=5)
+    rng = np.random.RandomState(0)
+    n_id, n_exp = model.dims
+    with torch.no_grad():
+        geo = model.geometry(torch.from_numpy(rng.randn(1, n_id).astype(
+            np.float32) * 0.3), torch.from_numpy(rng.randn(1, n_exp).astype(
+                np.float32) * 0.3))[0] + torch.tensor([0.0, 0.0, -7.0])
+        tex = model.texture(torch.from_numpy(rng.randn(1, model.n_tex).astype(
+            np.float32) * 0.5))[0]
+    focal, hw = 1200.0 * 96 / 450, 96
+    vp = torch.stack([-focal * geo[:, 0] / geo[:, 2] + hw / 2,
+                      focal * geo[:, 1] / geo[:, 2] + hw / 2, -geo[:, 2]], -1)
+    cfg = RasterConfig(hw, hw)
+    w = torch.randn(hw, hw, 4, generator=torch.Generator().manual_seed(4))
+
+    def raster(side, dtype=torch.float32):
+        v = vp.detach().to(side, dtype).requires_grad_(True)
+        img, ov = rasterize_soft(v, model.tris, tex.to(side, dtype), cfg,
+                                 return_overflow=True)
+        (img * w.to(side, dtype)).sum().backward()
+        return img.detach().cpu().double(), v.grad.cpu().double(), int(ov)
+
+    host, card, hs, cs = both(raster)
+    f64 = raster("cpu", torch.float64)
+    # each pair within RASTER_TOL: card / host, card / f64, host / f64
+    gaps = {}
+    for pair, (a, b) in (("card-host", (card, host)),
+                         ("card-f64", (card, f64)),
+                         ("host-f64", (host, f64))):
+        gaps[pair] = {"rgb": float((a[0][..., :3] - b[0][..., :3]).abs()
+                                   .max()),
+                      "alpha": float((a[0][..., 3] - b[0][..., 3]).abs()
+                                     .max()),
+                      "grad": _norm_rel(a[1], b[1])}
+    print(f"  rasterize_soft {hw}² ({model.tris.shape[0]} triangles, "
+          f"overflow {card[2]}/{host[2]}): "
+          + "; ".join(f"{pair} colour {g['rgb']:.3e}, alpha "
+                      f"{g['alpha']:.3e}, vertex gradient {g['grad']:.3e}"
+                      for pair, g in gaps.items())
+          + f" (tol colour {RASTER_TOL['rgb']:g} on the 0-255 scale, "
+          f"alpha {RASTER_TOL['alpha']:g}, gradient {RASTER_TOL['grad']:g} "
+          f"norm-relative); host {hs:.3f} s, card {cs:.3f} s")
+    if not (all(g[k] <= RASTER_TOL[k] for g in gaps.values()
+                for k in RASTER_TOL) and card[2] == host[2] == 0):
+        raise AssertionError("rasterize_soft on the card disagrees with "
+                             "the host or its float64 run")
+    errs.update({f"raster_{k}_{pair.replace('-', '_')}": v
+                 for pair, g in gaps.items() for k, v in g.items()})
+
+    # the initial photometric fit, across the rates' decay and the loss
+    # weights' switch, from one start: scripts.photo_spread's window case
+    # (tests/test_torch_tracking.py's, its images without bin overflow)
+    pcase = {side: photo_spread.window_case(side) for side in ("cpu", dev)}
+    host, card, hs, cs = both(lambda side: pcase[side][
+        "tracker"]._photometric_initial(
+            pcase[side]["start"], pcase[side]["images"],
+            pcase[side]["landmarks"], pcase[side]["focal"],
+            batch=photo_spread.FIT_FRAMES, steps=PHOTO_STEPS))
+    pgap = {"pose": max(float((card[0][k].cpu() - host[0][k]).abs().max())
+                        for k in host[0]),
+            "tex_light": max(float((card[i].cpu() - host[i]).abs().max())
+                             for i in (1, 2))}
+    print(f"  FaceTracker._photometric_initial (3 of 5 frames of 48², "
+          f"{PHOTO_STEPS} steps): card vs host id / exp / euler / trans "
+          f"max abs {pgap['pose']:.3e} (tol {PHOTO_TOL['pose']:g}), "
+          f"texture and light {pgap['tex_light']:.3e} (tol "
+          f"{PHOTO_TOL['tex_light']:g}); host {hs:.2f} s, card {cs:.2f} s")
+    # the fit's loss on either side of its weight switch, from one point
+    ploss = {}
+    with torch.no_grad():
+        for side, c in pcase.items():
+            q0 = {k: v[:3] for k, v in c["start"].items() if k != "id"}
+            q0.update(id=c["start"]["id"], tex=c["tex"] * 0.5,
+                      light=c["light"][:3] + 0.05)
+            tr = c["tracker"]
+            ploss[side] = [float(tr._initial_loss(
+                tr._make_renderer(c["focal"]), c["focal"], q0,
+                torch.from_numpy(c["images"][:3]).to(side),
+                torch.from_numpy(c["landmarks"][:3]).to(side), step))
+                for step in (50, 51)]
+    pgap["loss"] = max(abs(c - h) / abs(h) for c, h in zip(
+        ploss[dev], ploss["cpu"]))
+    print(f"  its loss at steps 50 / 51: card {ploss[dev][0]!r} / "
+          f"{ploss[dev][1]!r}, host {ploss['cpu'][0]!r} / "
+          f"{ploss['cpu'][1]!r} (relative {pgap['loss']:.3e}, tol "
+          f"{PHOTO_TOL['loss']:g})")
+    if not all(pgap[k] <= PHOTO_TOL[k] for k in PHOTO_TOL):
+        raise AssertionError("the initial photometric fit on the card "
+                             "disagrees with the host's")
+    errs.update({f"photo_{k}": v for k, v in pgap.items()})
+    out["photo_s"] = {"host": hs, "card": cs}
+    del pcase
+
+    # the landmark stages on the subject's landmarks, the BFM-scale model
+    lms = np.stack([np.loadtxt(os.path.join(d, "ori_imgs", f"{i}.lms"))
+                    for i in range(n)])
+    bfm = {side: Face3DMM.load(weights["bfm"], device=side)
+           for side in ("cpu", dev)}
+    trackers = {side: FaceTracker(m, 450, 450) for side, m in bfm.items()}
+    host, card, hs, cs = both(lambda side: trackers[side].fit(
+        lms, **PIPE_FIT_STEPS))
+    lerr = abs(card.loss - host.loss) / abs(host.loss)
+    print(f"  FaceTracker.fit landmark stages ({n} frames, steps "
+          f"{PIPE_FIT_STEPS}, "
+          f"{bfm['cpu'].n_vertices} vertices): focal {card.focal:g} / "
+          f"{host.focal:g}, final loss {card.loss!r} / {host.loss!r} "
+          f"(relative {lerr:.3e}, tol {TRACK_LOSS_TOL:g}); host {hs:.2f} s, "
+          f"card {cs:.2f} s")
+    if not (card.focal == host.focal and lerr <= TRACK_LOSS_TOL):
+        raise AssertionError("the tracker's landmark stages on the card "
+                             "disagree with the host's")
+    errs["track_loss"] = lerr
+    out["track_s"] = {"host": hs, "card": cs}
+    tr = trackers[dev]
+    p0 = tr._init_params(n)
+    gt = torch.from_numpy(lms.astype(np.float32)).to(dev)
+    prof_fit = _profile(lambda: tr._fit_stage(p0, gt, card.focal, 50, 0.03,
+                                              1e-3, 1e-2),
+                        f"50 landmark-fit steps ({n} frames, contours)",
+                        "profile_track_fit.txt")
+    out.update(errs=errs, profile_bisenet=prof_bise,
+               profile_deepspeech=prof_ds, profile_track_fit=prof_fit)
+    return out
+
+
+def _phase_pipeline(fm, fmg, fr, smi: str) -> dict:
+    """Phase 20: the offline pipeline (ROADMAP A12) on the card. 20a: a
+    synthetic 450² subject (``PIPE_FRAMES`` frames, ``PIPE_AUDIO_S`` s of
+    audio) through ``python -m idealnerf_tpu_torch.cli.process_data`` in a
+    process of its own, on its default device, every step with random
+    full-width weights (``_pipeline_weights``); the directory it writes
+    checked (``_check_subject_dir``), then train_head (K4, K6 twice a step)
+    and render_val for one frame (K2, K1 once) from it. 20b
+    ``_pipeline_vs_host``. 20c ``scripts.track_bench`` at 450² on the
+    reference-scale model (zero overflow)."""
+    import torch
+
+    from idealnerf_tpu_torch.cli import render_val, train_head
+    from idealnerf_tpu_torch.scripts import track_bench
+
+    t_phase = time.perf_counter()
+    hw, n = 450, PIPE_FRAMES
+    root = "output/chip_smoke_pipeline"
+    shutil.rmtree(root, ignore_errors=True)
+    d = os.path.join(root, "subject")
+    t0 = time.perf_counter()
+    _pipeline_subject(d, hw, n, PIPE_AUDIO_S)
+    weights = _pipeline_weights(root)
+    setup_s = time.perf_counter() - t0
+    ffmpeg = shutil.which("ffmpeg")
+    print(f"phase 20a process_data: {n} frames of {hw}² and "
+          f"{PIPE_AUDIO_S:g} s of audio, weights written in {setup_s:.1f} s "
+          f"({', '.join(f'{k} {os.path.getsize(p) / 2 ** 20:.0f} MiB' for k, p in weights.items())}); "
+          f"ffmpeg on PATH: {ffmpeg or 'none'} [{smi}]")
+    cmd = [sys.executable, "-m", "idealnerf_tpu_torch.cli.process_data",
+           "--id_dir", d, "--fan_weights", weights["fan"],
+           "--parse_weights", weights["bisenet"], "--deepspeech_pb",
+           weights["deepspeech"], "--bfm", weights["bfm"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    wall_s = time.perf_counter() - t0
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "process_data.log"), "w") as fh:
+        fh.write(proc.stdout + proc.stderr)
+    if proc.returncode:
+        raise AssertionError(f"process_data exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    pd = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"  process_data on {pd['device']}: {wall_s:.1f} s in its own "
+          f"process; steps " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                         pd["steps"].items())
+          + f"; peak {pd['peak_gib']:.3f} GiB [{smi}]")
+    if not (pd["device"].startswith("cuda")
+            and set(pd["steps"]) == {"audio", "landmarks", "parse", "bg",
+                                     "decouple", "track", "transforms"}):
+        raise AssertionError(f"process_data ran {pd}")
+    n_exp = PIPE_BFM["n_exp"]
+    written = _check_subject_dir(d, n, hw, n_exp)
+
+    # the head from the directory it wrote
+    flags = list(PAPER_FLAGS)
+    flags[flags.index("--dim_expr") + 1] = str(n_exp)
+    base = ["--config", os.path.join(d, "HeadNeRF_config.txt"), *flags,
+            "--device", "cuda", "--basedir", os.path.join(root, "logs")]
+    fm.reset_launch_counts()
+    fmg.reset_launch_counts()
+    t0 = time.perf_counter()
+    th = train_head.main([*base, "--N_rand", "2048", "--epochs",
+                          str(PIPE_TRAIN_EPOCHS), "--i_print", "1"])
+    train_s = time.perf_counter() - t0
+    steps = th["step"]
+    counts, want = _train_launches(fm, fmg, steps)
+    losses = [m["loss"] for _, m in th["history"]]
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    rv = render_val.main([*base, "--head_ckpt", th["ckpt_dir"],
+                          "--max_frames", "1", "--save_path",
+                          os.path.join(root, "video")])
+    render_s = time.perf_counter() - t0
+    rcounts = {k: fr.launch_counts[k] for k in (K2, K1)}
+    print(f"  train_head on it: {steps} steps (D=8 W=256, dim_expr {n_exp}, "
+          f"N_rand 2048) in {train_s:.1f} s, loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; launches {counts}; render_val 1 val frame in "
+          f"{render_s:.1f} s, PSNR {rv['psnr']:.3f}, launches {rcounts}")
+    if not (counts == want and steps > 0 and all(map(math.isfinite, losses))
+            and rcounts == {K2: 1, K1: 1} and math.isfinite(rv["psnr"])):
+        raise AssertionError(f"train_head/render_val on process_data's "
+                             f"directory: launches {counts} (want {want}), "
+                             f"{rcounts}; losses {losses}")
+    launches = {K4: counts[K4], K6: counts[K6], K2: 1, K1: 1}
+    torch.cuda.empty_cache()
+
+    res_b = _pipeline_vs_host(d, weights, smi)
+    torch.cuda.empty_cache()
+
+    # 20c: track_bench at the reference scale
+    tb = track_bench.main(["--out", os.path.join("chiprun_out",
+                                                 "track_bench.json")])
+    print(f"phase 20c track_bench: {tb['vertices']} vertices, {tb['tris']} "
+          f"triangles at {tb['hw']}², overflow {tb['overflow']}, capacity "
+          f"{tb['max_faces_per_tile']}: raster forward "
+          f"{1e3 * tb['raster_forward_s']:.1f} ms ({tb['frames']} frames), "
+          f"1-step window {tb['photometric_window_1step_s']:.3f} s, 40 "
+          f"steps {tb['photometric_window_40step_s']:.2f} s "
+          f"({1e3 * tb['s_per_photometric_step']:.1f} ms a step), peak "
+          f"{tb['peak_gib']:.3f} GiB [{smi}]")
+    if (tb["overflow"], tb["vertices"], tb["tris"], tb["hw"]) != (
+            0, 34500, 68242, 450):
+        raise AssertionError(f"track_bench: {tb}")
+    out = {"process_data": pd, "process_data_wall_s": wall_s,
+           "setup_s": setup_s, "written": written, "ffmpeg": ffmpeg,
+           "train_head": {"steps": steps, "losses": losses,
+                          "seconds": train_s},
+           "render_val": {"psnr": rv["psnr"], "seconds": render_s},
+           "vs_host": res_b, "track_bench": tb, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  phase 20 took {out['seconds']:.1f} s; launches {launches}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rays", type=int, default=8192)
@@ -5125,6 +5622,10 @@ def main(argv=None) -> int:
                        res18["second_stage"], res15, smi)
     report["aux"] = res19
 
+    # ---- phase 20: the offline pipeline (A12) through to a trained head
+    res20 = _phase_pipeline(fm, fmg, fr, smi)
+    report["pipeline"] = res20
+
     # launches on the main paths: render_val and the composite reenact
     # (K1, K2), train_head and train_torso (K4, K6), serve head-only and
     # composite (K3)
@@ -5180,6 +5681,7 @@ def main(argv=None) -> int:
         counts[k] += res17["launches"].get(k, 0)
         counts[k] += res18["launches"].get(k, 0)
         counts[k] += res19["launches"].get(k, 0)
+        counts[k] += res20["launches"].get(k, 0)
     errs.update(grad_pass_a_f32=max(f32["pass_a_err"],
                                     res7["pass_a_f32_1001_err"]),
                 grad_pass_b_f32=f32["pass_b_err"])

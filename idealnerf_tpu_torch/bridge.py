@@ -8,6 +8,9 @@ ConvTranspose2d (in, out, k, k). The GRU of SlotAttention is (in, 3·out)
 per gate matrix in JAX and (3·out, in) in ``nn.GRUCell``. The aux nets
 of the second stage: FAN's flat dict is the same on both sides; the VGG
 nets' 3x3 kernels are HWIO in JAX ({name: {"w", "b"}}) and OIHW here.
+The offline pipeline's nets: DeepSpeech keeps the graph's TF layout and
+BiSeNet the reference's flat names on both sides; a JAX ``Face3DMM``
+crosses as its numpy arrays.
 """
 
 from __future__ import annotations
@@ -313,3 +316,46 @@ def vggface_from_jax(params, device=None):
 
 def vggface_to_jax(net: nn.Module) -> Dict[str, Dict[str, np.ndarray]]:
     return _vgg_out(net.named_children())
+
+
+def deepspeech_from_jax(params, device=None):
+    """JAX DeepSpeech params ({"h1": (in, hidden), ..., "fw_kernel": ((in
+    + hidden), 4 hidden)}, as numpy; the TF layout on both sides) -> a
+    ``pipeline.deepspeech.DeepSpeech``."""
+    from idealnerf_tpu_torch.pipeline.deepspeech import DeepSpeech
+
+    return DeepSpeech.from_params(params, device=device)
+
+
+def deepspeech_to_jax(net: nn.Module) -> Dict[str, np.ndarray]:
+    return {k: _np(v) for k, v in net.state_dict().items()}
+
+
+def bisenet_from_jax(params, device=None):
+    """A JAX BiSeNet parameter dict (flat, the reference's names, as
+    numpy) -> a ``pipeline.parsing_net.BiSeNet`` in eval mode."""
+    from idealnerf_tpu_torch.pipeline.parsing_net import BiSeNet
+
+    return BiSeNet.from_state_dict(params, device=device)
+
+
+def bisenet_to_jax(net: nn.Module) -> Dict[str, np.ndarray]:
+    return {k: _np(v) for k, v in net.state_dict().items()}
+
+
+def face3dmm_from_jax(model, device=None):
+    """A JAX ``Face3DMM`` (its arrays read through ``np.asarray``) -> the
+    port's ``pipeline.tracking.Face3DMM`` with the same bases and index
+    sets; the JAX module's ``sig_*`` are kept as they are."""
+    from idealnerf_tpu_torch.pipeline.tracking.facemodel import Face3DMM
+
+    def a(x):
+        return None if x is None else np.asarray(x)
+
+    return Face3DMM(
+        a(model.mu), a(model.base_id), a(model.base_exp), a(model.keypoints),
+        mu_tex=a(model.mu_tex), base_tex=a(model.base_tex), tris=a(model.tris),
+        sig_id=a(model.sig_id), sig_exp=a(model.sig_exp),
+        sig_tex=a(model.sig_tex), left_contour=a(model.left_contour),
+        right_contour=a(model.right_contour), rigid_ids=a(model.rigid_ids),
+        device=device)

@@ -208,6 +208,8 @@ def read_avi_frames(path: str) -> Tuple[np.ndarray, float]:
             tag = data[pos:pos + 4]
             (size,) = struct.unpack("<I", data[pos + 4:pos + 8])
             body = pos + 8
+            if body + size > end:
+                raise ValueError(f"{path}: truncated {tag!r} chunk")
             if tag == b"LIST":
                 walk(body + 4, body + size)
             elif tag == b"strh":

@@ -1,13 +1,16 @@
 """Frame and video conversion (counterpart of utils/video_tools.py):
 ``images_to_video`` muxes JPEG or PNG frames into the MJPG .avi of
-eval/video.py, ``video_to_images`` extracts such a file's frames as
-``{i}.jpg``. Other containers and codecs need the offline pipeline's
-decoder, which is not ported (ROADMAP.md A12).
+eval/video.py, ``video_to_images`` extracts a video's frames as
+``{i}.jpg``: an MJPG .avi by eval/video.py's reader, any other container
+or codec through an ``ffmpeg`` binary on ``PATH`` (the reference's own
+step 1, data_util/process_data.py:88-100), and without one it raises.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import subprocess
 from typing import List, Optional
 
 from idealnerf_tpu_torch.data.jpeg import read_jpeg, write_jpeg
@@ -34,24 +37,44 @@ def images_to_video(image_paths: List[str], out_path: str,
     return len(image_paths)
 
 
+def _ffmpeg_frames(video_path: str, out_dir: str,
+                   max_frames: Optional[int],
+                   reader_error: Optional[ValueError] = None) -> int:
+    """Frames of any container through ffmpeg as ``{i}.jpg`` from 0. Where
+    the MJPG reader refused the file first, ``reader_error`` says why, and
+    without ffmpeg it is named and chained."""
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        why = ("not an MJPG .avi" if reader_error is None
+               else f"the MJPG reader refused it ({reader_error})")
+        raise RuntimeError(
+            f"{video_path}: {why}, and there is no ffmpeg binary on PATH "
+            "to extract its frames") from reader_error
+    os.makedirs(out_dir, exist_ok=True)
+    cmd = [ffmpeg, "-nostdin", "-loglevel", "error", "-i", video_path]
+    if max_frames is not None:
+        cmd += ["-frames:v", str(max_frames)]
+    cmd += ["-qmin", "1", "-q:v", "1", "-start_number", "0",
+            os.path.join(out_dir, "%d.jpg")]
+    subprocess.run(cmd, check=True)
+    return sum(1 for f in os.listdir(out_dir) if f.endswith(".jpg"))
+
+
 def video_to_images(video_path: str, out_dir: str,
                     max_frames: Optional[int] = None) -> int:
-    """Extract an MJPG .avi's frames as ``{i}.jpg`` -> the count written.
-    Any other container raises."""
-    if os.path.splitext(video_path)[1].lower() != ".avi":
-        raise NotImplementedError(
-            f"{video_path}: only MJPG .avi files are read; other containers "
-            "need the offline pipeline's decoder, not ported yet "
-            "(ROADMAP.md A12)")
-    try:
-        frames, _ = read_avi_frames(video_path)
-    except ValueError as exc:
-        raise NotImplementedError(
-            f"{exc}; other codecs need the offline pipeline's decoder, not "
-            "ported yet (ROADMAP.md A12)") from exc
-    if max_frames is not None:
-        frames = frames[:max_frames]
-    os.makedirs(out_dir, exist_ok=True)
-    for i, f in enumerate(frames):
-        write_jpeg(os.path.join(out_dir, f"{i}.jpg"), f)
-    return len(frames)
+    """Extract a video's frames as ``{i}.jpg`` -> the count written. An
+    MJPG .avi is read here; anything else goes through ffmpeg."""
+    reader_error = None
+    if os.path.splitext(video_path)[1].lower() == ".avi":
+        try:
+            frames, _ = read_avi_frames(video_path)
+        except ValueError as exc:
+            reader_error = exc    # another codec in an AVI: ffmpeg's job
+        else:
+            if max_frames is not None:
+                frames = frames[:max_frames]
+            os.makedirs(out_dir, exist_ok=True)
+            for i, f in enumerate(frames):
+                write_jpeg(os.path.join(out_dir, f"{i}.jpg"), f)
+            return len(frames)
+    return _ffmpeg_frames(video_path, out_dir, max_frames, reader_error)

@@ -298,7 +298,7 @@ def test_video_writer_read_by_cv2(tmp_path):
             w.add(frames[0][:16])
 
 
-def test_video_tools_round_trip(tmp_path):
+def test_video_tools_round_trip(tmp_path, monkeypatch):
     frames = [np.full((16, 24, 3), 30 * i, np.uint8) for i in range(4)]
     paths = []
     for i, f in enumerate(frames):
@@ -313,9 +313,19 @@ def test_video_tools_round_trip(tmp_path):
     back = np.stack([jpeg.read_jpeg(str(tmp_path / "out" / f"{i}.jpg"))
                      for i in range(3)])
     assert np.abs(back.astype(int) - np.stack(frames[:3])).max() <= 3
-    with pytest.raises(NotImplementedError, match="A12"):
+    # another container needs an ffmpeg binary, and without one it raises
+    # naming it
+    monkeypatch.setattr(video_tools.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="no ffmpeg binary"):
         video_tools.video_to_images(str(tmp_path / "clip.mp4"),
                                     str(tmp_path / "x"))
+    # a truncated .avi keeps the reader's own error, chained
+    bad = str(tmp_path / "cut.avi")
+    with open(avi, "rb") as src, open(bad, "wb") as dst:
+        dst.write(src.read(24))
+    with pytest.raises(RuntimeError, match="MJPG reader refused") as err:
+        video_tools.video_to_images(bad, str(tmp_path / "y"))
+    assert isinstance(err.value.__cause__, ValueError)
 
 
 def test_summary_writer_matches_jax_records(tmp_path):

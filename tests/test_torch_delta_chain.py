@@ -35,6 +35,16 @@ NETS = {"paper": dict(depth=8), "d2-skip": dict(depth=2, skips=(0,)),
         "d2-noskip": dict(depth=2, skips=())}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Small tensor ops on one thread: under the suite's parallel workers
+    a thread pool per op made these emulations many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _packed(name: str, seed: int = 0) -> fr.PackedNet:
     cfg = ExperimentConfig(dim_aud=16, dim_expr=8, dim_latent=4)
     ncfg = dataclasses.replace(cfg.face_nerf_config(), **NETS[name])

@@ -36,6 +36,16 @@ JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 DIMS = dict(depth=8, width=256, dim_aud=16, dim_expr=8, dim_latent=4)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Small tensor ops on one thread: under the suite's parallel workers
+    a thread pool per op made these emulations many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(seed=0, n=128):
     jcfg, cfg = jax_fn.FaceNeRFConfig(**DIMS), FaceNeRFConfig(**DIMS)
     jparams = jax_fn.init_face_nerf(jax.random.PRNGKey(seed), jcfg)

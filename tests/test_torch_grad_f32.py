@@ -32,6 +32,16 @@ NETS = {"d2-skip": dict(depth=2, skips=(0,)),
         "narrow": dict(depth=8, width=64)}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Small tensor ops on one thread: under the suite's parallel workers
+    a thread pool per op made these emulations many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _net(name, n, seed=7):
     """A packed f32 net of NETS, widened to the kernels' width, and n
     seeded points, unit directions and a cotangent."""
