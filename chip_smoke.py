@@ -378,6 +378,23 @@ non-zero and no result line is printed):
    (1e-4 relative, the same focal); profiles of the BiSeNet and DeepSpeech forwards and of
    50 landmark-fit steps. 20c: ``scripts.track_bench`` at 450² on the
    34,500-vertex, 68,242-triangle stand-in, overflow 0.
+21. multi-device (ROADMAP A13) on the one card, each rank a process of
+   ``parallel.launch``. 21a: one rank through NCCL (a 1 x 1 mesh): three
+   sharded head steps against ``HeadTrainer``'s from the same seed at
+   450², N_rand 2048 (parameters within 1e-6), both timed. 21b: two ranks
+   on cuda:0 through gloo (NCCL refuses two ranks on one card), spawned
+   once: the head and the torso gradients of a 1 x 2 and a 2 x 1 step,
+   the crop-256 second stage's with the three aux terms (1 x 2), each
+   within 1e-3 norm-relative per tensor of one device's on the same
+   draws, and the ray-sharded 450² frame and composite within 1e-6 of one
+   device's; the 1 x 2 and 2 x 1 steps and the 1 x 2 frame timed beside
+   one device's (rank 0 alone), with the card's idle share (the ranks'
+   busy ms over rank 0's wall). 21c: ``train_head --ray_devices 2`` (4
+   steps at 450²) and ``render_val --ray_devices 2`` from their entry
+   points, the frames within 1e-6 of phase 3's. Each rank's backend and
+   device are asserted, and K1, K2, K4 and K6 must launch on the mesh's
+   paths (the ranks' own counts, the one-device references beside them
+   not counted).
 
 Then the kernel summary as one JSON line (each kernel's launches on its
 paths, K1/K2 over render_val, the composite reenact and phase 14's fast
@@ -385,7 +402,8 @@ frames and CLIs, K4/K6 over train_head and train_torso, K3 over the
 head-only and the composite serve, each also on the subject directory of
 phase 13, and all five over phase 15's training, sweep, harness and
 ``--auto_temporal`` runs, K4/K6 also over phases 18 and 19's trainers and
-K1/K2/K4/K6 over phase 20's train_head and val frame; the
+K1/K2/K4/K6 over phase 20's train_head and val frame and over phase
+21's mesh paths; the
 f32 backward's two kernels over phase 16's ``train_head --train_fused 1``
 and the second stage's; its max error, its time and its plain version's,
 and its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -5345,6 +5363,529 @@ def _phase_pipeline(fm, fmg, fr, smi: str) -> dict:
     return out
 
 
+# phase 21: multi-device (ROADMAP A13) on the one card. The steps and the
+# frames of a mesh are held against one device's on the same draws and
+# weights: frames ray for ray (the kernels render whole rays per block),
+# gradients within float reassociation (each rank's K6 sums half the
+# rays, the all-reduce adds the halves), norm-relative per tensor
+P21_FRAME_TOL = 1e-6
+P21_GRAD_TOL = 1e-3
+P21_STEPS = 3            # 21a's held steps, each side
+P21_WINDOW = 6           # steps or frames a timing window (3 windows)
+P21_KERNELS = ("fused_render_rays", "fused_render_coarse_hier", K4, K6)
+
+
+def _p21_counts() -> dict:
+    """This process's K1, K2, K4 and K6 launch counts."""
+    from idealnerf_tpu_torch.kernels import fused_mlp, fused_mlp_grad
+    from idealnerf_tpu_torch.kernels import fused_render
+
+    c = {**fused_render.launch_counts, **fused_mlp.launch_counts,
+         **fused_mlp_grad.launch_counts}
+    return {k: c[k] for k in P21_KERNELS}
+
+
+class _P21Launches:
+    """Sums the launches of the code run inside ``with launches:`` blocks
+    (the mesh's paths, not the one-device references beside them)."""
+
+    def __init__(self):
+        self.total = {k: 0 for k in P21_KERNELS}
+
+    def __enter__(self):
+        self._at = _p21_counts()
+
+    def __exit__(self, *exc):
+        now = _p21_counts()
+        for k in P21_KERNELS:
+            self.total[k] += now[k] - self._at[k]
+
+
+def _p21_gap(got, want, names) -> tuple:
+    """(the worst norm-relative gap of tensor lists, its tensor's name),
+    each tensor against a floor of 1e-6 of the largest reference norm (a
+    gradient the loss does not reach is zero on both sides)."""
+    floor = 1e-6 * max(float(w.double().norm()) for w in want)
+    return max((float((g.double() - w.double()).norm())
+                / max(float(w.double().norm()), floor), n)
+               for g, w, n in zip(got, want, names))
+
+
+def _p21_names(params) -> list:
+    """The names of ``TrainState.trainable()``'s tensors, in its order."""
+    return [n for n, _ in params.named_parameters()] + ["latent_codes"]
+
+
+def _p21_grads(tensors) -> list:
+    import torch
+
+    return [p.grad.detach().clone() if p.grad is not None
+            else torch.zeros_like(p) for p in tensors]
+
+
+def _p21_zero(tensors) -> None:
+    for p in tensors:
+        p.grad = None
+
+
+def _p21_busy_ms(run):
+    """Device ms of one warm call of ``run`` in this process
+    (torch.profiler), or None where the trace comes back empty. One call
+    only, not PROFILE_TRIES: the ranks of a mesh must make the same calls,
+    whatever each one's profiler sees."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ms = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return ms if ms > 0 else None
+
+
+def _p21_sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _p21_timed(run, tag: str, out: dict, dev, window: int) -> None:
+    """``out[tag]``: the ms per call of ``run(i)`` (the median of 3 wall
+    windows of ``window`` calls after 2 of warm-up, each window closed by
+    a device synchronize), the wall of one call and its device busy ms in
+    this process. Every rank of a mesh calls it at once (the calls meet
+    in collectives)."""
+    for i in range(2):
+        run(i)
+    ms = []
+    for _ in range(3):
+        _p21_sync(dev)
+        t0 = time.perf_counter()
+        for i in range(window):
+            run(i)
+        _p21_sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t0) / window)
+    t0 = time.perf_counter()
+    run(0)
+    _p21_sync(dev)
+    wall = 1e3 * (time.perf_counter() - t0)
+    busy = (_p21_busy_ms(lambda: run(0))
+            if dev.type == "cuda" else None)
+    out[tag] = {"ms": sorted(ms)[1], "windows": ms, "wall_ms": wall,
+                "busy_ms": busy}
+
+
+def _p21_one_device(mesh, fn):
+    """``fn()`` on rank 0 alone while the other ranks wait (no collective,
+    the card to itself) -> its result on rank 0, None elsewhere."""
+    from idealnerf_tpu_torch.parallel.launch import wait_for_ranks
+
+    out = fn() if mesh.is_main else None
+    wait_for_ranks(mesh)
+    return out
+
+
+def _p21_nccl(mesh, hw: int, rays: int, window: int) -> dict:
+    """21a, the rank of a 1 x 1 NCCL mesh: P21_STEPS sharded head steps
+    against HeadTrainer's from the same seed, then both timed."""
+    import torch
+
+    from idealnerf_tpu_torch.config import ExperimentConfig
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.parallel import ShardedHeadTrainer
+    from idealnerf_tpu_torch.train.head import HeadTrainer
+
+    cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32,
+                           N_rand=rays)
+    ds = make_synthetic_dataset(n_frames=2, H=hw, W=hw, dim_expr=76)
+    one = HeadTrainer(cfg, ds, seed=0, device=mesh.device)
+    sh = ShardedHeadTrainer(cfg, ds, mesh, seed=0)
+    step_one, step_sh = one._step_fn(False), sh._step_fn(False)
+    launches = _P21Launches()
+    losses = []
+    for i in range(P21_STEPS):
+        m1 = step_one(one.state, one.data, i % 2, one.generator)
+        with launches:
+            m2 = step_sh(sh.state, sh.data, [i % 2], sh.generator)
+        losses.append((float(m1["loss"]), float(m2["loss"])))
+    diff = max(float((a - b).detach().abs().max()) for a, b in zip(
+        one.state.trainable(), sh.state.trainable()))
+    out = {"rank": (mesh.rank, mesh.backend, str(mesh.device)),
+           "losses": losses, "max_param_diff": diff}
+    _p21_timed(lambda i: step_one(one.state, one.data, i % 2,
+                                  one.generator), "one_step", out,
+               mesh.device, window)
+    _p21_timed(lambda i: step_sh(sh.state, sh.data, [i % 2], sh.generator),
+               "mesh_step", out, mesh.device, window)
+    out["launches"] = launches.total
+    return out
+
+
+def _p21_gloo(mesh, hw: int, rays: int, crop: int, window: int) -> dict:
+    """21b, a rank of the 1 x 2 gloo mesh on the one card (and of a 2 x 1
+    mesh over the same ranks): the head and torso gradients of both
+    layouts, the 450² frame and composite and the crop-256 second-stage
+    gradients with the aux terms, each against one device's on rank 0 on
+    the same draws and weights; then the mesh's steps and frames timed
+    beside one device's."""
+    import argparse
+
+    import torch
+
+    from idealnerf_tpu_torch.cli.train_second_stage import build_aux_loss
+    from idealnerf_tpu_torch.config import ExperimentConfig
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from idealnerf_tpu_torch.eval.renderer import (
+        make_composite_frame_renderer, make_frame_renderer,
+    )
+    from idealnerf_tpu_torch.models.face_unet import ieee_convs
+    from idealnerf_tpu_torch.parallel import sharded
+    from idealnerf_tpu_torch.parallel.mesh import make_mesh
+    from idealnerf_tpu_torch.train.head import (
+        make_frame_loss, make_head_sampler, make_head_train_step,
+    )
+    from idealnerf_tpu_torch.train.second_stage import (
+        TILE, make_cross_identity_dataset, make_second_stage_loss,
+    )
+    from idealnerf_tpu_torch.train.state import init_train_state
+    from idealnerf_tpu_torch.train.torso import (
+        TorsoState, make_torso_frame_loss, make_torso_optimizer,
+        make_torso_sampler, torso_signal,
+    )
+
+    dev = mesh.device
+    layouts = {"1x2": mesh, "2x1": make_mesh(2, 1, device=dev)}
+    cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32,
+                           N_rand=rays)
+    ds = make_synthetic_dataset(n_frames=2, H=hw, W=hw, dim_expr=76,
+                                with_torso=True)
+    data = ds.to_device(dev)
+    launches = _P21Launches()
+    out = {"rank": (mesh.rank, mesh.backend, str(dev)), "gaps": {},
+           "losses": {}}
+
+    def gen(seed=7):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # the head gradients of one step, each layout against one device
+    for tag, m in layouts.items():
+        st = init_train_state(cfg, ds.size, torch.Generator().manual_seed(0),
+                              dev)
+        idx = list(range(m.n_data))
+        with launches:
+            got = sharded.make_sharded_grads(cfg, ds, m)(st, data, idx,
+                                                         gen())
+        grads = _p21_grads(st.trainable())
+
+        def head_ref():
+            _p21_zero(st.trainable())
+            g, sample = gen(), make_head_sampler(cfg, hw, hw, device=dev)
+            loss_fn, total = make_frame_loss(cfg, ds, False, dev), 0.0
+            for i in idx:
+                loss, _ = loss_fn(st.params, st.latent_codes, data, i,
+                                  sample(g, data, i), g)
+                (loss / len(idx)).backward()
+                total += float(loss.detach()) / len(idx)
+            return total, _p21_grads(st.trainable())
+
+        ref = _p21_one_device(m, head_ref)
+        if ref is not None:
+            out["gaps"][f"head {tag}"] = _p21_gap(
+                grads, ref[1], _p21_names(st.params))
+            out["losses"][f"head {tag}"] = (float(got["loss"]), ref[0])
+
+    # the torso gradients, both layouts
+    head = init_train_state(cfg, ds.size, torch.Generator().manual_seed(0),
+                            dev)
+    for tag, m in layouts.items():
+        tp, _ = _torso_setup(cfg, dev)
+        tst = TorsoState(0, tp, make_torso_optimizer(cfg, tp))
+        idx = list(range(m.n_data))
+        with launches:
+            got = sharded.make_sharded_torso_grads(cfg, ds, m)(
+                tst, head.params, head.latent_codes.detach(), data, idx,
+                gen())
+        grads = _p21_grads(tst.trainable())
+
+        def torso_ref():
+            _p21_zero(tst.trainable())
+            g, sample = gen(), make_torso_sampler(cfg, hw, hw, dev)
+            loss_fn, total = make_torso_frame_loss(cfg, ds, True, dev), 0.0
+            for i in idx:
+                loss, _ = loss_fn(tp, head.params, head.latent_codes.detach(),
+                                  data, i, sample(g), g)
+                (loss / len(idx)).backward()
+                total += float(loss.detach()) / len(idx)
+            return total, _p21_grads(tst.trainable())
+
+        ref = _p21_one_device(m, torso_ref)
+        if ref is not None:
+            out["gaps"][f"torso {tag}"] = _p21_gap(
+                grads, ref[1], [n for n, _ in tp.named_parameters()])
+            out["losses"][f"torso {tag}"] = (float(got["loss"]), ref[0])
+        del tp, tst
+
+    # the 450² frame and the composite, ray-sharded over 1 x 2
+    ncfg, (tp, tcfg) = cfg.face_nerf_config(), _torso_setup(cfg, dev)
+    view = (hw, hw, ds.focal, ds.near, ds.far, cfg.render_config())
+    where = dict(cx=ds.cx, cy=ds.cy)
+    tile = min(8192, hw * hw)  # as render_val and eval_reenact tile it
+    tile -= tile % mesh.n_ray
+    pose, pose0 = (torch.from_numpy(ds.poses[i]).to(dev) for i in (1, 0))
+    bc = data["bc_img"].float() / 255.0
+    cond = (torch.randn(64, generator=torch.Generator().manual_seed(2))
+            .to(dev), data["exprs"][1], torch.ones(32, device=dev))
+    sig = torso_signal(cond[0], pose, cfg.dim_aud_body)
+    frame = sharded.make_sharded_frame_renderer(ncfg, mesh, *view, **where,
+                                                tile=tile)
+    comp = sharded.make_sharded_composite_renderer(ncfg, tcfg, mesh, *view,
+                                                   **where, tile=tile)
+    one_frame = make_frame_renderer(ncfg, *view, **where)
+    one_comp = make_composite_frame_renderer(ncfg, tcfg, *view, **where)
+    with launches:
+        f = frame(head.params, pose, bc, *cond)
+        c = comp(head.params, tp, pose, pose0, bc, cond[0], sig, *cond[1:])
+    ref = _p21_one_device(mesh, lambda: (
+        one_frame(head.params, pose, bc, *cond),
+        one_comp(head.params, tp, pose, pose0, bc, cond[0], sig,
+                 *cond[1:])))
+    if ref is not None:
+        out["frame_err"] = float((f - ref[0]).abs().max())
+        out["composite_err"] = float((c - ref[1]).abs().max())
+    out["frame_finite"] = bool(torch.isfinite(f).all()
+                               and torch.isfinite(c).all())
+
+    # the crop-256 second stage with the aux terms over 1 x 2
+    aux = build_aux_loss(argparse.Namespace(fan_npz=None, **AUX_WEIGHTS),
+                         dev)
+    # both sides tile the crop (a crop of one tile renders untiled on one
+    # device, from other draws): 8 tiles of 8,192 rays at crop 256
+    crop_tile = min(TILE, crop * crop // 2)
+    sds = make_cross_identity_dataset(ds, ds.auds)
+    sdata = sds.to_device(dev)
+    st = init_train_state(cfg, sds.size, torch.Generator().manual_seed(0),
+                          dev)
+    with launches:
+        loss, parts = make_second_stage_loss(cfg, sds, crop, aux_loss=aux,
+                                             tile=crop_tile, device=dev,
+                                             mesh=mesh)(
+            st.params, st.latent_codes, sdata, 1, gen(9))
+        with ieee_convs():  # as the step runs the aux nets' backward
+            loss.backward()
+    mse, aux_total = sharded.all_reduce_gradients(
+        st.trainable(), (parts["mse_loss"], parts["aux_loss"]))
+    grads = _p21_grads(st.trainable())
+
+    def crop_ref():
+        _p21_zero(st.trainable())
+        loss, parts = make_second_stage_loss(cfg, sds, crop, aux_loss=aux,
+                                             tile=crop_tile, device=dev)(
+            st.params, st.latent_codes, sdata, 1, gen(9))
+        with ieee_convs():
+            loss.backward()
+        return (float(loss.detach()), float(parts["aux_loss"].detach()),
+                _p21_grads(st.trainable()))
+
+    ref = _p21_one_device(mesh, crop_ref)
+    if ref is not None:
+        out["gaps"]["second stage 1x2"] = _p21_gap(
+            grads, ref[2], _p21_names(st.params))
+        out["losses"]["second stage 1x2"] = (float(mse + aux_total), ref[0])
+        out["aux"] = (float(aux_total), ref[1])
+    del st, sds, sdata, grads, aux
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # times: the mesh's step and frame beside one device's (rank 0 alone)
+    tst = init_train_state(cfg, ds.size, torch.Generator().manual_seed(0),
+                           dev)
+    g = gen()
+    for tag, m in layouts.items():
+        step = sharded.make_sharded_train_step(cfg, ds, m)
+        idx = list(range(m.n_data))
+        _p21_timed(lambda i: step(tst, data, idx, g), f"{tag} step", out,
+                   dev, window)
+    one_step = make_head_train_step(cfg, ds, False, device=dev)
+    _p21_one_device(mesh, lambda: _p21_timed(
+        lambda i: one_step(tst, data, i % 2, g), "one step", out, dev,
+        window))
+    _p21_timed(lambda i: frame(head.params, pose, bc, *cond), "1x2 frame",
+               out, dev, window)
+    _p21_one_device(mesh, lambda: _p21_timed(
+        lambda i: one_frame(head.params, pose, bc, *cond), "one frame", out,
+        dev, window))
+    out["launches"] = launches.total
+    return out
+
+
+def _phase_multi(args, p3_frames, dev: str = "cuda", hw: int = 450,
+                 rays: int = 2048, crop: int = 256,
+                 window: int = P21_WINDOW) -> dict:
+    """Phase 21: multi-device (A13) on the one card. 21a: one rank through
+    NCCL (a 1 x 1 mesh): P21_STEPS sharded head steps against
+    HeadTrainer's from the same seed (450², N_rand 2048). 21b: two ranks
+    on cuda:0 through gloo, spawned once: the head and torso gradients of
+    a 1 x 2 and a 2 x 1 step, the ray-sharded 450² frame and composite,
+    and the crop-256 second stage with the aux terms, each against one
+    device's (frames P21_FRAME_TOL, gradients P21_GRAD_TOL); the steps and
+    the frame timed beside one device's, with the card's idle share (the
+    ranks' busy ms over rank 0's wall). 21c: train_head and render_val
+    with --ray_devices 2 from their entry points, render_val's frames
+    against phase 3's. The K1, K2, K4 and K6 launches of the mesh paths
+    (the ranks' own counts) go into the kernels line; each rank's backend
+    and device are asserted."""
+    import numpy as np
+    import torch
+
+    from idealnerf_tpu_torch.cli import render_val, train_head
+    from idealnerf_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    cuda = dev == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    n_gpu = torch.cuda.device_count() if cuda else 1
+    out, counts = {}, {k: 0 for k in P21_KERNELS}
+
+    # 21a: one rank through NCCL
+    t0 = time.perf_counter()
+    (a,) = launch(_p21_nccl, 1, 1, device=dev, args=(hw, rays, window),
+                  timeout=600)
+    if a["rank"] != (0, "nccl" if cuda else "gloo", "cuda:0" if cuda
+                     else "cpu"):
+        raise AssertionError(f"21a rank got {a['rank']}")
+    print(f"phase 21a 1 x 1 mesh through NCCL ({a['rank']}): "
+          f"{P21_STEPS} sharded head steps against HeadTrainer's, losses "
+          + ", ".join(f"{x:.6f}/{y:.6f}" for x, y in a["losses"])
+          + f", max parameter difference {a['max_param_diff']:.3e}; "
+          f"{a['one_step']['ms']:.2f} ms a step on one device, "
+          f"{a['mesh_step']['ms']:.2f} on the mesh; launches "
+          f"{a['launches']} ({time.perf_counter() - t0:.1f} s)")
+    if a["max_param_diff"] > P21_FRAME_TOL:
+        raise AssertionError("21a: the 1 x 1 mesh trained otherwise than "
+                             "HeadTrainer")
+    out["21a"] = a
+
+    # 21b: two ranks on the one card through gloo
+    t0 = time.perf_counter()
+    ranks = launch(_p21_gloo, 1, 2, device=dev,
+                   args=(hw, rays, crop, window), timeout=900)
+    want = [(r, "gloo" if n_gpu < 2 else "nccl",
+             f"cuda:{r % n_gpu}" if cuda else "cpu") for r in range(2)]
+    if [r["rank"] for r in ranks] != want:
+        raise AssertionError(f"21b ranks got {[r['rank'] for r in ranks]}, "
+                             f"want {want}")
+    b = ranks[0]
+    for tag, (gap, worst) in b["gaps"].items():
+        got, ref = b["losses"][tag]
+        print(f"phase 21b {tag}: gradients {gap:.3e} norm-relative from one "
+              f"device's at worst ({worst}; tol {P21_GRAD_TOL:g}), loss "
+              f"{got:.6f} against {ref:.6f}")
+        if not gap <= P21_GRAD_TOL or not math.isfinite(got):
+            raise AssertionError(f"21b {tag}: the mesh's gradients differ")
+    print(f"  second stage aux term {b['aux'][0]:.6f} on the mesh against "
+          f"{b['aux'][1]:.6f} on one device")
+    print(f"  450² frame {b['frame_err']:.3e}, composite "
+          f"{b['composite_err']:.3e} from one device's (tol "
+          f"{P21_FRAME_TOL:g})")
+    if not (b["frame_finite"] and b["frame_err"] <= P21_FRAME_TOL
+            and b["composite_err"] <= P21_FRAME_TOL):
+        raise AssertionError("21b: the ray-sharded frame differs")
+    times = {}
+    for tag in ("1x2 step", "2x1 step", "one step", "1x2 frame",
+                "one frame"):
+        t = b[tag]
+        busy = [r[tag]["busy_ms"] for r in ranks if tag in r]
+        # where the ranks' kernels overlap on the card each one's duration
+        # counts the other's time too: a busy sum past the wall says so
+        idle = (None if None in busy
+                else max(0.0, 1.0 - sum(busy) / t["wall_ms"]))
+        times[tag] = {**t, "busy_ms_ranks": busy, "idle_share": idle}
+        print(f"  {tag}: {t['ms']:.2f} ms (windows "
+              f"{', '.join(f'{x:.2f}' for x in t['windows'])}), device busy "
+              + " + ".join(_num(x, '.2f', ' ms') for x in busy)
+              + f", idle share {_num(idle, '.3f')}")
+    sum_counts = {k: sum(r["launches"][k] for r in ranks)
+                  for k in P21_KERNELS}
+    print(f"  launches on the mesh's paths (both ranks): {sum_counts} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    out["21b"] = {"ranks": [r["rank"] for r in ranks], "gaps": b["gaps"],
+                  "losses": b["losses"], "aux": b["aux"],
+                  "frame_err": b["frame_err"],
+                  "composite_err": b["composite_err"], "times": times,
+                  "launches": sum_counts}
+
+    # 21c: the CLIs' --ray_devices from their entry points
+    t0 = time.perf_counter()
+    base = "output/chip_smoke_mesh"
+    shutil.rmtree(base, ignore_errors=True)
+    reset = [m.reset_launch_counts for m in _p21_modules()]
+    for r in reset:
+        r()
+    res = train_head.main([
+        "--synthetic", "2", "--synthetic_hw", str(hw), *PAPER_FLAGS,
+        "--N_rand", str(rays), "--epochs", "2", "--i_print", "1",
+        "--device", dev, "--basedir", base, "--expname", "head",
+        "--ray_devices", "2"])
+    th = _p21_counts()
+    steps = res["step"]
+    print(f"phase 21c train_head --ray_devices 2: {steps} steps, losses "
+          + ", ".join(f"{m['loss']:.5f}" for _, m in res["history"])
+          + f"; launches {th}")
+    if not (steps == 4 and all(math.isfinite(m["loss"])
+                               for _, m in res["history"])):
+        raise AssertionError("21c train_head on the mesh failed")
+    if cuda and (th[K4] != 2 * 2 * steps or th[K6] != 2 * 2 * steps):
+        raise AssertionError(f"21c train_head launched {th}")
+    for r in reset:
+        r()
+    rv = render_val.main([
+        "--synthetic", str(args.frames), "--synthetic_hw", str(args.hw),
+        "--dim_aud", "64", "--dim_expr", "76", "--dim_latent", "32",
+        "--device", dev, "--save_path", base, "--ray_devices", "2"])
+    rc = _p21_counts()
+    err = float(np.abs(rv["frames"] - p3_frames).max())
+    print(f"phase 21c render_val --ray_devices 2: {args.frames} frames of "
+          f"{args.hw}², {rv['frame_ms']:.1f} ms/frame, PSNR "
+          f"{rv['psnr']:.3f}, {err:.3e} from phase 3's frames (tol "
+          f"{P21_FRAME_TOL:g}); launches {rc} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if err > P21_FRAME_TOL:
+        raise AssertionError("21c render_val on the mesh differs from "
+                             "phase 3")
+    for k in ("fused_render_rays", "fused_render_coarse_hier"):
+        if cuda and rc[k] != 2 * args.frames:
+            raise AssertionError(f"21c render_val launched {rc}")
+    out["21c"] = {"train_head": {"steps": steps, "launches": th,
+                                 "history": res["history"]},
+                  "render_val": {"frame_ms": rv["frame_ms"],
+                                 "psnr": rv["psnr"], "max_err": err,
+                                 "launches": rc}}
+    for part in (a["launches"], sum_counts, th, rc):
+        for k in P21_KERNELS:
+            counts[k] += part[k]
+    idle = [k for k, n in counts.items() if not n > 0]
+    if cuda and idle:
+        raise AssertionError(f"phase 21: not launched on the mesh: {idle}")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 21 multi-device: {out['seconds']:.1f} s; launches on the "
+          f"mesh's paths {counts}")
+    return out
+
+
+def _p21_modules():
+    from idealnerf_tpu_torch.kernels import fused_mlp, fused_mlp_grad
+    from idealnerf_tpu_torch.kernels import fused_render
+
+    return fused_render, fused_mlp, fused_mlp_grad
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rays", type=int, default=8192)
@@ -5488,11 +6029,12 @@ def main(argv=None) -> int:
           f"D=8 W=256 {n_s}+{n_i}: {res['frame_ms']:.1f} ms/frame after the "
           f"first, PSNR {res['psnr']:.3f}, SSIM {res['ssim']:.4f}, "
           f"launches {counts}")
-    frames = res.pop("frames")  # the report keeps the metrics only
+    # the report keeps the metrics only; phase 21 holds its ray-sharded
+    # render_val against these frames
+    p3_frames = res.pop("frames")
     if not (math.isfinite(res["psnr"]) and math.isfinite(res["ssim"])
-            and frames.shape == (args.frames, args.hw, args.hw, 3)):
+            and p3_frames.shape == (args.frames, args.hw, args.hw, 3)):
         raise AssertionError("render_val produced non-finite frames")
-    del frames
     for k, n in counts.items():
         if n != args.frames:
             raise AssertionError(f"{k} launched {n} times for "
@@ -5626,6 +6168,10 @@ def main(argv=None) -> int:
     res20 = _phase_pipeline(fm, fmg, fr, smi)
     report["pipeline"] = res20
 
+    # ---- phase 21: multi-device (A13): ranks on the one card
+    res21 = _phase_multi(args, p3_frames, hw=args.train_hw)
+    report["multi"] = res21
+
     # launches on the main paths: render_val and the composite reenact
     # (K1, K2), train_head and train_torso (K4, K6), serve head-only and
     # composite (K3)
@@ -5682,6 +6228,7 @@ def main(argv=None) -> int:
         counts[k] += res18["launches"].get(k, 0)
         counts[k] += res19["launches"].get(k, 0)
         counts[k] += res20["launches"].get(k, 0)
+        counts[k] += res21["launches"].get(k, 0)
     errs.update(grad_pass_a_f32=max(f32["pass_a_err"],
                                     res7["pass_a_f32_1001_err"]),
                 grad_pass_b_f32=f32["pass_b_err"])

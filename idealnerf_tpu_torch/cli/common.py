@@ -48,6 +48,15 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     return parser
 
 
+def resolve_device(name: str) -> torch.device:
+    """The ``--device`` of a CLI; cuda where no CUDA device is available
+    raises (no CPU fallback)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available")
+    return device
+
+
 def resolve_config(args) -> ExperimentConfig:
     overrides = {}
     for f in dataclasses.fields(ExperimentConfig):

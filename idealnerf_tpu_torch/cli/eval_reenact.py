@@ -39,7 +39,11 @@ flags, ``--prior 1`` and the keyframe sample rung as the JAX CLI does
 (``apply_operating_point``). Where no measured point holds the gate the
 CLI refuses (exit code 2).
 
-Not ported yet: ``--ray_devices``, ``--data_devices`` (ROADMAP.md A13).
+``--ray_devices R`` / ``--data_devices D`` render on a (D, R) mesh of
+ranks, one process each (an axis left at 0 is 1, as in the JAX CLI):
+each full-fidelity frame's rays split over R ranks, D frames a batch
+(eval/reenact.py ``mesh``); refused with ``--fast`` and ``--temporal``
+as the JAX reenact refuses them. Rank 0 writes the video.
 """
 
 from __future__ import annotations
@@ -52,22 +56,20 @@ import torch
 
 from idealnerf_tpu_torch.cli.common import (
     build_parser, load_head, load_torso, resolve_config, resolve_dataset,
+    resolve_device,
 )
 from idealnerf_tpu_torch.eval.metrics import psnr
 from idealnerf_tpu_torch.eval.operating_points import gated_video_config
 from idealnerf_tpu_torch.eval.renderer import (
     cached_depth_band, subject_depth_range,
 )
-from idealnerf_tpu_torch.eval.reenact import load_driving_exprs, reenact
+from idealnerf_tpu_torch.eval.reenact import (
+    check_mesh_modes, load_driving_exprs, reenact,
+)
 from idealnerf_tpu_torch.eval.temporal import check_roll_k
+from idealnerf_tpu_torch.parallel.launch import launch, main_first, mesh_shape
 
 logger = logging.getLogger("idealnerf.cli")
-
-# modes of the JAX CLI that the port does not have yet
-_NOT_PORTED = {
-    "ray_devices": "A13 (multi-device)",
-    "data_devices": "A13 (multi-device)",
-}
 
 
 def apply_operating_point(args, conf: dict) -> None:
@@ -108,9 +110,11 @@ def main(argv=None):
                         help="tighten [near,far] to the trained head's "
                              "own depth band (subject_depth_range); "
                              "head-only renders")
-    for flag in ("ray_devices", "data_devices"):
-        parser.add_argument(f"--{flag}", type=int, default=0,
-                            help="not ported")
+    parser.add_argument("--ray_devices", type=int, default=0,
+                        help="split each frame's rays over this many ranks "
+                             "(full-fidelity frames)")
+    parser.add_argument("--data_devices", type=int, default=0,
+                        help="frames a batch, one a 'data' rank")
     parser.add_argument("--auto_temporal", type=str, default=None,
                         metavar="EVIDENCE_DIR",
                         help="apply the quality-gated temporal video "
@@ -160,10 +164,6 @@ def main(argv=None):
                              "cycle; accepted for parity, the frames run "
                              "through the per-frame loop either way")
     args = parser.parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP.md {item})")
     if args.auto_temporal:
         mode = "comp" if args.torso_ckpt else "head"
         conf = gated_video_config(args.auto_temporal, mode)
@@ -184,11 +184,21 @@ def main(argv=None):
                      "composite tightening runs through "
                      "scripts/composite_delta.py --tighten "
                      "(per-field bands)")
-    cfg = resolve_config(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available")
+    device = resolve_device(args.device)
+    shape = mesh_shape(args.data_devices, args.ray_devices, device,
+                       fill=False)
+    if shape is not None:
+        check_mesh_modes(shape, args.fast / 100.0 if args.fast else None,
+                         args.temporal or None)
+        return launch(_reenact, *shape, device=device, args=(args,))[0]
+    return _reenact(None, args)
 
+
+def _reenact(mesh, args):
+    """The reenactment on one device (``mesh`` None) or on this rank of a
+    mesh."""
+    cfg = resolve_config(args)
+    device = torch.device(args.device) if mesh is None else mesh.device
     identity = resolve_dataset(
         args, cfg, mode="val",
         gt_dirs="com_imgs" if args.torso_ckpt else None)
@@ -206,11 +216,11 @@ def main(argv=None):
     params = state.params.to(device)
     bounds = None
     if args.tighten_bounds:
-        bounds = cached_depth_band(
+        bounds = main_first(mesh, lambda: cached_depth_band(
             args.head_ckpt, "head", state.step,
             lambda: subject_depth_range(
                 cfg, params, state.latent_codes.to(device),
-                resolve_dataset(args, cfg, mode="train")))
+                resolve_dataset(args, cfg, mode="train"))))
         logger.info("tightened bounds: [%.4f, %.4f]", *bounds)
 
     save_path = cfg.save_path or "output/render"
@@ -229,7 +239,7 @@ def main(argv=None):
         freeze_z_torso=bool(args.freeze_z_torso), uni_frac=args.uni_frac,
         kf_blend=args.kf_blend, dilate_every=args.dilate_every,
         roll_k_torso=args.roll_k_torso, head_parse=bool(args.head_parse),
-        cycle=bool(args.cycle) and not args.roll_k_torso)
+        cycle=bool(args.cycle) and not args.roll_k_torso, mesh=mesh)
     n = frames.shape[0]
     gt = identity.images[np.arange(n) % identity.size].astype(
         np.float32) / 255.0

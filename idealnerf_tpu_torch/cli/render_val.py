@@ -14,7 +14,11 @@ with ``--occ_prior`` (cached beside the checkpoint). ``--tighten_bounds``
 samples within the trained head's own depth band (subject_depth_range,
 cached in the checkpoint's depth_bands.json). The frames go to
 ``<save_path>/<expname>_val.avi`` (25 fps MJPG), every 10th also as
-``<expname>_val_<i:05d>.jpg``.
+``<expname>_val_<i:05d>.jpg``. ``--ray_devices R`` renders each frame
+with its rays split over R ranks, one process each
+(parallel/sharded.make_sharded_frame_renderer; refused with ``--pruned``,
+whose ray selection is per frame, as the JAX CLI refuses it); rank 0
+writes the video.
 ``main(argv)`` returns {"psnr", "ssim", "frame_ms", "frames"}: mean
 PSNR/SSIM over the frames, the mean wall time per frame after the first,
 taken around work that ends in a device synchronize, and the frames
@@ -24,6 +28,7 @@ clamped to [0, 1] as one (n, H, W, 3) f32 array; with
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -33,6 +38,7 @@ import torch
 
 from idealnerf_tpu_torch.cli.common import (
     build_parser, load_head, resolve_config, resolve_dataset,
+    resolve_device,
 )
 from idealnerf_tpu_torch.eval.metrics import psnr, ssim
 from idealnerf_tpu_torch.eval.renderer import (
@@ -44,6 +50,7 @@ from idealnerf_tpu_torch.eval.video import VideoWriter
 from idealnerf_tpu_torch.models.variants import (
     variant_conditioning, variant_nerf_config,
 )
+from idealnerf_tpu_torch.parallel.launch import launch, main_first
 from idealnerf_tpu_torch.train.head import compute_aud_feature
 
 logger = logging.getLogger("idealnerf.cli")
@@ -62,8 +69,8 @@ def main(argv=None):
                              "of train-split face rects + torso parse "
                              "masks, eval/renderer.foreground_prior)")
     parser.add_argument("--ray_devices", type=int, default=0,
-                        help="shard each frame's rays over devices "
-                             "(not ported: ROADMAP.md A13)")
+                        help="split each frame's rays over this many "
+                             "ranks (full-fidelity frames only)")
     parser.add_argument("--head_parse", type=int, default=0,
                         help="with --prior_masked: tighten the prior "
                              "from face-rect boxes to parse silhouettes")
@@ -84,17 +91,25 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to render on")
     args = parser.parse_args(argv)
-    if args.ray_devices:
-        raise NotImplementedError(
-            "--ray_devices is not ported yet (ROADMAP.md A13 (multi-device))")
     if args.prior_masked and not args.pruned:
         parser.error("--prior_masked requires --pruned (the prior mask "
                      "only applies to the pruned fast path)")
-    cfg = resolve_config(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available")
+    if args.ray_devices and args.pruned:
+        parser.error("--ray_devices applies to full-fidelity renders "
+                     "only (not with --pruned: its ray selection is "
+                     "host-side)")
+    device = resolve_device(args.device)
+    if args.ray_devices:
+        return launch(_render, 1, args.ray_devices, device=device,
+                      args=(args,))[0]
+    return _render(None, args)
 
+
+def _render(mesh, args):
+    """The val render on one device (``mesh`` None) or on this rank of a
+    ray-sharded mesh."""
+    cfg = resolve_config(args)
+    device = torch.device(args.device) if mesh is None else mesh.device
     ds = resolve_dataset(args, cfg, mode="val")
     state = load_head(args, cfg, ds.size)
     params = state.params.to(device)
@@ -106,10 +121,10 @@ def main(argv=None):
     ds_train = None
     if args.tighten_bounds:
         ds_train = resolve_dataset(args, cfg, mode="train")
-        near, far = cached_depth_band(
+        near, far = main_first(mesh, lambda: cached_depth_band(
             args.head_ckpt, "head", state.step,
             lambda: subject_depth_range(cfg, params, latent_codes,
-                                        ds_train))
+                                        ds_train)))
         logger.info("tightened bounds: [%.4f, %.4f] (config: [%.4f, %.4f])",
                     near, far, ds.near, ds.far)
     if args.pruned:
@@ -132,6 +147,16 @@ def main(argv=None):
             keep_fraction=args.pruned / 100.0 if args.pruned > 1 else 0.4,
             prior_mask=prior_mask, k_coarse=k_coarse,
             keep_basis=args.keep_basis)
+    elif mesh is not None:
+        from idealnerf_tpu_torch.parallel import make_sharded_frame_renderer
+
+        tile = min(8192, H * W)
+        tile -= tile % mesh.n_ray
+        logger.info("ray-sharded eval over %d ranks (%s)", mesh.n_ray,
+                    mesh.backend)
+        render = make_sharded_frame_renderer(
+            head_cfg, mesh, H, W, ds.focal, near, far, cfg.render_config(),
+            cx=ds.cx, cy=ds.cy, tile=tile)
     else:
         render = make_frame_renderer(head_cfg, H, W, ds.focal, near, far,
                                      cfg.render_config(), cx=ds.cx,
@@ -144,7 +169,8 @@ def main(argv=None):
     out = os.path.join(save_path, f"{cfg.expname}_val.avi")
     n = ds.size if args.max_frames is None else min(args.max_frames, ds.size)
     psnrs, ssims, times, frames = [], [], [], []
-    with torch.no_grad(), VideoWriter(out) as writer:
+    with torch.no_grad(), (VideoWriter(out) if mesh is None or mesh.is_main
+                           else contextlib.nullcontext()) as writer:
         for i in range(n):
             t0 = time.perf_counter()
             aud = compute_aud_feature(params, data["auds"], data["aud_ids"],
@@ -162,7 +188,8 @@ def main(argv=None):
             psnrs.append(float(psnr(frame, gt)))
             ssims.append(ssim(frame, gt))
             frames.append(frame.clamp(0, 1).cpu().numpy())
-            writer.add(frames[-1])
+            if writer is not None:
+                writer.add(frames[-1])
             logger.info("val frame %d/%d psnr %.2f ssim %.3f (%.1f ms)",
                         i + 1, n, psnrs[-1], ssims[-1], times[-1])
     frame_ms = float(np.mean(times[1:] if n > 1 else times))

@@ -24,14 +24,16 @@ as in the JAX CLI.
 
 On ``--device cuda`` (the default) the crop's tiles run the fused kernels
 (``--train_fused`` 1 or 2) and the aux nets cuDNN in f32.
-``--ray_devices`` waits for ROADMAP.md A13 and raises. The checkpoint
-goes to ``--ckpt_dir`` (default ``<basedir>/<expname>_second/ckpt``); the
+``--ray_devices R`` splits the crop's ray tiles over R ranks, one process
+each (train/second_stage.py ``mesh``); rank 0 writes the checkpoint and
+metrics. The checkpoint goes to ``--ckpt_dir`` (default ``<basedir>/<expname>_second/ckpt``); the
 metrics (``aux_loss`` among them) every ``--i_print`` steps.
 ``main(argv)`` returns {"step", "ckpt_dir", "crop", "history"}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 
@@ -40,9 +42,11 @@ import torch
 
 from idealnerf_tpu_torch.cli.common import (
     build_parser, make_summary, resolve_config, resolve_dataset,
+    resolve_device,
 )
+from idealnerf_tpu_torch.parallel.launch import launch
 from idealnerf_tpu_torch.train.second_stage import (
-    A13, SecondStageTrainer, make_aux_loss,
+    SecondStageTrainer, make_aux_loss,
 )
 
 logger = logging.getLogger("idealnerf.cli")
@@ -97,20 +101,28 @@ def main(argv=None):
                              "names (scripts.train_fan_proxy); unset = "
                              "random init (no released weights here)")
     parser.add_argument("--ray_devices", type=int, default=0,
-                        help="shard the crop's ray tiles over devices "
-                             "(not ported)")
+                        help="split the crop's ray tiles over this many "
+                             "ranks")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on")
     args = parser.parse_args(argv)
+    device = resolve_device(args.device)
     if args.ray_devices:
-        raise NotImplementedError(f"--ray_devices is not ported yet ({A13})")
+        return launch(_train, 1, args.ray_devices, device=device,
+                      args=(args,))[0]
+    return _train(None, args)
+
+
+def _train(mesh, args):
+    """The fine-tune on one device (``mesh`` None) or on this rank of a
+    ray-sharded mesh."""
     cfg = resolve_config(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available")
+    main_rank = mesh is None or mesh.is_main
+    device = torch.device(args.device) if mesh is None else mesh.device
     identity = resolve_dataset(args, cfg, mode="train")
     run_dir = os.path.join(cfg.basedir, cfg.expname + "_second")
-    cfg.write(os.path.join(run_dir, "args.txt"))
+    if main_rank:
+        cfg.write(os.path.join(run_dir, "args.txt"))
     auds = (np.load(args.driving_aud).astype(np.float32) if args.driving_aud
             else identity.auds)
 
@@ -125,16 +137,20 @@ def main(argv=None):
     aux = build_aux_loss(args, device)
     trainer = SecondStageTrainer(cfg, identity, auds,
                                  init_params=init_params, crop=args.crop,
-                                 seed=args.seed, aux_loss=aux, device=device)
-    logger.info("train_second_stage: %d frames, crop %d, device %s, aux %s",
+                                 seed=args.seed, aux_loss=aux, mesh=mesh,
+                                 device=device)
+    logger.info("train_second_stage: %d frames, crop %d, device %s, aux %s%s",
                 identity.size, trainer.crop, device,
-                "off" if aux is None else "on")
-    summary = make_summary(cfg, run_dir)
+                "off" if aux is None else "on",
+                "" if mesh is None else f", rays over {mesh.n_ray} ranks")
+    summary = (make_summary(cfg, run_dir) if main_rank
+               else contextlib.nullcontext())
     history = []
 
     def on_metrics(step, m):
         history.append((step, m))
-        summary.scalars(step, m)
+        if main_rank:
+            summary.scalars(step, m)
         logger.info("[2ND] step %d loss %.5f psnr %.2f aux %.4f", step,
                     m["loss"], m["psnr"], m["aux_loss"])
 
@@ -145,9 +161,11 @@ def main(argv=None):
 
     ckpt_dir = args.ckpt_dir or os.path.join(run_dir, "ckpt")
     st = trainer.state
-    CheckpointManager(ckpt_dir).save(
-        args.steps, {"step": args.steps, "params": st.params.state_dict(),
-                     "latent_codes": st.latent_codes.detach()})
+    if main_rank:
+        CheckpointManager(ckpt_dir).save(
+            args.steps, {"step": args.steps,
+                         "params": st.params.state_dict(),
+                         "latent_codes": st.latent_codes.detach()})
     logger.info("done; checkpoint in %s", ckpt_dir)
     return {"step": args.steps, "ckpt_dir": ckpt_dir, "crop": trainer.crop,
             "history": history}

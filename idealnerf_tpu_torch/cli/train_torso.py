@@ -18,11 +18,13 @@ to ``--ckpt_dir`` (default ``<basedir>/<expname>_torso/ckpt``).
 ``main(argv)`` returns {"step", "ckpt_dir", "history", "head_params"}: the
 final step, the checkpoint directory, the (step, metrics) of every log
 point (every ``--i_print`` steps) and the frozen head as it stands after
-training.
+training. ``--data_devices`` / ``--ray_devices`` train on a mesh of
+ranks as ``train_head``'s do (parallel/trainers.py: ShardedTorsoTrainer).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 
@@ -30,7 +32,9 @@ import torch
 
 from idealnerf_tpu_torch.cli.common import (
     build_parser, load_head, make_summary, resolve_config, resolve_dataset,
+    resolve_device,
 )
+from idealnerf_tpu_torch.parallel.launch import launch, mesh_shape
 from idealnerf_tpu_torch.train.torso import TorsoTrainer
 
 logger = logging.getLogger("idealnerf.cli")
@@ -45,35 +49,47 @@ def main(argv=None):
     parser.add_argument("--smooth_audio", dest="cli_smooth_audio", type=int,
                         default=1)
     parser.add_argument("--data_devices", type=int, default=0,
-                        help="frames per step over several devices "
-                             "(not ported)")
+                        help="frames per step, one a 'data' rank of the "
+                             "mesh; 0 = the single-device trainer")
     parser.add_argument("--ray_devices", type=int, default=0,
-                        help="shard each frame's rays over devices "
-                             "(not ported)")
+                        help="ranks each frame's rays split over (the "
+                             "'ray' axis of the mesh)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on")
     args = parser.parse_args(argv)
-    for flag in ("data_devices", "ray_devices"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP.md A13 (multi-device))")
+    device = resolve_device(args.device)
+    shape = mesh_shape(args.data_devices, args.ray_devices, device)
+    if shape is not None:
+        return launch(_train, *shape, device=device, args=(args,))[0]
+    return _train(None, args)
+
+
+def _train(mesh, args):
+    """The run on one device (``mesh`` None) or on this rank of a mesh."""
     cfg = resolve_config(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available")
+    main_rank = mesh is None or mesh.is_main
+    device = torch.device(args.device) if mesh is None else mesh.device
     dataset = resolve_dataset(args, cfg, mode="train", gt_dirs="com_imgs")
 
     # the frozen head; its optimizer state is not needed
     state = load_head(args, cfg, dataset.size)
 
     run_dir = os.path.join(cfg.basedir, cfg.expname + "_torso")
-    cfg.write(os.path.join(run_dir, "args.txt"))
+    if main_rank:
+        cfg.write(os.path.join(run_dir, "args.txt"))
     ckpt_dir = args.ckpt_dir or os.path.join(run_dir, "ckpt")
-    trainer = TorsoTrainer(cfg, dataset, state.params,
-                           latent_codes=state.latent_codes, seed=args.seed,
-                           smooth_audio=bool(args.cli_smooth_audio),
-                           ckpt_dir=ckpt_dir, device=device)
-    summary = make_summary(cfg, run_dir)
+    kw = dict(latent_codes=state.latent_codes, seed=args.seed,
+              smooth_audio=bool(args.cli_smooth_audio), ckpt_dir=ckpt_dir)
+    if mesh is None:
+        trainer = TorsoTrainer(cfg, dataset, state.params, device=device,
+                               **kw)
+    else:
+        from idealnerf_tpu_torch.parallel import ShardedTorsoTrainer
+
+        trainer = ShardedTorsoTrainer(cfg, dataset, state.params, mesh, **kw)
+        logger.info("mesh %s, %s, %s", mesh.shape, mesh.backend, device)
+    summary = (make_summary(cfg, run_dir) if main_rank
+               else contextlib.nullcontext())
     n_steps = args.steps or cfg.N_iters * dataset.size
     logger.info("train_torso: %d steps on %d frames, N_rand=%d, device %s",
                 n_steps, dataset.size, cfg.N_rand, device)
@@ -81,7 +97,8 @@ def main(argv=None):
 
     def on_metrics(step, m):
         history.append((step, m))
-        summary.scalars(step, m, prefix="torso")
+        if main_rank:
+            summary.scalars(step, m, prefix="torso")
         logger.info("[TORSO] step %d loss %.5f psnr %.2f (%.2f steps/s)",
                     step, m["loss"], m["psnr"], m["steps_per_sec_rolling"])
 

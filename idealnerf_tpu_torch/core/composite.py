@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from idealnerf_tpu_torch.core.sampling import normal
+
 
 class RenderOutputs(NamedTuple):
     rgb: torch.Tensor          # (R, 3) composited colour (plate included)
@@ -46,9 +48,8 @@ def raw2outputs(
 
     sigma = raw[..., 3]
     if raw_noise_std > 0.0 and generator is not None:
-        sigma = sigma + torch.randn(sigma.shape, generator=generator,
-                                    dtype=sigma.dtype,
-                                    device=sigma.device) * raw_noise_std
+        sigma = sigma + normal(generator, sigma.shape, sigma.dtype,
+                               sigma.device) * raw_noise_std
 
     if density_activation not in ("relu", "softplus"):
         raise ValueError(

@@ -37,6 +37,29 @@ class RenderConfig:
         return dataclasses.replace(self, perturb=False, raw_noise_std=0.0)
 
 
+def render_draws(generator: Optional[torch.Generator], n_rays: int,
+                 cfg: RenderConfig, device=None) -> list:
+    """The random numbers ``render_rays`` draws from ``generator`` for
+    ``n_rays`` float32 rays, in its order and shapes: the stratified
+    jitter, the coarse density noise, the importance uniforms and the fine
+    density noise, each where ``cfg`` asks for it. Row i of each belongs to
+    ray i, so ``render_rays(..., generator=Replay([t[rows] for t in
+    draws]))`` renders those rows as the whole call would; the generator
+    ends where the whole call leaves it."""
+    if generator is None or not cfg.perturb:
+        return []
+    kw = dict(generator=generator, dtype=torch.float32, device=device)
+    out = [torch.rand((n_rays, cfg.n_samples), **kw)]
+    if cfg.raw_noise_std > 0.0:
+        out.append(torch.randn((n_rays, cfg.n_samples), **kw))
+    if cfg.n_importance > 0:
+        out.append(torch.rand((n_rays, cfg.n_importance), **kw))
+        if cfg.raw_noise_std > 0.0:
+            out.append(torch.randn((n_rays, cfg.n_samples
+                                    + cfg.n_importance), **kw))
+    return out
+
+
 def render_rays(
     coarse_fn: FieldFn,
     rays_o: torch.Tensor,

@@ -4,14 +4,53 @@
 ``generator=None`` selects the deterministic paths (perturb=0 / det=True),
 the reference's eval semantics. The JAX package draws its jitter from
 ``jax.random``; a ``torch.Generator`` gives other numbers from the same
-seed, so agreement is tested on the deterministic paths only.
+seed, so agreement is tested on the deterministic paths only. A
+``Replay`` stands in for a generator where the numbers were drawn
+beforehand (``core.render.render_draws``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+
+
+class Replay:
+    """Random numbers drawn beforehand, handed out in the order the
+    renderer asks for them, in place of a ``torch.Generator``. A
+    ray-sharded step draws a whole frame's numbers and renders its own
+    rows of them; a rematerialised forward is handed the same numbers
+    again by a fresh Replay of the same tensors."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self._tensors = list(tensors)
+        self._next = 0
+
+    def take(self, shape) -> torch.Tensor:
+        if self._next >= len(self._tensors):
+            raise ValueError("Replay: more draws asked for than were made")
+        t = self._tensors[self._next]
+        self._next += 1
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"Replay: draw {self._next - 1} has shape "
+                             f"{tuple(t.shape)}, asked for {tuple(shape)}")
+        return t
+
+
+def uniform(generator, shape, dtype, device) -> torch.Tensor:
+    """U[0, 1) numbers from ``generator``, or the next of a Replay's."""
+    if isinstance(generator, Replay):
+        return generator.take(shape)
+    return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+
+
+def normal(generator, shape, dtype, device) -> torch.Tensor:
+    """N(0, 1) numbers from ``generator``, or the next of a Replay's."""
+    if isinstance(generator, Replay):
+        return generator.take(shape)
+    return torch.randn(shape, generator=generator, dtype=dtype,
+                       device=device)
 
 
 def stratified_sample(
@@ -50,9 +89,9 @@ def stratified_sample(
     mids = 0.5 * (z[..., 1:] + z[..., :-1])
     upper = torch.cat([mids, z[..., -1:]], dim=-1)
     lower = torch.cat([z[..., :1], mids], dim=-1)
-    t_rand = torch.rand(z.shape, generator=generator, dtype=dtype,
-                        device=z.device)
-    t_rand[..., -1] = 1.0
+    t_rand = uniform(generator, z.shape, dtype, z.device)
+    t_rand = torch.cat([t_rand[..., :-1], torch.ones_like(t_rand[..., -1:])],
+                       dim=-1)
     return lower + (upper - lower) * t_rand
 
 
@@ -95,8 +134,7 @@ def sample_pdf(
         u = (u / max(n_samples - 1, 1)).to(cdf.dtype)
         u = u.expand(shape).contiguous()
     else:
-        u = torch.rand(shape, generator=generator, dtype=cdf.dtype,
-                       device=cdf.device)
+        u = uniform(generator, shape, cdf.dtype, cdf.device)
 
     n_b = cdf.shape[-1]
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)

@@ -11,9 +11,9 @@ full-fidelity frame at a time (``make_frame_renderer``,
 ``fast_keep`` (``make_pruned_frame_renderer``,
 ``make_composite_fast_renderer``), or with ``temporal = R`` the temporal
 depth-cache renderers (a keyframe every R frames, delta frames in
-between); ``bounds`` tightens the sampling interval.
-
-Not ported yet: multi-device rendering (``mesh``, ROADMAP.md A13).
+between); ``bounds`` tightens the sampling interval. With a ``mesh``
+(``parallel.mesh.Mesh``) the full-fidelity frames are ray-sharded over
+its ranks, and batched over its 'data' axis where that is > 1.
 """
 
 from __future__ import annotations
@@ -68,6 +68,19 @@ def smoothed_audio_features(params, auds: torch.Tensor, cfg,
     return params["aud_att"](windows)
 
 
+def check_mesh_modes(mesh, fast_keep=None, temporal=None) -> None:
+    """The JAX reenact's refusals of a mesh: its sharded renders are the
+    full-fidelity ones (the fast modes select rays on the host, the
+    temporal modes keep their own keyframe/delta schedule)."""
+    if mesh is not None and fast_keep is not None:
+        raise ValueError("mesh sharding requires full fidelity "
+                         "(fast_keep=None)")
+    if temporal is not None and (mesh is not None or fast_keep is not None):
+        raise ValueError("temporal mode is incompatible with mesh "
+                         "sharding and fast_keep (it has its own "
+                         "keyframe/delta schedule)")
+
+
 def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
             driving_exprs: Optional[np.ndarray] = None,
             latent_codes: Optional[torch.Tensor] = None,
@@ -105,15 +118,18 @@ def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
     there, but on the card the per-frame loop renders the same frames
     (``render.cycle`` is that loop), so every frame runs through it.
     ``frame_times`` gets each frame's own wall seconds, the host fetch
-    included."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "reenact mesh is not ported yet (ROADMAP.md A13 (multi-device))")
+    included.
+
+    ``mesh``: the full-fidelity frames (head-only and composite) render
+    with each frame's rays split over the mesh's 'ray' ranks
+    (``parallel.sharded``), and where its 'data' axis is > 1 that many
+    frames a batch, the last batch padded by repetition and trimmed
+    (``frame_times`` then gets each batch's wall seconds spread over its
+    frames). Every rank returns the frames; only rank 0 writes
+    ``out_path``. Refused with ``fast_keep`` or ``temporal``
+    (``check_mesh_modes``)."""
+    check_mesh_modes(mesh, fast_keep, temporal)
     if temporal is not None:
-        if fast_keep is not None:
-            raise ValueError("temporal mode is incompatible with mesh "
-                             "sharding and fast_keep (it has its own "
-                             "keyframe/delta schedule)")
         if temporal < 1:
             raise ValueError("temporal must be >= 1 (keyframe interval)")
         roll_k = check_roll_k("roll_k", roll_k)
@@ -170,7 +186,29 @@ def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
     if isinstance(bounds, dict):
         pf.update(bounds_head=bounds.get("head"),
                   bounds_torso=bounds.get("torso"))
-    if torso_params is None:
+    render_video = None
+    if mesh is not None:
+        from idealnerf_tpu_torch.parallel import sharded
+
+        if not mesh.is_main:
+            out_path = None
+        tile = min(8192, H * W)
+        tile -= tile % mesh.n_ray
+        on = dict(**where, tile=tile)
+        if torso_params is None:
+            if mesh.n_data > 1:
+                render_video = sharded.make_sharded_video_renderer(
+                    head_cfg, mesh, *view, **on)
+            else:
+                render = sharded.make_sharded_frame_renderer(
+                    head_cfg, mesh, *view, **on)
+        elif mesh.n_data > 1:
+            render_video = sharded.make_sharded_composite_video_renderer(
+                head_cfg, torso_nerf_config(cfg), mesh, *view, **on)
+        else:
+            render = sharded.make_sharded_composite_renderer(
+                head_cfg, torso_nerf_config(cfg), mesh, *view, **on)
+    elif torso_params is None:
         if temporal is not None:
             render = make_temporal_frame_renderer(
                 head_cfg, *view, **where, prior_mask=mask,
@@ -205,21 +243,53 @@ def reenact(cfg, head_params, identity, driving_auds: np.ndarray,
     poses = torch.from_numpy(identity.poses).to(device)
     latent = latent_codes[0].to(device) if latent_codes is not None else None
 
+    def cond_at(i):
+        expr = None
+        if driving_exprs is not None and cfg.dim_expr > 0:
+            expr = torch.from_numpy(np.asarray(
+                driving_exprs[min(i, driving_exprs.shape[0] - 1)],
+                np.float32)).to(device)
+        return variant_conditioning(head_params, cfg, aud_feats[i], expr)
+
     frames = []
     cache = None
     with (VideoWriter(out_path) if out_path
           else contextlib.nullcontext()) as writer:
+        if render_video is not None:
+            B = mesh.n_data
+            for start in range(0, n_frames, B):
+                t0 = time.perf_counter()
+                idxs = [min(start + j, n_frames - 1) for j in range(B)]
+                ps = poses[[i % identity.size for i in idxs]]
+                conds = [cond_at(i) for i in idxs]
+                cond = [None if c[0] is None else torch.stack(c)
+                        for c in zip(*conds)]
+                lat = None if latent is None else latent.expand(B, -1)
+                if torso_params is None:
+                    batch = render_video(head_params, ps, bc, cond[0],
+                                         cond[1], lat)
+                else:
+                    sigs = torch.stack([
+                        torso_signal(aud_feats[i], ps[j], cfg.dim_aud_body)
+                        for j, i in enumerate(idxs)])
+                    batch = render_video(head_params, torso_params, ps,
+                                         poses[0], bc, cond[0], sigs,
+                                         cond[1], lat)
+                batch = batch.clamp(0.0, 1.0).cpu().numpy()
+                n_out = min(B, n_frames - start)
+                if frame_times is not None:
+                    per = (time.perf_counter() - t0) / n_out
+                    frame_times.extend([per] * n_out)
+                for j in range(n_out):
+                    frames.append(batch[j])
+                    if writer is not None:
+                        writer.add(batch[j])
+            return np.stack(frames)
         for i in range(n_frames):
             t0 = time.perf_counter()
             pose = poses[i % identity.size]
-            expr = None
-            if driving_exprs is not None and cfg.dim_expr > 0:
-                expr = torch.from_numpy(np.asarray(
-                    driving_exprs[min(i, driving_exprs.shape[0] - 1)],
-                    np.float32)).to(device)
             aud = aud_feats[i]
-            aud_arg, expr_arg = variant_conditioning(head_params, cfg, aud,
-                                                     expr)
+            aud_arg, expr_arg = cond_at(i)
             if torso_params is None:
                 args = (head_params, pose, bc)
                 kw = dict(aud=aud_arg, expr=expr_arg, latent=latent)

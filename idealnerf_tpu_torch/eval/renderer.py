@@ -59,24 +59,33 @@ from idealnerf_tpu_torch.train.head import compute_aud_feature
 from idealnerf_tpu_torch.train.torso import torso_nerf_config, torso_signal
 
 
-def _render_field(params, nerf_cfg, H: int, W: int, focal, pose, bc,
-                  near, far, cfg: RenderConfig, cx, cy, aud=None, expr=None,
-                  latent=None) -> Dict[str, torch.Tensor]:
-    """One field's whole-frame render from ``pose``: fold the conditioning
-    into each net's biases, cast the rays on the pose's device, run the
-    fused passes. ``bc`` is the (H*W, 3) f32 plate."""
+def render_field_rays(params, nerf_cfg, rays_o, rays_d, bc, near, far,
+                      cfg: RenderConfig, aud=None, expr=None,
+                      latent=None) -> Dict[str, torch.Tensor]:
+    """One field's render of the (R, 3) rays: fold the conditioning into
+    each net's biases, run the fused passes (K2 then K1 on a CUDA device,
+    their plain versions on the CPU). ``bc`` is the (R, 3) f32 plate."""
     fine = params["fine"] if "fine" in params else None
     folded_c = fold_conditioning(params["coarse"], nerf_cfg, aud, expr,
                                  latent)
     folded_f = (fold_conditioning(fine, nerf_cfg, aud, expr, latent)
                 if fine is not None else None)
-    rays_o, rays_d = get_rays(H, W, focal, pose, cx, cy)
     return render_rays_fused(
-        params["coarse"], folded_c, nerf_cfg,
-        rays_o.reshape(-1, 3).contiguous(),
-        rays_d.reshape(-1, 3).contiguous(), bc, near, far, cfg.n_samples,
+        params["coarse"], folded_c, nerf_cfg, rays_o.contiguous(),
+        rays_d.contiguous(), bc.contiguous(), near, far, cfg.n_samples,
         cfg.n_importance, fine_params=fine, fine_folded=folded_f,
         lindisp=cfg.lindisp)
+
+
+def _render_field(params, nerf_cfg, H: int, W: int, focal, pose, bc,
+                  near, far, cfg: RenderConfig, cx, cy, aud=None, expr=None,
+                  latent=None) -> Dict[str, torch.Tensor]:
+    """One field's whole-frame render from ``pose``, the rays cast on the
+    pose's device. ``bc`` is the (H*W, 3) f32 plate."""
+    rays_o, rays_d = get_rays(H, W, focal, pose, cx, cy)
+    return render_field_rays(params, nerf_cfg, rays_o.reshape(-1, 3),
+                             rays_d.reshape(-1, 3), bc, near, far, cfg, aud,
+                             expr, latent)
 
 
 def _plate(bc_img: torch.Tensor) -> torch.Tensor:

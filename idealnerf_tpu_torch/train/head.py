@@ -81,10 +81,30 @@ def train_use_pallas(cfg, device):
     return False
 
 
-def make_frame_loss(cfg, dataset, smooth_audio: bool, device="cpu"):
+def ray_mse(x: torch.Tensor, target: torch.Tensor,
+            n_total: Optional[int] = None) -> torch.Tensor:
+    """The mean squared error over the rays given, or, with ``n_total``,
+    their share of the error over ``n_total`` rays (the sum over these
+    rays divided by n_total rays' values): the rays of one rank of a
+    frame whose rays are split over ranks."""
+    if n_total is None:
+        return torch.mean((x - target) ** 2)
+    return torch.sum((x - target) ** 2) / (n_total * x.shape[-1])
+
+
+def make_frame_loss(cfg, dataset, smooth_audio: bool, device="cpu",
+                    n_total: Optional[int] = None,
+                    latent_term: bool = True):
     """``loss_fn(params, latent_codes, data, index, coords, generator) ->
     (loss, aux)`` for one frame. ``generator=None`` draws nothing: the
-    stratified and importance depths are the deterministic ones."""
+    stratified and importance depths are the deterministic ones; a
+    ``core.sampling.Replay`` hands out numbers drawn beforehand.
+
+    ``n_total`` and ``latent_term`` give one rank's share of a frame
+    whose rays are split over ranks: the MSE terms are the coords' share
+    of the error over ``n_total`` rays (``ray_mse``), and the latent-norm
+    term is left out where ``latent_term`` is false, so the shares of the
+    ranks sum to the frame's loss."""
     focal, cx, cy = dataset.focal, dataset.cx, dataset.cy
     near, far = dataset.near, dataset.far
     render_cfg = cfg.render_config()
@@ -107,12 +127,12 @@ def make_frame_loss(cfg, dataset, smooth_audio: bool, device="cpu"):
         out = render_rays(coarse_fn, rays_o, rays_d, bc_rgb, near, far,
                           render_cfg, generator=generator, fine_fn=fine_fn)
 
-        img_loss = torch.mean((out["rgb_map"] - target) ** 2)
+        img_loss = ray_mse(out["rgb_map"], target, n_total)
         loss = img_loss
         if "rgb0" in out:
-            loss = loss + torch.mean((out["rgb0"] - target) ** 2)
+            loss = loss + ray_mse(out["rgb0"], target, n_total)
         latent_loss = torch.zeros((), device=loss.device)
-        if cfg.dim_latent > 0:
+        if cfg.dim_latent > 0 and latent_term:
             latent_loss = torch.linalg.norm(latent) * cfg.lc_weight
             loss = loss + latent_loss * 10.0
         return loss, {"img_loss": img_loss, "latent_loss": latent_loss}
@@ -136,14 +156,12 @@ def apply_update(state: TrainState, lr: float) -> None:
     state.step += 1
 
 
-def make_head_train_step(cfg, dataset, smooth_audio: bool,
-                         precrop: bool = False, device="cpu"):
-    """``train_step(state, data, index, generator) -> metrics``: sample
-    rays, render, backward, one Adam update (state changes in place).
-
-    ``precrop`` draws every ray from the central precrop_frac crop (the
-    warm-up of the first precrop_iters steps)."""
-    H, W = dataset.hw
+def make_head_sampler(cfg, H: int, W: int, precrop: bool = False,
+                      device="cpu"):
+    """``sample(generator, data, index) -> (N_rand, 2)`` coords of a head
+    step: the region-stratified budget, or with ``precrop`` every ray
+    from the central precrop_frac crop (the warm-up of the first
+    precrop_iters steps)."""
     if precrop:
         dH = int(H // 2 * cfg.precrop_frac)
         dW = int(W // 2 * cfg.precrop_frac)
@@ -153,15 +171,31 @@ def make_head_train_step(cfg, dataset, smooth_audio: bool,
     else:
         budget = RayBudget.from_config(cfg.N_rand, cfg.mouth_rays,
                                        cfg.torso_rays, cfg.sample_rate)
+
+    def sample(generator, data, index: int) -> torch.Tensor:
+        face_rect = crop_rect if precrop else data["face_rects"][index]
+        return sample_ray_coords(generator, H, W, face_rect,
+                                 data["mouth_boxes"][index],
+                                 data["torso_masks"][index], budget)
+
+    return sample
+
+
+def make_head_train_step(cfg, dataset, smooth_audio: bool,
+                         precrop: bool = False, device="cpu"):
+    """``train_step(state, data, index, generator) -> metrics``: sample
+    rays, render, backward, one Adam update (state changes in place).
+
+    ``precrop`` draws every ray from the central precrop_frac crop (the
+    warm-up of the first precrop_iters steps)."""
+    H, W = dataset.hw
+    sample = make_head_sampler(cfg, H, W, precrop, device)
     lr_sched = exponential_lr(cfg.lrate, cfg.lrate_decay)
     loss_fn = make_frame_loss(cfg, dataset, smooth_audio, device)
 
     def train_step(state: TrainState, data, index: int,
                    generator: Optional[torch.Generator]):
-        face_rect = crop_rect if precrop else data["face_rects"][index]
-        coords = sample_ray_coords(generator, H, W, face_rect,
-                                   data["mouth_boxes"][index],
-                                   data["torso_masks"][index], budget)
+        coords = sample(generator, data, index)
         loss, aux = loss_fn(state.params, state.latent_codes, data, index,
                             coords, generator)
         loss.backward()

@@ -18,8 +18,18 @@ kernel and its gradient kernel (``train_fused`` 1 or 2).
 The aux loss (``make_aux_loss``: the FAN landmark, VGG16 and VGGFace
 terms) takes the assembled crop; its nets are plain torch and cuDNN
 convolutions in f32 without TF32 (``face_unet.ieee_convs``, the backward
-too) and add no kernel launch. The sharded crop waits for ROADMAP.md A13
-and raises until then.
+too) and add no kernel launch.
+
+With a ``mesh`` (``parallel.mesh.Mesh``) each tile's rows split over the
+mesh's 'ray' ranks, as the reference scatters the crop's rays over its
+GPUs (distribute_nerf.py:457-462): each rank draws its tiles' whole
+numbers from the tiles' seeds and renders its rows of them
+(``core.sampling.Replay``), so its rays are the single-device run's. The
+MSE terms are each rank's share of the crop's; the aux loss takes the
+whole crop, assembled by ``parallel.sharded.assemble_rows``, whose
+backward hands each rank its own rows of the crop's gradient with no
+collective, so the gradients' all-reduce over the ray ranks counts the
+aux term once.
 """
 
 from __future__ import annotations
@@ -33,12 +43,13 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from idealnerf_tpu_torch.core.render import render_rays
+from idealnerf_tpu_torch.core.render import render_draws, render_rays
+from idealnerf_tpu_torch.core.sampling import Replay
 from idealnerf_tpu_torch.data.sampler import rays_at_coords
 from idealnerf_tpu_torch.models.face_unet import ieee_convs
 from idealnerf_tpu_torch.models.variants import build_field_fns
 from idealnerf_tpu_torch.train.head import (
-    apply_update, compute_aud_feature, train_use_pallas,
+    apply_update, compute_aud_feature, ray_mse, train_use_pallas,
 )
 from idealnerf_tpu_torch.train.schedule import exponential_lr
 from idealnerf_tpu_torch.train.state import TrainState, init_train_state
@@ -46,7 +57,6 @@ from idealnerf_tpu_torch.train.state import TrainState, init_train_state
 logger = logging.getLogger("idealnerf.second_stage")
 
 TILE = 8192
-A13 = "ROADMAP.md A13 (multi-device)"
 
 
 def make_cross_identity_dataset(identity, driving_auds: np.ndarray,
@@ -130,11 +140,15 @@ def make_second_stage_loss(cfg, dataset, crop: int,
                            smooth_audio: bool = False,
                            aux_loss: Optional[Callable] = None,
                            tile: int = TILE, checkpoint_tiles: bool = True,
-                           device="cpu"):
+                           device="cpu", mesh=None):
     """``loss_fn(params, latent_codes, data, index, generator) -> (loss,
     aux)`` over the frame's whole crop. ``generator=None`` draws nothing
     (the deterministic depths). ``checkpoint_tiles=False`` keeps every
-    tile's temporaries instead of recomputing them (the same gradients)."""
+    tile's temporaries instead of recomputing them (the same gradients).
+    With ``mesh`` the crop is always tiled (``tile`` cut to a multiple of
+    the 'ray' axis) and the loss is this rank's share: its rows' MSE
+    terms and the whole aux term, whose ``aux["aux_loss"]`` counts on ray
+    rank 0 only, so the ranks' ``aux`` values sum to the crop's."""
     H, W = dataset.hw
     focal, cx, cy = dataset.focal, dataset.cx, dataset.cy
     near, far = dataset.near, dataset.far
@@ -157,43 +171,81 @@ def make_second_stage_loss(cfg, dataset, crop: int,
                                              use_pallas=use_pallas)
         n_rays = crop * crop
         t = min(n_rays, tile)
-        if n_rays > t:
-            n_tiles = -(-n_rays // t)
-            pad = n_tiles * t - n_rays
-            seeds = [None] * n_tiles
-            if generator is not None:
-                seeds = torch.randint(0, 2 ** 62, (n_tiles,),
-                                      generator=generator,
-                                      device=generator.device).tolist()
-
-            def tile_fn(o, d, b, seed):
-                gen = None
-                if seed is not None:
-                    gen = torch.Generator(device=o.device).manual_seed(seed)
-                out = render_rays(coarse_fn, o, d, b, near, far, render_cfg,
-                                  generator=gen, fine_fn=fine_fn)
-                return out["rgb_map"], out["rgb0"]
-
-            parts = zip(_pad(rays_o, pad, 1.0).split(t),
-                        _pad(rays_d, pad, -1.0).split(t),
-                        _pad(bc_rgb, pad, 0.0).split(t), seeds)
-            rgb, rgb0 = zip(*(checkpoint(tile_fn, *p, use_reentrant=False)
-                              if checkpoint_tiles else tile_fn(*p)
-                              for p in parts))
-            out = {"rgb_map": torch.cat(rgb)[:n_rays],
-                   "rgb0": torch.cat(rgb0)[:n_rays]}
+        n_ray, ray_index, n_total = 1, 0, None
+        if mesh is not None:  # always tiled, each tile split over 'ray'
+            n_ray, ray_index, n_total = mesh.n_ray, mesh.ray_index, n_rays
+            t -= t % n_ray
+        if n_rays > t or mesh is not None:
+            rgb, rgb0, rays, n_keep = _tiled(coarse_fn, fine_fn, rays_o,
+                                             rays_d, bc_rgb, t, n_ray,
+                                             ray_index, generator)
+            target_kept = target[rays[:n_keep]]
+            img_loss = ray_mse(rgb[:n_keep], target_kept, n_total)
+            loss = img_loss + ray_mse(rgb0[:n_keep], target_kept, n_total)
+            crop_rgb = rgb[:n_keep]
         else:
             out = render_rays(coarse_fn, rays_o, rays_d, bc_rgb, near, far,
                               render_cfg, generator=generator,
                               fine_fn=fine_fn)
-        img_loss = torch.mean((out["rgb_map"] - target) ** 2)
-        loss = img_loss + torch.mean((out["rgb0"] - target) ** 2)
+            img_loss = torch.mean((out["rgb_map"] - target) ** 2)
+            loss = img_loss + torch.mean((out["rgb0"] - target) ** 2)
+            crop_rgb = out["rgb_map"]
+        mse = loss
         aux = torch.zeros((), device=loss.device)
         if aux_loss is not None:
-            aux = aux_loss(out["rgb_map"].reshape(crop, crop, 3),
+            if mesh is not None:
+                from idealnerf_tpu_torch.parallel.sharded import (
+                    assemble_rows,
+                )
+
+                crop_rgb = assemble_rows(rgb, rays, len(rays) * n_ray,
+                                         mesh.ray_group)[:n_rays]
+            aux = aux_loss(crop_rgb.reshape(crop, crop, 3),
                            target.reshape(crop, crop, 3))
             loss = loss + aux
-        return loss, {"img_loss": img_loss, "aux_loss": aux}
+            if ray_index:  # the crop's aux term counts on ray rank 0
+                aux = torch.zeros_like(aux)
+        return loss, {"img_loss": img_loss, "aux_loss": aux,
+                      "mse_loss": mse}
+
+    def _tiled(coarse_fn, fine_fn, rays_o, rays_d, bc_rgb, t, n_ray,
+               ray_index, generator):
+        """The crop in ``torch.utils.checkpoint`` tiles of ``t`` rays,
+        padded to a whole number of tiles; of each tile the ray_index-th
+        of its n_ray blocks, its numbers that block's rows of the whole
+        tile's (``render_draws``) -> (rgb, rgb0, the rays they are, how
+        many of them are the crop's: a prefix, the padded rays coming
+        last in ascending order)."""
+        from idealnerf_tpu_torch.parallel.sharded import tile_rows
+
+        n = rays_o.shape[0]
+        n_tiles = -(-n // t)
+        per, lo = t // n_ray, ray_index * (t // n_ray)
+        rays = tile_rows(n_tiles * t, t, n_ray, ray_index, rays_o.device)
+        n_keep = sum(min(max(n - i * t - lo, 0), per) for i in range(n_tiles))
+        seeds = [None] * n_tiles
+        if generator is not None:
+            seeds = torch.randint(0, 2 ** 62, (n_tiles,), generator=generator,
+                                  device=generator.device).tolist()
+
+        def tile_fn(o, d, b, seed):
+            gen = None
+            if seed is not None:
+                whole = render_draws(
+                    torch.Generator(device=o.device).manual_seed(seed), t,
+                    render_cfg, device=o.device)
+                gen = Replay([x[lo:lo + per] for x in whole])
+            out = render_rays(coarse_fn, o, d, b, near, far, render_cfg,
+                              generator=gen, fine_fn=fine_fn)
+            return out["rgb_map"], out["rgb0"]
+
+        pad = n_tiles * t - rays_o.shape[0]
+        parts = zip(*(_pad(x, pad, f)[rays].split(per) for x, f in
+                      ((rays_o, 1.0), (rays_d, -1.0), (bc_rgb, 0.0))), seeds)
+        rgb, rgb0 = zip(*(checkpoint(tile_fn, *p, use_reentrant=False)
+                          if checkpoint_tiles else tile_fn(*p)
+                          for p in parts))
+        return torch.cat(rgb), torch.cat(rgb0), rays, n_keep
 
     return loss_fn
 
@@ -203,14 +255,14 @@ def make_second_stage_step(cfg, dataset, crop: int,
                            aux_loss: Optional[Callable] = None, mesh=None,
                            tile: int = TILE, device="cpu"):
     """``step(state, data, index, generator) -> metrics``: the crop's
-    loss, backward, one Adam update (the state changes in place).
-    ``mesh`` (the crop's rays over several devices) raises: A13."""
-    if mesh is not None:
-        raise NotImplementedError(f"the ray-sharded second stage is not "
-                                  f"ported yet ({A13})")
+    loss, backward, one Adam update (the state changes in place). With
+    ``mesh`` the crop's ray tiles split over its 'ray' axis and the
+    gradients are all-reduced over the ray ranks before the update, alike
+    on every rank (a 'data' axis replicates)."""
     lr_sched = exponential_lr(cfg.lrate, cfg.lrate_decay)
     loss_fn = make_second_stage_loss(cfg, dataset, crop, smooth_audio,
-                                     aux_loss, tile=tile, device=device)
+                                     aux_loss, tile=tile, device=device,
+                                     mesh=mesh)
 
     def step(state: TrainState, data, index: int,
              generator: Optional[torch.Generator]):
@@ -218,11 +270,21 @@ def make_second_stage_step(cfg, dataset, crop: int,
                             generator)
         with ieee_convs():  # the aux nets' backward convolutions
             loss.backward()
+        total, img, aux_total = (loss.detach(), aux["img_loss"].detach(),
+                                 aux["aux_loss"].detach())
+        if mesh is not None:
+            from idealnerf_tpu_torch.parallel.sharded import (
+                all_reduce_gradients,
+            )
+
+            mse, img, aux_total = all_reduce_gradients(
+                state.trainable(), (aux["mse_loss"], img, aux_total),
+                mesh.ray_group)
+            total = mse + aux_total
         lr = lr_sched(state.step)
         apply_update(state, lr)
-        return {"loss": loss.detach(),
-                "psnr": -10.0 * torch.log10(aux["img_loss"].detach()),
-                "aux_loss": aux["aux_loss"].detach(), "lr": lr}
+        return {"loss": total, "psnr": -10.0 * torch.log10(img),
+                "aux_loss": aux_total, "lr": lr}
 
     return step
 
@@ -261,7 +323,7 @@ class SecondStageTrainer:
         self.generator.manual_seed(seed)
         self._step = make_second_stage_step(
             cfg, self.dataset, self.crop, smooth_audio, aux_loss, mesh=mesh,
-            tile=tile, device=self.device)
+            tile=tile, device=self.device if mesh is None else mesh.device)
 
     def run(self, n_steps: int, log_every: int = 20,
             on_metrics=None) -> Dict[str, float]:

@@ -34,7 +34,7 @@ from idealnerf_tpu_torch.data.sampler import (
 from idealnerf_tpu_torch.models.face_nerf import FaceNeRF, make_field_fn
 from idealnerf_tpu_torch.models.variants import build_field_fns
 from idealnerf_tpu_torch.train.head import (
-    apply_update, compute_aud_feature, train_use_pallas,
+    apply_update, compute_aud_feature, ray_mse, train_use_pallas,
 )
 from idealnerf_tpu_torch.train.schedule import exponential_lr
 
@@ -79,10 +79,12 @@ def torso_ray_budget(cfg, H: int, W: int, device=None):
 
 
 def make_torso_frame_loss(cfg, dataset, smooth_audio: bool = True,
-                          device="cpu"):
+                          device="cpu", n_total: Optional[int] = None):
     """``loss_fn(torso_params, head_params, latent_codes, data, index,
     coords, generator) -> (loss, aux)`` for one frame. ``generator=None``
-    draws nothing: the depths are the deterministic ones."""
+    draws nothing: the depths are the deterministic ones. ``n_total``:
+    the coords are one rank's share of a frame of that many rays
+    (``train.head.ray_mse``)."""
     focal, cx, cy = dataset.focal, dataset.cx, dataset.cy
     near, far = dataset.near, dataset.far
     tcfg = torso_nerf_config(cfg)
@@ -119,14 +121,14 @@ def make_torso_frame_loss(cfg, dataset, smooth_audio: bool = True,
                             rays_d_t, bc_rgb, near, far, render_cfg,
                             generator=generator,
                             fine_fn=field(torso_params["fine"]))
-        img_loss = torch.mean((layered_composite(
-            head["rgb_map"], torso["last_weight"], torso["rgb_fg"])
-            - target) ** 2)
+        img_loss = ray_mse(layered_composite(
+            head["rgb_map"], torso["last_weight"], torso["rgb_fg"]), target,
+            n_total)
         loss = img_loss
         if "rgb0" in torso:
-            loss = loss + torch.mean((layered_composite(
-                head["rgb0"], torso["last_weight0"], torso["rgb_fg0"])
-                - target) ** 2)
+            loss = loss + ray_mse(layered_composite(
+                head["rgb0"], torso["last_weight0"], torso["rgb_fg0"]),
+                target, n_total)
         return loss, {"img_loss": img_loss}
 
     return loss_fn
@@ -149,21 +151,31 @@ def make_torso_optimizer(cfg, params: nn.Module) -> torch.optim.Adam:
                             betas=(0.9, 0.999), eps=1e-8)
 
 
+def make_torso_sampler(cfg, H: int, W: int, device="cpu"):
+    """``sample(generator) -> (N_rand, 2)`` coords of a torso step: the
+    torso budget (``torso_ray_budget``), which reads no frame."""
+    budget, rect, zero_box = torso_ray_budget(cfg, H, W, device)
+    no_parse = torch.zeros((H, W), dtype=torch.uint8, device=device)
+
+    def sample(generator) -> torch.Tensor:
+        return sample_ray_coords(generator, H, W, rect, zero_box, no_parse,
+                                 budget)
+
+    return sample
+
+
 def make_torso_train_step(cfg, dataset, smooth_audio: bool = True,
                           device="cpu"):
     """``train_step(state, head_params, latent_codes, data, index,
     generator) -> metrics``: sample the torso budget's rays, render both
     fields, backward into the torso, one Adam update (in place)."""
-    H, W = dataset.hw
-    budget, rect, zero_box = torso_ray_budget(cfg, H, W, device)
-    no_parse = torch.zeros((H, W), dtype=torch.uint8, device=device)
+    sample = make_torso_sampler(cfg, *dataset.hw, device)
     lr_sched = exponential_lr(cfg.lrate, cfg.lrate_decay)
     loss_fn = make_torso_frame_loss(cfg, dataset, smooth_audio, device)
 
     def train_step(state: TorsoState, head_params, latent_codes, data,
                    index: int, generator: Optional[torch.Generator]):
-        coords = sample_ray_coords(generator, H, W, rect, zero_box, no_parse,
-                                   budget)
+        coords = sample(generator)
         loss, aux = loss_fn(state.params, head_params, latent_codes, data,
                             index, coords, generator)
         loss.backward()

@@ -1,8 +1,9 @@
 """The composite frame and the reenactment of the PyTorch port against
 the JAX package (fused "ray" path, Pallas in interpret mode), per frame
 and temporal, the driving audio features and expressions, the
-train_torso, eval_reenact and serve CLIs on the CPU, the modes they
-refuse, and the nets the kernels take: a narrower net runs zero-padded to
+train_torso, eval_reenact and serve CLIs on the CPU, on one device and
+on a mesh of gloo ranks, the modes they refuse, and the nets the kernels
+take: a narrower net runs zero-padded to
 the chain's widths (ROADMAP.md C1).
 
 The composite frame is held to 3e-2 plus a correlation above 0.999, as
@@ -193,33 +194,77 @@ def test_reenact_frame_is_the_composite_renderers_frame():
     np.testing.assert_array_equal(frames[3], want.clamp(0, 1).numpy())
 
 
-_REFUSED = [
-    # the fast modes are ported; with a mesh flag they still meet A13
-    (eval_reenact.main, ["--fast", "40", "--ray_devices", "2"], "A13"),
-    (eval_reenact.main, ["--tighten_bounds", "1", "--data_devices", "2"],
-     "A13"),
-    (eval_reenact.main, ["--ray_devices", "2"], "A13"),
-    (eval_reenact.main, ["--data_devices", "2"], "A13"),
-    (train_torso.main, ["--ray_devices", "2"], "A13"),
-    (train_torso.main, ["--data_devices", "2"], "A13"),
-    (reenact_mod.reenact, {"fast_keep": 0.4, "mesh": object()}, "A13"),
-    (reenact_mod.reenact, {"bounds": (0.4, 0.8), "mesh": object()}, "A13"),
-    (reenact_mod.reenact, {"mesh": object()}, "A13"),
-]
+@pytest.fixture(scope="module")
+def head_and_torso(tmp_path_factory):
+    """A head and a torso checkpoint drawn from seeds, at CLI_SMALL."""
+    from idealnerf_tpu_torch.train.torso import TorsoTrainer
+
+    root = tmp_path_factory.mktemp("ckpts")
+    cfg = ExperimentConfig(dim_aud=32, dim_expr=8, dim_latent=4,
+                           dim_aud_body=16, netdepth=4, netwidth=64)
+    ds = make_synthetic_dataset(n_frames=3, H=12, W=12, dim_expr=8,
+                                with_torso=True)
+    head = HeadTrainer(cfg, ds, seed=0, ckpt_dir=str(root / "head"))
+    head.save()
+    TorsoTrainer(cfg, ds, head.state.params, head.state.latent_codes,
+                 seed=1, ckpt_dir=str(root / "torso")).save()
+    return str(root / "head"), str(root / "torso")
 
 
-@pytest.mark.parametrize("entry,flags,item", _REFUSED,
-                         ids=[f"{e.__module__.split('.')[-1]}-"
-                              f"{next(iter(f)).strip('-')}"
-                              for e, f, _ in _REFUSED])
-def test_unported_modes_raise_naming_their_roadmap_item(entry, flags, item,
-                                                        tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        if isinstance(flags, dict):
-            entry(ExperimentConfig(), None, None, None, **flags)
-        else:
-            entry(["--device", "cpu", "--synthetic", "1", "--basedir",
-                   str(tmp_path), *flags])
+_MESH_RUNS = {
+    "eval_reenact-ray_devices": ["--ray_devices", "2"],
+    # three frames in batches of two: the last batch padded and trimmed
+    "eval_reenact-data_devices": ["--data_devices", "2"],
+    "eval_reenact-tighten_bounds-data_devices": [
+        "--tighten_bounds", "1", "--data_devices", "2"],
+    "eval_reenact-composite-data_devices-ray_devices": [
+        "--torso", "--data_devices", "2", "--ray_devices", "2"],
+}
+
+
+@pytest.mark.parametrize("flags", _MESH_RUNS.values(), ids=_MESH_RUNS.keys())
+def test_eval_reenact_on_a_mesh_renders_the_one_device_frames(
+        flags, head_and_torso, tmp_path):
+    """eval_reenact's mesh flags on gloo ranks of the CPU: the frames are
+    the single-device run's, ray for ray; rank 0 writes the video."""
+    head, torso = head_and_torso
+    flags = [f for f in flags if f != "--torso"] + (
+        ["--torso_ckpt", torso] if "--torso" in flags else [])
+    mesh_flags = {"--data_devices", "--ray_devices"}
+    one_flags = [f for i, f in enumerate(flags)
+                 if f not in mesh_flags and (i == 0 or flags[i - 1]
+                                             not in mesh_flags)]
+    run = ["--device", "cpu", "--synthetic", "3", "--synthetic_hw", "12",
+           *CLI_SMALL, "--head_ckpt", head]
+    one = eval_reenact.main(run + one_flags + [
+        "--save_path", str(tmp_path / "one")])
+    got = eval_reenact.main(run + flags + [
+        "--save_path", str(tmp_path / "mesh")])
+    assert got["frames"] == one["frames"] == 3
+    np.testing.assert_allclose(got["video"], one["video"], atol=1e-6, rtol=0)
+    assert sorted(os.listdir(tmp_path / "mesh")) == ["exp.avi",
+                                                     "exp_00000.jpg"]
+
+
+def test_train_torso_on_a_mesh(head_and_torso, tmp_path):
+    """train_torso --data_devices 2 --ray_devices 2: four ranks, two frames
+    a step; rank 0 writes the checkpoint and the metrics; the frozen head
+    stays as it was."""
+    head, _ = head_and_torso
+    res = train_torso.main(_cli_run(tmp_path, "--head_ckpt", head,
+                                    "--steps", "2", "--i_print", "1",
+                                    "--data_devices", "2",
+                                    "--ray_devices", "2"))
+    assert res["step"] == 2 and [s for s, _ in res["history"]] == [0, 1]
+    assert all(m["frames_per_step"] == 2.0 and math.isfinite(m["loss"])
+               for _, m in res["history"])
+    assert CheckpointManager(res["ckpt_dir"]).all_steps() == [2]
+    rows = [json.loads(r) for r in open(tmp_path / "exp_torso"
+                                        / "metrics.jsonl")]
+    assert [r["step"] for r in rows] == [0, 1]
+    want = CheckpointManager(head).restore()["params"]
+    for k, v in res["head_params"].state_dict().items():
+        assert torch.equal(v, want[k]), k
 
 
 _INVALID = {
@@ -246,6 +291,19 @@ _INVALID = {
         reenact_mod.reenact, {"use_prior": True}, "use_prior requires"),
     "reenact-temporal-0": (
         reenact_mod.reenact, {"temporal": 0}, "temporal must be"),
+    # a mesh renders the full-fidelity frames only, as in the JAX package
+    "eval_reenact-fast-with-ray_devices": (
+        eval_reenact.main, ["--fast", "40", "--ray_devices", "2"],
+        "full fidelity"),
+    "eval_reenact-temporal-with-data_devices": (
+        eval_reenact.main, ["--temporal", "3", "--data_devices", "2"],
+        "temporal mode is incompatible with mesh"),
+    "reenact-fast_keep-with-mesh": (
+        reenact_mod.reenact, {"fast_keep": 0.4, "mesh": object()},
+        "full fidelity"),
+    "reenact-temporal-with-mesh": (
+        reenact_mod.reenact, {"temporal": 3, "mesh": object()},
+        "temporal mode is incompatible with mesh"),
 }
 
 

@@ -1,6 +1,7 @@
 """The full-fidelity frame render of the PyTorch port against the JAX
 package (fused "ray" path, Pallas in interpret mode), and the port's
-render_val CLI end to end on the CPU.
+render_val CLI end to end on the CPU, on one device and ray-sharded over
+gloo ranks.
 
 The frame is held to 3e-2 plus a correlation above 0.999, the bound of
 the fused kernels' tests: both sides round weights and activations to
@@ -79,9 +80,33 @@ def test_render_val_cli_on_cpu(tmp_path):
     assert err < 6 / 255, err
 
 
+def test_render_val_ray_devices_renders_the_one_device_frames(tmp_path):
+    """--ray_devices 2 on two gloo ranks of the CPU: each frame's rays
+    split over the ranks, the frames the single-device run's ray for ray;
+    rank 0 writes the video. With --pruned it is refused, as the JAX CLI
+    refuses it."""
+    run = ["--device", "cpu", "--synthetic", "2", "--synthetic_hw", "16",
+           *CLI_SMALL]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # the ranks then take one thread each too
+    try:
+        one = render_val.main(run + ["--save_path", str(tmp_path / "one")])
+        got = render_val.main(run + ["--save_path", str(tmp_path / "mesh"),
+                                     "--ray_devices", "2"])
+    finally:
+        torch.set_num_threads(n)
+    np.testing.assert_allclose(got["frames"], one["frames"], atol=1e-6,
+                               rtol=0)
+    assert got["psnr"] == pytest.approx(one["psnr"], rel=1e-5)
+    assert sorted(os.listdir(tmp_path / "mesh")) == ["exp_val.avi",
+                                                     "exp_val_00000.jpg"]
+    with pytest.raises(SystemExit):
+        render_val.main(run + ["--ray_devices", "2", "--pruned", "40"])
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--ray_devices", "2"], "A13"), (["--head_ckpt", "ckpt"], "checkpoint"),
-])
+    (["--head_ckpt", "ckpt"], "checkpoint"),
+], ids=["flags1-checkpoint"])
 def test_render_val_refuses_unported_modes(flags, item, tmp_path):
     if "--head_ckpt" in flags:
         # a directory of the JAX package's orbax checkpoints: reading those

@@ -4,7 +4,8 @@ one crop step's loss and gradients on a one-tile crop with no random
 draws, without and with the aux terms (FAN landmark, VGG16, VGGFace), the
 padded two-tile crop against the one-tile step, checkpointed tiles
 against unchecked ones, the CLIs end to end on the CPU with each aux
-flag, and the refusal (ROADMAP.md A13).
+flag, and the crop's rays over two gloo ranks (``--ray_devices``; the
+sharded crop's gradients are held in tests/test_torch_parallel.py).
 
 Inputs come from numpy with a fixed seed; weights go across through the
 bridge. The JAX step's loss is composed here from the JAX package's own
@@ -346,6 +347,39 @@ def test_train_second_stage_cli_from_a_train_head_checkpoint(tmp_path):
     assert not torch.equal(ck["params"][k], h[k])
 
 
+def test_train_second_stage_cli_on_a_mesh(tmp_path):
+    """train_second_stage --ray_devices 2 with an aux term: the crop's ray
+    tiles over two gloo ranks of the CPU; rank 0 writes the checkpoint
+    and the metrics. Without jitter (--perturb 0) the first step's loss
+    and aux term are the one-device loss function's on the same seeded
+    weights: the aux term counted once."""
+    run = ["--device", "cpu", "--synthetic", "2", "--synthetic_hw", "16",
+           *CLI, "--crop", "12", "--steps", "2", "--i_print", "1",
+           "--perturb", "0", "--aux_vgg", "0.5", "--basedir", str(tmp_path)]
+    res = train_second_stage.main(run + ["--ray_devices", "2"])
+    assert res["crop"] == 12 and res["step"] == 2
+    assert [s for s, _ in res["history"]] == [0, 1]
+    ck = CheckpointManager(res["ckpt_dir"]).restore()
+    assert ck["step"] == 2 and set(ck) == {"step", "params", "latent_codes"}
+    rows = [json.loads(r) for r in open(tmp_path / "exp_second"
+                                        / "metrics.jsonl")]
+    assert [r["step"] for r in rows] == [0, 1]
+
+    from idealnerf_tpu_torch.train.state import init_train_state
+
+    cfg = ExperimentConfig(**SMALL, perturb=False)
+    ident = make_synthetic_dataset(n_frames=2, H=16, W=16, dim_expr=8)
+    ds = make_cross_identity_dataset(ident, ident.auds)
+    st = init_train_state(cfg, ds.size, torch.Generator().manual_seed(0))
+    aux_fn = make_aux_loss(vgg16=pvgg.init_vgg16(2), w_vgg=0.5)
+    loss, aux = make_second_stage_loss(cfg, ds, 12, aux_loss=aux_fn)(
+        st.params, st.latent_codes, ds.to_device("cpu"), 0, None)
+    first = res["history"][0][1]
+    assert first["aux_loss"] == pytest.approx(
+        float(aux["aux_loss"].detach()), rel=1e-5)
+    assert first["loss"] == pytest.approx(float(loss.detach()), rel=1e-5)
+
+
 AUX_FLAGS = {
     "aux-landmark": ["--aux_landmark", "1e-4"],
     "aux-vgg": ["--aux_vgg", "0.5"],
@@ -381,14 +415,7 @@ def test_train_second_stage_cli_trains_with_each_aux_term(flags, tmp_path,
 
 
 def test_refusals():
-    """The sharded crop waits for A13: the CLI and the step's ``mesh``
-    raise, naming it; make_aux_loss with no term on is None."""
-    with pytest.raises(NotImplementedError, match="A13"):
-        train_second_stage.main(["--device", "cpu", "--synthetic", "1",
-                                 "--ray_devices", "2"])
-    ds = make_synthetic_dataset(n_frames=1, H=12, W=12, dim_expr=8)
-    with pytest.raises(NotImplementedError, match="A13"):
-        port_step(ExperimentConfig(**SMALL), ds, 8, mesh=object())
+    """make_aux_loss with no term on is None."""
     assert make_aux_loss() is None
     assert make_aux_loss(fan=torch.nn.Linear(1, 1), w_landmark=0.0) is None
 

@@ -9,6 +9,7 @@ per leaf (f32 on both sides, summed in other orders); parameters after an
 Adam update 1e-6 absolute."""
 
 import dataclasses
+import json
 import math
 import os
 
@@ -323,6 +324,28 @@ def test_train_head_cli_then_render_val_from_its_checkpoint(tmp_path):
                            res["ckpt_dir"], "--save_path",
                            str(tmp_path / "frames")])
     assert math.isfinite(out["psnr"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        train_head.main(["--device", "cpu", "--synthetic", "1",
-                         "--data_devices", "2"])
+
+
+def test_train_head_cli_on_a_mesh(tmp_path):
+    """train_head --data_devices 2 on two gloo ranks of the CPU: two frames
+    a step, the single-device checkpoint layout written by rank 0, which
+    render_val then reads; the metrics of rank 0 only."""
+    res = train_head.main(["--device", "cpu", "--synthetic", "4",
+                           "--synthetic_hw", "12", *CLI_SMALL, "--epochs",
+                           "2", "--i_print", "2", "--i_weights", "3",
+                           "--basedir", str(tmp_path), "--data_devices",
+                           "2"])
+    assert res["step"] == 4 and [s for s, _ in res["history"]] == [2, 4]
+    assert all(m["frames_per_step"] == 2.0 and math.isfinite(m["loss"])
+               for _, m in res["history"])
+    assert CheckpointManager(res["ckpt_dir"]).all_steps() == [3, 4]
+    ck = CheckpointManager(res["ckpt_dir"]).restore()
+    assert ck["step"] == 4 and set(ck) >= {"params", "latent_codes",
+                                           "optimizer", "rng"}
+    rows = [json.loads(r) for r in open(tmp_path / "exp" / "metrics.jsonl")]
+    assert [r["step"] for r in rows] == [2, 4]
+    out = render_val.main(["--device", "cpu", "--synthetic", "2",
+                           "--synthetic_hw", "12", *CLI_SMALL, "--head_ckpt",
+                           res["ckpt_dir"], "--save_path",
+                           str(tmp_path / "frames")])
+    assert math.isfinite(out["psnr"])
