@@ -184,12 +184,17 @@ non-zero and no result line is printed):
    (``_step_ms``, as phase 8's) and a profiled step. 12c:
    ``cli.eval_reenact.main --torso_ckpt`` renders ``--frames`` composite
    frames of ``--hw``²: finite, K2 and K1 launched twice a frame. 12d
-   (ROADMAP.md C1): a W=128, D=4 net through ``train_head.main`` and
-   ``render_val.main`` on the card runs zero-padded to the chain's widths:
-   K4 and K6 launch twice a step, K2 and K1 once a frame, and its frames
-   agree with the same checkpoint rendered on the host (3e-2,
-   correlation > 0.999); a W=512 net is refused by both before any
-   launch. 12e (run before 12d), the temporal composite from phase 8's
+   (ROADMAP.md B10): the paper model (D=8, 64+128) at W=128 and W=512 on
+   the kernels' own instances of those widths: K1-K3 at 8,192 rays of a
+   450x450 frame, K4, K5 and K6 (bf16 and f32, repeated bitwise) at
+   524,288 points against their plain versions and timed beside them
+   with their bounds (each kernel's ``widths`` in the kernels line); a
+   head trained by ``train_head.main`` on the card (K4 and K6 twice a
+   step) and ``render_val.main`` of its checkpoint (K2 and K1 once a
+   frame) at 450x450, and at 32x32 on the card and on the host, agreeing
+   within 3e-2, correlation > 0.999; a W=1024 net is refused by both
+   entry points before any launch, naming B10 (``--only_widths`` runs
+   the build and this phase alone). 12e (run before 12d), the temporal composite from phase 8's
    head and 12b's torso on the 450x450 subject of phases 9-10 (its
    per-field priors: the head's and the torso's rays): K3 on the torso
    field (the torso prior's rays cast from the first pose, the torso
@@ -441,35 +446,35 @@ FINE_POINTS = 2048 * 192  # the training step's fine pass
 STEP_POINTS = (2048 * 64, FINE_POINTS)  # its coarse and fine passes
 KERNELS = {
     "fused_render_coarse_hier": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cuh",
         "replaces": "idealnerf_tpu/kernels/fused_render.py:499",
     },
     "fused_render_rays": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cuh",
         "replaces": "idealnerf_tpu/kernels/fused_render.py:393",
     },
     "fused_point_mlp": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp.cuh",
         "replaces": "idealnerf_tpu/kernels/fused_mlp.py:289",
     },
     "fused_point_mlp_grad": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp_grad.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp_grad.cuh",
         "replaces": "idealnerf_tpu/kernels/fused_mlp_grad.py:178",
     },
     "grad_pass_a_f32": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp_grad.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp_grad.cuh",
         "replaces": "idealnerf_tpu/kernels/fused_mlp_grad.py:178",
     },
     "grad_pass_b_f32": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp_grad.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp_grad.cuh",
         "replaces": "idealnerf_tpu/kernels/fused_mlp_grad.py:178",
     },
     "fused_render_delta": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cuh",
         "replaces": "idealnerf_tpu/kernels/fused_render.py:604",
     },
     "fused_point_mlp_pe": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_mlp.cuh",
         "replaces": "idealnerf_tpu/kernels/fused_mlp.py:311",
     },
     "kdiag_chain": {
@@ -489,7 +494,7 @@ KERNELS = {
         "replaces": "scripts/kdiag3.py:291",
     },
     "kdiag3_render_c": {
-        "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cu",
+        "source": "idealnerf_tpu_torch/kernels/csrc/fused_render.cuh",
         "replaces": "scripts/kdiag3.py:315",
     },
     "kdiag4_chain": {
@@ -1353,6 +1358,16 @@ def _packed_list(p):
             p.w_rgb, p.b_heads]
 
 
+def _packed_names(p):
+    """The names of _packed_list's operands, in its order."""
+    return ([f"w{i}" for i in range(len(p.w))]
+            + [f"b{i}" for i in range(len(p.b))]
+            + [f"wskip{i}" for i in p.wskip]
+            + [f"wv{v}" for v in range(len(p.wv))]
+            + [f"bv{v}" for v in range(len(p.bv))]
+            + ["wv0d", "w_alpha", "w_rgb", "b_heads"])
+
+
 def _plane_bytes(fmg, packed, n: int, f32: bool = False) -> float:
     """Bytes of the operand planes and bias rows a backward's pass A
     writes on n points (bf16 or f32 planes)."""
@@ -1597,15 +1612,16 @@ def _phase_grad(net, ncfg, cond, pts, dirs, ptxas, so_path) -> dict:
     )
 
     print("phase 7 gradient kernel vs plain backward and f32 autograd")
-    for i, ln in enumerate(ptxas):  # the passes' registers, spills
-        if any(k in ln for k in ("k_grad_pass", "k_bias_partials")):
+    for i, ln in enumerate(ptxas):  # the W=256 passes' registers, spills
+        if (any(k in ln for k in ("k_grad_pass", "k_bias_partials"))
+                and "LayoutILi256" in ln):
             print("  ptxas: " + " | ".join(ptxas[i:i + 3]))
             if "k_grad_pass_a" in ln and not any(
                     "0 bytes spill stores, 0 bytes spill loads" in x
                     for x in ptxas[i:i + 3]):
                 raise AssertionError("pass A (bf16 or f32) spills")
     # mangled names: bf16 pass A, and the f32 passes
-    a16, f32_names = "13k_grad_pass_aE", ("17k_grad_pass_a_f32",
+    a16, f32_names = "13k_grad_pass_aI", ("17k_grad_pass_a_f32",
                                           "17k_grad_pass_b_f32")
     ops = {op: _hgmma_counts(so_path, (a16, *f32_names), op)
            for op in ("HGMMA", "HMMA", "FFMA")}
@@ -1914,8 +1930,9 @@ DTYPE_CHAINS = ("2kd16k_chain_f32_ring", "2kd13k_chain_i8_wg")
 
 def _probe_builds(kd, fm, fr, ptxas, so_path, big: int) -> None:
     """Phase 11a': the wgmma probes' and the f32 and int8 chains' ptxas
-    lines (a spill fails; a wgmma serialized by ptxas, C7511, anywhere in
-    the build fails), HGMMA counts (none fails), the int8 chain's IGMMA
+    lines (a spill fails; a wgmma serialized by ptxas, C7511, fails in
+    the probes and the paper width's instances; the other widths' are
+    phase 12d's to print), HGMMA counts (none fails), the int8 chain's IGMMA
     and IMMA and the f32 chain's FFMA, HMMA and HGMMA (the int8 chain on
     s8 wgmma, the f32 one on FFMAs alone), probe B's warpgroup
     synchronisations, the chains' plans at ``big`` rows (the f32 and int8
@@ -1925,7 +1942,8 @@ def _probe_builds(kd, fm, fr, ptxas, so_path, big: int) -> None:
 
     from idealnerf_tpu_torch.scripts.harness import sass_counts
 
-    serialized = [ln for ln in ptxas if "C7511" in ln]
+    serialized = [ln for ln in ptxas if "C7511" in ln
+                  and not any(f"LayoutILi{w}E" in ln for w in WIDTHS)]
     if serialized:
         raise AssertionError(f"ptxas serialized wgmma: {serialized}")
     for i, ln in enumerate(ptxas):
@@ -2698,21 +2716,320 @@ def _phase_temporal_composite(args, fr, head_ckpt: str, torso_ckpt: str,
     return out
 
 
-def _phase_c1(fr, fm, fmg, dev: str = "cuda", hw: int = 64,
-              rays: int = 1024) -> dict:
-    """Phase 12d (ROADMAP.md C1): a net narrower than the chain (W=128,
-    D=4) through train_head.main and render_val.main on the card at 2
-    frames of 64x64. The wrappers run it zero-padded to the chain's widths
-    (fused_render.widen): K4 and K6 launch twice a step, K2 and K1 once a
-    frame, and its frames agree with render_val of the same checkpoint on
-    the CPU (3e-2, corr > 0.999). A net wider than the chain (W=512) is
-    refused by both entry points before any launch."""
+# phase 12d: the widths besides the paper's that the kernels are built at
+# (ROADMAP.md B10), their check sizes, and the frame of render_val's
+# card-against-host comparison (a W=512 frame on the host's cores)
+WIDTHS = (128, 512)
+WIDTH_RAYS, WIDTH_POINTS, WIDTH_PASS_A_POINTS = 8192, 524288, 65536
+WIDTH_HOST_HW = 32
+# the kernels' entries in the kernels line at each width, and their
+# wrapper's launch count
+WIDTH_KERNELS = ("fused_render_coarse_hier", "fused_render_rays",
+                 "fused_render_delta", "fused_point_mlp",
+                 "fused_point_mlp_pe", "fused_point_mlp_grad",
+                 "grad_pass_a_f32", "grad_pass_b_f32")
+
+
+def _width_nets(W: int, dev: str, seed: int):
+    """The paper model (D=8, dim_aud 64, dim_expr 76, dim_latent 32) at
+    width W: (cfg, ncfg, coarse and fine FaceNeRFs, folding function), the
+    weights and conditioning drawn from ``seed``."""
+    import torch
+
+    from idealnerf_tpu_torch.config import ExperimentConfig
+    from idealnerf_tpu_torch.models.face_nerf import (
+        FaceNeRF, fold_conditioning,
+    )
+
+    cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32,
+                           netwidth=W)
+    ncfg = cfg.face_nerf_config()
+    gen = torch.Generator().manual_seed(seed)
+    nets = {k: FaceNeRF(ncfg, gen).to(dev) for k in ("coarse", "fine")}
+    cond = (torch.randn(64, generator=gen).to(dev),
+            torch.randn(76, generator=gen).to(dev),
+            torch.ones(32, device=dev))
+
+    def fold(net, c):
+        with torch.no_grad():
+            return fold_conditioning(net, c, *cond)
+
+    return cfg, ncfg, nets, cond, fold
+
+
+def _width_rays(dev: str, rays: int):
+    """``rays`` rays spread over a 450x450 frame of the synthetic subject
+    and its near/far: (rays_o, rays_d, plate, near, far)."""
+    import torch
+
+    from idealnerf_tpu_torch.core.rays import get_rays
+    from idealnerf_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    ds = make_synthetic_dataset(n_frames=1, H=450, W=450, dim_expr=76)
+    ro, rd = get_rays(450, 450, ds.focal,
+                      torch.from_numpy(ds.poses[0]).to(dev), ds.cx, ds.cy)
+    bc = (torch.from_numpy(ds.bc_img).to(dev).float() / 255.0)
+    pick = torch.linspace(0, 450 * 450 - 1, rays).long().to(dev)
+    ro, rd, bc = (x.reshape(-1, 3)[pick].contiguous() for x in (ro, rd, bc))
+    return ro, rd, bc, ds.near, ds.far
+
+
+def _width_timed(name, run, plain, bound, launches, err, out):
+    """The kernel's time (CUDA events, after a warm-up) beside its plain
+    version's and the bound, into out[name]."""
+    ms, pms = _time_ms(run, 3), _time_ms(plain, 1)
+    out[name] = {"ms": ms, "plain_ms": pms, **bound, "max_abs_err": err,
+                 "launches": launches}
+    print(f"  {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+          f"{bound['bound_ms']:.3f} ms by {bound['bound_by']} "
+          f"({100 * bound['bound_ms'] / ms:.1f} % of it; CUDA events)")
+
+
+def _repeats(name, a, b) -> None:
+    """Two launches' outputs (tensors, or dicts and tuples of them)
+    bitwise equal, or raise."""
+    import torch
+
+    def flat(x):
+        if isinstance(x, dict):
+            return [t for k in sorted(x) for t in flat(x[k])]
+        if isinstance(x, (tuple, list)):
+            return [t for y in x for t in flat(y)]
+        return [x]
+
+    same = all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+    print(f"  {name}: two launches bitwise equal: {same}")
+    if not same:
+        raise AssertionError(f"{name} is not repeatable")
+
+
+def _width_kernels(fr, fm, fmg, W: int, dev: str = "cuda",
+                   rays: int = WIDTH_RAYS,
+                   points: int = WIDTH_POINTS,
+                   pass_a_points: int = WIDTH_PASS_A_POINTS) -> dict:
+    """K1-K6 at width W against their plain versions, each timed beside
+    them with its bound: K2 and K1 at ``rays`` rays of a 450x450 frame (64
+    + 128 depths), K3 from their keyframe (s_delta 16, then from its own
+    output), K4 and K5 at ``points`` points, the bf16 and f32 backwards
+    (K6) there too, repeated bitwise, and K6's pass A alone (bf16, f32)
+    against its plain version at ``pass_a_points`` (the f64 planes of its
+    check at W=512 fill a card at ``points``) -> {kernel: its numbers}."""
+    import torch
+
+    from idealnerf_tpu_torch.core.sampling import stratified_sample
+    from idealnerf_tpu_torch.kernels.fused_render import (
+        model_leaves, pack_leaves,
+    )
+
+    cfg, ncfg, nets, cond, fold = _width_nets(W, dev, seed=W)
+    ro, rd, bc, near, far = _width_rays(dev, rays)
+    n_s, n_i = cfg.N_samples, cfg.N_importance
+    S = n_s + n_i
+    fc, ff = fold(nets["coarse"], ncfg), fold(nets["fine"], ncfg)
+    out = {}
+    print(f" W={W}, D={ncfg.depth}: {rays} rays ({n_s}+{n_i}), {points} "
+          "points; plans: " + "; ".join(
+              f"{k} " + _plan_text(fr.render_launch_config(*a, width=W))
+              for k, a in (("K2", (n_s, n_i)), ("K1", (S,)))))
+    c_args = (nets["coarse"], fc, ncfg, ro, rd, bc, near, far, n_s, n_i)
+    ck, zk = fr.fused_render_coarse_hier(*c_args)
+    _repeats(f"W={W} K2", (ck, zk), fr.fused_render_coarse_hier(*c_args))
+    cp, _ = fr.fused_render_coarse_hier_reference(*c_args)
+    keys = ("rgb_map", "acc_map", "weights", "last_weight")
+    e = [_agree(f"W={W} K2 {k}", ck[k], cp[k], corr=k == "rgb_map")
+         for k in keys]
+    zc = stratified_sample(near, far, n_s, rays, device=dev)
+    e.append(_agree(f"W={W} K2 z_all vs plain merge of the kernel's "
+                    "weights", zk, fr.importance_depths(
+                        zc, ck["weights"], n_i), atol=Z_ATOL))
+    _width_timed("fused_render_coarse_hier",
+                 lambda: fr.fused_render_coarse_hier(*c_args),
+                 lambda: fr.fused_render_coarse_hier_reference(*c_args),
+                 _ray_bound(ncfg, rays, n_s, 9, 8 + n_s + S), None, max(e),
+                 out)
+    f_args = (nets["fine"], ff, ncfg, ro, rd, zk, bc)
+    fk, fp = fr.fused_render_rays(*f_args), fr.fused_render_rays_reference(
+        *f_args)
+    _repeats(f"W={W} K1", fk, fr.fused_render_rays(*f_args))
+    e = [_agree(f"W={W} K1 {k}", fk[k], fp[k], corr=k == "rgb_map")
+         for k in keys]
+    _width_timed("fused_render_rays", lambda: fr.fused_render_rays(*f_args),
+                 lambda: fr.fused_render_rays_reference(*f_args),
+                 _ray_bound(ncfg, rays, S, 9 + S, 8 + S), None, max(e), out)
+    del ck, cp, fk, fp
+
+    err3 = _delta_case(fr, nets, fold, ncfg, ro, rd, bc, near, far, n_s,
+                       n_i, 16, f"W={W}")
+    s_uni, s_imp = _delta_split(16)
+    z, w = _delta_keyframe(fr, nets, fold, ncfg, ro, rd, bc, near, far, n_s,
+                           n_i)
+    lo, hi = _delta_band(z, w, near, far)
+    d_args = (nets["fine"], ff, ncfg, ro, rd, z, w, lo, hi, bc, far, s_uni,
+              s_imp)
+    _width_timed("fused_render_delta", lambda: fr.fused_render_delta(*d_args),
+                 lambda: fr.fused_render_delta_reference(*d_args),
+                 _ray_bound(ncfg, rays, s_uni + s_imp + 1,
+                            9 + 2 * z.shape[1] + 2, 8 + 2 * (s_uni + s_imp
+                                                             + 1)),
+                 None, err3, out)
+    del z, w, lo, hi
+    torch.cuda.empty_cache()
+
+    pts, dirs = _points(ro, rd, near, far, points)
+    packed = fr.pack_operands(nets["fine"], ff, ncfg)
+    got, want = fm.point_mlp(packed, pts, dirs), fm.point_mlp_reference(
+        packed, pts, dirs)
+    _repeats(f"W={W} K4", got, fm.point_mlp(packed, pts, dirs))
+    err4 = _agree(f"W={W} K4 raw", got, want, corr=True)
+    _width_timed("fused_point_mlp", lambda: fm.point_mlp(packed, pts, dirs),
+                 lambda: fm.point_mlp_reference(packed, pts, dirs),
+                 _point_bound(ncfg, points, False), None, err4, out)
+    pe, ped = (x.to(torch.bfloat16).contiguous()
+               for x in fm.encode_points(packed, pts, dirs))
+    got = fm.point_mlp_pe(packed, pe, ped)
+    err5 = _agree(f"W={W} K5 raw", got, fm.point_mlp_pe_reference(
+        packed, pe, ped), corr=True)
+    _width_timed("fused_point_mlp_pe",
+                 lambda: fm.point_mlp_pe(packed, pe, ped),
+                 lambda: fm.point_mlp_pe_reference(packed, pe, ped),
+                 _point_bound(ncfg, points, False), None, err5, out)
+    del got, want, pe, ped
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(W + 1)
+    g = (torch.randn(points, 4, generator=gen, device=dev) / 64).contiguous()
+    for tag, gd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        f32 = tag == "f32"
+        with torch.no_grad():
+            leaves = model_leaves(nets["coarse"], fc, ncfg)
+            pk = pack_leaves(ncfg, leaves, gd)
+        a = fmg.point_mlp_grad(pk, pts, dirs, g)
+        b = fmg.point_mlp_grad(pk, pts, dirs, g)
+        same = all(torch.equal(x, y) for x, y in zip(_packed_list(a),
+                                                      _packed_list(b)))
+        del b
+        tol = GRAD_TOL[tag]["plain"]
+        ref = _plain_on_kernel_forward(fmg, pk, pts, dirs, g, f32)
+        rel = {name: _norm_rel(x, r) for name, x, r in zip(
+            _packed_names(pk), _packed_list(a), _packed_list(ref))}
+        err = max(float((x - r).abs().max())
+                  for x, r in zip(_packed_list(a), _packed_list(ref)))
+        worst = max((e, k) for k, e in rel.items())
+        del ref
+        torch.cuda.empty_cache()
+        own = fmg.point_mlp_grad_reference(pk, pts, dirs, g)
+        apart = max((_norm_rel(x, r), k) for k, x, r in zip(
+            _packed_names(pk), _packed_list(a), _packed_list(own)))
+        del own
+        print(f"  W={W} K6 {tag} N={points}: worst norm-relative error vs "
+              f"the plain backward on the kernel's forward {worst[0]:.3e} "
+              f"({worst[1]}; tol {tol:g}); vs the plain backward on its own "
+              f"forward {apart[0]:.3e} ({apart[1]}; relu' decisions apart, "
+              f"not bounded); two launches bitwise equal: {same}")
+        n_a = pass_a_points
+        p_a, d_a, g_a = pts[:n_a], dirs[:n_a], g[:n_a].contiguous()
+        exact = fmg.grad_pass_b_reference(pk, fmg.grad_pass_a_reference(
+            pk, p_a, d_a, g_a, torch.float64))
+        mine = fmg.point_mlp_grad(pk, p_a, d_a, g_a)
+        plain = fmg.point_mlp_grad_reference(pk, p_a, d_a, g_a)
+        print(f"  N={n_a}, each operand's distance from f64 sums at the "
+              "same rounding points, kernel / plain version: " + ", ".join(
+                  f"{k} {_norm_rel(x.double(), e):.2e}/"
+                  f"{_norm_rel(y.double(), e):.2e}" for k, x, y, e in zip(
+                      _packed_names(pk), _packed_list(mine),
+                      _packed_list(plain), _packed_list(exact))))
+        del exact, mine, plain
+        if not worst[0] <= tol:
+            print("  per operand: " + ", ".join(
+                f"{k} {e:.2e}" for k, e in rel.items()))
+            _pass_a_diag(fmg, pk, p_a, d_a, g_a, f32)
+            raise AssertionError(f"W={W} {tag} gradients disagree")
+        if not same:
+            raise AssertionError(f"W={W} {tag} gradients are not repeatable")
+        del a
+        torch.cuda.empty_cache()
+        _check_pass_a(fmg, pk, p_a, d_a, g_a, f32=f32)
+        torch.cuda.empty_cache()
+        bound = _point_bound(ncfg, points, True, tag,
+                             _plane_bytes(fmg, pk, points, f32))
+        if not f32:
+            _width_timed("fused_point_mlp_grad",
+                         lambda: fmg.point_mlp_grad(pk, pts, dirs, g),
+                         lambda: fmg.point_mlp_grad_reference(pk, pts, dirs,
+                                                              g),
+                         bound, None, err, out)
+        else:
+            ba, bb = _pass_bounds(fmg, ncfg, pk, points, f32=True)
+            bufs = {}
+            _width_timed("grad_pass_a_f32",
+                         lambda: bufs.update(a=fmg.grad_pass_a(pk, pts, dirs,
+                                                               g)),
+                         lambda: fmg.grad_pass_a_reference(pk, pts, dirs, g),
+                         ba, None, err, out)
+            _width_timed("grad_pass_b_f32",
+                         lambda: fmg.grad_pass_b(pk, *bufs["a"]),
+                         lambda: fmg.grad_pass_b_reference(
+                             pk, fmg.buffers_from_planes_f32(
+                                 pk, *bufs["a"], points)),
+                         bb, None, err, out)
+            del bufs
+        torch.cuda.empty_cache()
+    del pts, dirs, g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _plain_on_kernel_forward(fmg, packed, pts, dirs, g, f32: bool):
+    """The plain backward (the two passes' plain versions) on the
+    kernel's own pass A activations: the relu' decisions are the
+    kernel's, so the two backwards differ only by their sums' order and
+    not by a d_h element flipped whole where an activation rounds to 0 in
+    one forward and not in the other. The forward itself is held to f64
+    by _check_pass_a."""
+    planes, offs, bias = fmg.grad_pass_a(packed, pts, dirs, g)
+    own = (fmg.buffers_from_planes_f32 if f32 else fmg.buffers_from_planes)(
+        packed, planes, offs, bias, pts.shape[0])
+    del planes
+    return fmg.grad_pass_b_reference(packed, fmg.grad_pass_a_reference(
+        packed, pts, dirs, g, forward=own))
+
+
+def _pass_a_diag(fmg, packed, pts, dirs, g, f32: bool) -> None:
+    """Where a backward's pass A departs from its plain version: every
+    plane's and the bias rows' norm-relative distance, printed."""
+    planes, offs, bias = fmg.grad_pass_a(packed, pts, dirs, g)
+    got = (fmg.buffers_from_planes_f32 if f32 else fmg.buffers_from_planes)(
+        packed, planes, offs, bias, pts.shape[0])
+    want = fmg.grad_pass_a_reference(packed, pts, dirs, g)
+    rows = [("pe", got.pe, want.pe), ("ped", got.ped, want.ped),
+            ("gb", got.gb, want.gb), ("bias", got.bias, want.bias)]
+    for key in ("hs", "hvs", "dcs", "dvs"):
+        rows += [(f"{key[:-1]}{j}", x, y) for j, (x, y) in enumerate(
+            zip(getattr(got, key), getattr(want, key)))]
+    print("  pass A planes vs plain: " + ", ".join(
+        f"{k} {_norm_rel(x, y):.2e}" for k, x, y in rows))
+
+
+def _phase_widths(fr, fm, fmg, ptxas, dev: str = "cuda",
+                  host_hw: int = WIDTH_HOST_HW,
+                  keep_going: bool = False) -> dict:
+    """Phase 12d (ROADMAP.md B10): the paper model at W=128 and W=512 on
+    the kernels' own instances of those widths. For each width: K1-K6
+    against their plain versions and timed (_width_kernels); then a head
+    trained by train_head on the card (2 frames of 450x450, 2 epochs) and
+    render_val of its checkpoint: one 450x450 frame on the card, and one
+    frame of host_hw on the card and on the host, agreeing within 3e-2,
+    corr > 0.999; K1, K2, K4 and K6 must have launched on the card (the
+    counts per width). Then a net wider than the widest instance (W=1024)
+    is refused by both entry points before any launch, naming B10. With
+    ``keep_going`` a width whose checks fail does not stop the others;
+    the phase fails at its end."""
     import torch
 
     from idealnerf_tpu_torch.cli import render_val, train_head
 
-    base = ["--synthetic", "2", "--synthetic_hw", str(hw), "--dim_aud",
-            "64", "--dim_expr", "76", "--dim_latent", "32"]
+    t0 = time.perf_counter()
     kernels = (fr, fm, fmg)
 
     def launches():
@@ -2723,59 +3040,103 @@ def _phase_c1(fr, fm, fmg, dev: str = "cuda", hw: int = 64,
         for k in kernels:
             k.reset_launch_counts()
 
-    def frames(net, ckpt, device, d):
-        rv = render_val.main([*base, *net, "--device", device, "--head_ckpt",
-                              ckpt, "--save_path", d])
-        if not math.isfinite(rv["psnr"]):
-            raise AssertionError(f"render_val on {device} is non-finite")
-        return torch.from_numpy(rv["frames"])
-
-    print("phase 12d C1: a W=128, D=4 net through train_head and render_val "
-          "on the card, zero-padded to the chain's widths")
-    narrow = ["--netwidth", "128", "--netdepth", "4"]
-    d = "output/chip_smoke_c1/w128"
-    shutil.rmtree(d, ignore_errors=True)
-    reset()
-    tr = train_head.main([*base, *narrow, "--N_rand", str(rays), "--epochs",
-                          "1", "--i_print", "1", "--device", dev,
-                          "--basedir", d])
-    card = frames(narrow, tr["ckpt_dir"], dev, d)
-    counts = launches()
-    last = tr["history"][-1][1]
-    print(f"  W=128 on {dev}: train_head {tr['step']} steps, loss "
-          f"{last['loss']:.5f}; render_val 2 frames; launches {counts}")
-    if not math.isfinite(last["loss"]):
-        raise AssertionError("W=128: train_head is non-finite")
-    want = {"fused_render_coarse_hier": 2, "fused_render_rays": 2,
-            "fused_point_mlp": 2 * tr["step"],
-            "fused_point_mlp_grad": 2 * tr["step"]}
-    if any(counts.get(k) != n for k, n in want.items()):
-        raise AssertionError(f"W=128 launched {counts}, want {want}")
-    host = frames(narrow, tr["ckpt_dir"], "cpu",
-                  "output/chip_smoke_c1/w128_cpu")
-    out = {"launches_w128": counts,
-           "frame_err": _agree("W=128 frames of one checkpoint, card vs "
-                               "host", card, host, corr=True)}
-    wide = ["--netwidth", "512", "--netdepth", "4"]
+    print("phase 12d B10: the paper model at W=128 and W=512 on the "
+          "kernels' own instances")
+    for ln in ptxas:  # the other widths' wgmma that ptxas serialized
+        if "C7511" in ln and any(f"LayoutILi{w}E" in ln for w in WIDTHS):
+            print("  ptxas serialized: " + ln[ln.index("function"):])
+    for i, ln in enumerate(ptxas):  # every instance's registers, spills
+        if "Function properties for _ZN2fr" in ln and "LayoutILi" in ln:
+            print("  ptxas: " + " | ".join(ptxas[i:i + 3]))
+            if not any("0 bytes spill stores, 0 bytes spill loads" in x
+                       for x in ptxas[i:i + 3]) and "LayoutILi256" in ln:
+                raise AssertionError(f"a W=256 instance spills: {ln}")
+    base = ["--dim_aud", "64", "--dim_expr", "76", "--dim_latent", "32",
+            "--N_samples", "64", "--N_importance", "128"]
+    out = {"widths": {}}
+    failed = []
+    for W in WIDTHS:
+        reset()
+        try:
+            res = _width_kernels(fr, fm, fmg, W, dev)
+        except AssertionError as e:
+            if not keep_going:
+                raise
+            print(f"  W={W} FAILED: {e}")
+            failed.append(f"W={W}: {e}")
+            torch.cuda.empty_cache()
+            continue
+        net = ["--netwidth", str(W), "--netdepth", "8"]
+        d = f"output/chip_smoke_widths/w{W}"
+        shutil.rmtree(d, ignore_errors=True)
+        reset()
+        tr = train_head.main([*base, *net, "--synthetic", "2",
+                              "--synthetic_hw", "450", "--N_rand", "2048",
+                              "--epochs", "2", "--i_print", "1", "--device",
+                              dev, "--basedir", d])
+        last = tr["history"][-1][1]
+        if not math.isfinite(last["loss"]):
+            raise AssertionError(f"W={W}: train_head is non-finite")
+        frames = {}
+        for tag, device, hw in (("card 450", dev, 450),
+                                ("card", dev, host_hw),
+                                ("host", "cpu", host_hw)):
+            rv = render_val.main([*base, *net, "--synthetic", "1",
+                                  "--synthetic_hw", str(hw), "--max_frames",
+                                  "1", "--device", device, "--head_ckpt",
+                                  tr["ckpt_dir"], "--save_path",
+                                  f"{d}/{tag.replace(' ', '_')}"])
+            if not math.isfinite(rv["psnr"]):
+                raise AssertionError(f"W={W}: render_val on {tag} is "
+                                     "non-finite")
+            frames[tag] = (torch.from_numpy(rv["frames"]), rv)
+        counts = launches()
+        want = {"fused_render_coarse_hier": 2, "fused_render_rays": 2,
+                "fused_point_mlp": 2 * tr["step"],
+                "fused_point_mlp_grad": 2 * tr["step"]}
+        print(f"  W={W}: train_head {tr['step']} steps, loss "
+              f"{last['loss']:.5f}; render_val 450x450 "
+              f"{frames['card 450'][1]['frame_ms']:.1f} ms a frame; "
+              f"launches {counts}")
+        if any(counts.get(k) != n for k, n in want.items()):
+            raise AssertionError(f"W={W} launched {counts}, want {want}")
+        err = _agree(f"W={W} frames of one checkpoint, card vs host",
+                     frames["card"][0], frames["host"][0], corr=True)
+        for k, n in counts.items():
+            if k in res:
+                res[k]["launches"] = n
+        out["widths"][str(W)] = {
+            "kernels": res, "launches": counts, "frame_err": err,
+            "train_steps": tr["step"], "loss": last["loss"],
+            "frame_ms_450": frames["card 450"][1]["frame_ms"]}
+        del frames
+        torch.cuda.empty_cache()
+    wide = ["--netwidth", "1024", "--netdepth", "4"]
     reset()
     for name, run in (
             ("train_head", lambda: train_head.main(
-                [*base, *wide, "--N_rand", str(rays), "--epochs", "1",
-                 "--device", dev, "--basedir", "output/chip_smoke_c1/w512"])),
+                [*base, *wide, "--synthetic", "2", "--synthetic_hw", "64",
+                 "--N_rand", "1024", "--epochs", "1", "--device", dev,
+                 "--basedir", "output/chip_smoke_widths/w1024"])),
             ("render_val", lambda: render_val.main(
-                [*base, *wide, "--max_frames", "1", "--device", dev,
-                 "--save_path", "output/chip_smoke_c1/w512"]))):
+                [*base, *wide, "--synthetic", "2", "--synthetic_hw", "64",
+                 "--max_frames", "1", "--device", dev, "--save_path",
+                 "output/chip_smoke_widths/w1024"]))):
         try:
             run()
         except ValueError as e:
-            print(f"  W=512 {name} refused: {e}")
+            print(f"  W=1024 {name} refused: {e}")
             if "B10" not in str(e):
                 raise
         else:
-            raise AssertionError(f"W=512 {name} ran on the card")
+            raise AssertionError(f"W=1024 {name} ran on the card")
     if launches():
-        raise AssertionError(f"W=512 launched {launches()}")
+        raise AssertionError(f"W=1024 launched {launches()}")
     torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 12d took {out['seconds']:.1f} s")
+    if failed:
+        raise AssertionError(f"phase 12d failed: {failed}")
     return out
 
 
@@ -5896,6 +6257,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train_frames", type=int, default=4)
     ap.add_argument("--train_epochs", type=int, default=5)
     ap.add_argument("--serve_frames", type=int, default=30)
+    ap.add_argument("--only_widths", action="store_true",
+                    help="the build and phase 12d alone (a quick check of "
+                         "the width instances; prints no result)")
     args = ap.parse_args(argv)
     t_run = time.perf_counter()
 
@@ -5942,13 +6306,20 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln
-             or "Function properties" in ln or "C7511" in ln]
+             or "Function properties" in ln or "C7511" in ln
+             or "nvcc seconds" in ln]
     report.update(build_seconds=build_s, ptxas=ptxas)
     print(f"phase 1 device: {kind} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | nvidia-smi: {smi} | kernels built in "
           f"{build_s:.1f} s (nvcc {info['seconds']:.1f} s)")
     for ln in ptxas:
         print(f"  ptxas: {ln}")
+    if args.only_widths:
+        res = _phase_widths(fr, fm, fmg, ptxas, keep_going=True)
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "widths.json"), "w") as fh:
+            json.dump(res, fh, indent=1)
+        return 0
 
     # ---- phase 2: kernels vs plain versions at main-path shapes
     cfg = ExperimentConfig(dim_aud=64, dim_expr=76, dim_latent=32)
@@ -6130,9 +6501,9 @@ def main(argv=None) -> int:
     res12e = _phase_temporal_composite(args, fr, res8["ckpt_dir"],
                                        res12b["ckpt_dir"],
                                        res12c.pop("frame0"))
-    res12d = _phase_c1(fr, fm, fmg)
+    res12d = _phase_widths(fr, fm, fmg, ptxas)
     report.update(torso_field=res12a, torso_train=res12b, reenact=res12c,
-                  c1=res12d, temporal_composite=res12e)
+                  widths=res12d, temporal_composite=res12e)
 
     # ---- phase 13: the real-subject path, and the 450x450 JAX fixture
     res13 = _phase_subject(args, fm, fmg, fr)
@@ -6253,11 +6624,21 @@ def main(argv=None) -> int:
     entries.update(probes["entries"])
     k5 = entries["fused_point_mlp_pe"]
     k5["max_abs_err"] = max(k5["max_abs_err"], res11["max_abs_err"])
+    # and each kernel's instances at the other widths (phase 12d): their
+    # time, plain version, bound, error and launches on that width's path
+    for k in WIDTH_KERNELS:
+        entries[k]["widths"] = {
+            W: {f: r["kernels"][k][f] if f != "launches" else
+                r["launches"].get(k, 0) for f in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "launches")}
+            for W, r in res12d["widths"].items()}
     # the probes' entries also name the body they run
     kernels = [{"name": k, "route": "cuda", **KERNELS[k],
                 **{f: entries[k][f] for f in (
                     "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms", "body") if f in entries[k]}}
+                    "bound_by", "library_ms", "body", "widths")
+                   if f in entries[k]}}
                for k in KERNELS]
     idle = [e["name"] for e in kernels if not e["launches"] > 0]
     if idle:

@@ -3,6 +3,9 @@
 The sources under ``csrc/`` are compiled at first use with ``nvcc`` into
 a shared library with a plain C interface, loaded through ctypes: one
 ``nvcc -c`` per ``.cu`` file, all started together, then one link. The
+fused kernels are templates over the net's width; each width's instances
+are a translation unit of their own (``csrc/fused_*_w<W>.cu``), so the
+widths compile in parallel too. The
 library lands in ``kernels/build/`` (not committed), named by a hash of
 the sources and flags, so a changed source rebuilds and an unchanged one
 loads the cached file. Nothing here runs at import time.
@@ -71,26 +74,38 @@ def build() -> dict:
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        out = open(obj.with_suffix(".txt"), "w+")
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True)))
-    logs, failed = [], []
-    for obj, proc in jobs:
-        out, _ = proc.communicate()
-        logs.append(out)
+        jobs.append((obj, subprocess.Popen(cmd, stdout=out,
+                                           stderr=subprocess.STDOUT),
+                     out))
+    # each translation unit's seconds, as they finish
+    secs, logs, failed = {}, [], []
+    while len(secs) < len(jobs):
+        for obj, proc, _ in jobs:
+            if obj not in secs and proc.poll() is not None:
+                secs[obj] = time.perf_counter() - t0
+        time.sleep(0.05)
+    for obj, proc, out in jobs:
+        out.seek(0)
+        logs.append(out.read())
+        out.close()
+        obj.with_suffix(".txt").unlink()
         if proc.returncode != 0:
             failed.append(proc.returncode)
+    logs.append("nvcc seconds per translation unit: " + ", ".join(
+        f"{obj.stem.split('.')[-1]} {t:.1f}" for obj, t in sorted(
+            secs.items(), key=lambda kv: kv[1])) + "\n")
     tmp = so.with_name(f"{tag}.tmp")
     if not failed:
         link = subprocess.run(
             [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
-             *[str(o) for o, _ in jobs]],
+             *[str(o) for o, _, _ in jobs]],
             capture_output=True, text=True)
         logs.append(link.stdout + link.stderr)
         if link.returncode != 0:
             failed.append(link.returncode)
-    for obj, _ in jobs:
+    for obj, _, _ in jobs:
         obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
     log = "".join(logs)
@@ -102,41 +117,65 @@ def build() -> dict:
     return {"path": str(so), "seconds": seconds, "log": log}
 
 
+# the kernels' instances, one translation unit each per source
+# (csrc/fused_*_w<W>.cu): their entries end in _w<W>
+WIDTHS = (128, 256, 512)
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with its argtypes."""
+    """Build (if needed) and load the kernel library, with its argtypes.
+    The entries of the kernels' instance at the paper width (W=256) also
+    answer to their names without the width: the A/B scripts call them so
+    in this checkout and in parent checkouts built before the widths."""
     lib = ctypes.CDLL(build()["path"])
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i64, u64 = ctypes.c_longlong, ctypes.c_ulonglong
     slots = ctypes.POINTER(ctypes.c_ulonglong)
     lib.fr_num_slots.argtypes = []
     lib.fr_num_slots.restype = i32
     lib.fr_error_string.argtypes = [i32]
     lib.fr_error_string.restype = ctypes.c_char_p
-    lib.fr_render_rays.argtypes = [
-        vp, vp, vp, vp, vp, vp, i32, i32, i32, slots, i32, i32, i32, i32,
-        i32, vp, i32, i32, vp]
-    lib.fr_render_rays.restype = i32
-    lib.fr_coarse_hier.argtypes = [
-        vp, vp, vp, f32, f32, vp, vp, vp, i32, i32, i32, i32, slots, i32,
-        i32, i32, i32, i32, vp, i32, i32, vp]
-    lib.fr_coarse_hier.restype = i32
-    lib.fr_render_delta.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, f32, f32, f32, vp, vp, vp, i32, i32, i32,
-        i32, i32, slots, i32, i32, i32, i32, i32, vp, i32, i32, vp]
-    lib.fr_render_delta.restype = i32
-    lib.fr_chain_smem_bytes.argtypes = [i32, i32, i32, i32, i32, i32]
-    lib.fr_chain_smem_bytes.restype = ctypes.c_ulonglong
     for fn in (lib.fr_stage_bytes, lib.fr_max_ring):
         fn.argtypes = []
         fn.restype = i32
-    lib.fr_point_smem_bytes.argtypes = [i32]
-    lib.fr_point_smem_bytes.restype = ctypes.c_ulonglong
-    lib.fr_point_mlp.argtypes = [vp, vp, vp, i32, i32, slots, i32, i32, i32,
-                                 i32, vp, i32, i32, vp]
-    lib.fr_point_mlp.restype = i32
-    lib.fr_point_mlp_pe.argtypes = [vp, vp, vp, i32, i32, slots, i32, i32, vp,
-                                    i32, i32, vp]
-    lib.fr_point_mlp_pe.restype = i32
+    pass_a = [vp, vp, vp, vp, ctypes.POINTER(i64), vp, i32, i32, slots, i32,
+              i32, i32, i32, vp, i32, i32, vp]
+    pass_b = [vp, ctypes.POINTER(i64), vp, i32, vp, vp, i64, i32, i32,
+              ctypes.POINTER(i64), i32, i32, vp]
+    # name -> (argtypes, restype) of every width's entries
+    entries = {
+        "fr_render_rays": ([vp, vp, vp, vp, vp, vp, i32, i32, i32, slots,
+                            i32, i32, i32, i32, i32, vp, i32, i32, vp], i32),
+        "fr_coarse_hier": ([vp, vp, vp, f32, f32, vp, vp, vp, i32, i32, i32,
+                            i32, slots, i32, i32, i32, i32, i32, vp, i32,
+                            i32, vp], i32),
+        "fr_render_delta": ([vp, vp, vp, vp, vp, vp, vp, f32, f32, f32, vp,
+                             vp, vp, i32, i32, i32, i32, i32, slots, i32,
+                             i32, i32, i32, i32, vp, i32, i32, vp], i32),
+        "fr_chain_smem_bytes": ([i32] * 6, u64),
+        "fr_point_smem_bytes": ([i32], u64),
+        "fr_point_mlp": ([vp, vp, vp, i32, i32, slots, i32, i32, i32, i32,
+                          vp, i32, i32, vp], i32),
+        "fr_point_mlp_pe": ([vp, vp, vp, i32, i32, slots, i32, i32, vp, i32,
+                             i32, vp], i32),
+        # the gradient kernels' two passes, bf16 and f32 (the same
+        # arguments)
+        "fr_grad_pass_a_smem_bytes": ([i32, i32, i32], u64),
+        "fr_grad_pass_a_f32_smem_bytes": ([i32, i32, i32], u64),
+        "fr_grad_pass_b_smem_bytes": ([], u64),
+        "fr_grad_pass_b_f32_smem_bytes": ([], u64),
+        "fr_grad_max_tasks": ([], i32),
+        "fr_grad_pass_a": (pass_a, i32),
+        "fr_grad_pass_a_f32": (pass_a, i32),
+        "fr_grad_pass_b": (pass_b, i32),
+        "fr_grad_pass_b_f32": (pass_b, i32),
+    }
+    for name, (args, res) in entries.items():
+        for w in WIDTHS:
+            fn = getattr(lib, f"{name}_w{w}")
+            fn.argtypes, fn.restype = args, res
+        setattr(lib, name, getattr(lib, f"{name}_w256"))
     lib.kd_chain.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.kd_chain.restype = i32
     lib.kd_ladder.argtypes = [vp, vp, vp, i32, i32, i32, slots, i32, i32,
@@ -153,22 +192,4 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_ulonglong
     lib.kd_chain_config.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
     lib.kd_chain_config.restype = i32
-    i64 = ctypes.c_longlong
-    # the gradient kernels' two passes, bf16 and f32 (the same arguments)
-    for sfx in ("", "_f32"):
-        getattr(lib, f"fr_grad_pass_a{sfx}_smem_bytes").argtypes = [i32, i32,
-                                                                   i32]
-        getattr(lib, f"fr_grad_pass_a{sfx}_smem_bytes").restype = (
-            ctypes.c_ulonglong)
-        getattr(lib, f"fr_grad_pass_b{sfx}_smem_bytes").argtypes = []
-        getattr(lib, f"fr_grad_pass_b{sfx}_smem_bytes").restype = (
-            ctypes.c_ulonglong)
-        getattr(lib, f"fr_grad_pass_a{sfx}").argtypes = [
-            vp, vp, vp, vp, ctypes.POINTER(i64), vp, i32, i32, slots, i32,
-            i32, i32, i32, vp, i32, i32, vp]
-        getattr(lib, f"fr_grad_pass_a{sfx}").restype = i32
-        getattr(lib, f"fr_grad_pass_b{sfx}").argtypes = [
-            vp, ctypes.POINTER(i64), vp, i32, vp, vp, i64, i32, i32,
-            ctypes.POINTER(i64), i32, i32, vp]
-        getattr(lib, f"fr_grad_pass_b{sfx}").restype = i32
     return lib

@@ -1,50 +1,72 @@
-// The wgmma chain: the field MLP of 128-point tiles on Hopper (sm_90a),
-// run by every production forward kernel: the ray kernels of
-// fused_render.cu (K1-K3) and the point kernels of fused_mlp.cu (K4, K5).
+// The wgmma chain: the field MLP of a net's points on Hopper (sm_90a), run
+// by every production forward kernel: the ray kernels of fused_render.cuh
+// (K1-K3) and the point kernels of fused_mlp.cuh (K4, K5). A template over
+// the net's widths (Layout<W>: W = 128, 256 or 512, view branch W / 2).
 //
 // - Weight stream. The wrapper lays the net's bf16 weights out in one
 //   buffer of 16 KB stages, in the order the chain consumes them, each
 //   stage already in wgmma's 128-byte-swizzled shared-memory image
-//   (kernels/fused_render.py: chain_weight_stream):
-//     layer 0          (64 x 256)  2 stages of 32 K-rows, MN-major
-//     layer i = 1..D-1 skip pe-part (64 x 256) first if layer i is a skip
-//                      layer, 2 stages; then (256 x 256), 8 stages
-//     view layer 0     (256 x 128) 4 stages of 64 K-rows, MN-major
-//     [dir-PE part of view layer 0 (64 x 128), 1 stage, rows 27..63 zero:
-//      the point kernels' stream only]
-//     view layer v     (128 x 128) 2 stages each
-//     heads            one stage: w_alpha^T (16 x 256) then w_rgb^T
-//                      (16 x 128), K-major
-//   69 stages (1.1 MB) for the paper model (D=8, skip at 5, 3 view
-//   layers), 70 with the dir-PE stage.
+//   (kernels/fused_render.py: chain_weight_stream). A stage holds KC_W =
+//   8192 / W K-rows of a W-wide matrix (64 at W=128, 32 at 256, 16 at
+//   512) or KC_V = 8192 / WV of a view-wide one, MN-major; a matrix with
+//   fewer K-rows than a stage (W=128's 64 x 64 view layers) fills part of
+//   one, its other rows zero:
+//     layer 0          (64 x W)
+//     layer i = 1..D-1 skip pe-part (64 x W) first if layer i is a skip
+//                      layer; then (W x W)
+//     view layer 0     (W x WV)
+//     [dir-PE part of view layer 0 (PED_PAD x WV), one stage, rows past
+//      PED_PAD zero: the point kernels' stream only]
+//     view layer v     (WV x WV)
+//     heads            w_alpha^T (16 x W) then w_rgb^T (16 x WV), K-major:
+//                      one stage at W <= 256, two at 512
+//   69 stages (1.1 MB) for the paper model at W=256 (D=8, skip at 5, 3
+//   view layers), 70 with the dir-PE stage.
 // - Block: 288 threads, two consumer warpgroups and one producer warp.
 //   The producer's one thread keeps a ring of 2-8 stages filled by
-//   cp.async.bulk on mbarriers, the stage sequence repeated for every
-//   128-point tile without draining between tiles; both warpgroups read
-//   each stage, so the weights cross L2 once per 128 points.
-// - Per layer, per warpgroup (64 rows of the tile): A is the activation tile
-//   in shared memory (K-major, 128-byte swizzle: swz), B the stage, the
-//   accumulator (64 x 256 f32, 128 registers a thread) stays in registers;
-//   one wgmma group in flight, the stage before it released. The epilogue
-//   adds the bias, applies relu, rounds to bf16 and writes back in place
-//   into the same tile; the skip layer adds PE x W_pe into the same
-//   accumulator. The heads are an n16 product whose columns 0..3 are the
-//   raw [rgb logits, sigma].
-// - What a kernel brings (the tile source Src, a template parameter): the
-//   fill of a tile's xyz-PE (from ray packets, from points, or from PE
-//   rows), whether view layer 0 adds a per-point dir-PE product (then its
-//   bias is bv[0]) or a per-ray term, where the chain stops (Src::kLast:
-//   through the heads for every production kernel, or after the trunk or
-//   the view branch for kdiag.cu's ladder) and where its rows go. The
-//   sources live here: RayTile (the ray kernels, and kdiag.cu's probe B,
-//   whose raw rows go to global memory), PeRayTile (probe A: RayTile's
-//   per-ray term, the PE rows given), PointTile (K4, K5) and
-//   ActivationTile (the ladder: PointTile's encoded fill, the last
-//   activation written out).
-// - The gradient kernel's pass A (fused_mlp_grad.cu) runs the same pieces
-//   (chain_begin, chain_produce, Ring, prod_w / prod_v, relu_store with its
-//   relu' bits, PointTile) forward without the heads, then backward on a
-//   second stream of the transposed matrices.
+//   cp.async.bulk on mbarriers, the stage sequence repeated for every tile
+//   without draining between tiles; both warpgroups read each stage, so
+//   the weights cross L2 once per tile.
+// - W <= 256 (chain_tile): a tile is 128 points, 64 rows per warpgroup.
+//   Per layer A is the warpgroup's activation tile in shared memory
+//   (K-major, 128-byte swizzle: swz), B the stage, the accumulator (64 x W
+//   f32, W / 2 registers a thread) stays in registers; one wgmma group in
+//   flight, the stage before it released. The epilogue adds the bias,
+//   applies relu, rounds to bf16 and writes back in place into the same
+//   tile; the skip layer adds PE x W_pe into the same accumulator. The
+//   heads are an n16 product whose columns 0..3 are the raw [rgb logits,
+//   sigma].
+// - W = 512 (chain_tile_split): a 64 x 512 f32 accumulator is 256
+//   registers a thread, past the 255 a thread may hold. So a tile is 64
+//   points and the two warpgroups share it: each computes one half of
+//   every layer's columns (an n256 product in the trunk, n128 in the view
+//   branch, 128 registers) from the whole input tile, reading its half of
+//   each stage's lanes. A layer's halves cannot be written in place (the
+//   other warpgroup still reads the input), so the trunk's activations
+//   ping-pong between two 64 KB tiles, and the view branch's between the
+//   two halves of whichever of them the trunk has finished with; one
+//   barrier of both warpgroups per layer. Warpgroup 0 builds the tile's PE
+//   and runs the heads (two stages, which warpgroup 1 takes and releases).
+//   Each stage's weights serve 64 points, not 128. The block has a whole
+//   producer warpgroup, which gives the consumers registers for the chain
+//   (setmaxnreg: CHAIN_PRODUCER_REGS / CHAIN_CONSUMER_REGS) and takes its
+//   own back after it.
+// - What a kernel brings (the tile source Src, a template parameter, which
+//   names its Layout as Src::T): the fill of a tile's xyz-PE (from ray
+//   packets, from points, or from PE rows), whether view layer 0 adds a
+//   per-point dir-PE product (then its bias is bv[0]) or a per-ray term,
+//   where the chain stops (Src::kLast: through the heads for every
+//   production kernel, or after the trunk or the view branch for kdiag.cu's
+//   ladder) and where its rows go. The sources live here: RayTile (the ray
+//   kernels, and kdiag.cu's probe B, whose raw rows go to global memory),
+//   PeRayTile (probe A: RayTile's per-ray term, the PE rows given),
+//   PointTile (K4, K5) and ActivationTile (the ladder: PointTile's encoded
+//   fill, the last activation written out). The probes run at W=256 only
+//   (paper.cuh).
+// - The gradient kernel's pass A (fused_mlp_grad.cuh) runs the same pieces
+//   (chain_begin, chain_produce, Ring, prod, relu_store with its relu'
+//   bits, PointTile) forward without the heads, then backward on a second
+//   stream of the transposed matrices.
 #pragma once
 
 #include "hopper.cuh"
@@ -52,24 +74,64 @@
 
 namespace fr {
 
-constexpr int DT = 128;            // points per tile, 64 per warpgroup
 constexpr int D_THREADS = 288;     // two consumer warpgroups + producer warp
 constexpr int MAX_RING = 8;        // weight ring depth at most
 constexpr int CONSUMER_WARPS = 8;  // each releases a stage once
 constexpr int STAGE_ELEMS = 8192;  // bf16 per stage
 constexpr int STAGE_BYTES = 2 * STAGE_ELEMS;
-constexpr int KC_W = 32;           // K-rows per stage of a 256-wide layer
-constexpr int KC_V = 64;           // K-rows per stage of a 128-wide layer
 constexpr int PE_TILE = 2 * 64 * PE_PAD;
-constexpr int H_TILE = 2 * 64 * W;
-constexpr int HV_TILE = 2 * 64 * WV;
 constexpr int PED_TILE = 2 * 64 * 64;  // dir-PE, 64 K-lanes (27 used)
-constexpr int WG_BYTES = PE_TILE + H_TILE + HV_TILE;
 constexpr uint32_t NO_STAGE = 0xFFFFFFFFu;
 
-static_assert(W == 256 && WV == 128 && PE_PAD == 64 && HEADS == 16 &&
-                  PED_PAD <= 64,
-              "the chain's stages are laid out for the paper widths");
+static_assert(PE_PAD == 64 && HEADS == 16 && PED_PAD <= 64,
+              "the chain's stages are laid out for 64 PE lanes");
+
+// The chain's layout at trunk width W_ (view branch W_ / 2).
+template <int W_>
+struct Layout : Width<W_> {
+  static_assert(W_ == 128 || W_ == 256 || W_ == 512,
+                "the chain is built at W = 128, 256 and 512");
+  using Width<W_>::W;
+  using Width<W_>::WV;
+  // the warpgroups split each layer's columns (W=512) or its rows
+  static constexpr bool kSplit = W_ > 256;
+  static constexpr int DT = kSplit ? 64 : 128;  // points per tile
+  // threads a block: two consumer warpgroups and a producer warp, or at
+  // W=512 a whole producer warpgroup, so that setmaxnreg can move its
+  // registers to the consumers (ptxas gives a 288-thread block 168 a
+  // thread, where the split chain spilled)
+  static constexpr int THREADS = kSplit ? 384 : D_THREADS;
+  // columns of a trunk / view product a warpgroup computes, and its
+  // accumulator registers (a thread holds 2 of every 8 columns of 16 rows)
+  static constexpr int CW = kSplit ? W_ / 2 : W_;
+  static constexpr int CV = kSplit ? WV / 2 : WV;
+  static constexpr int NRW = CW / 2, NRV = CV / 2;
+  static constexpr int ACC = NRW;
+  static constexpr int KC_W = STAGE_ELEMS / W_;  // K-rows a stage, W wide
+  static constexpr int KC_V = STAGE_ELEMS / WV;  // K-rows a stage, WV wide
+  // k16 steps a stage of a WV x WV matrix (it fills half a stage at
+  // W=128), and K of view layer 0's dir-PE product: one stage, PED_PAD <=
+  // DIR_K <= 64
+  static constexpr int KS_V = (KC_V < WV ? KC_V : WV) / 16;
+  static constexpr int DIR_K = KC_V < 64 ? KC_V : 64;
+  // bytes into a stage of warpgroup 1's half of the lanes (W=512)
+  static constexpr uint32_t HALF = STAGE_BYTES / 2;
+  static constexpr int H_TILE = 2 * 64 * W_;   // a 64-row trunk tile
+  static constexpr int HV_TILE = 2 * 64 * WV;  // a 64-row view tile
+  static constexpr int WG_BYTES = PE_TILE + H_TILE + HV_TILE;
+  // the block's tiles: per warpgroup PE, trunk and view (W <= 256), or one
+  // PE tile and two trunk tiles the warpgroups share (W=512); the point
+  // kernels add dir-PE tiles
+  static constexpr int TILES = kSplit ? PE_TILE + 2 * H_TILE : 2 * WG_BYTES;
+  static constexpr int POINT_TILES =
+      kSplit ? TILES + PED_TILE : 2 * (WG_BYTES + PED_TILE);
+  // the heads' stages: w_rgb^T starts RGB_OFF bytes after w_alpha^T
+  static constexpr int RGB_OFF = 32 * W_;
+  static constexpr int HEAD_STAGES =
+      (RGB_OFF + 32 * WV + STAGE_BYTES - 1) / STAGE_BYTES;
+  static_assert(!kSplit || RGB_OFF == STAGE_BYTES,
+                "W=512: w_alpha^T fills the first heads' stage");
+};
 
 // Where a tile source's chain stops: after the trunk, after the view
 // branch, or through the heads to raw rows (every production kernel).
@@ -77,19 +139,24 @@ enum Last { LAST_TRUNK, LAST_VIEW, LAST_HEADS };
 
 // Stages of the trunk and of the view branch without its dir-PE stage in
 // one tile's weight stream (the order in the note at the top).
+template <class T>
 inline int trunk_stages(const unsigned long long* slots, int depth) {
-  int n = PE_PAD / KC_W;
+  int n = PE_PAD / T::KC_W;
   for (int i = 1; i < depth; ++i)
-    n += W / KC_W + (slots[SLOT_WSKIP + i] ? PE_PAD / KC_W : 0);
+    n += T::W / T::KC_W + (slots[SLOT_WSKIP + i] ? PE_PAD / T::KC_W : 0);
   return n;
 }
+template <class T>
 inline int view_stages(int n_views) {
-  return W / KC_V + (n_views - 1) * (WV / KC_V);
+  constexpr int rest = (T::WV + T::KC_V - 1) / T::KC_V;
+  return T::W / T::KC_V + (n_views - 1) * rest;
 }
 // Stages of one tile's weight stream without the dir-PE stage.
+template <class T>
 inline int chain_stages(const unsigned long long* slots, int depth,
                         int n_views) {
-  return trunk_stages(slots, depth) + view_stages(n_views) + 1;
+  return trunk_stages<T>(slots, depth) + view_stages<T>(n_views) +
+         T::HEAD_STAGES;
 }
 
 // A consumer warpgroup's view of the ring of n stages: `it` counts the
@@ -130,33 +197,33 @@ __device__ __forceinline__ uint64_t a_desc(uint32_t a, int k) {
   return desc_k(a + (k >> 6) * 8192 + (k & 63) * 2);
 }
 
-// acc (+)= A (64 x K at a) @ the next K / KC_W stages (K x 256)
-__device__ __forceinline__ void prod_w(float (&acc)[128], Ring& r,
-                                       uint32_t a, int K, bool first) {
-  for (int k0 = 0; k0 < K; k0 += KC_W) {
-    const uint32_t st = ring_take(r);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < KC_W / 16; ++j)
-      wgmma_n256_kmn(acc, a_desc(a, k0 + 16 * j),
-                     desc_mn(st + 2048 * j, KC_W * 128),
-                     first && k0 == 0 && j == 0 ? 0 : 1);
-    wgmma_commit();
-    ring_step(r);
-  }
+// d (64 x 2 NR) (+)= A (64 x 16) @ B (16 x 2 NR): n256, n128 or n64
+template <int NR, int A>
+__device__ __forceinline__ void wgmma_kmn(float (&d)[A], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  if constexpr (NR == 128)
+    wgmma_n256_kmn(d, a, b, scale_d);
+  else if constexpr (NR == 64)
+    wgmma_n128_kmn(d, a, b, scale_d);
+  else
+    wgmma_n64_kmn(d, a, b, scale_d);
 }
 
-// acc[0:64] (+)= A (64 x K at a) @ the next K / KC_V stages (K x 128)
-__device__ __forceinline__ void prod_v(float (&acc)[128], Ring& r,
-                                       uint32_t a, int K, bool first) {
-  for (int k0 = 0; k0 < K; k0 += KC_V) {
-    const uint32_t st = ring_take(r);
+// acc[0:NR] (+)= A (64 x K at a) @ the next K / KC stages (K-rows of a
+// matrix 8192 / KC lanes wide, MN-major), their 2 NR lanes from byte boff
+// of each stage; KS k16 steps a stage (fewer than KC / 16 where a matrix of
+// fewer K-rows fills part of one)
+template <int NR, int KC, int KS = KC / 16, int A>
+__device__ __forceinline__ void prod(float (&acc)[A], Ring& r, uint32_t a,
+                                     int K, bool first, uint32_t boff = 0) {
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    const uint32_t st = ring_take(r) + boff;
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < KC_V / 16; ++j)
-      wgmma_n128_kmn(acc, a_desc(a, k0 + 16 * j),
-                     desc_mn(st + 2048 * j, KC_V * 128),
-                     first && k0 == 0 && j == 0 ? 0 : 1);
+    for (int j = 0; j < KS; ++j)
+      wgmma_kmn<NR>(acc, a_desc(a, k0 + 16 * j),
+                    desc_mn(st + 2048 * j, KC * 128),
+                    first && k0 == 0 && j == 0 ? 0 : 1);
     wgmma_commit();
     ring_step(r);
   }
@@ -170,8 +237,8 @@ __device__ __forceinline__ void prod_v(float (&acc)[128], Ring& r,
 // through generic pointers would wait for the store. With kMask, bit i % 32
 // of mask[i / 32] is set where the stored value of acc[i] is > 0 (relu' on
 // the rounded activation; mask starts zeroed).
-template <int NR, bool kMask = false>
-__device__ __forceinline__ void relu_store(const float (&acc)[128],
+template <int NR, bool kMask = false, int A>
+__device__ __forceinline__ void relu_store(const float (&acc)[A],
                                            bf16* tile, const float* bias_lo,
                                            const float* bias_hi, int wtid,
                                            uint32_t* mask = nullptr) {
@@ -206,11 +273,66 @@ __device__ __forceinline__ void relu_store(const float (&acc)[128],
   }
 }
 
-// The MLP of one 128-point tile, for warpgroup wg (rows 64 wg .. +64 of
-// the tile at tile_base; rows at or past n_pts are zeros and write
-// nothing): Src's PE fill -> trunk -> view branch -> heads -> Src's raw,
-// or with Src::kLast the trunk's or the view branch's activation tile to
-// Src's store.
+// The trunk's products of layer i into acc: pe @ W_0 (i = 0), or the skip
+// layer's pe @ W_pe then h @ W_i in one accumulator; the warpgroup's lanes
+// of each stage from byte boff.
+template <class T, int A>
+__device__ __forceinline__ void trunk_prod(const Net& net, float (&acc)[A],
+                                           Ring& r, uint32_t pe, uint32_t h,
+                                           int i, uint32_t boff = 0) {
+  if (i == 0) {
+    prod<T::NRW, T::KC_W>(acc, r, pe, PE_PAD, true, boff);
+  } else {
+    const bool skip = net.slot[SLOT_WSKIP + i] != nullptr;
+    if (skip) prod<T::NRW, T::KC_W>(acc, r, pe, PE_PAD, true, boff);
+    prod<T::NRW, T::KC_W>(acc, r, h, T::W, !skip, boff);
+  }
+}
+
+// View layer v's products into acc: h (the trunk's output, K = W) for v =
+// 0, else hv (K = WV), then with kDir view layer 0's dir-PE product from
+// the dir-PE tile at ped.
+template <class T, bool kDir, int A>
+__device__ __forceinline__ void view_prod(float (&acc)[A], Ring& r,
+                                          uint32_t h, uint32_t hv,
+                                          uint32_t ped, int v,
+                                          uint32_t boff = 0) {
+  if constexpr (T::KC_V <= T::WV) {  // every view matrix fills whole stages
+    prod<T::NRV, T::KC_V>(acc, r, v == 0 ? h : hv, v == 0 ? T::W : T::WV,
+                          true, boff);
+  } else if (v == 0) {
+    prod<T::NRV, T::KC_V>(acc, r, h, T::W, true, boff);
+  } else {
+    prod<T::NRV, T::KC_V, T::KS_V>(acc, r, hv, T::WV, true, boff);
+  }
+  if (kDir && v == 0)
+    prod<T::NRV, T::KC_V, T::DIR_K / 16>(acc, r, ped, T::DIR_K, false, boff);
+}
+
+// The heads' raw rows of the warpgroup's 64 rows from acc[0:4] (columns
+// 0..3 of the n16 product) plus b_heads; rows at or past n_pts write
+// nothing.
+template <int A>
+__device__ __forceinline__ void heads_out(const Net& net, const float (&acc)[A],
+                                          float* raw, int row0, int n_pts,
+                                          int wtid) {
+  const int lrow = 16 * (wtid >> 5) + ((wtid & 31) >> 2);
+  const int q = wtid & 3;
+  if (q < 2) {
+    const float* bh = fvec(net, SLOT_BHEADS);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = row0 + lrow + 8 * (i >> 1), col = 2 * q + (i & 1);
+      if (p < n_pts) raw[p * 4 + col] = acc[i] + bh[col];
+    }
+  }
+}
+
+// The MLP of one 128-point tile at W <= 256, for warpgroup wg (rows 64 wg
+// .. +64 of the tile at tile_base; rows at or past n_pts are zeros and
+// write nothing): Src's PE fill -> trunk -> view branch -> heads -> Src's
+// raw, or with Src::kLast the trunk's or the view branch's activation tile
+// to Src's store.
 // tiles: the warpgroup's PE, trunk and view tiles, 1,024-byte aligned, and
 // with Src::kDirProduct its dir-PE tile after them.
 template <class Src>
@@ -218,35 +340,30 @@ __device__ __forceinline__ void chain_tile(const Net& net, const Src& src,
                                            Ring& r, char* tiles,
                                            int tile_base, int n_pts, int wg,
                                            int wtid) {
+  using T = typename Src::T;
   const int bar = 1 + wg;
   const int row0 = tile_base + 64 * wg;
   bf16* pe_g = reinterpret_cast<bf16*>(tiles);
   bf16* h_g = pe_g + PE_TILE / 2;
-  bf16* hv_g = h_g + H_TILE / 2;
-  const uint32_t pe = smem_addr(tiles), h = pe + PE_TILE, hv = h + H_TILE;
-  float acc[128];
+  bf16* hv_g = h_g + T::H_TILE / 2;
+  const uint32_t pe = smem_addr(tiles), h = pe + PE_TILE, hv = h + T::H_TILE;
+  float acc[T::ACC];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int i = 0; i < T::ACC; ++i) acc[i] = 0.f;
 
   // the tile's PE (and dir-PE); rows past n_pts are zeros
   named_barrier(bar, 128);
-  src.fill(net, pe_g, hv_g + HV_TILE / 2, row0, n_pts, wtid);
+  src.fill(net, pe_g, hv_g + T::HV_TILE / 2, row0, n_pts, wtid);
   fence_proxy_async();
   named_barrier(bar, 128);
 
   // trunk; the skip layer is pe @ W_pe + h @ W_h in one accumulator
   for (int i = 0; i < net.depth; ++i) {
-    if (i == 0) {
-      prod_w(acc, r, pe, PE_PAD, true);
-    } else {
-      const bool skip = net.slot[SLOT_WSKIP + i] != nullptr;
-      if (skip) prod_w(acc, r, pe, PE_PAD, true);
-      prod_w(acc, r, h, W, !skip);
-    }
+    trunk_prod<T>(net, acc, r, pe, h, i);
     ring_drain(r);
     named_barrier(bar, 128);  // every warp's products have read h
     const float* b = fvec(net, SLOT_B + i);
-    relu_store<128>(acc, h_g, b, b, wtid);
+    relu_store<T::NRW>(acc, h_g, b, b, wtid);
     fence_proxy_async();
     named_barrier(bar, 128);
   }
@@ -258,17 +375,15 @@ __device__ __forceinline__ void chain_tile(const Net& net, const Src& src,
     // bv[0] after the per-point dir-PE product in the same accumulator
     const int lrow = 16 * (wtid >> 5) + ((wtid & 31) >> 2);
     for (int v = 0; v < net.n_views; ++v) {
-      prod_v(acc, r, v == 0 ? h : hv, v == 0 ? W : WV, true);
-      if (Src::kDirProduct && v == 0)
-        prod_v(acc, r, hv + HV_TILE, KC_V, false);
+      view_prod<T, Src::kDirProduct>(acc, r, h, hv, hv + T::HV_TILE, v);
       ring_drain(r);
       named_barrier(bar, 128);
       if (v == 0) {
-        relu_store<64>(acc, hv_g, src.view_bias(net, row0 + lrow),
-                       src.view_bias(net, row0 + lrow + 8), wtid);
+        relu_store<T::NRV>(acc, hv_g, src.view_bias(net, row0 + lrow),
+                           src.view_bias(net, row0 + lrow + 8), wtid);
       } else {
         const float* b = fvec(net, SLOT_BV + v);
-        relu_store<64>(acc, hv_g, b, b, wtid);
+        relu_store<T::NRV>(acc, hv_g, b, b, wtid);
       }
       fence_proxy_async();
       named_barrier(bar, 128);
@@ -282,29 +397,123 @@ __device__ __forceinline__ void chain_tile(const Net& net, const Src& src,
         const uint32_t st = ring_take(r);
         wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < W; k += 16)
+        for (int k = 0; k < T::W; k += 16)
           wgmma_n16_kk(acc, a_desc(h, k),
                        desc_k(st + (k >> 6) * 2048 + (k & 63) * 2), k > 0);
 #pragma unroll
-        for (int k = 0; k < WV; k += 16)
+        for (int k = 0; k < T::WV; k += 16)
           wgmma_n16_kk(acc, a_desc(hv, k),
-                       desc_k(st + 8192 + (k >> 6) * 2048 + (k & 63) * 2),
+                       desc_k(st + T::RGB_OFF + (k >> 6) * 2048 +
+                              (k & 63) * 2),
                        1);
         wgmma_commit();
         ring_step(r);
         ring_drain(r);
       }
-      const int q = wtid & 3;
-      if (q < 2) {
-        const float* bh = fvec(net, SLOT_BHEADS);
-        float* raw = src.raw();
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int p = row0 + lrow + 8 * (i >> 1), col = 2 * q + (i & 1);
-          if (p < n_pts) raw[p * 4 + col] = acc[i] + bh[col];
-        }
-      }
+      heads_out(net, acc, src.raw(), row0, n_pts, wtid);
     }
+  }
+}
+
+// The MLP of one 64-point tile at W=512 (tile rows from row0; rows at or
+// past n_pts are zeros and write nothing), both warpgroups on the same
+// rows, warpgroup wg on columns wg CW.. of every trunk layer and wg CV.. of
+// every view layer: Src's PE fill (warpgroup 0) -> trunk -> view branch ->
+// heads (warpgroup 0) -> Src's raw. tiles: the PE tile, the two trunk
+// tiles H[0], H[1], and with Src::kDirProduct the dir-PE tile after them.
+// Trunk layer i writes H[i % 2]; the view branch ping-pongs between the
+// halves of the trunk tile the last layer did not write. Barrier 1 joins
+// both warpgroups.
+template <class Src>
+__device__ __forceinline__ void chain_tile_split(const Net& net,
+                                                 const Src& src, Ring& r,
+                                                 char* tiles, int row0,
+                                                 int n_pts, int wg,
+                                                 int wtid) {
+  using T = typename Src::T;
+  static_assert(Src::kLast == LAST_HEADS, "W=512 runs through the heads");
+  // shared addresses (and generic pointers, the same offsets) of the PE
+  // tile, trunk tile j at h0 + j H_TILE, the dir-PE tile
+  bf16* pe_g = reinterpret_cast<bf16*>(tiles);
+  const uint32_t pe = smem_addr(tiles), h0 = pe + PE_TILE;
+  const uint32_t ped = h0 + 2 * T::H_TILE;
+  const uint32_t boff = wg * T::HALF;
+  // the warpgroup's columns' offset in a bias, and in a tile's image
+  // (swz: elements)
+  const int cw = wg * T::CW, cv = wg * T::CV;
+  auto at = [&](uint32_t a) {  // generic pointer of shared address a
+    return pe_g + (a - pe) / 2;
+  };
+  float acc[T::ACC];
+#pragma unroll
+  for (int i = 0; i < T::ACC; ++i) acc[i] = 0.f;
+
+  named_barrier(1, 256);  // the last tile's products have read its tiles
+  if (wg == 0) src.fill(net, pe_g, at(ped), row0, n_pts, wtid);
+  fence_proxy_async();
+  named_barrier(1, 256);
+
+  for (int i = 0; i < net.depth; ++i) {
+    const uint32_t out = h0 + (i & 1) * T::H_TILE;
+    trunk_prod<T>(net, acc, r, pe, h0 + ((i & 1) ^ 1) * T::H_TILE, i, boff);
+    ring_drain(r);
+    const float* b = fvec(net, SLOT_B + i) + cw;
+    relu_store<T::NRW>(acc, at(out) + swz(0, cw), b, b, wtid);
+    fence_proxy_async();
+    named_barrier(1, 256);  // both halves written, both products done
+  }
+
+  // the trunk tile of the last layer, and the other one's halves, between
+  // which the view branch ping-pongs
+  const uint32_t hl = h0 + ((net.depth - 1) & 1) * T::H_TILE;
+  const uint32_t hv0 = h0 + (((net.depth - 1) & 1) ^ 1) * T::H_TILE;
+  const int lrow = 16 * (wtid >> 5) + ((wtid & 31) >> 2);
+  for (int v = 0; v < net.n_views; ++v) {
+    const uint32_t out = hv0 + (v & 1) * T::HV_TILE;
+    view_prod<T, Src::kDirProduct>(acc, r, hl,
+                                   hv0 + ((v & 1) ^ 1) * T::HV_TILE, ped, v,
+                                   boff);
+    ring_drain(r);
+    if (v == 0) {
+      relu_store<T::NRV>(acc, at(out) + swz(0, cv),
+                         src.view_bias(net, row0 + lrow) + cv,
+                         src.view_bias(net, row0 + lrow + 8) + cv, wtid);
+    } else {
+      const float* b = fvec(net, SLOT_BV + v) + cv;
+      relu_store<T::NRV>(acc, at(out) + swz(0, cv), b, b, wtid);
+    }
+    fence_proxy_async();
+    named_barrier(1, 256);
+  }
+
+  // heads: raw = h @ w_alpha (first stage) + hv @ w_rgb (second) + b_heads
+  const uint32_t hvl = hv0 + ((net.n_views - 1) & 1) * T::HV_TILE;
+  if (wg == 0) {
+    uint32_t st = ring_take(r);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < T::W; k += 16)
+      wgmma_n16_kk(acc, a_desc(hl, k),
+                   desc_k(st + (k >> 6) * 2048 + (k & 63) * 2), k > 0);
+    wgmma_commit();
+    ring_step(r);
+    st = ring_take(r);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < T::WV; k += 16)
+      wgmma_n16_kk(acc, a_desc(hvl, k),
+                   desc_k(st + (k >> 6) * 2048 + (k & 63) * 2), 1);
+    wgmma_commit();
+    ring_step(r);
+    ring_drain(r);
+    heads_out(net, acc, src.raw(), row0, n_pts, wtid);
+  } else {
+#pragma unroll
+    for (int s = 0; s < T::HEAD_STAGES; ++s) {
+      ring_take(r);
+      ring_step(r);
+    }
+    ring_drain(r);
   }
 }
 
@@ -362,34 +571,58 @@ __device__ __forceinline__ void chain_produce(const Chain& c,
   __syncwarp();
 }
 
+// W=512's registers a thread while the chain runs (a 384-thread block
+// starts at 168 each): the producer warpgroup's and the consumers'
+constexpr int CHAIN_PRODUCER_REGS = 40, CHAIN_CONSUMER_REGS = 232;
+constexpr int CHAIN_LAUNCH_REGS = 168;
+static_assert(2 * 128 * CHAIN_CONSUMER_REGS + 128 * CHAIN_PRODUCER_REGS <=
+                      65536 &&
+                  3 * 128 * CHAIN_LAUNCH_REGS <= 65536,
+              "the split chain's registers exceed the SM's");
+
 // The field MLP of the block's n_pts points: the producer's one thread
-// streams the n_stages weight stages once per 128-point tile through the
-// ring while the two warpgroups run chain_tile on each tile. Every thread
-// calls it; it ends with __syncthreads.
+// streams the n_stages weight stages once per tile (Src::T::DT points)
+// through the ring while the two warpgroups run chain_tile (W <= 256) or
+// chain_tile_split (W=512) on each tile. Every thread calls it; it ends
+// with __syncthreads.
 template <class Src>
 __device__ __forceinline__ void chain_mlp(const Net& net, const Src& src,
                                           const Chain& c,
                                           const bf16* __restrict__ wstream,
                                           int n_stages, int n_pts) {
+  using T = typename Src::T;
   const int wg = threadIdx.x >> 7;
   if (wg == 2) {
-    chain_produce(c, wstream, n_stages, (n_pts + DT - 1) / DT);
+    if constexpr (T::kSplit) setmaxnreg_dec<CHAIN_PRODUCER_REGS>();
+    chain_produce(c, wstream, n_stages, (n_pts + T::DT - 1) / T::DT);
+    if constexpr (T::kSplit) setmaxnreg_inc<CHAIN_LAUNCH_REGS>();
   } else {
     Ring ring{c.base, c.bars, static_cast<uint32_t>(c.n_ring), 0, NO_STAGE};
-    char* tiles = c.gbase + c.n_ring * STAGE_BYTES + wg * Src::kTileBytes;
-    for (int t0 = 0; t0 < n_pts; t0 += DT)
-      chain_tile(net, src, ring, tiles, t0, n_pts, wg, threadIdx.x & 127);
+    if constexpr (T::kSplit) {
+      setmaxnreg_inc<CHAIN_CONSUMER_REGS>();
+      char* tiles = c.gbase + c.n_ring * STAGE_BYTES;
+      for (int t0 = 0; t0 < n_pts; t0 += T::DT)
+        chain_tile_split(net, src, ring, tiles, t0, n_pts, wg,
+                         threadIdx.x & 127);
+      setmaxnreg_dec<CHAIN_LAUNCH_REGS>();
+    } else {
+      char* tiles = c.gbase + c.n_ring * STAGE_BYTES + wg * Src::kTileBytes;
+      for (int t0 = 0; t0 < n_pts; t0 += T::DT)
+        chain_tile(net, src, ring, tiles, t0, n_pts, wg, threadIdx.x & 127);
+    }
   }
   __syncthreads();
 }
 
-// The chain's tile source of the point kernels (fused_mlp.cu, and the
-// recompute of the gradient kernel's pass A in fused_mlp_grad.cu) for the
+// The chain's tile source of the point kernels (fused_mlp.cuh, and the
+// recompute of the gradient kernel's pass A in fused_mlp_grad.cuh) for the
 // block's points (pointers offset to the block's first point); ENCODED
-// reads PE rows, otherwise coordinates.
-template <bool ENCODED>
+// reads PE rows, otherwise coordinates. kTileBytes: a warpgroup's tiles
+// (W <= 256).
+template <bool ENCODED, class T_>
 struct PointTile {
-  static constexpr int kTileBytes = WG_BYTES + PED_TILE;
+  using T = T_;
+  static constexpr int kTileBytes = T::WG_BYTES + PED_TILE;
   static constexpr bool kDirProduct = true;
   static constexpr int kLast = LAST_HEADS;
   const void* a;  // (n, 3) f32 points, or (n, PE_PAD) bf16 xyz-PE rows
@@ -474,11 +707,12 @@ struct PointTile {
 };
 
 // Shared memory of a point kernel: 1,024 bytes to align the base, the ring
-// of n_ring stages, two warpgroups' PE / trunk / view / dir-PE tiles, 128
-// bytes of mbarriers.
+// of n_ring stages, the block's PE / trunk / view / dir-PE tiles, 128 bytes
+// of mbarriers.
+template <class T>
 __host__ __device__ inline size_t point_smem_bytes(int n_ring) {
-  return 1024 + static_cast<size_t>(n_ring) * STAGE_BYTES +
-         2 * PointTile<false>::kTileBytes + 128;
+  return 1024 + static_cast<size_t>(n_ring) * STAGE_BYTES + T::POINT_TILES +
+         128;
 }
 
 // Rows row0.. of (n, LANES) bf16 rows into a warpgroup's K-major tile of
@@ -504,19 +738,20 @@ __device__ __forceinline__ void copy_rows(const bf16* rows, bf16* tile,
     *reinterpret_cast<uint4*>(tile + swz(row, 8 * (c0 + 2 * j))) = v[j];
 }
 
-// The chain's tile source of kdiag.cu's ladder for the block's points
-// (pointers offset to its first point): PointTile<true>'s fill of the
-// given encodings (the dir-PE tile only where the view branch runs), the
-// chain stopped after the trunk (LAST_TRUNK) or the view branch
+// The chain's tile source of kdiag.cu's ladder (W <= 256) for the block's
+// points (pointers offset to its first point): PointTile<true>'s fill of
+// the given encodings (the dir-PE tile only where the view branch runs),
+// the chain stopped after the trunk (LAST_TRUNK) or the view branch
 // (LAST_VIEW), and that activation tile's rows out as bf16.
-template <int LAST>
+template <int LAST, class T_>
 struct ActivationTile {
   static_assert(LAST == LAST_TRUNK || LAST == LAST_VIEW,
                 "the ladder stops after the trunk or the view branch");
-  static constexpr int kTileBytes = WG_BYTES + PED_TILE;
+  using T = T_;
+  static constexpr int kTileBytes = T::WG_BYTES + PED_TILE;
   static constexpr bool kDirProduct = true;
   static constexpr int kLast = LAST;
-  static constexpr int kWidth = LAST == LAST_TRUNK ? W : WV;
+  static constexpr int kWidth = LAST == LAST_TRUNK ? T::W : T::WV;
   const bf16* pe;   // (n, PE_PAD) xyz-PE rows
   const bf16* ped;  // (n, PED_PAD) dir-PE rows
   bf16* act;        // (n, kWidth) the last activation
@@ -547,23 +782,26 @@ struct ActivationTile {
   }
 };
 
-// The ray kernels' pieces (fused_render.cu K1-K3, and kdiag.cu's probe B,
+// The ray kernels' pieces (fused_render.cuh K1-K3, and kdiag.cu's probe B,
 // which runs K1's chain without its compositing): the producer warp's
 // thread index in their per-ray phases, the offset of the per-ray state
 // behind the ring, tiles and mbarriers, and their tile source.
 constexpr int IDLE = 1 << 30;  // producer's thread index in ray phases
 
-// Byte offset of the per-ray state: the ring of n_ring stages, two
-// warpgroups' PE / trunk / view tiles, 128 bytes of mbarriers.
+// Byte offset of the per-ray state: the ring of n_ring stages, the block's
+// PE / trunk / view tiles, 128 bytes of mbarriers.
+template <class T>
 __host__ __device__ inline int ray_state_offset(int n_ring) {
-  return n_ring * STAGE_BYTES + 2 * WG_BYTES + 128;
+  return n_ring * STAGE_BYTES + T::TILES + 128;
 }
 
 // The chain's tile source for a block of nr rays of S points each, point p
 // on ray p / S: the PE of x = ro + z rd from the per-ray state, view layer
 // 0's per-ray term pv (ped @ wv0d + bv0, load_rays), raw rows to sm.raw.
+template <class T_>
 struct RayTile {
-  static constexpr int kTileBytes = WG_BYTES;
+  using T = T_;
+  static constexpr int kTileBytes = T::WG_BYTES;
   static constexpr bool kDirProduct = false;
   static constexpr int kLast = LAST_HEADS;
   const Smem& sm;
@@ -592,18 +830,20 @@ struct RayTile {
   }
   __device__ __forceinline__ const float* view_bias(const Net&,
                                                     int row) const {
-    return sm.pv + min(row / S, nr - 1) * WV;
+    return sm.pv + min(row / S, nr - 1) * T::WV;
   }
   __device__ __forceinline__ float* raw() const { return sm.raw; }
 };
 
-// The chain's tile source of kdiag.cu's probe A for a block of nr rays of
-// S points each, from given encodings (pointers offset to the block's
-// first point): the tile's xyz-PE copied from the bf16 PE rows
+// The chain's tile source of kdiag.cu's probe A (W <= 256) for a block of
+// nr rays of S points each, from given encodings (pointers offset to the
+// block's first point): the tile's xyz-PE copied from the bf16 PE rows
 // (copy_rows), view layer 0's per-ray term pv from shared memory as
 // RayTile's, raw rows to global memory.
+template <class T_>
 struct PeRayTile {
-  static constexpr int kTileBytes = WG_BYTES;
+  using T = T_;
+  static constexpr int kTileBytes = T::WG_BYTES;
   static constexpr bool kDirProduct = false;
   static constexpr int kLast = LAST_HEADS;
   const bf16* pe;   // (nr S, PE_PAD) xyz-PE rows
@@ -617,7 +857,7 @@ struct PeRayTile {
   }
   __device__ __forceinline__ const float* view_bias(const Net&,
                                                     int row) const {
-    return pv + min(row / S, nr - 1) * WV;
+    return pv + min(row / S, nr - 1) * T::WV;
   }
   __device__ __forceinline__ float* raw() const { return out; }
 };

@@ -1,5 +1,8 @@
 // Rematerialising backward of the fused point MLP for Hopper (sm_90a), with
-// a plain C interface loaded through ctypes by kernels/fused_mlp_grad.py.
+// a plain C interface loaded through ctypes by kernels/fused_mlp_grad.py:
+// templates over the net's widths (chain.cuh Layout<W>), instantiated once
+// per width by fused_mlp_grad_w<W>.cu (FR_GRAD_ENTRIES:
+// fr_grad_pass_a_w128, ...).
 // Replaces idealnerf_tpu/kernels/fused_mlp_grad.py: _run_grad_kernel
 // (_grad_kernel), the backward of fused_point_mlp_train: points, directions
 // and the (N, 4) cotangent -> f32 gradients of every packed operand (layer
@@ -22,20 +25,23 @@
 // bf16 (the training default):
 // - k_grad_pass_a: the recompute and the d_h chain on the wgmma chain of
 //   chain.cuh, with no weight-gradient product. One block per SM walks a
-//   contiguous run of 128-point tiles (the point kernels' plan,
+//   contiguous run of tiles (the point kernels' plan,
 //   kernels/fused_mlp.py: _point_plan); its producer thread streams the
 //   net's pass-A weight stream through a shared-memory ring of 4 stages
 //   once per tile: K4's forward stages without the heads (chain_stages:
 //   the heads' stage traded for the dir-PE stage), then the transposed
 //   matrices the backward multiplies by (kernels/fused_mlp_grad.py:
-//   grad_weight_stream):
+//   grad_weight_stream), at W=256:
 //     WV_v^T          (128 x 128) for v = NV-1..1, 2 stages of 64 K-rows
 //     WV_0^T h-part   (128 x 256) 4 stages of 32 K-rows
 //     W_i^T           (256 x 256) for i = D-1..1, 8 stages of 32 K-rows
 //   (64 stages for the paper model, 133 a tile with the forward's 69);
 //   layer 0, the skip pe-part and the dir-PE part get none, as points get
-//   no gradient. Each consumer warpgroup owns 64 points, one 64-point tile
-//   of the planes. Forward: PointTile's PE and dir-PE tiles, then per layer
+//   no gradient. At W <= 256 each consumer warpgroup owns 64 points, one
+//   64-point tile of the planes (pass_a_tile); at W=512 both share one 64-
+//   point tile, each on its half of every layer's columns, as the forward
+//   chain does (pass_a_tile_split, below). Forward: PointTile's PE and
+//   dir-PE tiles, then per layer
 //   the product into registers and relu_store's bf16 activation in place,
 //   with its relu' bits kept in shared memory. Backward: the heads' K = 4
 //   products as f32 FMAs into the accumulator, which has the layout of the
@@ -93,6 +99,8 @@
 //   and each thread sums an 8 x 8 register block over the chunk's points
 //   in order, one partial per chunk.
 // - k_bias_partials and k_reduce_slabs, as for bf16.
+#pragma once
+
 #include "chain.cuh"
 #include "fring.cuh"
 
@@ -107,7 +115,8 @@ struct GradTable {
 };
 
 // out[e] = sum of the slabs' (chunks' partials') element e, in order.
-__global__ void k_reduce_slabs(const float* __restrict__ slabs,
+// (static: every width's translation unit has its own.)
+static __global__ void k_reduce_slabs(const float* __restrict__ slabs,
                                float* __restrict__ out, long long G,
                                int n_slabs) {
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -146,22 +155,75 @@ struct Planes {
 
 // Stages of pass A's backward stream per tile (after the forward's): WV_v^T
 // for v = NV-1..1, WV_0^T's h-part, W_i^T for i = D-1..1.
+template <class T>
 inline int grad_back_stages(int depth, int n_views) {
-  return (n_views - 1) * (WV / KC_V) + WV / KC_W + (depth - 1) * (W / KC_W);
+  constexpr int v = (T::WV + T::KC_V - 1) / T::KC_V;
+  return (n_views - 1) * v + T::WV / T::KC_W + (depth - 1) * (T::W / T::KC_W);
 }
 
-// A warpgroup's tiles: PE, trunk and view (the ray kernels' WG_BYTES). The
-// dir-PE tile lives in the view tile's first 8 KB until view layer 0's
-// epilogue overwrites it; in the backward the trunk tile holds DC(i), the
-// view tile DV(v) and the PE tile the column sums' scratch.
-constexpr int A_TILES = WG_BYTES;
-static_assert(PED_TILE <= HV_TILE, "the dir-PE tile shares the view tile");
-constexpr int SCRATCH_HEADS = 4 * W;  // float offset of the heads' partials
+// Pass A's layout past the chain's. W <= 256: a warpgroup's tiles are PE,
+// trunk and view (the ray kernels' WG_BYTES); the dir-PE tile lives in the
+// view tile's first 8 KB until view layer 0's epilogue overwrites it; in
+// the backward the trunk tile holds DC(i), the view tile DV(v) and the PE
+// tile the column sums' scratch. W=512: the block's PE tile and its two
+// trunk tiles (the forward chain's), both warpgroups' relu' bits after
+// them; the dir-PE tile lives in the second half of the trunk tile the last
+// trunk layer does not write, until view layer 1's epilogue overwrites it;
+// in the backward DC(i) and DV(v) ping-pong as the forward's activations
+// do, and each warpgroup's column sums' scratch is one half of the PE tile.
+template <class T>
+struct PassA {
+  static_assert(PED_TILE <= T::HV_TILE, "the dir-PE tile shares a view tile");
+  static constexpr int MW = T::NRW / 32, MV = T::NRV / 32;  // relu' words
+  static constexpr int TILES = T::kSplit ? T::TILES : 2 * T::WG_BYTES;
+  // a warpgroup's scratch (floats): its column sums of a layer (4 warps x
+  // its columns), and the heads' partials past those of the layer they
+  // share the scratch with (the trunk's at W <= 256, the last view
+  // layer's at 512)
+  static constexpr int PART_FLOATS = T::kSplit ? PE_TILE / 8 : PE_TILE / 4;
+  static constexpr int SCRATCH_HEADS = T::kSplit ? 4 * T::CV : 4 * T::CW;
+  static_assert(4 * T::CW <= PART_FLOATS && SCRATCH_HEADS + 8 <= PART_FLOATS,
+                "the column sums fit the scratch");
+};
 
-// A warpgroup's relu' bits: per trunk layer 16 bytes a thread (128 values),
-// per view layer 8 (64 values).
+// A warpgroup's relu' bits: per trunk layer 4 MW bytes a thread (NRW
+// values), per view layer 4 MV (NRV values); at W=256 16 and 8. Rounded
+// up to 1,024 bytes, so that the tiles after them (warpgroup 1's at W <=
+// 256) stay aligned to the swizzle's atoms (at W=256 they are whole KB).
+template <class T>
 __host__ __device__ inline int mask_bytes(int depth, int n_views) {
-  return 128 * (16 * depth + 8 * n_views);
+  const int bytes = 128 * 4 * (PassA<T>::MW * depth + PassA<T>::MV * n_views);
+  return (bytes + 1023) & ~1023;
+}
+
+// A thread's relu' words of one layer: M 32-bit words at its slot of the
+// layer's block (128 threads x M words).
+template <int M>
+__device__ __forceinline__ void put_bits(char* layer, const uint32_t (&m)[M],
+                                         int wtid) {
+  if constexpr (M == 4)
+    reinterpret_cast<uint4*>(layer)[wtid] = make_uint4(m[0], m[1], m[2], m[3]);
+  else if constexpr (M == 2)
+    reinterpret_cast<uint2*>(layer)[wtid] = make_uint2(m[0], m[1]);
+  else
+    reinterpret_cast<uint32_t*>(layer)[wtid] = m[0];
+}
+template <int M>
+__device__ __forceinline__ void get_bits(const char* layer, uint32_t (&m)[M],
+                                         int wtid) {
+  if constexpr (M == 4) {
+    const uint4 u = reinterpret_cast<const uint4*>(layer)[wtid];
+    m[0] = u.x;
+    m[1] = u.y;
+    m[2] = u.z;
+    m[3] = u.w;
+  } else if constexpr (M == 2) {
+    const uint2 u = reinterpret_cast<const uint2*>(layer)[wtid];
+    m[0] = u.x;
+    m[1] = u.y;
+  } else {
+    m[0] = reinterpret_cast<const uint32_t*>(layer)[wtid];
+  }
 }
 
 // One epilogue's finished tiles, which a consumer warpgroup hands to the
@@ -174,23 +236,26 @@ struct Mail {
 };
 
 // Pass A's shared memory: 1,024 bytes to align the base, the ring of
-// n_ring stages, two warpgroups' tiles and relu' bits, 128 bytes of the
-// ring's mbarriers, then each warpgroup's mailbox full / empty mbarriers
-// and its Mail.
+// n_ring stages, the tiles and both warpgroups' relu' bits, 128 bytes of
+// the ring's mbarriers, then each warpgroup's mailbox full / empty
+// mbarriers and its Mail.
 constexpr int MAIL_BYTES = 2 * 2 * 8 + 2 * sizeof(Mail);
+template <class T>
 __host__ __device__ inline size_t pass_a_smem_bytes(int n_ring, int depth,
                                                     int n_views) {
   return 1024 + static_cast<size_t>(n_ring) * STAGE_BYTES +
-         2 * static_cast<size_t>(A_TILES + mask_bytes(depth, n_views)) + 128 +
-         MAIL_BYTES;
+         PassA<T>::TILES + 2 * static_cast<size_t>(mask_bytes<T>(depth,
+                                                                 n_views)) +
+         128 + MAIL_BYTES;
 }
 
 // Every product of pass A starts its accumulator over (scale-d 0), so an
 // epilogue zeroes the registers it has read: the compiler then need not
-// keep the 128 of them live beside the epilogue's own.
-__device__ __forceinline__ void clear(float (&acc)[128]) {
+// keep them live beside the epilogue's own.
+template <int A>
+__device__ __forceinline__ void clear(float (&acc)[A]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int i = 0; i < A; ++i) acc[i] = 0.f;
 }
 
 // One step of the column sums' butterfly: of s[0:2 HALF], this lane keeps
@@ -214,8 +279,8 @@ __device__ __forceinline__ void fold(float (&s)[M], int l, int lane_bit) {
 // column sums of the unrounded d: each thread's two rows, then the 8 lanes
 // of a column by a butterfly of shuffles that leaves each lane NR / 16 of
 // the sums. acc ends zeroed (clear).
-template <int NR>
-__device__ __forceinline__ void grad_store(float (&acc)[128], bf16* tile,
+template <int NR, int A>
+__device__ __forceinline__ void grad_store(float (&acc)[A], bf16* tile,
                                            const uint32_t (&m)[NR / 32],
                                            float* part, int wtid) {
   const int l = wtid & 31, w = wtid >> 5;
@@ -265,8 +330,8 @@ __device__ __forceinline__ void bias_row(const float* part, float* row,
 // the (n_pts, 4) f32 cotangent from row row0 of the warpgroup's tile (zero
 // at rows past n_pts), w is (2 NR, HEADS) bf16, of which the first 4 lanes
 // count. The cotangent is loaded here, not held across the products.
-template <int NR, bool ADD>
-__device__ __forceinline__ void heads_fma(float (&acc)[128],
+template <int NR, bool ADD, int A>
+__device__ __forceinline__ void heads_fma(float (&acc)[A],
                                           const float* __restrict__ gin,
                                           int row0, int n_pts,
                                           const bf16* __restrict__ w,
@@ -306,117 +371,58 @@ __device__ __forceinline__ void heads_fma(float (&acc)[128],
     }
 }
 
-// Pass A for warpgroup wg on one 128-point tile (rows 64 wg .. +64 at
-// tile_base of the block's n_pts points; the block's first 64-point tile of
-// the planes is pt0): the forward, then d_h back through the heads, the
-// view branch and the trunk. Each epilogue's finished tiles go to the store
-// warps through the warpgroup's Mail (put, then post: one post per
-// epilogue, posts counts them), and the warpgroup waits for the last post's
-// stores before it writes a tile again (reuse). A warpgroup past N computes
-// on zeros and posts nothing to store; rows past N have a zero cotangent,
-// so every d_h of theirs is zero.
-__device__ __forceinline__ void pass_a_tile(
-    const Net& net, const Planes& pl, const PointTile<false>& src,
-    const float* __restrict__ gin, bf16* planes, float* bias, Ring& r,
-    char* tiles, Mail& mail, uint32_t mail_full, uint32_t mail_empty,
-    uint32_t& posts, int tile_base, int n_pts, int pt0, int wg, int wtid) {
-  const int D = net.depth, NV = net.n_views;
-  const int bar = 1 + wg;
-  const int row0 = tile_base + 64 * wg;
-  const int pt = pt0 + row0 / GP;
-  const bool live = row0 < n_pts;
-  bf16* pe_g = reinterpret_cast<bf16*>(tiles);
-  bf16* h_g = pe_g + PE_TILE / 2;
-  bf16* hv_g = h_g + H_TILE / 2;
-  bf16* ped_g = hv_g;
-  const uint32_t pe = smem_addr(tiles), h = pe + PE_TILE, hv = h + H_TILE;
-  const uint32_t ped = hv;
-  char* masks = tiles + A_TILES;
-  float* part = reinterpret_cast<float*>(tiles);
-  float* brow = bias + static_cast<size_t>(pt) * (D * W + NV * WV + HEADS);
-
+// Pass A's hand-over of finished tiles to the store warps, for one
+// warpgroup: put (a tile for a plane, at most two between posts), post
+// (one per epilogue; posts counts them), reuse (before writing a tile
+// again: the last post's stores are done, and, over `threads` threads of
+// barrier `bar`, every warp's reads) and ready (the tile is written, for
+// wgmma and the stores). A warpgroup past N posts nothing to store.
+struct MailBox {
+  Mail& mail;
+  uint32_t full, empty;
+  uint32_t& posts;
+  bf16* planes;
+  const Planes& pl;
+  int pt, wtid, bar, threads;
+  bool live;
   int n_put = 0;
-  auto put = [&](const bf16* from, int plane, int width) {
+
+  __device__ __forceinline__ void put(const bf16* from, int plane, int width,
+                                      int off = 0, int bytes = 0) {
     if (live && wtid == 0) {
-      mail.dst[n_put] =
-          planes + pl.off[plane] + static_cast<size_t>(pt) * GP * width;
+      mail.dst[n_put] = planes + pl.off[plane] +
+                        static_cast<size_t>(pt) * GP * width + off;
       mail.src[n_put] = from;
-      mail.bytes[n_put] = 2 * GP * width;
+      mail.bytes[n_put] = bytes ? bytes : 2 * GP * width;
       ++n_put;
     }
-  };
-  auto post = [&]() {  // the puts since the last post, to the store warps
+  }
+  __device__ __forceinline__ void post() {
     if (wtid == 0) {
       mail.n = n_put;
-      mbar_arrive(mail_full);
+      mbar_arrive(full);
     }
     n_put = 0;
     ++posts;
-  };
-  auto reuse = [&]() {  // every warp's reads and the last post's are done
-    if (wtid == 0 && posts > 0) mbar_wait(mail_empty, (posts - 1) & 1);
-    named_barrier(bar, 128);
-  };
-  auto ready = [&]() {  // the tile is written, for wgmma and the stores
+  }
+  __device__ __forceinline__ void reuse() {
+    if (wtid == 0 && posts > 0) mbar_wait(empty, (posts - 1) & 1);
+    named_barrier(bar, threads);
+  }
+  __device__ __forceinline__ void ready() {
     fence_proxy_async();
-    named_barrier(bar, 128);
-  };
-
-  float acc[128];
-  clear(acc);
-
-  // ---- forward, K4's chain without the heads; relu' bits kept
-  reuse();
-  src.fill(net, pe_g, ped_g, row0, n_pts, wtid);
-  ready();
-  put(pe_g, PL_PE, PE_PAD);
-  put(ped_g, PL_PED, LANES);
-  post();
-  for (int i = 0; i < D; ++i) {
-    if (i == 0) {
-      prod_w(acc, r, pe, PE_PAD, true);
-    } else {
-      const bool skip = net.slot[SLOT_WSKIP + i] != nullptr;
-      if (skip) prod_w(acc, r, pe, PE_PAD, true);
-      prod_w(acc, r, h, W, !skip);
-    }
-    ring_drain(r);
-    reuse();
-    uint32_t m[4] = {0u, 0u, 0u, 0u};
-    const float* b = fvec(net, SLOT_B + i);
-    relu_store<128, true>(acc, h_g, b, b, wtid, m);
-    clear(acc);
-    reinterpret_cast<uint4*>(masks + 2048 * i)[wtid] =
-        make_uint4(m[0], m[1], m[2], m[3]);
-    ready();
-    put(h_g, PL_H + i, W);
-    post();
+    named_barrier(bar, threads);
   }
-  for (int v = 0; v < NV; ++v) {
-    prod_v(acc, r, v == 0 ? h : hv, v == 0 ? W : WV, true);
-    if (v == 0) prod_v(acc, r, ped, KC_V, false);
-    ring_drain(r);
-    reuse();
-    uint32_t m[2] = {0u, 0u};
-    const float* b = fvec(net, SLOT_BV + v);
-    relu_store<64, true>(acc, hv_g, b, b, wtid, m);
-    clear(acc);
-    reinterpret_cast<uint2*>(masks + 2048 * D + 1024 * v)[wtid] =
-        make_uint2(m[0], m[1]);
-    ready();
-    put(hv_g, PL_H + D + v, WV);
-    post();
-  }
+};
 
-  // ---- backward. The cotangent at row wtid % 64 for the GB tile and the
-  // heads' bias sums (threads < 64).
+// GB (the rounded cotangent, zero past lane 3) of a 64-point tile straight
+// to its plane: gr is the f32 cotangent of row wtid % 64 (threads < 64,
+// zero elsewhere).
+__device__ __forceinline__ void cotangent_out(const Planes& pl, bf16* planes,
+                                              float4 gr, int pt, bool live,
+                                              int wtid) {
   const int grow = wtid & 63, c0 = wtid >> 6;
-  float4 gr = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (c0 == 0 && row0 + grow < n_pts)
-    gr = __ldg(reinterpret_cast<const float4*>(gin) + row0 + grow);
-
-  if (live) {  // GB, straight to its plane: the rounded cotangent, zero past
-              // lane 3
+  if (live) {
     const __nv_bfloat162 lo = __floats2bfloat162_rn(gr.x, gr.y);
     const __nv_bfloat162 hi = __floats2bfloat162_rn(gr.z, gr.w);
     const uint4 first = make_uint4(*reinterpret_cast<const uint32_t*>(&lo),
@@ -430,7 +436,84 @@ __device__ __forceinline__ void pass_a_tile(
              c == 0 ? first : make_uint4(0u, 0u, 0u, 0u));
     }
   }
-  reuse();
+}
+
+// Pass A for warpgroup wg on one 128-point tile at W <= 256 (rows 64 wg ..
+// +64 at tile_base of the block's n_pts points; the block's first 64-point
+// tile of the planes is pt0): the forward, then d_h back through the heads,
+// the view branch and the trunk. Each epilogue's finished tiles go to the
+// store warps through the warpgroup's MailBox. A warpgroup past N computes
+// on zeros and posts nothing to store; rows past N have a zero cotangent,
+// so every d_h of theirs is zero.
+template <class T>
+__device__ __forceinline__ void pass_a_tile(
+    const Net& net, const Planes& pl, const PointTile<false, T>& src,
+    const float* __restrict__ gin, bf16* planes, float* bias, Ring& r,
+    char* tiles, Mail& mail, uint32_t mail_full, uint32_t mail_empty,
+    uint32_t& posts, int tile_base, int n_pts, int pt0, int wg, int wtid) {
+  constexpr int W = T::W, WV = T::WV, NRW = T::NRW, NRV = T::NRV;
+  constexpr int MW = PassA<T>::MW, MV = PassA<T>::MV;
+  const int D = net.depth, NV = net.n_views;
+  const int row0 = tile_base + 64 * wg;
+  const int pt = pt0 + row0 / GP;
+  bf16* pe_g = reinterpret_cast<bf16*>(tiles);
+  bf16* h_g = pe_g + PE_TILE / 2;
+  bf16* hv_g = h_g + T::H_TILE / 2;
+  bf16* ped_g = hv_g;
+  const uint32_t pe = smem_addr(tiles), h = pe + PE_TILE, hv = h + T::H_TILE;
+  const uint32_t ped = hv;
+  char* masks = tiles + T::WG_BYTES;
+  char* vmasks = masks + 512 * MW * D;
+  float* part = reinterpret_cast<float*>(tiles);
+  float* brow = bias + static_cast<size_t>(pt) * (D * W + NV * WV + HEADS);
+  MailBox mb{mail, mail_full, mail_empty, posts, planes, pl,
+             pt,   wtid,      1 + wg,     128,   row0 < n_pts};
+
+  float acc[T::ACC];
+  clear(acc);
+
+  // ---- forward, K4's chain without the heads; relu' bits kept
+  mb.reuse();
+  src.fill(net, pe_g, ped_g, row0, n_pts, wtid);
+  mb.ready();
+  mb.put(pe_g, PL_PE, PE_PAD);
+  mb.put(ped_g, PL_PED, LANES);
+  mb.post();
+  for (int i = 0; i < D; ++i) {
+    trunk_prod<T>(net, acc, r, pe, h, i);
+    ring_drain(r);
+    mb.reuse();
+    uint32_t m[MW] = {};
+    const float* b = fvec(net, SLOT_B + i);
+    relu_store<NRW, true>(acc, h_g, b, b, wtid, m);
+    clear(acc);
+    put_bits<MW>(masks + 512 * MW * i, m, wtid);
+    mb.ready();
+    mb.put(h_g, PL_H + i, W);
+    mb.post();
+  }
+  for (int v = 0; v < NV; ++v) {
+    view_prod<T, true>(acc, r, h, hv, ped, v);
+    ring_drain(r);
+    mb.reuse();
+    uint32_t m[MV] = {};
+    const float* b = fvec(net, SLOT_BV + v);
+    relu_store<NRV, true>(acc, hv_g, b, b, wtid, m);
+    clear(acc);
+    put_bits<MV>(vmasks + 512 * MV * v, m, wtid);
+    mb.ready();
+    mb.put(hv_g, PL_H + D + v, WV);
+    mb.post();
+  }
+
+  // ---- backward. The cotangent at row wtid % 64 for the GB tile and the
+  // heads' bias sums (threads < 64).
+  const int grow = wtid & 63, c0 = wtid >> 6;
+  float4 gr = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (c0 == 0 && row0 + grow < n_pts)
+    gr = __ldg(reinterpret_cast<const float4*>(gin) + row0 + grow);
+  cotangent_out(pl, planes, gr, pt, mb.live, wtid);
+  mb.reuse();
   if (c0 == 0) {  // b_heads: the column sums of the f32 cotangent
     float4 s = gr;
 #pragma unroll
@@ -441,56 +524,222 @@ __device__ __forceinline__ void pass_a_tile(
       s.w += __shfl_xor_sync(0xFFFFFFFFu, s.w, o);
     }
     if ((wtid & 31) == 0)
-      reinterpret_cast<float4*>(part + SCRATCH_HEADS)[wtid >> 5] = s;
+      reinterpret_cast<float4*>(part + PassA<T>::SCRATCH_HEADS)[wtid >> 5] =
+          s;
   }
   // d_hv of the last view layer = g @ w_rgb^T
-  heads_fma<64, false>(acc, gin, row0, n_pts, wmat(net, SLOT_WRGB), wtid);
+  heads_fma<NRV, false>(acc, gin, row0, n_pts, wmat(net, SLOT_WRGB), wtid);
   {
-    const uint2 u = reinterpret_cast<const uint2*>(
-        masks + 2048 * D + 1024 * (NV - 1))[wtid];
-    const uint32_t m[2] = {u.x, u.y};
-    grad_store<64>(acc, hv_g, m, part, wtid);
+    uint32_t m[MV];
+    get_bits<MV>(vmasks + 512 * MV * (NV - 1), m, wtid);
+    grad_store<NRV>(acc, hv_g, m, part, wtid);
   }
-  ready();
-  put(hv_g, PL_H + 2 * D + NV + NV - 1, WV);
-  post();
-  if (live) {
-    bias_row<64>(part, brow + D * W + (NV - 1) * WV, wtid);
+  mb.ready();
+  mb.put(hv_g, PL_H + 2 * D + NV + NV - 1, WV);
+  mb.post();
+  if (mb.live) {
+    bias_row<NRV>(part, brow + D * W + (NV - 1) * WV, wtid);
     if (wtid < HEADS) {
-      const float* ph = part + SCRATCH_HEADS;
+      const float* ph = part + PassA<T>::SCRATCH_HEADS;
       brow[D * W + NV * WV + wtid] = wtid < 4 ? ph[wtid] + ph[4 + wtid] : 0.f;
     }
   }
   for (int v = NV - 1; v >= 1; --v) {  // d_hv(v - 1) = dv(v) @ WV_v^T
-    prod_v(acc, r, hv, WV, true);
+    prod<NRV, T::KC_V, T::KS_V>(acc, r, hv, WV, true);
     ring_drain(r);
-    reuse();
-    const uint2 u = reinterpret_cast<const uint2*>(
-        masks + 2048 * D + 1024 * (v - 1))[wtid];
-    const uint32_t m[2] = {u.x, u.y};
-    grad_store<64>(acc, hv_g, m, part, wtid);
-    ready();
-    put(hv_g, PL_H + 2 * D + NV + v - 1, WV);
-    post();
-    if (live) bias_row<64>(part, brow + D * W + (v - 1) * WV, wtid);
+    mb.reuse();
+    uint32_t m[MV];
+    get_bits<MV>(vmasks + 512 * MV * (v - 1), m, wtid);
+    grad_store<NRV>(acc, hv_g, m, part, wtid);
+    mb.ready();
+    mb.put(hv_g, PL_H + 2 * D + NV + v - 1, WV);
+    mb.post();
+    if (mb.live) bias_row<NRV>(part, brow + D * W + (v - 1) * WV, wtid);
   }
   // d_h of the last trunk layer = dv(0) @ WV_0^T + g @ w_alpha^T
-  prod_w(acc, r, hv, WV, true);
+  prod<NRW, T::KC_W>(acc, r, hv, WV, true);
   ring_drain(r);
-  heads_fma<128, true>(acc, gin, row0, n_pts, wmat(net, SLOT_WALPHA),
-                       wtid);
+  heads_fma<NRW, true>(acc, gin, row0, n_pts, wmat(net, SLOT_WALPHA), wtid);
   for (int i = D - 1; i >= 0; --i) {  // d_h(i - 1) = dc(i) @ W_i^T
-    reuse();
-    const uint4 u = reinterpret_cast<const uint4*>(masks + 2048 * i)[wtid];
-    const uint32_t m[4] = {u.x, u.y, u.z, u.w};
-    grad_store<128>(acc, h_g, m, part, wtid);
-    ready();
-    put(h_g, PL_H + D + NV + i, W);
-    post();
-    if (live) bias_row<128>(part, brow + i * W, wtid);
+    mb.reuse();
+    uint32_t m[MW];
+    get_bits<MW>(masks + 512 * MW * i, m, wtid);
+    grad_store<NRW>(acc, h_g, m, part, wtid);
+    mb.ready();
+    mb.put(h_g, PL_H + D + NV + i, W);
+    mb.post();
+    if (mb.live) bias_row<NRW>(part, brow + i * W, wtid);
     if (i > 0) {
-      prod_w(acc, r, h, W, true);
+      prod<NRW, T::KC_W>(acc, r, h, W, true);
       ring_drain(r);
+    }
+  }
+}
+
+// Pass A on one 64-point tile at W=512 (rows row0.. of the block's n_pts
+// points, plane tile pt0 + row0 / 64), both warpgroups on the same rows,
+// warpgroup wg on columns wg CW.. of every trunk layer and wg CV.. of every
+// view layer: pass_a_tile's walk on chain_tile_split's tiles. Trunk layer i
+// writes H[i % 2]; the view branch ping-pongs between the halves of the
+// other trunk tile, whose second half holds the dir-PE tile for view layer
+// 0 (warpgroup 0 fills it again after the trunk, which writes over it; its
+// plane is posted from the first fill); in the backward DV(v) continues the view branch's
+// ping-pong, then DC(D-1) goes to the trunk's last tile and DC(i)
+// alternates between the two. Every epilogue writes the warpgroup's half
+// of a tile and posts that half (32 KB of a trunk tile's image, 16 KB of a
+// view tile's) to the store warps; warpgroup 0 also fills and posts the PE
+// and dir-PE tiles, writes GB and the heads' bias sums. MailBox joins both
+// warpgroups on barrier 1, so a tile is written again only after both
+// warpgroups' products have read it and both halves' stores are done.
+template <class T>
+__device__ __forceinline__ void pass_a_tile_split(
+    const Net& net, const Planes& pl, const PointTile<false, T>& src,
+    const float* __restrict__ gin, bf16* planes, float* bias, Ring& r,
+    char* tiles, char* masks, Mail& mail, uint32_t mail_full,
+    uint32_t mail_empty, uint32_t& posts, int row0, int n_pts, int pt0,
+    int wg, int wtid) {
+  constexpr int W = T::W, WV = T::WV, NRW = T::NRW, NRV = T::NRV;
+  constexpr int MW = PassA<T>::MW, MV = PassA<T>::MV;
+  const int D = net.depth, NV = net.n_views;
+  const int pt = pt0 + row0 / GP;
+  const uint32_t boff = wg * T::HALF;
+  const int cw = wg * T::CW, cv = wg * T::CV;
+  bf16* pe_g = reinterpret_cast<bf16*>(tiles);
+  bf16* h_g[2] = {pe_g + PE_TILE / 2, pe_g + PE_TILE / 2 + T::H_TILE / 2};
+  const uint32_t pe = smem_addr(tiles);
+  const uint32_t h[2] = {pe + PE_TILE, pe + PE_TILE + T::H_TILE};
+  const int hl = (D - 1) & 1;  // the trunk tile of the last layer
+  bf16* hv_g[2] = {h_g[hl ^ 1], h_g[hl ^ 1] + T::HV_TILE / 2};
+  const uint32_t hv[2] = {h[hl ^ 1], h[hl ^ 1] + T::HV_TILE};
+  bf16* ped_g = hv_g[1];
+  char* vmasks = masks + 512 * MW * D;
+  float* part = reinterpret_cast<float*>(tiles) + wg * PassA<T>::PART_FLOATS;
+  float* brow = bias + static_cast<size_t>(pt) * (D * W + NV * WV + HEADS);
+  MailBox mb{mail, mail_full, mail_empty, posts, planes, pl,
+             pt,   wtid,      1,          256,   row0 < n_pts};
+  // the warpgroup's half of a trunk / view tile's image (elements, bytes)
+  const int sw = swz(0, cw), sv = swz(0, cv);
+  constexpr int HW_BYTES = T::H_TILE / 2, HV_BYTES = T::HV_TILE / 2;
+
+  float acc[T::ACC];
+  clear(acc);
+
+  // ---- forward; relu' bits kept
+  mb.reuse();
+  if (wg == 0) src.fill(net, pe_g, ped_g, row0, n_pts, wtid);
+  mb.ready();
+  if (wg == 0) {
+    mb.put(pe_g, PL_PE, PE_PAD);
+    mb.put(ped_g, PL_PED, LANES);
+  }
+  mb.post();
+  for (int i = 0; i < D; ++i) {
+    const int o = i & 1;
+    trunk_prod<T>(net, acc, r, pe, h[o ^ 1], i, boff);
+    ring_drain(r);
+    mb.reuse();
+    uint32_t m[MW] = {};
+    const float* b = fvec(net, SLOT_B + i) + cw;
+    relu_store<NRW, true>(acc, h_g[o] + sw, b, b, wtid, m);
+    clear(acc);
+    put_bits<MW>(masks + 512 * MW * i, m, wtid);
+    mb.ready();
+    mb.put(h_g[o] + sw, PL_H + i, W, sw, HW_BYTES);
+    mb.post();
+  }
+  // the dir-PE tile again: the trunk's layers D - 2, D - 4, ... wrote over
+  // it (and their stores are done: reuse)
+  mb.reuse();
+  if (wg == 0) src.fill(net, pe_g, ped_g, row0, n_pts, wtid);
+  mb.ready();
+  for (int v = 0; v < NV; ++v) {
+    const int o = v & 1;
+    view_prod<T, true>(acc, r, h[hl], hv[o ^ 1], smem_addr(ped_g), v, boff);
+    ring_drain(r);
+    mb.reuse();
+    uint32_t m[MV] = {};
+    const float* b = fvec(net, SLOT_BV + v) + cv;
+    relu_store<NRV, true>(acc, hv_g[o] + sv, b, b, wtid, m);
+    clear(acc);
+    put_bits<MV>(vmasks + 512 * MV * v, m, wtid);
+    mb.ready();
+    mb.put(hv_g[o] + sv, PL_H + D + v, WV, sv, HV_BYTES);
+    mb.post();
+  }
+
+  // ---- backward. Warpgroup 0: the cotangent at row wtid % 64 for the GB
+  // tile and the heads' bias sums (threads < 64).
+  const int grow = wtid & 63, c0 = wtid >> 6;
+  float4 gr = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (wg == 0 && c0 == 0 && row0 + grow < n_pts)
+    gr = __ldg(reinterpret_cast<const float4*>(gin) + row0 + grow);
+  if (wg == 0) cotangent_out(pl, planes, gr, pt, mb.live, wtid);
+  mb.reuse();
+  if (wg == 0 && c0 == 0) {  // b_heads: the column sums of the cotangent
+    float4 s = gr;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s.x += __shfl_xor_sync(0xFFFFFFFFu, s.x, o);
+      s.y += __shfl_xor_sync(0xFFFFFFFFu, s.y, o);
+      s.z += __shfl_xor_sync(0xFFFFFFFFu, s.z, o);
+      s.w += __shfl_xor_sync(0xFFFFFFFFu, s.w, o);
+    }
+    if ((wtid & 31) == 0)
+      reinterpret_cast<float4*>(part + PassA<T>::SCRATCH_HEADS)[wtid >> 5] =
+          s;
+  }
+  // d_hv of the last view layer = g @ w_rgb^T, into the view tile the
+  // forward's last view layer did not write
+  int dv = NV & 1;
+  heads_fma<NRV, false>(acc, gin, row0, n_pts,
+                        wmat(net, SLOT_WRGB) + cv * HEADS, wtid);
+  {
+    uint32_t m[MV];
+    get_bits<MV>(vmasks + 512 * MV * (NV - 1), m, wtid);
+    grad_store<NRV>(acc, hv_g[dv] + sv, m, part, wtid);
+  }
+  mb.ready();
+  mb.put(hv_g[dv] + sv, PL_H + 2 * D + NV + NV - 1, WV, sv, HV_BYTES);
+  mb.post();
+  if (mb.live) {
+    bias_row<NRV>(part, brow + D * W + (NV - 1) * WV + cv, wtid);
+    if (wg == 0 && wtid < HEADS) {
+      const float* ph = part + PassA<T>::SCRATCH_HEADS;
+      brow[D * W + NV * WV + wtid] = wtid < 4 ? ph[wtid] + ph[4 + wtid] : 0.f;
+    }
+  }
+  for (int v = NV - 1; v >= 1; --v) {  // d_hv(v - 1) = dv(v) @ WV_v^T
+    prod<NRV, T::KC_V>(acc, r, hv[dv], WV, true, boff);
+    ring_drain(r);
+    dv ^= 1;
+    mb.reuse();
+    uint32_t m[MV];
+    get_bits<MV>(vmasks + 512 * MV * (v - 1), m, wtid);
+    grad_store<NRV>(acc, hv_g[dv] + sv, m, part, wtid);
+    mb.ready();
+    mb.put(hv_g[dv] + sv, PL_H + 2 * D + NV + v - 1, WV, sv, HV_BYTES);
+    mb.post();
+    if (mb.live) bias_row<NRV>(part, brow + D * W + (v - 1) * WV + cv, wtid);
+  }
+  // d_h of the last trunk layer = dv(0) @ WV_0^T + g @ w_alpha^T
+  prod<NRW, T::KC_W>(acc, r, hv[dv], WV, true, boff);
+  ring_drain(r);
+  heads_fma<NRW, true>(acc, gin, row0, n_pts,
+                       wmat(net, SLOT_WALPHA) + cw * HEADS, wtid);
+  int dc = hl;
+  for (int i = D - 1; i >= 0; --i) {  // d_h(i - 1) = dc(i) @ W_i^T
+    mb.reuse();
+    uint32_t m[MW];
+    get_bits<MW>(masks + 512 * MW * i, m, wtid);
+    grad_store<NRW>(acc, h_g[dc] + sw, m, part, wtid);
+    mb.ready();
+    mb.put(h_g[dc] + sw, PL_H + D + NV + i, W, sw, HW_BYTES);
+    mb.post();
+    if (mb.live) bias_row<NRW>(part, brow + i * W + cw, wtid);
+    if (i > 0) {
+      prod<NRW, T::KC_W>(acc, r, h[dc], W, true, boff);
+      ring_drain(r);
+      dc ^= 1;
     }
   }
 }
@@ -507,6 +756,7 @@ constexpr int A_PRODUCER_REGS = 40, A_CONSUMER_REGS = 232;
 static_assert(2 * 128 * A_CONSUMER_REGS + 128 * A_PRODUCER_REGS <= 65536,
               "pass A's registers exceed the SM's");
 
+template <class T>
 __global__ void __launch_bounds__(A_THREADS, 1)
 k_grad_pass_a(Net net, const __grid_constant__ Planes pl,
               const bf16* __restrict__ wstream, int n_stages,
@@ -515,10 +765,11 @@ k_grad_pass_a(Net net, const __grid_constant__ Planes pl,
               float* __restrict__ bias, int N, int tiles_per_block,
               int n_ring) {
   extern __shared__ __align__(1024) char smem_raw[];
-  const int wg_bytes = A_TILES + mask_bytes(net.depth, net.n_views);
-  const Chain c = chain_begin(smem_raw, n_ring, wg_bytes);
-  const int p0 = blockIdx.x * tiles_per_block * DT;
-  const int n_pts = min(tiles_per_block * DT, N - p0);
+  const int m_bytes = mask_bytes<T>(net.depth, net.n_views);
+  const Chain c =
+      chain_begin(smem_raw, n_ring, PassA<T>::TILES + 2 * m_bytes, 1);
+  const int p0 = blockIdx.x * tiles_per_block * T::DT;
+  const int n_pts = min(tiles_per_block * T::DT, N - p0);
   const int wg = threadIdx.x >> 7;
   // per warpgroup: mailbox full (one arrival) and empty (one per store warp)
   const uint32_t mbars = c.bars + 16 * MAX_RING;
@@ -531,7 +782,7 @@ k_grad_pass_a(Net net, const __grid_constant__ Planes pl,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  const int n_tiles = (n_pts + DT - 1) / DT;
+  const int n_tiles = (n_pts + T::DT - 1) / T::DT;
   if (wg == 2) {
     setmaxnreg_dec<A_PRODUCER_REGS>();
     if (threadIdx.x < 288) {
@@ -558,15 +809,28 @@ k_grad_pass_a(Net net, const __grid_constant__ Planes pl,
   } else {
     setmaxnreg_inc<A_CONSUMER_REGS>();
     const int wtid = threadIdx.x & 127;
-    const PointTile<false> src{pts + static_cast<size_t>(p0) * 3,
-                               dirs + static_cast<size_t>(p0) * 3, nullptr};
+    const PointTile<false, T> src{pts + static_cast<size_t>(p0) * 3,
+                                  dirs + static_cast<size_t>(p0) * 3,
+                                  nullptr};
     Ring ring{c.base, c.bars, static_cast<uint32_t>(n_ring), 0, NO_STAGE};
-    char* tiles = c.gbase + n_ring * STAGE_BYTES + wg * wg_bytes;
     uint32_t posts = 0;
-    for (int t0 = 0; t0 < n_pts; t0 += DT)
-      pass_a_tile(net, pl, src, gin + static_cast<size_t>(p0) * 4, planes,
-                  bias, ring, tiles, mail[wg], mbars + 8 * wg,
-                  mbars + 16 + 8 * wg, posts, t0, n_pts, p0 / GP, wg, wtid);
+    const float* g = gin + static_cast<size_t>(p0) * 4;
+    if constexpr (T::kSplit) {
+      char* tiles = c.gbase + n_ring * STAGE_BYTES;
+      char* masks = tiles + T::TILES + wg * m_bytes;
+      for (int t0 = 0; t0 < n_pts; t0 += T::DT)
+        pass_a_tile_split(net, pl, src, g, planes, bias, ring, tiles, masks,
+                          mail[wg], mbars + 8 * wg, mbars + 16 + 8 * wg,
+                          posts, t0, n_pts, p0 / GP, wg, wtid);
+    } else {
+      // a warpgroup's tiles, then its relu' bits
+      char* tiles =
+          c.gbase + n_ring * STAGE_BYTES + wg * (T::WG_BYTES + m_bytes);
+      for (int t0 = 0; t0 < n_pts; t0 += T::DT)
+        pass_a_tile(net, pl, src, g, planes, bias, ring, tiles, mail[wg],
+                    mbars + 8 * wg, mbars + 16 + 8 * wg, posts, t0, n_pts,
+                    p0 / GP, wg, wtid);
+    }
   }
   __syncthreads();
 }
@@ -576,8 +840,14 @@ k_grad_pass_a(Net net, const __grid_constant__ Planes pl,
 constexpr int BSTAGES = 6;
 constexpr int BSTAGE_BYTES = 2 * 2 * 64 * GP * 2;  // X and Y, 128 lanes each
 constexpr int B_THREADS = 288;  // two consumer warpgroups + a producer warp
-constexpr int MAXTASKS = 160;
 constexpr size_t B_SMEM = 1024 + BSTAGES * BSTAGE_BYTES + 2 * BSTAGES * 8;
+// output tiles of both second passes at most: 160 at W <= 256; at W=512
+// 224, which covers depth 12 (pass A's deepest there) with four skip
+// layers, and keeps the table, a kernel parameter, within 4 KB
+template <class T>
+constexpr int max_tasks() {
+  return T::W > 256 ? 224 : 160;
+}
 
 // One output tile of one gradient dW = X^T @ Y (rows x cols at float
 // offset off): X from plane xp (xw x 64 lanes), Y from plane yp; rows
@@ -588,14 +858,16 @@ struct BTask {
   int off;
 };
 
+template <int MAXT>
 struct BTable {
   long long plane[MAXPLANES];
-  BTask task[MAXTASKS];
+  BTask task[MAXT];
 };
 
 
+template <class T>
 __global__ void __launch_bounds__(B_THREADS, 1)
-k_grad_pass_b(const __grid_constant__ BTable tb,
+k_grad_pass_b(const __grid_constant__ BTable<max_tasks<T>()> tb,
               const bf16* __restrict__ planes, float* __restrict__ partials,
               long long G, int n_tiles, int n_chunks) {
   extern __shared__ __align__(1024) char smem_raw[];
@@ -685,6 +957,7 @@ k_grad_pass_b(const __grid_constant__ BTable tb,
 
 // partials[chunk][bias e] = sum of the chunk's per-tile bias rows, in
 // tile order; e runs over b[0..D), bv[0..V), b_heads as in pass A's rows.
+template <class T>
 __global__ void k_bias_partials(const float* __restrict__ bias, int NB,
                                 int n_tiles, int n_chunks, GradTable gt,
                                 int D, int NV, float* __restrict__ partials,
@@ -698,6 +971,7 @@ __global__ void k_bias_partials(const float* __restrict__ bias, int NB,
                                   n_tiles / n_chunks);
   float s = 0.f;
   for (int t = t0; t < t1; ++t) s += bias[static_cast<size_t>(t) * NB + e];
+  constexpr int W = T::W, WV = T::WV;
   long long dst;
   if (e < D * W) {
     dst = gt.off[SLOT_B + e / W] + e % W;
@@ -710,12 +984,13 @@ __global__ void k_bias_partials(const float* __restrict__ bias, int NB,
   partials[chunk * G + dst] = s;
 }
 
-// The tiles of gradient dW = X^T @ Y (rows x cols at float offset off).
-static bool add_tasks(BTask* task, int* n, int xp, int xw, int yp, int yw,
-                      int rows, int cols, long long off) {
+// The tiles of gradient dW = X^T @ Y (rows x cols at float offset off),
+// at most maxt in all.
+static bool add_tasks(BTask* task, int maxt, int* n, int xp, int xw, int yp,
+                      int yw, int rows, int cols, long long off) {
   for (int mb = 0; mb < xw; mb += 2)
     for (int nb = 0; nb < yw; nb += 2) {
-      if (*n >= MAXTASKS || off < 0) return false;
+      if (*n >= maxt || off < 0) return false;
       BTask& t = task[(*n)++];
       t.xp = static_cast<unsigned char>(xp);
       t.yp = static_cast<unsigned char>(yp);
@@ -734,12 +1009,13 @@ static bool add_tasks(BTask* task, int* n, int xp, int xw, int yp, int yw,
 
 // The chunks' bias partials from the per-tile bias rows, then out = the
 // partials summed in chunk order (both variants' last two kernels).
+template <class T>
 static int finish(const float* bias, int NB, int n_tiles, int n_chunks,
                   const long long* grad_offsets, int D, int NV,
                   float* partials, float* out, long long G, cudaStream_t s) {
   GradTable gt;
   for (int i = 0; i < NSLOTS; ++i) gt.off[i] = grad_offsets[i];
-  k_bias_partials<<<dim3((NB + 255) / 256, n_chunks), 256, 0, s>>>(
+  k_bias_partials<T><<<dim3((NB + 255) / 256, n_chunks), 256, 0, s>>>(
       bias, NB, n_tiles, n_chunks, gt, D, NV, partials, G);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -759,118 +1035,194 @@ static int finish(const float* bias, int NB, int n_tiles, int n_chunks,
 
 constexpr int F_CONSUMERS = 256;               // 8 consumer warps
 constexpr int F_THREADS = F_CONSUMERS + 32;    // + the producer warp
-constexpr int F_KW = F_STAGE / W, F_KV = F_STAGE / WV;  // K-rows a stage
 constexpr int F_BAR = 1;                       // the consumers' barrier
-// activation tile, PE, dir-PE and the column sums' scratch (8 warps x W)
-constexpr size_t F_TILE_BYTES = 4 * (GP * W + GP * PE_PAD + GP * PED_PAD +
-                                     NWARP * W);
 static_assert(CONSUMER_WARPS == F_CONSUMERS / 32 && NWARP == 8,
               "each consumer warp releases a stage once");
 
-// relu' bits: 64 a thread (8 bytes) per trunk and per view layer
+// Pass A f32's layout at widths T. A consumer thread holds 8 rows (warp w:
+// 8 w..) of CPL = width / 32 columns of a layer (lane l: 128 c + 4 l + q,
+// q < 4; 2 l + q, q < 2, in a 64-wide layer), column j = 4 c + q of its
+// accumulator, and one relu' bit per value.
+template <class T>
+struct F32 {
+  static constexpr int KW = F_STAGE / T::W, KV = F_STAGE / T::WV;  // K-rows
+  static constexpr int AC = T::W / 32;  // accumulator columns a thread
+  // 64-bit relu' words a thread per trunk / view layer
+  static constexpr int NBW = (T::W / 4 + 63) / 64, NBV = (T::WV / 4 + 63) / 64;
+  // W=512: the column sums' scratch (8 warps x W) lies over the PE and
+  // dir-PE tiles, which only the forward reads; on a tile of its own the
+  // block would pass the shared memory
+  static constexpr bool kPartInPe = T::W > 256;
+  // activation tile, PE, dir-PE and the scratch
+  static constexpr size_t TILE_BYTES =
+      4 * (GP * T::W + GP * PE_PAD + GP * PED_PAD +
+           (kPartInPe ? 0 : NWARP * T::W));
+  static_assert(!kPartInPe || NWARP * T::W <= GP * (PE_PAD + PED_PAD),
+                "the scratch fits the PE tiles");
+};
+
+// relu' bits of the trunk's layers, then the view branch's
+template <class T>
 __host__ __device__ inline size_t f32_mask_bytes(int depth, int n_views) {
-  return 8 * F_CONSUMERS * static_cast<size_t>(depth + n_views);
+  return 8 * F_CONSUMERS *
+         static_cast<size_t>(F32<T>::NBW * depth + F32<T>::NBV * n_views);
 }
 
 // 1,024 bytes to align the base, the ring, the tiles, the relu' bits, then
 // the ring's mbarriers.
+template <class T>
 __host__ __device__ inline size_t pass_a_f32_smem_bytes(int n_ring,
                                                         int depth,
                                                         int n_views) {
-  return 1024 + static_cast<size_t>(n_ring) * STAGE_BYTES + F_TILE_BYTES +
-         f32_mask_bytes(depth, n_views) + 16 * MAX_RING;
+  return 1024 + static_cast<size_t>(n_ring) * STAGE_BYTES +
+         F32<T>::TILE_BYTES + f32_mask_bytes<T>(depth, n_views) +
+         16 * MAX_RING;
 }
 
 // Stages of pass A f32's weight stream per tile: layer 0, each later
 // layer's skip pe-part then its h-part, view layer 0's h-part and dir-PE
-// part, the later view layers; then WV_v^T for v = NV-1..1, WV_0^T's
-// h-part and W_i^T for i = D-1..1 (265 for the paper model).
+// part (its rows padded to a stage), the later view layers; then WV_v^T
+// for v = NV-1..1, WV_0^T's h-part and W_i^T for i = D-1..1 (265 for the
+// paper model at W=256).
+template <class T>
 inline int f32_stages(const unsigned long long* slots, int depth,
                       int n_views) {
-  int n = PE_PAD / F_KW;
+  constexpr int KW = F32<T>::KW, KV = F32<T>::KV;
+  constexpr int W = T::W, WV = T::WV;
+  constexpr int v = (WV + KV - 1) / KV, dir = (PED_PAD + KV - 1) / KV;
+  int n = PE_PAD / KW;
   for (int i = 1; i < depth; ++i)
-    n += W / F_KW + (slots[SLOT_WSKIP + i] ? PE_PAD / F_KW : 0);
-  n += W / F_KV + PED_PAD / F_KV + (n_views - 1) * (WV / F_KV);
-  return n + (n_views - 1) * (WV / F_KV) + WV / F_KW + (depth - 1) * (W / F_KW);
+    n += W / KW + (slots[SLOT_WSKIP + i] ? PE_PAD / KW : 0);
+  n += W / KV + dir + (n_views - 1) * v;
+  return n + (n_views - 1) * v + WV / KW + (depth - 1) * (W / KW);
 }
 
-// The forward's epilogue of a layer of 128 NC columns: h = relu(acc +
-// bias) into the activation tile and to the plane rows at dst (both
-// row-major, 128 NC floats a row; streaming stores to dst) -> the relu'
-// bits, bit 4 NC i + 4 c + q for acc[i][4 c + q]. acc ends zeroed.
-template <int NC>
-__device__ __forceinline__ unsigned long long fwd_store(
-    float (&acc)[8][8], const float* __restrict__ bias, float* act,
+// A thread's relu' bits of one layer
+template <int N>
+struct Bits {
+  unsigned long long w[N];
+};
+
+// Column j of a thread's CPL columns of a WIDTH-wide row (lane l)
+template <int WIDTH>
+__device__ __forceinline__ int fcol(int j, int l) {
+  return WIDTH >= 128 ? 128 * (j >> 2) + 4 * l + (j & 3) : 2 * l + j;
+}
+
+// The forward's epilogue of a layer of WIDTH columns: h = relu(acc + bias)
+// into the activation tile and to the plane rows at dst (both row-major,
+// WIDTH floats a row; streaming stores to dst) -> the relu' bits, bit CPL
+// i + j for acc[i][j]. acc ends zeroed.
+template <int WIDTH, int AC>
+__device__ __forceinline__ Bits<(WIDTH / 4 + 63) / 64> fwd_store(
+    float (&acc)[8][AC], const float* __restrict__ bias, float* act,
     float* __restrict__ dst, int w, int l) {
-  constexpr int WIDTH = 128 * NC;
-  float4 b[NC];
+  constexpr int CPL = WIDTH / 32;
+  Bits<(WIDTH / 4 + 63) / 64> bits = {};
+  if constexpr (WIDTH >= 128) {
+    constexpr int NC = CPL / 4;
+    float4 b[NC];
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
-    b[c] = __ldg(reinterpret_cast<const float4*>(bias + 128 * c + 4 * l));
-  unsigned long long bits = 0ull;
+    for (int c = 0; c < NC; ++c)
+      b[c] = __ldg(reinterpret_cast<const float4*>(bias + 128 * c + 4 * l));
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float4 h = make_float4(fmaxf(acc[i][4 * c] + b[c].x, 0.f),
-                                   fmaxf(acc[i][4 * c + 1] + b[c].y, 0.f),
-                                   fmaxf(acc[i][4 * c + 2] + b[c].z, 0.f),
-                                   fmaxf(acc[i][4 * c + 3] + b[c].w, 0.f));
+      for (int c = 0; c < NC; ++c) {
+        const float4 h = make_float4(fmaxf(acc[i][4 * c] + b[c].x, 0.f),
+                                     fmaxf(acc[i][4 * c + 1] + b[c].y, 0.f),
+                                     fmaxf(acc[i][4 * c + 2] + b[c].z, 0.f),
+                                     fmaxf(acc[i][4 * c + 3] + b[c].w, 0.f));
+        const unsigned long long m =
+            (h.x > 0.f ? 1ull : 0ull) | (h.y > 0.f ? 2ull : 0ull) |
+            (h.z > 0.f ? 4ull : 0ull) | (h.w > 0.f ? 8ull : 0ull);
+        const int bit = CPL * i + 4 * c;
+        bits.w[bit >> 6] |= m << (bit & 63);
+        const int off = (8 * w + i) * WIDTH + 128 * c + 4 * l;
+        *reinterpret_cast<float4*>(act + off) = h;
+        __stcs(reinterpret_cast<float4*>(dst + off), h);
+        acc[i][4 * c] = acc[i][4 * c + 1] = 0.f;
+        acc[i][4 * c + 2] = acc[i][4 * c + 3] = 0.f;
+      }
+  } else {
+    static_assert(WIDTH == 64, "a layer is 64, 128, 256 or 512 wide");
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 2 * l));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 h = make_float2(fmaxf(acc[i][0] + b.x, 0.f),
+                                   fmaxf(acc[i][1] + b.y, 0.f));
       const unsigned long long m =
-          (h.x > 0.f ? 1ull : 0ull) | (h.y > 0.f ? 2ull : 0ull) |
-          (h.z > 0.f ? 4ull : 0ull) | (h.w > 0.f ? 8ull : 0ull);
-      bits |= m << (4 * NC * i + 4 * c);
-      const int off = (8 * w + i) * WIDTH + 128 * c + 4 * l;
-      *reinterpret_cast<float4*>(act + off) = h;
-      __stcs(reinterpret_cast<float4*>(dst + off), h);
-      acc[i][4 * c] = acc[i][4 * c + 1] = 0.f;
-      acc[i][4 * c + 2] = acc[i][4 * c + 3] = 0.f;
+          (h.x > 0.f ? 1ull : 0ull) | (h.y > 0.f ? 2ull : 0ull);
+      bits.w[0] |= m << (CPL * i);
+      const int off = (8 * w + i) * WIDTH + 2 * l;
+      *reinterpret_cast<float2*>(act + off) = h;
+      __stcs(reinterpret_cast<float2*>(dst + off), h);
+      acc[i][0] = acc[i][1] = 0.f;
     }
+  }
   return bits;
 }
 
-// The backward's epilogue of a layer of 128 NC columns: d = acc masked by
+// The backward's epilogue of a layer of WIDTH columns: d = acc masked by
 // the relu' bits into the activation tile (the next product's A) and to the
-// plane rows at dst; brow[0, 128 NC) = the column sums of d, each thread's
+// plane rows at dst; brow[0, WIDTH) = the column sums of d, each thread's
 // 8 rows in order, then the 8 warps in order through part. acc ends
 // zeroed. The caller has passed the barrier after the tile's last reads;
 // the barrier here publishes the tile and part.
-template <int NC>
-__device__ __forceinline__ void bwd_store(float (&acc)[8][8],
-                                          unsigned long long bits,
-                                          float* act,
+template <int WIDTH, int AC, int NB>
+__device__ __forceinline__ void bwd_store(float (&acc)[8][AC],
+                                          const Bits<NB>& bits, float* act,
                                           float* __restrict__ dst,
                                           float* part,
                                           float* __restrict__ brow, int w,
                                           int l, int tid) {
-  constexpr int WIDTH = 128 * NC;
-  float s[4 * NC];
+  constexpr int CPL = WIDTH / 32;
+  float s[CPL];
 #pragma unroll
-  for (int j = 0; j < 4 * NC; ++j) s[j] = 0.f;
+  for (int j = 0; j < CPL; ++j) s[j] = 0.f;
+  if constexpr (WIDTH >= 128) {
+    constexpr int NC = CPL / 4;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int bit = 4 * NC * i + 4 * c;
-      const float4 d =
-          make_float4((bits >> bit) & 1ull ? acc[i][4 * c] : 0.f,
-                      (bits >> (bit + 1)) & 1ull ? acc[i][4 * c + 1] : 0.f,
-                      (bits >> (bit + 2)) & 1ull ? acc[i][4 * c + 2] : 0.f,
-                      (bits >> (bit + 3)) & 1ull ? acc[i][4 * c + 3] : 0.f);
-      s[4 * c] += d.x;
-      s[4 * c + 1] += d.y;
-      s[4 * c + 2] += d.z;
-      s[4 * c + 3] += d.w;
-      const int off = (8 * w + i) * WIDTH + 128 * c + 4 * l;
-      *reinterpret_cast<float4*>(act + off) = d;
-      __stcs(reinterpret_cast<float4*>(dst + off), d);
-      acc[i][4 * c] = acc[i][4 * c + 1] = 0.f;
-      acc[i][4 * c + 2] = acc[i][4 * c + 3] = 0.f;
+      for (int c = 0; c < NC; ++c) {
+        const int bit = CPL * i + 4 * c;
+        const unsigned long long u = bits.w[bit >> 6] >> (bit & 63);
+        const float4 d =
+            make_float4(u & 1ull ? acc[i][4 * c] : 0.f,
+                        (u >> 1) & 1ull ? acc[i][4 * c + 1] : 0.f,
+                        (u >> 2) & 1ull ? acc[i][4 * c + 2] : 0.f,
+                        (u >> 3) & 1ull ? acc[i][4 * c + 3] : 0.f);
+        s[4 * c] += d.x;
+        s[4 * c + 1] += d.y;
+        s[4 * c + 2] += d.z;
+        s[4 * c + 3] += d.w;
+        const int off = (8 * w + i) * WIDTH + 128 * c + 4 * l;
+        *reinterpret_cast<float4*>(act + off) = d;
+        __stcs(reinterpret_cast<float4*>(dst + off), d);
+        acc[i][4 * c] = acc[i][4 * c + 1] = 0.f;
+        acc[i][4 * c + 2] = acc[i][4 * c + 3] = 0.f;
+      }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float4*>(part + w * WIDTH + 128 * c + 4 * l) =
+          make_float4(s[4 * c], s[4 * c + 1], s[4 * c + 2], s[4 * c + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const unsigned long long u = bits.w[0] >> (CPL * i);
+      const float2 d = make_float2(u & 1ull ? acc[i][0] : 0.f,
+                                   (u >> 1) & 1ull ? acc[i][1] : 0.f);
+      s[0] += d.x;
+      s[1] += d.y;
+      const int off = (8 * w + i) * WIDTH + 2 * l;
+      *reinterpret_cast<float2*>(act + off) = d;
+      __stcs(reinterpret_cast<float2*>(dst + off), d);
+      acc[i][0] = acc[i][1] = 0.f;
     }
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-    *reinterpret_cast<float4*>(part + w * WIDTH + 128 * c + 4 * l) =
-        make_float4(s[4 * c], s[4 * c + 1], s[4 * c + 2], s[4 * c + 3]);
+    *reinterpret_cast<float2*>(part + w * WIDTH + 2 * l) =
+        make_float2(s[0], s[1]);
+  }
   named_barrier(F_BAR, F_CONSUMERS);
   for (int col = tid; col < WIDTH; col += F_CONSUMERS) {
     float t = part[col];
@@ -880,11 +1232,11 @@ __device__ __forceinline__ void bwd_store(float (&acc)[8][8],
   }
 }
 
-// acc[i][4 c + q] (+)= g[8 w + i] . wh[128 c + 4 l + q][0:4]: the heads'
-// K = 4 products with the f32 cotangent g (the tile's rows; rows at or past
-// n are zero); wh is (128 NC, HEADS) f32, of which the first 4 lanes count.
-template <int NC, bool ADD>
-__device__ __forceinline__ void fheads(float (&acc)[8][8],
+// acc[i][j] (+)= g[8 w + i] . wh[col j][0:4]: the heads' K = 4 products
+// with the f32 cotangent g (the tile's rows; rows at or past n are zero);
+// wh is (WIDTH, HEADS) f32, of which the first 4 lanes count.
+template <int WIDTH, bool ADD, int AC>
+__device__ __forceinline__ void fheads(float (&acc)[8][AC],
                                        const float* __restrict__ g, int n,
                                        const float* __restrict__ wh, int w,
                                        int l) {
@@ -895,21 +1247,19 @@ __device__ __forceinline__ void fheads(float (&acc)[8][8],
                 ? __ldg(reinterpret_cast<const float4*>(g) + 8 * w + i)
                 : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
+  for (int j = 0; j < WIDTH / 32; ++j) {
+    const float4 u = __ldg(
+        reinterpret_cast<const float4*>(wh + fcol<WIDTH>(j, l) * HEADS));
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 u = __ldg(reinterpret_cast<const float4*>(
-          wh + (128 * c + 4 * l + q) * HEADS));
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float d = gr[i].x * u.x;
-        d = fmaf(gr[i].y, u.y, d);
-        d = fmaf(gr[i].z, u.z, d);
-        d = fmaf(gr[i].w, u.w, d);
-        float& a = acc[i][4 * c + q];
-        a = ADD ? a + d : d;
-      }
+    for (int i = 0; i < 8; ++i) {
+      float d = gr[i].x * u.x;
+      d = fmaf(gr[i].y, u.y, d);
+      d = fmaf(gr[i].z, u.z, d);
+      d = fmaf(gr[i].w, u.w, d);
+      float& a = acc[i][j];
+      a = ADD ? a + d : d;
     }
+  }
 }
 
 // The block's shared memory past the ring.
@@ -918,17 +1268,35 @@ struct FTiles {
   float* pe;                 // (GP, PE_PAD)
   float* ped;                // (GP, PED_PAD)
   float* part;               // (NWARP, W) column sums of each warp
-  unsigned long long* mask;  // (D + NV, F_CONSUMERS) relu' bits
+  unsigned long long* mask;  // relu' bits: per layer NB words x F_CONSUMERS
 };
+
+template <int NB>
+__device__ __forceinline__ void put_fbits(unsigned long long* mask, int slot,
+                                          const Bits<NB>& b, int tid) {
+#pragma unroll
+  for (int k = 0; k < NB; ++k) mask[(slot + k) * F_CONSUMERS + tid] = b.w[k];
+}
+template <int NB>
+__device__ __forceinline__ Bits<NB> get_fbits(const unsigned long long* mask,
+                                              int slot, int tid) {
+  Bits<NB> b;
+#pragma unroll
+  for (int k = 0; k < NB; ++k) b.w[k] = mask[(slot + k) * F_CONSUMERS + tid];
+  return b;
+}
 
 // Pass A f32 on the 64-point tile `tile` (its n = min(GP, N - p0) points
 // from p0): inputs, the forward, then d_h back through the heads, the view
 // branch and the trunk; every plane's rows of the tile and its bias row.
+template <class T>
 __device__ __forceinline__ void pass_a_f32_tile(
     const Net& net, const Planes& pl, FRing& r, const FTiles& sm,
     const float* __restrict__ pts, const float* __restrict__ dirs,
     const float* __restrict__ gin, float* __restrict__ planes,
     float* __restrict__ bias, int tile, int N, int tid) {
+  using L = F32<T>;
+  constexpr int W = T::W, WV = T::WV, NBW = L::NBW, NBV = L::NBV;
   const int D = net.depth, NV = net.n_views;
   const int w = tid >> 5, l = tid & 31;
   const int p0 = tile * GP, n = min(GP, N - p0);
@@ -938,6 +1306,8 @@ __device__ __forceinline__ void pass_a_f32_tile(
   };
   const float* g = gin + static_cast<size_t>(p0) * 4;
   float* brow = bias + static_cast<size_t>(tile) * (D * W + NV * WV + HEADS);
+  // the last tile's column sums over the PE tiles are read
+  if constexpr (L::kPartInPe) named_barrier(F_BAR, F_CONSUMERS);
 
   // ---- inputs: PE, dir-PE and the cotangent's plane (zero past N)
   for (int e = tid; e < GP * PE_PAD; e += F_CONSUMERS) {
@@ -968,54 +1338,62 @@ __device__ __forceinline__ void pass_a_f32_tile(
   }
   named_barrier(F_BAR, F_CONSUMERS);
 
-  float acc[8][8];
+  float acc[8][L::AC];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < L::AC; ++j) acc[i][j] = 0.f;
 
   // ---- forward: the skip layers' PE product before their h product
   for (int i = 0; i < D; ++i) {
     if (i == 0 || net.slot[SLOT_WSKIP + i] != nullptr)
-      fprod<2>(acc, r, sm.pe, PE_PAD, PE_PAD, w, l);
-    if (i > 0) fprod<2>(acc, r, sm.act, W, W, w, l);
+      fprod_w<W>(acc, r, sm.pe, PE_PAD, PE_PAD, w, l);
+    if (i > 0) fprod_w<W>(acc, r, sm.act, W, W, w, l);
     named_barrier(F_BAR, F_CONSUMERS);
-    sm.mask[i * F_CONSUMERS + tid] = fwd_store<2>(
-        acc, fvec(net, SLOT_B + i), sm.act, plane(PL_H + i, W), w, l);
+    put_fbits(sm.mask, NBW * i,
+              fwd_store<W>(acc, fvec(net, SLOT_B + i), sm.act,
+                           plane(PL_H + i, W), w, l),
+              tid);
     named_barrier(F_BAR, F_CONSUMERS);
   }
   for (int v = 0; v < NV; ++v) {  // view layer 0 adds the dir-PE product
-    fprod<1>(acc, r, sm.act, v == 0 ? W : WV, v == 0 ? W : WV, w, l);
-    if (v == 0) fprod<1>(acc, r, sm.ped, PED_PAD, PED_PAD, w, l);
+    fprod_w<WV>(acc, r, sm.act, v == 0 ? W : WV, v == 0 ? W : WV, w, l);
+    if (v == 0)
+      fprod_w<WV, 8, (L::KV < PED_PAD ? L::KV : PED_PAD)>(
+          acc, r, sm.ped, PED_PAD, PED_PAD, w, l);
     named_barrier(F_BAR, F_CONSUMERS);
-    sm.mask[(D + v) * F_CONSUMERS + tid] = fwd_store<1>(
-        acc, fvec(net, SLOT_BV + v), sm.act, plane(HV + v, WV), w, l);
+    put_fbits(sm.mask, NBW * D + NBV * v,
+              fwd_store<WV>(acc, fvec(net, SLOT_BV + v), sm.act,
+                            plane(HV + v, WV), w, l),
+              tid);
     named_barrier(F_BAR, F_CONSUMERS);
   }
 
   // ---- backward: d_hv of the last view layer = g @ w_rgb^T
-  fheads<1, false>(acc, g, n, fvec(net, SLOT_WRGB), w, l);
-  bwd_store<1>(acc, sm.mask[(D + NV - 1) * F_CONSUMERS + tid], sm.act,
-               plane(DV + NV - 1, WV), sm.part,
-               brow + D * W + (NV - 1) * WV, w, l, tid);
+  fheads<WV, false>(acc, g, n, fvec(net, SLOT_WRGB), w, l);
+  bwd_store<WV>(acc, get_fbits<NBV>(sm.mask, NBW * D + NBV * (NV - 1), tid),
+                sm.act, plane(DV + NV - 1, WV), sm.part,
+                brow + D * W + (NV - 1) * WV, w, l, tid);
   for (int v = NV - 1; v >= 1; --v) {  // d_hv(v - 1) = dv(v) @ WV_v^T
-    fprod<1>(acc, r, sm.act, WV, WV, w, l);
+    fprod_w<WV>(acc, r, sm.act, WV, WV, w, l);
     named_barrier(F_BAR, F_CONSUMERS);
-    bwd_store<1>(acc, sm.mask[(D + v - 1) * F_CONSUMERS + tid], sm.act,
-                 plane(DV + v - 1, WV), sm.part,
-                 brow + D * W + (v - 1) * WV, w, l, tid);
+    bwd_store<WV>(acc,
+                  get_fbits<NBV>(sm.mask, NBW * D + NBV * (v - 1), tid),
+                  sm.act, plane(DV + v - 1, WV), sm.part,
+                  brow + D * W + (v - 1) * WV, w, l, tid);
   }
   // d_h of the last trunk layer = dv(0) @ WV_0^T + g @ w_alpha^T
-  fprod<2>(acc, r, sm.act, WV, WV, w, l);
-  fheads<2, true>(acc, g, n, fvec(net, SLOT_WALPHA), w, l);
+  fprod_w<W>(acc, r, sm.act, WV, WV, w, l);
+  fheads<W, true>(acc, g, n, fvec(net, SLOT_WALPHA), w, l);
   for (int i = D - 1; i >= 0; --i) {  // d_h(i - 1) = dc(i) @ W_i^T
     named_barrier(F_BAR, F_CONSUMERS);
-    bwd_store<2>(acc, sm.mask[i * F_CONSUMERS + tid], sm.act,
+    bwd_store<W>(acc, get_fbits<NBW>(sm.mask, NBW * i, tid), sm.act,
                  plane(DC + i, W), sm.part, brow + i * W, w, l, tid);
-    if (i > 0) fprod<2>(acc, r, sm.act, W, W, w, l);
+    if (i > 0) fprod_w<W>(acc, r, sm.act, W, W, w, l);
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(F_THREADS, 1)
 k_grad_pass_a_f32(Net net, const __grid_constant__ Planes pl,
                   const float* __restrict__ wstream, int n_stages,
@@ -1024,6 +1402,7 @@ k_grad_pass_a_f32(Net net, const __grid_constant__ Planes pl,
                   const float* __restrict__ gin, float* __restrict__ planes,
                   float* __restrict__ bias, int N, int tiles_per_block,
                   int n_ring) {
+  using L = F32<T>;
   extern __shared__ __align__(1024) char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -1031,14 +1410,15 @@ k_grad_pass_a_f32(Net net, const __grid_constant__ Planes pl,
   const int D = net.depth, NV = net.n_views;
   FTiles sm;
   sm.act = reinterpret_cast<float*>(gbase + n_ring * STAGE_BYTES);
-  sm.pe = sm.act + GP * W;
+  sm.pe = sm.act + GP * T::W;
   sm.ped = sm.pe + GP * PE_PAD;
-  sm.part = sm.ped + GP * PED_PAD;
-  sm.mask = reinterpret_cast<unsigned long long*>(sm.part + NWARP * W);
+  sm.part = L::kPartInPe ? sm.pe : sm.ped + GP * PED_PAD;
+  sm.mask = reinterpret_cast<unsigned long long*>(
+      reinterpret_cast<char*>(sm.act) + L::TILE_BYTES);
   const Chain c{base,
                 base + static_cast<uint32_t>(n_ring * STAGE_BYTES +
-                                             F_TILE_BYTES +
-                                             f32_mask_bytes(D, NV)),
+                                             L::TILE_BYTES +
+                                             f32_mask_bytes<T>(D, NV)),
                 gbase, n_ring};
   if (threadIdx.x == 0) {
     for (int s = 0; s < n_ring; ++s) {
@@ -1057,8 +1437,8 @@ k_grad_pass_a_f32(Net net, const __grid_constant__ Planes pl,
   } else {
     FRing r{gbase, c.bars, static_cast<uint32_t>(n_ring), 0u};
     for (int t = t0; t < t1; ++t)
-      pass_a_f32_tile(net, pl, r, sm, pts, dirs, gin, planes, bias, t, N,
-                      threadIdx.x);
+      pass_a_f32_tile<T>(net, pl, r, sm, pts, dirs, gin, planes, bias, t, N,
+                         threadIdx.x);
   }
   __syncthreads();
 }
@@ -1082,9 +1462,10 @@ struct FTask {
   int off;
 };
 
+template <int MAXT>
 struct FTable {
   long long plane[MAXPLANES];
-  FTask task[MAXTASKS];
+  FTask task[MAXT];
 };
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -1106,8 +1487,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // 64 + 4 tx..) summed over the points in order, then written to the
 // chunk's partial. Columns past a plane's width load as zeros and are not
 // stored.
+template <class T>
 __global__ void __launch_bounds__(FB_THREADS, 2)
-k_grad_pass_b_f32(const __grid_constant__ FTable tb,
+k_grad_pass_b_f32(const __grid_constant__ FTable<max_tasks<T>()> tb,
                   const float* __restrict__ planes,
                   float* __restrict__ partials, long long G, int n_tiles,
                   int n_chunks) {
@@ -1196,12 +1578,13 @@ k_grad_pass_b_f32(const __grid_constant__ FTable tb,
   }
 }
 
-// The 128 x 128 tiles of dW = X^T @ Y (xw x yw floats at offset off).
-static bool add_ftasks(FTask* task, int* n, int xp, int xw, int yp, int yw,
-                       long long off) {
+// The 128 x 128 tiles of dW = X^T @ Y (xw x yw floats at offset off), at
+// most maxt in all.
+static bool add_ftasks(FTask* task, int maxt, int* n, int xp, int xw, int yp,
+                       int yw, long long off) {
   for (int m0 = 0; m0 < xw; m0 += FB_TILE)
     for (int n0 = 0; n0 < yw; n0 += FB_TILE) {
-      if (*n >= MAXTASKS || off < 0) return false;
+      if (*n >= maxt || off < 0) return false;
       FTask& t = task[(*n)++];
       t.xp = static_cast<unsigned char>(xp);
       t.yp = static_cast<unsigned char>(yp);
@@ -1214,35 +1597,27 @@ static bool add_ftasks(FTask* task, int* n, int xp, int xw, int yp, int yw,
   return true;
 }
 
-}  // namespace fr
-
-extern "C" {
-
-unsigned long long fr_grad_pass_a_smem_bytes(int n_ring, int depth,
-                                             int n_views) {
-  return fr::pass_a_smem_bytes(n_ring, depth, n_views);
-}
-
-unsigned long long fr_grad_pass_b_smem_bytes() { return fr::B_SMEM; }
+// The host side of the four kernels, each: check, set the shared
+// memory, launch; -> the CUDA error.
 
 // bf16 pass A. planes: the operand buffer (plane_off, bf16 elements, as
 // kernels/fused_mlp_grad.py:grad_planes); bias: (tiles of 64 points, NB)
 // f32; wstream: n_stages stages of the net's pass-A weight stream (16-byte
-// aligned); blocks of tiles_per_block 128-point tiles; n_ring: stages of the
-// shared-memory ring (2..MAX_RING).
-int fr_grad_pass_a(const float* pts, const float* dirs, const float* g,
-                   void* planes, const long long* plane_off, float* bias,
-                   int N, int tiles_per_block, const unsigned long long* slots,
-                   int depth, int n_views, int multires, int multires_views,
-                   const void* wstream, int n_stages, int n_ring,
-                   void* stream) {
-  using namespace fr;
+// aligned); blocks of tiles_per_block tiles of DT points; n_ring: stages of
+// the shared-memory ring (2..MAX_RING).
+template <class T>
+int grad_pass_a(const float* pts, const float* dirs, const float* g,
+                void* planes, const long long* plane_off, float* bias, int N,
+                int tiles_per_block, const unsigned long long* slots,
+                int depth, int n_views, int multires, int multires_views,
+                const void* wstream, int n_stages, int n_ring, void* stream) {
   if (tiles_per_block < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = pass_a_smem_bytes(n_ring, depth, n_views);
-  // the forward trades the heads' stage for the dir-PE stage
+  const size_t bytes = pass_a_smem_bytes<T>(n_ring, depth, n_views);
+  // the forward trades the heads' stages for the dir-PE stage
   cudaError_t err = chain_prepare(
-      k_grad_pass_a, bytes,
-      chain_stages(slots, depth, n_views) + grad_back_stages(depth, n_views),
+      k_grad_pass_a<T>, bytes,
+      chain_stages<T>(slots, depth, n_views) - T::HEAD_STAGES + 1 +
+          grad_back_stages<T>(depth, n_views),
       n_stages, n_ring);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Net net = make_net(slots, depth, n_views, multires, multires_views, 0);
@@ -1250,10 +1625,10 @@ int fr_grad_pass_a(const float* pts, const float* dirs, const float* g,
   const int n_planes = 3 + 2 * depth + 2 * n_views;
   for (int i = 0; i < MAXPLANES; ++i)
     pl.off[i] = i < n_planes ? plane_off[i] : 0;
-  const int tiles = (N + DT - 1) / DT;
+  const int tiles = (N + T::DT - 1) / T::DT;
   const int grid = (tiles + tiles_per_block - 1) / tiles_per_block;
-  k_grad_pass_a<<<grid, A_THREADS, bytes,
-                  static_cast<cudaStream_t>(stream)>>>(
+  k_grad_pass_a<T><<<grid, A_THREADS, bytes,
+                     static_cast<cudaStream_t>(stream)>>>(
       net, pl, static_cast<const bf16*>(wstream), n_stages, pts, dirs, g,
       static_cast<bf16*>(planes), bias, N, tiles_per_block, n_ring);
   return static_cast<int>(cudaGetLastError());
@@ -1261,77 +1636,72 @@ int fr_grad_pass_a(const float* pts, const float* dirs, const float* g,
 
 // bf16 pass B: partials (n_chunks, G) f32 (every gradient's region is
 // written), out (G,) f32 = the partials summed in chunk order.
-int fr_grad_pass_b(const void* planes, const long long* plane_off,
-                   const float* bias, int NB, float* partials, float* out,
-                   long long G, int n_tiles, int n_chunks,
-                   const long long* grad_offsets, int depth, int n_views,
-                   void* stream) {
-  using namespace fr;
+template <class T>
+int grad_pass_b(const void* planes, const long long* plane_off,
+                const float* bias, int NB, float* partials, float* out,
+                long long G, int n_tiles, int n_chunks,
+                const long long* grad_offsets, int depth, int n_views,
+                void* stream) {
+  constexpr int W = T::W, WV = T::WV, MAXT = max_tasks<T>();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int D = depth, NV = n_views;
-  BTable tb;
+  BTable<MAXT> tb;
   const int n_planes = 3 + 2 * D + 2 * NV;
   for (int i = 0; i < MAXPLANES; ++i)
     tb.plane[i] = i < n_planes ? plane_off[i] : 0;
   const int H = PL_H, HV = PL_H + D, DC = PL_H + D + NV, DV = DC + D;
   const int w = W / 64, wv = WV / 64, pe = PE_PAD / 64, ln = LANES / 64;
   const long long* go = grad_offsets;
+  BTask* t = tb.task;
   int n = 0;
-  bool ok = add_tasks(tb.task, &n, PL_PE, pe, DC, w, PE_PAD, W, go[SLOT_W]);
+  bool ok = add_tasks(t, MAXT, &n, PL_PE, pe, DC, w, PE_PAD, W, go[SLOT_W]);
   for (int i = 1; i < D; ++i) {
-    ok = ok && add_tasks(tb.task, &n, H + i - 1, w, DC + i, w, W, W,
+    ok = ok && add_tasks(t, MAXT, &n, H + i - 1, w, DC + i, w, W, W,
                          go[SLOT_W + i]);
     if (go[SLOT_WSKIP + i] >= 0)
-      ok = ok && add_tasks(tb.task, &n, PL_PE, pe, DC + i, w, PE_PAD, W,
+      ok = ok && add_tasks(t, MAXT, &n, PL_PE, pe, DC + i, w, PE_PAD, W,
                            go[SLOT_WSKIP + i]);
   }
-  ok = ok && add_tasks(tb.task, &n, H + D - 1, w, DV, wv, W, WV, go[SLOT_WV]);
-  ok = ok && add_tasks(tb.task, &n, PL_PED, ln, DV, wv, PED_PAD, WV,
+  ok = ok &&
+       add_tasks(t, MAXT, &n, H + D - 1, w, DV, wv, W, WV, go[SLOT_WV]);
+  ok = ok && add_tasks(t, MAXT, &n, PL_PED, ln, DV, wv, PED_PAD, WV,
                        go[SLOT_WV0D]);
   for (int v = 1; v < NV; ++v)
-    ok = ok && add_tasks(tb.task, &n, HV + v - 1, wv, DV + v, wv, WV, WV,
+    ok = ok && add_tasks(t, MAXT, &n, HV + v - 1, wv, DV + v, wv, WV, WV,
                          go[SLOT_WV + v]);
-  ok = ok && add_tasks(tb.task, &n, H + D - 1, w, PL_GB, ln, W, HEADS,
+  ok = ok && add_tasks(t, MAXT, &n, H + D - 1, w, PL_GB, ln, W, HEADS,
                        go[SLOT_WALPHA]);
-  ok = ok && add_tasks(tb.task, &n, HV + NV - 1, wv, PL_GB, ln, WV, HEADS,
+  ok = ok && add_tasks(t, MAXT, &n, HV + NV - 1, wv, PL_GB, ln, WV, HEADS,
                        go[SLOT_WRGB]);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
 
-  cudaError_t err = prepare(k_grad_pass_b, B_SMEM);
+  cudaError_t err = prepare(k_grad_pass_b<T>, B_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  k_grad_pass_b<<<dim3(n, n_chunks), B_THREADS, B_SMEM, s>>>(
+  k_grad_pass_b<T><<<dim3(n, n_chunks), B_THREADS, B_SMEM, s>>>(
       tb, static_cast<const bf16*>(planes), partials, G, n_tiles, n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return finish(bias, NB, n_tiles, n_chunks, grad_offsets, D, NV, partials,
-                out, G, s);
+  return finish<T>(bias, NB, n_tiles, n_chunks, grad_offsets, D, NV,
+                   partials, out, G, s);
 }
-
-unsigned long long fr_grad_pass_a_f32_smem_bytes(int n_ring, int depth,
-                                                 int n_views) {
-  return fr::pass_a_f32_smem_bytes(n_ring, depth, n_views);
-}
-
-unsigned long long fr_grad_pass_b_f32_smem_bytes() { return fr::FB_SMEM; }
 
 // f32 pass A. planes: the f32 operand buffer (plane_off, float offsets, as
 // kernels/fused_mlp_grad.py:grad_planes_f32); bias: (tiles of 64 points,
 // NB) f32; wstream: n_stages stages of the net's f32 weight stream
 // (grad_weight_stream_f32, 16-byte aligned); blocks of tiles_per_block
 // 64-point tiles; n_ring: stages of the shared-memory ring (2..MAX_RING).
-int fr_grad_pass_a_f32(const float* pts, const float* dirs, const float* g,
-                       void* planes, const long long* plane_off, float* bias,
-                       int N, int tiles_per_block,
-                       const unsigned long long* slots, int depth,
-                       int n_views, int multires, int multires_views,
-                       const void* wstream, int n_stages, int n_ring,
-                       void* stream) {
-  using namespace fr;
+template <class T>
+int grad_pass_a_f32(const float* pts, const float* dirs, const float* g,
+                    void* planes, const long long* plane_off, float* bias,
+                    int N, int tiles_per_block,
+                    const unsigned long long* slots, int depth, int n_views,
+                    int multires, int multires_views, const void* wstream,
+                    int n_stages, int n_ring, void* stream) {
   if (tiles_per_block < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = pass_a_f32_smem_bytes(n_ring, depth, n_views);
+  const size_t bytes = pass_a_f32_smem_bytes<T>(n_ring, depth, n_views);
   cudaError_t err =
-      chain_prepare(k_grad_pass_a_f32, bytes,
-                    f32_stages(slots, depth, n_views), n_stages, n_ring);
+      chain_prepare(k_grad_pass_a_f32<T>, bytes,
+                    f32_stages<T>(slots, depth, n_views), n_stages, n_ring);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Net net = make_net(slots, depth, n_views, multires, multires_views, 0);
   Planes pl;
@@ -1340,8 +1710,8 @@ int fr_grad_pass_a_f32(const float* pts, const float* dirs, const float* g,
     pl.off[i] = i < n_planes ? plane_off[i] : 0;
   const int tiles = (N + GP - 1) / GP;
   const int grid = (tiles + tiles_per_block - 1) / tiles_per_block;
-  k_grad_pass_a_f32<<<grid, F_THREADS, bytes,
-                      static_cast<cudaStream_t>(stream)>>>(
+  k_grad_pass_a_f32<T><<<grid, F_THREADS, bytes,
+                         static_cast<cudaStream_t>(stream)>>>(
       net, pl, static_cast<const float*>(wstream), n_stages, pts, dirs, g,
       static_cast<float*>(planes), bias, N, tiles_per_block, n_ring);
   return static_cast<int>(cudaGetLastError());
@@ -1349,49 +1719,106 @@ int fr_grad_pass_a_f32(const float* pts, const float* dirs, const float* g,
 
 // f32 pass B: partials (n_chunks, G) f32 (every gradient's region is
 // written), out (G,) f32 = the partials summed in chunk order.
-int fr_grad_pass_b_f32(const void* planes, const long long* plane_off,
-                       const float* bias, int NB, float* partials,
-                       float* out, long long G, int n_tiles, int n_chunks,
-                       const long long* grad_offsets, int depth,
-                       int n_views, void* stream) {
-  using namespace fr;
+template <class T>
+int grad_pass_b_f32(const void* planes, const long long* plane_off,
+                    const float* bias, int NB, float* partials, float* out,
+                    long long G, int n_tiles, int n_chunks,
+                    const long long* grad_offsets, int depth, int n_views,
+                    void* stream) {
+  constexpr int W = T::W, WV = T::WV, MAXT = max_tasks<T>();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int D = depth, NV = n_views;
-  FTable tb;
+  FTable<MAXT> tb;
   const int n_planes = 3 + 2 * D + 2 * NV;
   for (int i = 0; i < MAXPLANES; ++i)
     tb.plane[i] = i < n_planes ? plane_off[i] : 0;
   const int H = PL_H, HV = PL_H + D, DC = PL_H + D + NV, DV = DC + D;
   const long long* go = grad_offsets;
+  FTask* t = tb.task;
   int n = 0;
-  bool ok = add_ftasks(tb.task, &n, PL_PE, PE_PAD, DC, W, go[SLOT_W]);
+  bool ok = add_ftasks(t, MAXT, &n, PL_PE, PE_PAD, DC, W, go[SLOT_W]);
   for (int i = 1; i < D; ++i) {
-    ok = ok && add_ftasks(tb.task, &n, H + i - 1, W, DC + i, W,
+    ok = ok && add_ftasks(t, MAXT, &n, H + i - 1, W, DC + i, W,
                           go[SLOT_W + i]);
     if (go[SLOT_WSKIP + i] >= 0)
-      ok = ok && add_ftasks(tb.task, &n, PL_PE, PE_PAD, DC + i, W,
+      ok = ok && add_ftasks(t, MAXT, &n, PL_PE, PE_PAD, DC + i, W,
                             go[SLOT_WSKIP + i]);
   }
-  ok = ok && add_ftasks(tb.task, &n, H + D - 1, W, DV, WV, go[SLOT_WV]);
-  ok = ok && add_ftasks(tb.task, &n, PL_PED, PED_PAD, DV, WV, go[SLOT_WV0D]);
+  ok = ok && add_ftasks(t, MAXT, &n, H + D - 1, W, DV, WV, go[SLOT_WV]);
+  ok = ok &&
+       add_ftasks(t, MAXT, &n, PL_PED, PED_PAD, DV, WV, go[SLOT_WV0D]);
   for (int v = 1; v < NV; ++v)
-    ok = ok && add_ftasks(tb.task, &n, HV + v - 1, WV, DV + v, WV,
+    ok = ok && add_ftasks(t, MAXT, &n, HV + v - 1, WV, DV + v, WV,
                           go[SLOT_WV + v]);
-  ok = ok && add_ftasks(tb.task, &n, H + D - 1, W, PL_GB, HEADS,
+  ok = ok && add_ftasks(t, MAXT, &n, H + D - 1, W, PL_GB, HEADS,
                         go[SLOT_WALPHA]);
-  ok = ok && add_ftasks(tb.task, &n, HV + NV - 1, WV, PL_GB, HEADS,
+  ok = ok && add_ftasks(t, MAXT, &n, HV + NV - 1, WV, PL_GB, HEADS,
                         go[SLOT_WRGB]);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
 
-  cudaError_t err = prepare(k_grad_pass_b_f32, FB_SMEM);
+  cudaError_t err = prepare(k_grad_pass_b_f32<T>, FB_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  k_grad_pass_b_f32<<<dim3(n, n_chunks), FB_THREADS, FB_SMEM, s>>>(
+  k_grad_pass_b_f32<T><<<dim3(n, n_chunks), FB_THREADS, FB_SMEM, s>>>(
       tb, static_cast<const float*>(planes), partials, G, n_tiles,
       n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return finish(bias, NB, n_tiles, n_chunks, grad_offsets, D, NV, partials,
-                out, G, s);
+  return finish<T>(bias, NB, n_tiles, n_chunks, grad_offsets, D, NV,
+                   partials, out, G, s);
 }
 
-}  // extern "C"
+}  // namespace fr
+
+// The C entries of one width: fr_grad_pass_a_w<W>, fr_grad_pass_b_w<W>,
+// fr_grad_pass_a_f32_w<W>, fr_grad_pass_b_f32_w<W> (the f32 pair takes
+// the bf16 pair's arguments), their shared-memory sizes and pass B's most
+// output tiles (fr_grad_max_tasks_w<W>).
+#define FR_GRAD_PASS_A_ENTRY(NAME, FN, WIDTH)                                 \
+  int NAME##_w##WIDTH(const float* pts, const float* dirs, const float* g,    \
+                      void* planes, const long long* plane_off, float* bias,  \
+                      int N, int tiles_per_block,                             \
+                      const unsigned long long* slots, int depth,             \
+                      int n_views, int multires, int multires_views,          \
+                      const void* wstream, int n_stages, int n_ring,          \
+                      void* stream) {                                         \
+    return fr::FN<fr::Layout<WIDTH>>(                                         \
+        pts, dirs, g, planes, plane_off, bias, N, tiles_per_block, slots,     \
+        depth, n_views, multires, multires_views, wstream, n_stages, n_ring,  \
+        stream);                                                              \
+  }
+#define FR_GRAD_PASS_B_ENTRY(NAME, FN, WIDTH)                                 \
+  int NAME##_w##WIDTH(const void* planes, const long long* plane_off,         \
+                      const float* bias, int NB, float* partials, float* out, \
+                      long long G, int n_tiles, int n_chunks,                 \
+                      const long long* grad_offsets, int depth, int n_views,  \
+                      void* stream) {                                         \
+    return fr::FN<fr::Layout<WIDTH>>(planes, plane_off, bias, NB, partials,   \
+                                     out, G, n_tiles, n_chunks, grad_offsets, \
+                                     depth, n_views, stream);                 \
+  }
+#define FR_GRAD_ENTRIES(WIDTH)                                                \
+  extern "C" {                                                                \
+  unsigned long long fr_grad_pass_a_smem_bytes_w##WIDTH(int n_ring,           \
+                                                        int depth,            \
+                                                        int n_views) {        \
+    return fr::pass_a_smem_bytes<fr::Layout<WIDTH>>(n_ring, depth, n_views);  \
+  }                                                                           \
+  unsigned long long fr_grad_pass_a_f32_smem_bytes_w##WIDTH(                  \
+      int n_ring, int depth, int n_views) {                                   \
+    return fr::pass_a_f32_smem_bytes<fr::Layout<WIDTH>>(n_ring, depth,        \
+                                                        n_views);             \
+  }                                                                           \
+  unsigned long long fr_grad_pass_b_smem_bytes_w##WIDTH() {                   \
+    return fr::B_SMEM;                                                        \
+  }                                                                           \
+  unsigned long long fr_grad_pass_b_f32_smem_bytes_w##WIDTH() {               \
+    return fr::FB_SMEM;                                                       \
+  }                                                                           \
+  int fr_grad_max_tasks_w##WIDTH() {                                          \
+    return fr::max_tasks<fr::Layout<WIDTH>>();                                \
+  }                                                                           \
+  FR_GRAD_PASS_A_ENTRY(fr_grad_pass_a, grad_pass_a, WIDTH)                    \
+  FR_GRAD_PASS_A_ENTRY(fr_grad_pass_a_f32, grad_pass_a_f32, WIDTH)            \
+  FR_GRAD_PASS_B_ENTRY(fr_grad_pass_b, grad_pass_b, WIDTH)                    \
+  FR_GRAD_PASS_B_ENTRY(fr_grad_pass_b_f32, grad_pass_b_f32, WIDTH)            \
+  }

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (chain.cuh,
-// fused_mlp_grad.cu): shared-memory addresses, mbarriers, bulk copies
+// fused_mlp_grad.cuh): shared-memory addresses, mbarriers, bulk copies
 // global -> shared completed on an mbarrier, wgmma shared-memory
 // descriptors for the 128-byte swizzle, the m64nNk16 bf16 products with f32
-// accumulators, the m64n128k32 s8 product with s32 accumulators
-// (kdiag_dtype.cu), their fences, and setmaxnreg.
+// accumulators (N = 16, 64, 128, 256), the m64n128k32 s8 product with s32
+// accumulators (kdiag_dtype.cu), their fences, and setmaxnreg.
 //
 // Swizzled images (128-byte swizzle, 1,024-byte aligned): a row of 64 bf16
 // lanes is 128 bytes whose 16-byte chunks are permuted by chunk ^ (row % 8);
@@ -23,9 +23,9 @@ namespace fr {
 // 64-feature blocks of 4,096 elements; in a block, groups of 8 points
 // (1,024 bytes); in a group, one 128-byte row per point whose 16-byte chunks
 // are permuted by chunk ^ (p % 8). Read with the points as the contraction
-// it is wgmma's MN-major layout (fused_mlp_grad.cu pass B,
+// it is wgmma's MN-major layout (fused_mlp_grad.cuh pass B,
 // kernels/fused_mlp_grad.py: swizzle_index); read with the features as the
-// contraction it is the K-major layout of a 64-row A operand (fused_render.cu
+// contraction it is the K-major layout of a 64-row A operand (fused_render.cuh
 // k_render_delta).
 __host__ __device__ __forceinline__ int swz(int p, int f) {
   return ((f >> 6) << 12) + ((p >> 3) << 9) + ((p & 7) << 6) +
@@ -177,9 +177,13 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
 }
 
 // d (64 x 256) = [d +] A (64 x 16) * B (16 x 256): A K-major, B MN-major
-// (trans-a 0, trans-b 1); scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_n256_kmn(float (&d)[128], uint64_t a,
+// (trans-a 0, trans-b 1); scale_d 0 overwrites d. (The kmn products take
+// an accumulator array of any size that holds their registers: the
+// chain's is sized for its widest product.)
+template <int A>
+__device__ __forceinline__ void wgmma_n256_kmn(float (&d)[A], uint64_t a,
                                                uint64_t b, int scale_d) {
+  static_assert(A >= 128, "n256 takes 128 accumulator registers");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -238,8 +242,10 @@ __device__ __forceinline__ void wgmma_n256_kmn(float (&d)[128], uint64_t a,
 
 // d[0:64] (64 x 128) = [d +] A (64 x 16) * B (16 x 128): A K-major, B
 // MN-major.
-__device__ __forceinline__ void wgmma_n128_kmn(float (&d)[128], uint64_t a,
+template <int A>
+__device__ __forceinline__ void wgmma_n128_kmn(float (&d)[A], uint64_t a,
                                                uint64_t b, int scale_d) {
+  static_assert(A >= 64, "n128 takes 64 accumulator registers");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -272,8 +278,35 @@ __device__ __forceinline__ void wgmma_n128_kmn(float (&d)[128], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d[0:32] (64 x 64) = [d +] A (64 x 16) * B (16 x 64): A K-major, B
+// MN-major (the view layers of a W=128 net).
+template <int A>
+__device__ __forceinline__ void wgmma_n64_kmn(float (&d)[A], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  static_assert(A >= 32, "n64 takes 32 accumulator registers");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d[0:8] (64 x 16) = [d +] A (64 x 16) * B (16 x 16): both K-major.
-__device__ __forceinline__ void wgmma_n16_kk(float (&d)[128], uint64_t a,
+template <int A>
+__device__ __forceinline__ void wgmma_n16_kk(float (&d)[A], uint64_t a,
                                              uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"

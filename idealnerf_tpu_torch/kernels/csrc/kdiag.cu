@@ -335,7 +335,7 @@ cudaError_t launch_bf16(int mode, const void* x, const void* wstream,
 // ------------------------------------------------ probe B: K1's chain
 
 // Probe B's per-ray state: ro, rd, dn, ped, pv and z, the first six regions
-// of fused_render.cu's ray_state_layout; no raw or weight rows (the raw
+// of fused_render.cuh's ray_state_layout; no raw or weight rows (the raw
 // rows go to global memory, and nothing composites).
 __host__ __device__ inline size_t probe_b_layout(char* base, int rb, int S,
                                                  Smem* sm) {
@@ -365,11 +365,11 @@ __host__ __device__ inline size_t probe_b_layout(char* base, int rb, int S,
 // Dynamic shared memory of probe B: K1's ring, tiles and mbarriers, then
 // its per-ray state.
 __host__ __device__ inline size_t probe_b_smem(int rb, int S, int n_ring) {
-  return 1024 + ray_state_offset(n_ring) +
+  return 1024 + ray_state_offset<PW>(n_ring) +
          probe_b_layout(nullptr, rb, S, nullptr);
 }
 
-// kdiag3 B: K1 (fused_render.cu k_render_rays) up to its chain: load_rays,
+// kdiag3 B: K1 (fused_render.cuh k_render_rays) up to its chain: load_rays,
 // the depths read from z, then chain_mlp with RayTile, whose raw rows go
 // to the block's rows of the global (R, S*4) output; no composite.
 __global__ void __launch_bounds__(D_THREADS, 1)
@@ -381,17 +381,17 @@ k_render_probe_b(Net net, const bf16* __restrict__ wstream, int n_stages,
   extern __shared__ __align__(1024) char smem_raw[];
   const Chain c = chain_begin(smem_raw, n_ring, WG_BYTES);
   Smem sm;
-  probe_b_layout(c.gbase + ray_state_offset(n_ring), rb, S, &sm);
+  probe_b_layout(c.gbase + ray_state_offset<PW>(n_ring), rb, S, &sm);
   const int tid = ray_tid();
   const int ray0 = blockIdx.x * rb;
   const int nr = min(rb, R - ray0), n_pts = nr * S;
 
-  load_rays(net, sm, rays_o, rays_d, ray0, nr, tid);
+  load_rays<WV>(net, sm, rays_o, rays_d, ray0, nr, tid);
   for (int e = tid; e < n_pts; e += NTHREADS)
     sm.z[e] = zin[static_cast<size_t>(ray0) * S + e];
   __syncthreads();
   sm.raw = raw + static_cast<size_t>(ray0) * S * 4;
-  chain_mlp(net, RayTile{sm, S, nr}, c, wstream, n_stages, n_pts);
+  chain_mlp(net, RayTile<PW>{sm, S, nr}, c, wstream, n_stages, n_pts);
 }
 
 }  // namespace kd
@@ -455,7 +455,7 @@ int kd_render_b(const float* rays_o, const float* rays_d, const float* z,
   const size_t bytes = fr::kd::probe_b_smem(rb, S, n_ring);
   cudaError_t err = fr::chain_prepare(
       fr::kd::k_render_probe_b, bytes,
-      fr::chain_stages(slots, depth, n_views), n_stages, n_ring);
+      fr::chain_stages<fr::PW>(slots, depth, n_views), n_stages, n_ring);
   if (err != cudaSuccess) return static_cast<int>(err);
   const fr::Net net =
       fr::make_net(slots, depth, n_views, multires, multires_views, 0);

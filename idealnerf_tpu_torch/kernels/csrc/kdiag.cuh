@@ -9,6 +9,7 @@
 #include <cuda_runtime.h>
 
 #include "chain.cuh"
+#include "paper.cuh"
 
 namespace fr {
 namespace kd {

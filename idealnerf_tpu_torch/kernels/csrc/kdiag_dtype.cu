@@ -5,7 +5,7 @@
 // k_chain_f32_ring  replaces scripts/kdiag4.py (chain_kernel at :90, V3):
 //   `depth` chained f32 (rows, 256) @ (256, 256) products with relu, no
 //   cast, on the CUDA cores: fring.cuh's product, the one K6 f32's pass A
-//   runs (fused_mlp_grad.cu). The weight stream is ws itself: layer l's
+//   runs (fused_mlp_grad.cuh). The weight stream is ws itself: layer l's
 //   row-major (256 x 256) f32 matrix is 16 stages of 16 K-rows (16 KB),
 //   depth x 16 stages a tile, which the producer's one thread copies by
 //   cp.async.bulk (chain.cuh chain_produce) through a ring of 4 stages,

@@ -3,7 +3,7 @@
 // beside kdiag.cu's:
 //
 // kd_ladder    replaces scripts/kdiag2.py (:114, rungs v0-v2): K5
-//              (fused_mlp.cu k_point_mlp_pe) stopped early on its own
+//              (fused_mlp.cuh k_point_mlp_pe) stopped early on its own
 //              chain, plan and a prefix of its weight stream: the trunk
 //              without the skip's pe-part (v0: a slot table and stream of
 //              the net without it, 58 stages for the paper model), the
@@ -28,6 +28,7 @@
 // resources for the wgmma pipeline", C7511) and probe B ran 12 % slower on
 // an H100 (PERF.md); alone, kdiag.cu compiles probe B as before.
 #include "chain.cuh"
+#include "paper.cuh"
 
 namespace fr {
 namespace kd {
@@ -45,7 +46,7 @@ k_mlp_ladder(Net net, const bf16* __restrict__ wstream, int n_stages,
              const bf16* __restrict__ pe, const bf16* __restrict__ ped,
              bf16* __restrict__ out, int N, int tiles_per_block,
              int n_ring) {
-  using Src = ActivationTile<LAST>;
+  using Src = ActivationTile<LAST, PW>;
   extern __shared__ __align__(1024) char smem_raw[];
   const Chain c = chain_begin(smem_raw, n_ring, Src::kTileBytes);
   const size_t p0 = static_cast<size_t>(blockIdx.x) * tiles_per_block * DT;
@@ -62,9 +63,9 @@ cudaError_t launch_ladder(const Net& net, const unsigned long long* slots,
                           const void* pe, const void* ped, void* out, int N,
                           int tiles_per_block, const void* wstream,
                           int n_stages, int n_ring, cudaStream_t st) {
-  const size_t bytes = point_smem_bytes(n_ring);
-  const int want = trunk_stages(slots, net.depth) +
-                   (LAST == LAST_VIEW ? view_stages(net.n_views) + 1 : 0);
+  const size_t bytes = point_smem_bytes<PW>(n_ring);
+  const int want = trunk_stages<PW>(slots, net.depth) +
+                   (LAST == LAST_VIEW ? view_stages<PW>(net.n_views) + 1 : 0);
   cudaError_t err =
       chain_prepare(k_mlp_ladder<LAST>, bytes, want, n_stages, n_ring);
   if (err != cudaSuccess) return err;
@@ -96,7 +97,7 @@ __host__ __device__ inline size_t probe_a_layout(char* base, int rb,
 // Dynamic shared memory of probe A: K1's ring, tiles and mbarriers, then
 // its per-ray state.
 __host__ __device__ inline size_t probe_a_smem(int rb, int n_ring) {
-  return 1024 + ray_state_offset(n_ring) +
+  return 1024 + ray_state_offset<PW>(n_ring) +
          probe_a_layout(nullptr, rb, nullptr);
 }
 
@@ -111,7 +112,7 @@ k_render_probe_a(Net net, const bf16* __restrict__ wstream, int n_stages,
   extern __shared__ __align__(1024) char smem_raw[];
   const Chain c = chain_begin(smem_raw, n_ring, WG_BYTES);
   Smem sm;
-  probe_a_layout(c.gbase + ray_state_offset(n_ring), rb, &sm);
+  probe_a_layout(c.gbase + ray_state_offset<PW>(n_ring), rb, &sm);
   const int tid = ray_tid();
   const int ray0 = blockIdx.x * rb;
   const int nr = min(rb, R - ray0), n_pts = nr * S;
@@ -120,9 +121,9 @@ k_render_probe_a(Net net, const bf16* __restrict__ wstream, int n_stages,
     sm.ped[e] =
         __bfloat162float(ped[static_cast<size_t>(ray0) * PED_PAD + e]);
   __syncthreads();
-  view_terms(net, sm, nr, tid);
+  view_terms<WV>(net, sm, nr, tid);
   const size_t p0 = static_cast<size_t>(ray0) * S;
-  chain_mlp(net, PeRayTile{pe + p0 * PE_PAD, sm.pv, raw + p0 * 4, S, nr}, c,
+  chain_mlp(net, PeRayTile<PW>{pe + p0 * PE_PAD, sm.pv, raw + p0 * 4, S, nr}, c,
             wstream, n_stages, n_pts);
 }
 
@@ -172,7 +173,7 @@ int kd_render_a(const void* pe, const void* ped, float* raw, int R, int S,
   const size_t bytes = fr::kd::probe_a_smem(rb, n_ring);
   cudaError_t err = fr::chain_prepare(
       fr::kd::k_render_probe_a, bytes,
-      fr::chain_stages(slots, depth, n_views), n_stages, n_ring);
+      fr::chain_stages<fr::PW>(slots, depth, n_views), n_stages, n_ring);
   if (err != cudaSuccess) return static_cast<int>(err);
   const fr::Net net = fr::make_net(slots, depth, n_views, 0, 0, 0);
   fr::kd::k_render_probe_a<<<(R + rb - 1) / rb, fr::D_THREADS, bytes,

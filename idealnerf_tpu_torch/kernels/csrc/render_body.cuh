@@ -1,6 +1,7 @@
-// Shared device body of the fused kernels (fused_render.cu, fused_mlp.cu,
-// fused_mlp_grad.cu) and of the probes built from them (kdiag.cu): the
-// operand table, PE lanes, the per-ray set-up, alpha compositing, the
+// Shared device body of the fused kernels (fused_render.cuh, fused_mlp.cuh,
+// fused_mlp_grad.cuh) and of the probes built from them (kdiag.cu): the
+// net's widths, the operand table, PE lanes, the per-ray set-up, alpha
+// compositing, the
 // inverse-CDF depth placement that the coarse and delta kernels run and
 // the delta kernel's foreground band epilogue.
 //
@@ -16,10 +17,10 @@
 // Ray blocks own whole rays, so compositing and the depth placement never
 // leave the block and each ray's outputs are written by exactly one block.
 // The per-ray code here (load_rays, composite, the depth placement, the
-// band) is the ray kernels' of fused_render.cu. Every production forward
-// kernel (K1-K3 there, K4 and K5 in fused_mlp.cu) and every bf16 probe of
+// band) is the ray kernels' of fused_render.cuh. Every production forward
+// kernel (K1-K3 there, K4 and K5 in fused_mlp.cuh) and every bf16 probe of
 // kdiag.cu but the int8 chain runs its field MLP on the wgmma chain of
-// chain.cuh, and so does the gradient kernel's pass A (fused_mlp_grad.cu),
+// chain.cuh, and so does the gradient kernel's pass A (fused_mlp_grad.cuh),
 // forward then backward.
 #pragma once
 
@@ -31,8 +32,16 @@ namespace fr {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int W = 256;          // trunk width
-constexpr int WV = W / 2;       // view-branch width
+// A net's widths: trunk W, view branch WV = W / 2. The kernels are
+// templates over them, built at W = 128, 256 and 512 (one translation unit
+// per width: fused_*_w<W>.cu); a narrower net runs on the next width up,
+// zero-padded (kernels/fused_render.py: widen).
+template <int W_>
+struct Width {
+  static constexpr int W = W_;
+  static constexpr int WV = W_ / 2;
+};
+
 constexpr int PE_PAD = 64;      // 63 xyz-PE lanes + 1 zero lane
 constexpr int PED_PAD = 32;     // 27 dir-PE lanes + 5 zero lanes
 constexpr int HEADS = 16;       // packed head columns: rgb 0..2, sigma 3
@@ -111,8 +120,9 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int rows,
 }
 
 // View layer 0's per-ray term pv = ped @ wv0d + bv0 of the block's nr
-// rays from their dir-PE in sm.ped, computed once per ray instead of once
-// per point; ends with __syncthreads.
+// rays from their dir-PE in sm.ped (WV columns), computed once per ray
+// instead of once per point; ends with __syncthreads.
+template <int WV>
 static __device__ __forceinline__ void view_terms(const Net& net,
                                                   const Smem& sm, int nr,
                                                   int tid) {
@@ -129,7 +139,8 @@ static __device__ __forceinline__ void view_terms(const Net& net,
 }
 
 // Per-ray set-up: origins, directions, |d|, the bf16 dir-PE of the unit
-// view direction, and its view-layer-0 term pv (view_terms).
+// view direction, and its view-layer-0 term pv (view_terms, WV columns).
+template <int WV>
 static __device__ void load_rays(const Net& net, const Smem& sm,
                                  const float* rays_o, const float* rays_d,
                                  int ray0, int nr, int tid) {
@@ -149,7 +160,7 @@ static __device__ void load_rays(const Net& net, const Smem& sm,
           __float2bfloat16(pe_lane(vd, k, net.multires_views)));
   }
   __syncthreads();
-  view_terms(net, sm, nr, tid);
+  view_terms<WV>(net, sm, nr, tid);
 }
 
 // Compositing of the block's rays from sm.z and sm.raw: summary (R, 8) =

@@ -2,12 +2,14 @@
 [rgb logits, sigma] in one kernel launch (counterpart of
 idealnerf_tpu/kernels/fused_mlp.py, both branches of ``fuse_pe``).
 
-Two kernels in ``csrc/fused_mlp.cu`` (CUDA C++ for sm_90a) run the
+Two kernels in ``csrc/fused_mlp.cuh`` (CUDA C++ for sm_90a) run the
 conditioned MLP with folded per-frame biases on the wgmma chain the render
 kernels run (``csrc/chain.cuh``), fed by the net's weight stream with one
 more stage than theirs: view layer 0's dir-PE part, a per-point product
-(``fused_render.chain_weight_stream(net, dir_stage=True)``). One block per
-SM walks a contiguous run of 128-point tiles (``point_launch_config``):
+(``fused_render.chain_weight_stream(net, dir_stage=True)``), each at the
+instance of the net's width (``fused_render.kernel_width``: 128, 256 or
+512; a narrower net runs zero-padded). One block per SM walks a
+contiguous run of tiles (128 points, 64 at W=512; ``point_launch_config``):
 
 - ``point_mlp`` (``fuse_pe=True``) builds both positional encodings from
   the raw coordinates in shared memory. It is the forward of every
@@ -33,9 +35,10 @@ import torch.nn.functional as F
 from idealnerf_tpu_torch.core.embedding import positional_encoding
 from idealnerf_tpu_torch.kernels import build
 from idealnerf_tpu_torch.kernels.fused_render import (
-    CHAIN_TILE, PE_PAD, PED_PAD, SMEM_LIMIT, PackedNet, _chain_args,
+    CHAIN_TILE, KERNEL_WIDTH, PE_PAD, PED_PAD, SMEM_LIMIT, PackedNet,
+    _chain_args,
     _check_cuda, _check_rays, _mlp_reference, _raise_on, _stream,
-    pack_operands, widen,
+    chain_tile, entry, pack_operands, widen,
 )
 
 launch_counts = {"fused_point_mlp": 0, "fused_point_mlp_pe": 0}
@@ -74,16 +77,18 @@ def point_mlp_reference(net: PackedNet, pts: torch.Tensor,
 
 
 def _point_plan(lib, N: int, sms: int, ring: int = _POINT_RING,
-                smem=None):
+                smem=None, width: int = KERNEL_WIDTH):
     """(tiles per block, blocks, ring stages) of a point kernel on N
-    points: the 128-point tiles split evenly over at most one wave of
-    ``sms`` blocks, each walking a contiguous run of them. ``smem`` (ring
-    stages -> shared memory bytes) is the point kernels' by default; the
-    gradient kernel's pass A gives its own."""
-    if (smem or lib.fr_point_smem_bytes)(ring) > SMEM_LIMIT:
+    points at the kernels' ``width``: the tiles (chain_tile points) split
+    evenly over at most one wave of ``sms`` blocks, each walking a
+    contiguous run of them. ``smem`` (ring stages -> shared memory bytes)
+    is the point kernels' by default; the gradient kernel's pass A gives
+    its own."""
+    if (smem or entry(lib, "fr_point_smem_bytes", width))(ring) > SMEM_LIMIT:
         raise ValueError(f"a ring of {ring} stages does not fit the point "
-                         "kernels' shared memory")
-    tiles = -(-N // CHAIN_TILE)
+                         f"kernels' shared memory at W={width}; ROADMAP.md "
+                         "B10")
+    tiles = -(-N // chain_tile(width))
     per_block = -(-tiles // sms)
     return per_block, -(-tiles // per_block), ring
 
@@ -93,15 +98,15 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def point_launch_config(N: int) -> Dict[str, int]:
-    """The point kernels' launch on N points on the current card: 128-point
-    tiles per block, blocks, dynamic shared memory, stage bytes and ring
-    depth."""
+def point_launch_config(N: int, width: int = KERNEL_WIDTH) -> Dict[str, int]:
+    """The point kernels' launch on N points on the current card at the
+    kernels' ``width``: tiles per block, blocks, dynamic shared memory,
+    stage bytes and ring depth."""
     lib = build.load_library()
     per_block, blocks, ring = _point_plan(
-        lib, N, _sm_count(torch.cuda.current_device()))
+        lib, N, _sm_count(torch.cuda.current_device()), width=width)
     return {"tiles_per_block": per_block, "blocks": blocks,
-            "smem_bytes": lib.fr_point_smem_bytes(ring),
+            "smem_bytes": entry(lib, "fr_point_smem_bytes", width)(ring),
             "stage_bytes": lib.fr_stage_bytes(), "ring_stages": ring}
 
 
@@ -117,24 +122,23 @@ def launch_point_kernel(net: PackedNet, a: torch.Tensor, b: torch.Tensor,
     raw. ``plan`` (tiles per block, ring stages) replaces the launch plan
     of ``_point_plan`` (a point's output does not depend on it). Counts
     nothing: the wrappers count their launches."""
-    dev, N = a.device, a.shape[0]
+    dev, N, W = a.device, a.shape[0], net.width
     lib = build.load_library()
     if plan is None:
-        per_block, _, ring = _point_plan(lib, N, _sm_count(dev))
+        per_block, _, ring = _point_plan(lib, N, _sm_count(dev), width=W)
     else:
         per_block, ring = plan
     table, keep, ws, n_stages = _chain_args(net, dev, dir_stage=True)
     out = torch.empty((N, 4), dtype=torch.float32, device=dev)
     if encoded:
-        err = lib.fr_point_mlp_pe(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                  N, per_block, table, len(net.w),
-                                  len(net.wv), ws, n_stages, ring,
-                                  _stream(dev))
+        err = entry(lib, "fr_point_mlp_pe", W)(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), N, per_block, table,
+            len(net.w), len(net.wv), ws, n_stages, ring, _stream(dev))
     else:
-        err = lib.fr_point_mlp(a.data_ptr(), b.data_ptr(), out.data_ptr(), N,
-                               per_block, table, len(net.w), len(net.wv),
-                               net.multires, net.multires_views, ws,
-                               n_stages, ring, _stream(dev))
+        err = entry(lib, "fr_point_mlp", W)(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), N, per_block, table,
+            len(net.w), len(net.wv), net.multires, net.multires_views, ws,
+            n_stages, ring, _stream(dev))
     _raise_on(lib, err, "fused_point_mlp_pe" if encoded
               else "fused_point_mlp")
     del keep  # stream-ordered: the caching allocator reuses it after the kernel

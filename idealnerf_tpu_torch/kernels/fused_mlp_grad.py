@@ -3,7 +3,7 @@ is the fused kernel (kernels/fused_mlp.py) and whose backward recomputes
 the forward per tile and back-propagates through it (counterpart of
 idealnerf_tpu/kernels/fused_mlp_grad.py).
 
-The backward (``csrc/fused_mlp_grad.cu``, CUDA C++ for sm_90a) emits f32
+The backward (``csrc/fused_mlp_grad.cuh``, CUDA C++ for sm_90a) emits f32
 gradients of every packed operand: layer weights, folded biases, the skip
 layer's pe-part, the view branch, the dir-PE part and the packed heads.
 ``unpack_grads`` maps them onto the nn.Linear weights and the folded
@@ -17,7 +17,9 @@ torch.float32 reproduces f32 autograd (f32 FFMAs on the card),
 torch.bfloat16 runs bf16 products with f32 accumulation and rounds each
 d_h to bf16 before its products, as the TPU kernel does (d_h from the
 heads takes the unrounded cotangent, the heads' weight gradients the
-rounded one). Either backward is two kernels. bf16: ``grad_pass_a``
+rounded one). Either backward is two kernels, each at the instance of the
+net's width (``fused_render.kernel_width``: 128, 256 or 512; a narrower
+net runs widened and its gradients are cut back). bf16: ``grad_pass_a``
 recomputes and runs d_h back on the wgmma chain of the forward kernels
 (``csrc/chain.cuh``), fed by ``grad_weight_stream``: the point kernels'
 stream without the heads, then the transposed matrices of the backward.
@@ -40,7 +42,7 @@ the plain versions on any device.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,21 +52,21 @@ from idealnerf_tpu_torch.kernels.fused_mlp import (
     _point_plan, _sm_count, encode_points, point_mlp, point_mlp_reference,
 )
 from idealnerf_tpu_torch.kernels.fused_render import (
-    CHAIN_TILE, HEADS, PE_PAD, PED_PAD, SMEM_LIMIT, STAGE_ELEMS, PackedNet,
-    _KC_V, _KC_W,
-    _NSLOTS, _SLOT_B, _SLOT_BHEADS, _SLOT_BV, _SLOT_W, _SLOT_WALPHA,
+    CHAIN_TILE, HEADS, KERNEL_WIDTH, PE_PAD, PED_PAD, SMEM_LIMIT,
+    STAGE_ELEMS, PackedNet, _NSLOTS, _SLOT_B, _SLOT_BHEADS, _SLOT_BV, _SLOT_W, _SLOT_WALPHA,
     _SLOT_WRGB, _SLOT_WSKIP, _SLOT_WV, _SLOT_WV0D,
     _check_cuda, _check_rays, _raise_on, _slots, _stream, _stream_parts,
-    model_leaves, narrow, pack_leaves, stream_matrices, swizzle_image_index,
-    weight_stream, widen,
+    entry, model_leaves, narrow, pack_leaves, stage_rows, stream_matrices,
+    swizzle_image_index, weight_stream, widen,
 )
 
-GRAD_TILE = 64  # points per tile of the planes (csrc/fused_mlp_grad.cu: GP)
+GRAD_TILE = 64  # points per tile of the planes (csrc/fused_mlp_grad.cuh: GP)
 # pass A's weight ring: the deepest that fits beside its tiles and relu'
-# bits at the paper depth (5 does not)
+# bits (4 at the paper depth and width, where 5 does not; fewer, at least
+# 2, for a deeper or a W=512 net)
 _PASS_A_RING = 4
-# pass A f32's ring: fits beside its tiles and relu' bits at every depth
-# the operand table takes
+# pass A f32's ring likewise: 4 at W <= 256 at every depth the operand
+# table takes; 2 at W=512, where its tiles fill most of the shared memory
 _PASS_A_F32_RING = 4
 F32_STAGE = STAGE_ELEMS // 2  # floats per 16 KB stage of the f32 stream
 
@@ -110,14 +112,20 @@ def _tile_sums(d: torch.Tensor) -> torch.Tensor:
 
 def grad_pass_a_reference(net: PackedNet, pts: torch.Tensor,
                           dirs: torch.Tensor, g: torch.Tensor,
-                          acc=torch.float32) -> GradBuffers:
+                          acc=torch.float32,
+                          forward: Optional[GradBuffers] = None
+                          ) -> GradBuffers:
     """The backward's first pass in torch ops: recompute in the dtype of
     the net's weights, then run d_h back through the heads, the view
     branch and the trunk with the kernel's rounding points (d_h from the
     heads with the unrounded cotangent, each d_h rounded before its
     products, relu' = h > 0 on the rounded activation) -> GradBuffers.
     Products and sums run in ``acc`` (f32; f64 where a test needs sums
-    whose order leaves no trace), and so do the buffers."""
+    whose order leaves no trace), and so do the buffers. With ``forward``
+    (another pass A's buffers, the kernel's) its encodings and activations
+    stand for the recompute: the backward then takes the same relu'
+    decisions as that pass, where an activation that rounds to 0 in one
+    summation order and not in another would flip a d_h element whole."""
     dt = net.w[0].dtype
 
     def rnd(x):
@@ -127,16 +135,21 @@ def grad_pass_a_reference(net: PackedNet, pts: torch.Tensor,
     W = [x.to(acc) for x in net.w]
     WV = [x.to(acc) for x in net.wv]
     b, bv = [x.to(acc) for x in net.b], [x.to(acc) for x in net.bv]
-    pe, ped = (x.to(acc) for x in encode_points(net, pts, dirs))
-    hs = [rnd(relu(pe @ W[0] + b[0]))]
-    for i in range(1, len(W)):
-        a = hs[-1] @ W[i]
-        if i in net.wskip:
-            a = pe @ net.wskip[i].to(acc) + a
-        hs.append(rnd(relu(a + b[i])))
-    hvs = [rnd(relu(hs[-1] @ WV[0] + ped @ net.wv0d.to(acc) + bv[0]))]
-    for v in range(1, len(WV)):
-        hvs.append(rnd(relu(hvs[-1] @ WV[v] + bv[v])))
+    if forward is not None:
+        pe, ped = forward.pe.to(acc), forward.ped.to(acc)
+        hs = [x.to(acc) for x in forward.hs]
+        hvs = [x.to(acc) for x in forward.hvs]
+    else:
+        pe, ped = (x.to(acc) for x in encode_points(net, pts, dirs))
+        hs = [rnd(relu(pe @ W[0] + b[0]))]
+        for i in range(1, len(W)):
+            a = hs[-1] @ W[i]
+            if i in net.wskip:
+                a = pe @ net.wskip[i].to(acc) + a
+            hs.append(rnd(relu(a + b[i])))
+        hvs = [rnd(relu(hs[-1] @ WV[0] + ped @ net.wv0d.to(acc) + bv[0]))]
+        for v in range(1, len(WV)):
+            hvs.append(rnd(relu(hvs[-1] @ WV[v] + bv[v])))
 
     g16 = F.pad(g.to(acc), (0, HEADS - 4))
     dh = g16 @ net.w_alpha.to(acc).T
@@ -167,7 +180,7 @@ def grad_chunks(n_tiles: int, sms: int) -> int:
 
 
 def chunk_bounds(n_tiles: int, n_chunks: int) -> List[Tuple[int, int]]:
-    """[first tile, end tile) of each chunk (csrc/fused_mlp_grad.cu:
+    """[first tile, end tile) of each chunk (csrc/fused_mlp_grad.cuh:
     k_grad_pass_b, k_bias_partials)."""
     return [(c * n_tiles // n_chunks, (c + 1) * n_tiles // n_chunks)
             for c in range(n_chunks)]
@@ -244,7 +257,7 @@ def grad_planes(net: PackedNet, n_tiles: int
     """The bf16 backward's operand buffer, which its first pass writes and
     its second reads -> (bf16 element offset of each plane, the plane's
     width, total elements). Planes in the kernel's order (csrc/
-    fused_mlp_grad.cu: plane indices): pe, ped, gb, h[0..D), hv[0..V),
+    fused_mlp_grad.cuh: plane indices): pe, ped, gb, h[0..D), hv[0..V),
     dc[0..D), dv[0..V); ped and gb zero-padded to 64 lanes. A plane holds
     one image of GRAD_TILE x width per tile, in swizzle_index's order, so
     every image and every 64-lane block of it starts 8 KB aligned."""
@@ -373,13 +386,14 @@ def _grad_stream_parts(net: PackedNet):
     """Pass A's weight stream as stream parts (fused_render.weight_stream):
     the point kernels' forward parts (dir-PE stage, no heads), then the
     matrices the backward multiplies d_h by, transposed, in the order it
-    does (csrc/fused_mlp_grad.cu, note at the top): ``wv{v}T`` for v =
-    V-1..1 (64-row stages of 128 lanes), ``wv0T`` (128 x 256, 32-row
-    stages), ``w{i}T`` for i = D-1..1."""
-    back = [(f"wv{v}T", net.wv[v].T, _KC_V)
+    does (csrc/fused_mlp_grad.cuh, note at the top): ``wv{v}T`` for v =
+    V-1..1 (W/2 lanes; at W=256 64-row stages of 128 lanes), ``wv0T`` (W/2
+    x W, 32-row stages at 256), ``w{i}T`` for i = D-1..1."""
+    kw, kv = stage_rows(net.width), stage_rows(net.wv[0].shape[1])
+    back = [(f"wv{v}T", net.wv[v].T, kv)
             for v in range(len(net.wv) - 1, 0, -1)]
-    back.append(("wv0T", net.wv[0].T, _KC_W))
-    back += [(f"w{i}T", net.w[i].T, _KC_W)
+    back.append(("wv0T", net.wv[0].T, kw))
+    back += [(f"w{i}T", net.w[i].T, kw)
              for i in range(len(net.w) - 1, 0, -1)]
     return _stream_parts(net, dir_stage=True) + back
 
@@ -402,7 +416,7 @@ def grad_stream_matrices(stream: torch.Tensor, net: PackedNet) -> Dict:
 
 def _grad_stream_parts_f32(net: PackedNet):
     """Pass A f32's weight stream as (name, matrix (K, N)) in the order it
-    multiplies by them (csrc/fused_mlp_grad.cu: f32_stages): layer 0,
+    multiplies by them (csrc/fused_mlp_grad.cuh: f32_stages): layer 0,
     each later layer's skip pe-part then its h-part, view layer 0's h-part
     and dir-PE part, the later view layers, then ``wv{v}T`` for v =
     V-1..1, ``wv0T`` and ``w{i}T`` for i = D-1..1, the transposes the
@@ -420,23 +434,32 @@ def _grad_stream_parts_f32(net: PackedNet):
                     for i in range(len(net.w) - 1, 0, -1)]
 
 
+def _f32_rows(m: torch.Tensor) -> int:
+    """Rows a matrix takes in the f32 stream: its K-rows, padded to whole
+    stages of F32_STAGE / N rows (only W=128's dir-PE part, 32 rows of a
+    64-row stage, is padded)."""
+    k, n = m.shape
+    kr = F32_STAGE // n
+    if n * kr != F32_STAGE:
+        raise ValueError(f"f32 weight stream: a {n}-wide matrix does not cut "
+                         "into stages")
+    return -(-k // kr) * kr
+
+
 def grad_weight_stream_f32(net: PackedNet):
     """An f32 PackedNet -> (stream, order) of pass A f32: each matrix
     row-major, back to back, so every 16 KB stage (F32_STAGE floats) is a
     K-slab of F32_STAGE / N whole rows (16 of a 256-wide matrix, 32 of a
-    128-wide one); ``order`` is the (name, first K-row) of every stage:
-    265 for the paper model, the forward's 137 and the backward's 128."""
+    128-wide one; a matrix of fewer rows than a stage is padded with zero
+    rows to one); ``order`` is the (name, first K-row) of every stage: 265
+    for the paper model, the forward's 137 and the backward's 128."""
     parts = _grad_stream_parts_f32(net)
-    order = []
+    order, chunks = [], []
     for name, m in parts:
-        k, n = m.shape
-        kr = F32_STAGE // n
-        if n * kr != F32_STAGE or k % kr:
-            raise ValueError(f"f32 weight stream: {name} ({k}, {n}) does not "
-                             f"cut into {kr}-row stages")
-        order += [(name, k0) for k0 in range(0, k, kr)]
-    stream = torch.cat([m.float().contiguous().reshape(-1) for _, m in parts])
-    return stream, order
+        rows, (k, n) = _f32_rows(m), m.shape
+        order += [(name, k0) for k0 in range(0, rows, F32_STAGE // n)]
+        chunks.append(F.pad(m.float(), (0, 0, 0, rows - k)).reshape(-1))
+    return torch.cat(chunks), order
 
 
 def grad_stream_matrices_f32(stream: torch.Tensor, net: PackedNet) -> Dict:
@@ -445,31 +468,49 @@ def grad_stream_matrices_f32(stream: torch.Tensor, net: PackedNet) -> Dict:
     out, q = {}, 0
     for name, m in _grad_stream_parts_f32(net):
         out[name] = stream[q:q + m.numel()].view(m.shape)
-        q += m.numel()
+        q += _f32_rows(m) * m.shape[1]
     return out
 
 
-def pass_a_plan(lib, N: int, sms: int, depth: int, n_views: int):
-    """(tiles per block, blocks, ring stages) of pass A on N points: the
-    point kernels' plan (one wave of blocks over runs of 128-point tiles)
-    with pass A's shared memory, at _PASS_A_RING stages, or fewer (at
-    least 2) where the relu' bits of a deeper net leave less room."""
+def _deepest_ring(smem, most: int, name: str, width: int, depth: int) -> int:
+    """The deepest ring of at most ``most`` stages, at least 2, whose
+    shared memory (``smem(ring)``) fits; a net for which 2 do not fit is
+    refused (ROADMAP.md B10)."""
+    for ring in range(most, 1, -1):
+        if smem(ring) <= SMEM_LIMIT:
+            return ring
+    raise ValueError(f"{name}: a W={width}, D={depth} net's tiles and relu' "
+                     "bits do not fit the shared memory beside a ring of 2 "
+                     "stages; ROADMAP.md B10")
+
+
+def pass_a_plan(lib, N: int, sms: int, depth: int, n_views: int,
+                width: int = KERNEL_WIDTH):
+    """(tiles per block, blocks, ring stages) of pass A on N points at the
+    kernels' ``width``: the point kernels' plan (one wave of blocks over
+    runs of chain tiles) with pass A's shared memory, at _PASS_A_RING
+    stages, or fewer (at least 2) where the relu' bits of a deeper or a
+    wider net leave less room."""
     def smem(ring):
-        return lib.fr_grad_pass_a_smem_bytes(ring, depth, n_views)
+        return entry(lib, "fr_grad_pass_a_smem_bytes", width)(ring, depth,
+                                                              n_views)
 
-    ring = next((r for r in range(_PASS_A_RING, 2, -1)
-                 if smem(r) <= SMEM_LIMIT), 2)
-    return _point_plan(lib, N, sms, ring, smem)
+    ring = _deepest_ring(smem, _PASS_A_RING, "grad_pass_a", width, depth)
+    return _point_plan(lib, N, sms, ring, smem, width)
 
 
-def pass_a_f32_plan(lib, N: int, sms: int, depth: int, n_views: int):
-    """(tiles per block, blocks, ring stages) of pass A f32 on N points: its
-    64-point tiles split evenly over at most one wave of ``sms`` blocks,
-    each walking a contiguous run of them, at _PASS_A_F32_RING stages."""
-    ring = _PASS_A_F32_RING
-    if lib.fr_grad_pass_a_f32_smem_bytes(ring, depth, n_views) > SMEM_LIMIT:
-        raise ValueError(f"grad_pass_a_f32: a ring of {ring} stages does not "
-                         "fit the shared memory")
+def pass_a_f32_plan(lib, N: int, sms: int, depth: int, n_views: int,
+                    width: int = KERNEL_WIDTH):
+    """(tiles per block, blocks, ring stages) of pass A f32 on N points at
+    the kernels' ``width``: its 64-point tiles split evenly over at most
+    one wave of ``sms`` blocks, each walking a contiguous run of them, at
+    _PASS_A_F32_RING stages or the deepest ring below that fits."""
+    def smem(ring):
+        return entry(lib, "fr_grad_pass_a_f32_smem_bytes", width)(
+            ring, depth, n_views)
+
+    ring = _deepest_ring(smem, _PASS_A_F32_RING, "grad_pass_a_f32", width,
+                         depth)
     tiles = -(-N // GRAD_TILE)
     per_block = -(-tiles // sms)
     return per_block, -(-tiles // per_block), ring
@@ -480,16 +521,17 @@ def pass_a_launch_config(net: PackedNet, N: int) -> Dict[str, int]:
     net's weights: tiles per block (of 128 points in bf16, 64 in f32),
     blocks, dynamic shared memory, ring depth and stages per tile."""
     lib = build.load_library()
-    D, V = len(net.w), len(net.wv)
+    D, V, W = len(net.w), len(net.wv), net.width
     if net.w[0].dtype == torch.float32:
         plan, smem, stream = (pass_a_f32_plan,
-                              lib.fr_grad_pass_a_f32_smem_bytes,
+                              entry(lib, "fr_grad_pass_a_f32_smem_bytes", W),
                               grad_weight_stream_f32)
     else:
-        plan, smem, stream = (pass_a_plan, lib.fr_grad_pass_a_smem_bytes,
+        plan, smem, stream = (pass_a_plan,
+                              entry(lib, "fr_grad_pass_a_smem_bytes", W),
                               grad_weight_stream)
     per_block, blocks, ring = plan(
-        lib, N, _sm_count(torch.cuda.current_device()), D, V)
+        lib, N, _sm_count(torch.cuda.current_device()), D, V, W)
     return {"tiles_per_block": per_block, "blocks": blocks,
             "smem_bytes": smem(ring, D, V), "ring_stages": ring,
             "stages_per_tile": len(stream(net)[1])}
@@ -503,9 +545,9 @@ def launch_pass_a(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
     outputs do not depend on it). Counts nothing: grad_pass_a counts."""
     dev, N = pts.device, pts.shape[0]
     lib = build.load_library()
-    D, V = len(net.w), len(net.wv)
+    D, V, W = len(net.w), len(net.wv), net.width
     if plan is None:
-        per_block, _, ring = pass_a_plan(lib, N, _sm_count(dev), D, V)
+        per_block, _, ring = pass_a_plan(lib, N, _sm_count(dev), D, V, W)
     else:
         per_block, ring = plan
     n_tiles = -(-N // GRAD_TILE)
@@ -515,7 +557,7 @@ def launch_pass_a(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
     bias = torch.empty((n_tiles, nb), dtype=torch.float32, device=dev)
     table, keep = _slots(net, dev)
     stream, order = grad_weight_stream(net)
-    err = lib.fr_grad_pass_a(
+    err = entry(lib, "fr_grad_pass_a", W)(
         pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), planes.data_ptr(),
         (ctypes.c_longlong * len(offs))(*offs), bias.data_ptr(), N,
         per_block, table, D, V, net.multires, net.multires_views,
@@ -532,8 +574,8 @@ def launch_pass_a_f32(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
     Counts nothing: grad_pass_a counts."""
     dev, N = pts.device, pts.shape[0]
     lib = build.load_library()
-    D, V = len(net.w), len(net.wv)
-    per_block, _, ring = pass_a_f32_plan(lib, N, _sm_count(dev), D, V)
+    D, V, W = len(net.w), len(net.wv), net.width
+    per_block, _, ring = pass_a_f32_plan(lib, N, _sm_count(dev), D, V, W)
     n_tiles = -(-N // GRAD_TILE)
     offs, _, total = grad_planes_f32(net, n_tiles)
     nb = D * net.width + V * net.wv[0].shape[1] + HEADS
@@ -541,7 +583,7 @@ def launch_pass_a_f32(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
     bias = torch.empty((n_tiles, nb), dtype=torch.float32, device=dev)
     table, keep = _slots(net, dev)
     stream, order = grad_weight_stream_f32(net)
-    err = lib.fr_grad_pass_a_f32(
+    err = entry(lib, "fr_grad_pass_a_f32", W)(
         pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), planes.data_ptr(),
         (ctypes.c_longlong * len(offs))(*offs), bias.data_ptr(), N,
         per_block, table, D, V, net.multires, net.multires_views,
@@ -549,6 +591,37 @@ def launch_pass_a_f32(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
     _raise_on(lib, err, "grad_pass_a_f32")
     del keep, stream  # stream-ordered reuse by the caching allocator
     return planes, offs, bias
+
+
+def pass_b_tasks(net: PackedNet, f32: bool = False) -> int:
+    """Output tiles in the second pass's task table (csrc/
+    fused_mlp_grad.cuh: add_tasks, add_ftasks): every weight gradient cut
+    into 128 x 128 tiles (bf16: pairs of 64-lane blocks of its planes,
+    whose ped and gb planes are 64 lanes wide)."""
+    W, WV = net.width, net.wv[0].shape[1]
+    if f32:
+        def tiles(x, y):
+            return -(-x // 128) * -(-y // 128)
+        ped, gb = PED_PAD, HEADS
+    else:
+        def tiles(x, y):
+            return -(-(x // 64) // 2) * -(-(y // 64) // 2)
+        ped, gb = 64, 64
+    n = (tiles(PE_PAD, W) + (len(net.w) - 1) * tiles(W, W)
+         + len(net.wskip) * tiles(PE_PAD, W))
+    n += tiles(W, WV) + tiles(ped, WV) + (len(net.wv) - 1) * tiles(WV, WV)
+    return n + tiles(W, gb) + tiles(WV, gb)
+
+
+def _check_tasks(lib, net: PackedNet, f32: bool) -> None:
+    """A net whose second pass has more output tiles than its kernels'
+    task table holds (a deep W=512 net) is refused before any launch."""
+    most = entry(lib, "fr_grad_max_tasks", net.width)()
+    if pass_b_tasks(net, f32) > most:
+        raise ValueError(f"fused_point_mlp_grad: a W={net.width}, "
+                         f"D={len(net.w)} net's {pass_b_tasks(net, f32)} "
+                         f"weight-gradient tiles exceed the second pass's "
+                         f"{most}; ROADMAP.md B10")
 
 
 def grad_pass_a(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
@@ -561,6 +634,8 @@ def grad_pass_a(net: PackedNet, pts: torch.Tensor, dirs: torch.Tensor,
     _check_inputs(net, pts, dirs, g)
     _check_cuda("grad_pass_a", torch.float32, 16, g=g)
     dt = net.w[0].dtype
+    if dt in (torch.bfloat16, torch.float32):
+        _check_tasks(build.load_library(), net, dt == torch.float32)
     if dt == torch.bfloat16:
         out, key = launch_pass_a(net, pts, dirs, g), "grad_pass_a"
     elif dt == torch.float32:
@@ -579,17 +654,18 @@ def grad_pass_b(net: PackedNet, planes: torch.Tensor, offs: List[int],
     f32 partial per chunk of tiles (grad_chunks), and the bias sums,
     added in a fixed order -> a PackedNet of f32 gradients."""
     _check_rays("fused_point_mlp_grad", net)
-    dev = planes.device
+    dev, W = planes.device, net.width
     lib = build.load_library()
     sfx = {torch.bfloat16: "", torch.float32: "_f32"}[planes.dtype]
-    if getattr(lib, f"fr_grad_pass_b{sfx}_smem_bytes")() > SMEM_LIMIT:
+    if entry(lib, f"fr_grad_pass_b{sfx}_smem_bytes", W)() > SMEM_LIMIT:
         raise ValueError("grad_pass_b: shared memory over the limit")
+    _check_tasks(lib, net, planes.dtype == torch.float32)
     n_tiles = bias.shape[0]
     layout, G = _grad_layout(net)
     n_chunks = grad_chunks(n_tiles, _sm_count(dev))
     partials = torch.empty((n_chunks, G), dtype=torch.float32, device=dev)
     out = torch.empty(G, dtype=torch.float32, device=dev)
-    err = getattr(lib, f"fr_grad_pass_b{sfx}")(
+    err = entry(lib, f"fr_grad_pass_b{sfx}", W)(
         planes.data_ptr(), (ctypes.c_longlong * len(offs))(*offs),
         bias.data_ptr(), bias.shape[1], partials.data_ptr(), out.data_ptr(),
         G, n_tiles, n_chunks, _offsets(layout), len(net.w), len(net.wv),

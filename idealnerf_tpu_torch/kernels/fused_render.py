@@ -4,7 +4,7 @@ kernel launch per pass (counterpart of idealnerf_tpu/kernels/fused_render.py).
 Three kernels, CUDA C++ for sm_90a in ``csrc/``, each running its field
 MLP on one wgmma chain fed by its net's weight stream
 (``chain_weight_stream``; see the note at the top of
-``csrc/fused_render.cu`` for what bounds them and how they are built):
+``csrc/fused_render.cuh`` for what bounds them and how they are built):
 
 - ``fused_render_rays`` replaces the JAX package's ``fused_render_rays``
   (``_render_kernel``/``_render_body``): rays at given depths -> per-ray
@@ -25,9 +25,14 @@ same bf16 rounding points: weights and every post-relu activation are
 rounded to bf16 and multiplied in f32, where a product of two bf16
 values is exact, so it equals bf16 x bf16 with f32 accumulation.
 
-The chain is built for the paper widths (W=256, view branch 128). A
-narrower net runs on it zero-padded (``widen``): the padded units stay 0
-and the result is the narrow net's, at the paper width's cost.
+The chain and every kernel on it are templates over the net's width,
+built at W = 128, 256 and 512 (view branch W/2; ``KERNEL_WIDTHS``; one
+set of C entries per width, ``fr_render_rays_w128`` ...). A net runs on
+the instance of the smallest of them at least as wide as it, zero-padded
+to it (``widen``): the padded units stay 0 and the result is the net's.
+A wider or deeper net, or PE wider than the kernels' lanes, is refused
+naming ROADMAP.md B10 (``kernels_cover``), as is any net whose launch
+plan cannot fit the shared memory.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ from idealnerf_tpu_torch.kernels import build
 PE_PAD = 64     # 63 xyz-PE lanes + 1 zero lane
 PED_PAD = 32    # 27 dir-PE lanes + 5 zero lanes
 HEADS = 16      # packed head columns: rgb 0..2, sigma 3
-KERNEL_WIDTH = 256
+KERNEL_WIDTHS = (128, 256, 512)  # the widths the kernels are built at
+KERNEL_WIDTH = 256  # the paper width, the diagnosis probes' (kernels/kdiag.py)
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on Hopper
 
 # operand table of the kernels (csrc/render_body.cuh, enum Slot)
@@ -61,7 +67,7 @@ _SLOT_WALPHA, _SLOT_WRGB, _SLOT_BHEADS = (_SLOT_WV0D + 1, _SLOT_WV0D + 2,
                                          _SLOT_WV0D + 3)
 _NSLOTS = _SLOT_WV0D + 4
 
-# the delta kernel (csrc/fused_render.cu, k_render_delta): points per ray
+# the delta kernel (csrc/fused_render.cuh, k_render_delta): points per ray
 # group (four 128-point tiles), at most 32 rays, and the fewest stages its
 # weight ring keeps before the group gives up rays (3 and 4 measured
 # alike, 2 slower)
@@ -71,9 +77,11 @@ _DELTA_POINTS, _DELTA_MAX_RAYS, _DELTA_MIN_RING = 512, 32, 4
 # faster than 4, scripts/kframe.py), at most this many rays per block, and
 # the share of a block's tile rows its last 128-point tile may leave empty
 _RENDER_RING, _RENDER_MAX_RAYS, _MAX_TAIL = 3, 64, 1 / 32
-CHAIN_TILE = 128              # points per tile of the chain
+CHAIN_TILE = 128              # points per tile of the chain at W <= 256
 STAGE_ELEMS = 8192            # bf16 per stage (16 KB)
-_KC_W, _KC_V = 32, 64         # K-rows per stage of a 256- / 128-wide layer
+# K-rows per stage of a 256- / 128-wide layer (the paper width's; a stage
+# holds STAGE_ELEMS // N rows of an N-wide one)
+_KC_W, _KC_V = 32, 64
 # rays per chunk of the plain versions: bounds their (points x W) f32
 # activations (a whole 450^2 fine pass would need ~53 GB)
 _REF_CHUNK_POINTS = 1 << 16
@@ -365,22 +373,42 @@ def swizzle_image_index(rows: int, lanes: int) -> torch.Tensor:
             + ((((f >> 3) & 7) ^ (r & 7)) << 3) + (f & 7))
 
 
+def chain_tile(width: int) -> int:
+    """Points per tile of the chain at a kernel width: 128, or 64 at
+    W=512, where the two warpgroups share a tile's rows and split its
+    columns (csrc/chain.cuh)."""
+    return CHAIN_TILE if width <= 256 else 64
+
+
+def stage_rows(n: int) -> int:
+    """K-rows per 16 KB stage of an n-wide matrix in the bf16 stream."""
+    return STAGE_ELEMS // n
+
+
 def _stream_parts(net: PackedNet, dir_stage: bool = False):
     """The chain's weight stream as (name, matrix (K, N), K-rows per
     stage) in the order the kernel consumes it (csrc/chain.cuh, note at
-    the top); with ``dir_stage`` (the point kernels) view layer 0's dir-PE
-    part follows its h-part, as one stage whose rows past PED_PAD are
-    zero. The heads are one stage of their own."""
-    parts = [("w0", net.w[0], _KC_W)]
+    the top): STAGE_ELEMS // N K-rows of an N-wide matrix a stage; with
+    ``dir_stage`` (the point kernels) view layer 0's dir-PE part follows
+    its h-part, as one stage whose rows past PED_PAD are zero. The heads
+    have stages of their own."""
+    kw, kv = stage_rows(net.width), stage_rows(net.wv[0].shape[1])
+    parts = [("w0", net.w[0], kw)]
     for i in range(1, len(net.w)):
         if i in net.wskip:
-            parts.append((f"wskip{i}", net.wskip[i], _KC_W))
-        parts.append((f"w{i}", net.w[i], _KC_W))
-    parts.append(("wv0", net.wv[0], _KC_V))
+            parts.append((f"wskip{i}", net.wskip[i], kw))
+        parts.append((f"w{i}", net.w[i], kw))
+    parts.append(("wv0", net.wv[0], kv))
     if dir_stage:
-        parts.append(("wv0d", net.wv0d, _KC_V))
-    return parts + [(f"wv{v}", x, _KC_V) for v, x in enumerate(net.wv)
-                    if v]
+        parts.append(("wv0d", net.wv0d, kv))
+    return parts + [(f"wv{v}", x, kv) for v, x in enumerate(net.wv) if v]
+
+
+def head_stages(heads) -> int:
+    """Stages of the heads' matrices (K-rows of each, HEADS lanes) in the
+    stream: w_alpha^T then w_rgb^T, K-major (one at W <= 256, two at
+    512)."""
+    return -(-HEADS * sum(heads) // STAGE_ELEMS)
 
 
 @functools.lru_cache(maxsize=16)
@@ -391,9 +419,9 @@ def _stream_layout(shapes, heads, device: str):
     flattened row-major (a transposed part as the matrix it is the
     transpose of), then w_alpha and w_rgb (row-major, (K, HEADS)), then
     ``zero`` (one bf16 zero), which every element outside the matrices
-    takes (a part's rows past K in its last stage, the heads' stage past
-    12 KB). No heads, no heads' stage. Built once per net shape and
-    device."""
+    takes (a part's rows past K in its last stage, the heads' stages
+    past their matrices). No heads, no heads' stages. Built once per net
+    shape and device."""
     dst, order, q = [], [], 0
     for name, k, n, kr, transposed in shapes:
         if n * kr != STAGE_ELEMS:
@@ -406,11 +434,11 @@ def _stream_layout(shapes, heads, device: str):
         order += [(name, k0) for k0 in range(0, k, kr)]
         q += -(-k // kr)
     for i, width in enumerate(heads):
-        # w_alpha^T (16 x W) then w_rgb^T (16 x WV), K-major, in one stage
+        # w_alpha^T (16 x W) then w_rgb^T (16 x WV), K-major, back to back
         img = swizzle_image_index(HEADS, width) + i * HEADS * heads[0]
         dst.append(q * STAGE_ELEMS + img.T)
     if heads:
-        order.append(("heads", 0))
+        order += [("heads", k) for k in range(head_stages(heads))]
     dst = torch.cat([d.reshape(-1) for d in dst])
     gather = torch.full((len(order) * STAGE_ELEMS,), dst.numel(),
                         dtype=torch.long)
@@ -456,9 +484,9 @@ def stream_matrices(stream: torch.Tensor, parts) -> Dict:
 def chain_weight_stream(net: PackedNet, dir_stage: bool = False):
     """PackedNet -> (stream, order) of the chain kernels' field MLP
     (weight_stream): matrices of K-rows x N lanes MN-major (32 K-rows of
-    256 lanes, 64 of 128); the heads' stage holds w_alpha^T (16 x 256)
-    then w_rgb^T (16 x 128), K-major. ``dir_stage`` adds view layer 0's
-    dir-PE part (the point kernels' stream)."""
+    256 lanes, 64 of 128: STAGE_ELEMS // N); the heads' stages hold
+    w_alpha^T (16 x W) then w_rgb^T (16 x W/2), K-major. ``dir_stage``
+    adds view layer 0's dir-PE part (the point kernels' stream)."""
     return weight_stream(_stream_parts(net, dir_stage),
                          (net.w_alpha, net.w_rgb))
 
@@ -476,8 +504,9 @@ def chain_stream_matrices(stream: torch.Tensor, net: PackedNet,
     W, WV = net.w_alpha.shape[0], net.w_rgb.shape[0]
     ia = swizzle_image_index(HEADS, W).reshape(-1).to(stream.device)
     ir = swizzle_image_index(HEADS, WV).reshape(-1).to(stream.device)
-    out["w_alpha"] = img[q][ia].reshape(HEADS, W).T
-    out["w_rgb"] = img[q][ia.numel() + ir].reshape(HEADS, WV).T
+    heads = img[q:q + head_stages((W, WV))].reshape(-1)
+    out["w_alpha"] = heads[ia].reshape(HEADS, W).T
+    out["w_rgb"] = heads[ia.numel() + ir].reshape(HEADS, WV).T
     return out
 
 
@@ -504,43 +533,66 @@ def _check_cuda(name: str, dtype, align: int = 1,
 
 def _check_rays(name: str, net: PackedNet, **tensors) -> torch.device:
     """The kernels take f32, contiguous CUDA tensors of one device and a
-    network of KERNEL_WIDTH (the wrappers ``widen`` a narrower one first),
-    D<=16; anything else raises."""
+    network of one of KERNEL_WIDTHS with its view branch half as wide (the
+    wrappers ``widen`` a narrower one first), D<=16; anything else
+    raises."""
     dev = _check_cuda(name, torch.float32, **tensors) if tensors else None
-    if net.width != KERNEL_WIDTH:
-        raise ValueError(f"{name}: kernel width is {KERNEL_WIDTH}, "
-                         f"network width {net.width}")
+    if (net.width not in KERNEL_WIDTHS
+            or net.wv[0].shape[1] != net.width // 2):
+        raise ValueError(f"{name}: kernel widths are {KERNEL_WIDTHS} (view "
+                         f"branch half as wide), network width {net.width} "
+                         f"(view branch {net.wv[0].shape[1]}); ROADMAP.md "
+                         "B10")
     if not 1 <= len(net.w) <= _MAXD or not 1 <= len(net.wv) <= _MAXV:
         raise ValueError(f"{name}: depth {len(net.w)} / view layers "
-                         f"{len(net.wv)} exceed {_MAXD} / {_MAXV}")
+                         f"{len(net.wv)} exceed {_MAXD} / {_MAXV}; "
+                         "ROADMAP.md B10")
     return dev
 
 
 def kernels_cover(nerf_cfg) -> bool:
     """Whether the kernels take this FaceNeRF: the view branch, width at
-    most KERNEL_WIDTH (a narrower net runs zero-padded, ``widen``), depth
-    1.._MAXD, and PE widths inside PE_PAD / PED_PAD. The wrappers raise
-    for a net it refuses (ROADMAP.md B10)."""
-    return (nerf_cfg.use_viewdirs and 1 <= nerf_cfg.width <= KERNEL_WIDTH
+    most the widest of KERNEL_WIDTHS (a net runs on the next width up,
+    zero-padded, ``widen``), depth 1.._MAXD, and PE widths inside PE_PAD /
+    PED_PAD. The wrappers raise for a net it refuses (ROADMAP.md B10), and
+    a launch plan for a net whose tiles cannot fit the shared memory (a
+    deep W=512 net's backward)."""
+    return (nerf_cfg.use_viewdirs
+            and 1 <= nerf_cfg.width <= KERNEL_WIDTHS[-1]
             and 1 <= nerf_cfg.depth <= _MAXD
             and nerf_cfg.input_ch <= PE_PAD
             and nerf_cfg.input_ch_views <= PED_PAD)
 
 
-def widen(net: PackedNet) -> PackedNet:
-    """A net narrower than the kernels' widths (KERNEL_WIDTH, view branch
-    KERNEL_WIDTH / 2) zero-padded to them: every padded unit has zero
-    weights in and out and a zero bias, so it stays 0 through relu (relu'
-    0 in the backward) and adds nothing, and the kernels compute the
-    narrow net's function and gradients. The paper width passes as it is;
-    a wider net raises (ROADMAP.md B10)."""
+def kernel_width(width: int) -> int:
+    """The kernels' instance a net of this width runs on: the smallest of
+    KERNEL_WIDTHS at least as wide. A wider net raises (ROADMAP.md
+    B10)."""
+    for kw in KERNEL_WIDTHS:
+        if width <= kw:
+            return kw
+    raise ValueError(f"network width {width} exceeds the kernels' widest, "
+                     f"{KERNEL_WIDTHS[-1]}; ROADMAP.md B10")
+
+
+def widen(net: PackedNet, width: Optional[int] = None) -> PackedNet:
+    """A net zero-padded to its kernels' instance (``kernel_width``: 64 ->
+    128, 192 -> 256, 384 -> 512; view branch half as wide), or to the
+    wider instance ``width``: every padded unit has zero weights in and
+    out and a zero bias, so it stays 0 through relu (relu' 0 in the
+    backward) and adds nothing, and the kernels compute the narrow net's
+    function and gradients. A net of an instance's widths passes as it
+    is; a wider net raises (ROADMAP.md B10)."""
     W, WV = net.width, net.wv[0].shape[1]
-    KW, KV = KERNEL_WIDTH, KERNEL_WIDTH // 2
+    KW = kernel_width(max(W, 2 * WV))
+    if width is not None:
+        if width not in KERNEL_WIDTHS or width < KW:
+            raise ValueError(f"widen: {width} is no kernel width at least "
+                             f"{KW}; ROADMAP.md B10")
+        KW = width
+    KV = KW // 2
     if (W, WV) == (KW, KV):
         return net
-    if W > KW or WV > KV:
-        raise ValueError(f"network width {W} (view branch {WV}) exceeds the "
-                         f"kernels' {KW} ({KV}); ROADMAP.md B10")
     pw, pv = KW - W, KV - WV
 
     def pad(x, rows, cols):
@@ -610,46 +662,58 @@ def _slots(net: PackedNet, device):
     return table, (wbuf, fbuf)
 
 
-def _delta_plan(lib, S: int, s_prev: int):
-    """(rays per group, ring stages) of the delta kernel: about
-    _DELTA_POINTS points but at most _DELTA_MAX_RAYS rays, with the deepest
-    ring (at least _DELTA_MIN_RING stages) that fits the shared memory
-    beside them and the two warpgroups' tiles; fewer rays where nothing
+def entry(lib, name: str, width: int):
+    """The library's C entry ``name`` of the kernels' instance at
+    ``width`` (``fr_render_rays_w128`` ...)."""
+    return getattr(lib, f"{name}_w{width}")
+
+
+def _delta_plan(lib, S: int, s_prev: int, width: int = KERNEL_WIDTH):
+    """(rays per group, ring stages) of the delta kernel at ``width``:
+    about _DELTA_POINTS points but at most _DELTA_MAX_RAYS rays, with the
+    deepest ring (at least _DELTA_MIN_RING stages) that fits the shared
+    memory beside them and the block's tiles; fewer rays where nothing
     fits."""
+    smem = entry(lib, "fr_chain_smem_bytes", width)
     rb = max(1, min(_DELTA_MAX_RAYS, _DELTA_POINTS // S))
     while True:
         for n in range(lib.fr_max_ring(), _DELTA_MIN_RING - 1, -1):
-            if lib.fr_chain_smem_bytes(rb, S, s_prev - 2, S - 1, s_prev,
-                                       n) <= SMEM_LIMIT:
+            if smem(rb, S, s_prev - 2, S - 1, s_prev, n) <= SMEM_LIMIT:
                 return rb, n
         if rb == 1:
             raise ValueError(f"S={S}, s_prev={s_prev} does not fit the "
-                             "delta kernel's shared memory")
+                             f"delta kernel's shared memory at W={width}; "
+                             "ROADMAP.md B10")
         rb -= 1
 
 
 @functools.lru_cache(maxsize=64)
-def _render_plan(lib, S: int, n_cdf: int, n_union: int):
+def _render_plan(lib, S: int, n_cdf: int, n_union: int,
+                 width: int = KERNEL_WIDTH):
     """(rays per block, ring stages) of the render and coarse kernels at S
-    depths: a ring of _RENDER_RING stages (fewer only where one ray would
-    not fit beside it), the most rays (at most _RENDER_MAX_RAYS) that fit
-    the shared memory beside it and the two warpgroups' tiles, cut back to
-    the largest count whose last 128-point tile leaves at most _MAX_TAIL
-    of the block's tile rows empty (the most that fit if none does)."""
+    depths and ``width``: a ring of _RENDER_RING stages (fewer only where
+    one ray would not fit beside it), the most rays (at most
+    _RENDER_MAX_RAYS) that fit the shared memory beside it and the block's
+    tiles, cut back to the largest count whose last tile (chain_tile
+    points) leaves at most _MAX_TAIL of the block's tile rows empty (the
+    most that fit if none does)."""
+    smem = entry(lib, "fr_chain_smem_bytes", width)
+    tile = chain_tile(width)
+
     def fits(rb, ring):
-        return lib.fr_chain_smem_bytes(rb, S, n_cdf, n_union, 0,
-                                       ring) <= SMEM_LIMIT
+        return smem(rb, S, n_cdf, n_union, 0, ring) <= SMEM_LIMIT
 
     ring = _RENDER_RING
     while not fits(1, ring):
         if ring == 2:
-            raise ValueError(f"S={S} does not fit the kernel's shared memory")
+            raise ValueError(f"S={S} does not fit the kernel's shared memory "
+                             f"at W={width}; ROADMAP.md B10")
         ring -= 1
     most = 1
     while most < _RENDER_MAX_RAYS and fits(most + 1, ring):
         most += 1
     for rb in range(most, 0, -1):
-        rows = -(-rb * S // CHAIN_TILE) * CHAIN_TILE
+        rows = -(-rb * S // tile) * tile
         if rows - rb * S <= _MAX_TAIL * rows:
             return rb, ring
     return most, ring
@@ -662,29 +726,33 @@ def _state_widths(S: int, n_imp: int):
 
 
 def _launch_config(lib, rb: int, ring: int, S: int, n_cdf: int,
-                   n_union: int, n_prev: int) -> Dict[str, int]:
+                   n_union: int, n_prev: int, width: int) -> Dict[str, int]:
     return {"rays_per_group": rb,
-            "smem_bytes": lib.fr_chain_smem_bytes(rb, S, n_cdf, n_union,
-                                                  n_prev, ring),
+            "smem_bytes": entry(lib, "fr_chain_smem_bytes", width)(
+                rb, S, n_cdf, n_union, n_prev, ring),
             "stage_bytes": lib.fr_stage_bytes(), "ring_stages": ring}
 
 
-def render_launch_config(S: int, n_imp: int = 0) -> Dict[str, int]:
+def render_launch_config(S: int, n_imp: int = 0,
+                         width: int = KERNEL_WIDTH) -> Dict[str, int]:
     """The render kernel's launch at S depths (n_imp 0), or the coarse
-    kernel's at S coarse depths placing n_imp fine ones: rays per block,
-    dynamic shared memory, stage bytes and ring depth."""
+    kernel's at S coarse depths placing n_imp fine ones, at the kernels'
+    ``width``: rays per block, dynamic shared memory, stage bytes and ring
+    depth."""
     lib = build.load_library()
     widths = _state_widths(S, n_imp)
-    return _launch_config(lib, *_render_plan(lib, S, *widths), S, *widths,
-                          0)
+    return _launch_config(lib, *_render_plan(lib, S, *widths, width), S,
+                          *widths, 0, width)
 
 
-def delta_launch_config(S: int, s_prev: int) -> Dict[str, int]:
-    """The delta kernel's launch at S depths from s_prev previous ones:
-    rays per group, dynamic shared memory, stage bytes and ring depth."""
+def delta_launch_config(S: int, s_prev: int,
+                        width: int = KERNEL_WIDTH) -> Dict[str, int]:
+    """The delta kernel's launch at S depths from s_prev previous ones, at
+    the kernels' ``width``: rays per group, dynamic shared memory, stage
+    bytes and ring depth."""
     lib = build.load_library()
-    return _launch_config(lib, *_delta_plan(lib, S, s_prev), S, s_prev - 2,
-                          S - 1, s_prev)
+    return _launch_config(lib, *_delta_plan(lib, S, s_prev, width), S,
+                          s_prev - 2, S - 1, s_prev, width)
 
 
 def _raise_on(lib, err: int, name: str) -> None:
@@ -729,11 +797,11 @@ def fused_render_rays(params, folded, cfg, rays_o, rays_d, z_vals,
     if R < 1 or S < 2 or R * S >= 2 ** 31:
         raise ValueError(f"fused_render_rays: unsupported R={R}, S={S}")
     lib = build.load_library()
-    rb, ring = _render_plan(lib, S, 0, 0)
+    rb, ring = _render_plan(lib, S, 0, 0, net.width)
     table, keep, ws, n_stages = _chain_args(net, dev)
     summary = torch.empty((R, 8), dtype=torch.float32, device=dev)
     weights = torch.empty((R, S), dtype=torch.float32, device=dev)
-    err = lib.fr_render_rays(
+    err = entry(lib, "fr_render_rays", net.width)(
         rays_o.data_ptr(), rays_d.data_ptr(), bc_rgb.data_ptr(),
         z_vals.data_ptr(), summary.data_ptr(), weights.data_ptr(), R, S, rb,
         table, *_net_args(net), ws, n_stages, ring, _stream(dev))
@@ -767,12 +835,12 @@ def fused_render_coarse_hier(params, folded, cfg, rays_o, rays_d, bc_rgb,
     if R < 1 or R * SU >= 2 ** 31:
         raise ValueError(f"fused_render_coarse_hier: unsupported R={R}")
     lib = build.load_library()
-    rb, ring = _render_plan(lib, S, *_state_widths(S, n_imp))
+    rb, ring = _render_plan(lib, S, *_state_widths(S, n_imp), net.width)
     table, keep, ws, n_stages = _chain_args(net, dev)
     summary = torch.empty((R, 8), dtype=torch.float32, device=dev)
     weights = torch.empty((R, S), dtype=torch.float32, device=dev)
     z_all = torch.empty((R, SU), dtype=torch.float32, device=dev)
-    err = lib.fr_coarse_hier(
+    err = entry(lib, "fr_coarse_hier", net.width)(
         rays_o.data_ptr(), rays_d.data_ptr(), bc_rgb.data_ptr(), float(near),
         float(far), summary.data_ptr(), weights.data_ptr(), z_all.data_ptr(),
         R, S, n_imp, rb, table, *_net_args(net), ws, n_stages, ring,
@@ -820,12 +888,12 @@ def fused_render_delta(params, folded, cfg, rays_o, rays_d, z_prev, w_prev,
     if R < 1 or R * max(S, s_prev) >= 2 ** 31:
         raise ValueError(f"fused_render_delta: unsupported R={R}")
     lib = build.load_library()
-    rb, ring = _delta_plan(lib, S, s_prev)
+    rb, ring = _delta_plan(lib, S, s_prev, net.width)
     table, keep, ws, n_stages = _chain_args(net, dev)
     summary = torch.empty((R, 8), dtype=torch.float32, device=dev)
     weights = torch.empty((R, S), dtype=torch.float32, device=dev)
     z_out = torch.empty((R, S), dtype=torch.float32, device=dev)
-    err = lib.fr_render_delta(
+    err = entry(lib, "fr_render_delta", net.width)(
         rays_o.data_ptr(), rays_d.data_ptr(), bc_rgb.data_ptr(),
         z_prev.data_ptr(), w_prev.data_ptr(), band_lo.data_ptr(),
         band_hi.data_ptr(), float(far), float(q_lo), float(q_hi),

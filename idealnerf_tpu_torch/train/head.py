@@ -24,7 +24,9 @@ from idealnerf_tpu_torch.core.render import render_rays
 from idealnerf_tpu_torch.data.sampler import (
     RayBudget, rays_at_coords, sample_ray_coords,
 )
-from idealnerf_tpu_torch.kernels.fused_render import kernels_cover
+from idealnerf_tpu_torch.kernels.fused_render import (
+    KERNEL_WIDTHS, kernels_cover,
+)
 from idealnerf_tpu_torch.models.variants import (
     build_field_fns, variant_nerf_config,
 )
@@ -69,14 +71,16 @@ def train_use_pallas(cfg, device):
     2 = fused kernels with the bf16 backward. Off the card: plain. A net
     the kernels do not take (``fused_render.kernels_cover`` of the
     variant's net; the head and torso nets share the width and depth)
-    raises on the card before any step."""
+    raises on the card before any step. Each net runs on the kernels'
+    instance of its width (128, 256 or 512, ``fused_render.widen``)."""
     if cfg.train_fused and torch.device(device).type == "cuda":
         ncfg = variant_nerf_config(cfg)
         if not kernels_cover(ncfg):
             raise ValueError(
-                f"the kernels take nets of width <= 256 and depth <= 16 with "
-                f"the view branch, not W={ncfg.width}, D={ncfg.depth} "
-                "(ROADMAP.md B10); --train_fused 0 trains it by autograd")
+                f"the kernels take nets of width <= {KERNEL_WIDTHS[-1]} and "
+                f"depth <= 16 with the view branch, not W={ncfg.width}, "
+                f"D={ncfg.depth} (ROADMAP.md B10); --train_fused 0 trains "
+                "it by autograd")
         return "train_bf16" if cfg.train_fused >= 2 else "train"
     return False
 

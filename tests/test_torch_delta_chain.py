@@ -94,7 +94,7 @@ def test_delta_stream_round_trips(name):
 @pytest.mark.parametrize("name", list(NETS))
 def test_delta_stream_stages_follow_the_kernel_header(name):
     """Fixed 16 KB stages, each at a multiple of 1,024 bytes, in the order
-    of fused_render.cu's header; the heads' stage is zero past its 12 KB;
+    of fused_render.cuh's header; the heads' stage is zero past its 12 KB;
     the paper model streams 69 stages (1.13 MB)."""
     net = _packed(name)
     stream, order = fr.chain_weight_stream(net)
@@ -256,7 +256,7 @@ def test_render_block_emulation_matches_mlp_reference(name, n_rays, S, rb):
 
 
 def _chain_smem_bytes(rb, S, n_cdf, n_union, n_prev, ring):
-    """csrc/fused_render.cu chain_smem_bytes: 1,024 bytes of alignment,
+    """csrc/fused_render.cuh chain_smem_bytes: 1,024 bytes of alignment,
     the ring, two warpgroups' PE / trunk / view tiles, the mbarriers, then
     the per-ray state, each region rounded up to 128 bytes."""
     regions = [3, 3, 1, fr.PED_PAD, 128, S, 4 * S, S, n_cdf, n_union,
@@ -270,6 +270,7 @@ class _Lib:
     """The library call the launch plans make, from the layout above."""
 
     fr_chain_smem_bytes = staticmethod(_chain_smem_bytes)
+    fr_chain_smem_bytes_w256 = fr_chain_smem_bytes
 
 
 @pytest.mark.parametrize("S,n_imp,plan,smem", [
@@ -443,7 +444,7 @@ def test_point_emulation_matches_point_mlp_references(name, n, encoded):
 
 
 def _point_smem_bytes(ring):
-    """csrc/fused_mlp.cu point_smem_bytes: 1,024 bytes of alignment, the
+    """csrc/fused_mlp.cuh point_smem_bytes: 1,024 bytes of alignment, the
     ring, two warpgroups' PE / trunk / view / dir-PE tiles, the
     mbarriers."""
     tiles = 2 * 2 * 64 * (fr.PE_PAD + 256 + 128 + 64)
@@ -454,6 +455,7 @@ class _PointLib:
     """The library call the point plan makes, from the layout above."""
 
     fr_point_smem_bytes = staticmethod(_point_smem_bytes)
+    fr_point_smem_bytes_w256 = fr_point_smem_bytes
 
 
 @pytest.mark.parametrize("N,plan", [

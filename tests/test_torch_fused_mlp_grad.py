@@ -343,7 +343,7 @@ def test_chunks_cover_the_tiles_in_order():
 
 
 def test_operand_planes_layout():
-    """The offsets, widths and swizzled order that csrc/fused_mlp_grad.cu
+    """The offsets, widths and swizzled order that csrc/fused_mlp_grad.cuh
     assumes: planes in the order pe, ped, gb, h, hv, dc, dv, packed back
     to back; every tile image and 64-lane block 1,024-byte aligned (so
     128-byte aligned for the bulk copies, and whole swizzle atoms); within
@@ -427,7 +427,7 @@ def _net(name, n, seed=5):
 
 
 def _expected_grad_order(net):
-    """The stage order of csrc/fused_mlp_grad.cu's note: K4's forward
+    """The stage order of csrc/fused_mlp_grad.cuh's note: K4's forward
     stages (layer 0, each later layer's skip pe-part before its h-part,
     view layer 0 and its dir-PE stage, the other view layers) without the
     heads, then WV_v^T for v = V-1..1 in 64-row stages, WV_0^T in 32-row
@@ -621,7 +621,7 @@ def test_pass_a_emulation_composes_to_the_jax_vjp(monkeypatch):
 
 
 def _pass_a_smem_bytes(ring, depth, n_views):
-    """csrc/fused_mlp_grad.cu pass_a_smem_bytes: 1,024 bytes of alignment,
+    """csrc/fused_mlp_grad.cuh pass_a_smem_bytes: 1,024 bytes of alignment,
     the ring, two warpgroups' PE / trunk / view tiles (the dir-PE tile
     shares the view tile) and relu' bits (16 bytes a thread per trunk
     layer, 8 per view layer), the ring's mbarriers, then the store
@@ -636,6 +636,7 @@ class _PassALib:
     """The library calls pass A's plan makes, from the layout above."""
 
     fr_grad_pass_a_smem_bytes = staticmethod(_pass_a_smem_bytes)
+    fr_grad_pass_a_smem_bytes_w256 = fr_grad_pass_a_smem_bytes
 
 
 @pytest.mark.parametrize("N,plan", [

@@ -43,8 +43,9 @@ def _one_torch_thread():
 
 
 def _net(name, n, seed=7):
-    """A packed f32 net of NETS, widened to the kernels' width, and n
-    seeded points, unit directions and a cotangent."""
+    """A packed f32 net of NETS, widened to the paper width (W=256; the
+    kernels' other widths: test_torch_widths.py), and n seeded points,
+    unit directions and a cotangent."""
     cfg = FaceNeRFConfig(**{**DIMS, **NETS[name]})
     model = FaceNeRF(cfg, torch.Generator().manual_seed(seed))
     rng = np.random.RandomState(seed + n)
@@ -52,7 +53,7 @@ def _net(name, n, seed=7):
         model, cfg, torch.from_numpy(rng.randn(16) * 0.3).float(),
         torch.from_numpy(rng.randn(8) * 0.3).float(), torch.full((4,), 0.1))
     net = fr.widen(pack_leaves(cfg, model_leaves(model, folded, cfg),
-                               torch.float32))
+                               torch.float32), 256)
     pts = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
     dirs = rng.randn(n, 3).astype(np.float32)
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
@@ -90,7 +91,7 @@ def _write_planes(net, bufs, n_tiles):
 # ------------------------------------------------------- layout and stream
 
 def test_f32_planes_layout_and_round_trip_to_pass_b():
-    """The planes that csrc/fused_mlp_grad.cu's f32 passes assume: pe,
+    """The planes that csrc/fused_mlp_grad.cuh's f32 passes assume: pe,
     ped, gb, h, hv, dc, dv back to back, row-major at their own widths
     (64, 32, 16, then W or W/2), each 128-byte aligned; grad_pass_a_
     reference's buffers written there and read back (buffers_from_planes_
@@ -117,7 +118,7 @@ def test_f32_planes_layout_and_round_trip_to_pass_b():
 
 
 def _expected_f32_order(net):
-    """The stage order of csrc/fused_mlp_grad.cu's f32_stages: layer 0,
+    """The stage order of csrc/fused_mlp_grad.cuh's f32_stages: layer 0,
     each later layer's skip pe-part then its h-part, view layer 0's h-part
     and dir-PE part, the other view layers, then WV_v^T for v = V-1..1,
     WV_0^T and W_i^T for i = D-1..1; 16 K-rows a stage of a 256-wide
@@ -290,7 +291,7 @@ def test_pass_a_f32_emulation_matches_grad_pass_a_reference(name, n):
 # ----------------------------------------------- pass B f32, emulated here
 
 def _f32_tasks(net):
-    """csrc/fused_mlp_grad.cu fr_grad_pass_b_f32's task table: (gradient
+    """csrc/fused_mlp_grad.cuh fr_grad_pass_b_f32's task table: (gradient
     slot, X plane, Y plane) of every weight gradient, each cut into 128 x
     128 output tiles (first row, first column)."""
     D, V = len(net.w), len(net.wv)

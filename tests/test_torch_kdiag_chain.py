@@ -236,7 +236,7 @@ def test_chain_emulation_matches_plain_and_jax(mode, depth):
 # ------------------------------------------------- probe B's launch plan
 
 def _k1_smem_bytes(rb, S, n_cdf, n_union, n_prev, ring):
-    """csrc/fused_render.cu chain_smem_bytes (K1's): 1,024 bytes of
+    """csrc/fused_render.cuh chain_smem_bytes (K1's): 1,024 bytes of
     alignment, the ring, two warpgroups' PE / trunk / view tiles, the
     mbarriers, then the per-ray state, each region rounded up to 128
     bytes."""
@@ -268,6 +268,7 @@ class _Lib:
     """The library calls the probes' plans make, from the layouts above."""
 
     fr_chain_smem_bytes = staticmethod(_k1_smem_bytes)
+    fr_chain_smem_bytes_w256 = fr_chain_smem_bytes
     kd_render_a_smem_bytes = staticmethod(_probe_a_smem_bytes)
     kd_render_b_smem_bytes = staticmethod(_probe_b_smem_bytes)
 

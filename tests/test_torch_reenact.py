@@ -435,26 +435,31 @@ def test_composite_serve_and_temporal_eval_reenact_on_cpu(tmp_path):
 # ------------------------------------------- C1: the nets the kernels take
 
 def test_kernels_cover_nets_up_to_the_chains_width_and_depth_16():
+    """The kernels are built at W = 128, 256 and 512 (ROADMAP.md B10): a
+    net up to 512 wide and 16 deep is taken; W=1024, D=17, no view branch
+    or PE past the lanes is refused, naming B10 in train_use_pallas."""
     base = ExperimentConfig()
     cover = fr.kernels_cover
     for kw in (dict(), dict(netwidth=128), dict(netwidth=64, netdepth=4),
-               dict(netdepth=16)):
+               dict(netdepth=16), dict(netwidth=512), dict(netwidth=384)):
         assert cover(ExperimentConfig(**kw).face_nerf_config()), kw
-    for kw in (dict(netwidth=512), dict(netdepth=17),
+    for kw in (dict(netwidth=1024), dict(netdepth=17),
                dict(use_viewdirs=False), dict(multires=11)):
         assert not cover(ExperimentConfig(**kw).face_nerf_config()), kw
     # the torso net shares the head's width and depth
     assert cover(torso_nerf_config(ExperimentConfig(netwidth=128)))
-    assert not cover(torso_nerf_config(ExperimentConfig(netwidth=512)))
-    for w in (256, 128):
+    assert cover(torso_nerf_config(ExperimentConfig(netwidth=512)))
+    assert not cover(torso_nerf_config(ExperimentConfig(netwidth=1024)))
+    for w in (256, 128, 512):
         assert train_use_pallas(ExperimentConfig(netwidth=w),
                                 "cuda") == "train_bf16"
     assert train_use_pallas(ExperimentConfig(netwidth=128, train_fused=1),
                             "cuda") == "train"
     assert train_use_pallas(ExperimentConfig(netwidth=128), "cpu") is False
-    with pytest.raises(ValueError, match="B10"):
-        train_use_pallas(ExperimentConfig(netwidth=512), "cuda")
-    assert train_use_pallas(ExperimentConfig(netwidth=512, train_fused=0),
+    for kw in (dict(netwidth=1024), dict(netdepth=17)):
+        with pytest.raises(ValueError, match="B10"):
+            train_use_pallas(ExperimentConfig(**kw), "cuda")
+    assert train_use_pallas(ExperimentConfig(netwidth=1024, train_fused=0),
                             "cuda") is False
     assert train_use_pallas(base, "cpu") is False
 
@@ -480,17 +485,25 @@ def _points(n=300, seed=1):
     return pts, dirs, g
 
 
-@pytest.mark.parametrize("width,depth", [(128, 4), (64, 6)])
+@pytest.mark.parametrize("width,depth", [(128, 4), (64, 6), (192, 4),
+                                         (384, 2)])
 def test_widen_pads_to_the_chains_widths_and_keeps_the_function(width,
                                                                 depth):
-    """The wrappers run a narrower net zero-padded to W=256 (view branch
-    128): the padded units stay 0 and the raw outputs are the narrow
-    net's, in f64 sums to 1e-12."""
+    """The wrappers run a net zero-padded to the next width the kernels
+    are built at (64 -> 128, 192 -> 256, 384 -> 512, view branch half as
+    wide; 128 is one and passes as it is, as does the paper width, unless
+    a wider instance is asked for): the padded units stay 0 and the raw
+    outputs are the narrow net's, in f64 sums to 1e-12."""
     from idealnerf_tpu_torch.kernels.fused_mlp import encode_points
 
     net = _packed(width, depth)
     wide = fr.widen(net)
-    assert (wide.width, wide.wv[0].shape[1]) == (256, 128)
+    kw = {128: 128, 64: 128, 192: 256, 384: 512}[width]
+    assert (wide.width, wide.wv[0].shape[1]) == (kw, kw // 2)
+    assert (wide is net) == (width == kw)
+    if width == kw:  # the same net on the next instance up
+        wide = fr.widen(net, 2 * kw)
+        assert (wide.width, wide.wv[0].shape[1]) == (2 * kw, kw)
     assert sorted(wide.wskip) == sorted(net.wskip)
     fr._check_rays("fused_render_rays", wide)
     pts, dirs, _ = _points()
@@ -507,12 +520,13 @@ def test_widen_pads_to_the_chains_widths_and_keeps_the_function(width,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("width,depth", [(128, 4), (64, 6)])
+@pytest.mark.parametrize("width,depth", [(128, 4), (64, 6), (192, 4)])
 def test_narrowed_gradients_of_the_widened_net_are_the_nets(width, depth,
                                                             dtype):
     """point_mlp_grad's route for a narrower net: the backward of the
-    widened net, cut back by ``narrow``, gives every gradient of the
-    narrow net (the two passes' plain versions, f64 sums, to 1e-10)."""
+    widened net (to the next instance up; a W=128 net to 256), cut back
+    by ``narrow``, gives every gradient of the narrow net (the two passes'
+    plain versions, f64 sums, to 1e-10)."""
     from idealnerf_tpu_torch.kernels import fused_mlp_grad as fmg
 
     net = _packed(width, depth, dtype)
@@ -522,7 +536,9 @@ def test_narrowed_gradients_of_the_widened_net_are_the_nets(width, depth,
         return fmg.grad_pass_b_reference(n, fmg.grad_pass_a_reference(
             n, pts, dirs, g, acc=torch.float64))
 
-    got, want = fr.narrow(grads(fr.widen(net)), net), grads(net)
+    wide = fr.widen(net, 256 if width == 128 else None)
+    assert wide.width > net.width
+    got, want = fr.narrow(grads(wide), net), grads(net)
     pairs = (list(zip(got.w, want.w)) + list(zip(got.b, want.b))
              + list(zip(got.wv, want.wv)) + list(zip(got.bv, want.bv))
              + [(got.wskip[i], want.wskip[i]) for i in want.wskip]
@@ -534,8 +550,21 @@ def test_narrowed_gradients_of_the_widened_net_are_the_nets(width, depth,
 
 
 def test_wrappers_refuse_a_net_wider_than_the_chain():
+    """Past the widest instance (W=512) widen raises naming B10, as it does
+    for a narrower instance than the net's; a net deeper than 16 layers is
+    refused by the kernels' checks."""
     with pytest.raises(ValueError, match="B10"):
-        fr.widen(_packed(512, 4))
-    # unwidened, a narrow net is refused by the kernels' checks
-    with pytest.raises(ValueError, match="kernel width is 256"):
-        fr._check_rays("fused_render_rays", _packed(128, 4))
+        fr.widen(_packed(1024, 2))
+    with pytest.raises(ValueError, match="B10"):
+        fr.widen(_packed(256, 2), 128)
+    assert fr.kernel_width(512) == 512
+    with pytest.raises(ValueError, match="B10"):
+        fr.kernel_width(513)
+    # unwidened, a net off the kernels' widths is refused by their checks
+    with pytest.raises(ValueError, match="kernel widths are.*B10"):
+        fr._check_rays("fused_render_rays", _packed(64, 4))
+    fr._check_rays("fused_render_rays", _packed(128, 4))
+    fr._check_rays("fused_render_rays", _packed(512, 2))
+    deep = _packed(128, 17)
+    with pytest.raises(ValueError, match="exceed.*B10"):
+        fr._check_rays("fused_render_rays", deep)
